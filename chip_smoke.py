@@ -4,9 +4,11 @@
 
 Builds the port's CUDA kernels from ``mppi_generic_tpu_torch/csrc`` (into
 ``build/torch_kernels/``), holds each kernel against its plain PyTorch
-version on the card, and drives the flagship vanilla-MPPI closed loop
-(double integrator, circle cost, Gaussian sampler, K=8192, T=100) through
-the port's entry points. Each phase prints one JSON line. The line before
+version on the card, and drives three closed loops through the port's entry
+points: the flagship vanilla MPPI (double integrator, circle cost, Gaussian
+sampler, K=8192, T=100), then RMPPI and Tube-MPPI with DDP feedback on the
+same task (bench.py:809-840: K=2560, T=50, lambda 2, 9 candidates x 256
+samples for RMPPI). Each phase prints one JSON line. The line before
 the last lists every kernel with its launches on the main path, its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
@@ -26,16 +28,32 @@ import time
 
 import torch
 
-from mppi_generic_tpu_torch import GaussianDistribution, VanillaMPPI
+from mppi_generic_tpu_torch import (
+    DDPFeedback,
+    GaussianDistribution,
+    RobustMPPI,
+    TubeMPPI,
+    VanillaMPPI,
+)
 from mppi_generic_tpu_torch.costs import DoubleIntegratorCircleCost
-from mppi_generic_tpu_torch.models import DoubleIntegratorDynamics
-from mppi_generic_tpu_torch.ops import _build
+from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
+from mppi_generic_tpu_torch.models import DoubleIntegratorDynamics, rollout_single
+from mppi_generic_tpu_torch.ops import _build, riccati
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 
 K_MAIN, K_RAGGED, T, C, S = 8192, 8000, 100, 2, 4
 DT, LAM, ALPHA = 0.02, 1.0, 0.0
 CLOSED_LOOP_STEPS = 100
 N_TIMED, N_TIMED_PLAIN = 100, 10
+
+# the robust controllers' configuration (bench.py:809-840)
+K_R, K_R_RAGGED, T_R = 2560, 2500, 50
+LAM_R, THRESH_R = 2.0, 20.0
+N_CAND, S_PER = 9, 256
+N_ALPHA = 14
+X0 = [2.0, 0.0, 0.0, 1.0]
+BAND = (1.5, 2.5)  # the radius band of tests/test_tube_robust.py:181-199
+MAX_OUT_OF_BAND = 10
 
 # one H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -45,6 +63,10 @@ FP32_OPS_PER_S = 67e12
 # Euler step 8, circle cost 20 (the crash term's exp/log runs only off the
 # track and is not counted), LR 16, accumulate 1
 OPS_STEP, OPS_COST, OPS_LR, OPS_ACC = 8, 20, 16, 1
+# the RMPPI kernel per sample-step: two steps and two costs, two clamps of C
+# channels (5 each), the feedback K (x_r - x_n) (S + C (2S - 1)), its cost
+# (5 per channel + 1), u_raw + u_fb, three accumulations
+OPS_RMPPI = 2 * OPS_STEP + 2 * OPS_COST + 2 * 5 * C + S + C * (2 * S - 1) + 5 * C + 1 + C + 4
 
 TOL = {  # (rtol, atol)
     # the same operations in the same order: agree to the last bit
@@ -56,6 +78,12 @@ TOL = {  # (rtol, atol)
     "new_mean": (1e-4, 1e-5),
     "baseline": (1e-6, 0.0),
     "eta": (1e-5, 0.0),
+    # the RMPPI, Riccati and ladder kernels repeat their plain versions'
+    # operations in order: agree to the last bit
+    "exact": (1e-5, 1e-6),
+    # the fused and the eager (combined) robust solves: sums in another
+    # order (the LR and feedback costs, the feedback product)
+    "solve": (1e-4, 1e-5),
 }
 
 
@@ -262,9 +290,8 @@ def main_path_phase(dev):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(fr.launch_counts)
-    for name, count in launches.items():
-        if count != n:
-            raise AssertionError(f"{name} launched {count} times in {n} solves")
+    expect_launches(launches, {"rollout_costs_kernel": n, "flash_combine_kernel": n},
+                    "vanilla")
     radius = float(torch.hypot(x[0], x[1]))
     baseline = float(res.baseline)
     if not 1.8 <= radius <= 2.2 or not baseline < 2.0:
@@ -283,6 +310,384 @@ def main_path_phase(dev):
          step_ms_median=statistics.median(e[0].elapsed_time(e[2]) for e in steady),
          host_wall_ms_per_step=1e3 * wall_s / n)
     return launches
+
+
+def expect_launches(launches, want, path):
+    """Fail unless every kernel launched exactly as often as ``want`` says
+    (kernels not named there: never)."""
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            raise AssertionError(
+                f"{path}: {name} launched {count} times, expected {want.get(name, 0)}")
+
+
+def timed(fn, plain):
+    return {"ms": time_ms(fn, N_TIMED), "plain_ms": time_ms(plain, N_TIMED_PLAIN)}
+
+
+def riccati_ops(T_, S_=S, C_=C, n_alpha=0):
+    """Floating-point operations of the backward recursion (T-1 steps) and,
+    with n_alpha, the ladder's forward passes (csrc/riccati.cu)."""
+    n = S_ + 1  # right-hand sides of the (C, C) solve
+    solve = sum(1 + (C_ - p - 1) * (1 + 2 * (C_ - p - 1) + 2 * n) for p in range(C_))
+    solve += n * sum(2 * (C_ - r - 1) + 1 for r in range(C_))
+    step = (S_ * S_ * (2 * S_ - 1) + S_ * C_ * (2 * S_ - 1)  # Vxx A, Vxx B
+            + S_ * (2 * S_ + 1) + C_ * (2 * S_ + 1)  # qx, qu
+            + S_ * S_ * 2 * S_ + C_ * S_ * (2 * S_ - 1) + C_ * C_ * 2 * S_ + C_  # qxx, qux, quu
+            + solve + C_ * n  # solve, negate
+            + S_ * S_ * 2 * C_ + 2 * S_ * S_ + S_ * 2 * C_)  # Vxx, symmetrise, Vx
+    fwd = (S_ + C_ * (2 + 2 * S_ + 2)  # dx, u, clamp
+           + S_ + C_ + 3 * S_ * S_ + 3 * C_ * C_ + 2  # tracking cost, dt, acc
+           + 2 * S_)  # Euler step
+    return (T_ - 1) * step + n_alpha * T_ * fwd
+
+
+def di_linearisation(dev, T_):
+    """ilqr_tracking's first iteration on the DI task: u_init from a seed,
+    xs rolled from X0, the goal a circle of radius 2 at speed 2."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    dyn = DoubleIntegratorDynamics.create(device=dev)
+    us = 0.3 * torch.randn((T_, C), generator=g, device=dev)
+    xs = rollout_single(dyn, torch.tensor(X0, device=dev), us, DT)[0][:-1].contiguous()
+    ang = 2.0 * DT / 2.0 * torch.arange(T_, device=dev)
+    goal_x = torch.stack([2 * torch.cos(ang), 2 * torch.sin(ang),
+                          -2 * torch.sin(ang), 2 * torch.cos(ang)], dim=1)
+    goal_u = torch.zeros((T_, C), device=dev)
+    fb = DDPFeedback.create(dyn, DT)
+    lin = linearize(dyn, xs, us, goal_x, goal_u, fb.Q, fb.R, fb.Q_f, DT)
+    return dyn, fb, xs, us, goal_x, goal_u, lin
+
+
+def riccati_phase(dev):
+    """B6 and B7 at T=50, S=4, C=2, 14 alphas on a real DI linearisation."""
+    dyn, fb, xs, us, goal_x, goal_u, lin = di_linearisation(dev, T_R)
+    As, Bs, dLx, dLu, Vxx_T, Vx_T = lin
+    Q, R, Qf = fb.Q, fb.R, fb.Q_f
+    Qdt, Rdt = Q * DT, R * DT
+    alphas = _alpha_ladder(N_ALPHA, device=dev)
+    lo = torch.nan_to_num(dyn.control_ranges[:, 0], neginf=-1e30)
+    hi = torch.nan_to_num(dyn.control_ranges[:, 1], posinf=1e30)
+    ulim = torch.stack([lo, hi])
+    back = (As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T)
+
+    def plain_backward():
+        return riccati.riccati_backward_plain(As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T,
+                                              Vx_T, DT, 1e-6)
+
+    def kernel_ladder():
+        return riccati.riccati_ladder_solve(dyn, xs, us, As, Bs, dLx, dLu, Q, R, Qf,
+                                            Vxx_T, Vx_T, goal_x, goal_u, alphas,
+                                            lo, hi, DT)
+
+    def plain_ladder():
+        Ks, ks = plain_backward()
+        return (Ks, ks) + riccati.ladder_forward_plain(
+            dyn, xs, us, Ks, ks, goal_x, goal_u, Q, R, Qf, alphas, ulim, DT)
+
+    kK, kk = riccati.riccati_backward(*back, DT)
+    pK, pk = plain_backward()
+    kl, pl = kernel_ladder(), plain_ladder()
+    torch.cuda.synchronize()
+    checks_b = [check("riccati_backward gains", kK, pK, "exact"),
+                check("riccati_backward feedforward", kk, pk, "exact")]
+    checks_l = [check(f"riccati_ladder {n}", a, b, "exact")
+                for n, a, b in zip(("gains", "feedforward", "costs", "xs_new",
+                                    "us_new"), kl, pl)]
+    n_in = (As.numel() + Bs.numel() + dLx.numel() + dLu.numel() + 2 * S * S + C * C + S)
+    n_out = T_R * C * S + T_R * C
+    times = {
+        "riccati_backward": timed(lambda: riccati.riccati_backward(*back, DT),
+                                  plain_backward),
+        "riccati_ladder": timed(kernel_ladder, plain_ladder),
+    }
+    times["riccati_backward"]["bound_ms"], times["riccati_backward"]["bound_by"] = (
+        bound_ms(4 * (n_in + n_out), riccati_ops(T_R)))
+    n_in_l = n_in + 2 * T_R * (S + C) + S * S + C * C + S * S + 2 * C + N_ALPHA
+    n_out_l = n_out + N_ALPHA * (1 + T_R * (S + C))
+    times["riccati_ladder"]["bound_ms"], times["riccati_ladder"]["bound_by"] = (
+        bound_ms(4 * (n_in_l + n_out_l), riccati_ops(T_R, n_alpha=N_ALPHA)))
+    for t in times.values():
+        t["chain_steps"] = T_R - 1  # dependent Riccati steps on one thread
+    emit("riccati_kernels", T=T_R, S=S, C=C, n_alpha=N_ALPHA,
+         checks=checks_b + checks_l, times=times)
+    return checks_b, checks_l, times
+
+
+def rmppi_inputs(dev, K, seed):
+    """Raw samples around a mean, DDP gains of the DI task, the sampler's
+    sigma and coefficients: the RMPPI kernel's inputs on the main path."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    _, fb, xs, us, goal_x, goal_u, _ = di_linearisation(dev, T_R)
+    gains = fb.compute_feedback(xs[0], goal_x, us).gains
+    sampler = GaussianDistribution.create(std_dev=[1.0, 1.0], device=dev)
+    mean = 0.3 * torch.randn((T_R, C), generator=g, device=dev)
+    U = sampler.sample(g, mean, K)
+    x_nom = torch.tensor(X0, device=dev)
+    x_real = x_nom + torch.tensor([0.08, -0.05, 0.1, -0.1], device=dev)
+    return (fb.dynamics, DoubleIntegratorCircleCost(device=dev), x_nom, x_real, U,
+            gains, sampler._sigma(T_R, 0), sampler.control_cost_coeff, DT, LAM_R, ALPHA)
+
+
+def rmppi_phase(dev, K, seed):
+    args = rmppi_inputs(dev, K, seed)
+    kout = fr.fused_rmppi_rollout(*args)
+    pout = fr.rmppi_rollout_plain(*args)
+    torch.cuda.synchronize()
+    checks = [check(f"rmppi {n}", a, b, "exact")
+              for n, a, b in zip(("s_nom", "j_real", "s_fb"), kout[:3], pout[:3])]
+    checks.append(check("rmppi U_real", kout[4], pout[4], "exact"))
+    if not torch.equal(kout[3], pout[3]):
+        raise AssertionError("RMPPI crash flags differ from the plain version")
+    t = timed(lambda: fr.fused_rmppi_rollout(*args), lambda: fr.rmppi_rollout_plain(*args))
+    n_bytes = 4 * (2 * K * T_R * C + 4 * K + T_R * C * S + T_R * C + C + 4 * C + 2 * S
+                   + len(DoubleIntegratorCircleCost.PARAM_NAMES))
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, K * T_R * OPS_RMPPI + 3 * K)
+    emit("rmppi_kernel", K=K, T=T_R, checks=checks, times=t)
+    return checks, t
+
+
+def x0_phase(dev):
+    """The rollout kernel with one initial state per sample, at RMPPI's
+    candidate evaluation (9 candidates x 256 samples, T=50)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    dyn = DoubleIntegratorDynamics.create(device=dev)
+    cost = DoubleIntegratorCircleCost(device=dev)
+    K = N_CAND * S_PER
+    w = torch.linspace(0.0, 1.0, N_CAND, device=dev)[:, None]
+    x0 = torch.tensor(X0, device=dev)
+    cands = (1 - w) * x0 + w * (x0 + torch.tensor([0.1, 0.05, 0.0, 0.1], device=dev))
+    x0s = cands.repeat_interleave(S_PER, dim=0).contiguous()
+    sampler = GaussianDistribution.create(std_dev=[1.0, 1.0], device=dev)
+    U = sampler.sample(g, 0.3 * torch.randn((T_R, C), generator=g, device=dev), K)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
+    torch.cuda.synchronize()
+    checks = [check("costs(x0 per sample)", kc, pc, "costs")]
+    if not torch.equal(kcrash, pcrash):
+        raise AssertionError("x0-mode crash flags differ from the plain version")
+    t = timed(lambda: fr.fused_rollout_costs(dyn, cost, x0s, U, DT),
+              lambda: fr.rollout_costs_plain(dyn, cost, x0s, U, DT))
+    n_bytes = 4 * (K * T_R * C + K * S + len(DoubleIntegratorCircleCost.PARAM_NAMES)
+                   + 2 * K)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        n_bytes, K * T_R * (OPS_STEP + OPS_COST + OPS_ACC) + 2 * K)
+    emit("x0_kernel", K=K, T=T_R, checks=checks, times=t)
+    return checks, t
+
+
+def build_robust(kernel="fused"):
+    """bench.py:809-825 on the card (the controller's default device)."""
+    dyn = DoubleIntegratorDynamics.create()
+    return RobustMPPI(
+        dyn, DoubleIntegratorCircleCost(), GaussianDistribution.create(std_dev=[1.0, 1.0]),
+        feedback=DDPFeedback.create(dyn, DT), dt=DT, lam=LAM_R, alpha=ALPHA,
+        num_timesteps=T_R, num_rollouts=K_R, num_candidates=N_CAND,
+        samples_per_condition=S_PER, value_function_threshold=THRESH_R, kernel=kernel)
+
+
+def build_tube(kernel="fused"):
+    """bench.py:827-840 on the card."""
+    dyn = DoubleIntegratorDynamics.create()
+    return TubeMPPI(
+        dyn, DoubleIntegratorCircleCost(), GaussianDistribution.create(std_dev=[1.0, 1.0]),
+        feedback=DDPFeedback.create(dyn, DT), dt=DT, lam=LAM_R, alpha=ALPHA,
+        num_timesteps=T_R, num_rollouts=K_R, nominal_threshold=THRESH_R, kernel=kernel)
+
+
+def compare_systems(name, rf, rc, checks):
+    for system in ("real", "nominal"):
+        a, b = getattr(rf, system), getattr(rc, system)
+        checks.append(check(f"{name} {system} control_mean", a.control_mean,
+                            b.control_mean, "solve"))
+        checks.append(check(f"{name} {system} costs", a.costs, b.costs, "solve"))
+        checks.append(check(f"{name} {system} baseline", a.baseline, b.baseline,
+                            "solve"))
+
+
+def robust_reference_phase(dev):
+    """Full-width RMPPI stage 1 + solve and one Tube solve through the
+    kernels (kernel="fused") against the eager oracle (kernel="combined")
+    on the same injected noise."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.tensor(X0, device=dev)
+    fused, combined = build_robust("fused"), build_robust("combined")
+    # a warm state with an initialized nominal system, so stage 1 evaluates
+    # its candidates
+    warm = fused.init_state(seed=0)
+    warm, _ = fused.update_importance_sampling(x, warm, 1)
+    _, warm = fused.solve(x, warm)
+    x1 = x + torch.tensor([0.02, 0.04, -0.02, 0.0], device=dev)
+    e1 = torch.randn((S_PER, T_R, C), generator=g, device=dev)
+    e2 = torch.randn((K_R, T_R, C), generator=g, device=dev)
+    outs = []
+    for ctrl in (fused, combined):
+        s1, fe = ctrl.update_importance_sampling(x1, warm, 1, injected_noise=e1)
+        res, _ = ctrl.solve(x1, s1, injected_noise=e2)
+        outs.append((s1, fe, res))
+    (sf, fef, rf), (sc, fec, rc) = outs
+    if int(sf.best_index) != int(sc.best_index) or (
+            int(sf.nominal_stride) != int(sc.nominal_stride)):
+        raise AssertionError("fused and combined RMPPI chose different candidates")
+    checks = [check("rmppi candidate free energy", fef, fec, "solve"),
+              check("rmppi gains", sf.feedback_state.gains, sc.feedback_state.gains,
+                    "solve")]
+    compare_systems("rmppi", rf, rc, checks)
+
+    tf, tc = build_tube("fused"), build_tube("combined")
+    eps = torch.randn((K_R, T_R, C), generator=g, device=dev)
+    state = tf.init_state(seed=0)
+    rtf, ntf = tf.solve(x1, state, injected_noise=eps)
+    rtc, ntc = tc.solve(x1, state, injected_noise=eps)
+    compare_systems("tube", rtf, rtc, checks)
+    checks.append(check("tube gains", ntf.feedback_state.gains,
+                        ntc.feedback_state.gains, "solve"))
+    emit("robust_reference", K=K_R, T=T_R, best_index=int(sf.best_index),
+         nominal_stride=int(sf.nominal_stride), checks=checks)
+
+
+def robust_loop_phase(kind):
+    """The closed loop of bench.py:457-465 from X0, 100 steps: stage 1
+    (RMPPI only), slide, solve, plant step with the real system's first
+    control. Nothing inside the loop waits on the device."""
+    ctrl = build_robust() if kind == "rmppi" else build_tube()
+    if ctrl.device.type != "cuda":
+        raise AssertionError("the controller did not default to the card")
+    cs = ctrl.init_state(seed=0)
+    x = torch.tensor(X0, device=ctrl.device)
+    n = CLOSED_LOOP_STEPS
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n)]
+    radii = []
+    torch.cuda.synchronize()
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        ev[i][0].record()
+        if kind == "rmppi":
+            cs, _ = ctrl.update_importance_sampling(x, cs, 1)
+        ev[i][1].record()
+        cs = ctrl.slide_control_sequence(cs, 1)
+        res, cs = ctrl.solve(x, cs)
+        ev[i][2].record()
+        x, _ = ctrl.dynamics.step(x, res.real.control_mean[0], 0.0, ctrl.dt)
+        ev[i][3].record()
+        radii.append(torch.hypot(x[0], x[1]))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(fr.launch_counts)
+    if kind == "rmppi":
+        # stage 1 of the first step has no nominal system to evaluate yet
+        want = {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
+                "riccati_ladder_kernel": n}
+    else:
+        want = {"rollout_costs_kernel": 2 * n, "flash_combine_kernel": 2 * n,
+                "riccati_ladder_kernel": n}
+    expect_launches(launches, want, kind)
+    r = torch.stack(radii).cpu()
+    out_of_band = int(((r <= BAND[0]) | (r >= BAND[1])).sum())
+    for name, t in (("control_mean", res.real.control_mean), ("costs", res.real.costs),
+                    ("nominal costs", res.nominal.costs),
+                    ("state_trajectory", res.real.state_trajectory),
+                    ("gains", cs.feedback_state.gains), ("radius", r)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{kind}: {name} is not finite")
+    if res.real.control_mean.shape != (T_R, C) or res.real.costs.shape != (K_R,):
+        raise AssertionError(f"{kind}: unexpected result shapes")
+    if out_of_band >= MAX_OUT_OF_BAND:
+        raise AssertionError(f"{kind}: {out_of_band} of {n} steps outside "
+                             f"{BAND[0]} < r < {BAND[1]}")
+    steady = ev[5:]  # the first steps include one-time allocations
+    med = lambda a, b: statistics.median(e[a].elapsed_time(e[b]) for e in steady)
+    emit(f"{kind}_main_path", K=K_R, T=T_R, steps=n, launches=launches,
+         out_of_band_steps=out_of_band, final_radius=float(r[-1]),
+         final_baseline_real=float(res.real.baseline),
+         stage1_ms_median=med(0, 1) if kind == "rmppi" else None,
+         solve_ms_median=med(1, 2), step_ms_median=med(0, 3),
+         host_wall_ms_per_step=1e3 * wall_s / n)
+    if kind == "rmppi":
+        rmppi_breakdown(ctrl, cs, x)
+    profile_steps(kind, ctrl, cs, x)
+    return launches
+
+
+def profile_steps(kind, ctrl, cs, x, n=10):
+    """A torch.profiler window over n closed-loop steps from the same state
+    (after the launch counts were read): kernel launches and device time
+    per step, the device's idle share of the window, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        s = cs
+        if kind == "rmppi":
+            s, _ = ctrl.update_importance_sampling(x, s, 1)
+        s = ctrl.slide_control_sequence(s, 1)
+        res, _ = ctrl.solve(x, s)
+        ctrl.dynamics.step(x, res.real.control_mean[0], 0.0, ctrl.dt)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        count, total = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (count + 1, total + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    emit(f"{kind}_profile", steps=n,
+         kernel_launches_per_step=len(kernels) / n,
+         device_busy_us_per_step=busy_us / n if kernels else "not measured",
+         wall_us_per_step=window_us / n,
+         device_idle_share=1.0 - busy_us / window_us if kernels else "not measured",
+         top_kernels=[{"name": name[:80], "launches_per_step": c / n,
+                       "device_us_per_step": t / n} for name, (c, t) in top])
+
+
+def rmppi_breakdown(ctrl, cs, x, n=10):
+    """Where an RMPPI step's time goes: each part run alone, synchronized,
+    median host wall of n runs (ms)."""
+    def wall(fn):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(out)
+
+    T_, C_ = ctrl.num_timesteps, ctrl.dynamics.CONTROL_DIM
+    U = ctrl._clamp_controls(ctrl.sampler.sample(cs.generator, cs.nominal_mean, S_PER))
+    W = ctrl.line_search_w
+    points = torch.stack([cs.nominal_traj[0], cs.nominal_traj[1], x], dim=1)
+    cands = (points @ W).T.contiguous()
+    strides = ctrl._candidate_strides(1)
+    mean = cs.nominal_mean
+    parts = {
+        "stage1 whole": lambda: ctrl.update_importance_sampling(x, cs, 1),
+        "stage1 candidate costs (rollout kernel in x0 mode + LR)":
+            lambda: ctrl._candidate_costs(cands, strides, U, mean),
+        "stage1 nominal re-rollout (rollout_single, eager)":
+            lambda: rollout_single(ctrl.dynamics, x, mean, ctrl.dt),
+        "stage1 DDP gains (linearize + ladder kernel)":
+            lambda: ctrl.feedback.compute_feedback(x, cs.nominal_traj, mean),
+        "stage2 solve whole": lambda: ctrl.solve(x, cs),
+        "stage2 RMPPI rollout kernel": lambda: fr.fused_rmppi_rollout(
+            ctrl.dynamics, ctrl.cost, cs.nominal_state, x,
+            torch.zeros((K_R, T_, C_), device=x.device), cs.feedback_state.gains,
+            ctrl.sampler._sigma(T_, 0), ctrl.sampler.control_cost_coeff, ctrl.dt,
+            ctrl.lam, ctrl.alpha),
+        "stage2 two mean re-rollouts (eager)": lambda: [
+            rollout_single(ctrl.dynamics, x, mean, ctrl.dt) for _ in range(2)],
+    }
+    emit("rmppi_breakdown", unit="ms host wall, synchronized, median of 10",
+         parts={name: wall(fn) for name, fn in parts.items()})
 
 
 def main() -> int:
@@ -309,37 +714,64 @@ def main() -> int:
                        if "registers" in line or "Compiling entry" in line]
                 for name, b in built.items()})
 
-    errs = {"rollout_costs_kernel": 0.0, "flash_combine_kernel": 0.0}
+    errs = dict.fromkeys(fr.launch_counts, 0.0)
+
+    def note(kernel, checks):
+        for c in checks:
+            errs[kernel] = max(errs[kernel], c["max_abs_err"])
+
     main_times = None
     for K, p, seed in ((K_MAIN, 0.0, 1), (K_RAGGED, 0.1, 2)):
         checks, times = kernel_phase(dev, K, p, seed)
-        for c in checks:
-            kernel = ("flash_combine_kernel" if c["check"].startswith("flash_combine")
-                      else "rollout_costs_kernel")
-            errs[kernel] = max(errs[kernel], c["max_abs_err"])
+        note("flash_combine_kernel",
+             [c for c in checks if c["check"].startswith("flash_combine")])
+        note("rollout_costs_kernel",
+             [c for c in checks if not c["check"].startswith("flash_combine")])
         if K == K_MAIN:
             main_times = times
+    checks_b, checks_l, ric_times = riccati_phase(dev)
+    note("riccati_backward_kernel", checks_b)
+    note("riccati_ladder_kernel", checks_l)
+    rmppi_times = None
+    for K, seed in ((K_R, 3), (K_R_RAGGED, 4)):
+        checks, t = rmppi_phase(dev, K, seed)
+        note("rmppi_rollout_kernel", checks)
+        rmppi_times = rmppi_times or t
+    checks, x0_times = x0_phase(dev)
+    note("rollout_costs_kernel", checks)
 
     reference_phase(dev)
-    launches = main_path_phase(dev)
+    robust_reference_phase(dev)
+    by_path = {"vanilla": main_path_phase(dev),
+               "rmppi": robust_loop_phase("rmppi"),
+               "tube": robust_loop_phase("tube")}
+    launches = {name: sum(p[name] for p in by_path.values()) for name in errs}
+
+    def entry(name, source, replaces, t, library_ms, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"mppi_generic_tpu_torch/csrc/{source}",
+                "replaces": f"mppi_generic_tpu/ops/{replaces}",
+                "launches": launches[name],
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": library_ms, **extra}
 
     epi, comb = main_times["epilogue+lr"], main_times["flash_combine"]
+    modes = {m: main_times[m] for m in ("costs", "costs+lr", "epilogue+lr")}
+    modes["x0"] = dict(x0_times, K=N_CAND * S_PER, T=T_R)
     kernels = [
-        {"name": "rollout_costs_kernel", "route": "cuda",
-         "source": "mppi_generic_tpu_torch/csrc/fused_rollout.cu",
-         "replaces": "mppi_generic_tpu/ops/pallas_rollout.py:548",
-         "launches": launches["rollout_costs_kernel"],
-         "max_abs_err": errs["rollout_costs_kernel"],
-         "ms": epi["ms"], "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
-         "bound_by": epi["bound_by"], "library_ms": epi["library_ms"],
-         "modes": {m: main_times[m] for m in ("costs", "costs+lr", "epilogue+lr")}},
-        {"name": "flash_combine_kernel", "route": "cuda",
-         "source": "mppi_generic_tpu_torch/csrc/fused_rollout.cu",
-         "replaces": "mppi_generic_tpu/ops/pallas_rollout.py:1005",
-         "launches": launches["flash_combine_kernel"],
-         "max_abs_err": errs["flash_combine_kernel"],
-         "ms": comb["ms"], "plain_ms": comb["plain_ms"], "bound_ms": comb["bound_ms"],
-         "bound_by": comb["bound_by"], "library_ms": None},
+        entry("rollout_costs_kernel", "fused_rollout.cu", "pallas_rollout.py:548", epi,
+              epi["library_ms"], modes=modes),
+        entry("flash_combine_kernel", "fused_rollout.cu", "pallas_rollout.py:1005",
+              comb, None),
+        entry("riccati_backward_kernel", "riccati.cu", "pallas_riccati.py:137",
+              ric_times["riccati_backward"], None, on_main_path=False,
+              chain_steps=T_R - 1),
+        entry("riccati_ladder_kernel", "riccati.cu", "pallas_riccati.py:203",
+              ric_times["riccati_ladder"], None, chain_steps=T_R - 1),
+        entry("rmppi_rollout_kernel", "rmppi_rollout.cu", "pallas_rollout.py:2127",
+              rmppi_times, None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

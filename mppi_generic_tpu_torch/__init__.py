@@ -8,8 +8,11 @@ built at first use. Entry points run on the GPU unless the caller passes
 
 __version__ = "0.1.0"
 
+from mppi_generic_tpu_torch.controllers.robust import RobustMPPI
+from mppi_generic_tpu_torch.controllers.tube import TubeMPPI
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
 from mppi_generic_tpu_torch.costs.base import Cost
+from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback
 from mppi_generic_tpu_torch.models.base import Dynamics
 from mppi_generic_tpu_torch.sampling.base import SamplingDistribution
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
@@ -20,4 +23,7 @@ __all__ = [
     "SamplingDistribution",
     "GaussianDistribution",
     "VanillaMPPI",
+    "TubeMPPI",
+    "RobustMPPI",
+    "DDPFeedback",
 ]

@@ -3,6 +3,29 @@ from mppi_generic_tpu_torch.controllers.base import (
     ControllerState,
     SolveResult,
 )
+from mppi_generic_tpu_torch.controllers.robust import (
+    RobustControllerState,
+    RobustMPPI,
+    RobustSolveResult,
+    line_search_weights,
+)
+from mppi_generic_tpu_torch.controllers.tube import (
+    TubeControllerState,
+    TubeMPPI,
+    TubeSolveResult,
+)
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
 
-__all__ = ["ControllerBase", "ControllerState", "SolveResult", "VanillaMPPI"]
+__all__ = [
+    "ControllerBase",
+    "ControllerState",
+    "RobustControllerState",
+    "RobustMPPI",
+    "RobustSolveResult",
+    "SolveResult",
+    "TubeControllerState",
+    "TubeMPPI",
+    "TubeSolveResult",
+    "VanillaMPPI",
+    "line_search_weights",
+]

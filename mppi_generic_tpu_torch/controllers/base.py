@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from mppi_generic_tpu_torch.models.base import rollout_single
+from mppi_generic_tpu_torch.ops import weights as weight_ops
 from mppi_generic_tpu_torch.ops.weights import FreeEnergyStats
 from mppi_generic_tpu_torch.utils import math_utils
 
@@ -115,6 +116,20 @@ class ControllerBase(nn.Module):
 
     def _mean_trajectory(self, state, mean):
         return rollout_single(self.dynamics, state, mean, self.dt)
+
+    def _free_energy_stats(self, weights, baseline, eta, previous_baseline):
+        """FreeEnergyStats of one system's final iteration."""
+        fe_mean, fe_var, fe_mod = weight_ops.compute_free_energy(
+            weights, baseline, self.lam)
+        return FreeEnergyStats(
+            free_energy_mean=fe_mean,
+            free_energy_variance=fe_var,
+            free_energy_modified_variance=fe_mod,
+            baseline=baseline,
+            normalizer_percent=eta / self.num_rollouts,
+            previous_baseline=previous_baseline,
+            increase=baseline - previous_baseline,
+        )
 
     def slide_control_sequence(self, ctrl_state: ControllerState,
                                stride: int) -> ControllerState:

@@ -32,7 +32,6 @@ from mppi_generic_tpu_torch.controllers.base import (
 from mppi_generic_tpu_torch.ops import fused_rollout
 from mppi_generic_tpu_torch.ops import rollout as rollout_ops
 from mppi_generic_tpu_torch.ops import weights as weight_ops
-from mppi_generic_tpu_torch.ops.weights import FreeEnergyStats
 
 KERNELS = ("fused", "combined")
 
@@ -93,17 +92,8 @@ class VanillaMPPI(ControllerBase):
                 injected_noise)
         costs, w, baseline, eta, crash = diag
 
-        fe_mean, fe_var, fe_mod = weight_ops.compute_free_energy(
-            w, baseline, self.lam)
-        free_energy = FreeEnergyStats(
-            free_energy_mean=fe_mean,
-            free_energy_variance=fe_var,
-            free_energy_modified_variance=fe_mod,
-            baseline=baseline,
-            normalizer_percent=eta / self.num_rollouts,
-            previous_baseline=ctrl_state.previous_baseline,
-            increase=baseline - ctrl_state.previous_baseline,
-        )
+        free_energy = self._free_energy_stats(w, baseline, eta,
+                                              ctrl_state.previous_baseline)
 
         mean = self._smooth(mean, ctrl_state.control_history)
         states, outputs = self._mean_trajectory(state, mean)

@@ -13,8 +13,18 @@ imports JAX.
 * sampler: ``std_dev``, ``control_cost_coeff``, ``pure_noise_percentage``,
   ``std_dev_decay``;
 * controller: ``dt``, ``lam``, ``alpha``, ``num_timesteps``,
-  ``num_rollouts``, ``num_iters``;
-* state: ``control_mean``, ``control_history``, ``previous_baseline``.
+  ``num_rollouts``, ``num_iters``; for RMPPI also ``value_function_threshold``,
+  ``num_candidates``, ``samples_per_condition``; for Tube-MPPI
+  ``nominal_threshold``;
+* DDP feedback: ``Q``, ``R``, ``Q_f``, ``dt``, ``num_iterations``, and
+  optionally ``use_pallas`` (the port's ``use_kernel``);
+* state: ``control_mean``, ``control_history``, ``previous_baseline``; the
+  robust and tube states add ``nominal_mean``, ``nominal_state``,
+  ``nominal_initialized``, ``previous_baseline_real``,
+  ``previous_baseline_nominal`` and ``feedback_state`` (a dict of
+  ``gains``, ``x_traj``, ``u_traj``, ``total_cost``); the robust state also
+  ``nominal_traj``, ``nominal_control_history``, ``best_index`` and
+  ``nominal_stride``.
 """
 
 from __future__ import annotations
@@ -23,8 +33,11 @@ import numpy as np
 import torch
 
 from mppi_generic_tpu_torch.controllers.base import ControllerState
+from mppi_generic_tpu_torch.controllers.robust import RobustControllerState, RobustMPPI
+from mppi_generic_tpu_torch.controllers.tube import TubeControllerState, TubeMPPI
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback, DDPFeedbackState
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
 
@@ -64,6 +77,25 @@ def gaussian_from_params(p: dict, device="cpu") -> GaussianDistribution:
     )
 
 
+def ddp_feedback_from_params(p: dict, dynamics) -> DDPFeedback:
+    """A ``DDPFeedback`` for the port's ``dynamics`` (on its device)."""
+    return DDPFeedback(
+        dynamics, _scalar(p["dt"]), Q=_arr(p["Q"]), R=_arr(p["R"]),
+        Q_f=_arr(p["Q_f"]), num_iterations=int(p["num_iterations"]),
+        use_kernel=bool(p.get("use_pallas", True)))
+
+
+def _controller_kwargs(controller: dict) -> dict:
+    return dict(
+        dt=_scalar(controller["dt"]),
+        lam=_scalar(controller["lam"]),
+        alpha=_scalar(controller["alpha"]),
+        num_timesteps=int(controller["num_timesteps"]),
+        num_rollouts=int(controller["num_rollouts"]),
+        num_iters=int(controller["num_iters"]),
+    )
+
+
 def vanilla_from_params(dynamics: dict, cost: dict, sampler: dict,
                         controller: dict, device=None,
                         kernel="fused") -> VanillaMPPI:
@@ -73,14 +105,39 @@ def vanilla_from_params(dynamics: dict, cost: dict, sampler: dict,
         double_integrator_from_params(dynamics),
         circle_cost_from_params(cost),
         gaussian_from_params(sampler),
-        dt=_scalar(controller["dt"]),
-        lam=_scalar(controller["lam"]),
-        alpha=_scalar(controller["alpha"]),
-        num_timesteps=int(controller["num_timesteps"]),
-        num_rollouts=int(controller["num_rollouts"]),
-        num_iters=int(controller["num_iters"]),
         kernel=kernel,
         device=device,
+        **_controller_kwargs(controller),
+    )
+
+
+def robust_from_params(dynamics: dict, cost: dict, sampler: dict,
+                       controller: dict, feedback: dict, device=None,
+                       kernel="fused") -> RobustMPPI:
+    """A DI circle-cost Gaussian ``RobustMPPI`` with DDP feedback (device
+    rule as ``VanillaMPPI``)."""
+    dyn = double_integrator_from_params(dynamics)
+    return RobustMPPI(
+        dyn, circle_cost_from_params(cost), gaussian_from_params(sampler),
+        feedback=ddp_feedback_from_params(feedback, dyn),
+        value_function_threshold=_scalar(controller["value_function_threshold"]),
+        num_candidates=int(controller["num_candidates"]),
+        samples_per_condition=int(controller["samples_per_condition"]),
+        kernel=kernel, device=device, **_controller_kwargs(controller),
+    )
+
+
+def tube_from_params(dynamics: dict, cost: dict, sampler: dict,
+                     controller: dict, feedback: dict, device=None,
+                     kernel="fused") -> TubeMPPI:
+    """A DI circle-cost Gaussian ``TubeMPPI`` with DDP feedback (device
+    rule as ``VanillaMPPI``)."""
+    dyn = double_integrator_from_params(dynamics)
+    return TubeMPPI(
+        dyn, circle_cost_from_params(cost), gaussian_from_params(sampler),
+        feedback=ddp_feedback_from_params(feedback, dyn),
+        nominal_threshold=_scalar(controller["nominal_threshold"]),
+        kernel=kernel, device=device, **_controller_kwargs(controller),
     )
 
 
@@ -93,3 +150,36 @@ def state_from_params(p: dict, controller: VanillaMPPI,
         control_history=torch.tensor(_arr(p["control_history"]), **f32),
         previous_baseline=torch.tensor(_arr(p["previous_baseline"]), **f32),
     )
+
+
+def _feedback_state(p: dict, device) -> DDPFeedbackState:
+    return DDPFeedbackState(**{
+        name: torch.tensor(_arr(p[name]), dtype=torch.float32, device=device)
+        for name in ("gains", "x_traj", "u_traj", "total_cost")})
+
+
+def _dual_state(p: dict, controller, seed, names):
+    f32 = dict(dtype=torch.float32, device=controller.device)
+    state = controller.init_state(seed=seed)
+    return state.replace(
+        nominal_initialized=bool(np.asarray(p["nominal_initialized"])),
+        feedback_state=_feedback_state(p["feedback_state"], controller.device),
+        **{name: torch.tensor(_arr(p[name]), **f32) for name in names})
+
+
+def robust_state_from_params(p: dict, controller: RobustMPPI,
+                             seed: int = 0) -> RobustControllerState:
+    i64 = dict(dtype=torch.int64, device=controller.device)
+    return _dual_state(p, controller, seed, (
+        "control_mean", "nominal_mean", "nominal_state", "nominal_traj",
+        "control_history", "nominal_control_history", "previous_baseline_real",
+        "previous_baseline_nominal")).replace(
+        best_index=torch.tensor(int(np.asarray(p["best_index"])), **i64),
+        nominal_stride=torch.tensor(int(np.asarray(p["nominal_stride"])), **i64))
+
+
+def tube_state_from_params(p: dict, controller: TubeMPPI,
+                           seed: int = 0) -> TubeControllerState:
+    return _dual_state(p, controller, seed, (
+        "control_mean", "nominal_mean", "nominal_state", "control_history",
+        "previous_baseline_real", "previous_baseline_nominal"))

@@ -7,8 +7,11 @@
 // in mppi_generic_tpu_torch/ops/fused_rollout.py; the wrappers there launch
 // these kernels through the C functions at the end of this file.
 //
-// Kernel 1, rollout_costs_kernel<Dyn, Cost, EPILOGUE, WITH_LR>: one thread
-// per sample, the T-step loop inside the thread, the state in registers.
+// Kernel 1, rollout_costs_kernel<Dyn, Cost, EPILOGUE, WITH_LR, PER_SAMPLE_X0>:
+// one thread per sample, the T-step loop inside the thread, the state in
+// registers. With PER_SAMPLE_X0 sample k starts from row k of a (K, S) x0,
+// which is how RMPPI evaluates its candidate nominal states in one launch
+// (the TPU kernel's per_sample_x0 mode, pallas_rollout.py:646, :1028).
 // Per sample it writes costs[k] = (sum_t running + LR + terminal) / T and the
 // sticky crash flag. With EPILOGUE each block of kBlock samples also reduces
 // its samples into one carry row (m_b, d_b, num_b[T*C]):
@@ -99,7 +102,7 @@ __device__ inline float block_sum(float v, float* red) {
   return r;
 }
 
-template <class Dyn, class Cost, bool EPILOGUE, bool WITH_LR>
+template <class Dyn, class Cost, bool EPILOGUE, bool WITH_LR, bool PER_SAMPLE_X0>
 __global__ void __launch_bounds__(kBlock)
 rollout_costs_kernel(const float* __restrict__ x0,
                      const float* __restrict__ U, int K, int T, float dt,
@@ -119,7 +122,7 @@ rollout_costs_kernel(const float* __restrict__ x0,
     float x[S];
     float y[O];
 #pragma unroll
-    for (int i = 0; i < S; ++i) x[i] = x0[i];
+    for (int i = 0; i < S; ++i) x[i] = PER_SAMPLE_X0 ? x0[k * S + i] : x0[i];
 #pragma unroll
     for (int i = 0; i < O; ++i) y[i] = 0.0f;
     int crash = 0;
@@ -207,14 +210,20 @@ flash_combine_kernel(const float* __restrict__ carry, int nb, int TC,
 }
 
 template <class Dyn, class Cost, bool EPILOGUE, bool WITH_LR>
-void launch_rollout(const float* x0, const float* U, int K, int T, float dt,
-                    const float* cost_params, LRArgs lr, float lam_w,
-                    float* costs, int* crash, float* carry,
-                    cudaStream_t stream) {
+void launch_rollout(bool per_sample_x0, const float* x0, const float* U,
+                    int K, int T, float dt, const float* cost_params,
+                    LRArgs lr, float lam_w, float* costs, int* crash,
+                    float* carry, cudaStream_t stream) {
   const int nb = (K + kBlock - 1) / kBlock;
-  rollout_costs_kernel<Dyn, Cost, EPILOGUE, WITH_LR>
-      <<<nb, kBlock, 0, stream>>>(x0, U, K, T, dt, cost_params, lr, lam_w,
-                                  costs, crash, carry);
+  if (per_sample_x0) {
+    rollout_costs_kernel<Dyn, Cost, EPILOGUE, WITH_LR, true>
+        <<<nb, kBlock, 0, stream>>>(x0, U, K, T, dt, cost_params, lr, lam_w,
+                                    costs, crash, carry);
+  } else {
+    rollout_costs_kernel<Dyn, Cost, EPILOGUE, WITH_LR, false>
+        <<<nb, kBlock, 0, stream>>>(x0, U, K, T, dt, cost_params, lr, lam_w,
+                                    costs, crash, carry);
+  }
 }
 
 }  // namespace
@@ -227,32 +236,34 @@ int fused_rollout_block_size() { return kBlock; }
 
 // Kernel 1 for DoubleIntegrator + DoubleIntegratorCircleCost. Every pointer
 // is memory of CUDA device `device`, and `stream` one of its streams; lr_*
-// may be null when with_lr == 0, carry when epilogue == 0. Returns the CUDA
-// error of the launch (0 when it was accepted).
+// may be null when with_lr == 0, carry when epilogue == 0. x0 is (K, S) when
+// per_sample_x0 != 0, else (S,). Returns the CUDA error of the launch (0 when
+// it was accepted).
 int rollout_costs_di_circle(int device, const float* x0, const float* U,
                             int K, int T, float dt, const float* cost_params,
                             const float* lr_mean, const float* lr_sigma,
                             const float* lr_coeff, float lr_gain,
                             float pure_thresh, int with_lr, int epilogue,
-                            float lam_w, float* costs, int* crash,
-                            float* carry, void* stream) {
+                            int per_sample_x0, float lam_w, float* costs,
+                            int* crash, float* carry, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   using D = DoubleIntegrator;
   using Q = DoubleIntegratorCircleCost;
   const LRArgs lr{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ps = per_sample_x0 != 0;
   if (epilogue && with_lr) {
-    launch_rollout<D, Q, true, true>(x0, U, K, T, dt, cost_params, lr, lam_w,
-                                     costs, crash, carry, s);
+    launch_rollout<D, Q, true, true>(ps, x0, U, K, T, dt, cost_params, lr,
+                                     lam_w, costs, crash, carry, s);
   } else if (epilogue) {
-    launch_rollout<D, Q, true, false>(x0, U, K, T, dt, cost_params, lr, lam_w,
-                                      costs, crash, carry, s);
+    launch_rollout<D, Q, true, false>(ps, x0, U, K, T, dt, cost_params, lr,
+                                      lam_w, costs, crash, carry, s);
   } else if (with_lr) {
-    launch_rollout<D, Q, false, true>(x0, U, K, T, dt, cost_params, lr, lam_w,
-                                      costs, crash, carry, s);
+    launch_rollout<D, Q, false, true>(ps, x0, U, K, T, dt, cost_params, lr,
+                                      lam_w, costs, crash, carry, s);
   } else {
-    launch_rollout<D, Q, false, false>(x0, U, K, T, dt, cost_params, lr,
+    launch_rollout<D, Q, false, false>(ps, x0, U, K, T, dt, cost_params, lr,
                                        lam_w, costs, crash, carry, s);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,0 +1,170 @@
+// RMPPI augmented rollout (nominal + real system with DDP feedback) for
+// Hopper.
+//
+// Replaces the TPU kernel mppi_generic_tpu/ops/pallas_rollout.py::
+// _fused_rmppi_call (entry fused_rmppi_rollout, :2352-2454), the
+// reference's rolloutRMPPIDynamicsKernel + rolloutRMPPICostKernel
+// (core/rmppi_kernels.cu:359-665). The plain PyTorch version is
+// rmppi_rollout_plain in mppi_generic_tpu_torch/ops/fused_rollout.py; its
+// wrapper fused_rmppi_rollout launches this kernel through the C function
+// at the end of this file.
+//
+// rmppi_rollout_kernel<Dyn, Cost>: one thread per sample, the T-step loop
+// inside the thread, both states in registers. Per step, from the raw
+// sample u_raw:
+//   u_nom  = clamp(u_raw)
+//   u_fb   = K[t] (x_real - x_nom)
+//   u_real = clamp(u_raw + u_fb), written out as U_real (K, T, C)
+//   fb     = 0.5 lambda (1 - alpha) sum_c coeff_c u_fb_c^2 / sigma_tc^2
+// then both systems step and take their running costs. Outputs per sample
+// s_nom = (sum c_nom + term_nom) / T, j_real = (sum c_real + term_real) / T,
+// s_fb = (sum (c_real + fb) + term_real) / T and the real system's crash
+// flag. "clamp" is the dynamics' enforceConstraints (_clamp_channel,
+// pallas_rollout.py:481-488): deadband snap and shrink, then the range.
+//
+// What bounds it on this card: bytes, not operations. At K=2560, T=50, C=2
+// it reads U (1.02 MB) and writes U_real (1.02 MB), about 0.6 us at 3.35
+// TB/s; the arithmetic (about 150 operations per sample-step) is about
+// 0.3 us at 67 TFLOP/s. What bounds the simple design is latency: each
+// thread walks a dependent chain of T steps, and 2560 samples in blocks of
+// 64 are 40 blocks, which leave most of the 132 SMs idle. The gain and sigma
+// tables (T*C*(S+1) floats) are read by every thread at the same address,
+// which L1 broadcasts.
+//
+// The TPU kernel's SMEM/VMEM/streamed table modes, its sublane-stacked
+// gain tables, its 128-lane tiles and its channel-major U are TPU mechanics
+// and are not ported: U and U_real stay the public (K, T, C) tensors.
+//
+// Numerics: built without --use_fast_math and with --fmad=false; every
+// operation in the order of the plain version, so the outputs agree with it
+// bit for bit.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+#include "double_integrator.cuh"
+#include "double_integrator_circle_cost.cuh"
+
+namespace {
+
+constexpr int kBlock = 64;  // samples (threads) per block
+
+// enforceConstraints for one channel: deadband snap and shrink, then clamp
+__device__ inline float clamp_channel(float u, const float* cons, int C,
+                                      int c) {
+  const float lo = cons[c];
+  const float hi = cons[C + c];
+  const float db = cons[2 * C + c];
+  const float zc = cons[3 * C + c];
+  const float shrunk = u - db * (u < 0.0f ? -1.0f : 1.0f);
+  const float v = fabsf(u) < db ? zc : shrunk;
+  return fminf(fmaxf(v, lo), hi);
+}
+
+template <class Dyn, class Cost>
+__global__ void __launch_bounds__(kBlock)
+rmppi_rollout_kernel(const float* __restrict__ x0_nom,
+                     const float* __restrict__ x0_real,
+                     const float* __restrict__ U, int K, int T, float dt,
+                     const float* __restrict__ cost_params,
+                     const float* __restrict__ cons,
+                     const float* __restrict__ gains,
+                     const float* __restrict__ sigma,
+                     const float* __restrict__ coeff, float fb_gain,
+                     float* __restrict__ s_nom_out,
+                     float* __restrict__ j_real_out,
+                     float* __restrict__ s_fb_out, int* __restrict__ crash_out,
+                     float* __restrict__ U_real) {
+  constexpr int S = Dyn::S;
+  constexpr int C = Dyn::C;
+  constexpr int O = Dyn::O;
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  if (k >= K) return;
+
+  const typename Cost::Params cp = Cost::load(cost_params);
+  float x_nom[S], x_real[S], y_nom[O], y_real[O];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    x_nom[i] = x0_nom[i];
+    x_real[i] = x0_real[i];
+  }
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    y_nom[i] = 0.0f;
+    y_real[i] = 0.0f;
+  }
+  int crash_n = 0;
+  int crash_r = 0;
+  float s_nom = 0.0f;
+  float j_real = 0.0f;
+  float s_fb = 0.0f;
+  const size_t row = static_cast<size_t>(k) * T * C;
+  for (int t = 0; t < T; ++t) {
+    float u_raw[C], u_nom[C], u_real[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      u_raw[c] = U[row + t * C + c];
+      u_nom[c] = clamp_channel(u_raw[c], cons, C, c);
+    }
+    float dx[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) dx[s] = x_real[s] - x_nom[s];
+    float fb = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float* g = gains + (t * C + c) * S;
+      float u_fb = g[0] * dx[0];
+#pragma unroll
+      for (int s = 1; s < S; ++s) u_fb = u_fb + g[s] * dx[s];
+      const float sg = sigma[t * C + c];
+      fb = fb + coeff[c] * u_fb * u_fb / (sg * sg);
+      u_real[c] = clamp_channel(u_raw[c] + u_fb, cons, C, c);
+      U_real[row + t * C + c] = u_real[c];
+    }
+    fb = fb_gain * fb;
+    Dyn::step(x_nom, u_nom, static_cast<float>(t), dt, y_nom);
+    Dyn::step(x_real, u_real, static_cast<float>(t), dt, y_real);
+    const float c_nom = Cost::running_cost(cp, y_nom, u_nom, t, &crash_n);
+    const float c_real = Cost::running_cost(cp, y_real, u_real, t, &crash_r);
+    s_nom = s_nom + c_nom;
+    j_real = j_real + c_real;
+    s_fb = s_fb + c_real + fb;
+  }
+  const float term_n = Cost::terminal_cost(cp, y_nom);
+  const float term_r = Cost::terminal_cost(cp, y_real);
+  const float Tf = static_cast<float>(T);
+  s_nom_out[k] = (s_nom + term_n) / Tf;
+  j_real_out[k] = (j_real + term_r) / Tf;
+  s_fb_out[k] = (s_fb + term_r) / Tf;
+  crash_out[k] = crash_r;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The kernel for DoubleIntegrator + DoubleIntegratorCircleCost. Every
+// pointer is memory of CUDA device `device`, and `stream` one of its
+// streams. cons is the (4, C) table [lower; upper; deadband; zero control];
+// gains (T, C, S); sigma (T, C); coeff (C,); fb_gain = 0.5 lambda
+// (1 - alpha). Returns the CUDA error of the launch (0 when it was accepted).
+int rmppi_rollout_di_circle(int device, const float* x0_nom,
+                            const float* x0_real, const float* U, int K, int T,
+                            float dt, const float* cost_params,
+                            const float* cons, const float* gains,
+                            const float* sigma, const float* coeff,
+                            float fb_gain, float* s_nom, float* j_real,
+                            float* s_fb, int* crash, float* U_real,
+                            void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int nb = (K + kBlock - 1) / kBlock;
+  rmppi_rollout_kernel<DoubleIntegrator, DoubleIntegratorCircleCost>
+      <<<nb, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          x0_nom, x0_real, U, K, T, dt, cost_params, cons, gains, sigma, coeff,
+          fb_gain, s_nom, j_real, s_fb, crash, U_real);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

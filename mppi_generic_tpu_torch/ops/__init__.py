@@ -1,10 +1,11 @@
+from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from mppi_generic_tpu_torch.ops.fused_rollout import (
     flash_combine,
+    fused_rmppi_rollout,
     fused_rollout_costs,
     fused_weighted_rollout,
-    launch_counts,
-    reset_launch_counts,
 )
+from mppi_generic_tpu_torch.ops.riccati import riccati_backward, riccati_ladder_solve
 from mppi_generic_tpu_torch.ops.rollout import rollout_combined
 from mppi_generic_tpu_torch.ops.weights import (
     FreeEnergyStats,
@@ -16,10 +17,13 @@ __all__ = [
     "FreeEnergyStats",
     "compute_free_energy",
     "flash_combine",
+    "fused_rmppi_rollout",
     "fused_rollout_costs",
     "fused_weighted_rollout",
     "launch_counts",
     "norm_exp_weights",
     "reset_launch_counts",
+    "riccati_backward",
+    "riccati_ladder_solve",
     "rollout_combined",
 ]

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``.
-Nothing here includes PyTorch's headers, so a build takes seconds.
+Nothing here includes PyTorch's headers, so a build takes seconds. The
+kernel wrappers count their launches in ``launch_counts``.
 
 The libraries go to ``build/torch_kernels/<hash>/`` at the root of the
 checkout, keyed by a hash of every source file and of the compiler flags,
@@ -44,11 +45,47 @@ SIGNATURES = {
         "rollout_costs_di_circle": [
             _I, _P, _P, _I, _I, _F, _P,  # device, x0, U, K, T, dt, cost_params
             _P, _P, _P, _F, _F, _I,      # lr mean/sigma/coeff, gain, thresh, with_lr
-            _I, _F, _P, _P, _P, _P,      # epilogue, lam_w, costs, crash, carry, stream
+            _I, _I, _F,                  # epilogue, per-sample x0, lam_w
+            _P, _P, _P, _P,              # costs, crash, carry, stream
         ],
         "flash_combine": [_I, _P, _I, _I, _F, _P, _P, _P],
     },
+    "rmppi_rollout": {
+        "rmppi_rollout_di_circle": [
+            _I, _P, _P, _P, _I, _I, _F,  # device, x0_nom, x0_real, U, K, T, dt
+            _P, _P, _P, _P, _P, _F,      # cost params, constraints, gains, sigma, coeff, fb gain
+            _P, _P, _P, _P, _P, _P,      # s_nom, j_real, s_fb, crash, U_real, stream
+        ],
+    },
+    "riccati": {
+        "riccati_max_alphas": [],
+        "riccati_backward_s4c2": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P,  # device, As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T, Vx_T
+            _I, _F, _F, _P, _P, _P,              # T, dt, reg, Ks, ks, stream
+        ],
+        "riccati_ladder_di": [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P,  # device, As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T, Vx_T
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,  # xs, us, goal_x, goal_u, Q, R, Q_f, ulim, alphas
+            _I, _I, _F, _F,                      # n_alpha, T, dt, reg
+            _P, _P, _P, _P, _P, _P,              # Ks, ks, costs, xs_new, us_new, stream
+        ],
+    },
 }
+
+# launches of each CUDA kernel since the last reset_launch_counts(); each
+# wrapper adds one where it launches its kernel
+launch_counts = {
+    "rollout_costs_kernel": 0,
+    "flash_combine_kernel": 0,
+    "rmppi_rollout_kernel": 0,
+    "riccati_backward_kernel": 0,
+    "riccati_ladder_kernel": 0,
+}
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def _nvcc() -> str:

@@ -1,16 +1,22 @@
-"""Fused rollout + flash-epilogue kernels, their wrappers and plain versions.
+"""Fused rollout kernels, their wrappers and plain versions.
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_rollout.py``: the hand-written
 Hopper kernels in ``csrc/fused_rollout.cu`` replace its TPU kernel
-``_fused_call`` in two modes.
+``_fused_call`` in two modes, and the one in ``csrc/rmppi_rollout.cu`` its
+TPU kernel ``_fused_rmppi_call``.
 
 * ``fused_rollout_costs``: per sample, a T-step rollout with running cost,
   terminal cost and (with ``lr_params``) the Gaussian likelihood-ratio cost
-  accumulated in the loop. Returns (costs (K,), crash (K,)).
+  accumulated in the loop. Returns (costs (K,), crash (K,)). ``x0`` is one
+  state (S,) for all samples or one per sample (K, S) (RMPPI's candidate
+  evaluation).
 * ``fused_weighted_rollout``: the same, plus the online-softmax normExp
   epilogue. Kernel 1 reduces each block of samples into a carry row
   (m_b, d_b, num_b); kernel 2 (``flash_combine``) merges the rows into the
   new mean, baseline = -lambda * max(-J / lambda) and eta.
+* ``fused_rmppi_rollout``: RMPPI's augmented rollout, the nominal and the
+  real system of each sample stepped together, the real one with the DDP
+  feedback K[t] (x_real - x_nom) in the loop.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module, with the same arithmetic) for CPU tensors.
@@ -32,24 +38,30 @@ import torch
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.ops import _build
+from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+
+__all__ = [
+    "flash_combine",
+    "fused_rmppi_rollout",
+    "fused_rollout_costs",
+    "fused_weighted_rollout",
+    "launch_counts",
+    "reset_launch_counts",
+    "rollout_block_carries",
+]
 
 # samples per block of the rollout kernel (fused_rollout_block_size() in
 # csrc/fused_rollout.cu): one epilogue carry row per block
 BLOCK = 64
 _MASKED = -1e30
 
-# launches of each CUDA kernel since the last reset_launch_counts()
-launch_counts = {"rollout_costs_kernel": 0, "flash_combine_kernel": 0}
-
 # (dynamics, cost) pairs with a compiled kernel -> C entry point
 _ROLLOUT_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rollout_costs_di_circle",
 }
-
-
-def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+_RMPPI_ENTRY = {
+    (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rmppi_rollout_di_circle",
+}
 
 
 def _f32(v) -> float:
@@ -74,10 +86,11 @@ def _lr_gain(lam, alpha) -> float:
 # ---------------------------------------------------------------------------
 def rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params=None):
     """Plain version of kernel 1's rollout: (costs (K,), crash (K,) int32),
-    the same operations in the same order as the kernel's thread loop."""
+    the same operations in the same order as the kernel's thread loop.
+    ``x0`` is (S,) or (K, S)."""
     K, T, C = U.shape
     Uc = U.permute(2, 1, 0)  # (C, T, K)
-    x = x0[:, None].expand(-1, K)
+    x = x0.T if x0.dim() == 2 else x0[:, None].expand(-1, K)
     crash = torch.zeros((K,), dtype=torch.int32, device=U.device)
     acc = torch.zeros((K,), dtype=torch.float32, device=U.device)
     if lr_params is not None:
@@ -115,6 +128,51 @@ def block_carries_plain(costs, U, lam, block=BLOCK):
     return torch.cat([m[:, None], w.sum(dim=1)[:, None], num], dim=1)
 
 
+def rmppi_rollout_plain(dynamics, cost, x0_nom, x0_real, U, gains, sigma,
+                        coeff, dt, lam, alpha):
+    """Plain version of the RMPPI rollout kernel, the same operations in
+    the same order as its thread loop: (s_nom, j_real, s_fb (K,),
+    crash_real (K,) int32, U_real (K, T, C))."""
+    K, T, C = U.shape
+    S = x0_nom.shape[0]
+    Uc = U.permute(2, 1, 0)  # (C, T, K)
+    x_nom = x0_nom[:, None].expand(-1, K)
+    x_real = x0_real[:, None].expand(-1, K)
+    zeros = torch.zeros((K,), dtype=torch.float32, device=U.device)
+    crash_n = torch.zeros((K,), dtype=torch.int32, device=U.device)
+    crash_r = crash_n
+    s_nom = j_real = s_fb = zeros
+    gain = _lr_gain(lam, alpha)
+    u_real_t = []
+    for t in range(T):
+        u_raw = Uc[:, t]
+        u_nom = dynamics.enforce_constraints(x_nom, u_raw)
+        dx = [x_real[s] - x_nom[s] for s in range(S)]
+        u_fb = []
+        fb_cost = zeros
+        for ch in range(C):
+            acc = gains[t, ch, 0] * dx[0]
+            for s in range(1, S):
+                acc = acc + gains[t, ch, s] * dx[s]
+            u_fb.append(acc)
+            sg = sigma[t, ch]
+            fb_cost = fb_cost + coeff[ch] * acc * acc / (sg * sg)
+        fb_cost = gain * fb_cost
+        u_real = dynamics.enforce_constraints(x_real, u_raw + torch.stack(u_fb))
+        u_real_t.append(u_real)
+        x_nom, y_nom = dynamics.step(x_nom, u_nom, float(t), dt)
+        x_real, y_real = dynamics.step(x_real, u_real, float(t), dt)
+        c_nom, crash_n = cost.running_cost(y_nom, u_nom, t, crash_n)
+        c_real, crash_r = cost.running_cost(y_real, u_real, t, crash_r)
+        s_nom = s_nom + c_nom
+        j_real = j_real + c_real
+        s_fb = s_fb + c_real + fb_cost
+    term_n, term_r = cost.terminal_cost(y_nom), cost.terminal_cost(y_real)
+    U_real = torch.stack(u_real_t).permute(2, 0, 1).contiguous()
+    return (_div(s_nom + term_n, T), _div(j_real + term_r, T),
+            _div(s_fb + term_r, T), crash_r, U_real)
+
+
 def flash_combine_plain(carry, T, C, lam):
     """Plain version of kernel 2: merge carry rows into (new_mean (T, C),
     baseline (), eta ()) with the flash rescaling of
@@ -138,6 +196,21 @@ def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
 
 
+def _check_tensors(tensors, device):
+    """Each tensor on ``device``, float32 and contiguous, as the kernels take
+    them; an entry given as (tensor, shape) must also have that shape."""
+    for name, t in tensors.items():
+        t, shape = t if isinstance(t, tuple) else (t, None)
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+
+
 def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
     """The kernel's entry point for this (dynamics, cost) pair, after
     checking device, dtype, shape and contiguity of every input."""
@@ -151,17 +224,11 @@ def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
     tensors = {"U": U, "x0": x0, "cost params": cost.params}
     if lr_params is not None:
         tensors.update(mean=lr_params[0], sigma=lr_params[1], coeff=lr_params[2])
-    for name, t in tensors.items():
-        if t.device != U.device:
-            raise ValueError(f"{name} is on {t.device}, U on {U.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if C != dynamics.CONTROL_DIM or tuple(x0.shape) != (S,):
+    _check_tensors(tensors, U.device)
+    if C != dynamics.CONTROL_DIM or tuple(x0.shape) not in ((S,), (K, S)):
         raise ValueError(
-            f"expected U (K, T, {dynamics.CONTROL_DIM}) and x0 ({S},), got "
-            f"{tuple(U.shape)} and {tuple(x0.shape)}")
+            f"expected U (K, T, {dynamics.CONTROL_DIM}) and x0 ({S},) or "
+            f"(K, {S}), got {tuple(U.shape)} and {tuple(x0.shape)}")
     if lr_params is not None and (
             tuple(lr_params[0].shape) != (T, C)
             or tuple(lr_params[1].shape) != (T, C)
@@ -208,7 +275,8 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, lam_w):
     status = getattr(lib, entry)(
         dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
         cost.params.data_ptr(), *lr, int(lr_params is not None), int(epilogue),
-        _f32(lam_w if epilogue else 1.0), costs.data_ptr(), crash.data_ptr(),
+        int(x0.dim() == 2), _f32(lam_w if epilogue else 1.0), costs.data_ptr(),
+        crash.data_ptr(),
         carry.data_ptr() if epilogue else None, stream)
     _check_status(status, "rollout_costs_kernel")
     launch_counts["rollout_costs_kernel"] += 1
@@ -217,7 +285,8 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, lam_w):
 
 def fused_rollout_costs(dynamics, cost, x0, U, dt, lr_params=None):
     """Kernel 1, plain-costs mode: (costs (K,), crash (K,) int32).
-    ``costs`` = (sum_t running [+ LR] + terminal) / T."""
+    ``costs`` = (sum_t running [+ LR] + terminal) / T. ``x0`` is (S,), or
+    (K, S) for one initial state per sample."""
     if _on_cpu(U):
         return rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params)
     costs, crash, _ = _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, None)
@@ -262,3 +331,60 @@ def fused_weighted_rollout(dynamics, cost, x0, U, dt, lam, lr_params=None):
                                                 lr_params)
     new_mean, baseline, eta = flash_combine(carry, T, C, lam)
     return costs, crash, new_mean, baseline, eta
+
+
+@functools.lru_cache(maxsize=None)
+def _rmppi_lib():
+    return _build.load("rmppi_rollout")
+
+
+def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
+                        dt, lam, alpha):
+    """Fused RMPPI augmented rollout (rolloutRMPPIDynamicsKernel +
+    rolloutRMPPICostKernel, core/rmppi_kernels.cu:359-665): per sample the
+    nominal and the real system step together; the nominal one with
+    u_nom = clamp(u_raw), the real one with u_real = clamp(u_raw + u_fb),
+    u_fb = K[t] (x_real - x_nom); the feedback cost
+    0.5 lambda (1 - alpha) sum_c coeff_c u_fb_c^2 / sigma_tc^2 accumulates
+    beside the running costs. "clamp" is the dynamics' enforce_constraints.
+
+    U (K, T, C) holds the raw samples (not clamped: the kernel clamps both
+    controls). gains (T, C, S); sigma (T, C); coeff (C,). Returns
+    (s_nom, j_real, s_fb (K,), crash_real (K,) int32, U_real (K, T, C)):
+    s_nom = (sum running_nom + terminal) / T, j_real the same for the real
+    system, s_fb = (sum (running_real + fb cost) + terminal_real) / T.
+    The inputs are checked as the kernel takes them on every device."""
+    K, T, C = U.shape
+    S = dynamics.STATE_DIM
+    constraints = torch.stack([dynamics.control_ranges[:, 0],
+                               dynamics.control_ranges[:, 1],
+                               dynamics.control_deadband, dynamics.zero_control])
+    _check_tensors({"U": U, "x0_nom": (x0_nom, (S,)), "x0_real": (x0_real, (S,)),
+                    "gains": (gains, (T, C, S)), "sigma": (sigma, (T, C)),
+                    "coeff": (coeff, (C,)), "cost params": cost.params,
+                    "constraints": constraints}, U.device)
+    if C != dynamics.CONTROL_DIM or K < 1 or T < 1 or K * T * C >= 2**31:
+        raise ValueError(f"unsupported sizes K={K}, T={T}, C={C}")
+    if _on_cpu(U):
+        return rmppi_rollout_plain(dynamics, cost, x0_nom, x0_real, U, gains,
+                                   sigma, coeff, dt, lam, alpha)
+    entry = _RMPPI_ENTRY.get((type(dynamics), type(cost)))
+    if entry is None:
+        raise NotImplementedError(
+            f"no CUDA RMPPI rollout kernel for {type(dynamics).__name__} with "
+            f"{type(cost).__name__}")
+    dev = U.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    s_nom, j_real, s_fb = (torch.empty((K,), **f32) for _ in range(3))
+    crash = torch.empty((K,), dtype=torch.int32, device=dev)
+    U_real = torch.empty((K, T, C), **f32)
+    status = getattr(_rmppi_lib(), entry)(
+        dev.index, x0_nom.data_ptr(), x0_real.data_ptr(), U.data_ptr(), K, T,
+        _f32(dt), cost.params.data_ptr(), constraints.data_ptr(),
+        gains.data_ptr(), sigma.data_ptr(), coeff.data_ptr(),
+        _lr_gain(lam, alpha), s_nom.data_ptr(), j_real.data_ptr(),
+        s_fb.data_ptr(), crash.data_ptr(), U_real.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(status, "rmppi_rollout_kernel")
+    launch_counts["rmppi_rollout_kernel"] += 1
+    return s_nom, j_real, s_fb, crash, U_real

@@ -1,4 +1,4 @@
-"""Math utilities used by the vanilla-MPPI path, in PyTorch.
+"""Math utilities used by the ported controllers, in PyTorch.
 
 Counterpart of ``mppi_generic_tpu/utils/math_utils.py``: the same functions,
 with the same numerics, on tensors. Only what the ported path calls lives
@@ -53,8 +53,17 @@ def update_control_history(history: torch.Tensor, u_seq: torch.Tensor,
     (saveControlHistoryHelper, controller.cuh:524-544): stride >= 2 takes
     the last two consumed controls [u[stride-2], u[stride-1]]; stride == 1
     shifts [history[1], u[0]]; stride == 0 leaves the history unchanged.
-    ``stride`` is a host integer."""
+    ``stride`` is a host integer or a 0-d integer tensor on the sequence's
+    device (RMPPI's nominal stride, chosen on the device): the tensor path
+    gathers with clamped indices and selects, so it never waits on the
+    device."""
     T = u_seq.shape[0]
+    if isinstance(stride, torch.Tensor):
+        idx = torch.stack([stride - 2, stride - 1]).clamp(0, T - 1)
+        two_plus = u_seq.index_select(0, idx)
+        one = torch.stack([history[1], u_seq[0]])
+        return torch.where(stride >= 2, two_plus,
+                           torch.where(stride == 1, one, history))
     if stride >= 2:
         idx0 = min(max(stride - 2, 0), T - 1)
         idx1 = min(max(stride - 1, 0), T - 1)
@@ -70,7 +79,9 @@ def slide_control_sequence(u_seq: torch.Tensor, stride: int,
 
     Vacated tail steps are filled with the last control scaled toward zero
     by ``slide_scale`` per channel (slideControlSequenceHelper,
-    controller.cuh:588-600).
+    controller.cuh:588-600). ``stride`` is a host integer or a 0-d integer
+    tensor on the sequence's device; either way the shift is a gather with
+    clamped indices.
     """
     T, C = u_seq.shape
     idx = torch.arange(T, device=u_seq.device) + stride
