@@ -4,11 +4,15 @@
 
 Builds the port's CUDA kernels from ``mppi_generic_tpu_torch/csrc`` (into
 ``build/torch_kernels/``), holds each kernel against its plain PyTorch
-version on the card, and drives three closed loops through the port's entry
+version on the card, checks the in-kernel Philox draw bit for bit and by
+its statistics, and drives six closed loops through the port's entry
 points: the flagship vanilla MPPI (double integrator, circle cost, Gaussian
-sampler, K=8192, T=100), then RMPPI and Tube-MPPI with DDP feedback on the
-same task (bench.py:809-840: K=2560, T=50, lambda 2, 9 candidates x 256
-samples for RMPPI). Each phase prints one JSON line. The line before
+sampler, K=8192, T=100) on the precomputed-noise kernels, RMPPI and
+Tube-MPPI with DDP feedback on the same task (bench.py:809-840: K=2560,
+T=50, lambda 2, 9 candidates x 256 samples for RMPPI), and the fused solve
+(``kernel="fused_solve"``, the samples drawn in the kernels) for the
+flagship and the JAX suite's NLN and Smooth-MPPI rows (bench.py:619-638,
+K=8192, T=100). Each phase prints one JSON line. The line before
 the last lists every kernel with its launches on the main path, its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
@@ -31,14 +35,16 @@ import torch
 from mppi_generic_tpu_torch import (
     DDPFeedback,
     GaussianDistribution,
+    NLNDistribution,
     RobustMPPI,
+    SmoothMPPIDistribution,
     TubeMPPI,
     VanillaMPPI,
 )
 from mppi_generic_tpu_torch.costs import DoubleIntegratorCircleCost
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
 from mppi_generic_tpu_torch.models import DoubleIntegratorDynamics, rollout_single
-from mppi_generic_tpu_torch.ops import _build, riccati
+from mppi_generic_tpu_torch.ops import _build, fused_solve, philox, riccati
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 
 K_MAIN, K_RAGGED, T, C, S = 8192, 8000, 100, 2, 4
@@ -67,6 +73,19 @@ OPS_STEP, OPS_COST, OPS_LR, OPS_ACC = 8, 20, 16, 1
 # channels (5 each), the feedback K (x_r - x_n) (S + C (2S - 1)), its cost
 # (5 per channel + 1), u_raw + u_fb, three accumulations
 OPS_RMPPI = 2 * OPS_STEP + 2 * OPS_COST + 2 * 5 * C + S + C * (2 * S - 1) + 5 * C + 1 + C + 4
+# The in-kernel draw per sample-step (csrc/philox.cuh): ten Philox rounds of
+# two 32 x 32 products (high and low words: 4 operations) and 4 xors, with 2
+# key additions in the last nine; Box-Muller: 2 shifts, 2 conversions, an
+# add, 4 multiplies and logf, sqrtf, cosf, sinf. The accurate transcendentals
+# (no fast math) are software sequences on the FMA pipes: each is counted as
+# OPS_TRANSCENDENTAL fp32 operations, not as one SFU instruction. Integer
+# operations are counted against the fp32 rate (the H100 issues INT32 at half
+# of it), which keeps the bound below what the card can reach.
+OPS_TRANSCENDENTAL = 20
+OPS_PHILOX = 10 * (4 + 4) + 9 * 2
+OPS_BOX_MULLER = 9 + 4 * OPS_TRANSCENDENTAL
+SAMPLERS = ("gaussian", "nln", "smooth")
+DT_SMOOTH = 0.02  # bench.py:634
 
 TOL = {  # (rtol, atol)
     # the same operations in the same order: agree to the last bit
@@ -151,6 +170,179 @@ def combine_work(nb):
     return 4 * (nb * (2 + TC) + TC + 2), 4 * nb + 2 * nb * TC + TC + 1
 
 
+def sampling_ops(kind, solve):
+    """Operations per sample-step of the fused solve (B3, ``solve``) or the
+    sampling kernel (B4): the draw (NLN: two Box-Muller pairs and expf per
+    channel), carve-outs (4 per channel, Smooth-MPPI 3 more), clamp (7), LR
+    (B3 5, B4 7 and the gain), step, cost and accumulation."""
+    ops = OPS_PHILOX + (2 if kind == "nln" else 1) * OPS_BOX_MULLER
+    per_channel = 4 + 7 + (5 if solve else 7)
+    if kind == "nln":
+        per_channel += OPS_TRANSCENDENTAL + 2
+    if kind == "smooth":
+        per_channel += 3
+    return ops + C * per_channel + OPS_STEP + OPS_COST + OPS_ACC + (0 if solve else 2)
+
+
+def sampling_work(K, kind, solve, epilogue, emit_u, emit_w):
+    """(bytes, operations) of the function of B3 or B4: the (T, C) tables
+    (mean, sigma, NLN/Smooth aux, B3's coeff / sigma^2), coefficients,
+    constraints, x0, cost parameters and seed read once; costs, crash, the
+    carry rows and the emitted U / W written once."""
+    nb = -(-K // fr.BLOCK)
+    tables = 2 + (kind != "gaussian") + (1 if solve else 0)
+    n_bytes = 4 * (tables * T * C + (0 if solve else C) + 4 * C + S
+                   + len(DoubleIntegratorCircleCost.PARAM_NAMES) + 1 + 2 * K
+                   + K * T * C * (int(emit_u) + int(emit_w)))
+    n_ops = K * T * sampling_ops(kind, solve) + 2 * K
+    if epilogue:
+        n_bytes += 4 * nb * (2 + T * C)
+        n_ops += 5 * K + 2 * K * T * C
+    return n_bytes, n_ops
+
+
+def make_sampler(kind, dev=None, p=0.0):
+    """The JAX suite's samplers (bench.py:31-50, :619-638): std 1; the
+    Gaussian flagship's coefficient 0.01, NLN and Smooth-MPPI the default 1."""
+    kw = dict(std_dev=[1.0, 1.0], pure_noise_percentage=p)
+    if dev is not None:
+        kw["device"] = dev
+    if kind == "nln":
+        return NLNDistribution.create(**kw)
+    if kind == "smooth":
+        return SmoothMPPIDistribution.create(num_timesteps=T, dt=DT_SMOOTH, **kw)
+    return GaussianDistribution.create(control_cost_coeff=[0.01, 0.01], **kw)
+
+
+def same(what, a, b):
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what} differ from the plain version")
+
+
+def philox_phase(dev):
+    """The in-kernel draw alone: the sampling kernel with a zero mean, unit
+    sigma and no constraints emits its raw Philox normals, which must equal
+    the plain draw bit for bit and pass the statistics battery of
+    scripts/tpu_selfcheck.py:86-118; NLN's draw passes its moment checks
+    (:121-149)."""
+    dyn = DoubleIntegratorDynamics.create(device=dev)  # no constraints
+    cost = DoubleIntegratorCircleCost(device=dev)
+    x0 = torch.tensor(X0, device=dev)
+    unit = GaussianDistribution.create(std_dev=[1.0, 1.0], device=dev)
+    seed = torch.tensor(99, dtype=torch.int32, device=dev)
+    _, _, U, _ = fr.fused_sample_rollout_costs(
+        dyn, cost, unit, x0, torch.zeros((T, C), device=dev), seed, DT, LAM, ALPHA,
+        K_MAIN)
+    z = philox.normals(seed, K_MAIN, T, C)[0]
+    torch.cuda.synchronize()
+    err = float((U[1:] - z[1:]).abs().max())
+    same("the kernel's Philox normals", U[1:], z[1:])  # sample 0 is the mean
+    stats = philox.normal_battery(U[1:])
+    bad = philox.normal_battery_failures(stats)
+    s = 0.4
+    nln = NLNDistribution.create(std_dev=[s, s], control_cost_coeff=[0.01, 0.02],
+                                 pure_noise_percentage=0.1, device=dev)
+    mean = torch.tensor([0.3, -0.2], device=dev).expand(T, C).contiguous()
+    _, _, Un, _ = fr.fused_sample_rollout_costs(
+        dyn, cost, nln, x0, mean, torch.tensor(77, dtype=torch.int32, device=dev), DT,
+        LAM, ALPHA, K_MAIN, optimization_stride=3)
+    same("NLN sample 0", Un[0], mean)
+    same("NLN frozen head", Un[5, :3], mean[:3])
+    moments = philox.nln_moments((Un[1: int(0.9 * K_MAIN), 10:] - mean[10:]) / s, s)
+    bad += philox.nln_moment_failures(moments)
+    if bad:
+        raise AssertionError(f"the in-kernel draw fails its statistics: {bad}")
+    emit("philox", K=K_MAIN, T=T, C=C, max_abs_err=err, battery=stats, nln=moments)
+    return err
+
+
+def fused_kernel_phase(dev, K, p, stride, seed):
+    """B3 (Gaussian, NLN) and B4 (Gaussian, NLN, Smooth-MPPI; and Smooth-
+    MPPI with its epilogue) against their plain versions; at K_MAIN also
+    their times and bounds, and torch.randn at the same size."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # the main path's unconstrained DI; the ragged case adds a clamp
+    cons = ({} if K == K_MAIN else
+            dict(control_ranges=[[-2.0, 2.0], [-1.5, 1.5]], control_deadband=[0.05, 0.0]))
+    dyn = DoubleIntegratorDynamics.create(device=dev, **cons)
+    cost = DoubleIntegratorCircleCost(device=dev)
+    x0 = torch.tensor(X0, device=dev)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=dev)
+    dmean = 0.3 * torch.randn((T, C), generator=g, device=dev)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    b3, b4, times = [], [], {}
+    for kind in ("gaussian", "nln"):
+        args = (dyn, cost, make_sampler(kind, dev, p), x0, mean, seed_t, DT, LAM,
+                ALPHA, K)
+        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(
+            *args, optimization_stride=stride)
+        pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(
+            *args, optimization_stride=stride)
+        km, kb, ke = fr.flash_combine(kcarry, T, C, LAM)
+        pm, pb, pe = fr.flash_combine_plain(pcarry, T, C, LAM)
+        torch.cuda.synchronize()
+        same(f"B3 {kind} crash flags", kcrash, pcrash)
+        b3 += [check(f"B3 {kind} U", kU, pU, "exact"),
+               check(f"B3 {kind} costs", kc, pc, "costs"),
+               check(f"B3 {kind} carry", kcarry, pcarry, "carry",
+                     fr.block_carries_plain(pc, pU.abs(), LAM).abs()),
+               check(f"B3 {kind} new_mean", km, pm, "new_mean"),
+               check(f"B3 {kind} baseline", kb, pb, "baseline"),
+               check(f"B3 {kind} eta", ke, pe, "eta")]
+        if K == K_MAIN:
+            t = timed(lambda: fused_solve.fused_solve_carries(*args),
+                      lambda: fused_solve.fused_solve_plain(*args))
+            t["bound_ms"], t["bound_by"] = bound_ms(
+                *sampling_work(K, kind, True, True, False, False))
+            times[f"solve {kind}"] = t
+    for kind, epilogue in (("gaussian", False), ("nln", False), ("smooth", False),
+                           ("smooth", True)):
+        samp = make_sampler(kind, dev, p)
+        state = dmean if kind == "smooth" else None
+        args = (dyn, cost, samp, x0, mean, seed_t, DT, LAM, ALPHA, K)
+        kout = fr.fused_sample_rollout_costs(*args, optimization_stride=stride,
+                                             sampler_state=state, epilogue=epilogue)
+        pc, pcrash, pU, pW = fr.sample_rollout_plain(
+            *args, optimization_stride=stride, sampler_state=state)
+        torch.cuda.synchronize()
+        name = f"B4 {kind}{' epilogue' if epilogue else ''}"
+        same(f"{name} crash flags", kout[1], pcrash)
+        b4 += [check(f"{name} U", kout[2], pU, "exact"),
+               check(f"{name} costs", kout[0], pc, "costs")]
+        if epilogue:
+            pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM),
+                                                T, C, LAM)
+            b4 += [check(f"{name} new_deriv_mean", kout[3], pm, "new_mean"),
+                   check(f"{name} baseline", kout[4], pb, "baseline"),
+                   check(f"{name} eta", kout[5], pe, "eta")]
+        elif kind == "smooth":
+            b4.append(check(f"{name} W", kout[3], pW, "exact"))
+        if K == K_MAIN:
+            kid = fr.noise_kind(samp)
+
+            def kernel(epilogue=epilogue, samp=samp, state=state, kid=kid):
+                # the kernel alone, as the main path launches it (U not kept)
+                return fr._sample_rollout_cuda(
+                    dyn, cost, samp, kid, x0, mean, seed_t, DT, LAM, ALPHA, K, 0, 0,
+                    state, epilogue, False, None)
+
+            def plain(epilogue=epilogue, args=args, state=state):
+                out = fr.sample_rollout_plain(*args, sampler_state=state)
+                return fr.block_carries_plain(out[0], out[3], LAM) if epilogue else out
+
+            t = timed(kernel, plain)
+            t["bound_ms"], t["bound_by"] = bound_ms(*sampling_work(
+                K, kind, False, epilogue, not epilogue, kind == "smooth" and not epilogue))
+            times[name[3:]] = t
+    if K == K_MAIN:
+        # the draw alone, as one library call: a yardstick, not the function
+        times["randn_reference_ms"] = time_ms(
+            lambda: torch.randn((K, T, C), device=dev), N_TIMED)
+    emit("fused_solve_kernels", K=K, T=T, pure_noise_percentage=p, stride=stride,
+         checks=b3 + b4, times=times)
+    return b3, b4, times
+
+
 def make_inputs(dev, K, p, seed):
     """The main path's kernel inputs: samples drawn by the port's sampler
     around a random mean, clamped, and its LR tables."""
@@ -162,7 +354,7 @@ def make_inputs(dev, K, p, seed):
                                           control_cost_coeff=[0.01, 0.01],
                                           pure_noise_percentage=p, device=dev)
     mean = 0.3 * torch.randn((T, C), generator=g, device=dev)
-    U = sampler.sample(g, mean, K)
+    U, _ = sampler.sample(g, mean, K)
     U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
     x0 = torch.tensor([2.0, 0.0, 0.0, 1.0], device=dev)
     lr = (mean, sampler._sigma(T, 0).contiguous(), sampler.control_cost_coeff,
@@ -234,23 +426,10 @@ def kernel_phase(dev, K, p, seed):
     return checks, times
 
 
-def build_controller(kernel="fused"):
-    """The flagship configuration of bench.py build_controller, on the card
-    (the controller's default device)."""
-    return VanillaMPPI(
-        DoubleIntegratorDynamics.create(),
-        DoubleIntegratorCircleCost(),
-        GaussianDistribution.create(std_dev=[1.0, 1.0],
-                                    control_cost_coeff=[0.01, 0.01]),
-        dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T, num_rollouts=K_MAIN,
-        num_iters=1, kernel=kernel,
-    )
-
-
 def reference_phase(dev):
     """One full-width solve through the kernels against the eager oracle
     (kernel="combined") on the same injected noise."""
-    fused, combined = build_controller("fused"), build_controller("combined")
+    fused, combined = build_vanilla("gaussian", "fused"), build_vanilla("gaussian", "combined")
     g = torch.Generator(device=dev)
     g.manual_seed(11)
     eps = torch.randn((K_MAIN, T, C), generator=g, device=dev)
@@ -269,14 +448,28 @@ def reference_phase(dev):
     emit("reference", K=K_MAIN, T=T, checks=checks)
 
 
-def main_path_phase(dev):
-    ctrl = build_controller("fused")
+def build_vanilla(kind, kernel):
+    """The flagship (bench.py:31-50) or the NLN / Smooth-MPPI rows
+    (bench.py:619-638) on the card (the controller's default device)."""
+    return VanillaMPPI(
+        DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+        make_sampler(kind), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
+        num_rollouts=K_MAIN, num_iters=1, kernel=kernel)
+
+
+def vanilla_loop_phase(path, ctrl, want, settle):
+    """100 closed-loop steps from X0 through the entry points: slide, solve,
+    plant step with the first control, then a profiler window. ``settle``:
+    the flagship's bar (radius in [1.8, 2.2], baseline < 2 at the end), else
+    fewer than MAX_OUT_OF_BAND steps outside BAND. Nothing in the loop
+    waits on the device."""
     if ctrl.device.type != "cuda":
         raise AssertionError("the controller did not default to the card")
     cs = ctrl.init_state(seed=0)
-    x = torch.tensor([2.0, 0.0, 0.0, 1.0], device=ctrl.device)
+    x = torch.tensor(X0, device=ctrl.device)
     n = CLOSED_LOOP_STEPS
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(n)]
+    radii = []
     torch.cuda.synchronize()
     fr.reset_launch_counts()
     t0 = time.perf_counter()
@@ -287,29 +480,92 @@ def main_path_phase(dev):
         ev[i][1].record()
         x, _ = ctrl.dynamics.step(x, res.control_mean[0], 0.0, ctrl.dt)
         ev[i][2].record()
+        radii.append(torch.hypot(x[0], x[1]))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(fr.launch_counts)
-    expect_launches(launches, {"rollout_costs_kernel": n, "flash_combine_kernel": n},
-                    "vanilla")
-    radius = float(torch.hypot(x[0], x[1]))
-    baseline = float(res.baseline)
-    if not 1.8 <= radius <= 2.2 or not baseline < 2.0:
-        raise AssertionError(f"closed loop did not settle: radius {radius}, "
-                             f"baseline {baseline}")
+    expect_launches(launches, want, path)
+    r = torch.stack(radii).cpu()
+    radius, baseline = float(r[-1]), float(res.baseline)
+    out_of_band = int(((r <= BAND[0]) | (r >= BAND[1])).sum())
     for name, t in (("control_mean", res.control_mean), ("costs", res.costs),
-                    ("state_trajectory", res.state_trajectory)):
+                    ("state_trajectory", res.state_trajectory), ("radius", r)):
         if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{name} is not finite")
+            raise AssertionError(f"{path}: {name} is not finite")
     if res.control_mean.shape != (T, C) or res.costs.shape != (K_MAIN,):
-        raise AssertionError("unexpected result shapes")
+        raise AssertionError(f"{path}: unexpected result shapes")
+    if settle and (not 1.8 <= radius <= 2.2 or not baseline < 2.0):
+        raise AssertionError(f"{path}: closed loop did not settle: radius {radius}, "
+                             f"baseline {baseline}")
+    if not settle and out_of_band >= MAX_OUT_OF_BAND:
+        raise AssertionError(f"{path}: {out_of_band} of {n} steps outside "
+                             f"{BAND[0]} < r < {BAND[1]}")
     steady = ev[5:]  # the first solves include one-time allocations
-    emit("main_path", K=K_MAIN, T=T, steps=n, launches=launches,
-         final_radius=radius, final_baseline=baseline,
+    emit("main_path" if path == "vanilla" else f"{path}_main_path", K=K_MAIN, T=T,
+         kernel=ctrl.kernel, sampler=type(ctrl.sampler).__name__, steps=n,
+         launches=launches, final_radius=radius, final_baseline=baseline,
+         out_of_band_steps=out_of_band,
          solve_ms_median=statistics.median(e[0].elapsed_time(e[1]) for e in steady),
          step_ms_median=statistics.median(e[0].elapsed_time(e[2]) for e in steady),
          host_wall_ms_per_step=1e3 * wall_s / n)
+
+    def step():
+        s = ctrl.slide_control_sequence(cs, 1)
+        res, _ = ctrl.solve(x, s)
+        ctrl.dynamics.step(x, res.control_mean[0], 0.0, ctrl.dt)
+
+    profile_steps(path, step)
     return launches
+
+
+def fused_loop_phase(kind):
+    """The fused solve's closed loop of one sampler."""
+    kernel = "fused_sample_rollout_kernel" if kind == "smooth" else "fused_solve_kernel"
+    n = CLOSED_LOOP_STEPS
+    return vanilla_loop_phase(
+        "vanilla_fused_solve" if kind == "gaussian" else kind,
+        build_vanilla(kind, "fused_solve"), {kernel: n, "flash_combine_kernel": n},
+        settle=kind == "gaussian")
+
+
+def fused_reference_phase(dev):
+    """One full-width kernel="fused_solve" solve per sampler against the
+    eager oracle (kernel="combined") on the same injected normals; then one
+    fused solve per sampler under torch.cuda.set_sync_debug_mode("error"),
+    which raises on any host synchronisation."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.tensor(X0, device=dev)
+    checks = []
+    for kind in SAMPLERS:
+        fused, combined = build_vanilla(kind, "fused_solve"), build_vanilla(kind, "combined")
+        z = torch.randn((2 if kind == "nln" else 1, K_MAIN, T, C), generator=g,
+                        device=dev)
+        z = z if kind == "nln" else z[0]
+        state = fused.init_state(seed=0)
+        if kind == "smooth":
+            state = state.replace(
+                sampler_state=0.3 * torch.randn((T, C), generator=g, device=dev))
+        rf, nf = fused.solve(x, state, injected_noise=z)
+        rc, nc = combined.solve(x, state, injected_noise=z)
+        for field in ("control_mean", "costs", "baseline", "state_trajectory"):
+            checks.append(check(f"{kind} {field} vs combined", getattr(rf, field),
+                                getattr(rc, field), "solve"))
+        if kind == "smooth":
+            checks.append(check("smooth derivative mean vs combined",
+                                nf.sampler_state, nc.sampler_state, "solve"))
+        same(f"{kind} crash flags of the fused and the eager solve", rf.crash, rc.crash)
+        cs = fused.slide_control_sequence(nf, 1)
+        fused.solve(x, cs)  # warm: one-time copies and the kernels' first load
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cs = fused.slide_control_sequence(cs, 1)
+            fused.solve(x, cs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    emit("fused_solve_reference", K=K_MAIN, T=T, checks=checks,
+         no_host_sync=list(SAMPLERS))
 
 
 def expect_launches(launches, want, path):
@@ -421,7 +677,7 @@ def rmppi_inputs(dev, K, seed):
     gains = fb.compute_feedback(xs[0], goal_x, us).gains
     sampler = GaussianDistribution.create(std_dev=[1.0, 1.0], device=dev)
     mean = 0.3 * torch.randn((T_R, C), generator=g, device=dev)
-    U = sampler.sample(g, mean, K)
+    U, _ = sampler.sample(g, mean, K)
     x_nom = torch.tensor(X0, device=dev)
     x_real = x_nom + torch.tensor([0.08, -0.05, 0.1, -0.1], device=dev)
     return (fb.dynamics, DoubleIntegratorCircleCost(device=dev), x_nom, x_real, U,
@@ -458,7 +714,7 @@ def x0_phase(dev):
     cands = (1 - w) * x0 + w * (x0 + torch.tensor([0.1, 0.05, 0.0, 0.1], device=dev))
     x0s = cands.repeat_interleave(S_PER, dim=0).contiguous()
     sampler = GaussianDistribution.create(std_dev=[1.0, 1.0], device=dev)
-    U = sampler.sample(g, 0.3 * torch.randn((T_R, C), generator=g, device=dev), K)
+    U, _ = sampler.sample(g, 0.3 * torch.randn((T_R, C), generator=g, device=dev), K)
     U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
     kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
@@ -606,15 +862,6 @@ def robust_loop_phase(kind):
          host_wall_ms_per_step=1e3 * wall_s / n)
     if kind == "rmppi":
         rmppi_breakdown(ctrl, cs, x)
-    profile_steps(kind, ctrl, cs, x)
-    return launches
-
-
-def profile_steps(kind, ctrl, cs, x, n=10):
-    """A torch.profiler window over n closed-loop steps from the same state
-    (after the launch counts were read): kernel launches and device time
-    per step, the device's idle share of the window, the largest kernels."""
-    from torch.profiler import ProfilerActivity, profile
 
     def step():
         s = cs
@@ -623,6 +870,17 @@ def profile_steps(kind, ctrl, cs, x, n=10):
         s = ctrl.slide_control_sequence(s, 1)
         res, _ = ctrl.solve(x, s)
         ctrl.dynamics.step(x, res.real.control_mean[0], 0.0, ctrl.dt)
+
+    profile_steps(kind, step)
+    return launches
+
+
+def profile_steps(kind, step, n=10):
+    """A torch.profiler window over n calls of ``step`` (closed-loop steps
+    from one state, after the launch counts were read): kernel launches and
+    device time per step, the device's idle share of the window, the
+    largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
@@ -663,7 +921,7 @@ def rmppi_breakdown(ctrl, cs, x, n=10):
         return statistics.median(out)
 
     T_, C_ = ctrl.num_timesteps, ctrl.dynamics.CONTROL_DIM
-    U = ctrl._clamp_controls(ctrl.sampler.sample(cs.generator, cs.nominal_mean, S_PER))
+    U = ctrl._clamp_controls(ctrl.sampler.sample(cs.generator, cs.nominal_mean, S_PER)[0])
     W = ctrl.line_search_w
     points = torch.stack([cs.nominal_traj[0], cs.nominal_traj[1], x], dim=1)
     cands = (points @ W).T.contiguous()
@@ -739,12 +997,25 @@ def main() -> int:
         rmppi_times = rmppi_times or t
     checks, x0_times = x0_phase(dev)
     note("rollout_costs_kernel", checks)
+    errs["fused_sample_rollout_kernel"] = philox_phase(dev)
+    solve_times = None
+    for K, p, stride, seed in ((K_MAIN, 0.0, 0, 7), (K_RAGGED, 0.1, 2, 8)):
+        b3, b4, times = fused_kernel_phase(dev, K, p, stride, seed)
+        note("fused_solve_kernel", b3)
+        note("fused_sample_rollout_kernel", b4)
+        solve_times = solve_times or times
 
     reference_phase(dev)
     robust_reference_phase(dev)
-    by_path = {"vanilla": main_path_phase(dev),
+    fused_reference_phase(dev)
+    by_path = {"vanilla": vanilla_loop_phase("vanilla", build_vanilla("gaussian", "fused"), {
+                   "rollout_costs_kernel": CLOSED_LOOP_STEPS,
+                   "flash_combine_kernel": CLOSED_LOOP_STEPS}, settle=True),
                "rmppi": robust_loop_phase("rmppi"),
                "tube": robust_loop_phase("tube")}
+    for kind in SAMPLERS:
+        by_path["vanilla_fused_solve" if kind == "gaussian" else kind] = (
+            fused_loop_phase(kind))
     launches = {name: sum(p[name] for p in by_path.values()) for name in errs}
 
     def entry(name, source, replaces, t, library_ms, **extra):
@@ -772,6 +1043,14 @@ def main() -> int:
               ric_times["riccati_ladder"], None, chain_steps=T_R - 1),
         entry("rmppi_rollout_kernel", "rmppi_rollout.cu", "pallas_rollout.py:2127",
               rmppi_times, None),
+        entry("fused_solve_kernel", "fused_solve.cu", "pallas_solve.py:103",
+              solve_times["solve gaussian"], None,
+              modes={"nln": solve_times["solve nln"]},
+              randn_reference_ms=solve_times["randn_reference_ms"]),
+        entry("fused_sample_rollout_kernel", "fused_solve.cu", "pallas_rollout.py:1631",
+              solve_times["smooth epilogue"], None,
+              modes={m: solve_times[m] for m in ("gaussian", "nln", "smooth")},
+              randn_reference_ms=solve_times["randn_reference_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

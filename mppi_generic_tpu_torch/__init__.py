@@ -16,12 +16,16 @@ from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback
 from mppi_generic_tpu_torch.models.base import Dynamics
 from mppi_generic_tpu_torch.sampling.base import SamplingDistribution
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
+from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
+from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
 
 __all__ = [
     "Dynamics",
     "Cost",
     "SamplingDistribution",
     "GaussianDistribution",
+    "NLNDistribution",
+    "SmoothMPPIDistribution",
     "VanillaMPPI",
     "TubeMPPI",
     "RobustMPPI",

@@ -19,6 +19,7 @@ control history (controller.cuh:557-586), the re-rollout of the mean
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -42,18 +43,22 @@ class SolveResult:
     normalizer: torch.Tensor
     free_energy: FreeEnergyStats
     crash: torch.Tensor  # (K,) int32
+    sampled_controls: Optional[torch.Tensor] = None  # (K, T, C) if requested
 
 
 @dataclasses.dataclass
 class ControllerState:
     """Warm-start state carried between solves: the mean, the 2-step
-    executed-control history, the previous baseline and the generator the
-    samples are drawn from (stateful: solves advance it in place)."""
+    executed-control history, the previous baseline, the generator the
+    samples (or the fused kernels' seeds) are drawn from (stateful: solves
+    advance it in place) and the sampler's own sequence state (Smooth-MPPI's
+    derivative mean; None for stateless samplers)."""
 
     control_mean: torch.Tensor  # (T, C)
     control_history: torch.Tensor  # (2, C)
     generator: torch.Generator
     previous_baseline: torch.Tensor  # ()
+    sampler_state: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "ControllerState":
         return dataclasses.replace(self, **changes)
@@ -73,7 +78,7 @@ def resolve_device(device) -> torch.device:
 class ControllerBase(nn.Module):
     def __init__(self, dynamics, cost, sampler, *, dt=0.02, lam=1.0,
                  alpha=0.0, num_timesteps=100, num_rollouts=1024,
-                 num_iters=1, device=None):
+                 num_iters=1, return_samples=False, device=None):
         super().__init__()
         self.device = resolve_device(device)
         self.dynamics = dynamics.to(self.device)
@@ -85,12 +90,15 @@ class ControllerBase(nn.Module):
         self.num_timesteps = int(num_timesteps)
         self.num_rollouts = int(num_rollouts)
         self.num_iters = int(num_iters)
+        # keep the final iteration's (K, T, C) samples in SolveResult
+        self.return_samples = bool(return_samples)
         if num_iters < 1:
             raise ValueError("num_iters must be >= 1")
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> ControllerState:
-        """Zero mean and history; the generator seeded with ``seed``."""
+        """Zero mean and history; the generator seeded with ``seed``; the
+        sampler's initial state."""
         T, C = self.num_timesteps, self.dynamics.CONTROL_DIM
         f32 = dict(dtype=torch.float32, device=self.device)
         generator = torch.Generator(device=self.device)
@@ -100,6 +108,7 @@ class ControllerBase(nn.Module):
             control_history=torch.zeros((2, C), **f32),
             generator=generator,
             previous_baseline=torch.tensor(1e8, **f32),
+            sampler_state=self.sampler.init_state(),
         )
 
     # --- shared helpers ----------------------------------------------
@@ -133,14 +142,18 @@ class ControllerBase(nn.Module):
 
     def slide_control_sequence(self, ctrl_state: ControllerState,
                                stride: int) -> ControllerState:
-        """Shift the warm-start sequence by ``stride`` and update the
-        history (controller.cuh:347-360). Vacated tail steps become zero
-        control (the JAX default, no ``slide_scale``)."""
+        """Shift the warm-start sequence (and the sampler's state) by
+        ``stride`` and update the history (controller.cuh:347-360). Vacated
+        tail steps become zero control (the JAX default, no
+        ``slide_scale``)."""
         mean = ctrl_state.control_mean
+        new_mean, new_sampler_state = self.sampler.shift(
+            mean, stride, ctrl_state.sampler_state)
         return ctrl_state.replace(
-            control_mean=self.sampler.shift(mean, stride),
+            control_mean=new_mean,
             control_history=math_utils.update_control_history(
                 ctrl_state.control_history, mean, stride),
+            sampler_state=new_sampler_state,
         )
 
     def get_current_control(self, result: SolveResult, rel_time: float):

@@ -104,6 +104,10 @@ class RobustMPPI(ControllerBase):
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
         super().__init__(dynamics, cost, sampler, **kwargs)
+        if self.sampler.init_state() is not None:
+            raise NotImplementedError(
+                f"RMPPI with a stateful sampler ({type(sampler).__name__}) is not "
+                "ported")
         self.kernel = kernel
         self.feedback = feedback.to(self.device)
         self.value_function_threshold = float(np.float32(value_function_threshold))
@@ -186,7 +190,7 @@ class RobustMPPI(ControllerBase):
             cand_strides = self._candidate_strides(int(stride))
             # one sample set shared by all candidates
             # (rmppi_kernels.cu:70, readControlSample(candidate_sample_idx))
-            U = self.sampler.sample(
+            U, _ = self.sampler.sample(
                 ctrl_state.generator, ctrl_state.nominal_mean,
                 self.samples_per_condition, iteration=0,
                 optimization_stride=stride, injected_noise=injected_noise)
@@ -213,7 +217,7 @@ class RobustMPPI(ControllerBase):
             ctrl_state.nominal_control_history, mean_n, nominal_stride)
         real_hist = math_utils.update_control_history(
             ctrl_state.control_history, ctrl_state.control_mean, int(stride))
-        new_nominal_mean = self.sampler.shift(mean_n, nominal_stride)
+        new_nominal_mean, _ = self.sampler.shift(mean_n, nominal_stride)
         # the nominal trajectory and the feedback gains that track it
         states_nom, _ = rollout_single(self.dynamics, nominal_state,
                                        new_nominal_mean, self.dt)
@@ -274,7 +278,7 @@ class RobustMPPI(ControllerBase):
                          else state)
         gains = ctrl_state.feedback_state.gains
         for it in range(self.num_iters):
-            U = self.sampler.sample(
+            U, _ = self.sampler.sample(
                 ctrl_state.generator, mean_nom, self.num_rollouts, iteration=it,
                 optimization_stride=optimization_stride,
                 injected_noise=injected_noise)
@@ -307,8 +311,8 @@ class RobustMPPI(ControllerBase):
             w_r = weight_ops.norm_exp_weights(j_real, self.lam, bl_r)
             eta_n = weight_ops.normalizer(w_n)
             eta_r = weight_ops.normalizer(w_r)
-            mean_nom = self.sampler.update_mean(U_c, w_n, eta_n)
-            mean_real = self.sampler.update_mean(U_c, w_r, eta_r)
+            mean_nom, _ = self.sampler.update_mean(U_c, None, w_n, eta_n, mean_nom)
+            mean_real, _ = self.sampler.update_mean(U_c, None, w_r, eta_r, mean_real)
 
         # each sequence smooths with its own history (:736-738)
         mean_real = self._smooth(mean_real, ctrl_state.control_history)

@@ -64,7 +64,15 @@ class TubeSolveResult:
 class TubeMPPI(VanillaMPPI):
     def __init__(self, dynamics, cost, sampler, *, feedback=None,
                  nominal_threshold=100.0, **kwargs):
+        if kwargs.get("kernel") == "fused_solve":
+            raise NotImplementedError(
+                "Tube-MPPI on the fused solve kernel (JAX robust.py:96's "
+                "pallas_fused alias) is not ported yet; use 'fused' or 'combined'")
         super().__init__(dynamics, cost, sampler, **kwargs)
+        if self.sampler.init_state() is not None:
+            raise NotImplementedError(
+                f"Tube-MPPI with a stateful sampler ({type(sampler).__name__}) "
+                "is not ported")
         self.feedback = None if feedback is None else feedback.to(self.device)
         self.nominal_threshold = float(np.float32(nominal_threshold))
 
@@ -100,13 +108,14 @@ class TubeMPPI(VanillaMPPI):
             if eps is None:  # one draw, shared by both systems
                 eps = torch.randn((K, T, C), generator=ctrl_state.generator,
                                   dtype=torch.float32, device=self.device)
-            mean_real, diag_r = self._iteration(
-                state, mean_real, ctrl_state.generator, it, optimization_stride, eps)
-            mean_nom, diag_n = self._iteration(
-                nominal_state, mean_nom, ctrl_state.generator, it,
+            mean_real, _, diag_r = self._iteration(
+                state, mean_real, None, ctrl_state.generator, it,
                 optimization_stride, eps)
-        costs_r, w_r, bl_r, eta_r, crash_r = diag_r
-        costs_n, w_n, bl_n, eta_n, crash_n = diag_n
+            mean_nom, _, diag_n = self._iteration(
+                nominal_state, mean_nom, None, ctrl_state.generator, it,
+                optimization_stride, eps)
+        _, costs_r, w_r, bl_r, eta_r, crash_r = diag_r
+        _, costs_n, w_n, bl_n, eta_n, crash_n = diag_n
 
         # acceptance (tube_mppi_controller.cu:268-280)
         accept_real = bl_r < bl_n + self.nominal_threshold
@@ -162,8 +171,8 @@ class TubeMPPI(VanillaMPPI):
         nominal_state, _ = self.dynamics.step(x_nom, u0, 0.0, self.dt)
         mean_n = ctrl_state.nominal_mean
         return ctrl_state.replace(
-            control_mean=self.sampler.shift(ctrl_state.control_mean, stride),
-            nominal_mean=self.sampler.shift(mean_n, stride),
+            control_mean=self.sampler.shift(ctrl_state.control_mean, stride)[0],
+            nominal_mean=self.sampler.shift(mean_n, stride)[0],
             nominal_state=nominal_state,
             control_history=math_utils.update_control_history(
                 ctrl_state.control_history, mean_n, stride),

@@ -11,14 +11,17 @@ imports JAX.
   ``inner_path_radius2``, ``outer_path_radius2``,
   ``angular_momentum_desired``, ``discount``;
 * sampler: ``std_dev``, ``control_cost_coeff``, ``pure_noise_percentage``,
-  ``std_dev_decay``;
+  ``std_dev_decay``; Smooth-MPPI also ``dt_smooth`` and ``num_timesteps``;
 * controller: ``dt``, ``lam``, ``alpha``, ``num_timesteps``,
-  ``num_rollouts``, ``num_iters``; for RMPPI also ``value_function_threshold``,
+  ``num_rollouts``, ``num_iters``; for vanilla MPPI optionally
+  ``tsallis_gamma``, ``tsallis_r``, ``cem_elite_fraction``; for RMPPI also
+  ``value_function_threshold``,
   ``num_candidates``, ``samples_per_condition``; for Tube-MPPI
   ``nominal_threshold``;
 * DDP feedback: ``Q``, ``R``, ``Q_f``, ``dt``, ``num_iterations``, and
   optionally ``use_pallas`` (the port's ``use_kernel``);
-* state: ``control_mean``, ``control_history``, ``previous_baseline``; the
+* state: ``control_mean``, ``control_history``, ``previous_baseline`` and
+  optionally ``sampler_state`` (Smooth-MPPI's derivative mean); the
   robust and tube states add ``nominal_mean``, ``nominal_state``,
   ``nominal_initialized``, ``previous_baseline_real``,
   ``previous_baseline_nominal`` and ``feedback_state`` (a dict of
@@ -40,6 +43,8 @@ from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircl
 from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback, DDPFeedbackState
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
+from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
+from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
 
 
 def _arr(v):
@@ -67,14 +72,31 @@ def circle_cost_from_params(p: dict, device="cpu") -> DoubleIntegratorCircleCost
     )
 
 
-def gaussian_from_params(p: dict, device="cpu") -> GaussianDistribution:
-    return GaussianDistribution(
+def _gaussian_kwargs(p: dict) -> dict:
+    return dict(
         std_dev=_arr(p["std_dev"]),
         control_cost_coeff=_arr(p["control_cost_coeff"]),
         pure_noise_percentage=_scalar(p["pure_noise_percentage"]),
         std_dev_decay=_scalar(p["std_dev_decay"]),
-        device=device,
     )
+
+
+def gaussian_from_params(p: dict, device="cpu") -> GaussianDistribution:
+    return GaussianDistribution(**_gaussian_kwargs(p), device=device)
+
+
+def nln_from_params(p: dict, device="cpu") -> NLNDistribution:
+    return NLNDistribution(**_gaussian_kwargs(p), device=device)
+
+
+def smooth_from_params(p: dict, device="cpu") -> SmoothMPPIDistribution:
+    return SmoothMPPIDistribution(
+        num_timesteps=int(p["num_timesteps"]), dt=_scalar(p["dt_smooth"]),
+        **_gaussian_kwargs(p), device=device)
+
+
+SAMPLERS = {"gaussian": gaussian_from_params, "nln": nln_from_params,
+            "smooth": smooth_from_params}
 
 
 def ddp_feedback_from_params(p: dict, dynamics) -> DDPFeedback:
@@ -97,16 +119,23 @@ def _controller_kwargs(controller: dict) -> dict:
 
 
 def vanilla_from_params(dynamics: dict, cost: dict, sampler: dict,
-                        controller: dict, device=None,
-                        kernel="fused") -> VanillaMPPI:
-    """A DI circle-cost Gaussian ``VanillaMPPI`` (device rule as
-    ``VanillaMPPI``: the card unless ``device="cpu"``)."""
+                        controller: dict, device=None, kernel="fused",
+                        sampler_kind="gaussian",
+                        weight_transform="exp") -> VanillaMPPI:
+    """A DI circle-cost ``VanillaMPPI`` with the sampler ``sampler_kind``
+    ("gaussian", "nln" or "smooth"; device rule as ``VanillaMPPI``: the card
+    unless ``device="cpu"``)."""
+    transform = {name: _scalar(controller[name])
+                 for name in ("tsallis_gamma", "tsallis_r", "cem_elite_fraction")
+                 if name in controller}
     return VanillaMPPI(
         double_integrator_from_params(dynamics),
         circle_cost_from_params(cost),
-        gaussian_from_params(sampler),
+        SAMPLERS[sampler_kind](sampler),
         kernel=kernel,
+        weight_transform=weight_transform,
         device=device,
+        **transform,
         **_controller_kwargs(controller),
     )
 
@@ -145,6 +174,9 @@ def state_from_params(p: dict, controller: VanillaMPPI,
                       seed: int = 0) -> ControllerState:
     f32 = dict(dtype=torch.float32, device=controller.device)
     state = controller.init_state(seed=seed)
+    if p.get("sampler_state") is not None:
+        state = state.replace(
+            sampler_state=torch.tensor(_arr(p["sampler_state"]), **f32))
     return state.replace(
         control_mean=torch.tensor(_arr(p["control_mean"]), **f32),
         control_history=torch.tensor(_arr(p["control_history"]), **f32),

@@ -57,12 +57,12 @@
 
 #include "double_integrator.cuh"
 #include "double_integrator_circle_cost.cuh"
+#include "mppi_common.cuh"
 
 namespace {
 
 constexpr int kBlock = 64;  // samples (threads) per block of kernel 1
 constexpr int kCombineThreads = 256;
-constexpr float kMasked = -1e30f;
 
 struct LRArgs {
   const float* mean;   // (T, C) the sampling mean
@@ -71,36 +71,6 @@ struct LRArgs {
   float gain;          // 0.5 * lambda * (1 - alpha)
   float pure_thresh;   // (1 - p) * K: samples k >= it have mu = 0
 };
-
-template <int N>
-__device__ inline float block_max(float v, float* red) {
-  const int tid = threadIdx.x;
-  red[tid] = v;
-  __syncthreads();
-#pragma unroll
-  for (int off = N / 2; off > 0; off >>= 1) {
-    if (tid < off) red[tid] = fmaxf(red[tid], red[tid + off]);
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
-}
-
-template <int N>
-__device__ inline float block_sum(float v, float* red) {
-  const int tid = threadIdx.x;
-  red[tid] = v;
-  __syncthreads();
-#pragma unroll
-  for (int off = N / 2; off > 0; off >>= 1) {
-    if (tid < off) red[tid] = red[tid] + red[tid + off];
-    __syncthreads();
-  }
-  const float r = red[0];
-  __syncthreads();
-  return r;
-}
 
 template <class Dyn, class Cost, bool EPILOGUE, bool WITH_LR, bool PER_SAMPLE_X0>
 __global__ void __launch_bounds__(kBlock)
@@ -152,30 +122,7 @@ rollout_costs_kernel(const float* __restrict__ x0,
     crash_out[k] = crash;
   }
 
-  if (EPILOGUE) {
-    __shared__ float red[kBlock];
-    __shared__ float w_s[kBlock];
-    const float s = valid ? (-J) / lam_w : kMasked;
-    const float m_b = block_max<kBlock>(s, red);
-    const float w = expf(s - m_b);  // exactly 0 for the masked tail
-    w_s[threadIdx.x] = w;
-    const float d_b = block_sum<kBlock>(w, red);  // syncs: w_s is visible
-    const int base = blockIdx.x * kBlock;
-    const int n_valid = min(kBlock, K - base);
-    const float* Ub = U + static_cast<size_t>(base) * TC;
-    float* row = carry + static_cast<size_t>(blockIdx.x) * (2 + TC);
-    for (int j = threadIdx.x; j < TC; j += kBlock) {
-      float a = 0.0f;
-      for (int i = 0; i < n_valid; ++i) {
-        a = a + w_s[i] * Ub[static_cast<size_t>(i) * TC + j];
-      }
-      row[2 + j] = a;
-    }
-    if (threadIdx.x == 0) {
-      row[0] = m_b;
-      row[1] = d_b;
-    }
-  }
+  if (EPILOGUE) write_block_carry<kBlock>(J, valid, lam_w, U, K, TC, carry);
 }
 
 __global__ void __launch_bounds__(kCombineThreads)

@@ -45,22 +45,11 @@
 
 #include "double_integrator.cuh"
 #include "double_integrator_circle_cost.cuh"
+#include "mppi_common.cuh"
 
 namespace {
 
 constexpr int kBlock = 64;  // samples (threads) per block
-
-// enforceConstraints for one channel: deadband snap and shrink, then clamp
-__device__ inline float clamp_channel(float u, const float* cons, int C,
-                                      int c) {
-  const float lo = cons[c];
-  const float hi = cons[C + c];
-  const float db = cons[2 * C + c];
-  const float zc = cons[3 * C + c];
-  const float shrunk = u - db * (u < 0.0f ? -1.0f : 1.0f);
-  const float v = fabsf(u) < db ? zc : shrunk;
-  return fminf(fmaxf(v, lo), hi);
-}
 
 template <class Dyn, class Cost>
 __global__ void __launch_bounds__(kBlock)

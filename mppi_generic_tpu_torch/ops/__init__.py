@@ -3,22 +3,29 @@ from mppi_generic_tpu_torch.ops.fused_rollout import (
     flash_combine,
     fused_rmppi_rollout,
     fused_rollout_costs,
+    fused_sample_rollout_costs,
     fused_weighted_rollout,
 )
+from mppi_generic_tpu_torch.ops.fused_solve import fused_solve_iteration
 from mppi_generic_tpu_torch.ops.riccati import riccati_backward, riccati_ladder_solve
 from mppi_generic_tpu_torch.ops.rollout import rollout_combined
 from mppi_generic_tpu_torch.ops.weights import (
     FreeEnergyStats,
+    cem_weights,
     compute_free_energy,
     norm_exp_weights,
+    tsallis_weights,
 )
 
 __all__ = [
     "FreeEnergyStats",
+    "cem_weights",
     "compute_free_energy",
     "flash_combine",
     "fused_rmppi_rollout",
     "fused_rollout_costs",
+    "fused_sample_rollout_costs",
+    "fused_solve_iteration",
     "fused_weighted_rollout",
     "launch_counts",
     "norm_exp_weights",
@@ -26,4 +33,5 @@ __all__ = [
     "riccati_backward",
     "riccati_ladder_solve",
     "rollout_combined",
+    "tsallis_weights",
 ]

@@ -57,6 +57,21 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _P,      # s_nom, j_real, s_fb, crash, U_real, stream
         ],
     },
+    "fused_solve": {
+        "fused_solve_block_size": [],
+        "fused_solve_di_circle": [
+            _I, _I, _P, _P, _P, _P, _P, _P,  # device, noise kind, x0, mean, sigma, aux, lrc, cons
+            _P, _P, _I, _I, _I,              # seed, injected normals, K, T, stride
+            _F, _F, _F, _F, _P,              # pure thresh, dt, lr gain, lam_w, cost params
+            _P, _P, _P, _P, _P,              # costs, crash, U, carry, stream
+        ],
+        "fused_sample_rollout_di_circle": [
+            _I, _I, _I, _P, _P, _P, _P, _P, _P,  # device, kind, epilogue, x0, mean, sigma, aux, coeff, cons
+            _P, _P, _I, _I, _I,                  # seed, injected normals, K, T, stride
+            _F, _F, _F, _F, _F, _P,              # pure thresh, dt_smooth, dt, lr gain, lam_w, cost params
+            _P, _P, _P, _P, _P, _P,              # costs, crash, U, W, carry, stream
+        ],
+    },
     "riccati": {
         "riccati_max_alphas": [],
         "riccati_backward_s4c2": [
@@ -80,6 +95,8 @@ launch_counts = {
     "rmppi_rollout_kernel": 0,
     "riccati_backward_kernel": 0,
     "riccati_ladder_kernel": 0,
+    "fused_solve_kernel": 0,
+    "fused_sample_rollout_kernel": 0,
 }
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_rollout.py``: the hand-written
 Hopper kernels in ``csrc/fused_rollout.cu`` replace its TPU kernel
-``_fused_call`` in two modes, and the one in ``csrc/rmppi_rollout.cu`` its
-TPU kernel ``_fused_rmppi_call``.
+``_fused_call`` in two modes, the one in ``csrc/rmppi_rollout.cu`` its TPU
+kernel ``_fused_rmppi_call``, and ``fused_sample_rollout_kernel`` in
+``csrc/fused_solve.cu`` its TPU kernel ``_fused_sample_call``.
 
 * ``fused_rollout_costs``: per sample, a T-step rollout with running cost,
   terminal cost and (with ``lr_params``) the Gaussian likelihood-ratio cost
@@ -17,6 +18,12 @@ TPU kernel ``_fused_rmppi_call``.
 * ``fused_rmppi_rollout``: RMPPI's augmented rollout, the nominal and the
   real system of each sample stepped together, the real one with the DDP
   feedback K[t] (x_real - x_nom) in the loop.
+* ``fused_sample_rollout_costs``: the samples drawn inside the kernel
+  (Philox, ``ops/philox.py``) for the Gaussian, NLN and Smooth-MPPI
+  samplers, with their carve-outs, the clamp, the per-step LR cost and the
+  rollout; optionally (Smooth-MPPI) the flash epilogue over the derivative
+  samples W. The helpers of the in-kernel draw (``noise_kind``, the tables,
+  ``sample_plain``) are shared with ``ops/fused_solve.py``.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module, with the same arithmetic) for CPU tensors.
@@ -37,13 +44,17 @@ import torch
 
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
-from mppi_generic_tpu_torch.ops import _build
+from mppi_generic_tpu_torch.ops import _build, philox
 from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
+from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
+from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
 
 __all__ = [
     "flash_combine",
     "fused_rmppi_rollout",
     "fused_rollout_costs",
+    "fused_sample_rollout_costs",
     "fused_weighted_rollout",
     "launch_counts",
     "reset_launch_counts",
@@ -62,6 +73,16 @@ _ROLLOUT_ENTRY = {
 _RMPPI_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rmppi_rollout_di_circle",
 }
+_SAMPLE_ENTRY = {
+    (DoubleIntegratorDynamics, DoubleIntegratorCircleCost):
+        "fused_sample_rollout_di_circle",
+}
+
+# the samplers whose noise the fused sampling kernels draw (noise_kind in
+# csrc/fused_solve.cu)
+GAUSSIAN, NLN, SMOOTH = 0, 1, 2
+_NOISE_KIND = {GaussianDistribution: GAUSSIAN, NLNDistribution: NLN,
+               SmoothMPPIDistribution: SMOOTH}
 
 
 def _f32(v) -> float:
@@ -356,9 +377,7 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
     The inputs are checked as the kernel takes them on every device."""
     K, T, C = U.shape
     S = dynamics.STATE_DIM
-    constraints = torch.stack([dynamics.control_ranges[:, 0],
-                               dynamics.control_ranges[:, 1],
-                               dynamics.control_deadband, dynamics.zero_control])
+    constraints = constraint_table(dynamics)
     _check_tensors({"U": U, "x0_nom": (x0_nom, (S,)), "x0_real": (x0_real, (S,)),
                     "gains": (gains, (T, C, S)), "sigma": (sigma, (T, C)),
                     "coeff": (coeff, (C,)), "cost params": cost.params,
@@ -388,3 +407,234 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
     _check_status(status, "rmppi_rollout_kernel")
     launch_counts["rmppi_rollout_kernel"] += 1
     return s_nom, j_real, s_fb, crash, U_real
+
+
+# ---------------------------------------------------------------------------
+# the in-kernel draw (shared with ops/fused_solve.py)
+# ---------------------------------------------------------------------------
+def noise_kind(sampler) -> int:
+    """GAUSSIAN, NLN or SMOOTH: which noise the fused sampling kernels draw
+    for ``sampler``. Any other sampler raises, as the JAX kernels refuse it
+    (pallas_rollout.py:2520-2535)."""
+    kind = _NOISE_KIND.get(type(sampler))
+    if kind is None:
+        raise NotImplementedError(
+            "the fused sampling kernels draw the noise of the Gaussian, NLN and "
+            f"Smooth-MPPI samplers, not of {type(sampler).__name__}")
+    return kind
+
+
+def constraint_table(dynamics):
+    """(4, C) [lo; hi; deadband; zero control]: the dynamics'
+    enforceConstraints as the kernels read it."""
+    return torch.stack([dynamics.control_ranges[:, 0], dynamics.control_ranges[:, 1],
+                        dynamics.control_deadband, dynamics.zero_control]).contiguous()
+
+
+def sample_tables(sampler, kind, mean, iteration, sampler_state=None):
+    """(sigma (T, C), aux (T, C) or None) of one iteration: the decayed
+    sigma, and NLN's lognormal scale (the RAW std-dev, not the decayed one,
+    pallas_rollout.py:2570-2581) or Smooth-MPPI's derivative mean."""
+    T, C = mean.shape
+    sigma = sampler._sigma(T, iteration).contiguous()
+    if kind == NLN:
+        return sigma, sampler.std_dev.expand(T, C).contiguous()
+    if kind == SMOOTH:
+        if sampler_state is None:
+            raise ValueError("Smooth-MPPI needs sampler_state (the derivative mean)")
+        return sigma, sampler_state
+    return sigma, None
+
+
+def standard_normals(kind, seed, K, T, C, injected_noise=None):
+    """(n_z, K, T, C) standard normals of one iteration (n_z = 2 for NLN's
+    z and z2): ``injected_noise`` when given, (K, T, C) or (n_z, K, T, C),
+    else the kernels' Philox draw from ``seed``."""
+    n_z = 2 if kind == NLN else 1
+    if injected_noise is None:
+        return philox.normals(seed, K, T, C, streams=n_z)
+    z = injected_noise[None] if injected_noise.dim() == 3 else injected_noise
+    if tuple(z.shape) != (n_z, K, T, C):
+        raise ValueError(f"injected_noise must be ({n_z}, {K}, {T}, {C}), got "
+                         f"{tuple(injected_noise.shape)}")
+    return z
+
+
+def sample_plain(dynamics, sampler, kind, mean, seed, K, iteration, stride,
+                 sampler_state=None, injected_noise=None):
+    """The kernels' draw, carve-outs and clamp, with the same float
+    operations: the eager sampler applied to the kernels' normals, then the
+    dynamics' clamp. Returns (U (K, T, C), W (K, T, C) or None)."""
+    T, C = mean.shape
+    z = standard_normals(kind, seed, K, T, C, injected_noise)
+    U, W = sampler.sample(None, mean, K, iteration=iteration,
+                          optimization_stride=stride, state=sampler_state,
+                          injected_noise=z if kind == NLN else z[0])
+    return dynamics.enforce_constraints(None, U.movedim(-1, 0)).movedim(0, -1), W
+
+
+def _rollout_sums(dynamics, cost, x0, U, dt, step_extra=None):
+    """The sampling kernels' rollout loop from one x0 (S,): (acc, terminal,
+    crash), acc = sum_t (running_t [+ step_extra(t, u_t)]) summed as
+    (acc + running) + extra."""
+    K, T, C = U.shape
+    Uc = U.permute(2, 1, 0)  # (C, T, K)
+    x = x0[:, None].expand(-1, K)
+    crash = torch.zeros((K,), dtype=torch.int32, device=U.device)
+    acc = torch.zeros((K,), dtype=torch.float32, device=U.device)
+    y = None
+    for t in range(T):
+        u = Uc[:, t]
+        x, y = dynamics.step(x, u, float(t), dt)
+        c, crash = cost.running_cost(y, u, t, crash)
+        acc = acc + c
+        if step_extra is not None:
+            acc = acc + step_extra(t, u)
+    return acc, cost.terminal_cost(y), crash
+
+
+def _seed_tensor(seed, device):
+    """The iteration's seed as the kernels read it: a 0-d int32 tensor on
+    ``device`` (the controllers draw it there, so no solve waits on it)."""
+    if not isinstance(seed, torch.Tensor):
+        return torch.tensor(int(seed), dtype=torch.int32, device=device)
+    if seed.device != device or seed.dtype != torch.int32 or seed.numel() != 1:
+        raise ValueError(f"seed must be one int32 on {device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return seed.reshape(())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_lib():
+    """The library of csrc/fused_solve.cu (both fused sampling kernels),
+    checked to agree with this module on the block size."""
+    lib = _build.load("fused_solve")
+    if lib.fused_solve_block_size() != BLOCK:
+        raise RuntimeError("csrc/fused_solve.cu and BLOCK disagree")
+    return lib
+
+
+def sample_rollout_plain(dynamics, cost, sampler, x0, mean, seed, dt, lam, alpha,
+                         num_rollouts, iteration=0, optimization_stride=0,
+                         sampler_state=None, injected_noise=None):
+    """Plain version of ``fused_sample_rollout_kernel``: (costs (K,), crash
+    (K,) int32, U (K, T, C), W (K, T, C) or None), the kernel's operations
+    in its order. The LR term of each step is scaled and added to the
+    running sum (pallas_rollout.py:1811-1828), J = (acc + terminal) / T."""
+    kind = noise_kind(sampler)
+    K = num_rollouts
+    T, C = mean.shape
+    sigma, _ = sample_tables(sampler, kind, mean, iteration, sampler_state)
+    U, W = sample_plain(dynamics, sampler, kind, mean, seed, K, iteration,
+                        optimization_stride, sampler_state, injected_noise)
+    coeff = sampler.control_cost_coeff
+    gain = _lr_gain(lam, alpha)
+    pure_k = sampler._pure_noise_mask(K)
+
+    def lr_step(t, u):
+        lr_t = torch.zeros_like(u[0])
+        for ch in range(C):
+            mu = torch.where(pure_k, 0.0, mean[t, ch])
+            sg = sigma[t, ch]
+            lr_t = lr_t + coeff[ch] * mu * (mu - 2.0 * u[ch]) / (sg * sg)
+        return gain * lr_t
+
+    acc, term, crash = _rollout_sums(dynamics, cost, x0, U, dt, lr_step)
+    return _div(acc + term, T), crash, U, W
+
+
+def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
+                         alpha, K, iteration, stride, sampler_state, epilogue,
+                         emit_samples, injected_noise):
+    """Launch ``fused_sample_rollout_kernel``: (costs, crash, U or None,
+    W or None, carry or None)."""
+    entry = _SAMPLE_ENTRY.get((type(dynamics), type(cost)))
+    if entry is None:
+        raise NotImplementedError(
+            f"no CUDA sampling kernel for {type(dynamics).__name__} with "
+            f"{type(cost).__name__}")
+    T, C = mean.shape
+    S = dynamics.STATE_DIM
+    dev = mean.device
+    sigma, aux = sample_tables(sampler, kind, mean, iteration, sampler_state)
+    cons = constraint_table(dynamics)
+    z = (None if injected_noise is None
+         else standard_normals(kind, seed, K, T, C, injected_noise))
+    tensors = {"x0": (x0, (S,)), "mean": (mean, (T, C)), "sigma": sigma,
+               "coeff": (sampler.control_cost_coeff, (C,)), "constraints": cons,
+               "cost params": cost.params}
+    if aux is not None:
+        tensors["aux"] = (aux, (T, C))
+    if z is not None:
+        tensors["injected_noise"] = z
+    _check_tensors(tensors, dev)
+    if C != dynamics.CONTROL_DIM or K < 1 or T < 1 or 2 * K * T * C >= 2**31:
+        raise ValueError(f"unsupported sizes K={K}, T={T}, C={C}")
+    seed = _seed_tensor(seed, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    costs = torch.empty((K,), **f32)
+    crash = torch.empty((K,), dtype=torch.int32, device=dev)
+    U = torch.empty((K, T, C), **f32) if emit_samples or not epilogue else None
+    W = torch.empty((K, T, C), **f32) if kind == SMOOTH else None
+    carry = torch.empty((-(-K // BLOCK), 2 + T * C), **f32) if epilogue else None
+    status = getattr(_solve_lib(), entry)(
+        dev.index, kind, int(epilogue), x0.data_ptr(), mean.data_ptr(),
+        sigma.data_ptr(), _ptr(aux), sampler.control_cost_coeff.data_ptr(),
+        cons.data_ptr(), seed.data_ptr(), _ptr(z), K, T, int(stride),
+        _f32(sampler.pure_threshold(K)),
+        _f32(getattr(sampler, "dt_smooth", 0.0)), _f32(dt), _lr_gain(lam, alpha),
+        _f32(lam), cost.params.data_ptr(), costs.data_ptr(), crash.data_ptr(),
+        _ptr(U), _ptr(W), _ptr(carry), torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(status, "fused_sample_rollout_kernel")
+    launch_counts["fused_sample_rollout_kernel"] += 1
+    return costs, crash, U, W, carry
+
+
+def fused_sample_rollout_costs(dynamics, cost, sampler, x0, mean, seed, dt, lam,
+                               alpha, num_rollouts, iteration=0,
+                               optimization_stride=0, sampler_state=None,
+                               epilogue=False, emit_samples=True,
+                               injected_noise=None):
+    """Fused sample + rollout (the JAX ``fused_sample_rollout_costs``,
+    pallas_rollout.py:2457-2515): the samples are drawn in the kernel from
+    ``seed`` (a 0-d int32 tensor on the samples' device), carved out,
+    clamped and rolled out with the per-step LR cost. Returns
+    (costs (K,), crash (K,), U (K, T, C), aux), where aux is Smooth-MPPI's
+    derivative samples W (K, T, C), else None.
+
+    ``epilogue=True`` (Smooth-MPPI only): the flash normExp epilogue over W,
+    which Smooth-MPPI's mean update weights (smooth-MPPI.cu:203-236).
+    Returns (costs, crash, U or None, new_deriv_mean (T, C), baseline, eta);
+    U only with ``emit_samples``.
+
+    ``injected_noise`` replaces the draw with given standard normals:
+    (K, T, C), or (2, K, T, C) for NLN (z, z2). ``optimization_stride`` is a
+    host integer. Samplers other than Gaussian, NLN and Smooth-MPPI raise;
+    CPU tensors run the plain version, CUDA tensors the kernel."""
+    kind = noise_kind(sampler)
+    if epilogue and kind != SMOOTH:
+        raise NotImplementedError(
+            "the sampling kernel's flash epilogue is Smooth-MPPI's, over W; the "
+            "Gaussian and NLN samplers take fused_solve_iteration")
+    T, C = mean.shape
+    K = num_rollouts
+    if _on_cpu(mean):
+        costs, crash, U, W = sample_rollout_plain(
+            dynamics, cost, sampler, x0, mean, seed, dt, lam, alpha, K, iteration,
+            optimization_stride, sampler_state, injected_noise)
+        if not epilogue:
+            return costs, crash, U, W
+        carry = block_carries_plain(costs, W, _f32(lam))
+    else:
+        costs, crash, U, W, carry = _sample_rollout_cuda(
+            dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, alpha, K,
+            iteration, optimization_stride, sampler_state, epilogue, emit_samples,
+            injected_noise)
+        if not epilogue:
+            return costs, crash, U, W
+    new_dm, baseline, eta = flash_combine(carry, T, C, lam)
+    return costs, crash, U if emit_samples else None, new_dm, baseline, eta

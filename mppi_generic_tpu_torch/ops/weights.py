@@ -1,14 +1,15 @@
-"""normExp weights and free-energy statistics, in PyTorch.
+"""Weight transforms and free-energy statistics, in PyTorch.
 
 Counterpart of ``mppi_generic_tpu/ops/weights.py`` (core/mppi_common.cu
-normExp and computeFreeEnergy). Every result stays a tensor on the device:
-nothing here waits for the device.
+normExp, Tsallis and computeFreeEnergy; the CEM shaping function). Every
+result stays a tensor on the device: nothing here waits for the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -20,6 +21,27 @@ def baseline_cost(costs):
 def norm_exp_weights(costs, lam, baseline):
     """w_i = exp(-(J_i - baseline) / lambda) (mppi_common.cu:958-967)."""
     return torch.exp(-(costs - baseline) / lam)
+
+
+def tsallis_weights(costs, gamma, r, baseline):
+    """Tsallis-divergence weights (TsallisTransform, mppi_common.cu:969-985):
+    w_i = (1 - dJ / gamma)^(1 / (r - 1)) for dJ = J_i - baseline < gamma,
+    else 0. ``gamma`` and ``r`` are host floats."""
+    dj = costs - baseline
+    inside = dj < gamma
+    base = torch.clamp(1.0 - dj / gamma, min=1e-30)
+    w = torch.exp(torch.log(base) / (r - 1.0))
+    return torch.where(inside, w, 0.0)
+
+
+def cem_weights(costs, elite_fraction):
+    """Cross-entropy-method elite weights (cem_shaping_function.cuh:8-41):
+    1 for the max(floor(fraction * K), 1) lowest costs, ties at the
+    threshold included, else 0. ``elite_fraction`` is a host float."""
+    K = costs.shape[-1]
+    n_elite = max(int(np.floor(np.float32(elite_fraction) * np.float32(K))), 1)
+    thresh = torch.kthvalue(costs, n_elite, dim=-1).values
+    return (costs <= thresh[..., None]).to(costs.dtype)
 
 
 def normalizer(weights):

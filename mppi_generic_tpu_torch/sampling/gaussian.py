@@ -14,9 +14,11 @@ semantics (gaussian.cu setGaussianControls:17-130):
 * feedback cost 0.5 * lambda * (1 - alpha) * sum_i c_i u_fb_i^2 / sigma_i^2
   of RMPPI's feedback controls (gaussian.cu:572-629).
 
-Noise comes from an explicit ``torch.Generator``; its stream differs from
-``jax.random`` by design, so tests hand both packages the same noise
-through ``injected_noise``.
+Noise comes from an explicit ``torch.Generator`` (``_draw_noise``, the
+hook the NLN sampler overrides); its stream differs from ``jax.random`` by
+design, so tests hand both packages the same standard normals through
+``injected_noise``. The fused sampling kernels draw the same distribution
+in the kernel instead (``ops/philox.py``).
 """
 
 from __future__ import annotations
@@ -77,18 +79,23 @@ class GaussianDistribution(SamplingDistribution):
         return k >= self.pure_threshold(num_rollouts)
 
     def sample(self, generator, mean, num_rollouts, *, iteration=0,
-               optimization_stride=0, injected_noise=None):
-        """(K, T, C) samples. ``injected_noise`` replaces the standard
+               optimization_stride=0, state=None, injected_noise=None):
+        """(U (K, T, C), None). ``injected_noise`` replaces the standard
         normals drawn from ``generator`` (the test hook the JAX kernels
         also have)."""
-        T, C = mean.shape
-        if injected_noise is None:
-            eps = torch.randn((num_rollouts, T, C), generator=generator,
-                              dtype=mean.dtype, device=mean.device)
-        else:
-            eps = injected_noise
+        del state
+        eps = self._draw_noise(generator, mean, num_rollouts, injected_noise)
         return self._apply_carveouts(eps, mean, num_rollouts, iteration,
-                                     optimization_stride)
+                                     optimization_stride), None
+
+    def _draw_noise(self, generator, mean, num_rollouts, normals=None):
+        """(K, T, C) noise eps before sigma: the given standard ``normals``
+        (K, T, C), or a draw from ``generator``."""
+        if normals is not None:
+            return normals
+        T, C = mean.shape
+        return torch.randn((num_rollouts, T, C), generator=generator,
+                           dtype=mean.dtype, device=mean.device)
 
     def _apply_carveouts(self, eps, mean, num_rollouts, iteration,
                          optimization_stride):

@@ -7,6 +7,8 @@ here; the rest of the JAX module is still to be ported.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -43,8 +45,14 @@ def savitzky_golay_smooth(u_seq: torch.Tensor, history=None) -> torch.Tensor:
     tail = u_seq[-1:].expand(2, -1)
     padded = torch.cat([history, u_seq, tail], dim=0)  # (T+4, C)
     windows = padded.unfold(0, T, 1).permute(0, 2, 1)  # (5, T, C)
-    filt = torch.as_tensor(SG_FILTER_5, device=u_seq.device)
-    return torch.einsum("w,wtc->tc", filt, windows)
+    return torch.einsum("w,wtc->tc", _sg_filter(u_seq.device), windows)
+
+
+@functools.lru_cache(maxsize=None)
+def _sg_filter(device: torch.device) -> torch.Tensor:
+    """SG_FILTER_5 on ``device``, copied there once: a copy from the host
+    in every solve would make the solve wait for the device."""
+    return torch.as_tensor(SG_FILTER_5, device=device)
 
 
 def update_control_history(history: torch.Tensor, u_seq: torch.Tensor,

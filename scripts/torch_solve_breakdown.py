@@ -76,7 +76,7 @@ def main() -> int:
     x = torch.tensor([2.0, 0.0, 0.0, 1.0], device=dev)
     mean = cs.control_mean
     sampler = ctrl.sampler
-    U = ctrl._clamp_controls(sampler.sample(cs.generator, mean, K))
+    U = ctrl._clamp_controls(sampler.sample(cs.generator, mean, K)[0])
     lr = (mean, sampler._sigma(T, 0), sampler.control_cost_coeff, ctrl.lam,
           ctrl.alpha, sampler.pure_threshold(K))
     costs, _, new_mean, baseline, _ = fused_rollout.fused_weighted_rollout(

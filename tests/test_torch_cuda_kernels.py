@@ -11,12 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from mppi_generic_tpu_torch import DDPFeedback, GaussianDistribution, VanillaMPPI
+from mppi_generic_tpu_torch import (
+    DDPFeedback,
+    GaussianDistribution,
+    NLNDistribution,
+    SmoothMPPIDistribution,
+    VanillaMPPI,
+)
 from mppi_generic_tpu_torch.costs import DoubleIntegratorCircleCost
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder
 from mppi_generic_tpu_torch.models import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
-from mppi_generic_tpu_torch.ops import riccati
+from mppi_generic_tpu_torch.ops import fused_solve, philox, riccati
 
 T, C = 24, 2
 DT, LAM, ALPHA, P_PURE = 0.02, 1.3, 0.1, 0.25
@@ -210,3 +216,90 @@ def test_ddp_feedback_kernel_matches_scan_on_the_card(cuda_device):
     gs = fb_s.compute_feedback(x0, p["goal_x"], p["us"])
     _close(gk.gains, gs.gains, rtol=1e-4, atol=1e-5)
     _close(gk.x_traj, gs.x_traj, rtol=1e-4, atol=1e-5)
+
+
+def _sampler(kind, dev, T_=T):
+    kw = dict(std_dev=[0.8, 1.3], control_cost_coeff=[0.01, 0.5],
+              pure_noise_percentage=P_PURE, device=dev)
+    if kind == "nln":
+        return NLNDistribution.create(**kw)
+    if kind == "smooth":
+        return SmoothMPPIDistribution.create(num_timesteps=T_, dt=0.05, **kw)
+    return GaussianDistribution.create(**kw)
+
+
+def _fused_inputs(kind, K, dev, inject):
+    g = torch.Generator(device=dev).manual_seed(K)
+    dyn = DoubleIntegratorDynamics.create(control_ranges=[[-1.5, 1.5], [-1.0, 1.0]],
+                                          control_deadband=[0.02, 0.0], device=dev)
+    cost = DoubleIntegratorCircleCost(device=dev)
+    mean = 0.5 * torch.randn((T, C), generator=g, device=dev)
+    seed = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    z = None
+    if inject:
+        n_z = 2 if kind == "nln" else 1
+        z = torch.randn((n_z, K, T, C), generator=g, device=dev)
+    x0 = torch.tensor([2.0, 0.05, -0.1, 1.0], device=dev)
+    return dyn, cost, _sampler(kind, dev), x0, mean, seed, z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+@pytest.mark.parametrize("inject", [False, True])
+def test_fused_solve_kernel_matches_plain(cuda_device, K, kind, inject):
+    dyn, cost, samp, x0, mean, seed, z = _fused_inputs(kind, K, cuda_device, inject)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    kw = dict(iteration=1, optimization_stride=2, injected_noise=z)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_solve_kernel"] == 1
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
+    _close(kU, pU, rtol=1e-5, atol=1e-6)
+    _close(kc, pc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("kind,epilogue", [("gaussian", False), ("nln", False),
+                                           ("smooth", False), ("smooth", True)])
+def test_fused_sample_rollout_kernel_matches_plain(cuda_device, K, kind, epilogue):
+    dyn, cost, samp, x0, mean, seed, _ = _fused_inputs(kind, K, cuda_device, False)
+    state = 0.3 * torch.ones((T, C), device=cuda_device) if kind == "smooth" else None
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    kw = dict(iteration=0, optimization_stride=1, sampler_state=state)
+    fr.reset_launch_counts()
+    kout = fr.fused_sample_rollout_costs(*args, epilogue=epilogue, **kw)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_sample_rollout_kernel"] == 1
+    pc, pcrash, pU, pW = fr.sample_rollout_plain(*args, **kw)
+    _close(kout[0], pc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kout[1], pcrash)
+    _close(kout[2], pU, rtol=1e-5, atol=1e-6)
+    if epilogue:
+        pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM), T, C, LAM)
+        _close(kout[3], pm, rtol=1e-4, atol=1e-5)
+        _close(kout[4], pb, rtol=1e-6, atol=0)
+        _close(kout[5], pe, rtol=1e-5, atol=0)
+    elif kind == "smooth":
+        _close(kout[3], pW, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_draw_equals_the_plain_philox(cuda_device):
+    """Zero mean, unit sigma, no constraints: the sampling kernel's U is its
+    raw Philox draw, which must equal ops/philox.py's."""
+    K = 1000
+    dyn = DoubleIntegratorDynamics.create(device=cuda_device)
+    cost = DoubleIntegratorCircleCost(device=cuda_device)
+    samp = GaussianDistribution.create(std_dev=[1.0, 1.0], device=cuda_device)
+    seed = torch.tensor(2024, dtype=torch.int32, device=cuda_device)
+    x0 = torch.tensor([2.0, 0.0, 0.0, 1.0], device=cuda_device)
+    _, _, U, _ = fr.fused_sample_rollout_costs(
+        dyn, cost, samp, x0, torch.zeros((T, C), device=cuda_device), seed, DT, LAM,
+        ALPHA, K)
+    z = philox.normals(seed, K, T, C)[0]
+    _close(U[1:], z[1:], rtol=0, atol=0)

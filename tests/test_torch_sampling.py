@@ -54,17 +54,18 @@ def test_apply_carveouts_matches_jax(iteration):
 def test_sample_with_injected_noise_equals_carveouts():
     eps, mean = _inputs(1)
     _, t = _pair()
-    got = t.sample(None, torch.from_numpy(mean), K, optimization_stride=2,
-                   injected_noise=torch.from_numpy(eps))
+    got, aux = t.sample(None, torch.from_numpy(mean), K, optimization_stride=2,
+                        injected_noise=torch.from_numpy(eps))
     _close(got, t._apply_carveouts(torch.from_numpy(eps), torch.from_numpy(mean),
                                    K, 0, 2), rtol=0, atol=0)
+    assert aux is None
 
 
 def test_sample_draws_from_generator():
     _, t = _pair(p=0.0)
     mean = torch.zeros((T, C))
-    a = t.sample(torch.Generator().manual_seed(3), mean, K)
-    b = t.sample(torch.Generator().manual_seed(3), mean, K)
+    a, _ = t.sample(torch.Generator().manual_seed(3), mean, K)
+    b, _ = t.sample(torch.Generator().manual_seed(3), mean, K)
     assert torch.equal(a, b) and a.shape == (K, T, C)
     assert torch.equal(a[0], mean)
 
@@ -90,8 +91,10 @@ def test_update_mean_matches_jax():
     eta = np.float32(w.sum())
     want, _ = j.update_mean(jnp.asarray(U), None, jnp.asarray(w), jnp.asarray(eta),
                             jnp.asarray(mean))
-    got = t.update_mean(torch.from_numpy(U), torch.from_numpy(w), torch.tensor(eta))
+    got, state = t.update_mean(torch.from_numpy(U), None, torch.from_numpy(w),
+                               torch.tensor(eta), torch.from_numpy(mean))
     _close(got, want, rtol=1e-5, atol=1e-6)
+    assert state is None
 
 
 @pytest.mark.parametrize("stride", [0, 1, 3])
@@ -99,4 +102,6 @@ def test_shift_matches_jax(stride):
     _, mean = _inputs(5)
     j, t = _pair()
     want, _ = j.shift(jnp.asarray(mean), stride)
-    _close(t.shift(torch.from_numpy(mean), stride), want)
+    got, state = t.shift(torch.from_numpy(mean), stride)
+    _close(got, want)
+    assert state is None
