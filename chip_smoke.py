@@ -12,7 +12,14 @@ Tube-MPPI with DDP feedback on the same task (bench.py:809-840: K=2560,
 T=50, lambda 2, 9 candidates x 256 samples for RMPPI), and the fused solve
 (``kernel="fused_solve"``, the samples drawn in the kernels) for the
 flagship and the JAX suite's NLN and Smooth-MPPI rows (bench.py:619-638,
-K=8192, T=100). Each phase prints one JSON line. The line before
+K=8192, T=100). Then AutoRally (bench.py:704-717 and :775-789: the 6-32-32-4
+network dynamics and ARStandardCost on the 128^2 and the 4 x 1024^2
+channel-major track maps, K=1920, T=150): the fused solve and rollout
+kernels' AutoRally entries against their plain versions
+(``autorally_kernels``), a fused-vs-combined reference, and three closed
+loops with the AutoRally model as the plant (``autorally``,
+``autorally_1024`` on the fused solve, ``autorally_fused`` on
+``kernel="fused"``). Each phase prints one JSON line. The line before
 the last lists every kernel with its launches on the main path, its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
@@ -24,12 +31,14 @@ sleep, so the events measure the device and not the host's enqueue.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from mppi_generic_tpu_torch import (
@@ -41,11 +50,17 @@ from mppi_generic_tpu_torch import (
     TubeMPPI,
     VanillaMPPI,
 )
-from mppi_generic_tpu_torch.costs import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.costs import ARStandardCost, DoubleIntegratorCircleCost
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
-from mppi_generic_tpu_torch.models import DoubleIntegratorDynamics, rollout_single
+from mppi_generic_tpu_torch.maps import MapTexture2D
+from mppi_generic_tpu_torch.models import (
+    AutorallyNNDynamics,
+    DoubleIntegratorDynamics,
+    rollout_single,
+)
 from mppi_generic_tpu_torch.ops import _build, fused_solve, philox, riccati
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
+from mppi_generic_tpu_torch.ops.rollout import rollout_combined
 
 K_MAIN, K_RAGGED, T, C, S = 8192, 8000, 100, 2, 4
 DT, LAM, ALPHA = 0.02, 1.0, 0.0
@@ -87,6 +102,31 @@ OPS_BOX_MULLER = 9 + 4 * OPS_TRANSCENDENTAL
 SAMPLERS = ("gaussian", "nln", "smooth")
 DT_SMOOTH = 0.02  # bench.py:634
 
+# AutoRally (bench.py:704-717 and :775-789): 6-32-32-4 network, ARStandardCost,
+# Gaussian std [0.3, 0.5], K=1920, T=150, dt 0.02, lambda 1, alpha 0, x0 = 0
+# with v_x = 3; the 128^2 map of bench.py:641-644 and the 4 x 1024^2
+# channel-major map of :773-778. The network is random (numpy seed 0, scale
+# 0.1 as FNN.create), since the bench's comes from a JAX key.
+K_AR, K_AR_RAGGED, T_AR, S_AR = 1920, 1900, 150, 7
+AR_STD = [0.3, 0.5]
+AR_MAPS = ("128", "1024")
+AR_FUSED_LOOP_STEPS = 20  # the kernel="fused" loop: B1 on the path, kept short
+N_TIMED_PLAIN_AR = 3  # an AutoRally plain version takes seconds
+# Operations per sample-step of the AutoRally step (csrc/autorally_nn.cuh):
+# the FNN's 1,344 multiplies and 1,344 adds, 68 bias adds and 64 tanhf; the
+# kinematics (cosf, sinf, 4 multiplies, 2 adds, a negation), the Euler update
+# (7 multiplies, 7 adds) and the yaw wrap (fmodf and 4 more).
+FNN_MACS = 6 * 32 + 32 * 32 + 32 * 4
+OPS_AR_STEP = (2 * FNN_MACS + 68 + 64 * OPS_TRANSCENDENTAL + 2 * OPS_TRANSCENDENTAL + 7
+               + 14 + OPS_TRANSCENDENTAL + 4)
+# The cost (csrc/ar_standard_cost.cuh): cosf, sinf, the two points (4), two
+# map queries (the world transform 17, two sample positions 16, four texel
+# addresses 12, the lerp 9: 54 each), the track term 8, speed 3, the slip
+# (division, the atan polynomial with its inversion: 20) and its terms 6, the
+# rollover test 2, the sum and its guard 5. The crash term's expf/logf runs
+# only once a sample has crashed and is not counted.
+OPS_AR_COST = 2 * OPS_TRANSCENDENTAL + 4 + 2 * 54 + 8 + 3 + 20 + 6 + 2 + 5
+
 TOL = {  # (rtol, atol)
     # the same operations in the same order: agree to the last bit
     "costs": (1e-5, 1e-6),
@@ -103,6 +143,9 @@ TOL = {  # (rtol, atol)
     # the fused and the eager (combined) robust solves: sums in another
     # order (the LR and feedback costs, the feedback product)
     "solve": (1e-4, 1e-5),
+    # the AutoRally kernels repeat their plain versions' operations in order,
+    # tanhf included: U and costs to the last bit
+    "bitwise": (0.0, 0.0),
 }
 
 
@@ -165,8 +208,8 @@ def rollout_work(K, epilogue, with_lr):
     return n_bytes, n_ops
 
 
-def combine_work(nb):
-    TC = T * C
+def combine_work(nb, T_=T):
+    TC = T_ * C
     return 4 * (nb * (2 + TC) + TC + 2), 4 * nb + 2 * nb * TC + TC + 1
 
 
@@ -948,6 +991,297 @@ def rmppi_breakdown(ctrl, cs, x, n=10):
          parts={name: wall(fn) for name, fn in parts.items()})
 
 
+# ---------------------------------------------------------------------------
+# AutoRally: B3 and B1 with the FNN step (B10) and the costmap query (B9)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def ar_map_data(kind):
+    """(data, origin, resolution, channel_major) of the bench's maps, made on
+    the host from their numpy seeds: the 128^2 abs-normal map (seed 0, 1 m
+    texels, bench.py:641-644) or the 4 x 1024^2 channel-major map whose
+    channel 0 is the track (seed 3, 0.1 m texels, :773-778)."""
+    if kind == "128":
+        data = np.abs(np.random.default_rng(0).normal(size=(128, 128))).astype("f")
+        return data, (-64.0, -64.0, 0.0), 1.0, False
+    chw = np.random.default_rng(3).normal(size=(4, 1024, 1024)).astype("f")
+    chw[0] = np.abs(chw[0])
+    return chw, (-51.2, -51.2, 0.0), 0.1, True
+
+
+def ar_parts(kind, dev="cpu"):
+    data, origin, res, channel_major = ar_map_data(kind)
+    tex = MapTexture2D(data, origin=origin, resolution=res, channel_major=channel_major,
+                       device=dev)
+    return (AutorallyNNDynamics.create(seed=0, device=dev),
+            ARStandardCost(costmap=tex, device=dev))
+
+
+def ar_sampler(kind, dev="cpu", p=0.0):
+    kw = dict(std_dev=AR_STD, pure_noise_percentage=p, device=dev)
+    return NLNDistribution.create(**kw) if kind == "nln" else GaussianDistribution.create(**kw)
+
+
+def ar_x0(dev):
+    return torch.tensor([0.0, 0.0, 0.0, 0.0, 3.0, 0.0, 0.0], device=dev)
+
+
+def build_autorally(map_kind, kernel, return_samples=False):
+    """bench.py:704-717 (or :775-789 on the 1024^2 map) on the card."""
+    dyn, cost = ar_parts(map_kind)
+    return VanillaMPPI(dyn, cost, ar_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA,
+                       num_timesteps=T_AR, num_rollouts=K_AR, num_iters=1, kernel=kernel,
+                       return_samples=return_samples)
+
+
+def ar_fixed_bytes(cost):
+    """The network (weights and biases), the cost's table and its whole map,
+    read once."""
+    return 4 * (FNN_MACS + 32 + 32 + 4 + cost.params.numel() + cost.costmap.data.numel())
+
+
+def ar_rollout_work(cost, K, epilogue, with_lr):
+    """(bytes, operations) of B1's function for the AutoRally pair."""
+    nb = -(-K // fr.BLOCK)
+    n_bytes = ar_fixed_bytes(cost) + 4 * (K * T_AR * C + S_AR + 2 * K)
+    n_ops = K * T_AR * (OPS_AR_STEP + OPS_AR_COST + OPS_ACC + (OPS_LR if with_lr else 0))
+    n_ops += 2 * K
+    if with_lr:
+        n_bytes += 4 * (2 * T_AR * C + C)
+    if epilogue:
+        n_bytes += 4 * nb * (2 + T_AR * C)
+        n_ops += 5 * K + 2 * K * T_AR * C
+    return n_bytes, n_ops
+
+
+def ar_solve_work(cost, K, kind):
+    """(bytes, operations) of B3's function for the AutoRally pair: the
+    tables, constraints, x0 and seed read once; costs, crash, U and the
+    carry rows written once."""
+    nb = -(-K // fr.BLOCK)
+    tables = 3 + (kind == "nln")  # mean, sigma, coeff / sigma^2, NLN's std
+    n_bytes = ar_fixed_bytes(cost) + 4 * (tables * T_AR * C + 4 * C + S_AR + 1 + 2 * K
+                                          + K * T_AR * C + nb * (2 + T_AR * C))
+    draw = OPS_PHILOX + (2 if kind == "nln" else 1) * OPS_BOX_MULLER
+    per_channel = 4 + 7 + 5 + (OPS_TRANSCENDENTAL + 2 if kind == "nln" else 0)
+    per_step = draw + C * per_channel + OPS_AR_STEP + OPS_AR_COST + OPS_ACC
+    return n_bytes, K * T_AR * per_step + 2 * K + 5 * K + 2 * K * T_AR * C
+
+
+def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
+    """B3 (Gaussian, NLN) and B1 (its four modes) with the AutoRally entry
+    against their plain versions: U, costs and crash flags to the last bit,
+    the carries and the merge as the DI kernels'. Times by CUDA events; the
+    plain versions' only where ``timed_plain``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn, cost = ar_parts(map_kind, dev)
+    x0 = ar_x0(dev)
+    mean = 0.2 * torch.randn((T_AR, C), generator=g, device=dev)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    checks, times, crashed = [], {}, {}
+
+    def timing(kernel, plain, work):
+        t = {"ms": time_ms(kernel, N_TIMED),
+             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR) if timed_plain else None}
+        t["bound_ms"], t["bound_by"] = bound_ms(*work)
+        return t
+
+    def merge_checks(name, kcarry, pcarry, pc, U):
+        km, kb, ke = fr.flash_combine(kcarry, T_AR, C, LAM)
+        pm, pb, pe = fr.flash_combine_plain(pcarry, T_AR, C, LAM)
+        return [check(f"{name} carry", kcarry, pcarry, "carry",
+                      fr.block_carries_plain(pc, U.abs(), LAM).abs()),
+                check(f"{name} new_mean", km, pm, "new_mean"),
+                check(f"{name} baseline", kb, pb, "baseline"),
+                check(f"{name} eta", ke, pe, "eta")]
+
+    for kind in ("gaussian", "nln"):
+        args = (dyn, cost, ar_sampler(kind, dev, p), x0, mean, seed_t, DT, LAM, ALPHA, K)
+        kw = dict(optimization_stride=stride)
+        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+        pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        name = f"B3 {kind}"
+        same(f"{name} crash flags", kcrash, pcrash)
+        checks += [check(f"{name} U", kU, pU, "bitwise"),
+                   check(f"{name} costs", kc, pc, "bitwise"),
+                   *merge_checks(name, kcarry, pcarry, pc, pU)]
+        crashed[name] = float(kcrash.float().mean())
+        times[name] = timing(lambda: fused_solve.fused_solve_carries(*args, **kw),
+                             lambda: fused_solve.fused_solve_plain(*args, **kw),
+                             ar_solve_work(cost, K, kind))
+        if kind == "gaussian":  # the merge at this path's shapes
+            times["flash_combine"] = timing(
+                lambda: fr.flash_combine(kcarry, T_AR, C, LAM),
+                lambda: fr.flash_combine_plain(kcarry, T_AR, C, LAM),
+                combine_work(kcarry.shape[0], T_AR))
+    samp = ar_sampler("gaussian", dev, p)
+    U, _ = samp.sample(g, mean, K, optimization_stride=stride)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lr = (mean, samp._sigma(T_AR, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
+          samp.pure_threshold(K))
+    for mode in ("costs", "costs+lr", "epilogue", "epilogue+lr"):
+        lrp = lr if mode.endswith("+lr") else None
+        epilogue = mode.startswith("epilogue")
+        name = f"B1 {mode}"
+
+        def kernel(lrp=lrp, epilogue=epilogue):
+            if epilogue:
+                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp)
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+
+        def plain(lrp=lrp, epilogue=epilogue):
+            pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+            return fr.block_carries_plain(pc, U, LAM) if epilogue else (pc, pcrash)
+
+        kout = kernel()
+        pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+        torch.cuda.synchronize()
+        same(f"{name} crash flags", kout[1], pcrash)
+        checks.append(check(f"{name} costs", kout[0], pc, "bitwise"))
+        if epilogue:
+            checks += merge_checks(name, kout[2], fr.block_carries_plain(pc, U, LAM), pc, U)
+        times[name] = timing(kernel, plain, ar_rollout_work(cost, K, epilogue, lrp is not None))
+        if mode == "epilogue+lr":
+            # one-call yardstick for the weighting + weighted sum (not used by the port)
+            times[name]["library_ms"] = time_ms(
+                lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
+        crashed[name] = float(kout[1].float().mean())
+    emit("autorally_kernels", map=map_kind, K=K, T=T_AR, pure_noise_percentage=p,
+         stride=stride, crashed_share=crashed, checks=checks, times=times)
+    return checks, times
+
+
+def near_threshold(cost, Y, samples):
+    """Per sample in ``samples``: the smallest distance of a front or back
+    map value along its trajectory Y (K, T, O) to the crash threshold."""
+    y = Y[samples].permute(2, 0, 1).reshape(Y.shape[2], -1)
+    cos_y, sin_y = torch.cos(y[2]), torch.sin(y[2])
+    thr = cost.boundary_threshold
+    d = torch.minimum(
+        (cost._track_value(y[0] + 0.5 * cos_y, y[1] + 0.5 * sin_y) - thr).abs(),
+        (cost._track_value(y[0] - 0.5 * cos_y, y[1] - 0.5 * sin_y) - thr).abs())
+    return d.reshape(len(samples), -1).amin(dim=1)
+
+
+def ar_reference_phase(dev):
+    """One full-width solve of the 128^2 configuration on kernel="fused_solve"
+    and on kernel="fused" against kernel="combined" on the same normals, each
+    of the two under set_sync_debug_mode("error") after a warm solve.
+
+    The eager network sums with a matmul and the kernels left to right, so
+    the costs sit an ulp or so apart (about 1e-3 at J = 1e4, where every
+    sample has crashed). A cost or crash flag may differ beyond the costs'
+    tolerance only for a sample whose map value comes within 1e-4 of the
+    crash threshold on the way (the distance is printed) and whose weight
+    is below 1e-6; the mean's tolerance follows from the other costs: a
+    weight moves by at most 2 max|dJ| / lambda relative, so the mean by that
+    times max|U_k - mean|."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    x = ar_x0(dev)
+    eps = torch.randn((K_AR, T_AR, C), generator=g, device=dev)
+    combined = build_autorally("128", "combined", return_samples=True)
+    state = combined.init_state(seed=0).replace(
+        control_mean=0.1 * torch.randn((T_AR, C), generator=g, device=dev))
+    rc, _ = combined.solve(x, state, injected_noise=eps)
+    U = rc.sampled_controls
+    w_c = torch.exp(-(rc.costs - rc.baseline) / LAM)
+    checks, odd_samples = [], {}
+    for kernel in ("fused_solve", "fused"):
+        ctrl = build_autorally("128", kernel)
+        ctrl.solve(x, state, injected_noise=eps)  # one-time copies
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rf, _ = ctrl.solve(x, state, injected_noise=eps)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rtol, atol = TOL["costs"]
+        dJ = (rf.costs - rc.costs).abs()
+        odd = (dJ > atol + rtol * rc.costs.abs()) | (rf.crash != rc.crash)
+        idx = torch.nonzero(odd).flatten()
+        if len(idx):
+            Y = rollout_combined(combined.dynamics, combined.cost, x, U, DT)[1]
+            dist = near_threshold(combined.cost, Y, idx)
+            odd_samples[kernel] = [{"sample": int(k), "threshold_distance": float(d),
+                                    "cost_diff": float(dJ[k]), "weight": float(w_c[k])}
+                                   for k, d in zip(idx.tolist(), dist)]
+            if float(dist.max()) > 1e-4 or float(w_c[idx].max()) > 1e-6:
+                raise AssertionError(f"{kernel}: costs differ from combined away from "
+                                     f"the crash threshold: {odd_samples[kernel]}")
+        ok = ~odd
+        checks.append(check(f"{kernel} costs vs combined", rf.costs[ok], rc.costs[ok],
+                            "costs"))
+        spread = float((U - rc.control_mean).abs().max())
+        mean_atol = 2 * float(dJ[ok].max()) / LAM * spread + 1e-5
+        for field, tol in (("control_mean", mean_atol), ("state_trajectory",
+                                                         T_AR * DT * mean_atol + 1e-5)):
+            got, want = getattr(rf, field), getattr(rc, field)
+            err = float((got - want).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {field} vs combined: {err} > {tol}")
+            checks.append({"check": f"{kernel} {field} vs combined", "max_abs_err": err,
+                           "atol": tol})
+        checks.append(check(f"{kernel} baseline vs combined", rf.baseline, rc.baseline,
+                            "costs"))
+    emit("autorally_reference", K=K_AR, T=T_AR, map="128",
+         crashed_share=float(rc.crash.float().mean()), checks=checks,
+         samples_off_tolerance=odd_samples, no_host_sync=["fused_solve", "fused"])
+
+
+def ar_loop_phase(path, map_kind, kernel, steps, want):
+    """``steps`` closed-loop steps of the AutoRally configuration from x0,
+    the AutoRally model itself as the plant: slide, solve, step with the
+    first control; then a profiler window. Nothing in the loop waits on the
+    device."""
+    ctrl = build_autorally(map_kind, kernel)
+    if ctrl.device.type != "cuda":
+        raise AssertionError("the controller did not default to the card")
+    cs = ctrl.init_state(seed=0)
+    x = ar_x0(ctrl.device)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(steps)]
+    crashed, states = [], []
+    torch.cuda.synchronize()
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ev[i][0].record()
+        cs = ctrl.slide_control_sequence(cs, 1)
+        res, cs = ctrl.solve(x, cs)
+        ev[i][1].record()
+        x, _ = ctrl.dynamics.step(x, res.control_mean[0], 0.0, ctrl.dt)
+        ev[i][2].record()
+        crashed.append(res.crash.sum())
+        states.append(x)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(fr.launch_counts)
+    expect_launches(launches, want, path)
+    X = torch.stack(states).cpu()
+    for name, t in (("states", X), ("control_mean", res.control_mean), ("costs", res.costs),
+                    ("state_trajectory", res.state_trajectory)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{path}: {name} is not finite")
+    if res.control_mean.shape != (T_AR, C) or res.costs.shape != (K_AR,):
+        raise AssertionError(f"{path}: unexpected result shapes")
+    steady = ev[5:]  # the first solves include one-time allocations
+    emit(f"{path}_main_path", K=K_AR, T=T_AR, map=map_kind, kernel=kernel, steps=steps,
+         launches=launches,
+         crashed_share=float(torch.stack(crashed).float().mean().cpu()) / K_AR,
+         final_state=X[-1].tolist(), final_baseline=float(res.baseline),
+         solve_ms_median=statistics.median(e[0].elapsed_time(e[1]) for e in steady),
+         step_ms_median=statistics.median(e[0].elapsed_time(e[2]) for e in steady),
+         host_wall_ms_per_step=1e3 * wall_s / steps)
+
+    def step():
+        s = ctrl.slide_control_sequence(cs, 1)
+        r, _ = ctrl.solve(x, s)
+        ctrl.dynamics.step(x, r.control_mean[0], 0.0, ctrl.dt)
+
+    profile_steps(path, step)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1005,9 +1339,27 @@ def main() -> int:
         note("fused_sample_rollout_kernel", b4)
         solve_times = solve_times or times
 
+    ar_errs = dict.fromkeys(("rollout_costs_kernel", "fused_solve_kernel",
+                             "flash_combine_kernel"), 0.0)
+    ar_times = {}
+    for map_kind, K, p, stride, seed in (("128", K_AR, 0.0, 0, 51),
+                                         ("128", K_AR_RAGGED, 0.1, 2, 52),
+                                         ("1024", K_AR, 0.0, 0, 53)):
+        checks, times = ar_kernel_phase(dev, map_kind, K, p, stride, seed,
+                                        timed_plain=(map_kind, K) == ("128", K_AR))
+        for c in checks:
+            name = ("fused_solve_kernel" if c["check"].startswith("B3")
+                    else "rollout_costs_kernel")
+            if c["check"].endswith(("new_mean", "baseline", "eta")):
+                name = "flash_combine_kernel"
+            ar_errs[name] = max(ar_errs[name], c["max_abs_err"])
+        if K == K_AR:
+            ar_times[map_kind] = times
+
     reference_phase(dev)
     robust_reference_phase(dev)
     fused_reference_phase(dev)
+    ar_reference_phase(dev)
     by_path = {"vanilla": vanilla_loop_phase("vanilla", build_vanilla("gaussian", "fused"), {
                    "rollout_costs_kernel": CLOSED_LOOP_STEPS,
                    "flash_combine_kernel": CLOSED_LOOP_STEPS}, settle=True),
@@ -1016,21 +1368,40 @@ def main() -> int:
     for kind in SAMPLERS:
         by_path["vanilla_fused_solve" if kind == "gaussian" else kind] = (
             fused_loop_phase(kind))
-    launches = {name: sum(p[name] for p in by_path.values()) for name in errs}
+    n, n_f = CLOSED_LOOP_STEPS, AR_FUSED_LOOP_STEPS
+    ar_paths = {
+        "autorally": ar_loop_phase("autorally", "128", "fused_solve", n, {
+            "fused_solve_kernel": n, "flash_combine_kernel": n}),
+        "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n, {
+            "fused_solve_kernel": n, "flash_combine_kernel": n}),
+        "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f, {
+            "rollout_costs_kernel": n_f, "flash_combine_kernel": n_f}),
+    }
 
-    def entry(name, source, replaces, t, library_ms, **extra):
+    def entry(name, source, replaces, t, library_ms, paths=by_path, err=None,
+              kernel=None, **extra):
+        kernel = kernel or name
         return {"name": name, "route": "cuda",
                 "source": f"mppi_generic_tpu_torch/csrc/{source}",
                 "replaces": f"mppi_generic_tpu/ops/{replaces}",
-                "launches": launches[name],
-                "launches_by_path": {p: c[name] for p, c in by_path.items()},
-                "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "launches": sum(c[kernel] for c in paths.values()),
+                "launches_by_path": {p: c[kernel] for p, c in paths.items()},
+                "max_abs_err": errs[name] if err is None else err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": library_ms, **extra}
 
     epi, comb = main_times["epilogue+lr"], main_times["flash_combine"]
     modes = {m: main_times[m] for m in ("costs", "costs+lr", "epilogue+lr")}
     modes["x0"] = dict(x0_times, K=N_CAND * S_PER, T=T_R)
+    # the AutoRally step and cost inside B1 and B3: device functions, not
+    # launches of their own
+    ar_functions = {
+        "fnn_forward (csrc/fnn.cuh)": "mppi_generic_tpu/nn/fnn.py:80",
+        "map_query_world (csrc/map_texture.cuh)":
+            "mppi_generic_tpu/maps/texture.py:456, :373, :62, :568",
+    }
+    ar, ar1024 = ar_times["128"], ar_times["1024"]
     kernels = [
         entry("rollout_costs_kernel", "fused_rollout.cu", "pallas_rollout.py:548", epi,
               epi["library_ms"], modes=modes),
@@ -1051,6 +1422,23 @@ def main() -> int:
               solve_times["smooth epilogue"], None,
               modes={m: solve_times[m] for m in ("gaussian", "nln", "smooth")},
               randn_reference_ms=solve_times["randn_reference_ms"]),
+        entry("fused_solve_kernel<AutorallyNN, ARCost>", "fused_solve.cu",
+              "pallas_solve.py:103", ar["B3 gaussian"], None, paths=ar_paths,
+              err=ar_errs["fused_solve_kernel"], kernel="fused_solve_kernel",
+              K=K_AR, T=T_AR, device_functions=ar_functions,
+              modes={"nln": ar["B3 nln"], "gaussian 1024^2 map": ar1024["B3 gaussian"],
+                     "nln 1024^2 map": ar1024["B3 nln"]}),
+        entry("rollout_costs_kernel<AutorallyNN, ARCost>", "fused_rollout.cu",
+              "pallas_rollout.py:548", ar["B1 epilogue+lr"],
+              ar["B1 epilogue+lr"]["library_ms"], paths=ar_paths,
+              err=ar_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
+              K=K_AR, T=T_AR, device_functions=ar_functions,
+              modes={**{m: ar[f"B1 {m}"] for m in ("costs", "costs+lr", "epilogue")},
+                     **{f"{m} 1024^2 map": ar1024[f"B1 {m}"]
+                        for m in ("costs", "costs+lr", "epilogue", "epilogue+lr")}}),
+        entry("flash_combine_kernel (AutoRally paths)", "fused_rollout.cu",
+              "pallas_rollout.py:1005", ar["flash_combine"], None, paths=ar_paths,
+              err=ar_errs["flash_combine_kernel"], kernel="flash_combine_kernel"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,15 @@ package's field names, so that a JAX object and its counterpart here share
 the same parameters. The dicts are made on the JAX side; nothing here
 imports JAX.
 
-* dynamics: ``control_ranges``, ``control_deadband``, ``zero_control``,
-  ``system_noise``;
-* cost: ``velocity_cost``, ``crash_cost``, ``velocity_desired``,
-  ``inner_path_radius2``, ``outer_path_radius2``,
-  ``angular_momentum_desired``, ``discount``;
+* dynamics: ``control_ranges``, ``control_deadband``, ``zero_control``;
+  the double integrator also ``system_noise``, AutoRally ``nn`` (an FNN:
+  ``weights``, a list of (out, in) arrays, and ``biases``);
+* cost: the circle cost ``velocity_cost``, ``crash_cost``,
+  ``velocity_desired``, ``inner_path_radius2``, ``outer_path_radius2``,
+  ``angular_momentum_desired``, ``discount``; the AutoRally costs their
+  ``PARAM_NAMES``, ``l1_speed_cost``, ``output_indices`` and ``costmap``
+  (None, or a texture: ``data``, ``origin``, ``rotation``, ``resolution``,
+  ``channel_major``);
 * sampler: ``std_dev``, ``control_cost_coeff``, ``pure_noise_percentage``,
   ``std_dev_decay``; Smooth-MPPI also ``dt_smooth`` and ``num_timesteps``;
 * controller: ``dt``, ``lam``, ``alpha``, ``num_timesteps``,
@@ -32,6 +36,8 @@ imports JAX.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -39,9 +45,13 @@ from mppi_generic_tpu_torch.controllers.base import ControllerState
 from mppi_generic_tpu_torch.controllers.robust import RobustControllerState, RobustMPPI
 from mppi_generic_tpu_torch.controllers.tube import TubeControllerState, TubeMPPI
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
+from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
 from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback, DDPFeedbackState
+from mppi_generic_tpu_torch.maps.texture import MapTexture2D
+from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.nn.fnn import FNN
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
 from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
@@ -65,11 +75,51 @@ def double_integrator_from_params(p: dict, device="cpu") -> DoubleIntegratorDyna
     )
 
 
+def fnn_from_params(p: dict, device="cpu") -> FNN:
+    return FNN([_arr(w) for w in p["weights"]], [_arr(b) for b in p["biases"]],
+               device=device)
+
+
+def autorally_from_params(p: dict, device="cpu") -> AutorallyNNDynamics:
+    return AutorallyNNDynamics(
+        fnn_from_params(p["nn"]),
+        control_ranges=_arr(p["control_ranges"]),
+        control_deadband=_arr(p["control_deadband"]),
+        zero_control=_arr(p["zero_control"]),
+        device=device,
+    )
+
+
 def circle_cost_from_params(p: dict, device="cpu") -> DoubleIntegratorCircleCost:
     return DoubleIntegratorCircleCost(
         **{name: _scalar(p[name]) for name in DoubleIntegratorCircleCost.PARAM_NAMES},
         device=device,
     )
+
+
+def texture_from_params(p: dict, device="cpu") -> MapTexture2D:
+    return MapTexture2D(_arr(p["data"]), origin=_arr(p["origin"]),
+                        rotation=_arr(p["rotation"]), resolution=_arr(p["resolution"]),
+                        channel_major=bool(p["channel_major"]), device=device)
+
+
+def ar_cost_from_params(p: dict, device="cpu", robust=False) -> ARStandardCost:
+    """``ARStandardCost``, or ``ARRobustCost`` with ``robust``."""
+    costmap = p.get("costmap")
+    return (ARRobustCost if robust else ARStandardCost)(
+        **{name: _scalar(p[name]) for name in ARStandardCost.PARAM_NAMES},
+        l1_speed_cost=bool(p.get("l1_speed_cost", False)),
+        output_indices=tuple(int(i) for i in p.get("output_indices", range(6))),
+        costmap=None if costmap is None else texture_from_params(costmap),
+        device=device,
+    )
+
+
+DYNAMICS = {"double_integrator": double_integrator_from_params,
+            "autorally": autorally_from_params}
+COSTS = {"circle": circle_cost_from_params,
+         "ar_standard": ar_cost_from_params,
+         "ar_robust": functools.partial(ar_cost_from_params, robust=True)}
 
 
 def _gaussian_kwargs(p: dict) -> dict:
@@ -120,17 +170,20 @@ def _controller_kwargs(controller: dict) -> dict:
 
 def vanilla_from_params(dynamics: dict, cost: dict, sampler: dict,
                         controller: dict, device=None, kernel="fused",
-                        sampler_kind="gaussian",
-                        weight_transform="exp") -> VanillaMPPI:
-    """A DI circle-cost ``VanillaMPPI`` with the sampler ``sampler_kind``
-    ("gaussian", "nln" or "smooth"; device rule as ``VanillaMPPI``: the card
-    unless ``device="cpu"``)."""
+                        sampler_kind="gaussian", weight_transform="exp",
+                        dynamics_kind="double_integrator",
+                        cost_kind="circle") -> VanillaMPPI:
+    """A ``VanillaMPPI`` of the dynamics ``dynamics_kind`` ("double_integrator"
+    or "autorally"), the cost ``cost_kind`` ("circle", "ar_standard" or
+    "ar_robust") and the sampler ``sampler_kind`` ("gaussian", "nln" or
+    "smooth"); device rule as ``VanillaMPPI``: the card unless
+    ``device="cpu"``."""
     transform = {name: _scalar(controller[name])
                  for name in ("tsallis_gamma", "tsallis_r", "cem_elite_fraction")
                  if name in controller}
     return VanillaMPPI(
-        double_integrator_from_params(dynamics),
-        circle_cost_from_params(cost),
+        DYNAMICS[dynamics_kind](dynamics),
+        COSTS[cost_kind](cost),
         SAMPLERS[sampler_kind](sampler),
         kernel=kernel,
         weight_transform=weight_transform,

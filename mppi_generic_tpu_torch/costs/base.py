@@ -33,3 +33,9 @@ class Cost(nn.Module):
 
     def terminal_cost(self, y):
         raise NotImplementedError
+
+    def kernel_map(self):
+        """The map the kernels' cost reads, or None for a cost without one.
+        Called only on the CUDA path; raises for what the compiled kernels
+        do not take."""
+        return None

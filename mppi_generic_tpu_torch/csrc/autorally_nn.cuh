@@ -1,0 +1,55 @@
+// AutoRally neural-network dynamics step for the rollout and solve kernels.
+//
+// Device twin of AutorallyNNDynamics.kernel_step in
+// mppi_generic_tpu_torch/models/autorally.py (the reference's
+// NeuralNetModel<7, 2, 3>, ar_nn_model.cu:91-120): state [x, y, yaw, roll,
+// u_x, u_y, yaw_rate], control [steering, throttle];
+//   x_d = cos(yaw) u_x - sin(yaw) u_y,  y_d = sin(yaw) u_x + cos(yaw) u_y,
+//   yaw_d = -yaw_rate,  [roll_d, u_x_d, u_y_d, yaw_rate_d] =
+//   FNN(roll, u_x, u_y, yaw_rate, steering, throttle),
+// then x <- x + xdot dt with the yaw wrapped to [-pi, pi), output = state.
+// Compiled for the 6-32-32-4 network of the reference's autorally_nnet; the
+// wrappers refuse another architecture. The network's 1,412 parameters are
+// staged into shared memory once per block (Shared, stage).
+#pragma once
+
+#include <math.h>
+
+#include "fnn.cuh"
+#include "math_utils.cuh"
+
+struct AutorallyNN {
+  static constexpr int S = 7;  // state
+  static constexpr int C = 2;  // control
+  static constexpr int O = 7;  // output
+  using Net = FNN3<6, 32, 32, 4>;
+  static constexpr bool kStaged = true;
+
+  struct Shared {
+    float w[Net::kParams];
+  };
+
+  // every thread of the block; the kernel syncs after
+  __device__ static inline void stage(const float* __restrict__ params,
+                                      Shared* sh) {
+    Net::stage(params, sh->w);
+  }
+
+  __device__ static inline void step(const Shared& sh, float* x, const float* u,
+                                     float /*t*/, float dt, float* y) {
+    const float yaw = x[2];
+    const float cos_y = cosf(yaw);
+    const float sin_y = sinf(yaw);
+    float xd[S];
+    xd[0] = cos_y * x[4] - sin_y * x[5];
+    xd[1] = sin_y * x[4] + cos_y * x[5];
+    xd[2] = -x[6];
+    const float feats[6] = {x[3], x[4], x[5], x[6], u[0], u[1]};
+    Net::forward(sh.w, feats, xd + 3);
+#pragma unroll
+    for (int i = 0; i < S; ++i) x[i] = x[i] + xd[i] * dt;
+    x[2] = normalize_angle(x[2]);
+#pragma unroll
+    for (int i = 0; i < O; ++i) y[i] = x[i];
+  }
+};

@@ -13,6 +13,12 @@ struct DoubleIntegrator {
   static constexpr int C = 2;  // control
   static constexpr int O = 4;  // output
 
+  // no parameters to stage (the rollout and solve kernels' interface,
+  // csrc/autorally_nn.cuh)
+  static constexpr bool kStaged = false;
+  struct Shared {};
+  __device__ static inline void stage(const float* /*params*/, Shared* /*sh*/) {}
+
   // xdot = [x2, x3, u0, u1] (state_deriv; the DDP ladder's forward pass
   // steps x <- x + xdot * dt with it)
   __host__ __device__ static inline void state_deriv(const float* x,
@@ -35,5 +41,11 @@ struct DoubleIntegrator {
     x[2] = x[2] + u[0] * dt;
     x[3] = x[3] + u[1] * dt;
     for (int i = 0; i < O; ++i) y[i] = x[i];
+  }
+
+  __device__ static inline void step(const Shared& /*sh*/, float* x,
+                                     const float* u, float t, float dt,
+                                     float* y) {
+    step(x, u, t, dt, y);
   }
 };

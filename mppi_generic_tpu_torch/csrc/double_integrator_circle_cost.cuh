@@ -32,6 +32,12 @@ struct DoubleIntegratorCircleCost {
     return q;
   }
 
+  // the rollout and solve kernels' interface: this cost reads no map
+  __host__ __device__ static inline Params load(const float* p,
+                                                const float* /*map*/) {
+    return load(p);
+  }
+
   // running cost at step t on output y; never sets the crash status
   __host__ __device__ static inline float running_cost(const Params& q,
                                                        const float* y,

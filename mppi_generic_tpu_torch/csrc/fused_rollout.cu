@@ -19,6 +19,13 @@
 //   m_b = max s_k,  d_b = sum exp(s_k - m_b),  num_b = sum exp(s_k - m_b) U_k
 // which is the TPU kernel's _init/_accum math done per block.
 //
+// Pairs (one C entry each, at the end of this file): DoubleIntegrator +
+// DoubleIntegratorCircleCost, and AutorallyNN + ARCost (the standard and the
+// robust AutoRally cost), whose step runs the FNN (fnn.cuh, B10) from weights
+// staged in shared memory and whose cost reads the track costmap
+// (map_texture.cuh, B9) from global memory. Dyn::stage runs in every thread
+// before any sample is skipped, so the barrier after it sees the whole block.
+//
 // Kernel 2, flash_combine_kernel: one block merges the carries of all blocks
 // in a fixed order, with the rescaling of pallas_solve.flash_combine:
 //   m = max m_b, d = sum d_b exp(m_b - m), num = sum num_b exp(m_b - m)
@@ -35,6 +42,11 @@
 // warps each. The design keeps everything on chip that the TPU kernel keeps
 // in VMEM (state, running cost, LR tables in L1), and reads U from device
 // memory once for the rollout and once more, from L2, for the epilogue.
+// The AutoRally pair does about 3,000 operations per sample-step (the FNN's
+// 1,344 multiply-adds, 64 tanhf, sinf/cosf twice, two map queries), so there
+// the arithmetic bounds the function; at K=1920 its 30 blocks of 64 fill 30
+// of the 132 SMs with two warps each, and each thread's 150-step chain is
+// what the simple design waits on.
 //
 // Layout: U is the public (K, T, C) row-major tensor. The rollout thread of
 // sample k reads its own contiguous T*C row: neighbouring threads are 800 B
@@ -55,6 +67,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "ar_standard_cost.cuh"
+#include "autorally_nn.cuh"
 #include "double_integrator.cuh"
 #include "double_integrator_circle_cost.cuh"
 #include "mppi_common.cuh"
@@ -76,9 +90,9 @@ template <class Dyn, class Cost, bool EPILOGUE, bool WITH_LR, bool PER_SAMPLE_X0
 __global__ void __launch_bounds__(kBlock)
 rollout_costs_kernel(const float* __restrict__ x0,
                      const float* __restrict__ U, int K, int T, float dt,
-                     const float* __restrict__ cost_params, LRArgs lr,
-                     float lam_w, float* __restrict__ costs,
-                     int* __restrict__ crash_out, float* __restrict__ carry) {
+                     ModelArgs m, LRArgs lr, float lam_w,
+                     float* __restrict__ costs, int* __restrict__ crash_out,
+                     float* __restrict__ carry) {
   constexpr int S = Dyn::S;
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
@@ -86,9 +100,14 @@ rollout_costs_kernel(const float* __restrict__ x0,
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < K;
 
+  // the model's parameters, staged by every thread before any returns
+  __shared__ typename Dyn::Shared dyn_sh;
+  Dyn::stage(m.dyn_params, &dyn_sh);
+  if (Dyn::kStaged) __syncthreads();
+
   float J = 0.0f;
   if (valid) {
-    const typename Cost::Params cp = Cost::load(cost_params);
+    const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
     float x[S];
     float y[O];
 #pragma unroll
@@ -103,7 +122,7 @@ rollout_costs_kernel(const float* __restrict__ x0,
       float u[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) u[c] = u_row[t * C + c];
-      Dyn::step(x, u, static_cast<float>(t), dt, y);
+      Dyn::step(dyn_sh, x, u, static_cast<float>(t), dt, y);
       float cost = Cost::running_cost(cp, y, u, t, &crash);
       if (WITH_LR) {
         float lr_t = 0.0f;
@@ -158,19 +177,45 @@ flash_combine_kernel(const float* __restrict__ carry, int nb, int TC,
 
 template <class Dyn, class Cost, bool EPILOGUE, bool WITH_LR>
 void launch_rollout(bool per_sample_x0, const float* x0, const float* U,
-                    int K, int T, float dt, const float* cost_params,
-                    LRArgs lr, float lam_w, float* costs, int* crash,
-                    float* carry, cudaStream_t stream) {
+                    int K, int T, float dt, ModelArgs m, LRArgs lr,
+                    float lam_w, float* costs, int* crash, float* carry,
+                    cudaStream_t stream) {
   const int nb = (K + kBlock - 1) / kBlock;
   if (per_sample_x0) {
     rollout_costs_kernel<Dyn, Cost, EPILOGUE, WITH_LR, true>
-        <<<nb, kBlock, 0, stream>>>(x0, U, K, T, dt, cost_params, lr, lam_w,
-                                    costs, crash, carry);
+        <<<nb, kBlock, 0, stream>>>(x0, U, K, T, dt, m, lr, lam_w, costs,
+                                    crash, carry);
   } else {
     rollout_costs_kernel<Dyn, Cost, EPILOGUE, WITH_LR, false>
-        <<<nb, kBlock, 0, stream>>>(x0, U, K, T, dt, cost_params, lr, lam_w,
-                                    costs, crash, carry);
+        <<<nb, kBlock, 0, stream>>>(x0, U, K, T, dt, m, lr, lam_w, costs,
+                                    crash, carry);
   }
+}
+
+// Kernel 1 for the pair (Dyn, Cost) in the mode the flags select.
+template <class Dyn, class Cost>
+int rollout_entry(int device, const float* x0, const float* U, int K, int T,
+                  float dt, ModelArgs m, LRArgs lr, int with_lr, int epilogue,
+                  int per_sample_x0, float lam_w, float* costs, int* crash,
+                  float* carry, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ps = per_sample_x0 != 0;
+  if (epilogue && with_lr) {
+    launch_rollout<Dyn, Cost, true, true>(ps, x0, U, K, T, dt, m, lr, lam_w,
+                                          costs, crash, carry, s);
+  } else if (epilogue) {
+    launch_rollout<Dyn, Cost, true, false>(ps, x0, U, K, T, dt, m, lr, lam_w,
+                                           costs, crash, carry, s);
+  } else if (with_lr) {
+    launch_rollout<Dyn, Cost, false, true>(ps, x0, U, K, T, dt, m, lr, lam_w,
+                                           costs, crash, carry, s);
+  } else {
+    launch_rollout<Dyn, Cost, false, false>(ps, x0, U, K, T, dt, m, lr, lam_w,
+                                            costs, crash, carry, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -181,40 +226,30 @@ extern "C" {
 // of 2 + T*C floats for each block of this many samples.
 int fused_rollout_block_size() { return kBlock; }
 
-// Kernel 1 for DoubleIntegrator + DoubleIntegratorCircleCost. Every pointer
-// is memory of CUDA device `device`, and `stream` one of its streams; lr_*
-// may be null when with_lr == 0, carry when epilogue == 0. x0 is (K, S) when
-// per_sample_x0 != 0, else (S,). Returns the CUDA error of the launch (0 when
-// it was accepted).
-int rollout_costs_di_circle(int device, const float* x0, const float* U,
-                            int K, int T, float dt, const float* cost_params,
-                            const float* lr_mean, const float* lr_sigma,
-                            const float* lr_coeff, float lr_gain,
-                            float pure_thresh, int with_lr, int epilogue,
-                            int per_sample_x0, float lam_w, float* costs,
-                            int* crash, float* carry, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  using D = DoubleIntegrator;
-  using Q = DoubleIntegratorCircleCost;
-  const LRArgs lr{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ps = per_sample_x0 != 0;
-  if (epilogue && with_lr) {
-    launch_rollout<D, Q, true, true>(ps, x0, U, K, T, dt, cost_params, lr,
-                                     lam_w, costs, crash, carry, s);
-  } else if (epilogue) {
-    launch_rollout<D, Q, true, false>(ps, x0, U, K, T, dt, cost_params, lr,
-                                      lam_w, costs, crash, carry, s);
-  } else if (with_lr) {
-    launch_rollout<D, Q, false, true>(ps, x0, U, K, T, dt, cost_params, lr,
-                                      lam_w, costs, crash, carry, s);
-  } else {
-    launch_rollout<D, Q, false, false>(ps, x0, U, K, T, dt, cost_params, lr,
-                                       lam_w, costs, crash, carry, s);
+// Kernel 1 for one (dynamics, cost) pair. Every pointer is memory of CUDA
+// device `device`, and `stream` one of its streams; dyn_params and cost_map
+// may be null for a pair that reads none, lr_* when with_lr == 0, carry when
+// epilogue == 0. x0 is (K, S) when per_sample_x0 != 0, else (S,). Returns the
+// CUDA error of the launch (0 when it was accepted).
+#define ROLLOUT_ENTRY(NAME, DYN, COST)                                        \
+  int NAME(int device, const float* x0, const float* U, int K, int T,        \
+           float dt, const float* dyn_params, const float* cost_params,      \
+           const float* cost_map, const float* lr_mean,                      \
+           const float* lr_sigma, const float* lr_coeff, float lr_gain,      \
+           float pure_thresh, int with_lr, int epilogue, int per_sample_x0,  \
+           float lam_w, float* costs, int* crash, float* carry,              \
+           void* stream) {                                                   \
+    return rollout_entry<DYN, COST>(                                         \
+        device, x0, U, K, T, dt, ModelArgs{dyn_params, cost_params, cost_map}, \
+        LRArgs{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh}, with_lr,  \
+        epilogue, per_sample_x0, lam_w, costs, crash, carry, stream);        \
   }
-  return static_cast<int>(cudaGetLastError());
-}
+
+// DoubleIntegrator + DoubleIntegratorCircleCost
+ROLLOUT_ENTRY(rollout_costs_di_circle, DoubleIntegrator, DoubleIntegratorCircleCost)
+// AutorallyNN (6-32-32-4) + ARStandardCost / ARRobustCost
+ROLLOUT_ENTRY(rollout_costs_ar_nn, AutorallyNN, ARCost)
+#undef ROLLOUT_ENTRY
 
 // Kernel 2: merges nb carry rows of 2 + TC floats into new_mean (TC,) and
 // scal = [baseline, eta], on CUDA device `device`. Returns the CUDA error of

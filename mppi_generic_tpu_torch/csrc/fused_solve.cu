@@ -45,6 +45,13 @@
 // lane-replicated tables, 128-lane tiles and channel-major layout are TPU
 // mechanics and are not ported.
 //
+// Pairs: B3 has an entry for DoubleIntegrator + DoubleIntegratorCircleCost
+// and one for AutorallyNN + ARCost (the FNN step of fnn.cuh, B10, from
+// weights staged in shared memory before any sample is skipped, and the
+// costmap read of map_texture.cuh, B9); B4 is built for the double integrator
+// only. With the AutoRally pair the arithmetic of the step (about 3,000
+// operations per sample-step) outweighs the draw.
+//
 // Injected normals: with zinj set, the kernels read z (and z2) from a
 // (n_z, K, T, C) tensor instead of drawing them, as the TPU kernels' test
 // hook does; the controllers use it to hold the fused solve against the
@@ -60,6 +67,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "ar_standard_cost.cuh"
+#include "autorally_nn.cuh"
 #include "double_integrator.cuh"
 #include "double_integrator_circle_cost.cuh"
 #include "mppi_common.cuh"
@@ -111,10 +120,9 @@ __device__ inline void draw_eps(const SampleArgs& a, uint32_t seed, int k,
 template <class Dyn, class Cost, int NOISE>
 __global__ void __launch_bounds__(kBlock)
 fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
-                   float dt, const float* __restrict__ cost_params,
-                   float lr_gain, float lam_w, float* __restrict__ costs,
-                   int* __restrict__ crash_out, float* U,
-                   float* __restrict__ carry) {
+                   float dt, ModelArgs m, float lr_gain, float lam_w,
+                   float* __restrict__ costs, int* __restrict__ crash_out,
+                   float* U, float* __restrict__ carry) {
   constexpr int S = Dyn::S;
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
@@ -122,10 +130,15 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < K;
 
+  // the model's parameters, staged by every thread before any returns
+  __shared__ typename Dyn::Shared dyn_sh;
+  Dyn::stage(m.dyn_params, &dyn_sh);
+  if (Dyn::kStaged) __syncthreads();
+
   float J = 0.0f;
   if (valid) {
     const uint32_t seed = static_cast<uint32_t>(*a.seed);
-    const typename Cost::Params cp = Cost::load(cost_params);
+    const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
     float x[S];
     float y[O];
 #pragma unroll
@@ -153,7 +166,7 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
         u_row[t * C + c] = v;
         lr = lr + a.lr_tab[t * C + c] * mu * (mu - 2.0f * v);
       }
-      Dyn::step(x, u, static_cast<float>(t), dt, y);
+      Dyn::step(dyn_sh, x, u, static_cast<float>(t), dt, y);
       acc = acc + Cost::running_cost(cp, y, u, t, &crash);
     }
     J = (acc + Cost::terminal_cost(cp, y) + lr_gain * lr) /
@@ -167,10 +180,8 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
 template <class Dyn, class Cost, int NOISE, bool EPILOGUE>
 __global__ void __launch_bounds__(kBlock)
 fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
-                            int T, float dt,
-                            const float* __restrict__ cost_params,
-                            float lr_gain, float lam_w,
-                            float* __restrict__ costs,
+                            int T, float dt, ModelArgs m, float lr_gain,
+                            float lam_w, float* __restrict__ costs,
                             int* __restrict__ crash_out, float* U, float* W,
                             float* __restrict__ carry) {
   constexpr int S = Dyn::S;
@@ -180,10 +191,14 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < K;
 
+  __shared__ typename Dyn::Shared dyn_sh;
+  Dyn::stage(m.dyn_params, &dyn_sh);
+  if (Dyn::kStaged) __syncthreads();
+
   float J = 0.0f;
   if (valid) {
     const uint32_t seed = static_cast<uint32_t>(*a.seed);
-    const typename Cost::Params cp = Cost::load(cost_params);
+    const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
     float x[S];
     float y[O];
 #pragma unroll
@@ -224,7 +239,7 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
         lr_t = lr_t + a.lr_tab[c] * mu * (mu - 2.0f * u[c]) / (sg * sg);
       }
       lr_t = lr_gain * lr_t;
-      Dyn::step(x, u, static_cast<float>(t), dt, y);
+      Dyn::step(dyn_sh, x, u, static_cast<float>(t), dt, y);
       acc = acc + Cost::running_cost(cp, y, u, t, &crash) + lr_t;
     }
     J = (acc + Cost::terminal_cost(cp, y)) / static_cast<float>(T);
@@ -234,6 +249,28 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
   if (EPILOGUE) write_block_carry<kBlock>(J, valid, lam_w, W, K, TC, carry);
 }
 
+// B3 for the pair (Dyn, Cost); noise_kind 0 is the Gaussian sampler, 1 NLN.
+template <class Dyn, class Cost>
+int fused_solve_entry(int device, int noise_kind, const float* x0,
+                      const SampleArgs& a, int K, int T, float dt, ModelArgs m,
+                      float lr_gain, float lam_w, float* costs, int* crash,
+                      float* U, float* carry, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int nb = (K + kBlock - 1) / kBlock;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (noise_kind == kGaussian) {
+    fused_solve_kernel<Dyn, Cost, kGaussian><<<nb, kBlock, 0, s>>>(
+        x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
+  } else if (noise_kind == kNLN) {
+    fused_solve_kernel<Dyn, Cost, kNLN><<<nb, kBlock, 0, s>>>(
+        x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,39 +278,33 @@ extern "C" {
 // Samples per block of both kernels: one carry row per block of this many.
 int fused_solve_block_size() { return kBlock; }
 
-// B3 for DoubleIntegrator + DoubleIntegratorCircleCost; noise_kind 0 is the
-// Gaussian sampler, 1 NLN. Every pointer is memory of CUDA device `device`,
-// `stream` one of its streams; zinj may be null. U (K, T, C) and carry
-// (ceil(K / kBlock), 2 + T*C) are written. Returns the CUDA error of the
-// launch (0 when it was accepted), or cudaErrorInvalidValue for a noise kind
-// this kernel does not draw.
-int fused_solve_di_circle(int device, int noise_kind, const float* x0,
-                          const float* mean, const float* sigma,
-                          const float* aux, const float* lrc,
-                          const float* cons, const int* seed,
-                          const float* zinj, int K, int T, int stride,
-                          float pure_thresh, float dt, float lr_gain,
-                          float lam_w, const float* cost_params, float* costs,
-                          int* crash, float* U, float* carry, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  using D = DoubleIntegrator;
-  using Q = DoubleIntegratorCircleCost;
-  const SampleArgs a{mean, sigma, aux, lrc, cons, seed, zinj,
-                     stride, pure_thresh, 0.0f};
-  const int nb = (K + kBlock - 1) / kBlock;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (noise_kind == kGaussian) {
-    fused_solve_kernel<D, Q, kGaussian><<<nb, kBlock, 0, s>>>(
-        x0, a, K, T, dt, cost_params, lr_gain, lam_w, costs, crash, U, carry);
-  } else if (noise_kind == kNLN) {
-    fused_solve_kernel<D, Q, kNLN><<<nb, kBlock, 0, s>>>(
-        x0, a, K, T, dt, cost_params, lr_gain, lam_w, costs, crash, U, carry);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+// B3 for one (dynamics, cost) pair; noise_kind 0 is the Gaussian sampler, 1
+// NLN. Every pointer is memory of CUDA device `device`, `stream` one of its
+// streams; zinj may be null, and dyn_params and cost_map for a pair that reads
+// none. U (K, T, C) and carry (ceil(K / kBlock), 2 + T*C) are written. Returns
+// the CUDA error of the launch (0 when it was accepted), or
+// cudaErrorInvalidValue for a noise kind this kernel does not draw.
+#define SOLVE_ENTRY(NAME, DYN, COST)                                          \
+  int NAME(int device, int noise_kind, const float* x0, const float* mean,   \
+           const float* sigma, const float* aux, const float* lrc,           \
+           const float* cons, const int* seed, const float* zinj, int K,     \
+           int T, int stride, float pure_thresh, float dt, float lr_gain,    \
+           float lam_w, const float* dyn_params, const float* cost_params,   \
+           const float* cost_map, float* costs, int* crash, float* U,        \
+           float* carry, void* stream) {                                     \
+    const SampleArgs a{mean, sigma, aux, lrc, cons, seed, zinj,              \
+                       stride, pure_thresh, 0.0f};                            \
+    return fused_solve_entry<DYN, COST>(                                     \
+        device, noise_kind, x0, a, K, T, dt,                                 \
+        ModelArgs{dyn_params, cost_params, cost_map}, lr_gain, lam_w, costs, \
+        crash, U, carry, stream);                                            \
   }
-  return static_cast<int>(cudaGetLastError());
-}
+
+// DoubleIntegrator + DoubleIntegratorCircleCost
+SOLVE_ENTRY(fused_solve_di_circle, DoubleIntegrator, DoubleIntegratorCircleCost)
+// AutorallyNN (6-32-32-4) + ARStandardCost / ARRobustCost
+SOLVE_ENTRY(fused_solve_ar_nn, AutorallyNN, ARCost)
+#undef SOLVE_ENTRY
 
 // B4 for DoubleIntegrator + DoubleIntegratorCircleCost; noise_kind 0
 // Gaussian, 1 NLN, 2 Smooth-MPPI (aux is then the derivative mean). U and W
@@ -287,21 +318,23 @@ int fused_sample_rollout_di_circle(int device, int noise_kind, int epilogue,
                                    const int* seed, const float* zinj, int K,
                                    int T, int stride, float pure_thresh,
                                    float dt_smooth, float dt, float lr_gain,
-                                   float lam_w, const float* cost_params,
-                                   float* costs, int* crash, float* U,
-                                   float* W, float* carry, void* stream) {
+                                   float lam_w, const float* dyn_params,
+                                   const float* cost_params,
+                                   const float* cost_map, float* costs,
+                                   int* crash, float* U, float* W, float* carry,
+                                   void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   using D = DoubleIntegrator;
   using Q = DoubleIntegratorCircleCost;
   const SampleArgs a{mean, sigma, aux, coeff, cons, seed, zinj,
                      stride, pure_thresh, dt_smooth};
+  const ModelArgs m{dyn_params, cost_params, cost_map};
   const int nb = (K + kBlock - 1) / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define B4_LAUNCH(NOISE, EPI)                                              \
   fused_sample_rollout_kernel<D, Q, NOISE, EPI><<<nb, kBlock, 0, s>>>(     \
-      x0, a, K, T, dt, cost_params, lr_gain, lam_w, costs, crash, U, W, \
-      carry)
+      x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, W, carry)
   if (epilogue) {
     if (noise_kind != kSmooth || W == nullptr || carry == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,11 +1,22 @@
-// Device helpers shared by the MPPI kernels: the constraint clamp, block
-// reductions and the per-block flash (online-softmax) carry row.
+// Device helpers shared by the MPPI kernels: the model arguments, the
+// constraint clamp, block reductions and the per-block flash
+// (online-softmax) carry row.
 #pragma once
 
 #include <math.h>
 #include <stddef.h>
 
 constexpr float kMasked = -1e30f;  // s of a sample past K: adds nothing
+
+// What a (dynamics, cost) pair reads besides the samples: the dynamics'
+// parameter table (staged into shared memory by Dyn::stage; null for a model
+// without one), the cost's packed parameters and the cost's map data (null
+// for a cost without one).
+struct ModelArgs {
+  const float* dyn_params;
+  const float* cost_params;
+  const float* cost_map;
+};
 
 // enforceConstraints for one channel (dynamics.cuh:250-264, the TPU kernels'
 // _clamp_channel, pallas_rollout.py:481-488): deadband snap and shrink, then

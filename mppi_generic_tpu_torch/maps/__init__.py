@@ -1,0 +1,3 @@
+from mppi_generic_tpu_torch.maps.texture import MapTexture2D, load_track_npz
+
+__all__ = ["MapTexture2D", "load_track_npz"]

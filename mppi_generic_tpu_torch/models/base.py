@@ -39,20 +39,9 @@ class Dynamics(nn.Module):
     def __init__(self, control_ranges=None, control_deadband=None,
                  zero_control=None, device="cpu"):
         super().__init__()
-        C = self.CONTROL_DIM
-        if control_ranges is None:
-            inf = float("inf")
-            control_ranges = [[-inf, inf]] * C
-        if control_deadband is None:
-            control_deadband = [0.0] * C
-        if zero_control is None:
-            zero_control = [0.0] * C
-        def f32(v, shape):
-            return torch.tensor(np.asarray(v, np.float32), device=device).reshape(shape)
-
-        self.register_buffer("control_ranges", f32(control_ranges, (C, 2)))
-        self.register_buffer("control_deadband", f32(control_deadband, (C,)))
-        self.register_buffer("zero_control", f32(zero_control, (C,)))
+        for name, value in self._default_constraints(
+                control_ranges, control_deadband, zero_control).items():
+            self.register_buffer(name, torch.tensor(value, device=device))
 
     # --- core contract ---------------------------------------------------
     def state_deriv(self, x, u, t=0.0):
@@ -74,6 +63,37 @@ class Dynamics(nn.Module):
         xdot = self.state_deriv(x, u, t)
         x_next = self.update_state(x, xdot, dt)
         return x_next, self.state_to_output(x_next)
+
+    def kernel_step(self, x, u, t, dt):
+        """``step`` in the CUDA kernels' order of operations, which the
+        kernels' plain versions run. The same as ``step`` unless a model's
+        eager step sums in another order (a network's matmul)."""
+        return self.step(x, u, t, dt)
+
+    def kernel_params(self):
+        """The float32 table the kernels stage for this model's step, or
+        None for a model without one. Called only on the CUDA path; raises
+        for parameters the compiled kernels do not take."""
+        return None
+
+    @classmethod
+    def _default_constraints(cls, control_ranges=None, control_deadband=None,
+                             zero_control=None):
+        """The constraint buffers as float32 numpy arrays: (C, 2) ranges,
+        (C,) deadband and zero control; unbounded ranges, no deadband and a
+        zero control where not given, as the JAX package's defaults
+        (models/base.py:53)."""
+        C = cls.CONTROL_DIM
+        if control_ranges is None:
+            control_ranges = [[-np.inf, np.inf]] * C
+        if control_deadband is None:
+            control_deadband = [0.0] * C
+        if zero_control is None:
+            zero_control = [0.0] * C
+        return dict(
+            control_ranges=np.asarray(control_ranges, np.float32).reshape(C, 2),
+            control_deadband=np.asarray(control_deadband, np.float32).reshape(C),
+            zero_control=np.asarray(zero_control, np.float32).reshape(C))
 
     def enforce_constraints(self, x, u):
         """Deadband snap-to-zero-control, deadband shrink, then clamp

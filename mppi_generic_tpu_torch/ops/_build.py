@@ -39,15 +39,25 @@ NVCC_FLAGS = (
 # The C functions of each library and their ctypes signatures. Pointers and
 # the stream are c_void_p: a plain int would be cut to 32 bits.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ROLLOUT = [
+    _I, _P, _P, _I, _I, _F,  # device, x0, U, K, T, dt
+    _P, _P, _P,              # dynamics params, cost params, cost map
+    _P, _P, _P, _F, _F, _I,  # lr mean/sigma/coeff, gain, thresh, with_lr
+    _I, _I, _F,              # epilogue, per-sample x0, lam_w
+    _P, _P, _P, _P,          # costs, crash, carry, stream
+]
+_SOLVE = [
+    _I, _I, _P, _P, _P, _P, _P, _P,  # device, noise kind, x0, mean, sigma, aux, lrc, cons
+    _P, _P, _I, _I, _I,              # seed, injected normals, K, T, stride
+    _F, _F, _F, _F,                  # pure thresh, dt, lr gain, lam_w
+    _P, _P, _P,                      # dynamics params, cost params, cost map
+    _P, _P, _P, _P, _P,              # costs, crash, U, carry, stream
+]
 SIGNATURES = {
     "fused_rollout": {
         "fused_rollout_block_size": [],
-        "rollout_costs_di_circle": [
-            _I, _P, _P, _I, _I, _F, _P,  # device, x0, U, K, T, dt, cost_params
-            _P, _P, _P, _F, _F, _I,      # lr mean/sigma/coeff, gain, thresh, with_lr
-            _I, _I, _F,                  # epilogue, per-sample x0, lam_w
-            _P, _P, _P, _P,              # costs, crash, carry, stream
-        ],
+        "rollout_costs_di_circle": _ROLLOUT,
+        "rollout_costs_ar_nn": _ROLLOUT,
         "flash_combine": [_I, _P, _I, _I, _F, _P, _P, _P],
     },
     "rmppi_rollout": {
@@ -59,16 +69,13 @@ SIGNATURES = {
     },
     "fused_solve": {
         "fused_solve_block_size": [],
-        "fused_solve_di_circle": [
-            _I, _I, _P, _P, _P, _P, _P, _P,  # device, noise kind, x0, mean, sigma, aux, lrc, cons
-            _P, _P, _I, _I, _I,              # seed, injected normals, K, T, stride
-            _F, _F, _F, _F, _P,              # pure thresh, dt, lr gain, lam_w, cost params
-            _P, _P, _P, _P, _P,              # costs, crash, U, carry, stream
-        ],
+        "fused_solve_di_circle": _SOLVE,
+        "fused_solve_ar_nn": _SOLVE,
         "fused_sample_rollout_di_circle": [
             _I, _I, _I, _P, _P, _P, _P, _P, _P,  # device, kind, epilogue, x0, mean, sigma, aux, coeff, cons
             _P, _P, _I, _I, _I,                  # seed, injected normals, K, T, stride
-            _F, _F, _F, _F, _F, _P,              # pure thresh, dt_smooth, dt, lr gain, lam_w, cost params
+            _F, _F, _F, _F, _F,                  # pure thresh, dt_smooth, dt, lr gain, lam_w
+            _P, _P, _P,                          # dynamics params, cost params, cost map
             _P, _P, _P, _P, _P, _P,              # costs, crash, U, W, carry, stream
         ],
     },

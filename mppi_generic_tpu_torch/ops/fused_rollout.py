@@ -25,8 +25,18 @@ kernel ``_fused_rmppi_call``, and ``fused_sample_rollout_kernel`` in
   samples W. The helpers of the in-kernel draw (``noise_kind``, the tables,
   ``sample_plain``) are shared with ``ops/fused_solve.py``.
 
+The rollout kernel has entries for two (dynamics, cost) pairs: the double
+integrator with its circle cost, and AutoRally's network dynamics with the
+standard or robust AutoRally cost, whose step runs the FNN and whose cost
+reads the track costmap inside the kernel (``_ROLLOUT_ENTRY``); the RMPPI
+and sampling kernels for the first only. Each pair reads its parameters
+through ``Dynamics.kernel_params`` and ``Cost.kernel_map`` besides the
+cost's ``params`` table.
+
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module, with the same arithmetic) for CPU tensors.
+The plain versions step with ``Dynamics.kernel_step``, the model's step in
+the kernels' order of operations.
 There is no fallback: a CUDA tensor the kernel does not take raises. Every
 launch adds one to ``launch_counts`` under the kernel's name.
 
@@ -42,7 +52,9 @@ import functools
 import numpy as np
 import torch
 
+from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.ops import _build, philox
 from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
@@ -69,6 +81,8 @@ _MASKED = -1e30
 # (dynamics, cost) pairs with a compiled kernel -> C entry point
 _ROLLOUT_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rollout_costs_di_circle",
+    (AutorallyNNDynamics, ARStandardCost): "rollout_costs_ar_nn",
+    (AutorallyNNDynamics, ARRobustCost): "rollout_costs_ar_nn",
 }
 _RMPPI_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rmppi_rollout_di_circle",
@@ -121,7 +135,7 @@ def rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params=None):
     y = None
     for t in range(T):
         u = Uc[:, t]
-        x, y = dynamics.step(x, u, float(t), dt)
+        x, y = dynamics.kernel_step(x, u, float(t), dt)
         c, crash = cost.running_cost(y, u, t, crash)
         if lr_params is not None:
             lr_t = torch.zeros_like(acc)
@@ -181,8 +195,8 @@ def rmppi_rollout_plain(dynamics, cost, x0_nom, x0_real, U, gains, sigma,
         fb_cost = gain * fb_cost
         u_real = dynamics.enforce_constraints(x_real, u_raw + torch.stack(u_fb))
         u_real_t.append(u_real)
-        x_nom, y_nom = dynamics.step(x_nom, u_nom, float(t), dt)
-        x_real, y_real = dynamics.step(x_real, u_real, float(t), dt)
+        x_nom, y_nom = dynamics.kernel_step(x_nom, u_nom, float(t), dt)
+        x_real, y_real = dynamics.kernel_step(x_real, u_real, float(t), dt)
         c_nom, crash_n = cost.running_cost(y_nom, u_nom, t, crash_n)
         c_real, crash_r = cost.running_cost(y_real, u_real, t, crash_r)
         s_nom = s_nom + c_nom
@@ -232,6 +246,21 @@ def _check_tensors(tensors, device):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
+def _model_args(dynamics, cost, device):
+    """The (dynamics params, cost params, cost map) pointers of a launch,
+    each checked as the kernels take it; the dynamics and the cost refuse
+    what the compiled kernels do not take (another network, another output
+    layout)."""
+    dyn_p, cmap = dynamics.kernel_params(), cost.kernel_map()
+    tensors = {"cost params": cost.params}
+    if dyn_p is not None:
+        tensors["dynamics params"] = dyn_p
+    if cmap is not None:
+        tensors["cost map"] = cmap
+    _check_tensors(tensors, device)
+    return _ptr(dyn_p), cost.params.data_ptr(), _ptr(cmap)
+
+
 def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
     """The kernel's entry point for this (dynamics, cost) pair, after
     checking device, dtype, shape and contiguity of every input."""
@@ -242,7 +271,7 @@ def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
             f"{type(cost).__name__}")
     K, T, C = U.shape
     S = dynamics.STATE_DIM
-    tensors = {"U": U, "x0": x0, "cost params": cost.params}
+    tensors = {"U": U, "x0": x0}
     if lr_params is not None:
         tensors.update(mean=lr_params[0], sigma=lr_params[1], coeff=lr_params[2])
     _check_tensors(tensors, U.device)
@@ -295,7 +324,8 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, lam_w):
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = getattr(lib, entry)(
         dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
-        cost.params.data_ptr(), *lr, int(lr_params is not None), int(epilogue),
+        *_model_args(dynamics, cost, dev), *lr, int(lr_params is not None),
+        int(epilogue),
         int(x0.dim() == 2), _f32(lam_w if epilogue else 1.0), costs.data_ptr(),
         crash.data_ptr(),
         carry.data_ptr() if epilogue else None, stream)
@@ -485,7 +515,7 @@ def _rollout_sums(dynamics, cost, x0, U, dt, step_extra=None):
     y = None
     for t in range(T):
         u = Uc[:, t]
-        x, y = dynamics.step(x, u, float(t), dt)
+        x, y = dynamics.kernel_step(x, u, float(t), dt)
         c, crash = cost.running_cost(y, u, t, crash)
         acc = acc + c
         if step_extra is not None:
@@ -565,8 +595,7 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
     z = (None if injected_noise is None
          else standard_normals(kind, seed, K, T, C, injected_noise))
     tensors = {"x0": (x0, (S,)), "mean": (mean, (T, C)), "sigma": sigma,
-               "coeff": (sampler.control_cost_coeff, (C,)), "constraints": cons,
-               "cost params": cost.params}
+               "coeff": (sampler.control_cost_coeff, (C,)), "constraints": cons}
     if aux is not None:
         tensors["aux"] = (aux, (T, C))
     if z is not None:
@@ -574,6 +603,7 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
     _check_tensors(tensors, dev)
     if C != dynamics.CONTROL_DIM or K < 1 or T < 1 or 2 * K * T * C >= 2**31:
         raise ValueError(f"unsupported sizes K={K}, T={T}, C={C}")
+    model = _model_args(dynamics, cost, dev)
     seed = _seed_tensor(seed, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     costs = torch.empty((K,), **f32)
@@ -587,7 +617,7 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
         cons.data_ptr(), seed.data_ptr(), _ptr(z), K, T, int(stride),
         _f32(sampler.pure_threshold(K)),
         _f32(getattr(sampler, "dt_smooth", 0.0)), _f32(dt), _lr_gain(lam, alpha),
-        _f32(lam), cost.params.data_ptr(), costs.data_ptr(), crash.data_ptr(),
+        _f32(lam), *model, costs.data_ptr(), crash.data_ptr(),
         _ptr(U), _ptr(W), _ptr(carry), torch.cuda.current_stream(dev).cuda_stream)
     _check_status(status, "fused_sample_rollout_kernel")
     launch_counts["fused_sample_rollout_kernel"] += 1

@@ -9,16 +9,21 @@ Gaussian and the NLN sampler: the normals drawn in the kernel (Philox,
 block of samples; ``flash_combine_kernel`` then merges the rows into the new
 mean, baseline and eta.
 
-CPU tensors run the plain version (``fused_solve_plain``, the kernel's
-operations in its order), CUDA tensors the kernel. There is no fallback: a
-sampler, or a (dynamics, cost) pair, the kernel does not take raises.
+The kernel has entries for the double integrator with its circle cost and
+for AutoRally's network dynamics with the standard or robust AutoRally
+cost (the FNN step and the costmap query inside the kernel). CPU tensors
+run the plain version (``fused_solve_plain``, the kernel's operations in
+its order), CUDA tensors the kernel. There is no fallback: a sampler, or a
+(dynamics, cost) pair, the kernel does not take raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 from mppi_generic_tpu_torch.ops._build import launch_counts
@@ -27,6 +32,8 @@ __all__ = ["fused_solve_carries", "fused_solve_iteration", "fused_solve_plain"]
 
 _SOLVE_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "fused_solve_di_circle",
+    (AutorallyNNDynamics, ARStandardCost): "fused_solve_ar_nn",
+    (AutorallyNNDynamics, ARRobustCost): "fused_solve_ar_nn",
 }
 
 
@@ -89,7 +96,7 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
     z = (None if injected_noise is None
          else fr.standard_normals(kind, seed, K, T, C, injected_noise))
     tensors = {"x0": (x0, (S,)), "mean": (mean, (T, C)), "sigma": sigma,
-               "lrc": lrc, "constraints": cons, "cost params": cost.params}
+               "lrc": lrc, "constraints": cons}
     if aux is not None:
         tensors["aux"] = (aux, (T, C))
     if z is not None:
@@ -97,6 +104,7 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
     fr._check_tensors(tensors, dev)
     if C != dynamics.CONTROL_DIM or K < 1 or T < 1 or 2 * K * T * C >= 2**31:
         raise ValueError(f"unsupported sizes K={K}, T={T}, C={C}")
+    model = fr._model_args(dynamics, cost, dev)
     seed = fr._seed_tensor(seed, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     costs = torch.empty((K,), **f32)
@@ -107,8 +115,8 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
         dev.index, kind, x0.data_ptr(), mean.data_ptr(), sigma.data_ptr(),
         fr._ptr(aux), lrc.data_ptr(), cons.data_ptr(), seed.data_ptr(), fr._ptr(z),
         K, T, int(stride), fr._f32(sampler.pure_threshold(K)), fr._f32(dt),
-        fr._lr_gain(lam, alpha), fr._f32(lam), cost.params.data_ptr(),
-        costs.data_ptr(), crash.data_ptr(), U.data_ptr(), carry.data_ptr(),
+        fr._lr_gain(lam, alpha), fr._f32(lam), *model, costs.data_ptr(),
+        crash.data_ptr(), U.data_ptr(), carry.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     fr._check_status(status, "fused_solve_kernel")
     launch_counts["fused_solve_kernel"] += 1

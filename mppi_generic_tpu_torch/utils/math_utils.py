@@ -2,12 +2,15 @@
 
 Counterpart of ``mppi_generic_tpu/utils/math_utils.py``: the same functions,
 with the same numerics, on tensors. Only what the ported path calls lives
-here; the rest of the JAX module is still to be ported.
+here (the angle wrap, the polynomial atan family, smoothing and the
+control-sequence services); quaternions and integration are still to be
+ported. The CUDA kernels carry the same operations in ``csrc/``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -17,10 +20,66 @@ import torch
 # of the JAX package's constant, kept here so this package never imports it.
 SG_FILTER_5 = np.array([-3.0, 12.0, 17.0, 12.0, -3.0], np.float32) / 35.0
 
+# Python floats, as the JAX package writes them; each operation against a
+# float32 tensor rounds them to float32 (pi 3.1415927, 2 pi 6.2831855,
+# pi / 2 1.5707964), as the CUDA twins' literals in csrc/ do.
+PI = math.pi
+TWO_PI = 2.0 * math.pi
+HALF_PI = math.pi / 2
+
 
 def sign(x: torch.Tensor) -> torch.Tensor:
     """sign(x) with sign(0) == 1 (the reference's mppi::math::sign)."""
     return torch.where(x < 0, -1.0, 1.0).to(x.dtype)
+
+
+def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
+    """Wrap an angle to [-pi, pi): mod(theta + pi, 2 pi) - pi, with the
+    floored modulo of ``jnp.mod`` written out as ``fmod`` and its sign fix,
+    the operations of the kernels' ``normalize_angle`` (csrc/autorally_nn.cuh)."""
+    a = theta + PI
+    m = torch.fmod(a, TWO_PI)
+    m = torch.where(m < 0, m + TWO_PI, m)
+    return m - PI
+
+
+def atan_approx(z: torch.Tensor) -> torch.Tensor:
+    """Minimax odd-polynomial atan on |z| <= 1 (~1e-5 rad max error): the
+    JAX package's polynomial, ported exactly because models call it."""
+    s = z * z
+    return z * (0.9998660
+                + s * (-0.3302995
+                       + s * (0.180141
+                              + s * (-0.085133 + 0.0208351 * s))))
+
+
+def atan2_approx(y: torch.Tensor, x: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """atan2 from ``atan_approx`` with octant reduction; the quadrant
+    semantics of atan2 for nonzero inputs."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    lo = torch.minimum(ax, ay)
+    r = atan_approx(lo / torch.clamp_min(hi, eps))
+    r = torch.where(ay > ax, HALF_PI - r, r)
+    r = torch.where(x < 0, PI - r, r)
+    return torch.where(y < 0, -r, r)
+
+
+def atan_full_approx(x: torch.Tensor) -> torch.Tensor:
+    """Full-range atan via |x| > 1 inversion + ``atan_approx`` (~1e-5 rad)."""
+    ax = torch.abs(x)
+    inv = ax > 1.0
+    z = torch.where(inv, 1.0 / torch.clamp_min(ax, 1e-30), ax)
+    r = atan_approx(z)
+    r = torch.where(inv, HALF_PI - r, r)
+    return torch.where(x < 0, -r, r)
+
+
+def asin_approx(x: torch.Tensor) -> torch.Tensor:
+    """arcsin via atan2_approx(x, sqrt(1 - x^2)) on the clipped domain."""
+    x = torch.clamp(x, -1.0, 1.0)
+    return atan2_approx(x, torch.sqrt(torch.clamp_min(1.0 - x * x, 0.0)))
 
 
 def discount_pow(base: torch.Tensor, t) -> torch.Tensor:

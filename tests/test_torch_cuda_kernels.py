@@ -18,14 +18,21 @@ from mppi_generic_tpu_torch import (
     SmoothMPPIDistribution,
     VanillaMPPI,
 )
-from mppi_generic_tpu_torch.costs import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.costs import (
+    ARRobustCost,
+    ARStandardCost,
+    DoubleIntegratorCircleCost,
+)
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder
-from mppi_generic_tpu_torch.models import DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.maps import MapTexture2D
+from mppi_generic_tpu_torch.models import AutorallyNNDynamics, DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.nn import FNN
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 from mppi_generic_tpu_torch.ops import fused_solve, philox, riccati
 
 T, C = 24, 2
 DT, LAM, ALPHA, P_PURE = 0.02, 1.3, 0.1, 0.25
+LAM_AR = 1.0  # the controllers' default lambda
 
 
 @pytest.fixture
@@ -303,3 +310,150 @@ def test_kernel_draw_equals_the_plain_philox(cuda_device):
         ALPHA, K)
     z = philox.normals(seed, K, T, C)[0]
     _close(U[1:], z[1:], rtol=0, atol=0)
+
+
+# --- AutoRally: the FNN step (B10) and the costmap query (B9) in B1 and B3 ---
+def _ar_map(kind, dev):
+    """A 128^2 map as bench.py:641-644 (abs normal, seed 0, 1 m texels);
+    a channel-major 4-channel map (0.1 m texels) whose channel 0 is the
+    track; or no map."""
+    rng = np.random.default_rng(0)
+    if kind == "plain":
+        return MapTexture2D(np.abs(rng.normal(size=(128, 128))).astype("f"),
+                            origin=(-64, -64, 0), resolution=1.0, device=dev)
+    if kind == "channel_major":
+        chw = rng.normal(size=(4, 256, 256)).astype("f")
+        chw[0] = 0.5 * np.abs(chw[0])
+        return MapTexture2D(chw, origin=(-12.8, -12.8, 0), resolution=0.1,
+                            channel_major=True, device=dev)
+    return None
+
+
+def _ar_parts(dev, map_kind, robust=False, seed=0):
+    dyn = AutorallyNNDynamics.create(seed=seed, device=dev)
+    cls = ARRobustCost if robust else ARStandardCost
+    return dyn, cls(costmap=_ar_map(map_kind, dev), device=dev)
+
+
+def _ar_x0(dev):
+    return torch.tensor([0.0, 0.0, 0.3, 0.0, 3.0, 0.0, 0.0], device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("map_kind", ["plain", "channel_major", "none"])
+@pytest.mark.parametrize("epilogue,with_lr", [(False, False), (False, True),
+                                              (True, True)])
+def test_ar_rollout_kernel_matches_plain(cuda_device, K, map_kind, epilogue, with_lr):
+    dyn, cost = _ar_parts(cuda_device, map_kind, robust=map_kind == "none")
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    mean = 0.2 * torch.randn((T, C), generator=g, device=cuda_device)
+    sigma = torch.tensor([[0.3, 0.5]], device=cuda_device).expand(T, C).contiguous()
+    U = (mean + sigma * torch.randn((K, T, C), generator=g, device=cuda_device)).contiguous()
+    lr = (mean, sigma, torch.tensor([1.0, 1.0], device=cuda_device), LAM, ALPHA,
+          0.9 * K) if with_lr else None
+    x0 = _ar_x0(cuda_device)
+    fr.reset_launch_counts()
+    if epilogue:
+        kc, kcrash, kcarry = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr)
+    else:
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    _close(kc, pc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kcrash, pcrash)
+    if epilogue:
+        _close(kcarry, fr.block_carries_plain(pc, U, LAM), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ar_rollout_kernel_per_sample_x0_matches_plain(cuda_device):
+    dyn, cost = _ar_parts(cuda_device, "plain")
+    K = 200
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    U = 0.4 * torch.randn((K, T, C), generator=g, device=cuda_device)
+    x0s = (_ar_x0(cuda_device) + 0.2 * torch.randn((K, 7), generator=g,
+                                                    device=cuda_device)).contiguous()
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
+    _close(kc, pc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kcrash, pcrash)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+@pytest.mark.parametrize("map_kind", ["plain", "channel_major"])
+def test_ar_fused_solve_kernel_matches_plain(cuda_device, K, kind, map_kind):
+    dyn, cost = _ar_parts(cuda_device, map_kind, robust=kind == "nln")
+    g = torch.Generator(device=cuda_device).manual_seed(K + 1)
+    kw = dict(std_dev=[0.3, 0.5], pure_noise_percentage=0.1, device=cuda_device)
+    samp = NLNDistribution.create(**kw) if kind == "nln" else GaussianDistribution.create(**kw)
+    mean = 0.2 * torch.randn((T, C), generator=g, device=cuda_device)
+    seed = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32,
+                         device=cuda_device)
+    args = (dyn, cost, samp, _ar_x0(cuda_device), mean, seed, DT, LAM, ALPHA, K)
+    kw = dict(iteration=0, optimization_stride=2)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_solve_kernel"] == 1
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(kc, pc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ar_kernels_refuse_what_they_are_not_built_for(cuda_device):
+    x0, U = _ar_x0(cuda_device), torch.zeros((64, T, C), device=cuda_device)
+    wide = AutorallyNNDynamics(FNN.create([6, 16, 4], seed=1), device=cuda_device)
+    _, cost = _ar_parts(cuda_device, "plain")
+    with pytest.raises(NotImplementedError, match="6, 32, 32, 4"):
+        fr.fused_rollout_costs(wide, cost, x0, U, DT)
+    dyn = AutorallyNNDynamics.create(seed=1, device=cuda_device)
+    moved = ARStandardCost(output_indices=(1, 0, 2, 3, 4, 5), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="output"):
+        fr.fused_rollout_costs(dyn, moved, x0, U, DT)
+    with pytest.raises(NotImplementedError, match="RMPPI"):
+        fr.fused_rmppi_rollout(dyn, cost, x0, x0, U, torch.zeros((T, C, 7), device=cuda_device),
+                               torch.ones((T, C), device=cuda_device),
+                               torch.ones((C,), device=cuda_device), DT, LAM, ALPHA)
+
+
+def mean_tolerance(rf, rc, U, lam):
+    """How far two weighted means may sit apart when their costs differ by
+    dJ (sums taken in another order): a weight moves by at most 2 max|dJ| /
+    lambda relative, so the mean by that times max|U_k - mean|, plus 1e-5."""
+    dJ = float((rf.costs - rc.costs).abs().max())
+    spread = float((U - rc.control_mean).abs().max())
+    return 2 * dJ / lam * spread + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "fused_solve"])
+def test_ar_vanilla_kernels_match_combined_on_the_card(cuda_device, kernel):
+    """A mild map (0.3 |z|, few crashes): costs of about 100, where the
+    eager network's matmul and the kernels' left-to-right sums leave the
+    costs an ulp apart."""
+    def build(k):
+        dyn = AutorallyNNDynamics.create(seed=0)
+        tex = MapTexture2D(0.3 * np.abs(np.random.default_rng(1).normal(
+            size=(64, 64))).astype("f"), origin=(-32, -32, 0))
+        return VanillaMPPI(dyn, ARStandardCost(costmap=tex),
+                           GaussianDistribution.create(std_dev=[0.3, 0.5]),
+                           num_timesteps=T, num_rollouts=300, kernel=k,
+                           return_samples=True)
+
+    ctrl, combined = build(kernel), build("combined")
+    eps = torch.randn((300, T, C), device=cuda_device)
+    state = ctrl.init_state(seed=0)
+    rf, _ = ctrl.solve(_ar_x0(cuda_device), state, injected_noise=eps)
+    rc, _ = combined.solve(_ar_x0(cuda_device), state, injected_noise=eps)
+    _close(rf.costs, rc.costs, rtol=1e-5, atol=1e-4)
+    assert torch.equal(rf.crash, rc.crash)
+    tol = mean_tolerance(rf, rc, rc.sampled_controls, LAM_AR)
+    _close(rf.control_mean, rc.control_mean, rtol=0, atol=tol)
+    assert tol < 1e-3
