@@ -19,9 +19,17 @@ kernels' AutoRally entries against their plain versions
 (``autorally_kernels``), a fused-vs-combined reference, and three closed
 loops with the AutoRally model as the plant (``autorally``,
 ``autorally_1024`` on the fused solve, ``autorally_fused`` on
-``kernel="fused"``). Each phase prints one JSON line. The line before
-the last lists every kernel with its launches on the main path, its error
-against the plain version and its times; the last line is
+``kernel="fused"``). Then the colored-noise rows (bench.py:641-702): the
+rollout kernel's Tsallis mode, the Tsallis reduction kernel and the merge
+against their plain versions (``tsallis_kernels``, DI at K=8192 and 8000,
+T=100), the rollout kernel's bicycle-slip entry on the 128^2 track map
+(``bicycle_kernels``, K=1920 and 1900, T=100), a fused-vs-combined
+reference without host syncs (``colored_reference``), and three closed
+loops on ``kernel="fused"``: ``colored_fused`` (normExp), ``colored_tsallis``
+(Tsallis, gamma 10, r 2) and ``bicycle_colored``. Each phase prints one
+JSON line. The line before the last lists every kernel with its launches on
+the main path, its error against the plain version and its times; the last
+line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
 non-zero exit and no result line. Without CUDA it exits non-zero at once.
 
@@ -42,6 +50,8 @@ import numpy as np
 import torch
 
 from mppi_generic_tpu_torch import (
+    ColoredMPPI,
+    ColoredNoiseDistribution,
     DDPFeedback,
     GaussianDistribution,
     NLNDistribution,
@@ -55,10 +65,11 @@ from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
 from mppi_generic_tpu_torch.maps import MapTexture2D
 from mppi_generic_tpu_torch.models import (
     AutorallyNNDynamics,
+    BicycleSlipDynamics,
     DoubleIntegratorDynamics,
     rollout_single,
 )
-from mppi_generic_tpu_torch.ops import _build, fused_solve, philox, riccati
+from mppi_generic_tpu_torch.ops import _build, fused_solve, philox, riccati, weights
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 from mppi_generic_tpu_torch.ops.rollout import rollout_combined
 
@@ -127,6 +138,28 @@ OPS_AR_STEP = (2 * FNN_MACS + 68 + 64 * OPS_TRANSCENDENTAL + 2 * OPS_TRANSCENDEN
 # only once a sample has crashed and is not counted.
 OPS_AR_COST = 2 * OPS_TRANSCENDENTAL + 4 + 2 * 54 + 8 + 3 + 20 + 6 + 2 + 5
 
+# The colored rows (bench.py:641-702): DI + circle cost with colored noise
+# (std [1, 1], exponents [1, 2]) at K=8192, T=100, normExp or Tsallis (gamma
+# 10, r 2); a gamma small enough that some Tsallis weights are exactly 0 (as
+# tests/test_pallas_rollout.py:581-604); the bicycle-slip model with
+# ARStandardCost on the 128^2 map, output_indices (0, 1, 2, 8, 5, 6), colored
+# std [0.3, 0.5], exponents [1, 1], K=1920, T=100, x0 = 0.
+COLORED_STD, COLORED_EXPONENTS = [1.0, 1.0], [1.0, 2.0]
+GAMMA, R_TS = 10.0, 2.0
+GAMMA_SMALL, R_SMALL = 1.0, 2.4
+K_BI, K_BI_RAGGED, T_BI, S_BI = 1920, 1900, 100, 10
+BI_STD, BI_EXPONENTS = [0.3, 0.5], [1.0, 1.0]
+BI_OUTPUT_INDICES = (0, 1, 2, 8, 5, 6)
+# The bicycle step per sample-step (csrc/bicycle_slip.cuh): the lags and
+# their clamps 11, the forces 16 plus four tanhf, the wheel angle (a division
+# and tanf) and its sinf and cosf, the yaw rate 6, the two accelerations 18,
+# the kinematics cosf, sinf and 6, the Euler update 20, the yaw wrap (fmodf
+# and 4 more) and the two clamps 4.
+OPS_BI_STEP = 11 + 16 + 1 + 6 + 18 + 6 + 20 + 4 + 4 + 10 * OPS_TRANSCENDENTAL
+# the Tsallis weight per sample: the difference, the division, 1 -, the
+# clamp, the comparison, logf, the multiply, expf
+OPS_TSALLIS_W = 6 + 2 * OPS_TRANSCENDENTAL
+
 TOL = {  # (rtol, atol)
     # the same operations in the same order: agree to the last bit
     "costs": (1e-5, 1e-6),
@@ -169,6 +202,14 @@ def check(what, got, want, tol, scale=None):
             f" (max abs {max_abs}, max rel {max_rel})")
     return {"check": what, "max_abs_err": max_abs, "max_rel_err": max_rel,
             "rtol": rtol, "atol": atol}
+
+
+def within(what, got, want, atol):
+    """Fail unless |got - want| <= atol everywhere (a derived tolerance)."""
+    err = float((got.double() - want.double()).abs().max())
+    if not err <= atol:
+        raise AssertionError(f"{what}: max abs error {err} > {atol}")
+    return {"check": what, "max_abs_err": err, "atol": atol}
 
 
 def time_ms(fn, n):
@@ -545,9 +586,10 @@ def vanilla_loop_phase(path, ctrl, want, settle):
                              f"{BAND[0]} < r < {BAND[1]}")
     steady = ev[5:]  # the first solves include one-time allocations
     emit("main_path" if path == "vanilla" else f"{path}_main_path", K=K_MAIN, T=T,
-         kernel=ctrl.kernel, sampler=type(ctrl.sampler).__name__, steps=n,
+         kernel=ctrl.kernel, sampler=type(ctrl.sampler).__name__,
+         weight_transform=ctrl.weight_transform, steps=n,
          launches=launches, final_radius=radius, final_baseline=baseline,
-         out_of_band_steps=out_of_band,
+         radius_range=[float(r.min()), float(r.max())], out_of_band_steps=out_of_band,
          solve_ms_median=statistics.median(e[0].elapsed_time(e[1]) for e in steady),
          step_ms_median=statistics.median(e[0].elapsed_time(e[2]) for e in steady),
          host_wall_ms_per_step=1e3 * wall_s / n)
@@ -1229,16 +1271,326 @@ def ar_reference_phase(dev):
          samples_off_tolerance=odd_samples, no_host_sync=["fused_solve", "fused"])
 
 
-def ar_loop_phase(path, map_kind, kernel, steps, want):
-    """``steps`` closed-loop steps of the AutoRally configuration from x0,
-    the AutoRally model itself as the plant: slide, solve, step with the
-    first control; then a profiler window. Nothing in the loop waits on the
-    device."""
-    ctrl = build_autorally(map_kind, kernel)
+# ---------------------------------------------------------------------------
+# Colored noise: B1's Tsallis mode, B5 and the merge; B1's bicycle-slip entry
+# ---------------------------------------------------------------------------
+def colored_sampler(dev=None, p=0.0, std=COLORED_STD, exponents=COLORED_EXPONENTS):
+    kw = dict(exponents=exponents, std_dev=std, pure_noise_percentage=p)
+    if dev is not None:
+        kw["device"] = dev
+    return ColoredNoiseDistribution.create(**kw)
+
+
+def colored_inputs(dev, K, p, seed, stride):
+    """The colored rows' kernel inputs: colored samples (std [1, 1],
+    exponents [1, 2]) around a random mean, and their LR tables."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn = DoubleIntegratorDynamics.create(device=dev)
+    cost = DoubleIntegratorCircleCost(device=dev)
+    sampler = colored_sampler(dev, p)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=dev)
+    U, _ = sampler.sample(g, mean, K, optimization_stride=stride)
+    lr = (mean, sampler._sigma(T, 0).contiguous(), sampler.control_cost_coeff, LAM, ALPHA,
+          sampler.pure_threshold(K))
+    return dyn, cost, torch.tensor(X0, device=dev), U.contiguous(), lr
+
+
+def pass1_work(K):
+    """(bytes, operations) of B1's Tsallis pass 1 with the LR cost: the
+    rollout's, plus one minimum per sample and one float per block."""
+    n_bytes, n_ops = rollout_work(K, False, True)
+    return n_bytes + 4 * -(-K // fr.BLOCK), n_ops + K
+
+
+def tsallis_reduce_work(K, T_=T):
+    """(bytes, operations) of B5's function: U, the costs and the block
+    minima read once, the rows and rho written once; the minimum, the
+    weights, the sums of w and of w U."""
+    nb, TC = -(-K // fr.BLOCK), T_ * C
+    n_bytes = 4 * (K * TC + K + nb + nb * (2 + TC) + 1)
+    return n_bytes, nb + K * OPS_TSALLIS_W + K + 2 * K * TC
+
+
+def tsallis_kernel_phase(dev, K, p, stride, seed):
+    """B1's Tsallis mode (costs and block minima), B5 (rho and the rows)
+    and the merge against their plain versions, for gamma 10 / r 2 and a
+    gamma that zeros some weights; costs, crash flags, minima and rho to the
+    last bit, the rows, eta and the new mean at the exp epilogue's
+    tolerances; the tsallis_reduce entry alone with a given device rho. At
+    K_MAIN also the times, bounds and the eager weights + matmul."""
+    dyn, cost, x0, U, lr = colored_inputs(dev, K, p, seed, stride)
+    by_kernel = {"rollout_costs_kernel": [], "tsallis_reduce_kernel": [],
+                 "flash_combine_kernel": []}
+    times, zero_weights = {}, {}
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    pmin = fr.block_minima_plain(pc)
+    prho = torch.amin(pmin)
+    for gamma, r in ((GAMMA, R_TS), (GAMMA_SMALL, R_SMALL)):
+        name = f"gamma {gamma} r {r}"
+        kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+        krows, krho = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
+        km, _, ke = fr.flash_combine(krows, T, C, 1.0)
+        _, _, fm, frho, fe = fr.fused_weighted_rollout(
+            dyn, cost, x0, U, DT, LAM, lr, weight_kind="tsallis", weight_params=(gamma, r))
+        knum, keta = fr.tsallis_reduce(U, pc, prho, gamma, r)
+        prows = fr.tsallis_rows_plain(U, pc, prho, fr._f32(gamma), fr._tsallis_pw(r))
+        pm, _, pe, pnum = fr.flash_combine_plain(prows, T, C, 1.0, with_num=True)
+        torch.cuda.synchronize()
+        same(f"{name} crash flags", kcrash, pcrash)
+        same(f"{name} block minima", kmin, pmin)
+        same(f"{name} rho", krho, prho)
+        same(f"{name} fused_weighted_rollout rho", frho, prho)
+        by_kernel["rollout_costs_kernel"].append(check(f"{name} costs", kc, pc, "bitwise"))
+        by_kernel["tsallis_reduce_kernel"].append(
+            check(f"{name} rows", krows, prows, "carry",
+                  fr.tsallis_rows_plain(U.abs(), pc, prho, fr._f32(gamma),
+                                        fr._tsallis_pw(r)).abs()))
+        by_kernel["flash_combine_kernel"] += [
+            check(f"{name} new_mean", km, pm, "new_mean"),
+            check(f"{name} eta", ke, pe, "eta"),
+            check(f"{name} fused_weighted_rollout new_mean", fm, pm, "new_mean"),
+            check(f"{name} fused_weighted_rollout eta", fe, pe, "eta"),
+            check(f"{name} tsallis_reduce(rho given) num", knum, pnum, "new_mean"),
+            check(f"{name} tsallis_reduce(rho given) eta", keta, pe, "eta")]
+        w = weights.tsallis_weights(pc, gamma, r, prho)
+        zero_weights[name] = int((w == 0).sum())
+        if gamma == GAMMA_SMALL and not 0 < zero_weights[name] < K - 1:
+            raise AssertionError(f"{name}: {zero_weights[name]} of {K} weights are 0; "
+                                 "the small gamma must zero some and keep some")
+        if K == K_MAIN and gamma == GAMMA:
+            g32, pw = fr._f32(gamma), fr._tsallis_pw(r)
+            times["pass1"] = timed(
+                lambda: fr.rollout_block_minima(dyn, cost, x0, U, DT, lr),
+                lambda: fr.block_minima_plain(
+                    fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)[0]))
+            times["pass1"]["bound_ms"], times["pass1"]["bound_by"] = bound_ms(
+                *pass1_work(K))
+            t = timed(lambda: fr.tsallis_block_rows(U, kc, kmin, gamma, r),
+                      lambda: fr.tsallis_rows_plain(U, pc, prho, g32, pw))
+            t["bound_ms"], t["bound_by"] = bound_ms(*tsallis_reduce_work(K))
+            # the eager weights and their weighted sum of U: several calls,
+            # a yardstick that the port does not use
+            t["library_ms"] = time_ms(
+                lambda: weights.tsallis_weights(pc, gamma, r, prho) @ U.view(K, -1),
+                N_TIMED)
+            t["library_calls"] = ("weights.tsallis_weights(costs) @ U.view(K, T*C), "
+                                  "several calls")
+            times["tsallis_reduce"] = t
+            times["merge"] = timed(lambda: fr.flash_combine(krows, T, C, 1.0),
+                                   lambda: fr.flash_combine_plain(krows, T, C, 1.0))
+            times["merge"]["bound_ms"], times["merge"]["bound_by"] = bound_ms(
+                *combine_work(krows.shape[0]))
+            times["tsallis_reduce entry (rho given, with the merge)"] = {
+                "ms": time_ms(lambda: fr.tsallis_reduce(U, pc, prho, gamma, r), N_TIMED)}
+            times["chain (pass 1, B5, merge)"] = {"ms": time_ms(
+                lambda: fr.fused_weighted_rollout(dyn, cost, x0, U, DT, LAM, lr,
+                                                  weight_kind="tsallis",
+                                                  weight_params=(gamma, r)), N_TIMED)}
+    emit("tsallis_kernels", K=K, T=T, pure_noise_percentage=p, stride=stride,
+         rho=float(prho), zero_weights=zero_weights,
+         checks=[c for cs in by_kernel.values() for c in cs], times=times)
+    return by_kernel, times
+
+
+def bicycle_parts(dev="cpu"):
+    """The bicycle-slip model and ARStandardCost on the bench's 128^2 map
+    with the bicycle's output layout (bench.py:641-651)."""
+    data, origin, res, channel_major = ar_map_data("128")
+    tex = MapTexture2D(data, origin=origin, resolution=res, channel_major=channel_major,
+                       device=dev)
+    return (BicycleSlipDynamics.create(device=dev),
+            ARStandardCost(costmap=tex, output_indices=BI_OUTPUT_INDICES, device=dev))
+
+
+def build_bicycle(kernel):
+    """bench.py:641-665 on the card."""
+    dyn, cost = bicycle_parts()
+    return VanillaMPPI(dyn, cost, colored_sampler(None, 0.0, BI_STD, BI_EXPONENTS), dt=DT,
+                       lam=LAM, alpha=ALPHA, num_timesteps=T_BI, num_rollouts=K_BI,
+                       num_iters=1, kernel=kernel, return_samples=kernel == "combined")
+
+
+def build_colored(transform, kernel):
+    """bench.py:671-702 on the card: ColoredMPPI, normExp or Tsallis."""
+    return ColoredMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+                       colored_sampler(), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
+                       num_rollouts=K_MAIN, num_iters=1, kernel=kernel,
+                       weight_transform=transform, tsallis_gamma=GAMMA, tsallis_r=R_TS,
+                       return_samples=kernel == "combined")
+
+
+def bicycle_work(cost, K, mode):
+    """(bytes, operations) of B1's function for the bicycle pair: the
+    model's table, the cost's table and its whole map read once, U, x0 and
+    the LR tables read once, costs, crash and the carry rows or block minima
+    written once."""
+    nb = -(-K // fr.BLOCK)
+    with_lr = mode.endswith("+lr")
+    n_bytes = 4 * (BicycleSlipDynamics.create().params.numel() + cost.params.numel()
+                   + cost.costmap.data.numel() + K * T_BI * C + S_BI + 2 * K)
+    n_ops = K * T_BI * (OPS_BI_STEP + OPS_AR_COST + OPS_ACC + (OPS_LR if with_lr else 0))
+    n_ops += 2 * K
+    if with_lr:
+        n_bytes += 4 * (2 * T_BI * C + C)
+    if mode.startswith("epilogue"):
+        n_bytes += 4 * nb * (2 + T_BI * C)
+        n_ops += 5 * K + 2 * K * T_BI * C
+    if mode.startswith("tsallis"):
+        n_bytes += 4 * nb
+        n_ops += K
+    return n_bytes, n_ops
+
+
+def bicycle_kernel_phase(dev, K, p, stride, seed, timed_plain):
+    """B1's bicycle-slip entry in its four modes (costs, costs + LR, the exp
+    epilogue, Tsallis pass 1; the last two with the LR cost, as the main path
+    runs them) against its plain version on the 128^2 map: costs, crash
+    flags and block minima to the last bit; the carries, the Tsallis rows
+    and the merges at the DI kernels' tolerances. Times by CUDA events; the
+    plain versions' only where ``timed_plain``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn, cost = bicycle_parts(dev)
+    x0 = torch.zeros(S_BI, device=dev)
+    samp = colored_sampler(dev, p, BI_STD, BI_EXPONENTS)
+    mean = 0.2 * torch.randn((T_BI, C), generator=g, device=dev)
+    U, _ = samp.sample(g, mean, K, optimization_stride=stride)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lr = (mean, samp._sigma(T_BI, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
+          samp.pure_threshold(K))
+    by_kernel = {"rollout_costs_kernel": [], "tsallis_reduce_kernel": [],
+                 "flash_combine_kernel": []}
+    times, crashed = {}, {}
+    for mode in ("costs", "costs+lr", "epilogue+lr", "tsallis+lr"):
+        lrp = lr if mode.endswith("+lr") else None
+
+        def kernel(mode=mode, lrp=lrp):
+            if mode.startswith("epilogue"):
+                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp)
+            if mode.startswith("tsallis"):
+                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp)
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+
+        def plain(mode=mode, lrp=lrp):
+            pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+            if mode.startswith("epilogue"):
+                return fr.block_carries_plain(pc, U, LAM)
+            return fr.block_minima_plain(pc) if mode.startswith("tsallis") else pc
+
+        kout = kernel()
+        pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+        torch.cuda.synchronize()
+        name = f"bicycle {mode}"
+        same(f"{name} crash flags", kout[1], pcrash)
+        by_kernel["rollout_costs_kernel"].append(
+            check(f"{name} costs", kout[0], pc, "bitwise"))
+        if mode.startswith("epilogue"):
+            pcarry = fr.block_carries_plain(pc, U, LAM)
+            by_kernel["rollout_costs_kernel"].append(check(
+                f"{name} carry", kout[2], pcarry, "carry",
+                fr.block_carries_plain(pc, U.abs(), LAM).abs()))
+            km, kb, ke = fr.flash_combine(kout[2], T_BI, C, LAM)
+            pm, pb, pe = fr.flash_combine_plain(pcarry, T_BI, C, LAM)
+            by_kernel["flash_combine_kernel"] += [
+                check(f"{name} new_mean", km, pm, "new_mean"),
+                check(f"{name} baseline", kb, pb, "baseline"),
+                check(f"{name} eta", ke, pe, "eta")]
+        if mode.startswith("tsallis"):
+            pmin = fr.block_minima_plain(pc)
+            same(f"{name} block minima", kout[2], pmin)
+            krows, krho = fr.tsallis_block_rows(U, kout[0], kout[2], GAMMA, R_TS)
+            prows = fr.tsallis_rows_plain(U, pc, torch.amin(pmin), fr._f32(GAMMA),
+                                          fr._tsallis_pw(R_TS))
+            km, _, ke = fr.flash_combine(krows, T_BI, C, 1.0)
+            pm, _, pe = fr.flash_combine_plain(prows, T_BI, C, 1.0)
+            torch.cuda.synchronize()
+            same(f"{name} rho", krho, torch.amin(pmin))
+            by_kernel["tsallis_reduce_kernel"].append(check(
+                f"{name} rows", krows, prows, "carry",
+                fr.tsallis_rows_plain(U.abs(), pc, torch.amin(pmin), fr._f32(GAMMA),
+                                      fr._tsallis_pw(R_TS)).abs()))
+            by_kernel["flash_combine_kernel"] += [
+                check(f"{name} new_mean", km, pm, "new_mean"),
+                check(f"{name} eta", ke, pe, "eta")]
+        t = {"ms": time_ms(kernel, N_TIMED),
+             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR) if timed_plain else None}
+        t["bound_ms"], t["bound_by"] = bound_ms(*bicycle_work(cost, K, mode))
+        if mode == "epilogue+lr":
+            # one-call yardstick for the weighting + weighted sum (not used by the port)
+            t["library_ms"] = time_ms(lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1),
+                                      N_TIMED)
+        times[mode] = t
+        crashed[mode] = float(kout[1].float().mean())
+    emit("bicycle_kernels", map="128", K=K, T=T_BI, pure_noise_percentage=p, stride=stride,
+         crashed_share=crashed, checks=[c for cs in by_kernel.values() for c in cs],
+         times=times)
+    return by_kernel, times
+
+
+def colored_reference_phase(dev):
+    """One full-width solve of each colored configuration on kernel="fused"
+    against kernel="combined" on the same frequency normals (stride 1, a
+    warm mean), the fused one under set_sync_debug_mode("error") after a
+    warm solve. The costs differ by the LR sum's order; a weight moves by at
+    most 2 max|dJ| / lambda relative (normExp) or 2 max|dJ| / gamma (Tsallis,
+    r = 2) and the mean by that times max|U_k - mean| over the weighted
+    samples, which sets the mean's tolerance (where J is large, as on the
+    bicycle's map where every sample crashes, that is what dominates)."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    checks = []
+    cases = (("exp", build_colored("exp", "fused"), build_colored("exp", "combined"),
+              torch.tensor(X0, device=dev), K_MAIN, T),
+             ("tsallis", build_colored("tsallis", "fused"),
+              build_colored("tsallis", "combined"), torch.tensor(X0, device=dev),
+              K_MAIN, T),
+             ("bicycle", build_bicycle("fused"), build_bicycle("combined"),
+              torch.zeros(S_BI, device=dev), K_BI, T_BI))
+    for name, fused, combined, x, K, T_ in cases:
+        z = torch.randn((2, K, C, T_ + 1), generator=g, device=dev)
+        state = fused.init_state(seed=0).replace(
+            control_mean=0.2 * torch.randn((T_, C), generator=g, device=dev))
+        rc, _ = combined.solve(x, state, 1, injected_noise=z)
+        fused.solve(x, state, 1, injected_noise=z)  # one-time copies
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rf, _ = fused.solve(x, state, 1, injected_noise=z)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        same(f"{name} crash flags of the fused and the eager solve", rf.crash, rc.crash)
+        checks.append(check(f"{name} costs vs combined", rf.costs, rc.costs, "costs"))
+        checks.append(check(f"{name} baseline vs combined", rf.baseline, rc.baseline,
+                            "costs"))
+        dJ = float((rf.costs - rc.costs).abs().max())
+        used = rc.weights > 0
+        spread = float((rc.sampled_controls[used] - rc.control_mean).abs().max())
+        if name == "tsallis":
+            # each weight moves by at most 2 dJ / gamma (r = 2), eta by the sum
+            eta_move = 2 * dJ / GAMMA * int(used.sum())
+            checks.append(within(f"{name} eta vs combined", rf.normalizer, rc.normalizer,
+                                 1e-5 * float(rc.normalizer) + eta_move))
+            move = eta_move / float(rc.normalizer)
+        else:
+            move = 2 * dJ / LAM
+        mean_atol = move * spread + 1e-5
+        checks.append(within(f"{name} control_mean vs combined", rf.control_mean,
+                             rc.control_mean, mean_atol))
+        checks.append(within(f"{name} state_trajectory vs combined", rf.state_trajectory,
+                             rc.state_trajectory, T_ * DT * mean_atol + 1e-5))
+    emit("colored_reference", checks=checks, no_host_sync=["exp", "tsallis", "bicycle"])
+
+
+def model_loop_phase(path, ctrl, x0, steps, want, **labels):
+    """``steps`` closed-loop steps of a map configuration (AutoRally, the
+    bicycle) from ``x0``, the model itself as the plant: slide, solve, step
+    with the first control; then a profiler window. Records the crashed
+    share and the final state; sets no task bar (the JAX bench sets none for
+    these rows). Nothing in the loop waits on the device."""
     if ctrl.device.type != "cuda":
         raise AssertionError("the controller did not default to the card")
+    K_, T_ = ctrl.num_rollouts, ctrl.num_timesteps
     cs = ctrl.init_state(seed=0)
-    x = ar_x0(ctrl.device)
+    x = x0
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(steps)]
     crashed, states = [], []
     torch.cuda.synchronize()
@@ -1262,12 +1614,12 @@ def ar_loop_phase(path, map_kind, kernel, steps, want):
                     ("state_trajectory", res.state_trajectory)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{path}: {name} is not finite")
-    if res.control_mean.shape != (T_AR, C) or res.costs.shape != (K_AR,):
+    if res.control_mean.shape != (T_, C) or res.costs.shape != (K_,):
         raise AssertionError(f"{path}: unexpected result shapes")
     steady = ev[5:]  # the first solves include one-time allocations
-    emit(f"{path}_main_path", K=K_AR, T=T_AR, map=map_kind, kernel=kernel, steps=steps,
+    emit(f"{path}_main_path", K=K_, T=T_, **labels, kernel=ctrl.kernel, steps=steps,
          launches=launches,
-         crashed_share=float(torch.stack(crashed).float().mean().cpu()) / K_AR,
+         crashed_share=float(torch.stack(crashed).float().mean().cpu()) / K_,
          final_state=X[-1].tolist(), final_baseline=float(res.baseline),
          solve_ms_median=statistics.median(e[0].elapsed_time(e[1]) for e in steady),
          step_ms_median=statistics.median(e[0].elapsed_time(e[2]) for e in steady),
@@ -1280,6 +1632,12 @@ def ar_loop_phase(path, map_kind, kernel, steps, want):
 
     profile_steps(path, step)
     return launches
+
+
+def ar_loop_phase(path, map_kind, kernel, steps, want):
+    """The AutoRally configuration's closed loop from x0 (v_x = 3)."""
+    ctrl = build_autorally(map_kind, kernel)
+    return model_loop_phase(path, ctrl, ar_x0(ctrl.device), steps, want, map=map_kind)
 
 
 def main() -> int:
@@ -1356,10 +1714,32 @@ def main() -> int:
         if K == K_AR:
             ar_times[map_kind] = times
 
+    # the colored rows: B1's Tsallis mode, B5, the merge; B1's bicycle entry
+    kinds = ("rollout_costs_kernel", "tsallis_reduce_kernel", "flash_combine_kernel")
+    ts_errs, bi_errs = dict.fromkeys(kinds, 0.0), dict.fromkeys(kinds, 0.0)
+
+    def note_into(into, by_kernel):
+        for kernel, checks in by_kernel.items():
+            for c in checks:
+                into[kernel] = max(into[kernel], c["max_abs_err"])
+
+    ts_times = None
+    for K, p, stride, seed in ((K_MAIN, 0.0, 0, 71), (K_RAGGED, 0.1, 2, 72)):
+        by_kernel, times = tsallis_kernel_phase(dev, K, p, stride, seed)
+        note_into(ts_errs, by_kernel)
+        ts_times = ts_times or times
+    bi_times = None
+    for K, p, stride, seed in ((K_BI, 0.0, 0, 81), (K_BI_RAGGED, 0.1, 2, 82)):
+        by_kernel, times = bicycle_kernel_phase(dev, K, p, stride, seed,
+                                                timed_plain=K == K_BI)
+        note_into(bi_errs, by_kernel)
+        bi_times = bi_times or times
+
     reference_phase(dev)
     robust_reference_phase(dev)
     fused_reference_phase(dev)
     ar_reference_phase(dev)
+    colored_reference_phase(dev)
     by_path = {"vanilla": vanilla_loop_phase("vanilla", build_vanilla("gaussian", "fused"), {
                    "rollout_costs_kernel": CLOSED_LOOP_STEPS,
                    "flash_combine_kernel": CLOSED_LOOP_STEPS}, settle=True),
@@ -1376,6 +1756,20 @@ def main() -> int:
             "fused_solve_kernel": n, "flash_combine_kernel": n}),
         "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f, {
             "rollout_costs_kernel": n_f, "flash_combine_kernel": n_f}),
+    }
+    colored_paths = {
+        "colored_fused": vanilla_loop_phase(
+            "colored_fused", build_colored("exp", "fused"),
+            {"rollout_costs_kernel": n, "flash_combine_kernel": n}, settle=False),
+        "colored_tsallis": vanilla_loop_phase(
+            "colored_tsallis", build_colored("tsallis", "fused"),
+            {"rollout_costs_kernel": n, "tsallis_reduce_kernel": n,
+             "flash_combine_kernel": n}, settle=False),
+    }
+    bicycle_paths = {
+        "bicycle_colored": model_loop_phase(
+            "bicycle_colored", build_bicycle("fused"), torch.zeros(S_BI, device=dev), n,
+            {"rollout_costs_kernel": n, "flash_combine_kernel": n}, map="128"),
     }
 
     def entry(name, source, replaces, t, library_ms, paths=by_path, err=None,
@@ -1439,6 +1833,32 @@ def main() -> int:
         entry("flash_combine_kernel (AutoRally paths)", "fused_rollout.cu",
               "pallas_rollout.py:1005", ar["flash_combine"], None, paths=ar_paths,
               err=ar_errs["flash_combine_kernel"], kernel="flash_combine_kernel"),
+        # the colored rows: the rollout kernel's exp epilogue (colored_fused,
+        # timed above at the same shapes) and its Tsallis pass 1
+        # (colored_tsallis), the Tsallis reduction and the merge
+        entry("rollout_costs_kernel (Tsallis pass 1; colored paths)", "fused_rollout.cu",
+              "pallas_rollout.py:894", ts_times["pass1"], None, paths=colored_paths,
+              err=ts_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
+              modes={"epilogue+lr (colored_fused)": epi}),
+        entry("tsallis_reduce_kernel", "tsallis_reduce.cu", "pallas_rollout.py:1342",
+              ts_times["tsallis_reduce"], ts_times["tsallis_reduce"]["library_ms"],
+              paths=colored_paths,
+              err=max(ts_errs["tsallis_reduce_kernel"], bi_errs["tsallis_reduce_kernel"]),
+              library_calls=ts_times["tsallis_reduce"]["library_calls"],
+              modes={m: ts_times[m] for m in (
+                  "tsallis_reduce entry (rho given, with the merge)",
+                  "chain (pass 1, B5, merge)")}),
+        entry("flash_combine_kernel (colored and bicycle paths)", "fused_rollout.cu",
+              "pallas_rollout.py:1005", ts_times["merge"], None,
+              paths={**colored_paths, **bicycle_paths},
+              err=max(ts_errs["flash_combine_kernel"], bi_errs["flash_combine_kernel"]),
+              kernel="flash_combine_kernel"),
+        entry("rollout_costs_kernel<BicycleSlip, ARCostBicycle>", "fused_rollout.cu",
+              "pallas_rollout.py:548", bi_times["epilogue+lr"],
+              bi_times["epilogue+lr"]["library_ms"], paths=bicycle_paths,
+              err=bi_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
+              K=K_BI, T=T_BI,
+              modes={m: bi_times[m] for m in ("costs", "costs+lr", "tsallis+lr")}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ built at first use. Entry points run on the GPU unless the caller passes
 
 __version__ = "0.1.0"
 
+from mppi_generic_tpu_torch.controllers.colored import ColoredMPPI
 from mppi_generic_tpu_torch.controllers.robust import RobustMPPI
 from mppi_generic_tpu_torch.controllers.tube import TubeMPPI
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
@@ -15,6 +16,7 @@ from mppi_generic_tpu_torch.costs.base import Cost
 from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback
 from mppi_generic_tpu_torch.models.base import Dynamics
 from mppi_generic_tpu_torch.sampling.base import SamplingDistribution
+from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
 from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
@@ -23,10 +25,12 @@ __all__ = [
     "Dynamics",
     "Cost",
     "SamplingDistribution",
+    "ColoredNoiseDistribution",
     "GaussianDistribution",
     "NLNDistribution",
     "SmoothMPPIDistribution",
     "VanillaMPPI",
+    "ColoredMPPI",
     "TubeMPPI",
     "RobustMPPI",
     "DDPFeedback",

@@ -3,6 +3,7 @@ from mppi_generic_tpu_torch.controllers.base import (
     ControllerState,
     SolveResult,
 )
+from mppi_generic_tpu_torch.controllers.colored import ColoredMPPI
 from mppi_generic_tpu_torch.controllers.robust import (
     RobustControllerState,
     RobustMPPI,
@@ -17,6 +18,7 @@ from mppi_generic_tpu_torch.controllers.tube import (
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
 
 __all__ = [
+    "ColoredMPPI",
     "ControllerBase",
     "ControllerState",
     "RobustControllerState",

@@ -8,9 +8,10 @@ sampler. Afterwards: Savitzky-Golay smoothing, the re-rollout of the mean,
 and a final clamp (mppi_controller.cu:225-231).
 
 ``weight_transform`` is ``"exp"`` (normExp, exp(-(J - baseline) / lambda)),
-``"tsallis"`` or ``"cem"``. The samplers are the Gaussian, NLN (log-MPPI)
-and Smooth-MPPI distributions. ``kernel`` selects the path; the names map
-to the JAX package's:
+``"tsallis"`` or ``"cem"``; a ``shaping_function`` (``shaping/``) given to
+the controller replaces it, as in the JAX package. The samplers are the
+Gaussian, NLN (log-MPPI), Smooth-MPPI and colored-noise distributions.
+``kernel`` selects the path; the names map to the JAX package's:
 
 * ``"fused_solve"`` is JAX ``kernel="pallas_fused"`` (vanilla.py:157-253):
   the samples are drawn inside the kernels from a per-iteration seed.
@@ -20,15 +21,19 @@ to the JAX package's:
   the derivative samples (``ops/fused_rollout.fused_sample_rollout_costs``)
   and the merge; ``tsallis`` and ``cem`` run the sampling kernel, then the
   weights and the sampler's mean update eagerly. The weights of
-  SolveResult are recomputed from the kernels' costs and baseline.
+  SolveResult are recomputed from the kernels' costs and baseline. The
+  colored sampler draws eagerly and refuses this path (JAX falls back to
+  its XLA draw there).
 * ``"fused"`` (default) is JAX ``kernel="pallas"``: the sampler draws
   eagerly, then ``exp`` runs one launch of the fused rollout kernel with
   the in-loop LR cost and the flash epilogue and one of the carry merge
-  (``ops/fused_rollout.py``); Smooth-MPPI (whose mean update weights W, not
-  U) and ``cem`` run the rollout kernel's plain-costs mode with the LR cost,
-  then the weights and the mean update eagerly (JAX vanilla.py:94-118,
-  :310-317). ``tsallis`` is not ported on this path (its two-pass in-kernel
-  epilogue is still to port) and raises.
+  (``ops/fused_rollout.py``); ``tsallis`` runs the rollout kernel in its
+  Tsallis mode (costs and per-block minima), the Tsallis reduction kernel
+  against the global minimum and the merge (baseline = the minimum cost,
+  eta = the sum of the weights). Smooth-MPPI (whose mean update weights W,
+  not U), ``cem`` and a shaping function run the rollout kernel's
+  plain-costs mode with the LR cost, then the weights and the mean update
+  eagerly (JAX vanilla.py:94-118, :265-317).
 * ``"combined"`` is JAX ``kernel="combined"`` (vanilla.py:255-317): the
   eager rollout oracle (``ops/rollout.py``), the LR cost from the sampler,
   baseline = min J, the weights and the sampler's mean update.
@@ -51,6 +56,7 @@ from mppi_generic_tpu_torch.controllers.base import (
 from mppi_generic_tpu_torch.ops import fused_rollout, fused_solve
 from mppi_generic_tpu_torch.ops import rollout as rollout_ops
 from mppi_generic_tpu_torch.ops import weights as weight_ops
+from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
 
 KERNELS = ("fused", "combined", "fused_solve")
@@ -60,17 +66,16 @@ WEIGHT_TRANSFORMS = ("exp", "tsallis", "cem")
 class VanillaMPPI(ControllerBase):
     def __init__(self, dynamics, cost, sampler, *, kernel="fused",
                  weight_transform="exp", tsallis_gamma=10.0, tsallis_r=2.0,
-                 cem_elite_fraction=0.1, **kwargs):
+                 cem_elite_fraction=0.1, shaping_function=None, **kwargs):
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
         if weight_transform not in WEIGHT_TRANSFORMS:
             raise ValueError(f"weight_transform must be one of {WEIGHT_TRANSFORMS}, "
                              f"got {weight_transform!r}")
-        if kernel == "fused" and weight_transform == "tsallis":
+        if kernel == "fused_solve" and isinstance(sampler, ColoredNoiseDistribution):
             raise NotImplementedError(
-                "kernel='fused' with weight_transform='tsallis' needs the rollout "
-                "kernel's two-pass Tsallis epilogue, which is not ported yet; use "
-                "kernel='fused_solve' or 'combined'")
+                "the colored sampler draws its noise eagerly, not inside the "
+                "kernels: use kernel='fused' (or 'combined')")
         super().__init__(dynamics, cost, sampler, **kwargs)
         self.kernel = kernel
         self.weight_transform = weight_transform
@@ -78,8 +83,12 @@ class VanillaMPPI(ControllerBase):
         self.tsallis_gamma = float(np.float32(tsallis_gamma))
         self.tsallis_r = float(np.float32(tsallis_r))
         self.cem_elite_fraction = float(np.float32(cem_elite_fraction))
+        # a shaping function (shaping/) overrides weight_transform
+        self.shaping_function = shaping_function
 
     def _transform_weights(self, costs, baseline):
+        if self.shaping_function is not None:
+            return self.shaping_function.compute_weights(costs, baseline)
         if self.weight_transform == "exp":
             return weight_ops.norm_exp_weights(costs, self.lam, baseline)
         if self.weight_transform == "tsallis":
@@ -109,13 +118,14 @@ class VanillaMPPI(ControllerBase):
         kw = dict(iteration=iteration, optimization_stride=optimization_stride,
                   injected_noise=injected_noise)
         smooth = type(self.sampler) is SmoothMPPIDistribution
-        if self.weight_transform == "exp" and not smooth:
+        exp = self.weight_transform == "exp" and self.shaping_function is None
+        if exp and not smooth:
             costs, crash, new_mean, baseline, eta, U = (
                 fused_solve.fused_solve_iteration(
                     *args, return_samples=self.return_samples, **kw))
             w = weight_ops.norm_exp_weights(costs, self.lam, baseline)
             return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
-        if self.weight_transform == "exp":
+        if exp:
             # the flash epilogue over W, which Smooth-MPPI's mean update
             # weights (smooth-MPPI.cu:203-236)
             costs, crash, U, deriv_mean, baseline, eta = (
@@ -155,14 +165,18 @@ class VanillaMPPI(ControllerBase):
                 self.alpha,
                 self.sampler.pure_threshold(K),
             )
-            if self.weight_transform == "exp" and aux is None:
+            if (self.weight_transform in ("exp", "tsallis")
+                    and self.shaping_function is None and aux is None):
+                # the whole epilogue in the kernels; Tsallis: baseline = the
+                # minimum cost, eta = the sum of the Tsallis weights
                 costs, crash, new_mean, baseline, eta = (
                     fused_rollout.fused_weighted_rollout(
                         self.dynamics, self.cost, x0, U, self.dt, self.lam,
-                        lr_params=lr_params,
+                        lr_params=lr_params, weight_kind=self.weight_transform,
+                        weight_params=(self.tsallis_gamma, self.tsallis_r),
                     )
                 )
-                w = weight_ops.norm_exp_weights(costs, self.lam, baseline)
+                w = self._transform_weights(costs, baseline)
                 return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
             costs, crash = fused_rollout.fused_rollout_costs(
                 self.dynamics, self.cost, x0, U, self.dt, lr_params=lr_params)

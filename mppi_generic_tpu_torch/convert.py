@@ -7,7 +7,8 @@ imports JAX.
 
 * dynamics: ``control_ranges``, ``control_deadband``, ``zero_control``;
   the double integrator also ``system_noise``, AutoRally ``nn`` (an FNN:
-  ``weights``, a list of (out, in) arrays, and ``biases``);
+  ``weights``, a list of (out, in) arrays, and ``biases``), the bicycle-slip
+  model the names of ``models.bicycle_slip.PARAM_NAMES``;
 * cost: the circle cost ``velocity_cost``, ``crash_cost``,
   ``velocity_desired``, ``inner_path_radius2``, ``outer_path_radius2``,
   ``angular_momentum_desired``, ``discount``; the AutoRally costs their
@@ -16,9 +17,13 @@ imports JAX.
   ``channel_major``);
 * sampler: ``std_dev``, ``control_cost_coeff``, ``pure_noise_percentage``,
   ``std_dev_decay``; Smooth-MPPI also ``dt_smooth`` and ``num_timesteps``;
+  the colored sampler ``exponents``, ``offset_decay_rate`` and ``fmin``;
+* shaping function: ``lam`` (normExp), ``gamma`` and ``r`` (Tsallis) or
+  ``elite_fraction`` (CEM);
 * controller: ``dt``, ``lam``, ``alpha``, ``num_timesteps``,
   ``num_rollouts``, ``num_iters``; for vanilla MPPI optionally
-  ``tsallis_gamma``, ``tsallis_r``, ``cem_elite_fraction``; for RMPPI also
+  ``tsallis_gamma``, ``tsallis_r``, ``cem_elite_fraction``; for ColoredMPPI
+  also ``state_leash_dist`` (None: no leash); for RMPPI also
   ``value_function_threshold``,
   ``num_candidates``, ``samples_per_condition``; for Tube-MPPI
   ``nominal_threshold``;
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 from mppi_generic_tpu_torch.controllers.base import ControllerState
+from mppi_generic_tpu_torch.controllers.colored import ColoredMPPI
 from mppi_generic_tpu_torch.controllers.robust import RobustControllerState, RobustMPPI
 from mppi_generic_tpu_torch.controllers.tube import TubeControllerState, TubeMPPI
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
@@ -50,11 +56,19 @@ from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircl
 from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback, DDPFeedbackState
 from mppi_generic_tpu_torch.maps.texture import MapTexture2D
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
+from mppi_generic_tpu_torch.models.bicycle_slip import PARAM_NAMES as BICYCLE_PARAMS
+from mppi_generic_tpu_torch.models.bicycle_slip import BicycleSlipDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.nn.fnn import FNN
+from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
 from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
+from mppi_generic_tpu_torch.shaping import (
+    CEMShapingFunction,
+    ShapingFunction,
+    TsallisShapingFunction,
+)
 
 
 def _arr(v):
@@ -90,6 +104,16 @@ def autorally_from_params(p: dict, device="cpu") -> AutorallyNNDynamics:
     )
 
 
+def bicycle_slip_from_params(p: dict, device="cpu") -> BicycleSlipDynamics:
+    return BicycleSlipDynamics(
+        control_ranges=_arr(p["control_ranges"]),
+        control_deadband=_arr(p["control_deadband"]),
+        zero_control=_arr(p["zero_control"]),
+        device=device,
+        **{name: _arr(p[name]) for name in BICYCLE_PARAMS if name in p},
+    )
+
+
 def circle_cost_from_params(p: dict, device="cpu") -> DoubleIntegratorCircleCost:
     return DoubleIntegratorCircleCost(
         **{name: _scalar(p[name]) for name in DoubleIntegratorCircleCost.PARAM_NAMES},
@@ -116,7 +140,8 @@ def ar_cost_from_params(p: dict, device="cpu", robust=False) -> ARStandardCost:
 
 
 DYNAMICS = {"double_integrator": double_integrator_from_params,
-            "autorally": autorally_from_params}
+            "autorally": autorally_from_params,
+            "bicycle_slip": bicycle_slip_from_params}
 COSTS = {"circle": circle_cost_from_params,
          "ar_standard": ar_cost_from_params,
          "ar_robust": functools.partial(ar_cost_from_params, robust=True)}
@@ -145,8 +170,27 @@ def smooth_from_params(p: dict, device="cpu") -> SmoothMPPIDistribution:
         **_gaussian_kwargs(p), device=device)
 
 
+def colored_from_params(p: dict, device="cpu") -> ColoredNoiseDistribution:
+    return ColoredNoiseDistribution(
+        exponents=_arr(p["exponents"]),
+        offset_decay_rate=_scalar(p["offset_decay_rate"]),
+        fmin=float(p["fmin"]), **_gaussian_kwargs(p), device=device)
+
+
 SAMPLERS = {"gaussian": gaussian_from_params, "nln": nln_from_params,
-            "smooth": smooth_from_params}
+            "smooth": smooth_from_params, "colored": colored_from_params}
+
+
+def shaping_from_params(p: dict, kind: str):
+    """A shaping function: ``kind`` "norm_exp" (``lam``), "tsallis"
+    (``gamma``, ``r``) or "cem" (``elite_fraction``)."""
+    if kind == "norm_exp":
+        return ShapingFunction(lam=_scalar(p["lam"]))
+    if kind == "tsallis":
+        return TsallisShapingFunction(gamma=_scalar(p["gamma"]), r=_scalar(p["r"]))
+    if kind == "cem":
+        return CEMShapingFunction(elite_fraction=_scalar(p["elite_fraction"]))
+    raise ValueError(f"unknown shaping function {kind!r}")
 
 
 def ddp_feedback_from_params(p: dict, dynamics) -> DDPFeedback:
@@ -172,25 +216,45 @@ def vanilla_from_params(dynamics: dict, cost: dict, sampler: dict,
                         controller: dict, device=None, kernel="fused",
                         sampler_kind="gaussian", weight_transform="exp",
                         dynamics_kind="double_integrator",
-                        cost_kind="circle") -> VanillaMPPI:
-    """A ``VanillaMPPI`` of the dynamics ``dynamics_kind`` ("double_integrator"
-    or "autorally"), the cost ``cost_kind`` ("circle", "ar_standard" or
-    "ar_robust") and the sampler ``sampler_kind`` ("gaussian", "nln" or
-    "smooth"); device rule as ``VanillaMPPI``: the card unless
-    ``device="cpu"``."""
+                        cost_kind="circle", shaping=None,
+                        controller_cls=VanillaMPPI, **extra) -> VanillaMPPI:
+    """A ``VanillaMPPI`` of the dynamics ``dynamics_kind`` ("double_integrator",
+    "autorally" or "bicycle_slip"), the cost ``cost_kind`` ("circle",
+    "ar_standard" or "ar_robust") and the sampler ``sampler_kind``
+    ("gaussian", "nln", "smooth" or "colored"), with an optional shaping
+    function ``shaping`` = (params, kind) of ``shaping_from_params``; device
+    rule as ``VanillaMPPI``: the card unless ``device="cpu"``."""
     transform = {name: _scalar(controller[name])
                  for name in ("tsallis_gamma", "tsallis_r", "cem_elite_fraction")
                  if name in controller}
-    return VanillaMPPI(
+    return controller_cls(
         DYNAMICS[dynamics_kind](dynamics),
         COSTS[cost_kind](cost),
         SAMPLERS[sampler_kind](sampler),
         kernel=kernel,
         weight_transform=weight_transform,
+        shaping_function=None if shaping is None else shaping_from_params(*shaping),
         device=device,
         **transform,
+        **extra,
         **_controller_kwargs(controller),
     )
+
+
+def colored_mppi_from_params(dynamics: dict, cost: dict, sampler: dict,
+                             controller: dict, device=None, kernel="fused",
+                             weight_transform="exp",
+                             dynamics_kind="double_integrator", cost_kind="circle",
+                             shaping=None) -> ColoredMPPI:
+    """A ``ColoredMPPI`` with a colored sampler, as ``vanilla_from_params``;
+    ``controller`` may carry ``state_leash_dist``."""
+    leash = controller.get("state_leash_dist")
+    return vanilla_from_params(
+        dynamics, cost, sampler, controller, device=device, kernel=kernel,
+        sampler_kind="colored", weight_transform=weight_transform,
+        dynamics_kind=dynamics_kind, cost_kind=cost_kind, shaping=shaping,
+        controller_cls=ColoredMPPI,
+        state_leash_dist=None if leash is None else _arr(leash))
 
 
 def robust_from_params(dynamics: dict, cost: dict, sampler: dict,

@@ -19,10 +19,13 @@ ar_robust_cost.cu), term for term:
 
 ``output_indices`` name the (x, y, yaw, roll, v_x, v_y) entries of the
 dynamics' output. The CUDA kernels carry the same cost in
-``csrc/ar_standard_cost.cuh`` (both variants, default indices only); they
-read the packed ``params`` table: the values of ``PARAM_NAMES``, then int32
-words [flags, H, W, offset, stride] and the map's origin, rotation rows and
-resolution (``csrc/ar_standard_cost.cuh`` ``load``).
+``csrc/ar_standard_cost.cuh`` (both variants, the indices a template
+argument: each kernel entry is compiled for its model's layout, AutoRally's
+(0, 1, 2, 3, 4, 5) or the bicycle-slip model's (0, 1, 2, 8, 5, 6), and
+refuses another); they read the packed ``params`` table: the values of
+``PARAM_NAMES``, then int32 words [flags, H, W, offset, stride] and the map's
+origin, rotation rows and resolution (``csrc/ar_standard_cost.cuh``
+``load``).
 """
 
 from __future__ import annotations
@@ -91,12 +94,8 @@ class ARStandardCost(Cost):
         return super().__getattr__(name)
 
     def kernel_map(self):
-        """The map data the kernels read (None without a costmap). The
-        kernels take the default output indices only."""
-        if self.output_indices != DEFAULT_OUTPUT_INDICES:
-            raise NotImplementedError(
-                "the CUDA kernels read the AutoRally output layout "
-                f"{DEFAULT_OUTPUT_INDICES}, not output_indices={self.output_indices}")
+        """The map data the kernels read (None without a costmap); the
+        kernel wrappers check ``output_indices`` against their entry's."""
         return None if self.costmap is None else self.costmap.data
 
     def _o(self, y, name):

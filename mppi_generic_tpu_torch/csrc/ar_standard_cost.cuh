@@ -8,8 +8,12 @@
 // the polynomial atan, the rollover crash, the sticky crash cost
 // discount^t crash_coeff = expf(t logf(discount)) crash_coeff, the sum
 // ((speed + crash) + track) + stabilizing, saturated at 1e16 and NaN-guarded.
-// The output layout is AutoRally's [x, y, yaw, roll, v_x, v_y, yaw_rate]
-// (the default output_indices; the wrappers refuse others).
+// The six entries (x, y, yaw, roll, v_x, v_y) of the dynamics' output the
+// cost reads are template arguments, the cost's output_indices: ARCost reads
+// AutoRally's [x, y, yaw, roll, v_x, v_y, yaw_rate] (0, 1, 2, 3, 4, 5),
+// ARCostBicycle the bicycle-slip state (0, 1, 2, 8, 5, 6). Compile-time
+// indices keep the output in registers; the wrappers refuse an entry whose
+// indices differ from the cost's.
 //
 // The parameters arrive as the cost's packed `params` table: the nine values
 // of PARAM_NAMES, then int32 words [flags, H, W, offset, stride] and the map's
@@ -22,7 +26,8 @@
 #include "map_texture.cuh"
 #include "math_utils.cuh"
 
-struct ARCost {
+template <int IX, int IY, int IYAW, int IROLL, int IVX, int IVY>
+struct ARCostT {
   static constexpr int kL1 = 1, kRobust = 2, kMap = 4;  // flag bits
   static constexpr int kNumParams = 9 + 5 + 15;
 
@@ -63,13 +68,13 @@ struct ARCost {
                                               const float* /*u*/, int t,
                                               int* crash) {
     // track: the costmap under the front and back points
-    const float cos_y = cosf(y[2]);
-    const float sin_y = sinf(y[2]);
+    const float cos_y = cosf(y[IYAW]);
+    const float sin_y = sinf(y[IYAW]);
     float front = 0.0f;
     float back = 0.0f;
     if (q.flags & kMap) {
-      front = map_query_world(q.map, y[0] + 0.5f * cos_y, y[1] + 0.5f * sin_y);
-      back = map_query_world(q.map, y[0] + -0.5f * cos_y, y[1] + -0.5f * sin_y);
+      front = map_query_world(q.map, y[IX] + 0.5f * cos_y, y[IY] + 0.5f * sin_y);
+      back = map_query_world(q.map, y[IX] + -0.5f * cos_y, y[IY] + -0.5f * sin_y);
     }
     const float track = 0.5f * (fabsf(front) + fabsf(back));
     if (front >= q.boundary_threshold || back >= q.boundary_threshold) *crash = 1;
@@ -82,16 +87,16 @@ struct ARCost {
       track_cost = fabsf(track) < q.track_slop ? 0.0f : q.track_coeff * track;
     }
     // speed
-    const float err = y[4] - q.desired_speed;
+    const float err = y[IVX] - q.desired_speed;
     const float speed = (q.flags & kL1) ? q.speed_coeff * fabsf(err)
                                         : q.speed_coeff * err * err;
     // stabilizing: slip and rollover
     const float slip =
-        -atan_full_approx(y[5] / fmaxf(fabsf(y[4]), static_cast<float>(1e-3)));
-    const bool moving = fabsf(y[4]) > static_cast<float>(0.001);
+        -atan_full_approx(y[IVY] / fmaxf(fabsf(y[IVX]), static_cast<float>(1e-3)));
+    const bool moving = fabsf(y[IVX]) > static_cast<float>(0.001);
     float stab = moving ? q.slip_coeff * slip * slip : 0.0f;
     stab = stab + ((moving && fabsf(slip) > q.max_slip_ang) ? q.crash_coeff : 0.0f);
-    if (fabsf(y[3]) > kHalfPi) *crash = 1;
+    if (fabsf(y[IROLL]) > kHalfPi) *crash = 1;
     // sticky crash
     const float crash_cost =
         *crash > 0
@@ -109,3 +114,6 @@ struct ARCost {
     return 0.0f;
   }
 };
+
+using ARCost = ARCostT<0, 1, 2, 3, 4, 5>;         // AutoRally's output
+using ARCostBicycle = ARCostT<0, 1, 2, 8, 5, 6>;  // the bicycle-slip state

@@ -1,12 +1,14 @@
 // Device helpers shared by the MPPI kernels: the model arguments, the
-// constraint clamp, block reductions and the per-block flash
-// (online-softmax) carry row.
+// constraint clamp, block reductions, the per-block flash (online-softmax)
+// carry row and the per-block minimum of the Tsallis epilogue.
 #pragma once
 
 #include <math.h>
 #include <stddef.h>
 
 constexpr float kMasked = -1e30f;  // s of a sample past K: adds nothing
+// J of a sample past K in the Tsallis minimum (the TPU kernel's 1e30)
+constexpr float kMinPad = static_cast<float>(1e30);
 
 // What a (dynamics, cost) pair reads besides the samples: the dynamics'
 // parameter table (staged into shared memory by Dyn::stage; null for a model
@@ -40,6 +42,27 @@ __device__ inline float block_max(float v, float* red) {
 #pragma unroll
   for (int off = N / 2; off > 0; off >>= 1) {
     if (tid < off) red[tid] = fmaxf(red[tid], red[tid + off]);
+    __syncthreads();
+  }
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// min(a, b) that returns NaN when either is NaN, as jnp.min and torch.amin
+// do (fminf would drop the NaN)
+__device__ inline float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+template <int N>
+__device__ inline float block_min_nan(float v, float* red) {
+  const int tid = threadIdx.x;
+  red[tid] = v;
+  __syncthreads();
+#pragma unroll
+  for (int off = N / 2; off > 0; off >>= 1) {
+    if (tid < off) red[tid] = nan_min(red[tid], red[tid + off]);
     __syncthreads();
   }
   const float r = red[0];
@@ -97,4 +120,14 @@ __device__ inline void write_block_carry(float J, bool valid, float lam_w,
     row[0] = m_b;
     row[1] = d_b;
   }
+}
+
+// Pass 1 of the Tsallis epilogue: out[blockIdx.x] = the minimum of this
+// block's valid costs (kMinPad past K; NaN if one is NaN), the TPU kernel's
+// min(where(valid, J, 1e30)) per block.
+template <int kBlock>
+__device__ inline void write_block_min(float J, bool valid, float* out) {
+  __shared__ float red[kBlock];
+  const float m = block_min_nan<kBlock>(valid ? J : kMinPad, red);
+  if (threadIdx.x == 0) out[blockIdx.x] = m;
 }

@@ -112,6 +112,19 @@ class Dynamics(nn.Module):
         """Broadcast a (C,) parameter against a control of shape (C, ...)."""
         return param.reshape(param.shape + (1,) * (like.dim() - 1))
 
+    def get_stopping_control(self, x):
+        """The control that brings the platform to a stop
+        (dynamics.cuh:437-443): the zero control."""
+        del x
+        return self.zero_control
+
+    def enforce_leash(self, state_true, state_nominal, leash):
+        """The nominal state clamped to within the per-dimension ``leash``
+        of the true state (dynamics.cuh:448-466; ColoredMPPI's state
+        leash)."""
+        diff = state_nominal - state_true
+        return state_true + torch.clamp(diff, -leash, leash)
+
 
 def rollout_single(dynamics: Dynamics, x0, U, dt) -> Tuple[torch.Tensor, torch.Tensor]:
     """Roll one control sequence (T, C) from x0; returns (states (T+1, S),

@@ -5,6 +5,7 @@ from mppi_generic_tpu_torch.ops.fused_rollout import (
     fused_rollout_costs,
     fused_sample_rollout_costs,
     fused_weighted_rollout,
+    tsallis_reduce,
 )
 from mppi_generic_tpu_torch.ops.fused_solve import fused_solve_iteration
 from mppi_generic_tpu_torch.ops.riccati import riccati_backward, riccati_ladder_solve
@@ -33,5 +34,6 @@ __all__ = [
     "riccati_backward",
     "riccati_ladder_solve",
     "rollout_combined",
+    "tsallis_reduce",
     "tsallis_weights",
 ]

@@ -58,7 +58,17 @@ SIGNATURES = {
         "fused_rollout_block_size": [],
         "rollout_costs_di_circle": _ROLLOUT,
         "rollout_costs_ar_nn": _ROLLOUT,
-        "flash_combine": [_I, _P, _I, _I, _F, _P, _P, _P],
+        "rollout_costs_bicycle_ar": _ROLLOUT,
+        # device, carry, nb, TC, lam, new_mean, scal, num, stream
+        "flash_combine": [_I, _P, _I, _I, _F, _P, _P, _P, _P],
+    },
+    "tsallis_reduce": {
+        "tsallis_reduce_block_size": [],
+        "tsallis_reduce": [
+            _I, _P, _P, _P, _I,  # device, U, costs, rho source, its length
+            _I, _I, _I, _F, _F,  # K valid, K rows, TC, gamma, 1 / (r - 1)
+            _P, _P, _P,          # rows, rho, stream
+        ],
     },
     "rmppi_rollout": {
         "rmppi_rollout_di_circle": [
@@ -99,6 +109,7 @@ SIGNATURES = {
 launch_counts = {
     "rollout_costs_kernel": 0,
     "flash_combine_kernel": 0,
+    "tsallis_reduce_kernel": 0,
     "rmppi_rollout_kernel": 0,
     "riccati_backward_kernel": 0,
     "riccati_ladder_kernel": 0,

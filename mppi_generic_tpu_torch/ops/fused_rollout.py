@@ -2,7 +2,8 @@
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_rollout.py``: the hand-written
 Hopper kernels in ``csrc/fused_rollout.cu`` replace its TPU kernel
-``_fused_call`` in two modes, the one in ``csrc/rmppi_rollout.cu`` its TPU
+``_fused_call`` in three modes, the one in ``csrc/tsallis_reduce.cu`` its TPU
+kernel ``_tsallis_reduce_call``, the one in ``csrc/rmppi_rollout.cu`` its TPU
 kernel ``_fused_rmppi_call``, and ``fused_sample_rollout_kernel`` in
 ``csrc/fused_solve.cu`` its TPU kernel ``_fused_sample_call``.
 
@@ -14,7 +15,14 @@ kernel ``_fused_rmppi_call``, and ``fused_sample_rollout_kernel`` in
 * ``fused_weighted_rollout``: the same, plus the online-softmax normExp
   epilogue. Kernel 1 reduces each block of samples into a carry row
   (m_b, d_b, num_b); kernel 2 (``flash_combine``) merges the rows into the
-  new mean, baseline = -lambda * max(-J / lambda) and eta.
+  new mean, baseline = -lambda * max(-J / lambda) and eta. With
+  ``weight_kind="tsallis"`` the weights need the global minimum cost rho
+  before any of them exists, so the epilogue takes two passes: kernel 1
+  writes the costs and each block's minimum, the Tsallis reduction kernel
+  (``tsallis_block_rows``) merges the minima into rho and writes one row
+  (0, sum w, sum w U) per block, and the merge sums the rows in order.
+* ``tsallis_reduce``: the reduction kernel against a given device rho,
+  (sum w U, eta), for a rho merged elsewhere (across devices).
 * ``fused_rmppi_rollout``: RMPPI's augmented rollout, the nominal and the
   real system of each sample stepped together, the real one with the DDP
   feedback K[t] (x_real - x_nom) in the loop.
@@ -25,11 +33,12 @@ kernel ``_fused_rmppi_call``, and ``fused_sample_rollout_kernel`` in
   samples W. The helpers of the in-kernel draw (``noise_kind``, the tables,
   ``sample_plain``) are shared with ``ops/fused_solve.py``.
 
-The rollout kernel has entries for two (dynamics, cost) pairs: the double
-integrator with its circle cost, and AutoRally's network dynamics with the
+The rollout kernel has entries for three (dynamics, cost) pairs: the double
+integrator with its circle cost, AutoRally's network dynamics with the
 standard or robust AutoRally cost, whose step runs the FNN and whose cost
-reads the track costmap inside the kernel (``_ROLLOUT_ENTRY``); the RMPPI
-and sampling kernels for the first only. Each pair reads its parameters
+reads the track costmap inside the kernel, and the bicycle-slip model with
+the AutoRally costs on its output layout (``_ROLLOUT_ENTRY``); the RMPPI and
+sampling kernels for the first only. Each pair reads its parameters
 through ``Dynamics.kernel_params`` and ``Cost.kernel_map`` besides the
 cost's ``params`` table.
 
@@ -55,6 +64,7 @@ import torch
 from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
+from mppi_generic_tpu_torch.models.bicycle_slip import BicycleSlipDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.ops import _build, philox
 from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
@@ -71,18 +81,34 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "rollout_block_carries",
+    "rollout_block_minima",
+    "tsallis_block_rows",
+    "tsallis_reduce",
 ]
 
 # samples per block of the rollout kernel (fused_rollout_block_size() in
 # csrc/fused_rollout.cu): one epilogue carry row per block
 BLOCK = 64
 _MASKED = -1e30
+# a sample past K in the Tsallis pass-1 minimum (the TPU kernel's 1e30)
+_MIN_PAD = 1e30
+# the rollout kernel's epilogue modes (epilogue in csrc/fused_rollout.cu)
+EPI_NONE, EPI_EXP, EPI_MIN = 0, 1, 2
 
 # (dynamics, cost) pairs with a compiled kernel -> C entry point
 _ROLLOUT_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rollout_costs_di_circle",
     (AutorallyNNDynamics, ARStandardCost): "rollout_costs_ar_nn",
     (AutorallyNNDynamics, ARRobustCost): "rollout_costs_ar_nn",
+    (BicycleSlipDynamics, ARStandardCost): "rollout_costs_bicycle_ar",
+    (BicycleSlipDynamics, ARRobustCost): "rollout_costs_bicycle_ar",
+}
+# the AutoRally cost's output_indices each entry is compiled for (the
+# ARCostT template arguments in csrc/)
+_OUTPUT_INDICES = {
+    "rollout_costs_ar_nn": (0, 1, 2, 3, 4, 5),
+    "fused_solve_ar_nn": (0, 1, 2, 3, 4, 5),
+    "rollout_costs_bicycle_ar": (0, 1, 2, 8, 5, 6),
 }
 _RMPPI_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rmppi_rollout_di_circle",
@@ -108,6 +134,12 @@ def _div(x, v):
     PyTorch divides by a host scalar as a multiply by its reciprocal, which
     can differ in the last bit; a device scalar is divided by.)"""
     return x / x.new_full((), v)
+
+
+def _tsallis_pw(r) -> float:
+    """1 / (r - 1) in float32, as the TPU kernel's wrapper forms it
+    (pallas_rollout.py:1589): the kernels multiply by it."""
+    return _f32(np.float32(1.0) / (np.float32(r) - np.float32(1.0)))
 
 
 def _lr_gain(lam, alpha) -> float:
@@ -163,6 +195,45 @@ def block_carries_plain(costs, U, lam, block=BLOCK):
     return torch.cat([m[:, None], w.sum(dim=1)[:, None], num], dim=1)
 
 
+def block_minima_plain(costs, block=BLOCK):
+    """Plain version of kernel 1's Tsallis pass 1: each block's minimum
+    cost (nb,), 1e30 for the samples past K. A NaN cost gives a NaN
+    minimum, as jnp.min does (the kernel does not use fminf, which drops
+    NaN)."""
+    K = costs.shape[0]
+    nb = -(-K // block)
+    s = torch.nn.functional.pad(costs, (0, nb * block - K), value=_MIN_PAD)
+    return torch.amin(s.reshape(nb, block), dim=1)
+
+
+def tsallis_rows_plain(U, costs, rho, gamma, pw, K_valid=None, block=BLOCK):
+    """Plain version of the Tsallis reduction kernel against the minimum
+    cost ``rho`` (0-d): per block of ``block`` samples one row (0, sum w,
+    sum w U[TC]), (nb, 2 + T*C), summed left to right over the block's
+    samples. w = (1 - dJ / gamma)^pw for dJ = J - rho < gamma, else 0, with
+    pw = 1 / (r - 1) (the kernel multiplies by it), and 0 for samples at or
+    past ``K_valid``, which the sums skip."""
+    K, T, C = U.shape
+    K_valid = K if K_valid is None else K_valid
+    nb = -(-K // block)
+    pad = nb * block - K
+    dj = costs - rho
+    base = torch.clamp(1.0 - _div(dj, gamma), min=1e-30)
+    w = torch.where(dj < gamma, torch.exp(torch.log(base) * pw), 0.0)
+    valid = torch.arange(K, device=U.device) < K_valid
+    w = torch.nn.functional.pad(torch.where(valid, w, 0.0), (0, pad)).reshape(nb, block)
+    valid = torch.nn.functional.pad(valid, (0, pad)).reshape(nb, block)
+    Up = torch.nn.functional.pad(U.reshape(K, T * C), (0, 0, 0, pad))
+    Up = Up.reshape(nb, block, T * C)
+    d = torch.zeros((nb,), dtype=torch.float32, device=U.device)
+    num = torch.zeros((nb, T * C), dtype=torch.float32, device=U.device)
+    for i in range(block):
+        v = valid[:, i]
+        d = torch.where(v, d + w[:, i], d)
+        num = torch.where(v[:, None], num + w[:, i, None] * Up[:, i], num)
+    return torch.cat([torch.zeros_like(d)[:, None], d[:, None], num], dim=1)
+
+
 def rmppi_rollout_plain(dynamics, cost, x0_nom, x0_real, U, gains, sigma,
                         coeff, dt, lam, alpha):
     """Plain version of the RMPPI rollout kernel, the same operations in
@@ -208,16 +279,18 @@ def rmppi_rollout_plain(dynamics, cost, x0_nom, x0_real, U, gains, sigma,
             _div(s_fb + term_r, T), crash_r, U_real)
 
 
-def flash_combine_plain(carry, T, C, lam):
+def flash_combine_plain(carry, T, C, lam, with_num=False):
     """Plain version of kernel 2: merge carry rows into (new_mean (T, C),
     baseline (), eta ()) with the flash rescaling of
-    pallas_solve.flash_combine."""
+    pallas_solve.flash_combine; ``with_num`` adds the merged sum num (T, C)
+    that new_mean = num / eta divides."""
     m, d, num = carry[:, 0], carry[:, 1], carry[:, 2:]
     m_g = torch.amax(m)
     sc = torch.exp(m - m_g)
     d_g = torch.sum(d * sc)
     num_g = torch.sum(num * sc[:, None], dim=0)
-    return (num_g / d_g).reshape(T, C), -lam * m_g, d_g
+    out = ((num_g / d_g).reshape(T, C), -lam * m_g, d_g)
+    return out + (num_g.reshape(T, C),) if with_num else out
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +319,16 @@ def _check_tensors(tensors, device):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
-def _model_args(dynamics, cost, device):
+def _model_args(dynamics, cost, device, entry=None):
     """The (dynamics params, cost params, cost map) pointers of a launch,
     each checked as the kernels take it; the dynamics and the cost refuse
-    what the compiled kernels do not take (another network, another output
-    layout)."""
+    what the compiled kernels do not take (another network), and so does
+    an ``entry`` compiled for another output layout of the cost."""
+    want = _OUTPUT_INDICES.get(entry)
+    if want is not None and cost.output_indices != want:
+        raise NotImplementedError(
+            f"the CUDA entry {entry} reads the output layout {want}, not "
+            f"output_indices={cost.output_indices}")
     dyn_p, cmap = dynamics.kernel_params(), cost.kernel_map()
     tensors = {"cost params": cost.params}
     if dyn_p is not None:
@@ -304,17 +382,21 @@ def _check_status(status, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {status}")
 
 
-def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, lam_w):
-    """Launch kernel 1; with ``lam_w`` set, in its epilogue mode."""
+def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
+                  lam_w=1.0):
+    """Launch kernel 1 in the ``epilogue`` mode: (costs, crash, out), out the
+    carry rows (EPI_EXP), the block minima (EPI_MIN) or None."""
     entry = _check_rollout_inputs(dynamics, cost, x0, U, lr_params)
     lib = _lib()
     K, T, C = U.shape
     dev = U.device
+    nb = -(-K // BLOCK)
     costs = torch.empty((K,), dtype=torch.float32, device=dev)
     crash = torch.empty((K,), dtype=torch.int32, device=dev)
-    epilogue = lam_w is not None
-    carry = (torch.empty((-(-K // BLOCK), 2 + T * C), dtype=torch.float32,
-                         device=dev) if epilogue else None)
+    out = None
+    if epilogue != EPI_NONE:
+        out = torch.empty((nb, 2 + T * C) if epilogue == EPI_EXP else (nb,),
+                          dtype=torch.float32, device=dev)
     if lr_params is None:
         lr = (None, None, None, 0.0, 0.0)
     else:
@@ -324,14 +406,12 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, lam_w):
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = getattr(lib, entry)(
         dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
-        *_model_args(dynamics, cost, dev), *lr, int(lr_params is not None),
-        int(epilogue),
-        int(x0.dim() == 2), _f32(lam_w if epilogue else 1.0), costs.data_ptr(),
-        crash.data_ptr(),
-        carry.data_ptr() if epilogue else None, stream)
+        *_model_args(dynamics, cost, dev, entry), *lr, int(lr_params is not None),
+        epilogue, int(x0.dim() == 2), _f32(lam_w), costs.data_ptr(),
+        crash.data_ptr(), _ptr(out), stream)
     _check_status(status, "rollout_costs_kernel")
     launch_counts["rollout_costs_kernel"] += 1
-    return costs, crash, carry
+    return costs, crash, out
 
 
 def fused_rollout_costs(dynamics, cost, x0, U, dt, lr_params=None):
@@ -340,7 +420,7 @@ def fused_rollout_costs(dynamics, cost, x0, U, dt, lr_params=None):
     (K, S) for one initial state per sample."""
     if _on_cpu(U):
         return rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params)
-    costs, crash, _ = _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, None)
+    costs, crash, _ = _rollout_cuda(dynamics, cost, x0, U, dt, lr_params)
     return costs, crash
 
 
@@ -349,39 +429,124 @@ def rollout_block_carries(dynamics, cost, x0, U, dt, lam, lr_params=None):
     if _on_cpu(U):
         costs, crash = rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params)
         return costs, crash, block_carries_plain(costs, U, _f32(lam))
-    return _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, lam)
+    return _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, EPI_EXP, lam)
 
 
-def flash_combine(carry, T, C, lam):
-    """Kernel 2: (new_mean (T, C), baseline (), eta ()) from carry rows."""
+def rollout_block_minima(dynamics, cost, x0, U, dt, lr_params=None):
+    """Kernel 1, Tsallis pass 1: (costs, crash, block minima (nb,)), each
+    block's minimum over its valid costs (NaN if one is NaN)."""
+    if _on_cpu(U):
+        costs, crash = rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params)
+        return costs, crash, block_minima_plain(costs)
+    return _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, EPI_MIN)
+
+
+@functools.lru_cache(maxsize=None)
+def _tsallis_lib():
+    """The library of csrc/tsallis_reduce.cu, checked to agree with this
+    module on the samples per block."""
+    lib = _build.load("tsallis_reduce")
+    if lib.tsallis_reduce_block_size() != BLOCK:
+        raise RuntimeError("csrc/tsallis_reduce.cu and BLOCK disagree")
+    return lib
+
+
+def tsallis_block_rows(U, costs, rho_src, gamma, r, K_valid=None):
+    """The Tsallis reduction kernel (pass 2): rho = the minimum of
+    ``rho_src`` (the rollout's block minima, or one given rho; NaN if one is
+    NaN), then per block of BLOCK samples the row (0, sum w, sum w U[TC]).
+    Returns (rows (nb, 2 + T*C), rho ()). Samples at or past ``K_valid``
+    (default K) weigh 0. ``rho_src`` is a 1-d float32 tensor on the samples'
+    device, so no host waits for it; the inputs are checked on every
+    device."""
+    K, T, C = U.shape
+    K_valid = K if K_valid is None else int(K_valid)
+    _check_tensors({"U": U, "costs": (costs, (K,)), "rho": rho_src}, U.device)
+    if rho_src.dim() != 1 or rho_src.numel() < 1:
+        raise ValueError(f"rho must be a non-empty 1-d tensor, got {tuple(rho_src.shape)}")
+    if not 0 <= K_valid <= K or K < 1 or K * T * C >= 2**31:
+        raise ValueError(f"unsupported sizes K={K}, K_valid={K_valid}, T={T}, C={C}")
+    gamma, pw = _f32(gamma), _tsallis_pw(r)
+    if _on_cpu(U):
+        rho = torch.amin(rho_src)
+        return tsallis_rows_plain(U, costs, rho, gamma, pw, K_valid), rho
+    dev = U.device
+    rows = torch.empty((-(-K // BLOCK), 2 + T * C), dtype=torch.float32, device=dev)
+    rho = torch.empty((), dtype=torch.float32, device=dev)
+    status = _tsallis_lib().tsallis_reduce(
+        dev.index, U.data_ptr(), costs.data_ptr(), rho_src.data_ptr(), rho_src.numel(),
+        K_valid, K, T * C, gamma, pw, rows.data_ptr(), rho.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(status, "tsallis_reduce_kernel")
+    launch_counts["tsallis_reduce_kernel"] += 1
+    return rows, rho
+
+
+def flash_combine(carry, T, C, lam, with_num=False):
+    """Kernel 2: (new_mean (T, C), baseline (), eta ()) from carry rows;
+    ``with_num`` adds the merged sum num (T, C) = new_mean * eta before the
+    division."""
     if _on_cpu(carry):
-        return flash_combine_plain(carry, T, C, _f32(lam))
+        return flash_combine_plain(carry, T, C, _f32(lam), with_num)
     if carry.dtype != torch.float32 or not carry.is_contiguous():
         raise ValueError("carry must be contiguous float32")
     if carry.dim() != 2 or carry.shape[1] != 2 + T * C or carry.shape[0] < 1:
         raise ValueError(f"carry must be (nb, {2 + T * C}), got {tuple(carry.shape)}")
     lib = _lib()
-    new_mean = torch.empty((T, C), dtype=torch.float32, device=carry.device)
-    scal = torch.empty((2,), dtype=torch.float32, device=carry.device)
+    f32 = dict(dtype=torch.float32, device=carry.device)
+    new_mean = torch.empty((T, C), **f32)
+    scal = torch.empty((2,), **f32)
+    num = torch.empty((T, C), **f32) if with_num else None
     status = lib.flash_combine(
         carry.device.index, carry.data_ptr(), carry.shape[0], T * C, _f32(lam),
-        new_mean.data_ptr(), scal.data_ptr(),
+        new_mean.data_ptr(), scal.data_ptr(), _ptr(num),
         torch.cuda.current_stream(carry.device).cuda_stream)
     _check_status(status, "flash_combine_kernel")
     launch_counts["flash_combine_kernel"] += 1
-    return new_mean, scal[0], scal[1]
+    out = (new_mean, scal[0], scal[1])
+    return out + (num,) if with_num else out
 
 
-def fused_weighted_rollout(dynamics, cost, x0, U, dt, lam, lr_params=None):
-    """Fused rollout + normExp flash epilogue for precomputed samples ``U``
-    (K, T, C). Returns (costs (K,), crash (K,), new_mean (T, C),
-    baseline (), eta ()), where baseline = -lambda * max_k(-J_k / lambda)
-    and new_mean is the softmax(-J / lambda)-weighted mean of the samples."""
+def fused_weighted_rollout(dynamics, cost, x0, U, dt, lam, lr_params=None,
+                           weight_kind="exp", weight_params=None):
+    """Fused rollout + in-kernel weights + weighted mean for precomputed
+    samples ``U`` (K, T, C). Returns (costs (K,), crash (K,), new_mean
+    (T, C), baseline (), eta ()).
+
+    ``weight_kind="exp"``: the normExp flash epilogue; baseline = -lambda *
+    max_k(-J_k / lambda) and new_mean is the softmax(-J / lambda)-weighted
+    mean. ``"tsallis"`` with ``weight_params = (gamma, r)``
+    (TsallisTransform, mppi_common.cu:958-985): the two-pass epilogue;
+    baseline = rho = min_k J_k, eta = sum_k w_k and new_mean = sum_k w_k U_k
+    / eta with w = (1 - (J - rho) / gamma)_+^(1 / (r - 1)). Three launches,
+    in stream order: kernel 1 with the block minima, the reduction kernel,
+    the merge; nothing waits on the host."""
     K, T, C = U.shape
+    if weight_kind == "tsallis":
+        gamma, r = weight_params
+        costs, crash, minima = rollout_block_minima(dynamics, cost, x0, U, dt,
+                                                    lr_params)
+        rows, rho = tsallis_block_rows(U, costs, minima, gamma, r)
+        new_mean, _, eta = flash_combine(rows, T, C, 1.0)
+        return costs, crash, new_mean, rho, eta
+    if weight_kind != "exp":
+        raise ValueError(f"weight_kind must be 'exp' or 'tsallis', got {weight_kind!r}")
     costs, crash, carry = rollout_block_carries(dynamics, cost, x0, U, dt, lam,
                                                 lr_params)
     new_mean, baseline, eta = flash_combine(carry, T, C, lam)
     return costs, crash, new_mean, baseline, eta
+
+
+def tsallis_reduce(U, costs, rho, gamma, r, K=None):
+    """Tsallis weights against a given minimum cost ``rho`` (a device
+    tensor, 0-d or (1,), e.g. all-reduced across devices), their weighted
+    sum of ``U`` (K_rows, T, C) and their sum: (num (T, C), eta ()), the
+    JAX ``_tsallis_reduce_call``. Samples at or past ``K`` (default all)
+    weigh 0. Two launches: the reduction kernel and the merge."""
+    _, T, C = U.shape
+    rows, _ = tsallis_block_rows(U, costs, rho.reshape(1), gamma, r, K)
+    _, _, eta, num = flash_combine(rows, T, C, 1.0, with_num=True)
+    return num, eta
 
 
 @functools.lru_cache(maxsize=None)

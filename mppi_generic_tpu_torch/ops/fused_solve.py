@@ -104,7 +104,7 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
     fr._check_tensors(tensors, dev)
     if C != dynamics.CONTROL_DIM or K < 1 or T < 1 or 2 * K * T * C >= 2**31:
         raise ValueError(f"unsupported sizes K={K}, T={T}, C={C}")
-    model = fr._model_args(dynamics, cost, dev)
+    model = fr._model_args(dynamics, cost, dev, entry)
     seed = fr._seed_tensor(seed, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     costs = torch.empty((K,), **f32)

@@ -26,11 +26,15 @@ def norm_exp_weights(costs, lam, baseline):
 def tsallis_weights(costs, gamma, r, baseline):
     """Tsallis-divergence weights (TsallisTransform, mppi_common.cu:969-985):
     w_i = (1 - dJ / gamma)^(1 / (r - 1)) for dJ = J_i - baseline < gamma,
-    else 0. ``gamma`` and ``r`` are host floats."""
+    else 0. ``gamma`` and ``r`` are host floats. Both divisions divide by
+    a device scalar: on CUDA, PyTorch divides by a host scalar as a
+    multiply by its reciprocal, which can differ in the last bit from the
+    kernels' division."""
     dj = costs - baseline
     inside = dj < gamma
-    base = torch.clamp(1.0 - dj / gamma, min=1e-30)
-    w = torch.exp(torch.log(base) / (r - 1.0))
+    base = torch.clamp(1.0 - dj / dj.new_full((), gamma), min=1e-30)
+    r_minus_1 = float(np.float32(r) - np.float32(1.0))
+    w = torch.exp(torch.log(base) / dj.new_full((), r_minus_1))
     return torch.where(inside, w, 0.0)
 
 

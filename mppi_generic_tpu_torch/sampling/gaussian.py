@@ -15,8 +15,8 @@ semantics (gaussian.cu setGaussianControls:17-130):
   of RMPPI's feedback controls (gaussian.cu:572-629).
 
 Noise comes from an explicit ``torch.Generator`` (``_draw_noise``, the
-hook the NLN sampler overrides); its stream differs from ``jax.random`` by
-design, so tests hand both packages the same standard normals through
+hook the NLN and colored samplers override); its stream differs from
+``jax.random`` by design, so tests hand both packages the same normals through
 ``injected_noise``. The fused sampling kernels draw the same distribution
 in the kernel instead (``ops/philox.py``).
 """
@@ -84,13 +84,17 @@ class GaussianDistribution(SamplingDistribution):
         normals drawn from ``generator`` (the test hook the JAX kernels
         also have)."""
         del state
-        eps = self._draw_noise(generator, mean, num_rollouts, injected_noise)
+        eps = self._draw_noise(generator, mean, num_rollouts, injected_noise,
+                               optimization_stride)
         return self._apply_carveouts(eps, mean, num_rollouts, iteration,
                                      optimization_stride), None
 
-    def _draw_noise(self, generator, mean, num_rollouts, normals=None):
+    def _draw_noise(self, generator, mean, num_rollouts, normals=None,
+                    optimization_stride=0):
         """(K, T, C) noise eps before sigma: the given standard ``normals``
-        (K, T, C), or a draw from ``generator``."""
+        (K, T, C), or a draw from ``generator``. The colored sampler
+        re-anchors its noise at ``optimization_stride``."""
+        del optimization_stride
         if normals is not None:
             return normals
         T, C = mean.shape

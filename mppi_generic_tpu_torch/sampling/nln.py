@@ -15,7 +15,8 @@ from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
 
 
 class NLNDistribution(GaussianDistribution):
-    def _draw_noise(self, generator, mean, num_rollouts, normals=None):
+    def _draw_noise(self, generator, mean, num_rollouts, normals=None,
+                    optimization_stride=0):
         """eps = z * exp(std_dev * z2) from the given standard ``normals``
         (2, K, T, C) = (z, z2), or from two draws of ``generator``."""
         if normals is None:

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from mppi_generic_tpu_torch import (
+    ColoredMPPI,
+    ColoredNoiseDistribution,
     DDPFeedback,
     GaussianDistribution,
     NLNDistribution,
@@ -25,7 +27,11 @@ from mppi_generic_tpu_torch.costs import (
 )
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder
 from mppi_generic_tpu_torch.maps import MapTexture2D
-from mppi_generic_tpu_torch.models import AutorallyNNDynamics, DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.models import (
+    AutorallyNNDynamics,
+    BicycleSlipDynamics,
+    DoubleIntegratorDynamics,
+)
 from mppi_generic_tpu_torch.nn import FNN
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 from mppi_generic_tpu_torch.ops import fused_solve, philox, riccati
@@ -457,3 +463,128 @@ def test_ar_vanilla_kernels_match_combined_on_the_card(cuda_device, kernel):
     tol = mean_tolerance(rf, rc, rc.sampled_controls, LAM_AR)
     _close(rf.control_mean, rc.control_mean, rtol=0, atol=tol)
     assert tol < 1e-3
+
+
+# --- the Tsallis epilogue (B1 Tsallis mode, B5, the merge) and the bicycle entry ---
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("gamma,r", [(10.0, 2.0), (0.12, 2.4)])
+def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
+    x0, U, lr = _inputs(K, cuda_device, seed=K + 5)
+    dyn = DoubleIntegratorDynamics.create(device=cuda_device)
+    cost = DoubleIntegratorCircleCost(device=cuda_device)
+    fr.reset_launch_counts()
+    kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+    krows, krho = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["tsallis_reduce_kernel"] == 1
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    assert torch.equal(kmin, fr.block_minima_plain(pc))
+    assert float(krho) == float(pc.min())
+    prows = fr.tsallis_rows_plain(U, pc, pc.min(), fr._f32(gamma), fr._tsallis_pw(r))
+    _close(krows, prows, rtol=0, atol=0)
+    fr.reset_launch_counts()
+    _, _, kmean, kbase, keta = fr.fused_weighted_rollout(
+        dyn, cost, x0, U, DT, LAM, lr_params=lr, weight_kind="tsallis",
+        weight_params=(gamma, r))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fr.launch_counts.items() if v} == {
+        "rollout_costs_kernel": 1, "tsallis_reduce_kernel": 1, "flash_combine_kernel": 1}
+    pmean, _, peta = fr.flash_combine_plain(prows, T, C, 1.0)
+    _close(kmean, pmean, rtol=1e-4, atol=1e-5)
+    _close(keta, peta, rtol=1e-5, atol=0)
+    assert float(kbase) == float(pc.min())
+
+
+@pytest.mark.cuda
+def test_tsallis_reduce_takes_a_device_rho(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    U = torch.randn((384, T, C), generator=g, device=cuda_device)
+    costs = 1.0 + torch.rand((384,), generator=g, device=cuda_device)
+    rho = costs[:300].min()
+    fr.reset_launch_counts()
+    num, eta = fr.tsallis_reduce(U, costs, rho, 0.5, 2.4, 300)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["tsallis_reduce_kernel"] == 1
+    rows = fr.tsallis_rows_plain(U, costs, rho, fr._f32(0.5), fr._tsallis_pw(2.4), 300)
+    _, _, peta, pnum = fr.flash_combine_plain(rows, T, C, 1.0, with_num=True)
+    _close(num, pnum, rtol=1e-5, atol=1e-5)
+    _close(eta, peta, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_tsallis_kernels_keep_a_nan_rho(cuda_device):
+    x0, U, lr = _inputs(256, cuda_device, seed=9)
+    U[37, 5:] = float("nan")
+    dyn = DoubleIntegratorDynamics.create(device=cuda_device)
+    cost = DoubleIntegratorCircleCost(device=cuda_device)
+    kc, _, kmean, krho, keta = fr.fused_weighted_rollout(
+        dyn, cost, x0, U, DT, LAM, lr_params=lr, weight_kind="tsallis",
+        weight_params=(10.0, 2.0))
+    assert bool(torch.isnan(kc[37])) and bool(torch.isnan(krho))
+    assert float(keta) == 0.0 and bool(torch.isnan(kmean).all())
+
+
+def _bicycle_parts(dev):
+    rng = np.random.default_rng(0)
+    tex = MapTexture2D(np.abs(rng.normal(size=(128, 128))).astype("f"),
+                       origin=(-64, -64, 0), resolution=1.0, device=dev)
+    return (BicycleSlipDynamics.create(device=dev),
+            ARStandardCost(costmap=tex, output_indices=(0, 1, 2, 8, 5, 6), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("mode", ["costs", "costs+lr", "epilogue+lr", "tsallis+lr"])
+def test_bicycle_rollout_kernel_matches_plain(cuda_device, K, mode):
+    dyn, cost = _bicycle_parts(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    mean = 0.2 * torch.randn((T, C), generator=g, device=cuda_device)
+    sigma = torch.tensor([[0.3, 0.5]], device=cuda_device).expand(T, C).contiguous()
+    U = (mean + sigma * torch.randn((K, T, C), generator=g, device=cuda_device)).contiguous()
+    lr = ((mean, sigma, torch.tensor([1.0, 1.0], device=cuda_device), LAM_AR, ALPHA,
+           0.9 * K) if mode.endswith("+lr") else None)
+    x0 = torch.zeros(10, device=cuda_device)
+    x0[5] = 3.0
+    fr.reset_launch_counts()
+    if mode.startswith("costs"):
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr)
+    elif mode.startswith("epilogue"):
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM_AR, lr)
+    else:
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    if mode.startswith("epilogue"):
+        _close(kout, fr.block_carries_plain(pc, U, LAM_AR), rtol=1e-5, atol=1e-5)
+    elif mode.startswith("tsallis"):
+        assert torch.equal(kout, fr.block_minima_plain(pc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transform", ["exp", "tsallis"])
+def test_colored_fused_matches_combined_on_the_card(cuda_device, transform):
+    def build(kernel):
+        return ColoredMPPI(
+            DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+            ColoredNoiseDistribution.create(exponents=[1.0, 2.0], std_dev=[1.0, 1.0]),
+            num_timesteps=T, num_rollouts=300, kernel=kernel, weight_transform=transform,
+            tsallis_gamma=10.0, tsallis_r=2.0)
+
+    fused, combined = build("fused"), build("combined")
+    assert fused.device.type == "cuda"
+    z = torch.randn((2, 300, C, T + 1), device=cuda_device)
+    x = torch.tensor([2.0, 0.0, 0.0, 1.0], device=cuda_device)
+    state = fused.init_state(seed=0)
+    rf, _ = fused.solve(x, state, injected_noise=z)
+    rc, _ = combined.solve(x, state, injected_noise=z)
+    _close(rf.costs, rc.costs, rtol=1e-5, atol=1e-5)
+    assert torch.equal(rf.crash, rc.crash)
+    _close(rf.control_mean, rc.control_mean, rtol=1e-4, atol=1e-5)
+    _close(rf.baseline, rc.baseline, rtol=1e-5, atol=1e-5)

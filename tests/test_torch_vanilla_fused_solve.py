@@ -20,6 +20,7 @@ from mppi_generic_tpu.sampling import GaussianDistribution as JGaussian
 from mppi_generic_tpu.sampling import NLNDistribution as JNLN
 from mppi_generic_tpu.sampling import SmoothMPPIDistribution as JSmooth
 from mppi_generic_tpu_torch import (
+    ColoredNoiseDistribution,
     NLNDistribution,
     SmoothMPPIDistribution,
     TubeMPPI,
@@ -238,9 +239,10 @@ def test_nln_closed_loop_stays_on_the_band(one_thread):
 
 def test_paths_not_ported_raise():
     parts = (DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost())
-    with pytest.raises(NotImplementedError, match="Tsallis"):
-        VanillaMPPI(*parts, NLNDistribution.create(std_dev=[1.0, 1.0]),
-                    kernel="fused", weight_transform="tsallis", device="cpu")
+    with pytest.raises(NotImplementedError, match="colored"):
+        VanillaMPPI(*parts, ColoredNoiseDistribution.create(exponents=[1.0, 1.0],
+                                                            std_dev=[1.0, 1.0]),
+                    kernel="fused_solve", device="cpu")
     with pytest.raises(NotImplementedError, match="stateful"):
         TubeMPPI(*parts, SmoothMPPIDistribution.create(std_dev=[1.0, 1.0],
                                                        num_timesteps=8),
