@@ -26,8 +26,21 @@ T=100), the rollout kernel's bicycle-slip entry on the 128^2 track map
 (``bicycle_kernels``, K=1920 and 1900, T=100), a fused-vs-combined
 reference without host syncs (``colored_reference``), and three closed
 loops on ``kernel="fused"``: ``colored_fused`` (normExp), ``colored_tsallis``
-(Tsallis, gamma 10, r 2) and ``bicycle_colored``. Each phase prints one
-JSON line. The line before the last lists every kernel with its launches on
+(Tsallis, gamma 10, r 2) and ``bicycle_colored``. Then the analytic model
+zoo (``zoo_kernels``): the cartpole (bench.py:599-608), the quadrotor with
+QuadrotorQuadraticCost or QuadrotorMapCost (on a synthetic 512^2 map with
+one gate), the Dubins car with QuadraticCost (a fixed goal and a goal
+trajectory) and the double integrator with QuadraticCost, each pair's B1
+entry in four modes and its B3 entry (the cartpole's also B4) against their
+plain versions at K=8192, T=100 (the cartpole also at the ragged K=8000);
+a check that the eager path divides as the kernels do (``division``,
+lambda 0.3, T = 100); the zoo's closed loops (``cartpole_fused_solve``, the
+bench row; ``cartpole_swingup``, tests/test_vanilla_mppi.py:80-107 at
+K=8192 with its bar; ``quadrotor_hover``, tests/test_model_zoo.py:60-92 with
+its bar; ``quadrotor_waypoint``; ``di_quadratic``; short loops that put each
+remaining entry on a main path) and two more bench rows
+(``bicycle_1024``, bench.py:755-773, and ``di_K1024``, :593-597). Each phase
+prints one JSON line. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
 line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
@@ -60,13 +73,23 @@ from mppi_generic_tpu_torch import (
     TubeMPPI,
     VanillaMPPI,
 )
-from mppi_generic_tpu_torch.costs import ARStandardCost, DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.costs import (
+    ARStandardCost,
+    CartpoleQuadraticCost,
+    DoubleIntegratorCircleCost,
+    QuadraticCost,
+    QuadrotorMapCost,
+    QuadrotorQuadraticCost,
+)
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
 from mppi_generic_tpu_torch.maps import MapTexture2D
 from mppi_generic_tpu_torch.models import (
     AutorallyNNDynamics,
     BicycleSlipDynamics,
+    CartpoleDynamics,
     DoubleIntegratorDynamics,
+    DubinsDynamics,
+    QuadrotorDynamics,
     rollout_single,
 )
 from mppi_generic_tpu_torch.ops import _build, fused_solve, philox, riccati, weights
@@ -91,7 +114,7 @@ MAX_OUT_OF_BAND = 10
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-# operations per sample-step that the rollout always does (csrc/fused_rollout.cu):
+# operations per sample-step that the rollout always does (csrc/rollout_kernel.cuh):
 # Euler step 8, circle cost 20 (the crash term's exp/log runs only off the
 # track and is not counted), LR 16, accumulate 1
 OPS_STEP, OPS_COST, OPS_LR, OPS_ACC = 8, 20, 16, 1
@@ -182,8 +205,13 @@ TOL = {  # (rtol, atol)
 }
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 def check(what, got, want, tol, scale=None):
@@ -960,14 +988,15 @@ def robust_loop_phase(kind):
     return launches
 
 
-def profile_steps(kind, step, n=10):
+def profile_steps(kind, step, n=10, warmup=3):
     """A torch.profiler window over n calls of ``step`` (closed-loop steps
     from one state, after the launch counts were read): kernel launches and
     device time per step, the device's idle share of the window, the
-    largest kernels."""
+    largest kernels. The loops with thousands of launches per step take a
+    shorter window (the profiler costs about 2 s per such step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1580,64 +1609,564 @@ def colored_reference_phase(dev):
     emit("colored_reference", checks=checks, no_host_sync=["exp", "tsallis", "bicycle"])
 
 
-def model_loop_phase(path, ctrl, x0, steps, want, **labels):
-    """``steps`` closed-loop steps of a map configuration (AutoRally, the
-    bicycle) from ``x0``, the model itself as the plant: slide, solve, step
-    with the first control; then a profiler window. Records the crashed
-    share and the final state; sets no task bar (the JAX bench sets none for
-    these rows). Nothing in the loop waits on the device."""
+def ar_loop_phase(path, map_kind, kernel, steps, want):
+    """The AutoRally configuration's closed loop from x0 (v_x = 3)."""
+    ctrl = build_autorally(map_kind, kernel)
+    return model_loop_phase(path, ctrl, ar_x0(ctrl.device), steps, want, map=map_kind)[0]
+
+
+# ---------------------------------------------------------------------------
+# The analytic model zoo: cartpole (the bench row cartpole_example_K8192,
+# bench.py:599-608), the quadrotor with its quadratic cost
+# (tests/test_model_zoo.py:60-92) or its map cost
+# (examples/quadrotor_waypoint_example.py), the Dubins car and the double
+# integrator with QuadraticCost (examples/double_integrator_example.py).
+# ---------------------------------------------------------------------------
+K_ZOO, K_ZOO_RAGGED, T_ZOO = 8192, 8000, 100
+CART_RANGE, CART_STD, CART_COEFFS = [[-5.0, 5.0]], [5.0], [100.0, 10.0, 200.0, 20.0]
+QUAD_RANGE, QUAD_STD, HOVER_THRUST = [[-3.0, 3.0]] * 3 + [[0.0, 20.0]], [0.5, 0.5, 0.5, 2.0], 9.81
+K_HOVER, T_HOVER, HOVER_STEPS = 512, 48, 150
+K_WAYPOINT, WAYPOINT_STEPS = 1024, 100
+WAYPOINTS = [(1.5, 0.0, 0.0, np.pi / 2), (3.0, 0.8, 0.0, np.pi / 2), (4.5, 1.5, 0.0, np.pi / 2)]
+SWINGUP_STEPS = 500
+ZOO_B1_STEPS = 20  # the kernel="fused" and Tsallis loops: the entry on a main path
+LAM_DIVISION = 0.3  # an inexact reciprocal, for the host-scalar division check
+# Operations per sample-step of each model and cost (csrc/*.cuh; a
+# transcendental, sqrtf and fmodf as OPS_TRANSCENDENTAL, powf as two):
+# the cartpole step sinf, cosf and 32 (the two accelerations with their two
+# divisions 24, the Euler update 8); its cost 4 x 3 + 3.
+OPS_CART_STEP, OPS_CART_COST = 32 + 2 * OPS_TRANSCENDENTAL, 15
+# The quadrotor step: the DCM column 10, thrust / m and v_d 5, q_d 28, w_d 6,
+# the Euler update 26, the norm 7 and sqrtf, the scale 2 and four divisions.
+OPS_QUAD_STEP = 88 + OPS_TRANSCENDENTAL
+# QuadrotorQuadraticCost: three squared errors 24, q_diff 31, the Euler
+# arguments 22, two atan2_approx (20 each) and asin_approx (25 and sqrtf),
+# the weighted sum 14, the saturation 2.
+OPS_QQ_COST = 158 + OPS_TRANSCENDENTAL
+# QuadrotorMapCost: distance 8, gate band 25, speed 6, roll and pitch (args
+# 13, atan2 20, asin 25), the height term 26, the heading (the rotated
+# velocity 30, two atan2 40, the wrap 4, the rest 6), the map (world -> tex
+# 17, the query 37, its terms 8), sums 12; sqrtf x 5, fmodf and powf (two).
+OPS_QMAP_COST = 317 + 8 * OPS_TRANSCENDENTAL
+# Dubins: cosf, sinf, 8 and the yaw wrap (fmodf and 4).
+OPS_DUBINS_STEP = 12 + 3 * OPS_TRANSCENDENTAL
+
+
+def ops_quadratic(O, trajectory):
+    """QuadraticCost: O errors, squares and weights, O - 1 adds; the
+    trajectory's row index 3."""
+    return 4 * O - 1 + (3 if trajectory else 0)
+
+
+def zoo_map(dev):
+    """The quadrotor map: 512^2 texels of 0.05 m over [-12.8, 12.8]^2, a low
+    abs-normal floor (numpy seed 4) and a high block (the track boundary)
+    beyond x, y >= 6.4 m; one gate from update_waypoint."""
+    data = (0.2 * np.abs(np.random.default_rng(4).normal(size=(512, 512)))).astype("f")
+    data[384:, 384:] = 3.0
+    return MapTexture2D(data, origin=(-12.8, -12.8, 0.0), resolution=0.05, device=dev)
+
+
+def zoo_parts(pair, dev=None):
+    """(dynamics, cost, x0, std, mean offset of the last channel, ops per
+    sample-step of the step and the cost) of one zoo pair on ``dev`` (the
+    controllers' default device when None)."""
+    kw = {} if dev is None else {"device": dev}
+    x0dev = dev if dev is not None else "cuda"
+    if pair == "cartpole":
+        return (CartpoleDynamics.create(control_ranges=CART_RANGE, **kw),
+                CartpoleQuadraticCost(coeffs=CART_COEFFS, **kw),
+                torch.zeros(4, device=x0dev), CART_STD, 0.0, OPS_CART_STEP + OPS_CART_COST)
+    if pair.startswith("quadrotor"):
+        x0 = torch.zeros(13, device=x0dev)
+        x0[6] = 1.0
+        if pair == "quadrotor_quadratic":
+            x0[0], x0[2] = 1.0, -0.5  # the hover test's offset start
+            cost, ops = QuadrotorQuadraticCost(x_coeff=50.0, v_coeff=5.0, **kw), OPS_QQ_COST
+        else:
+            x0[0], x0[1] = 0.9, -2.3  # beside the gate's right post: a share crashes
+            cost = QuadrotorMapCost(costmap=zoo_map(dev), dist_to_waypoint_coeff=12.0,
+                                    desired_speed=1.0, heading_coeff=0.0, speed_coeff=1.0,
+                                    **kw).update_waypoint(*WAYPOINTS[0])
+            ops = OPS_QMAP_COST
+        return (QuadrotorDynamics.create(control_ranges=QUAD_RANGE, **kw), cost, x0,
+                QUAD_STD, HOVER_THRUST, OPS_QUAD_STEP + ops)
+    if pair.startswith("dubins"):
+        traj = pair == "dubins_trajectory"
+        goal = (np.random.default_rng(5).normal(size=(T_ZOO, 3)).astype("f") if traj
+                else [1.0, 2.0, 0.5])
+        return (DubinsDynamics.create(**kw),
+                QuadraticCost(goal, [1.0, 2.0, 0.3], current_time=3 if traj else 0, **kw),
+                torch.tensor([0.0, 0.0, 3.0], device=x0dev), [1.0, 1.0], 0.0,
+                OPS_DUBINS_STEP + ops_quadratic(3, traj))
+    return (DoubleIntegratorDynamics.create(**kw),
+            QuadraticCost([-4.0, -4.0, 0.0, 0.0], [5.0, 5.0, 0.5, 0.5], output_dim=4, **kw),
+            torch.tensor([-9.0, -9.0, 0.1, 0.1], device=x0dev), [0.5, 0.5], 0.0,
+            OPS_STEP + ops_quadratic(4, False))
+
+
+ZOO_PAIRS = ("cartpole", "quadrotor_quadratic", "quadrotor_map", "dubins_quadratic",
+             "dubins_trajectory", "di_quadratic")
+
+
+def zoo_fixed_bytes(dyn, cost):
+    """The model's and the cost's tables, the cost's map (or goal rows) and
+    the constraints, read once."""
+    table = dyn.kernel_params()
+    cmap = cost.kernel_map()
+    return 4 * ((0 if table is None else table.numel()) + cost.params.numel()
+                + (0 if cmap is None else cmap.numel()) + 4 * dyn.CONTROL_DIM)
+
+
+def zoo_rollout_work(dyn, cost, ops, K, T_, mode):
+    """(bytes, operations) of B1's function for a zoo pair in ``mode``."""
+    S_, C_ = dyn.STATE_DIM, dyn.CONTROL_DIM
+    nb = -(-K // fr.BLOCK)
+    with_lr = mode.endswith("+lr")
+    n_bytes = zoo_fixed_bytes(dyn, cost) + 4 * (K * T_ * C_ + S_ + 2 * K)
+    n_ops = K * T_ * (ops + OPS_ACC + (8 * C_ if with_lr else 0)) + 2 * K
+    if with_lr:
+        n_bytes += 4 * (2 * T_ * C_ + C_)
+    if mode.startswith("epilogue"):
+        n_bytes += 4 * nb * (2 + T_ * C_)
+        n_ops += 5 * K + 2 * K * T_ * C_
+    if mode.startswith("tsallis"):
+        n_bytes += 4 * nb
+        n_ops += K
+    return n_bytes, n_ops
+
+
+def zoo_sampling_work(dyn, cost, ops, K, T_, kind, solve, epilogue=False):
+    """(bytes, operations) of B3 (``solve``) or B4 for a zoo pair: the
+    tables, constraints, x0 and seed read once; costs, crash, U (B3 and B4
+    without an epilogue), W (Smooth-MPPI) and the carry rows written once."""
+    S_, C_ = dyn.STATE_DIM, dyn.CONTROL_DIM
+    nb = -(-K // fr.BLOCK)
+    tables = 2 + (kind != "gaussian") + (1 if solve else 0)
+    emitted = (1 if solve or not epilogue else 0) + (1 if kind == "smooth" else 0)
+    n_bytes = zoo_fixed_bytes(dyn, cost) + 4 * (tables * T_ * C_ + (0 if solve else C_)
+                                                + S_ + 1 + 2 * K + emitted * K * T_ * C_)
+    draw = OPS_PHILOX * (-(-C_ // 2)) + (2 if kind == "nln" else 1) * OPS_BOX_MULLER * (-(-C_ // 2))
+    per_channel = 4 + 7 + (5 if solve else 7) + (OPS_TRANSCENDENTAL + 2 if kind == "nln" else 0)
+    per_channel += 3 if kind == "smooth" else 0
+    n_ops = K * T_ * (draw + C_ * per_channel + ops + OPS_ACC) + 2 * K
+    if solve or epilogue:
+        n_bytes += 4 * nb * (2 + T_ * C_)
+        n_ops += 5 * K + 2 * K * T_ * C_
+    return n_bytes, n_ops
+
+
+def zoo_sampler(kind, C_, std, dev=None, p=0.0, T_=T_ZOO):
+    kw = dict(std_dev=std, control_cost_coeff=[1.0] * C_, pure_noise_percentage=p)
+    if dev is not None:
+        kw["device"] = dev
+    if kind == "nln":
+        return NLNDistribution.create(**kw)
+    if kind == "smooth":
+        return SmoothMPPIDistribution.create(num_timesteps=T_, dt=DT_SMOOTH, **kw)
+    return GaussianDistribution.create(**kw)
+
+
+def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
+    """A zoo pair's B1 entry in its four modes (costs, costs + LR, the exp
+    epilogue + LR, Tsallis pass 1 + LR), its B3 entry (Gaussian; the
+    cartpole also NLN) and, for the cartpole, its B4 entry (Gaussian, NLN,
+    Smooth-MPPI, Smooth-MPPI with its epilogue), each against its plain
+    version: U, costs, crash flags and block minima to the last bit, carries
+    at rtol 1e-5, merged means at rtol 1e-4 / atol 1e-5. Times by CUDA
+    events against the bound from the .cuh operation counts; the plain
+    versions' times where ``timed_plain`` (the epilogue mode, B3 Gaussian,
+    B4 Smooth with its epilogue), the library yardstick softmax(-J / lambda)
+    @ U beside the epilogue."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn, cost, x0, std, offset, ops = zoo_parts(pair, dev)
+    C_, T_ = dyn.CONTROL_DIM, T_ZOO
+    mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+    mean[:, -1] += offset
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    by_kernel = {"rollout_costs_kernel": [], "fused_solve_kernel": [],
+                 "fused_sample_rollout_kernel": [], "flash_combine_kernel": []}
+    times, crashed = {}, {}
+
+    def timing(kernel, plain, work, time_plain):
+        t = {"ms": time_ms(kernel, N_TIMED),
+             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR) if time_plain else None}
+        t["bound_ms"], t["bound_by"] = bound_ms(*work)
+        return t
+
+    def merge_checks(name, kcarry, pcarry, pc, X):
+        km, kb, ke = fr.flash_combine(kcarry, T_, C_, LAM)
+        pm, pb, pe = fr.flash_combine_plain(pcarry, T_, C_, LAM)
+        return [check(f"{name} new_mean", km, pm, "new_mean"),
+                check(f"{name} baseline", kb, pb, "baseline"),
+                check(f"{name} eta", ke, pe, "eta")], check(
+                    f"{name} carry", kcarry, pcarry, "carry",
+                    fr.block_carries_plain(pc, X.abs(), LAM).abs())
+
+    # B1 on the sampler's clamped samples
+    samp = zoo_sampler("gaussian", C_, std, dev, p)
+    U, _ = samp.sample(g, mean, K, optimization_stride=stride)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lr = (mean, samp._sigma(T_, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
+          samp.pure_threshold(K))
+    for mode in ("costs", "costs+lr", "epilogue+lr", "tsallis+lr"):
+        lrp = lr if mode.endswith("+lr") else None
+
+        def kernel(mode=mode, lrp=lrp):
+            if mode.startswith("epilogue"):
+                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp)
+            if mode.startswith("tsallis"):
+                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp)
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+
+        def plain(mode=mode, lrp=lrp):
+            pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+            if mode.startswith("epilogue"):
+                return fr.block_carries_plain(pc, U, LAM)
+            return fr.block_minima_plain(pc) if mode.startswith("tsallis") else pc
+
+        kout = kernel()
+        pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+        torch.cuda.synchronize()
+        name = f"B1 {mode}"
+        same(f"{pair} {name} crash flags", kout[1], pcrash)
+        by_kernel["rollout_costs_kernel"].append(check(f"{pair} {name} costs", kout[0], pc,
+                                                       "bitwise"))
+        if mode.startswith("epilogue"):
+            merged, carry = merge_checks(f"{pair} {name}", kout[2],
+                                         fr.block_carries_plain(pc, U, LAM), pc, U)
+            by_kernel["rollout_costs_kernel"].append(carry)
+            by_kernel["flash_combine_kernel"] += merged
+        if mode.startswith("tsallis"):
+            same(f"{pair} {name} block minima", kout[2], fr.block_minima_plain(pc))
+        times[name] = timing(kernel, plain, zoo_rollout_work(dyn, cost, ops, K, T_, mode),
+                             timed_plain and mode == "epilogue+lr")
+        if mode == "epilogue+lr":
+            # one-call yardstick for the weighting + weighted sum (not used by the port)
+            times[name]["library_ms"] = time_ms(
+                lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
+        crashed[name] = float(kout[1].float().mean())
+    # B3 (and the cartpole's B4)
+    for kind in ("gaussian", "nln") if pair == "cartpole" else ("gaussian",):
+        s = zoo_sampler(kind, C_, std, dev, p)
+        args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
+        kw = dict(optimization_stride=stride)
+        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+        pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        name = f"B3 {kind}"
+        same(f"{pair} {name} crash flags", kcrash, pcrash)
+        merged, carry = merge_checks(f"{pair} {name}", kcarry, pcarry, pc, pU)
+        by_kernel["fused_solve_kernel"] += [
+            check(f"{pair} {name} U", kU, pU, "bitwise"),
+            check(f"{pair} {name} costs", kc, pc, "bitwise"), carry]
+        by_kernel["flash_combine_kernel"] += merged
+        crashed[name] = float(kcrash.float().mean())
+        times[name] = timing(lambda: fused_solve.fused_solve_carries(*args, **kw),
+                             lambda: fused_solve.fused_solve_plain(*args, **kw),
+                             zoo_sampling_work(dyn, cost, ops, K, T_, kind, True),
+                             timed_plain and kind == "gaussian")
+    if pair == "cartpole":
+        dmean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+        for kind, epilogue in (("gaussian", False), ("nln", False), ("smooth", False),
+                               ("smooth", True)):
+            s = zoo_sampler(kind, C_, std, dev, p)
+            state = dmean if kind == "smooth" else None
+            args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
+            kout = fr.fused_sample_rollout_costs(*args, optimization_stride=stride,
+                                                 sampler_state=state, epilogue=epilogue)
+            pc, pcrash, pU, pW = fr.sample_rollout_plain(
+                *args, optimization_stride=stride, sampler_state=state)
+            torch.cuda.synchronize()
+            name = f"B4 {kind}{' epilogue' if epilogue else ''}"
+            same(f"{pair} {name} crash flags", kout[1], pcrash)
+            by_kernel["fused_sample_rollout_kernel"] += [
+                check(f"{pair} {name} U", kout[2], pU, "bitwise"),
+                check(f"{pair} {name} costs", kout[0], pc, "bitwise")]
+            if epilogue:
+                pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM),
+                                                    T_, C_, LAM)
+                by_kernel["flash_combine_kernel"] += [
+                    check(f"{pair} {name} new_deriv_mean", kout[3], pm, "new_mean"),
+                    check(f"{pair} {name} baseline", kout[4], pb, "baseline"),
+                    check(f"{pair} {name} eta", kout[5], pe, "eta")]
+            elif kind == "smooth":
+                by_kernel["fused_sample_rollout_kernel"].append(
+                    check(f"{pair} {name} W", kout[3], pW, "bitwise"))
+            kid = fr.noise_kind(s)
+
+            def kernel(epilogue=epilogue, s=s, state=state, kid=kid):
+                # the kernel alone, as the main path launches it (U not kept)
+                return fr._sample_rollout_cuda(dyn, cost, s, kid, x0, mean, seed_t, DT,
+                                               LAM, ALPHA, K, 0, 0, state, epilogue,
+                                               False, None)
+
+            def plain(epilogue=epilogue, args=args, state=state):
+                out = fr.sample_rollout_plain(*args, sampler_state=state)
+                return fr.block_carries_plain(out[0], out[3], LAM) if epilogue else out
+
+            times[name] = timing(kernel, plain,
+                                 zoo_sampling_work(dyn, cost, ops, K, T_, kind, False,
+                                                   epilogue),
+                                 timed_plain and epilogue)
+    emit("zoo_kernels", pair=pair, K=K, T=T_, pure_noise_percentage=p, stride=stride,
+         crashed_share=crashed, checks=[c for cs in by_kernel.values() for c in cs],
+         times=times)
+    return by_kernel, times
+
+
+def division_phase(dev):
+    """The eager (combined) path divides by device scalars, as the kernels:
+    at lambda 0.3 and T = 100 (inexact reciprocals) its costs equal the
+    rollout kernel's on the same samples to the last bit (a zero mean makes
+    the LR term 0 on both paths), and its weights equal exp(-(J - baseline)
+    / lambda) with one IEEE division and the plain versions' weights (the
+    CPU computation of the same formula, which divides)."""
+    ctrl = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+                       make_sampler("gaussian"), dt=DT, lam=LAM_DIVISION, alpha=ALPHA,
+                       num_timesteps=T, num_rollouts=K_MAIN, kernel="combined",
+                       return_samples=True)
+    eps = torch.randn((K_MAIN, T, C), generator=torch.Generator(device=dev).manual_seed(91),
+                      device=dev)
+    x = torch.tensor(X0, device=dev)
+    res, _ = ctrl.solve(x, ctrl.init_state(seed=0), injected_noise=eps)
+    U = res.sampled_controls.contiguous()
+    lr = (torch.zeros((T, C), device=dev), ctrl.sampler._sigma(T, 0).contiguous(),
+          ctrl.sampler.control_cost_coeff, LAM_DIVISION, ALPHA,
+          ctrl.sampler.pure_threshold(K_MAIN))
+    kc, kcrash = fr.fused_rollout_costs(ctrl.dynamics, ctrl.cost, x, U, DT, lr)
+    torch.cuda.synchronize()
+    same("combined costs and the rollout kernel's (lambda 0.3, T = 100)", res.costs, kc)
+    same("combined and kernel crash flags", res.crash, kcrash)
+    want = torch.exp(-(res.costs - res.baseline) / torch.tensor(LAM_DIVISION, device=dev))
+    same("combined weights and the true-division weights", res.weights, want)
+    host = weights.norm_exp_weights(res.costs.cpu(), LAM_DIVISION, res.baseline.cpu())
+    # what the division by a host scalar (the code before the fix) gives on
+    # the card: costs of the same sums divided by T as a host number
+    total = res.costs * torch.tensor(float(T), device=dev)
+    old_costs = total / T
+    new_costs = total / torch.tensor(float(T), device=dev)
+    old_weights = torch.exp(-(res.costs - res.baseline) / LAM_DIVISION)
+    emit("division", K=K_MAIN, T=T, lam=LAM_DIVISION, max_ulp_costs=0,
+         weights_vs_cpu_max_abs=float((res.weights.cpu() - host).abs().max()),
+         host_scalar_division_differs={
+             "costs (of J T / T)": int((old_costs != new_costs).sum()),
+             "weights": int((old_weights != res.weights).sum())},
+         checks=[check("combined costs vs rollout kernel", res.costs, kc, "bitwise")])
+
+
+def model_loop_phase(path, ctrl, x0, steps, want, *, plant=None, slide_first=True,
+                     on_step=None, profile=True, initial_mean=None, **labels):
+    """``steps`` closed-loop steps of a model's configuration (AutoRally, the
+    bicycle, the zoo) from ``x0`` through the entry points: slide, solve,
+    step the plant with the first control (``slide_first=False``: solve,
+    plant, slide, as tests/test_vanilla_mppi.py:80-107); then, with
+    ``profile``, a short profiler window. Records the crashed share and the
+    final state; the task bars are the callers'. ``plant(x, u)`` replaces the model's
+    step; ``on_step(i, x, ctrl)`` may return a new cost (the waypoint
+    updates). Fails unless the kernels launched as ``want`` says and every
+    state is finite. Returns (launches, entry launches, the states
+    (steps, S), the last result)."""
     if ctrl.device.type != "cuda":
         raise AssertionError("the controller did not default to the card")
-    K_, T_ = ctrl.num_rollouts, ctrl.num_timesteps
-    cs = ctrl.init_state(seed=0)
-    x = x0
+    K_, T_, C_ = ctrl.num_rollouts, ctrl.num_timesteps, ctrl.dynamics.CONTROL_DIM
+    plant = plant or (lambda x, u: ctrl.dynamics.step(x, u, 0.0, ctrl.dt)[0])
+    cs, x = ctrl.init_state(seed=0, initial_mean=initial_mean), x0
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(steps)]
-    crashed, states = [], []
+    states, crashed, extra = [], [], {}
     torch.cuda.synchronize()
     fr.reset_launch_counts()
     t0 = time.perf_counter()
     for i in range(steps):
         ev[i][0].record()
-        cs = ctrl.slide_control_sequence(cs, 1)
+        if slide_first:
+            cs = ctrl.slide_control_sequence(cs, 1)
         res, cs = ctrl.solve(x, cs)
         ev[i][1].record()
-        x, _ = ctrl.dynamics.step(x, res.control_mean[0], 0.0, ctrl.dt)
+        x = plant(x, res.control_mean[0])
+        if not slide_first:
+            cs = ctrl.slide_control_sequence(cs, 1)
         ev[i][2].record()
-        crashed.append(res.crash.sum())
         states.append(x)
+        crashed.append(res.crash.sum())
+        if on_step is not None:
+            new_cost = on_step(i, x, ctrl, extra)
+            if new_cost is not None:
+                ctrl.cost = new_cost
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(fr.launch_counts)
+    launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
     expect_launches(launches, want, path)
     X = torch.stack(states).cpu()
     for name, t in (("states", X), ("control_mean", res.control_mean), ("costs", res.costs),
                     ("state_trajectory", res.state_trajectory)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{path}: {name} is not finite")
-    if res.control_mean.shape != (T_, C) or res.costs.shape != (K_,):
+    if res.control_mean.shape != (T_, C_) or res.costs.shape != (K_,):
         raise AssertionError(f"{path}: unexpected result shapes")
     steady = ev[5:]  # the first solves include one-time allocations
-    emit(f"{path}_main_path", K=K_, T=T_, **labels, kernel=ctrl.kernel, steps=steps,
-         launches=launches,
+    emit(f"{path}_main_path", K=K_, T=T_, **labels, kernel=ctrl.kernel,
+         weight_transform=ctrl.weight_transform, steps=steps, launches=launches,
+         entry_launches=entries, launches_per_step=sum(launches.values()) / steps,
          crashed_share=float(torch.stack(crashed).float().mean().cpu()) / K_,
-         final_state=X[-1].tolist(), final_baseline=float(res.baseline),
+         final_state=X[-1].tolist(), final_baseline=float(res.baseline), **extra,
          solve_ms_median=statistics.median(e[0].elapsed_time(e[1]) for e in steady),
          step_ms_median=statistics.median(e[0].elapsed_time(e[2]) for e in steady),
          host_wall_ms_per_step=1e3 * wall_s / steps)
+    if profile:
+        def step():
+            s = ctrl.slide_control_sequence(cs, 1)
+            r, _ = ctrl.solve(x, s)
+            plant(x, r.control_mean[0])
 
-    def step():
-        s = ctrl.slide_control_sequence(cs, 1)
-        r, _ = ctrl.solve(x, s)
-        ctrl.dynamics.step(x, r.control_mean[0], 0.0, ctrl.dt)
-
-    profile_steps(path, step)
-    return launches
+        profile_steps(path, step, n=4, warmup=1)
+    return launches, entries, X, res
 
 
-def ar_loop_phase(path, map_kind, kernel, steps, want):
-    """The AutoRally configuration's closed loop from x0 (v_x = 3)."""
-    ctrl = build_autorally(map_kind, kernel)
-    return model_loop_phase(path, ctrl, ar_x0(ctrl.device), steps, want, map=map_kind)
+def build_zoo(pair, kernel, K=K_ZOO, T_=T_ZOO, sampler=None, **kw):
+    """A zoo pair's VanillaMPPI on the card; the Gaussian of the pair's std
+    by default (the quadrotor's without a control cost, as
+    tests/test_model_zoo.py:60-92 and the waypoint example)."""
+    dyn, cost, _, std, _, _ = zoo_parts(pair)
+    if sampler is None:
+        coeff = [0.0] * dyn.CONTROL_DIM if pair.startswith("quadrotor") else None
+        sampler = GaussianDistribution.create(std_dev=std, control_cost_coeff=coeff)
+    return VanillaMPPI(dyn, cost, sampler, dt=kw.pop("dt", DT), lam=kw.pop("lam", LAM),
+                       alpha=kw.pop("alpha", ALPHA), num_timesteps=T_, num_rollouts=K,
+                       num_iters=1, kernel=kernel, **kw)
+
+
+def build_cartpole(kernel, **kw):
+    """bench.py:599-608 on the card: control range +-5, coefficients (100,
+    10, 200, 20), Gaussian std 5 (coefficient 1), dt 0.02, lambda 1."""
+    return build_zoo("cartpole", kernel, sampler=GaussianDistribution.create(std_dev=CART_STD),
+                     **kw)
+
+
+def zoo_loops(dev):
+    """The zoo's closed loops. Returns {path: (launches, entry launches)}."""
+    n, n_b1 = CLOSED_LOOP_STEPS, ZOO_B1_STEPS
+    solve_want = {"fused_solve_kernel": n, "flash_combine_kernel": n}
+    b1_want = {"rollout_costs_kernel": n_b1, "flash_combine_kernel": n_b1}
+    paths = {}
+
+    def run(path, *a, **kw):
+        out = model_loop_phase(path, *a, **kw)
+        paths[path] = out[:2]
+        return out
+
+    # the bench row cartpole_example_K8192 from x0 = 0
+    run("cartpole_fused_solve", build_cartpole("fused_solve"), torch.zeros(4, device=dev), n,
+        solve_want)
+    # tests/test_vanilla_mppi.py:80-107 at K=8192 on the fused solve: dt 0.01,
+    # lambda 0.25, std 5, control cost 1, 1 % pure noise, slide_scale 1;
+    # solve, plant x + state_deriv dt, slide; its bar
+    swing = VanillaMPPI(CartpoleDynamics.create(), CartpoleQuadraticCost(coeffs=CART_COEFFS),
+                        GaussianDistribution.create(std_dev=CART_STD, control_cost_coeff=[1.0],
+                                                    pure_noise_percentage=0.01),
+                        dt=0.01, lam=0.25, alpha=0.0, slide_scale=[1.0], num_timesteps=T_ZOO,
+                        num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve")
+    ns = SWINGUP_STEPS
+    _, _, X, res = run(
+        "cartpole_swingup", swing, torch.zeros(4, device=dev), ns,
+        {"fused_solve_kernel": ns, "flash_combine_kernel": ns},
+        plant=lambda x, u: x + swing.dynamics.state_deriv(x, u) * swing.dt,
+        slide_first=False, profile=False)
+    theta_err = abs(float(torch.remainder(X[-1, 2], 2 * np.pi)) - np.pi)
+    emit("cartpole_swingup_bar", final_baseline=float(res.baseline), theta_error=theta_err,
+         final_state=X[-1].tolist(), bar={"baseline": 1.0, "theta_error": 0.3})
+    if not (float(res.baseline) < 1.0 and theta_err < 0.3):
+        raise AssertionError(f"cartpole swing-up missed its bar: baseline "
+                             f"{float(res.baseline)}, pole angle error {theta_err}")
+    # the B1 and B4 entries on short main paths
+    run("cartpole_fused", build_cartpole("fused"), torch.zeros(4, device=dev), n_b1, b1_want,
+        profile=False)
+    run("cartpole_tsallis", build_cartpole("fused_solve", weight_transform="tsallis"),
+        torch.zeros(4, device=dev), n_b1, {"fused_sample_rollout_kernel": n_b1},
+        profile=False)
+    # tests/test_model_zoo.py:60-92: the hover from (1, 0, -0.5), hover
+    # thrust as the initial mean, K=512, T=48, 150 steps; its bar
+    hover_mean = torch.tensor([0.0, 0.0, 0.0, HOVER_THRUST], device=dev).expand(T_HOVER, 4)
+    x0 = zoo_parts("quadrotor_quadratic", dev)[2]
+    nh = HOVER_STEPS
+    _, _, X, _ = run("quadrotor_hover", build_zoo("quadrotor_quadratic", "fused_solve",
+                                                     K=K_HOVER, T_=T_HOVER), x0, nh,
+                        {"fused_solve_kernel": nh, "flash_combine_kernel": nh},
+                        initial_mean=hover_mean)
+    pos_err = float(torch.linalg.vector_norm(X[-1, :3]))
+    emit("quadrotor_hover_bar", position_error=pos_err, final_state=X[-1].tolist(),
+         bar={"position_error": 0.5})
+    if not pos_err < 0.5:
+        raise AssertionError(f"quadrotor hover missed its bar: position error {pos_err}")
+    run("quadrotor_fused", build_zoo("quadrotor_quadratic", "fused", K=K_HOVER, T_=T_HOVER),
+        x0, n_b1, b1_want, initial_mean=hover_mean, profile=False)
+    # examples/quadrotor_waypoint_example.py on the synthetic one-gate map:
+    # the waypoint advances when the vehicle enters the gate margin
+    def advance(i, x, ctrl, extra):
+        wp = WAYPOINTS[extra.setdefault("gates_reached", 0) % len(WAYPOINTS)]
+        if float(torch.linalg.vector_norm(x[:3] - torch.tensor(wp[:3], device=dev))) < 0.5:
+            extra["gates_reached"] += 1
+            if extra["gates_reached"] < len(WAYPOINTS):
+                return ctrl.cost.update_waypoint(*WAYPOINTS[extra["gates_reached"]])
+        return None
+
+    qz = torch.zeros(13, device=dev)
+    qz[6] = 1.0
+    run("quadrotor_waypoint", build_zoo("quadrotor_map", "fused_solve", K=K_WAYPOINT,
+                                        T_=T_HOVER), qz, WAYPOINT_STEPS,
+        {"fused_solve_kernel": WAYPOINT_STEPS, "flash_combine_kernel": WAYPOINT_STEPS},
+        initial_mean=hover_mean, on_step=advance, profile=False)
+    run("quadrotor_waypoint_fused", build_zoo("quadrotor_map", "fused", K=K_WAYPOINT,
+                                              T_=T_HOVER), qz, n_b1, b1_want,
+        initial_mean=hover_mean, profile=False)
+    # the Dubins car to a goal trajectory (the gather by t) and to a fixed goal
+    dub = torch.tensor([0.0, 0.0, 3.0], device=dev)
+    run("dubins_fused_solve", build_zoo("dubins_trajectory", "fused_solve"), dub, n_b1,
+        {"fused_solve_kernel": n_b1, "flash_combine_kernel": n_b1}, profile=False)
+    run("dubins_fused", build_zoo("dubins_quadratic", "fused"), dub, n_b1, b1_want,
+        profile=False)
+    # examples/double_integrator_example.py: T=65, K=128, dt 0.015, lambda 1,
+    # alpha 1, start (-9, -9, 0.1, 0.1); its colored sampler on kernel="fused"
+    # (the colored draw is eager, JAX draws it in XLA on pallas_fused too), and
+    # a Gaussian of the same std on the fused solve
+    ex = dict(K=128, T_=65, dt=0.015, lam=1.0, alpha=1.0)
+    dix = torch.tensor([-9.0, -9.0, 0.1, 0.1], device=dev)
+    run("di_quadratic", build_zoo("di_quadratic", "fused", sampler=ColoredNoiseDistribution.create(
+        std_dev=[0.5, 0.5], exponents=[1.0, 1.0]), **ex), dix, n,
+        {"rollout_costs_kernel": n, "flash_combine_kernel": n})
+    run("di_quadratic_fused_solve", build_zoo("di_quadratic", "fused_solve", **ex), dix, n,
+        solve_want)
+    return paths
+
+
+def bench_row_loops(dev):
+    """Two bench rows that need no new kernel code: the bicycle on the
+    1024^2 map (bench.py:755-773) and the DI row at K=1024 (:593-597)."""
+    n = CLOSED_LOOP_STEPS
+    data = np.abs(np.random.default_rng(2).normal(size=(1024, 1024))).astype("f")
+    tex = MapTexture2D(data, origin=(-51.2, -51.2, 0.0), resolution=0.1)
+    bicycle = VanillaMPPI(BicycleSlipDynamics.create(),
+                          ARStandardCost(costmap=tex, output_indices=BI_OUTPUT_INDICES),
+                          colored_sampler(None, 0.0, BI_STD, BI_EXPONENTS), dt=DT, lam=LAM,
+                          alpha=ALPHA, num_timesteps=T_BI, num_rollouts=K_BI, num_iters=1,
+                          kernel="fused")
+    paths = {"bicycle_1024": model_loop_phase(
+        "bicycle_1024", bicycle, torch.zeros(S_BI, device=dev), n,
+        {"rollout_costs_kernel": n, "flash_combine_kernel": n}, map="1024")[0]}
+    di = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+                     make_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
+                     num_rollouts=1024, num_iters=1, kernel="fused_solve")
+    launches, _, X, _ = model_loop_phase(
+        "di_K1024", di, torch.tensor(X0, device=dev), n,
+        {"fused_solve_kernel": n, "flash_combine_kernel": n})
+    r = torch.hypot(X[:, 0], X[:, 1])
+    out_of_band = int(((r <= BAND[0]) | (r >= BAND[1])).sum())
+    emit("di_K1024_band", radius_range=[float(r.min()), float(r.max())],
+         out_of_band_steps=out_of_band)
+    if out_of_band >= MAX_OUT_OF_BAND:
+        raise AssertionError(f"di_K1024: {out_of_band} of {n} steps outside {BAND}")
+    paths["di_K1024"] = launches
+    return paths
 
 
 def main() -> int:
@@ -1735,6 +2264,18 @@ def main() -> int:
         note_into(bi_errs, by_kernel)
         bi_times = bi_times or times
 
+    # the analytic model zoo: every new entry against its plain version
+    zoo_errs, zoo_times = {}, {}
+    for i, (pair, K, p, stride) in enumerate(
+            [(pair, K_ZOO, 0.0, 0) for pair in ZOO_PAIRS]
+            + [("cartpole", K_ZOO_RAGGED, 0.1, 2)]):
+        by_kernel, times = zoo_kernel_phase(dev, pair, K, p, stride, 101 + i,
+                                            timed_plain=K == K_ZOO)
+        errs_p = zoo_errs.setdefault(pair, dict.fromkeys(by_kernel, 0.0))
+        note_into(errs_p, by_kernel)
+        zoo_times.setdefault(pair, times)
+    division_phase(dev)
+
     reference_phase(dev)
     robust_reference_phase(dev)
     fused_reference_phase(dev)
@@ -1769,8 +2310,12 @@ def main() -> int:
     bicycle_paths = {
         "bicycle_colored": model_loop_phase(
             "bicycle_colored", build_bicycle("fused"), torch.zeros(S_BI, device=dev), n,
-            {"rollout_costs_kernel": n, "flash_combine_kernel": n}, map="128"),
+            {"rollout_costs_kernel": n, "flash_combine_kernel": n}, map="128")[0],
     }
+    row_paths = bench_row_loops(dev)
+    bicycle_paths["bicycle_1024"] = row_paths["bicycle_1024"]
+    by_path["di_K1024"] = row_paths["di_K1024"]
+    zoo_paths = zoo_loops(dev)
 
     def entry(name, source, replaces, t, library_ms, paths=by_path, err=None,
               kernel=None, **extra):
@@ -1797,9 +2342,9 @@ def main() -> int:
     }
     ar, ar1024 = ar_times["128"], ar_times["1024"]
     kernels = [
-        entry("rollout_costs_kernel", "fused_rollout.cu", "pallas_rollout.py:548", epi,
+        entry("rollout_costs_kernel", "pair_di_circle.cu", "pallas_rollout.py:548", epi,
               epi["library_ms"], modes=modes),
-        entry("flash_combine_kernel", "fused_rollout.cu", "pallas_rollout.py:1005",
+        entry("flash_combine_kernel", "flash_combine.cu", "pallas_rollout.py:1005",
               comb, None),
         entry("riccati_backward_kernel", "riccati.cu", "pallas_riccati.py:137",
               ric_times["riccati_backward"], None, on_main_path=False,
@@ -1808,21 +2353,21 @@ def main() -> int:
               ric_times["riccati_ladder"], None, chain_steps=T_R - 1),
         entry("rmppi_rollout_kernel", "rmppi_rollout.cu", "pallas_rollout.py:2127",
               rmppi_times, None),
-        entry("fused_solve_kernel", "fused_solve.cu", "pallas_solve.py:103",
+        entry("fused_solve_kernel", "pair_di_circle.cu", "pallas_solve.py:103",
               solve_times["solve gaussian"], None,
               modes={"nln": solve_times["solve nln"]},
               randn_reference_ms=solve_times["randn_reference_ms"]),
-        entry("fused_sample_rollout_kernel", "fused_solve.cu", "pallas_rollout.py:1631",
+        entry("fused_sample_rollout_kernel", "pair_di_circle.cu", "pallas_rollout.py:1631",
               solve_times["smooth epilogue"], None,
               modes={m: solve_times[m] for m in ("gaussian", "nln", "smooth")},
               randn_reference_ms=solve_times["randn_reference_ms"]),
-        entry("fused_solve_kernel<AutorallyNN, ARCost>", "fused_solve.cu",
+        entry("fused_solve_kernel<AutorallyNN, ARCost>", "pair_ar_nn.cu",
               "pallas_solve.py:103", ar["B3 gaussian"], None, paths=ar_paths,
               err=ar_errs["fused_solve_kernel"], kernel="fused_solve_kernel",
               K=K_AR, T=T_AR, device_functions=ar_functions,
               modes={"nln": ar["B3 nln"], "gaussian 1024^2 map": ar1024["B3 gaussian"],
                      "nln 1024^2 map": ar1024["B3 nln"]}),
-        entry("rollout_costs_kernel<AutorallyNN, ARCost>", "fused_rollout.cu",
+        entry("rollout_costs_kernel<AutorallyNN, ARCost>", "pair_ar_nn.cu",
               "pallas_rollout.py:548", ar["B1 epilogue+lr"],
               ar["B1 epilogue+lr"]["library_ms"], paths=ar_paths,
               err=ar_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
@@ -1830,13 +2375,13 @@ def main() -> int:
               modes={**{m: ar[f"B1 {m}"] for m in ("costs", "costs+lr", "epilogue")},
                      **{f"{m} 1024^2 map": ar1024[f"B1 {m}"]
                         for m in ("costs", "costs+lr", "epilogue", "epilogue+lr")}}),
-        entry("flash_combine_kernel (AutoRally paths)", "fused_rollout.cu",
+        entry("flash_combine_kernel (AutoRally paths)", "flash_combine.cu",
               "pallas_rollout.py:1005", ar["flash_combine"], None, paths=ar_paths,
               err=ar_errs["flash_combine_kernel"], kernel="flash_combine_kernel"),
         # the colored rows: the rollout kernel's exp epilogue (colored_fused,
         # timed above at the same shapes) and its Tsallis pass 1
         # (colored_tsallis), the Tsallis reduction and the merge
-        entry("rollout_costs_kernel (Tsallis pass 1; colored paths)", "fused_rollout.cu",
+        entry("rollout_costs_kernel (Tsallis pass 1; colored paths)", "pair_di_circle.cu",
               "pallas_rollout.py:894", ts_times["pass1"], None, paths=colored_paths,
               err=ts_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
               modes={"epilogue+lr (colored_fused)": epi}),
@@ -1848,18 +2393,65 @@ def main() -> int:
               modes={m: ts_times[m] for m in (
                   "tsallis_reduce entry (rho given, with the merge)",
                   "chain (pass 1, B5, merge)")}),
-        entry("flash_combine_kernel (colored and bicycle paths)", "fused_rollout.cu",
+        entry("flash_combine_kernel (colored and bicycle paths)", "flash_combine.cu",
               "pallas_rollout.py:1005", ts_times["merge"], None,
               paths={**colored_paths, **bicycle_paths},
               err=max(ts_errs["flash_combine_kernel"], bi_errs["flash_combine_kernel"]),
               kernel="flash_combine_kernel"),
-        entry("rollout_costs_kernel<BicycleSlip, ARCostBicycle>", "fused_rollout.cu",
+        entry("rollout_costs_kernel<BicycleSlip, ARCostBicycle>", "pair_bicycle_ar.cu",
               "pallas_rollout.py:548", bi_times["epilogue+lr"],
               bi_times["epilogue+lr"]["library_ms"], paths=bicycle_paths,
               err=bi_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
               K=K_BI, T=T_BI,
               modes={m: bi_times[m] for m in ("costs", "costs+lr", "tsallis+lr")}),
     ]
+    # the zoo's entries: launches counted per entry (fr.entry_counts) on the
+    # zoo's loops
+    def zoo_entry(name, pair, fn, replaces, t, errs_p, kernel, **extra):
+        by = {p: e.get(fn, 0) for p, (_, e) in zoo_paths.items() if e.get(fn, 0)}
+        return {"name": name, "route": "cuda",
+                "source": f"mppi_generic_tpu_torch/csrc/pair_{pair}.cu",
+                "replaces": f"mppi_generic_tpu/ops/{replaces}",
+                "launches": sum(by.values()), "launches_by_path": by,
+                "max_abs_err": errs_p[kernel], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms"), **extra}
+
+    cart = zoo_times["cartpole"]
+    zoo_names = {"cartpole": "Cartpole, CartpoleQuadraticCost",
+                 "quadrotor_quadratic": "Quadrotor, QuadrotorQuadraticCost",
+                 "quadrotor_map": "Quadrotor, QuadrotorMapCost",
+                 "dubins_quadratic": "Dubins, QuadraticCostT<3>",
+                 "di_quadratic": "DoubleIntegrator, QuadraticCostT<4>"}
+    for pair, types in zoo_names.items():
+        t, e = zoo_times[pair], zoo_errs[pair]
+        modes = {m: t[f"B1 {m}"] for m in ("costs", "costs+lr", "tsallis+lr")}
+        if pair == "dubins_quadratic":
+            modes.update({f"goal trajectory {m}": zoo_times["dubins_trajectory"][f"B1 {m}"]
+                          for m in ("costs", "costs+lr", "epilogue+lr", "tsallis+lr")})
+            e = {k: max(v, zoo_errs["dubins_trajectory"][k]) for k, v in e.items()}
+        kernels.append(zoo_entry(
+            f"rollout_costs_kernel<{types}>", pair, f"rollout_costs_{pair}",
+            "pallas_rollout.py:548", t["B1 epilogue+lr"], e, "rollout_costs_kernel",
+            K=K_ZOO, T=T_ZOO, modes=modes))
+        solve_modes = {m: t[m] for m in t if m.startswith("B3") and m != "B3 gaussian"}
+        if pair == "dubins_quadratic":
+            solve_modes["goal trajectory"] = zoo_times["dubins_trajectory"]["B3 gaussian"]
+        kernels.append(zoo_entry(
+            f"fused_solve_kernel<{types}>", pair, f"fused_solve_{pair}",
+            "pallas_solve.py:103", t["B3 gaussian"], e, "fused_solve_kernel",
+            K=K_ZOO, T=T_ZOO, modes=solve_modes))
+    kernels.append(zoo_entry(
+        "fused_sample_rollout_kernel<Cartpole, CartpoleQuadraticCost>", "cartpole",
+        "fused_sample_rollout_cartpole", "pallas_rollout.py:1631", cart["B4 smooth epilogue"],
+        zoo_errs["cartpole"], "fused_sample_rollout_kernel", K=K_ZOO, T=T_ZOO,
+        modes={m: cart[f"B4 {m}"] for m in ("gaussian", "nln", "smooth")}))
+    merge_paths = {p: l for p, (l, _) in zoo_paths.items()}
+    kernels.append(entry(
+        "flash_combine_kernel (zoo paths)", "flash_combine.cu", "pallas_rollout.py:1005",
+        ts_times["merge"], None, paths=merge_paths,
+        err=max(e["flash_combine_kernel"] for e in zoo_errs.values()),
+        kernel="flash_combine_kernel"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -78,7 +79,7 @@ def resolve_device(device) -> torch.device:
 class ControllerBase(nn.Module):
     def __init__(self, dynamics, cost, sampler, *, dt=0.02, lam=1.0,
                  alpha=0.0, num_timesteps=100, num_rollouts=1024,
-                 num_iters=1, return_samples=False, device=None):
+                 num_iters=1, return_samples=False, slide_scale=None, device=None):
         super().__init__()
         self.device = resolve_device(device)
         self.dynamics = dynamics.to(self.device)
@@ -92,19 +93,29 @@ class ControllerBase(nn.Module):
         self.num_iters = int(num_iters)
         # keep the final iteration's (K, T, C) samples in SolveResult
         self.return_samples = bool(return_samples)
+        # (C,) per-step decay toward zero of the slid-in tail (JAX
+        # ControllerBase.slide_scale); None: the tail is zero control
+        self.slide_scale = (None if slide_scale is None else torch.tensor(
+            np.array(slide_scale, np.float32), device=self.device).reshape(
+                self.dynamics.CONTROL_DIM))
         if num_iters < 1:
             raise ValueError("num_iters must be >= 1")
 
     # ------------------------------------------------------------------
-    def init_state(self, seed: int = 0) -> ControllerState:
-        """Zero mean and history; the generator seeded with ``seed``; the
-        sampler's initial state."""
+    def init_state(self, seed: int = 0, initial_mean=None) -> ControllerState:
+        """The mean ``initial_mean`` (T, C) (zeros when None, JAX
+        ControllerBase.init_state), a zero history; the generator seeded
+        with ``seed``; the sampler's initial state."""
         T, C = self.num_timesteps, self.dynamics.CONTROL_DIM
         f32 = dict(dtype=torch.float32, device=self.device)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
+        if initial_mean is None:
+            mean = torch.zeros((T, C), **f32)
+        else:
+            mean = torch.as_tensor(initial_mean, **f32).clone().reshape(T, C)
         return ControllerState(
-            control_mean=torch.zeros((T, C), **f32),
+            control_mean=mean,
             control_history=torch.zeros((2, C), **f32),
             generator=generator,
             previous_baseline=torch.tensor(1e8, **f32),
@@ -135,7 +146,7 @@ class ControllerBase(nn.Module):
             free_energy_variance=fe_var,
             free_energy_modified_variance=fe_mod,
             baseline=baseline,
-            normalizer_percent=eta / self.num_rollouts,
+            normalizer_percent=math_utils.true_div(eta, self.num_rollouts),
             previous_baseline=previous_baseline,
             increase=baseline - previous_baseline,
         )
@@ -144,11 +155,11 @@ class ControllerBase(nn.Module):
                                stride: int) -> ControllerState:
         """Shift the warm-start sequence (and the sampler's state) by
         ``stride`` and update the history (controller.cuh:347-360). Vacated
-        tail steps become zero control (the JAX default, no
-        ``slide_scale``)."""
+        tail steps decay toward zero by the controller's ``slide_scale``
+        (zero control when it is None)."""
         mean = ctrl_state.control_mean
         new_mean, new_sampler_state = self.sampler.shift(
-            mean, stride, ctrl_state.sampler_state)
+            mean, stride, self.slide_scale, ctrl_state.sampler_state)
         return ctrl_state.replace(
             control_mean=new_mean,
             control_history=math_utils.update_control_history(

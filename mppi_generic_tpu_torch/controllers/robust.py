@@ -52,6 +52,7 @@ from mppi_generic_tpu_torch.ops import fused_rollout
 from mppi_generic_tpu_torch.ops import rollout as rollout_ops
 from mppi_generic_tpu_torch.ops import weights as weight_ops
 from mppi_generic_tpu_torch.utils import math_utils
+from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 KERNELS = ("fused", "combined")
 
@@ -165,10 +166,10 @@ class RobustMPPI(ControllerBase):
             costs, _ = fused_rollout.fused_rollout_costs(
                 self.dynamics, self.cost, x0_all,
                 U_all.reshape(n * S_per, T, -1), self.dt)
-            return costs.reshape(n, S_per) + lr / T
+            return costs.reshape(n, S_per) + true_div(lr, T)
         return torch.stack([
             rollout_ops.rollout_combined(self.dynamics, self.cost, candidates[i],
-                                         U_all[i], self.dt)[0] + lr[i] / T
+                                         U_all[i], self.dt)[0] + true_div(lr[i], T)
             for i in range(n)])
 
     def update_importance_sampling(self, state, ctrl_state: RobustControllerState,
@@ -199,7 +200,7 @@ class RobustMPPI(ControllerBase):
                                                ctrl_state.nominal_mean)
             # baseline over all evaluation rollouts (computeCandidateBaseline)
             baseline = torch.amin(cand_costs)
-            fe = torch.mean(torch.exp(-(cand_costs - baseline) / self.lam), dim=1)
+            fe = torch.mean(torch.exp(true_div(-(cand_costs - baseline), self.lam)), dim=1)
             cand_fe = -self.lam * torch.log(fe) + baseline
             # the LAST candidate below the threshold (computeBestIndex
             # :527-545), else the previous choice
@@ -217,7 +218,8 @@ class RobustMPPI(ControllerBase):
             ctrl_state.nominal_control_history, mean_n, nominal_stride)
         real_hist = math_utils.update_control_history(
             ctrl_state.control_history, ctrl_state.control_mean, int(stride))
-        new_nominal_mean, _ = self.sampler.shift(mean_n, nominal_stride)
+        new_nominal_mean, _ = self.sampler.shift(mean_n, nominal_stride,
+                                                 self.slide_scale)
         # the nominal trajectory and the feedback gains that track it
         states_nom, _ = rollout_single(self.dynamics, nominal_state,
                                        new_nominal_mean, self.dt)
@@ -263,7 +265,8 @@ class RobustMPPI(ControllerBase):
             u_real_t.append(u_real)
         term_n = self.cost.terminal_cost(y_nom)
         term_r = self.cost.terminal_cost(y_real)
-        return ((s_nom + term_n) / T, (j_real + term_r) / T, (s_fb + term_r) / T,
+        return (true_div(s_nom + term_n, T), true_div(j_real + term_r, T),
+                true_div(s_fb + term_r, T),
                 crash_r, torch.stack(u_real_t).permute(2, 0, 1))
 
     def solve(self, state, ctrl_state: RobustControllerState,
@@ -300,11 +303,11 @@ class RobustMPPI(ControllerBase):
                 U_c, mean_nom, self.lam, self.alpha, iteration=it)
             lr_real = self.sampler.likelihood_ratio_cost(
                 U_real, mean_nom, self.lam, self.alpha, iteration=it)
-            j_real = j_real_state + lr_real / T
+            j_real = j_real_state + true_div(lr_real, T)
             j_nom = (0.5 * s_nom
                      + 0.5 * torch.maximum(
                          torch.clamp_max(s_fb, self.value_function_threshold), s_nom)
-                     + lr_nom / T)
+                     + true_div(lr_nom, T))
             bl_n = weight_ops.baseline_cost(j_nom)
             bl_r = weight_ops.baseline_cost(j_real)
             w_n = weight_ops.norm_exp_weights(j_nom, self.lam, bl_n)

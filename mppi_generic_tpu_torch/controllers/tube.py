@@ -171,8 +171,9 @@ class TubeMPPI(VanillaMPPI):
         nominal_state, _ = self.dynamics.step(x_nom, u0, 0.0, self.dt)
         mean_n = ctrl_state.nominal_mean
         return ctrl_state.replace(
-            control_mean=self.sampler.shift(ctrl_state.control_mean, stride)[0],
-            nominal_mean=self.sampler.shift(mean_n, stride)[0],
+            control_mean=self.sampler.shift(ctrl_state.control_mean, stride,
+                                            self.slide_scale)[0],
+            nominal_mean=self.sampler.shift(mean_n, stride, self.slide_scale)[0],
             nominal_state=nominal_state,
             control_history=math_utils.update_control_history(
                 ctrl_state.control_history, mean_n, stride),

@@ -58,6 +58,7 @@ from mppi_generic_tpu_torch.ops import rollout as rollout_ops
 from mppi_generic_tpu_torch.ops import weights as weight_ops
 from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
+from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 KERNELS = ("fused", "combined", "fused_solve")
 WEIGHT_TRANSFORMS = ("exp", "tsallis", "cem")
@@ -185,7 +186,7 @@ class VanillaMPPI(ControllerBase):
                 U, mean, self.lam, self.alpha, iteration=iteration)
             costs, _, crash = rollout_ops.rollout_combined(
                 self.dynamics, self.cost, x0, U, self.dt)
-            costs = costs + lr / T
+            costs = costs + true_div(lr, T)
         new_mean, samp_state, w, baseline, eta = self._eager_update(
             U, aux, costs, mean, samp_state)
         return new_mean, samp_state, (U, costs, w, baseline, eta, crash)

@@ -8,20 +8,26 @@ imports JAX.
 * dynamics: ``control_ranges``, ``control_deadband``, ``zero_control``;
   the double integrator also ``system_noise``, AutoRally ``nn`` (an FNN:
   ``weights``, a list of (out, in) arrays, and ``biases``), the bicycle-slip
-  model the names of ``models.bicycle_slip.PARAM_NAMES``;
+  model the names of ``models.bicycle_slip.PARAM_NAMES``, the cartpole
+  ``cart_mass``, ``pole_mass``, ``pole_length``, the quadrotor ``mass``,
+  ``tau_roll``, ``tau_pitch``, ``tau_yaw`` (dubins: nothing more);
 * cost: the circle cost ``velocity_cost``, ``crash_cost``,
   ``velocity_desired``, ``inner_path_radius2``, ``outer_path_radius2``,
   ``angular_momentum_desired``, ``discount``; the AutoRally costs their
   ``PARAM_NAMES``, ``l1_speed_cost``, ``output_indices`` and ``costmap``
   (None, or a texture: ``data``, ``origin``, ``rotation``, ``resolution``,
-  ``channel_major``);
+  ``channel_major``); the cartpole cost ``coeffs``, ``desired_state``,
+  ``terminal_cost_coeff``; ``QuadraticCost`` ``goal``, ``coeffs``,
+  ``OUTPUT_DIM``, ``terminal_scale``, ``current_time``;
+  ``QuadrotorQuadraticCost`` ``s_goal`` and its ``PARAM_NAMES``;
+  ``QuadrotorMapCost`` its ``PARAM_NAMES`` and ``costmap``;
 * sampler: ``std_dev``, ``control_cost_coeff``, ``pure_noise_percentage``,
   ``std_dev_decay``; Smooth-MPPI also ``dt_smooth`` and ``num_timesteps``;
   the colored sampler ``exponents``, ``offset_decay_rate`` and ``fmin``;
 * shaping function: ``lam`` (normExp), ``gamma`` and ``r`` (Tsallis) or
   ``elite_fraction`` (CEM);
 * controller: ``dt``, ``lam``, ``alpha``, ``num_timesteps``,
-  ``num_rollouts``, ``num_iters``; for vanilla MPPI optionally
+  ``num_rollouts``, ``num_iters``, optionally ``slide_scale``; for vanilla MPPI optionally
   ``tsallis_gamma``, ``tsallis_r``, ``cem_elite_fraction``; for ColoredMPPI
   also ``state_leash_dist`` (None: no leash); for RMPPI also
   ``value_function_threshold``,
@@ -52,13 +58,19 @@ from mppi_generic_tpu_torch.controllers.robust import RobustControllerState, Rob
 from mppi_generic_tpu_torch.controllers.tube import TubeControllerState, TubeMPPI
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
 from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
+from mppi_generic_tpu_torch.costs.cartpole import CartpoleQuadraticCost
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.costs.quadratic import QuadraticCost
+from mppi_generic_tpu_torch.costs.quadrotor import QuadrotorMapCost, QuadrotorQuadraticCost
 from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback, DDPFeedbackState
 from mppi_generic_tpu_torch.maps.texture import MapTexture2D
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.bicycle_slip import PARAM_NAMES as BICYCLE_PARAMS
 from mppi_generic_tpu_torch.models.bicycle_slip import BicycleSlipDynamics
+from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.models.dubins import DubinsDynamics
+from mppi_generic_tpu_torch.models.quadrotor import QuadrotorDynamics
 from mppi_generic_tpu_torch.nn.fnn import FNN
 from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
@@ -114,6 +126,27 @@ def bicycle_slip_from_params(p: dict, device="cpu") -> BicycleSlipDynamics:
     )
 
 
+def _constraints(p: dict) -> dict:
+    return dict(control_ranges=_arr(p["control_ranges"]),
+                control_deadband=_arr(p["control_deadband"]),
+                zero_control=_arr(p["zero_control"]))
+
+
+def cartpole_from_params(p: dict, device="cpu") -> CartpoleDynamics:
+    return CartpoleDynamics(_scalar(p["cart_mass"]), _scalar(p["pole_mass"]),
+                            _scalar(p["pole_length"]), device=device, **_constraints(p))
+
+
+def quadrotor_from_params(p: dict, device="cpu") -> QuadrotorDynamics:
+    return QuadrotorDynamics(*(_scalar(p[n]) for n in ("mass", "tau_roll", "tau_pitch",
+                                                       "tau_yaw")),
+                             device=device, **_constraints(p))
+
+
+def dubins_from_params(p: dict, device="cpu") -> DubinsDynamics:
+    return DubinsDynamics(device=device, **_constraints(p))
+
+
 def circle_cost_from_params(p: dict, device="cpu") -> DoubleIntegratorCircleCost:
     return DoubleIntegratorCircleCost(
         **{name: _scalar(p[name]) for name in DoubleIntegratorCircleCost.PARAM_NAMES},
@@ -139,12 +172,45 @@ def ar_cost_from_params(p: dict, device="cpu", robust=False) -> ARStandardCost:
     )
 
 
+def cartpole_cost_from_params(p: dict, device="cpu") -> CartpoleQuadraticCost:
+    return CartpoleQuadraticCost(_arr(p["coeffs"]), _arr(p["desired_state"]),
+                                 _scalar(p["terminal_cost_coeff"]), device=device)
+
+
+def quadratic_cost_from_params(p: dict, device="cpu") -> QuadraticCost:
+    return QuadraticCost(_arr(p["goal"]), _arr(p["coeffs"]),
+                         output_dim=int(p["OUTPUT_DIM"]),
+                         terminal_scale=_scalar(p["terminal_scale"]),
+                         current_time=int(np.asarray(p.get("current_time", 0))),
+                         device=device)
+
+
+def quadrotor_quadratic_cost_from_params(p: dict, device="cpu") -> QuadrotorQuadraticCost:
+    return QuadrotorQuadraticCost(
+        _arr(p["s_goal"]), device=device,
+        **{n: _scalar(p[n]) for n in QuadrotorQuadraticCost.PARAM_NAMES})
+
+
+def quadrotor_map_cost_from_params(p: dict, device="cpu") -> QuadrotorMapCost:
+    costmap = p.get("costmap")
+    return QuadrotorMapCost(
+        costmap=None if costmap is None else texture_from_params(costmap),
+        device=device, **{n: _arr(p[n]) for n in QuadrotorMapCost.PARAM_NAMES})
+
+
 DYNAMICS = {"double_integrator": double_integrator_from_params,
             "autorally": autorally_from_params,
-            "bicycle_slip": bicycle_slip_from_params}
+            "bicycle_slip": bicycle_slip_from_params,
+            "cartpole": cartpole_from_params,
+            "quadrotor": quadrotor_from_params,
+            "dubins": dubins_from_params}
 COSTS = {"circle": circle_cost_from_params,
          "ar_standard": ar_cost_from_params,
-         "ar_robust": functools.partial(ar_cost_from_params, robust=True)}
+         "ar_robust": functools.partial(ar_cost_from_params, robust=True),
+         "cartpole": cartpole_cost_from_params,
+         "quadratic": quadratic_cost_from_params,
+         "quadrotor_quadratic": quadrotor_quadratic_cost_from_params,
+         "quadrotor_map": quadrotor_map_cost_from_params}
 
 
 def _gaussian_kwargs(p: dict) -> dict:
@@ -202,7 +268,9 @@ def ddp_feedback_from_params(p: dict, dynamics) -> DDPFeedback:
 
 
 def _controller_kwargs(controller: dict) -> dict:
+    slide_scale = controller.get("slide_scale")
     return dict(
+        slide_scale=None if slide_scale is None else _arr(slide_scale),
         dt=_scalar(controller["dt"]),
         lam=_scalar(controller["lam"]),
         alpha=_scalar(controller["alpha"]),
@@ -218,9 +286,8 @@ def vanilla_from_params(dynamics: dict, cost: dict, sampler: dict,
                         dynamics_kind="double_integrator",
                         cost_kind="circle", shaping=None,
                         controller_cls=VanillaMPPI, **extra) -> VanillaMPPI:
-    """A ``VanillaMPPI`` of the dynamics ``dynamics_kind`` ("double_integrator",
-    "autorally" or "bicycle_slip"), the cost ``cost_kind`` ("circle",
-    "ar_standard" or "ar_robust") and the sampler ``sampler_kind``
+    """A ``VanillaMPPI`` of the dynamics ``dynamics_kind`` (a key of
+    ``DYNAMICS``), the cost ``cost_kind`` (a key of ``COSTS``) and the sampler ``sampler_kind``
     ("gaussian", "nln", "smooth" or "colored"), with an optional shaping
     function ``shaping`` = (params, kind) of ``shaping_from_params``; device
     rule as ``VanillaMPPI``: the card unless ``device="cpu"``."""

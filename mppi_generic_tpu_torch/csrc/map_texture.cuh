@@ -62,14 +62,41 @@ __device__ inline float map_query_tex(const MapTex& m, float u, float v) {
   return top + fy * (bot - top);
 }
 
-// world (wx, wy, 0) -> map = R (world - origin) -> (u, v) -> query
-__device__ inline float map_query_world(const MapTex& m, float wx, float wy) {
+// world (wx, wy, wz) -> map = R (world - origin) -> normalized (u, v)
+// (MapTexture2D.world_to_tex_components)
+__device__ inline void map_world_to_tex(const MapTex& m, float wx, float wy,
+                                        float wz, float* u, float* v) {
   const float dx = wx - m.origin[0];
   const float dy = wy - m.origin[1];
-  const float dz = 0.0f - m.origin[2];
+  const float dz = wz - m.origin[2];
   const float mx = m.rot[0] * dx + m.rot[1] * dy + m.rot[2] * dz;
   const float my = m.rot[3] * dx + m.rot[4] * dy + m.rot[5] * dz;
-  const float u = mx / m.res[0] / static_cast<float>(m.W);
-  const float v = my / m.res[1] / static_cast<float>(m.H);
+  *u = mx / m.res[0] / static_cast<float>(m.W);
+  *v = my / m.res[1] / static_cast<float>(m.H);
+}
+
+// world (wx, wy, 0) -> (u, v) -> query
+__device__ inline float map_query_world(const MapTex& m, float wx, float wy) {
+  float u, v;
+  map_world_to_tex(m, wx, wy, 0.0f, &u, &v);
   return map_query_tex(m, u, v);
+}
+
+// The map of a cost's packed table: int32 words [H, W, offset, stride] from
+// words[0], then the float32 origin (3), rotation rows (9) and resolution (3)
+// (MapTexture2D.kernel_meta); the data pointer comes apart.
+__device__ inline MapTex load_map_tex(const float* words, const float* data) {
+  MapTex m;
+  m.data = data;
+  m.H = __float_as_int(words[0]);
+  m.W = __float_as_int(words[1]);
+  m.offset = __float_as_int(words[2]);
+  m.stride = __float_as_int(words[3]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) m.origin[i] = words[4 + i];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) m.rot[i] = words[7 + i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) m.res[i] = words[16 + i];
+  return m;
 }

@@ -1,6 +1,9 @@
-// Device twins of mppi_generic_tpu_torch/utils/math_utils.py: the angle wrap
-// and the polynomial atan of the JAX package (utils/math_utils.py), which the
-// models and costs call and which set the reference's numbers.
+// Device twins of mppi_generic_tpu_torch/utils/math_utils.py: the angle wrap,
+// sign and the polynomial atan, atan2 and asin of the JAX package
+// (utils/math_utils.py), which the models and costs call and which set the
+// reference's numbers. The minimum, maximum and clamps keep a NaN as
+// torch.minimum, torch.maximum and torch.clamp do (fminf and fmaxf drop it),
+// so a NaN flows through as in the plain versions.
 //
 // Every constant is the float32 rounding of the Python float the JAX package
 // writes (static_cast<float> of the double literal), which is what PyTorch and
@@ -41,4 +44,40 @@ __device__ inline float atan_full_approx(float x) {
   float r = atan_approx(z);
   r = inv ? kHalfPi - r : r;
   return x < 0.0f ? -r : r;
+}
+
+// sign(x) with sign(0) == 1 (the reference's mppi::math::sign)
+__device__ inline float sign(float x) { return x < 0.0f ? -1.0f : 1.0f; }
+
+// torch.maximum / torch.minimum: NaN if either operand is NaN
+__device__ inline float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ inline float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// torch.clamp(x, lo, hi): a NaN stays NaN
+__device__ inline float clamp_nan(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// atan2 from atan_approx with octant reduction (atan2_approx, eps 1e-30)
+__device__ inline float atan2_approx(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float hi = max_nan(ax, ay);
+  const float lo = min_nan(ax, ay);
+  const float eps = static_cast<float>(1e-30);
+  float r = atan_approx(lo / (hi < eps ? eps : hi));
+  r = ay > ax ? kHalfPi - r : r;
+  r = x < 0.0f ? kPi - r : r;
+  return y < 0.0f ? -r : r;
+}
+
+// arcsin as atan2_approx(x, sqrt(1 - x^2)) on the clipped domain (asin_approx)
+__device__ inline float asin_approx(float x) {
+  x = clamp_nan(x, -1.0f, 1.0f);
+  const float c = 1.0f - x * x;
+  return atan2_approx(x, sqrtf(c < 0.0f ? 0.0f : c));
 }

@@ -6,6 +6,9 @@
 #include <math.h>
 #include <stddef.h>
 
+// samples (threads) per block of the rollout and sampling kernels: one
+// epilogue row per block of this many (BLOCK in ops/fused_rollout.py)
+constexpr int kBlockSamples = 64;
 constexpr float kMasked = -1e30f;  // s of a sample past K: adds nothing
 // J of a sample past K in the Tsallis minimum (the TPU kernel's 1e30)
 constexpr float kMinPad = static_cast<float>(1e30);

@@ -1,0 +1,14 @@
+// The kernel entries of the pair Quadrotor + QuadrotorQuadraticCost
+// (csrc/quadrotor.cuh, csrc/quadrotor_quadratic_cost.cuh): the fused rollout
+// (B1, rollout_kernel.cuh) and the fused solve (B3, sample_kernels.cuh). One
+// library per pair, so that nvcc builds the pairs in parallel.
+
+#include "quadrotor.cuh"
+#include "quadrotor_quadratic_cost.cuh"
+#include "rollout_kernel.cuh"
+#include "sample_kernels.cuh"
+
+extern "C" {
+ROLLOUT_ENTRY(rollout_costs_quadrotor_quadratic, Quadrotor, QuadrotorQuadraticCost, false)
+SOLVE_ENTRY(fused_solve_quadrotor_quadratic, Quadrotor, QuadrotorQuadraticCost)
+}  // extern "C"

@@ -1,4 +1,4 @@
-// Fused sampling + rollout kernels for Hopper: the noise is drawn inside the
+// The fused sampling + rollout kernels (B3, B4) for Hopper: the noise is drawn inside the
 // kernel, so the (K, T, C) samples are made, clamped, rolled out and weighted
 // in one launch.
 //
@@ -17,7 +17,7 @@
 // added at the end, J = (acc + terminal + lr_gain * lr) / T (pallas_solve.py:
 // 176-240, :349). Each thread writes its clamped U row, and each block then
 // reduces its samples into one flash carry row (m_b, d_b, num_b[T*C]) over U,
-// which flash_combine_kernel (fused_rollout.cu) merges into the new mean,
+// which flash_combine_kernel (flash_combine.cu) merges into the new mean,
 // baseline = -lambda m and eta: the TPU kernel's per-grid-step _init/_accum
 // (:355-388), done per block and merged without atomics.
 //
@@ -38,19 +38,21 @@
 // the cost; they read only the (T, C) tables and write costs, the carries and
 // U only where it is asked for. What bounds the simple design is latency: one
 // thread per sample walks a dependent chain of T steps, and K=8192 threads in
-// blocks of kBlock fill the 132 SMs with two warps each. Because Philox is
+// blocks of kBlockSamples fill the 132 SMs with two warps each. Because Philox is
 // counter-based, each thread draws its own normals in the horizon loop, so
 // the TPU kernel's (C, T, K) sample scratch (kept only because its PRNG is
 // tile-sequential) is not needed; its time-vectorised generation pass,
 // lane-replicated tables, 128-lane tiles and channel-major layout are TPU
 // mechanics and are not ported.
 //
-// Pairs: B3 has an entry for DoubleIntegrator + DoubleIntegratorCircleCost
-// and one for AutorallyNN + ARCost (the FNN step of fnn.cuh, B10, from
-// weights staged in shared memory before any sample is skipped, and the
-// costmap read of map_texture.cuh, B9); B4 is built for the double integrator
-// only. With the AutoRally pair the arithmetic of the step (about 3,000
-// operations per sample-step) outweighs the draw.
+// Both are templates over the (dynamics, cost) pair: each pair's source,
+// csrc/pair_<name>.cu, includes this header and instantiates its C entries
+// with SOLVE_ENTRY and SAMPLE_ENTRY, so that nvcc builds the pairs in
+// parallel, one library each. A model's parameters are staged in shared
+// memory before any sample is skipped (Dyn::stage); a cost that reads a map
+// queries it through map_texture.cuh (B9). With a heavy pair (AutoRally's
+// FNN, about 3,000 operations per sample-step) the arithmetic of the step
+// outweighs the draw.
 //
 // Injected normals: with zinj set, the kernels read z (and z2) from a
 // (n_z, K, T, C) tensor instead of drawing them, as the TPU kernels' test
@@ -62,21 +64,18 @@
 // fused_solve_plain, ops/fused_rollout.py sample_rollout_plain). Only the
 // carry sums are taken in another order.
 
+#pragma once
+
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include "ar_standard_cost.cuh"
-#include "autorally_nn.cuh"
-#include "double_integrator.cuh"
-#include "double_integrator_circle_cost.cuh"
 #include "mppi_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;  // samples (threads) per block
 constexpr int kGaussian = 0, kNLN = 1, kSmooth = 2;
 
 struct SampleArgs {
@@ -118,7 +117,7 @@ __device__ inline void draw_eps(const SampleArgs& a, uint32_t seed, int k,
 }
 
 template <class Dyn, class Cost, int NOISE>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlockSamples)
 fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
                    float dt, ModelArgs m, float lr_gain, float lam_w,
                    float* __restrict__ costs, int* __restrict__ crash_out,
@@ -127,7 +126,7 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
   const int TC = T * C;
-  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const int k = blockIdx.x * kBlockSamples + threadIdx.x;
   const bool valid = k < K;
 
   // the model's parameters, staged by every thread before any returns
@@ -174,11 +173,11 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
     costs[k] = J;
     crash_out[k] = crash;
   }
-  write_block_carry<kBlock>(J, valid, lam_w, U, K, TC, carry);
+  write_block_carry<kBlockSamples>(J, valid, lam_w, U, K, TC, carry);
 }
 
 template <class Dyn, class Cost, int NOISE, bool EPILOGUE>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlockSamples)
 fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
                             int T, float dt, ModelArgs m, float lr_gain,
                             float lam_w, float* __restrict__ costs,
@@ -188,7 +187,7 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
   const int TC = T * C;
-  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const int k = blockIdx.x * kBlockSamples + threadIdx.x;
   const bool valid = k < K;
 
   __shared__ typename Dyn::Shared dyn_sh;
@@ -246,7 +245,7 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
     costs[k] = J;
     crash_out[k] = crash;
   }
-  if (EPILOGUE) write_block_carry<kBlock>(J, valid, lam_w, W, K, TC, carry);
+  if (EPILOGUE) write_block_carry<kBlockSamples>(J, valid, lam_w, W, K, TC, carry);
 }
 
 // B3 for the pair (Dyn, Cost); noise_kind 0 is the Gaussian sampler, 1 NLN.
@@ -257,13 +256,13 @@ int fused_solve_entry(int device, int noise_kind, const float* x0,
                       float* U, float* carry, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int nb = (K + kBlock - 1) / kBlock;
+  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (noise_kind == kGaussian) {
-    fused_solve_kernel<Dyn, Cost, kGaussian><<<nb, kBlock, 0, s>>>(
+    fused_solve_kernel<Dyn, Cost, kGaussian><<<nb, kBlockSamples, 0, s>>>(
         x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
   } else if (noise_kind == kNLN) {
-    fused_solve_kernel<Dyn, Cost, kNLN><<<nb, kBlock, 0, s>>>(
+    fused_solve_kernel<Dyn, Cost, kNLN><<<nb, kBlockSamples, 0, s>>>(
         x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -271,70 +270,23 @@ int fused_solve_entry(int device, int noise_kind, const float* x0,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// Samples per block of both kernels: one carry row per block of this many.
-int fused_solve_block_size() { return kBlock; }
-
-// B3 for one (dynamics, cost) pair; noise_kind 0 is the Gaussian sampler, 1
-// NLN. Every pointer is memory of CUDA device `device`, `stream` one of its
-// streams; zinj may be null, and dyn_params and cost_map for a pair that reads
-// none. U (K, T, C) and carry (ceil(K / kBlock), 2 + T*C) are written. Returns
-// the CUDA error of the launch (0 when it was accepted), or
-// cudaErrorInvalidValue for a noise kind this kernel does not draw.
-#define SOLVE_ENTRY(NAME, DYN, COST)                                          \
-  int NAME(int device, int noise_kind, const float* x0, const float* mean,   \
-           const float* sigma, const float* aux, const float* lrc,           \
-           const float* cons, const int* seed, const float* zinj, int K,     \
-           int T, int stride, float pure_thresh, float dt, float lr_gain,    \
-           float lam_w, const float* dyn_params, const float* cost_params,   \
-           const float* cost_map, float* costs, int* crash, float* U,        \
-           float* carry, void* stream) {                                     \
-    const SampleArgs a{mean, sigma, aux, lrc, cons, seed, zinj,              \
-                       stride, pure_thresh, 0.0f};                            \
-    return fused_solve_entry<DYN, COST>(                                     \
-        device, noise_kind, x0, a, K, T, dt,                                 \
-        ModelArgs{dyn_params, cost_params, cost_map}, lr_gain, lam_w, costs, \
-        crash, U, carry, stream);                                            \
-  }
-
-// DoubleIntegrator + DoubleIntegratorCircleCost
-SOLVE_ENTRY(fused_solve_di_circle, DoubleIntegrator, DoubleIntegratorCircleCost)
-// AutorallyNN (6-32-32-4) + ARStandardCost / ARRobustCost
-SOLVE_ENTRY(fused_solve_ar_nn, AutorallyNN, ARCost)
-#undef SOLVE_ENTRY
-
-// B4 for DoubleIntegrator + DoubleIntegratorCircleCost; noise_kind 0
-// Gaussian, 1 NLN, 2 Smooth-MPPI (aux is then the derivative mean). U and W
-// may be null (not emitted); with epilogue != 0 (Smooth only) W must be
-// given and the carry rows over W are written. Returns the CUDA error of the
-// launch, or cudaErrorInvalidValue for a mode this kernel does not have.
-int fused_sample_rollout_di_circle(int device, int noise_kind, int epilogue,
-                                   const float* x0, const float* mean,
-                                   const float* sigma, const float* aux,
-                                   const float* coeff, const float* cons,
-                                   const int* seed, const float* zinj, int K,
-                                   int T, int stride, float pure_thresh,
-                                   float dt_smooth, float dt, float lr_gain,
-                                   float lam_w, const float* dyn_params,
-                                   const float* cost_params,
-                                   const float* cost_map, float* costs,
-                                   int* crash, float* U, float* W, float* carry,
-                                   void* stream) {
+// B4 for the pair (Dyn, Cost); noise_kind 0 Gaussian, 1 NLN, 2 Smooth-MPPI
+// (aux is then the derivative mean). With epilogue != 0 (Smooth only) W and
+// the carry rows over W are written.
+template <class Dyn, class Cost>
+int fused_sample_entry(int device, int noise_kind, int epilogue,
+                       const float* x0, const SampleArgs& a, int K, int T,
+                       float dt, ModelArgs m, float lr_gain, float lam_w,
+                       float* costs, int* crash, float* U, float* W,
+                       float* carry, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  using D = DoubleIntegrator;
-  using Q = DoubleIntegratorCircleCost;
-  const SampleArgs a{mean, sigma, aux, coeff, cons, seed, zinj,
-                     stride, pure_thresh, dt_smooth};
-  const ModelArgs m{dyn_params, cost_params, cost_map};
-  const int nb = (K + kBlock - 1) / kBlock;
+  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define B4_LAUNCH(NOISE, EPI)                                              \
-  fused_sample_rollout_kernel<D, Q, NOISE, EPI><<<nb, kBlock, 0, s>>>(     \
-      x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, W, carry)
+  fused_sample_rollout_kernel<Dyn, Cost, NOISE, EPI>                       \
+      <<<nb, kBlockSamples, 0, s>>>(x0, a, K, T, dt, m, lr_gain, lam_w,    \
+                                    costs, crash, U, W, carry)
   if (epilogue) {
     if (noise_kind != kSmooth || W == nullptr || carry == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -353,4 +305,50 @@ int fused_sample_rollout_di_circle(int device, int noise_kind, int epilogue,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // extern "C"
+}  // namespace
+
+// The C entry of B3 for one (dynamics, cost) pair, to be expanded inside
+// extern "C"; noise_kind 0 is the Gaussian sampler, 1 NLN. Every pointer is
+// memory of CUDA device `device`, `stream` one of its streams; zinj may be
+// null, and dyn_params and cost_map for a pair that reads none. U (K, T, C)
+// and carry (ceil(K / kBlockSamples), 2 + T*C) are written. Returns the CUDA
+// error of the launch (0 when it was accepted), or cudaErrorInvalidValue for
+// a noise kind this kernel does not draw.
+#define SOLVE_ENTRY(NAME, DYN, COST)                                          \
+  int NAME(int device, int noise_kind, const float* x0, const float* mean,   \
+           const float* sigma, const float* aux, const float* lrc,           \
+           const float* cons, const int* seed, const float* zinj, int K,     \
+           int T, int stride, float pure_thresh, float dt, float lr_gain,    \
+           float lam_w, const float* dyn_params, const float* cost_params,   \
+           const float* cost_map, float* costs, int* crash, float* U,        \
+           float* carry, void* stream) {                                     \
+    const SampleArgs a{mean, sigma, aux, lrc, cons, seed, zinj,              \
+                       stride, pure_thresh, 0.0f};                            \
+    return fused_solve_entry<DYN, COST>(                                     \
+        device, noise_kind, x0, a, K, T, dt,                                 \
+        ModelArgs{dyn_params, cost_params, cost_map}, lr_gain, lam_w, costs, \
+        crash, U, carry, stream);                                            \
+  }
+
+// The C entry of B4 for one (dynamics, cost) pair, to be expanded inside
+// extern "C"; noise_kind 0 Gaussian, 1 NLN, 2 Smooth-MPPI (aux is then the
+// derivative mean). U and W may be null (not emitted); with epilogue != 0
+// (Smooth only) W must be given and the carry rows over W are written.
+// Returns the CUDA error of the launch, or cudaErrorInvalidValue for a mode
+// this kernel does not have.
+#define SAMPLE_ENTRY(NAME, DYN, COST)                                         \
+  int NAME(int device, int noise_kind, int epilogue, const float* x0,        \
+           const float* mean, const float* sigma, const float* aux,          \
+           const float* coeff, const float* cons, const int* seed,           \
+           const float* zinj, int K, int T, int stride, float pure_thresh,   \
+           float dt_smooth, float dt, float lr_gain, float lam_w,            \
+           const float* dyn_params, const float* cost_params,                \
+           const float* cost_map, float* costs, int* crash, float* U,        \
+           float* W, float* carry, void* stream) {                           \
+    const SampleArgs a{mean, sigma, aux, coeff, cons, seed, zinj,            \
+                       stride, pure_thresh, dt_smooth};                       \
+    return fused_sample_entry<DYN, COST>(                                    \
+        device, noise_kind, epilogue, x0, a, K, T, dt,                       \
+        ModelArgs{dyn_params, cost_params, cost_map}, lr_gain, lam_w, costs, \
+        crash, U, W, carry, stream);                                         \
+  }

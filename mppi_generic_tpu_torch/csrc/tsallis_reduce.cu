@@ -26,7 +26,7 @@
 //   3. the block's row (0, sum w, sum w U[T*C]), summed left to right over the
 //      block's samples; threads map to the (t, c) columns, so the reads of the
 //      (K, T, C) tensor are coalesced. The 0 in front makes the row a flash
-//      carry with m_b = 0, which flash_combine_kernel (fused_rollout.cu)
+//      carry with m_b = 0, which flash_combine_kernel (flash_combine.cu)
 //      merges as a plain ordered sum: no atomics, the same result every run.
 //
 // What bounds it on this card: the bytes. It reads U once (K*T*C*4 bytes, 6.6

@@ -24,6 +24,11 @@ up to 512 per side) sums the same four terms in another order.
 
 A NaN sample position gives NaN, as in the JAX package.
 
+Besides the component forms the kernels mirror, the pose forms of the JAX
+package take a trailing (..., 3) world or map pose: ``world_to_map``,
+``map_to_tex``, ``world_to_tex``, ``query_at_map_pose``,
+``query_at_world_pose`` and ``query_at_world_offset_pose``.
+
 Data layouts: (H, W); (H, W, CH) with a trailing channel axis; or
 (CH, H, W) with ``channel_major=True`` (the reference's float4 planes).
 """
@@ -33,6 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from mppi_generic_tpu_torch.utils import math_utils
 
 
 class MapTexture2D(nn.Module):
@@ -78,6 +85,19 @@ class MapTexture2D(nn.Module):
         return int(self.data.shape[0 if self.channel_major else 2])
 
     # --- coordinate pipeline (texture_helper.cu:94-134) ---------------------
+    def world_to_map(self, world):
+        """world (..., 3) -> map-frame meters (..., 3): R (world - origin)."""
+        return torch.einsum("ij,...j->...i", self.rotation, world - self.origin)
+
+    def map_to_tex(self, map_pose):
+        """map meters (..., >= 2) -> normalized tex coords (u, v)."""
+        u = map_pose[..., 0] / self.resolution[0] / self.extent[0]
+        v = map_pose[..., 1] / self.resolution[1] / self.extent[1]
+        return u, v
+
+    def world_to_tex(self, world):
+        return self.map_to_tex(self.world_to_map(world))
+
     def world_to_tex_components(self, wx, wy, wz=0.0):
         """(wx, wy[, wz]) world components -> normalized (u, v)."""
         R = self.rotation
@@ -136,6 +156,20 @@ class MapTexture2D(nn.Module):
         top = v00 + fx * (v01 - v00)
         bot = v10 + fx * (v11 - v10)
         return top + fy * (bot - top)
+
+    def query_at_map_pose(self, map_pose):
+        return self.query_tex(*self.map_to_tex(map_pose))
+
+    def query_at_world_pose(self, world):
+        return self.query_tex(*self.world_to_tex(world))
+
+    def query_at_world_offset_pose(self, world, offset, rotation_rpy):
+        """queryTextureAtWorldOffsetPose (texture_helper.cu:137-144): the
+        body-frame ``offset`` (..., 3) rotated into the world by the Z-Y-X
+        Euler angles ``rotation_rpy`` (3, ...), added to ``world``, then
+        queried."""
+        q = math_utils.euler_to_quat(rotation_rpy[0], rotation_rpy[1], rotation_rpy[2])
+        return self.query_at_world_pose(world + math_utils.quat_rotate(q, offset))
 
     def kernel_meta(self, ch: int = 0):
         """The kernels' description of channel ``ch`` (csrc/map_texture.cuh

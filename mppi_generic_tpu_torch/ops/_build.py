@@ -53,12 +53,46 @@ _SOLVE = [
     _P, _P, _P,                      # dynamics params, cost params, cost map
     _P, _P, _P, _P, _P,              # costs, crash, U, carry, stream
 ]
+_SAMPLE = [
+    _I, _I, _I, _P, _P, _P, _P, _P, _P,  # device, kind, epilogue, x0, mean, sigma, aux, coeff, cons
+    _P, _P, _I, _I, _I,                  # seed, injected normals, K, T, stride
+    _F, _F, _F, _F, _F,                  # pure thresh, dt_smooth, dt, lr gain, lam_w
+    _P, _P, _P,                          # dynamics params, cost params, cost map
+    _P, _P, _P, _P, _P, _P,              # costs, crash, U, W, carry, stream
+]
+# The (dynamics, cost) pairs with kernel entries: each has its own source
+# csrc/pair_<name>.cu and library, and the kernels named here (B1 "rollout":
+# rollout_costs_<name>, B3 "solve": fused_solve_<name>, B4 "sample":
+# fused_sample_rollout_<name>), so that nvcc builds the pairs in parallel.
+# B1's per-sample-x0 entries ("rollout_x0": rollout_costs_x0_<name>) are in
+# the one library of csrc/rollout_x0.cu.
+PAIR_KERNELS = {
+    "di_circle": ("rollout", "rollout_x0", "solve", "sample"),
+    "ar_nn": ("rollout", "rollout_x0", "solve"),
+    "bicycle_ar": ("rollout", "rollout_x0"),
+    "cartpole": ("rollout", "solve", "sample"),
+    "quadrotor_quadratic": ("rollout", "solve"),
+    "quadrotor_map": ("rollout", "solve"),
+    "dubins_quadratic": ("rollout", "solve"),
+    "di_quadratic": ("rollout", "solve"),
+}
+_ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
+                 "solve": "fused_solve_", "sample": "fused_sample_rollout_"}
+
+
+def pair_entry(pair: str, kind: str):
+    """(library, C function) of kernel ``kind`` ("rollout", "rollout_x0",
+    "solve" or "sample") for the pair ``pair``, or None where it has no
+    entry."""
+    if kind not in PAIR_KERNELS.get(pair, ()):
+        return None
+    lib = "rollout_x0" if kind == "rollout_x0" else f"pair_{pair}"
+    return lib, _ENTRY_PREFIX[kind] + pair
+
+
 SIGNATURES = {
-    "fused_rollout": {
-        "fused_rollout_block_size": [],
-        "rollout_costs_di_circle": _ROLLOUT,
-        "rollout_costs_ar_nn": _ROLLOUT,
-        "rollout_costs_bicycle_ar": _ROLLOUT,
+    "flash_combine": {
+        "kernel_block_size": [],
         # device, carry, nb, TC, lam, new_mean, scal, num, stream
         "flash_combine": [_I, _P, _I, _I, _F, _P, _P, _P, _P],
     },
@@ -77,18 +111,6 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _P,      # s_nom, j_real, s_fb, crash, U_real, stream
         ],
     },
-    "fused_solve": {
-        "fused_solve_block_size": [],
-        "fused_solve_di_circle": _SOLVE,
-        "fused_solve_ar_nn": _SOLVE,
-        "fused_sample_rollout_di_circle": [
-            _I, _I, _I, _P, _P, _P, _P, _P, _P,  # device, kind, epilogue, x0, mean, sigma, aux, coeff, cons
-            _P, _P, _I, _I, _I,                  # seed, injected normals, K, T, stride
-            _F, _F, _F, _F, _F,                  # pure thresh, dt_smooth, dt, lr gain, lam_w
-            _P, _P, _P,                          # dynamics params, cost params, cost map
-            _P, _P, _P, _P, _P, _P,              # costs, crash, U, W, carry, stream
-        ],
-    },
     "riccati": {
         "riccati_max_alphas": [],
         "riccati_backward_s4c2": [
@@ -103,9 +125,17 @@ SIGNATURES = {
         ],
     },
 }
+_KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
+                   "sample": _SAMPLE}
+for _pair, _kinds in PAIR_KERNELS.items():
+    for _kind in _kinds:
+        _lib, _fn = pair_entry(_pair, _kind)
+        SIGNATURES.setdefault(_lib, {})[_fn] = _KIND_SIGNATURE[_kind]
 
 # launches of each CUDA kernel since the last reset_launch_counts(); each
-# wrapper adds one where it launches its kernel
+# wrapper adds one where it launches its kernel, and one to entry_counts
+# under the C function of a pair's entry (e.g. "fused_solve_cartpole")
+entry_counts = {}
 launch_counts = {
     "rollout_costs_kernel": 0,
     "flash_combine_kernel": 0,
@@ -121,6 +151,14 @@ launch_counts = {
 def reset_launch_counts():
     for name in launch_counts:
         launch_counts[name] = 0
+    entry_counts.clear()
+
+
+def count_launch(kernel: str, entry: str | None = None):
+    """One launch of ``kernel`` (through the pair entry ``entry``)."""
+    launch_counts[kernel] += 1
+    if entry is not None:
+        entry_counts[entry] = entry_counts.get(entry, 0) + 1
 
 
 def _nvcc() -> str:

@@ -1,11 +1,13 @@
 """Fused rollout kernels, their wrappers and plain versions.
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_rollout.py``: the hand-written
-Hopper kernels in ``csrc/fused_rollout.cu`` replace its TPU kernel
-``_fused_call`` in three modes, the one in ``csrc/tsallis_reduce.cu`` its TPU
-kernel ``_tsallis_reduce_call``, the one in ``csrc/rmppi_rollout.cu`` its TPU
-kernel ``_fused_rmppi_call``, and ``fused_sample_rollout_kernel`` in
-``csrc/fused_solve.cu`` its TPU kernel ``_fused_sample_call``.
+Hopper kernel ``rollout_costs_kernel`` (``csrc/rollout_kernel.cuh``) replaces
+its TPU kernel ``_fused_call`` in three modes, with ``flash_combine_kernel``
+(``csrc/flash_combine.cu``) as the merge of its epilogue; the one in
+``csrc/tsallis_reduce.cu`` its TPU kernel ``_tsallis_reduce_call``, the one
+in ``csrc/rmppi_rollout.cu`` its TPU kernel ``_fused_rmppi_call``, and
+``fused_sample_rollout_kernel`` (``csrc/sample_kernels.cuh``) its TPU kernel
+``_fused_sample_call``.
 
 * ``fused_rollout_costs``: per sample, a T-step rollout with running cost,
   terminal cost and (with ``lr_params``) the Gaussian likelihood-ratio cost
@@ -33,14 +35,19 @@ kernel ``_fused_rmppi_call``, and ``fused_sample_rollout_kernel`` in
   samples W. The helpers of the in-kernel draw (``noise_kind``, the tables,
   ``sample_plain``) are shared with ``ops/fused_solve.py``.
 
-The rollout kernel has entries for three (dynamics, cost) pairs: the double
-integrator with its circle cost, AutoRally's network dynamics with the
-standard or robust AutoRally cost, whose step runs the FNN and whose cost
-reads the track costmap inside the kernel, and the bicycle-slip model with
-the AutoRally costs on its output layout (``_ROLLOUT_ENTRY``); the RMPPI and
-sampling kernels for the first only. Each pair reads its parameters
-through ``Dynamics.kernel_params`` and ``Cost.kernel_map`` besides the
-cost's ``params`` table.
+The rollout and sampling kernels are templates over the (dynamics, cost)
+pair; each pair with an entry has its own source ``csrc/pair_<name>.cu`` and
+library (``_PAIRS`` names them, ``_build.PAIR_KERNELS`` lists each pair's
+kernels): the double integrator with its circle cost (every kernel) or
+``QuadraticCost``; AutoRally's network dynamics with the standard or robust
+AutoRally cost (the FNN and the track costmap inside the kernel); the
+bicycle-slip model with the AutoRally costs on its output layout (the
+rollout kernel only); the cartpole with its quadratic cost (every kernel);
+the quadrotor with ``QuadrotorQuadraticCost`` or ``QuadrotorMapCost``; and
+the Dubins car with ``QuadraticCost``. The RMPPI kernel has the double
+integrator's entry only. Each pair reads its parameters through
+``Dynamics.kernel_params`` and ``Cost.kernel_map`` besides the cost's
+``params`` table.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module, with the same arithmetic) for CPU tensors.
@@ -62,15 +69,22 @@ import numpy as np
 import torch
 
 from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
+from mppi_generic_tpu_torch.costs.cartpole import CartpoleQuadraticCost
 from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.costs.quadratic import QuadraticCost
+from mppi_generic_tpu_torch.costs.quadrotor import QuadrotorMapCost, QuadrotorQuadraticCost
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.bicycle_slip import BicycleSlipDynamics
+from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.models.dubins import DubinsDynamics
+from mppi_generic_tpu_torch.models.quadrotor import QuadrotorDynamics
 from mppi_generic_tpu_torch.ops import _build, philox
-from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+from mppi_generic_tpu_torch.ops._build import entry_counts, launch_counts, reset_launch_counts
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
 from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
+from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 __all__ = [
     "flash_combine",
@@ -86,40 +100,60 @@ __all__ = [
     "tsallis_reduce",
 ]
 
-# samples per block of the rollout kernel (fused_rollout_block_size() in
-# csrc/fused_rollout.cu): one epilogue carry row per block
+# samples per block of the rollout and sampling kernels (kBlockSamples in
+# csrc/mppi_common.cuh): one epilogue row per block
 BLOCK = 64
 _MASKED = -1e30
 # a sample past K in the Tsallis pass-1 minimum (the TPU kernel's 1e30)
 _MIN_PAD = 1e30
-# the rollout kernel's epilogue modes (epilogue in csrc/fused_rollout.cu)
+# the rollout kernel's epilogue modes (epilogue in csrc/rollout_kernel.cuh)
 EPI_NONE, EPI_EXP, EPI_MIN = 0, 1, 2
 
-# (dynamics, cost) pairs with a compiled kernel -> C entry point
-_ROLLOUT_ENTRY = {
-    (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rollout_costs_di_circle",
-    (AutorallyNNDynamics, ARStandardCost): "rollout_costs_ar_nn",
-    (AutorallyNNDynamics, ARRobustCost): "rollout_costs_ar_nn",
-    (BicycleSlipDynamics, ARStandardCost): "rollout_costs_bicycle_ar",
-    (BicycleSlipDynamics, ARRobustCost): "rollout_costs_bicycle_ar",
+# (dynamics, cost) -> the pair's name: its kernels are in the library of
+# csrc/pair_<name>.cu (_build.PAIR_KERNELS lists which)
+_PAIRS = {
+    (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "di_circle",
+    (AutorallyNNDynamics, ARStandardCost): "ar_nn",
+    (AutorallyNNDynamics, ARRobustCost): "ar_nn",
+    (BicycleSlipDynamics, ARStandardCost): "bicycle_ar",
+    (BicycleSlipDynamics, ARRobustCost): "bicycle_ar",
+    (CartpoleDynamics, CartpoleQuadraticCost): "cartpole",
+    (QuadrotorDynamics, QuadrotorQuadraticCost): "quadrotor_quadratic",
+    (QuadrotorDynamics, QuadrotorMapCost): "quadrotor_map",
+    (DubinsDynamics, QuadraticCost): "dubins_quadratic",
+    (DoubleIntegratorDynamics, QuadraticCost): "di_quadratic",
 }
-# the AutoRally cost's output_indices each entry is compiled for (the
-# ARCostT template arguments in csrc/)
-_OUTPUT_INDICES = {
-    "rollout_costs_ar_nn": (0, 1, 2, 3, 4, 5),
-    "fused_solve_ar_nn": (0, 1, 2, 3, 4, 5),
-    "rollout_costs_bicycle_ar": (0, 1, 2, 8, 5, 6),
+# what a pair's entries are compiled for, beyond the classes: the AutoRally
+# cost's output_indices (the ARCostT template arguments) and QuadraticCost's
+# output dimension (QuadraticCostT<O>)
+_COST_LAYOUT = {
+    "ar_nn": ("output_indices", (0, 1, 2, 3, 4, 5)),
+    "bicycle_ar": ("output_indices", (0, 1, 2, 8, 5, 6)),
+    "dubins_quadratic": ("OUTPUT_DIM", 3),
+    "di_quadratic": ("OUTPUT_DIM", 4),
 }
 _RMPPI_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rmppi_rollout_di_circle",
 }
-_SAMPLE_ENTRY = {
-    (DoubleIntegratorDynamics, DoubleIntegratorCircleCost):
-        "fused_sample_rollout_di_circle",
-}
+_KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
+                 "solve": "solve", "sample": "sampling"}
+
+
+def _entry(dynamics, cost, kind):
+    """(library, C function) of kernel ``kind`` ("rollout", "rollout_x0",
+    "solve" or "sample") for this (dynamics, cost) pair; raises
+    NotImplementedError for a pair without one."""
+    pair = _PAIRS.get((type(dynamics), type(cost)))
+    entry = None if pair is None else _build.pair_entry(pair, kind)
+    if entry is None:
+        raise NotImplementedError(
+            f"no CUDA {_KERNEL_NAMES[kind]} kernel for {type(dynamics).__name__} "
+            f"with {type(cost).__name__}")
+    return entry
+
 
 # the samplers whose noise the fused sampling kernels draw (noise_kind in
-# csrc/fused_solve.cu)
+# csrc/sample_kernels.cuh)
 GAUSSIAN, NLN, SMOOTH = 0, 1, 2
 _NOISE_KIND = {GaussianDistribution: GAUSSIAN, NLNDistribution: NLN,
                SmoothMPPIDistribution: SMOOTH}
@@ -129,11 +163,6 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def _div(x, v):
-    """x / v rounded as one IEEE division, as the kernels divide. (On CUDA,
-    PyTorch divides by a host scalar as a multiply by its reciprocal, which
-    can differ in the last bit; a device scalar is divided by.)"""
-    return x / x.new_full((), v)
 
 
 def _tsallis_pw(r) -> float:
@@ -177,7 +206,7 @@ def rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params=None):
                 lr_t = lr_t + coeff[ch] * mu * (mu - 2.0 * u[ch]) / (sg * sg)
             c = c + gain * lr_t
         acc = acc + c
-    return _div(acc + cost.terminal_cost(y), T), crash
+    return true_div(acc + cost.terminal_cost(y), T), crash
 
 
 def block_carries_plain(costs, U, lam, block=BLOCK):
@@ -186,7 +215,7 @@ def block_carries_plain(costs, U, lam, block=BLOCK):
     K, T, C = U.shape
     nb = -(-K // block)
     pad = nb * block - K
-    s = torch.nn.functional.pad(_div(-costs, lam), (0, pad), value=_MASKED)
+    s = torch.nn.functional.pad(true_div(-costs, lam), (0, pad), value=_MASKED)
     s = s.reshape(nb, block)
     m = torch.amax(s, dim=1)
     w = torch.exp(s - m[:, None])
@@ -218,7 +247,7 @@ def tsallis_rows_plain(U, costs, rho, gamma, pw, K_valid=None, block=BLOCK):
     nb = -(-K // block)
     pad = nb * block - K
     dj = costs - rho
-    base = torch.clamp(1.0 - _div(dj, gamma), min=1e-30)
+    base = torch.clamp(1.0 - true_div(dj, gamma), min=1e-30)
     w = torch.where(dj < gamma, torch.exp(torch.log(base) * pw), 0.0)
     valid = torch.arange(K, device=U.device) < K_valid
     w = torch.nn.functional.pad(torch.where(valid, w, 0.0), (0, pad)).reshape(nb, block)
@@ -275,8 +304,8 @@ def rmppi_rollout_plain(dynamics, cost, x0_nom, x0_real, U, gains, sigma,
         s_fb = s_fb + c_real + fb_cost
     term_n, term_r = cost.terminal_cost(y_nom), cost.terminal_cost(y_real)
     U_real = torch.stack(u_real_t).permute(2, 0, 1).contiguous()
-    return (_div(s_nom + term_n, T), _div(j_real + term_r, T),
-            _div(s_fb + term_r, T), crash_r, U_real)
+    return (true_div(s_nom + term_n, T), true_div(j_real + term_r, T),
+            true_div(s_fb + term_r, T), crash_r, U_real)
 
 
 def flash_combine_plain(carry, T, C, lam, with_num=False):
@@ -319,16 +348,18 @@ def _check_tensors(tensors, device):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
-def _model_args(dynamics, cost, device, entry=None):
+def _model_args(dynamics, cost, device):
     """The (dynamics params, cost params, cost map) pointers of a launch,
     each checked as the kernels take it; the dynamics and the cost refuse
-    what the compiled kernels do not take (another network), and so does
-    an ``entry`` compiled for another output layout of the cost."""
-    want = _OUTPUT_INDICES.get(entry)
-    if want is not None and cost.output_indices != want:
+    what the compiled kernels do not take (another network), and so does a
+    cost whose output layout differs from the one its pair's entries are
+    compiled for (``_COST_LAYOUT``)."""
+    pair = _PAIRS.get((type(dynamics), type(cost)))
+    attr, want = _COST_LAYOUT.get(pair, (None, None))
+    if attr is not None and getattr(cost, attr) != want:
         raise NotImplementedError(
-            f"the CUDA entry {entry} reads the output layout {want}, not "
-            f"output_indices={cost.output_indices}")
+            f"the CUDA entries of {pair} read the output layout {attr}={want}, not "
+            f"{attr}={getattr(cost, attr)}")
     dyn_p, cmap = dynamics.kernel_params(), cost.kernel_map()
     tensors = {"cost params": cost.params}
     if dyn_p is not None:
@@ -340,13 +371,9 @@ def _model_args(dynamics, cost, device, entry=None):
 
 
 def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
-    """The kernel's entry point for this (dynamics, cost) pair, after
-    checking device, dtype, shape and contiguity of every input."""
-    entry = _ROLLOUT_ENTRY.get((type(dynamics), type(cost)))
-    if entry is None:
-        raise NotImplementedError(
-            f"no CUDA rollout kernel for {type(dynamics).__name__} with "
-            f"{type(cost).__name__}")
+    """(library, C function) of the kernel for this (dynamics, cost) pair,
+    after checking device, dtype, shape and contiguity of every input."""
+    entry = _entry(dynamics, cost, "rollout_x0" if x0.dim() == 2 else "rollout")
     K, T, C = U.shape
     S = dynamics.STATE_DIM
     tensors = {"U": U, "x0": x0}
@@ -368,13 +395,14 @@ def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The built kernel library, checked to agree with this module on the
-    block size of kernel 1."""
-    lib = _build.load("fused_rollout")
-    if lib.fused_rollout_block_size() != BLOCK:
-        raise RuntimeError("csrc/fused_rollout.cu and BLOCK disagree")
-    return lib
+def _lib(name="flash_combine"):
+    """The built kernel library ``name`` (the merge's by default), after
+    checking that csrc/ agrees with this module on the samples per block of
+    the rollout and sampling kernels."""
+    merge = _build.load("flash_combine")
+    if merge.kernel_block_size() != BLOCK:
+        raise RuntimeError("csrc/mppi_common.cuh kBlockSamples and BLOCK disagree")
+    return merge if name == "flash_combine" else _build.load(name)
 
 
 def _check_status(status, what):
@@ -386,8 +414,8 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
                   lam_w=1.0):
     """Launch kernel 1 in the ``epilogue`` mode: (costs, crash, out), out the
     carry rows (EPI_EXP), the block minima (EPI_MIN) or None."""
-    entry = _check_rollout_inputs(dynamics, cost, x0, U, lr_params)
-    lib = _lib()
+    lib_name, entry = _check_rollout_inputs(dynamics, cost, x0, U, lr_params)
+    lib = _lib(lib_name)
     K, T, C = U.shape
     dev = U.device
     nb = -(-K // BLOCK)
@@ -406,11 +434,11 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = getattr(lib, entry)(
         dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
-        *_model_args(dynamics, cost, dev, entry), *lr, int(lr_params is not None),
+        *_model_args(dynamics, cost, dev), *lr, int(lr_params is not None),
         epilogue, int(x0.dim() == 2), _f32(lam_w), costs.data_ptr(),
         crash.data_ptr(), _ptr(out), stream)
     _check_status(status, "rollout_costs_kernel")
-    launch_counts["rollout_costs_kernel"] += 1
+    _build.count_launch("rollout_costs_kernel", entry)
     return costs, crash, out
 
 
@@ -478,7 +506,7 @@ def tsallis_block_rows(U, costs, rho_src, gamma, r, K_valid=None):
         K_valid, K, T * C, gamma, pw, rows.data_ptr(), rho.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _check_status(status, "tsallis_reduce_kernel")
-    launch_counts["tsallis_reduce_kernel"] += 1
+    _build.count_launch("tsallis_reduce_kernel")
     return rows, rho
 
 
@@ -502,7 +530,7 @@ def flash_combine(carry, T, C, lam, with_num=False):
         new_mean.data_ptr(), scal.data_ptr(), _ptr(num),
         torch.cuda.current_stream(carry.device).cuda_stream)
     _check_status(status, "flash_combine_kernel")
-    launch_counts["flash_combine_kernel"] += 1
+    _build.count_launch("flash_combine_kernel")
     out = (new_mean, scal[0], scal[1])
     return out + (num,) if with_num else out
 
@@ -600,7 +628,7 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
         s_fb.data_ptr(), crash.data_ptr(), U_real.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _check_status(status, "rmppi_rollout_kernel")
-    launch_counts["rmppi_rollout_kernel"] += 1
+    _build.count_launch("rmppi_rollout_kernel", entry)
     return s_nom, j_real, s_fb, crash, U_real
 
 
@@ -703,16 +731,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-@functools.lru_cache(maxsize=None)
-def _solve_lib():
-    """The library of csrc/fused_solve.cu (both fused sampling kernels),
-    checked to agree with this module on the block size."""
-    lib = _build.load("fused_solve")
-    if lib.fused_solve_block_size() != BLOCK:
-        raise RuntimeError("csrc/fused_solve.cu and BLOCK disagree")
-    return lib
-
-
 def sample_rollout_plain(dynamics, cost, sampler, x0, mean, seed, dt, lam, alpha,
                          num_rollouts, iteration=0, optimization_stride=0,
                          sampler_state=None, injected_noise=None):
@@ -739,7 +757,7 @@ def sample_rollout_plain(dynamics, cost, sampler, x0, mean, seed, dt, lam, alpha
         return gain * lr_t
 
     acc, term, crash = _rollout_sums(dynamics, cost, x0, U, dt, lr_step)
-    return _div(acc + term, T), crash, U, W
+    return true_div(acc + term, T), crash, U, W
 
 
 def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
@@ -747,11 +765,7 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
                          emit_samples, injected_noise):
     """Launch ``fused_sample_rollout_kernel``: (costs, crash, U or None,
     W or None, carry or None)."""
-    entry = _SAMPLE_ENTRY.get((type(dynamics), type(cost)))
-    if entry is None:
-        raise NotImplementedError(
-            f"no CUDA sampling kernel for {type(dynamics).__name__} with "
-            f"{type(cost).__name__}")
+    lib_name, entry = _entry(dynamics, cost, "sample")
     T, C = mean.shape
     S = dynamics.STATE_DIM
     dev = mean.device
@@ -776,7 +790,7 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
     U = torch.empty((K, T, C), **f32) if emit_samples or not epilogue else None
     W = torch.empty((K, T, C), **f32) if kind == SMOOTH else None
     carry = torch.empty((-(-K // BLOCK), 2 + T * C), **f32) if epilogue else None
-    status = getattr(_solve_lib(), entry)(
+    status = getattr(_lib(lib_name), entry)(
         dev.index, kind, int(epilogue), x0.data_ptr(), mean.data_ptr(),
         sigma.data_ptr(), _ptr(aux), sampler.control_cost_coeff.data_ptr(),
         cons.data_ptr(), seed.data_ptr(), _ptr(z), K, T, int(stride),
@@ -785,7 +799,7 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
         _f32(lam), *model, costs.data_ptr(), crash.data_ptr(),
         _ptr(U), _ptr(W), _ptr(carry), torch.cuda.current_stream(dev).cuda_stream)
     _check_status(status, "fused_sample_rollout_kernel")
-    launch_counts["fused_sample_rollout_kernel"] += 1
+    _build.count_launch("fused_sample_rollout_kernel", entry)
     return costs, crash, U, W, carry
 
 

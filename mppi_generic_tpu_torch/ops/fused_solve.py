@@ -1,17 +1,21 @@
 """The fused solve iteration (kernel B3), its wrapper and plain version.
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_solve.py``: the hand-written
-Hopper kernel ``fused_solve_kernel`` in ``csrc/fused_solve.cu`` replaces its
-TPU kernel ``_fused_solve_call``. One launch is one MPPI iteration for the
+Hopper kernel ``fused_solve_kernel`` (``csrc/sample_kernels.cuh``, one entry
+per (dynamics, cost) pair in ``csrc/pair_<name>.cu``) replaces its TPU kernel
+``_fused_solve_call``. One launch is one MPPI iteration for the
 Gaussian and the NLN sampler: the normals drawn in the kernel (Philox,
 ``ops/philox.py``), the carve-outs, the clamp, the likelihood-ratio cost
 (summed apart and added at the end), the rollout and one flash carry row per
 block of samples; ``flash_combine_kernel`` then merges the rows into the new
 mean, baseline and eta.
 
-The kernel has entries for the double integrator with its circle cost and
-for AutoRally's network dynamics with the standard or robust AutoRally
-cost (the FNN step and the costmap query inside the kernel). CPU tensors
+The kernel has an entry for each pair of ``ops/fused_rollout._PAIRS`` that
+``_build.PAIR_KERNELS`` gives a "solve" kernel: the double integrator with
+its circle cost or ``QuadraticCost``, AutoRally's network dynamics with the
+standard or robust AutoRally cost (the FNN step and the costmap query
+inside the kernel), the cartpole, the quadrotor with either of its costs and
+the Dubins car. CPU tensors
 run the plain version (``fused_solve_plain``, the kernel's operations in
 its order), CUDA tensors the kernel. There is no fallback: a sampler, or a
 (dynamics, cost) pair, the kernel does not take raises.
@@ -21,21 +25,11 @@ from __future__ import annotations
 
 import torch
 
-from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
-from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
-from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
-from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.ops import _build
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
-from mppi_generic_tpu_torch.ops._build import launch_counts
+from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 __all__ = ["fused_solve_carries", "fused_solve_iteration", "fused_solve_plain"]
-
-_SOLVE_ENTRY = {
-    (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "fused_solve_di_circle",
-    (AutorallyNNDynamics, ARStandardCost): "fused_solve_ar_nn",
-    (AutorallyNNDynamics, ARRobustCost): "fused_solve_ar_nn",
-}
-
 
 def _solve_kind(sampler) -> int:
     kind = fr.noise_kind(sampler)
@@ -76,18 +70,14 @@ def fused_solve_plain(dynamics, cost, sampler, x0, mean, seed, dt, lam, alpha,
             m = mu[:, t, c]
             lr = lr + lrc[t, c] * m * (m - 2.0 * U[:, t, c])
     acc, term, crash = fr._rollout_sums(dynamics, cost, x0, U, dt)
-    costs = fr._div(acc + term + fr._lr_gain(lam, alpha) * lr, T)
+    costs = true_div(acc + term + fr._lr_gain(lam, alpha) * lr, T)
     return costs, crash, U, fr.block_carries_plain(costs, U, fr._f32(lam))
 
 
 def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, alpha,
                       K, iteration, stride, injected_noise):
     """Launch ``fused_solve_kernel``: (costs, crash, U, carry)."""
-    entry = _SOLVE_ENTRY.get((type(dynamics), type(cost)))
-    if entry is None:
-        raise NotImplementedError(
-            f"no CUDA solve kernel for {type(dynamics).__name__} with "
-            f"{type(cost).__name__}")
+    lib_name, entry = fr._entry(dynamics, cost, "solve")
     T, C = mean.shape
     S = dynamics.STATE_DIM
     dev = mean.device
@@ -104,14 +94,14 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
     fr._check_tensors(tensors, dev)
     if C != dynamics.CONTROL_DIM or K < 1 or T < 1 or 2 * K * T * C >= 2**31:
         raise ValueError(f"unsupported sizes K={K}, T={T}, C={C}")
-    model = fr._model_args(dynamics, cost, dev, entry)
+    model = fr._model_args(dynamics, cost, dev)
     seed = fr._seed_tensor(seed, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     costs = torch.empty((K,), **f32)
     crash = torch.empty((K,), dtype=torch.int32, device=dev)
     U = torch.empty((K, T, C), **f32)
     carry = torch.empty((-(-K // fr.BLOCK), 2 + T * C), **f32)
-    status = getattr(fr._solve_lib(), entry)(
+    status = getattr(fr._lib(lib_name), entry)(
         dev.index, kind, x0.data_ptr(), mean.data_ptr(), sigma.data_ptr(),
         fr._ptr(aux), lrc.data_ptr(), cons.data_ptr(), seed.data_ptr(), fr._ptr(z),
         K, T, int(stride), fr._f32(sampler.pure_threshold(K)), fr._f32(dt),
@@ -119,7 +109,7 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
         crash.data_ptr(), U.data_ptr(), carry.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     fr._check_status(status, "fused_solve_kernel")
-    launch_counts["fused_solve_kernel"] += 1
+    _build.count_launch("fused_solve_kernel", entry)
     return costs, crash, U, carry
 
 

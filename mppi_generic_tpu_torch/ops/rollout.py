@@ -16,6 +16,7 @@ import torch
 
 from mppi_generic_tpu_torch.costs.base import Cost
 from mppi_generic_tpu_torch.models.base import Dynamics
+from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 
 def rollout_combined(dynamics: Dynamics, cost: Cost, x0: torch.Tensor,
@@ -35,5 +36,5 @@ def rollout_combined(dynamics: Dynamics, cost: Cost, x0: torch.Tensor,
         c, crash = cost.running_cost(y, u, t, crash)
         acc = acc + c
         ys.append(y)
-    total = (acc + cost.terminal_cost(ys[-1])) / T
+    total = true_div(acc + cost.terminal_cost(ys[-1]), T)
     return total, torch.stack(ys, dim=-1).permute(1, 2, 0), crash

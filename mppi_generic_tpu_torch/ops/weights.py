@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from mppi_generic_tpu_torch.utils.math_utils import true_div
+
 
 def baseline_cost(costs):
     """min over samples (computeBaselineCost, mppi_common.cu:858-862)."""
@@ -19,8 +21,9 @@ def baseline_cost(costs):
 
 
 def norm_exp_weights(costs, lam, baseline):
-    """w_i = exp(-(J_i - baseline) / lambda) (mppi_common.cu:958-967)."""
-    return torch.exp(-(costs - baseline) / lam)
+    """w_i = exp(-(J_i - baseline) / lambda) (mppi_common.cu:958-967);
+    ``lam`` a host number, divided by as a device scalar (``true_div``)."""
+    return torch.exp(true_div(-(costs - baseline), lam))
 
 
 def tsallis_weights(costs, gamma, r, baseline):
@@ -32,9 +35,9 @@ def tsallis_weights(costs, gamma, r, baseline):
     kernels' division."""
     dj = costs - baseline
     inside = dj < gamma
-    base = torch.clamp(1.0 - dj / dj.new_full((), gamma), min=1e-30)
+    base = torch.clamp(1.0 - true_div(dj, gamma), min=1e-30)
     r_minus_1 = float(np.float32(r) - np.float32(1.0))
-    w = torch.exp(torch.log(base) / dj.new_full((), r_minus_1))
+    w = torch.exp(true_div(torch.log(base), r_minus_1))
     return torch.where(inside, w, 0.0)
 
 

@@ -46,7 +46,9 @@ class SamplingDistribution(nn.Module):
         w = (weights / normalizer)[:, None, None]
         return torch.sum(w * U, dim=0), state
 
-    def shift(self, mean, stride, state=None):
+    def shift(self, mean, stride, slide_scale=None, state=None):
         """Slide the mean (and any sequence state) forward by ``stride``
-        steps. Returns (new_mean, new_state)."""
-        return slide_control_sequence(mean, stride), state
+        steps; vacated steps decay toward zero by ``slide_scale`` (C,) per
+        step past the horizon (None: zero control). Returns (new_mean,
+        new_state)."""
+        return slide_control_sequence(mean, stride, slide_scale), state

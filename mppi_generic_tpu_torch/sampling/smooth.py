@@ -62,6 +62,6 @@ class SmoothMPPIDistribution(GaussianDistribution):
         new_deriv_mean = torch.sum(w_norm * W, dim=0)
         return mean + new_deriv_mean * self.dt_smooth, new_deriv_mean
 
-    def shift(self, mean, stride, state=None):
-        return (slide_control_sequence(mean, stride),
-                slide_control_sequence(state, stride))
+    def shift(self, mean, stride, slide_scale=None, state=None):
+        return (slide_control_sequence(mean, stride, slide_scale),
+                slide_control_sequence(state, stride, slide_scale))

@@ -1,10 +1,11 @@
 """Math utilities used by the ported controllers, in PyTorch.
 
 Counterpart of ``mppi_generic_tpu/utils/math_utils.py``: the same functions,
-with the same numerics, on tensors. Only what the ported path calls lives
-here (the angle wrap, the polynomial atan family, smoothing and the
-control-sequence services); quaternions and integration are still to be
-ported. The CUDA kernels carry the same operations in ``csrc/``.
+with the same numerics, on tensors: the angle helpers, the polynomial atan
+family, quaternions ([w, x, y, z], as the reference's Eigen::Quaternionf),
+smoothing, the control-sequence services and numerical integration. The
+CUDA kernels carry the operations the models and costs call in
+``csrc/math_utils.cuh``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,16 @@ def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
     m = torch.fmod(a, TWO_PI)
     m = torch.where(m < 0, m + TWO_PI, m)
     return m - PI
+
+
+def angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Shortest signed difference a - b wrapped to [-pi, pi)."""
+    return normalize_angle(a - b)
+
+
+def interp_angle(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
+    """Interpolate between two angles along the shortest arc."""
+    return normalize_angle(a + alpha * angle_diff(b, a))
 
 
 def atan_approx(z: torch.Tensor) -> torch.Tensor:
@@ -82,6 +93,16 @@ def asin_approx(x: torch.Tensor) -> torch.Tensor:
     return atan2_approx(x, torch.sqrt(torch.clamp_min(1.0 - x * x, 0.0)))
 
 
+def true_div(x: torch.Tensor, v) -> torch.Tensor:
+    """``x / v`` for a host number ``v``, rounded as one IEEE division.
+
+    On CUDA, PyTorch divides a tensor by a host scalar as a multiply by its
+    reciprocal, which can differ in the last bit from a division (JAX and
+    the CUDA kernels divide); a device scalar is divided by. On the CPU both
+    forms divide, so CPU results do not change."""
+    return x / x.new_full((), v)
+
+
 def discount_pow(base: torch.Tensor, t) -> torch.Tensor:
     """``base ** t`` for a positive discount factor, as exp(t * log(base)).
 
@@ -89,6 +110,95 @@ def discount_pow(base: torch.Tensor, t) -> torch.Tensor:
     and the CUDA kernels compute the same expf(t * logf(base)).
     """
     return torch.exp(t * torch.log(base))
+
+
+# ---------------------------------------------------------------------------
+# Quaternions, stored [w, x, y, z]; inputs shaped (..., 4)
+# ---------------------------------------------------------------------------
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 (x) q2."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    return quat_conjugate(q) / torch.clamp_min(
+        torch.sum(q * q, dim=-1, keepdim=True), 1e-12)
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Unit quaternion with w >= 0, the sign convention of the reference's
+    state-space quaternions."""
+    q = q / torch.clamp_min(torch.linalg.vector_norm(q, dim=-1, keepdim=True), eps)
+    return q * sign(q[..., 0:1])
+
+
+def quat_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., 3, 3) body-to-world rotation."""
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v (..., 3) by quaternion(s) q (..., 4)."""
+    return torch.einsum("...ij,...j->...i", quat_to_rotation_matrix(q), v)
+
+
+def quat_derivative(q: torch.Tensor, omega_body: torch.Tensor) -> torch.Tensor:
+    """dq/dt = 0.5 q (x) [0, omega] for a body-frame angular rate omega."""
+    omega_q = torch.cat([torch.zeros_like(omega_body[..., :1]), omega_body], dim=-1)
+    return 0.5 * quat_multiply(q, omega_q)
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, alpha, eps: float = 1e-8):
+    """Spherical linear interpolation between unit quaternions."""
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.abs(dot)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < eps
+    safe = torch.where(use_lerp, 1.0, sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - alpha, torch.sin((1.0 - alpha) * theta) / safe)
+    w1 = torch.where(use_lerp, alpha, torch.sin(alpha * theta) / safe)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
+def euler_to_quat(roll, pitch, yaw) -> torch.Tensor:
+    """Z-Y-X Euler angles -> quaternion (..., 4)."""
+    cr, sr = torch.cos(roll / 2), torch.sin(roll / 2)
+    cp, sp = torch.cos(pitch / 2), torch.sin(pitch / 2)
+    cy, sy = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    return torch.stack([
+        cr * cp * cy + sr * sp * sy,
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+    ], dim=-1)
+
+
+def quat_to_euler(q: torch.Tensor):
+    """Quaternion -> (roll, pitch, yaw), with the exact atan2 / asin."""
+    w, x, y, z = q.unbind(-1)
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return roll, pitch, yaw
 
 
 def savitzky_golay_smooth(u_seq: torch.Tensor, history=None) -> torch.Tensor:
@@ -159,3 +269,23 @@ def slide_control_sequence(u_seq: torch.Tensor, stride: int,
     decay = torch.pow(slide_scale.expand(C)[None, :], over.clamp_max(30.0))
     decay = torch.where(over > 0, decay, 1.0)
     return shifted * decay
+
+
+# ---------------------------------------------------------------------------
+# Numerical integration (reference utils/numerical_integration.h)
+# ---------------------------------------------------------------------------
+def rk4_step(f, x, u, dt, *args):
+    """Classic RK4 step of dx/dt = f(x, u, *args)."""
+    k1 = f(x, u, *args)
+    k2 = f(x + 0.5 * dt * k1, u, *args)
+    k3 = f(x + 0.5 * dt * k2, u, *args)
+    k4 = f(x + dt * k3, u, *args)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def linear_interp(t, t0, v0, t1, v1):
+    """Linear interpolation from (t0, v0) to (t1, v1), clamped to [0, 1] in
+    alpha and guarded against t1 == t0; tensor arguments."""
+    denom = torch.where(torch.abs(t1 - t0) < 1e-12, 1.0, t1 - t0)
+    alpha = torch.clamp((t - t0) / denom, 0.0, 1.0)
+    return v0 + alpha * (v1 - v0)

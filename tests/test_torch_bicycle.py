@@ -196,6 +196,6 @@ def test_bicycle_entry_refuses_another_output_layout():
     moved = convert.ar_cost_from_params({**jax_cost_params(_setup()[0][1]),
                                          "output_indices": (0, 1, 2, 3, 4, 5)})
     with pytest.raises(NotImplementedError, match="output"):
-        fr._model_args(dyn, moved, torch.device("cpu"), "rollout_costs_bicycle_ar")
-    fr._model_args(dyn, cost, torch.device("cpu"), "rollout_costs_bicycle_ar")
-    assert fr._ROLLOUT_ENTRY[(type(dyn), type(cost))] == "rollout_costs_bicycle_ar"
+        fr._model_args(dyn, moved, torch.device("cpu"))
+    fr._model_args(dyn, cost, torch.device("cpu"))
+    assert fr._entry(dyn, cost, "rollout") == ("pair_bicycle_ar", "rollout_costs_bicycle_ar")

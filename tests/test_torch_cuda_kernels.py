@@ -23,14 +23,21 @@ from mppi_generic_tpu_torch import (
 from mppi_generic_tpu_torch.costs import (
     ARRobustCost,
     ARStandardCost,
+    CartpoleQuadraticCost,
     DoubleIntegratorCircleCost,
+    QuadraticCost,
+    QuadrotorMapCost,
+    QuadrotorQuadraticCost,
 )
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder
 from mppi_generic_tpu_torch.maps import MapTexture2D
 from mppi_generic_tpu_torch.models import (
     AutorallyNNDynamics,
     BicycleSlipDynamics,
+    CartpoleDynamics,
     DoubleIntegratorDynamics,
+    DubinsDynamics,
+    QuadrotorDynamics,
 )
 from mppi_generic_tpu_torch.nn import FNN
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
@@ -588,3 +595,185 @@ def test_colored_fused_matches_combined_on_the_card(cuda_device, transform):
     assert torch.equal(rf.crash, rc.crash)
     _close(rf.control_mean, rc.control_mean, rtol=1e-4, atol=1e-5)
     _close(rf.baseline, rc.baseline, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_combined_divides_as_the_kernels(cuda_device):
+    """The eager (combined) path divides by device scalars, as the kernels:
+    at lambda 0.3 and T = 100, whose reciprocals are inexact, its costs equal
+    the rollout kernel's to the last bit (a zero mean makes the LR term 0 on
+    both paths) and its weights equal exp(-(J - baseline) / lambda) with a
+    true division."""
+    K, T_, lam = 512, 100, 0.3
+    ctrl = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+                       GaussianDistribution.create(std_dev=[1.0, 1.0],
+                                                   control_cost_coeff=[0.01, 0.01]),
+                       lam=lam, num_timesteps=T_, num_rollouts=K, kernel="combined",
+                       return_samples=True)
+    eps = torch.randn((K, T_, C), generator=torch.Generator(device=cuda_device).manual_seed(3),
+                      device=cuda_device)
+    x = torch.tensor([2.0, 0.0, 0.0, 1.0], device=cuda_device)
+    res, _ = ctrl.solve(x, ctrl.init_state(seed=0), injected_noise=eps)
+    U = res.sampled_controls.contiguous()
+    lr = (torch.zeros((T_, C), device=cuda_device), ctrl.sampler._sigma(T_, 0).contiguous(),
+          ctrl.sampler.control_cost_coeff, lam, 0.0, ctrl.sampler.pure_threshold(K))
+    kc, kcrash = fr.fused_rollout_costs(ctrl.dynamics, ctrl.cost, x, U, ctrl.dt, lr)
+    torch.cuda.synchronize()
+    assert torch.equal(res.costs, kc)
+    assert torch.equal(res.crash, kcrash)
+    want = torch.exp(-(res.costs - res.baseline) / torch.tensor(lam, device=cuda_device))
+    assert torch.equal(res.weights, want)
+
+
+# --- the analytic model zoo: cartpole, quadrotor, Dubins, DI + QuadraticCost
+def _zoo_parts(pair, dev):
+    """(dynamics, cost, x0, std, mean offset) of one zoo pair at a test size."""
+    if pair == "cartpole":
+        return (CartpoleDynamics.create(control_ranges=[[-5.0, 5.0]], device=dev),
+                CartpoleQuadraticCost(coeffs=[100.0, 10.0, 200.0, 20.0],
+                                      terminal_cost_coeff=0.5, device=dev),
+                torch.tensor([0.1, 0.0, 0.3, 0.0], device=dev), [5.0], 0.0)
+    if pair.startswith("quadrotor"):
+        dyn = QuadrotorDynamics.create(control_ranges=[[-3.0, 3.0]] * 3 + [[0.0, 20.0]],
+                                       device=dev)
+        x0 = torch.zeros(13, device=dev)
+        x0[6], x0[0], x0[1] = 1.0, 0.8, -0.3
+        if pair == "quadrotor_quadratic":
+            cost = QuadrotorQuadraticCost(x_coeff=50.0, v_coeff=5.0,
+                                          terminal_cost_coeff=0.3, device=dev)
+        else:
+            rng = np.random.default_rng(1)
+            data = (0.2 * np.abs(rng.normal(size=(64, 64)))).astype(np.float32)
+            data[40:, 40:] = 3.0
+            tex = MapTexture2D(data, origin=(-3.2, -3.2, 0.0), resolution=0.1, device=dev)
+            cost = QuadrotorMapCost(costmap=tex, dist_to_waypoint_coeff=12.0,
+                                    desired_speed=1.0, heading_power=1.5, device=dev
+                                    ).update_waypoint(1.5, 0.0, 0.0, 1.5707964)
+        return dyn, cost, x0, [0.5, 0.5, 0.5, 2.0], 9.81
+    if pair.startswith("dubins"):
+        goal = ([1.0, 2.0, 0.5] if pair == "dubins_quadratic" else
+                np.random.default_rng(3).normal(size=(30, 3)).astype(np.float32))
+        return (DubinsDynamics.create(device=dev),
+                QuadraticCost(goal, [1.0, 2.0, 0.3], terminal_scale=2.0, current_time=3,
+                              device=dev),
+                torch.tensor([0.0, 0.0, 3.0], device=dev), [1.0, 1.0], 0.0)
+    return (DoubleIntegratorDynamics.create(device=dev),
+            QuadraticCost([-4.0, -4.0, 0.0, 0.0], [5.0, 5.0, 0.5, 0.5], output_dim=4,
+                          device=dev),
+            torch.tensor([-9.0, -9.0, 0.1, 0.1], device=dev), [0.5, 0.5], 0.0)
+
+
+ZOO_PAIRS = ["cartpole", "quadrotor_quadratic", "quadrotor_map", "dubins_quadratic",
+             "dubins_trajectory", "di_quadratic"]
+
+
+def _zoo_samples(pair, K, dev):
+    dyn, cost, x0, std, offset = _zoo_parts(pair, dev)
+    Cz = dyn.CONTROL_DIM
+    g = torch.Generator(device=dev).manual_seed(K)
+    mean = 0.3 * torch.randn((T, Cz), generator=g, device=dev)
+    mean[:, -1] += offset
+    sigma = torch.tensor([std], device=dev).expand(T, Cz).contiguous()
+    U = dyn.enforce_constraints(None, (mean + sigma * torch.randn(
+        (K, T, Cz), generator=g, device=dev)).permute(2, 0, 1)).permute(1, 2, 0)
+    lr = (mean, sigma, torch.full((Cz,), 0.5, device=dev), LAM, ALPHA, 0.9 * K)
+    return dyn, cost, x0, U.contiguous(), lr, std, offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", ZOO_PAIRS)
+@pytest.mark.parametrize("mode", ["costs", "costs+lr", "epilogue+lr", "tsallis+lr"])
+def test_zoo_rollout_kernel_matches_plain(cuda_device, K, pair, mode):
+    dyn, cost, x0, U, lr, _, _ = _zoo_samples(pair, K, cuda_device)
+    lr = lr if mode.endswith("+lr") else None
+    fr.reset_launch_counts()
+    if mode.startswith("costs"):
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr)
+    elif mode.startswith("epilogue"):
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr)
+    else:
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert sum(fr.entry_counts.values()) == 1
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    if mode.startswith("epilogue"):
+        _close(kout, fr.block_carries_plain(pc, U, LAM), rtol=1e-5, atol=1e-5)
+    elif mode.startswith("tsallis"):
+        assert torch.equal(kout, fr.block_minima_plain(pc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", ZOO_PAIRS)
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+def test_zoo_fused_solve_kernel_matches_plain(cuda_device, K, pair, kind):
+    dyn, cost, x0, _, _, std, offset = _zoo_samples(pair, K, cuda_device)
+    Cz = dyn.CONTROL_DIM
+    g = torch.Generator(device=cuda_device).manual_seed(K + 1)
+    mean = 0.3 * torch.randn((T, Cz), generator=g, device=cuda_device)
+    mean[:, -1] += offset
+    cls = NLNDistribution if kind == "nln" else GaussianDistribution
+    samp = cls.create(std_dev=std, control_cost_coeff=[0.5] * Cz,
+                      pure_noise_percentage=P_PURE, device=cuda_device)
+    seed = torch.tensor(K, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_solve_kernel"] == 1
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, optimization_stride=2)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("kind,epilogue", [("gaussian", False), ("nln", False),
+                                           ("smooth", False), ("smooth", True)])
+def test_cartpole_fused_sample_kernel_matches_plain(cuda_device, K, kind, epilogue):
+    dyn, cost, x0, _, _ = _zoo_parts("cartpole", cuda_device)
+    kw = dict(std_dev=[5.0], control_cost_coeff=[1.0], pure_noise_percentage=P_PURE,
+              device=cuda_device)
+    samp = {"nln": NLNDistribution, "gaussian": GaussianDistribution}.get(kind)
+    samp = (samp.create(**kw) if samp is not None
+            else SmoothMPPIDistribution.create(num_timesteps=T, dt=0.05, **kw))
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    mean = torch.randn((T, 1), generator=g, device=cuda_device)
+    state = 0.3 * torch.ones((T, 1), device=cuda_device) if kind == "smooth" else None
+    seed = torch.tensor(K + 7, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    fr.reset_launch_counts()
+    kout = fr.fused_sample_rollout_costs(*args, optimization_stride=1, sampler_state=state,
+                                         epilogue=epilogue)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"fused_sample_rollout_cartpole": 1}
+    pc, pcrash, pU, pW = fr.sample_rollout_plain(*args, optimization_stride=1,
+                                                 sampler_state=state)
+    _close(kout[0], pc, rtol=0, atol=0)
+    assert torch.equal(kout[1], pcrash)
+    _close(kout[2], pU, rtol=0, atol=0)
+    if epilogue:
+        pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM), T, 1, LAM)
+        _close(kout[3], pm, rtol=1e-4, atol=1e-5)
+        _close(kout[4], pb, rtol=1e-6, atol=0)
+        _close(kout[5], pe, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_quadratic_entries_refuse_another_output_dim(cuda_device):
+    dyn = DoubleIntegratorDynamics.create(device=cuda_device)
+    cost = QuadraticCost([1.0, 2.0], device=cuda_device)  # O = 2: no entry reads it
+    U = torch.zeros((64, T, C), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="OUTPUT_DIM"):
+        fr.fused_rollout_costs(dyn, cost, torch.zeros(4, device=cuda_device), U, DT)
+    # the zoo's rollout entries have no per-sample x0 mode (RMPPI's)
+    cdyn, ccost, _, _, _ = _zoo_parts("cartpole", cuda_device)
+    with pytest.raises(NotImplementedError, match="per-sample x0"):
+        fr.fused_rollout_costs(cdyn, ccost, torch.zeros((64, 4), device=cuda_device),
+                               torch.zeros((64, T, 1), device=cuda_device), DT)

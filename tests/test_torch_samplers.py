@@ -122,7 +122,7 @@ def test_smooth_update_mean_and_shift_match_jax():
     _close(tdm, jdm, rtol=1e-5, atol=1e-6)
     for stride in (0, 1, 3):
         jm2, jdm2 = j.shift(jnp.asarray(mean), stride, None, jnp.asarray(dmean))
-        tm2, tdm2 = t.shift(torch.from_numpy(mean), stride, torch.from_numpy(dmean))
+        tm2, tdm2 = t.shift(torch.from_numpy(mean), stride, None, torch.from_numpy(dmean))
         _close(tm2, jm2, 0, 0)
         _close(tdm2, jdm2, 0, 0)
 
