@@ -39,8 +39,18 @@ bench row; ``cartpole_swingup``, tests/test_vanilla_mppi.py:80-107 at
 K=8192 with its bar; ``quadrotor_hover``, tests/test_model_zoo.py:60-92 with
 its bar; ``quadrotor_waypoint``; ``di_quadratic``; short loops that put each
 remaining entry on a main path) and two more bench rows
-(``bicycle_1024``, bench.py:755-773, and ``di_K1024``, :593-597). Each phase
-prints one JSON line. The line before the last lists every kernel with its launches on
+(``bicycle_1024``, bench.py:755-773, and ``di_K1024``, :593-597). Then the
+racer LSTM rows (bench.py:719-743, :791-807: the LSTM-steering model on the
+128^2 elevation map with ARStandardCost on the 128^2 track map, K=1920,
+T=100; the LSTM-uncertainty model on flat ground, K=1920, T=150): their B1
+entries in four modes and B3 entries (Gaussian, NLN), the LSTM step (B10)
+inside, against their plain versions at K=1920 and the ragged K=1900
+(``racer_kernels``), a fused-vs-combined reference without host syncs
+(``racer_reference``), and the closed loops ``racer_steering`` (100 steps)
+and ``racer_unc`` (20 steps: its eager re-rollout of the mean is about 10^5
+launches) on the fused solve, ``racer_steering_fused`` and
+``racer_unc_fused`` on ``kernel="fused"``. Each phase prints one JSON line;
+``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
 line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
@@ -90,6 +100,8 @@ from mppi_generic_tpu_torch.models import (
     DoubleIntegratorDynamics,
     DubinsDynamics,
     QuadrotorDynamics,
+    RacerDubinsElevationLSTMSteering,
+    RacerDubinsElevationLSTMUncertainty,
     rollout_single,
 )
 from mppi_generic_tpu_torch.ops import _build, fused_solve, philox, riccati, weights
@@ -240,9 +252,9 @@ def within(what, got, want, atol):
     return {"check": what, "max_abs_err": err, "atol": atol}
 
 
-def time_ms(fn, n):
-    """Median device milliseconds of ``fn`` over ``n`` runs."""
-    for _ in range(3):
+def time_ms(fn, n, warmup=3):
+    """Median device milliseconds of ``fn`` over ``n`` runs after ``warmup``."""
+    for _ in range(warmup):
         fn()
     start = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     end = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
@@ -1226,18 +1238,26 @@ def near_threshold(cost, Y, samples):
     """Per sample in ``samples``: the smallest distance of a front or back
     map value along its trajectory Y (K, T, O) to the crash threshold."""
     y = Y[samples].permute(2, 0, 1).reshape(Y.shape[2], -1)
-    cos_y, sin_y = torch.cos(y[2]), torch.sin(y[2])
+    ix, iy, iyaw = cost.output_indices[:3]
+    cos_y, sin_y = torch.cos(y[iyaw]), torch.sin(y[iyaw])
     thr = cost.boundary_threshold
     d = torch.minimum(
-        (cost._track_value(y[0] + 0.5 * cos_y, y[1] + 0.5 * sin_y) - thr).abs(),
-        (cost._track_value(y[0] - 0.5 * cos_y, y[1] - 0.5 * sin_y) - thr).abs())
+        (cost._track_value(y[ix] + 0.5 * cos_y, y[iy] + 0.5 * sin_y) - thr).abs(),
+        (cost._track_value(y[ix] - 0.5 * cos_y, y[iy] - 0.5 * sin_y) - thr).abs())
     return d.reshape(len(samples), -1).amin(dim=1)
 
 
 def ar_reference_phase(dev):
-    """One full-width solve of the 128^2 configuration on kernel="fused_solve"
-    and on kernel="fused" against kernel="combined" on the same normals, each
-    of the two under set_sync_debug_mode("error") after a warm solve.
+    """The AutoRally configuration on the 128^2 map: ``model_reference_phase``."""
+    model_reference_phase("autorally_reference", lambda k, **kw: build_autorally("128", k, **kw),
+                          ar_x0(dev), K_AR, T_AR, 41, map="128")
+
+
+def model_reference_phase(phase, build, x, K_, T_, seed, cost_tol="costs", **labels):
+    """One full-width solve of a configuration (``build(kernel)``) on
+    kernel="fused_solve" and on kernel="fused" against kernel="combined" on
+    the same normals, each of the two under set_sync_debug_mode("error")
+    after a warm solve.
 
     The eager network sums with a matmul and the kernels left to right, so
     the costs sit an ulp or so apart (about 1e-3 at J = 1e4, where every
@@ -1246,19 +1266,19 @@ def ar_reference_phase(dev):
     crash threshold on the way (the distance is printed) and whose weight
     is below 1e-6; the mean's tolerance follows from the other costs: a
     weight moves by at most 2 max|dJ| / lambda relative, so the mean by that
-    times max|U_k - mean|."""
-    g = torch.Generator(device=dev).manual_seed(41)
-    x = ar_x0(dev)
-    eps = torch.randn((K_AR, T_AR, C), generator=g, device=dev)
-    combined = build_autorally("128", "combined", return_samples=True)
+    times max|U_k - mean|. ``cost_tol`` names the costs' tolerance in TOL."""
+    dev = x.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    eps = torch.randn((K_, T_, C), generator=g, device=dev)
+    combined = build("combined", return_samples=True)
     state = combined.init_state(seed=0).replace(
-        control_mean=0.1 * torch.randn((T_AR, C), generator=g, device=dev))
+        control_mean=0.1 * torch.randn((T_, C), generator=g, device=dev))
     rc, _ = combined.solve(x, state, injected_noise=eps)
     U = rc.sampled_controls
     w_c = torch.exp(-(rc.costs - rc.baseline) / LAM)
     checks, odd_samples = [], {}
     for kernel in ("fused_solve", "fused"):
-        ctrl = build_autorally("128", kernel)
+        ctrl = build(kernel)
         ctrl.solve(x, state, injected_noise=eps)  # one-time copies
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1267,7 +1287,7 @@ def ar_reference_phase(dev):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        rtol, atol = TOL["costs"]
+        rtol, atol = TOL[cost_tol]
         dJ = (rf.costs - rc.costs).abs()
         odd = (dJ > atol + rtol * rc.costs.abs()) | (rf.crash != rc.crash)
         idx = torch.nonzero(odd).flatten()
@@ -1282,11 +1302,11 @@ def ar_reference_phase(dev):
                                      f"the crash threshold: {odd_samples[kernel]}")
         ok = ~odd
         checks.append(check(f"{kernel} costs vs combined", rf.costs[ok], rc.costs[ok],
-                            "costs"))
+                            cost_tol))
         spread = float((U - rc.control_mean).abs().max())
         mean_atol = 2 * float(dJ[ok].max()) / LAM * spread + 1e-5
         for field, tol in (("control_mean", mean_atol), ("state_trajectory",
-                                                         T_AR * DT * mean_atol + 1e-5)):
+                                                         T_ * DT * mean_atol + 1e-5)):
             got, want = getattr(rf, field), getattr(rc, field)
             err = float((got - want).abs().max())
             if not err <= tol:
@@ -1294,10 +1314,10 @@ def ar_reference_phase(dev):
             checks.append({"check": f"{kernel} {field} vs combined", "max_abs_err": err,
                            "atol": tol})
         checks.append(check(f"{kernel} baseline vs combined", rf.baseline, rc.baseline,
-                            "costs"))
-    emit("autorally_reference", K=K_AR, T=T_AR, map="128",
-         crashed_share=float(rc.crash.float().mean()), checks=checks,
-         samples_off_tolerance=odd_samples, no_host_sync=["fused_solve", "fused"])
+                            cost_tol))
+    emit(phase, K=K_, T=T_, **labels, crashed_share=float(rc.crash.float().mean()),
+         checks=checks, samples_off_tolerance=odd_samples,
+         no_host_sync=["fused_solve", "fused"])
 
 
 # ---------------------------------------------------------------------------
@@ -1609,10 +1629,11 @@ def colored_reference_phase(dev):
     emit("colored_reference", checks=checks, no_host_sync=["exp", "tsallis", "bicycle"])
 
 
-def ar_loop_phase(path, map_kind, kernel, steps, want):
+def ar_loop_phase(path, map_kind, kernel, steps, want, profile=4):
     """The AutoRally configuration's closed loop from x0 (v_x = 3)."""
     ctrl = build_autorally(map_kind, kernel)
-    return model_loop_phase(path, ctrl, ar_x0(ctrl.device), steps, want, map=map_kind)[0]
+    return model_loop_phase(path, ctrl, ar_x0(ctrl.device), steps, want, profile=profile,
+                            map=map_kind)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1673,6 +1694,9 @@ def zoo_parts(pair, dev=None):
     controllers' default device when None)."""
     kw = {} if dev is None else {"device": dev}
     x0dev = dev if dev is not None else "cuda"
+    if pair in RACER_PAIRS:
+        return (*racer_parts(pair, dev), racer_x0(pair, x0dev), RACER_STD, 0.0,
+                OPS_RACER[pair])
     if pair == "cartpole":
         return (CartpoleDynamics.create(control_ranges=CART_RANGE, **kw),
                 CartpoleQuadraticCost(coeffs=CART_COEFFS, **kw),
@@ -1707,6 +1731,98 @@ def zoo_parts(pair, dev=None):
 
 ZOO_PAIRS = ("cartpole", "quadrotor_quadratic", "quadrotor_map", "dubins_quadratic",
              "dubins_trajectory", "di_quadratic")
+
+
+# ---------------------------------------------------------------------------
+# The racer LSTM rows (bench.py:719-743, :791-807): the LSTM-steering model
+# on the 128^2 elevation map (0.1 normal, numpy seed 1, 1 m texels) with
+# ARStandardCost on the 128^2 track map, T=100; the LSTM-uncertainty model
+# (three LSTMs, the 4 x 4 covariance) on flat ground with ARStandardCost
+# without a costmap, T=150; both with output_indices (2, 3, 5, 6, 0, 1),
+# Gaussian std [0.3, 0.5], lambda 1, dt 0.02, K=1920, x0 = 0 with v_x = 3.
+# The LSTMs are random (numpy seeds 0, 1, 2 at scale 0.1, as LSTM.create),
+# since the bench's come from JAX keys. Their B1 and B3 entries run through
+# the zoo's kernel phase (zoo_kernel_phase, phase "racer_kernels").
+# ---------------------------------------------------------------------------
+K_RC, K_RC_RAGGED = 1920, 1900
+RACER_PAIRS = ("racer_steering_ar", "racer_unc_ar")
+T_RACER = {"racer_steering_ar": 100, "racer_unc_ar": 150}
+RACER_STD = [0.3, 0.5]
+RACER_INDICES = (2, 3, 5, 6, 0, 1)
+# The eager re-rollout of the mean steps the models one launch per operation:
+# about 41,000 launches per step for the steering row (0.9 s), several times
+# that for the uncertainty row; its loop is shorter, and a profiler window
+# (about 0.35 ms per recorded launch) is one step.
+RACER_UNC_LOOP_STEPS = 10
+RACER_FUSED_LOOP_STEPS = 3  # the kernel="fused" loops: B1 on the path
+
+
+def lstm_ops(I, NO, H=16, N1=16):
+    """Operations of one LSTM step and its head (csrc/lstm.cuh): the gates'
+    4 H (H + I) multiply-adds as two operations each and two adds per gate
+    row; per hidden unit three sigmoids (negation, expf, add, division), two
+    tanhf and four multiplies and adds; the head's N1 (H + I) + NO N1
+    multiply-adds, its bias adds and N1 tanhf."""
+    return (8 * H * (H + I) + 8 * H
+            + H * (3 * (3 + OPS_TRANSCENDENTAL) + 2 * OPS_TRANSCENDENTAL + 4)
+            + 2 * N1 * (H + I) + N1 * (1 + OPS_TRANSCENDENTAL) + 2 * NO * N1 + NO)
+
+
+# The steering model's step (csrc/racer_lstm_steering.cuh, racer_elevation.cuh)
+# besides its LSTM: the steering and brake rates 13, the longitudinal rate 41
+# and sinf, the yaw rate (two divisions, tanf), the kinematics (cosf, sinf,
+# 2), the Euler update 12, the yaw wrap (fmodf and 4), the clamps 5; the
+# settling: six sinf / cosf, the rotation 10, four corners 32, four map
+# queries (54 each), four slopes 16 and their asin_approx (28 and sqrtf
+# each), the averages and checks 12; the output 1.
+OPS_RACER_STEER = (479 + 15 * OPS_TRANSCENDENTAL) + lstm_ops(4, 1)
+# The uncertainty model's step (csrc/racer_lstm_unc.cuh) besides its three
+# LSTMs: the parametric rates 52 with four transcendentals, the suspension
+# 129, the quadratic brake 13, the features and corrections 7 with three
+# sinf, Q 54 with five sigmoids and three more transcendentals, the
+# Jacobian 43 with five, the propagation 320, the Euler update, clamps and
+# output 36 with the yaw wrap's fmodf.
+OPS_RACER_UNC = (654 + 21 * OPS_TRANSCENDENTAL + lstm_ops(4, 1) + lstm_ops(11, 2)
+                 + lstm_ops(12, 5))
+# The cost of the steering row reads the track map (OPS_AR_COST); the
+# uncertainty row's has no costmap: no map queries.
+OPS_RACER = {"racer_steering_ar": OPS_RACER_STEER + OPS_AR_COST,
+             "racer_unc_ar": OPS_RACER_UNC + OPS_AR_COST - 2 * 54}
+
+
+@functools.lru_cache(maxsize=None)
+def racer_elevation_data():
+    """bench.py:725-728: 0.1 normal heights, numpy seed 1, 128^2."""
+    return (0.1 * np.random.default_rng(1).normal(size=(128, 128))).astype("f")
+
+
+def racer_parts(pair, dev=None):
+    """(dynamics, cost) of a racer row on ``dev`` (the controllers' default
+    when None)."""
+    kw = {} if dev is None else {"device": dev}
+    if pair == "racer_unc_ar":
+        return (RacerDubinsElevationLSTMUncertainty.create(seed=0, **kw),
+                ARStandardCost(output_indices=RACER_INDICES, **kw))
+    elev = MapTexture2D(racer_elevation_data(), origin=(-64.0, -64.0, 0.0), resolution=1.0,
+                        **kw)
+    data, origin, res, _ = ar_map_data("128")
+    track = MapTexture2D(data, origin=origin, resolution=res, **kw)
+    return (RacerDubinsElevationLSTMSteering.create(elevation_map=elev, seed=0, **kw),
+            ARStandardCost(costmap=track, output_indices=RACER_INDICES, **kw))
+
+
+def build_racer(pair, kernel, return_samples=False):
+    """A racer bench row's VanillaMPPI on the card."""
+    dyn, cost = racer_parts(pair)
+    return VanillaMPPI(dyn, cost, GaussianDistribution.create(std_dev=RACER_STD), dt=DT,
+                       lam=LAM, alpha=ALPHA, num_timesteps=T_RACER[pair], num_rollouts=K_RC,
+                       num_iters=1, kernel=kernel, return_samples=return_samples)
+
+
+def racer_x0(pair, dev):
+    x0 = torch.zeros(9 if pair == "racer_steering_ar" else 26, device=dev)
+    x0[0] = 3.0
+    return x0
 
 
 def zoo_fixed_bytes(dyn, cost):
@@ -1768,10 +1884,11 @@ def zoo_sampler(kind, C_, std, dev=None, p=0.0, T_=T_ZOO):
 
 
 def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
-    """A zoo pair's B1 entry in its four modes (costs, costs + LR, the exp
-    epilogue + LR, Tsallis pass 1 + LR), its B3 entry (Gaussian; the
-    cartpole also NLN) and, for the cartpole, its B4 entry (Gaussian, NLN,
-    Smooth-MPPI, Smooth-MPPI with its epilogue), each against its plain
+    """A zoo or racer pair's B1 entry in its four modes (costs, costs + LR,
+    the exp epilogue + LR, Tsallis pass 1 + LR), its B3 entry (Gaussian; the
+    cartpole and the racer pairs also NLN) and, for the cartpole, its B4
+    entry (Gaussian, NLN, Smooth-MPPI, Smooth-MPPI with its epilogue), each
+    against its plain
     version: U, costs, crash flags and block minima to the last bit, carries
     at rtol 1e-5, merged means at rtol 1e-4 / atol 1e-5. Times by CUDA
     events against the bound from the .cuh operation counts; the plain
@@ -1780,7 +1897,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
     @ U beside the epilogue."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dyn, cost, x0, std, offset, ops = zoo_parts(pair, dev)
-    C_, T_ = dyn.CONTROL_DIM, T_ZOO
+    C_, T_ = dyn.CONTROL_DIM, T_RACER.get(pair, T_ZOO)
     mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
     mean[:, -1] += offset
     seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
@@ -1789,8 +1906,9 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
     times, crashed = {}, {}
 
     def timing(kernel, plain, work, time_plain):
+        # the plain versions run thousands of launches: one warm-up run
         t = {"ms": time_ms(kernel, N_TIMED),
-             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR) if time_plain else None}
+             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR, warmup=1) if time_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         return t
 
@@ -1809,6 +1927,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
     U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
     lr = (mean, samp._sigma(T_, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
           samp.pure_threshold(K))
+    plain_costs = {}
     for mode in ("costs", "costs+lr", "epilogue+lr", "tsallis+lr"):
         lrp = lr if mode.endswith("+lr") else None
 
@@ -1826,7 +1945,11 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
             return fr.block_minima_plain(pc) if mode.startswith("tsallis") else pc
 
         kout = kernel()
-        pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+        # the three "+lr" modes share one plain rollout
+        with_lr = lrp is not None
+        if with_lr not in plain_costs:
+            plain_costs[with_lr] = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+        pc, pcrash = plain_costs[with_lr]
         torch.cuda.synchronize()
         name = f"B1 {mode}"
         same(f"{pair} {name} crash flags", kout[1], pcrash)
@@ -1847,7 +1970,8 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                 lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
         crashed[name] = float(kout[1].float().mean())
     # B3 (and the cartpole's B4)
-    for kind in ("gaussian", "nln") if pair == "cartpole" else ("gaussian",):
+    nln = pair == "cartpole" or pair in RACER_PAIRS
+    for kind in ("gaussian", "nln") if nln else ("gaussian",):
         s = zoo_sampler(kind, C_, std, dev, p)
         args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
         kw = dict(optimization_stride=stride)
@@ -1909,7 +2033,8 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                                  zoo_sampling_work(dyn, cost, ops, K, T_, kind, False,
                                                    epilogue),
                                  timed_plain and epilogue)
-    emit("zoo_kernels", pair=pair, K=K, T=T_, pure_noise_percentage=p, stride=stride,
+    emit("racer_kernels" if pair in RACER_PAIRS else "zoo_kernels", pair=pair, K=K, T=T_,
+         pure_noise_percentage=p, stride=stride,
          crashed_share=crashed, checks=[c for cs in by_kernel.values() for c in cs],
          times=times)
     return by_kernel, times
@@ -1956,13 +2081,14 @@ def division_phase(dev):
 
 
 def model_loop_phase(path, ctrl, x0, steps, want, *, plant=None, slide_first=True,
-                     on_step=None, profile=True, initial_mean=None, **labels):
+                     on_step=None, profile=4, initial_mean=None, **labels):
     """``steps`` closed-loop steps of a model's configuration (AutoRally, the
     bicycle, the zoo) from ``x0`` through the entry points: slide, solve,
     step the plant with the first control (``slide_first=False``: solve,
-    plant, slide, as tests/test_vanilla_mppi.py:80-107); then, with
-    ``profile``, a short profiler window. Records the crashed share and the
-    final state; the task bars are the callers'. ``plant(x, u)`` replaces the model's
+    plant, slide, as tests/test_vanilla_mppi.py:80-107); then a profiler
+    window of ``profile`` steps (after one warm-up step when more than one;
+    none with 0 or False). Records the crashed share and the final state;
+    the task bars are the callers'. ``plant(x, u)`` replaces the model's
     step; ``on_step(i, x, ctrl)`` may return a new cost (the waypoint
     updates). Fails unless the kernels launched as ``want`` says and every
     state is finite. Returns (launches, entry launches, the states
@@ -2004,7 +2130,8 @@ def model_loop_phase(path, ctrl, x0, steps, want, *, plant=None, slide_first=Tru
             raise AssertionError(f"{path}: {name} is not finite")
     if res.control_mean.shape != (T_, C_) or res.costs.shape != (K_,):
         raise AssertionError(f"{path}: unexpected result shapes")
-    steady = ev[5:]  # the first solves include one-time allocations
+    # the first solves include one-time allocations (a short loop: its last)
+    steady = ev[min(5, steps - 1):]
     emit(f"{path}_main_path", K=K_, T=T_, **labels, kernel=ctrl.kernel,
          weight_transform=ctrl.weight_transform, steps=steps, launches=launches,
          entry_launches=entries, launches_per_step=sum(launches.values()) / steps,
@@ -2019,7 +2146,7 @@ def model_loop_phase(path, ctrl, x0, steps, want, *, plant=None, slide_first=Tru
             r, _ = ctrl.solve(x, s)
             plant(x, r.control_mean[0])
 
-        profile_steps(path, step, n=4, warmup=1)
+        profile_steps(path, step, n=profile, warmup=1 if profile > 1 else 0)
     return launches, entries, X, res
 
 
@@ -2139,6 +2266,43 @@ def zoo_loops(dev):
     return paths
 
 
+def racer_reference_phase(dev):
+    """Each racer row at full width on kernel="fused_solve" and "fused"
+    against "combined" (``model_reference_phase``): the eager LSTMs and head
+    sum with matmuls over T recurrent steps, the kernels left to right, so
+    the costs are held at rtol 1e-4 / atol 1e-5 and the mean's tolerance
+    follows from the measured cost differences."""
+    for i, pair in enumerate(RACER_PAIRS):
+        model_reference_phase("racer_reference",
+                              lambda k, pair=pair, **kw: build_racer(pair, k, **kw),
+                              racer_x0(pair, dev), K_RC, T_RACER[pair], 91 + i,
+                              cost_tol="solve", pair=pair)
+
+
+def racer_loops(dev):
+    """The racer bench rows' closed loops on the fused solve (the steering
+    row 100 steps, the uncertainty row RACER_UNC_LOOP_STEPS: its eager
+    re-rollout of the mean steps three LSTMs 150 times, about 10^5 launches)
+    and short loops on kernel="fused" (B1 on the path). Returns {path:
+    (launches, entry launches)}."""
+    paths = {}
+    for pair in RACER_PAIRS:
+        kind = pair.split("_")[1]
+        n = CLOSED_LOOP_STEPS if kind == "steering" else RACER_UNC_LOOP_STEPS
+        out = model_loop_phase(f"racer_{kind}", build_racer(pair, "fused_solve"),
+                               racer_x0(pair, dev), n,
+                               {"fused_solve_kernel": n, "flash_combine_kernel": n},
+                               profile=1, pair=pair)
+        paths[f"racer_{kind}"] = out[:2]
+        n = RACER_FUSED_LOOP_STEPS
+        out = model_loop_phase(f"racer_{kind}_fused", build_racer(pair, "fused"),
+                               racer_x0(pair, dev), n,
+                               {"rollout_costs_kernel": n, "flash_combine_kernel": n},
+                               profile=False, pair=pair)
+        paths[f"racer_{kind}_fused"] = out[:2]
+    return paths
+
+
 def bench_row_loops(dev):
     """Two bench rows that need no new kernel code: the bicycle on the
     1024^2 map (bench.py:755-773) and the DI row at K=1024 (:593-597)."""
@@ -2150,9 +2314,11 @@ def bench_row_loops(dev):
                           colored_sampler(None, 0.0, BI_STD, BI_EXPONENTS), dt=DT, lam=LAM,
                           alpha=ALPHA, num_timesteps=T_BI, num_rollouts=K_BI, num_iters=1,
                           kernel="fused")
+    # the same launches as "bicycle_colored": no profiler window of its own
     paths = {"bicycle_1024": model_loop_phase(
         "bicycle_1024", bicycle, torch.zeros(S_BI, device=dev), n,
-        {"rollout_costs_kernel": n, "flash_combine_kernel": n}, map="1024")[0]}
+        {"rollout_costs_kernel": n, "flash_combine_kernel": n}, profile=False,
+        map="1024")[0]}
     di = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
                      make_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
                      num_rollouts=1024, num_iters=1, kernel="fused_solve")
@@ -2268,9 +2434,11 @@ def main() -> int:
     zoo_errs, zoo_times = {}, {}
     for i, (pair, K, p, stride) in enumerate(
             [(pair, K_ZOO, 0.0, 0) for pair in ZOO_PAIRS]
-            + [("cartpole", K_ZOO_RAGGED, 0.1, 2)]):
+            + [("cartpole", K_ZOO_RAGGED, 0.1, 2)]
+            + [(pair, K, p, stride) for pair in RACER_PAIRS
+               for K, p, stride in ((K_RC, 0.0, 0), (K_RC_RAGGED, 0.1, 2))]):
         by_kernel, times = zoo_kernel_phase(dev, pair, K, p, stride, 101 + i,
-                                            timed_plain=K == K_ZOO)
+                                            timed_plain=K in (K_ZOO, K_RC))
         errs_p = zoo_errs.setdefault(pair, dict.fromkeys(by_kernel, 0.0))
         note_into(errs_p, by_kernel)
         zoo_times.setdefault(pair, times)
@@ -2281,6 +2449,7 @@ def main() -> int:
     fused_reference_phase(dev)
     ar_reference_phase(dev)
     colored_reference_phase(dev)
+    racer_reference_phase(dev)
     by_path = {"vanilla": vanilla_loop_phase("vanilla", build_vanilla("gaussian", "fused"), {
                    "rollout_costs_kernel": CLOSED_LOOP_STEPS,
                    "flash_combine_kernel": CLOSED_LOOP_STEPS}, settle=True),
@@ -2293,10 +2462,11 @@ def main() -> int:
     ar_paths = {
         "autorally": ar_loop_phase("autorally", "128", "fused_solve", n, {
             "fused_solve_kernel": n, "flash_combine_kernel": n}),
-        "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n, {
-            "fused_solve_kernel": n, "flash_combine_kernel": n}),
+        # the same launches as "autorally": no profiler window of their own
+        "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n_f, {
+            "fused_solve_kernel": n_f, "flash_combine_kernel": n_f}, profile=False),
         "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f, {
-            "rollout_costs_kernel": n_f, "flash_combine_kernel": n_f}),
+            "rollout_costs_kernel": n_f, "flash_combine_kernel": n_f}, profile=False),
     }
     colored_paths = {
         "colored_fused": vanilla_loop_phase(
@@ -2316,6 +2486,7 @@ def main() -> int:
     bicycle_paths["bicycle_1024"] = row_paths["bicycle_1024"]
     by_path["di_K1024"] = row_paths["di_K1024"]
     zoo_paths = zoo_loops(dev)
+    racer_paths = racer_loops(dev)
 
     def entry(name, source, replaces, t, library_ms, paths=by_path, err=None,
               kernel=None, **extra):
@@ -2407,8 +2578,8 @@ def main() -> int:
     ]
     # the zoo's entries: launches counted per entry (fr.entry_counts) on the
     # zoo's loops
-    def zoo_entry(name, pair, fn, replaces, t, errs_p, kernel, **extra):
-        by = {p: e.get(fn, 0) for p, (_, e) in zoo_paths.items() if e.get(fn, 0)}
+    def zoo_entry(name, pair, fn, replaces, t, errs_p, kernel, paths=zoo_paths, **extra):
+        by = {p: e.get(fn, 0) for p, (_, e) in paths.items() if e.get(fn, 0)}
         return {"name": name, "route": "cuda",
                 "source": f"mppi_generic_tpu_torch/csrc/pair_{pair}.cu",
                 "replaces": f"mppi_generic_tpu/ops/{replaces}",
@@ -2447,11 +2618,41 @@ def main() -> int:
         zoo_errs["cartpole"], "fused_sample_rollout_kernel", K=K_ZOO, T=T_ZOO,
         modes={m: cart[f"B4 {m}"] for m in ("gaussian", "nln", "smooth")}))
     merge_paths = {p: l for p, (l, _) in zoo_paths.items()}
+    zoo_only = [e for pair, e in zoo_errs.items() if pair not in RACER_PAIRS]
     kernels.append(entry(
         "flash_combine_kernel (zoo paths)", "flash_combine.cu", "pallas_rollout.py:1005",
         ts_times["merge"], None, paths=merge_paths,
-        err=max(e["flash_combine_kernel"] for e in zoo_errs.values()),
+        err=max(e["flash_combine_kernel"] for e in zoo_only), kernel="flash_combine_kernel"))
+    # the racer rows: the LSTM step (B10) and, for the steering row, the
+    # elevation map's settling (B9) inside B1 and B3: device functions, not
+    # launches of their own
+    racer_functions = {
+        "LSTMNet::forward (csrc/lstm.cuh)": "mppi_generic_tpu/nn/lstm.py:197, :174",
+        "static_settling via map_query_world (csrc/racer_elevation.cuh, map_texture.cuh)":
+            "mppi_generic_tpu/maps/texture.py:456",
+    }
+    racer_names = {"racer_steering_ar": "RacerLSTMSteering, ARCostRacer",
+                   "racer_unc_ar": "RacerLSTMUnc, ARCostRacer"}
+    for pair, types in racer_names.items():
+        t, e = zoo_times[pair], zoo_errs[pair]
+        kernels.append(zoo_entry(
+            f"rollout_costs_kernel<{types}>", pair, f"rollout_costs_{pair}",
+            "pallas_rollout.py:548", t["B1 epilogue+lr"], e, "rollout_costs_kernel",
+            paths=racer_paths, K=K_RC, T=T_RACER[pair], device_functions=racer_functions,
+            modes={m: t[f"B1 {m}"] for m in ("costs", "costs+lr", "tsallis+lr")}))
+        kernels.append(zoo_entry(
+            f"fused_solve_kernel<{types}>", pair, f"fused_solve_{pair}",
+            "pallas_solve.py:103", t["B3 gaussian"], e, "fused_solve_kernel",
+            paths=racer_paths, K=K_RC, T=T_RACER[pair], device_functions=racer_functions,
+            modes={"nln": t["B3 nln"]}))
+    # the merge at the uncertainty row's shapes (30 rows of T=150, C=2), timed
+    # in the AutoRally phase at the same shapes
+    kernels.append(entry(
+        "flash_combine_kernel (racer paths)", "flash_combine.cu", "pallas_rollout.py:1005",
+        ar["flash_combine"], None, paths={p: l for p, (l, _) in racer_paths.items()},
+        err=max(zoo_errs[pair]["flash_combine_kernel"] for pair in RACER_PAIRS),
         kernel="flash_combine_kernel"))
+    emit("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ it raises; it never moves to the CPU on its own.
 Control-sequence services reproduced from the reference: slide-forward
 (controller.cuh:588-600), 5-tap Savitzky-Golay smoothing with a 2-step
 control history (controller.cuh:557-586), the re-rollout of the mean
-(controller.cuh:643-663) and the free-energy statistics
-(controller.cuh:22-38).
+(controller.cuh:643-663; eager, a recurrent model's LSTM state carried from
+its warm state, ``models.base.rollout_single``) and the free-energy
+statistics (controller.cuh:22-38).
 """
 
 from __future__ import annotations

@@ -38,6 +38,13 @@ Gaussian, NLN (log-MPPI), Smooth-MPPI and colored-noise distributions.
   eager rollout oracle (``ops/rollout.py``), the LR cost from the sampler,
   baseline = min J, the weights and the sampler's mean update.
 
+A recurrent model (the racer LSTM models) carries its LSTM state on every
+path from its warm state: inside the kernels, through the eager rollout and
+through the re-rollout of the mean. A (dynamics, cost) pair or a sampler
+without a kernel entry raises on the card (the racer models have B1 and B3
+entries, so Tsallis, CEM and Smooth-MPPI on ``fused_solve``, which take
+B4, raise for them).
+
 On a CPU device the kernel paths run the kernels' plain versions. ``solve``
 never waits for the device: the seeds, baseline, eta and free energy stay
 tensors on it.

@@ -10,7 +10,16 @@ imports JAX.
   ``weights``, a list of (out, in) arrays, and ``biases``), the bicycle-slip
   model the names of ``models.bicycle_slip.PARAM_NAMES``, the cartpole
   ``cart_mass``, ``pole_mass``, ``pole_length``, the quadrotor ``mass``,
-  ``tau_roll``, ``tau_pitch``, ``tau_yaw`` (dubins: nothing more);
+  ``tau_roll``, ``tau_pitch``, ``tau_yaw`` (dubins: nothing more); the
+  racer LSTM models the names of their ``param_names()``,
+  ``elevation_map`` (None or a texture), ``lstm`` (an LSTM: ``W_im`` ...
+  ``b_c``, ``initial_hidden``, ``initial_cell``, ``output_nn``, an FNN),
+  ``warm_hidden``, ``warm_cell`` and optionally ``lstm_lstm`` (None or
+  ``init_model``, ``pred_model``, two LSTMs, and ``init_len``); the
+  uncertainty model also ``mean_lstm``, ``unc_lstm``, their
+  ``mean_lstm_lstm``, ``unc_lstm_lstm`` and the warm states
+  ``mean_warm_hidden``, ``mean_warm_cell``, ``unc_warm_hidden``,
+  ``unc_warm_cell``;
 * cost: the circle cost ``velocity_cost``, ``crash_cost``,
   ``velocity_desired``, ``inner_path_radius2``, ``outer_path_radius2``,
   ``angular_momentum_desired``, ``discount``; the AutoRally costs their
@@ -71,7 +80,12 @@ from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.models.dubins import DubinsDynamics
 from mppi_generic_tpu_torch.models.quadrotor import QuadrotorDynamics
+from mppi_generic_tpu_torch.models.racer_dubins_elevation import (
+    RacerDubinsElevationLSTMSteering,
+)
+from mppi_generic_tpu_torch.models.racer_dubins_unc import RacerDubinsElevationLSTMUncertainty
 from mppi_generic_tpu_torch.nn.fnn import FNN
+from mppi_generic_tpu_torch.nn.lstm import LSTM, LSTMLSTM
 from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
 from mppi_generic_tpu_torch.sampling.nln import NLNDistribution
@@ -147,6 +161,48 @@ def dubins_from_params(p: dict, device="cpu") -> DubinsDynamics:
     return DubinsDynamics(device=device, **_constraints(p))
 
 
+LSTM_FIELDS = ("W_im", "W_fm", "W_om", "W_cm", "W_ii", "W_fi", "W_oi", "W_ci",
+               "b_i", "b_f", "b_o", "b_c")
+
+
+def lstm_from_params(p: dict, device="cpu") -> LSTM:
+    out = p.get("output_nn")
+    return LSTM(*(_arr(p[n]) for n in LSTM_FIELDS), initial_hidden=_arr(p["initial_hidden"]),
+                initial_cell=_arr(p["initial_cell"]),
+                output_nn=None if out is None else fnn_from_params(out), device=device)
+
+
+def lstm_lstm_from_params(p, device="cpu") -> LSTMLSTM | None:
+    if p is None:
+        return None
+    return LSTMLSTM(lstm_from_params(p["init_model"]), lstm_from_params(p["pred_model"]),
+                    int(p["init_len"])).to(device)
+
+
+def _racer_kwargs(p: dict, cls) -> dict:
+    emap = p.get("elevation_map")
+    return dict(elevation_map=None if emap is None else texture_from_params(emap),
+                lstm_lstm=lstm_lstm_from_params(p.get("lstm_lstm")),
+                **_constraints(p),
+                **{name: _arr(p[name]) for name in cls.param_names() if name in p})
+
+
+def racer_steering_from_params(p: dict, device="cpu") -> RacerDubinsElevationLSTMSteering:
+    cls = RacerDubinsElevationLSTMSteering
+    return cls(lstm_from_params(p["lstm"]), warm_hidden=_arr(p["warm_hidden"]),
+               warm_cell=_arr(p["warm_cell"]), device=device, **_racer_kwargs(p, cls))
+
+
+def racer_unc_from_params(p: dict, device="cpu") -> RacerDubinsElevationLSTMUncertainty:
+    cls = RacerDubinsElevationLSTMUncertainty
+    return cls(lstm_from_params(p["lstm"]), lstm_from_params(p["mean_lstm"]),
+               lstm_from_params(p["unc_lstm"]),
+               mean_lstm_lstm=lstm_lstm_from_params(p.get("mean_lstm_lstm")),
+               unc_lstm_lstm=lstm_lstm_from_params(p.get("unc_lstm_lstm")),
+               warm={n: _arr(p[n]) for n in cls.WARM}, device=device,
+               **_racer_kwargs(p, cls))
+
+
 def circle_cost_from_params(p: dict, device="cpu") -> DoubleIntegratorCircleCost:
     return DoubleIntegratorCircleCost(
         **{name: _scalar(p[name]) for name in DoubleIntegratorCircleCost.PARAM_NAMES},
@@ -203,7 +259,9 @@ DYNAMICS = {"double_integrator": double_integrator_from_params,
             "bicycle_slip": bicycle_slip_from_params,
             "cartpole": cartpole_from_params,
             "quadrotor": quadrotor_from_params,
-            "dubins": dubins_from_params}
+            "dubins": dubins_from_params,
+            "racer_steering": racer_steering_from_params,
+            "racer_unc": racer_unc_from_params}
 COSTS = {"circle": circle_cost_from_params,
          "ar_standard": ar_cost_from_params,
          "ar_robust": functools.partial(ar_cost_from_params, robust=True),

@@ -21,8 +21,8 @@ ar_robust_cost.cu), term for term:
 dynamics' output. The CUDA kernels carry the same cost in
 ``csrc/ar_standard_cost.cuh`` (both variants, the indices a template
 argument: each kernel entry is compiled for its model's layout, AutoRally's
-(0, 1, 2, 3, 4, 5) or the bicycle-slip model's (0, 1, 2, 8, 5, 6), and
-refuses another); they read the packed ``params`` table: the values of
+(0, 1, 2, 3, 4, 5), the bicycle-slip model's (0, 1, 2, 8, 5, 6) or the racer
+models' (2, 3, 5, 6, 0, 1), and refuses another); they read the packed ``params`` table: the values of
 ``PARAM_NAMES``, then int32 words [flags, H, W, offset, stride] and the map's
 origin, rotation rows and resolution (``csrc/ar_standard_cost.cuh``
 ``load``).

@@ -6,6 +6,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 // samples (threads) per block of the rollout and sampling kernels: one
 // epilogue row per block of this many (BLOCK in ops/fused_rollout.py)
 constexpr int kBlockSamples = 64;
@@ -15,13 +17,62 @@ constexpr float kMinPad = static_cast<float>(1e30);
 
 // What a (dynamics, cost) pair reads besides the samples: the dynamics'
 // parameter table (staged into shared memory by Dyn::stage; null for a model
-// without one), the cost's packed parameters and the cost's map data (null
-// for a cost without one).
+// without one), the cost's packed parameters, the cost's map data (null for
+// a cost without one) and the dynamics' map data (the racer models'
+// elevation map; null for every other model).
 struct ModelArgs {
   const float* dyn_params;
   const float* cost_params;
   const float* cost_map;
+  const float* dyn_map;
 };
+
+// The model interface of the rollout and sampling kernels. Every Dyn has S,
+// C, O, kStaged, Shared, stage(params, sh) and step(sh, x, u, t, dt, y). A
+// recurrent model (an LSTM in the step, B10) also has R, the floats of its
+// per-thread carry (each LSTM's h and c), init_rec(sh, rec), which fills the
+// carry from the staged warm state before the horizon loop, and the step
+// step(sh, x, rec, u, t, dt, y); a model that reads a map of its own has
+// kDynMap and stage(params, dyn_map, sh). The traits below pick the form, so
+// the stateless models' code is what it was.
+template <class D, class = void>
+struct RecDim {
+  static constexpr int value = 0;
+};
+template <class D>
+struct RecDim<D, std::void_t<decltype(D::R)>> {
+  static constexpr int value = D::R;
+};
+
+template <class D, class = void>
+struct ReadsDynMap : std::false_type {};
+template <class D>
+struct ReadsDynMap<D, std::void_t<decltype(D::kDynMap)>> : std::true_type {};
+
+template <class Dyn>
+__device__ inline void stage_model(const ModelArgs& m, typename Dyn::Shared* sh) {
+  if constexpr (ReadsDynMap<Dyn>::value) {
+    Dyn::stage(m.dyn_params, m.dyn_map, sh);
+  } else {
+    Dyn::stage(m.dyn_params, sh);
+  }
+}
+
+template <class Dyn>
+__device__ inline void init_rec(const typename Dyn::Shared& sh, float* rec) {
+  if constexpr (RecDim<Dyn>::value > 0) Dyn::init_rec(sh, rec);
+}
+
+template <class Dyn>
+__device__ inline void step_model(const typename Dyn::Shared& sh, float* x,
+                                  float* rec, const float* u, float t, float dt,
+                                  float* y) {
+  if constexpr (RecDim<Dyn>::value > 0) {
+    Dyn::step(sh, x, rec, u, t, dt, y);
+  } else {
+    Dyn::step(sh, x, u, t, dt, y);
+  }
+}
 
 // enforceConstraints for one channel (dynamics.cuh:250-264, the TPU kernels'
 // _clamp_channel, pallas_rollout.py:481-488): deadband snap and shrink, then

@@ -1,0 +1,110 @@
+// The RACER Dubins elevation model with LSTM steering for the rollout and
+// solve kernels: a recurrent model (R = 32, the LSTM's h and c) that reads
+// its own elevation map.
+//
+// Device twin of RacerDubinsElevationLSTMSteering.kernel_step_recurrent in
+// mppi_generic_tpu_torch/models/racer_dubins_elevation.py (the JAX package's
+// step_recurrent, racer_dubins_elevation.py:327-357; reference
+// racer_dubins_elevation_lstm_steering.cu): state [vel_x, yaw, pos_x,
+// pos_y, steer_angle, brake_state, steer_angle_rate, roll, pitch], control
+// [throttle_brake, steer_cmd], 13 outputs. Per step: the parametric steering
+// rate, the LSTM (lstm.cuh, B10) over [vel_x, steer_angle, steer_cmd,
+// parametric rate] correcting it, the elevation model's derivatives
+// (racer_elevation.cuh), the Euler update with the yaw wrap and the steer
+// and brake clamps, then static settling on the elevation map (four B9
+// queries) with the new position and yaw and the *old* roll and pitch.
+//
+// The table (kernel_params): the model's params (27 floats, the brake limit
+// last), the map block (20), the LSTM's table (4 -> 16, head 20-16-1: 1,697
+// floats) and the warm h, c (16 each): 1,776 floats staged in shared memory
+// by every block. The map data pointer comes apart (ModelArgs::dyn_map).
+#pragma once
+
+#include <math.h>
+
+#include "lstm.cuh"
+#include "math_utils.cuh"
+#include "racer_elevation.cuh"
+
+struct RacerLSTMSteering {
+  static constexpr int S = 9;    // state
+  static constexpr int C = 2;    // control
+  static constexpr int O = 13;   // output
+  static constexpr int H = 16;   // the LSTM's hidden units
+  static constexpr int R = 2 * H;  // the carry: h, c
+  static constexpr bool kStaged = true;
+  static constexpr bool kDynMap = true;
+  using Net = LSTMNet<4, H, 16, 1>;
+  // offsets into the table
+  static constexpr int kBrakeMax = racer::kElevationParams;
+  static constexpr int kMap = kBrakeMax + 1;
+  static constexpr int kNet = kMap + racer::kMapBlock;
+  static constexpr int kWarm = kNet + Net::kParams;
+  static constexpr int kTable = kWarm + R;
+
+  struct Shared {
+    float p[kTable];
+    const float* map;
+  };
+
+  // every thread of the block; the kernel syncs after
+  __device__ static inline void stage(const float* __restrict__ params,
+                                      const float* map, Shared* sh) {
+    for (int i = threadIdx.x; i < kTable; i += blockDim.x) sh->p[i] = params[i];
+    if (threadIdx.x == 0) sh->map = map;
+  }
+
+  __device__ static inline void init_rec(const Shared& sh, float* rec) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) rec[i] = sh.p[kWarm + i];
+  }
+
+  __device__ static inline void step(const Shared& sh, float* x, float* rec,
+                                     const float* u, float /*t*/, float dt,
+                                     float* y) {
+    const float* p = sh.p;
+    const float steer_d_param = racer::steer_deriv(p, x, u);
+    const float feats[4] = {x[0], x[4], u[1], steer_d_param};
+    float delta[1];
+    Net::forward(p + kNet, rec, rec + H, feats, delta);
+    const float steer_d = steer_d_param + delta[0];
+
+    float xd[S];
+    xd[0] = racer::vel_deriv(p, x[0], x[5], x[8], u[0]);
+    xd[1] = racer::yaw_rate(p, x[0], x[4]);
+    xd[2] = x[0] * cosf(x[1]);
+    xd[3] = x[0] * sinf(x[1]);
+    xd[4] = steer_d;
+    xd[5] = racer::brake_deriv(p, u[0], x[5]);
+    float xn[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) xn[i] = x[i] + xd[i] * dt;
+    const float yaw = normalize_angle(xn[1]);
+    const float steer = racer::clamp_steer(p, xn[4]);
+    const float brake = racer::clamp_brake(xn[5], p[kBrakeMax]);
+    float settled[3];  // roll, pitch, height
+    racer::static_settling(p + kMap, sh.map, xn[2], xn[3], yaw, x[7], x[8], settled);
+    x[0] = xn[0];
+    x[1] = yaw;
+    x[2] = xn[2];
+    x[3] = xn[3];
+    x[4] = steer;
+    x[5] = brake;
+    x[6] = steer_d;
+    x[7] = settled[0];
+    x[8] = settled[1];
+    y[0] = x[0];
+    y[1] = 0.0f;
+    y[2] = x[2];
+    y[3] = x[3];
+    y[4] = settled[2];
+    y[5] = yaw;
+    y[6] = x[7];
+    y[7] = x[8];
+    y[8] = steer;
+    y[9] = steer_d;
+    y[10] = xd[0];
+    y[11] = xd[1];
+    y[12] = fabsf(x[0]);
+  }
+};

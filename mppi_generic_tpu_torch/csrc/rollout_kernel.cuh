@@ -86,13 +86,14 @@ rollout_costs_kernel(const float* __restrict__ x0,
   constexpr int S = Dyn::S;
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
+  constexpr int R = RecDim<Dyn>::value;
   const int TC = T * C;
   const int k = blockIdx.x * kBlockSamples + threadIdx.x;
   const bool valid = k < K;
 
   // the model's parameters, staged by every thread before any returns
   __shared__ typename Dyn::Shared dyn_sh;
-  Dyn::stage(m.dyn_params, &dyn_sh);
+  stage_model<Dyn>(m, &dyn_sh);
   if (Dyn::kStaged) __syncthreads();
 
   float J = 0.0f;
@@ -100,6 +101,8 @@ rollout_costs_kernel(const float* __restrict__ x0,
     const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
     float x[S];
     float y[O];
+    float rec[R > 0 ? R : 1];  // a recurrent model's carry (LSTM h, c)
+    init_rec<Dyn>(dyn_sh, rec);
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = PER_SAMPLE_X0 ? x0[k * S + i] : x0[i];
 #pragma unroll
@@ -112,7 +115,7 @@ rollout_costs_kernel(const float* __restrict__ x0,
       float u[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) u[c] = u_row[t * C + c];
-      Dyn::step(dyn_sh, x, u, static_cast<float>(t), dt, y);
+      step_model<Dyn>(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
       float cost = Cost::running_cost(cp, y, u, t, &crash);
       if (WITH_LR) {
         float lr_t = 0.0f;
@@ -188,7 +191,8 @@ int rollout_entry(int device, const float* x0, const float* U, int K, int T,
 // The C entry of kernel 1 for one (dynamics, cost) pair, to be expanded
 // inside extern "C". Every pointer is memory of CUDA device `device`, and
 // `stream` one of its streams; dyn_params and cost_map may be null for a
-// pair that reads none, lr_* when with_lr == 0. epilogue: 0 none (carry may
+// pair that reads none (dyn_map is null for every pair but the racer
+// models'), lr_* when with_lr == 0. epilogue: 0 none (carry may
 // be null), 1 the exp carry rows (nb, 2 + T*C), 2 the Tsallis block minima
 // (nb,). x0 is (K, S) when per_sample_x0 != 0, which only an entry built
 // with X0 true takes, else (S,), which only one built with X0 false takes.
@@ -196,13 +200,14 @@ int rollout_entry(int device, const float* x0, const float* U, int K, int T,
 #define ROLLOUT_ENTRY(NAME, DYN, COST, X0)                                    \
   int NAME(int device, const float* x0, const float* U, int K, int T,        \
            float dt, const float* dyn_params, const float* cost_params,      \
-           const float* cost_map, const float* lr_mean,                      \
-           const float* lr_sigma, const float* lr_coeff, float lr_gain,      \
-           float pure_thresh, int with_lr, int epilogue, int per_sample_x0,  \
-           float lam_w, float* costs, int* crash, float* carry,              \
-           void* stream) {                                                   \
+           const float* cost_map, const float* dyn_map,                      \
+           const float* lr_mean, const float* lr_sigma,                      \
+           const float* lr_coeff, float lr_gain, float pure_thresh,          \
+           int with_lr, int epilogue, int per_sample_x0, float lam_w,        \
+           float* costs, int* crash, float* carry, void* stream) {           \
     return rollout_entry<DYN, COST, X0>(                                     \
-        device, x0, U, K, T, dt, ModelArgs{dyn_params, cost_params, cost_map}, \
+        device, x0, U, K, T, dt,                                             \
+        ModelArgs{dyn_params, cost_params, cost_map, dyn_map},               \
         LRArgs{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh}, with_lr,  \
         epilogue, per_sample_x0, lam_w, costs, crash, carry, stream);        \
   }

@@ -125,13 +125,14 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
   constexpr int S = Dyn::S;
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
+  constexpr int R = RecDim<Dyn>::value;
   const int TC = T * C;
   const int k = blockIdx.x * kBlockSamples + threadIdx.x;
   const bool valid = k < K;
 
   // the model's parameters, staged by every thread before any returns
   __shared__ typename Dyn::Shared dyn_sh;
-  Dyn::stage(m.dyn_params, &dyn_sh);
+  stage_model<Dyn>(m, &dyn_sh);
   if (Dyn::kStaged) __syncthreads();
 
   float J = 0.0f;
@@ -140,6 +141,8 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
     const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
     float x[S];
     float y[O];
+    float rec[R > 0 ? R : 1];  // a recurrent model's carry (LSTM h, c)
+    init_rec<Dyn>(dyn_sh, rec);
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = x0[i];
 #pragma unroll
@@ -165,7 +168,7 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
         u_row[t * C + c] = v;
         lr = lr + a.lr_tab[t * C + c] * mu * (mu - 2.0f * v);
       }
-      Dyn::step(dyn_sh, x, u, static_cast<float>(t), dt, y);
+      step_model<Dyn>(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
       acc = acc + Cost::running_cost(cp, y, u, t, &crash);
     }
     J = (acc + Cost::terminal_cost(cp, y) + lr_gain * lr) /
@@ -186,12 +189,13 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
   constexpr int S = Dyn::S;
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
+  constexpr int R = RecDim<Dyn>::value;
   const int TC = T * C;
   const int k = blockIdx.x * kBlockSamples + threadIdx.x;
   const bool valid = k < K;
 
   __shared__ typename Dyn::Shared dyn_sh;
-  Dyn::stage(m.dyn_params, &dyn_sh);
+  stage_model<Dyn>(m, &dyn_sh);
   if (Dyn::kStaged) __syncthreads();
 
   float J = 0.0f;
@@ -200,6 +204,8 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
     const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
     float x[S];
     float y[O];
+    float rec[R > 0 ? R : 1];
+    init_rec<Dyn>(dyn_sh, rec);
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = x0[i];
 #pragma unroll
@@ -238,7 +244,7 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
         lr_t = lr_t + a.lr_tab[c] * mu * (mu - 2.0f * u[c]) / (sg * sg);
       }
       lr_t = lr_gain * lr_t;
-      Dyn::step(dyn_sh, x, u, static_cast<float>(t), dt, y);
+      step_model<Dyn>(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
       acc = acc + Cost::running_cost(cp, y, u, t, &crash) + lr_t;
     }
     J = (acc + Cost::terminal_cost(cp, y)) / static_cast<float>(T);
@@ -310,24 +316,24 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
 // The C entry of B3 for one (dynamics, cost) pair, to be expanded inside
 // extern "C"; noise_kind 0 is the Gaussian sampler, 1 NLN. Every pointer is
 // memory of CUDA device `device`, `stream` one of its streams; zinj may be
-// null, and dyn_params and cost_map for a pair that reads none. U (K, T, C)
-// and carry (ceil(K / kBlockSamples), 2 + T*C) are written. Returns the CUDA
-// error of the launch (0 when it was accepted), or cudaErrorInvalidValue for
-// a noise kind this kernel does not draw.
+// null, and dyn_params, cost_map and dyn_map for a pair that reads none.
+// U (K, T, C) and carry (ceil(K / kBlockSamples), 2 + T*C) are written.
+// Returns the CUDA error of the launch (0 when it was accepted), or
+// cudaErrorInvalidValue for a noise kind this kernel does not draw.
 #define SOLVE_ENTRY(NAME, DYN, COST)                                          \
   int NAME(int device, int noise_kind, const float* x0, const float* mean,   \
            const float* sigma, const float* aux, const float* lrc,           \
            const float* cons, const int* seed, const float* zinj, int K,     \
            int T, int stride, float pure_thresh, float dt, float lr_gain,    \
            float lam_w, const float* dyn_params, const float* cost_params,   \
-           const float* cost_map, float* costs, int* crash, float* U,        \
-           float* carry, void* stream) {                                     \
+           const float* cost_map, const float* dyn_map, float* costs,        \
+           int* crash, float* U, float* carry, void* stream) {               \
     const SampleArgs a{mean, sigma, aux, lrc, cons, seed, zinj,              \
                        stride, pure_thresh, 0.0f};                            \
     return fused_solve_entry<DYN, COST>(                                     \
         device, noise_kind, x0, a, K, T, dt,                                 \
-        ModelArgs{dyn_params, cost_params, cost_map}, lr_gain, lam_w, costs, \
-        crash, U, carry, stream);                                            \
+        ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, lr_gain,      \
+        lam_w, costs, crash, U, carry, stream);                              \
   }
 
 // The C entry of B4 for one (dynamics, cost) pair, to be expanded inside
@@ -343,12 +349,12 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
            const float* zinj, int K, int T, int stride, float pure_thresh,   \
            float dt_smooth, float dt, float lr_gain, float lam_w,            \
            const float* dyn_params, const float* cost_params,                \
-           const float* cost_map, float* costs, int* crash, float* U,        \
-           float* W, float* carry, void* stream) {                           \
+           const float* cost_map, const float* dyn_map, float* costs,        \
+           int* crash, float* U, float* W, float* carry, void* stream) {     \
     const SampleArgs a{mean, sigma, aux, coeff, cons, seed, zinj,            \
                        stride, pure_thresh, dt_smooth};                       \
     return fused_sample_entry<DYN, COST>(                                    \
         device, noise_kind, epilogue, x0, a, K, T, dt,                       \
-        ModelArgs{dyn_params, cost_params, cost_map}, lr_gain, lam_w, costs, \
-        crash, U, W, carry, stream);                                         \
+        ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, lr_gain,      \
+        lam_w, costs, crash, U, W, carry, stream);                           \
   }

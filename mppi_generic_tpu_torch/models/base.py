@@ -76,6 +76,30 @@ class Dynamics(nn.Module):
         for parameters the compiled kernels do not take."""
         return None
 
+    def kernel_map(self):
+        """The map data the kernels' step reads (the racer models' elevation
+        map), or None; its description is in ``kernel_params``."""
+        return None
+
+    # --- recurrent models (an LSTM in the rollout) ------------------------
+    # The reference keeps each rollout's LSTM hidden and cell state in the
+    # kernel's shared memory (lstm_helper.cuh:130-133); here it is a tuple of
+    # (H,) tensors carried beside the state (None for a stateless model),
+    # broadcast to (H, K) for a batch of samples (``broadcast_rec``).
+    def init_recurrent_state(self):
+        return None
+
+    def step_recurrent(self, x, rec, u, t, dt):
+        """One step of a recurrent model: (x_next, output, rec_next). The
+        default is the stateless step."""
+        x_next, y = self.step(x, u, t, dt)
+        return x_next, y, rec
+
+    def kernel_step_recurrent(self, x, rec, u, t, dt):
+        """``step_recurrent`` in the CUDA kernels' order of operations."""
+        x_next, y = self.kernel_step(x, u, t, dt)
+        return x_next, y, rec
+
     @classmethod
     def _default_constraints(cls, control_ranges=None, control_deadband=None,
                              zero_control=None):
@@ -126,18 +150,76 @@ class Dynamics(nn.Module):
         return state_true + torch.clamp(diff, -leash, leash)
 
 
+class PackedParamsDynamics(Dynamics):
+    """A model whose named float parameters (``PARAMS``: (name, default)
+    pairs, a default may be a tuple) are packed into one float32 buffer
+    ``params``, followed by the brake limit -control_ranges[0, 0] (the
+    table its CUDA step stages); each name reads as a view of its slot, a
+    0-d one for a scalar default (a device scalar: a division by it is one
+    IEEE division on CUDA). The control ranges default to [-1, 1] for the
+    two controls of the car models."""
+
+    PARAMS = ()
+
+    def __init__(self, control_ranges=None, control_deadband=None, zero_control=None,
+                 device="cpu", **params):
+        if control_ranges is None:
+            control_ranges = [[-1.0, 1.0], [-1.0, 1.0]]
+        super().__init__(control_ranges, control_deadband, zero_control, device=device)
+        names = tuple(name for name, _ in self.PARAMS)
+        unknown = set(params) - set(names)
+        if unknown:
+            raise TypeError(f"unknown {type(self).__name__} parameters {sorted(unknown)}")
+        values, self._slots = [], {}
+        for name, default in self.PARAMS:
+            v = np.asarray(params.get(name, default), np.float32).reshape(-1)
+            self._slots[name] = (len(values), len(v) if np.ndim(default) else 0)
+            values.extend(v.tolist())
+        brake_max = -np.asarray(control_ranges, np.float32).reshape(2, 2)[0, 0]
+        self.register_buffer("params", torch.tensor(
+            np.asarray(values + [brake_max], np.float32), device=device))
+
+    @classmethod
+    def create(cls, control_ranges=None, device="cpu", **params):
+        return cls(control_ranges, device=device, **params)
+
+    @classmethod
+    def param_names(cls):
+        return tuple(name for name, _ in cls.PARAMS)
+
+    def __getattr__(self, name):
+        slots = self.__dict__.get("_slots")
+        if slots is not None and name in slots:
+            i, n = slots[name]
+            return self.params[i] if n == 0 else self.params[i:i + n]
+        return super().__getattr__(name)
+
+    @property
+    def brake_max(self):
+        return self.params[-1]
+
+
+def broadcast_rec(rec, K):
+    """A recurrent state of (H,) leaves as (H, K) blocks, one column per
+    sample (None stays None)."""
+    if rec is None:
+        return None
+    return tuple(r[:, None].expand(-1, K) for r in rec)
+
+
 def rollout_single(dynamics: Dynamics, x0, U, dt) -> Tuple[torch.Tensor, torch.Tensor]:
     """Roll one control sequence (T, C) from x0; returns (states (T+1, S),
-    outputs (T, O)). The analog of computeStateTrajectoryHelper.
+    outputs (T, O)). The analog of computeStateTrajectoryHelper. A recurrent
+    model's state starts from ``init_recurrent_state`` and rides along.
 
     The JAX version clamps each control inside its scan; the clamp does not
     depend on the state, so here it runs once over the whole sequence.
     """
     U = dynamics.enforce_constraints(None, U.T).T
-    x = x0
+    x, rec = x0, dynamics.init_recurrent_state()
     states, outputs = [x0], []
     for t in range(U.shape[0]):
-        x, y = dynamics.step(x, U[t], float(t), dt)
+        x, y, rec = dynamics.step_recurrent(x, rec, U[t], float(t), dt)
         states.append(x)
         outputs.append(y)
     return torch.stack(states), torch.stack(outputs)

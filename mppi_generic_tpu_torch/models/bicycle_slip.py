@@ -25,10 +25,9 @@ the packed ``params`` table, which ends with the brake limit
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from mppi_generic_tpu_torch.models.base import Dynamics
+from mppi_generic_tpu_torch.models.base import PackedParamsDynamics
 from mppi_generic_tpu_torch.utils import math_utils
 
 # (name, default): the JAX package's fields in the order of the kernels'
@@ -62,38 +61,12 @@ def _tanh_scale(x, c):
     return c[0] * torch.tanh(c[1] * x)
 
 
-class BicycleSlipDynamics(Dynamics):
+class BicycleSlipDynamics(PackedParamsDynamics):
     STATE_DIM = 10
     CONTROL_DIM = 2
     OUTPUT_DIM = 10
 
-    def __init__(self, control_ranges=None, control_deadband=None, zero_control=None,
-                 device="cpu", **params):
-        if control_ranges is None:
-            control_ranges = [[-1.0, 1.0], [-1.0, 1.0]]
-        super().__init__(control_ranges, control_deadband, zero_control, device=device)
-        unknown = set(params) - set(PARAM_NAMES)
-        if unknown:
-            raise TypeError(f"unknown bicycle-slip parameters {sorted(unknown)}")
-        values, self._slots = [], {}
-        for name, default in PARAMS:
-            v = np.asarray(params.get(name, default), np.float32).reshape(-1)
-            self._slots[name] = (len(values), len(v))
-            values.extend(v.tolist())
-        brake_max = -np.asarray(control_ranges, np.float32).reshape(2, 2)[0, 0]
-        self.register_buffer("params", torch.tensor(
-            np.asarray(values + [brake_max], np.float32), device=device))
-
-    @classmethod
-    def create(cls, control_ranges=None, device="cpu", **params):
-        return cls(control_ranges, device=device, **params)
-
-    def __getattr__(self, name):
-        slots = self.__dict__.get("_slots")
-        if slots is not None and name in slots:
-            i, n = slots[name]
-            return self.params[i] if n == 1 else self.params[i:i + n]
-        return super().__getattr__(name)
+    PARAMS = PARAMS
 
     def state_deriv(self, x, u, t=0.0):
         yaw, steer, brake = x[2], x[3], x[4]
@@ -139,7 +112,7 @@ class BicycleSlipDynamics(Dynamics):
         x_next = x + xdot * dt
         yaw = math_utils.normalize_angle(x_next[2])
         steer = torch.clamp(x_next[3], -self.max_steer_angle, self.max_steer_angle)
-        brake = torch.minimum(torch.clamp(x_next[4], min=0.0), self.params[-1])
+        brake = torch.minimum(torch.clamp(x_next[4], min=0.0), self.brake_max)
         return torch.stack([x_next[0], x_next[1], yaw, steer, brake, x_next[5],
                             x_next[6], x_next[7], x_next[8], x_next[9]])
 

@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ROLLOUT = [
     _I, _P, _P, _I, _I, _F,  # device, x0, U, K, T, dt
-    _P, _P, _P,              # dynamics params, cost params, cost map
+    _P, _P, _P, _P,          # dynamics params, cost params, cost map, dynamics map
     _P, _P, _P, _F, _F, _I,  # lr mean/sigma/coeff, gain, thresh, with_lr
     _I, _I, _F,              # epilogue, per-sample x0, lam_w
     _P, _P, _P, _P,          # costs, crash, carry, stream
@@ -50,14 +50,14 @@ _SOLVE = [
     _I, _I, _P, _P, _P, _P, _P, _P,  # device, noise kind, x0, mean, sigma, aux, lrc, cons
     _P, _P, _I, _I, _I,              # seed, injected normals, K, T, stride
     _F, _F, _F, _F,                  # pure thresh, dt, lr gain, lam_w
-    _P, _P, _P,                      # dynamics params, cost params, cost map
+    _P, _P, _P, _P,                  # dynamics params, cost params, cost map, dynamics map
     _P, _P, _P, _P, _P,              # costs, crash, U, carry, stream
 ]
 _SAMPLE = [
     _I, _I, _I, _P, _P, _P, _P, _P, _P,  # device, kind, epilogue, x0, mean, sigma, aux, coeff, cons
     _P, _P, _I, _I, _I,                  # seed, injected normals, K, T, stride
     _F, _F, _F, _F, _F,                  # pure thresh, dt_smooth, dt, lr gain, lam_w
-    _P, _P, _P,                          # dynamics params, cost params, cost map
+    _P, _P, _P, _P,                      # dynamics params, cost params, cost map, dynamics map
     _P, _P, _P, _P, _P, _P,              # costs, crash, U, W, carry, stream
 ]
 # The (dynamics, cost) pairs with kernel entries: each has its own source
@@ -75,6 +75,8 @@ PAIR_KERNELS = {
     "quadrotor_map": ("rollout", "solve"),
     "dubins_quadratic": ("rollout", "solve"),
     "di_quadratic": ("rollout", "solve"),
+    "racer_steering_ar": ("rollout", "solve"),
+    "racer_unc_ar": ("rollout", "solve"),
 }
 _ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
                  "solve": "fused_solve_", "sample": "fused_sample_rollout_"}

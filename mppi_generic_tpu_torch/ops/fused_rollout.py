@@ -44,15 +44,21 @@ AutoRally cost (the FNN and the track costmap inside the kernel); the
 bicycle-slip model with the AutoRally costs on its output layout (the
 rollout kernel only); the cartpole with its quadratic cost (every kernel);
 the quadrotor with ``QuadrotorQuadraticCost`` or ``QuadrotorMapCost``; and
-the Dubins car with ``QuadraticCost``. The RMPPI kernel has the double
-integrator's entry only. Each pair reads its parameters through
-``Dynamics.kernel_params`` and ``Cost.kernel_map`` besides the cost's
-``params`` table.
+the Dubins car with ``QuadraticCost``; the racer LSTM-steering model on its
+elevation map and the racer LSTM-uncertainty model on flat ground, each with
+``ARStandardCost`` on the racer output layout (the LSTM step, B10, inside
+the kernel, its (h, c) carried through the horizon loop). The RMPPI kernel
+has the double integrator's entry only. Each pair reads its parameters
+through ``Dynamics.kernel_params``, ``Dynamics.kernel_map`` (the racer
+elevation map) and ``Cost.kernel_map`` besides the cost's ``params`` table.
+
+A recurrent model's (h, c) start from its ``init_recurrent_state`` (the
+warm state, the same for every sample) and ride the loop beside the state.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module, with the same arithmetic) for CPU tensors.
-The plain versions step with ``Dynamics.kernel_step``, the model's step in
-the kernels' order of operations.
+The plain versions step with ``Dynamics.kernel_step_recurrent``, the
+model's step in the kernels' order of operations.
 There is no fallback: a CUDA tensor the kernel does not take raises. Every
 launch adds one to ``launch_counts`` under the kernel's name.
 
@@ -74,11 +80,16 @@ from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircl
 from mppi_generic_tpu_torch.costs.quadratic import QuadraticCost
 from mppi_generic_tpu_torch.costs.quadrotor import QuadrotorMapCost, QuadrotorQuadraticCost
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
+from mppi_generic_tpu_torch.models.base import broadcast_rec
 from mppi_generic_tpu_torch.models.bicycle_slip import BicycleSlipDynamics
 from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.models.dubins import DubinsDynamics
 from mppi_generic_tpu_torch.models.quadrotor import QuadrotorDynamics
+from mppi_generic_tpu_torch.models.racer_dubins_elevation import (
+    RacerDubinsElevationLSTMSteering,
+)
+from mppi_generic_tpu_torch.models.racer_dubins_unc import RacerDubinsElevationLSTMUncertainty
 from mppi_generic_tpu_torch.ops import _build, philox
 from mppi_generic_tpu_torch.ops._build import entry_counts, launch_counts, reset_launch_counts
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
@@ -122,6 +133,8 @@ _PAIRS = {
     (QuadrotorDynamics, QuadrotorMapCost): "quadrotor_map",
     (DubinsDynamics, QuadraticCost): "dubins_quadratic",
     (DoubleIntegratorDynamics, QuadraticCost): "di_quadratic",
+    (RacerDubinsElevationLSTMSteering, ARStandardCost): "racer_steering_ar",
+    (RacerDubinsElevationLSTMUncertainty, ARStandardCost): "racer_unc_ar",
 }
 # what a pair's entries are compiled for, beyond the classes: the AutoRally
 # cost's output_indices (the ARCostT template arguments) and QuadraticCost's
@@ -131,6 +144,8 @@ _COST_LAYOUT = {
     "bicycle_ar": ("output_indices", (0, 1, 2, 8, 5, 6)),
     "dubins_quadratic": ("OUTPUT_DIM", 3),
     "di_quadratic": ("OUTPUT_DIM", 4),
+    "racer_steering_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
+    "racer_unc_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
 }
 _RMPPI_ENTRY = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rmppi_rollout_di_circle",
@@ -187,6 +202,7 @@ def rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params=None):
     K, T, C = U.shape
     Uc = U.permute(2, 1, 0)  # (C, T, K)
     x = x0.T if x0.dim() == 2 else x0[:, None].expand(-1, K)
+    rec = broadcast_rec(dynamics.init_recurrent_state(), K)
     crash = torch.zeros((K,), dtype=torch.int32, device=U.device)
     acc = torch.zeros((K,), dtype=torch.float32, device=U.device)
     if lr_params is not None:
@@ -196,7 +212,7 @@ def rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params=None):
     y = None
     for t in range(T):
         u = Uc[:, t]
-        x, y = dynamics.kernel_step(x, u, float(t), dt)
+        x, y, rec = dynamics.kernel_step_recurrent(x, rec, u, float(t), dt)
         c, crash = cost.running_cost(y, u, t, crash)
         if lr_params is not None:
             lr_t = torch.zeros_like(acc)
@@ -349,8 +365,9 @@ def _check_tensors(tensors, device):
 
 
 def _model_args(dynamics, cost, device):
-    """The (dynamics params, cost params, cost map) pointers of a launch,
-    each checked as the kernels take it; the dynamics and the cost refuse
+    """The (dynamics params, cost params, cost map, dynamics map) pointers
+    of a launch, each checked as the kernels take it; the dynamics and the
+    cost refuse
     what the compiled kernels do not take (another network), and so does a
     cost whose output layout differs from the one its pair's entries are
     compiled for (``_COST_LAYOUT``)."""
@@ -360,14 +377,13 @@ def _model_args(dynamics, cost, device):
         raise NotImplementedError(
             f"the CUDA entries of {pair} read the output layout {attr}={want}, not "
             f"{attr}={getattr(cost, attr)}")
-    dyn_p, cmap = dynamics.kernel_params(), cost.kernel_map()
+    dyn_p, cmap, dmap = dynamics.kernel_params(), cost.kernel_map(), dynamics.kernel_map()
     tensors = {"cost params": cost.params}
-    if dyn_p is not None:
-        tensors["dynamics params"] = dyn_p
-    if cmap is not None:
-        tensors["cost map"] = cmap
+    for name, t in (("dynamics params", dyn_p), ("cost map", cmap), ("dynamics map", dmap)):
+        if t is not None:
+            tensors[name] = t
     _check_tensors(tensors, device)
-    return _ptr(dyn_p), cost.params.data_ptr(), _ptr(cmap)
+    return _ptr(dyn_p), cost.params.data_ptr(), _ptr(cmap), _ptr(dmap)
 
 
 def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
@@ -703,12 +719,13 @@ def _rollout_sums(dynamics, cost, x0, U, dt, step_extra=None):
     K, T, C = U.shape
     Uc = U.permute(2, 1, 0)  # (C, T, K)
     x = x0[:, None].expand(-1, K)
+    rec = broadcast_rec(dynamics.init_recurrent_state(), K)
     crash = torch.zeros((K,), dtype=torch.int32, device=U.device)
     acc = torch.zeros((K,), dtype=torch.float32, device=U.device)
     y = None
     for t in range(T):
         u = Uc[:, t]
-        x, y = dynamics.kernel_step(x, u, float(t), dt)
+        x, y, rec = dynamics.kernel_step_recurrent(x, rec, u, float(t), dt)
         c, crash = cost.running_cost(y, u, t, crash)
         acc = acc + c
         if step_extra is not None:

@@ -14,8 +14,10 @@ The kernel has an entry for each pair of ``ops/fused_rollout._PAIRS`` that
 ``_build.PAIR_KERNELS`` gives a "solve" kernel: the double integrator with
 its circle cost or ``QuadraticCost``, AutoRally's network dynamics with the
 standard or robust AutoRally cost (the FNN step and the costmap query
-inside the kernel), the cartpole, the quadrotor with either of its costs and
-the Dubins car. CPU tensors
+inside the kernel), the cartpole, the quadrotor with either of its costs,
+the Dubins car and the two racer LSTM models (the LSTM step inside the
+kernel, its (h, c) carried through the horizon loop from the model's warm
+state). CPU tensors
 run the plain version (``fused_solve_plain``, the kernel's operations in
 its order), CUDA tensors the kernel. There is no fallback: a sampler, or a
 (dynamics, cost) pair, the kernel does not take raises.

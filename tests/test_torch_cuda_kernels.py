@@ -38,8 +38,10 @@ from mppi_generic_tpu_torch.models import (
     DoubleIntegratorDynamics,
     DubinsDynamics,
     QuadrotorDynamics,
+    RacerDubinsElevationLSTMSteering,
+    RacerDubinsElevationLSTMUncertainty,
 )
-from mppi_generic_tpu_torch.nn import FNN
+from mppi_generic_tpu_torch.nn import FNN, LSTM
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 from mppi_generic_tpu_torch.ops import fused_solve, philox, riccati
 
@@ -777,3 +779,130 @@ def test_quadratic_entries_refuse_another_output_dim(cuda_device):
     with pytest.raises(NotImplementedError, match="per-sample x0"):
         fr.fused_rollout_costs(cdyn, ccost, torch.zeros((64, 4), device=cuda_device),
                                torch.zeros((64, T, 1), device=cuda_device), DT)
+
+
+# --- the racer LSTM models: the recurrent LSTM step (B10) in B1 and B3 ---
+RACER_INDICES = (2, 3, 5, 6, 0, 1)
+
+
+def _racer_parts(kind, dev, seed=0):
+    """The LSTM-steering model on a 64^2 elevation map with a 64^2 track map
+    (0.15 |z|, a hot block ahead), or the LSTM-uncertainty model on flat
+    ground without a costmap; LSTMs at scale 0.5 and a warm (h, c), so the
+    networks move the samples apart."""
+    rng = np.random.default_rng(seed)
+    warm = {n: 0.3 * rng.normal(size=16)
+            for n in RacerDubinsElevationLSTMUncertainty.WARM}
+    nets = [LSTM.create(i, 16, [16 + i, 16, o], seed=seed + j, scale=0.5)
+            for j, (i, o) in enumerate(((4, 1), (11, 2), (12, 5)))]
+    x0 = torch.zeros(9 if kind == "steering" else 26, device=dev)
+    x0[0], x0[1] = 3.0, 0.2
+    if kind == "unc":
+        dyn = RacerDubinsElevationLSTMUncertainty(*nets, warm=warm, device=dev)
+        return dyn, ARStandardCost(output_indices=RACER_INDICES, device=dev), x0
+    elev = MapTexture2D((0.3 * rng.normal(size=(64, 64))).astype("f"),
+                        origin=(-8.0, -8.0, 0.0), resolution=0.25, device=dev)
+    track = (0.15 * np.abs(rng.normal(size=(64, 64)))).astype("f")
+    track[34:, 46:] = 3.0
+    tex = MapTexture2D(track, origin=(-3.2, -3.2, 0.0), resolution=0.1, device=dev)
+    dyn = RacerDubinsElevationLSTMSteering(nets[0], elev, warm_hidden=warm["warm_hidden"],
+                                           warm_cell=warm["warm_cell"], device=dev)
+    return dyn, ARStandardCost(costmap=tex, output_indices=RACER_INDICES, device=dev), x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("kind", ["steering", "unc"])
+@pytest.mark.parametrize("mode", ["costs", "costs+lr", "epilogue+lr", "tsallis+lr"])
+def test_racer_rollout_kernel_matches_plain(cuda_device, K, kind, mode):
+    dyn, cost, x0 = _racer_parts(kind, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=cuda_device)
+    sigma = torch.tensor([[0.3, 0.5]], device=cuda_device).expand(T, C).contiguous()
+    U = (mean + sigma * torch.randn((K, T, C), generator=g, device=cuda_device)).clamp(-1, 1)
+    lr = ((mean, sigma, torch.tensor([0.5, 1.0], device=cuda_device), LAM, ALPHA, 0.9 * K)
+          if mode.endswith("+lr") else None)
+    fr.reset_launch_counts()
+    if mode.startswith("costs"):
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U.contiguous(), DT, lr)
+    elif mode.startswith("epilogue"):
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U.contiguous(), DT, LAM, lr)
+    else:
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U.contiguous(), DT, lr)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"rollout_costs_racer_{kind}_ar": 1}
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U.contiguous(), DT, lr)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    if kind == "steering":
+        assert 0 < int(pcrash.sum()) < K
+    if mode.startswith("epilogue"):
+        _close(kout, fr.block_carries_plain(pc, U, LAM), rtol=1e-5, atol=1e-5)
+    elif mode.startswith("tsallis"):
+        assert torch.equal(kout, fr.block_minima_plain(pc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("kind", ["steering", "unc"])
+@pytest.mark.parametrize("sampler", ["gaussian", "nln"])
+def test_racer_fused_solve_kernel_matches_plain(cuda_device, K, kind, sampler):
+    dyn, cost, x0 = _racer_parts(kind, cuda_device, seed=1)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 1)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=cuda_device)
+    cls = NLNDistribution if sampler == "nln" else GaussianDistribution
+    samp = cls.create(std_dev=[0.3, 0.5], control_cost_coeff=[0.5, 1.0],
+                      pure_noise_percentage=P_PURE, device=cuda_device)
+    seed = torch.tensor(K, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"fused_solve_racer_{kind}_ar": 1}
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, optimization_stride=2)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_racer_kernels_refuse_what_they_are_not_built_for(cuda_device):
+    dyn, cost, x0 = _racer_parts("unc", cuda_device)
+    U = torch.zeros((64, T, C), device=cuda_device)
+    flat_cost = ARStandardCost(device=cuda_device)  # AutoRally's output layout
+    with pytest.raises(NotImplementedError, match="output"):
+        fr.fused_rollout_costs(dyn, flat_cost, x0, U, DT)
+    samp = GaussianDistribution.create(std_dev=[0.3, 0.5], device=cuda_device)
+    with pytest.raises(NotImplementedError, match="sampling kernel"):
+        fr.fused_sample_rollout_costs(dyn, cost, samp, x0, torch.zeros((T, C), device=cuda_device),
+                                      torch.tensor(1, dtype=torch.int32, device=cuda_device),
+                                      DT, LAM, ALPHA, 64)
+    small = RacerDubinsElevationLSTMSteering(LSTM.create(4, 8, [12, 8, 1], seed=0),
+                                             device=cuda_device)
+    with pytest.raises(NotImplementedError, match="steering LSTM"):
+        fr.fused_rollout_costs(small, cost, x0[:9].contiguous(), U, DT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["steering", "unc"])
+@pytest.mark.parametrize("kernel", ["fused", "fused_solve"])
+def test_racer_vanilla_kernels_match_combined_on_the_card(cuda_device, kind, kernel):
+    """The eager LSTMs and head sum with matmuls, the kernels left to right:
+    the costs sit an ulp or so apart; the mean's tolerance follows from them."""
+    def build(k):
+        dyn, cost, _ = _racer_parts(kind, "cpu", seed=2)
+        return VanillaMPPI(dyn, cost, GaussianDistribution.create(std_dev=[0.3, 0.5]),
+                           num_timesteps=T, num_rollouts=300, kernel=k, return_samples=True)
+
+    ctrl, combined = build(kernel), build("combined")
+    x0 = _racer_parts(kind, cuda_device)[2]
+    eps = torch.randn((300, T, C), device=cuda_device)
+    state = ctrl.init_state(seed=0)
+    rf, _ = ctrl.solve(x0, state, injected_noise=eps)
+    rc, _ = combined.solve(x0, state, injected_noise=eps)
+    _close(rf.costs, rc.costs, rtol=1e-4, atol=1e-3)
+    assert torch.equal(rf.crash, rc.crash)
+    tol = mean_tolerance(rf, rc, rc.sampled_controls, LAM_AR)
+    _close(rf.control_mean, rc.control_mean, rtol=0, atol=tol)
+    assert bool(torch.isfinite(rf.state_trajectory).all())
