@@ -49,7 +49,24 @@ inside, against their plain versions at K=1920 and the ragged K=1900
 (``racer_reference``), and the closed loops ``racer_steering`` (100 steps)
 and ``racer_unc`` (20 steps: its eager re-rollout of the mean is about 10^5
 launches) on the fused solve, ``racer_steering_fused`` and
-``racer_unc_fused`` on ``kernel="fused"``. Each phase prints one JSON line;
+``racer_unc_fused`` on ``kernel="fused"``. Then the robust family beyond the
+double integrator (the AutoRally instantiation's width,
+instantiations/__init__.py:56-67: K=1920, T=150): the RMPPI kernel's (B8)
+AutoRally and DI-robust entries, the per-sample-x0 rollout's AutoRally,
+bicycle and DI-robust entries, the DDP ladder (B7) with AutoRally's network
+and the cartpole and the backward recursion (B6) at (4, 1) and (7, 2)
+against their plain versions, AutoRally also on a map where part of the
+samples crash, the DI-robust entries and the DI ladder also at the
+``rmppi_di_robust`` loop's shapes (``robust_kernels``); RMPPI (``fused``) and Tube-MPPI
+(``fused_solve``) on AutoRally against ``combined`` without host syncs
+(``robust_reference_ar``); the loops ``rmppi_autorally`` (ARRobustCost, 9 x
+256 candidates' samples) and ``tube_autorally`` with DDP feedback and the
+AutoRally model as the plant, ``rmppi_di_robust`` (the JAX suite's RMPPI
+loop on DoubleIntegratorRobustCost, tests/test_tube_robust.py:181-199, 60
+steps with its disturbances and band bar) and ``instantiations`` (each
+per-robot factory: its B3, merge and ladder against their plain versions
+at its own K and T, then three solves with its DDP feedback). Each phase
+prints one JSON line;
 ``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
 line is
@@ -84,15 +101,18 @@ from mppi_generic_tpu_torch import (
     VanillaMPPI,
 )
 from mppi_generic_tpu_torch.costs import (
+    ARRobustCost,
     ARStandardCost,
     CartpoleQuadraticCost,
     DoubleIntegratorCircleCost,
+    DoubleIntegratorRobustCost,
     QuadraticCost,
     QuadrotorMapCost,
     QuadrotorQuadraticCost,
 )
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
 from mppi_generic_tpu_torch.maps import MapTexture2D
+from mppi_generic_tpu_torch.nn import FNN
 from mppi_generic_tpu_torch.models import (
     AutorallyNNDynamics,
     BicycleSlipDynamics,
@@ -706,9 +726,10 @@ def timed(fn, plain):
     return {"ms": time_ms(fn, N_TIMED), "plain_ms": time_ms(plain, N_TIMED_PLAIN)}
 
 
-def riccati_ops(T_, S_=S, C_=C, n_alpha=0):
+def riccati_ops(T_, S_=S, C_=C, n_alpha=0, deriv_ops=0):
     """Floating-point operations of the backward recursion (T-1 steps) and,
-    with n_alpha, the ladder's forward passes (csrc/riccati.cu)."""
+    with n_alpha, the ladder's forward passes (csrc/riccati_kernels.cuh),
+    each step's model derivative ``deriv_ops`` (the DI's: copies only)."""
     n = S_ + 1  # right-hand sides of the (C, C) solve
     solve = sum(1 + (C_ - p - 1) * (1 + 2 * (C_ - p - 1) + 2 * n) for p in range(C_))
     solve += n * sum(2 * (C_ - r - 1) + 1 for r in range(C_))
@@ -719,7 +740,7 @@ def riccati_ops(T_, S_=S, C_=C, n_alpha=0):
             + S_ * S_ * 2 * C_ + 2 * S_ * S_ + S_ * 2 * C_)  # Vxx, symmetrise, Vx
     fwd = (S_ + C_ * (2 + 2 * S_ + 2)  # dx, u, clamp
            + S_ + C_ + 3 * S_ * S_ + 3 * C_ * C_ + 2  # tracking cost, dt, acc
-           + 2 * S_)  # Euler step
+           + 2 * S_ + deriv_ops)  # the model's derivative, the Euler step
     return (T_ - 1) * step + n_alpha * T_ * fwd
 
 
@@ -794,19 +815,19 @@ def riccati_phase(dev):
     return checks_b, checks_l, times
 
 
-def rmppi_inputs(dev, K, seed):
+def rmppi_inputs(dev, K, seed, T_=T_R):
     """Raw samples around a mean, DDP gains of the DI task, the sampler's
     sigma and coefficients: the RMPPI kernel's inputs on the main path."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    _, fb, xs, us, goal_x, goal_u, _ = di_linearisation(dev, T_R)
+    _, fb, xs, us, goal_x, goal_u, _ = di_linearisation(dev, T_)
     gains = fb.compute_feedback(xs[0], goal_x, us).gains
     sampler = GaussianDistribution.create(std_dev=[1.0, 1.0], device=dev)
-    mean = 0.3 * torch.randn((T_R, C), generator=g, device=dev)
+    mean = 0.3 * torch.randn((T_, C), generator=g, device=dev)
     U, _ = sampler.sample(g, mean, K)
     x_nom = torch.tensor(X0, device=dev)
     x_real = x_nom + torch.tensor([0.08, -0.05, 0.1, -0.1], device=dev)
     return (fb.dynamics, DoubleIntegratorCircleCost(device=dev), x_nom, x_real, U,
-            gains, sampler._sigma(T_R, 0), sampler.control_cost_coeff, DT, LAM_R, ALPHA)
+            gains, sampler._sigma(T_, 0), sampler.control_cost_coeff, DT, LAM_R, ALPHA)
 
 
 def rmppi_phase(dev, K, seed):
@@ -928,34 +949,11 @@ def robust_reference_phase(dev):
 
 
 def robust_loop_phase(kind):
-    """The closed loop of bench.py:457-465 from X0, 100 steps: stage 1
-    (RMPPI only), slide, solve, plant step with the real system's first
-    control. Nothing inside the loop waits on the device."""
+    """The closed loop of bench.py:457-465 from X0, 100 steps
+    (``robust_family_loop``), its band bar, and for RMPPI the breakdown of
+    a step."""
     ctrl = build_robust() if kind == "rmppi" else build_tube()
-    if ctrl.device.type != "cuda":
-        raise AssertionError("the controller did not default to the card")
-    cs = ctrl.init_state(seed=0)
-    x = torch.tensor(X0, device=ctrl.device)
     n = CLOSED_LOOP_STEPS
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n)]
-    radii = []
-    torch.cuda.synchronize()
-    fr.reset_launch_counts()
-    t0 = time.perf_counter()
-    for i in range(n):
-        ev[i][0].record()
-        if kind == "rmppi":
-            cs, _ = ctrl.update_importance_sampling(x, cs, 1)
-        ev[i][1].record()
-        cs = ctrl.slide_control_sequence(cs, 1)
-        res, cs = ctrl.solve(x, cs)
-        ev[i][2].record()
-        x, _ = ctrl.dynamics.step(x, res.real.control_mean[0], 0.0, ctrl.dt)
-        ev[i][3].record()
-        radii.append(torch.hypot(x[0], x[1]))
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = dict(fr.launch_counts)
     if kind == "rmppi":
         # stage 1 of the first step has no nominal system to evaluate yet
         want = {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
@@ -963,41 +961,24 @@ def robust_loop_phase(kind):
     else:
         want = {"rollout_costs_kernel": 2 * n, "flash_combine_kernel": 2 * n,
                 "riccati_ladder_kernel": n}
-    expect_launches(launches, want, kind)
-    r = torch.stack(radii).cpu()
-    out_of_band = int(((r <= BAND[0]) | (r >= BAND[1])).sum())
-    for name, t in (("control_mean", res.real.control_mean), ("costs", res.real.costs),
-                    ("nominal costs", res.nominal.costs),
-                    ("state_trajectory", res.real.state_trajectory),
-                    ("gains", cs.feedback_state.gains), ("radius", r)):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"{kind}: {name} is not finite")
-    if res.real.control_mean.shape != (T_R, C) or res.real.costs.shape != (K_R,):
-        raise AssertionError(f"{kind}: unexpected result shapes")
-    if out_of_band >= MAX_OUT_OF_BAND:
-        raise AssertionError(f"{kind}: {out_of_band} of {n} steps outside "
-                             f"{BAND[0]} < r < {BAND[1]}")
-    steady = ev[5:]  # the first steps include one-time allocations
-    med = lambda a, b: statistics.median(e[a].elapsed_time(e[b]) for e in steady)
-    emit(f"{kind}_main_path", K=K_R, T=T_R, steps=n, launches=launches,
-         out_of_band_steps=out_of_band, final_radius=float(r[-1]),
-         final_baseline_real=float(res.real.baseline),
-         stage1_ms_median=med(0, 1) if kind == "rmppi" else None,
-         solve_ms_median=med(1, 2), step_ms_median=med(0, 3),
-         host_wall_ms_per_step=1e3 * wall_s / n)
+    launches, _, X, _, cs, x = robust_family_loop(
+        kind, ctrl, torch.tensor(X0, device=ctrl.device), n, want, profile=10)
+    band_check(kind, X)
     if kind == "rmppi":
         rmppi_breakdown(ctrl, cs, x)
-
-    def step():
-        s = cs
-        if kind == "rmppi":
-            s, _ = ctrl.update_importance_sampling(x, s, 1)
-        s = ctrl.slide_control_sequence(s, 1)
-        res, _ = ctrl.solve(x, s)
-        ctrl.dynamics.step(x, res.real.control_mean[0], 0.0, ctrl.dt)
-
-    profile_steps(kind, step)
     return launches
+
+
+def band_check(path, X):
+    """Fail unless fewer than MAX_OUT_OF_BAND of the states X (steps, S)
+    leave the band BAND of radii."""
+    r = torch.hypot(X[:, 0], X[:, 1])
+    out_of_band = int(((r <= BAND[0]) | (r >= BAND[1])).sum())
+    emit(f"{path}_band", radius_range=[float(r.min()), float(r.max())],
+         final_radius=float(r[-1]), out_of_band_steps=out_of_band, bar=MAX_OUT_OF_BAND)
+    if out_of_band >= MAX_OUT_OF_BAND:
+        raise AssertionError(f"{path}: {out_of_band} of {len(r)} steps outside "
+                             f"{BAND[0]} < r < {BAND[1]}")
 
 
 def profile_steps(kind, step, n=10, warmup=3):
@@ -2325,14 +2306,574 @@ def bench_row_loops(dev):
     launches, _, X, _ = model_loop_phase(
         "di_K1024", di, torch.tensor(X0, device=dev), n,
         {"fused_solve_kernel": n, "flash_combine_kernel": n})
-    r = torch.hypot(X[:, 0], X[:, 1])
-    out_of_band = int(((r <= BAND[0]) | (r >= BAND[1])).sum())
-    emit("di_K1024_band", radius_range=[float(r.min()), float(r.max())],
-         out_of_band_steps=out_of_band)
-    if out_of_band >= MAX_OUT_OF_BAND:
-        raise AssertionError(f"di_K1024: {out_of_band} of {n} steps outside {BAND}")
+    band_check("di_K1024", X)
     paths["di_K1024"] = launches
     return paths
+
+
+# ---------------------------------------------------------------------------
+# The robust family beyond the double integrator: B8 and B7 with staged
+# models (AutoRally's network, the cartpole), B6 at (4, 1) and (7, 2), B1's
+# per-sample-x0 entries; RMPPI and Tube-MPPI on AutoRally with DDP feedback
+# at the AutoRally instantiation's width (instantiations/__init__.py:56-67:
+# K=1920, T=150; RMPPI 9 x 256 samples in stage 1), the JAX suite's RMPPI
+# loop on DoubleIntegratorRobustCost (tests/test_tube_robust.py:38-57,
+# :181-199) and the per-robot factories.
+# ---------------------------------------------------------------------------
+N_CAND_AR, S_PER_AR = 9, 256
+ROBUST_AR_STEPS = 20
+K_RDI, T_RDI, S_PER_RDI, THRESH_RDI, ROBUST_DI_STEPS = 256, 48, 64, 50.0, 60
+X0_RDI = [2.0, 0.0, 0.0, 2.0]
+INSTANTIATION_SOLVES = 3
+# The partly-crashing map of the robust kernel phase: 0.15 |z| (numpy seed
+# 11) on 256^2 texels of 0.1 m from (-12.8, -12.8), every texel from x =
+# 10.35 m on at 3. With the network at scale 0.2 (numpy seed 0; the bench's
+# 0.1 keeps the samples within millimetres) the samples spread over about
+# 0.35 m in 3 s and part of them reach the block (the phase records the
+# crashed share of each case).
+PARTIAL_NET_SCALE, PARTIAL_BLOCK_COL = 0.2, 231
+# operations per sample-step: the DI robust cost (csrc/
+# double_integrator_robust_cost.cuh: the radius, speed and momentum 9 and
+# sqrtf, the center and width 4, d 2, the barrier 3, |d| > 1 2, the tracking
+# terms 6); the AutoRally derivative alone (the step without its Euler update
+# and yaw wrap); the cartpole's derivative
+OPS_DI_ROBUST_COST = 26
+OPS_AR_DERIV = 2 * FNN_MACS + 68 + 64 * OPS_TRANSCENDENTAL + 2 * OPS_TRANSCENDENTAL + 7
+OPS_CART_DERIV = 24 + 2 * OPS_TRANSCENDENTAL
+
+
+def rmppi_ops(S_, C_, step, cost):
+    """The RMPPI kernel per sample-step: two steps and two costs, two clamps
+    of C channels (5 each), the feedback K (x_r - x_n) (S + C (2S - 1)), its
+    cost (5 per channel + 1), u_raw + u_fb, three accumulations."""
+    return 2 * step + 2 * cost + 2 * 5 * C_ + S_ + C_ * (2 * S_ - 1) + 5 * C_ + 1 + C_ + 4
+
+
+def partial_map(dev="cpu"):
+    data = (0.15 * np.abs(np.random.default_rng(11).normal(size=(256, 256)))).astype("f")
+    data[:, PARTIAL_BLOCK_COL:] = 3.0
+    return MapTexture2D(data, origin=(-12.8, -12.8, 0.0), resolution=0.1, device=dev)
+
+
+def robust_ar_parts(map_kind, dev="cpu", robust=True):
+    """AutoRally with ARRobustCost (ARStandardCost unless ``robust``): the
+    bench network (scale 0.1) on the bench's map, or the network at scale
+    0.2 on the partly-crashing map."""
+    if map_kind == "partial":
+        dyn = AutorallyNNDynamics(FNN.create([6, 32, 32, 4], seed=0, scale=PARTIAL_NET_SCALE),
+                                  device=dev)
+        tex = partial_map(dev)
+    else:
+        dyn = AutorallyNNDynamics.create(seed=0, device=dev)
+        data, origin, res, channel_major = ar_map_data(map_kind)
+        tex = MapTexture2D(data, origin=origin, resolution=res, channel_major=channel_major,
+                           device=dev)
+    return dyn, (ARRobustCost if robust else ARStandardCost)(costmap=tex, device=dev)
+
+
+def build_rmppi_ar(kernel):
+    """RMPPI on AutoRally: the bench network, ARRobustCost on the 128^2 map,
+    Gaussian std [0.3, 0.5], DDP feedback (Q, R, Q_f the identity), dt 0.02,
+    lambda 1, alpha 0, K=1920, T=150, 9 x 256, the JAX default threshold."""
+    dyn, cost = robust_ar_parts("128")
+    return RobustMPPI(dyn, cost, ar_sampler("gaussian"), feedback=DDPFeedback.create(dyn, DT),
+                      dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_AR, num_rollouts=K_AR,
+                      num_candidates=N_CAND_AR, samples_per_condition=S_PER_AR,
+                      kernel=kernel)
+
+
+def build_tube_ar(kernel):
+    """Tube-MPPI on AutoRally: the same model, ARStandardCost on the same
+    map, sampler and feedback, the JAX default nominal threshold (100)."""
+    dyn, cost = robust_ar_parts("128", robust=False)
+    return TubeMPPI(dyn, cost, ar_sampler("gaussian"), feedback=DDPFeedback.create(dyn, DT),
+                    dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_AR, num_rollouts=K_AR,
+                    kernel=kernel)
+
+
+def build_rmppi_di_robust(kernel):
+    """The JAX suite's RMPPI controller (tests/test_tube_robust.py:38-57):
+    DoubleIntegratorRobustCost, std [1, 1], coefficients 0.01, dt 0.02,
+    lambda 1, K=256, T=48, 9 x 64, threshold 50."""
+    dyn = DoubleIntegratorDynamics.create()
+    return RobustMPPI(dyn, DoubleIntegratorRobustCost(),
+                      GaussianDistribution.create(std_dev=[1.0, 1.0],
+                                                  control_cost_coeff=[0.01, 0.01]),
+                      feedback=DDPFeedback.create(dyn, DT), dt=DT, lam=1.0, alpha=0.0,
+                      num_timesteps=T_RDI, num_rollouts=K_RDI, num_candidates=9,
+                      samples_per_condition=S_PER_RDI, value_function_threshold=THRESH_RDI,
+                      kernel=kernel)
+
+
+def ladder_problem(dyn, x0, T_, seed):
+    """ilqr_tracking's first iteration of a model: u_init from a seed, xs
+    rolled from x0, a noisy goal, Q, R and Q_f the identity (DDPFeedback's
+    defaults). Returns the ladder's arguments."""
+    dev = x0.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S_, C_ = dyn.STATE_DIM, dyn.CONTROL_DIM
+    lo = torch.nan_to_num(dyn.control_ranges[:, 0], neginf=-1e30).contiguous()
+    hi = torch.nan_to_num(dyn.control_ranges[:, 1], posinf=1e30).contiguous()
+    us = torch.clamp(0.3 * torch.randn((T_, C_), generator=g, device=dev), lo, hi)
+    xs = [x0]
+    for t in range(T_ - 1):
+        xs.append(xs[-1] + dyn.state_deriv(xs[-1], us[t]) * DT)
+    xs = torch.stack(xs)
+    goal_x = xs + 0.05 * torch.randn((T_, S_), generator=g, device=dev)
+    goal_u = torch.zeros((T_, C_), device=dev)
+    fb = DDPFeedback.create(dyn, DT)
+    lin = linearize(dyn, xs, us, goal_x, goal_u, fb.Q, fb.R, fb.Q_f, DT)
+    return (dyn, xs, us, *lin[:4], fb.Q, fb.R, fb.Q_f, lin[4], lin[5], goal_x, goal_u,
+            _alpha_ladder(N_ALPHA, device=dev), lo, hi, DT)
+
+
+def ladder_plain(args):
+    dyn, xs, us, As, Bs, dLx, dLu, Q, R, Qf, Vxx_T, Vx_T, goal_x, goal_u, alphas, lo, hi, dt = args
+    Ks, ks = riccati.riccati_backward_plain(As, Bs, dLx, dLu, Q * dt, R * dt, Vxx_T, Vx_T,
+                                            dt, 1e-6)
+    return (Ks, ks) + riccati.ladder_forward_plain(dyn, xs, us, Ks, ks, goal_x, goal_u, Q,
+                                                   R, Qf, alphas, torch.stack([lo, hi]), dt)
+
+
+def ladder_work(args, deriv_ops, n_params):
+    """(bytes, operations) of B7: the linearisation, the reference and goal
+    trajectories, the weights, limits, alphas and the model's table read
+    once; the gains, costs and candidate trajectories written once."""
+    dyn, xs = args[0], args[1]
+    T_, S_ = xs.shape
+    C_ = dyn.CONTROL_DIM
+    n_in = (T_ * (S_ * S_ + S_ * C_ + S_ + C_) + 3 * S_ * S_ + 2 * C_ * C_ + S_
+            + 2 * T_ * (S_ + C_) + 2 * C_ + N_ALPHA + n_params)
+    n_out = T_ * C_ * S_ + T_ * C_ + N_ALPHA * (1 + T_ * (S_ + C_))
+    return 4 * (n_in + n_out), riccati_ops(T_, S_, C_, N_ALPHA, deriv_ops)
+
+
+def robust_kernel_phase(dev):
+    """B8 for AutoRally (the bench's 128^2 map and the partly-crashing map,
+    K=1920, T=150, the DDP gains of the configuration) and for the DI robust
+    cost (K=2560 / 2500, T=50, and the rmppi_di_robust loop's K=256 / 250,
+    T=48); B1's per-sample-x0 entries for AutoRally (both maps) and the DI
+    robust cost at 9 x 256 (T=150, 50), the latter also at the loop's 9 x 64
+    (T=48), and for the bicycle on the 128^2 map (T=100); B7 for AutoRally
+    (T=150), the cartpole (T=100) and the DI at the loop's T=48, 14 alphas;
+    B6 on those linearisations ((7, 2), (4, 1), (4, 2)). Each against its plain version on the same inputs:
+    AutoRally's B8 and B1 to the last bit, the rest at TOL "exact". Times by
+    CUDA events with their bounds; the plain versions' after one warm-up
+    run, and not on the partly-crashing map (seconds per call)."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    checks = {k: [] for k in ("rmppi_rollout_kernel", "rollout_costs_kernel",
+                              "riccati_ladder_kernel", "riccati_backward_kernel")}
+    times, crashed = {}, {}
+
+    def timing(name, kernel, plain, work):
+        timed_plain = "partial" not in name
+        t = {"ms": time_ms(kernel, N_TIMED),
+             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR, warmup=1) if timed_plain else None}
+        t["bound_ms"], t["bound_by"] = bound_ms(*work)
+        times[name] = t
+
+    def rmppi_case(name, args, tol, work):
+        kout = fr.fused_rmppi_rollout(*args)
+        pout = fr.rmppi_rollout_plain(*args)
+        torch.cuda.synchronize()
+        checks["rmppi_rollout_kernel"].extend(
+            check(f"{name} {n}", a, b, tol)
+            for n, a, b in zip(("s_nom", "j_real", "s_fb", "U_real"),
+                               (*kout[:3], kout[4]), (*pout[:3], pout[4])))
+        same(f"{name} crash flags", kout[3], pout[3])
+        crashed[name] = float(kout[3].float().mean())
+        timing(name, lambda: fr.fused_rmppi_rollout(*args),
+               lambda: fr.rmppi_rollout_plain(*args), work)
+
+    def x0_case(name, dyn, cost, x0s, U, tol, work):
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+        pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
+        torch.cuda.synchronize()
+        checks["rollout_costs_kernel"].append(check(f"{name} costs", kc, pc, tol))
+        same(f"{name} crash flags", kcrash, pcrash)
+        crashed[name] = float(kcrash.float().mean())
+        timing(name, lambda: fr.fused_rollout_costs(dyn, cost, x0s, U, DT),
+               lambda: fr.rollout_costs_plain(dyn, cost, x0s, U, DT), work)
+
+    def candidates(x0, delta, s_per=S_PER_AR):
+        """9 candidates on a segment from x0, each repeated for ``s_per`` samples."""
+        w = torch.linspace(0.0, 1.0, N_CAND_AR, device=dev)[:, None]
+        cand = x0 + w * torch.tensor(delta, device=dev)
+        return cand.repeat_interleave(s_per, dim=0).contiguous()
+
+    samp = ar_sampler("gaussian", dev)
+    K_x0 = N_CAND_AR * S_PER_AR
+    for map_kind in ("128", "partial"):
+        dyn, cost = robust_ar_parts(map_kind, dev)
+        fixed = ar_fixed_bytes(cost)
+        x_nom = ar_x0(dev)
+        x_real = x_nom + torch.tensor([0.0, 0.04, 0.02, 0.0, 0.0, 0.02, 0.01], device=dev)
+        mean = 0.2 * torch.randn((T_AR, C), generator=g, device=dev)
+        # the gains of the configuration: DDP tracking the mean's trajectory
+        traj = rollout_single(dyn, x_nom, mean, DT)[0][:-1]
+        gains = DDPFeedback.create(dyn, DT).compute_feedback(x_real, traj, mean).gains
+        U, _ = samp.sample(g, mean, K_AR)
+        args = (dyn, cost, x_nom, x_real, U, gains, samp._sigma(T_AR, 0),
+                samp.control_cost_coeff, DT, LAM, ALPHA)
+        n_bytes = fixed + 4 * (2 * K_AR * T_AR * C + 4 * K_AR + T_AR * C * (S_AR + 1)
+                               + 5 * C + 2 * S_AR)
+        rmppi_case(f"B8 ar_nn {map_kind}", args, "bitwise",
+                   (n_bytes, K_AR * T_AR * rmppi_ops(S_AR, C, OPS_AR_STEP, OPS_AR_COST)
+                    + 3 * K_AR))
+        x0s = candidates(x_nom, [0.1, 0.05, 0.02, 0.0, 0.1, 0.0, 0.0])
+        Ux = dyn.enforce_constraints(None, samp.sample(g, mean, K_x0)[0].permute(2, 0, 1))
+        Ux = Ux.permute(1, 2, 0).contiguous()
+        x0_case(f"B1-x0 ar_nn {map_kind}", dyn, cost, x0s, Ux, "bitwise",
+                (fixed + 4 * (K_x0 * T_AR * C + K_x0 * S_AR + 2 * K_x0),
+                 K_x0 * T_AR * (OPS_AR_STEP + OPS_AR_COST + OPS_ACC) + 2 * K_x0))
+    # the bicycle's per-sample-x0 entry on the 128^2 map, T=100
+    bdyn, bcost = bicycle_parts(dev)
+    bmean = 0.2 * torch.randn((T_BI, C), generator=g, device=dev)
+    Ub = bdyn.enforce_constraints(None, samp.sample(g, bmean, K_x0)[0].permute(2, 0, 1))
+    Ub = Ub.permute(1, 2, 0).contiguous()
+    x0s = candidates(torch.zeros(S_BI, device=dev), [0.1, 0.05, 0.02] + [0.0] * (S_BI - 3))
+    x0_case("B1-x0 bicycle_ar 128", bdyn, bcost, x0s, Ub, "bitwise",
+            (4 * (bcost.params.numel() + bcost.costmap.data.numel() + bdyn.params.numel()
+                  + K_x0 * T_BI * C + K_x0 * S_BI + 2 * K_x0),
+             K_x0 * T_BI * (OPS_BI_STEP + OPS_AR_COST + OPS_ACC) + 2 * K_x0))
+    # the DI robust cost: B8 at the bench's RMPPI width (2560 / 2500 x 50) and
+    # at the rmppi_di_robust loop's (256 x 48, and a ragged 250), B1-x0 at
+    # 9 x 256 x 50 and at the loop's 9 x 64 x 48
+    for K, T_, seed in ((K_R, T_R, 63), (K_R_RAGGED, T_R, 64), (K_RDI, T_RDI, 67),
+                        (K_RDI - 6, T_RDI, 68)):
+        args = list(rmppi_inputs(dev, K, seed, T_))
+        args[1] = DoubleIntegratorRobustCost(device=dev)
+        n_bytes = 4 * (2 * K * T_ * C + 4 * K + T_ * C * S + T_ * C + C + 4 * C + 2 * S
+                       + len(DoubleIntegratorCircleCost.PARAM_NAMES))
+        rmppi_case(f"B8 di_robust K={K} T={T_}", tuple(args), "exact",
+                   (n_bytes, K * T_ * rmppi_ops(S, C, OPS_STEP, OPS_DI_ROBUST_COST) + 3 * K))
+    ddyn, dcost = DoubleIntegratorDynamics.create(device=dev), DoubleIntegratorRobustCost(device=dev)
+    for s_per, T_ in ((S_PER_AR, T_R), (S_PER_RDI, T_RDI)):
+        K_ = N_CAND_AR * s_per
+        x0s = candidates(torch.tensor(X0_RDI, device=dev), [0.4, 0.2, 0.3, -0.4], s_per)
+        Ud = GaussianDistribution.create(std_dev=[1.0, 1.0], device=dev).sample(
+            g, 0.3 * torch.randn((T_, C), generator=g, device=dev), K_)[0].contiguous()
+        x0_case(f"B1-x0 di_robust {K_} x {T_}", ddyn, dcost, x0s, Ud, "exact",
+                (4 * (K_ * T_ * C + K_ * S + len(DoubleIntegratorCircleCost.PARAM_NAMES)
+                      + 2 * K_),
+                 K_ * T_ * (OPS_STEP + OPS_DI_ROBUST_COST + OPS_ACC) + 2 * K_))
+
+    # B7 with the model inside, and B6 on the same linearisations
+    cart = CartpoleDynamics.create(control_ranges=CART_RANGE, device=dev)
+    ladders = {
+        "ar_nn": (ladder_problem(AutorallyNNDynamics.create(seed=0, device=dev), ar_x0(dev),
+                                 T_AR, 65), OPS_AR_DERIV, FNN_MACS + 68),
+        "cartpole": (ladder_problem(cart, torch.tensor([0.0, 0.0, 0.5, 0.0], device=dev),
+                                    T_ZOO, 66), OPS_CART_DERIV, 3),
+        # the rmppi_di_robust loop's DDP (riccati_phase holds the DI at T=50)
+        f"di T={T_RDI}": (ladder_problem(DoubleIntegratorDynamics.create(device=dev),
+                                         torch.tensor(X0_RDI, device=dev), T_RDI, 69), 0, 0),
+    }
+    for name, (args, deriv_ops, n_params) in ladders.items():
+        kout = riccati.riccati_ladder_solve(*args)
+        pout = ladder_plain(args)
+        torch.cuda.synchronize()
+        checks["riccati_ladder_kernel"].extend(
+            check(f"B7 {name} {n}", a, b, "exact")
+            for n, a, b in zip(("gains", "feedforward", "costs", "xs_new", "us_new"),
+                               kout, pout))
+        timing(f"B7 {name}", lambda args=args: riccati.riccati_ladder_solve(*args),
+               lambda args=args: ladder_plain(args), ladder_work(args, deriv_ops, n_params))
+        back = (args[3], args[4], args[5], args[6], args[7], args[8], args[10], args[11])
+        T_, S_, C_ = back[0].shape[0], back[0].shape[1], back[1].shape[2]
+        kK, kk = riccati.riccati_backward(*back, DT)
+        Ks, ks = riccati.riccati_backward_plain(*back[:4], back[4] * DT, back[5] * DT,
+                                                back[6], back[7], DT, 1e-6)
+        torch.cuda.synchronize()
+        bname = f"B6 ({S_}, {C_})"
+        checks["riccati_backward_kernel"] += [
+            check(f"{bname} gains", kK, Ks, "exact"),
+            check(f"{bname} feedforward", kk, ks, "exact")]
+        n_in = T_ * (S_ * S_ + S_ * C_ + S_ + C_) + 2 * S_ * S_ + C_ * C_ + S_
+        timing(bname, lambda back=back: riccati.riccati_backward(*back, DT),
+               lambda back=back: riccati.riccati_backward_plain(
+                   *back[:4], back[4] * DT, back[5] * DT, back[6], back[7], DT, 1e-6),
+               (4 * (n_in + T_ * C_ * (S_ + 1)), riccati_ops(T_, S_, C_)))
+        times[bname]["chain_steps"] = times[f"B7 {name}"]["chain_steps"] = T_ - 1
+    emit("robust_kernels", K_ar=K_AR, T_ar=T_AR, K_x0=K_x0, crashed_share=crashed,
+         checks=[c for cs in checks.values() for c in cs], times=times)
+    return checks, times
+
+
+def robust_reference_ar_phase(dev):
+    """RMPPI (kernel="fused") and Tube-MPPI (kernel="fused_solve") on
+    AutoRally at full width against kernel="combined" on the same normals
+    (RMPPI from one warm state with an initialized nominal system), each
+    kernel path under set_sync_debug_mode("error") after a warm call. The
+    eager network sums with a matmul: costs at TOL "solve"; the means within
+    2 max|dJ| / lambda times the samples' spread (``model_reference_phase``);
+    the candidate free energies within max|dJ|; the DDP gains, which both
+    paths compute with the ladder kernel from the same nominal trajectory, to
+    the last bit."""
+    g = torch.Generator(device=dev).manual_seed(71)
+    x = ar_x0(dev)
+    e1 = torch.randn((S_PER_AR, T_AR, C), generator=g, device=dev)
+    e2 = torch.randn((K_AR, T_AR, C), generator=g, device=dev)
+    combined, fused = build_rmppi_ar("combined"), build_rmppi_ar("fused")
+    warm, _ = combined.update_importance_sampling(x, combined.init_state(seed=0), 1)
+    _, warm = combined.solve(x, warm)
+    x1 = x + torch.tensor([0.02, 0.03, 0.01, 0.0, 0.05, 0.0, 0.0], device=dev)
+
+    def cycle(ctrl):
+        s1, fe = ctrl.update_importance_sampling(x1, warm, 1, injected_noise=e1)
+        res, _ = ctrl.solve(x1, s1, injected_noise=e2)
+        return s1, fe, res
+
+    def strict(fn):
+        fn()  # one-time copies
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    sc, fec, rc = cycle(combined)
+    sf, fef, rf = strict(lambda: cycle(fused))
+    torch.cuda.synchronize()
+    if int(sf.best_index) != int(sc.best_index) or (
+            int(sf.nominal_stride) != int(sc.nominal_stride)):
+        raise AssertionError("fused and combined RMPPI chose different candidates")
+    checks = [check("rmppi gains", sf.feedback_state.gains, sc.feedback_state.gains,
+                    "bitwise")]
+
+    def systems(name, a, b, U):
+        """Costs, crash flags and means of both systems; ``U`` the samples
+        without their means, the spread taken against b's means."""
+        dJ = 0.0
+        for system in ("real", "nominal"):
+            sa, sb = getattr(a, system), getattr(b, system)
+            checks.append(check(f"{name} {system} costs", sa.costs, sb.costs, "solve"))
+            same(f"{name} {system} crash flags (against combined)", sa.crash, sb.crash)
+            d = float((sa.costs - sb.costs).abs().max())
+            spread = float((U[system] - sb.control_mean[None]).abs().max())
+            checks.append(within(f"{name} {system} control_mean", sa.control_mean,
+                                 sb.control_mean, 2 * d / LAM * spread + 1e-5))
+            dJ = max(dJ, d)
+        return dJ
+
+    # RMPPI draws both systems' samples around the nominal mean
+    U = e2 * combined.sampler.std_dev + sc.nominal_mean
+    dJ = systems("rmppi", rf, rc, {"real": U, "nominal": U})
+    checks.append(within("rmppi candidate free energy", fef, fec, dJ + 1e-5))
+
+    tcomb, tfused = build_tube_ar("combined"), build_tube_ar("fused_solve")
+    state = tcomb.init_state(seed=0)
+    rtc, _ = tcomb.solve(x1, state, injected_noise=e2)
+    rtf, _ = strict(lambda: tfused.solve(x1, state, injected_noise=e2))
+    torch.cuda.synchronize()
+    noise = e2 * tcomb.sampler.std_dev
+    systems("tube", rtf, rtc, {"real": noise + state.control_mean,
+                               "nominal": noise + state.nominal_mean})
+    emit("robust_reference_ar", K=K_AR, T=T_AR, candidates=N_CAND_AR,
+         samples_per_condition=S_PER_AR, best_index=int(sf.best_index),
+         crashed_share={"rmppi": float(rc.real.crash.float().mean()),
+                        "tube": float(rtc.real.crash.float().mean())},
+         checks=checks, no_host_sync=["rmppi fused", "tube fused_solve"])
+
+
+def robust_family_loop(path, ctrl, x0, steps, want, *, disturb=None, profile=1, **labels):
+    """``steps`` closed-loop steps of a robust controller from ``x0``:
+    stage 1 (RMPPI), slide, solve, the plant (the controller's model) with
+    the real system's first control, plus ``disturb[i]`` where given. Then a
+    profiler window of ``profile`` steps from the last state. Nothing inside
+    the loop waits on the device. Fails unless the kernels launched as
+    ``want`` says and every state, cost and gain is finite. Returns
+    (launches, entry launches, the states (steps, S), the last result, the
+    last controller state, the last plant state)."""
+    if ctrl.device.type != "cuda":
+        raise AssertionError("the controller did not default to the card")
+    rmppi = isinstance(ctrl, RobustMPPI)
+    cs, x = ctrl.init_state(seed=0), x0
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(steps)]
+    states, crashed = [], []
+    torch.cuda.synchronize()
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ev[i][0].record()
+        if rmppi:
+            cs, _ = ctrl.update_importance_sampling(x, cs, 1)
+        ev[i][1].record()
+        cs = ctrl.slide_control_sequence(cs, 1)
+        res, cs = ctrl.solve(x, cs)
+        ev[i][2].record()
+        x, _ = ctrl.dynamics.step(x, res.real.control_mean[0], 0.0, ctrl.dt)
+        if disturb is not None:
+            x = x + disturb[i]
+        ev[i][3].record()
+        states.append(x)
+        crashed.append(res.real.crash.sum())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
+    expect_launches(launches, want, path)
+    X = torch.stack(states).cpu()
+    for name, t in (("states", X), ("control_mean", res.real.control_mean),
+                    ("costs", res.real.costs), ("nominal costs", res.nominal.costs),
+                    ("state_trajectory", res.real.state_trajectory),
+                    ("gains", cs.feedback_state.gains)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{path}: {name} is not finite")
+    K_, T_ = ctrl.num_rollouts, ctrl.num_timesteps
+    if res.real.control_mean.shape != (T_, ctrl.dynamics.CONTROL_DIM) or (
+            res.real.costs.shape != (K_,)):
+        raise AssertionError(f"{path}: unexpected result shapes")
+    steady = ev[min(5, steps - 1):]
+    med = lambda a, b: statistics.median(e[a].elapsed_time(e[b]) for e in steady)
+    emit(f"{path}_main_path", K=K_, T=T_, kernel=ctrl.kernel, steps=steps, **labels,
+         launches=launches, entry_launches=entries,
+         launches_per_step=sum(launches.values()) / steps,
+         crashed_share=float(torch.stack(crashed).float().mean().cpu()) / K_,
+         final_state=X[-1].tolist(), final_baseline_real=float(res.real.baseline),
+         stage1_ms_median=med(0, 1) if rmppi else None, solve_ms_median=med(1, 2),
+         step_ms_median=med(0, 3), host_wall_ms_per_step=1e3 * wall_s / steps)
+    if profile:
+        def step():
+            s = cs
+            if rmppi:
+                s, _ = ctrl.update_importance_sampling(x, s, 1)
+            s = ctrl.slide_control_sequence(s, 1)
+            r, _ = ctrl.solve(x, s)
+            ctrl.dynamics.step(x, r.real.control_mean[0], 0.0, ctrl.dt)
+
+        profile_steps(path, step, n=profile, warmup=1)
+    return launches, entries, X, res, cs, x
+
+
+def robust_family_loops(dev):
+    """rmppi_autorally and tube_autorally (ROBUST_AR_STEPS each, the
+    AutoRally model as the plant) and rmppi_di_robust (60 steps with the
+    velocity disturbances of tests/test_tube_robust.py:181-199, numpy seed
+    1, and its bar). Returns {path: (launches, entry launches)}."""
+    n = ROBUST_AR_STEPS
+    paths = {}
+    out = robust_family_loop(
+        "rmppi_autorally", build_rmppi_ar("fused"), ar_x0(dev), n,
+        {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
+         "riccati_ladder_kernel": n}, map="128", cost="ARRobustCost")
+    paths["rmppi_autorally"] = out[:2]
+    out = robust_family_loop(
+        "tube_autorally", build_tube_ar("fused_solve"), ar_x0(dev), n,
+        {"fused_solve_kernel": 2 * n, "flash_combine_kernel": 2 * n,
+         "riccati_ladder_kernel": n}, map="128", cost="ARStandardCost")
+    paths["tube_autorally"] = out[:2]
+    n = ROBUST_DI_STEPS
+    rng = np.random.RandomState(1)
+    disturb = torch.zeros((n, S), device=dev)
+    disturb[:, 2:] = torch.tensor(np.stack([rng.randn(2) * 0.02 for _ in range(n)]),
+                                  dtype=torch.float32, device=dev)
+    out = robust_family_loop(
+        "rmppi_di_robust", build_rmppi_di_robust("fused"), torch.tensor(X0_RDI, device=dev),
+        n, {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
+            "riccati_ladder_kernel": n}, disturb=disturb, profile=False)
+    band_check("rmppi_di_robust", out[2])
+    paths["rmppi_di_robust"] = out[:2]
+    return paths
+
+
+def factory_kernel_checks(name, ctrl, x0, ladder, seed):
+    """A factory's kernels against their plain versions at its own shapes and
+    parts (dynamics, cost, sampler, K, T), before its counted solves: B3 on
+    a random mean (U, costs, crash flags to the last bit, the carry rows at
+    TOL "carry"), the merge of its carry, and the ladder at its T where its
+    DDP runs it (TOL "exact"). Returns {C function: checks}."""
+    dev = x0.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn, cost, K_, T_ = ctrl.dynamics, ctrl.cost, ctrl.num_rollouts, ctrl.num_timesteps
+    C_ = dyn.CONTROL_DIM
+    mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    args = (dyn, cost, ctrl.sampler, x0, mean, seed_t, ctrl.dt, ctrl.lam, ctrl.alpha, K_)
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args)
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args)
+    kmerge = fr.flash_combine(kcarry, T_, C_, ctrl.lam)
+    pmerge = fr.flash_combine_plain(pcarry, T_, C_, ctrl.lam)
+    torch.cuda.synchronize()
+    same(f"{name} B3 crash flags", kcrash, pcrash)
+    out = {fr._entry(dyn, cost, "solve")[1]: [
+        check(f"{name} B3 U", kU, pU, "bitwise"),
+        check(f"{name} B3 costs", kc, pc, "bitwise"),
+        check(f"{name} B3 carry", kcarry, pcarry, "carry",
+              fr.block_carries_plain(pc, pU.abs(), ctrl.lam).abs())],
+        "flash_combine_kernel": [check(f"{name} merge {n}", a, b, n) for n, a, b in
+                                 zip(("new_mean", "baseline", "eta"), kmerge, pmerge)]}
+    if ladder:
+        largs = ladder_problem(dyn, x0, T_, seed + 1)
+        kout = riccati.riccati_ladder_solve(*largs)
+        pout = ladder_plain(largs)
+        torch.cuda.synchronize()
+        out[riccati._LADDER_ENTRY[type(dyn)]] = [
+            check(f"{name} B7 {n}", a, b, "exact")
+            for n, a, b in zip(("gains", "feedforward", "costs", "xs_new", "us_new"),
+                               kout, pout)]
+    return out
+
+
+def instantiations_phase(dev):
+    """Each factory of mppi_generic_tpu_torch.instantiations built on the
+    card at its published scale with kernel="fused_solve" (the factories'
+    default is "combined"): its kernels held against their plain versions
+    at its shapes (``factory_kernel_checks``), then INSTANTIATION_SOLVES
+    closed-loop steps (slide, solve, the model as the plant); after each
+    solve the DDP feedback tracks the solve's trajectory: the ladder kernel
+    for AutoRally, the cartpole and the double integrator, the eager scan
+    for the quadrotor (S = 13 is outside the kernels' sizes). The racer
+    model (S = 26) computes none. Returns ({path: (launches, entry
+    launches)}, {C function: checks})."""
+    from mppi_generic_tpu_torch import instantiations
+
+    quad = torch.zeros(13, device=dev)
+    quad[6] = 1.0
+    x0s = {"autorally_mppi": ar_x0(dev), "cartpole_mppi": torch.zeros(4, device=dev),
+           "double_integrator_mppi": torch.tensor(X0, device=dev),
+           "quadrotor_mppi": quad, "quadrotor_waypoint_mppi": quad,
+           "racer_lstm_mppi": racer_x0("racer_unc_ar", dev)}
+    n, paths, summary, checks = INSTANTIATION_SOLVES, {}, {}, {}
+    for i, name in enumerate(instantiations.__all__):
+        ctrl, fb = getattr(instantiations, name)(kernel="fused_solve")
+        with_fb = name != "racer_lstm_mppi"
+        ladder = with_fb and riccati.supported(ctrl.dynamics.STATE_DIM,
+                                               ctrl.dynamics.CONTROL_DIM, ctrl.num_timesteps)
+        for fn, fn_checks in factory_kernel_checks(name, ctrl, x0s[name], ladder,
+                                                   121 + 2 * i).items():
+            checks.setdefault(fn, []).extend(fn_checks)
+        cs, x = ctrl.init_state(seed=0), x0s[name]
+        torch.cuda.synchronize()
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            cs = ctrl.slide_control_sequence(cs, 1)
+            res, cs = ctrl.solve(x, cs)
+            if with_fb:
+                fbs = fb.compute_feedback(x, res.state_trajectory[:-1], res.control_mean)
+            x, _ = ctrl.dynamics.step(x, res.control_mean[0], 0.0, ctrl.dt)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
+        expect_launches(launches, {"fused_solve_kernel": n, "flash_combine_kernel": n,
+                                   "riccati_ladder_kernel": n if ladder else 0}, name)
+        for what, t in (("state", x), ("control_mean", res.control_mean),
+                        ("costs", res.costs)) + ((("gains", fbs.gains),) if with_fb else ()):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name}: {what} is not finite")
+        paths[name] = (launches, entries)
+        summary[name] = {"K": ctrl.num_rollouts, "T": ctrl.num_timesteps,
+                         "dynamics": type(ctrl.dynamics).__name__,
+                         "cost": type(ctrl.cost).__name__,
+                         "feedback": ("ladder kernel" if ladder else
+                                      "eager scan" if with_fb else "none"),
+                         "launches": launches, "entry_launches": entries,
+                         "crashed_share": float(res.crash.float().mean()),
+                         "host_wall_ms_per_step": 1e3 * wall_s / n}
+    emit("instantiations", solves=n, kernel="fused_solve", factories=summary,
+         checks=[c for cs in checks.values() for c in cs])
+    return paths, checks
 
 
 def main() -> int:
@@ -2487,6 +3028,14 @@ def main() -> int:
     by_path["di_K1024"] = row_paths["di_K1024"]
     zoo_paths = zoo_loops(dev)
     racer_paths = racer_loops(dev)
+    # the robust family beyond the double integrator
+    robust_checks, robust_times = robust_kernel_phase(dev)
+    robust_reference_ar_phase(dev)
+    robust_paths = robust_family_loops(dev)
+    inst_paths, inst_checks = instantiations_phase(dev)
+
+    def inst_err(fn):
+        return max((c["max_abs_err"] for c in inst_checks.get(fn, ())), default=0.0)
 
     def entry(name, source, replaces, t, library_ms, paths=by_path, err=None,
               kernel=None, **extra):
@@ -2521,11 +3070,20 @@ def main() -> int:
               ric_times["riccati_backward"], None, on_main_path=False,
               chain_steps=T_R - 1),
         entry("riccati_ladder_kernel", "riccati.cu", "pallas_riccati.py:203",
-              ric_times["riccati_ladder"], None, chain_steps=T_R - 1),
+              ric_times["riccati_ladder"], None, chain_steps=T_R - 1,
+              paths={**by_path, "rmppi_di_robust": robust_paths["rmppi_di_robust"][0],
+                     "double_integrator_mppi": inst_paths["double_integrator_mppi"][0]},
+              err=max([errs["riccati_ladder_kernel"], inst_err("riccati_ladder_di")]
+                      + [c["max_abs_err"] for c in robust_checks["riccati_ladder_kernel"]
+                         if c["check"].startswith(f"B7 di T={T_RDI}")]),
+              modes={f"T={T_RDI} (rmppi_di_robust)": robust_times[f"B7 di T={T_RDI}"]}),
         entry("rmppi_rollout_kernel", "rmppi_rollout.cu", "pallas_rollout.py:2127",
               rmppi_times, None),
         entry("fused_solve_kernel", "pair_di_circle.cu", "pallas_solve.py:103",
               solve_times["solve gaussian"], None,
+              paths={**by_path,
+                     "double_integrator_mppi": inst_paths["double_integrator_mppi"][0]},
+              err=max(errs["fused_solve_kernel"], inst_err("fused_solve_di_circle")),
               modes={"nln": solve_times["solve nln"]},
               randn_reference_ms=solve_times["randn_reference_ms"]),
         entry("fused_sample_rollout_kernel", "pair_di_circle.cu", "pallas_rollout.py:1631",
@@ -2533,9 +3091,11 @@ def main() -> int:
               modes={m: solve_times[m] for m in ("gaussian", "nln", "smooth")},
               randn_reference_ms=solve_times["randn_reference_ms"]),
         entry("fused_solve_kernel<AutorallyNN, ARCost>", "pair_ar_nn.cu",
-              "pallas_solve.py:103", ar["B3 gaussian"], None, paths=ar_paths,
-              err=ar_errs["fused_solve_kernel"], kernel="fused_solve_kernel",
-              K=K_AR, T=T_AR, device_functions=ar_functions,
+              "pallas_solve.py:103", ar["B3 gaussian"], None,
+              paths={**ar_paths, "tube_autorally": robust_paths["tube_autorally"][0],
+                     "autorally_mppi": inst_paths["autorally_mppi"][0]},
+              err=max(ar_errs["fused_solve_kernel"], inst_err("fused_solve_ar_nn")),
+              kernel="fused_solve_kernel", K=K_AR, T=T_AR, device_functions=ar_functions,
               modes={"nln": ar["B3 nln"], "gaussian 1024^2 map": ar1024["B3 gaussian"],
                      "nln 1024^2 map": ar1024["B3 nln"]}),
         entry("rollout_costs_kernel<AutorallyNN, ARCost>", "pair_ar_nn.cu",
@@ -2577,14 +3137,16 @@ def main() -> int:
               modes={m: bi_times[m] for m in ("costs", "costs+lr", "tsallis+lr")}),
     ]
     # the zoo's entries: launches counted per entry (fr.entry_counts) on the
-    # zoo's loops
+    # zoo's loops and the factories' solves
     def zoo_entry(name, pair, fn, replaces, t, errs_p, kernel, paths=zoo_paths, **extra):
-        by = {p: e.get(fn, 0) for p, (_, e) in paths.items() if e.get(fn, 0)}
+        by = {p: e.get(fn, 0) for p, (_, e) in {**paths, **inst_paths}.items()
+              if e.get(fn, 0)}
         return {"name": name, "route": "cuda",
                 "source": f"mppi_generic_tpu_torch/csrc/pair_{pair}.cu",
                 "replaces": f"mppi_generic_tpu/ops/{replaces}",
                 "launches": sum(by.values()), "launches_by_path": by,
-                "max_abs_err": errs_p[kernel], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "max_abs_err": max(errs_p[kernel], inst_err(fn)),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library_ms"), **extra}
 
@@ -2652,6 +3214,72 @@ def main() -> int:
         ar["flash_combine"], None, paths={p: l for p, (l, _) in racer_paths.items()},
         err=max(zoo_errs[pair]["flash_combine_kernel"] for pair in RACER_PAIRS),
         kernel="flash_combine_kernel"))
+    # the robust family: launches counted per C entry on its loops and the
+    # factories' solves
+    family_paths = {**robust_paths, **inst_paths}
+
+    def family_entry(name, source, fn, replaces, t, checks, **extra):
+        by = {p: e.get(fn, 0) for p, (_, e) in family_paths.items() if e.get(fn, 0)}
+        return {"name": name, "route": "cuda",
+                "source": f"mppi_generic_tpu_torch/csrc/{source}",
+                "replaces": f"mppi_generic_tpu/ops/{replaces}",
+                "launches": sum(by.values()), "launches_by_path": by,
+                "max_abs_err": max([c["max_abs_err"] for c in checks] + [inst_err(fn)]),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None, **extra}
+
+    def rchecks(kernel, prefix):
+        return [c for c in robust_checks[kernel] if c["check"].startswith(prefix)]
+
+    rt = robust_times
+    kernels += [
+        family_entry("rmppi_rollout_kernel<AutorallyNNRolled, ARCost>", "rmppi_rollout.cu",
+                     "rmppi_rollout_ar_nn", "pallas_rollout.py:2127", rt["B8 ar_nn 128"],
+                     rchecks("rmppi_rollout_kernel", "B8 ar_nn"), K=K_AR, T=T_AR,
+                     device_functions=ar_functions,
+                     modes={"partly-crashing map": rt["B8 ar_nn partial"]}),
+        family_entry("rmppi_rollout_kernel<DoubleIntegrator, DoubleIntegratorRobustCost>",
+                     "rmppi_rollout.cu", "rmppi_rollout_di_robust", "pallas_rollout.py:2127",
+                     rt[f"B8 di_robust K={K_R} T={T_R}"],
+                     rchecks("rmppi_rollout_kernel", "B8 di_robust"), K=K_R, T=T_R,
+                     modes={f"K={K} T={T_}": rt[f"B8 di_robust K={K} T={T_}"]
+                            for K, T_ in ((K_R_RAGGED, T_R), (K_RDI, T_RDI),
+                                          (K_RDI - 6, T_RDI))}),
+        family_entry("rollout_costs_kernel<AutorallyNN, ARCost> (per-sample x0)",
+                     "rollout_x0.cu", "rollout_costs_x0_ar_nn", "pallas_rollout.py:548",
+                     rt["B1-x0 ar_nn 128"], rchecks("rollout_costs_kernel", "B1-x0 ar_nn"),
+                     K=N_CAND_AR * S_PER_AR, T=T_AR, device_functions=ar_functions,
+                     modes={"partly-crashing map": rt["B1-x0 ar_nn partial"]}),
+        family_entry("rollout_costs_kernel<BicycleSlip, ARCostBicycle> (per-sample x0)",
+                     "rollout_x0.cu", "rollout_costs_x0_bicycle_ar", "pallas_rollout.py:548",
+                     rt["B1-x0 bicycle_ar 128"],
+                     rchecks("rollout_costs_kernel", "B1-x0 bicycle_ar"),
+                     K=N_CAND_AR * S_PER_AR, T=T_BI, on_main_path=False),
+        family_entry("rollout_costs_kernel<DoubleIntegrator, DoubleIntegratorRobustCost> "
+                     "(per-sample x0)", "rollout_x0.cu", "rollout_costs_x0_di_robust",
+                     "pallas_rollout.py:548",
+                     rt[f"B1-x0 di_robust {N_CAND_AR * S_PER_AR} x {T_R}"],
+                     rchecks("rollout_costs_kernel", "B1-x0 di_robust"),
+                     K=N_CAND_AR * S_PER_AR, T=T_R,
+                     modes={f"{N_CAND_AR * S_PER_RDI} x {T_RDI} (rmppi_di_robust)":
+                            rt[f"B1-x0 di_robust {N_CAND_AR * S_PER_RDI} x {T_RDI}"]}),
+        family_entry("riccati_ladder_kernel<AutorallyNNRolled>", "riccati.cu",
+                     "riccati_ladder_ar_nn", "pallas_riccati.py:203", rt["B7 ar_nn"],
+                     rchecks("riccati_ladder_kernel", "B7 ar_nn"), T=T_AR, n_alpha=N_ALPHA,
+                     chain_steps=T_AR - 1, device_functions=ar_functions),
+        family_entry("riccati_ladder_kernel<Cartpole>", "riccati.cu",
+                     "riccati_ladder_cartpole", "pallas_riccati.py:203", rt["B7 cartpole"],
+                     rchecks("riccati_ladder_kernel", "B7 cartpole"), T=T_ZOO,
+                     n_alpha=N_ALPHA, chain_steps=T_ZOO - 1),
+        family_entry("riccati_backward_kernel<4, 1>", "riccati.cu", "riccati_backward_s4c1",
+                     "pallas_riccati.py:137", rt["B6 (4, 1)"],
+                     rchecks("riccati_backward_kernel", "B6 (4, 1)"), T=T_ZOO,
+                     chain_steps=T_ZOO - 1, on_main_path=False),
+        family_entry("riccati_backward_kernel<7, 2>", "riccati.cu", "riccati_backward_s7c2",
+                     "pallas_riccati.py:137", rt["B6 (7, 2)"],
+                     rchecks("riccati_backward_kernel", "B6 (7, 2)"), T=T_AR,
+                     chain_steps=T_AR - 1, on_main_path=False),
+    ]
     emit("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

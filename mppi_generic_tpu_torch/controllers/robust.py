@@ -25,7 +25,12 @@ Counterpart of ``mppi_generic_tpu/controllers/robust.py`` (reference
 * ``"fused"`` (default) is JAX ``kernel="pallas"``: one launch of the
   rollout kernel with one initial state per sample for all
   (candidate, sample) pairs of stage 1, and one launch of the RMPPI rollout
-  kernel for stage 2 (``ops/fused_rollout.py``).
+  kernel for stage 2 (``ops/fused_rollout.py``). ``"fused_solve"`` (JAX
+  ``pallas_fused``) is the same path: the augmented rollout has its own
+  kernel, and the JAX package maps the one name to the other
+  (``_equivalent_kernels``, robust.py:96); the controller keeps "fused".
+  The pairs with entries: the double integrator with its circle or its
+  robust cost, AutoRally with its standard or robust cost.
 * ``"combined"`` is JAX ``kernel="combined"``, the eager oracle: one
   ``rollout_combined`` per candidate and the augmented rollout as a loop.
 
@@ -54,7 +59,9 @@ from mppi_generic_tpu_torch.ops import weights as weight_ops
 from mppi_generic_tpu_torch.utils import math_utils
 from mppi_generic_tpu_torch.utils.math_utils import true_div
 
-KERNELS = ("fused", "combined")
+KERNELS = ("fused", "combined", "fused_solve")
+# kernel names that run the same program (JAX RobustMPPI._equivalent_kernels)
+EQUIVALENT_KERNELS = {"fused_solve": "fused"}
 
 
 def line_search_weights(num_candidates: int) -> np.ndarray:
@@ -96,6 +103,9 @@ class RobustSolveResult:
     real: SolveResult
     nominal: SolveResult
     best_index: torch.Tensor
+    # the JAX result's field; stage 1 returns the free energies, and solve
+    # leaves it None, as the JAX package does
+    candidate_free_energy: Optional[torch.Tensor] = None
 
 
 class RobustMPPI(ControllerBase):
@@ -109,7 +119,7 @@ class RobustMPPI(ControllerBase):
             raise NotImplementedError(
                 f"RMPPI with a stateful sampler ({type(sampler).__name__}) is not "
                 "ported")
-        self.kernel = kernel
+        self.kernel = EQUIVALENT_KERNELS.get(kernel, kernel)
         self.feedback = feedback.to(self.device)
         self.value_function_threshold = float(np.float32(value_function_threshold))
         self.num_candidates = int(num_candidates)

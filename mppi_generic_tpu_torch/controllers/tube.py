@@ -7,7 +7,10 @@ system) with two distributions that share one noise tensor. Here each
 iteration draws the standard normals once and hands the same tensor to two
 ``VanillaMPPI._iteration`` calls, one per system; the JAX package gets the
 same sharing by reusing one PRNG key, which a stateful ``torch.Generator``
-cannot do.
+cannot do. On ``kernel="fused_solve"`` (JAX ``pallas_fused``) each iteration
+draws one kernel seed and both systems' fused solve kernels (B3) draw their
+samples from it, so they draw the same noise, as the JAX package's two
+same-key solves do (tube.py:93-127).
 
 Per solve (computeControl, tube_mppi_controller.cu:158-300):
 
@@ -64,10 +67,6 @@ class TubeSolveResult:
 class TubeMPPI(VanillaMPPI):
     def __init__(self, dynamics, cost, sampler, *, feedback=None,
                  nominal_threshold=100.0, **kwargs):
-        if kwargs.get("kernel") == "fused_solve":
-            raise NotImplementedError(
-                "Tube-MPPI on the fused solve kernel (JAX robust.py:96's "
-                "pallas_fused alias) is not ported yet; use 'fused' or 'combined'")
         super().__init__(dynamics, cost, sampler, **kwargs)
         if self.sampler.init_state() is not None:
             raise NotImplementedError(
@@ -104,18 +103,20 @@ class TubeMPPI(VanillaMPPI):
         mean_nom = ctrl_state.nominal_mean
         K, T, C = self.num_rollouts, self.num_timesteps, self.dynamics.CONTROL_DIM
         for it in range(self.num_iters):
-            eps = injected_noise
-            if eps is None:  # one draw, shared by both systems
+            eps, seed = injected_noise, None
+            if self.kernel == "fused_solve":  # one seed, shared by both systems
+                seed = self._seed(ctrl_state.generator)
+            elif eps is None:  # one draw, shared by both systems
                 eps = torch.randn((K, T, C), generator=ctrl_state.generator,
                                   dtype=torch.float32, device=self.device)
             mean_real, _, diag_r = self._iteration(
                 state, mean_real, None, ctrl_state.generator, it,
-                optimization_stride, eps)
+                optimization_stride, eps, seed)
             mean_nom, _, diag_n = self._iteration(
                 nominal_state, mean_nom, None, ctrl_state.generator, it,
-                optimization_stride, eps)
-        _, costs_r, w_r, bl_r, eta_r, crash_r = diag_r
-        _, costs_n, w_n, bl_n, eta_n, crash_n = diag_n
+                optimization_stride, eps, seed)
+        U_r, costs_r, w_r, bl_r, eta_r, crash_r = diag_r
+        U_n, costs_n, w_n, bl_n, eta_n, crash_n = diag_n
 
         # acceptance (tube_mppi_controller.cu:268-280)
         accept_real = bl_r < bl_n + self.nominal_threshold
@@ -141,14 +142,14 @@ class TubeMPPI(VanillaMPPI):
             baseline=bl_r, normalizer=eta_r,
             free_energy=self._free_energy_stats(w_r, bl_r, eta_r,
                                                 ctrl_state.previous_baseline_real),
-            crash=crash_r)
+            crash=crash_r, sampled_controls=U_r if self.return_samples else None)
         nominal = SolveResult(
             control_mean=mean_nom, state_trajectory=states_nom,
             output_trajectory=outputs_nom, costs=costs_n, weights=w_n,
             baseline=bl_n, normalizer=eta_n,
             free_energy=self._free_energy_stats(w_n, bl_n, eta_n,
                                                 ctrl_state.previous_baseline_nominal),
-            crash=crash_n)
+            crash=crash_n, sampled_controls=U_n if self.return_samples else None)
         result = TubeSolveResult(
             real=real, nominal=nominal,
             nominal_state_used=torch.where(accept_real, 0, 1))

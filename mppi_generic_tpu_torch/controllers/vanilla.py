@@ -119,10 +119,11 @@ class VanillaMPPI(ControllerBase):
                              dtype=torch.int32, device=self.device)
 
     def _iteration_fused_solve(self, x0, mean, samp_state, generator, iteration,
-                               optimization_stride, injected_noise):
-        args = (self.dynamics, self.cost, self.sampler, x0, mean,
-                self._seed(generator), self.dt, self.lam, self.alpha,
-                self.num_rollouts)
+                               optimization_stride, injected_noise, seed=None):
+        if seed is None:
+            seed = self._seed(generator)
+        args = (self.dynamics, self.cost, self.sampler, x0, mean, seed, self.dt,
+                self.lam, self.alpha, self.num_rollouts)
         kw = dict(iteration=iteration, optimization_stride=optimization_stride,
                   injected_noise=injected_noise)
         smooth = type(self.sampler) is SmoothMPPIDistribution
@@ -150,13 +151,15 @@ class VanillaMPPI(ControllerBase):
         return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
 
     def _iteration(self, x0, mean, samp_state, generator, iteration,
-                   optimization_stride, injected_noise):
+                   optimization_stride, injected_noise, seed=None):
         """One optimization iteration: (new mean, new sampler state,
-        (U, costs, weights, baseline, eta, crash))."""
+        (U, costs, weights, baseline, eta, crash)). ``seed`` (fused_solve
+        only) is the kernels' seed of the iteration, drawn from
+        ``generator`` when not given."""
         if self.kernel == "fused_solve":
             return self._iteration_fused_solve(
                 x0, mean, samp_state, generator, iteration, optimization_stride,
-                injected_noise)
+                injected_noise, seed)
         K, T = self.num_rollouts, self.num_timesteps
         U, aux = self.sampler.sample(
             generator, mean, K, iteration=iteration,

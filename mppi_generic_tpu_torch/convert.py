@@ -20,9 +20,10 @@ imports JAX.
   ``mean_lstm_lstm``, ``unc_lstm_lstm`` and the warm states
   ``mean_warm_hidden``, ``mean_warm_cell``, ``unc_warm_hidden``,
   ``unc_warm_cell``;
-* cost: the circle cost ``velocity_cost``, ``crash_cost``,
-  ``velocity_desired``, ``inner_path_radius2``, ``outer_path_radius2``,
-  ``angular_momentum_desired``, ``discount``; the AutoRally costs their
+* cost: the circle cost and the DI robust cost ``velocity_cost``,
+  ``crash_cost``, ``velocity_desired``, ``inner_path_radius2``,
+  ``outer_path_radius2``, ``angular_momentum_desired``, ``discount``; the
+  AutoRally costs their
   ``PARAM_NAMES``, ``l1_speed_cost``, ``output_indices`` and ``costmap``
   (None, or a texture: ``data``, ``origin``, ``rotation``, ``resolution``,
   ``channel_major``); the cartpole cost ``coeffs``, ``desired_state``,
@@ -68,7 +69,10 @@ from mppi_generic_tpu_torch.controllers.tube import TubeControllerState, TubeMPP
 from mppi_generic_tpu_torch.controllers.vanilla import VanillaMPPI
 from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
 from mppi_generic_tpu_torch.costs.cartpole import CartpoleQuadraticCost
-from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.costs.double_integrator import (
+    DoubleIntegratorCircleCost,
+    DoubleIntegratorRobustCost,
+)
 from mppi_generic_tpu_torch.costs.quadratic import QuadraticCost
 from mppi_generic_tpu_torch.costs.quadrotor import QuadrotorMapCost, QuadrotorQuadraticCost
 from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback, DDPFeedbackState
@@ -203,8 +207,11 @@ def racer_unc_from_params(p: dict, device="cpu") -> RacerDubinsElevationLSTMUnce
                **_racer_kwargs(p, cls))
 
 
-def circle_cost_from_params(p: dict, device="cpu") -> DoubleIntegratorCircleCost:
-    return DoubleIntegratorCircleCost(
+def circle_cost_from_params(p: dict, device="cpu",
+                            robust=False) -> DoubleIntegratorCircleCost:
+    """``DoubleIntegratorCircleCost``, or ``DoubleIntegratorRobustCost`` with
+    ``robust``."""
+    return (DoubleIntegratorRobustCost if robust else DoubleIntegratorCircleCost)(
         **{name: _scalar(p[name]) for name in DoubleIntegratorCircleCost.PARAM_NAMES},
         device=device,
     )
@@ -263,6 +270,7 @@ DYNAMICS = {"double_integrator": double_integrator_from_params,
             "racer_steering": racer_steering_from_params,
             "racer_unc": racer_unc_from_params}
 COSTS = {"circle": circle_cost_from_params,
+         "di_robust": functools.partial(circle_cost_from_params, robust=True),
          "ar_standard": ar_cost_from_params,
          "ar_robust": functools.partial(ar_cost_from_params, robust=True),
          "cartpole": cartpole_cost_from_params,
@@ -384,12 +392,15 @@ def colored_mppi_from_params(dynamics: dict, cost: dict, sampler: dict,
 
 def robust_from_params(dynamics: dict, cost: dict, sampler: dict,
                        controller: dict, feedback: dict, device=None,
-                       kernel="fused") -> RobustMPPI:
-    """A DI circle-cost Gaussian ``RobustMPPI`` with DDP feedback (device
-    rule as ``VanillaMPPI``)."""
-    dyn = double_integrator_from_params(dynamics)
+                       kernel="fused", dynamics_kind="double_integrator",
+                       cost_kind="circle") -> RobustMPPI:
+    """A Gaussian ``RobustMPPI`` with DDP feedback of the dynamics
+    ``dynamics_kind`` and the cost ``cost_kind`` (keys of ``DYNAMICS`` and
+    ``COSTS``: the DI circle or robust cost, AutoRally with "ar_standard" or
+    "ar_robust"); device rule as ``VanillaMPPI``."""
+    dyn = DYNAMICS[dynamics_kind](dynamics)
     return RobustMPPI(
-        dyn, circle_cost_from_params(cost), gaussian_from_params(sampler),
+        dyn, COSTS[cost_kind](cost), gaussian_from_params(sampler),
         feedback=ddp_feedback_from_params(feedback, dyn),
         value_function_threshold=_scalar(controller["value_function_threshold"]),
         num_candidates=int(controller["num_candidates"]),
@@ -400,12 +411,13 @@ def robust_from_params(dynamics: dict, cost: dict, sampler: dict,
 
 def tube_from_params(dynamics: dict, cost: dict, sampler: dict,
                      controller: dict, feedback: dict, device=None,
-                     kernel="fused") -> TubeMPPI:
-    """A DI circle-cost Gaussian ``TubeMPPI`` with DDP feedback (device
-    rule as ``VanillaMPPI``)."""
-    dyn = double_integrator_from_params(dynamics)
+                     kernel="fused", dynamics_kind="double_integrator",
+                     cost_kind="circle") -> TubeMPPI:
+    """A Gaussian ``TubeMPPI`` with DDP feedback, of the dynamics and cost
+    kinds of ``robust_from_params``; device rule as ``VanillaMPPI``."""
+    dyn = DYNAMICS[dynamics_kind](dynamics)
     return TubeMPPI(
-        dyn, circle_cost_from_params(cost), gaussian_from_params(sampler),
+        dyn, COSTS[cost_kind](cost), gaussian_from_params(sampler),
         feedback=ddp_feedback_from_params(feedback, dyn),
         nominal_threshold=_scalar(controller["nominal_threshold"]),
         kernel=kernel, device=device, **_controller_kwargs(controller),

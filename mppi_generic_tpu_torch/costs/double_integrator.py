@@ -1,12 +1,21 @@
-"""Double-integrator annulus-tracking cost, in PyTorch.
+"""Double-integrator annulus-tracking costs, in PyTorch.
 
-Counterpart of ``DoubleIntegratorCircleCost`` in
-``mppi_generic_tpu/costs/double_integrator.py``
-(double_integrator_circle_cost.cu): a crash penalty discount^t * crash_cost
-outside the [inner, outer] radius annulus, plus |speed - v_des| and
-|angular momentum - L_des| tracking terms, and zero terminal cost. The CUDA
-kernels carry the same cost in ``csrc/double_integrator_circle_cost.cuh``,
-which reads the parameters in the order of ``PARAM_NAMES``.
+Counterparts of ``mppi_generic_tpu/costs/double_integrator.py``:
+
+* ``DoubleIntegratorCircleCost`` (double_integrator_circle_cost.cu): a
+  crash penalty discount^t * crash_cost outside the [inner, outer] radius
+  annulus, plus |speed - v_des| and |angular momentum - L_des| tracking
+  terms, and zero terminal cost.
+* ``DoubleIntegratorRobustCost`` (double_integrator_robust_cost.cu, the
+  cost of the JAX suite's RMPPI tests): the same parameters and tracking
+  terms, the crash penalty replaced by a quadratic barrier on the
+  normalised distance from the annulus center-line, and the penalty
+  outside the annulus.
+
+The CUDA kernels carry the same costs in
+``csrc/double_integrator_circle_cost.cuh`` and
+``csrc/double_integrator_robust_cost.cuh``, which read the parameters in the
+order of ``PARAM_NAMES``.
 """
 
 from __future__ import annotations
@@ -69,3 +78,35 @@ class DoubleIntegratorCircleCost(Cost):
 
     def terminal_cost(self, y):
         return torch.zeros_like(y[0])
+
+
+class DoubleIntegratorRobustCost(DoubleIntegratorCircleCost):
+    """Smooth-barrier robust variant (double_integrator_robust_cost.cu): the
+    circle cost's parameters and speed and angular-momentum terms, with
+    0.5 crash_cost d^2 for d = (r^2 - center_r2) / width (|d| = 1 on the
+    track boundary), and discount^t crash_cost outside the annulus. The
+    crash status is never set."""
+
+    def lipschitz_constant_cost(self):
+        """getLipshitzConstantCost (double_integrator_robust_cost.cuh:18-21):
+        the RMPPI free-energy growth bounds scale with this."""
+        return self.crash_cost
+
+    def state_cost(self, y, t, crash):
+        radial2 = y[0] * y[0] + y[1] * y[1]
+        speed = torch.sqrt(y[2] * y[2] + y[3] * y[3])
+        ang_mom = y[0] * y[3] - y[1] * y[2]
+        center_r2 = 0.5 * (self.inner_path_radius2 + self.outer_path_radius2)
+        width = 0.5 * (self.outer_path_radius2 - self.inner_path_radius2)
+        d = (radial2 - center_r2) / width  # a 0-d tensor: one IEEE division
+        cost = 0.5 * self.crash_cost * d * d
+        cost = torch.where(
+            torch.abs(d) > 1.0,
+            math_utils.discount_pow(self.discount, t) * self.crash_cost,
+            cost,
+        )
+        cost = cost + self.velocity_cost * torch.abs(speed - self.velocity_desired)
+        cost = cost + self.velocity_cost * torch.abs(
+            ang_mom - self.angular_momentum_desired
+        )
+        return cost, crash

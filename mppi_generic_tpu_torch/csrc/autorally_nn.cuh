@@ -1,16 +1,21 @@
-// AutoRally neural-network dynamics step for the rollout and solve kernels.
+// AutoRally neural-network dynamics step for the rollout and solve kernels,
+// and its derivative for the DDP ladder kernel.
 //
-// Device twin of AutorallyNNDynamics.kernel_step in
+// Device twin of AutorallyNNDynamics.kernel_step and .kernel_state_deriv in
 // mppi_generic_tpu_torch/models/autorally.py (the reference's
 // NeuralNetModel<7, 2, 3>, ar_nn_model.cu:91-120): state [x, y, yaw, roll,
 // u_x, u_y, yaw_rate], control [steering, throttle];
 //   x_d = cos(yaw) u_x - sin(yaw) u_y,  y_d = sin(yaw) u_x + cos(yaw) u_y,
 //   yaw_d = -yaw_rate,  [roll_d, u_x_d, u_y_d, yaw_rate_d] =
-//   FNN(roll, u_x, u_y, yaw_rate, steering, throttle),
-// then x <- x + xdot dt with the yaw wrapped to [-pi, pi), output = state.
+//   FNN(roll, u_x, u_y, yaw_rate, steering, throttle)   (state_deriv),
+// then x <- x + xdot dt with the yaw wrapped to [-pi, pi), output = state
+// (step). The ladder's forward pass steps x + state_deriv dt, without the
+// wrap, as the JAX package's (pallas_riccati.py:263, ilqr.py:84).
 // Compiled for the 6-32-32-4 network of the reference's autorally_nnet; the
 // wrappers refuse another architecture. The network's 1,412 parameters are
-// staged into shared memory once per block (Shared, stage).
+// staged into shared memory once per block (Shared, stage). AutorallyNN
+// unrolls the network's layers (B1, B3); AutorallyNNRolled rolls their
+// output loops (B7, B8: fnn_layer_rolled), with the same arithmetic.
 #pragma once
 
 #include <math.h>
@@ -18,7 +23,8 @@
 #include "fnn.cuh"
 #include "math_utils.cuh"
 
-struct AutorallyNN {
+template <bool kRolled>
+struct AutorallyNNT {
   static constexpr int S = 7;  // state
   static constexpr int C = 2;  // control
   static constexpr int O = 7;  // output
@@ -35,17 +41,23 @@ struct AutorallyNN {
     Net::stage(params, sh->w);
   }
 
-  __device__ static inline void step(const Shared& sh, float* x, const float* u,
-                                     float /*t*/, float dt, float* y) {
+  __device__ static inline void state_deriv(const Shared& sh, const float* x,
+                                            const float* u, float /*t*/,
+                                            float* xd) {
     const float yaw = x[2];
     const float cos_y = cosf(yaw);
     const float sin_y = sinf(yaw);
-    float xd[S];
     xd[0] = cos_y * x[4] - sin_y * x[5];
     xd[1] = sin_y * x[4] + cos_y * x[5];
     xd[2] = -x[6];
     const float feats[6] = {x[3], x[4], x[5], x[6], u[0], u[1]};
-    Net::forward(sh.w, feats, xd + 3);
+    Net::template forward<kRolled>(sh.w, feats, xd + 3);
+  }
+
+  __device__ static inline void step(const Shared& sh, float* x, const float* u,
+                                     float t, float dt, float* y) {
+    float xd[S];
+    state_deriv(sh, x, u, t, xd);
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = x[i] + xd[i] * dt;
     x[2] = normalize_angle(x[2]);
@@ -53,3 +65,6 @@ struct AutorallyNN {
     for (int i = 0; i < O; ++i) y[i] = x[i];
   }
 };
+
+using AutorallyNN = AutorallyNNT<false>;
+using AutorallyNNRolled = AutorallyNNT<true>;

@@ -1,4 +1,5 @@
-// Cartpole step for the rollout and sampling kernels.
+// Cartpole step for the rollout and sampling kernels, and its derivative for
+// the DDP ladder kernel.
 //
 // Device twin of CartpoleDynamics.step in
 // mppi_generic_tpu_torch/models/cartpole.py (the JAX package's
@@ -6,9 +7,10 @@
 // [pos_x, vel_x, theta, theta_dot], control [force], output = state. The
 // same operations in the same order as the PyTorch version, one rounding each
 // (--fmad=false), squares as x * x, gravity the float32 rounding of 9.81;
-// then the Euler update x + xdot * dt. The masses and the pole length arrive
-// as the model's packed `params` table (cart_mass, pole_mass, pole_length),
-// staged into shared memory by every block (stage); the kernel syncs after.
+// then the Euler update x + xdot * dt (state_deriv, then step). The masses
+// and the pole length arrive as the model's packed `params` table
+// (cart_mass, pole_mass, pole_length), staged into shared memory by every
+// block (stage); the kernel syncs after.
 #pragma once
 
 #include <math.h>
@@ -29,8 +31,11 @@ struct Cartpole {
     for (int i = threadIdx.x; i < 3; i += blockDim.x) sh->p[i] = params[i];
   }
 
-  __device__ static inline void step(const Shared& sh, float* x, const float* u,
-                                     float /*t*/, float dt, float* y) {
+  // xdot = [vel_x, x_acc, theta_dot, theta_acc] (CartpoleDynamics.state_deriv;
+  // the DDP ladder's forward pass steps x <- x + xdot * dt with it)
+  __device__ static inline void state_deriv(const Shared& sh, const float* x,
+                                            const float* u, float /*t*/,
+                                            float* xdot) {
     const float m_c = sh.p[0], m_p = sh.p[1], l_p = sh.p[2];
     const float theta_dot = x[3];
     const float force = u[0];
@@ -38,16 +43,20 @@ struct Cartpole {
     const float cos_t = cosf(x[2]);
     const float denom = m_c + m_p * (sin_t * sin_t);
     const float td2 = theta_dot * theta_dot;
-    const float x_acc =
-        (force + m_p * sin_t * (l_p * td2 + kGravity * cos_t)) / denom;
-    const float t_acc = ((-force) * cos_t - m_p * l_p * td2 * cos_t * sin_t -
-                         (m_c + m_p) * kGravity * sin_t) /
-                        (l_p * denom);
-    const float vel = x[1];
-    x[0] = x[0] + vel * dt;
-    x[1] = x[1] + x_acc * dt;
-    x[2] = x[2] + theta_dot * dt;
-    x[3] = x[3] + t_acc * dt;
+    xdot[0] = x[1];
+    xdot[1] = (force + m_p * sin_t * (l_p * td2 + kGravity * cos_t)) / denom;
+    xdot[2] = theta_dot;
+    xdot[3] = ((-force) * cos_t - m_p * l_p * td2 * cos_t * sin_t -
+               (m_c + m_p) * kGravity * sin_t) /
+              (l_p * denom);
+  }
+
+  __device__ static inline void step(const Shared& sh, float* x, const float* u,
+                                     float t, float dt, float* y) {
+    float xdot[S];
+    state_deriv(sh, x, u, t, xdot);
+#pragma unroll
+    for (int i = 0; i < S; ++i) x[i] = x[i] + xdot[i] * dt;
 #pragma unroll
     for (int i = 0; i < O; ++i) y[i] = x[i];
   }

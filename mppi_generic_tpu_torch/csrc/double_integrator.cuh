@@ -43,6 +43,13 @@ struct DoubleIntegrator {
     for (int i = 0; i < O; ++i) y[i] = x[i];
   }
 
+  // the staged interface of the DDP ladder kernel (csrc/riccati_kernels.cuh)
+  __device__ static inline void state_deriv(const Shared& /*sh*/, const float* x,
+                                            const float* u, float t,
+                                            float* xdot) {
+    state_deriv(x, u, t, xdot);
+  }
+
   __device__ static inline void step(const Shared& /*sh*/, float* x,
                                      const float* u, float t, float dt,
                                      float* y) {

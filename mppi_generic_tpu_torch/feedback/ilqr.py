@@ -5,7 +5,8 @@ DDP solver, ddp/ddp.h:54-170, and its DDPFeedback wrapper,
 feedback_controllers/DDP/ddp.{cuh,cu}), with the same semantics:
 
 * discrete model x' = x + f(x, u) dt; A_t = I + df/dx dt, B_t = df/du dt,
-  the Jacobians by ``torch.func.jacfwd`` over ``dynamics.state_deriv``;
+  the Jacobians by forward-mode AD (``torch.func.jvp``) over
+  ``dynamics.state_deriv``;
 * tracking cost (x - x*)' Q (x - x*) + (u - u*)' R (u - u*) with gradient
   Q (x - x*) (Q absorbs the factor 2, ddp_tracking_costs.h:37-53) and the
   terminal cost through Q_f;
@@ -16,11 +17,15 @@ feedback_controllers/DDP/ddp.{cuh,cu}), with the same semantics:
   taken (the first iteration takes alpha = 1), else the smallest.
 
 ``use_kernel=True`` (the JAX package's ``use_pallas``) runs each iteration
-as one call of ``ops.riccati.riccati_ladder_solve``: its CUDA kernel for a
-CUDA tensor, its plain version for a CPU tensor; sizes outside
-``ops.riccati.supported`` raise. ``use_kernel=False`` is the eager scan
-with ``torch.linalg.solve`` (the JAX package's XLA path), kept as the
-oracle. Nothing here waits on the device.
+as one call of ``ops.riccati.riccati_ladder_solve`` where the sizes are
+within ``ops.riccati.supported`` (S <= 8, C <= 4, T <= 1024): its CUDA
+kernel for a CUDA tensor, its plain version for a CPU tensor. Other sizes
+(the quadrotor's S = 13, the racer models') take the eager scan, as the
+JAX package takes its XLA scan there (ilqr.py:191-197); the choice is by
+size alone, so a supported size whose dynamics has no compiled ladder
+entry still raises on CUDA. ``use_kernel=False`` is the eager scan with
+``torch.linalg.solve`` (the JAX package's XLA path), kept as the oracle.
+Nothing here waits on the device.
 
 The gains K[t] (C, S) give u_fb = K[t] (x - x_goal), as the reference's
 device k() (DDP/ddp.cu:11-45).
@@ -32,7 +37,7 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jvp, vmap
 
 from mppi_generic_tpu_torch.feedback.base import FeedbackController
 from mppi_generic_tpu_torch.ops import riccati
@@ -58,13 +63,24 @@ def linearize(dynamics, xs, us, goal_x, goal_u, Q, R, Q_f, dt):
     As = I + df/dx dt (T, S, S) and Bs = df/du dt (T, S, C), cost gradients
     dLx = Q (x - x*) (T, S) and dLu = R (u - u*) (T, C), and the terminal
     value Vxx_T = (Q_f + Q_f') / 2, Vx_T = Q_f (x_T - x*_T)."""
-    def f(x, u):
-        return dynamics.state_deriv(x, u)
+    # The whole trajectory in one call, in the models' axis-0 layout: x (S, T),
+    # each component a (T,) vector. (Under a vmap over time each component
+    # would be 0-d, and torch.func's forward mode multiplies a 0-d tangent by
+    # a Python float in float64: the cartpole's and quadrotor's Jacobians
+    # came back float64.) One tangent per input component, batched by vmap.
+    X, U = xs.T, us.T
+
+    def columns(fn, primal):
+        n, T = primal.shape
+        basis = torch.eye(n, dtype=primal.dtype, device=primal.device)
+        tangents = basis[:, :, None].expand(n, n, T)
+        d = vmap(lambda tangent: jvp(fn, (primal,), (tangent,))[1])(tangents)
+        return d.permute(2, 1, 0)  # (n, S, T) -> (T, S, n)
 
     eye_s = torch.eye(xs.shape[1], dtype=torch.float32, device=xs.device)
-    # vmap may hand back permuted strides; the kernels take contiguous tensors
-    As = (vmap(jacfwd(f, argnums=0))(xs, us) * float(dt) + eye_s).contiguous()
-    Bs = (vmap(jacfwd(f, argnums=1))(xs, us) * float(dt)).contiguous()
+    # the kernels take contiguous tensors
+    As = (columns(lambda x: dynamics.state_deriv(x, U), X) * float(dt) + eye_s).contiguous()
+    Bs = (columns(lambda u: dynamics.state_deriv(X, u), U) * float(dt)).contiguous()
     dLx = (xs - goal_x) @ Q.T
     dLu = (us - goal_u) @ R.T
     Vxx_T = 0.5 * (Q_f + Q_f.T)
@@ -143,10 +159,11 @@ def ilqr_tracking(dynamics, x0, u_init, goal_x, goal_u, Q, R, Q_f, dt,
     xs = forward_rollout(x0, us)
     prev_cost = torch.full((), float("inf"), dtype=torch.float32, device=x0.device)
     alphas = _alpha_ladder(device=x0.device)
+    use_ladder = use_kernel and riccati.supported(S, C, T)
     gains = None
     for it in range(iterations):
         lin = linearize(dynamics, xs, us, goal_x, goal_u, Q, R, Q_f, dt)
-        if use_kernel:
+        if use_ladder:
             gains, _, cs, xns, uns = riccati.riccati_ladder_solve(
                 dynamics, xs, us, *lin[:4], Q, R, Q_f, lin[4], lin[5], goal_x,
                 goal_u, alphas, u_min, u_max, dt, reg=1e-6)

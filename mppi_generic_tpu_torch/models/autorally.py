@@ -6,10 +6,11 @@ yaw_rate], control [steering, throttle]. The first three derivatives are
 kinematics, the last four come from an FNN over [roll, u_x, u_y, yaw_rate,
 steering, throttle]; the Euler update wraps the yaw to [-pi, pi).
 
-The CUDA kernels carry the same step in ``csrc/autorally_nn.cuh``, compiled
-for the 6-32-32-4 network of the reference's autorally_nnet; their plain
-versions run ``kernel_step``, which is ``step`` with the network summed in
-the kernels' order.
+The CUDA kernels carry the same step and derivative in
+``csrc/autorally_nn.cuh``, compiled for the 6-32-32-4 network of the
+reference's autorally_nnet; their plain versions run ``kernel_step`` and
+``kernel_state_deriv`` (the DDP ladder's), which are ``step`` and
+``state_deriv`` with the network summed in the kernels' order.
 """
 
 from __future__ import annotations
@@ -67,9 +68,11 @@ class AutorallyNNDynamics(Dynamics):
         wrapped = math_utils.normalize_angle(x_next[2])
         return torch.cat([x_next[:2], wrapped[None], x_next[3:]], dim=0)
 
+    def kernel_state_deriv(self, x, u, t=0.0):
+        return self._deriv(x, u, self.nn.forward_axis0_plain)
+
     def kernel_step(self, x, u, t, dt):
-        xdot = self._deriv(x, u, self.nn.forward_axis0_plain)
-        x_next = self.update_state(x, xdot, dt)
+        x_next = self.update_state(x, self.kernel_state_deriv(x, u, t), dt)
         return x_next, self.state_to_output(x_next)
 
     def kernel_params(self):

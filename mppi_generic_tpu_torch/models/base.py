@@ -70,6 +70,13 @@ class Dynamics(nn.Module):
         eager step sums in another order (a network's matmul)."""
         return self.step(x, u, t, dt)
 
+    def kernel_state_deriv(self, x, u, t=0.0):
+        """``state_deriv`` in the CUDA kernels' order of operations, which
+        the DDP ladder's plain version steps with. The same as
+        ``state_deriv`` unless a model's eager derivative sums in another
+        order (a network's matmul)."""
+        return self.state_deriv(x, u, t)
+
     def kernel_params(self):
         """The float32 table the kernels stage for this model's step, or
         None for a model without one. Called only on the CUDA path; raises

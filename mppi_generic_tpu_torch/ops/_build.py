@@ -60,15 +60,33 @@ _SAMPLE = [
     _P, _P, _P, _P,                      # dynamics params, cost params, cost map, dynamics map
     _P, _P, _P, _P, _P, _P,              # costs, crash, U, W, carry, stream
 ]
+_RMPPI = [
+    _I, _P, _P, _P, _I, _I, _F,  # device, x0_nom, x0_real, U, K, T, dt
+    _P, _P, _P, _P,              # dynamics params, cost params, cost map, dynamics map
+    _P, _P, _P, _P, _F,          # constraints, gains, sigma, coeff, fb gain
+    _P, _P, _P, _P, _P, _P,      # s_nom, j_real, s_fb, crash, U_real, stream
+]
+_BACKWARD = [
+    _I, _P, _P, _P, _P, _P, _P, _P, _P,  # device, As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T, Vx_T
+    _I, _F, _F, _P, _P, _P,              # T, dt, reg, Ks, ks, stream
+]
+_LADDER = [
+    _I, _P, _P, _P, _P, _P, _P, _P, _P,  # device, As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T, Vx_T
+    _P, _P, _P, _P, _P, _P, _P, _P, _P,  # xs, us, goal_x, goal_u, Q, R, Q_f, ulim, alphas
+    _P, _I, _I, _F, _F,                  # dynamics params, n_alpha, T, dt, reg
+    _P, _P, _P, _P, _P, _P,              # Ks, ks, costs, xs_new, us_new, stream
+]
 # The (dynamics, cost) pairs with kernel entries: each has its own source
 # csrc/pair_<name>.cu and library, and the kernels named here (B1 "rollout":
 # rollout_costs_<name>, B3 "solve": fused_solve_<name>, B4 "sample":
 # fused_sample_rollout_<name>), so that nvcc builds the pairs in parallel.
 # B1's per-sample-x0 entries ("rollout_x0": rollout_costs_x0_<name>) are in
-# the one library of csrc/rollout_x0.cu.
+# the one library of csrc/rollout_x0.cu, B8's ("rmppi": rmppi_rollout_<name>)
+# in that of csrc/rmppi_rollout.cu (_KIND_LIBRARY).
 PAIR_KERNELS = {
-    "di_circle": ("rollout", "rollout_x0", "solve", "sample"),
-    "ar_nn": ("rollout", "rollout_x0", "solve"),
+    "di_circle": ("rollout", "rollout_x0", "solve", "sample", "rmppi"),
+    "di_robust": ("rollout_x0", "rmppi"),
+    "ar_nn": ("rollout", "rollout_x0", "solve", "rmppi"),
     "bicycle_ar": ("rollout", "rollout_x0"),
     "cartpole": ("rollout", "solve", "sample"),
     "quadrotor_quadratic": ("rollout", "solve"),
@@ -79,16 +97,18 @@ PAIR_KERNELS = {
     "racer_unc_ar": ("rollout", "solve"),
 }
 _ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
-                 "solve": "fused_solve_", "sample": "fused_sample_rollout_"}
+                 "solve": "fused_solve_", "sample": "fused_sample_rollout_",
+                 "rmppi": "rmppi_rollout_"}
+_KIND_LIBRARY = {"rollout_x0": "rollout_x0", "rmppi": "rmppi_rollout"}
 
 
 def pair_entry(pair: str, kind: str):
     """(library, C function) of kernel ``kind`` ("rollout", "rollout_x0",
-    "solve" or "sample") for the pair ``pair``, or None where it has no
-    entry."""
+    "solve", "sample" or "rmppi") for the pair ``pair``, or None where it has
+    no entry."""
     if kind not in PAIR_KERNELS.get(pair, ()):
         return None
-    lib = "rollout_x0" if kind == "rollout_x0" else f"pair_{pair}"
+    lib = _KIND_LIBRARY.get(kind, f"pair_{pair}")
     return lib, _ENTRY_PREFIX[kind] + pair
 
 
@@ -106,29 +126,18 @@ SIGNATURES = {
             _P, _P, _P,          # rows, rho, stream
         ],
     },
-    "rmppi_rollout": {
-        "rmppi_rollout_di_circle": [
-            _I, _P, _P, _P, _I, _I, _F,  # device, x0_nom, x0_real, U, K, T, dt
-            _P, _P, _P, _P, _P, _F,      # cost params, constraints, gains, sigma, coeff, fb gain
-            _P, _P, _P, _P, _P, _P,      # s_nom, j_real, s_fb, crash, U_real, stream
-        ],
-    },
     "riccati": {
         "riccati_max_alphas": [],
-        "riccati_backward_s4c2": [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P,  # device, As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T, Vx_T
-            _I, _F, _F, _P, _P, _P,              # T, dt, reg, Ks, ks, stream
-        ],
-        "riccati_ladder_di": [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P,  # device, As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T, Vx_T
-            _P, _P, _P, _P, _P, _P, _P, _P, _P,  # xs, us, goal_x, goal_u, Q, R, Q_f, ulim, alphas
-            _I, _I, _F, _F,                      # n_alpha, T, dt, reg
-            _P, _P, _P, _P, _P, _P,              # Ks, ks, costs, xs_new, us_new, stream
-        ],
+        "riccati_backward_s4c2": _BACKWARD,
+        "riccati_backward_s4c1": _BACKWARD,
+        "riccati_backward_s7c2": _BACKWARD,
+        "riccati_ladder_di": _LADDER,
+        "riccati_ladder_cartpole": _LADDER,
+        "riccati_ladder_ar_nn": _LADDER,
     },
 }
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
-                   "sample": _SAMPLE}
+                   "sample": _SAMPLE, "rmppi": _RMPPI}
 for _pair, _kinds in PAIR_KERNELS.items():
     for _kind in _kinds:
         _lib, _fn = pair_entry(_pair, _kind)

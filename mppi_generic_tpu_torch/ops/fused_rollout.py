@@ -5,7 +5,7 @@ Hopper kernel ``rollout_costs_kernel`` (``csrc/rollout_kernel.cuh``) replaces
 its TPU kernel ``_fused_call`` in three modes, with ``flash_combine_kernel``
 (``csrc/flash_combine.cu``) as the merge of its epilogue; the one in
 ``csrc/tsallis_reduce.cu`` its TPU kernel ``_tsallis_reduce_call``, the one
-in ``csrc/rmppi_rollout.cu`` its TPU kernel ``_fused_rmppi_call``, and
+in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 ``fused_sample_rollout_kernel`` (``csrc/sample_kernels.cuh``) its TPU kernel
 ``_fused_sample_call``.
 
@@ -48,7 +48,9 @@ the Dubins car with ``QuadraticCost``; the racer LSTM-steering model on its
 elevation map and the racer LSTM-uncertainty model on flat ground, each with
 ``ARStandardCost`` on the racer output layout (the LSTM step, B10, inside
 the kernel, its (h, c) carried through the horizon loop). The RMPPI kernel
-has the double integrator's entry only. Each pair reads its parameters
+and the per-sample-x0 rollout have entries for the double integrator with
+its circle or its robust cost and for AutoRally with its costs (the
+per-sample-x0 rollout also for the bicycle). Each pair reads its parameters
 through ``Dynamics.kernel_params``, ``Dynamics.kernel_map`` (the racer
 elevation map) and ``Cost.kernel_map`` besides the cost's ``params`` table.
 
@@ -76,7 +78,10 @@ import torch
 
 from mppi_generic_tpu_torch.costs.autorally import ARRobustCost, ARStandardCost
 from mppi_generic_tpu_torch.costs.cartpole import CartpoleQuadraticCost
-from mppi_generic_tpu_torch.costs.double_integrator import DoubleIntegratorCircleCost
+from mppi_generic_tpu_torch.costs.double_integrator import (
+    DoubleIntegratorCircleCost,
+    DoubleIntegratorRobustCost,
+)
 from mppi_generic_tpu_torch.costs.quadratic import QuadraticCost
 from mppi_generic_tpu_torch.costs.quadrotor import QuadrotorMapCost, QuadrotorQuadraticCost
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
@@ -124,6 +129,7 @@ EPI_NONE, EPI_EXP, EPI_MIN = 0, 1, 2
 # csrc/pair_<name>.cu (_build.PAIR_KERNELS lists which)
 _PAIRS = {
     (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "di_circle",
+    (DoubleIntegratorDynamics, DoubleIntegratorRobustCost): "di_robust",
     (AutorallyNNDynamics, ARStandardCost): "ar_nn",
     (AutorallyNNDynamics, ARRobustCost): "ar_nn",
     (BicycleSlipDynamics, ARStandardCost): "bicycle_ar",
@@ -147,16 +153,13 @@ _COST_LAYOUT = {
     "racer_steering_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
     "racer_unc_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
 }
-_RMPPI_ENTRY = {
-    (DoubleIntegratorDynamics, DoubleIntegratorCircleCost): "rmppi_rollout_di_circle",
-}
 _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
-                 "solve": "solve", "sample": "sampling"}
+                 "solve": "solve", "sample": "sampling", "rmppi": "RMPPI rollout"}
 
 
 def _entry(dynamics, cost, kind):
     """(library, C function) of kernel ``kind`` ("rollout", "rollout_x0",
-    "solve" or "sample") for this (dynamics, cost) pair; raises
+    "solve", "sample" or "rmppi") for this (dynamics, cost) pair; raises
     NotImplementedError for a pair without one."""
     pair = _PAIRS.get((type(dynamics), type(cost)))
     entry = None if pair is None else _build.pair_entry(pair, kind)
@@ -593,11 +596,6 @@ def tsallis_reduce(U, costs, rho, gamma, r, K=None):
     return num, eta
 
 
-@functools.lru_cache(maxsize=None)
-def _rmppi_lib():
-    return _build.load("rmppi_rollout")
-
-
 def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
                         dt, lam, alpha):
     """Fused RMPPI augmented rollout (rolloutRMPPIDynamicsKernel +
@@ -626,19 +624,15 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
     if _on_cpu(U):
         return rmppi_rollout_plain(dynamics, cost, x0_nom, x0_real, U, gains,
                                    sigma, coeff, dt, lam, alpha)
-    entry = _RMPPI_ENTRY.get((type(dynamics), type(cost)))
-    if entry is None:
-        raise NotImplementedError(
-            f"no CUDA RMPPI rollout kernel for {type(dynamics).__name__} with "
-            f"{type(cost).__name__}")
+    lib_name, entry = _entry(dynamics, cost, "rmppi")
     dev = U.device
     f32 = dict(dtype=torch.float32, device=dev)
     s_nom, j_real, s_fb = (torch.empty((K,), **f32) for _ in range(3))
     crash = torch.empty((K,), dtype=torch.int32, device=dev)
     U_real = torch.empty((K, T, C), **f32)
-    status = getattr(_rmppi_lib(), entry)(
+    status = getattr(_lib(lib_name), entry)(
         dev.index, x0_nom.data_ptr(), x0_real.data_ptr(), U.data_ptr(), K, T,
-        _f32(dt), cost.params.data_ptr(), constraints.data_ptr(),
+        _f32(dt), *_model_args(dynamics, cost, dev), constraints.data_ptr(),
         gains.data_ptr(), sigma.data_ptr(), coeff.data_ptr(),
         _lr_gain(lam, alpha), s_nom.data_ptr(), j_real.data_ptr(),
         s_fb.data_ptr(), crash.data_ptr(), U_real.data_ptr(),

@@ -2,7 +2,8 @@
 and plain versions.
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_riccati.py``: the hand-written
-Hopper kernels in ``csrc/riccati.cu`` replace its two TPU kernels.
+Hopper kernels of ``csrc/riccati_kernels.cuh`` (entries in ``csrc/riccati.cu``)
+replace its two TPU kernels.
 
 * ``riccati_backward`` (``_riccati_call``): the backward recursion of an
   iLQR iteration (ddp/ddp.h:54-170, plain Newton step), solving each step's
@@ -10,15 +11,24 @@ Hopper kernels in ``csrc/riccati.cu`` replace its two TPU kernels.
   Ks (T, C, S) and feedforward terms ks (T, C), step T-1 zeroed.
 * ``riccati_ladder_solve`` (``_ladder_call``): the same recursion, then the
   forward pass of every line-search step alpha at once,
-  u = clamp(us + alpha k + K (x - xs)), each scored with the tracking cost.
+  u = clamp(us + alpha k + K (x - xs)), x <- x + f(x, u) dt with the model
+  inside the kernel (its parameters staged in shared memory), each scored
+  with the tracking cost.
+
+The backward kernel has entries for (S, C) = (4, 2), (4, 1) and (7, 2) (the
+double integrator's, the cartpole's and AutoRally's sizes), the ladder for
+the double integrator, the cartpole and AutoRally's network dynamics.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module) for CPU tensors; the plain versions follow the
 TPU kernel's unrolled loops term by term (``_backward_pass_into``,
-``_solve_gauss``), so they agree with the kernels bit for bit. There is no
-fallback: sizes outside ``supported`` raise on every device, and a CUDA
-call without a compiled kernel for its sizes or dynamics raises. Every
-launch adds one to ``launch_counts`` under the kernel's name.
+``_solve_gauss``; the ladder's model through ``Dynamics.kernel_state_deriv``),
+so they agree with the kernels bit for bit. There is no fallback: sizes
+outside ``supported`` raise on every device (``feedback/ilqr.py`` chooses
+the eager scan for them, as the JAX package does), and a CUDA call without a
+compiled kernel for its sizes or dynamics raises. Every launch adds one to
+``launch_counts`` under the kernel's name (and to ``entry_counts`` under its
+C entry).
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import functools
 
 import torch
 
+from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
+from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.ops import _build
 from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
@@ -35,6 +47,7 @@ from mppi_generic_tpu_torch.ops.fused_rollout import (
     _check_tensors,
     _f32,
     _on_cpu,
+    _ptr,
 )
 
 __all__ = [
@@ -50,10 +63,14 @@ __all__ = [
 MAX_ALPHAS = 128
 _LIMIT = 1e30  # infinite control limits become +-1e30, as the TPU kernel has them
 
-# (S, C) with a compiled backward kernel -> C entry point
-_BACKWARD_ENTRY = {(4, 2): "riccati_backward_s4c2"}
+# (S, C) with a compiled backward kernel -> C entry point (csrc/riccati.cu)
+_BACKWARD_ENTRY = {(4, 2): "riccati_backward_s4c2", (4, 1): "riccati_backward_s4c1",
+                   (7, 2): "riccati_backward_s7c2"}
 # dynamics with a compiled ladder kernel (its forward pass steps the model)
-_LADDER_ENTRY = {DoubleIntegratorDynamics: "riccati_ladder_di"}
+# -> C entry point (csrc/riccati.cu)
+_LADDER_ENTRY = {DoubleIntegratorDynamics: "riccati_ladder_di",
+                 CartpoleDynamics: "riccati_ladder_cartpole",
+                 AutorallyNNDynamics: "riccati_ladder_ar_nn"}
 
 
 def supported(S: int, C: int, T: int) -> bool:
@@ -131,7 +148,8 @@ def ladder_forward_plain(dynamics, xs, us, Ks, ks, goal_x, goal_u, Q, R, Q_f,
                          alphas, ulim, dt):
     """Plain version of the ladder kernel's forward pass: per line-search
     step n, the trajectory from xs[0] under
-    u = clamp(us + alphas[n] ks + Ks (x - xs)) and its tracking cost
+    u = clamp(us + alphas[n] ks + Ks (x - xs)), x <- x +
+    kernel_state_deriv(x, u) dt, and its tracking cost
     sum_t<T-1 (ex'Q ex + eu'R eu) dt + ex_T'Q_f ex_T. Returns
     (costs (n,), xs_new (n, T, S), us_new (n, T, C)); the states carry the
     lanes on their minor axis, as the model's methods expect."""
@@ -164,7 +182,7 @@ def ladder_forward_plain(dynamics, xs, us, Ks, ks, goal_x, goal_u, Q, R, Q_f,
         u = torch.stack(u)
         xo.append(x)
         uo.append(u)
-        x = x + dynamics.state_deriv(x, u, float(t)) * dt
+        x = x + dynamics.kernel_state_deriv(x, u, float(t)) * dt
     return (acc, torch.stack(xo).permute(2, 0, 1), torch.stack(uo).permute(2, 0, 1))
 
 
@@ -175,7 +193,7 @@ def ladder_forward_plain(dynamics, xs, us, Ks, ks, goal_x, goal_u, Q, R, Q_f,
 def _lib():
     lib = _build.load("riccati")
     if lib.riccati_max_alphas() != MAX_ALPHAS:
-        raise RuntimeError("csrc/riccati.cu and MAX_ALPHAS disagree")
+        raise RuntimeError("csrc/riccati_kernels.cuh and MAX_ALPHAS disagree")
     return lib
 
 
@@ -218,7 +236,7 @@ def riccati_backward(As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T, dt, reg=1e-6):
         Vx_T.data_ptr(), T, _f32(dt), _f32(reg), Ks.data_ptr(), ks.data_ptr(),
         torch.cuda.current_stream(As.device).cuda_stream)
     _check_status(status, "riccati_backward_kernel")
-    launch_counts["riccati_backward_kernel"] += 1
+    _build.count_launch("riccati_backward_kernel", entry)
     return Ks, ks
 
 
@@ -258,6 +276,9 @@ def riccati_ladder_solve(dynamics, xs, us, As, Bs, dLx, dLu, Q, R, Q_f, Vxx_T,
         raise NotImplementedError(
             f"no CUDA riccati ladder kernel for {type(dynamics).__name__}")
     dev = As.device
+    dyn_p = dynamics.kernel_params()
+    if dyn_p is not None:
+        _check_tensors({"dynamics params": dyn_p}, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     Ks = torch.empty((T, C, S), **f32)
     ks = torch.empty((T, C), **f32)
@@ -269,9 +290,9 @@ def riccati_ladder_solve(dynamics, xs, us, As, Bs, dLx, dLu, Q, R, Q_f, Vxx_T,
         Qdt.data_ptr(), Rdt.data_ptr(), Vxx_T.data_ptr(), Vx_T.data_ptr(),
         xs.data_ptr(), us.data_ptr(), goal_x.data_ptr(), goal_u.data_ptr(),
         Q.data_ptr(), R.data_ptr(), Q_f.data_ptr(), ulim.data_ptr(),
-        alphas.data_ptr(), n, T, _f32(dt), _f32(reg), Ks.data_ptr(),
+        alphas.data_ptr(), _ptr(dyn_p), n, T, _f32(dt), _f32(reg), Ks.data_ptr(),
         ks.data_ptr(), costs.data_ptr(), xs_new.data_ptr(), us_new.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _check_status(status, "riccati_ladder_kernel")
-    launch_counts["riccati_ladder_kernel"] += 1
+    _build.count_launch("riccati_ladder_kernel", entry)
     return Ks, ks, costs, xs_new, us_new

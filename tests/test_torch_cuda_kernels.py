@@ -17,7 +17,9 @@ from mppi_generic_tpu_torch import (
     DDPFeedback,
     GaussianDistribution,
     NLNDistribution,
+    RobustMPPI,
     SmoothMPPIDistribution,
+    TubeMPPI,
     VanillaMPPI,
 )
 from mppi_generic_tpu_torch.costs import (
@@ -25,11 +27,12 @@ from mppi_generic_tpu_torch.costs import (
     ARStandardCost,
     CartpoleQuadraticCost,
     DoubleIntegratorCircleCost,
+    DoubleIntegratorRobustCost,
     QuadraticCost,
     QuadrotorMapCost,
     QuadrotorQuadraticCost,
 )
-from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder
+from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
 from mppi_generic_tpu_torch.maps import MapTexture2D
 from mppi_generic_tpu_torch.models import (
     AutorallyNNDynamics,
@@ -432,8 +435,13 @@ def test_ar_kernels_refuse_what_they_are_not_built_for(cuda_device):
     moved = ARStandardCost(output_indices=(1, 0, 2, 3, 4, 5), device=cuda_device)
     with pytest.raises(NotImplementedError, match="output"):
         fr.fused_rollout_costs(dyn, moved, x0, U, DT)
+    # the RMPPI kernel has AutoRally's entry, not the bicycle's
+    bicycle = BicycleSlipDynamics.create(device=cuda_device)
+    xb = torch.zeros((bicycle.STATE_DIM,), device=cuda_device)
+    bcost = ARStandardCost(output_indices=(0, 1, 2, 8, 5, 6), device=cuda_device)
     with pytest.raises(NotImplementedError, match="RMPPI"):
-        fr.fused_rmppi_rollout(dyn, cost, x0, x0, U, torch.zeros((T, C, 7), device=cuda_device),
+        fr.fused_rmppi_rollout(bicycle, bcost, xb, xb, U,
+                               torch.zeros((T, C, bicycle.STATE_DIM), device=cuda_device),
                                torch.ones((T, C), device=cuda_device),
                                torch.ones((C,), device=cuda_device), DT, LAM, ALPHA)
 
@@ -906,3 +914,202 @@ def test_racer_vanilla_kernels_match_combined_on_the_card(cuda_device, kind, ker
     tol = mean_tolerance(rf, rc, rc.sampled_controls, LAM_AR)
     _close(rf.control_mean, rc.control_mean, rtol=0, atol=tol)
     assert bool(torch.isfinite(rf.state_trajectory).all())
+
+
+# --- the robust family: B6 (4, 1), (7, 2); B7 and B8 with staged models ------
+def _partial_map(dev):
+    """A 32^2 map (0.1 m texels) of 0.15 |z| with a hot block ahead and to
+    the left of the car: part of the AutoRally samples crash."""
+    m = (0.15 * np.abs(np.random.default_rng(11).normal(size=(32, 32)))).astype("f")
+    m[21:, 27:] = 3.0
+    return MapTexture2D(m, origin=(-1.6, -1.6, 0.0), resolution=0.1, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_,C_", [(4, 1), (7, 2)])
+def test_riccati_backward_new_sizes_match_plain(cuda_device, S_, C_):
+    rng = np.random.default_rng(S_ + C_)
+    T_ = 150
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    As = f(np.eye(S_) + 0.05 * rng.normal(size=(T_, S_, S_)))
+    Bs = f(0.1 * rng.normal(size=(T_, S_, C_)))
+    dLx, dLu = f(rng.normal(size=(T_, S_))), f(rng.normal(size=(T_, C_)))
+    Q, R = f(np.eye(S_)), f(0.5 * np.eye(C_))
+    Vxx_T, Vx_T = f(2 * np.eye(S_)), f(rng.normal(size=S_))
+    riccati.reset_launch_counts()
+    kK, kk = riccati.riccati_backward(As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T, DT)
+    torch.cuda.synchronize()
+    assert riccati.launch_counts["riccati_backward_kernel"] == 1
+    pK, pk = riccati.riccati_backward_plain(As, Bs, dLx, dLu, Q * DT, R * DT, Vxx_T,
+                                            Vx_T, DT, 1e-6)
+    _close(kK, pK, rtol=1e-5, atol=1e-6)
+    _close(kk, pk, rtol=1e-5, atol=1e-6)
+
+
+def _model_ladder_problem(kind, dev, T_):
+    """The first iLQR iteration's ladder inputs for AutoRally (random
+    network, numpy seed 0, scale 1) or the cartpole."""
+    g = torch.Generator(device=dev).manual_seed(T_)
+    if kind == "autorally":
+        dyn = AutorallyNNDynamics(FNN.create([6, 32, 32, 4], seed=0, scale=1.0),
+                                  control_ranges=[[-0.9, 0.9], [-0.6, 1.0]], device=dev)
+        x0 = _ar_x0(dev)
+    else:
+        dyn = CartpoleDynamics.create(control_ranges=[[-5.0, 5.0]], device=dev)
+        x0 = torch.tensor([0.1, -0.2, 0.6, 0.3], device=dev)
+    S_, C_ = dyn.STATE_DIM, dyn.CONTROL_DIM
+    lo, hi = dyn.control_ranges[:, 0].contiguous(), dyn.control_ranges[:, 1].contiguous()
+    us = torch.clamp(0.4 * torch.randn((T_, C_), generator=g, device=dev), lo, hi)
+    xs = [x0]
+    for t in range(T_ - 1):
+        xs.append(xs[-1] + dyn.state_deriv(xs[-1], us[t]) * DT)
+    xs = torch.stack(xs)
+    goal_x = xs + 0.05 * torch.randn((T_, S_), generator=g, device=dev)
+    goal_u = torch.zeros((T_, C_), device=dev)
+    Q, R = torch.eye(S_, device=dev), 0.5 * torch.eye(C_, device=dev)
+    Qf = 3 * Q
+    lin = linearize(dyn, xs, us, goal_x, goal_u, Q, R, Qf, DT)
+    return dyn, (xs, us, *lin[:4], Q, R, Qf, lin[4], lin[5], goal_x, goal_u,
+                 _alpha_ladder(device=dev), lo, hi, DT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_", [24, 150])
+@pytest.mark.parametrize("kind", ["cartpole", "autorally"])
+def test_riccati_ladder_with_the_model_matches_plain(cuda_device, kind, T_):
+    dyn, args = _model_ladder_problem(kind, cuda_device, T_)
+    riccati.reset_launch_counts()
+    kout = riccati.riccati_ladder_solve(dyn, *args)
+    torch.cuda.synchronize()
+    assert riccati.launch_counts["riccati_ladder_kernel"] == 1
+    xs, us, As, Bs, dLx, dLu, Q, R, Qf, Vxx_T, Vx_T, goal_x, goal_u, alphas, lo, hi, _ = args
+    pK, pk = riccati.riccati_backward_plain(As, Bs, dLx, dLu, Q * DT, R * DT, Vxx_T,
+                                            Vx_T, DT, 1e-6)
+    pout = (pK, pk) + riccati.ladder_forward_plain(
+        dyn, xs, us, pK, pk, goal_x, goal_u, Q, R, Qf, alphas, torch.stack([lo, hi]), DT)
+    for got, want in zip(kout, pout):
+        _close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("robust", [False, True])
+def test_rmppi_rollout_kernel_autorally_matches_plain(cuda_device, K, robust):
+    dev = cuda_device
+    dyn = AutorallyNNDynamics(FNN.create([6, 32, 32, 4], seed=0, scale=1.0),
+                              control_ranges=[[-0.9, 0.9], [-0.6, 1.0]], device=dev)
+    cost = (ARRobustCost if robust else ARStandardCost)(costmap=_partial_map(dev),
+                                                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(K + robust)
+    U = 0.5 * torch.randn((K, T, C), generator=g, device=dev)
+    gains = -0.5 * torch.rand((T, C, 7), generator=g, device=dev)
+    sigma = torch.tensor([[0.3, 0.5]], device=dev).expand(T, C).contiguous()
+    x_nom = _ar_x0(dev)
+    x_real = x_nom + torch.tensor([0.05, -0.04, 0.03, 0.0, 0.2, 0.05, 0.02], device=dev)
+    args = (dyn, cost, x_nom, x_real, U, gains, sigma, torch.tensor([0.5, 1.0], device=dev),
+            DT, LAM, ALPHA)
+    fr.reset_launch_counts()
+    kout = fr.fused_rmppi_rollout(*args)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"rmppi_rollout_ar_nn": 1}
+    pout = fr.rmppi_rollout_plain(*args)
+    for k, p in zip(kout[:3], pout[:3]):
+        _close(k, p, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kout[3], pout[3])
+    assert 0 < int(kout[3].sum()) < K  # part of the samples crash
+    _close(kout[4], pout[4], rtol=0, atol=0)
+
+
+def _di_robust(dev):
+    dyn = DoubleIntegratorDynamics.create(control_ranges=[[-2.5, 2.5], [-2.0, 2.0]],
+                                          control_deadband=[0.05, 0.1], device=dev)
+    return dyn, DoubleIntegratorRobustCost(discount=0.95, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 250])
+def test_rmppi_rollout_kernel_di_robust_matches_plain(cuda_device, K):
+    dev = cuda_device
+    dyn, cost = _di_robust(dev)
+    g = torch.Generator(device=dev).manual_seed(K)
+    U = 1.2 * torch.randn((K, T, C), generator=g, device=dev)
+    gains = -0.8 * torch.rand((T, C, 4), generator=g, device=dev)
+    sigma = 0.6 + 0.8 * torch.rand((T, C), generator=g, device=dev)
+    args = (dyn, cost, torch.tensor([2.05, 0.0, 0.0, 1.9], device=dev),
+            torch.tensor([2.12, -0.05, 0.1, 1.8], device=dev), U, gains, sigma,
+            torch.tensor([0.02, 0.5], device=dev), DT, LAM, ALPHA)
+    fr.reset_launch_counts()
+    kout = fr.fused_rmppi_rollout(*args)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"rmppi_rollout_di_robust": 1}
+    pout = fr.rmppi_rollout_plain(*args)
+    for k, p in zip(kout[:3], pout[:3]):
+        _close(k, p, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kout[3], pout[3])
+    _close(kout[4], pout[4], rtol=0, atol=0)
+    assert float(kout[0].max()) > float(cost.crash_cost) / T  # off the track too
+
+
+@pytest.mark.cuda
+def test_rollout_kernel_per_sample_x0_di_robust_matches_plain(cuda_device):
+    dev = cuda_device
+    dyn, cost = _di_robust(dev)
+    K = 9 * 16
+    g = torch.Generator(device=dev).manual_seed(9)
+    w = torch.linspace(0.0, 1.0, 9, device=dev)[:, None]
+    a = torch.tensor([1.9, 0.0, 0.0, 2.0], device=dev)
+    b = torch.tensor([2.3, 0.2, 0.3, 1.6], device=dev)
+    x0s = ((1 - w) * a + w * b).repeat_interleave(16, dim=0).contiguous()
+    U = torch.randn((K, T, C), generator=g, device=dev)
+    fr.reset_launch_counts()
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"rollout_costs_x0_di_robust": 1}
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
+    _close(kc, pc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(kcrash, pcrash)
+
+
+@pytest.mark.cuda
+def test_robust_autorally_kernels_match_combined_on_the_card(cuda_device):
+    """One RMPPI cycle and one Tube fused solve on AutoRally (K=256, T=24,
+    9 x 16) through the kernels, against kernel="combined" on the same
+    normals. The eager network sums with a matmul: costs rtol 1e-4 / atol
+    1e-3; the means within 2 max|dJ| / lambda times the samples' spread."""
+    dev = cuda_device
+    dyn = AutorallyNNDynamics(FNN.create([6, 32, 32, 4], seed=0, scale=1.0),
+                              control_ranges=[[-0.9, 0.9], [-0.6, 1.0]], device=dev)
+    x = _ar_x0(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    e1 = torch.randn((16, T, C), generator=g, device=dev)
+    e2 = torch.randn((256, T, C), generator=g, device=dev)
+    kw = dict(feedback=DDPFeedback.create(dyn, DT), dt=DT, num_timesteps=T,
+              num_rollouts=256, device=dev)
+    outs, warm = {}, None
+    for kernel in ("combined", "fused"):
+        ctrl = RobustMPPI(dyn, ARRobustCost(costmap=_partial_map(dev), device=dev),
+                          GaussianDistribution.create(std_dev=[0.3, 0.5], device=dev),
+                          num_candidates=9, samples_per_condition=16, kernel=kernel, **kw)
+        if warm is None:  # one warm state, with a nominal system, for both
+            warm, _ = ctrl.update_importance_sampling(x, ctrl.init_state(seed=0), 1)
+            _, warm = ctrl.solve(x, warm)
+        cs, fe = ctrl.update_importance_sampling(x, warm, 1, injected_noise=e1)
+        res, _ = ctrl.solve(x, cs, injected_noise=e2)
+        outs[kernel] = (fe, res, cs)
+    for kernel in ("fused_solve", "combined"):
+        ctrl = TubeMPPI(dyn, ARStandardCost(costmap=_partial_map(dev), device=dev),
+                        GaussianDistribution.create(std_dev=[0.3, 0.5], device=dev),
+                        kernel=kernel, **kw)
+        res, _ = ctrl.solve(x, ctrl.init_state(seed=0), injected_noise=e2)
+        outs[f"tube {kernel}"] = (None, res, None)
+    for a, b in (("fused", "combined"), ("tube fused_solve", "tube combined")):
+        ra, rb = outs[a][1], outs[b][1]
+        for system in ("real", "nominal"):
+            sa, sb = getattr(ra, system), getattr(rb, system)
+            _close(sa.costs, sb.costs, rtol=1e-4, atol=1e-3)
+            assert torch.equal(sa.crash, sb.crash)
+            dJ = float((sa.costs - sb.costs).abs().max())
+            # |U - mean| <= 1.8 within the control ranges
+            _close(sa.control_mean, sb.control_mean, rtol=0,
+                   atol=2 * dJ / LAM_AR * 1.8 + 1e-5)
+    _close(outs["fused"][0], outs["combined"][0], rtol=1e-4, atol=1e-3)
