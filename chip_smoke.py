@@ -65,7 +65,17 @@ AutoRally model as the plant, ``rmppi_di_robust`` (the JAX suite's RMPPI
 loop on DoubleIntegratorRobustCost, tests/test_tube_robust.py:181-199, 60
 steps with its disturbances and band bar) and ``instantiations`` (each
 per-robot factory: its B3, merge and ladder against their plain versions
-at its own K and T, then three solves with its DDP feedback). Each phase
+at its own K and T, then three solves with its DDP feedback). Then the
+split form of B1 and B3 (csrc/split_kernels.cuh) for the double integrator
+and AutoRally: every split entry against its plain version at K=8192 /
+8000, T=100 and K=1920 / 1900, T=150 (AutoRally also on the partly-crashing
+map), each pass timed apart and the whole form timed A B B A against the
+combined kernel (``split_kernels``); the flagship's loop with the split
+forced on ``fused`` and ``fused_solve`` and on the eager ``kernel="split"``,
+with its bar, and AutoRally's with the split forced (``split_loops``); and
+the kernel tuner on the flagship (``autotune``). The earlier phases pass
+``split_cost=False``, so they keep the combined kernels on their paths
+(AUTO would split the DI ``fused`` and AutoRally paths). Each phase
 prints one JSON line;
 ``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
@@ -81,6 +91,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -124,9 +135,10 @@ from mppi_generic_tpu_torch.models import (
     RacerDubinsElevationLSTMUncertainty,
     rollout_single,
 )
-from mppi_generic_tpu_torch.ops import _build, fused_solve, philox, riccati, weights
+from mppi_generic_tpu_torch.ops import _build, autotune, fused_solve, philox, riccati, weights
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 from mppi_generic_tpu_torch.ops.rollout import rollout_combined
+from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 K_MAIN, K_RAGGED, T, C, S = 8192, 8000, 100, 2, 4
 DT, LAM, ALPHA = 0.02, 1.0, 0.0
@@ -512,7 +524,7 @@ def kernel_phase(dev, K, p, seed):
     # kernel 1, plain-costs mode, without and with the LR cost
     for with_lr in (False, True):
         lrp = lr if with_lr else None
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
         pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
         torch.cuda.synchronize()
         checks.append(check(f"costs(lr={with_lr})", kc, pc, "costs"))
@@ -520,14 +532,16 @@ def kernel_phase(dev, K, p, seed):
             raise AssertionError("crash flags differ from the plain version")
         mode = f"costs{'+lr' if with_lr else ''}"
         times[mode] = {
-            "ms": time_ms(lambda: fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp), N_TIMED),
+            "ms": time_ms(lambda: fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp,
+                                                         split_cost=False), N_TIMED),
             "plain_ms": time_ms(lambda: fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp),
                                 N_TIMED_PLAIN),
         }
         times[mode]["bound_ms"], times[mode]["bound_by"] = bound_ms(
             *rollout_work(K, False, with_lr))
     # kernel 1, exp-epilogue mode, with LR (the main path's mode)
-    kc, kcrash, kcarry = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr)
+    kc, kcrash, kcarry = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr,
+                                                  split_cost=False)
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     pcarry = fr.block_carries_plain(pc, U, LAM)
     checks.append(check("epilogue costs", kc, pc, "costs"))
@@ -537,8 +551,8 @@ def kernel_phase(dev, K, p, seed):
     if not torch.equal(kcrash, pcrash):
         raise AssertionError("epilogue crash flags differ from the plain version")
     times["epilogue+lr"] = {
-        "ms": time_ms(lambda: fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr),
-                      N_TIMED),
+        "ms": time_ms(lambda: fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr,
+                                                       split_cost=False), N_TIMED),
         "plain_ms": time_ms(
             lambda: fr.block_carries_plain(
                 fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)[0], U, LAM),
@@ -562,7 +576,8 @@ def kernel_phase(dev, K, p, seed):
     }
     times["flash_combine"]["bound_ms"], times["flash_combine"]["bound_by"] = bound_ms(
         *combine_work(nb))
-    _, _, fm, fb, fe = fr.fused_weighted_rollout(dyn, cost, x0, U, DT, LAM, lr)
+    _, _, fm, fb, fe = fr.fused_weighted_rollout(dyn, cost, x0, U, DT, LAM, lr,
+                                                 split_cost=False)
     checks.append(check("fused_weighted_rollout new_mean", fm, pm, "new_mean"))
     checks.append(check("fused_weighted_rollout baseline", fb, pb, "baseline"))
     checks.append(check("fused_weighted_rollout eta", fe, pe, "new_mean"))
@@ -592,13 +607,15 @@ def reference_phase(dev):
     emit("reference", K=K_MAIN, T=T, checks=checks)
 
 
-def build_vanilla(kind, kernel):
+def build_vanilla(kind, kernel, split_cost=False):
     """The flagship (bench.py:31-50) or the NLN / Smooth-MPPI rows
-    (bench.py:619-638) on the card (the controller's default device)."""
+    (bench.py:619-638) on the card (the controller's default device). The
+    combined kernels unless ``split_cost`` says otherwise: the split form
+    has phases of its own (``split_kernels``, ``split_loops``)."""
     return VanillaMPPI(
         DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
         make_sampler(kind), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
-        num_rollouts=K_MAIN, num_iters=1, kernel=kernel)
+        num_rollouts=K_MAIN, num_iters=1, kernel=kernel, split_cost=split_cost)
 
 
 def vanilla_loop_phase(path, ctrl, want, settle):
@@ -894,7 +911,8 @@ def build_tube(kernel="fused"):
     return TubeMPPI(
         dyn, DoubleIntegratorCircleCost(), GaussianDistribution.create(std_dev=[1.0, 1.0]),
         feedback=DDPFeedback.create(dyn, DT), dt=DT, lam=LAM_R, alpha=ALPHA,
-        num_timesteps=T_R, num_rollouts=K_R, nominal_threshold=THRESH_R, kernel=kernel)
+        num_timesteps=T_R, num_rollouts=K_R, nominal_threshold=THRESH_R, kernel=kernel,
+        split_cost=False)
 
 
 def compare_systems(name, rf, rc, checks):
@@ -1090,11 +1108,12 @@ def ar_x0(dev):
 
 
 def build_autorally(map_kind, kernel, return_samples=False):
-    """bench.py:704-717 (or :775-789 on the 1024^2 map) on the card."""
+    """bench.py:704-717 (or :775-789 on the 1024^2 map) on the card, on the
+    combined kernels (the split form has phases of its own)."""
     dyn, cost = ar_parts(map_kind)
     return VanillaMPPI(dyn, cost, ar_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA,
                        num_timesteps=T_AR, num_rollouts=K_AR, num_iters=1, kernel=kernel,
-                       return_samples=return_samples)
+                       return_samples=return_samples, split_cost=False)
 
 
 def ar_fixed_bytes(cost):
@@ -1161,7 +1180,8 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
     for kind in ("gaussian", "nln"):
         args = (dyn, cost, ar_sampler(kind, dev, p), x0, mean, seed_t, DT, LAM, ALPHA, K)
         kw = dict(optimization_stride=stride)
-        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False,
+                                                                 **kw)
         pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
         torch.cuda.synchronize()
         name = f"B3 {kind}"
@@ -1170,7 +1190,8 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
                    check(f"{name} costs", kc, pc, "bitwise"),
                    *merge_checks(name, kcarry, pcarry, pc, pU)]
         crashed[name] = float(kcrash.float().mean())
-        times[name] = timing(lambda: fused_solve.fused_solve_carries(*args, **kw),
+        times[name] = timing(lambda: fused_solve.fused_solve_carries(*args, split_cost=False,
+                                                                     **kw),
                              lambda: fused_solve.fused_solve_plain(*args, **kw),
                              ar_solve_work(cost, K, kind))
         if kind == "gaussian":  # the merge at this path's shapes
@@ -1190,8 +1211,9 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
 
         def kernel(lrp=lrp, epilogue=epilogue):
             if epilogue:
-                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp)
-            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp,
+                                                split_cost=False)
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
 
         def plain(lrp=lrp, epilogue=epilogue):
             pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
@@ -1357,11 +1379,12 @@ def tsallis_kernel_phase(dev, K, p, stride, seed):
     prho = torch.amin(pmin)
     for gamma, r in ((GAMMA, R_TS), (GAMMA_SMALL, R_SMALL)):
         name = f"gamma {gamma} r {r}"
-        kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+        kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False)
         krows, krho = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
         km, _, ke = fr.flash_combine(krows, T, C, 1.0)
         _, _, fm, frho, fe = fr.fused_weighted_rollout(
-            dyn, cost, x0, U, DT, LAM, lr, weight_kind="tsallis", weight_params=(gamma, r))
+            dyn, cost, x0, U, DT, LAM, lr, weight_kind="tsallis", weight_params=(gamma, r),
+            split_cost=False)
         knum, keta = fr.tsallis_reduce(U, pc, prho, gamma, r)
         prows = fr.tsallis_rows_plain(U, pc, prho, fr._f32(gamma), fr._tsallis_pw(r))
         pm, _, pe, pnum = fr.flash_combine_plain(prows, T, C, 1.0, with_num=True)
@@ -1390,7 +1413,7 @@ def tsallis_kernel_phase(dev, K, p, stride, seed):
         if K == K_MAIN and gamma == GAMMA:
             g32, pw = fr._f32(gamma), fr._tsallis_pw(r)
             times["pass1"] = timed(
-                lambda: fr.rollout_block_minima(dyn, cost, x0, U, DT, lr),
+                lambda: fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False),
                 lambda: fr.block_minima_plain(
                     fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)[0]))
             times["pass1"]["bound_ms"], times["pass1"]["bound_by"] = bound_ms(
@@ -1415,7 +1438,8 @@ def tsallis_kernel_phase(dev, K, p, stride, seed):
             times["chain (pass 1, B5, merge)"] = {"ms": time_ms(
                 lambda: fr.fused_weighted_rollout(dyn, cost, x0, U, DT, LAM, lr,
                                                   weight_kind="tsallis",
-                                                  weight_params=(gamma, r)), N_TIMED)}
+                                                  weight_params=(gamma, r),
+                                                  split_cost=False), N_TIMED)}
     emit("tsallis_kernels", K=K, T=T, pure_noise_percentage=p, stride=stride,
          rho=float(prho), zero_weights=zero_weights,
          checks=[c for cs in by_kernel.values() for c in cs], times=times)
@@ -1446,7 +1470,7 @@ def build_colored(transform, kernel):
                        colored_sampler(), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
                        num_rollouts=K_MAIN, num_iters=1, kernel=kernel,
                        weight_transform=transform, tsallis_gamma=GAMMA, tsallis_r=R_TS,
-                       return_samples=kernel == "combined")
+                       return_samples=kernel == "combined", split_cost=False)
 
 
 def bicycle_work(cost, K, mode):
@@ -2040,7 +2064,8 @@ def division_phase(dev):
     lr = (torch.zeros((T, C), device=dev), ctrl.sampler._sigma(T, 0).contiguous(),
           ctrl.sampler.control_cost_coeff, LAM_DIVISION, ALPHA,
           ctrl.sampler.pure_threshold(K_MAIN))
-    kc, kcrash = fr.fused_rollout_costs(ctrl.dynamics, ctrl.cost, x, U, DT, lr)
+    kc, kcrash = fr.fused_rollout_costs(ctrl.dynamics, ctrl.cost, x, U, DT, lr,
+                                        split_cost=False)
     torch.cuda.synchronize()
     same("combined costs and the rollout kernel's (lambda 0.3, T = 100)", res.costs, kc)
     same("combined and kernel crash flags", res.crash, kcrash)
@@ -2388,7 +2413,7 @@ def build_tube_ar(kernel):
     dyn, cost = robust_ar_parts("128", robust=False)
     return TubeMPPI(dyn, cost, ar_sampler("gaussian"), feedback=DDPFeedback.create(dyn, DT),
                     dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_AR, num_rollouts=K_AR,
-                    kernel=kernel)
+                    kernel=kernel, split_cost=False)
 
 
 def build_rmppi_di_robust(kernel):
@@ -2790,7 +2815,7 @@ def factory_kernel_checks(name, ctrl, x0, ladder, seed):
     mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
     seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
     args = (dyn, cost, ctrl.sampler, x0, mean, seed_t, ctrl.dt, ctrl.lam, ctrl.alpha, K_)
-    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args)
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False)
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args)
     kmerge = fr.flash_combine(kcarry, T_, C_, ctrl.lam)
     pmerge = fr.flash_combine_plain(pcarry, T_, C_, ctrl.lam)
@@ -2836,7 +2861,7 @@ def instantiations_phase(dev):
            "racer_lstm_mppi": racer_x0("racer_unc_ar", dev)}
     n, paths, summary, checks = INSTANTIATION_SOLVES, {}, {}, {}
     for i, name in enumerate(instantiations.__all__):
-        ctrl, fb = getattr(instantiations, name)(kernel="fused_solve")
+        ctrl, fb = getattr(instantiations, name)(kernel="fused_solve", split_cost=False)
         with_fb = name != "racer_lstm_mppi"
         ladder = with_fb and riccati.supported(ctrl.dynamics.STATE_DIM,
                                                ctrl.dynamics.CONTROL_DIM, ctrl.num_timesteps)
@@ -2874,6 +2899,314 @@ def instantiations_phase(dev):
     emit("instantiations", solves=n, kernel="fused_solve", factories=summary,
          checks=[c for cs in checks.values() for c in cs])
     return paths, checks
+
+
+# ---------------------------------------------------------------------------
+# The split form (csrc/split_kernels.cuh): the split modes of B1 (four
+# modes) and B3 (Gaussian, NLN) for the double integrator (K=8192 and the
+# ragged 8000, T=100) and AutoRally (K=1920 and 1900, T=150, on the 128^2
+# bench map and on the partly-crashing map), each pass timed apart and the
+# whole form A B B A against the combined kernel; the split loops and the
+# kernel tuner.
+# ---------------------------------------------------------------------------
+SPLIT_MODES = ("costs", "costs+lr", "epilogue+lr", "tsallis+lr")
+SPLIT_EPI = {"costs": fr.EPI_NONE, "costs+lr": fr.EPI_NONE, "epilogue+lr": fr.EPI_EXP,
+             "tsallis+lr": fr.EPI_MIN}
+SPLIT_AR_LOOP_STEPS = 20  # the forced-split AutoRally fused_solve loop
+SPLIT_AR_FUSED_STEPS = 5  # the forced-split AutoRally fused loop: B1's split on a path
+DI_O, AR_O = 4, 7
+
+
+def split_inputs(dev, pair, K, p, stride, seed, map_kind):
+    """(dynamics, cost, x0, mean, U, LR tables, samplers by kind, T) of one
+    split case: the DI flagship's inputs (``make_inputs``) or AutoRally's
+    (``ar_kernel_phase``'s) on ``map_kind``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if pair == "di_circle":
+        dyn, cost, x0, U, lr = make_inputs(dev, K, p, seed)
+        return (dyn, cost, x0, lr[0], U, lr,
+                {k: make_sampler(k, dev, p) for k in ("gaussian", "nln")}, T)
+    if map_kind == "partial":
+        dyn, cost = robust_ar_parts("partial", dev, robust=False)
+    else:
+        dyn, cost = ar_parts(map_kind, dev)
+    mean = 0.2 * torch.randn((T_AR, C), generator=g, device=dev)
+    samp = ar_sampler("gaussian", dev, p)
+    U, _ = samp.sample(g, mean, K, optimization_stride=stride)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lr = (mean, samp._sigma(T_AR, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
+          samp.pure_threshold(K))
+    return (dyn, cost, ar_x0(dev), mean, U, lr,
+            {k: ar_sampler(k, dev, p) for k in ("gaussian", "nln")}, T_AR)
+
+
+def split_fixed_bytes(pair, cost, which):
+    """The tables a pass reads once: the network's weights and biases
+    (AutoRally's dynamics passes) or the cost's table and map (the cost
+    pass)."""
+    if which != "cost":
+        return 0 if pair == "di_circle" else 4 * (FNN_MACS + 32 + 32 + 4)
+    if pair == "di_circle":
+        return 4 * len(DoubleIntegratorCircleCost.PARAM_NAMES)
+    return 4 * (cost.params.numel() + cost.costmap.data.numel())
+
+
+def split_pass_work(pair, cost, K, T_, which, mode="costs", kind="gaussian"):
+    """(bytes, operations) of one pass at this shape: ``which`` "dynamics"
+    (B1's: U and x0 read, Y written; the steps), "solve_dynamics" (B3's:
+    the tables read, U, Y and the LR sums written; the draw, carve-outs,
+    clamp, LR and the steps) or "cost" (Y and U read, costs, crash and the
+    mode's rows written; the running cost of each step once, the LR term,
+    the sums and the epilogue). The AutoRally cost's dual evaluation is
+    the design's, not the function's: counted once."""
+    step = OPS_STEP if pair == "di_circle" else OPS_AR_STEP
+    cost_ops = OPS_COST if pair == "di_circle" else OPS_AR_COST
+    S_ = S if pair == "di_circle" else S_AR
+    O_ = DI_O if pair == "di_circle" else AR_O
+    KT = K * T_
+    fixed = split_fixed_bytes(pair, cost, which)
+    if which == "dynamics":
+        return fixed + 4 * (KT * C + S_ + KT * O_), KT * step
+    if which == "solve_dynamics":
+        tables = 3 + (kind == "nln")  # mean, sigma, coeff / sigma^2, NLN's std
+        draw = OPS_PHILOX + (2 if kind == "nln" else 1) * OPS_BOX_MULLER
+        per_channel = 4 + 7 + 5 + (OPS_TRANSCENDENTAL + 2 if kind == "nln" else 0)
+        n_bytes = fixed + 4 * (tables * T_ * C + 4 * C + S_ + 1 + KT * C + KT * O_ + K)
+        return n_bytes, KT * (draw + C * per_channel + step)
+    nb = -(-K // fr.BLOCK)
+    n_bytes = fixed + 4 * (KT * O_ + KT * C + 2 * K)
+    n_ops = KT * (cost_ops + OPS_ACC) + 2 * K
+    if mode.endswith("+lr"):
+        n_bytes += 4 * (2 * T_ * C + C)
+        n_ops += KT * OPS_LR
+    if mode == "solve":  # B3's LR sums read, its carry rows written
+        n_bytes += 4 * (K + nb * (2 + T_ * C))
+        n_ops += 2 * K + 5 * K + 2 * KT * C
+    elif mode.startswith("epilogue"):
+        n_bytes += 4 * nb * (2 + T_ * C)
+        n_ops += 5 * K + 2 * KT * C
+    elif mode.startswith("tsallis"):
+        n_bytes += 4 * nb
+        n_ops += K
+    return n_bytes, n_ops
+
+
+def split_form_work(pair, cost, K, T_, mode, kind=None):
+    """(bytes, operations) of the function the split form computes: the
+    combined kernel's (``rollout_work`` and its kin), the intermediate Y
+    not counted."""
+    if kind is not None:  # B3
+        return (sampling_work(K, kind, True, True, False, False) if pair == "di_circle"
+                else ar_solve_work(cost, K, kind))
+    epi, with_lr = mode.startswith("epilogue"), mode.endswith("+lr")
+    if pair == "di_circle":
+        return pass1_work(K) if mode.startswith("tsallis") else rollout_work(K, epi, with_lr)
+    n_bytes, n_ops = ar_rollout_work(cost, K, epi, with_lr)
+    if mode.startswith("tsallis"):
+        n_bytes, n_ops = n_bytes + 4 * -(-K // fr.BLOCK), n_ops + K
+    return n_bytes, n_ops
+
+
+def split_cost_plain(cost, Y, U, lrp, T_):
+    """Plain version of the cost pass with the exp epilogue on the kernels'
+    outputs Y (T, O, K): (carry rows, crash flags)."""
+    Y = Y.permute(2, 0, 1)
+    acc, crash = fr.split_sums_plain(*fr.split_step_values_plain(cost, Y, U, lrp))
+    costs = true_div(acc + cost.terminal_cost(Y[:, -1].T), T_)
+    return fr.block_carries_plain(costs, U, LAM), crash
+
+
+def abba(combined, split):
+    """The combined and the split form timed in turns, combined, split,
+    split, combined (CUDA events, medians of N_TIMED): their means and the
+    four times."""
+    a1, b1 = time_ms(combined, N_TIMED), time_ms(split, N_TIMED)
+    b2, a2 = time_ms(split, N_TIMED), time_ms(combined, N_TIMED)
+    return {"ms": (b1 + b2) / 2, "combined_ms": (a1 + a2) / 2,
+            "abba_ms": [a1, b1, b2, a2], "split_faster": max(b1, b2) < min(a1, a2)}
+
+
+def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False):
+    """B1's split form in its four modes and B3's (Gaussian, NLN) against
+    their plain versions at one shape: costs, crash flags, U and block
+    minima bit for bit, the carries within rtol 1e-5 and the merge as the
+    combined kernels'. With ``timed``: each pass's time and bound, the
+    whole form A B B A against the combined kernel, the plain versions'
+    times, and one library call for the exp epilogue."""
+    dyn, cost, x0, mean, U, lr, samplers, T_ = split_inputs(dev, pair, K, p, stride, seed,
+                                                            map_kind)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    n_plain = N_TIMED_PLAIN if pair == "di_circle" else N_TIMED_PLAIN_AR
+    checks, times, crashed = [], {}, {}
+
+    def merge_checks(name, kcarry, pc, U_):
+        pcarry = fr.block_carries_plain(pc, U_, LAM)
+        km, kb, ke = fr.flash_combine(kcarry, T_, C, LAM)
+        pm, pb, pe = fr.flash_combine_plain(pcarry, T_, C, LAM)
+        return [check(f"{name} carry", kcarry, pcarry, "carry",
+                      fr.block_carries_plain(pc, U_.abs(), LAM).abs()),
+                check(f"{name} new_mean", km, pm, "new_mean"),
+                check(f"{name} baseline", kb, pb, "baseline"),
+                check(f"{name} eta", ke, pe, "eta")]
+
+    for mode in SPLIT_MODES:
+        lrp = lr if mode.endswith("+lr") else None
+        epi = SPLIT_EPI[mode]
+        name = f"B1 split {mode}"
+        kc, kcrash, kout = fr._rollout_any(dyn, cost, x0, U, DT, lrp, epi, LAM, True)
+        pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)
+        torch.cuda.synchronize()
+        same(f"{name} crash flags", kcrash, pcrash)
+        checks.append(check(f"{name} costs", kc, pc, "bitwise"))
+        if epi == fr.EPI_EXP:
+            checks += merge_checks(name, kout, pc, U)
+        elif epi == fr.EPI_MIN:
+            same(f"{name} block minima", kout, fr.block_minima_plain(pc))
+            checks.append({"check": f"{name} block minima", "max_abs_err": 0.0})
+        crashed[name] = float(kcrash.float().mean())
+        if timed:
+            t = abba(lambda: fr._rollout_cuda(dyn, cost, x0, U, DT, lrp, epi, LAM),
+                     lambda: fr.split_rollout_cuda(dyn, cost, x0, U, DT, lrp, epi, LAM))
+            t["bound_ms"], t["bound_by"] = bound_ms(*split_form_work(pair, cost, K, T_, mode))
+            Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+            t["cost_pass"] = {"ms": time_ms(
+                lambda: fr.split_cost_cuda(dyn, cost, Y, U, lrp, epi, LAM), N_TIMED)}
+            t["cost_pass"]["bound_ms"], t["cost_pass"]["bound_by"] = bound_ms(
+                *split_pass_work(pair, cost, K, T_, "cost", mode))
+            t["plain_ms"] = None
+            if mode == "epilogue+lr":
+                t["plain_ms"] = time_ms(lambda: fr.block_carries_plain(
+                    fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)[0], U, LAM), n_plain)
+                # one-call yardstick for the weighting + weighted sum (not used by the port)
+                t["library_ms"] = time_ms(
+                    lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
+                t["cost_pass"]["plain_ms"] = time_ms(
+                    lambda: split_cost_plain(cost, Y, U, lrp, T_), n_plain)
+                t["dynamics_pass"] = {"ms": time_ms(
+                    lambda: fr.split_dynamics_cuda(dyn, cost, x0, U, DT), N_TIMED),
+                    "plain_ms": time_ms(lambda: fr.split_outputs_plain(dyn, x0, U, DT),
+                                        n_plain)}
+                t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
+                    *split_pass_work(pair, cost, K, T_, "dynamics"))
+            times[name] = t
+    for kind, samp in samplers.items():
+        name = f"B3 split {kind}"
+        args = (dyn, cost, samp, x0, mean, seed_t, DT, LAM, ALPHA, K)
+        kw = dict(optimization_stride=stride)
+        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=True, **kw)
+        pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, **kw)
+        torch.cuda.synchronize()
+        same(f"{name} crash flags", kcrash, pcrash)
+        checks += [check(f"{name} U", kU, pU, "bitwise"),
+                   check(f"{name} costs", kc, pc, "bitwise"),
+                   *merge_checks(name, kcarry, pc, pU)]
+        crashed[name] = float(kcrash.float().mean())
+        if timed:
+            t = abba(lambda: fused_solve.fused_solve_carries(*args, split_cost=False),
+                     lambda: fused_solve.fused_solve_carries(*args, split_cost=True))
+            t["bound_ms"], t["bound_by"] = bound_ms(*split_form_work(pair, cost, K, T_, None,
+                                                                     kind))
+            kid = fr.noise_kind(samp)
+            dyn_args = (dyn, cost, samp, kid, x0, mean, seed_t, DT, K, 0, 0, None)
+            Uk, Y, lrs = fused_solve.split_solve_dynamics_cuda(*dyn_args)
+            t["dynamics_pass"] = {"ms": time_ms(
+                lambda: fused_solve.split_solve_dynamics_cuda(*dyn_args), N_TIMED)}
+            t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
+                *split_pass_work(pair, cost, K, T_, "solve_dynamics", kind=kind))
+            gain = fr._lr_gain(LAM, ALPHA)
+            t["cost_pass"] = {"ms": time_ms(lambda: fr.split_cost_cuda(
+                dyn, cost, Y, Uk, None, fr.EPI_EXP, LAM, lrs, gain), N_TIMED)}
+            t["cost_pass"]["bound_ms"], t["cost_pass"]["bound_by"] = bound_ms(
+                *split_pass_work(pair, cost, K, T_, "cost", "solve"))
+            t["plain_ms"] = None
+            if kind == "gaussian":
+                t["plain_ms"] = time_ms(lambda: fused_solve.fused_solve_split_plain(*args),
+                                        n_plain)
+                t["dynamics_pass"]["plain_ms"] = time_ms(lambda: fr.split_outputs_plain(
+                    dyn, x0, fused_solve._samples_plain(dyn, samp, mean, seed_t, K, 0, 0,
+                                                        None)[0], DT), n_plain)
+            times[name] = t
+    emit("split_kernels", pair=pair, map=map_kind, K=K, T=T_, pure_noise_percentage=p,
+         stride=stride, crashed_share=crashed, checks=checks, times=times)
+    return checks, times
+
+
+def build_split_vanilla(kernel, split_cost):
+    """The flagship (bench.py:31-50) with the split form forced or not."""
+    return VanillaMPPI(
+        DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+        make_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
+        num_rollouts=K_MAIN, num_iters=1, kernel=kernel, split_cost=split_cost)
+
+
+def split_loops(dev):
+    """The flagship's 100-step closed loop with the split form forced on
+    ``fused`` and on ``fused_solve`` and on the eager ``kernel="split"``
+    path (the flagship's bar), then AutoRally's loops with the split form
+    forced: 20 steps on ``fused_solve``, a few on ``fused`` (states finite,
+    the crashed share recorded). Returns {path: (launches, entry launches)}."""
+    n = CLOSED_LOOP_STEPS
+    paths = {}
+    for path, kernel, split, want in (
+            ("split_fused", "fused", True,
+             {"split_dynamics_kernel": n, "split_cost_kernel": n, "flash_combine_kernel": n}),
+            ("split_fused_solve", "fused_solve", True,
+             {"split_solve_dynamics_kernel": n, "split_cost_kernel": n,
+              "flash_combine_kernel": n}),
+            ("split_eager", "split", None, {})):
+        launches = vanilla_loop_phase(path, build_split_vanilla(kernel, split), want,
+                                      settle=True)
+        paths[path] = (launches, dict(fr.entry_counts))
+    for path, kernel, steps, dyn_kernel in (
+            ("autorally_split_fused_solve", "fused_solve", SPLIT_AR_LOOP_STEPS,
+             "split_solve_dynamics_kernel"),
+            ("autorally_split_fused", "fused", SPLIT_AR_FUSED_STEPS, "split_dynamics_kernel")):
+        dyn, cost = ar_parts("128")
+        ctrl = VanillaMPPI(dyn, cost, ar_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA,
+                           num_timesteps=T_AR, num_rollouts=K_AR, num_iters=1, kernel=kernel,
+                           split_cost=True)
+        launches, entries, _, _ = model_loop_phase(
+            path, ctrl, ar_x0(dev), steps,
+            {dyn_kernel: steps, "split_cost_kernel": steps, "flash_combine_kernel": steps},
+            profile=False, map="128")
+        paths[path] = (launches, entries)
+    return paths
+
+
+def autotune_phase(dev):
+    """The kernel tuner on the flagship (bench.py:31-50): the four kernel
+    paths, then the split sweep of the winner, timed in this run (a cache
+    directory of its own, so nothing read from an earlier run)."""
+    ctrl = build_vanilla("gaussian", "fused", split_cost=None)
+    x = torch.tensor(X0, device=dev)
+    cache_dir = _build.BUILD_ROOT.parent / "chip_smoke_autotune"
+    timings = {}
+    t0 = time.perf_counter()
+    saved = os.environ.get("MPPI_TUNE_CACHE_DIR")
+    os.environ["MPPI_TUNE_CACHE_DIR"] = str(cache_dir)
+    try:
+        tuned = autotune.choose_appropriate_kernel(ctrl, x, retune=True, timings=timings)
+        t_tune = time.perf_counter() - t0
+        fr.reset_launch_counts()
+        again = autotune.choose_appropriate_kernel(ctrl, x)
+    finally:
+        if saved is None:
+            del os.environ["MPPI_TUNE_CACHE_DIR"]
+        else:
+            os.environ["MPPI_TUNE_CACHE_DIR"] = saved
+    if tuned.kernel not in autotune.DEFAULT_CANDIDATES:
+        raise AssertionError(f"autotune chose {tuned.kernel!r}")
+    if (again.kernel, again.split_cost) != (tuned.kernel, tuned.split_cost) or any(
+            fr.launch_counts.values()):
+        raise AssertionError("the second tuner call did not come from the cache")
+    missing = [k for k in autotune.DEFAULT_CANDIDATES if k not in timings]
+    if missing:
+        raise AssertionError(f"autotune timed no {missing}")
+    emit("autotune", K=K_MAIN, T=T, candidates=list(autotune.DEFAULT_CANDIDATES),
+         ms_per_solve={k: 1e3 * v for k, v in timings.items()}, kernel=tuned.kernel,
+         split_cost=tuned.split_cost, tune_s=t_tune)
+    return tuned.kernel, tuned.split_cost, timings
 
 
 def main() -> int:
@@ -3033,6 +3366,23 @@ def main() -> int:
     robust_reference_ar_phase(dev)
     robust_paths = robust_family_loops(dev)
     inst_paths, inst_checks = instantiations_phase(dev)
+    # the split form: every entry at every shape a path launches it at, the
+    # split loops, the tuner
+    split_errs, split_times = {}, {}
+    for pair, K, p, stride, seed, map_kind, timed_split in (
+            ("di_circle", K_MAIN, 0.0, 0, 91, None, True),
+            ("di_circle", K_RAGGED, 0.1, 2, 92, None, False),
+            ("ar_nn", K_AR, 0.0, 0, 93, "128", True),
+            ("ar_nn", K_AR_RAGGED, 0.1, 2, 94, "128", False),
+            ("ar_nn", K_AR, 0.0, 0, 95, "partial", False)):
+        checks, times = split_kernel_phase(dev, pair, K, p, stride, seed, map_kind,
+                                           timed_split)
+        split_errs[pair] = max([split_errs.get(pair, 0.0)]
+                               + [c["max_abs_err"] for c in checks])
+        if timed_split:
+            split_times[pair] = times
+    split_paths = split_loops(dev)
+    autotune_phase(dev)
 
     def inst_err(fn):
         return max((c["max_abs_err"] for c in inst_checks.get(fn, ())), default=0.0)
@@ -3280,6 +3630,53 @@ def main() -> int:
                      rchecks("riccati_backward_kernel", "B6 (7, 2)"), T=T_AR,
                      chain_steps=T_AR - 1, on_main_path=False),
     ]
+    # the split form: one entry per kernel and pair; launches counted per C
+    # entry on the split loops
+    def split_entry(name, pair, fn, replaces, t, **extra):
+        by = {p: e.get(fn, 0) for p, (_, e) in split_paths.items() if e.get(fn, 0)}
+        return {"name": name, "route": "cuda",
+                "source": f"mppi_generic_tpu_torch/csrc/split_{pair}.cu",
+                "replaces": f"mppi_generic_tpu/ops/{replaces}",
+                "launches": sum(by.values()), "launches_by_path": by,
+                "max_abs_err": split_errs[pair], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms"), **extra}
+
+    def forms(times, prefix):
+        """The whole split form of each mode, A B B A against the combined
+        kernel in the same call."""
+        keys = ("ms", "combined_ms", "abba_ms", "split_faster", "bound_ms", "library_ms")
+        return {m[len(prefix):]: {k: t.get(k) for k in keys}
+                for m, t in times.items() if m.startswith(prefix)}
+
+    for pair, dyn_name, cost_name, K, T_ in (
+            ("di_circle", "DoubleIntegrator", "DoubleIntegratorCircleCost", K_MAIN, T),
+            ("ar_nn", "AutorallyNN", "ARCost", K_AR, T_AR)):
+        st = split_times[pair]
+        kernels += [
+            split_entry(f"split_dynamics_kernel<{dyn_name}>", pair, f"split_dynamics_{pair}",
+                        "pallas_rollout.py:548 (split mode, run_tile :663-696)",
+                        st["B1 split epilogue+lr"]["dynamics_pass"], K=K, T=T_,
+                        split_form=forms(st, "B1 split ")),
+            split_entry(f"split_solve_dynamics_kernel<{dyn_name}>", pair,
+                        f"split_solve_dynamics_{pair}",
+                        "pallas_solve.py:103 (split mode :274-290)",
+                        st["B3 split gaussian"]["dynamics_pass"], K=K, T=T_,
+                        modes={"nln": st["B3 split nln"]["dynamics_pass"]},
+                        split_form=forms(st, "B3 split ")),
+            split_entry(f"split_cost_kernel<{cost_name}>", pair, f"split_cost_{pair}",
+                        "pallas_rollout.py:698-768 and pallas_solve.py:292-332 "
+                        "(the split cost pass)",
+                        st["B1 split epilogue+lr"]["cost_pass"], K=K, T=T_,
+                        modes={**{f"B1 {m}": st[f"B1 split {m}"]["cost_pass"]
+                                  for m in ("costs", "costs+lr", "tsallis+lr")},
+                               **{f"B3 {k}": st[f"B3 split {k}"]["cost_pass"]
+                                  for k in ("gaussian", "nln")}}),
+        ]
+    kernels.append(entry(
+        "flash_combine_kernel (split paths)", "flash_combine.cu", "pallas_rollout.py:1005",
+        comb, None, paths={p: l for p, (l, _) in split_paths.items()},
+        err=errs["flash_combine_kernel"], kernel="flash_combine_kernel"))
     emit("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -80,8 +80,11 @@ def resolve_device(device) -> torch.device:
 class ControllerBase(nn.Module):
     def __init__(self, dynamics, cost, sampler, *, dt=0.02, lam=1.0,
                  alpha=0.0, num_timesteps=100, num_rollouts=1024,
-                 num_iters=1, return_samples=False, slide_scale=None, device=None):
+                 num_iters=1, return_samples=False, slide_scale=None,
+                 split_cost=None, sequential_crash=True, device=None):
         super().__init__()
+        if split_cost not in (None, True, False):
+            raise ValueError(f"split_cost must be None, True or False, got {split_cost!r}")
         self.device = resolve_device(device)
         self.dynamics = dynamics.to(self.device)
         self.cost = cost.to(self.device)
@@ -99,6 +102,13 @@ class ControllerBase(nn.Module):
         self.slide_scale = (None if slide_scale is None else torch.tensor(
             np.array(slide_scale, np.float32), device=self.device).reshape(
                 self.dynamics.CONTROL_DIM))
+        # the kernels' split form (JAX pallas_split_cost): None = AUTO
+        # (ops/fused_rollout.resolve_split), True / False forced
+        self.split_cost = split_cost
+        # kernel="split": the cost pass carries the crash status over t
+        # (True, the default: sticky-crash costs keep their semantics) or
+        # evaluates every step at once without it (JAX sequential_crash)
+        self.sequential_crash = bool(sequential_crash)
         if num_iters < 1:
             raise ValueError("num_iters must be >= 1")
 

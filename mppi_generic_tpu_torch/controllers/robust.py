@@ -33,6 +33,13 @@ Counterpart of ``mppi_generic_tpu/controllers/robust.py`` (reference
   robust cost, AutoRally with its standard or robust cost.
 * ``"combined"`` is JAX ``kernel="combined"``, the eager oracle: one
   ``rollout_combined`` per candidate and the augmented rollout as a loop.
+  ``"split"`` is accepted and runs the same eager paths, as the JAX
+  package's RMPPI runs them for it (robust.py:175, :369).
+
+``split_cost`` reaches stage 1's rollout kernel (its per-sample-x0 mode),
+as JAX passes ``pallas_split_cost`` there (robust.py:207): AUTO keeps the
+combined kernel; True runs the plain split version on the CPU and raises on
+the card, which has no split entry for one x0 per sample.
 
 The chosen stride, the best index and the baselines stay tensors on the
 device: nothing in either stage waits on it. ``nominal_initialized`` is a
@@ -59,7 +66,7 @@ from mppi_generic_tpu_torch.ops import weights as weight_ops
 from mppi_generic_tpu_torch.utils import math_utils
 from mppi_generic_tpu_torch.utils.math_utils import true_div
 
-KERNELS = ("fused", "combined", "fused_solve")
+KERNELS = ("fused", "combined", "fused_solve", "split")
 # kernel names that run the same program (JAX RobustMPPI._equivalent_kernels)
 EQUIVALENT_KERNELS = {"fused_solve": "fused"}
 
@@ -109,6 +116,10 @@ class RobustSolveResult:
 
 
 class RobustMPPI(ControllerBase):
+    KERNELS = KERNELS
+    # the kernel tuner times each of these programs once (ops/autotune.py)
+    equivalent_kernels = EQUIVALENT_KERNELS
+
     def __init__(self, dynamics, cost, sampler, *, feedback,
                  value_function_threshold=1e8, num_candidates=9,
                  samples_per_condition=256, kernel="fused", **kwargs):
@@ -175,7 +186,7 @@ class RobustMPPI(ControllerBase):
             x0_all = candidates.repeat_interleave(S_per, dim=0)  # (n*S_per, S)
             costs, _ = fused_rollout.fused_rollout_costs(
                 self.dynamics, self.cost, x0_all,
-                U_all.reshape(n * S_per, T, -1), self.dt)
+                U_all.reshape(n * S_per, T, -1), self.dt, split_cost=self.split_cost)
             return costs.reshape(n, S_per) + true_div(lr, T)
         return torch.stack([
             rollout_ops.rollout_combined(self.dynamics, self.cost, candidates[i],

@@ -37,6 +37,17 @@ Gaussian, NLN (log-MPPI), Smooth-MPPI and colored-noise distributions.
 * ``"combined"`` is JAX ``kernel="combined"`` (vanilla.py:255-317): the
   eager rollout oracle (``ops/rollout.py``), the LR cost from the sampler,
   baseline = min J, the weights and the sampler's mean update.
+* ``"split"`` is JAX ``kernel="split"``: the same, the rollout eager in its
+  split form (``ops/rollout.rollout_outputs``, then
+  ``trajectory_state_costs`` with ``sequential_crash``).
+
+``split_cost`` (JAX ``pallas_split_cost``) picks the form of the kernels on
+``"fused"`` (B1) and ``"fused_solve"`` (B3, Gaussian and NLN with ``exp``):
+None, the default, is AUTO (``ops/fused_rollout.resolve_split``), True the
+split kernels (``csrc/split_kernels.cuh``: a dynamics pass, then a
+time-parallel cost pass, one launch more), False the combined kernels.
+True raises for a cost that declares neither ``time_parallel_cost`` nor
+``time_parallel_crash``, and on the card for a pair without split entries.
 
 A recurrent model (the racer LSTM models) carries its LSTM state on every
 path from its warm state: inside the kernels, through the eager rollout and
@@ -67,11 +78,13 @@ from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
 from mppi_generic_tpu_torch.utils.math_utils import true_div
 
-KERNELS = ("fused", "combined", "fused_solve")
+KERNELS = ("fused", "combined", "fused_solve", "split")
 WEIGHT_TRANSFORMS = ("exp", "tsallis", "cem")
 
 
 class VanillaMPPI(ControllerBase):
+    KERNELS = KERNELS
+
     def __init__(self, dynamics, cost, sampler, *, kernel="fused",
                  weight_transform="exp", tsallis_gamma=10.0, tsallis_r=2.0,
                  cem_elite_fraction=0.1, shaping_function=None, **kwargs):
@@ -131,7 +144,8 @@ class VanillaMPPI(ControllerBase):
         if exp and not smooth:
             costs, crash, new_mean, baseline, eta, U = (
                 fused_solve.fused_solve_iteration(
-                    *args, return_samples=self.return_samples, **kw))
+                    *args, return_samples=self.return_samples,
+                    split_cost=self.split_cost, **kw))
             w = weight_ops.norm_exp_weights(costs, self.lam, baseline)
             return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
         if exp:
@@ -185,17 +199,24 @@ class VanillaMPPI(ControllerBase):
                         self.dynamics, self.cost, x0, U, self.dt, self.lam,
                         lr_params=lr_params, weight_kind=self.weight_transform,
                         weight_params=(self.tsallis_gamma, self.tsallis_r),
+                        split_cost=self.split_cost,
                     )
                 )
                 w = self._transform_weights(costs, baseline)
                 return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
             costs, crash = fused_rollout.fused_rollout_costs(
-                self.dynamics, self.cost, x0, U, self.dt, lr_params=lr_params)
+                self.dynamics, self.cost, x0, U, self.dt, lr_params=lr_params,
+                split_cost=self.split_cost)
         else:
             lr = self.sampler.likelihood_ratio_cost(
                 U, mean, self.lam, self.alpha, iteration=iteration)
-            costs, _, crash = rollout_ops.rollout_combined(
-                self.dynamics, self.cost, x0, U, self.dt)
+            if self.kernel == "split":
+                Y = rollout_ops.rollout_outputs(self.dynamics, x0, U, self.dt)
+                costs, crash = rollout_ops.trajectory_state_costs(
+                    self.cost, Y, U, sequential_crash=self.sequential_crash)
+            else:
+                costs, _, crash = rollout_ops.rollout_combined(
+                    self.dynamics, self.cost, x0, U, self.dt)
             costs = costs + true_div(lr, T)
         new_mean, samp_state, w, baseline, eta = self._eager_update(
             U, aux, costs, mean, samp_state)

@@ -335,7 +335,14 @@ def ddp_feedback_from_params(p: dict, dynamics) -> DDPFeedback:
 
 def _controller_kwargs(controller: dict) -> dict:
     slide_scale = controller.get("slide_scale")
+    # JAX pallas_split_cost and sequential_crash, where given
+    extra = {}
+    if controller.get("pallas_split_cost") is not None:
+        extra["split_cost"] = bool(controller["pallas_split_cost"])
+    if "sequential_crash" in controller:
+        extra["sequential_crash"] = bool(controller["sequential_crash"])
     return dict(
+        **extra,
         slide_scale=None if slide_scale is None else _arr(slide_scale),
         dt=_scalar(controller["dt"]),
         lam=_scalar(controller["lam"]),

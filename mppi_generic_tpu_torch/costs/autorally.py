@@ -98,6 +98,12 @@ class ARStandardCost(Cost):
         kernel wrappers check ``output_indices`` against their entry's."""
         return None if self.costmap is None else self.costmap.data
 
+    def time_parallel_crash(self) -> bool:
+        # the boundary and rollover triggers are functions of y alone, joined
+        # to the status by where(cond, 1, crash); the value reads only the
+        # current flag (inherited by ARRobustCost, as in JAX)
+        return True
+
     def _o(self, y, name):
         i = ("x", "y", "yaw", "roll", "vx", "vy").index(name)
         return y[self.output_indices[i]]

@@ -52,6 +52,10 @@ class CartpoleQuadraticCost(Cost):
             terms.append(p[i] * (d * d))
         return sum(terms[1:], terms[0])
 
+    def time_parallel_cost(self) -> bool:
+        # a quadratic: no crash, no t
+        return True
+
     def state_cost(self, y, t, crash):
         return self._quad(y), crash
 

@@ -58,6 +58,11 @@ class DoubleIntegratorCircleCost(Cost):
             return self.params[DoubleIntegratorCircleCost.PARAM_NAMES.index(name)]
         return super().__getattr__(name)
 
+    def time_parallel_cost(self) -> bool:
+        # crash is never read or set; t enters only through the elementwise
+        # discount factor (inherited by the robust variant, as in JAX)
+        return True
+
     def state_cost(self, y, t, crash):
         radial2 = y[0] * y[0] + y[1] * y[1]
         speed = torch.sqrt(y[2] * y[2] + y[3] * y[3])

@@ -56,6 +56,10 @@ class QuadraticCost(Cost):
     def terminal_scale(self):
         return self.params[2 * self.OUTPUT_DIM]
 
+    def time_parallel_cost(self) -> bool:
+        # a goal trajectory is gathered by t; the fixed goal is elementwise
+        return self.goal.dim() == 1
+
     def _goal_at(self, t):
         if self.goal.dim() == 1:
             return self.goal

@@ -98,6 +98,10 @@ class QuadrotorQuadraticCost(Cost):
         return (self.roll_coeff * (r * r) + self.pitch_coeff * (p * p)
                 + self.yaw_coeff * (yw * yw))
 
+    def time_parallel_cost(self) -> bool:
+        # crash is never read or set; t is unused; every term is elementwise
+        return True
+
     def state_cost(self, y, t, crash):
         g = self.params
         pos = _sq(y[0] - g[0]) + _sq(y[1] - g[1]) + _sq(y[2] - g[2])

@@ -31,6 +31,10 @@ template <int IX, int IY, int IYAW, int IROLL, int IVX, int IVY>
 struct ARCostT {
   static constexpr int kL1 = 1, kRobust = 2, kMap = 4;  // flag bits
   static constexpr int kNumParams = 9 + 5 + 15;
+  // the crash flag is sticky-prefix: the boundary and rollover triggers are
+  // functions of y alone, and the value reads only the current flag (the
+  // split cost pass evaluates it at crash 0 and 1, split_kernels.cuh)
+  static constexpr bool kStickyCrash = true;
 
   struct Params {
     float desired_speed, speed_coeff, track_coeff, max_slip_ang, slip_coeff,

@@ -48,8 +48,12 @@
 // next steps from L1. The epilogue maps threads to the (t, c) outputs and
 // loops over the block's samples, so its reads of the same tensor are
 // coalesced. The TPU kernel's channel-major (C, T, K_pad) transpose, its
-// 128-lane tiles, its SMEM/VMEM/stream table modes and its split-cost scratch
-// are TPU mechanics and are not ported.
+// 128-lane tiles and its SMEM/VMEM/stream table modes are TPU mechanics and
+// are not ported. Its split-cost mode (a dynamics-only loop, then a
+// time-parallel cost pass: the reference's rolloutDynamicsKernel and
+// rolloutCostKernel) is ported as two kernels of their own in
+// csrc/split_kernels.cuh; only the VMEM scratch that holds the outputs
+// between its two passes was a TPU mechanic (here a device buffer).
 //
 // Numerics: built without --use_fast_math and with --fmad=false; expf, logf
 // and sqrtf; every operation in the order of the plain PyTorch version. Costs

@@ -1,4 +1,9 @@
 from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
+from mppi_generic_tpu_torch.ops.autotune import (
+    DEFAULT_CANDIDATES,
+    choose_appropriate_kernel,
+    time_solve,
+)
 from mppi_generic_tpu_torch.ops.fused_rollout import (
     flash_combine,
     fused_rmppi_rollout,
@@ -9,7 +14,11 @@ from mppi_generic_tpu_torch.ops.fused_rollout import (
 )
 from mppi_generic_tpu_torch.ops.fused_solve import fused_solve_iteration
 from mppi_generic_tpu_torch.ops.riccati import riccati_backward, riccati_ladder_solve
-from mppi_generic_tpu_torch.ops.rollout import rollout_combined
+from mppi_generic_tpu_torch.ops.rollout import (
+    rollout_combined,
+    rollout_outputs,
+    trajectory_state_costs,
+)
 from mppi_generic_tpu_torch.ops.weights import (
     FreeEnergyStats,
     cem_weights,
@@ -19,8 +28,10 @@ from mppi_generic_tpu_torch.ops.weights import (
 )
 
 __all__ = [
+    "DEFAULT_CANDIDATES",
     "FreeEnergyStats",
     "cem_weights",
+    "choose_appropriate_kernel",
     "compute_free_energy",
     "flash_combine",
     "fused_rmppi_rollout",
@@ -34,6 +45,9 @@ __all__ = [
     "riccati_backward",
     "riccati_ladder_solve",
     "rollout_combined",
+    "rollout_outputs",
+    "time_solve",
+    "trajectory_state_costs",
     "tsallis_reduce",
     "tsallis_weights",
 ]

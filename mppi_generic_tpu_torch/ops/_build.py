@@ -60,6 +60,26 @@ _SAMPLE = [
     _P, _P, _P, _P,                      # dynamics params, cost params, cost map, dynamics map
     _P, _P, _P, _P, _P, _P,              # costs, crash, U, W, carry, stream
 ]
+# the split form (csrc/split_kernels.cuh): B1's and B3's dynamics passes and
+# the cost pass
+_SPLIT_DYNAMICS = [
+    _I, _P, _P, _I, _I, _F,  # device, x0, U, K, T, dt
+    _P, _P, _P, _P,          # dynamics params, cost params, cost map, dynamics map
+    _P, _P,                  # Y, stream
+]
+_SPLIT_SOLVE_DYNAMICS = [
+    _I, _I, _P, _P, _P, _P, _P, _P,  # device, noise kind, x0, mean, sigma, aux, lrc, cons
+    _P, _P, _I, _I, _I,              # seed, injected normals, K, T, stride
+    _F, _F,                          # pure thresh, dt
+    _P, _P, _P, _P,                  # dynamics params, cost params, cost map, dynamics map
+    _P, _P, _P, _P,                  # U, Y, LR sums, stream
+]
+_SPLIT_COST = [
+    _I, _P, _P, _I, _I, _P, _P,  # device, Y, U, K, T, cost params, cost map
+    _P, _P, _P, _F, _F, _I,      # lr mean/sigma/coeff, gain, thresh, with_lr
+    _P, _F,                      # LR sums, their gain
+    _I, _F, _P, _P, _P, _P,      # epilogue, lam_w, costs, crash, out, stream
+]
 _RMPPI = [
     _I, _P, _P, _P, _I, _I, _F,  # device, x0_nom, x0_real, U, K, T, dt
     _P, _P, _P, _P,              # dynamics params, cost params, cost map, dynamics map
@@ -82,11 +102,14 @@ _LADDER = [
 # fused_sample_rollout_<name>), so that nvcc builds the pairs in parallel.
 # B1's per-sample-x0 entries ("rollout_x0": rollout_costs_x0_<name>) are in
 # the one library of csrc/rollout_x0.cu, B8's ("rmppi": rmppi_rollout_<name>)
-# in that of csrc/rmppi_rollout.cu (_KIND_LIBRARY).
+# in that of csrc/rmppi_rollout.cu; the split form's ("split_dynamics",
+# "split_solve_dynamics", "split_cost": split_dynamics_<name>, ...) in the
+# pair's csrc/split_<name>.cu (_KIND_LIBRARY).
+_SPLIT = ("split_dynamics", "split_solve_dynamics", "split_cost")
 PAIR_KERNELS = {
-    "di_circle": ("rollout", "rollout_x0", "solve", "sample", "rmppi"),
+    "di_circle": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT),
     "di_robust": ("rollout_x0", "rmppi"),
-    "ar_nn": ("rollout", "rollout_x0", "solve", "rmppi"),
+    "ar_nn": ("rollout", "rollout_x0", "solve", "rmppi", *_SPLIT),
     "bicycle_ar": ("rollout", "rollout_x0"),
     "cartpole": ("rollout", "solve", "sample"),
     "quadrotor_quadratic": ("rollout", "solve"),
@@ -98,17 +121,20 @@ PAIR_KERNELS = {
 }
 _ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
                  "solve": "fused_solve_", "sample": "fused_sample_rollout_",
-                 "rmppi": "rmppi_rollout_"}
-_KIND_LIBRARY = {"rollout_x0": "rollout_x0", "rmppi": "rmppi_rollout"}
+                 "rmppi": "rmppi_rollout_", "split_dynamics": "split_dynamics_",
+                 "split_solve_dynamics": "split_solve_dynamics_",
+                 "split_cost": "split_cost_"}
+_KIND_LIBRARY = {"rollout_x0": "rollout_x0", "rmppi": "rmppi_rollout",
+                 **{kind: "split_{pair}" for kind in _SPLIT}}
 
 
 def pair_entry(pair: str, kind: str):
     """(library, C function) of kernel ``kind`` ("rollout", "rollout_x0",
-    "solve", "sample" or "rmppi") for the pair ``pair``, or None where it has
-    no entry."""
+    "solve", "sample", "rmppi" or one of the split form's) for the pair
+    ``pair``, or None where it has no entry."""
     if kind not in PAIR_KERNELS.get(pair, ()):
         return None
-    lib = _KIND_LIBRARY.get(kind, f"pair_{pair}")
+    lib = _KIND_LIBRARY.get(kind, "pair_{pair}").format(pair=pair)
     return lib, _ENTRY_PREFIX[kind] + pair
 
 
@@ -137,7 +163,8 @@ SIGNATURES = {
     },
 }
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
-                   "sample": _SAMPLE, "rmppi": _RMPPI}
+                   "sample": _SAMPLE, "rmppi": _RMPPI, "split_dynamics": _SPLIT_DYNAMICS,
+                   "split_solve_dynamics": _SPLIT_SOLVE_DYNAMICS, "split_cost": _SPLIT_COST}
 for _pair, _kinds in PAIR_KERNELS.items():
     for _kind in _kinds:
         _lib, _fn = pair_entry(_pair, _kind)
@@ -156,6 +183,9 @@ launch_counts = {
     "riccati_ladder_kernel": 0,
     "fused_solve_kernel": 0,
     "fused_sample_rollout_kernel": 0,
+    "split_dynamics_kernel": 0,
+    "split_solve_dynamics_kernel": 0,
+    "split_cost_kernel": 0,
 }
 
 

@@ -28,6 +28,20 @@ in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 * ``fused_rmppi_rollout``: RMPPI's augmented rollout, the nominal and the
   real system of each sample stepped together, the real one with the DDP
   feedback K[t] (x_real - x_nom) in the loop.
+* the split form (``split_cost``): ``fused_rollout_costs``,
+  ``rollout_block_carries``, ``rollout_block_minima`` and
+  ``fused_weighted_rollout`` take ``split_cost`` (JAX ``pallas_split_cost``):
+  True runs the split kernels of ``csrc/split_kernels.cuh`` (a dynamics-only
+  pass writing the outputs Y, then a cost pass with one thread per sample
+  and chunk of steps, a sticky crash by dual evaluation and a prefix OR,
+  and the mode's epilogue), False the combined kernel, None (AUTO) what
+  ``resolve_split`` picks: the combined kernel unless the cost declares
+  ``time_parallel_cost`` or ``time_parallel_crash`` and ``AUTO_SPLIT``,
+  measured on the H100, takes the split for the pair. True for an
+  ineligible cost raises, as in JAX; on the card a pair without split
+  entries (``_build.PAIR_KERNELS``: the double integrator with its circle
+  cost and AutoRally's network with its costs) raises too. The plain
+  version is ``split_rollout_plain``.
 * ``fused_sample_rollout_costs``: the samples drawn inside the kernel
   (Philox, ``ops/philox.py``) for the Gaussian, NLN and Smooth-MPPI
   samplers, with their carve-outs, the clamp, the per-step LR cost and the
@@ -103,6 +117,7 @@ from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
 from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 __all__ = [
+    "AUTO_SPLIT",
     "flash_combine",
     "fused_rmppi_rollout",
     "fused_rollout_costs",
@@ -110,8 +125,10 @@ __all__ = [
     "fused_weighted_rollout",
     "launch_counts",
     "reset_launch_counts",
+    "resolve_split",
     "rollout_block_carries",
     "rollout_block_minima",
+    "split_rollout_plain",
     "tsallis_block_rows",
     "tsallis_reduce",
 ]
@@ -154,7 +171,26 @@ _COST_LAYOUT = {
     "racer_unc_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
 }
 _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
-                 "solve": "solve", "sample": "sampling", "rmppi": "RMPPI rollout"}
+                 "solve": "solve", "sample": "sampling", "rmppi": "RMPPI rollout",
+                 "split_dynamics": "split dynamics pass",
+                 "split_solve_dynamics": "split solve dynamics pass",
+                 "split_cost": "split cost pass"}
+
+# The split form under split_cost=None (AUTO), per (pair, kernel): "rollout"
+# is B1 (one x0 for all samples), "solve" B3. True where both split times
+# were below both combined times of an A B B A turn in one call on an H100
+# 80GB HBM3 at 700 W (chip_smoke.py's split_kernels phase, at the bench
+# shapes: DI 8192 x 100, AutoRally 1920 x 150; the times are in PERF.md):
+# DI B1 0.0273 against 0.0405 ms (epilogue + LR), B3 0.0874 against 0.0863;
+# AutoRally B1 0.962 against 1.056, B3 1.062 against 1.135. Any other pair
+# or kernel (B1 with one x0 per sample: RMPPI's candidates) keeps the
+# combined kernel.
+AUTO_SPLIT = {
+    ("di_circle", "rollout"): True,
+    ("di_circle", "solve"): False,
+    ("ar_nn", "rollout"): True,
+    ("ar_nn", "solve"): True,
+}
 
 
 def _entry(dynamics, cost, kind):
@@ -195,6 +231,33 @@ def _lr_gain(lam, alpha) -> float:
                 * (np.float32(1.0) - np.float32(alpha)))
 
 
+def split_eligible(cost) -> bool:
+    """Whether the split form may run ``cost``: it declares
+    ``time_parallel_cost`` or ``time_parallel_crash``."""
+    return bool(cost.time_parallel_cost()) or bool(cost.time_parallel_crash())
+
+
+def resolve_split(dynamics, cost, split_cost, kernel="rollout") -> bool:
+    """The split choice of one launch (JAX ``_arbitrate_split``): True
+    raises ValueError for an ineligible cost, False never splits, None
+    (AUTO) splits an eligible cost where ``AUTO_SPLIT`` says so for the pair
+    and ``kernel`` ("rollout", "rollout_x0" or "solve"). The same on every
+    device, so the plain versions run what the kernels run."""
+    eligible = split_eligible(cost)
+    if split_cost is True:
+        if not eligible:
+            raise ValueError(
+                f"{type(cost).__name__} declares neither time_parallel_cost() nor "
+                "time_parallel_crash(): the split cost pass needs a time-"
+                "broadcastable cost whose crash is unused or sticky-prefix")
+        return True
+    if split_cost is not None and split_cost is not False:
+        raise ValueError(f"split_cost must be None, True or False, got {split_cost!r}")
+    if split_cost is False or not eligible:
+        return False
+    return AUTO_SPLIT.get((_PAIRS.get((type(dynamics), type(cost))), kernel), False)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -226,6 +289,104 @@ def rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params=None):
             c = c + gain * lr_t
         acc = acc + c
     return true_div(acc + cost.terminal_cost(y), T), crash
+
+
+# the split cost pass cuts the horizon into this many chunks of steps, one
+# thread per (sample, chunk) (kCostChunks in csrc/split_kernels.cuh)
+COST_CHUNKS = 8
+
+
+def split_outputs_plain(dynamics, x0, U, dt):
+    """Plain version of the split dynamics pass: the outputs Y (K, T, O),
+    stepped with ``Dynamics.kernel_step_recurrent`` as the kernels step (the
+    kernels hold them as (T, O, K)). ``x0`` is (S,) or (K, S)."""
+    K, T, _ = U.shape
+    Uc = U.permute(2, 1, 0)  # (C, T, K)
+    x = x0.T if x0.dim() == 2 else x0[:, None].expand(-1, K)
+    rec = broadcast_rec(dynamics.init_recurrent_state(), K)
+    ys = []
+    for t in range(T):
+        x, y, rec = dynamics.kernel_step_recurrent(x, rec, Uc[:, t], float(t), dt)
+        ys.append(y)
+    return torch.stack(ys, dim=-1).permute(1, 2, 0)
+
+
+def sticky_crash(cost) -> bool:
+    """The split cost pass evaluates ``cost`` at crash 0 and 1 (a
+    sticky-prefix crash) rather than once."""
+    return bool(cost.time_parallel_crash()) and not bool(cost.time_parallel_cost())
+
+
+def split_step_values_plain(cost, Y, U, lr_params=None):
+    """Plain version of the split cost pass's step values on the outputs Y
+    (K, T, O): (v0, v1, trigger). v0 (K, T) is each sample-step's running
+    cost at crash 0, v1 at crash 1 (None unless the crash is sticky), each
+    plus lr_gain times the step's LR term with ``lr_params``, in the
+    kernel's order of operations; the trigger (K, T) is the crash-0 call's
+    crash output (None unless sticky)."""
+    K, T, _ = Y.shape
+    dev = Y.device
+    Yc, Uc = Y.permute(2, 0, 1), U.permute(2, 0, 1)  # (O, K, T), (C, K, T)
+    ts = torch.arange(T, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    v0, trig = cost.running_cost(Yc, Uc, ts, zero)
+    v0, v1 = v0.expand(K, T), None
+    if sticky_crash(cost):
+        v1 = cost.running_cost(Yc, Uc, ts, torch.ones_like(zero))[0].expand(K, T)
+        trig = trig.expand(K, T) > 0
+    else:
+        trig = None
+    if lr_params is not None:
+        mean, sigma, coeff, lam, alpha, pure_thresh = lr_params
+        pure = (torch.arange(K, dtype=torch.float32, device=dev)
+                >= _f32(pure_thresh))[:, None]
+        lr_t = torch.zeros((K, T), dtype=torch.float32, device=dev)
+        for ch in range(Uc.shape[0]):
+            mu = torch.where(pure, 0.0, mean[:, ch])
+            sg = sigma[:, ch]
+            lr_t = lr_t + coeff[ch] * mu * (mu - 2.0 * Uc[ch]) / (sg * sg)
+        lr_term = _lr_gain(lam, alpha) * lr_t
+        v0 = v0 + lr_term
+        v1 = None if v1 is None else v1 + lr_term
+    return v0, v1, trig
+
+
+def split_sums_plain(v0, v1=None, trig=None):
+    """Each sample's sum of its step values as the split cost pass takes it,
+    and its crash flag: (sum (K,), crash (K,) int32). Each of COST_CHUNKS
+    chunks of ceil(T / COST_CHUNKS) steps is summed in order, once with the
+    crash-1 values v1 from the chunk's first trigger on and once with v1
+    throughout; the chunks are then added in order, a chunk after one that
+    fired taking its second sum. Without ``trig`` (a cost that never
+    crashes) the sum of v0 and no crash."""
+    K, T = v0.shape
+    Tc = -(-T // COST_CHUNKS)
+    f32 = dict(dtype=torch.float32, device=v0.device)
+    acc = torch.zeros((K,), **f32)
+    crashed = torch.zeros((K,), dtype=torch.bool, device=v0.device)
+    for ch in range(COST_CHUNKS):
+        sel, all1 = torch.zeros((K,), **f32), torch.zeros((K,), **f32)
+        fired = torch.zeros((K,), dtype=torch.bool, device=v0.device)
+        for t in range(min(T, ch * Tc), min(T, (ch + 1) * Tc)):
+            if trig is None:
+                sel = sel + v0[:, t]
+                continue
+            fired = fired | trig[:, t]
+            sel = sel + torch.where(fired, v1[:, t], v0[:, t])
+            all1 = all1 + v1[:, t]
+        acc = acc + torch.where(crashed, all1, sel)
+        crashed = crashed | fired
+    return acc, crashed.to(torch.int32)
+
+
+def split_rollout_plain(dynamics, cost, x0, U, dt, lr_params=None):
+    """Plain version of B1's split form (the dynamics pass, then the cost
+    pass): (costs (K,), crash (K,) int32), J = (sum + terminal) / T with
+    the sum taken in the cost pass's order. ``x0`` is (S,) or (K, S)."""
+    T = U.shape[1]
+    Y = split_outputs_plain(dynamics, x0, U, dt)
+    acc, crash = split_sums_plain(*split_step_values_plain(cost, Y, U, lr_params))
+    return true_div(acc + cost.terminal_cost(Y[:, -1].T), T), crash
 
 
 def block_carries_plain(costs, U, lam, block=BLOCK):
@@ -389,10 +550,13 @@ def _model_args(dynamics, cost, device):
     return _ptr(dyn_p), cost.params.data_ptr(), _ptr(cmap), _ptr(dmap)
 
 
-def _check_rollout_inputs(dynamics, cost, x0, U, lr_params):
-    """(library, C function) of the kernel for this (dynamics, cost) pair,
-    after checking device, dtype, shape and contiguity of every input."""
-    entry = _entry(dynamics, cost, "rollout_x0" if x0.dim() == 2 else "rollout")
+def _check_rollout_inputs(dynamics, cost, x0, U, lr_params, kind=None):
+    """(library, C function) of the kernel ``kind`` (by default the rollout
+    kernel of x0's layout) for this (dynamics, cost) pair, after checking
+    device, dtype, shape and contiguity of every input."""
+    if kind is None:
+        kind = "rollout_x0" if x0.dim() == 2 else "rollout"
+    entry = _entry(dynamics, cost, kind)
     K, T, C = U.shape
     S = dynamics.STATE_DIM
     tensors = {"U": U, "x0": x0}
@@ -429,6 +593,29 @@ def _check_status(status, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {status}")
 
 
+def _rollout_outputs(K, T, C, epilogue, dev):
+    """(costs, crash, out) of a rollout launch: out the carry rows (EPI_EXP),
+    the block minima (EPI_MIN) or None."""
+    nb = -(-K // BLOCK)
+    costs = torch.empty((K,), dtype=torch.float32, device=dev)
+    crash = torch.empty((K,), dtype=torch.int32, device=dev)
+    out = None
+    if epilogue != EPI_NONE:
+        out = torch.empty((nb, 2 + T * C) if epilogue == EPI_EXP else (nb,),
+                          dtype=torch.float32, device=dev)
+    return costs, crash, out
+
+
+def _lr_args(lr_params):
+    """The kernels' LR arguments (mean, sigma, coeff pointers, gain, pure
+    threshold)."""
+    if lr_params is None:
+        return (None, None, None, 0.0, 0.0)
+    mean, sigma, coeff, lam, alpha, pure_thresh = lr_params
+    return (mean.data_ptr(), sigma.data_ptr(), coeff.data_ptr(),
+            _lr_gain(lam, alpha), _f32(pure_thresh))
+
+
 def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
                   lam_w=1.0):
     """Launch kernel 1 in the ``epilogue`` mode: (costs, crash, out), out the
@@ -437,19 +624,8 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
     lib = _lib(lib_name)
     K, T, C = U.shape
     dev = U.device
-    nb = -(-K // BLOCK)
-    costs = torch.empty((K,), dtype=torch.float32, device=dev)
-    crash = torch.empty((K,), dtype=torch.int32, device=dev)
-    out = None
-    if epilogue != EPI_NONE:
-        out = torch.empty((nb, 2 + T * C) if epilogue == EPI_EXP else (nb,),
-                          dtype=torch.float32, device=dev)
-    if lr_params is None:
-        lr = (None, None, None, 0.0, 0.0)
-    else:
-        mean, sigma, coeff, lam, alpha, pure_thresh = lr_params
-        lr = (mean.data_ptr(), sigma.data_ptr(), coeff.data_ptr(),
-              _lr_gain(lam, alpha), _f32(pure_thresh))
+    costs, crash, out = _rollout_outputs(K, T, C, epilogue, dev)
+    lr = _lr_args(lr_params)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = getattr(lib, entry)(
         dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
@@ -461,31 +637,100 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
     return costs, crash, out
 
 
-def fused_rollout_costs(dynamics, cost, x0, U, dt, lr_params=None):
+def split_dynamics_cuda(dynamics, cost, x0, U, dt):
+    """Launch B1's split dynamics pass: the outputs Y (T, O, K)."""
+    if x0.dim() != 1:
+        raise NotImplementedError(
+            "no CUDA split entry for one x0 per sample: use split_cost=False")
+    lib_name, fn = _check_rollout_inputs(dynamics, cost, x0, U, None, "split_dynamics")
+    K, T, _ = U.shape
+    dev = U.device
+    Y = torch.empty((T, dynamics.OUTPUT_DIM, K), dtype=torch.float32, device=dev)
+    status = getattr(_lib(lib_name), fn)(
+        dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
+        *_model_args(dynamics, cost, dev), Y.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(status, "split_dynamics_kernel")
+    _build.count_launch("split_dynamics_kernel", fn)
+    return Y
+
+
+def split_cost_cuda(dynamics, cost, Y, U, lr_params=None, epilogue=EPI_NONE, lam_w=1.0,
+                    lr_sum=None, lr_sum_gain=0.0):
+    """Launch the split cost pass over the outputs Y (T, O, K) of either
+    dynamics pass: (costs, crash, out) as ``_rollout_cuda``. ``lr_params``
+    adds B1's per-step LR term, ``lr_sum`` (K,) B3's per-sample LR sums
+    times ``lr_sum_gain``."""
+    lib_name, fn = _entry(dynamics, cost, "split_cost")
+    K, T, C = U.shape
+    dev = U.device
+    tensors = {"Y": (Y, (T, dynamics.OUTPUT_DIM, K)), "U": U}
+    if lr_sum is not None:
+        tensors["lr_sum"] = (lr_sum, (K,))
+    _check_tensors(tensors, dev)
+    costs, crash, out = _rollout_outputs(K, T, C, epilogue, dev)
+    model = _model_args(dynamics, cost, dev)
+    status = getattr(_lib(lib_name), fn)(
+        dev.index, Y.data_ptr(), U.data_ptr(), K, T, model[1], model[2],
+        *_lr_args(lr_params), int(lr_params is not None), _ptr(lr_sum),
+        _f32(lr_sum_gain), epilogue, _f32(lam_w), costs.data_ptr(), crash.data_ptr(),
+        _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(status, "split_cost_kernel")
+    _build.count_launch("split_cost_kernel", fn)
+    return costs, crash, out
+
+
+def split_rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
+                       lam_w=1.0):
+    """Launch B1's split form in the ``epilogue`` mode: the dynamics pass,
+    then the cost pass. Returns (costs, crash, out) as ``_rollout_cuda``."""
+    if lr_params is not None:
+        _check_rollout_inputs(dynamics, cost, x0, U, lr_params, "split_cost")
+    Y = split_dynamics_cuda(dynamics, cost, x0, U, dt)
+    return split_cost_cuda(dynamics, cost, Y, U, lr_params, epilogue, lam_w)
+
+
+def _rollout_any(dynamics, cost, x0, U, dt, lr_params, epilogue, lam_w, split_cost):
+    """Kernel 1 (or its split form, by ``resolve_split``) in the
+    ``epilogue`` mode on CUDA tensors, its plain version on CPU tensors:
+    (costs, crash, out)."""
+    split = resolve_split(dynamics, cost, split_cost,
+                          "rollout_x0" if x0.dim() == 2 else "rollout")
+    if _on_cpu(U):
+        plain = split_rollout_plain if split else rollout_costs_plain
+        costs, crash = plain(dynamics, cost, x0, U, dt, lr_params)
+        out = None
+        if epilogue == EPI_EXP:
+            out = block_carries_plain(costs, U, _f32(lam_w))
+        elif epilogue == EPI_MIN:
+            out = block_minima_plain(costs)
+        return costs, crash, out
+    launch = split_rollout_cuda if split else _rollout_cuda
+    return launch(dynamics, cost, x0, U, dt, lr_params, epilogue, lam_w)
+
+
+def fused_rollout_costs(dynamics, cost, x0, U, dt, lr_params=None, split_cost=None):
     """Kernel 1, plain-costs mode: (costs (K,), crash (K,) int32).
     ``costs`` = (sum_t running [+ LR] + terminal) / T. ``x0`` is (S,), or
-    (K, S) for one initial state per sample."""
-    if _on_cpu(U):
-        return rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params)
-    costs, crash, _ = _rollout_cuda(dynamics, cost, x0, U, dt, lr_params)
+    (K, S) for one initial state per sample. ``split_cost``: the split form
+    (``resolve_split``)."""
+    costs, crash, _ = _rollout_any(dynamics, cost, x0, U, dt, lr_params, EPI_NONE,
+                                   1.0, split_cost)
     return costs, crash
 
 
-def rollout_block_carries(dynamics, cost, x0, U, dt, lam, lr_params=None):
+def rollout_block_carries(dynamics, cost, x0, U, dt, lam, lr_params=None,
+                          split_cost=None):
     """Kernel 1, exp-epilogue mode: (costs, crash, carry (nb, 2 + T*C))."""
-    if _on_cpu(U):
-        costs, crash = rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params)
-        return costs, crash, block_carries_plain(costs, U, _f32(lam))
-    return _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, EPI_EXP, lam)
+    return _rollout_any(dynamics, cost, x0, U, dt, lr_params, EPI_EXP, lam,
+                        split_cost)
 
 
-def rollout_block_minima(dynamics, cost, x0, U, dt, lr_params=None):
+def rollout_block_minima(dynamics, cost, x0, U, dt, lr_params=None, split_cost=None):
     """Kernel 1, Tsallis pass 1: (costs, crash, block minima (nb,)), each
     block's minimum over its valid costs (NaN if one is NaN)."""
-    if _on_cpu(U):
-        costs, crash = rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params)
-        return costs, crash, block_minima_plain(costs)
-    return _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, EPI_MIN)
+    return _rollout_any(dynamics, cost, x0, U, dt, lr_params, EPI_MIN, 1.0,
+                        split_cost)
 
 
 @functools.lru_cache(maxsize=None)
@@ -555,7 +800,7 @@ def flash_combine(carry, T, C, lam, with_num=False):
 
 
 def fused_weighted_rollout(dynamics, cost, x0, U, dt, lam, lr_params=None,
-                           weight_kind="exp", weight_params=None):
+                           weight_kind="exp", weight_params=None, split_cost=None):
     """Fused rollout + in-kernel weights + weighted mean for precomputed
     samples ``U`` (K, T, C). Returns (costs (K,), crash (K,), new_mean
     (T, C), baseline (), eta ()).
@@ -567,19 +812,20 @@ def fused_weighted_rollout(dynamics, cost, x0, U, dt, lam, lr_params=None,
     baseline = rho = min_k J_k, eta = sum_k w_k and new_mean = sum_k w_k U_k
     / eta with w = (1 - (J - rho) / gamma)_+^(1 / (r - 1)). Three launches,
     in stream order: kernel 1 with the block minima, the reduction kernel,
-    the merge; nothing waits on the host."""
+    the merge; nothing waits on the host. ``split_cost``: kernel 1's split
+    form (``resolve_split``), one launch more."""
     K, T, C = U.shape
     if weight_kind == "tsallis":
         gamma, r = weight_params
         costs, crash, minima = rollout_block_minima(dynamics, cost, x0, U, dt,
-                                                    lr_params)
+                                                    lr_params, split_cost)
         rows, rho = tsallis_block_rows(U, costs, minima, gamma, r)
         new_mean, _, eta = flash_combine(rows, T, C, 1.0)
         return costs, crash, new_mean, rho, eta
     if weight_kind != "exp":
         raise ValueError(f"weight_kind must be 'exp' or 'tsallis', got {weight_kind!r}")
     costs, crash, carry = rollout_block_carries(dynamics, cost, x0, U, dt, lam,
-                                                lr_params)
+                                                lr_params, split_cost)
     new_mean, baseline, eta = flash_combine(carry, T, C, lam)
     return costs, crash, new_mean, baseline, eta
 

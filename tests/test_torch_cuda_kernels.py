@@ -87,7 +87,7 @@ def test_rollout_costs_kernel_matches_plain(cuda_device, K, with_lr):
     cost = DoubleIntegratorCircleCost(device=cuda_device)
     lrp = lr if with_lr else None
     fr.reset_launch_counts()
-    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
@@ -103,7 +103,7 @@ def test_weighted_rollout_kernels_match_plain(cuda_device, K):
     cost = DoubleIntegratorCircleCost(device=cuda_device)
     fr.reset_launch_counts()
     kc, kcrash, kmean, kbase, keta = fr.fused_weighted_rollout(
-        dyn, cost, x0, U, DT, LAM, lr_params=lr)
+        dyn, cost, x0, U, DT, LAM, lr_params=lr, split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_kernel"] == 1
     assert fr.launch_counts["flash_combine_kernel"] == 1
@@ -124,7 +124,7 @@ def test_fused_solve_matches_combined_on_the_card(cuda_device):
             DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
             GaussianDistribution.create(std_dev=[1.0, 1.0],
                                         control_cost_coeff=[0.01, 0.01]),
-            num_timesteps=T, num_rollouts=300, kernel=kernel)
+            num_timesteps=T, num_rollouts=300, kernel=kernel, split_cost=False)
 
     fused, combined = build("fused"), build("combined")
     assert fused.device.type == "cuda"
@@ -373,9 +373,10 @@ def test_ar_rollout_kernel_matches_plain(cuda_device, K, map_kind, epilogue, wit
     x0 = _ar_x0(cuda_device)
     fr.reset_launch_counts()
     if epilogue:
-        kc, kcrash, kcarry = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr)
+        kc, kcrash, kcarry = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr,
+                                                      split_cost=False)
     else:
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr)
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
@@ -414,7 +415,7 @@ def test_ar_fused_solve_kernel_matches_plain(cuda_device, K, kind, map_kind):
     args = (dyn, cost, samp, _ar_x0(cuda_device), mean, seed, DT, LAM, ALPHA, K)
     kw = dict(iteration=0, optimization_stride=2)
     fr.reset_launch_counts()
-    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
     torch.cuda.synchronize()
     assert fr.launch_counts["fused_solve_kernel"] == 1
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
@@ -467,7 +468,7 @@ def test_ar_vanilla_kernels_match_combined_on_the_card(cuda_device, kernel):
             size=(64, 64))).astype("f"), origin=(-32, -32, 0))
         return VanillaMPPI(dyn, ARStandardCost(costmap=tex),
                            GaussianDistribution.create(std_dev=[0.3, 0.5]),
-                           num_timesteps=T, num_rollouts=300, kernel=k,
+                           num_timesteps=T, num_rollouts=300, kernel=k, split_cost=False,
                            return_samples=True)
 
     ctrl, combined = build(kernel), build("combined")
@@ -491,7 +492,7 @@ def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
     dyn = DoubleIntegratorDynamics.create(device=cuda_device)
     cost = DoubleIntegratorCircleCost(device=cuda_device)
     fr.reset_launch_counts()
-    kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+    kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False)
     krows, krho = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_kernel"] == 1
@@ -506,7 +507,7 @@ def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
     fr.reset_launch_counts()
     _, _, kmean, kbase, keta = fr.fused_weighted_rollout(
         dyn, cost, x0, U, DT, LAM, lr_params=lr, weight_kind="tsallis",
-        weight_params=(gamma, r))
+        weight_params=(gamma, r), split_cost=False)
     torch.cuda.synchronize()
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
         "rollout_costs_kernel": 1, "tsallis_reduce_kernel": 1, "flash_combine_kernel": 1}
@@ -540,7 +541,7 @@ def test_tsallis_kernels_keep_a_nan_rho(cuda_device):
     cost = DoubleIntegratorCircleCost(device=cuda_device)
     kc, _, kmean, krho, keta = fr.fused_weighted_rollout(
         dyn, cost, x0, U, DT, LAM, lr_params=lr, weight_kind="tsallis",
-        weight_params=(10.0, 2.0))
+        weight_params=(10.0, 2.0), split_cost=False)
     assert bool(torch.isnan(kc[37])) and bool(torch.isnan(krho))
     assert float(keta) == 0.0 and bool(torch.isnan(kmean).all())
 
@@ -592,7 +593,7 @@ def test_colored_fused_matches_combined_on_the_card(cuda_device, transform):
             DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
             ColoredNoiseDistribution.create(exponents=[1.0, 2.0], std_dev=[1.0, 1.0]),
             num_timesteps=T, num_rollouts=300, kernel=kernel, weight_transform=transform,
-            tsallis_gamma=10.0, tsallis_r=2.0)
+            tsallis_gamma=10.0, tsallis_r=2.0, split_cost=False)
 
     fused, combined = build("fused"), build("combined")
     assert fused.device.type == "cuda"
@@ -627,7 +628,8 @@ def test_combined_divides_as_the_kernels(cuda_device):
     U = res.sampled_controls.contiguous()
     lr = (torch.zeros((T_, C), device=cuda_device), ctrl.sampler._sigma(T_, 0).contiguous(),
           ctrl.sampler.control_cost_coeff, lam, 0.0, ctrl.sampler.pure_threshold(K))
-    kc, kcrash = fr.fused_rollout_costs(ctrl.dynamics, ctrl.cost, x, U, ctrl.dt, lr)
+    kc, kcrash = fr.fused_rollout_costs(ctrl.dynamics, ctrl.cost, x, U, ctrl.dt, lr,
+                                        split_cost=False)
     torch.cuda.synchronize()
     assert torch.equal(res.costs, kc)
     assert torch.equal(res.crash, kcrash)
@@ -1113,3 +1115,157 @@ def test_robust_autorally_kernels_match_combined_on_the_card(cuda_device):
             _close(sa.control_mean, sb.control_mean, rtol=0,
                    atol=2 * dJ / LAM_AR * 1.8 + 1e-5)
     _close(outs["fused"][0], outs["combined"][0], rtol=1e-4, atol=1e-3)
+
+
+# --- the split form (csrc/split_kernels.cuh): B1 and B3, DI and AutoRally ---
+def _split_parts(pair, dev):
+    """(dynamics, cost, x0, control std) of a pair with split entries. For
+    AutoRally, the network at scale 0.5 (its samples spread by about 0.1 m
+    over 24 steps) and a boundary stripe at world x >= 1.8 m (0.1 m texels),
+    which part of the samples reach at different steps, so the prefix OR of
+    the triggers decides the costs."""
+    if pair == "di_circle":
+        return (DoubleIntegratorDynamics.create(device=dev), DoubleIntegratorCircleCost(device=dev),
+                torch.tensor([2.0, 0.05, -0.1, 1.0], device=dev), [0.8, 1.3])
+    dyn = AutorallyNNDynamics(FNN.create([6, 32, 32, 4], seed=0, scale=0.5), device=dev)
+    data = np.zeros((64, 64), np.float32)
+    data[:, 50:] = 1.0
+    tex = MapTexture2D(data, origin=(-3.2, -3.2, 0.0), resolution=0.1, device=dev)
+    return dyn, ARStandardCost(costmap=tex, device=dev), _ar_x0(dev), [0.3, 0.5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", ["di_circle", "ar_nn"])
+@pytest.mark.parametrize("mode", ["costs", "costs+lr", "epilogue+lr", "tsallis+lr"])
+def test_split_rollout_kernels_match_plain(cuda_device, K, pair, mode):
+    """B1's split form against its plain version: costs, crash flags and
+    block minima bit for bit, carries within rtol 1e-5; two launches."""
+    dyn, cost, x0, std = _split_parts(pair, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 5)
+    mean = 0.2 * torch.randn((T, C), generator=g, device=cuda_device)
+    sigma = torch.tensor([std], device=cuda_device).expand(T, C).contiguous()
+    U = (mean + sigma * torch.randn((K, T, C), generator=g, device=cuda_device)).contiguous()
+    lr = ((mean, sigma, torch.tensor([0.5, 1.0], device=cuda_device), LAM, ALPHA,
+           0.9 * K) if mode.endswith("+lr") else None)
+    fr.reset_launch_counts()
+    if mode.startswith("costs"):
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=True)
+    elif mode.startswith("epilogue"):
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr,
+                                                    split_cost=True)
+    else:
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
+                                                   split_cost=True)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_dynamics_kernel"] == 1
+    assert fr.launch_counts["split_cost_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_kernel"] == 0
+    pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lr)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    if pair == "ar_nn":
+        assert 0 < int(pcrash.sum()) < K  # a mixed crash population
+    if mode.startswith("epilogue"):
+        _close(kout, fr.block_carries_plain(pc, U, LAM), rtol=1e-5, atol=1e-5)
+    elif mode.startswith("tsallis"):
+        assert torch.equal(kout, fr.block_minima_plain(pc))
+    # the combined kernel on the same inputs: the same crash flags, costs
+    # summed in another order
+    cc, ccrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
+    assert torch.equal(ccrash, kcrash)
+    _close(kc, cc, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", ["di_circle", "ar_nn"])
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+@pytest.mark.parametrize("inject", [False, True])
+def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
+    """B3's split form against its plain version: U, costs and crash flags
+    bit for bit, carries within rtol 1e-5; two launches."""
+    dyn, cost, x0, std = _split_parts(pair, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 3)
+    kw = dict(std_dev=std, pure_noise_percentage=P_PURE, device=cuda_device)
+    samp = NLNDistribution.create(**kw) if kind == "nln" else GaussianDistribution.create(**kw)
+    mean = 0.2 * torch.randn((T, C), generator=g, device=cuda_device)
+    seed = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32,
+                         device=cuda_device)
+    z = (torch.randn((2 if kind == "nln" else 1, K, T, C), generator=g, device=cuda_device)
+         if inject else None)
+    z = z[0] if inject and kind == "gaussian" else z
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    kw = dict(iteration=0, optimization_stride=2, injected_noise=z)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=True, **kw)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_solve_dynamics_kernel"] == 1
+    assert fr.launch_counts["split_cost_kernel"] == 1
+    assert fr.launch_counts["fused_solve_kernel"] == 0
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, **kw)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+    cc, ccrash, cU, _ = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
+    assert torch.equal(cU, kU) and torch.equal(ccrash, kcrash)
+    _close(kc, cc, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_cost_true_raises_without_an_entry(cuda_device):
+    """split_cost=True on the card needs a split entry: the cartpole (an
+    eligible cost without one) and one x0 per sample (RMPPI's candidates)
+    raise; an ineligible cost raises on every device."""
+    x0c = torch.zeros(4, device=cuda_device)
+    U1 = torch.zeros((64, T, 1), device=cuda_device)
+    cart, ccost = CartpoleDynamics.create(device=cuda_device), CartpoleQuadraticCost(device=cuda_device)
+    assert ccost.time_parallel_cost()
+    with pytest.raises(NotImplementedError, match="split"):
+        fr.fused_rollout_costs(cart, ccost, x0c, U1, DT, split_cost=True)
+    samp = GaussianDistribution.create(std_dev=[1.0], device=cuda_device)
+    with pytest.raises(NotImplementedError, match="split"):
+        fused_solve.fused_solve_iteration(cart, ccost, samp, x0c,
+                                          torch.zeros((T, 1), device=cuda_device), 0,
+                                          DT, LAM, ALPHA, 64, split_cost=True)
+    dyn, cost, x0, _ = _split_parts("di_circle", cuda_device)
+    U = torch.zeros((64, T, C), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="x0"):
+        fr.fused_rollout_costs(dyn, cost, x0.expand(64, 4).contiguous(), U, DT,
+                               split_cost=True)
+    qcost = QuadrotorMapCost(device=cuda_device)
+    assert not qcost.time_parallel_cost() and not qcost.time_parallel_crash()
+    quad = QuadrotorDynamics.create(device=cuda_device)
+    with pytest.raises(ValueError, match="time_parallel"):
+        fr.fused_rollout_costs(quad, qcost, torch.zeros(13, device=cuda_device),
+                               torch.zeros((64, T, 4), device=cuda_device), DT,
+                               split_cost=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "fused_solve"])
+def test_split_vanilla_solve_launches_the_split_kernels(cuda_device, kernel):
+    """A forced-split DI solve on the card launches the dynamics pass, the
+    cost pass and the merge, and agrees with the eager kernel="split"."""
+    def build(k, split):
+        return VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
+                           GaussianDistribution.create(std_dev=[1.0, 1.0]),
+                           num_timesteps=T, num_rollouts=300, kernel=k, split_cost=split,
+                           return_samples=True)
+
+    ctrl, eager = build(kernel, True), build("split", None)
+    x = torch.tensor([2.0, 0.0, 0.0, 1.0], device=cuda_device)
+    z = torch.randn((300, T, C), device=cuda_device)
+    fr.reset_launch_counts()
+    rf, _ = ctrl.solve(x, ctrl.init_state(0), injected_noise=z)
+    torch.cuda.synchronize()
+    dyn_kernel = ("split_solve_dynamics_kernel" if kernel == "fused_solve"
+                  else "split_dynamics_kernel")
+    assert {k: v for k, v in fr.launch_counts.items() if v} == {
+        dyn_kernel: 1, "split_cost_kernel": 1, "flash_combine_kernel": 1}
+    re, _ = eager.solve(x, eager.init_state(0), injected_noise=z)
+    _close(rf.costs, re.costs, rtol=1e-5, atol=1e-4)
+    assert torch.equal(rf.crash, re.crash)
+    tol = mean_tolerance(rf, re, re.sampled_controls, LAM_AR)
+    _close(rf.control_mean, re.control_mean, rtol=0, atol=tol)

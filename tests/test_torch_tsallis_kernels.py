@@ -107,7 +107,8 @@ def test_pass1_block_minima(K):
     (_, _), (dyn, cost) = _models()
     tlr = tuple(torch.from_numpy(a) for a in lr[:3]) + lr[3:]
     costs, crash, minima = fr.rollout_block_minima(dyn, cost, torch.from_numpy(x0),
-                                                    torch.from_numpy(U), DT, tlr)
+                                                    torch.from_numpy(U), DT, tlr,
+                                                    split_cost=False)
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, torch.from_numpy(x0),
                                         torch.from_numpy(U), DT, tlr)
     assert torch.equal(costs, pc) and torch.equal(crash, pcrash)
