@@ -46,8 +46,8 @@ T=100; the LSTM-uncertainty model on flat ground, K=1920, T=150): their B1
 entries in four modes and B3 entries (Gaussian, NLN), the LSTM step (B10)
 inside, against their plain versions at K=1920 and the ragged K=1900
 (``racer_kernels``), a fused-vs-combined reference without host syncs
-(``racer_reference``), and the closed loops ``racer_steering`` (100 steps)
-and ``racer_unc`` (20 steps: its eager re-rollout of the mean is about 10^5
+(``racer_reference``), and the closed loops ``racer_steering`` (20 steps)
+and ``racer_unc`` (5 steps: its eager re-rollout of the mean is about 10^5
 launches) on the fused solve, ``racer_steering_fused`` and
 ``racer_unc_fused`` on ``kernel="fused"``. Then the robust family beyond the
 double integrator (the AutoRally instantiation's width,
@@ -73,10 +73,25 @@ map), each pass timed apart and the whole form timed A B B A against the
 combined kernel (``split_kernels``); the flagship's loop with the split
 forced on ``fused`` and ``fused_solve`` and on the eager ``kernel="split"``,
 with its bar, and AutoRally's with the split forced (``split_loops``); and
-the kernel tuner on the flagship (``autotune``). The earlier phases pass
-``split_cost=False``, so they keep the combined kernels on their paths
-(AUTO would split the DI ``fused`` and AutoRally paths). Each phase
-prints one JSON line;
+the kernel tuner on the flagship (``autotune``). Then every pair on every
+kernel mode: the fused sampling kernel (B4) of AutoRally, the quadrotor with
+either cost, the Dubins car (a fixed goal and a goal trajectory), the DI
+with QuadraticCost or its robust cost, the bicycle and the racer LSTM
+models (recurrent mode), B3 of the bicycle and the DI robust cost
+(``pair_sample_kernels``), the split entries of the cartpole, the quadrotor
+quadratic, the DI and Dubins quadratic, the bicycle and the racer models
+(``split_kernels``, A B B A against the combined kernels) and B1's split
+form from one x0 per sample for the DI robust cost and AutoRally
+(``split_x0_kernels``), each at its path's shape, a ragged one and, for the
+map pairs, the partly-crashing map; then the loops that put each new entry
+on a path (``pair_loops``: Tsallis, CEM and Smooth-MPPI on ``fused_solve``,
+the split forced on ``fused`` and ``fused_solve``, the cartpole swing-up and
+the quadrotor hover with the split and their bars, RMPPI with stage 1's
+split on the DI robust cost with its band bar and on AutoRally). The
+earlier phases pass ``split_cost=False``, so they keep the combined kernels
+on their paths (AUTO splits the DI ``fused`` path, AutoRally's and the
+pairs of ``ops/fused_rollout.AUTO_SPLIT``). Each phase prints one JSON
+line;
 ``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
 line is
@@ -215,6 +230,7 @@ COLORED_STD, COLORED_EXPONENTS = [1.0, 1.0], [1.0, 2.0]
 GAMMA, R_TS = 10.0, 2.0
 GAMMA_SMALL, R_SMALL = 1.0, 2.4
 K_BI, K_BI_RAGGED, T_BI, S_BI = 1920, 1900, 100, 10
+BICYCLE_LOOP_STEPS = 30  # the bicycle rows' loops (about 150 ms a step)
 BI_STD, BI_EXPONENTS = [0.3, 0.5], [1.0, 1.0]
 BI_OUTPUT_INDICES = (0, 1, 2, 8, 5, 6)
 # The bicycle step per sample-step (csrc/bicycle_slip.cuh): the lags and
@@ -1461,7 +1477,8 @@ def build_bicycle(kernel):
     dyn, cost = bicycle_parts()
     return VanillaMPPI(dyn, cost, colored_sampler(None, 0.0, BI_STD, BI_EXPONENTS), dt=DT,
                        lam=LAM, alpha=ALPHA, num_timesteps=T_BI, num_rollouts=K_BI,
-                       num_iters=1, kernel=kernel, return_samples=kernel == "combined")
+                       num_iters=1, kernel=kernel, return_samples=kernel == "combined",
+                       split_cost=False)
 
 
 def build_colored(transform, kernel):
@@ -1519,10 +1536,11 @@ def bicycle_kernel_phase(dev, K, p, stride, seed, timed_plain):
 
         def kernel(mode=mode, lrp=lrp):
             if mode.startswith("epilogue"):
-                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp)
+                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp,
+                                                split_cost=False)
             if mode.startswith("tsallis"):
-                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp)
-            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp, split_cost=False)
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
 
         def plain(mode=mode, lrp=lrp):
             pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
@@ -1758,7 +1776,8 @@ RACER_INDICES = (2, 3, 5, 6, 0, 1)
 # about 41,000 launches per step for the steering row (0.9 s), several times
 # that for the uncertainty row; its loop is shorter, and a profiler window
 # (about 0.35 ms per recorded launch) is one step.
-RACER_UNC_LOOP_STEPS = 10
+RACER_STEERING_LOOP_STEPS = 20
+RACER_UNC_LOOP_STEPS = 5
 RACER_FUSED_LOOP_STEPS = 3  # the kernel="fused" loops: B1 on the path
 
 
@@ -1817,11 +1836,13 @@ def racer_parts(pair, dev=None):
 
 
 def build_racer(pair, kernel, return_samples=False):
-    """A racer bench row's VanillaMPPI on the card."""
+    """A racer bench row's VanillaMPPI on the card, on the combined kernels
+    (the split form has loops of its own)."""
     dyn, cost = racer_parts(pair)
     return VanillaMPPI(dyn, cost, GaussianDistribution.create(std_dev=RACER_STD), dt=DT,
                        lam=LAM, alpha=ALPHA, num_timesteps=T_RACER[pair], num_rollouts=K_RC,
-                       num_iters=1, kernel=kernel, return_samples=return_samples)
+                       num_iters=1, kernel=kernel, return_samples=return_samples,
+                       split_cost=False)
 
 
 def racer_x0(pair, dev):
@@ -1938,10 +1959,11 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
 
         def kernel(mode=mode, lrp=lrp):
             if mode.startswith("epilogue"):
-                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp)
+                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp,
+                                                split_cost=False)
             if mode.startswith("tsallis"):
-                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp)
-            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp, split_cost=False)
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
 
         def plain(mode=mode, lrp=lrp):
             pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
@@ -1980,7 +2002,8 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
         s = zoo_sampler(kind, C_, std, dev, p)
         args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
         kw = dict(optimization_stride=stride)
-        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False,
+                                                                 **kw)
         pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
         torch.cuda.synchronize()
         name = f"B3 {kind}"
@@ -1991,7 +2014,8 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
             check(f"{pair} {name} costs", kc, pc, "bitwise"), carry]
         by_kernel["flash_combine_kernel"] += merged
         crashed[name] = float(kcrash.float().mean())
-        times[name] = timing(lambda: fused_solve.fused_solve_carries(*args, **kw),
+        times[name] = timing(lambda: fused_solve.fused_solve_carries(*args, split_cost=False,
+                                                                     **kw),
                              lambda: fused_solve.fused_solve_plain(*args, **kw),
                              zoo_sampling_work(dyn, cost, ops, K, T_, kind, True),
                              timed_plain and kind == "gaussian")
@@ -2164,6 +2188,7 @@ def build_zoo(pair, kernel, K=K_ZOO, T_=T_ZOO, sampler=None, **kw):
     if sampler is None:
         coeff = [0.0] * dyn.CONTROL_DIM if pair.startswith("quadrotor") else None
         sampler = GaussianDistribution.create(std_dev=std, control_cost_coeff=coeff)
+    kw.setdefault("split_cost", False)  # the split form has loops of its own
     return VanillaMPPI(dyn, cost, sampler, dt=kw.pop("dt", DT), lam=kw.pop("lam", LAM),
                        alpha=kw.pop("alpha", ALPHA), num_timesteps=T_, num_rollouts=K,
                        num_iters=1, kernel=kernel, **kw)
@@ -2198,7 +2223,8 @@ def zoo_loops(dev):
                         GaussianDistribution.create(std_dev=CART_STD, control_cost_coeff=[1.0],
                                                     pure_noise_percentage=0.01),
                         dt=0.01, lam=0.25, alpha=0.0, slide_scale=[1.0], num_timesteps=T_ZOO,
-                        num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve")
+                        num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve",
+                        split_cost=False)
     ns = SWINGUP_STEPS
     _, _, X, res = run(
         "cartpole_swingup", swing, torch.zeros(4, device=dev), ns,
@@ -2287,14 +2313,14 @@ def racer_reference_phase(dev):
 
 def racer_loops(dev):
     """The racer bench rows' closed loops on the fused solve (the steering
-    row 100 steps, the uncertainty row RACER_UNC_LOOP_STEPS: its eager
+    row RACER_STEERING_LOOP_STEPS, the uncertainty row RACER_UNC_LOOP_STEPS: its eager
     re-rollout of the mean steps three LSTMs 150 times, about 10^5 launches)
     and short loops on kernel="fused" (B1 on the path). Returns {path:
     (launches, entry launches)}."""
     paths = {}
     for pair in RACER_PAIRS:
         kind = pair.split("_")[1]
-        n = CLOSED_LOOP_STEPS if kind == "steering" else RACER_UNC_LOOP_STEPS
+        n = RACER_STEERING_LOOP_STEPS if kind == "steering" else RACER_UNC_LOOP_STEPS
         out = model_loop_phase(f"racer_{kind}", build_racer(pair, "fused_solve"),
                                racer_x0(pair, dev), n,
                                {"fused_solve_kernel": n, "flash_combine_kernel": n},
@@ -2311,20 +2337,22 @@ def racer_loops(dev):
 
 def bench_row_loops(dev):
     """Two bench rows that need no new kernel code: the bicycle on the
-    1024^2 map (bench.py:755-773) and the DI row at K=1024 (:593-597)."""
-    n = CLOSED_LOOP_STEPS
+    1024^2 map (bench.py:755-773, BICYCLE_LOOP_STEPS) and the DI row at
+    K=1024 (:593-597)."""
+    n = BICYCLE_LOOP_STEPS
     data = np.abs(np.random.default_rng(2).normal(size=(1024, 1024))).astype("f")
     tex = MapTexture2D(data, origin=(-51.2, -51.2, 0.0), resolution=0.1)
     bicycle = VanillaMPPI(BicycleSlipDynamics.create(),
                           ARStandardCost(costmap=tex, output_indices=BI_OUTPUT_INDICES),
                           colored_sampler(None, 0.0, BI_STD, BI_EXPONENTS), dt=DT, lam=LAM,
                           alpha=ALPHA, num_timesteps=T_BI, num_rollouts=K_BI, num_iters=1,
-                          kernel="fused")
+                          kernel="fused", split_cost=False)
     # the same launches as "bicycle_colored": no profiler window of its own
     paths = {"bicycle_1024": model_loop_phase(
         "bicycle_1024", bicycle, torch.zeros(S_BI, device=dev), n,
         {"rollout_costs_kernel": n, "flash_combine_kernel": n}, profile=False,
         map="1024")[0]}
+    n = CLOSED_LOOP_STEPS
     di = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
                      make_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T,
                      num_rollouts=1024, num_iters=1, kernel="fused_solve")
@@ -2396,7 +2424,7 @@ def robust_ar_parts(map_kind, dev="cpu", robust=True):
     return dyn, (ARRobustCost if robust else ARStandardCost)(costmap=tex, device=dev)
 
 
-def build_rmppi_ar(kernel):
+def build_rmppi_ar(kernel, split_cost=False):
     """RMPPI on AutoRally: the bench network, ARRobustCost on the 128^2 map,
     Gaussian std [0.3, 0.5], DDP feedback (Q, R, Q_f the identity), dt 0.02,
     lambda 1, alpha 0, K=1920, T=150, 9 x 256, the JAX default threshold."""
@@ -2404,7 +2432,7 @@ def build_rmppi_ar(kernel):
     return RobustMPPI(dyn, cost, ar_sampler("gaussian"), feedback=DDPFeedback.create(dyn, DT),
                       dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_AR, num_rollouts=K_AR,
                       num_candidates=N_CAND_AR, samples_per_condition=S_PER_AR,
-                      kernel=kernel)
+                      kernel=kernel, split_cost=split_cost)
 
 
 def build_tube_ar(kernel):
@@ -2416,7 +2444,7 @@ def build_tube_ar(kernel):
                     kernel=kernel, split_cost=False)
 
 
-def build_rmppi_di_robust(kernel):
+def build_rmppi_di_robust(kernel, split_cost=False):
     """The JAX suite's RMPPI controller (tests/test_tube_robust.py:38-57):
     DoubleIntegratorRobustCost, std [1, 1], coefficients 0.01, dt 0.02,
     lambda 1, K=256, T=48, 9 x 64, threshold 50."""
@@ -2427,7 +2455,7 @@ def build_rmppi_di_robust(kernel):
                       feedback=DDPFeedback.create(dyn, DT), dt=DT, lam=1.0, alpha=0.0,
                       num_timesteps=T_RDI, num_rollouts=K_RDI, num_candidates=9,
                       samples_per_condition=S_PER_RDI, value_function_threshold=THRESH_RDI,
-                      kernel=kernel)
+                      kernel=kernel, split_cost=split_cost)
 
 
 def ladder_problem(dyn, x0, T_, seed):
@@ -2511,13 +2539,13 @@ def robust_kernel_phase(dev):
                lambda: fr.rmppi_rollout_plain(*args), work)
 
     def x0_case(name, dyn, cost, x0s, U, tol, work):
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False)
         pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
         torch.cuda.synchronize()
         checks["rollout_costs_kernel"].append(check(f"{name} costs", kc, pc, tol))
         same(f"{name} crash flags", kcrash, pcrash)
         crashed[name] = float(kcrash.float().mean())
-        timing(name, lambda: fr.fused_rollout_costs(dyn, cost, x0s, U, DT),
+        timing(name, lambda: fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False),
                lambda: fr.rollout_costs_plain(dyn, cost, x0s, U, DT), work)
 
     def candidates(x0, delta, s_per=S_PER_AR):
@@ -2914,87 +2942,95 @@ SPLIT_EPI = {"costs": fr.EPI_NONE, "costs+lr": fr.EPI_NONE, "epilogue+lr": fr.EP
              "tsallis+lr": fr.EPI_MIN}
 SPLIT_AR_LOOP_STEPS = 20  # the forced-split AutoRally fused_solve loop
 SPLIT_AR_FUSED_STEPS = 5  # the forced-split AutoRally fused loop: B1's split on a path
-DI_O, AR_O = 4, 7
 
 
 def split_inputs(dev, pair, K, p, stride, seed, map_kind):
     """(dynamics, cost, x0, mean, U, LR tables, samplers by kind, T) of one
-    split case: the DI flagship's inputs (``make_inputs``) or AutoRally's
-    (``ar_kernel_phase``'s) on ``map_kind``."""
+    split case: the DI flagship's inputs (``make_inputs``), AutoRally's
+    (``ar_kernel_phase``'s) on ``map_kind``, or another pair's at its path's
+    shape (``pair_parts``)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if pair == "di_circle":
         dyn, cost, x0, U, lr = make_inputs(dev, K, p, seed)
         return (dyn, cost, x0, lr[0], U, lr,
                 {k: make_sampler(k, dev, p) for k in ("gaussian", "nln")}, T)
-    if map_kind == "partial":
-        dyn, cost = robust_ar_parts("partial", dev, robust=False)
+    if pair == "ar_nn":
+        dyn, cost = robust_ar_parts(map_kind, dev, robust=False)
+        x0, std, offset, T_ = ar_x0(dev), AR_STD, 0.0, T_AR
+        samplers = {k: ar_sampler(k, dev, p) for k in ("gaussian", "nln")}
     else:
-        dyn, cost = ar_parts(map_kind, dev)
-    mean = 0.2 * torch.randn((T_AR, C), generator=g, device=dev)
-    samp = ar_sampler("gaussian", dev, p)
+        dyn, cost, x0, std, offset, T_ = pair_parts(pair, dev, map_kind)
+        samplers = {k: zoo_sampler(k, dyn.CONTROL_DIM, std, dev, p, T_)
+                    for k in ("gaussian", "nln")}
+    C_ = dyn.CONTROL_DIM
+    mean = 0.2 * torch.randn((T_, C_), generator=g, device=dev)
+    mean[:, -1] += offset
+    samp = samplers["gaussian"]
     U, _ = samp.sample(g, mean, K, optimization_stride=stride)
     U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
-    lr = (mean, samp._sigma(T_AR, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
+    lr = (mean, samp._sigma(T_, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
           samp.pure_threshold(K))
-    return (dyn, cost, ar_x0(dev), mean, U, lr,
-            {k: ar_sampler(k, dev, p) for k in ("gaussian", "nln")}, T_AR)
+    return dyn, cost, x0, mean, U, lr, samplers, T_
 
 
-def split_fixed_bytes(pair, cost, which):
-    """The tables a pass reads once: the network's weights and biases
-    (AutoRally's dynamics passes) or the cost's table and map (the cost
-    pass)."""
-    if which != "cost":
-        return 0 if pair == "di_circle" else 4 * (FNN_MACS + 32 + 32 + 4)
-    if pair == "di_circle":
-        return 4 * len(DoubleIntegratorCircleCost.PARAM_NAMES)
-    return 4 * (cost.params.numel() + cost.costmap.data.numel())
+def pair_fixed_bytes(dyn, cost, which):
+    """The tables a pass reads once: the model's table and map (the dynamics
+    passes) or the cost's table and map (the cost pass)."""
+    if which == "cost":
+        tables = (cost.params, cost.kernel_map())
+    else:
+        tables = (dyn.kernel_params(), dyn.kernel_map())
+    return 4 * sum(t.numel() for t in tables if t is not None)
 
 
-def split_pass_work(pair, cost, K, T_, which, mode="costs", kind="gaussian"):
+def split_pass_work(pair, dyn, cost, K, T_, which, mode="costs", kind="gaussian",
+                    x0_rows=1):
     """(bytes, operations) of one pass at this shape: ``which`` "dynamics"
-    (B1's: U and x0 read, Y written; the steps), "solve_dynamics" (B3's:
-    the tables read, U, Y and the LR sums written; the draw, carve-outs,
-    clamp, LR and the steps) or "cost" (Y and U read, costs, crash and the
-    mode's rows written; the running cost of each step once, the LR term,
-    the sums and the epilogue). The AutoRally cost's dual evaluation is
-    the design's, not the function's: counted once."""
-    step = OPS_STEP if pair == "di_circle" else OPS_AR_STEP
-    cost_ops = OPS_COST if pair == "di_circle" else OPS_AR_COST
-    S_ = S if pair == "di_circle" else S_AR
-    O_ = DI_O if pair == "di_circle" else AR_O
+    (B1's: U and x0 (``x0_rows`` of them) read, Y written; the steps),
+    "solve_dynamics" (B3's: the tables read, U, Y and the LR sums written;
+    the draw, carve-outs, clamp, LR and the steps) or "cost" (Y and U read,
+    costs, crash and the mode's rows written; the running cost of each step
+    once, the LR term, the sums and the epilogue). A sticky crash's dual
+    evaluation is the design's, not the function's: counted once."""
+    step, cost_ops = PAIR_OPS[pair]
+    S_, C_, O_ = dyn.STATE_DIM, dyn.CONTROL_DIM, dyn.OUTPUT_DIM
     KT = K * T_
-    fixed = split_fixed_bytes(pair, cost, which)
+    fixed = pair_fixed_bytes(dyn, cost, which)
     if which == "dynamics":
-        return fixed + 4 * (KT * C + S_ + KT * O_), KT * step
+        return fixed + 4 * (KT * C_ + x0_rows * S_ + KT * O_), KT * step
     if which == "solve_dynamics":
         tables = 3 + (kind == "nln")  # mean, sigma, coeff / sigma^2, NLN's std
-        draw = OPS_PHILOX + (2 if kind == "nln" else 1) * OPS_BOX_MULLER
+        draw = (OPS_PHILOX + (2 if kind == "nln" else 1) * OPS_BOX_MULLER) * (-(-C_ // 2))
         per_channel = 4 + 7 + 5 + (OPS_TRANSCENDENTAL + 2 if kind == "nln" else 0)
-        n_bytes = fixed + 4 * (tables * T_ * C + 4 * C + S_ + 1 + KT * C + KT * O_ + K)
-        return n_bytes, KT * (draw + C * per_channel + step)
+        n_bytes = fixed + 4 * (tables * T_ * C_ + 4 * C_ + S_ + 1 + KT * C_ + KT * O_ + K)
+        return n_bytes, KT * (draw + C_ * per_channel + step)
     nb = -(-K // fr.BLOCK)
-    n_bytes = fixed + 4 * (KT * O_ + KT * C + 2 * K)
+    n_bytes = fixed + 4 * (KT * O_ + KT * C_ + 2 * K)
     n_ops = KT * (cost_ops + OPS_ACC) + 2 * K
     if mode.endswith("+lr"):
-        n_bytes += 4 * (2 * T_ * C + C)
-        n_ops += KT * OPS_LR
+        n_bytes += 4 * (2 * T_ * C_ + C_)
+        n_ops += KT * 8 * C_
     if mode == "solve":  # B3's LR sums read, its carry rows written
-        n_bytes += 4 * (K + nb * (2 + T_ * C))
-        n_ops += 2 * K + 5 * K + 2 * KT * C
+        n_bytes += 4 * (K + nb * (2 + T_ * C_))
+        n_ops += 2 * K + 5 * K + 2 * KT * C_
     elif mode.startswith("epilogue"):
-        n_bytes += 4 * nb * (2 + T_ * C)
-        n_ops += 5 * K + 2 * KT * C
+        n_bytes += 4 * nb * (2 + T_ * C_)
+        n_ops += 5 * K + 2 * KT * C_
     elif mode.startswith("tsallis"):
         n_bytes += 4 * nb
         n_ops += K
     return n_bytes, n_ops
 
 
-def split_form_work(pair, cost, K, T_, mode, kind=None):
+def split_form_work(pair, dyn, cost, K, T_, mode, kind=None):
     """(bytes, operations) of the function the split form computes: the
     combined kernel's (``rollout_work`` and its kin), the intermediate Y
     not counted."""
+    if pair not in ("di_circle", "ar_nn"):
+        ops = sum(PAIR_OPS[pair])
+        if kind is not None:
+            return zoo_sampling_work(dyn, cost, ops, K, T_, kind, True)
+        return zoo_rollout_work(dyn, cost, ops, K, T_, mode)
     if kind is not None:  # B3
         return (sampling_work(K, kind, True, True, False, False) if pair == "di_circle"
                 else ar_solve_work(cost, K, kind))
@@ -3037,13 +3073,17 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                                                             map_kind)
     g = torch.Generator(device=dev).manual_seed(seed + 1000)
     seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
-    n_plain = N_TIMED_PLAIN if pair == "di_circle" else N_TIMED_PLAIN_AR
+    # the plain versions are eager, thousands of launches: one warm-up run; a
+    # racer plain version takes seconds, so the racer pairs time one run
+    n_plain = (N_TIMED_PLAIN if pair == "di_circle" else 1 if pair in RACER_PAIRS
+               else N_TIMED_PLAIN_AR)
     checks, times, crashed = [], {}, {}
+    C_ = dyn.CONTROL_DIM
 
     def merge_checks(name, kcarry, pc, U_):
         pcarry = fr.block_carries_plain(pc, U_, LAM)
-        km, kb, ke = fr.flash_combine(kcarry, T_, C, LAM)
-        pm, pb, pe = fr.flash_combine_plain(pcarry, T_, C, LAM)
+        km, kb, ke = fr.flash_combine(kcarry, T_, C_, LAM)
+        pm, pb, pe = fr.flash_combine_plain(pcarry, T_, C_, LAM)
         return [check(f"{name} carry", kcarry, pcarry, "carry",
                       fr.block_carries_plain(pc, U_.abs(), LAM).abs()),
                 check(f"{name} new_mean", km, pm, "new_mean"),
@@ -3068,27 +3108,28 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
         if timed:
             t = abba(lambda: fr._rollout_cuda(dyn, cost, x0, U, DT, lrp, epi, LAM),
                      lambda: fr.split_rollout_cuda(dyn, cost, x0, U, DT, lrp, epi, LAM))
-            t["bound_ms"], t["bound_by"] = bound_ms(*split_form_work(pair, cost, K, T_, mode))
+            t["bound_ms"], t["bound_by"] = bound_ms(*split_form_work(pair, dyn, cost, K, T_, mode))
             Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
             t["cost_pass"] = {"ms": time_ms(
                 lambda: fr.split_cost_cuda(dyn, cost, Y, U, lrp, epi, LAM), N_TIMED)}
             t["cost_pass"]["bound_ms"], t["cost_pass"]["bound_by"] = bound_ms(
-                *split_pass_work(pair, cost, K, T_, "cost", mode))
+                *split_pass_work(pair, dyn, cost, K, T_, "cost", mode))
             t["plain_ms"] = None
             if mode == "epilogue+lr":
                 t["plain_ms"] = time_ms(lambda: fr.block_carries_plain(
-                    fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)[0], U, LAM), n_plain)
+                    fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)[0], U, LAM), n_plain,
+                    warmup=1)
                 # one-call yardstick for the weighting + weighted sum (not used by the port)
                 t["library_ms"] = time_ms(
                     lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
                 t["cost_pass"]["plain_ms"] = time_ms(
-                    lambda: split_cost_plain(cost, Y, U, lrp, T_), n_plain)
+                    lambda: split_cost_plain(cost, Y, U, lrp, T_), n_plain, warmup=1)
                 t["dynamics_pass"] = {"ms": time_ms(
                     lambda: fr.split_dynamics_cuda(dyn, cost, x0, U, DT), N_TIMED),
                     "plain_ms": time_ms(lambda: fr.split_outputs_plain(dyn, x0, U, DT),
-                                        n_plain)}
+                                        n_plain, warmup=1)}
                 t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
-                    *split_pass_work(pair, cost, K, T_, "dynamics"))
+                    *split_pass_work(pair, dyn, cost, K, T_, "dynamics"))
             times[name] = t
     for kind, samp in samplers.items():
         name = f"B3 split {kind}"
@@ -3105,7 +3146,7 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
         if timed:
             t = abba(lambda: fused_solve.fused_solve_carries(*args, split_cost=False),
                      lambda: fused_solve.fused_solve_carries(*args, split_cost=True))
-            t["bound_ms"], t["bound_by"] = bound_ms(*split_form_work(pair, cost, K, T_, None,
+            t["bound_ms"], t["bound_by"] = bound_ms(*split_form_work(pair, dyn, cost, K, T_, None,
                                                                      kind))
             kid = fr.noise_kind(samp)
             dyn_args = (dyn, cost, samp, kid, x0, mean, seed_t, DT, K, 0, 0, None)
@@ -3113,19 +3154,19 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
             t["dynamics_pass"] = {"ms": time_ms(
                 lambda: fused_solve.split_solve_dynamics_cuda(*dyn_args), N_TIMED)}
             t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
-                *split_pass_work(pair, cost, K, T_, "solve_dynamics", kind=kind))
+                *split_pass_work(pair, dyn, cost, K, T_, "solve_dynamics", kind=kind))
             gain = fr._lr_gain(LAM, ALPHA)
             t["cost_pass"] = {"ms": time_ms(lambda: fr.split_cost_cuda(
                 dyn, cost, Y, Uk, None, fr.EPI_EXP, LAM, lrs, gain), N_TIMED)}
             t["cost_pass"]["bound_ms"], t["cost_pass"]["bound_by"] = bound_ms(
-                *split_pass_work(pair, cost, K, T_, "cost", "solve"))
+                *split_pass_work(pair, dyn, cost, K, T_, "cost", "solve"))
             t["plain_ms"] = None
             if kind == "gaussian":
                 t["plain_ms"] = time_ms(lambda: fused_solve.fused_solve_split_plain(*args),
-                                        n_plain)
+                                        n_plain, warmup=1)
                 t["dynamics_pass"]["plain_ms"] = time_ms(lambda: fr.split_outputs_plain(
                     dyn, x0, fused_solve._samples_plain(dyn, samp, mean, seed_t, K, 0, 0,
-                                                        None)[0], DT), n_plain)
+                                                        None)[0], DT), n_plain, warmup=1)
             times[name] = t
     emit("split_kernels", pair=pair, map=map_kind, K=K, T=T_, pure_noise_percentage=p,
          stride=stride, crashed_share=crashed, checks=checks, times=times)
@@ -3207,6 +3248,566 @@ def autotune_phase(dev):
          ms_per_solve={k: 1e3 * v for k, v in timings.items()}, kernel=tuned.kernel,
          split_cost=tuned.split_cost, tune_s=t_tune)
     return tuned.kernel, tuned.split_cost, timings
+
+
+# ---------------------------------------------------------------------------
+# Every pair on every kernel mode: the fused sampling kernel (B4) for the
+# pairs that lacked it (AutoRally, the quadrotor with either cost, the Dubins
+# car with a fixed goal and a goal trajectory, the DI with QuadraticCost or
+# its robust cost, the bicycle, the racer LSTM models in the kernel's
+# recurrent mode), B3 for the bicycle and the DI robust cost; the split form
+# of B1 and B3 for the cartpole, the quadrotor with its quadratic cost, the
+# DI and the Dubins car with a fixed goal, the bicycle and the racer models;
+# B1's split form from one x0 per sample (RMPPI's stage 1) for the DI robust
+# cost and AutoRally. Each entry against its plain version at its path's
+# full shape, at a ragged one (K 1900 / 8000, p 0.1, stride 2) and, for the
+# map pairs, on the partly-crashing map; each split entry also A B B A
+# against its combined kernel, which fills the AUTO table. Then the loops
+# that put each new entry on a path.
+# ---------------------------------------------------------------------------
+# operations per sample-step of each pair's step and cost
+PAIR_OPS = {
+    "di_circle": (OPS_STEP, OPS_COST),
+    "ar_nn": (OPS_AR_STEP, OPS_AR_COST),
+    "bicycle_ar": (OPS_BI_STEP, OPS_AR_COST),
+    "cartpole": (OPS_CART_STEP, OPS_CART_COST),
+    "quadrotor_quadratic": (OPS_QUAD_STEP, OPS_QQ_COST),
+    "quadrotor_map": (OPS_QUAD_STEP, OPS_QMAP_COST),
+    "dubins_quadratic": (OPS_DUBINS_STEP, ops_quadratic(3, False)),
+    "dubins_trajectory": (OPS_DUBINS_STEP, ops_quadratic(3, True)),
+    "di_quadratic": (OPS_STEP, ops_quadratic(4, False)),
+    "di_robust": (OPS_STEP, OPS_DI_ROBUST_COST),
+    "racer_steering_ar": (OPS_RACER_STEER, OPS_AR_COST),
+    "racer_unc_ar": (OPS_RACER_UNC, OPS_AR_COST - 2 * 54),
+}
+SAMPLE_PAIRS = ("ar_nn", "bicycle_ar", "quadrotor_quadratic", "quadrotor_map",
+                "dubins_quadratic", "dubins_trajectory", "di_quadratic", "di_robust",
+                "racer_steering_ar", "racer_unc_ar")
+SOLVE_PAIRS = ("bicycle_ar", "di_robust")  # the new B3 entries
+SPLIT_PAIRS = ("cartpole", "quadrotor_quadratic", "di_quadratic", "dubins_quadratic",
+               "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
+MAP_PAIRS = ("ar_nn", "bicycle_ar", "racer_steering_ar")  # on the partly-crashing map too
+PAIR_LOOP_STEPS = 20  # the new entries' loops on the cheap pairs
+PAIR_LOOP_STEPS_HEAVY = 3  # the racer models' (about 10^5 eager launches per step)
+SPLIT_LOOP_STEPS = 5  # the forced-split loops that put each split entry on a path
+# the partly-crashing map: the bicycle and the racer steering model start
+# 5 m before the block at x = 10.35 m at 3 m/s (AutoRally's network at
+# scale 0.2 starts from x = 0, as in the robust kernel phase)
+PARTIAL_X = 5.35
+
+
+def pair_parts(pair, dev=None, map_kind=None):
+    """(dynamics, cost, x0, std, mean offset of the last channel, T) of a
+    pair at its path's horizon on ``dev`` (the controllers' default when
+    None); ``map_kind="partial"`` puts a map pair's track on the
+    partly-crashing map."""
+    kw = {} if dev is None else {"device": dev}
+    x0dev = dev if dev is not None else "cuda"
+    if pair == "ar_nn":
+        dyn, cost = robust_ar_parts(map_kind or "128", dev or "cuda", robust=False)
+        return dyn, cost, ar_x0(x0dev), AR_STD, 0.0, T_AR
+    if pair == "bicycle_ar":
+        dyn, cost = bicycle_parts(dev or "cuda")
+        x0 = torch.zeros(S_BI, device=x0dev)
+        if map_kind == "partial":
+            cost = ARStandardCost(costmap=partial_map(dev or "cuda"),
+                                  output_indices=BI_OUTPUT_INDICES, **kw)
+            x0[0], x0[5] = PARTIAL_X, 3.0
+        return dyn, cost, x0, BI_STD, 0.0, T_BI
+    if pair == "di_robust":
+        return (DoubleIntegratorDynamics.create(**kw), DoubleIntegratorRobustCost(**kw),
+                torch.tensor(X0_RDI, device=x0dev), [1.0, 1.0], 0.0, T_ZOO)
+    dyn, cost, x0, std, offset, _ = zoo_parts(pair, dev)
+    if map_kind == "partial" and pair == "racer_steering_ar":
+        cost = ARStandardCost(costmap=partial_map(dev or "cuda"),
+                              output_indices=RACER_INDICES, **kw)
+        x0 = x0.clone()
+        x0[2] = PARTIAL_X
+    return dyn, cost, x0, std, offset, T_RACER.get(pair, T_ZOO)
+
+
+def merge_checks(name, kcarry, pcarry, pc, X, T_, C_):
+    """The carry rows of a kernel against the plain ones (rtol 1e-5 of the
+    rows over |X|) and their merges (the merge's tolerances)."""
+    km, kb, ke = fr.flash_combine(kcarry, T_, C_, LAM)
+    pm, pb, pe = fr.flash_combine_plain(pcarry, T_, C_, LAM)
+    return [check(f"{name} carry", kcarry, pcarry, "carry",
+                  fr.block_carries_plain(pc, X.abs(), LAM).abs()),
+            check(f"{name} new_mean", km, pm, "new_mean"),
+            check(f"{name} baseline", kb, pb, "baseline"),
+            check(f"{name} eta", ke, pe, "eta")]
+
+
+def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False):
+    """B4 of a pair (Gaussian, NLN, Smooth-MPPI, Smooth-MPPI with its
+    epilogue over W; off the timed shape the Gaussian and the epilogue) and,
+    for the bicycle and the DI robust cost, B3 (Gaussian; timed also NLN),
+    against their plain versions: U, W, costs and crash flags to the last
+    bit, the carries at rtol 1e-5 and the merges as the merge's. With
+    ``timed``: each mode's time by CUDA events against its bound, and the
+    plain version's (Smooth with its epilogue; B3 Gaussian)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn, cost, x0, std, offset, T_ = pair_parts(pair, dev, map_kind)
+    ops = sum(PAIR_OPS[pair])
+    C_ = dyn.CONTROL_DIM
+    mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+    mean[:, -1] += offset
+    dmean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    checks, times, crashed = [], {}, {}
+    modes = ((("gaussian", False), ("nln", False), ("smooth", False), ("smooth", True))
+             if timed else (("gaussian", False), ("smooth", True)))
+    for kind, epilogue in modes:
+        s = zoo_sampler(kind, C_, std, dev, p, T_)
+        state = dmean if kind == "smooth" else None
+        args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
+        kout = fr.fused_sample_rollout_costs(*args, optimization_stride=stride,
+                                             sampler_state=state, epilogue=epilogue)
+        pc, pcrash, pU, pW = fr.sample_rollout_plain(*args, optimization_stride=stride,
+                                                     sampler_state=state)
+        torch.cuda.synchronize()
+        name = f"B4 {kind}{' epilogue' if epilogue else ''}"
+        same(f"{pair} {name} crash flags", kout[1], pcrash)
+        checks += [check(f"{pair} {name} U", kout[2], pU, "bitwise"),
+                   check(f"{pair} {name} costs", kout[0], pc, "bitwise")]
+        if epilogue:
+            pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM),
+                                                T_, C_, LAM)
+            checks += [check(f"{pair} {name} new_deriv_mean", kout[3], pm, "new_mean"),
+                       check(f"{pair} {name} baseline", kout[4], pb, "baseline"),
+                       check(f"{pair} {name} eta", kout[5], pe, "eta")]
+        elif kind == "smooth":
+            checks.append(check(f"{pair} {name} W", kout[3], pW, "bitwise"))
+        crashed[name] = float(kout[1].float().mean())
+        if timed:
+            kid = fr.noise_kind(s)
+
+            def kernel(s=s, kid=kid, state=state, epilogue=epilogue):
+                # the kernel alone, as the main path launches it (U not kept)
+                return fr._sample_rollout_cuda(dyn, cost, s, kid, x0, mean, seed_t, DT,
+                                               LAM, ALPHA, K, 0, stride, state, epilogue,
+                                               False, None)
+
+            def plain(args=args, state=state):
+                out = fr.sample_rollout_plain(*args, optimization_stride=stride,
+                                              sampler_state=state)
+                return fr.block_carries_plain(out[0], out[3], LAM)
+
+            t = {"ms": time_ms(kernel, N_TIMED),
+                 "plain_ms": (time_ms(plain, N_TIMED_PLAIN_AR, warmup=1) if epilogue
+                              else None), "library_ms": None}
+            t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
+                dyn, cost, ops, K, T_, kind, False, epilogue))
+            times[name] = t
+    if pair in SOLVE_PAIRS:
+        for kind in ("gaussian", "nln") if timed else ("gaussian",):
+            s = zoo_sampler(kind, C_, std, dev, p, T_)
+            args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
+            kw = dict(optimization_stride=stride)
+            kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False,
+                                                                     **kw)
+            pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
+            torch.cuda.synchronize()
+            name = f"B3 {kind}"
+            same(f"{pair} {name} crash flags", kcrash, pcrash)
+            checks += [check(f"{pair} {name} U", kU, pU, "bitwise"),
+                       check(f"{pair} {name} costs", kc, pc, "bitwise"),
+                       *merge_checks(f"{pair} {name}", kcarry, pcarry, pc, pU, T_, C_)]
+            crashed[name] = float(kcrash.float().mean())
+            if timed:
+                t = {"ms": time_ms(lambda: fused_solve.fused_solve_carries(
+                         *args, split_cost=False, **kw), N_TIMED),
+                     "plain_ms": (time_ms(lambda: fused_solve.fused_solve_plain(*args, **kw),
+                                          N_TIMED_PLAIN_AR, warmup=1)
+                                  if kind == "gaussian" else None), "library_ms": None}
+                t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
+                    dyn, cost, ops, K, T_, kind, True))
+                times[name] = t
+    emit("pair_sample_kernels", pair=pair, map=map_kind, K=K, T=T_,
+         pure_noise_percentage=p, stride=stride, crashed_share=crashed, checks=checks,
+         times=times)
+    return checks, times
+
+
+def split_x0_phase(dev, pair, map_kind=None, timed=False):
+    """B1's split form from one x0 per sample at RMPPI's stage-1 shape (9
+    candidates on a segment, each with its samples: the DI robust cost
+    9 x 64, T=48; AutoRally with ARRobustCost 9 x 256, T=150) against its
+    plain version (costs and crash flags to the last bit) and the combined
+    per-sample-x0 kernel; with ``timed`` A B B A against that kernel, each
+    pass timed apart."""
+    g = torch.Generator(device=dev).manual_seed(131)
+    if pair == "di_robust":
+        dyn, cost = (DoubleIntegratorDynamics.create(device=dev),
+                     DoubleIntegratorRobustCost(device=dev))
+        xa, dx, n_per, T_, std = (torch.tensor(X0_RDI, device=dev),
+                                  torch.tensor([0.3, 0.1, 0.4, -0.3], device=dev),
+                                  S_PER_RDI, T_RDI, [1.0, 1.0])
+    else:
+        dyn, cost = robust_ar_parts(map_kind, dev)
+        xa, dx, n_per, T_, std = (ar_x0(dev),
+                                  torch.tensor([0.5, 0.3, 0.1, 0.0, -0.5, 0.0, 0.0],
+                                               device=dev), S_PER_AR, T_AR, AR_STD)
+    w = torch.linspace(0.0, 1.0, N_CAND_AR, device=dev)[:, None]
+    X0c = (xa[None] + w * dx[None]).repeat_interleave(n_per, dim=0).contiguous()
+    K = X0c.shape[0]
+    sigma = torch.tensor([std], device=dev)
+    U = sigma * torch.randn((K, T_, C), generator=g, device=dev)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, X0c, U, DT, split_cost=True)
+    pc, pcrash = fr.split_rollout_plain(dyn, cost, X0c, U, DT)
+    cc, ccrash = fr.fused_rollout_costs(dyn, cost, X0c, U, DT, split_cost=False)
+    torch.cuda.synchronize()
+    same(f"{pair} B1-x0 split crash flags", kcrash, pcrash)
+    same(f"{pair} B1-x0 split vs combined crash flags", kcrash, ccrash)
+    checks = [check(f"{pair} B1-x0 split costs", kc, pc, "bitwise")]
+    times = {}
+    if timed:
+        t = abba(lambda: fr._rollout_cuda(dyn, cost, X0c, U, DT, None),
+                 lambda: fr.split_rollout_cuda(dyn, cost, X0c, U, DT, None))
+        n_bytes, n_ops = zoo_rollout_work(dyn, cost, sum(PAIR_OPS[pair]), K, T_, "costs")
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes + 4 * (K - 1) * dyn.STATE_DIM, n_ops)
+        Y = fr.split_dynamics_cuda(dyn, cost, X0c, U, DT)
+        t["dynamics_pass"] = {"ms": time_ms(
+            lambda: fr.split_dynamics_cuda(dyn, cost, X0c, U, DT), N_TIMED)}
+        t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
+            *split_pass_work(pair, dyn, cost, K, T_, "dynamics", x0_rows=K))
+        t["dynamics_pass"]["plain_ms"] = time_ms(
+            lambda: fr.split_outputs_plain(dyn, X0c, U, DT), N_TIMED_PLAIN_AR, warmup=1)
+        t["cost_pass"] = {"ms": time_ms(lambda: fr.split_cost_cuda(dyn, cost, Y, U), N_TIMED)}
+        t["cost_pass"]["bound_ms"], t["cost_pass"]["bound_by"] = bound_ms(
+            *split_pass_work(pair, dyn, cost, K, T_, "cost"))
+        Yk = Y.permute(2, 0, 1)
+        t["cost_pass"]["plain_ms"] = time_ms(lambda: fr.split_sums_plain(
+            *fr.split_step_values_plain(cost, Yk, U)), N_TIMED_PLAIN_AR, warmup=1)
+        t["plain_ms"] = time_ms(lambda: fr.split_rollout_plain(dyn, cost, X0c, U, DT),
+                                N_TIMED_PLAIN_AR, warmup=1)
+        t["library_ms"] = None
+        times["B1-x0 split"] = t
+    emit("split_x0_kernels", pair=pair, map=map_kind, K=K, T=T_,
+         crashed_share=float(kcrash.float().mean()), checks=checks, times=times)
+    return checks, times
+
+
+PAIR_TYPES = {
+    "di_circle": ("DoubleIntegrator", "DoubleIntegratorCircleCost"),
+    "ar_nn": ("AutorallyNN", "ARCost"),
+    "bicycle_ar": ("BicycleSlip", "ARCostBicycle"),
+    "cartpole": ("Cartpole", "CartpoleQuadraticCost"),
+    "quadrotor_quadratic": ("Quadrotor", "QuadrotorQuadraticCost"),
+    "quadrotor_map": ("Quadrotor", "QuadrotorMapCost"),
+    "dubins_quadratic": ("Dubins", "QuadraticCostT<3>"),
+    "di_quadratic": ("DoubleIntegrator", "QuadraticCostT<4>"),
+    "di_robust": ("DoubleIntegrator", "DoubleIntegratorRobustCost"),
+    "racer_steering_ar": ("RacerLSTMSteering", "ARCostRacer"),
+    "racer_unc_ar": ("RacerLSTMUnc", "ARCostRacer"),
+}
+
+
+def pair_shape(pair):
+    """(K, ragged K, T) of a pair's path."""
+    if pair == "ar_nn":
+        return K_AR, K_AR_RAGGED, T_AR
+    if pair == "bicycle_ar":
+        return K_BI, K_BI_RAGGED, T_BI
+    if pair in RACER_PAIRS:
+        return K_RC, K_RC_RAGGED, T_RACER[pair]
+    return K_ZOO, K_ZOO_RAGGED, T_ZOO
+
+
+def pair_kernel_phases(dev):
+    """Every new entry against its plain version: B4 and the new B3 entries
+    (``pair_sample_phase``), the split entries of the new pairs
+    (``split_kernel_phase``) and the per-sample-x0 split
+    (``split_x0_phase``), at the path's shape (timed), the ragged one and
+    the partly-crashing map. Returns (max abs errors, times), each keyed by
+    (phase, pair)."""
+    errs, times = {}, {}
+
+    def note(key, checks, t, timed_):
+        errs[key] = max([errs.get(key, 0.0)] + [c["max_abs_err"] for c in checks])
+        if timed_:
+            times[key] = t
+
+    seed = 201
+    for pair in SAMPLE_PAIRS:
+        K, K_rag, _ = pair_shape(pair)
+        cases = [(K, 0.0, 0, None, True), (K_rag, 0.1, 2, None, False)]
+        if pair in MAP_PAIRS:
+            cases.append((K, 0.0, 0, "partial", False))
+        for K_, p, stride, map_kind, timed_ in cases:
+            seed += 1
+            checks, t = pair_sample_phase(dev, pair, K_, p, stride, seed, map_kind, timed_)
+            note(("sample", pair), checks, t, timed_)
+    for pair in SPLIT_PAIRS:
+        K, K_rag, _ = pair_shape(pair)
+        cases = [(K, 0.0, 0, None, True), (K_rag, 0.1, 2, None, False)]
+        if pair in MAP_PAIRS:
+            cases.append((K, 0.0, 0, "partial", False))
+        for K_, p, stride, map_kind, timed_ in cases:
+            seed += 1
+            checks, t = split_kernel_phase(dev, pair, K_, p, stride, seed, map_kind, timed_)
+            note(("split", pair), checks, t, timed_)
+    for pair, map_kind, timed_ in (("di_robust", None, True), ("ar_nn", "128", True),
+                                   ("ar_nn", "partial", False)):
+        checks, t = split_x0_phase(dev, pair, map_kind, timed_)
+        note(("split_x0", pair), checks, t, timed_)
+    return errs, times
+
+
+def pair_kernel_entries(errs, times, paths):
+    """The ``kernels`` line's entries of the new kernels: launches counted
+    per C entry over every path of ``paths`` ({path: (launches, entry
+    launches)})."""
+    def line(name, pair, kind, replaces, t, err, **extra):
+        lib, fn = _build.pair_entry(pair, kind)
+        by = {p: e.get(fn, 0) for p, (_, e) in paths.items() if e.get(fn, 0)}
+        return {"name": name, "route": "cuda",
+                "source": f"mppi_generic_tpu_torch/csrc/{lib}.cu",
+                "replaces": f"mppi_generic_tpu/ops/{replaces}",
+                "launches": sum(by.values()), "launches_by_path": by, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t.get("plain_ms"), "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), **extra}
+
+    out = []
+    for pair in SAMPLE_PAIRS:
+        if pair == "dubins_trajectory":
+            continue  # a mode of the Dubins entry
+        dyn_name, cost_name = PAIR_TYPES[pair]
+        t = times[("sample", pair)]
+        K, _, T_ = pair_shape(pair)
+        modes = {m: t[m] for m in ("B4 gaussian", "B4 nln", "B4 smooth")}
+        err = errs[("sample", pair)]
+        if pair == "dubins_quadratic":
+            tt = times[("sample", "dubins_trajectory")]
+            modes.update({f"goal trajectory {m}": v for m, v in tt.items()})
+            err = max(err, errs[("sample", "dubins_trajectory")])
+        out.append(line(f"fused_sample_rollout_kernel<{dyn_name}, {cost_name}>", pair,
+                        "sample", "pallas_rollout.py:1631", t["B4 smooth epilogue"], err,
+                        K=K, T=T_, modes=modes,
+                        recurrent=pair in RACER_PAIRS))
+        if pair in SOLVE_PAIRS:
+            out.append(line(f"fused_solve_kernel<{dyn_name}, {cost_name}>", pair, "solve",
+                            "pallas_solve.py:103", t["B3 gaussian"], err, K=K, T=T_,
+                            modes={"nln": t["B3 nln"]}))
+
+    def forms(st, prefix):
+        keys = ("ms", "combined_ms", "abba_ms", "split_faster", "bound_ms")
+        return {m[len(prefix):]: {k: v.get(k) for k in keys}
+                for m, v in st.items() if m.startswith(prefix)}
+
+    for pair in SPLIT_PAIRS:
+        dyn_name, cost_name = PAIR_TYPES[pair]
+        st, err = times[("split", pair)], errs[("split", pair)]
+        K, _, T_ = pair_shape(pair)
+        out += [
+            line(f"split_dynamics_kernel<{dyn_name}>", pair, "split_dynamics",
+                 "pallas_rollout.py:548 (split mode, run_tile :663-696)",
+                 st["B1 split epilogue+lr"]["dynamics_pass"], err, K=K, T=T_,
+                 split_form=forms(st, "B1 split ")),
+            line(f"split_solve_dynamics_kernel<{dyn_name}>", pair, "split_solve_dynamics",
+                 "pallas_solve.py:103 (split mode :274-290)",
+                 st["B3 split gaussian"]["dynamics_pass"], err, K=K, T=T_,
+                 modes={"nln": st["B3 split nln"]["dynamics_pass"]},
+                 split_form=forms(st, "B3 split ")),
+            line(f"split_cost_kernel<{cost_name}>", pair, "split_cost",
+                 "pallas_rollout.py:698-768 and pallas_solve.py:292-332 (the split cost "
+                 "pass)", st["B1 split epilogue+lr"]["cost_pass"], err, K=K, T=T_,
+                 modes={**{f"B1 {m}": st[f"B1 split {m}"]["cost_pass"]
+                           for m in ("costs", "costs+lr", "tsallis+lr")},
+                        **{f"B3 {k}": st[f"B3 split {k}"]["cost_pass"]
+                           for k in ("gaussian", "nln")}}),
+        ]
+    for pair in ("di_robust", "ar_nn"):
+        t, err = times[("split_x0", pair)]["B1-x0 split"], errs[("split_x0", pair)]
+        shape = ({"K": N_CAND_AR * S_PER_RDI, "T": T_RDI} if pair == "di_robust"
+                 else {"K": N_CAND_AR * S_PER_AR, "T": T_AR})
+        form = {k: t.get(k) for k in ("ms", "combined_ms", "abba_ms", "split_faster",
+                                      "bound_ms", "plain_ms")}
+        out.append(line(f"split_dynamics_kernel<{PAIR_TYPES[pair][0]}> (per-sample x0)",
+                        pair, "split_dynamics_x0",
+                        "pallas_rollout.py:548 (split mode with per_sample_x0, :646)",
+                        t["dynamics_pass"], err, **shape, split_form=form))
+        if pair == "di_robust":
+            out.append(line("split_cost_kernel<DoubleIntegratorRobustCost>", pair,
+                            "split_cost", "pallas_rollout.py:698-768 (the split cost pass)",
+                            t["cost_pass"], err, **shape))
+    return out
+
+
+def pair_loops(dev):
+    """The loops that put each new entry on a path: Tsallis, CEM and
+    Smooth-MPPI on ``fused_solve`` (B4) for AutoRally's bench configuration,
+    the racer rows, the quadrotor hover, the waypoint map, the Dubins car,
+    the DI with QuadraticCost or its robust cost and the bicycle; the
+    bicycle's and the DI robust cost's Gaussian ``fused_solve`` (B3); the
+    split form forced on ``fused_solve`` for the cartpole swing-up and the
+    quadrotor hover (their bars) and on ``fused`` and ``fused_solve`` for
+    each split pair; RMPPI with stage 1's split forced on the DI robust
+    cost (its band bar) and AutoRally. Returns {path: (launches, entry
+    launches)}."""
+    n, nh = PAIR_LOOP_STEPS, PAIR_LOOP_STEPS_HEAVY
+    paths = {}
+
+    def run(path, *a, **kw):
+        out = model_loop_phase(path, *a, profile=kw.pop("profile", False), **kw)
+        paths[path] = out[:2]
+        return out
+
+    b4 = lambda k: {"fused_sample_rollout_kernel": k}
+    b4_smooth = lambda k: {"fused_sample_rollout_kernel": k, "flash_combine_kernel": k}
+    b3 = lambda k: {"fused_solve_kernel": k, "flash_combine_kernel": k}
+    smooth = lambda C_, std, T_: SmoothMPPIDistribution.create(
+        std_dev=std, control_cost_coeff=[1.0] * C_, num_timesteps=T_, dt=DT_SMOOTH)
+    # AutoRally's bench configuration (bench.py:704-717) with Tsallis weights
+    # and with the Smooth-MPPI sampler
+    dyn, cost = ar_parts("128")
+    ar = dict(dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_AR, num_rollouts=K_AR,
+              num_iters=1, kernel="fused_solve", split_cost=False)
+    run("autorally_tsallis_fused_solve", VanillaMPPI(
+        dyn, cost, ar_sampler("gaussian"), weight_transform="tsallis", tsallis_gamma=GAMMA,
+        tsallis_r=R_TS, **ar), ar_x0(dev), n, b4(n), map="128", profile=1)
+    run("autorally_smooth_fused_solve", VanillaMPPI(
+        dyn, cost, smooth(C, AR_STD, T_AR), **ar), ar_x0(dev), n, b4_smooth(n), map="128")
+    # the racer rows: CEM on the steering row, Smooth-MPPI on the uncertainty row
+    for pair, path, extra in (
+            ("racer_steering_ar", "racer_steering_cem_fused_solve",
+             dict(sampler=GaussianDistribution.create(std_dev=RACER_STD),
+                  weight_transform="cem")),
+            ("racer_unc_ar", "racer_unc_smooth_fused_solve",
+             dict(sampler=smooth(C, RACER_STD, T_RACER["racer_unc_ar"])))):
+        rdyn, rcost = racer_parts(pair)
+        samp = extra.pop("sampler")
+        want = b4_smooth(nh) if isinstance(samp, SmoothMPPIDistribution) else b4(nh)
+        run(path, VanillaMPPI(rdyn, rcost, samp, dt=DT, lam=LAM, alpha=ALPHA,
+                              num_timesteps=T_RACER[pair], num_rollouts=K_RC, num_iters=1,
+                              kernel="fused_solve", split_cost=False, **extra),
+            racer_x0(pair, dev), nh, want, pair=pair)
+    # the bicycle (bench.py:641-665) on the fused solve: Gaussian (B3) and
+    # Tsallis (B4)
+    bdyn, bcost = bicycle_parts()
+    bi = dict(dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_BI, num_rollouts=K_BI,
+              num_iters=1, kernel="fused_solve", split_cost=False)
+    bx0 = torch.zeros(S_BI, device=dev)
+    run("bicycle_fused_solve", VanillaMPPI(bdyn, bcost, GaussianDistribution.create(
+        std_dev=BI_STD), **bi), bx0, n, b3(n), map="128", profile=1)
+    run("bicycle_tsallis_fused_solve", VanillaMPPI(
+        bdyn, bcost, GaussianDistribution.create(std_dev=BI_STD), weight_transform="tsallis",
+        tsallis_gamma=GAMMA, tsallis_r=R_TS, **bi), bx0, n, b4(n), map="128")
+    # the quadrotor hover (tests/test_model_zoo.py:60-92) with Tsallis weights:
+    # states finite, the position error recorded
+    hover_mean = torch.tensor([0.0, 0.0, 0.0, HOVER_THRUST], device=dev).expand(T_HOVER, 4)
+    qx0 = zoo_parts("quadrotor_quadratic", dev)[2]
+    _, _, X, _ = run("quadrotor_hover_tsallis_fused_solve", build_zoo(
+        "quadrotor_quadratic", "fused_solve", K=K_HOVER, T_=T_HOVER,
+        weight_transform="tsallis", tsallis_gamma=GAMMA, tsallis_r=R_TS), qx0, 100, b4(100),
+        initial_mean=hover_mean)
+    emit("quadrotor_hover_tsallis_position", position_error=float(
+        torch.linalg.vector_norm(X[-1, :3])), final_state=X[-1].tolist())
+    # the waypoint map, the Dubins car, the DI with QuadraticCost or its
+    # robust cost: 20-step Tsallis loops; the robust cost's Gaussian B3
+    qz = torch.zeros(13, device=dev)
+    qz[6] = 1.0
+    tsallis = dict(weight_transform="tsallis", tsallis_gamma=GAMMA, tsallis_r=R_TS)
+    run("quadrotor_waypoint_tsallis_fused_solve", build_zoo(
+        "quadrotor_map", "fused_solve", K=K_WAYPOINT, T_=T_HOVER, **tsallis), qz, n, b4(n),
+        initial_mean=hover_mean)
+    for pair, x0 in (("dubins_quadratic", torch.tensor([0.0, 0.0, 3.0], device=dev)),
+                     ("dubins_trajectory", torch.tensor([0.0, 0.0, 3.0], device=dev)),
+                     ("di_quadratic", torch.tensor([-9.0, -9.0, 0.1, 0.1], device=dev))):
+        run(f"{pair}_tsallis_fused_solve", build_zoo(pair, "fused_solve", **tsallis), x0, n,
+            b4(n))
+    rdi = lambda **kw: VanillaMPPI(
+        DoubleIntegratorDynamics.create(), DoubleIntegratorRobustCost(),
+        GaussianDistribution.create(std_dev=[1.0, 1.0]), dt=DT, lam=LAM, alpha=ALPHA,
+        num_timesteps=T_ZOO, num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve",
+        split_cost=False, **kw)
+    rx0 = torch.tensor(X0_RDI, device=dev)
+    run("di_robust_fused_solve", rdi(), rx0, n, b3(n))
+    run("di_robust_tsallis_fused_solve", rdi(**tsallis), rx0, n, b4(n))
+    # the split form forced: the cartpole swing-up and the quadrotor hover
+    # with their bars (the zoo loops' configurations)
+    swing = VanillaMPPI(CartpoleDynamics.create(), CartpoleQuadraticCost(coeffs=CART_COEFFS),
+                        GaussianDistribution.create(std_dev=CART_STD, control_cost_coeff=[1.0],
+                                                    pure_noise_percentage=0.01),
+                        dt=0.01, lam=0.25, alpha=0.0, slide_scale=[1.0], num_timesteps=T_ZOO,
+                        num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve",
+                        split_cost=True)
+    ns = SWINGUP_STEPS
+    split_b3 = lambda k: {"split_solve_dynamics_kernel": k, "split_cost_kernel": k,
+                          "flash_combine_kernel": k}
+    split_b1 = lambda k: {"split_dynamics_kernel": k, "split_cost_kernel": k,
+                          "flash_combine_kernel": k}
+    _, _, X, res = run("cartpole_swingup_split", swing, torch.zeros(4, device=dev), ns,
+                       split_b3(ns),
+                       plant=lambda x, u: x + swing.dynamics.state_deriv(x, u) * swing.dt,
+                       slide_first=False)
+    theta_err = abs(float(torch.remainder(X[-1, 2], 2 * np.pi)) - np.pi)
+    emit("cartpole_swingup_split_bar", final_baseline=float(res.baseline),
+         theta_error=theta_err, final_state=X[-1].tolist(),
+         bar={"baseline": 1.0, "theta_error": 0.3})
+    if not (float(res.baseline) < 1.0 and theta_err < 0.3):
+        raise AssertionError(f"split cartpole swing-up missed its bar: baseline "
+                             f"{float(res.baseline)}, pole angle error {theta_err}")
+    nq = HOVER_STEPS
+    _, _, X, _ = run("quadrotor_hover_split", build_zoo(
+        "quadrotor_quadratic", "fused_solve", K=K_HOVER, T_=T_HOVER, split_cost=True), qx0,
+        nq, split_b3(nq), initial_mean=hover_mean)
+    pos_err = float(torch.linalg.vector_norm(X[-1, :3]))
+    emit("quadrotor_hover_split_bar", position_error=pos_err, final_state=X[-1].tolist(),
+         bar={"position_error": 0.5})
+    if not pos_err < 0.5:
+        raise AssertionError(f"split quadrotor hover missed its bar: position error {pos_err}")
+    # each split pair's B1 and B3 split entries on short forced-split loops
+    # (the racer steering row on "fused": racer_steering_split_fused)
+    for pair in SPLIT_PAIRS:
+        k = nh if pair in RACER_PAIRS else SPLIT_LOOP_STEPS
+        qmean = None
+        for kernel, want in (("fused", split_b1(k)), ("fused_solve", split_b3(k))):
+            if kernel == "fused_solve" and pair in ("cartpole", "quadrotor_quadratic"):
+                continue  # the swing-up and the hover above
+            if pair == "racer_steering_ar":
+                path = "racer_steering_split_fused" + ("" if kernel == "fused" else "_solve")
+            else:
+                path = f"{pair}_split_{kernel}"
+            if pair in RACER_PAIRS:
+                pdyn, pcost = racer_parts(pair)
+                ctrl = VanillaMPPI(pdyn, pcost, GaussianDistribution.create(std_dev=RACER_STD),
+                                   dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_RACER[pair],
+                                   num_rollouts=K_RC, num_iters=1, kernel=kernel,
+                                   split_cost=True)
+                x0 = racer_x0(pair, dev)
+            elif pair == "bicycle_ar":
+                ctrl = VanillaMPPI(bdyn, bcost, GaussianDistribution.create(std_dev=BI_STD),
+                                   **dict(bi, kernel=kernel, split_cost=True))
+                x0 = bx0
+            elif pair == "quadrotor_quadratic":
+                ctrl = build_zoo(pair, kernel, K=K_HOVER, T_=T_HOVER, split_cost=True)
+                x0, qmean = qx0, hover_mean
+            else:
+                ctrl = build_zoo(pair, kernel, split_cost=True)
+                x0 = zoo_parts(pair, dev)[2]
+            run(path, ctrl, x0, k, want, initial_mean=qmean)
+    # RMPPI with stage 1's split forced: the JAX suite's loop on the DI robust
+    # cost (its band bar) and AutoRally's
+    nr = ROBUST_DI_STEPS
+    rng = np.random.RandomState(1)
+    disturb = torch.zeros((nr, S), device=dev)
+    disturb[:, 2:] = torch.tensor(np.stack([rng.randn(2) * 0.02 for _ in range(nr)]),
+                                  dtype=torch.float32, device=dev)
+    x1 = lambda k: {"split_dynamics_kernel": k - 1, "split_cost_kernel": k - 1,
+                    "rmppi_rollout_kernel": k, "riccati_ladder_kernel": k}
+    out = robust_family_loop("rmppi_di_robust_split",
+                             build_rmppi_di_robust("fused", split_cost=True), rx0, nr, x1(nr),
+                             disturb=disturb, profile=False)
+    band_check("rmppi_di_robust_split", out[2])
+    paths["rmppi_di_robust_split"] = out[:2]
+    na = SPLIT_LOOP_STEPS
+    out = robust_family_loop("rmppi_autorally_split", build_rmppi_ar("fused", split_cost=True),
+                             ar_x0(dev), na, x1(na), profile=False, map="128",
+                             cost="ARRobustCost")
+    paths["rmppi_autorally_split"] = out[:2]
+    return paths
 
 
 def main() -> int:
@@ -3351,10 +3952,11 @@ def main() -> int:
             {"rollout_costs_kernel": n, "tsallis_reduce_kernel": n,
              "flash_combine_kernel": n}, settle=False),
     }
+    nb = BICYCLE_LOOP_STEPS
     bicycle_paths = {
         "bicycle_colored": model_loop_phase(
-            "bicycle_colored", build_bicycle("fused"), torch.zeros(S_BI, device=dev), n,
-            {"rollout_costs_kernel": n, "flash_combine_kernel": n}, map="128")[0],
+            "bicycle_colored", build_bicycle("fused"), torch.zeros(S_BI, device=dev), nb,
+            {"rollout_costs_kernel": nb, "flash_combine_kernel": nb}, map="128")[0],
     }
     row_paths = bench_row_loops(dev)
     bicycle_paths["bicycle_1024"] = row_paths["bicycle_1024"]
@@ -3382,7 +3984,12 @@ def main() -> int:
         if timed_split:
             split_times[pair] = times
     split_paths = split_loops(dev)
+    # every pair on every kernel mode: the new entries, then their loops
+    pair_errs, pair_times = pair_kernel_phases(dev)
+    pair_paths = pair_loops(dev)
     autotune_phase(dev)
+    all_paths = {**zoo_paths, **racer_paths, **robust_paths, **inst_paths, **split_paths,
+                 **pair_paths}
 
     def inst_err(fn):
         return max((c["max_abs_err"] for c in inst_checks.get(fn, ())), default=0.0)
@@ -3633,7 +4240,7 @@ def main() -> int:
     # the split form: one entry per kernel and pair; launches counted per C
     # entry on the split loops
     def split_entry(name, pair, fn, replaces, t, **extra):
-        by = {p: e.get(fn, 0) for p, (_, e) in split_paths.items() if e.get(fn, 0)}
+        by = {p: e.get(fn, 0) for p, (_, e) in all_paths.items() if e.get(fn, 0)}
         return {"name": name, "route": "cuda",
                 "source": f"mppi_generic_tpu_torch/csrc/split_{pair}.cu",
                 "replaces": f"mppi_generic_tpu/ops/{replaces}",
@@ -3677,6 +4284,7 @@ def main() -> int:
         "flash_combine_kernel (split paths)", "flash_combine.cu", "pallas_rollout.py:1005",
         comb, None, paths={p: l for p, (l, _) in split_paths.items()},
         err=errs["flash_combine_kernel"], kernel="flash_combine_kernel"))
+    kernels += pair_kernel_entries(pair_errs, pair_times, all_paths)
     emit("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,9 +37,11 @@ Counterpart of ``mppi_generic_tpu/controllers/robust.py`` (reference
   package's RMPPI runs them for it (robust.py:175, :369).
 
 ``split_cost`` reaches stage 1's rollout kernel (its per-sample-x0 mode),
-as JAX passes ``pallas_split_cost`` there (robust.py:207): AUTO keeps the
-combined kernel; True runs the plain split version on the CPU and raises on
-the card, which has no split entry for one x0 per sample.
+as JAX passes ``pallas_split_cost`` there (robust.py:207): True runs B1's
+split form from one x0 per sample (entries for the double integrator with
+its robust cost and for AutoRally; on the card any other pair raises), None
+(AUTO) what ``fused_rollout.AUTO_SPLIT`` measured for the pair's
+"rollout_x0", False the combined kernel.
 
 The chosen stride, the best index and the baselines stay tensors on the
 device: nothing in either stage waits on it. ``nominal_initialized`` is a

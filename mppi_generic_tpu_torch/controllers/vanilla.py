@@ -47,14 +47,15 @@ None, the default, is AUTO (``ops/fused_rollout.resolve_split``), True the
 split kernels (``csrc/split_kernels.cuh``: a dynamics pass, then a
 time-parallel cost pass, one launch more), False the combined kernels.
 True raises for a cost that declares neither ``time_parallel_cost`` nor
-``time_parallel_crash``, and on the card for a pair without split entries.
+``time_parallel_crash`` (``QuadrotorMapCost``, a ``QuadraticCost`` goal
+trajectory), as in JAX; every other pair has split entries.
 
 A recurrent model (the racer LSTM models) carries its LSTM state on every
 path from its warm state: inside the kernels, through the eager rollout and
-through the re-rollout of the mean. A (dynamics, cost) pair or a sampler
-without a kernel entry raises on the card (the racer models have B1 and B3
-entries, so Tsallis, CEM and Smooth-MPPI on ``fused_solve``, which take
-B4, raise for them).
+through the re-rollout of the mean. Every (dynamics, cost) pair of
+``ops/fused_rollout._PAIRS`` has B1, B3 and B4 entries, so Tsallis, CEM and
+Smooth-MPPI on ``fused_solve`` (B4) run on the card for each of them; a
+pair or a sampler without a kernel entry raises there.
 
 On a CPU device the kernel paths run the kernels' plain versions. ``solve``
 never waits for the device: the seeds, baseline, eta and free energy stay

@@ -1,8 +1,9 @@
 // The kernel entries of the pair Quadrotor + QuadrotorMapCost
 // (csrc/quadrotor.cuh, csrc/quadrotor_map_cost.cuh, the costmap through
-// map_texture.cuh, B9): the fused rollout (B1, rollout_kernel.cuh) and the
-// fused solve (B3, sample_kernels.cuh). One library per pair, so that nvcc
-// builds the pairs in parallel.
+// map_texture.cuh, B9): the fused rollout (B1, rollout_kernel.cuh), the fused
+// solve (B3) and the fused sampling kernel (B4: Tsallis, CEM and Smooth-MPPI
+// on kernel="fused_solve"), sample_kernels.cuh. One library per pair, so that
+// nvcc builds the pairs in parallel.
 
 #include "quadrotor.cuh"
 #include "quadrotor_map_cost.cuh"
@@ -12,4 +13,5 @@
 extern "C" {
 ROLLOUT_ENTRY(rollout_costs_quadrotor_map, Quadrotor, QuadrotorMapCost, false)
 SOLVE_ENTRY(fused_solve_quadrotor_map, Quadrotor, QuadrotorMapCost)
+SAMPLE_ENTRY(fused_sample_rollout_quadrotor_map, Quadrotor, QuadrotorMapCost)
 }  // extern "C"

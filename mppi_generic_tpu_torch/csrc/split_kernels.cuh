@@ -16,9 +16,12 @@
 // split_rollout_plain (mppi_generic_tpu_torch/ops/fused_rollout.py) and
 // fused_solve_split_plain (ops/fused_solve.py).
 //
-// split_dynamics_kernel<Dyn> (B1's dynamics pass): one thread per sample, the
-// T-step loop of rollout_costs_kernel without the cost: read u from U, step,
-// write y to Y[t, :, k] (a warp's stores are coalesced).
+// split_dynamics_kernel<Dyn, X0> (B1's dynamics pass): one thread per sample,
+// the T-step loop of rollout_costs_kernel without the cost: read u from U,
+// step, write y to Y[t, :, k] (a warp's stores are coalesced). With X0 true
+// (PER_SAMPLE_X0 of rollout_kernel.cuh) sample k starts from row k of a
+// (K, S) x0: RMPPI's candidate nominal states in one launch, the TPU
+// kernel's per_sample_x0 mode in its split form (pallas_rollout.py:646).
 //
 // split_solve_dynamics_kernel<Dyn, NOISE> (B3's dynamics pass): the loop of
 // fused_solve_kernel without the cost: draw, carve out and clamp u (written
@@ -88,7 +91,7 @@ template <class Cost>
 struct StickyCrash<Cost, std::void_t<decltype(Cost::kStickyCrash)>>
     : std::integral_constant<bool, Cost::kStickyCrash> {};
 
-template <class Dyn>
+template <class Dyn, bool X0>
 __global__ void __launch_bounds__(kBlockSamples)
 split_dynamics_kernel(const float* __restrict__ x0, const float* __restrict__ U,
                       int K, int T, float dt, ModelArgs m,
@@ -110,7 +113,7 @@ split_dynamics_kernel(const float* __restrict__ x0, const float* __restrict__ U,
   float rec[R > 0 ? R : 1];  // a recurrent model's carry (LSTM h, c)
   init_rec<Dyn>(dyn_sh, rec);
 #pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = x0[i];
+  for (int i = 0; i < S; ++i) x[i] = X0 ? x0[static_cast<size_t>(k) * S + i] : x0[i];
   const float* u_row = U + static_cast<size_t>(k) * T * C;
   for (int t = 0; t < T; ++t) {
     // a compiler barrier: without the cost in the loop, nvcc hoists the
@@ -312,14 +315,14 @@ split_cost_kernel(const float* __restrict__ Y, const float* __restrict__ U,
   }
 }
 
-template <class Dyn>
+template <class Dyn, bool X0>
 int split_dynamics_entry(int device, const float* x0, const float* U, int K,
                          int T, float dt, ModelArgs m, float* Y, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int nb = (K + kBlockSamples - 1) / kBlockSamples;
-  split_dynamics_kernel<Dyn><<<nb, kBlockSamples, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  split_dynamics_kernel<Dyn, X0><<<nb, kBlockSamples, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       x0, U, K, T, dt, m, Y);
   return static_cast<int>(cudaGetLastError());
 }
@@ -400,24 +403,46 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
 
 // The C entries of the split form for one (dynamics, cost) pair, to be
 // expanded inside extern "C": split_dynamics_<PAIR> (B1's dynamics pass: Y
-// (K, T, O) from x0 (S,) and U (K, T, C)), split_solve_dynamics_<PAIR> (B3's:
+// (T, O, K) from x0 (S,) and U (K, T, C)), split_solve_dynamics_<PAIR> (B3's:
 // noise_kind 0 Gaussian, 1 NLN; writes U, Y and the per-sample LR sums
 // lr_out (K,)) and split_cost_<PAIR> (the cost pass: costs, crash and, by
 // epilogue, nothing (0), the exp carry rows (1, (nb, 2 + T*C) over U) or the
 // Tsallis block minima (2, (nb,)); with_lr adds B1's per-step LR term, a
-// non-null lr_sum B3's per-sample sum times lr_sum_gain). Every pointer is
-// memory of CUDA device `device`, `stream` one of its streams. Each returns
-// the CUDA error of its launch (0 when it was accepted), or
-// cudaErrorInvalidValue for a mode it does not have.
+// non-null lr_sum B3's per-sample sum times lr_sum_gain). SPLIT_ENTRY
+// expands all three; SPLIT_DYNAMICS_X0_ENTRY expands
+// split_dynamics_x0_<PAIR>, B1's dynamics pass from one x0 per sample (x0
+// (K, S)), and SPLIT_COST_ENTRY the cost pass alone (a pair whose only split
+// use is RMPPI's candidates). Every pointer is memory of CUDA device
+// `device`, `stream` one of its streams. Each returns the CUDA error of its
+// launch (0 when it was accepted), or cudaErrorInvalidValue for a mode it
+// does not have.
+#define SPLIT_DYNAMICS_ENTRY_(NAME, DYN, X0)                                  \
+  int NAME(int device, const float* x0, const float* U, int K, int T,        \
+           float dt, const float* dyn_params, const float* cost_params,      \
+           const float* cost_map, const float* dyn_map, float* Y,            \
+           void* stream) {                                                   \
+    return split_dynamics_entry<DYN, X0>(                                    \
+        device, x0, U, K, T, dt,                                             \
+        ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, Y, stream);   \
+  }
+#define SPLIT_DYNAMICS_X0_ENTRY(PAIR, DYN) \
+  SPLIT_DYNAMICS_ENTRY_(split_dynamics_x0_##PAIR, DYN, true)
+#define SPLIT_COST_ENTRY(PAIR, DYN, COST)                                      \
+  int split_cost_##PAIR(int device, const float* Y, const float* U, int K,    \
+                        int T, const float* cost_params,                      \
+                        const float* cost_map, const float* lr_mean,          \
+                        const float* lr_sigma, const float* lr_coeff,         \
+                        float lr_gain, float pure_thresh, int with_lr,        \
+                        const float* lr_sum, float lr_sum_gain, int epilogue, \
+                        float lam_w, float* costs, int* crash, float* out,    \
+                        void* stream) {                                       \
+    return split_cost_entry<DYN, COST>(                                       \
+        device, Y, U, K, T, cost_params, cost_map,                            \
+        LRArgs{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh}, with_lr,   \
+        lr_sum, lr_sum_gain, epilogue, lam_w, costs, crash, out, stream);     \
+  }
 #define SPLIT_ENTRY(PAIR, DYN, COST)                                           \
-  int split_dynamics_##PAIR(int device, const float* x0, const float* U,      \
-                            int K, int T, float dt, const float* dyn_params,  \
-                            const float* cost_params, const float* cost_map,  \
-                            const float* dyn_map, float* Y, void* stream) {   \
-    return split_dynamics_entry<DYN>(                                         \
-        device, x0, U, K, T, dt,                                              \
-        ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, Y, stream);    \
-  }                                                                           \
+  SPLIT_DYNAMICS_ENTRY_(split_dynamics_##PAIR, DYN, false)                    \
   int split_solve_dynamics_##PAIR(                                            \
       int device, int noise_kind, const float* x0, const float* mean,         \
       const float* sigma, const float* aux, const float* lrc,                 \
@@ -432,16 +457,4 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, U, Y, lr_out,  \
         stream);                                                              \
   }                                                                           \
-  int split_cost_##PAIR(int device, const float* Y, const float* U, int K,    \
-                        int T, const float* cost_params,                      \
-                        const float* cost_map, const float* lr_mean,          \
-                        const float* lr_sigma, const float* lr_coeff,         \
-                        float lr_gain, float pure_thresh, int with_lr,        \
-                        const float* lr_sum, float lr_sum_gain, int epilogue, \
-                        float lam_w, float* costs, int* crash, float* out,    \
-                        void* stream) {                                       \
-    return split_cost_entry<DYN, COST>(                                       \
-        device, Y, U, K, T, cost_params, cost_map,                            \
-        LRArgs{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh}, with_lr,   \
-        lr_sum, lr_sum_gain, epilogue, lam_w, costs, crash, out, stream);     \
-  }
+  SPLIT_COST_ENTRY(PAIR, DYN, COST)

@@ -103,29 +103,41 @@ _LADDER = [
 # B1's per-sample-x0 entries ("rollout_x0": rollout_costs_x0_<name>) are in
 # the one library of csrc/rollout_x0.cu, B8's ("rmppi": rmppi_rollout_<name>)
 # in that of csrc/rmppi_rollout.cu; the split form's ("split_dynamics",
-# "split_solve_dynamics", "split_cost": split_dynamics_<name>, ...) in the
-# pair's csrc/split_<name>.cu (_KIND_LIBRARY).
+# "split_solve_dynamics", "split_cost": split_dynamics_<name>, ...; and
+# "split_dynamics_x0": split_dynamics_x0_<name>, B1's dynamics pass from one
+# x0 per sample) in the pair's csrc/split_<name>.cu (_KIND_LIBRARY). An
+# entry whose network or LSTM would add most of a source's build has a
+# source of its own (_ENTRY_LIBRARY).
 _SPLIT = ("split_dynamics", "split_solve_dynamics", "split_cost")
 PAIR_KERNELS = {
     "di_circle": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT),
-    "di_robust": ("rollout_x0", "rmppi"),
-    "ar_nn": ("rollout", "rollout_x0", "solve", "rmppi", *_SPLIT),
-    "bicycle_ar": ("rollout", "rollout_x0"),
-    "cartpole": ("rollout", "solve", "sample"),
-    "quadrotor_quadratic": ("rollout", "solve"),
-    "quadrotor_map": ("rollout", "solve"),
-    "dubins_quadratic": ("rollout", "solve"),
-    "di_quadratic": ("rollout", "solve"),
-    "racer_steering_ar": ("rollout", "solve"),
-    "racer_unc_ar": ("rollout", "solve"),
+    "di_robust": ("rollout_x0", "solve", "sample", "rmppi", "split_dynamics_x0",
+                  "split_cost"),
+    "ar_nn": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT,
+              "split_dynamics_x0"),
+    "bicycle_ar": ("rollout", "rollout_x0", "solve", "sample", *_SPLIT),
+    "cartpole": ("rollout", "solve", "sample", *_SPLIT),
+    "quadrotor_quadratic": ("rollout", "solve", "sample", *_SPLIT),
+    "quadrotor_map": ("rollout", "solve", "sample"),
+    "dubins_quadratic": ("rollout", "solve", "sample", *_SPLIT),
+    "di_quadratic": ("rollout", "solve", "sample", *_SPLIT),
+    "racer_steering_ar": ("rollout", "solve", "sample", *_SPLIT),
+    "racer_unc_ar": ("rollout", "solve", "sample", *_SPLIT),
 }
 _ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
                  "solve": "fused_solve_", "sample": "fused_sample_rollout_",
                  "rmppi": "rmppi_rollout_", "split_dynamics": "split_dynamics_",
                  "split_solve_dynamics": "split_solve_dynamics_",
-                 "split_cost": "split_cost_"}
+                 "split_cost": "split_cost_", "split_dynamics_x0": "split_dynamics_x0_"}
 _KIND_LIBRARY = {"rollout_x0": "rollout_x0", "rmppi": "rmppi_rollout",
-                 **{kind: "split_{pair}" for kind in _SPLIT}}
+                 **{kind: "split_{pair}" for kind in (*_SPLIT, "split_dynamics_x0")}}
+# the entries with a source of their own: B4 of the network and LSTM pairs
+# (csrc/sample_<name>.cu) and AutoRally's per-sample-x0 dynamics pass
+_ENTRY_LIBRARY = {
+    **{(pair, "sample"): f"sample_{pair}"
+       for pair in ("ar_nn", "racer_steering_ar", "racer_unc_ar")},
+    ("ar_nn", "split_dynamics_x0"): "split_x0_ar_nn",
+}
 
 
 def pair_entry(pair: str, kind: str):
@@ -134,7 +146,8 @@ def pair_entry(pair: str, kind: str):
     ``pair``, or None where it has no entry."""
     if kind not in PAIR_KERNELS.get(pair, ()):
         return None
-    lib = _KIND_LIBRARY.get(kind, "pair_{pair}").format(pair=pair)
+    lib = _ENTRY_LIBRARY.get((pair, kind)) or _KIND_LIBRARY.get(
+        kind, "pair_{pair}").format(pair=pair)
     return lib, _ENTRY_PREFIX[kind] + pair
 
 
@@ -164,7 +177,8 @@ SIGNATURES = {
 }
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
                    "sample": _SAMPLE, "rmppi": _RMPPI, "split_dynamics": _SPLIT_DYNAMICS,
-                   "split_solve_dynamics": _SPLIT_SOLVE_DYNAMICS, "split_cost": _SPLIT_COST}
+                   "split_solve_dynamics": _SPLIT_SOLVE_DYNAMICS, "split_cost": _SPLIT_COST,
+                   "split_dynamics_x0": _SPLIT_DYNAMICS}
 for _pair, _kinds in PAIR_KERNELS.items():
     for _kind in _kinds:
         _lib, _fn = pair_entry(_pair, _kind)

@@ -38,10 +38,12 @@ in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
   ``resolve_split`` picks: the combined kernel unless the cost declares
   ``time_parallel_cost`` or ``time_parallel_crash`` and ``AUTO_SPLIT``,
   measured on the H100, takes the split for the pair. True for an
-  ineligible cost raises, as in JAX; on the card a pair without split
-  entries (``_build.PAIR_KERNELS``: the double integrator with its circle
-  cost and AutoRally's network with its costs) raises too. The plain
-  version is ``split_rollout_plain``.
+  ineligible cost raises, as in JAX (``QuadrotorMapCost``, a
+  ``QuadraticCost`` goal trajectory). Every pair of ``_PAIRS`` whose cost is
+  eligible has split entries; with one x0 per sample (RMPPI's candidates)
+  the dynamics pass has entries for the double integrator with its robust
+  cost and for AutoRally, and on the card any other pair raises there. The
+  plain version is ``split_rollout_plain``.
 * ``fused_sample_rollout_costs``: the samples drawn inside the kernel
   (Philox, ``ops/philox.py``) for the Gaussian, NLN and Smooth-MPPI
   samplers, with their carve-outs, the clamp, the per-step LR cost and the
@@ -52,19 +54,19 @@ in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 The rollout and sampling kernels are templates over the (dynamics, cost)
 pair; each pair with an entry has its own source ``csrc/pair_<name>.cu`` and
 library (``_PAIRS`` names them, ``_build.PAIR_KERNELS`` lists each pair's
-kernels): the double integrator with its circle cost (every kernel) or
-``QuadraticCost``; AutoRally's network dynamics with the standard or robust
-AutoRally cost (the FNN and the track costmap inside the kernel); the
-bicycle-slip model with the AutoRally costs on its output layout (the
-rollout kernel only); the cartpole with its quadratic cost (every kernel);
-the quadrotor with ``QuadrotorQuadraticCost`` or ``QuadrotorMapCost``; and
+kernels): the double integrator with its circle cost or ``QuadraticCost``;
+AutoRally's network dynamics with the standard or robust AutoRally cost (the
+FNN and the track costmap inside the kernel); the bicycle-slip model with
+the AutoRally costs on its output layout; the cartpole with its quadratic
+cost; the quadrotor with ``QuadrotorQuadraticCost`` or ``QuadrotorMapCost``;
 the Dubins car with ``QuadraticCost``; the racer LSTM-steering model on its
 elevation map and the racer LSTM-uncertainty model on flat ground, each with
 ``ARStandardCost`` on the racer output layout (the LSTM step, B10, inside
-the kernel, its (h, c) carried through the horizon loop). The RMPPI kernel
-and the per-sample-x0 rollout have entries for the double integrator with
-its circle or its robust cost and for AutoRally with its costs (the
-per-sample-x0 rollout also for the bicycle). Each pair reads its parameters
+the kernel, its (h, c) carried through the horizon loop). Each of them has
+B1, B3 and B4. The RMPPI kernel and the per-sample-x0 rollout have entries
+for the double integrator with its circle or its robust cost and for
+AutoRally with its costs (the per-sample-x0 rollout also for the bicycle).
+Each pair reads its parameters
 through ``Dynamics.kernel_params``, ``Dynamics.kernel_map`` (the racer
 elevation map) and ``Cost.kernel_map`` besides the cost's ``params`` table.
 
@@ -174,28 +176,52 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
                  "solve": "solve", "sample": "sampling", "rmppi": "RMPPI rollout",
                  "split_dynamics": "split dynamics pass",
                  "split_solve_dynamics": "split solve dynamics pass",
-                 "split_cost": "split cost pass"}
+                 "split_cost": "split cost pass",
+                 "split_dynamics_x0": "split dynamics pass from one x0 per sample"}
 
 # The split form under split_cost=None (AUTO), per (pair, kernel): "rollout"
-# is B1 (one x0 for all samples), "solve" B3. True where both split times
-# were below both combined times of an A B B A turn in one call on an H100
-# 80GB HBM3 at 700 W (chip_smoke.py's split_kernels phase, at the bench
-# shapes: DI 8192 x 100, AutoRally 1920 x 150; the times are in PERF.md):
-# DI B1 0.0273 against 0.0405 ms (epilogue + LR), B3 0.0874 against 0.0863;
-# AutoRally B1 0.962 against 1.056, B3 1.062 against 1.135. Any other pair
-# or kernel (B1 with one x0 per sample: RMPPI's candidates) keeps the
-# combined kernel.
+# is B1 with one x0 for all samples (decided on its epilogue + LR mode, the
+# main path's), "rollout_x0" B1 with one x0 per sample (RMPPI's candidates),
+# "solve" B3 (Gaussian). True where both split times were below both
+# combined times of an A B B A turn in one call on an H100 80GB HBM3 at
+# 700 W (chip_smoke.py's split_kernels and split_x0_kernels phases, at the
+# paths' shapes; the times are in PERF.md), in ms, split against combined:
+# DI B1 0.0273 / 0.0405, B3 0.0874 / 0.0863; AutoRally B1 0.962 / 1.056, B3
+# 1.062 / 1.135, B1-x0 0.941 / 1.023 (9 x 256 x 150); cartpole B1 0.0389 /
+# 0.0359, B3 0.0938 / 0.0776; quadrotor quadratic B1 0.1129 / 0.1120, B3
+# 0.2093 / 0.1853; DI quadratic B1 0.0261 / 0.0274, B3 0.0942 / 0.0799;
+# Dubins quadratic B1 0.0384 / 0.0434, B3 0.1033 / 0.0931; bicycle B1
+# 0.1228 / 0.1531, B3 0.1819 / 0.2181; racer steering B1 1.122 / 1.196, B3
+# 1.226 / 1.234; racer uncertainty B1 5.721 / 5.879, B3 5.925 / 5.933; DI
+# robust B1-x0 0.0144 / 0.0167 (9 x 64 x 48). Any other pair or kernel
+# keeps the combined kernel.
 AUTO_SPLIT = {
     ("di_circle", "rollout"): True,
     ("di_circle", "solve"): False,
     ("ar_nn", "rollout"): True,
     ("ar_nn", "solve"): True,
+    ("ar_nn", "rollout_x0"): True,
+    ("cartpole", "rollout"): False,
+    ("cartpole", "solve"): False,
+    ("quadrotor_quadratic", "rollout"): False,
+    ("quadrotor_quadratic", "solve"): False,
+    ("di_quadratic", "rollout"): True,
+    ("di_quadratic", "solve"): False,
+    ("dubins_quadratic", "rollout"): True,
+    ("dubins_quadratic", "solve"): False,
+    ("bicycle_ar", "rollout"): True,
+    ("bicycle_ar", "solve"): True,
+    ("racer_steering_ar", "rollout"): True,
+    ("racer_steering_ar", "solve"): True,
+    ("racer_unc_ar", "rollout"): True,
+    ("racer_unc_ar", "solve"): True,
+    ("di_robust", "rollout_x0"): True,
 }
 
 
 def _entry(dynamics, cost, kind):
-    """(library, C function) of kernel ``kind`` ("rollout", "rollout_x0",
-    "solve", "sample" or "rmppi") for this (dynamics, cost) pair; raises
+    """(library, C function) of kernel ``kind`` (a kind of
+    ``_build.PAIR_KERNELS``) for this (dynamics, cost) pair; raises
     NotImplementedError for a pair without one."""
     pair = _PAIRS.get((type(dynamics), type(cost)))
     entry = None if pair is None else _build.pair_entry(pair, kind)
@@ -638,11 +664,10 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
 
 
 def split_dynamics_cuda(dynamics, cost, x0, U, dt):
-    """Launch B1's split dynamics pass: the outputs Y (T, O, K)."""
-    if x0.dim() != 1:
-        raise NotImplementedError(
-            "no CUDA split entry for one x0 per sample: use split_cost=False")
-    lib_name, fn = _check_rollout_inputs(dynamics, cost, x0, U, None, "split_dynamics")
+    """Launch B1's split dynamics pass from one x0 (S,) or one per sample
+    (K, S): the outputs Y (T, O, K)."""
+    kind = "split_dynamics_x0" if x0.dim() == 2 else "split_dynamics"
+    lib_name, fn = _check_rollout_inputs(dynamics, cost, x0, U, None, kind)
     K, T, _ = U.shape
     dev = U.device
     Y = torch.empty((T, dynamics.OUTPUT_DIM, K), dtype=torch.float32, device=dev)

@@ -10,14 +10,14 @@ Gaussian and the NLN sampler: the normals drawn in the kernel (Philox,
 block of samples; ``flash_combine_kernel`` then merges the rows into the new
 mean, baseline and eta.
 
-The kernel has an entry for each pair of ``ops/fused_rollout._PAIRS`` that
-``_build.PAIR_KERNELS`` gives a "solve" kernel: the double integrator with
-its circle cost or ``QuadraticCost``, AutoRally's network dynamics with the
-standard or robust AutoRally cost (the FNN step and the costmap query
-inside the kernel), the cartpole, the quadrotor with either of its costs,
-the Dubins car and the two racer LSTM models (the LSTM step inside the
-kernel, its (h, c) carried through the horizon loop from the model's warm
-state). CPU tensors
+The kernel has an entry for each pair of ``ops/fused_rollout._PAIRS``: the
+double integrator with its circle cost, its robust cost or
+``QuadraticCost``, AutoRally's network dynamics with the standard or robust
+AutoRally cost (the FNN step and the costmap query inside the kernel), the
+bicycle slip with the AutoRally costs, the cartpole, the quadrotor with
+either of its costs, the Dubins car and the two racer LSTM models (the LSTM
+step inside the kernel, its (h, c) carried through the horizon loop from
+the model's warm state). CPU tensors
 run the plain version (``fused_solve_plain``, the kernel's operations in
 its order), CUDA tensors the kernel. There is no fallback: a sampler, or a
 (dynamics, cost) pair, the kernel does not take raises.
@@ -27,9 +27,8 @@ with kernel "solve") selects B3's split form (``csrc/split_kernels.cuh``):
 a dynamics pass that draws, carves out and clamps the samples (U),
 sums their LR terms and writes the outputs Y, then the
 time-parallel cost pass with the same carry rows, then the merge: three
-launches. Its entries exist for the double integrator with its circle cost
-and AutoRally's network with its costs; its plain version is
-``fused_solve_split_plain``.
+launches. Every pair with a B3 entry whose cost is eligible has one; its
+plain version is ``fused_solve_split_plain``.
 """
 
 from __future__ import annotations

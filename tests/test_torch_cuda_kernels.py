@@ -394,7 +394,7 @@ def test_ar_rollout_kernel_per_sample_x0_matches_plain(cuda_device):
     U = 0.4 * torch.randn((K, T, C), generator=g, device=cuda_device)
     x0s = (_ar_x0(cuda_device) + 0.2 * torch.randn((K, 7), generator=g,
                                                     device=cuda_device)).contiguous()
-    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False)
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
     assert torch.equal(kcrash, pcrash)
@@ -569,11 +569,13 @@ def test_bicycle_rollout_kernel_matches_plain(cuda_device, K, mode):
     x0[5] = 3.0
     fr.reset_launch_counts()
     if mode.startswith("costs"):
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr)
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
     elif mode.startswith("epilogue"):
-        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM_AR, lr)
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM_AR, lr,
+                                                    split_cost=False)
     else:
-        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
+                                                   split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
@@ -701,11 +703,13 @@ def test_zoo_rollout_kernel_matches_plain(cuda_device, K, pair, mode):
     lr = lr if mode.endswith("+lr") else None
     fr.reset_launch_counts()
     if mode.startswith("costs"):
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr)
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
     elif mode.startswith("epilogue"):
-        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr)
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr,
+                                                    split_cost=False)
     else:
-        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
+                                                   split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_kernel"] == 1
     assert sum(fr.entry_counts.values()) == 1
@@ -833,12 +837,15 @@ def test_racer_rollout_kernel_matches_plain(cuda_device, K, kind, mode):
     lr = ((mean, sigma, torch.tensor([0.5, 1.0], device=cuda_device), LAM, ALPHA, 0.9 * K)
           if mode.endswith("+lr") else None)
     fr.reset_launch_counts()
+    Uc = U.contiguous()
     if mode.startswith("costs"):
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U.contiguous(), DT, lr)
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, Uc, DT, lr, split_cost=False)
     elif mode.startswith("epilogue"):
-        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U.contiguous(), DT, LAM, lr)
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, Uc, DT, LAM, lr,
+                                                    split_cost=False)
     else:
-        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U.contiguous(), DT, lr)
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, Uc, DT, lr,
+                                                   split_cost=False)
     torch.cuda.synchronize()
     assert fr.entry_counts == {f"rollout_costs_racer_{kind}_ar": 1}
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U.contiguous(), DT, lr)
@@ -866,7 +873,8 @@ def test_racer_fused_solve_kernel_matches_plain(cuda_device, K, kind, sampler):
     seed = torch.tensor(K, dtype=torch.int32, device=cuda_device)
     args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
     fr.reset_launch_counts()
-    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2)
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2,
+                                                             split_cost=False)
     torch.cuda.synchronize()
     assert fr.entry_counts == {f"fused_solve_racer_{kind}_ar": 1}
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, optimization_stride=2)
@@ -883,11 +891,16 @@ def test_racer_kernels_refuse_what_they_are_not_built_for(cuda_device):
     flat_cost = ARStandardCost(device=cuda_device)  # AutoRally's output layout
     with pytest.raises(NotImplementedError, match="output"):
         fr.fused_rollout_costs(dyn, flat_cost, x0, U, DT)
+    # the sampling kernel (B4) has a racer entry: it launches and counts
     samp = GaussianDistribution.create(std_dev=[0.3, 0.5], device=cuda_device)
-    with pytest.raises(NotImplementedError, match="sampling kernel"):
-        fr.fused_sample_rollout_costs(dyn, cost, samp, x0, torch.zeros((T, C), device=cuda_device),
-                                      torch.tensor(1, dtype=torch.int32, device=cuda_device),
-                                      DT, LAM, ALPHA, 64)
+    fr.reset_launch_counts()
+    out = fr.fused_sample_rollout_costs(dyn, cost, samp, x0,
+                                        torch.zeros((T, C), device=cuda_device),
+                                        torch.tensor(1, dtype=torch.int32, device=cuda_device),
+                                        DT, LAM, ALPHA, 64)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"fused_sample_rollout_racer_unc_ar": 1}
+    assert bool(torch.isfinite(out[0]).all())
     small = RacerDubinsElevationLSTMSteering(LSTM.create(4, 8, [12, 8, 1], seed=0),
                                              device=cuda_device)
     with pytest.raises(NotImplementedError, match="steering LSTM"):
@@ -1064,7 +1077,7 @@ def test_rollout_kernel_per_sample_x0_di_robust_matches_plain(cuda_device):
     x0s = ((1 - w) * a + w * b).repeat_interleave(16, dim=0).contiguous()
     U = torch.randn((K, T, C), generator=g, device=dev)
     fr.reset_launch_counts()
-    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False)
     torch.cuda.synchronize()
     assert fr.entry_counts == {"rollout_costs_x0_di_robust": 1}
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
@@ -1215,22 +1228,34 @@ def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
 
 @pytest.mark.cuda
 def test_split_cost_true_raises_without_an_entry(cuda_device):
-    """split_cost=True on the card needs a split entry: the cartpole (an
-    eligible cost without one) and one x0 per sample (RMPPI's candidates)
-    raise; an ineligible cost raises on every device."""
+    """split_cost=True on the card: the cartpole (an eligible cost with
+    split entries) and one x0 per sample for the DI robust cost (RMPPI's
+    candidates) launch the split kernels; a pair without a per-sample-x0
+    split entry (the DI circle cost) raises; an ineligible cost raises on
+    every device."""
     x0c = torch.zeros(4, device=cuda_device)
     U1 = torch.zeros((64, T, 1), device=cuda_device)
     cart, ccost = CartpoleDynamics.create(device=cuda_device), CartpoleQuadraticCost(device=cuda_device)
     assert ccost.time_parallel_cost()
-    with pytest.raises(NotImplementedError, match="split"):
-        fr.fused_rollout_costs(cart, ccost, x0c, U1, DT, split_cost=True)
+    fr.reset_launch_counts()
+    kc, _ = fr.fused_rollout_costs(cart, ccost, x0c, U1, DT, split_cost=True)
     samp = GaussianDistribution.create(std_dev=[1.0], device=cuda_device)
-    with pytest.raises(NotImplementedError, match="split"):
-        fused_solve.fused_solve_iteration(cart, ccost, samp, x0c,
-                                          torch.zeros((T, 1), device=cuda_device), 0,
-                                          DT, LAM, ALPHA, 64, split_cost=True)
-    dyn, cost, x0, _ = _split_parts("di_circle", cuda_device)
+    fused_solve.fused_solve_iteration(cart, ccost, samp, x0c,
+                                      torch.zeros((T, 1), device=cuda_device), 0,
+                                      DT, LAM, ALPHA, 64, split_cost=True)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"split_dynamics_cartpole": 1, "split_solve_dynamics_cartpole": 1,
+                               "split_cost_cartpole": 2}
+    _close(kc, fr.split_rollout_plain(cart, ccost, x0c, U1, DT)[0], rtol=0, atol=0)
+    rdyn, rcost = _di_robust(cuda_device)
+    X0 = torch.tensor([2.0, 0.0, 0.0, 2.0], device=cuda_device).expand(64, 4).contiguous()
     U = torch.zeros((64, T, C), device=cuda_device)
+    fr.reset_launch_counts()
+    kc, _ = fr.fused_rollout_costs(rdyn, rcost, X0, U, DT, split_cost=True)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"split_dynamics_x0_di_robust": 1, "split_cost_di_robust": 1}
+    _close(kc, fr.split_rollout_plain(rdyn, rcost, X0, U, DT)[0], rtol=0, atol=0)
+    dyn, cost, x0, _ = _split_parts("di_circle", cuda_device)
     with pytest.raises(NotImplementedError, match="x0"):
         fr.fused_rollout_costs(dyn, cost, x0.expand(64, 4).contiguous(), U, DT,
                                split_cost=True)
@@ -1269,3 +1294,195 @@ def test_split_vanilla_solve_launches_the_split_kernels(cuda_device, kernel):
     assert torch.equal(rf.crash, re.crash)
     tol = mean_tolerance(rf, re, re.sampled_controls, LAM_AR)
     _close(rf.control_mean, re.control_mean, rtol=0, atol=tol)
+
+
+# --- every pair on every kernel mode: B4 for every pair, the bicycle's B3,
+# the split form of the eligible pairs, the per-sample-x0 split ---
+def _pair_parts(pair, dev):
+    """(dynamics, cost, x0, control std, mean offset of the last channel) of
+    any pair of ``fr._PAIRS`` at a test size; the maps let part of the
+    samples crash."""
+    if pair in ("cartpole", "quadrotor_quadratic", "quadrotor_map", "dubins_quadratic",
+                "di_quadratic"):
+        return _zoo_parts(pair, dev)
+    if pair in ("racer_steering_ar", "racer_unc_ar"):
+        return (*_racer_parts(pair.split("_")[1], dev), [0.3, 0.5], 0.0)
+    if pair == "bicycle_ar":
+        x0 = torch.zeros(10, device=dev)
+        x0[5] = 2.0
+        return (*_bicycle_parts(dev), x0, [0.3, 0.5], 0.0)
+    if pair == "di_robust":
+        return (*_di_robust(dev), torch.tensor([2.0, 0.0, 0.0, 2.0], device=dev),
+                [1.0, 1.0], 0.0)
+    return (*_split_parts(pair, dev), 0.0)
+
+
+SAMPLE_PAIRS = ["ar_nn", "bicycle_ar", "quadrotor_quadratic", "quadrotor_map",
+                "dubins_quadratic", "di_quadratic", "di_robust", "racer_steering_ar",
+                "racer_unc_ar"]
+
+
+def _pair_sampler(kind, std, dev, T_=T):
+    kw = dict(std_dev=std, control_cost_coeff=[1.0] * len(std),
+              pure_noise_percentage=P_PURE, device=dev)
+    if kind == "smooth":
+        return SmoothMPPIDistribution.create(num_timesteps=T_, dt=0.05, **kw)
+    return (NLNDistribution if kind == "nln" else GaussianDistribution).create(**kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", SAMPLE_PAIRS)
+@pytest.mark.parametrize("kind,epilogue", [("gaussian", False), ("nln", False),
+                                           ("smooth", False), ("smooth", True)])
+def test_pair_fused_sample_kernel_matches_plain(cuda_device, K, pair, kind, epilogue):
+    """B4 of every pair that gained it against its plain version: costs,
+    crash flags, U and W bit for bit, the merged derivative mean within
+    rtol 1e-4; one launch, counted under the pair's entry."""
+    dyn, cost, x0, std, offset = _pair_parts(pair, cuda_device)
+    Cp = dyn.CONTROL_DIM
+    samp = _pair_sampler(kind, std, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 11)
+    mean = 0.3 * torch.randn((T, Cp), generator=g, device=cuda_device)
+    mean[:, -1] += offset
+    state = 0.3 * torch.randn((T, Cp), generator=g, device=cuda_device) if kind == "smooth" else None
+    seed = torch.tensor(K + 5, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    fr.reset_launch_counts()
+    kout = fr.fused_sample_rollout_costs(*args, optimization_stride=2, sampler_state=state,
+                                         epilogue=epilogue)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"fused_sample_rollout_{pair}": 1}
+    pc, pcrash, pU, pW = fr.sample_rollout_plain(*args, optimization_stride=2,
+                                                 sampler_state=state)
+    _close(kout[0], pc, rtol=0, atol=0)
+    assert torch.equal(kout[1], pcrash)
+    _close(kout[2], pU, rtol=0, atol=0)
+    if epilogue:
+        pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM), T, Cp, LAM)
+        _close(kout[3], pm, rtol=1e-4, atol=1e-5)
+        _close(kout[4], pb, rtol=1e-6, atol=0)
+        _close(kout[5], pe, rtol=1e-5, atol=0)
+    elif kind == "smooth":
+        _close(kout[3], pW, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", ["bicycle_ar", "di_robust"])
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+def test_pair_fused_solve_kernel_matches_plain(cuda_device, K, pair, kind):
+    """The new B3 entries against their plain version: U and costs bit for
+    bit, carries within rtol 1e-5."""
+    dyn, cost, x0, std, _ = _pair_parts(pair, cuda_device)
+    samp = _pair_sampler(kind, std, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 13)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=cuda_device)
+    seed = torch.tensor(K + 3, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2,
+                                                             split_cost=False)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"fused_solve_{pair}": 1}
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, optimization_stride=2)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+SPLIT_PAIRS = ["cartpole", "quadrotor_quadratic", "di_quadratic", "dubins_quadratic",
+               "bicycle_ar", "racer_steering_ar", "racer_unc_ar"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", SPLIT_PAIRS)
+@pytest.mark.parametrize("mode", ["costs", "costs+lr", "epilogue+lr", "tsallis+lr"])
+def test_split_pair_rollout_kernels_match_plain(cuda_device, K, pair, mode):
+    """B1's split form of every pair that gained it against its plain
+    version: costs, crash flags and block minima bit for bit, carries within
+    rtol 1e-5; the dynamics pass and the cost pass, one launch each."""
+    dyn, cost, x0, std, offset = _pair_parts(pair, cuda_device)
+    Cp = dyn.CONTROL_DIM
+    g = torch.Generator(device=cuda_device).manual_seed(K + 17)
+    mean = 0.2 * torch.randn((T, Cp), generator=g, device=cuda_device)
+    mean[:, -1] += offset
+    sigma = torch.tensor([std], device=cuda_device).expand(T, Cp).contiguous()
+    U = dyn.enforce_constraints(None, (mean + sigma * torch.randn(
+        (K, T, Cp), generator=g, device=cuda_device)).permute(2, 0, 1)).permute(1, 2, 0)
+    U = U.contiguous()
+    lr = ((mean, sigma, torch.full((Cp,), 0.5, device=cuda_device), LAM, ALPHA, 0.9 * K)
+          if mode.endswith("+lr") else None)
+    epi = {"costs": fr.EPI_NONE, "costs+lr": fr.EPI_NONE, "epilogue+lr": fr.EPI_EXP,
+           "tsallis+lr": fr.EPI_MIN}[mode]
+    fr.reset_launch_counts()
+    kc, kcrash, kout = fr._rollout_any(dyn, cost, x0, U, DT, lr, epi, LAM, True)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"split_dynamics_{pair}": 1, f"split_cost_{pair}": 1}
+    pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lr)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    if epi == fr.EPI_EXP:
+        _close(kout, fr.block_carries_plain(pc, U, LAM), rtol=1e-5, atol=1e-5)
+    elif epi == fr.EPI_MIN:
+        assert torch.equal(kout, fr.block_minima_plain(pc))
+    cc, ccrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
+    assert torch.equal(ccrash, kcrash)
+    _close(kc, cc, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("pair", SPLIT_PAIRS)
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+def test_split_pair_solve_kernels_match_plain(cuda_device, K, pair, kind):
+    """B3's split form of every pair that gained it against its plain
+    version: U, costs and crash flags bit for bit, carries within rtol
+    1e-5."""
+    dyn, cost, x0, std, offset = _pair_parts(pair, cuda_device)
+    Cp = dyn.CONTROL_DIM
+    samp = _pair_sampler(kind, std, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 19)
+    mean = 0.2 * torch.randn((T, Cp), generator=g, device=cuda_device)
+    mean[:, -1] += offset
+    seed = torch.tensor(K + 9, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2,
+                                                             split_cost=True)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"split_solve_dynamics_{pair}": 1, f"split_cost_{pair}": 1}
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, optimization_stride=2)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["di_robust", "ar_nn"])
+def test_split_x0_kernels_match_plain(cuda_device, pair):
+    """B1's split form from one x0 per sample (RMPPI's 9 candidates x 32
+    samples) against its plain version and the combined per-sample-x0
+    kernel: costs and crash flags bit for bit against the plain version."""
+    dyn, cost, x0, std, _ = _pair_parts(pair, cuda_device)
+    dx = (torch.tensor([0.4, 0.2, 0.3, -0.4], device=cuda_device) if pair == "di_robust"
+          else torch.tensor([0.5, 0.3, 0.1, 0.0, -0.5, 0.0, 0.0], device=cuda_device))
+    w = torch.linspace(0.0, 1.0, 9, device=cuda_device)[:, None]
+    X0 = (x0[None] + w * dx[None]).repeat_interleave(32, dim=0).contiguous()
+    K = X0.shape[0]
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    sigma = torch.tensor([std], device=cuda_device).expand(T, C)
+    U = (sigma * torch.randn((K, T, C), generator=g, device=cuda_device)).contiguous()
+    fr.reset_launch_counts()
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, X0, U, DT, split_cost=True)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"split_dynamics_x0_{pair}": 1, f"split_cost_{pair}": 1}
+    pc, pcrash = fr.split_rollout_plain(dyn, cost, X0, U, DT)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    cc, ccrash = fr.fused_rollout_costs(dyn, cost, X0, U, DT, split_cost=False)
+    assert torch.equal(ccrash, kcrash)
+    _close(kc, cc, rtol=1e-5, atol=1e-4)

@@ -188,10 +188,14 @@ def test_b3_plain_matches_jax_kernel(kind, sampler, p, one_thread):
 
 
 def test_racer_solve_refuses_samplers_without_an_entry():
-    """The sampling kernel (B4) has no racer entry: Tsallis on the fused
-    solve raises on the card, as for the other pairs without one."""
-    _, (dyn, cost, samp) = _setup("unc")
-    with pytest.raises(NotImplementedError, match="no CUDA sampling kernel"):
-        fr._entry(dyn, cost, "sample")
-    assert fr._entry(dyn, cost, "solve") == ("pair_racer_unc_ar", "fused_solve_racer_unc_ar")
-    assert fr._entry(dyn, cost, "rollout")[1] == "rollout_costs_racer_unc_ar"
+    """The racer pairs' samplers that take the sampling kernel (B4: Tsallis,
+    CEM and Smooth-MPPI on the fused solve) have an entry now, in a library
+    of their own (csrc/sample_<pair>.cu), beside B1 and B3; nothing is
+    refused for want of one."""
+    for kind in ("steering", "unc"):
+        _, (dyn, cost, samp) = _setup(kind)
+        pair = f"racer_{kind}_ar"
+        assert fr._entry(dyn, cost, "sample") == (f"sample_{pair}",
+                                                  f"fused_sample_rollout_{pair}")
+        assert fr._entry(dyn, cost, "solve") == (f"pair_{pair}", f"fused_solve_{pair}")
+        assert fr._entry(dyn, cost, "rollout")[1] == f"rollout_costs_{pair}"

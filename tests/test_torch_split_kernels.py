@@ -237,5 +237,11 @@ def test_auto_table_takes_only_measured_entries():
             ("di_circle", kernel), False)
         assert fr.resolve_split(dyn, cost, True, kernel)
         assert not fr.resolve_split(dyn, cost, False, kernel)
-    assert set(fr.AUTO_SPLIT) == {(pair, kernel) for pair in ("di_circle", "ar_nn")
-                                  for kernel in ("rollout", "solve")}
+    # the table holds a measured choice for B1 and B3 of every pair with
+    # split entries, and for the per-sample-x0 B1 of the pairs that have one
+    from mppi_generic_tpu_torch.ops import _build
+    split_pairs = {p for p, kinds in _build.PAIR_KERNELS.items() if "split_dynamics" in kinds}
+    x0_pairs = {p for p, kinds in _build.PAIR_KERNELS.items()
+                if "split_dynamics_x0" in kinds}
+    assert set(fr.AUTO_SPLIT) == ({(p, k) for p in split_pairs for k in ("rollout", "solve")}
+                                  | {(p, "rollout_x0") for p in x0_pairs})
