@@ -104,6 +104,9 @@ sleep, so the events measure the device and not the host's enqueue.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -266,6 +269,7 @@ TOL = {  # (rtol, atol)
 
 
 T_START = time.perf_counter()
+STEPS_BY_PATH = {}  # the closed-loop steps of each model and robust loop
 
 
 def emit(phase, **fields):
@@ -313,6 +317,15 @@ def time_ms(fn, n, warmup=3):
         end[i].record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(start, end))
+
+
+def time_plain(fn, pair=None):
+    """A plain version's median ms: N_TIMED_PLAIN_AR runs after one warm-up
+    (thousands of eager launches a run); a racer pair's, whose run takes
+    seconds and whose checks have just run it, one run without."""
+    if pair in RACER_PAIRS:
+        return time_ms(fn, 1, warmup=0)
+    return time_ms(fn, N_TIMED_PLAIN_AR, warmup=1)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -1019,14 +1032,15 @@ def profile_steps(kind, step, n=10, warmup=3):
     """A torch.profiler window over n calls of ``step`` (closed-loop steps
     from one state, after the launch counts were read): kernel launches and
     device time per step, the device's idle share of the window, the
-    largest kernels. The loops with thousands of launches per step take a
-    shorter window (the profiler costs about 2 s per such step)."""
+    largest kernels. Only the device's activity is traced (the host's
+    operators would add an event to parse per launch); the loops with
+    thousands of launches per step take a shorter window."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -1180,7 +1194,7 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
 
     def timing(kernel, plain, work):
         t = {"ms": time_ms(kernel, N_TIMED),
-             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR) if timed_plain else None}
+             "plain_ms": time_plain(plain) if timed_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         return t
 
@@ -1584,7 +1598,7 @@ def bicycle_kernel_phase(dev, K, p, stride, seed, timed_plain):
                 check(f"{name} new_mean", km, pm, "new_mean"),
                 check(f"{name} eta", ke, pe, "eta")]
         t = {"ms": time_ms(kernel, N_TIMED),
-             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR) if timed_plain else None}
+             "plain_ms": time_plain(plain) if timed_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*bicycle_work(cost, K, mode))
         if mode == "epilogue+lr":
             # one-call yardstick for the weighting + weighted sum (not used by the port)
@@ -1931,10 +1945,9 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                  "fused_sample_rollout_kernel": [], "flash_combine_kernel": []}
     times, crashed = {}, {}
 
-    def timing(kernel, plain, work, time_plain):
-        # the plain versions run thousands of launches: one warm-up run
+    def timing(kernel, plain, work, with_plain):
         t = {"ms": time_ms(kernel, N_TIMED),
-             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR, warmup=1) if time_plain else None}
+             "plain_ms": time_plain(plain, pair) if with_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         return t
 
@@ -2125,6 +2138,7 @@ def model_loop_phase(path, ctrl, x0, steps, want, *, plant=None, slide_first=Tru
     (steps, S), the last result)."""
     if ctrl.device.type != "cuda":
         raise AssertionError("the controller did not default to the card")
+    STEPS_BY_PATH[path] = steps
     K_, T_, C_ = ctrl.num_rollouts, ctrl.num_timesteps, ctrl.dynamics.CONTROL_DIM
     plant = plant or (lambda x, u: ctrl.dynamics.step(x, u, 0.0, ctrl.dt)[0])
     cs, x = ctrl.init_state(seed=0, initial_mean=initial_mean), x0
@@ -2321,10 +2335,12 @@ def racer_loops(dev):
     for pair in RACER_PAIRS:
         kind = pair.split("_")[1]
         n = RACER_STEERING_LOOP_STEPS if kind == "steering" else RACER_UNC_LOOP_STEPS
+        # a profile window of the steering row only: the uncertainty row's
+        # 1.3e5 launches a step take about a minute to trace and parse
         out = model_loop_phase(f"racer_{kind}", build_racer(pair, "fused_solve"),
                                racer_x0(pair, dev), n,
                                {"fused_solve_kernel": n, "flash_combine_kernel": n},
-                               profile=1, pair=pair)
+                               profile=kind == "steering" and 1, pair=pair)
         paths[f"racer_{kind}"] = out[:2]
         n = RACER_FUSED_LOOP_STEPS
         out = model_loop_phase(f"racer_{kind}_fused", build_racer(pair, "fused"),
@@ -2521,7 +2537,7 @@ def robust_kernel_phase(dev):
     def timing(name, kernel, plain, work):
         timed_plain = "partial" not in name
         t = {"ms": time_ms(kernel, N_TIMED),
-             "plain_ms": time_ms(plain, N_TIMED_PLAIN_AR, warmup=1) if timed_plain else None}
+             "plain_ms": time_plain(plain) if timed_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         times[name] = t
 
@@ -2741,6 +2757,7 @@ def robust_family_loop(path, ctrl, x0, steps, want, *, disturb=None, profile=1, 
     last controller state, the last plant state)."""
     if ctrl.device.type != "cuda":
         raise AssertionError("the controller did not default to the card")
+    STEPS_BY_PATH[path] = steps
     rmppi = isinstance(ctrl, RobustMPPI)
     cs, x = ctrl.init_state(seed=0), x0
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(steps)]
@@ -2916,6 +2933,7 @@ def instantiations_phase(dev):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"{name}: {what} is not finite")
         paths[name] = (launches, entries)
+        STEPS_BY_PATH[name] = n
         summary[name] = {"K": ctrl.num_rollouts, "T": ctrl.num_timesteps,
                          "dynamics": type(ctrl.dynamics).__name__,
                          "cost": type(ctrl.cost).__name__,
@@ -3073,11 +3091,14 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                                                             map_kind)
     g = torch.Generator(device=dev).manual_seed(seed + 1000)
     seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
-    # the plain versions are eager, thousands of launches: one warm-up run; a
-    # racer plain version takes seconds, so the racer pairs time one run
-    n_plain = (N_TIMED_PLAIN if pair == "di_circle" else 1 if pair in RACER_PAIRS
-               else N_TIMED_PLAIN_AR)
     checks, times, crashed = [], {}, {}
+    plain_rollouts = {}  # {with LR: the plain B1 rollout}, shared by the modes
+
+    def plain_ms(fn):
+        # the DI's plain versions take milliseconds; the others time_plain's
+        if pair == "di_circle":
+            return time_ms(fn, N_TIMED_PLAIN, warmup=1)
+        return time_plain(fn, pair)
     C_ = dyn.CONTROL_DIM
 
     def merge_checks(name, kcarry, pc, U_):
@@ -3095,7 +3116,9 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
         epi = SPLIT_EPI[mode]
         name = f"B1 split {mode}"
         kc, kcrash, kout = fr._rollout_any(dyn, cost, x0, U, DT, lrp, epi, LAM, True)
-        pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)
+        if (lrp is not None) not in plain_rollouts:
+            plain_rollouts[lrp is not None] = fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)
+        pc, pcrash = plain_rollouts[lrp is not None]
         torch.cuda.synchronize()
         same(f"{name} crash flags", kcrash, pcrash)
         checks.append(check(f"{name} costs", kc, pc, "bitwise"))
@@ -3116,18 +3139,16 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                 *split_pass_work(pair, dyn, cost, K, T_, "cost", mode))
             t["plain_ms"] = None
             if mode == "epilogue+lr":
-                t["plain_ms"] = time_ms(lambda: fr.block_carries_plain(
-                    fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)[0], U, LAM), n_plain,
-                    warmup=1)
+                t["plain_ms"] = plain_ms(lambda: fr.block_carries_plain(
+                    fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)[0], U, LAM))
                 # one-call yardstick for the weighting + weighted sum (not used by the port)
                 t["library_ms"] = time_ms(
                     lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
-                t["cost_pass"]["plain_ms"] = time_ms(
-                    lambda: split_cost_plain(cost, Y, U, lrp, T_), n_plain, warmup=1)
+                t["cost_pass"]["plain_ms"] = plain_ms(
+                    lambda: split_cost_plain(cost, Y, U, lrp, T_))
                 t["dynamics_pass"] = {"ms": time_ms(
                     lambda: fr.split_dynamics_cuda(dyn, cost, x0, U, DT), N_TIMED),
-                    "plain_ms": time_ms(lambda: fr.split_outputs_plain(dyn, x0, U, DT),
-                                        n_plain, warmup=1)}
+                    "plain_ms": plain_ms(lambda: fr.split_outputs_plain(dyn, x0, U, DT))}
                 t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
                     *split_pass_work(pair, dyn, cost, K, T_, "dynamics"))
             times[name] = t
@@ -3162,11 +3183,10 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                 *split_pass_work(pair, dyn, cost, K, T_, "cost", "solve"))
             t["plain_ms"] = None
             if kind == "gaussian":
-                t["plain_ms"] = time_ms(lambda: fused_solve.fused_solve_split_plain(*args),
-                                        n_plain, warmup=1)
-                t["dynamics_pass"]["plain_ms"] = time_ms(lambda: fr.split_outputs_plain(
+                t["plain_ms"] = plain_ms(lambda: fused_solve.fused_solve_split_plain(*args))
+                t["dynamics_pass"]["plain_ms"] = plain_ms(lambda: fr.split_outputs_plain(
                     dyn, x0, fused_solve._samples_plain(dyn, samp, mean, seed_t, K, 0, 0,
-                                                        None)[0], DT), n_plain, warmup=1)
+                                                        None)[0], DT))
             times[name] = t
     emit("split_kernels", pair=pair, map=map_kind, K=K, T=T_, pure_noise_percentage=p,
          stride=stride, crashed_share=crashed, checks=checks, times=times)
@@ -3184,9 +3204,10 @@ def build_split_vanilla(kernel, split_cost):
 def split_loops(dev):
     """The flagship's 100-step closed loop with the split form forced on
     ``fused`` and on ``fused_solve`` and on the eager ``kernel="split"``
-    path (the flagship's bar), then AutoRally's loops with the split form
-    forced: 20 steps on ``fused_solve``, a few on ``fused`` (states finite,
-    the crashed share recorded). Returns {path: (launches, entry launches)}."""
+    path (the flagship's bar), then AutoRally's loops on the default split
+    choice (AUTO: the split form, its dynamics passes in their warp form):
+    20 steps on ``fused_solve``, a few on ``fused`` (states finite, the
+    crashed share recorded). Returns {path: (launches, entry launches)}."""
     n = CLOSED_LOOP_STEPS
     paths = {}
     for path, kernel, split, want in (
@@ -3201,12 +3222,13 @@ def split_loops(dev):
         paths[path] = (launches, dict(fr.entry_counts))
     for path, kernel, steps, dyn_kernel in (
             ("autorally_split_fused_solve", "fused_solve", SPLIT_AR_LOOP_STEPS,
-             "split_solve_dynamics_kernel"),
-            ("autorally_split_fused", "fused", SPLIT_AR_FUSED_STEPS, "split_dynamics_kernel")):
+             "split_solve_dynamics_warp_kernel"),
+            ("autorally_split_fused", "fused", SPLIT_AR_FUSED_STEPS,
+             "split_dynamics_warp_kernel")):
         dyn, cost = ar_parts("128")
         ctrl = VanillaMPPI(dyn, cost, ar_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA,
                            num_timesteps=T_AR, num_rollouts=K_AR, num_iters=1, kernel=kernel,
-                           split_cost=True)
+                           split_cost=None)
         launches, entries, _, _ = model_loop_phase(
             path, ctrl, ar_x0(dev), steps,
             {dyn_kernel: steps, "split_cost_kernel": steps, "flash_combine_kernel": steps},
@@ -3394,8 +3416,8 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
                 return fr.block_carries_plain(out[0], out[3], LAM)
 
             t = {"ms": time_ms(kernel, N_TIMED),
-                 "plain_ms": (time_ms(plain, N_TIMED_PLAIN_AR, warmup=1) if epilogue
-                              else None), "library_ms": None}
+                 "plain_ms": time_plain(plain, pair) if epilogue else None,
+                 "library_ms": None}
             t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
                 dyn, cost, ops, K, T_, kind, False, epilogue))
             times[name] = t
@@ -3417,8 +3439,8 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
             if timed:
                 t = {"ms": time_ms(lambda: fused_solve.fused_solve_carries(
                          *args, split_cost=False, **kw), N_TIMED),
-                     "plain_ms": (time_ms(lambda: fused_solve.fused_solve_plain(*args, **kw),
-                                          N_TIMED_PLAIN_AR, warmup=1)
+                     "plain_ms": (time_plain(lambda: fused_solve.fused_solve_plain(*args, **kw),
+                                             pair)
                                   if kind == "gaussian" else None), "library_ms": None}
                 t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
                     dyn, cost, ops, K, T_, kind, True))
@@ -3489,6 +3511,162 @@ def split_x0_phase(dev, pair, map_kind=None, timed=False):
     return checks, times
 
 
+# ---------------------------------------------------------------------------
+# The warp form of the network pairs' split dynamics passes
+# (csrc/split_warp.cuh): each pass against its plain version (Y, U and the
+# LR sums bit for bit) at the path's shape and the ragged one, and A B B A
+# against the one-thread pass it replaced: the same sources built with
+# -DMPPI_SPLIT_ONE_THREAD into a directory of their own (build_one_thread;
+# the port never loads that build). The launch counters name the form that
+# each library reports (fr.split_kernel_name).
+# ---------------------------------------------------------------------------
+WARP_PAIRS = ("ar_nn", "racer_steering_ar", "racer_unc_ar")
+WARP_SOURCES = tuple(sorted({_build.pair_entry(p, k)[0] for p in WARP_PAIRS
+                             for k in ("split_dynamics", "split_dynamics_x0")
+                             if _build.pair_entry(p, k) is not None}))
+ONE_THREAD = {}  # {source: the loaded one-thread build}, from build_one_thread
+
+
+def split_name(pair, kind):
+    """The counted name of the kernel that ``pair``'s split entry ``kind``
+    launches, as its library reports it."""
+    return fr.split_kernel_name(_build.pair_entry(pair, kind))
+
+
+def build_one_thread():
+    """Build WARP_SOURCES with -DMPPI_SPLIT_ONE_THREAD (every model's split
+    passes one thread a sample), one nvcc each, all started together, and
+    load them into ONE_THREAD. Each is compiled as a unit of another name
+    that includes the source, so that its kernels' symbols (nvcc names a
+    source's anonymous namespace after its file) differ from those of the
+    port's build loaded beside it. Returns {source: nvcc's log}."""
+    out = _build.BUILD_ROOT / "one_thread"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in WARP_SOURCES:
+        unit = out / f"{name}_one_thread.cu"
+        unit.write_text(f'#include "{name}.cu"\n')
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-DMPPI_SPLIT_ONE_THREAD", "-I",
+             str(_build.CSRC), "-o", str(out / f"lib{name}.so"), str(unit)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = {name: proc.communicate()[0] for name, proc in procs.items()}
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"one-thread build of {name} failed:\n{logs[name]}")
+        ONE_THREAD[name] = _build.declare(ctypes.CDLL(str(out / f"lib{name}.so")), name)
+    return logs
+
+
+@contextlib.contextmanager
+def one_thread_split():
+    """Inside, the wrappers take the warp pairs' split libraries from the
+    one-thread build (their launches then run the one-thread passes)."""
+    lib = fr._lib
+    fr._lib = lambda name="flash_combine": ONE_THREAD[name] if name in ONE_THREAD else lib(name)
+    try:
+        yield
+    finally:
+        fr._lib = lib
+
+
+def check_forms():
+    """Each warp pair's split dynamics entries report the warp form in the
+    port's build and the one-thread form in build_one_thread's."""
+    for pair in WARP_PAIRS:
+        for kind in ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0"):
+            if _build.pair_entry(pair, kind) is None:
+                continue
+            warp, one = split_name(pair, kind), None
+            with one_thread_split():
+                one = split_name(pair, kind)
+            if not (warp.endswith("_warp_kernel") and not one.endswith("_warp_kernel")):
+                raise AssertionError(f"{pair} {kind}: the builds report {warp} and {one}")
+
+
+def turns(fn):
+    """``fn`` (a split dynamics pass) timed in turns on the one-thread build
+    and the warp form: one-thread, warp, warp, one-thread (CUDA events,
+    medians of N_TIMED)."""
+    with one_thread_split():
+        a1 = time_ms(fn, N_TIMED)
+    b1, b2 = time_ms(fn, N_TIMED), time_ms(fn, N_TIMED)
+    with one_thread_split():
+        a2 = time_ms(fn, N_TIMED)
+    return {"ms": (b1 + b2) / 2, "one_thread_ms": (a1 + a2) / 2, "abba_ms": [a1, b1, b2, a2],
+            "warp_faster": max(b1, b2) < min(a1, a2)}
+
+
+def warp_pass_checks(name, fn, plain):
+    """The warp pass ``fn`` and the one-thread one against the plain
+    version: each output bit for bit (``fn`` and ``plain`` return tuples of
+    tensors in the same order, named by ``name``)."""
+    got = fn()
+    with one_thread_split():
+        one = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    checks = []
+    for what, g, o, w in zip(name, got, one, want):
+        checks += [check(f"{what} (warp)", g, w, "bitwise"),
+                   check(f"{what} (one-thread)", o, w, "bitwise")]
+    return checks
+
+
+def warp_kernel_phase(dev, pair, K, p, stride, seed, timed):
+    """The warp passes of a network pair against their plain versions: B1's
+    dynamics pass (Y), B3's (U, Y, the LR sums; Gaussian and NLN) and, for
+    AutoRally, B1's from one x0 per sample at RMPPI's stage-1 shape (9 x 256,
+    T = 150). With ``timed``: each pass A B B A against the one-thread pass
+    and its bound."""
+    dyn, cost, x0, mean, U, _, samplers, T_ = split_inputs(
+        dev, pair, K, p, stride, seed, "128" if pair == "ar_nn" else None)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    checks, times = [], {}
+
+    def dynamics_case(key, dyn_, cost_, x0_, U_, x0_rows=1):
+        nonlocal checks
+        fn = lambda: (fr.split_dynamics_cuda(dyn_, cost_, x0_, U_, DT),)
+        checks += warp_pass_checks(
+            (f"{pair} {key} Y",), fn,
+            lambda: (fr.split_outputs_plain(dyn_, x0_, U_, DT).permute(1, 2, 0),))
+        if timed:
+            t = turns(fn)
+            t["bound_ms"], t["bound_by"] = bound_ms(*split_pass_work(
+                pair, dyn_, cost_, U_.shape[0], T_, "dynamics", x0_rows=x0_rows))
+            times[key] = t
+
+    dynamics_case("B1 dynamics", dyn, cost, x0, U)
+    for kind, samp in samplers.items():
+        args = (dyn, cost, samp, fr.noise_kind(samp), x0, mean, seed_t, DT, K, 0, stride, None)
+
+        def plain(samp=samp):
+            pU, plr = fused_solve._samples_plain(dyn, samp, mean, seed_t, K, 0, stride, None)
+            return pU, fr.split_outputs_plain(dyn, x0, pU, DT).permute(1, 2, 0), plr
+
+        fn = lambda args=args: fused_solve.split_solve_dynamics_cuda(*args)
+        checks += warp_pass_checks((f"{pair} B3 {kind} U", f"{pair} B3 {kind} Y",
+                                    f"{pair} B3 {kind} LR sums"), fn, plain)
+        if timed:
+            t = turns(fn)
+            t["bound_ms"], t["bound_by"] = bound_ms(*split_pass_work(
+                pair, dyn, cost, K, T_, "solve_dynamics", kind=kind))
+            times[f"B3 dynamics {kind}"] = t
+    if pair == "ar_nn" and timed:
+        rdyn, rcost = robust_ar_parts("128", dev)
+        dx = torch.tensor([0.5, 0.3, 0.1, 0.0, -0.5, 0.0, 0.0], device=dev)
+        w = torch.linspace(0.0, 1.0, N_CAND_AR, device=dev)[:, None]
+        X0c = (ar_x0(dev)[None] + w * dx[None]).repeat_interleave(S_PER_AR, dim=0).contiguous()
+        sigma = torch.tensor([AR_STD], device=dev)
+        Ux = sigma * torch.randn((X0c.shape[0], T_AR, C), generator=g, device=dev)
+        Ux = rdyn.enforce_constraints(None, Ux.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+        dynamics_case("B1-x0 dynamics", rdyn, rcost, X0c, Ux, x0_rows=X0c.shape[0])
+    emit("warp_kernels", pair=pair, K=K, T=T_, pure_noise_percentage=p, stride=stride,
+         checks=checks, times=times)
+    return checks, times
+
+
 PAIR_TYPES = {
     "di_circle": ("DoubleIntegrator", "DoubleIntegratorCircleCost"),
     "ar_nn": ("AutorallyNN", "ARCost"),
@@ -3555,13 +3733,29 @@ def pair_kernel_phases(dev):
     return errs, times
 
 
-def pair_kernel_entries(errs, times, paths):
+def warp_fields(pass_times, warp, key, by_path):
+    """The ``kernels`` line's numbers of a warp pass: (its times, the fields
+    to add): its time, the one-thread pass's and their A B B A
+    (``warp_kernel_phase``), the bound, the plain version's time from the
+    split phase (``pass_times``), and the launches per closed-loop step of
+    each path that runs it (``by_path``)."""
+    t = {**pass_times, **warp[key]}
+    extra = {k: t[k] for k in ("one_thread_ms", "abba_ms", "warp_faster")}
+    extra["launches_per_step"] = {p: n / STEPS_BY_PATH[p] if p in STEPS_BY_PATH else None
+                                  for p, n in by_path.items()}
+    return t, extra
+
+
+def pair_kernel_entries(errs, times, paths, warp_times=None):
     """The ``kernels`` line's entries of the new kernels: launches counted
     per C entry over every path of ``paths`` ({path: (launches, entry
     launches)})."""
-    def line(name, pair, kind, replaces, t, err, **extra):
+    def line(name, pair, kind, replaces, t, err, warp_key=None, **extra):
         lib, fn = _build.pair_entry(pair, kind)
         by = {p: e.get(fn, 0) for p, (_, e) in paths.items() if e.get(fn, 0)}
+        if warp_key is not None:
+            t, more = warp_fields(t, warp_times[pair], warp_key, by)
+            extra.update(more)
         return {"name": name, "route": "cuda",
                 "source": f"mppi_generic_tpu_torch/csrc/{lib}.cu",
                 "replaces": f"mppi_generic_tpu/ops/{replaces}",
@@ -3600,15 +3794,19 @@ def pair_kernel_entries(errs, times, paths):
         dyn_name, cost_name = PAIR_TYPES[pair]
         st, err = times[("split", pair)], errs[("split", pair)]
         K, _, T_ = pair_shape(pair)
+        warp = pair in WARP_PAIRS
         out += [
-            line(f"split_dynamics_kernel<{dyn_name}>", pair, "split_dynamics",
-                 "pallas_rollout.py:548 (split mode, run_tile :663-696)",
+            line(f"{split_name(pair, 'split_dynamics')}<{dyn_name}>", pair,
+                 "split_dynamics", "pallas_rollout.py:548 (split mode, run_tile :663-696)",
                  st["B1 split epilogue+lr"]["dynamics_pass"], err, K=K, T=T_,
+                 warp_key="B1 dynamics" if warp else None,
                  split_form=forms(st, "B1 split ")),
-            line(f"split_solve_dynamics_kernel<{dyn_name}>", pair, "split_solve_dynamics",
-                 "pallas_solve.py:103 (split mode :274-290)",
+            line(f"{split_name(pair, 'split_solve_dynamics')}<{dyn_name}>", pair,
+                 "split_solve_dynamics", "pallas_solve.py:103 (split mode :274-290)",
                  st["B3 split gaussian"]["dynamics_pass"], err, K=K, T=T_,
-                 modes={"nln": st["B3 split nln"]["dynamics_pass"]},
+                 warp_key="B3 dynamics gaussian" if warp else None,
+                 modes={"nln": (warp_times[pair]["B3 dynamics nln"] if warp
+                                else st["B3 split nln"]["dynamics_pass"])},
                  split_form=forms(st, "B3 split ")),
             line(f"split_cost_kernel<{cost_name}>", pair, "split_cost",
                  "pallas_rollout.py:698-768 and pallas_solve.py:292-332 (the split cost "
@@ -3624,10 +3822,13 @@ def pair_kernel_entries(errs, times, paths):
                  else {"K": N_CAND_AR * S_PER_AR, "T": T_AR})
         form = {k: t.get(k) for k in ("ms", "combined_ms", "abba_ms", "split_faster",
                                       "bound_ms", "plain_ms")}
-        out.append(line(f"split_dynamics_kernel<{PAIR_TYPES[pair][0]}> (per-sample x0)",
+        out.append(line(f"{split_name(pair, 'split_dynamics_x0')}"
+                        f"<{PAIR_TYPES[pair][0]}> (per-sample x0)",
                         pair, "split_dynamics_x0",
                         "pallas_rollout.py:548 (split mode with per_sample_x0, :646)",
-                        t["dynamics_pass"], err, **shape, split_form=form))
+                        t["dynamics_pass"], err,
+                        warp_key="B1-x0 dynamics" if pair in WARP_PAIRS else None,
+                        **shape, split_form=form))
         if pair == "di_robust":
             out.append(line("split_cost_kernel<DoubleIntegratorRobustCost>", pair,
                             "split_cost", "pallas_rollout.py:698-768 (the split cost pass)",
@@ -3643,8 +3844,9 @@ def pair_loops(dev):
     bicycle's and the DI robust cost's Gaussian ``fused_solve`` (B3); the
     split form forced on ``fused_solve`` for the cartpole swing-up and the
     quadrotor hover (their bars) and on ``fused`` and ``fused_solve`` for
-    each split pair; RMPPI with stage 1's split forced on the DI robust
-    cost (its band bar) and AutoRally. Returns {path: (launches, entry
+    each split pair (the racer rows on the default choice, AUTO); RMPPI
+    with stage 1's split forced on the DI robust cost (its band bar) and
+    on AUTO for AutoRally. Returns {path: (launches, entry
     launches)}."""
     n, nh = PAIR_LOOP_STEPS, PAIR_LOOP_STEPS_HEAVY
     paths = {}
@@ -3734,12 +3936,14 @@ def pair_loops(dev):
                         num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve",
                         split_cost=True)
     ns = SWINGUP_STEPS
-    split_b3 = lambda k: {"split_solve_dynamics_kernel": k, "split_cost_kernel": k,
-                          "flash_combine_kernel": k}
-    split_b1 = lambda k: {"split_dynamics_kernel": k, "split_cost_kernel": k,
-                          "flash_combine_kernel": k}
+    split_b3 = lambda k, pair: {
+        split_name(pair, "split_solve_dynamics"): k, "split_cost_kernel": k,
+        "flash_combine_kernel": k}
+    split_b1 = lambda k, pair: {
+        split_name(pair, "split_dynamics"): k, "split_cost_kernel": k,
+        "flash_combine_kernel": k}
     _, _, X, res = run("cartpole_swingup_split", swing, torch.zeros(4, device=dev), ns,
-                       split_b3(ns),
+                       split_b3(ns, "cartpole"),
                        plant=lambda x, u: x + swing.dynamics.state_deriv(x, u) * swing.dt,
                        slide_first=False)
     theta_err = abs(float(torch.remainder(X[-1, 2], 2 * np.pi)) - np.pi)
@@ -3752,18 +3956,20 @@ def pair_loops(dev):
     nq = HOVER_STEPS
     _, _, X, _ = run("quadrotor_hover_split", build_zoo(
         "quadrotor_quadratic", "fused_solve", K=K_HOVER, T_=T_HOVER, split_cost=True), qx0,
-        nq, split_b3(nq), initial_mean=hover_mean)
+        nq, split_b3(nq, "quadrotor_quadratic"), initial_mean=hover_mean)
     pos_err = float(torch.linalg.vector_norm(X[-1, :3]))
     emit("quadrotor_hover_split_bar", position_error=pos_err, final_state=X[-1].tolist(),
          bar={"position_error": 0.5})
     if not pos_err < 0.5:
         raise AssertionError(f"split quadrotor hover missed its bar: position error {pos_err}")
     # each split pair's B1 and B3 split entries on short forced-split loops
-    # (the racer steering row on "fused": racer_steering_split_fused)
+    # (the racer steering row on "fused": racer_steering_split_fused); the
+    # racer rows on the default split choice (AUTO: the split form, its
+    # dynamics passes in their warp form)
     for pair in SPLIT_PAIRS:
         k = nh if pair in RACER_PAIRS else SPLIT_LOOP_STEPS
         qmean = None
-        for kernel, want in (("fused", split_b1(k)), ("fused_solve", split_b3(k))):
+        for kernel, want in (("fused", split_b1(k, pair)), ("fused_solve", split_b3(k, pair))):
             if kernel == "fused_solve" and pair in ("cartpole", "quadrotor_quadratic"):
                 continue  # the swing-up and the hover above
             if pair == "racer_steering_ar":
@@ -3775,7 +3981,7 @@ def pair_loops(dev):
                 ctrl = VanillaMPPI(pdyn, pcost, GaussianDistribution.create(std_dev=RACER_STD),
                                    dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_RACER[pair],
                                    num_rollouts=K_RC, num_iters=1, kernel=kernel,
-                                   split_cost=True)
+                                   split_cost=None)
                 x0 = racer_x0(pair, dev)
             elif pair == "bicycle_ar":
                 ctrl = VanillaMPPI(bdyn, bcost, GaussianDistribution.create(std_dev=BI_STD),
@@ -3788,23 +3994,25 @@ def pair_loops(dev):
                 ctrl = build_zoo(pair, kernel, split_cost=True)
                 x0 = zoo_parts(pair, dev)[2]
             run(path, ctrl, x0, k, want, initial_mean=qmean)
-    # RMPPI with stage 1's split forced: the JAX suite's loop on the DI robust
-    # cost (its band bar) and AutoRally's
+    # RMPPI with stage 1's split: the JAX suite's loop on the DI robust cost
+    # (forced; its band bar) and AutoRally's
     nr = ROBUST_DI_STEPS
     rng = np.random.RandomState(1)
     disturb = torch.zeros((nr, S), device=dev)
     disturb[:, 2:] = torch.tensor(np.stack([rng.randn(2) * 0.02 for _ in range(nr)]),
                                   dtype=torch.float32, device=dev)
-    x1 = lambda k: {"split_dynamics_kernel": k - 1, "split_cost_kernel": k - 1,
-                    "rmppi_rollout_kernel": k, "riccati_ladder_kernel": k}
+    x1 = lambda k, pair: {split_name(pair, "split_dynamics_x0"): k - 1,
+                          "split_cost_kernel": k - 1, "rmppi_rollout_kernel": k,
+                          "riccati_ladder_kernel": k}
     out = robust_family_loop("rmppi_di_robust_split",
-                             build_rmppi_di_robust("fused", split_cost=True), rx0, nr, x1(nr),
-                             disturb=disturb, profile=False)
+                             build_rmppi_di_robust("fused", split_cost=True), rx0, nr,
+                             x1(nr, "di_robust"), disturb=disturb, profile=False)
     band_check("rmppi_di_robust_split", out[2])
     paths["rmppi_di_robust_split"] = out[:2]
     na = SPLIT_LOOP_STEPS
-    out = robust_family_loop("rmppi_autorally_split", build_rmppi_ar("fused", split_cost=True),
-                             ar_x0(dev), na, x1(na), profile=False, map="128",
+    # AutoRally on the default split choice (AUTO: stage 1's split form)
+    out = robust_family_loop("rmppi_autorally_split", build_rmppi_ar("fused", split_cost=None),
+                             ar_x0(dev), na, x1(na, "ar_nn"), profile=False, map="128",
                              cost="ARRobustCost")
     paths["rmppi_autorally_split"] = out[:2]
     return paths
@@ -3828,11 +4036,22 @@ def main() -> int:
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    built = _build.build_all()
+    # the one-thread build of the warp pairs' split sources (for the A B B A
+    # of warp_kernel_phase) beside the port's build, all nvcc's together
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        one_thread = pool.submit(build_one_thread)
+        built = _build.build_all()
+        one_thread_logs = one_thread.result()
+
+    def ptxas(logs):
+        keep = ("registers", "Compiling entry", "stack frame")
+        return {name: [line.strip() for line in log.splitlines()
+                       if any(k in line for k in keep)] for name, log in logs.items()}
+
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={name: [line.strip() for line in b["log"].splitlines()
-                       if "registers" in line or "Compiling entry" in line]
-                for name, b in built.items()})
+         ptxas=ptxas({name: b["log"] for name, b in built.items()}),
+         one_thread_ptxas=ptxas(one_thread_logs))
+    check_forms()
 
     errs = dict.fromkeys(fr.launch_counts, 0.0)
 
@@ -3983,9 +4202,27 @@ def main() -> int:
                                + [c["max_abs_err"] for c in checks])
         if timed_split:
             split_times[pair] = times
+    # the warp form of the network pairs' split dynamics passes; the ragged
+    # case at K + 1 past the ragged K, so that the last block of AutoRally's
+    # 4 samples (the racers' 8) is partly empty
+    warp_errs, warp_times = {}, {}
+    for i, pair in enumerate(WARP_PAIRS):
+        K, K_rag, _ = pair_shape(pair)
+        for K_, p, stride, timed_warp in ((K, 0.0, 0, True), (K_rag + 1, 0.1, 2, False)):
+            checks, times = warp_kernel_phase(dev, pair, K_, p, stride, 301 + 2 * i + timed_warp,
+                                              timed_warp)
+            warp_errs[pair] = max([warp_errs.get(pair, 0.0)]
+                                  + [c["max_abs_err"] for c in checks])
+            if timed_warp:
+                warp_times[pair] = times
     split_paths = split_loops(dev)
     # every pair on every kernel mode: the new entries, then their loops
     pair_errs, pair_times = pair_kernel_phases(dev)
+    # the warp passes' own checks count in their pairs' split entries
+    split_errs["ar_nn"] = max(split_errs["ar_nn"], warp_errs["ar_nn"])
+    pair_errs[("split_x0", "ar_nn")] = max(pair_errs[("split_x0", "ar_nn")], warp_errs["ar_nn"])
+    for pair in RACER_PAIRS:
+        pair_errs[("split", pair)] = max(pair_errs[("split", pair)], warp_errs[pair])
     pair_paths = pair_loops(dev)
     autotune_phase(dev)
     all_paths = {**zoo_paths, **racer_paths, **robust_paths, **inst_paths, **split_paths,
@@ -4239,8 +4476,11 @@ def main() -> int:
     ]
     # the split form: one entry per kernel and pair; launches counted per C
     # entry on the split loops
-    def split_entry(name, pair, fn, replaces, t, **extra):
+    def split_entry(name, pair, fn, replaces, t, warp_key=None, **extra):
         by = {p: e.get(fn, 0) for p, (_, e) in all_paths.items() if e.get(fn, 0)}
+        if warp_key is not None and pair in WARP_PAIRS:
+            t, more = warp_fields(t, warp_times[pair], warp_key, by)
+            extra.update(more)
         return {"name": name, "route": "cuda",
                 "source": f"mppi_generic_tpu_torch/csrc/split_{pair}.cu",
                 "replaces": f"mppi_generic_tpu/ops/{replaces}",
@@ -4261,15 +4501,18 @@ def main() -> int:
             ("ar_nn", "AutorallyNN", "ARCost", K_AR, T_AR)):
         st = split_times[pair]
         kernels += [
-            split_entry(f"split_dynamics_kernel<{dyn_name}>", pair, f"split_dynamics_{pair}",
+            split_entry(f"{split_name(pair, 'split_dynamics')}<{dyn_name}>",
+                        pair, f"split_dynamics_{pair}",
                         "pallas_rollout.py:548 (split mode, run_tile :663-696)",
-                        st["B1 split epilogue+lr"]["dynamics_pass"], K=K, T=T_,
-                        split_form=forms(st, "B1 split ")),
-            split_entry(f"split_solve_dynamics_kernel<{dyn_name}>", pair,
-                        f"split_solve_dynamics_{pair}",
+                        st["B1 split epilogue+lr"]["dynamics_pass"], warp_key="B1 dynamics",
+                        K=K, T=T_, split_form=forms(st, "B1 split ")),
+            split_entry(f"{split_name(pair, 'split_solve_dynamics')}"
+                        f"<{dyn_name}>", pair, f"split_solve_dynamics_{pair}",
                         "pallas_solve.py:103 (split mode :274-290)",
-                        st["B3 split gaussian"]["dynamics_pass"], K=K, T=T_,
-                        modes={"nln": st["B3 split nln"]["dynamics_pass"]},
+                        st["B3 split gaussian"]["dynamics_pass"],
+                        warp_key="B3 dynamics gaussian", K=K, T=T_,
+                        modes={"nln": (warp_times[pair]["B3 dynamics nln"] if pair in WARP_PAIRS
+                                       else st["B3 split nln"]["dynamics_pass"])},
                         split_form=forms(st, "B3 split ")),
             split_entry(f"split_cost_kernel<{cost_name}>", pair, f"split_cost_{pair}",
                         "pallas_rollout.py:698-768 and pallas_solve.py:292-332 "
@@ -4284,7 +4527,7 @@ def main() -> int:
         "flash_combine_kernel (split paths)", "flash_combine.cu", "pallas_rollout.py:1005",
         comb, None, paths={p: l for p, (l, _) in split_paths.items()},
         err=errs["flash_combine_kernel"], kernel="flash_combine_kernel"))
-    kernels += pair_kernel_entries(pair_errs, pair_times, all_paths)
+    kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times)
     emit("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

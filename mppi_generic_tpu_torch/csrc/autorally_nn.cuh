@@ -16,6 +16,9 @@
 // staged into shared memory once per block (Shared, stage). AutorallyNN
 // unrolls the network's layers (B1, B3); AutorallyNNRolled rolls their
 // output loops (B7, B8: fnn_layer_rolled), with the same arithmetic.
+// step_warp is the step of the split dynamics passes' warp form
+// (split_warp.cuh): the network by FNN3::forward_warp from stage_warp's
+// table, everything else the same operations on every lane.
 #pragma once
 
 #include <math.h>
@@ -30,6 +33,8 @@ struct AutorallyNNT {
   static constexpr int O = 7;  // output
   using Net = FNN3<6, 32, 32, 4>;
   static constexpr bool kStaged = true;
+  static constexpr bool kWarpStep = true;  // has stage_warp / step_warp
+  static constexpr int kWarpSamples = 4;   // samples (warps) per block there
 
   struct Shared {
     float w[Net::kParams];
@@ -41,6 +46,14 @@ struct AutorallyNNT {
     Net::stage(params, sh->w);
   }
 
+  // the warp form's table (FNN3::stage_warp)
+  __device__ static inline void stage_warp(const float* __restrict__ params,
+                                           Shared* sh) {
+    Net::stage_warp(params, sh->w);
+  }
+
+  // kWarp: the network's warp form, from stage_warp's table
+  template <bool kWarp = false>
   __device__ static inline void state_deriv(const Shared& sh, const float* x,
                                             const float* u, float /*t*/,
                                             float* xd) {
@@ -51,18 +64,28 @@ struct AutorallyNNT {
     xd[1] = sin_y * x[4] + cos_y * x[5];
     xd[2] = -x[6];
     const float feats[6] = {x[3], x[4], x[5], x[6], u[0], u[1]};
-    Net::template forward<kRolled>(sh.w, feats, xd + 3);
+    if constexpr (kWarp) {
+      Net::forward_warp(sh.w, feats, xd + 3);
+    } else {
+      Net::template forward<kRolled>(sh.w, feats, xd + 3);
+    }
   }
 
+  template <bool kWarp = false>
   __device__ static inline void step(const Shared& sh, float* x, const float* u,
                                      float t, float dt, float* y) {
     float xd[S];
-    state_deriv(sh, x, u, t, xd);
+    state_deriv<kWarp>(sh, x, u, t, xd);
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = x[i] + xd[i] * dt;
     x[2] = normalize_angle(x[2]);
 #pragma unroll
     for (int i = 0; i < O; ++i) y[i] = x[i];
+  }
+
+  __device__ static inline void step_warp(const Shared& sh, float* x, float* /*rec*/,
+                                          const float* u, float t, float dt, float* y) {
+    step<true>(sh, x, u, t, dt, y);
   }
 };
 

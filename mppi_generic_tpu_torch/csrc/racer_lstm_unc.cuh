@@ -27,6 +27,13 @@
 // static shared memory. The state, the outputs and the carry (26 + 27 + 96
 // floats) do not fit the registers with the step's temporaries: the carry and
 // the LSTMs' hidden vectors live in local memory (L1).
+//
+// step_warp is the step of the split dynamics passes' warp form
+// (split_warp.cuh): the three LSTMs by LSTMNet::forward_warp from
+// stage_warp's table (the network blocks laid out for it, the rest in place),
+// the carry (h, c) of this lane's unit for each (RW = 6 floats against R = 96);
+// the suspension, the brake, the Jacobian, the covariance and the Euler
+// update the same operations on every lane.
 #pragma once
 
 #include <math.h>
@@ -41,7 +48,10 @@ struct RacerLSTMUnc {
   static constexpr int O = 27;   // output
   static constexpr int H = 16;   // each LSTM's hidden units
   static constexpr int R = 6 * H;  // (h, c) of the steering, mean, uncertainty LSTMs
+  static constexpr int RW = 6;     // the warp form's: this lane's unit of each
   static constexpr bool kStaged = true;
+  static constexpr bool kWarpStep = true;  // has stage_warp / step_warp
+  static constexpr int kWarpSamples = 8;   // samples (warps) per block there
   using SteerNet = LSTMNet<4, H, 16, 1>;
   using MeanNet = LSTMNet<11, H, 16, 2>;
   using UncNet = LSTMNet<12, H, 16, 5>;
@@ -71,6 +81,23 @@ struct RacerLSTMUnc {
   __device__ static inline void init_rec(const Shared& sh, float* rec) {
 #pragma unroll 1
     for (int i = 0; i < R; ++i) rec[i] = sh.p[kWarm + i];
+  }
+
+  // the warp form's table: each network block at LSTMNet::warp_slot
+  __device__ static inline void stage_warp(const float* __restrict__ params, Shared* sh) {
+    for (int i = threadIdx.x; i < kTable; i += blockDim.x) {
+      int d = i;
+      if (i >= kSteerNet && i < kMeanNet) d = kSteerNet + SteerNet::warp_slot(i - kSteerNet);
+      if (i >= kMeanNet && i < kUncNet) d = kMeanNet + MeanNet::warp_slot(i - kMeanNet);
+      if (i >= kUncNet && i < kWarm) d = kUncNet + UncNet::warp_slot(i - kUncNet);
+      sh->p[d] = params[i];
+    }
+  }
+
+  __device__ static inline void init_rec_warp(const Shared& sh, float* rec) {
+    const int o = (threadIdx.x & 31) % H;
+#pragma unroll
+    for (int i = 0; i < RW; ++i) rec[i] = sh.p[kWarm + i * H + o];
   }
 
   // the parametric Q (RacerDubinsElevationSuspension._q_matrix), row-major
@@ -176,8 +203,22 @@ struct RacerLSTMUnc {
   }
 
   __device__ static inline void step(const Shared& sh, float* x, float* rec,
-                                     const float* u, float /*t*/, float dt,
+                                     const float* u, float t, float dt,
                                      float* y) {
+    step_impl<false>(sh, x, rec, u, t, dt, y);
+  }
+
+  __device__ static inline void step_warp(const Shared& sh, float* x, float* rec,
+                                          const float* u, float t, float dt,
+                                          float* y) {
+    step_impl<true>(sh, x, rec, u, t, dt, y);
+  }
+
+  template <bool kWarp>
+  __device__ static inline void step_impl(const Shared& sh, float* x, float* rec,
+                                          const float* u, float /*t*/, float dt,
+                                          float* y) {
+    constexpr int kCarry = kWarp ? 2 : 2 * H;  // the carry of one LSTM
     const float* p = sh.p;
     // the parametric derivatives over the first nine states and the LSTM
     // steering rate (_core_step)
@@ -190,7 +231,7 @@ struct RacerLSTMUnc {
     {
       const float feats[4] = {x[0], x[4], u[1], steer_d_param};
       float delta[1];
-      SteerNet::forward(p + kSteerNet, rec, rec + H, feats, delta);
+      lstm_forward<kWarp, SteerNet>(p + kSteerNet, rec, feats, delta);
       steer_d = steer_d_param + delta[0];
     }
 
@@ -235,7 +276,7 @@ struct RacerLSTMUnc {
       const float feats[11] = {x[0], x[23], x[5], x[4], x[6], throttle, brake_cmd, u[1],
                                sinf(x[25]), vel_d, yaw_d};
       float out[2];
-      MeanNet::forward(p + kMeanNet, rec + 2 * H, rec + 3 * H, feats, out);
+      lstm_forward<kWarp, MeanNet>(p + kMeanNet, rec + kCarry, feats, out);
       vel_d = vel_d + (fwd_gear ? out[0] : 0.0f);
       yaw_d = yaw_d + (fwd_gear ? out[1] : 0.0f);
     }
@@ -246,7 +287,7 @@ struct RacerLSTMUnc {
       const float feats[12] = {x[0], x[23], x[5], x[4], x[6], throttle, brake_cmd, u[1],
                                sinf(x[24]), sinf(x[25]), vel_d, yaw_d};
       float out[5];
-      UncNet::forward(p + kUncNet, rec + 4 * H, rec + 5 * H, feats, out);
+      lstm_forward<kWarp, UncNet>(p + kUncNet, rec + 2 * kCarry, feats, out);
       float q[5];
 #pragma unroll
       for (int i = 0; i < 5; ++i) q[i] = fabsf(lstm_sigmoid(out[i]) * p[kUncScale + i]);
@@ -270,7 +311,7 @@ struct RacerLSTMUnc {
       const float feats[12] = {x[0], x[23], x[5], x[4], x[6], throttle, brake_cmd, u[1],
                                sinf(x[24]), sinf(x[25]), vel_d, yaw_d};
       float out[5];
-      UncNet::forward(p + kUncNet, rec + 4 * H, rec + 5 * H, feats, out);
+      lstm_forward<kWarp, UncNet>(p + kUncNet, rec + 2 * kCarry, feats, out);
       q_param(p, x, vel_d, Q);
     }
     float A[16];

@@ -28,6 +28,12 @@
 // to U), add the LR term lrc mu (mu - 2 u) to the sample's sum (written to
 // lr_out[k]), step, write y.
 //
+// A model whose step is a network (kWarpStep: AutoRally's FNN, the racer
+// LSTMs) takes the warp form of both dynamics passes instead,
+// split_dynamics_warp_kernel and split_solve_dynamics_warp_kernel
+// (split_warp.cuh: one warp per sample, one network unit per lane); the
+// entries below pick the form at compile time, so a pair's library holds one.
+//
 // split_cost_kernel<Cost, O, C, EPI, WITH_LR> (the cost pass of both): a
 // block of kBlockSamples samples cuts the horizon into kCostChunks chunks of
 // ceil(T / kCostChunks) steps, one thread per (sample, chunk); neighbouring
@@ -75,6 +81,7 @@
 #include "philox.cuh"
 #include "rollout_kernel.cuh"
 #include "sample_kernels.cuh"
+#include "split_warp.cuh"
 
 namespace {
 
@@ -320,10 +327,15 @@ int split_dynamics_entry(int device, const float* x0, const float* U, int K,
                          int T, float dt, ModelArgs m, float* Y, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
-  split_dynamics_kernel<Dyn, X0><<<nb, kBlockSamples, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      x0, U, K, T, dt, m, Y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (HasWarpStep<Dyn>::value) {
+    constexpr int W = Dyn::kWarpSamples;
+    const int nb = (K + W - 1) / W;
+    split_dynamics_warp_kernel<Dyn, X0><<<nb, 32 * W, 0, s>>>(x0, U, K, T, dt, m, Y);
+  } else {
+    const int nb = (K + kBlockSamples - 1) / kBlockSamples;
+    split_dynamics_kernel<Dyn, X0><<<nb, kBlockSamples, 0, s>>>(x0, U, K, T, dt, m, Y);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,16 +346,29 @@ int split_solve_dynamics_entry(int device, int noise_kind, const float* x0,
                                void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (noise_kind == kGaussian) {
-    split_solve_dynamics_kernel<Dyn, kGaussian><<<nb, kBlockSamples, 0, s>>>(
-        x0, a, K, T, dt, m, U, Y, lr_out);
-  } else if (noise_kind == kNLN) {
-    split_solve_dynamics_kernel<Dyn, kNLN><<<nb, kBlockSamples, 0, s>>>(
-        x0, a, K, T, dt, m, U, Y, lr_out);
-  } else {
+  if (noise_kind != kGaussian && noise_kind != kNLN) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (HasWarpStep<Dyn>::value) {
+    constexpr int W = Dyn::kWarpSamples;
+    const int nb = (K + W - 1) / W;
+    if (noise_kind == kGaussian) {
+      split_solve_dynamics_warp_kernel<Dyn, kGaussian><<<nb, 32 * W, 0, s>>>(
+          x0, a, K, T, dt, m, U, Y, lr_out);
+    } else {
+      split_solve_dynamics_warp_kernel<Dyn, kNLN><<<nb, 32 * W, 0, s>>>(
+          x0, a, K, T, dt, m, U, Y, lr_out);
+    }
+  } else {
+    const int nb = (K + kBlockSamples - 1) / kBlockSamples;
+    if (noise_kind == kGaussian) {
+      split_solve_dynamics_kernel<Dyn, kGaussian><<<nb, kBlockSamples, 0, s>>>(
+          x0, a, K, T, dt, m, U, Y, lr_out);
+    } else {
+      split_solve_dynamics_kernel<Dyn, kNLN><<<nb, kBlockSamples, 0, s>>>(
+          x0, a, K, T, dt, m, U, Y, lr_out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -415,7 +440,9 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
 // use is RMPPI's candidates). Every pointer is memory of CUDA device
 // `device`, `stream` one of its streams. Each returns the CUDA error of its
 // launch (0 when it was accepted), or cudaErrorInvalidValue for a mode it
-// does not have.
+// does not have. Beside each dynamics entry, <entry>_form() says which form
+// of the pass it launches: 1 the warp form (split_warp.cuh), 0 the
+// one-thread kernel.
 #define SPLIT_DYNAMICS_ENTRY_(NAME, DYN, X0)                                  \
   int NAME(int device, const float* x0, const float* U, int K, int T,        \
            float dt, const float* dyn_params, const float* cost_params,      \
@@ -424,7 +451,8 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
     return split_dynamics_entry<DYN, X0>(                                    \
         device, x0, U, K, T, dt,                                             \
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, Y, stream);   \
-  }
+  }                                                                          \
+  int NAME##_form() { return HasWarpStep<DYN>::value ? 1 : 0; }
 #define SPLIT_DYNAMICS_X0_ENTRY(PAIR, DYN) \
   SPLIT_DYNAMICS_ENTRY_(split_dynamics_x0_##PAIR, DYN, true)
 #define SPLIT_COST_ENTRY(PAIR, DYN, COST)                                      \
@@ -456,5 +484,8 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
         device, noise_kind, x0, a, K, T, dt,                                  \
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, U, Y, lr_out,  \
         stream);                                                              \
+  }                                                                           \
+  int split_solve_dynamics_##PAIR##_form() {                                  \
+    return HasWarpStep<DYN>::value ? 1 : 0;                                   \
   }                                                                           \
   SPLIT_COST_ENTRY(PAIR, DYN, COST)

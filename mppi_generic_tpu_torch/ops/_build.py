@@ -175,6 +175,11 @@ SIGNATURES = {
         "riccati_ladder_ar_nn": _LADDER,
     },
 }
+# the split dynamics entries, each with <entry>_form() beside it: 1 where
+# it launches the warp form of its pass (split_dynamics_warp_kernel,
+# split_solve_dynamics_warp_kernel; csrc/split_warp.cuh), 0 where the
+# one-thread kernel; the wrappers count each launch under that name
+_SPLIT_DYNAMICS_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0")
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
                    "sample": _SAMPLE, "rmppi": _RMPPI, "split_dynamics": _SPLIT_DYNAMICS,
                    "split_solve_dynamics": _SPLIT_SOLVE_DYNAMICS, "split_cost": _SPLIT_COST,
@@ -183,6 +188,8 @@ for _pair, _kinds in PAIR_KERNELS.items():
     for _kind in _kinds:
         _lib, _fn = pair_entry(_pair, _kind)
         SIGNATURES.setdefault(_lib, {})[_fn] = _KIND_SIGNATURE[_kind]
+        if _kind in _SPLIT_DYNAMICS_KINDS:
+            SIGNATURES[_lib][_fn + "_form"] = []
 
 # launches of each CUDA kernel since the last reset_launch_counts(); each
 # wrapper adds one where it launches its kernel, and one to entry_counts
@@ -199,6 +206,8 @@ launch_counts = {
     "fused_sample_rollout_kernel": 0,
     "split_dynamics_kernel": 0,
     "split_solve_dynamics_kernel": 0,
+    "split_dynamics_warp_kernel": 0,
+    "split_solve_dynamics_warp_kernel": 0,
     "split_cost_kernel": 0,
 }
 
@@ -285,7 +294,12 @@ def build_all() -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if needed), with the
     ``argtypes`` and ``restype`` of every function declared."""
-    lib = ctypes.CDLL(build_all()[name]["path"])
+    return declare(ctypes.CDLL(build_all()[name]["path"]), name)
+
+
+def declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/<name>.cu``, with the ``argtypes`` and
+    ``restype`` of every function declared."""
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes

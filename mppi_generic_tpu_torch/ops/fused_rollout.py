@@ -186,15 +186,17 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # combined times of an A B B A turn in one call on an H100 80GB HBM3 at
 # 700 W (chip_smoke.py's split_kernels and split_x0_kernels phases, at the
 # paths' shapes; the times are in PERF.md), in ms, split against combined:
-# DI B1 0.0273 / 0.0405, B3 0.0874 / 0.0863; AutoRally B1 0.962 / 1.056, B3
-# 1.062 / 1.135, B1-x0 0.941 / 1.023 (9 x 256 x 150); cartpole B1 0.0389 /
-# 0.0359, B3 0.0938 / 0.0776; quadrotor quadratic B1 0.1129 / 0.1120, B3
-# 0.2093 / 0.1853; DI quadratic B1 0.0261 / 0.0274, B3 0.0942 / 0.0799;
-# Dubins quadratic B1 0.0384 / 0.0434, B3 0.1033 / 0.0931; bicycle B1
-# 0.1228 / 0.1531, B3 0.1819 / 0.2181; racer steering B1 1.122 / 1.196, B3
-# 1.226 / 1.234; racer uncertainty B1 5.721 / 5.879, B3 5.925 / 5.933; DI
-# robust B1-x0 0.0144 / 0.0167 (9 x 64 x 48). Any other pair or kernel
-# keeps the combined kernel.
+# DI B1 0.0273 / 0.0405, B3 0.0874 / 0.0863; cartpole B1 0.0389 / 0.0359,
+# B3 0.0938 / 0.0776; quadrotor quadratic B1 0.1129 / 0.1120, B3 0.2093 /
+# 0.1853; DI quadratic B1 0.0261 / 0.0274, B3 0.0942 / 0.0799; Dubins
+# quadratic B1 0.0384 / 0.0434, B3 0.1033 / 0.0931; bicycle B1 0.1228 /
+# 0.1531, B3 0.1819 / 0.2181; DI robust B1-x0 0.0144 / 0.0167 (9 x 64 x
+# 48). The network pairs, whose split dynamics passes run one warp per
+# sample (csrc/split_warp.cuh), measured again with it: AutoRally B1 0.287
+# / 1.049, B3 0.414 / 1.130, B1-x0 0.329 / 1.030 (9 x 256 x 150); racer
+# steering B1 0.498 / 1.212, B3 0.573 / 1.252; racer uncertainty B1 1.417 /
+# 5.935, B3 1.544 / 6.003. Any other pair or kernel keeps the combined
+# kernel.
 AUTO_SPLIT = {
     ("di_circle", "rollout"): True,
     ("di_circle", "solve"): False,
@@ -663,6 +665,18 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
     return costs, crash, out
 
 
+def split_kernel_name(entry):
+    """The kernel that the split dynamics pass ``entry`` ((library, C
+    function), as ``_build.pair_entry`` gives it) launches, as its library
+    reports it (``<function>_form``): ``split_dynamics_warp_kernel`` or
+    ``split_solve_dynamics_warp_kernel`` where the model's step is a network
+    (csrc/split_warp.cuh), else the one-thread ``split_dynamics_kernel`` or
+    ``split_solve_dynamics_kernel``."""
+    lib_name, fn = entry
+    base = "split_solve_dynamics" if fn.startswith("split_solve_dynamics_") else "split_dynamics"
+    return f"{base}_warp_kernel" if getattr(_lib(lib_name), fn + "_form")() else f"{base}_kernel"
+
+
 def split_dynamics_cuda(dynamics, cost, x0, U, dt):
     """Launch B1's split dynamics pass from one x0 (S,) or one per sample
     (K, S): the outputs Y (T, O, K)."""
@@ -675,8 +689,9 @@ def split_dynamics_cuda(dynamics, cost, x0, U, dt):
         dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
         *_model_args(dynamics, cost, dev), Y.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(status, "split_dynamics_kernel")
-    _build.count_launch("split_dynamics_kernel", fn)
+    name = split_kernel_name((lib_name, fn))
+    _check_status(status, name)
+    _build.count_launch(name, fn)
     return Y
 
 

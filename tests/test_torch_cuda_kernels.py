@@ -1171,7 +1171,9 @@ def test_split_rollout_kernels_match_plain(cuda_device, K, pair, mode):
         kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
                                                    split_cost=True)
     torch.cuda.synchronize()
-    assert fr.launch_counts["split_dynamics_kernel"] == 1
+    # AutoRally's pass is the warp form (csrc/split_warp.cuh), the DI's one thread a sample
+    assert fr.launch_counts["split_dynamics_warp_kernel" if pair == "ar_nn"
+                            else "split_dynamics_kernel"] == 1
     assert fr.launch_counts["split_cost_kernel"] == 1
     assert fr.launch_counts["rollout_costs_kernel"] == 0
     pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lr)
@@ -1213,7 +1215,8 @@ def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
     fr.reset_launch_counts()
     kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=True, **kw)
     torch.cuda.synchronize()
-    assert fr.launch_counts["split_solve_dynamics_kernel"] == 1
+    assert fr.launch_counts["split_solve_dynamics_warp_kernel" if pair == "ar_nn"
+                            else "split_solve_dynamics_kernel"] == 1
     assert fr.launch_counts["split_cost_kernel"] == 1
     assert fr.launch_counts["fused_solve_kernel"] == 0
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, **kw)
@@ -1486,3 +1489,114 @@ def test_split_x0_kernels_match_plain(cuda_device, pair):
     cc, ccrash = fr.fused_rollout_costs(dyn, cost, X0, U, DT, split_cost=False)
     assert torch.equal(ccrash, kcrash)
     _close(kc, cc, rtol=1e-5, atol=1e-4)
+
+
+# --- the warp form of the split dynamics passes (csrc/split_warp.cuh): the
+# network pairs at the paths' shapes ---
+WARP_PAIRS = ["ar_nn", "racer_steering_ar", "racer_unc_ar"]
+WARP_T = 150
+# (K, pure-noise share, stride): the full shape, the ragged one (a 10 %
+# pure-noise tail, stride 2; the racers' last block of 8 samples has 4) and
+# one whose last block has a single sample of AutoRally's 4 (5 of 8)
+WARP_SHAPES = {"full": (1920, 0.0, 0), "ragged": (1900, 0.1, 2),
+               "partial_block": (1901, 0.1, 2)}
+
+
+def _warp_inputs(pair, dev, K, p, stride, seed):
+    """(dynamics, cost, x0, U (K, T, C) clamped, mean, the Gaussian sampler)
+    of a warp pair on its partly-crashing map (``_pair_parts``)."""
+    dyn, cost, x0, std, offset = _pair_parts(pair, dev)
+    Cp = dyn.CONTROL_DIM
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mean = 0.2 * torch.randn((WARP_T, Cp), generator=g, device=dev)
+    mean[:, -1] += offset
+    samp = GaussianDistribution.create(std_dev=std, pure_noise_percentage=p, device=dev)
+    U, _ = samp.sample(g, mean, K, optimization_stride=stride)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    return dyn, cost, x0, U, mean, samp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(WARP_SHAPES))
+@pytest.mark.parametrize("pair", WARP_PAIRS)
+def test_split_warp_dynamics_pass_matches_plain(cuda_device, pair, shape):
+    """B1's split dynamics pass in its warp form against its plain version:
+    Y (T, O, K) bit for bit, and the whole split form's costs, crash flags
+    and block minima; one launch of split_dynamics_warp_kernel."""
+    K, p, stride = WARP_SHAPES[shape]
+    dyn, cost, x0, U, mean, samp = _warp_inputs(pair, cuda_device, K, p, stride, 31)
+    fr.reset_launch_counts()
+    Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_dynamics_warp_kernel"] == 1
+    assert fr.launch_counts["split_dynamics_kernel"] == 0
+    pY = fr.split_outputs_plain(dyn, x0, U, DT).permute(1, 2, 0)
+    assert torch.isfinite(pY).all()
+    _close(Y, pY, rtol=0, atol=0)
+    kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, split_cost=True)
+    pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    assert torch.equal(kmin, fr.block_minima_plain(pc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+@pytest.mark.parametrize("shape", list(WARP_SHAPES))
+@pytest.mark.parametrize("pair", WARP_PAIRS)
+def test_split_warp_solve_dynamics_pass_matches_plain(cuda_device, pair, shape, kind):
+    """B3's split dynamics pass in its warp form against its plain version:
+    U, Y and the per-sample LR sums bit for bit, then the whole split form's
+    costs and crash flags; one launch of split_solve_dynamics_warp_kernel."""
+    K, p, stride = WARP_SHAPES[shape]
+    dyn, cost, x0, _, mean, _ = _warp_inputs(pair, cuda_device, K, p, stride, 37)
+    std = _pair_parts(pair, cuda_device)[3]
+    kw = dict(std_dev=std, pure_noise_percentage=p, device=cuda_device)
+    samp = NLNDistribution.create(**kw) if kind == "nln" else GaussianDistribution.create(**kw)
+    seed = torch.tensor(K + 41, dtype=torch.int32, device=cuda_device)
+    nk = fr.noise_kind(samp)
+    fr.reset_launch_counts()
+    kU, kY, klr = fused_solve.split_solve_dynamics_cuda(dyn, cost, samp, nk, x0, mean, seed,
+                                                        DT, K, 0, stride, None)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_solve_dynamics_warp_kernel"] == 1
+    assert fr.launch_counts["split_solve_dynamics_kernel"] == 0
+    pU, plr = fused_solve._samples_plain(dyn, samp, mean, seed, K, 0, stride, None)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(klr, plr, rtol=0, atol=0)
+    _close(kY, fr.split_outputs_plain(dyn, x0, pU, DT).permute(1, 2, 0), rtol=0, atol=0)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    kc, kcrash, _, kcarry = fused_solve.fused_solve_carries(
+        *args, optimization_stride=stride, split_cost=True)
+    pc, pcrash, _, pcarry = fused_solve.fused_solve_split_plain(
+        *args, optimization_stride=stride)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_split_warp_dynamics_pass_per_sample_x0_matches_plain(cuda_device):
+    """AutoRally's split dynamics pass from one x0 per sample in its warp
+    form at RMPPI's stage-1 shape (9 candidates x 256 samples, T = 150): Y
+    bit for bit against the plain version, then the costs and crash flags
+    of the whole split form."""
+    dyn, cost, x0, std, _ = _pair_parts("ar_nn", cuda_device)
+    dx = torch.tensor([0.5, 0.3, 0.1, 0.0, -0.5, 0.0, 0.0], device=cuda_device)
+    w = torch.linspace(0.0, 1.0, 9, device=cuda_device)[:, None]
+    X0 = (x0[None] + w * dx[None]).repeat_interleave(256, dim=0).contiguous()
+    K = X0.shape[0]
+    g = torch.Generator(device=cuda_device).manual_seed(43)
+    sigma = torch.tensor([std], device=cuda_device).expand(WARP_T, C)
+    U = (sigma * torch.randn((K, WARP_T, C), generator=g, device=cuda_device)).contiguous()
+    fr.reset_launch_counts()
+    Y = fr.split_dynamics_cuda(dyn, cost, X0, U, DT)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"split_dynamics_x0_ar_nn": 1}
+    assert fr.launch_counts["split_dynamics_warp_kernel"] == 1
+    _close(Y, fr.split_outputs_plain(dyn, X0, U, DT).permute(1, 2, 0), rtol=0, atol=0)
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, X0, U, DT, split_cost=True)
+    pc, pcrash = fr.split_rollout_plain(dyn, cost, X0, U, DT)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+
