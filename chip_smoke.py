@@ -162,6 +162,7 @@ K_MAIN, K_RAGGED, T, C, S = 8192, 8000, 100, 2, 4
 DT, LAM, ALPHA = 0.02, 1.0, 0.0
 CLOSED_LOOP_STEPS = 100
 N_TIMED, N_TIMED_PLAIN = 100, 10
+N_TIMED_KERNEL = 20  # a kernel's profiler window (device_ms)
 
 # the robust controllers' configuration (bench.py:809-840)
 K_R, K_R_RAGGED, T_R = 2560, 2500, 50
@@ -2825,7 +2826,7 @@ def robust_family_loops(dev):
     paths = {}
     out = robust_family_loop(
         "rmppi_autorally", build_rmppi_ar("fused"), ar_x0(dev), n,
-        {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
+        {"rollout_costs_kernel": n - 1, split_name("ar_nn", "rmppi"): n,
          "riccati_ladder_kernel": n}, map="128", cost="ARRobustCost")
     paths["rmppi_autorally"] = out[:2]
     out = robust_family_loop(
@@ -3360,6 +3361,16 @@ def merge_checks(name, kcarry, pcarry, pc, X, T_, C_):
             check(f"{name} eta", ke, pe, "eta")]
 
 
+def carry_pass_work(K, T_, C_):
+    """(bytes, operations) of the carry rows of Smooth-MPPI's epilogue from
+    the costs (K,) and W (K, T, C): both read once, the rows written once;
+    s, the maxima, exp and the sums (5 a sample), the weighted sum (2 a
+    sample-entry)."""
+    nb = -(-K // fr.BLOCK)
+    TC = T_ * C_
+    return 4 * (K + K * TC + nb * (2 + TC)), 5 * K + 2 * K * TC
+
+
 def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False):
     """B4 of a pair (Gaussian, NLN, Smooth-MPPI, Smooth-MPPI with its
     epilogue over W; off the timed shape the Gaussian and the epilogue) and,
@@ -3398,6 +3409,13 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
             checks += [check(f"{pair} {name} new_deriv_mean", kout[3], pm, "new_mean"),
                        check(f"{pair} {name} baseline", kout[4], pb, "baseline"),
                        check(f"{pair} {name} eta", kout[5], pe, "eta")]
+            # the carry rows themselves (the warp form's carry pass, the
+            # one-thread kernel's epilogue): write_block_carry's order
+            kcarry = fr._sample_rollout_cuda(dyn, cost, s, fr.noise_kind(s), x0, mean, seed_t,
+                                             DT, LAM, ALPHA, K, 0, stride, state, True,
+                                             False, None)[4]
+            checks.append(check(f"{pair} {name} carry rows", kcarry,
+                                fr.block_carries_ordered(pc, pW, fr._f32(LAM)), "bitwise"))
         elif kind == "smooth":
             checks.append(check(f"{pair} {name} W", kout[3], pW, "bitwise"))
         crashed[name] = float(kout[1].float().mean())
@@ -3421,6 +3439,16 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
             t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
                 dyn, cost, ops, K, T_, kind, False, epilogue))
             times[name] = t
+            warp = fr.form_kernel_name("fused_sample_rollout",
+                                       fr._entry(dyn, cost, "sample")).endswith("_warp_kernel")
+            if epilogue and warp:
+                # the warp form's carry pass alone, and its plain version
+                # (the rows over W from the costs), both by device time
+                t = {"ms": device_ms(kernel, "block_carry_kernel"),
+                     "plain_ms": device_ms(lambda: fr.block_carries_plain(pc, pW, LAM)),
+                     "library_ms": None}
+                t["bound_ms"], t["bound_by"] = bound_ms(*carry_pass_work(K, T_, C_))
+                times["block_carry_kernel"] = t
     if pair in SOLVE_PAIRS:
         for kind in ("gaussian", "nln") if timed else ("gaussian",):
             s = zoo_sampler(kind, C_, std, dev, p, T_)
@@ -3518,19 +3546,95 @@ def split_x0_phase(dev, pair, map_kind=None, timed=False):
 # against the one-thread pass it replaced: the same sources built with
 # -DMPPI_SPLIT_ONE_THREAD into a directory of their own (build_one_thread;
 # the port never loads that build). The launch counters name the form that
-# each library reports (fr.split_kernel_name).
+# each library reports (fr.form_kernel_name).
 # ---------------------------------------------------------------------------
 WARP_PAIRS = ("ar_nn", "racer_steering_ar", "racer_unc_ar")
 WARP_SOURCES = tuple(sorted({_build.pair_entry(p, k)[0] for p in WARP_PAIRS
                              for k in ("split_dynamics", "split_dynamics_x0")
                              if _build.pair_entry(p, k) is not None}))
 ONE_THREAD = {}  # {source: the loaded one-thread build}, from build_one_thread
+# The one-thread rows of PERF.md §6 that the warp forms of B4 and B8 replace
+# (no one-thread build of them is kept, so their times are not measured
+# here): where each row stands, with the call it came from.
+B4_ROW = "PERF.md §6, one-thread B4 row, call 3 of its slice"
+ONE_THREAD_ROWS = {
+    ("sample", "ar_nn"): B4_ROW,
+    ("sample", "racer_steering_ar"): B4_ROW,
+    ("sample", "racer_unc_ar"): B4_ROW,
+    ("rmppi", "ar_nn"): "PERF.md §6, one-thread B8 row, call 5 of its slice",
+}
+
+
+def one_thread_fields(kind, pair):
+    """The ``kernels`` line's field naming the one-thread row a warp entry
+    replaces (none for a one-thread entry)."""
+    row = ONE_THREAD_ROWS.get((kind, pair))
+    if row is None or not split_name(pair, kind).endswith("_warp_kernel"):
+        return {}
+    return {"one_thread_row_from": row}
+
+
+# the kernel family of each kind of entry with a warp form
+FORM_BASE = {"split_dynamics": "split_dynamics", "split_dynamics_x0": "split_dynamics",
+             "split_solve_dynamics": "split_solve_dynamics",
+             "sample": "fused_sample_rollout", "rmppi": "rmppi_rollout"}
 
 
 def split_name(pair, kind):
-    """The counted name of the kernel that ``pair``'s split entry ``kind``
-    launches, as its library reports it."""
-    return fr.split_kernel_name(_build.pair_entry(pair, kind))
+    """The counted name of the kernel that ``pair``'s entry ``kind`` (a split
+    dynamics pass, B4 or B8) launches, as its library reports it."""
+    return fr.form_kernel_name(FORM_BASE[kind], _build.pair_entry(pair, kind))
+
+
+def sample_launches(pair, k, epilogue=False):
+    """The launches of k B4 solves of ``pair`` in the form its entry reports:
+    the sampling kernel, and with Smooth-MPPI's epilogue the merge and, in
+    the warp form, its carry pass (block_carry_kernel)."""
+    name = split_name(pair, "sample")
+    out = {name: k}
+    if epilogue:
+        out["flash_combine_kernel"] = k
+        if name == "fused_sample_rollout_warp_kernel":
+            out["block_carry_kernel"] = k
+    return out
+
+
+def device_ms(fn, name=None, n=N_TIMED_KERNEL):
+    """The median device ms of the kernel whose name holds ``name`` (every
+    kernel of a run, summed, with no ``name``) over the last n of 2 n runs
+    of ``fn`` (a launch sequence holding the kernel once), from a
+    torch.profiler window: device time alone, without the launches' gaps.
+    The runs are parted by a host pause, which leaves a gap of a
+    millisecond or more between them on the device's clock. The first n
+    runs warm the tracing up (a window opened late in a run missed the
+    kernels of its first runs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2 * n):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+    seen = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (name is None or name in e.name)),
+                  key=lambda e: e.time_range.start)
+    runs, end = [], None
+    for e in seen:
+        if end is None or e.time_range.start - end > 1000:  # microseconds
+            runs.append([])
+        runs[-1].append(e)
+        end = max(end or 0, e.time_range.end)
+    runs = runs[-n:]
+    sizes = {len(r) for r in runs}
+    if len(runs) != n or len(sizes) != 1 or (name is not None and sizes != {1}):
+        raise AssertionError(f"the profiler saw {len(seen)} launches of "
+                             f"{name or 'any kernel'} in {2 * n} runs, parted into runs of "
+                             f"{sorted(sizes)}")
+    us = [sum(e.time_range.elapsed_us() for e in r) for r in runs]
+    return statistics.median(us) / 1e3
 
 
 def build_one_thread():
@@ -3572,7 +3676,8 @@ def one_thread_split():
 
 def check_forms():
     """Each warp pair's split dynamics entries report the warp form in the
-    port's build and the one-thread form in build_one_thread's."""
+    port's build and the one-thread form in build_one_thread's; each B4 and
+    B8 entry the warp form for a warp pair, else the one-thread kernel."""
     for pair in WARP_PAIRS:
         for kind in ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0"):
             if _build.pair_entry(pair, kind) is None:
@@ -3582,6 +3687,15 @@ def check_forms():
                 one = split_name(pair, kind)
             if not (warp.endswith("_warp_kernel") and not one.endswith("_warp_kernel")):
                 raise AssertionError(f"{pair} {kind}: the builds report {warp} and {one}")
+    # B4 and B8 (no one-thread build): the warp form for the network pairs
+    for pair in _build.PAIR_KERNELS:
+        for kind, base in (("sample", "fused_sample_rollout"), ("rmppi", "rmppi_rollout")):
+            if _build.pair_entry(pair, kind) is None:
+                continue
+            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_kernel"
+            if split_name(pair, kind) != want:
+                raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
+                                     f"expected {want}")
 
 
 def turns(fn):
@@ -3711,6 +3825,8 @@ def pair_kernel_phases(dev):
     for pair in SAMPLE_PAIRS:
         K, K_rag, _ = pair_shape(pair)
         cases = [(K, 0.0, 0, None, True), (K_rag, 0.1, 2, None, False)]
+        if pair in WARP_PAIRS:  # the warp form's last block partly empty
+            cases.append((K_rag + 1, 0.1, 2, None, False))
         if pair in MAP_PAIRS:
             cases.append((K, 0.0, 0, "partial", False))
         for K_, p, stride, map_kind, timed_ in cases:
@@ -3776,14 +3892,34 @@ def pair_kernel_entries(errs, times, paths, warp_times=None):
             tt = times[("sample", "dubins_trajectory")]
             modes.update({f"goal trajectory {m}": v for m, v in tt.items()})
             err = max(err, errs[("sample", "dubins_trajectory")])
-        out.append(line(f"fused_sample_rollout_kernel<{dyn_name}, {cost_name}>", pair,
+        out.append(line(f"{split_name(pair, 'sample')}<{dyn_name}, {cost_name}>", pair,
                         "sample", "pallas_rollout.py:1631", t["B4 smooth epilogue"], err,
-                        K=K, T=T_, modes=modes,
-                        recurrent=pair in RACER_PAIRS))
+                        K=K, T=T_, modes=modes, recurrent=pair in RACER_PAIRS,
+                        **one_thread_fields("sample", pair),
+                        **({"b3_split_warp_pass_gaussian_ms":
+                            warp_times[pair]["B3 dynamics gaussian"]["ms"]}
+                           if pair in WARP_PAIRS else {})))
         if pair in SOLVE_PAIRS:
             out.append(line(f"fused_solve_kernel<{dyn_name}, {cost_name}>", pair, "solve",
                             "pallas_solve.py:103", t["B3 gaussian"], err, K=K, T=T_,
                             modes={"nln": t["B3 nln"]}))
+
+    # the warp form's carry pass (Smooth-MPPI's epilogue): launches over every
+    # path, timed at AutoRally's shape, the racers' as modes
+    carry = {pair: times[("sample", pair)]["block_carry_kernel"] for pair in WARP_PAIRS}
+    by = {p: l["block_carry_kernel"] for p, (l, _) in paths.items()
+          if l.get("block_carry_kernel", 0)}
+    t = carry["ar_nn"]
+    out.append({"name": "block_carry_kernel", "route": "cuda",
+                "source": "mppi_generic_tpu_torch/csrc/sample_warp.cuh",
+                "replaces": "mppi_generic_tpu/ops/pallas_rollout.py:1646-1650 (the "
+                            "epilogue of _fused_sample_call, :1631)",
+                "launches": sum(by.values()), "launches_by_path": by,
+                "max_abs_err": max(errs[("sample", pair)] for pair in WARP_PAIRS),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None, "K": K_AR, "T": T_AR,
+                "modes": {f"{pair} K={pair_shape(pair)[0]} T={pair_shape(pair)[2]}": carry[pair]
+                          for pair in RACER_PAIRS}})
 
     def forms(st, prefix):
         keys = ("ms", "combined_ms", "abba_ms", "split_faster", "bound_ms")
@@ -3856,8 +3992,8 @@ def pair_loops(dev):
         paths[path] = out[:2]
         return out
 
-    b4 = lambda k: {"fused_sample_rollout_kernel": k}
-    b4_smooth = lambda k: {"fused_sample_rollout_kernel": k, "flash_combine_kernel": k}
+    b4 = sample_launches
+    b4_smooth = lambda k, pair: sample_launches(pair, k, epilogue=True)
     b3 = lambda k: {"fused_solve_kernel": k, "flash_combine_kernel": k}
     smooth = lambda C_, std, T_: SmoothMPPIDistribution.create(
         std_dev=std, control_cost_coeff=[1.0] * C_, num_timesteps=T_, dt=DT_SMOOTH)
@@ -3868,9 +4004,10 @@ def pair_loops(dev):
               num_iters=1, kernel="fused_solve", split_cost=False)
     run("autorally_tsallis_fused_solve", VanillaMPPI(
         dyn, cost, ar_sampler("gaussian"), weight_transform="tsallis", tsallis_gamma=GAMMA,
-        tsallis_r=R_TS, **ar), ar_x0(dev), n, b4(n), map="128", profile=1)
+        tsallis_r=R_TS, **ar), ar_x0(dev), n, b4("ar_nn", n), map="128", profile=1)
     run("autorally_smooth_fused_solve", VanillaMPPI(
-        dyn, cost, smooth(C, AR_STD, T_AR), **ar), ar_x0(dev), n, b4_smooth(n), map="128")
+        dyn, cost, smooth(C, AR_STD, T_AR), **ar), ar_x0(dev), n, b4_smooth(n, "ar_nn"),
+        map="128")
     # the racer rows: CEM on the steering row, Smooth-MPPI on the uncertainty row
     for pair, path, extra in (
             ("racer_steering_ar", "racer_steering_cem_fused_solve",
@@ -3880,7 +4017,8 @@ def pair_loops(dev):
              dict(sampler=smooth(C, RACER_STD, T_RACER["racer_unc_ar"])))):
         rdyn, rcost = racer_parts(pair)
         samp = extra.pop("sampler")
-        want = b4_smooth(nh) if isinstance(samp, SmoothMPPIDistribution) else b4(nh)
+        want = (b4_smooth(nh, pair) if isinstance(samp, SmoothMPPIDistribution)
+                else b4(pair, nh))
         run(path, VanillaMPPI(rdyn, rcost, samp, dt=DT, lam=LAM, alpha=ALPHA,
                               num_timesteps=T_RACER[pair], num_rollouts=K_RC, num_iters=1,
                               kernel="fused_solve", split_cost=False, **extra),
@@ -3895,14 +4033,15 @@ def pair_loops(dev):
         std_dev=BI_STD), **bi), bx0, n, b3(n), map="128", profile=1)
     run("bicycle_tsallis_fused_solve", VanillaMPPI(
         bdyn, bcost, GaussianDistribution.create(std_dev=BI_STD), weight_transform="tsallis",
-        tsallis_gamma=GAMMA, tsallis_r=R_TS, **bi), bx0, n, b4(n), map="128")
+        tsallis_gamma=GAMMA, tsallis_r=R_TS, **bi), bx0, n, b4("bicycle_ar", n), map="128")
     # the quadrotor hover (tests/test_model_zoo.py:60-92) with Tsallis weights:
     # states finite, the position error recorded
     hover_mean = torch.tensor([0.0, 0.0, 0.0, HOVER_THRUST], device=dev).expand(T_HOVER, 4)
     qx0 = zoo_parts("quadrotor_quadratic", dev)[2]
     _, _, X, _ = run("quadrotor_hover_tsallis_fused_solve", build_zoo(
         "quadrotor_quadratic", "fused_solve", K=K_HOVER, T_=T_HOVER,
-        weight_transform="tsallis", tsallis_gamma=GAMMA, tsallis_r=R_TS), qx0, 100, b4(100),
+        weight_transform="tsallis", tsallis_gamma=GAMMA, tsallis_r=R_TS), qx0, 100,
+        b4("quadrotor_quadratic", 100),
         initial_mean=hover_mean)
     emit("quadrotor_hover_tsallis_position", position_error=float(
         torch.linalg.vector_norm(X[-1, :3])), final_state=X[-1].tolist())
@@ -3912,13 +4051,14 @@ def pair_loops(dev):
     qz[6] = 1.0
     tsallis = dict(weight_transform="tsallis", tsallis_gamma=GAMMA, tsallis_r=R_TS)
     run("quadrotor_waypoint_tsallis_fused_solve", build_zoo(
-        "quadrotor_map", "fused_solve", K=K_WAYPOINT, T_=T_HOVER, **tsallis), qz, n, b4(n),
+        "quadrotor_map", "fused_solve", K=K_WAYPOINT, T_=T_HOVER, **tsallis), qz, n,
+        b4("quadrotor_map", n),
         initial_mean=hover_mean)
     for pair, x0 in (("dubins_quadratic", torch.tensor([0.0, 0.0, 3.0], device=dev)),
                      ("dubins_trajectory", torch.tensor([0.0, 0.0, 3.0], device=dev)),
                      ("di_quadratic", torch.tensor([-9.0, -9.0, 0.1, 0.1], device=dev))):
         run(f"{pair}_tsallis_fused_solve", build_zoo(pair, "fused_solve", **tsallis), x0, n,
-            b4(n))
+            b4("dubins_quadratic" if pair == "dubins_trajectory" else pair, n))
     rdi = lambda **kw: VanillaMPPI(
         DoubleIntegratorDynamics.create(), DoubleIntegratorRobustCost(),
         GaussianDistribution.create(std_dev=[1.0, 1.0]), dt=DT, lam=LAM, alpha=ALPHA,
@@ -3926,7 +4066,7 @@ def pair_loops(dev):
         split_cost=False, **kw)
     rx0 = torch.tensor(X0_RDI, device=dev)
     run("di_robust_fused_solve", rdi(), rx0, n, b3(n))
-    run("di_robust_tsallis_fused_solve", rdi(**tsallis), rx0, n, b4(n))
+    run("di_robust_tsallis_fused_solve", rdi(**tsallis), rx0, n, b4("di_robust", n))
     # the split form forced: the cartpole swing-up and the quadrotor hover
     # with their bars (the zoo loops' configurations)
     swing = VanillaMPPI(CartpoleDynamics.create(), CartpoleQuadraticCost(coeffs=CART_COEFFS),
@@ -4002,7 +4142,7 @@ def pair_loops(dev):
     disturb[:, 2:] = torch.tensor(np.stack([rng.randn(2) * 0.02 for _ in range(nr)]),
                                   dtype=torch.float32, device=dev)
     x1 = lambda k, pair: {split_name(pair, "split_dynamics_x0"): k - 1,
-                          "split_cost_kernel": k - 1, "rmppi_rollout_kernel": k,
+                          "split_cost_kernel": k - 1, split_name(pair, "rmppi"): k,
                           "riccati_ladder_kernel": k}
     out = robust_family_loop("rmppi_di_robust_split",
                              build_rmppi_di_robust("fused", split_cost=True), rx0, nr,
@@ -4427,11 +4567,12 @@ def main() -> int:
 
     rt = robust_times
     kernels += [
-        family_entry("rmppi_rollout_kernel<AutorallyNNRolled, ARCost>", "rmppi_rollout.cu",
-                     "rmppi_rollout_ar_nn", "pallas_rollout.py:2127", rt["B8 ar_nn 128"],
-                     rchecks("rmppi_rollout_kernel", "B8 ar_nn"), K=K_AR, T=T_AR,
-                     device_functions=ar_functions,
-                     modes={"partly-crashing map": rt["B8 ar_nn partial"]}),
+        family_entry(f"{split_name('ar_nn', 'rmppi')}<AutorallyNNRolled, ARCost>",
+                     "rmppi_rollout.cu", "rmppi_rollout_ar_nn", "pallas_rollout.py:2127",
+                     rt["B8 ar_nn 128"], rchecks("rmppi_rollout_kernel", "B8 ar_nn"), K=K_AR,
+                     T=T_AR, device_functions=ar_functions,
+                     modes={"partly-crashing map": rt["B8 ar_nn partial"]},
+                     **one_thread_fields("rmppi", "ar_nn")),
         family_entry("rmppi_rollout_kernel<DoubleIntegrator, DoubleIntegratorRobustCost>",
                      "rmppi_rollout.cu", "rmppi_rollout_di_robust", "pallas_rollout.py:2127",
                      rt[f"B8 di_robust K={K_R} T={T_R}"],

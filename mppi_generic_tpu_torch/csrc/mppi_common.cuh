@@ -147,11 +147,13 @@ __device__ inline float block_sum(float v, float* red) {
 // Smooth-MPPI's W). Rows this block wrote in the same launch are read after
 // the block's barriers, so X must not be read through the read-only cache:
 // callers that write X pass a pointer without __restrict__. Threads map to
-// the TC outputs, so the reads are coalesced.
+// the TC outputs, so the reads are coalesced. A block may write only the
+// column tiles tile, tile + n_tiles, ... of kBlock outputs (m_b and d_b with
+// tile 0): each output is the same sum in the same order either way.
 template <int kBlock>
 __device__ inline void write_block_carry(float J, bool valid, float lam_w,
                                          const float* X, int K, int TC,
-                                         float* carry) {
+                                         float* carry, int tile = 0, int n_tiles = 1) {
   __shared__ float red[kBlock];
   __shared__ float w_s[kBlock];
   const float s = valid ? (-J) / lam_w : kMasked;
@@ -163,14 +165,14 @@ __device__ inline void write_block_carry(float J, bool valid, float lam_w,
   const int n_valid = min(kBlock, K - base);
   const float* Xb = X + static_cast<size_t>(base) * TC;
   float* row = carry + static_cast<size_t>(blockIdx.x) * (2 + TC);
-  for (int j = threadIdx.x; j < TC; j += kBlock) {
+  for (int j = tile * kBlock + threadIdx.x; j < TC; j += n_tiles * kBlock) {
     float a = 0.0f;
     for (int i = 0; i < n_valid; ++i) {
       a = a + w_s[i] * Xb[static_cast<size_t>(i) * TC + j];
     }
     row[2 + j] = a;
   }
-  if (threadIdx.x == 0) {
+  if (tile == 0 && threadIdx.x == 0) {
     row[0] = m_b;
     row[1] = d_b;
   }

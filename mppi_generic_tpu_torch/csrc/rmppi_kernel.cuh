@@ -11,7 +11,8 @@
 // wrapper fused_rmppi_rollout launches this kernel through the C entries
 // (RMPPI_ENTRY).
 //
-// rmppi_rollout_kernel<Dyn, Cost>: one thread per sample, the T-step loop
+// rmppi_rollout_kernel<Dyn, Cost>: one thread per sample (the analytic
+// models; a network model runs the warp form of rmppi_warp.cuh), the T-step loop
 // inside the thread, both states in registers. Every thread first stages the
 // model's parameters into shared memory (Dyn::Shared, stage_model in
 // mppi_common.cuh, before any sample past K returns), and both systems step
@@ -55,6 +56,8 @@
 #include <stddef.h>
 
 #include "mppi_common.cuh"
+#include "rmppi_warp.cuh"
+#include "warp_model.cuh"
 
 namespace {
 
@@ -144,6 +147,8 @@ rmppi_rollout_kernel(const float* __restrict__ x0_nom,
   crash_out[k] = crash_r;
 }
 
+// B8 for the pair (Dyn, Cost): the warp form (rmppi_warp.cuh) for a model
+// that has it (HasWarpStep, warp_model.cuh), else the one-thread kernel.
 template <class Dyn, class Cost>
 int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
                 const float* U, int K, int T, float dt, ModelArgs m,
@@ -152,11 +157,18 @@ int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
                 float* s_fb, int* crash, float* U_real, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
-  rmppi_rollout_kernel<Dyn, Cost>
-      <<<nb, kBlockSamples, 0, static_cast<cudaStream_t>(stream)>>>(
-          x0_nom, x0_real, U, K, T, dt, m, cons, gains, sigma, coeff, fb_gain,
-          s_nom, j_real, s_fb, crash, U_real);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (HasWarpStep<Dyn>::value) {
+    constexpr int NW = Dyn::kWarpSamples;
+    rmppi_rollout_warp_kernel<Dyn, Cost><<<(K + NW - 1) / NW, 32 * NW, 0, s>>>(
+        x0_nom, x0_real, U, K, T, dt, m, cons, gains, sigma, coeff, fb_gain, s_nom,
+        j_real, s_fb, crash, U_real);
+  } else {
+    const int nb = (K + kBlockSamples - 1) / kBlockSamples;
+    rmppi_rollout_kernel<Dyn, Cost><<<nb, kBlockSamples, 0, s>>>(
+        x0_nom, x0_real, U, K, T, dt, m, cons, gains, sigma, coeff, fb_gain, s_nom,
+        j_real, s_fb, crash, U_real);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -169,6 +181,8 @@ int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
 // kernel. cons is the (4, C) table [lower; upper; deadband; zero control];
 // gains (T, C, S); sigma (T, C); coeff (C,); fb_gain = 0.5 lambda
 // (1 - alpha). Returns the CUDA error of the launch (0 when it was accepted).
+// Beside it, NAME_form() says which form it launches: 1 the warp form
+// (rmppi_rollout_warp_kernel), 0 the one-thread kernel.
 #define RMPPI_ENTRY(NAME, DYN, COST)                                          \
   int NAME(int device, const float* x0_nom, const float* x0_real,            \
            const float* U, int K, int T, float dt, const float* dyn_params,  \
@@ -181,4 +195,5 @@ int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
         device, x0_nom, x0_real, U, K, T, dt,                                \
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, cons, gains,  \
         sigma, coeff, fb_gain, s_nom, j_real, s_fb, crash, U_real, stream);  \
-  }
+  }                                                                          \
+  int NAME##_form() { return HasWarpStep<DYN>::value ? 1 : 0; }

@@ -30,7 +30,10 @@
 // MPPI carves out in derivative space: w = noise, or dm + noise, or dm where
 // pinned; u = mean + w dt_smooth, then clamp; W is emitted unclamped. It
 // emits costs, crash flags, U and (Smooth) W; with EPILOGUE (Smooth only,
-// :1646-1650) each block reduces its samples into a carry row over W.
+// :1646-1650) each block reduces its samples into a carry row over W. A
+// network model (HasWarpStep) runs B4's warp form instead, one warp per
+// sample (sample_warp.cuh); both take a step's controls from
+// sample_controls (sample_draw.cuh).
 //
 // What bounds them on this card: operations, not bytes. Per sample-step they
 // run a ten-round Philox (about 90 integer operations), the Box-Muller logf,
@@ -73,48 +76,10 @@
 
 #include "mppi_common.cuh"
 #include "philox.cuh"
+#include "sample_draw.cuh"
+#include "sample_warp.cuh"
 
 namespace {
-
-constexpr int kGaussian = 0, kNLN = 1, kSmooth = 2;
-
-struct SampleArgs {
-  const float* mean;    // (T, C) control mean
-  const float* sigma;   // (T, C) std-dev of this iteration
-  const float* aux;     // (T, C) NLN: raw std-dev; Smooth: derivative mean
-  const float* lr_tab;  // B3: (T, C) coeff / sigma^2; B4: (C,) coeff
-  const float* cons;    // (4, C) [lo; hi; deadband; zero control]
-  const int* seed;      // () the iteration's seed, on the device
-  const float* zinj;    // (n_z, K, T, C) injected normals, or null
-  int stride;           // steps t < stride are pinned to the mean
-  float pure_thresh;    // (1 - p) K: samples k >= it carry no mean
-  float dt_smooth;      // Smooth-MPPI's derivative-integration step
-};
-
-// eps[c] of sample k at step t: the standard normal, or NLN's
-// z * expf(aux * z2)
-template <int C, int NOISE>
-__device__ inline void draw_eps(const SampleArgs& a, uint32_t seed, int k,
-                                int K, int T, int t, float* eps) {
-  float z[C];
-  float z2[C];
-  if (a.zinj != nullptr) {
-    const size_t off = (static_cast<size_t>(k) * T + t) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) z[c] = a.zinj[off + c];
-    if (NOISE == kNLN) {
-      const size_t off2 = static_cast<size_t>(K) * T * C + off;
-#pragma unroll
-      for (int c = 0; c < C; ++c) z2[c] = a.zinj[off2 + c];
-    }
-  } else {
-    philox_normals<C, NOISE == kNLN>(seed, k, t, z, z2);
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    eps[c] = NOISE == kNLN ? z[c] * expf(a.aux[t * C + c] * z2[c]) : z[c];
-  }
-}
 
 template <class Dyn, class Cost, int NOISE>
 __global__ void __launch_bounds__(kBlockSamples)
@@ -213,37 +178,10 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
     int crash = 0;
     float acc = 0.0f;
     const bool pure = static_cast<float>(k) >= a.pure_thresh;
-    const size_t row = static_cast<size_t>(k) * TC;
     for (int t = 0; t < T; ++t) {
-      float eps[C];
-      draw_eps<C, NOISE>(a, seed, k, K, T, t, eps);
-      const bool pin = k == 0 || t < a.stride;
       float u[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float m = a.mean[t * C + c];
-        const float noise = a.sigma[t * C + c] * eps[c];
-        float v;
-        if (NOISE == kSmooth) {
-          const float dm = a.aux[t * C + c];
-          const float w = pin ? dm : (pure ? noise : dm + noise);
-          if (W != nullptr) W[row + t * C + c] = w;
-          v = m + w * a.dt_smooth;
-        } else {
-          v = pin ? m : (pure ? noise : m + noise);
-        }
-        v = clamp_channel(v, a.cons, C, c);
-        u[c] = v;
-        if (U != nullptr) U[row + t * C + c] = v;
-      }
-      float lr_t = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float mu = pure ? 0.0f : a.mean[t * C + c];
-        const float sg = a.sigma[t * C + c];
-        lr_t = lr_t + a.lr_tab[c] * mu * (mu - 2.0f * u[c]) / (sg * sg);
-      }
-      lr_t = lr_gain * lr_t;
+      const float lr_t =
+          sample_controls<C, NOISE>(a, seed, k, K, T, t, pure, lr_gain, U, W, u);
       step_model<Dyn>(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
       acc = acc + Cost::running_cost(cp, y, u, t, &crash) + lr_t;
     }
@@ -278,7 +216,10 @@ int fused_solve_entry(int device, int noise_kind, const float* x0,
 
 // B4 for the pair (Dyn, Cost); noise_kind 0 Gaussian, 1 NLN, 2 Smooth-MPPI
 // (aux is then the derivative mean). With epilogue != 0 (Smooth only) W and
-// the carry rows over W are written.
+// the carry rows over W are written. A model with the warp form
+// (HasWarpStep, warp_model.cuh) runs it (sample_warp.cuh: the warp kernel,
+// then the carry pass with the epilogue); every other model the one-thread
+// kernel, its epilogue inside.
 template <class Dyn, class Cost>
 int fused_sample_entry(int device, int noise_kind, int epilogue,
                        const float* x0, const SampleArgs& a, int K, int T,
@@ -287,28 +228,35 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
                        float* carry, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
+  if (noise_kind != kGaussian && noise_kind != kNLN && noise_kind != kSmooth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (epilogue && (noise_kind != kSmooth || W == nullptr || carry == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (HasWarpStep<Dyn>::value) {
+    return static_cast<int>(launch_sample_warp<Dyn, Cost>(
+        noise_kind, epilogue != 0, x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U,
+        W, carry, s));
+  } else {
+    const int nb = (K + kBlockSamples - 1) / kBlockSamples;
 #define B4_LAUNCH(NOISE, EPI)                                              \
   fused_sample_rollout_kernel<Dyn, Cost, NOISE, EPI>                       \
       <<<nb, kBlockSamples, 0, s>>>(x0, a, K, T, dt, m, lr_gain, lam_w,    \
                                     costs, crash, U, W, carry)
-  if (epilogue) {
-    if (noise_kind != kSmooth || W == nullptr || carry == nullptr) {
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (epilogue) {
+      B4_LAUNCH(kSmooth, true);
+    } else if (noise_kind == kGaussian) {
+      B4_LAUNCH(kGaussian, false);
+    } else if (noise_kind == kNLN) {
+      B4_LAUNCH(kNLN, false);
+    } else {
+      B4_LAUNCH(kSmooth, false);
     }
-    B4_LAUNCH(kSmooth, true);
-  } else if (noise_kind == kGaussian) {
-    B4_LAUNCH(kGaussian, false);
-  } else if (noise_kind == kNLN) {
-    B4_LAUNCH(kNLN, false);
-  } else if (noise_kind == kSmooth) {
-    B4_LAUNCH(kSmooth, false);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
 #undef B4_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace
@@ -341,7 +289,9 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
 // derivative mean). U and W may be null (not emitted); with epilogue != 0
 // (Smooth only) W must be given and the carry rows over W are written.
 // Returns the CUDA error of the launch, or cudaErrorInvalidValue for a mode
-// this kernel does not have.
+// this kernel does not have. Beside it, NAME_form() says which form it
+// launches: 1 the warp form (fused_sample_rollout_warp_kernel, and with the
+// epilogue block_carry_kernel), 0 the one-thread kernel.
 #define SAMPLE_ENTRY(NAME, DYN, COST)                                         \
   int NAME(int device, int noise_kind, int epilogue, const float* x0,        \
            const float* mean, const float* sigma, const float* aux,          \
@@ -357,4 +307,5 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
         device, noise_kind, epilogue, x0, a, K, T, dt,                       \
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, lr_gain,      \
         lam_w, costs, crash, U, W, carry, stream);                           \
-  }
+  }                                                                          \
+  int NAME##_form() { return HasWarpStep<DYN>::value ? 1 : 0; }

@@ -328,7 +328,7 @@ int split_dynamics_entry(int device, const float* x0, const float* U, int K,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (HasWarpStep<Dyn>::value) {
+  if constexpr (kSplitWarp<Dyn>) {
     constexpr int W = Dyn::kWarpSamples;
     const int nb = (K + W - 1) / W;
     split_dynamics_warp_kernel<Dyn, X0><<<nb, 32 * W, 0, s>>>(x0, U, K, T, dt, m, Y);
@@ -350,7 +350,7 @@ int split_solve_dynamics_entry(int device, int noise_kind, const float* x0,
   if (noise_kind != kGaussian && noise_kind != kNLN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (HasWarpStep<Dyn>::value) {
+  if constexpr (kSplitWarp<Dyn>) {
     constexpr int W = Dyn::kWarpSamples;
     const int nb = (K + W - 1) / W;
     if (noise_kind == kGaussian) {
@@ -452,7 +452,7 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
         device, x0, U, K, T, dt,                                             \
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, Y, stream);   \
   }                                                                          \
-  int NAME##_form() { return HasWarpStep<DYN>::value ? 1 : 0; }
+  int NAME##_form() { return kSplitWarp<DYN> ? 1 : 0; }
 #define SPLIT_DYNAMICS_X0_ENTRY(PAIR, DYN) \
   SPLIT_DYNAMICS_ENTRY_(split_dynamics_x0_##PAIR, DYN, true)
 #define SPLIT_COST_ENTRY(PAIR, DYN, COST)                                      \
@@ -486,6 +486,6 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
         stream);                                                              \
   }                                                                           \
   int split_solve_dynamics_##PAIR##_form() {                                  \
-    return HasWarpStep<DYN>::value ? 1 : 0;                                   \
+    return kSplitWarp<DYN> ? 1 : 0;                                           \
   }                                                                           \
   SPLIT_COST_ENTRY(PAIR, DYN, COST)

@@ -45,55 +45,25 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "mppi_common.cuh"
-#include "philox.cuh"
-#include "sample_kernels.cuh"
+#include "sample_draw.cuh"
 #include "warp.cuh"
+#include "warp_model.cuh"
 
 namespace {
 
-// A model with the warp form declares kWarpStep = true, kWarpSamples (the
-// samples, one warp each, of a block) and has stage_warp(params[, dyn_map],
-// sh), step_warp(sh, x, rec, u, t, dt, y) and, if recurrent, RW (the warp
-// form's carry floats) and init_rec_warp(sh, rec). On an H100 AutoRally's
-// small table (5.6 KB) takes 4 samples a block, whose finer blocks balance
-// the SMs better (RMPPI's 2,304 samples: 576 blocks), and the racer models'
-// tables (7 and 26 KB), staged by every block, take 8 (PERF.md §6).
-// A build with MPPI_SPLIT_ONE_THREAD defined gives every model the one-thread
-// passes: chip_smoke.py builds the network pairs' split sources so to time
-// the two forms against each other; the port never loads such a build.
-template <class D, class = void>
-struct HasWarpStep : std::false_type {};
-#ifndef MPPI_SPLIT_ONE_THREAD
+// The split passes take the warp form where the model has it
+// (HasWarpStep, warp_model.cuh). A build with MPPI_SPLIT_ONE_THREAD defined
+// gives every model the one-thread passes: chip_smoke.py builds the network
+// pairs' split sources so to time the two forms against each other; the
+// port never loads such a build. The define changes no other kernel's form.
+#ifdef MPPI_SPLIT_ONE_THREAD
 template <class D>
-struct HasWarpStep<D, std::void_t<decltype(D::kWarpStep)>>
-    : std::integral_constant<bool, D::kWarpStep> {};
+constexpr bool kSplitWarp = false;
+#else
+template <class D>
+constexpr bool kSplitWarp = HasWarpStep<D>::value;
 #endif
-
-template <class D, class = void>
-struct WarpRecDim {
-  static constexpr int value = 0;
-};
-template <class D>
-struct WarpRecDim<D, std::void_t<decltype(D::RW)>> {
-  static constexpr int value = D::RW;
-};
-
-template <class Dyn>
-__device__ inline void stage_model_warp(const ModelArgs& m, typename Dyn::Shared* sh) {
-  if constexpr (ReadsDynMap<Dyn>::value) {
-    Dyn::stage_warp(m.dyn_params, m.dyn_map, sh);
-  } else {
-    Dyn::stage_warp(m.dyn_params, sh);
-  }
-}
-
-template <class Dyn>
-__device__ inline void init_rec_warp(const typename Dyn::Shared& sh, float* rec) {
-  if constexpr (WarpRecDim<Dyn>::value > 0) Dyn::init_rec_warp(sh, rec);
-}
 
 // Y[t, :, base + i] for the block's valid samples from the step's tile
 // ys[o][i]: thread (o, i) writes one float, W neighbours a row

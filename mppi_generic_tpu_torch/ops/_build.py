@@ -175,11 +175,14 @@ SIGNATURES = {
         "riccati_ladder_ar_nn": _LADDER,
     },
 }
-# the split dynamics entries, each with <entry>_form() beside it: 1 where
-# it launches the warp form of its pass (split_dynamics_warp_kernel,
-# split_solve_dynamics_warp_kernel; csrc/split_warp.cuh), 0 where the
-# one-thread kernel; the wrappers count each launch under that name
-_SPLIT_DYNAMICS_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0")
+# the entries with <entry>_form() beside them: 1 where the entry launches the
+# warp form of its kernel (split_dynamics_warp_kernel,
+# split_solve_dynamics_warp_kernel: csrc/split_warp.cuh;
+# fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel:
+# csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 0
+# where the one-thread kernel; the wrappers count each launch under that name
+_FORM_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0", "sample",
+               "rmppi")
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
                    "sample": _SAMPLE, "rmppi": _RMPPI, "split_dynamics": _SPLIT_DYNAMICS,
                    "split_solve_dynamics": _SPLIT_SOLVE_DYNAMICS, "split_cost": _SPLIT_COST,
@@ -188,7 +191,7 @@ for _pair, _kinds in PAIR_KERNELS.items():
     for _kind in _kinds:
         _lib, _fn = pair_entry(_pair, _kind)
         SIGNATURES.setdefault(_lib, {})[_fn] = _KIND_SIGNATURE[_kind]
-        if _kind in _SPLIT_DYNAMICS_KINDS:
+        if _kind in _FORM_KINDS:
             SIGNATURES[_lib][_fn + "_form"] = []
 
 # launches of each CUDA kernel since the last reset_launch_counts(); each
@@ -200,10 +203,13 @@ launch_counts = {
     "flash_combine_kernel": 0,
     "tsallis_reduce_kernel": 0,
     "rmppi_rollout_kernel": 0,
+    "rmppi_rollout_warp_kernel": 0,
     "riccati_backward_kernel": 0,
     "riccati_ladder_kernel": 0,
     "fused_solve_kernel": 0,
     "fused_sample_rollout_kernel": 0,
+    "fused_sample_rollout_warp_kernel": 0,
+    "block_carry_kernel": 0,
     "split_dynamics_kernel": 0,
     "split_solve_dynamics_kernel": 0,
     "split_dynamics_warp_kernel": 0,

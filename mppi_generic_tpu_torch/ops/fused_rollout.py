@@ -7,7 +7,10 @@ its TPU kernel ``_fused_call`` in three modes, with ``flash_combine_kernel``
 ``csrc/tsallis_reduce.cu`` its TPU kernel ``_tsallis_reduce_call``, the one
 in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 ``fused_sample_rollout_kernel`` (``csrc/sample_kernels.cuh``) its TPU kernel
-``_fused_sample_call``.
+``_fused_sample_call``. For the network models B4, B8 and the split
+dynamics passes run a warp form, one warp per sample
+(``csrc/sample_warp.cuh``, ``csrc/rmppi_warp.cuh``, ``csrc/split_warp.cuh``),
+counted under the name each entry reports (``form_kernel_name``).
 
 * ``fused_rollout_costs``: per sample, a T-step rollout with running cost,
   terminal cost and (with ``lr_params``) the Gaussian likelihood-ratio cost
@@ -432,6 +435,36 @@ def block_carries_plain(costs, U, lam, block=BLOCK):
     return torch.cat([m[:, None], w.sum(dim=1)[:, None], num], dim=1)
 
 
+def block_carries_ordered(costs, X, lam, block=BLOCK):
+    """``block_carries_plain`` in the order of the kernels'
+    ``write_block_carry`` (csrc/mppi_common.cuh): each block's maximum and
+    weight sum by its tree of halving strides, num_b summed over the
+    block's valid samples left to right. Equal bit for bit to the carry
+    rows of B4's epilogue (``block_carry_kernel`` and the one-thread
+    kernel's) on the same costs and X."""
+    K, T, C = X.shape
+    nb = -(-K // block)
+    pad = nb * block - K
+    s = torch.nn.functional.pad(true_div(-costs, lam), (0, pad), value=_MASKED)
+    s = s.reshape(nb, block)
+    m, off = s, block // 2
+    while off:
+        m = torch.fmax(m[:, :off], m[:, off:2 * off])
+        off //= 2
+    w = torch.exp(s - m)
+    d, off = w, block // 2
+    while off:
+        d = d[:, :off] + d[:, off:2 * off]
+        off //= 2
+    valid = (torch.arange(nb * block, device=X.device) < K).reshape(nb, block)
+    Xb = torch.nn.functional.pad(X.reshape(K, T * C), (0, 0, 0, pad)).reshape(
+        nb, block, T * C)
+    num = torch.zeros((nb, T * C), dtype=torch.float32, device=X.device)
+    for i in range(block):
+        num = torch.where(valid[:, i, None], num + w[:, i, None] * Xb[:, i], num)
+    return torch.cat([m, d, num], dim=1)
+
+
 def block_minima_plain(costs, block=BLOCK):
     """Plain version of kernel 1's Tsallis pass 1: each block's minimum
     cost (nb,), 1e30 for the samples past K. A NaN cost gives a NaN
@@ -665,16 +698,22 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
     return costs, crash, out
 
 
-def split_kernel_name(entry):
-    """The kernel that the split dynamics pass ``entry`` ((library, C
-    function), as ``_build.pair_entry`` gives it) launches, as its library
-    reports it (``<function>_form``): ``split_dynamics_warp_kernel`` or
-    ``split_solve_dynamics_warp_kernel`` where the model's step is a network
-    (csrc/split_warp.cuh), else the one-thread ``split_dynamics_kernel`` or
-    ``split_solve_dynamics_kernel``."""
+@functools.cache
+def _launches_warp(lib, fn):
+    """Whether the entry ``fn`` of the loaded library ``lib`` launches the
+    warp form (its ``<fn>_form()``, a constant of the build)."""
+    return bool(getattr(lib, fn + "_form")())
+
+
+def form_kernel_name(base, entry):
+    """The kernel of the family ``base`` (``split_dynamics``,
+    ``split_solve_dynamics``, ``fused_sample_rollout``, ``rmppi_rollout``)
+    that the entry ``entry`` ((library, C function), as
+    ``_build.pair_entry`` gives it) launches, as its library reports it:
+    ``<base>_warp_kernel`` where the model's step is a network, else the
+    one-thread ``<base>_kernel``."""
     lib_name, fn = entry
-    base = "split_solve_dynamics" if fn.startswith("split_solve_dynamics_") else "split_dynamics"
-    return f"{base}_warp_kernel" if getattr(_lib(lib_name), fn + "_form")() else f"{base}_kernel"
+    return f"{base}_warp_kernel" if _launches_warp(_lib(lib_name), fn) else f"{base}_kernel"
 
 
 def split_dynamics_cuda(dynamics, cost, x0, U, dt):
@@ -689,7 +728,7 @@ def split_dynamics_cuda(dynamics, cost, x0, U, dt):
         dev.index, x0.data_ptr(), U.data_ptr(), K, T, _f32(dt),
         *_model_args(dynamics, cost, dev), Y.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    name = split_kernel_name((lib_name, fn))
+    name = form_kernel_name("split_dynamics", (lib_name, fn))
     _check_status(status, name)
     _build.count_launch(name, fn)
     return Y
@@ -923,8 +962,9 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
         _lr_gain(lam, alpha), s_nom.data_ptr(), j_real.data_ptr(),
         s_fb.data_ptr(), crash.data_ptr(), U_real.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(status, "rmppi_rollout_kernel")
-    _build.count_launch("rmppi_rollout_kernel", entry)
+    name = form_kernel_name("rmppi_rollout", (lib_name, entry))
+    _check_status(status, name)
+    _build.count_launch(name, entry)
     return s_nom, j_real, s_fb, crash, U_real
 
 
@@ -1060,8 +1100,9 @@ def sample_rollout_plain(dynamics, cost, sampler, x0, mean, seed, dt, lam, alpha
 def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
                          alpha, K, iteration, stride, sampler_state, epilogue,
                          emit_samples, injected_noise):
-    """Launch ``fused_sample_rollout_kernel``: (costs, crash, U or None,
-    W or None, carry or None)."""
+    """Launch B4 in the form its entry reports (``form_kernel_name``; the
+    warp form's epilogue is a second launch, ``block_carry_kernel``):
+    (costs, crash, U or None, W or None, carry or None)."""
     lib_name, entry = _entry(dynamics, cost, "sample")
     T, C = mean.shape
     S = dynamics.STATE_DIM
@@ -1095,8 +1136,11 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
         _f32(getattr(sampler, "dt_smooth", 0.0)), _f32(dt), _lr_gain(lam, alpha),
         _f32(lam), *model, costs.data_ptr(), crash.data_ptr(),
         _ptr(U), _ptr(W), _ptr(carry), torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(status, "fused_sample_rollout_kernel")
-    _build.count_launch("fused_sample_rollout_kernel", entry)
+    name = form_kernel_name("fused_sample_rollout", (lib_name, entry))
+    _check_status(status, name)
+    _build.count_launch(name, entry)
+    if epilogue and name == "fused_sample_rollout_warp_kernel":
+        _build.count_launch("block_carry_kernel")  # the warp form's carry pass
     return costs, crash, U, W, carry
 
 

@@ -177,7 +177,7 @@ def split_solve_dynamics_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt,
         fr._ptr(aux), lrc.data_ptr(), cons.data_ptr(), seed.data_ptr(), fr._ptr(z),
         K, T, int(stride), fr._f32(sampler.pure_threshold(K)), fr._f32(dt), *model,
         U.data_ptr(), Y.data_ptr(), lr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    name = fr.split_kernel_name((lib_name, fn))
+    name = fr.form_kernel_name("split_solve_dynamics", (lib_name, fn))
     fr._check_status(status, name)
     _build.count_launch(name, fn)
     return U, Y, lr

@@ -1600,3 +1600,117 @@ def test_split_warp_dynamics_pass_per_sample_x0_matches_plain(cuda_device):
     _close(kc, pc, rtol=0, atol=0)
     assert torch.equal(kcrash, pcrash)
 
+
+
+# --- the warp form of B4 and B8 (csrc/sample_warp.cuh, csrc/rmppi_warp.cuh):
+# the network pairs at the paths' shapes ---
+# (K, T, pure-noise share, stride): K = 1920 fills every block; 1900 and 1901
+# leave the last block of 4 (AutoRally) or 8 (racers) warps partly empty,
+# with a pure-noise tail and stride 2; K = 3 is one block. T = 150 and 100
+# end in a partial chunk of 32 steps, T = 31 is a single partial chunk.
+B4_WARP_SHAPES = {"1920x150": (1920, 150, 0.0, 0), "1900x100": (1900, 100, 0.1, 2),
+                  "1901x150": (1901, 150, 0.1, 2), "3x31": (3, 31, 0.0, 1)}
+# (sampler, epilogue, injected normals)
+B4_WARP_MODES = {"gaussian": ("gaussian", False, False), "nln": ("nln", False, False),
+                 "smooth": ("smooth", False, False),
+                 "smooth_epilogue": ("smooth", True, False),
+                 "nln_injected": ("nln", False, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(B4_WARP_MODES))
+@pytest.mark.parametrize("shape", list(B4_WARP_SHAPES))
+@pytest.mark.parametrize("pair", WARP_PAIRS)
+def test_sample_warp_matches_plain(cuda_device, pair, shape, mode):
+    """B4's warp form against its plain version: costs, crash flags, U, W
+    and (Smooth's epilogue) the 64-sample carry rows bit for bit, the carry
+    rows against write_block_carry's order (``fr.block_carries_ordered``);
+    one launch of fused_sample_rollout_warp_kernel, and of block_carry_kernel
+    with the epilogue."""
+    dev = cuda_device
+    K, T_, p, stride = B4_WARP_SHAPES[shape]
+    kind, epilogue, inject = B4_WARP_MODES[mode]
+    dyn, cost, x0, std, offset = _pair_parts(pair, dev)
+    Cp = dyn.CONTROL_DIM
+    kw = dict(std_dev=std, control_cost_coeff=[1.0] * Cp, pure_noise_percentage=p, device=dev)
+    if kind == "smooth":
+        samp = SmoothMPPIDistribution.create(num_timesteps=T_, dt=0.05, **kw)
+    else:
+        samp = (NLNDistribution if kind == "nln" else GaussianDistribution).create(**kw)
+    g = torch.Generator(device=dev).manual_seed(K + T_)
+    mean = 0.3 * torch.randn((T_, Cp), generator=g, device=dev)
+    mean[:, -1] += offset
+    state = 0.3 * torch.randn((T_, Cp), generator=g, device=dev) if kind == "smooth" else None
+    z = (torch.randn((2, K, T_, Cp), generator=g, device=dev) if inject else None)
+    seed = torch.tensor(K + 7, dtype=torch.int32, device=dev)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kW, kcarry = fr._sample_rollout_cuda(
+        dyn, cost, samp, fr.noise_kind(samp), x0, mean, seed, DT, LAM, ALPHA, K, 0, stride,
+        state, epilogue, True, z)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_sample_rollout_warp_kernel"] == 1
+    assert fr.launch_counts["fused_sample_rollout_kernel"] == 0
+    assert fr.launch_counts["block_carry_kernel"] == int(epilogue)
+    assert fr.entry_counts == {f"fused_sample_rollout_{pair}": 1}
+    pc, pcrash, pU, pW = fr.sample_rollout_plain(
+        dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K, optimization_stride=stride,
+        sampler_state=state, injected_noise=z)
+    assert torch.isfinite(pc).all()
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kU, pU, rtol=0, atol=0)
+    if kind == "smooth":
+        _close(kW, pW, rtol=0, atol=0)
+    if epilogue:
+        lam = fr._f32(LAM)
+        _close(kcarry, fr.block_carries_ordered(pc, pW, lam), rtol=0, atol=0)
+        _close(kcarry, fr.block_carries_plain(pc, pW, lam), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1920, 1900, 1901, 3])
+@pytest.mark.parametrize("robust", [False, True])
+def test_rmppi_warp_autorally_matches_plain(cuda_device, K, robust):
+    """B8's warp form for AutoRally with either AR cost on the partly-crashing
+    map, T = 150 (a partial last chunk): s_nom, j_real, s_fb, the crash flags
+    and U_real bit for bit against the plain version; one launch of
+    rmppi_rollout_warp_kernel."""
+    dev = cuda_device
+    T_ = WARP_T
+    dyn = AutorallyNNDynamics(FNN.create([6, 32, 32, 4], seed=0, scale=1.0),
+                              control_ranges=[[-0.9, 0.9], [-0.6, 1.0]], device=dev)
+    cost = (ARRobustCost if robust else ARStandardCost)(costmap=_partial_map(dev), device=dev)
+    g = torch.Generator(device=dev).manual_seed(K + robust)
+    U = 0.5 * torch.randn((K, T_, C), generator=g, device=dev)
+    gains = -0.5 * torch.rand((T_, C, 7), generator=g, device=dev)
+    sigma = torch.tensor([[0.3, 0.5]], device=dev).expand(T_, C).contiguous()
+    x_nom = _ar_x0(dev)
+    x_real = x_nom + torch.tensor([0.05, -0.04, 0.03, 0.0, 0.2, 0.05, 0.02], device=dev)
+    args = (dyn, cost, x_nom, x_real, U, gains, sigma, torch.tensor([0.5, 1.0], device=dev),
+            DT, LAM, ALPHA)
+    fr.reset_launch_counts()
+    kout = fr.fused_rmppi_rollout(*args)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rmppi_rollout_warp_kernel"] == 1
+    assert fr.launch_counts["rmppi_rollout_kernel"] == 0
+    pout = fr.rmppi_rollout_plain(*args)
+    for k, p in zip(kout[:3], pout[:3]):
+        assert torch.isfinite(p).all()
+        _close(k, p, rtol=0, atol=0)
+    assert torch.equal(kout[3], pout[3])
+    _close(kout[4], pout[4], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_sample_and_rmppi_entries_report_their_form(cuda_device):
+    """The network pairs' B4 and B8 entries launch the warp form, every
+    other pair's the one-thread kernel (``<entry>_form``)."""
+    from mppi_generic_tpu_torch.ops import _build
+
+    for pair in _build.PAIR_KERNELS:
+        for kind, base in (("sample", "fused_sample_rollout"), ("rmppi", "rmppi_rollout")):
+            entry = _build.pair_entry(pair, kind)
+            if entry is None:
+                continue
+            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_kernel"
+            assert fr.form_kernel_name(base, entry) == want, (pair, kind)
