@@ -208,7 +208,9 @@ K_AR, K_AR_RAGGED, T_AR, S_AR = 1920, 1900, 150, 7
 AR_STD = [0.3, 0.5]
 AR_MAPS = ("128", "1024")
 AR_FUSED_LOOP_STEPS = 20  # the kernel="fused" loop: B1 on the path, kept short
-N_TIMED_PLAIN_AR = 3  # an AutoRally plain version takes seconds
+# an AutoRally plain version takes seconds: one timed run after its warm-up
+# keeps the script well inside its time limit (these times are yardsticks)
+N_TIMED_PLAIN_AR = 1
 # Operations per sample-step of the AutoRally step (csrc/autorally_nn.cuh):
 # the FNN's 1,344 multiplies and 1,344 adds, 68 bias adds and 64 tanhf; the
 # kinematics (cosf, sinf, 4 multiplies, 2 adds, a negation), the Euler update
@@ -321,7 +323,7 @@ def time_ms(fn, n, warmup=3):
 
 
 def time_plain(fn, pair=None):
-    """A plain version's median ms: N_TIMED_PLAIN_AR runs after one warm-up
+    """A plain version's ms: N_TIMED_PLAIN_AR runs (median) after one warm-up
     (thousands of eager launches a run); a racer pair's, whose run takes
     seconds and whose checks have just run it, one run without."""
     if pair in RACER_PAIRS:
@@ -712,7 +714,7 @@ def vanilla_loop_phase(path, ctrl, want, settle):
 
 def fused_loop_phase(kind):
     """The fused solve's closed loop of one sampler."""
-    kernel = "fused_sample_rollout_kernel" if kind == "smooth" else "fused_solve_kernel"
+    kernel = split_name("di_circle", "sample") if kind == "smooth" else "fused_solve_kernel"
     n = CLOSED_LOOP_STEPS
     return vanilla_loop_phase(
         "vanilla_fused_solve" if kind == "gaussian" else kind,
@@ -1005,10 +1007,10 @@ def robust_loop_phase(kind):
     if kind == "rmppi":
         # stage 1 of the first step has no nominal system to evaluate yet
         want = {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
-                "riccati_ladder_kernel": n}
+                LADDER: n}
     else:
         want = {"rollout_costs_kernel": 2 * n, "flash_combine_kernel": 2 * n,
-                "riccati_ladder_kernel": n}
+                LADDER: n}
     launches, _, X, _, cs, x = robust_family_loop(
         kind, ctrl, torch.tensor(X0, device=ctrl.device), n, want, profile=10)
     band_check(kind, X)
@@ -2256,7 +2258,7 @@ def zoo_loops(dev):
     run("cartpole_fused", build_cartpole("fused"), torch.zeros(4, device=dev), n_b1, b1_want,
         profile=False)
     run("cartpole_tsallis", build_cartpole("fused_solve", weight_transform="tsallis"),
-        torch.zeros(4, device=dev), n_b1, {"fused_sample_rollout_kernel": n_b1},
+        torch.zeros(4, device=dev), n_b1, {split_name("cartpole", "sample"): n_b1},
         profile=False)
     # tests/test_model_zoo.py:60-92: the hover from (1, 0, -0.5), hover
     # thrust as the initial mean, K=512, T=48, 150 steps; its bar
@@ -2656,6 +2658,9 @@ def robust_kernel_phase(dev):
                                                 back[6], back[7], DT, 1e-6)
         torch.cuda.synchronize()
         bname = f"B6 ({S_}, {C_})"
+        # B7's warp recursion and B6's one thread: the same floats
+        same(f"B7 {name} gains against {bname}'s", kout[0], kK)
+        same(f"B7 {name} feedforward against {bname}'s", kout[1], kk)
         checks["riccati_backward_kernel"] += [
             check(f"{bname} gains", kK, Ks, "exact"),
             check(f"{bname} feedforward", kk, ks, "exact")]
@@ -2827,12 +2832,12 @@ def robust_family_loops(dev):
     out = robust_family_loop(
         "rmppi_autorally", build_rmppi_ar("fused"), ar_x0(dev), n,
         {"rollout_costs_kernel": n - 1, split_name("ar_nn", "rmppi"): n,
-         "riccati_ladder_kernel": n}, map="128", cost="ARRobustCost")
+         LADDER: n}, map="128", cost="ARRobustCost")
     paths["rmppi_autorally"] = out[:2]
     out = robust_family_loop(
         "tube_autorally", build_tube_ar("fused_solve"), ar_x0(dev), n,
         {"fused_solve_kernel": 2 * n, "flash_combine_kernel": 2 * n,
-         "riccati_ladder_kernel": n}, map="128", cost="ARStandardCost")
+         LADDER: n}, map="128", cost="ARStandardCost")
     paths["tube_autorally"] = out[:2]
     n = ROBUST_DI_STEPS
     rng = np.random.RandomState(1)
@@ -2842,7 +2847,7 @@ def robust_family_loops(dev):
     out = robust_family_loop(
         "rmppi_di_robust", build_rmppi_di_robust("fused"), torch.tensor(X0_RDI, device=dev),
         n, {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
-            "riccati_ladder_kernel": n}, disturb=disturb, profile=False)
+            LADDER: n}, disturb=disturb, profile=False)
     band_check("rmppi_di_robust", out[2])
     paths["rmppi_di_robust"] = out[:2]
     return paths
@@ -2928,7 +2933,7 @@ def instantiations_phase(dev):
         wall_s = time.perf_counter() - t0
         launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
         expect_launches(launches, {"fused_solve_kernel": n, "flash_combine_kernel": n,
-                                   "riccati_ladder_kernel": n if ladder else 0}, name)
+                                   LADDER: n if ladder else 0}, name)
         for what, t in (("state", x), ("control_mean", res.control_mean),
                         ("costs", res.costs)) + ((("gains", fbs.gains),) if with_fb else ()):
             if not bool(torch.isfinite(t).all()):
@@ -3566,12 +3571,25 @@ ONE_THREAD_ROWS = {
 
 
 def one_thread_fields(kind, pair):
-    """The ``kernels`` line's field naming the one-thread row a warp entry
-    replaces (none for a one-thread entry)."""
+    """The ``kernels`` line's fields of an entry's earlier form: the
+    one-thread row a warp entry replaces, or B4's staged form timed A B B A
+    against the one-thread kernel in this run, by mode (none for a
+    one-thread entry)."""
+    if kind == "sample" and pair in STAGED_PAIRS:
+        return {"one_thread_abba": {m: {k: t.get(k) for k in (
+            "ms", "other_ms", "abba_ms", "faster")}
+            for m, t in FORM_TIMES[("sample", pair)].items()}}
     row = ONE_THREAD_ROWS.get((kind, pair))
     if row is None or not split_name(pair, kind).endswith("_warp_kernel"):
         return {}
     return {"one_thread_row_from": row}
+
+
+def ladder_fields(key):
+    """The ``kernels`` line's fields of a B7 entry: its time A B B A against
+    the one-thread ladder in this run (ladder_form_phase)."""
+    t = FORM_TIMES[("ladder", key)]
+    return {"one_thread_abba": {k: t[k] for k in ("ms", "other_ms", "abba_ms", "faster")}}
 
 
 # the kernel family of each kind of entry with a warp form
@@ -3637,47 +3655,90 @@ def device_ms(fn, name=None, n=N_TIMED_KERNEL):
     return statistics.median(us) / 1e3
 
 
+# B7's and B4's earlier forms, kept buildable to time the new ones against
+# them in one call: the ladder's one-thread recursion and forward passes
+# (-DMPPI_LADDER_ONE_THREAD) and the one-thread B4 of the models without the
+# warp form (-DMPPI_SAMPLE_ONE_THREAD)
+LADDER = "riccati_ladder_warp_kernel"  # B7 in the port's build (check_forms)
+B4_STAGED = "fused_sample_rollout_staged_kernel"  # B4 of STAGED_PAIRS there
+STAGED_PAIRS = ("di_circle", "di_quadratic", "di_robust", "cartpole", "quadrotor_quadratic",
+                "quadrotor_map", "dubins_quadratic", "bicycle_ar")
+STAGED_SOURCES = tuple(sorted({_build.pair_entry(p, "sample")[0] for p in STAGED_PAIRS}))
+LADDER_ONE_THREAD = {}  # {"riccati": the loaded one-thread ladder build}
+SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4 build}
+# (libraries it fills, -D flag, build directory, sources)
+VARIANTS = ((ONE_THREAD, "MPPI_SPLIT_ONE_THREAD", "one_thread", WARP_SOURCES),
+            (LADDER_ONE_THREAD, "MPPI_LADDER_ONE_THREAD", "ladder_one_thread", ("riccati",)),
+            (SAMPLE_ONE_THREAD, "MPPI_SAMPLE_ONE_THREAD", "sample_one_thread", STAGED_SOURCES))
+
+
 def build_one_thread():
-    """Build WARP_SOURCES with -DMPPI_SPLIT_ONE_THREAD (every model's split
-    passes one thread a sample), one nvcc each, all started together, and
-    load them into ONE_THREAD. Each is compiled as a unit of another name
-    that includes the source, so that its kernels' symbols (nvcc names a
-    source's anonymous namespace after its file) differ from those of the
-    port's build loaded beside it. Returns {source: nvcc's log}."""
-    out = _build.BUILD_ROOT / "one_thread"
-    out.mkdir(parents=True, exist_ok=True)
+    """Build the VARIANTS: WARP_SOURCES with -DMPPI_SPLIT_ONE_THREAD (every
+    model's split passes one thread a sample), riccati.cu with
+    -DMPPI_LADDER_ONE_THREAD and the staged pairs' sources with
+    -DMPPI_SAMPLE_ONE_THREAD, one nvcc each, all started together, and load them into their dicts.
+    Each is compiled as a unit of another name that includes the source, so
+    that its kernels' symbols (nvcc names a source's anonymous namespace
+    after its file) differ from those of the port's build loaded beside it.
+    Returns {"<directory>/<source>": nvcc's log}."""
     procs = {}
-    for name in WARP_SOURCES:
-        unit = out / f"{name}_one_thread.cu"
-        unit.write_text(f'#include "{name}.cu"\n')
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-DMPPI_SPLIT_ONE_THREAD", "-I",
-             str(_build.CSRC), "-o", str(out / f"lib{name}.so"), str(unit)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    logs = {name: proc.communicate()[0] for name, proc in procs.items()}
-    for name, proc in procs.items():
+    for libs, define, tag, sources in VARIANTS:
+        out = _build.BUILD_ROOT / tag
+        out.mkdir(parents=True, exist_ok=True)
+        for name in sources:
+            unit = out / f"{name}_{tag}.cu"
+            unit.write_text(f'#include "{name}.cu"\n')
+            procs[f"{tag}/{name}"] = (libs, name, out / f"lib{name}.so", subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-I",
+                 str(_build.CSRC), "-o", str(out / f"lib{name}.so"), str(unit)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {key: proc.communicate()[0] for key, (_, _, _, proc) in procs.items()}
+    for key, (libs, name, path, proc) in procs.items():
         if proc.returncode != 0:
-            raise RuntimeError(f"one-thread build of {name} failed:\n{logs[name]}")
-        ONE_THREAD[name] = _build.declare(ctypes.CDLL(str(out / f"lib{name}.so")), name)
+            raise RuntimeError(f"build {key} failed:\n{logs[key]}")
+        libs[name] = _build.declare(ctypes.CDLL(str(path)), name)
     return logs
 
 
 @contextlib.contextmanager
-def one_thread_split():
-    """Inside, the wrappers take the warp pairs' split libraries from the
-    one-thread build (their launches then run the one-thread passes)."""
-    lib = fr._lib
-    fr._lib = lambda name="flash_combine": ONE_THREAD[name] if name in ONE_THREAD else lib(name)
+def swapped(libs=None, ladder=None):
+    """Inside, the wrappers take the libraries of ``libs`` ({source: loaded
+    build}) and the ladder ``ladder`` (a loaded build of riccati.cu) in place
+    of the port's (their launches then run those builds' kernels)."""
+    lib, ric = fr._lib, riccati._lib
+    if libs:
+        fr._lib = lambda name="flash_combine": libs[name] if name in libs else lib(name)
+    if ladder is not None:
+        riccati._lib = lambda: ladder
     try:
         yield
     finally:
-        fr._lib = lib
+        fr._lib, riccati._lib = lib, ric
+
+
+def one_thread_split():
+    """Inside, the wrappers take the warp pairs' split libraries from the
+    one-thread build (their launches then run the one-thread passes)."""
+    return swapped(ONE_THREAD)
+
+
+def one_thread_ladder():
+    """Inside, the ladder wrapper launches the one-thread ladder."""
+    return swapped(ladder=LADDER_ONE_THREAD["riccati"])
+
+
+def one_thread_sample():
+    """Inside, the staged pairs' B4 launches the one-thread kernel."""
+    return swapped(SAMPLE_ONE_THREAD)
 
 
 def check_forms():
     """Each warp pair's split dynamics entries report the warp form in the
     port's build and the one-thread form in build_one_thread's; each B4 and
-    B8 entry the warp form for a warp pair, else the one-thread kernel."""
+    B8 entry the warp form for a warp pair, else B4 the staged form (the
+    one-thread kernel in the one-thread build) and B8 the one-thread kernel;
+    the ladder the warp recursion (the one-thread ladder in its one-thread
+    build)."""
     for pair in WARP_PAIRS:
         for kind in ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0"):
             if _build.pair_entry(pair, kind) is None:
@@ -3687,28 +3748,181 @@ def check_forms():
                 one = split_name(pair, kind)
             if not (warp.endswith("_warp_kernel") and not one.endswith("_warp_kernel")):
                 raise AssertionError(f"{pair} {kind}: the builds report {warp} and {one}")
-    # B4 and B8 (no one-thread build): the warp form for the network pairs
     for pair in _build.PAIR_KERNELS:
         for kind, base in (("sample", "fused_sample_rollout"), ("rmppi", "rmppi_rollout")):
             if _build.pair_entry(pair, kind) is None:
                 continue
-            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_kernel"
+            other = "_staged_kernel" if kind == "sample" else "_kernel"
+            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else base + other
             if split_name(pair, kind) != want:
                 raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
                                      f"expected {want}")
+    for pair in STAGED_PAIRS:
+        with one_thread_sample():
+            one = split_name(pair, "sample")
+        if one != "fused_sample_rollout_kernel":
+            raise AssertionError(f"{pair}: the one-thread B4 build reports {one}")
+    with one_thread_ladder():
+        one = riccati.ladder_kernel_name()
+    if (riccati.ladder_kernel_name(), one) != (LADDER, "riccati_ladder_kernel"):
+        raise AssertionError(f"the ladder builds report {riccati.ladder_kernel_name()}, {one}")
+
+
+def abba_against(fn, other):
+    """``fn`` timed in turns on the builds of the context ``other`` (A) and
+    the port's (B): A B B A (CUDA events, medians of N_TIMED)."""
+    with other():
+        a1 = time_ms(fn, N_TIMED)
+    b1, b2 = time_ms(fn, N_TIMED), time_ms(fn, N_TIMED)
+    with other():
+        a2 = time_ms(fn, N_TIMED)
+    return {"ms": (b1 + b2) / 2, "other_ms": (a1 + a2) / 2, "abba_ms": [a1, b1, b2, a2],
+            "faster": max(b1, b2) < min(a1, a2)}
+
+
+FORM_TIMES = {}  # {("ladder" | "sample", key): A B B A against the earlier form}
+# the ragged ladders: (T, n_alpha), after each model's paths' shapes
+LADDER_RAGGED = ((31, 1), (33, 33), (100, 128), (150, 14))
+
+
+def ladder_form_phase(dev):
+    """B7's warp form at every shape a path launches it at (AutoRally T=150,
+    the cartpole T=100, the DI T=48 and T=50; 14 alphas) and at LADDER_RAGGED:
+    gains, feedforward, costs, xs_new and us_new bit for bit against the
+    plain version and the one-thread ladder, the gains and feedforward
+    against B6's on the same linearisation. At the paths' shapes each is
+    timed A B B A against the one-thread ladder, beside its bound."""
+    cart = CartpoleDynamics.create(control_ranges=CART_RANGE, device=dev)
+    models = {
+        "ar_nn": (lambda: AutorallyNNDynamics.create(seed=0, device=dev), ar_x0, (T_AR,),
+                  OPS_AR_DERIV, FNN_MACS + 68),
+        "cartpole": (lambda: cart, lambda d: torch.tensor([0.0, 0.0, 0.5, 0.0], device=d),
+                     (T_ZOO,), OPS_CART_DERIV, 3),
+        "di": (lambda: DoubleIntegratorDynamics.create(device=dev),
+               lambda d: torch.tensor(X0_RDI, device=d), (T_RDI, T_R), 0, 0),
+    }
+    outs = ("gains", "feedforward", "costs", "xs_new", "us_new")
+    checks, times, seed = [], {}, 400
+    for name, (make, x0, path_T, deriv_ops, n_params) in models.items():
+        paths = [(T_, N_ALPHA) for T_ in path_T]
+        for T_, n in paths + [c for c in LADDER_RAGGED if c not in paths]:
+            seed += 1
+            args = list(ladder_problem(make(), x0(dev), T_, seed))
+            args[14] = _alpha_ladder(n, device=dev)
+            kout = riccati.riccati_ladder_solve(*args)
+            with one_thread_ladder():
+                oout = riccati.riccati_ladder_solve(*args)
+            pout = ladder_plain(args)
+            bK, bk = riccati.riccati_backward(*(args[i] for i in (3, 4, 5, 6, 7, 8, 10, 11)),
+                                              DT)
+            torch.cuda.synchronize()
+            label = f"B7 {name} T={T_} n_alpha={n}"
+            for what, k, o, p_ in zip(outs, kout, oout, pout):
+                checks += [check(f"{label} {what}", k, p_, "bitwise"),
+                           check(f"{label} {what} (one-thread)", o, p_, "bitwise")]
+            same(f"{label} gains against B6's", kout[0], bK)
+            same(f"{label} feedforward against B6's", kout[1], bk)
+            if (T_, n) in paths:
+                t = abba_against(lambda args=args: riccati.riccati_ladder_solve(*args),
+                         one_thread_ladder)
+                t["bound_ms"], t["bound_by"] = bound_ms(*ladder_work(args, deriv_ops,
+                                                                     n_params))
+                times[f"{name} T={T_}"] = FORM_TIMES[("ladder", f"{name} T={T_}")] = t
+    emit("ladder_forms", checks=checks, times=times)
+    return checks, times
+
+
+def staged_parts(pair, dev):
+    """pair_parts, with the DI circle cost of the main path (make_inputs)."""
+    if pair == "di_circle":
+        return (DoubleIntegratorDynamics.create(device=dev),
+                DoubleIntegratorCircleCost(device=dev), torch.tensor(X0, device=dev),
+                [1.0, 1.0], 0.0, T)
+    return pair_parts(pair, dev)
+
+
+def staged_case(dev, pair, K, T_, p, stride, seed, timed):
+    """B4 of one staged pair at (K, T_) against its plain version and the
+    one-thread build: U, W, the costs, the crash flags and the carry rows
+    bit for bit, in the four modes when ``timed`` (then each A B B A against
+    the one-thread kernel), else in the Gaussian and Smooth-MPPI with its
+    epilogue."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn, cost, x0, std, offset, _ = staged_parts(pair, dev)
+    C_ = dyn.CONTROL_DIM
+    mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+    mean[:, -1] += offset
+    dmean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    checks, times = [], {}
+    modes = ((("gaussian", False), ("nln", False), ("smooth", False), ("smooth", True))
+             if timed else (("gaussian", False), ("smooth", True)))
+    for kind, epilogue in modes:
+        s = zoo_sampler(kind, C_, std, dev, p, T_)
+        state = dmean if kind == "smooth" else None
+        kid = fr.noise_kind(s)
+        name = f"{pair} K={K} T={T_} B4 {kind}{' epilogue' if epilogue else ''}"
+
+        def run(emit_u=True, s=s, state=state, kid=kid, epilogue=epilogue):
+            return fr._sample_rollout_cuda(dyn, cost, s, kid, x0, mean, seed_t, DT, LAM,
+                                           ALPHA, K, 0, stride, state, epilogue, emit_u, None)
+
+        kout = run()
+        pc, pcrash, pU, pW = fr.sample_rollout_plain(
+            dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K, optimization_stride=stride,
+            sampler_state=state)
+        with one_thread_sample():
+            one = run()
+        torch.cuda.synchronize()
+        same(f"{name} crash flags", kout[1], pcrash)
+        checks += [check(f"{name} costs", kout[0], pc, "bitwise"),
+                   check(f"{name} U", kout[2], pU, "bitwise")]
+        if kind == "smooth":
+            checks.append(check(f"{name} W", kout[3], pW, "bitwise"))
+        if epilogue:
+            checks.append(check(f"{name} carry rows", kout[4],
+                                fr.block_carries_ordered(pc, pW, fr._f32(LAM)), "bitwise"))
+        for i, o in enumerate(one):
+            if o is not None:
+                same(f"{name} output {i} of the one-thread build", o, kout[i])
+        if timed:
+            t = abba_against(lambda: run(False), one_thread_sample)
+            t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
+                dyn, cost, sum(PAIR_OPS[pair]), K, T_, kind, False, epilogue))
+            times[f"B4 {kind}{' epilogue' if epilogue else ''}"] = t
+    return checks, times
+
+
+def staged_form_phase(dev):
+    """B4's staged form for every pair without the warp form: each at its
+    path's K and T (timed), at (65, 33) and (1, 31), the DI circle also at
+    (8000, 100) and (63, 150), the bicycle at (1901, 100) and the quadrotor
+    on its map at (1901, 150) (staged_case)."""
+    checks, seed = [], 500
+    for pair in STAGED_PAIRS:
+        K, _, T_ = pair_shape(pair)
+        cases = [(K, T_, 0.0, 0, True), (65, 33, 0.1, 2, False), (1, 31, 0.0, 1, False)]
+        cases += {"di_circle": [(8000, 100, 0.1, 2, False), (63, 150, 0.1, 2, False)],
+                  "bicycle_ar": [(1901, 100, 0.1, 2, False)],
+                  "quadrotor_map": [(1901, 150, 0.1, 2, False)]}.get(pair, [])
+        for K_, T__, p, stride, timed in cases:
+            seed += 1
+            c, t = staged_case(dev, pair, K_, T__, p, stride, seed, timed)
+            checks += c
+            if timed:
+                FORM_TIMES[("sample", pair)] = t
+    emit("staged_forms", checks=checks,
+         times={pair: t for (kind, pair), t in FORM_TIMES.items() if kind == "sample"})
+    return checks
 
 
 def turns(fn):
     """``fn`` (a split dynamics pass) timed in turns on the one-thread build
     and the warp form: one-thread, warp, warp, one-thread (CUDA events,
     medians of N_TIMED)."""
-    with one_thread_split():
-        a1 = time_ms(fn, N_TIMED)
-    b1, b2 = time_ms(fn, N_TIMED), time_ms(fn, N_TIMED)
-    with one_thread_split():
-        a2 = time_ms(fn, N_TIMED)
-    return {"ms": (b1 + b2) / 2, "one_thread_ms": (a1 + a2) / 2, "abba_ms": [a1, b1, b2, a2],
-            "warp_faster": max(b1, b2) < min(a1, a2)}
+    t = abba_against(fn, one_thread_split)
+    return {"ms": t["ms"], "one_thread_ms": t["other_ms"], "abba_ms": t["abba_ms"],
+            "warp_faster": t["faster"]}
 
 
 def warp_pass_checks(name, fn, plain):
@@ -4143,7 +4357,7 @@ def pair_loops(dev):
                                   dtype=torch.float32, device=dev)
     x1 = lambda k, pair: {split_name(pair, "split_dynamics_x0"): k - 1,
                           "split_cost_kernel": k - 1, split_name(pair, "rmppi"): k,
-                          "riccati_ladder_kernel": k}
+                          LADDER: k}
     out = robust_family_loop("rmppi_di_robust_split",
                              build_rmppi_di_robust("fused", split_cost=True), rx0, nr,
                              x1(nr, "di_robust"), disturb=disturb, profile=False)
@@ -4176,8 +4390,9 @@ def main() -> int:
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    # the one-thread build of the warp pairs' split sources (for the A B B A
-    # of warp_kernel_phase) beside the port's build, all nvcc's together
+    # the earlier forms' builds (VARIANTS, for the A B B A of
+    # warp_kernel_phase, ladder_form_phase and staged_form_phase) beside the
+    # port's build, all nvcc's together
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         one_thread = pool.submit(build_one_thread)
         built = _build.build_all()
@@ -4192,6 +4407,9 @@ def main() -> int:
          ptxas=ptxas({name: b["log"] for name, b in built.items()}),
          one_thread_ptxas=ptxas(one_thread_logs))
     check_forms()
+    # this slice's forms first: B7's warp recursion and B4's staged form
+    # against their plain versions and their one-thread builds
+    form_checks = {LADDER: ladder_form_phase(dev)[0], B4_STAGED: staged_form_phase(dev)}
 
     errs = dict.fromkeys(fr.launch_counts, 0.0)
 
@@ -4371,6 +4589,10 @@ def main() -> int:
     def inst_err(fn):
         return max((c["max_abs_err"] for c in inst_checks.get(fn, ())), default=0.0)
 
+    def form_err(kernel, prefix):
+        return max((c["max_abs_err"] for c in form_checks[kernel]
+                    if c["check"].startswith(prefix)), default=0.0)
+
     def entry(name, source, replaces, t, library_ms, paths=by_path, err=None,
               kernel=None, **extra):
         kernel = kernel or name
@@ -4403,14 +4625,17 @@ def main() -> int:
         entry("riccati_backward_kernel", "riccati.cu", "pallas_riccati.py:137",
               ric_times["riccati_backward"], None, on_main_path=False,
               chain_steps=T_R - 1),
-        entry("riccati_ladder_kernel", "riccati.cu", "pallas_riccati.py:203",
+        entry(LADDER, "riccati.cu", "pallas_riccati.py:203",
               ric_times["riccati_ladder"], None, chain_steps=T_R - 1,
               paths={**by_path, "rmppi_di_robust": robust_paths["rmppi_di_robust"][0],
                      "double_integrator_mppi": inst_paths["double_integrator_mppi"][0]},
-              err=max([errs["riccati_ladder_kernel"], inst_err("riccati_ladder_di")]
+              err=max([errs["riccati_ladder_kernel"], inst_err("riccati_ladder_di"),
+                       form_err(LADDER, "B7 di ")]
                       + [c["max_abs_err"] for c in robust_checks["riccati_ladder_kernel"]
                          if c["check"].startswith(f"B7 di T={T_RDI}")]),
-              modes={f"T={T_RDI} (rmppi_di_robust)": robust_times[f"B7 di T={T_RDI}"]}),
+              modes={f"T={T_RDI} (rmppi_di_robust)": {
+                  **robust_times[f"B7 di T={T_RDI}"], **ladder_fields(f"di T={T_RDI}")}},
+              **ladder_fields(f"di T={T_R}")),
         entry("rmppi_rollout_kernel", "rmppi_rollout.cu", "pallas_rollout.py:2127",
               rmppi_times, None),
         entry("fused_solve_kernel", "pair_di_circle.cu", "pallas_solve.py:103",
@@ -4420,8 +4645,10 @@ def main() -> int:
               err=max(errs["fused_solve_kernel"], inst_err("fused_solve_di_circle")),
               modes={"nln": solve_times["solve nln"]},
               randn_reference_ms=solve_times["randn_reference_ms"]),
-        entry("fused_sample_rollout_kernel", "pair_di_circle.cu", "pallas_rollout.py:1631",
+        entry(split_name("di_circle", "sample"), "pair_di_circle.cu", "pallas_rollout.py:1631",
               solve_times["smooth epilogue"], None,
+              err=max(errs["fused_sample_rollout_kernel"], form_err(B4_STAGED, "di_circle ")),
+              **one_thread_fields("sample", "di_circle"),
               modes={m: solve_times[m] for m in ("gaussian", "nln", "smooth")},
               randn_reference_ms=solve_times["randn_reference_ms"]),
         entry("fused_solve_kernel<AutorallyNN, ARCost>", "pair_ar_nn.cu",
@@ -4509,10 +4736,14 @@ def main() -> int:
             "pallas_solve.py:103", t["B3 gaussian"], e, "fused_solve_kernel",
             K=K_ZOO, T=T_ZOO, modes=solve_modes))
     kernels.append(zoo_entry(
-        "fused_sample_rollout_kernel<Cartpole, CartpoleQuadraticCost>", "cartpole",
+        f"{split_name('cartpole', 'sample')}<Cartpole, CartpoleQuadraticCost>", "cartpole",
         "fused_sample_rollout_cartpole", "pallas_rollout.py:1631", cart["B4 smooth epilogue"],
-        zoo_errs["cartpole"], "fused_sample_rollout_kernel", K=K_ZOO, T=T_ZOO,
-        modes={m: cart[f"B4 {m}"] for m in ("gaussian", "nln", "smooth")}))
+        {**zoo_errs["cartpole"], "fused_sample_rollout_kernel": max(
+            zoo_errs["cartpole"]["fused_sample_rollout_kernel"],
+            form_err(B4_STAGED, "cartpole "))},
+        "fused_sample_rollout_kernel", K=K_ZOO, T=T_ZOO,
+        modes={m: cart[f"B4 {m}"] for m in ("gaussian", "nln", "smooth")},
+        **one_thread_fields("sample", "cartpole")))
     merge_paths = {p: l for p, (l, _) in zoo_paths.items()}
     zoo_only = [e for pair, e in zoo_errs.items() if pair not in RACER_PAIRS]
     kernels.append(entry(
@@ -4598,14 +4829,18 @@ def main() -> int:
                      K=N_CAND_AR * S_PER_AR, T=T_R,
                      modes={f"{N_CAND_AR * S_PER_RDI} x {T_RDI} (rmppi_di_robust)":
                             rt[f"B1-x0 di_robust {N_CAND_AR * S_PER_RDI} x {T_RDI}"]}),
-        family_entry("riccati_ladder_kernel<AutorallyNNRolled>", "riccati.cu",
+        family_entry(f"{LADDER}<AutorallyNNRolled>", "riccati.cu",
                      "riccati_ladder_ar_nn", "pallas_riccati.py:203", rt["B7 ar_nn"],
-                     rchecks("riccati_ladder_kernel", "B7 ar_nn"), T=T_AR, n_alpha=N_ALPHA,
-                     chain_steps=T_AR - 1, device_functions=ar_functions),
-        family_entry("riccati_ladder_kernel<Cartpole>", "riccati.cu",
+                     rchecks("riccati_ladder_kernel", "B7 ar_nn")
+                     + [c for c in form_checks[LADDER] if c["check"].startswith("B7 ar_nn")],
+                     T=T_AR, n_alpha=N_ALPHA, chain_steps=T_AR - 1,
+                     device_functions=ar_functions, **ladder_fields(f"ar_nn T={T_AR}")),
+        family_entry(f"{LADDER}<Cartpole>", "riccati.cu",
                      "riccati_ladder_cartpole", "pallas_riccati.py:203", rt["B7 cartpole"],
-                     rchecks("riccati_ladder_kernel", "B7 cartpole"), T=T_ZOO,
-                     n_alpha=N_ALPHA, chain_steps=T_ZOO - 1),
+                     rchecks("riccati_ladder_kernel", "B7 cartpole")
+                     + [c for c in form_checks[LADDER] if c["check"].startswith("B7 cartpole")],
+                     T=T_ZOO, n_alpha=N_ALPHA, chain_steps=T_ZOO - 1,
+                     **ladder_fields(f"cartpole T={T_ZOO}")),
         family_entry("riccati_backward_kernel<4, 1>", "riccati.cu", "riccati_backward_s4c1",
                      "pallas_riccati.py:137", rt["B6 (4, 1)"],
                      rchecks("riccati_backward_kernel", "B6 (4, 1)"), T=T_ZOO,
@@ -4668,6 +4903,10 @@ def main() -> int:
         "flash_combine_kernel (split paths)", "flash_combine.cu", "pallas_rollout.py:1005",
         comb, None, paths={p: l for p, (l, _) in split_paths.items()},
         err=errs["flash_combine_kernel"], kernel="flash_combine_kernel"))
+    for pair in STAGED_PAIRS:  # the staged form's own checks count in B4's entries
+        if ("sample", pair) in pair_errs:
+            pair_errs[("sample", pair)] = max(pair_errs[("sample", pair)],
+                                              form_err(B4_STAGED, f"{pair} "))
     kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times)
     emit("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)

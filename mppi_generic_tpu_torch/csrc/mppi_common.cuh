@@ -91,7 +91,7 @@ __device__ inline float clamp_channel(float u, const float* cons, int C,
 template <int N>
 __device__ inline float block_max(float v, float* red) {
   const int tid = threadIdx.x;
-  red[tid] = v;
+  if (tid < N) red[tid] = v;
   __syncthreads();
 #pragma unroll
   for (int off = N / 2; off > 0; off >>= 1) {
@@ -112,7 +112,7 @@ __device__ inline float nan_min(float a, float b) {
 template <int N>
 __device__ inline float block_min_nan(float v, float* red) {
   const int tid = threadIdx.x;
-  red[tid] = v;
+  if (tid < N) red[tid] = v;
   __syncthreads();
 #pragma unroll
   for (int off = N / 2; off > 0; off >>= 1) {
@@ -127,7 +127,7 @@ __device__ inline float block_min_nan(float v, float* red) {
 template <int N>
 __device__ inline float block_sum(float v, float* red) {
   const int tid = threadIdx.x;
-  red[tid] = v;
+  if (tid < N) red[tid] = v;
   __syncthreads();
 #pragma unroll
   for (int off = N / 2; off > 0; off >>= 1) {
@@ -148,8 +148,10 @@ __device__ inline float block_sum(float v, float* red) {
 // the block's barriers, so X must not be read through the read-only cache:
 // callers that write X pass a pointer without __restrict__. Threads map to
 // the TC outputs, so the reads are coalesced. A block may write only the
-// column tiles tile, tile + n_tiles, ... of kBlock outputs (m_b and d_b with
-// tile 0): each output is the same sum in the same order either way.
+// column tiles tile, tile + n_tiles, ... of blockDim.x outputs (m_b and d_b
+// with tile 0): each output is the same sum in the same order either way.
+// Every thread of the block calls it; threads kBlock and up (B4's producer
+// warps, sample_staged.cuh) hold no sample and only share the columns.
 template <int kBlock>
 __device__ inline void write_block_carry(float J, bool valid, float lam_w,
                                          const float* X, int K, int TC,
@@ -159,13 +161,14 @@ __device__ inline void write_block_carry(float J, bool valid, float lam_w,
   const float s = valid ? (-J) / lam_w : kMasked;
   const float m_b = block_max<kBlock>(s, red);
   const float w = expf(s - m_b);  // exactly 0 for the masked tail
-  w_s[threadIdx.x] = w;
+  if (threadIdx.x < kBlock) w_s[threadIdx.x] = w;
   const float d_b = block_sum<kBlock>(w, red);  // syncs: w_s is visible
   const int base = blockIdx.x * kBlock;
   const int n_valid = min(kBlock, K - base);
   const float* Xb = X + static_cast<size_t>(base) * TC;
   float* row = carry + static_cast<size_t>(blockIdx.x) * (2 + TC);
-  for (int j = tile * kBlock + threadIdx.x; j < TC; j += n_tiles * kBlock) {
+  const int nt = blockDim.x;
+  for (int j = tile * nt + threadIdx.x; j < TC; j += n_tiles * nt) {
     float a = 0.0f;
     for (int i = 0; i < n_valid; ++i) {
       a = a + w_s[i] * Xb[static_cast<size_t>(i) * TC + j];

@@ -2,7 +2,7 @@
 // recursion (B6) for (S, C) = (4, 2), the double integrator's sizes, (4, 1),
 // the cartpole's, and (7, 2), AutoRally's; the line-search ladder (B7) for
 // the double integrator, the cartpole and the AutoRally network (its layers'
-// output loops rolled).
+// output loops rolled; the warp form's network is FNN3::forward_warp).
 
 #include "autorally_nn.cuh"
 #include "cartpole.cuh"
@@ -11,8 +11,13 @@
 
 extern "C" {
 
-// Most line-search steps one ladder launch takes (one thread each).
+// Most line-search steps one ladder launch takes.
 int riccati_max_alphas() { return kMaxAlphas; }
+
+// Which ladder kernel the LADDER_ENTRY entries launch: 1 the warp form
+// (riccati_ladder_warp_kernel), 0 the one-thread kernel
+// (riccati_ladder_kernel, built with -DMPPI_LADDER_ONE_THREAD).
+int riccati_ladder_form() { return kLadderForm; }
 
 BACKWARD_ENTRY(riccati_backward_s4c2, 4, 2)
 BACKWARD_ENTRY(riccati_backward_s4c1, 4, 1)

@@ -32,8 +32,11 @@
 // emits costs, crash flags, U and (Smooth) W; with EPILOGUE (Smooth only,
 // :1646-1650) each block reduces its samples into a carry row over W. A
 // network model (HasWarpStep) runs B4's warp form instead, one warp per
-// sample (sample_warp.cuh); both take a step's controls from
-// sample_controls (sample_draw.cuh).
+// sample (sample_warp.cuh), and every other model its staged form, producer
+// warps drawing each chunk of steps into shared memory for consumer threads
+// (sample_staged.cuh); all take a step's controls from sample_controls
+// (sample_draw.cuh). The one-thread B4 kernel below is built only with
+// -DMPPI_SAMPLE_ONE_THREAD, to time the forms in one call.
 //
 // What bounds them on this card: operations, not bytes. Per sample-step they
 // run a ten-round Philox (about 90 integer operations), the Box-Muller logf,
@@ -77,6 +80,7 @@
 #include "mppi_common.cuh"
 #include "philox.cuh"
 #include "sample_draw.cuh"
+#include "sample_staged.cuh"
 #include "sample_warp.cuh"
 
 namespace {
@@ -214,12 +218,24 @@ int fused_solve_entry(int device, int noise_kind, const float* x0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The form of B4 a model's entry launches: 1 the warp form, 2 the staged
+// form, 0 the one-thread kernel.
+template <class Dyn>
+constexpr int sample_form() {
+#ifdef MPPI_SAMPLE_ONE_THREAD
+  return HasWarpStep<Dyn>::value ? 1 : 0;
+#else
+  return HasWarpStep<Dyn>::value ? 1 : 2;
+#endif
+}
+
 // B4 for the pair (Dyn, Cost); noise_kind 0 Gaussian, 1 NLN, 2 Smooth-MPPI
 // (aux is then the derivative mean). With epilogue != 0 (Smooth only) W and
 // the carry rows over W are written. A model with the warp form
 // (HasWarpStep, warp_model.cuh) runs it (sample_warp.cuh: the warp kernel,
-// then the carry pass with the epilogue); every other model the one-thread
-// kernel, its epilogue inside.
+// then the carry pass with the epilogue); every other model the staged form
+// (sample_staged.cuh), or with -DMPPI_SAMPLE_ONE_THREAD the one-thread
+// kernel, their epilogue inside.
 template <class Dyn, class Cost>
 int fused_sample_entry(int device, int noise_kind, int epilogue,
                        const float* x0, const SampleArgs& a, int K, int T,
@@ -237,6 +253,10 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (HasWarpStep<Dyn>::value) {
     return static_cast<int>(launch_sample_warp<Dyn, Cost>(
+        noise_kind, epilogue != 0, x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U,
+        W, carry, s));
+  } else if constexpr (sample_form<Dyn>() != 0) {
+    return static_cast<int>(launch_sample_staged<Dyn, Cost>(
         noise_kind, epilogue != 0, x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U,
         W, carry, s));
   } else {
@@ -291,7 +311,9 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
 // Returns the CUDA error of the launch, or cudaErrorInvalidValue for a mode
 // this kernel does not have. Beside it, NAME_form() says which form it
 // launches: 1 the warp form (fused_sample_rollout_warp_kernel, and with the
-// epilogue block_carry_kernel), 0 the one-thread kernel.
+// epilogue block_carry_kernel), 2 the staged form
+// (fused_sample_rollout_staged_kernel), 0 the one-thread kernel
+// (fused_sample_rollout_kernel).
 #define SAMPLE_ENTRY(NAME, DYN, COST)                                         \
   int NAME(int device, int noise_kind, int epilogue, const float* x0,        \
            const float* mean, const float* sigma, const float* aux,          \
@@ -308,4 +330,4 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, lr_gain,      \
         lam_w, costs, crash, U, W, carry, stream);                           \
   }                                                                          \
-  int NAME##_form() { return HasWarpStep<DYN>::value ? 1 : 0; }
+  int NAME##_form() { return sample_form<DYN>(); }

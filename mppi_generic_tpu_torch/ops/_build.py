@@ -167,6 +167,7 @@ SIGNATURES = {
     },
     "riccati": {
         "riccati_max_alphas": [],
+        "riccati_ladder_form": [],
         "riccati_backward_s4c2": _BACKWARD,
         "riccati_backward_s4c1": _BACKWARD,
         "riccati_backward_s7c2": _BACKWARD,
@@ -179,8 +180,10 @@ SIGNATURES = {
 # warp form of its kernel (split_dynamics_warp_kernel,
 # split_solve_dynamics_warp_kernel: csrc/split_warp.cuh;
 # fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel:
-# csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 0
-# where the one-thread kernel; the wrappers count each launch under that name
+# csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
+# where B4's staged form (fused_sample_rollout_staged_kernel,
+# csrc/sample_staged.cuh), 0 where the one-thread kernel; the wrappers count
+# each launch under that name
 _FORM_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0", "sample",
                "rmppi")
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
@@ -206,9 +209,11 @@ launch_counts = {
     "rmppi_rollout_warp_kernel": 0,
     "riccati_backward_kernel": 0,
     "riccati_ladder_kernel": 0,
+    "riccati_ladder_warp_kernel": 0,
     "fused_solve_kernel": 0,
     "fused_sample_rollout_kernel": 0,
     "fused_sample_rollout_warp_kernel": 0,
+    "fused_sample_rollout_staged_kernel": 0,
     "block_carry_kernel": 0,
     "split_dynamics_kernel": 0,
     "split_solve_dynamics_kernel": 0,

@@ -9,8 +9,10 @@ in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 ``fused_sample_rollout_kernel`` (``csrc/sample_kernels.cuh``) its TPU kernel
 ``_fused_sample_call``. For the network models B4, B8 and the split
 dynamics passes run a warp form, one warp per sample
-(``csrc/sample_warp.cuh``, ``csrc/rmppi_warp.cuh``, ``csrc/split_warp.cuh``),
-counted under the name each entry reports (``form_kernel_name``).
+(``csrc/sample_warp.cuh``, ``csrc/rmppi_warp.cuh``, ``csrc/split_warp.cuh``);
+for every other model B4 runs its staged form, producer warps drawing each
+chunk of steps for consumer threads (``csrc/sample_staged.cuh``); each
+launch is counted under the name its entry reports (``form_kernel_name``).
 
 * ``fused_rollout_costs``: per sample, a T-step rollout with running cost,
   terminal cost and (with ``lr_params``) the Gaussian likelihood-ratio cost
@@ -699,10 +701,14 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
 
 
 @functools.cache
-def _launches_warp(lib, fn):
-    """Whether the entry ``fn`` of the loaded library ``lib`` launches the
-    warp form (its ``<fn>_form()``, a constant of the build)."""
-    return bool(getattr(lib, fn + "_form")())
+def _form(lib, fn):
+    """The form the entry ``fn`` of the loaded library ``lib`` launches (its
+    ``<fn>_form()``, a constant of the build): 0 the one-thread kernel, 1
+    the warp form, 2 B4's staged form."""
+    return int(getattr(lib, fn + "_form")())
+
+
+_FORM_SUFFIX = {0: "_kernel", 1: "_warp_kernel", 2: "_staged_kernel"}
 
 
 def form_kernel_name(base, entry):
@@ -710,10 +716,11 @@ def form_kernel_name(base, entry):
     ``split_solve_dynamics``, ``fused_sample_rollout``, ``rmppi_rollout``)
     that the entry ``entry`` ((library, C function), as
     ``_build.pair_entry`` gives it) launches, as its library reports it:
-    ``<base>_warp_kernel`` where the model's step is a network, else the
+    ``<base>_warp_kernel`` where the model's step is a network,
+    ``<base>_staged_kernel`` for B4 of every other model, else the
     one-thread ``<base>_kernel``."""
     lib_name, fn = entry
-    return f"{base}_warp_kernel" if _launches_warp(_lib(lib_name), fn) else f"{base}_kernel"
+    return base + _FORM_SUFFIX[_form(_lib(lib_name), fn)]
 
 
 def split_dynamics_cuda(dynamics, cost, x0, U, dt):

@@ -17,7 +17,10 @@ replace its two TPU kernels.
 
 The backward kernel has entries for (S, C) = (4, 2), (4, 1) and (7, 2) (the
 double integrator's, the cartpole's and AutoRally's sizes), the ladder for
-the double integrator, the cartpole and AutoRally's network dynamics.
+the double integrator, the cartpole and AutoRally's network dynamics. The
+ladder runs its recursion spread over a warp and, for AutoRally, one warp
+per line-search step (``riccati_ladder_warp_kernel``); the backward kernel
+keeps one thread.
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module) for CPU tensors; the plain versions follow the
@@ -28,7 +31,8 @@ outside ``supported`` raise on every device (``feedback/ilqr.py`` chooses
 the eager scan for them, as the JAX package does), and a CUDA call without a
 compiled kernel for its sizes or dynamics raises. Every launch adds one to
 ``launch_counts`` under the kernel's name (and to ``entry_counts`` under its
-C entry).
+C entry); the ladder's name is the one its build reports
+(``ladder_kernel_name``).
 """
 
 from __future__ import annotations
@@ -58,8 +62,8 @@ __all__ = [
     "supported",
 ]
 
-# most line-search steps one ladder launch evaluates (one thread each;
-# kMaxAlphas in csrc/riccati.cu)
+# most line-search steps one ladder launch evaluates (kMaxAlphas in
+# csrc/riccati_kernels.cuh)
 MAX_ALPHAS = 128
 _LIMIT = 1e30  # infinite control limits become +-1e30, as the TPU kernel has them
 
@@ -197,6 +201,14 @@ def _lib():
     return lib
 
 
+def ladder_kernel_name():
+    """The ladder kernel the loaded build launches, as it reports it
+    (``riccati_ladder_form()``): ``riccati_ladder_warp_kernel``, the
+    recursion spread over a warp, or the one-thread ``riccati_ladder_kernel``
+    of a build with -DMPPI_LADDER_ONE_THREAD."""
+    return "riccati_ladder_warp_kernel" if _lib().riccati_ladder_form() else "riccati_ladder_kernel"
+
+
 def _check_sizes(As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T):
     T, S, C = As.shape[0], As.shape[1], Bs.shape[2]
     if not supported(S, C, T) or T < 2:
@@ -293,6 +305,7 @@ def riccati_ladder_solve(dynamics, xs, us, As, Bs, dLx, dLu, Q, R, Q_f, Vxx_T,
         alphas.data_ptr(), _ptr(dyn_p), n, T, _f32(dt), _f32(reg), Ks.data_ptr(),
         ks.data_ptr(), costs.data_ptr(), xs_new.data_ptr(), us_new.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(status, "riccati_ladder_kernel")
-    _build.count_launch("riccati_ladder_kernel", entry)
+    name = ladder_kernel_name()
+    _check_status(status, name)
+    _build.count_launch(name, entry)
     return Ks, ks, costs, xs_new, us_new

@@ -221,7 +221,7 @@ def test_riccati_kernels_match_plain(cuda_device, T_):
         p["Vx_T"], p["goal_x"], p["goal_u"], alphas, lo, hi, DT)
     torch.cuda.synchronize()
     assert riccati.launch_counts["riccati_backward_kernel"] == 1
-    assert riccati.launch_counts["riccati_ladder_kernel"] == 1
+    assert riccati.launch_counts["riccati_ladder_warp_kernel"] == 1
     ulim = torch.stack([lo, hi])
     pcost, pxs, pus = riccati.ladder_forward_plain(
         dyn, p["xs"], p["us"], pK, pk, p["goal_x"], p["goal_u"], p["Q"], p["R"],
@@ -299,7 +299,7 @@ def test_fused_sample_rollout_kernel_matches_plain(cuda_device, K, kind, epilogu
     fr.reset_launch_counts()
     kout = fr.fused_sample_rollout_costs(*args, epilogue=epilogue, **kw)
     torch.cuda.synchronize()
-    assert fr.launch_counts["fused_sample_rollout_kernel"] == 1
+    assert fr.launch_counts["fused_sample_rollout_staged_kernel"] == 1
     pc, pcrash, pU, pW = fr.sample_rollout_plain(*args, **kw)
     _close(kout[0], pc, rtol=1e-5, atol=1e-6)
     assert torch.equal(kout[1], pcrash)
@@ -996,7 +996,7 @@ def test_riccati_ladder_with_the_model_matches_plain(cuda_device, kind, T_):
     riccati.reset_launch_counts()
     kout = riccati.riccati_ladder_solve(dyn, *args)
     torch.cuda.synchronize()
-    assert riccati.launch_counts["riccati_ladder_kernel"] == 1
+    assert riccati.launch_counts["riccati_ladder_warp_kernel"] == 1
     xs, us, As, Bs, dLx, dLu, Q, R, Qf, Vxx_T, Vx_T, goal_x, goal_u, alphas, lo, hi, _ = args
     pK, pk = riccati.riccati_backward_plain(As, Bs, dLx, dLu, Q * DT, R * DT, Vxx_T,
                                             Vx_T, DT, 1e-6)
@@ -1704,7 +1704,8 @@ def test_rmppi_warp_autorally_matches_plain(cuda_device, K, robust):
 @pytest.mark.cuda
 def test_sample_and_rmppi_entries_report_their_form(cuda_device):
     """The network pairs' B4 and B8 entries launch the warp form, every
-    other pair's the one-thread kernel (``<entry>_form``)."""
+    other pair's B4 the staged form and B8 the one-thread kernel
+    (``<entry>_form``)."""
     from mppi_generic_tpu_torch.ops import _build
 
     for pair in _build.PAIR_KERNELS:
@@ -1712,5 +1713,132 @@ def test_sample_and_rmppi_entries_report_their_form(cuda_device):
             entry = _build.pair_entry(pair, kind)
             if entry is None:
                 continue
-            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_kernel"
+            other = "_staged_kernel" if kind == "sample" else "_kernel"
+            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else base + other
             assert fr.form_kernel_name(base, entry) == want, (pair, kind)
+
+
+# --- B7's warp recursion (csrc/riccati_kernels.cuh riccati_ladder_warp_kernel)
+# and B4's staged form (csrc/sample_staged.cuh) ---
+def _di_ladder_problem(dev, T_):
+    """The first iLQR iteration's ladder inputs for the double integrator,
+    in _model_ladder_problem's form."""
+    dyn = DoubleIntegratorDynamics.create(device=dev)
+    g = torch.Generator(device=dev).manual_seed(T_ + 1)
+    lo, hi = (torch.nan_to_num(dyn.control_ranges[:, i], neginf=-1e30, posinf=1e30).contiguous()
+              for i in (0, 1))
+    us = 0.4 * torch.randn((T_, C), generator=g, device=dev)
+    xs = [torch.tensor([2.0, 0.0, 0.0, 2.0], device=dev)]
+    for t in range(T_ - 1):
+        xs.append(xs[-1] + dyn.state_deriv(xs[-1], us[t]) * DT)
+    xs = torch.stack(xs)
+    goal_x = xs + 0.05 * torch.randn((T_, 4), generator=g, device=dev)
+    goal_u = torch.zeros((T_, C), device=dev)
+    Q, R = torch.eye(4, device=dev), 0.5 * torch.eye(C, device=dev)
+    Qf = 3 * Q
+    lin = linearize(dyn, xs, us, goal_x, goal_u, Q, R, Qf, DT)
+    return dyn, (xs, us, *lin[:4], Q, R, Qf, lin[4], lin[5], goal_x, goal_u,
+                 _alpha_ladder(device=dev), lo, hi, DT)
+
+
+# (model, T): the ragged horizons for each model, then the horizons past
+# 48 KB of shared memory, where the launch takes the opt-in: the gains and
+# the staged tables (T (C S + C + 2 (S + C)) floats) under 48 KB with the
+# model's table and the recursion's over it (the DI at T = 552, AutoRally at
+# 340), and the tables alone over it up to the longest horizon (T = 1024)
+LADDER_WARP_CASES = ([(kind, T_) for kind in ("di", "cartpole", "autorally")
+                      for T_ in (31, 33, 100, 150)]
+                     + [("di", 552), ("di", 1024), ("autorally", 340), ("autorally", 1024)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_alpha", [1, 14, 33, 128])
+@pytest.mark.parametrize("kind,T_", LADDER_WARP_CASES)
+def test_ladder_warp_matches_plain_and_b6(cuda_device, kind, T_, n_alpha):
+    """B7's warp form against its plain version at ragged line searches
+    (n_alpha 1, 14, 33 and the most, 128) and horizons, up to the longest
+    the kernels take and across the shared-memory opt-in: gains, feedforward,
+    costs, xs_new and us_new bit for bit, and the gains and feedforward
+    equal to B6's (the one-thread recursion) on the same linearisation; one
+    launch of riccati_ladder_warp_kernel."""
+    dev = cuda_device
+    dyn, args = (_di_ladder_problem(dev, T_) if kind == "di"
+                 else _model_ladder_problem(kind, dev, T_))
+    args = list(args)
+    args[13] = _alpha_ladder(n_alpha, device=dev)
+    riccati.reset_launch_counts()
+    kout = riccati.riccati_ladder_solve(dyn, *args)
+    torch.cuda.synchronize()
+    assert riccati.launch_counts["riccati_ladder_warp_kernel"] == 1
+    assert riccati.launch_counts["riccati_ladder_kernel"] == 0
+    xs, us, As, Bs, dLx, dLu, Q, R, Qf, Vxx_T, Vx_T, goal_x, goal_u, alphas, lo, hi, _ = args
+    pK, pk = riccati.riccati_backward_plain(As, Bs, dLx, dLu, Q * DT, R * DT, Vxx_T,
+                                            Vx_T, DT, 1e-6)
+    pout = (pK, pk) + riccati.ladder_forward_plain(
+        dyn, xs, us, pK, pk, goal_x, goal_u, Q, R, Qf, alphas, torch.stack([lo, hi]), DT)
+    for got, want in zip(kout, pout):
+        assert torch.isfinite(want).all()
+        _close(got, want, rtol=0, atol=0)
+    bK, bk = riccati.riccati_backward(As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T, DT)
+    torch.cuda.synchronize()
+    assert torch.equal(kout[0], bK) and torch.equal(kout[1], bk)
+
+
+STAGED_PAIRS = ["di_circle", "di_quadratic", "di_robust", "cartpole", "quadrotor_quadratic",
+                "quadrotor_map", "dubins_quadratic", "bicycle_ar"]
+# (K, T, pure-noise share, stride): 65 and 63 leave the last 64-sample block
+# partly empty, 1 is a single sample, 1901 the bicycle loop's ragged K, 8000
+# the DI's; T = 33 ends in a chunk of one step, 31 is one partial chunk,
+# 100 and 150 end in a partial chunk of 32 steps
+STAGED_SHAPES = {"65x33": (65, 33, 0.1, 2), "1x31": (1, 31, 0.0, 1),
+                 "63x100": (63, 100, 0.1, 2), "1901x150": (1901, 150, 0.1, 2),
+                 "8000x100": (8000, 100, 0.0, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(B4_WARP_MODES))
+@pytest.mark.parametrize("shape", list(STAGED_SHAPES))
+@pytest.mark.parametrize("pair", STAGED_PAIRS)
+def test_sample_staged_matches_plain(cuda_device, pair, shape, mode):
+    """B4's staged form against its plain version: costs, crash flags, U, W
+    and (Smooth's epilogue) the 64-sample carry rows bit for bit, the carry
+    rows in write_block_carry's order (``fr.block_carries_ordered``); one
+    launch of fused_sample_rollout_staged_kernel and no carry pass."""
+    dev = cuda_device
+    K, T_, p, stride = STAGED_SHAPES[shape]
+    kind, epilogue, inject = B4_WARP_MODES[mode]
+    dyn, cost, x0, std, offset = _pair_parts(pair, dev)
+    Cp = dyn.CONTROL_DIM
+    kw = dict(std_dev=std, control_cost_coeff=[1.0] * Cp, pure_noise_percentage=p, device=dev)
+    if kind == "smooth":
+        samp = SmoothMPPIDistribution.create(num_timesteps=T_, dt=0.05, **kw)
+    else:
+        samp = (NLNDistribution if kind == "nln" else GaussianDistribution).create(**kw)
+    g = torch.Generator(device=dev).manual_seed(K + T_ + 3)
+    mean = 0.3 * torch.randn((T_, Cp), generator=g, device=dev)
+    mean[:, -1] += offset
+    state = 0.3 * torch.randn((T_, Cp), generator=g, device=dev) if kind == "smooth" else None
+    z = torch.randn((2, K, T_, Cp), generator=g, device=dev) if inject else None
+    seed = torch.tensor(K + 9, dtype=torch.int32, device=dev)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kW, kcarry = fr._sample_rollout_cuda(
+        dyn, cost, samp, fr.noise_kind(samp), x0, mean, seed, DT, LAM, ALPHA, K, 0, stride,
+        state, epilogue, True, z)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_sample_rollout_staged_kernel"] == 1
+    assert fr.launch_counts["fused_sample_rollout_kernel"] == 0
+    assert fr.launch_counts["block_carry_kernel"] == 0
+    assert fr.entry_counts == {f"fused_sample_rollout_{pair}": 1}
+    pc, pcrash, pU, pW = fr.sample_rollout_plain(
+        dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K, optimization_stride=stride,
+        sampler_state=state, injected_noise=z)
+    assert torch.isfinite(pc).all()
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kU, pU, rtol=0, atol=0)
+    if kind == "smooth":
+        _close(kW, pW, rtol=0, atol=0)
+    if epilogue:
+        lam = fr._f32(LAM)
+        _close(kcarry, fr.block_carries_ordered(pc, pW, lam), rtol=0, atol=0)
+        _close(kcarry, fr.block_carries_plain(pc, pW, lam), rtol=1e-5, atol=1e-5)

@@ -239,7 +239,16 @@ def _autorally():
     return dyn, ARStandardCost(device="cpu")
 
 
-@pytest.mark.parametrize("form", [0, 1])
+# the kernels each B4 form launches with Smooth-MPPI's epilogue (besides the
+# merge): 0 one thread, 1 warp, 2 staged
+SAMPLE_FORM_LAUNCHES = {
+    0: {"fused_sample_rollout_kernel": 1},
+    1: {"fused_sample_rollout_warp_kernel": 1, "block_carry_kernel": 1},
+    2: {"fused_sample_rollout_staged_kernel": 1},
+}
+
+
+@pytest.mark.parametrize("form", [0, 1, 2])
 def test_sample_wrapper_counts_the_reported_form(stub_form, form):
     stub_form(form)
     dyn, cost = _autorally()
@@ -252,10 +261,8 @@ def test_sample_wrapper_counts_the_reported_form(stub_form, form):
                                   torch.tensor(3, dtype=torch.int32),
                                   DT, LAM, ALPHA, 100, sampler_state=torch.zeros((T, 2)),
                                   epilogue=True)
-    want = {"fused_sample_rollout_warp_kernel": form, "block_carry_kernel": form,
-            "fused_sample_rollout_kernel": 1 - form, "flash_combine_kernel": 1}
-    assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        k: v for k, v in want.items() if v}
+    want = {**SAMPLE_FORM_LAUNCHES[form], "flash_combine_kernel": 1}
+    assert {k: v for k, v in fr.launch_counts.items() if v} == want
     assert fr.entry_counts == {"fused_sample_rollout_ar_nn": 1}
 
 
