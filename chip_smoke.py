@@ -464,6 +464,8 @@ def fused_kernel_phase(dev, K, p, stride, seed):
                 ALPHA, K)
         kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(
             *args, optimization_stride=stride)
+        same_as_one_thread(f"B3 {kind} K={K}", lambda args=args: fused_solve.fused_solve_carries(
+            *args, optimization_stride=stride), (kc, kcrash, kU, kcarry), "di_circle")
         pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(
             *args, optimization_stride=stride)
         km, kb, ke = fr.flash_combine(kcarry, T, C, LAM)
@@ -478,8 +480,10 @@ def fused_kernel_phase(dev, K, p, stride, seed):
                check(f"B3 {kind} baseline", kb, pb, "baseline"),
                check(f"B3 {kind} eta", ke, pe, "eta")]
         if K == K_MAIN:
-            t = timed(lambda: fused_solve.fused_solve_carries(*args),
-                      lambda: fused_solve.fused_solve_plain(*args))
+            t = {"ms": form_time(lambda: fused_solve.fused_solve_carries(*args), "di_circle",
+                                 "solve", kind),
+                 "plain_ms": time_ms(lambda: fused_solve.fused_solve_plain(*args),
+                                     N_TIMED_PLAIN)}
             t["bound_ms"], t["bound_by"] = bound_ms(
                 *sampling_work(K, kind, True, True, False, False))
             times[f"solve {kind}"] = t
@@ -556,24 +560,31 @@ def kernel_phase(dev, K, p, seed):
     # kernel 1, plain-costs mode, without and with the LR cost
     for with_lr in (False, True):
         lrp = lr if with_lr else None
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
+        def run(lrp=lrp):
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
+
+        kc, kcrash = run()
         pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
         torch.cuda.synchronize()
         checks.append(check(f"costs(lr={with_lr})", kc, pc, "costs"))
         if not torch.equal(kcrash, pcrash):
             raise AssertionError("crash flags differ from the plain version")
         mode = f"costs{'+lr' if with_lr else ''}"
+        same_as_one_thread(f"B1 {mode} K={K}", run, (kc, kcrash), "di_circle")
         times[mode] = {
-            "ms": time_ms(lambda: fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp,
-                                                         split_cost=False), N_TIMED),
+            "ms": form_time(run, "di_circle", "rollout", mode, K == K_MAIN),
             "plain_ms": time_ms(lambda: fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp),
                                 N_TIMED_PLAIN),
         }
         times[mode]["bound_ms"], times[mode]["bound_by"] = bound_ms(
             *rollout_work(K, False, with_lr))
     # kernel 1, exp-epilogue mode, with LR (the main path's mode)
-    kc, kcrash, kcarry = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr,
-                                                  split_cost=False)
+    def run_epilogue():
+        return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr, split_cost=False)
+
+    kc, kcrash, kcarry = run_epilogue()
+    same_as_one_thread(f"B1 epilogue+lr K={K}", run_epilogue, (kc, kcrash, kcarry),
+                       "di_circle")
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     pcarry = fr.block_carries_plain(pc, U, LAM)
     checks.append(check("epilogue costs", kc, pc, "costs"))
@@ -583,8 +594,7 @@ def kernel_phase(dev, K, p, seed):
     if not torch.equal(kcrash, pcrash):
         raise AssertionError("epilogue crash flags differ from the plain version")
     times["epilogue+lr"] = {
-        "ms": time_ms(lambda: fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr,
-                                                       split_cost=False), N_TIMED),
+        "ms": form_time(run_epilogue, "di_circle", "rollout", "epilogue+lr", K == K_MAIN),
         "plain_ms": time_ms(
             lambda: fr.block_carries_plain(
                 fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)[0], U, LAM),
@@ -714,7 +724,7 @@ def vanilla_loop_phase(path, ctrl, want, settle):
 
 def fused_loop_phase(kind):
     """The fused solve's closed loop of one sampler."""
-    kernel = split_name("di_circle", "sample") if kind == "smooth" else "fused_solve_kernel"
+    kernel = split_name("di_circle", "sample") if kind == "smooth" else b3_kernel("di_circle")
     n = CLOSED_LOOP_STEPS
     return vanilla_loop_phase(
         "vanilla_fused_solve" if kind == "gaussian" else kind,
@@ -1006,10 +1016,10 @@ def robust_loop_phase(kind):
     n = CLOSED_LOOP_STEPS
     if kind == "rmppi":
         # stage 1 of the first step has no nominal system to evaluate yet
-        want = {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
+        want = {b1_kernel("di_circle", x0=True): n - 1, "rmppi_rollout_kernel": n,
                 LADDER: n}
     else:
-        want = {"rollout_costs_kernel": 2 * n, "flash_combine_kernel": 2 * n,
+        want = {b1_kernel("di_circle"): 2 * n, "flash_combine_kernel": 2 * n,
                 LADDER: n}
     launches, _, X, _, cs, x = robust_family_loop(
         kind, ctrl, torch.tensor(X0, device=ctrl.device), n, want, profile=10)
@@ -1445,10 +1455,12 @@ def tsallis_kernel_phase(dev, K, p, stride, seed):
                                  "the small gamma must zero some and keep some")
         if K == K_MAIN and gamma == GAMMA:
             g32, pw = fr._f32(gamma), fr._tsallis_pw(r)
-            times["pass1"] = timed(
-                lambda: fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False),
-                lambda: fr.block_minima_plain(
-                    fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)[0]))
+            times["pass1"] = {
+                "ms": form_time(lambda: fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
+                                                                split_cost=False),
+                                "di_circle", "rollout", "tsallis+lr"),
+                "plain_ms": time_ms(lambda: fr.block_minima_plain(
+                    fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)[0]), N_TIMED_PLAIN)}
             times["pass1"]["bound_ms"], times["pass1"]["bound_by"] = bound_ms(
                 *pass1_work(K))
             t = timed(lambda: fr.tsallis_block_rows(U, kc, kmin, gamma, r),
@@ -1566,6 +1578,7 @@ def bicycle_kernel_phase(dev, K, p, stride, seed, timed_plain):
             return fr.block_minima_plain(pc) if mode.startswith("tsallis") else pc
 
         kout = kernel()
+        same_as_one_thread(f"bicycle B1 {mode} K={K}", kernel, kout, "bicycle_ar")
         pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
         torch.cuda.synchronize()
         name = f"bicycle {mode}"
@@ -1600,7 +1613,7 @@ def bicycle_kernel_phase(dev, K, p, stride, seed, timed_plain):
             by_kernel["flash_combine_kernel"] += [
                 check(f"{name} new_mean", km, pm, "new_mean"),
                 check(f"{name} eta", ke, pe, "eta")]
-        t = {"ms": time_ms(kernel, N_TIMED),
+        t = {"ms": form_time(kernel, "bicycle_ar", "rollout", mode, timed_plain),
              "plain_ms": time_plain(plain) if timed_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*bicycle_work(cost, K, mode))
         if mode == "epilogue+lr":
@@ -1948,8 +1961,10 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                  "fused_sample_rollout_kernel": [], "flash_combine_kernel": []}
     times, crashed = {}, {}
 
-    def timing(kernel, plain, work, with_plain):
-        t = {"ms": time_ms(kernel, N_TIMED),
+    def timing(kernel, plain, work, with_plain, form=None):
+        # form: (kind, mode) of a B3 or B1 launch, A B B A at the path's shape
+        t = {"ms": (form_time(kernel, pair, *form, timed_plain) if form
+                    else time_ms(kernel, N_TIMED)),
              "plain_ms": time_plain(plain, pair) if with_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         return t
@@ -1988,6 +2003,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
             return fr.block_minima_plain(pc) if mode.startswith("tsallis") else pc
 
         kout = kernel()
+        same_as_one_thread(f"{pair} B1 {mode} K={K}", kernel, kout, pair)
         # the three "+lr" modes share one plain rollout
         with_lr = lrp is not None
         if with_lr not in plain_costs:
@@ -2006,7 +2022,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
         if mode.startswith("tsallis"):
             same(f"{pair} {name} block minima", kout[2], fr.block_minima_plain(pc))
         times[name] = timing(kernel, plain, zoo_rollout_work(dyn, cost, ops, K, T_, mode),
-                             timed_plain and mode == "epilogue+lr")
+                             timed_plain and mode == "epilogue+lr", ("rollout", mode))
         if mode == "epilogue+lr":
             # one-call yardstick for the weighting + weighted sum (not used by the port)
             times[name]["library_ms"] = time_ms(
@@ -2020,6 +2036,9 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
         kw = dict(optimization_stride=stride)
         kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False,
                                                                  **kw)
+        same_as_one_thread(f"{pair} B3 {kind} K={K}", lambda args=args: (
+            fused_solve.fused_solve_carries(*args, split_cost=False, **kw)),
+            (kc, kcrash, kU, kcarry), pair)
         pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
         torch.cuda.synchronize()
         name = f"B3 {kind}"
@@ -2034,7 +2053,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                                                                      **kw),
                              lambda: fused_solve.fused_solve_plain(*args, **kw),
                              zoo_sampling_work(dyn, cost, ops, K, T_, kind, True),
-                             timed_plain and kind == "gaussian")
+                             timed_plain and kind == "gaussian", ("solve", kind))
     if pair == "cartpole":
         dmean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
         for kind, epilogue in (("gaussian", False), ("nln", False), ("smooth", False),
@@ -2221,8 +2240,8 @@ def build_cartpole(kernel, **kw):
 def zoo_loops(dev):
     """The zoo's closed loops. Returns {path: (launches, entry launches)}."""
     n, n_b1 = CLOSED_LOOP_STEPS, ZOO_B1_STEPS
-    solve_want = {"fused_solve_kernel": n, "flash_combine_kernel": n}
-    b1_want = {"rollout_costs_kernel": n_b1, "flash_combine_kernel": n_b1}
+    solve_want = lambda pair, k=n: {b3_kernel(pair): k, "flash_combine_kernel": k}
+    b1_want = lambda pair, k=n_b1: {b1_kernel(pair): k, "flash_combine_kernel": k}
     paths = {}
 
     def run(path, *a, **kw):
@@ -2232,7 +2251,7 @@ def zoo_loops(dev):
 
     # the bench row cartpole_example_K8192 from x0 = 0
     run("cartpole_fused_solve", build_cartpole("fused_solve"), torch.zeros(4, device=dev), n,
-        solve_want)
+        solve_want("cartpole"))
     # tests/test_vanilla_mppi.py:80-107 at K=8192 on the fused solve: dt 0.01,
     # lambda 0.25, std 5, control cost 1, 1 % pure noise, slide_scale 1;
     # solve, plant x + state_deriv dt, slide; its bar
@@ -2244,8 +2263,7 @@ def zoo_loops(dev):
                         split_cost=False)
     ns = SWINGUP_STEPS
     _, _, X, res = run(
-        "cartpole_swingup", swing, torch.zeros(4, device=dev), ns,
-        {"fused_solve_kernel": ns, "flash_combine_kernel": ns},
+        "cartpole_swingup", swing, torch.zeros(4, device=dev), ns, solve_want("cartpole", ns),
         plant=lambda x, u: x + swing.dynamics.state_deriv(x, u) * swing.dt,
         slide_first=False, profile=False)
     theta_err = abs(float(torch.remainder(X[-1, 2], 2 * np.pi)) - np.pi)
@@ -2255,8 +2273,8 @@ def zoo_loops(dev):
         raise AssertionError(f"cartpole swing-up missed its bar: baseline "
                              f"{float(res.baseline)}, pole angle error {theta_err}")
     # the B1 and B4 entries on short main paths
-    run("cartpole_fused", build_cartpole("fused"), torch.zeros(4, device=dev), n_b1, b1_want,
-        profile=False)
+    run("cartpole_fused", build_cartpole("fused"), torch.zeros(4, device=dev), n_b1,
+        b1_want("cartpole"), profile=False)
     run("cartpole_tsallis", build_cartpole("fused_solve", weight_transform="tsallis"),
         torch.zeros(4, device=dev), n_b1, {split_name("cartpole", "sample"): n_b1},
         profile=False)
@@ -2267,15 +2285,14 @@ def zoo_loops(dev):
     nh = HOVER_STEPS
     _, _, X, _ = run("quadrotor_hover", build_zoo("quadrotor_quadratic", "fused_solve",
                                                      K=K_HOVER, T_=T_HOVER), x0, nh,
-                        {"fused_solve_kernel": nh, "flash_combine_kernel": nh},
-                        initial_mean=hover_mean)
+                        solve_want("quadrotor_quadratic", nh), initial_mean=hover_mean)
     pos_err = float(torch.linalg.vector_norm(X[-1, :3]))
     emit("quadrotor_hover_bar", position_error=pos_err, final_state=X[-1].tolist(),
          bar={"position_error": 0.5})
     if not pos_err < 0.5:
         raise AssertionError(f"quadrotor hover missed its bar: position error {pos_err}")
     run("quadrotor_fused", build_zoo("quadrotor_quadratic", "fused", K=K_HOVER, T_=T_HOVER),
-        x0, n_b1, b1_want, initial_mean=hover_mean, profile=False)
+        x0, n_b1, b1_want("quadrotor_quadratic"), initial_mean=hover_mean, profile=False)
     # examples/quadrotor_waypoint_example.py on the synthetic one-gate map:
     # the waypoint advances when the vehicle enters the gate margin
     def advance(i, x, ctrl, extra):
@@ -2290,17 +2307,17 @@ def zoo_loops(dev):
     qz[6] = 1.0
     run("quadrotor_waypoint", build_zoo("quadrotor_map", "fused_solve", K=K_WAYPOINT,
                                         T_=T_HOVER), qz, WAYPOINT_STEPS,
-        {"fused_solve_kernel": WAYPOINT_STEPS, "flash_combine_kernel": WAYPOINT_STEPS},
-        initial_mean=hover_mean, on_step=advance, profile=False)
+        solve_want("quadrotor_map", WAYPOINT_STEPS), initial_mean=hover_mean, on_step=advance,
+        profile=False)
     run("quadrotor_waypoint_fused", build_zoo("quadrotor_map", "fused", K=K_WAYPOINT,
-                                              T_=T_HOVER), qz, n_b1, b1_want,
-        initial_mean=hover_mean, profile=False)
+                                              T_=T_HOVER), qz, n_b1,
+        b1_want("quadrotor_map"), initial_mean=hover_mean, profile=False)
     # the Dubins car to a goal trajectory (the gather by t) and to a fixed goal
     dub = torch.tensor([0.0, 0.0, 3.0], device=dev)
     run("dubins_fused_solve", build_zoo("dubins_trajectory", "fused_solve"), dub, n_b1,
-        {"fused_solve_kernel": n_b1, "flash_combine_kernel": n_b1}, profile=False)
-    run("dubins_fused", build_zoo("dubins_quadratic", "fused"), dub, n_b1, b1_want,
-        profile=False)
+        solve_want("dubins_quadratic", n_b1), profile=False)
+    run("dubins_fused", build_zoo("dubins_quadratic", "fused"), dub, n_b1,
+        b1_want("dubins_quadratic"), profile=False)
     # examples/double_integrator_example.py: T=65, K=128, dt 0.015, lambda 1,
     # alpha 1, start (-9, -9, 0.1, 0.1); its colored sampler on kernel="fused"
     # (the colored draw is eager, JAX draws it in XLA on pallas_fused too), and
@@ -2308,10 +2325,9 @@ def zoo_loops(dev):
     ex = dict(K=128, T_=65, dt=0.015, lam=1.0, alpha=1.0)
     dix = torch.tensor([-9.0, -9.0, 0.1, 0.1], device=dev)
     run("di_quadratic", build_zoo("di_quadratic", "fused", sampler=ColoredNoiseDistribution.create(
-        std_dev=[0.5, 0.5], exponents=[1.0, 1.0]), **ex), dix, n,
-        {"rollout_costs_kernel": n, "flash_combine_kernel": n})
+        std_dev=[0.5, 0.5], exponents=[1.0, 1.0]), **ex), dix, n, b1_want("di_quadratic", n))
     run("di_quadratic_fused_solve", build_zoo("di_quadratic", "fused_solve", **ex), dix, n,
-        solve_want)
+        solve_want("di_quadratic"))
     return paths
 
 
@@ -2342,13 +2358,13 @@ def racer_loops(dev):
         # 1.3e5 launches a step take about a minute to trace and parse
         out = model_loop_phase(f"racer_{kind}", build_racer(pair, "fused_solve"),
                                racer_x0(pair, dev), n,
-                               {"fused_solve_kernel": n, "flash_combine_kernel": n},
+                               {b3_kernel(pair): n, "flash_combine_kernel": n},
                                profile=kind == "steering" and 1, pair=pair)
         paths[f"racer_{kind}"] = out[:2]
         n = RACER_FUSED_LOOP_STEPS
         out = model_loop_phase(f"racer_{kind}_fused", build_racer(pair, "fused"),
                                racer_x0(pair, dev), n,
-                               {"rollout_costs_kernel": n, "flash_combine_kernel": n},
+                               {b1_kernel(pair): n, "flash_combine_kernel": n},
                                profile=False, pair=pair)
         paths[f"racer_{kind}_fused"] = out[:2]
     return paths
@@ -2369,7 +2385,7 @@ def bench_row_loops(dev):
     # the same launches as "bicycle_colored": no profiler window of its own
     paths = {"bicycle_1024": model_loop_phase(
         "bicycle_1024", bicycle, torch.zeros(S_BI, device=dev), n,
-        {"rollout_costs_kernel": n, "flash_combine_kernel": n}, profile=False,
+        {b1_kernel("bicycle_ar"): n, "flash_combine_kernel": n}, profile=False,
         map="1024")[0]}
     n = CLOSED_LOOP_STEPS
     di = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
@@ -2377,7 +2393,7 @@ def bench_row_loops(dev):
                      num_rollouts=1024, num_iters=1, kernel="fused_solve")
     launches, _, X, _ = model_loop_phase(
         "di_K1024", di, torch.tensor(X0, device=dev), n,
-        {"fused_solve_kernel": n, "flash_combine_kernel": n})
+        {b3_kernel("di_circle"): n, "flash_combine_kernel": n})
     band_check("di_K1024", X)
     paths["di_K1024"] = launches
     return paths
@@ -2831,12 +2847,12 @@ def robust_family_loops(dev):
     paths = {}
     out = robust_family_loop(
         "rmppi_autorally", build_rmppi_ar("fused"), ar_x0(dev), n,
-        {"rollout_costs_kernel": n - 1, split_name("ar_nn", "rmppi"): n,
+        {b1_kernel("ar_nn", x0=True): n - 1, split_name("ar_nn", "rmppi"): n,
          LADDER: n}, map="128", cost="ARRobustCost")
     paths["rmppi_autorally"] = out[:2]
     out = robust_family_loop(
         "tube_autorally", build_tube_ar("fused_solve"), ar_x0(dev), n,
-        {"fused_solve_kernel": 2 * n, "flash_combine_kernel": 2 * n,
+        {b3_kernel("ar_nn"): 2 * n, "flash_combine_kernel": 2 * n,
          LADDER: n}, map="128", cost="ARStandardCost")
     paths["tube_autorally"] = out[:2]
     n = ROBUST_DI_STEPS
@@ -2846,7 +2862,7 @@ def robust_family_loops(dev):
                                   dtype=torch.float32, device=dev)
     out = robust_family_loop(
         "rmppi_di_robust", build_rmppi_di_robust("fused"), torch.tensor(X0_RDI, device=dev),
-        n, {"rollout_costs_kernel": n - 1, "rmppi_rollout_kernel": n,
+        n, {b1_kernel("di_robust", x0=True): n - 1, "rmppi_rollout_kernel": n,
             LADDER: n}, disturb=disturb, profile=False)
     band_check("rmppi_di_robust", out[2])
     paths["rmppi_di_robust"] = out[:2]
@@ -2932,7 +2948,8 @@ def instantiations_phase(dev):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
-        expect_launches(launches, {"fused_solve_kernel": n, "flash_combine_kernel": n,
+        solve = fr.form_kernel_name("fused_solve", fr._entry(ctrl.dynamics, ctrl.cost, "solve"))
+        expect_launches(launches, {solve: n, "flash_combine_kernel": n,
                                    LADDER: n if ladder else 0}, name)
         for what, t in (("state", x), ("control_mean", res.control_mean),
                         ("costs", res.costs)) + ((("gains", fbs.gains),) if with_fb else ()):
@@ -3461,6 +3478,9 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
             kw = dict(optimization_stride=stride)
             kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False,
                                                                      **kw)
+            same_as_one_thread(f"{pair} B3 {kind} K={K}", lambda args=args: (
+                fused_solve.fused_solve_carries(*args, split_cost=False, **kw)),
+                (kc, kcrash, kU, kcarry), pair)
             pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
             torch.cuda.synchronize()
             name = f"B3 {kind}"
@@ -3470,8 +3490,8 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
                        *merge_checks(f"{pair} {name}", kcarry, pcarry, pc, pU, T_, C_)]
             crashed[name] = float(kcrash.float().mean())
             if timed:
-                t = {"ms": time_ms(lambda: fused_solve.fused_solve_carries(
-                         *args, split_cost=False, **kw), N_TIMED),
+                t = {"ms": form_time(lambda: fused_solve.fused_solve_carries(
+                         *args, split_cost=False, **kw), pair, "solve", kind),
                      "plain_ms": (time_plain(lambda: fused_solve.fused_solve_plain(*args, **kw),
                                              pair)
                                   if kind == "gaussian" else None), "library_ms": None}
@@ -3572,13 +3592,13 @@ ONE_THREAD_ROWS = {
 
 def one_thread_fields(kind, pair):
     """The ``kernels`` line's fields of an entry's earlier form: the
-    one-thread row a warp entry replaces, or B4's staged form timed A B B A
-    against the one-thread kernel in this run, by mode (none for a
-    one-thread entry)."""
-    if kind == "sample" and pair in STAGED_PAIRS:
+    one-thread row a warp entry replaces, or the staged form of B4, B3 or B1
+    timed A B B A against the one-thread kernel in this run, by mode (none
+    for a one-thread entry)."""
+    if kind in ("sample", "solve", "rollout") and pair in STAGED_PAIRS:
         return {"one_thread_abba": {m: {k: t.get(k) for k in (
             "ms", "other_ms", "abba_ms", "faster")}
-            for m, t in FORM_TIMES[("sample", pair)].items()}}
+            for m, t in FORM_TIMES[(kind, pair)].items()}}
     row = ONE_THREAD_ROWS.get((kind, pair))
     if row is None or not split_name(pair, kind).endswith("_warp_kernel"):
         return {}
@@ -3592,16 +3612,28 @@ def ladder_fields(key):
     return {"one_thread_abba": {k: t[k] for k in ("ms", "other_ms", "abba_ms", "faster")}}
 
 
-# the kernel family of each kind of entry with a warp form
+# the kernel family of each kind of entry with a warp or a staged form
 FORM_BASE = {"split_dynamics": "split_dynamics", "split_dynamics_x0": "split_dynamics",
              "split_solve_dynamics": "split_solve_dynamics",
-             "sample": "fused_sample_rollout", "rmppi": "rmppi_rollout"}
+             "sample": "fused_sample_rollout", "rmppi": "rmppi_rollout",
+             "solve": "fused_solve", "rollout": "rollout_costs", "rollout_x0": "rollout_costs"}
 
 
 def split_name(pair, kind):
     """The counted name of the kernel that ``pair``'s entry ``kind`` (a split
-    dynamics pass, B4 or B8) launches, as its library reports it."""
+    dynamics pass, B4, B8, B3 or B1) launches, as its library reports it."""
     return fr.form_kernel_name(FORM_BASE[kind], _build.pair_entry(pair, kind))
+
+
+def b1_kernel(pair, x0=False):
+    """The counted name of ``pair``'s B1 kernel (its per-sample-x0 entry's
+    with ``x0``)."""
+    return split_name(pair, "rollout_x0" if x0 else "rollout")
+
+
+def b3_kernel(pair):
+    """The counted name of ``pair``'s B3 kernel."""
+    return split_name(pair, "solve")
 
 
 def sample_launches(pair, k, epilogue=False):
@@ -3623,9 +3655,9 @@ def device_ms(fn, name=None, n=N_TIMED_KERNEL):
     of ``fn`` (a launch sequence holding the kernel once), from a
     torch.profiler window: device time alone, without the launches' gaps.
     The runs are parted by a host pause, which leaves a gap of a
-    millisecond or more between them on the device's clock. The first n
-    runs warm the tracing up (a window opened late in a run missed the
-    kernels of its first runs)."""
+    millisecond or more between them on the device's clock (``last_runs``).
+    The first n runs warm the tracing up (a window opened late in a run
+    missed the kernels of its first runs)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3639,57 +3671,85 @@ def device_ms(fn, name=None, n=N_TIMED_KERNEL):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and (name is None or name in e.name)),
                   key=lambda e: e.time_range.start)
-    runs, end = [], None
-    for e in seen:
-        if end is None or e.time_range.start - end > 1000:  # microseconds
-            runs.append([])
-        runs[-1].append(e)
-        end = max(end or 0, e.time_range.end)
-    runs = runs[-n:]
-    sizes = {len(r) for r in runs}
-    if len(runs) != n or len(sizes) != 1 or (name is not None and sizes != {1}):
+    runs = last_runs(seen, n)
+    if runs is None or (name is not None and len(runs[0]) != 1):
         raise AssertionError(f"the profiler saw {len(seen)} launches of "
-                             f"{name or 'any kernel'} in {2 * n} runs, parted into runs of "
-                             f"{sorted(sizes)}")
+                             f"{name or 'any kernel'} in {2 * n} runs, not {n} whole runs "
+                             f"of one launch sequence at the end")
     us = [sum(e.time_range.elapsed_us() for e in r) for r in runs]
     return statistics.median(us) / 1e3
 
 
-# B7's and B4's earlier forms, kept buildable to time the new ones against
-# them in one call: the ladder's one-thread recursion and forward passes
-# (-DMPPI_LADDER_ONE_THREAD) and the one-thread B4 of the models without the
-# warp form (-DMPPI_SAMPLE_ONE_THREAD)
+def last_runs(seen, n):
+    """The last n runs of a launch sequence among the device events ``seen``
+    (sorted by start), or None. A synchronise and a host pause part the
+    runs, so no gap-free stretch of the device's clock (gaps of a
+    millisecond or more part the stretches) holds two runs; a host stall
+    inside a run can split it in two. So the sequence is the longest
+    stretch, m launches, and the last n runs are the last n m events, each
+    beginning a stretch."""
+    starts, end = [], None
+    for e in seen:
+        starts.append(end is None or e.time_range.start - end > 1000)  # microseconds
+        end = max(end or 0, e.time_range.end)
+    m = longest = 0
+    for begins in starts:
+        longest = 1 if begins else longest + 1
+        m = max(m, longest)
+    first = len(seen) - n * m
+    if m == 0 or first < 0 or not all(starts[first + i * m] for i in range(n)):
+        return None
+    return [seen[first + i * m:first + (i + 1) * m] for i in range(n)]
+
+
+# B7's, B4's, B3's and B1's earlier forms, kept buildable to time the new
+# ones against them in one call: the ladder's one-thread recursion and
+# forward passes (-DMPPI_LADDER_ONE_THREAD) and the one-thread B4, B3 and B1
+# of the models without the warp form (-DMPPI_SAMPLE_ONE_THREAD,
+# -DMPPI_SOLVE_ONE_THREAD, -DMPPI_ROLLOUT_ONE_THREAD, in one build of their
+# pair sources; the per-sample-x0 entries of rollout_x0.cu, whose build
+# AutoRally's network makes the longest, have no one-thread build here)
 LADDER = "riccati_ladder_warp_kernel"  # B7 in the port's build (check_forms)
 B4_STAGED = "fused_sample_rollout_staged_kernel"  # B4 of STAGED_PAIRS there
 STAGED_PAIRS = ("di_circle", "di_quadratic", "di_robust", "cartpole", "quadrotor_quadratic",
                 "quadrotor_map", "dubins_quadratic", "bicycle_ar")
 STAGED_SOURCES = tuple(sorted({_build.pair_entry(p, "sample")[0] for p in STAGED_PAIRS}))
 LADDER_ONE_THREAD = {}  # {"riccati": the loaded one-thread ladder build}
-SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4 build}
-# (libraries it fills, -D flag, build directory, sources)
-VARIANTS = ((ONE_THREAD, "MPPI_SPLIT_ONE_THREAD", "one_thread", WARP_SOURCES),
-            (LADDER_ONE_THREAD, "MPPI_LADDER_ONE_THREAD", "ladder_one_thread", ("riccati",)),
-            (SAMPLE_ONE_THREAD, "MPPI_SAMPLE_ONE_THREAD", "sample_one_thread", STAGED_SOURCES))
+SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4, B3 and B1 build}
+# (libraries it fills, -D flags, build directory, sources)
+VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread", WARP_SOURCES),
+            (LADDER_ONE_THREAD, ("MPPI_LADDER_ONE_THREAD",), "ladder_one_thread", ("riccati",)),
+            (SAMPLE_ONE_THREAD, ("MPPI_SAMPLE_ONE_THREAD", "MPPI_SOLVE_ONE_THREAD",
+                                 "MPPI_ROLLOUT_ONE_THREAD"), "sample_one_thread",
+             STAGED_SOURCES))
 
 
 def build_one_thread():
     """Build the VARIANTS: WARP_SOURCES with -DMPPI_SPLIT_ONE_THREAD (every
     model's split passes one thread a sample), riccati.cu with
     -DMPPI_LADDER_ONE_THREAD and the staged pairs' sources with
-    -DMPPI_SAMPLE_ONE_THREAD, one nvcc each, all started together, and load them into their dicts.
-    Each is compiled as a unit of another name that includes the source, so
-    that its kernels' symbols (nvcc names a source's anonymous namespace
-    after its file) differ from those of the port's build loaded beside it.
-    Returns {"<directory>/<source>": nvcc's log}."""
+    -DMPPI_SAMPLE_ONE_THREAD, -DMPPI_SOLVE_ONE_THREAD and
+    -DMPPI_ROLLOUT_ONE_THREAD (build_variants)."""
+    return build_variants(VARIANTS)
+
+
+def build_variants(variants):
+    """Build each (libraries, -D flags, build directory, sources) of
+    ``variants``, one nvcc per source, all started together, and load them
+    into their dicts. Each is compiled as a unit of another name that
+    includes the source, so that its kernels' symbols (nvcc names a
+    source's anonymous namespace after its file) differ from those of the
+    port's build loaded beside it. Returns {"<directory>/<source>": nvcc's
+    log}."""
     procs = {}
-    for libs, define, tag, sources in VARIANTS:
+    for libs, defines, tag, sources in variants:
         out = _build.BUILD_ROOT / tag
         out.mkdir(parents=True, exist_ok=True)
         for name in sources:
             unit = out / f"{name}_{tag}.cu"
             unit.write_text(f'#include "{name}.cu"\n')
             procs[f"{tag}/{name}"] = (libs, name, out / f"lib{name}.so", subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-I",
+                [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
                  str(_build.CSRC), "-o", str(out / f"lib{name}.so"), str(unit)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = {key: proc.communicate()[0] for key, (_, _, _, proc) in procs.items()}
@@ -3728,7 +3788,8 @@ def one_thread_ladder():
 
 
 def one_thread_sample():
-    """Inside, the staged pairs' B4 launches the one-thread kernel."""
+    """Inside, the staged pairs' B4, B3 and B1 (one x0) launch the one-thread
+    kernels."""
     return swapped(SAMPLE_ONE_THREAD)
 
 
@@ -3737,8 +3798,10 @@ def check_forms():
     port's build and the one-thread form in build_one_thread's; each B4 and
     B8 entry the warp form for a warp pair, else B4 the staged form (the
     one-thread kernel in the one-thread build) and B8 the one-thread kernel;
-    the ladder the warp recursion (the one-thread ladder in its one-thread
-    build)."""
+    each B3 and B1 entry (one x0 or one per sample) the staged form for a
+    staged pair (the one-thread kernel in the one-thread build), else the
+    one-thread kernel; the ladder the warp recursion (the one-thread ladder
+    in its one-thread build)."""
     for pair in WARP_PAIRS:
         for kind in ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0"):
             if _build.pair_entry(pair, kind) is None:
@@ -3757,11 +3820,23 @@ def check_forms():
             if split_name(pair, kind) != want:
                 raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
                                      f"expected {want}")
+    for pair in _build.PAIR_KERNELS:
+        for kind in ("solve", "rollout", "rollout_x0"):
+            if _build.pair_entry(pair, kind) is None:
+                continue
+            base = FORM_BASE[kind]
+            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_kernel")
+            if split_name(pair, kind) != want:
+                raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
+                                     f"expected {want}")
     for pair in STAGED_PAIRS:
-        with one_thread_sample():
-            one = split_name(pair, "sample")
-        if one != "fused_sample_rollout_kernel":
-            raise AssertionError(f"{pair}: the one-thread B4 build reports {one}")
+        for kind in ("sample", "solve", "rollout"):
+            if _build.pair_entry(pair, kind) is None:
+                continue
+            with one_thread_sample():
+                one = split_name(pair, kind)
+            if one != FORM_BASE[kind] + "_kernel":
+                raise AssertionError(f"{pair}: the one-thread {kind} build reports {one}")
     with one_thread_ladder():
         one = riccati.ladder_kernel_name()
     if (riccati.ladder_kernel_name(), one) != (LADDER, "riccati_ladder_kernel"):
@@ -3780,7 +3855,36 @@ def abba_against(fn, other):
             "faster": max(b1, b2) < min(a1, a2)}
 
 
-FORM_TIMES = {}  # {("ladder" | "sample", key): A B B A against the earlier form}
+FORM_TIMES = {}  # {("ladder" | "sample" | "solve" | "rollout", key): A B B A against
+#                  the earlier form}
+
+
+def form_time(fn, pair, kind, mode, at_path=True):
+    """The ms of ``fn``, a launch of ``pair``'s B3 (kind "solve") or B1
+    ("rollout") entry: at its path's shape (``at_path``), where the entry
+    runs the staged form, A B B A against the one-thread build (kept in
+    FORM_TIMES[(kind, pair)][mode] for the kernels line), else CUDA events
+    alone. The A B B A takes the place of the single timing, so no entry is
+    timed twice."""
+    if not at_path or pair not in STAGED_PAIRS:
+        return time_ms(fn, N_TIMED)
+    t = abba_against(fn, one_thread_sample)
+    FORM_TIMES.setdefault((kind, pair), {})[mode] = t
+    return t["ms"]
+
+
+def same_as_one_thread(what, fn, out, pair):
+    """Where ``pair``'s entries run the staged form: ``fn`` (a B3 or B1
+    launch from one x0) on the one-thread build returns ``out``, the port's
+    outputs, bit for bit."""
+    if pair not in STAGED_PAIRS:
+        return
+    with one_thread_sample():
+        one = fn()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(out, one)):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{what}: output {i} of the one-thread build differs")
 # the ragged ladders: (T, n_alpha), after each model's paths' shapes
 LADDER_RAGGED = ((31, 1), (33, 33), (100, 128), (150, 14))
 
@@ -3846,7 +3950,8 @@ def staged_case(dev, pair, K, T_, p, stride, seed, timed):
     one-thread build: U, W, the costs, the crash flags and the carry rows
     bit for bit, in the four modes when ``timed`` (then each A B B A against
     the one-thread kernel), else in the Gaussian and Smooth-MPPI with its
-    epilogue."""
+    epilogue, and B3 and B1 (``staged_solve_rollout_checks``; at the path's
+    shape the kernel phases check and time them)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dyn, cost, x0, std, offset, _ = staged_parts(pair, dev)
     C_ = dyn.CONTROL_DIM
@@ -3890,14 +3995,77 @@ def staged_case(dev, pair, K, T_, p, stride, seed, timed):
             t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
                 dyn, cost, sum(PAIR_OPS[pair]), K, T_, kind, False, epilogue))
             times[f"B4 {kind}{' epilogue' if epilogue else ''}"] = t
+    if not timed:
+        checks += staged_solve_rollout_checks(dev, g, pair, K, T_, p, stride, mean, seed_t)
     return checks, times
 
 
+def staged_solve_rollout_checks(dev, g, pair, K, T_, p, stride, mean, seed_t):
+    """B3 (Gaussian) and B1 (costs; the exp epilogue and Tsallis pass 1 with
+    LR; and, for a pair with a per-sample-x0 entry, its exp epilogue with LR
+    from one x0 per sample) of a staged pair at (K, T_), B1 on B3's samples,
+    against the plain versions: costs, crash flags, U, the carry rows in
+    write_block_carry's order and the block minima bit for bit; B3 and B1
+    from one x0 also against the one-thread build (rollout_x0.cu has
+    none)."""
+    dyn, cost, x0, std, _, _ = staged_parts(pair, dev)
+    C_, lam = dyn.CONTROL_DIM, fr._f32(LAM)
+    label = f"{pair} K={K} T={T_}"
+    s = zoo_sampler("gaussian", C_, std, dev, p, T_)
+    args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
+
+    def solve():
+        return fused_solve.fused_solve_carries(*args, optimization_stride=stride,
+                                               split_cost=False)
+
+    kc, kcrash, kU, kcarry = solve()
+    pc, pcrash, pU, _ = fused_solve.fused_solve_plain(*args, optimization_stride=stride)
+    torch.cuda.synchronize()
+    same(f"{label} B3 crash flags", kcrash, pcrash)
+    checks = [check(f"{label} B3 costs", kc, pc, "bitwise"),
+              check(f"{label} B3 U", kU, pU, "bitwise"),
+              check(f"{label} B3 carry rows", kcarry, fr.block_carries_ordered(pc, pU, lam),
+                    "bitwise")]
+    same_as_one_thread(f"{label} B3", solve, (kc, kcrash, kU, kcarry), pair)
+    lr = (mean, s._sigma(T_, 0).contiguous(), s.control_cost_coeff, LAM, ALPHA,
+          s.pure_threshold(K))
+    x0s = (x0 + 0.05 * torch.randn((K, x0.numel()), generator=g, device=dev)).contiguous()
+    modes = []
+    if _build.pair_entry(pair, "rollout") is not None:
+        modes += [("costs", x0, None, fr.EPI_NONE), ("epilogue+lr", x0, lr, fr.EPI_EXP),
+                  ("tsallis+lr", x0, lr, fr.EPI_MIN)]
+    if _build.pair_entry(pair, "rollout_x0") is not None:
+        modes.append(("x0 epilogue+lr", x0s, lr, fr.EPI_EXP))
+    plain = {}
+    for mode, xin, lrp, epi in modes:
+        def run(xin=xin, lrp=lrp, epi=epi):
+            return fr._rollout_cuda(dyn, cost, xin, kU, DT, lrp, epi, LAM)
+
+        kout = run()
+        key = (xin.dim(), lrp is not None)
+        if key not in plain:
+            plain[key] = fr.rollout_costs_plain(dyn, cost, xin, kU, DT, lrp)
+        pc, pcrash = plain[key]
+        torch.cuda.synchronize()
+        same(f"{label} B1 {mode} crash flags", kout[1], pcrash)
+        checks.append(check(f"{label} B1 {mode} costs", kout[0], pc, "bitwise"))
+        if epi == fr.EPI_EXP:
+            checks.append(check(f"{label} B1 {mode} carry rows", kout[2],
+                                fr.block_carries_ordered(pc, kU, lam), "bitwise"))
+        if epi == fr.EPI_MIN:
+            same(f"{label} B1 {mode} block minima", kout[2], fr.block_minima_plain(pc))
+        if xin.dim() == 1:
+            same_as_one_thread(f"{label} B1 {mode}", run, kout, pair)
+    return checks
+
+
 def staged_form_phase(dev):
-    """B4's staged form for every pair without the warp form: each at its
-    path's K and T (timed), at (65, 33) and (1, 31), the DI circle also at
-    (8000, 100) and (63, 150), the bicycle at (1901, 100) and the quadrotor
-    on its map at (1901, 150) (staged_case)."""
+    """The staged forms of B4, B3 and B1 for every pair without the warp
+    form: B4 at its path's K and T (timed; B3's and B1's path shapes are
+    checked and timed A B B A in the kernel phases), all three at (65, 33)
+    and (1, 31), the DI circle also at (8000, 100) and (63, 150), the
+    bicycle at (1901, 100) and the quadrotor on its map at (1901, 150)
+    (staged_case)."""
     checks, seed = [], 500
     for pair in STAGED_PAIRS:
         K, _, T_ = pair_shape(pair)
@@ -4114,9 +4282,9 @@ def pair_kernel_entries(errs, times, paths, warp_times=None):
                             warp_times[pair]["B3 dynamics gaussian"]["ms"]}
                            if pair in WARP_PAIRS else {})))
         if pair in SOLVE_PAIRS:
-            out.append(line(f"fused_solve_kernel<{dyn_name}, {cost_name}>", pair, "solve",
+            out.append(line(f"{b3_kernel(pair)}<{dyn_name}, {cost_name}>", pair, "solve",
                             "pallas_solve.py:103", t["B3 gaussian"], err, K=K, T=T_,
-                            modes={"nln": t["B3 nln"]}))
+                            modes={"nln": t["B3 nln"]}, **one_thread_fields("solve", pair)))
 
     # the warp form's carry pass (Smooth-MPPI's epilogue): launches over every
     # path, timed at AutoRally's shape, the racers' as modes
@@ -4208,7 +4376,7 @@ def pair_loops(dev):
 
     b4 = sample_launches
     b4_smooth = lambda k, pair: sample_launches(pair, k, epilogue=True)
-    b3 = lambda k: {"fused_solve_kernel": k, "flash_combine_kernel": k}
+    solve_want = lambda k, pair: {b3_kernel(pair): k, "flash_combine_kernel": k}
     smooth = lambda C_, std, T_: SmoothMPPIDistribution.create(
         std_dev=std, control_cost_coeff=[1.0] * C_, num_timesteps=T_, dt=DT_SMOOTH)
     # AutoRally's bench configuration (bench.py:704-717) with Tsallis weights
@@ -4244,7 +4412,7 @@ def pair_loops(dev):
               num_iters=1, kernel="fused_solve", split_cost=False)
     bx0 = torch.zeros(S_BI, device=dev)
     run("bicycle_fused_solve", VanillaMPPI(bdyn, bcost, GaussianDistribution.create(
-        std_dev=BI_STD), **bi), bx0, n, b3(n), map="128", profile=1)
+        std_dev=BI_STD), **bi), bx0, n, solve_want(n, "bicycle_ar"), map="128", profile=1)
     run("bicycle_tsallis_fused_solve", VanillaMPPI(
         bdyn, bcost, GaussianDistribution.create(std_dev=BI_STD), weight_transform="tsallis",
         tsallis_gamma=GAMMA, tsallis_r=R_TS, **bi), bx0, n, b4("bicycle_ar", n), map="128")
@@ -4279,7 +4447,7 @@ def pair_loops(dev):
         num_timesteps=T_ZOO, num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve",
         split_cost=False, **kw)
     rx0 = torch.tensor(X0_RDI, device=dev)
-    run("di_robust_fused_solve", rdi(), rx0, n, b3(n))
+    run("di_robust_fused_solve", rdi(), rx0, n, solve_want(n, "di_robust"))
     run("di_robust_tsallis_fused_solve", rdi(**tsallis), rx0, n, b4("di_robust", n))
     # the split form forced: the cartpole swing-up and the quadrotor hover
     # with their bars (the zoo loops' configurations)
@@ -4439,9 +4607,9 @@ def main() -> int:
     errs["fused_sample_rollout_kernel"] = philox_phase(dev)
     solve_times = None
     for K, p, stride, seed in ((K_MAIN, 0.0, 0, 7), (K_RAGGED, 0.1, 2, 8)):
-        b3, b4, times = fused_kernel_phase(dev, K, p, stride, seed)
-        note("fused_solve_kernel", b3)
-        note("fused_sample_rollout_kernel", b4)
+        b3_checks, b4_checks, times = fused_kernel_phase(dev, K, p, stride, seed)
+        note("fused_solve_kernel", b3_checks)
+        note("fused_sample_rollout_kernel", b4_checks)
         solve_times = solve_times or times
 
     ar_errs = dict.fromkeys(("rollout_costs_kernel", "fused_solve_kernel",
@@ -4503,7 +4671,7 @@ def main() -> int:
     colored_reference_phase(dev)
     racer_reference_phase(dev)
     by_path = {"vanilla": vanilla_loop_phase("vanilla", build_vanilla("gaussian", "fused"), {
-                   "rollout_costs_kernel": CLOSED_LOOP_STEPS,
+                   b1_kernel("di_circle"): CLOSED_LOOP_STEPS,
                    "flash_combine_kernel": CLOSED_LOOP_STEPS}, settle=True),
                "rmppi": robust_loop_phase("rmppi"),
                "tube": robust_loop_phase("tube")}
@@ -4513,27 +4681,27 @@ def main() -> int:
     n, n_f = CLOSED_LOOP_STEPS, AR_FUSED_LOOP_STEPS
     ar_paths = {
         "autorally": ar_loop_phase("autorally", "128", "fused_solve", n, {
-            "fused_solve_kernel": n, "flash_combine_kernel": n}),
+            b3_kernel("ar_nn"): n, "flash_combine_kernel": n}),
         # the same launches as "autorally": no profiler window of their own
         "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n_f, {
-            "fused_solve_kernel": n_f, "flash_combine_kernel": n_f}, profile=False),
+            b3_kernel("ar_nn"): n_f, "flash_combine_kernel": n_f}, profile=False),
         "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f, {
-            "rollout_costs_kernel": n_f, "flash_combine_kernel": n_f}, profile=False),
+            b1_kernel("ar_nn"): n_f, "flash_combine_kernel": n_f}, profile=False),
     }
     colored_paths = {
         "colored_fused": vanilla_loop_phase(
             "colored_fused", build_colored("exp", "fused"),
-            {"rollout_costs_kernel": n, "flash_combine_kernel": n}, settle=False),
+            {b1_kernel("di_circle"): n, "flash_combine_kernel": n}, settle=False),
         "colored_tsallis": vanilla_loop_phase(
             "colored_tsallis", build_colored("tsallis", "fused"),
-            {"rollout_costs_kernel": n, "tsallis_reduce_kernel": n,
+            {b1_kernel("di_circle"): n, "tsallis_reduce_kernel": n,
              "flash_combine_kernel": n}, settle=False),
     }
     nb = BICYCLE_LOOP_STEPS
     bicycle_paths = {
         "bicycle_colored": model_loop_phase(
             "bicycle_colored", build_bicycle("fused"), torch.zeros(S_BI, device=dev), nb,
-            {"rollout_costs_kernel": nb, "flash_combine_kernel": nb}, map="128")[0],
+            {b1_kernel("bicycle_ar"): nb, "flash_combine_kernel": nb}, map="128")[0],
     }
     row_paths = bench_row_loops(dev)
     bicycle_paths["bicycle_1024"] = row_paths["bicycle_1024"]
@@ -4618,8 +4786,9 @@ def main() -> int:
     }
     ar, ar1024 = ar_times["128"], ar_times["1024"]
     kernels = [
-        entry("rollout_costs_kernel", "pair_di_circle.cu", "pallas_rollout.py:548", epi,
-              epi["library_ms"], modes=modes),
+        entry(b1_kernel("di_circle"), "pair_di_circle.cu", "pallas_rollout.py:548", epi,
+              epi["library_ms"], err=errs["rollout_costs_kernel"], modes=modes,
+              **one_thread_fields("rollout", "di_circle")),
         entry("flash_combine_kernel", "flash_combine.cu", "pallas_rollout.py:1005",
               comb, None),
         entry("riccati_backward_kernel", "riccati.cu", "pallas_riccati.py:137",
@@ -4638,31 +4807,32 @@ def main() -> int:
               **ladder_fields(f"di T={T_R}")),
         entry("rmppi_rollout_kernel", "rmppi_rollout.cu", "pallas_rollout.py:2127",
               rmppi_times, None),
-        entry("fused_solve_kernel", "pair_di_circle.cu", "pallas_solve.py:103",
+        entry(b3_kernel("di_circle"), "pair_di_circle.cu", "pallas_solve.py:103",
               solve_times["solve gaussian"], None,
               paths={**by_path,
                      "double_integrator_mppi": inst_paths["double_integrator_mppi"][0]},
               err=max(errs["fused_solve_kernel"], inst_err("fused_solve_di_circle")),
               modes={"nln": solve_times["solve nln"]},
-              randn_reference_ms=solve_times["randn_reference_ms"]),
+              randn_reference_ms=solve_times["randn_reference_ms"],
+              **one_thread_fields("solve", "di_circle")),
         entry(split_name("di_circle", "sample"), "pair_di_circle.cu", "pallas_rollout.py:1631",
               solve_times["smooth epilogue"], None,
               err=max(errs["fused_sample_rollout_kernel"], form_err(B4_STAGED, "di_circle ")),
               **one_thread_fields("sample", "di_circle"),
               modes={m: solve_times[m] for m in ("gaussian", "nln", "smooth")},
               randn_reference_ms=solve_times["randn_reference_ms"]),
-        entry("fused_solve_kernel<AutorallyNN, ARCost>", "pair_ar_nn.cu",
+        entry(f"{b3_kernel('ar_nn')}<AutorallyNN, ARCost>", "pair_ar_nn.cu",
               "pallas_solve.py:103", ar["B3 gaussian"], None,
               paths={**ar_paths, "tube_autorally": robust_paths["tube_autorally"][0],
                      "autorally_mppi": inst_paths["autorally_mppi"][0]},
               err=max(ar_errs["fused_solve_kernel"], inst_err("fused_solve_ar_nn")),
-              kernel="fused_solve_kernel", K=K_AR, T=T_AR, device_functions=ar_functions,
+              kernel=b3_kernel("ar_nn"), K=K_AR, T=T_AR, device_functions=ar_functions,
               modes={"nln": ar["B3 nln"], "gaussian 1024^2 map": ar1024["B3 gaussian"],
                      "nln 1024^2 map": ar1024["B3 nln"]}),
-        entry("rollout_costs_kernel<AutorallyNN, ARCost>", "pair_ar_nn.cu",
+        entry(f"{b1_kernel('ar_nn')}<AutorallyNN, ARCost>", "pair_ar_nn.cu",
               "pallas_rollout.py:548", ar["B1 epilogue+lr"],
               ar["B1 epilogue+lr"]["library_ms"], paths=ar_paths,
-              err=ar_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
+              err=ar_errs["rollout_costs_kernel"], kernel=b1_kernel("ar_nn"),
               K=K_AR, T=T_AR, device_functions=ar_functions,
               modes={**{m: ar[f"B1 {m}"] for m in ("costs", "costs+lr", "epilogue")},
                      **{f"{m} 1024^2 map": ar1024[f"B1 {m}"]
@@ -4673,9 +4843,9 @@ def main() -> int:
         # the colored rows: the rollout kernel's exp epilogue (colored_fused,
         # timed above at the same shapes) and its Tsallis pass 1
         # (colored_tsallis), the Tsallis reduction and the merge
-        entry("rollout_costs_kernel (Tsallis pass 1; colored paths)", "pair_di_circle.cu",
+        entry(f"{b1_kernel('di_circle')} (Tsallis pass 1; colored paths)", "pair_di_circle.cu",
               "pallas_rollout.py:894", ts_times["pass1"], None, paths=colored_paths,
-              err=ts_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
+              err=ts_errs["rollout_costs_kernel"], kernel=b1_kernel("di_circle"),
               modes={"epilogue+lr (colored_fused)": epi}),
         entry("tsallis_reduce_kernel", "tsallis_reduce.cu", "pallas_rollout.py:1342",
               ts_times["tsallis_reduce"], ts_times["tsallis_reduce"]["library_ms"],
@@ -4690,11 +4860,11 @@ def main() -> int:
               paths={**colored_paths, **bicycle_paths},
               err=max(ts_errs["flash_combine_kernel"], bi_errs["flash_combine_kernel"]),
               kernel="flash_combine_kernel"),
-        entry("rollout_costs_kernel<BicycleSlip, ARCostBicycle>", "pair_bicycle_ar.cu",
+        entry(f"{b1_kernel('bicycle_ar')}<BicycleSlip, ARCostBicycle>", "pair_bicycle_ar.cu",
               "pallas_rollout.py:548", bi_times["epilogue+lr"],
               bi_times["epilogue+lr"]["library_ms"], paths=bicycle_paths,
-              err=bi_errs["rollout_costs_kernel"], kernel="rollout_costs_kernel",
-              K=K_BI, T=T_BI,
+              err=bi_errs["rollout_costs_kernel"], kernel=b1_kernel("bicycle_ar"),
+              K=K_BI, T=T_BI, **one_thread_fields("rollout", "bicycle_ar"),
               modes={m: bi_times[m] for m in ("costs", "costs+lr", "tsallis+lr")}),
     ]
     # the zoo's entries: launches counted per entry (fr.entry_counts) on the
@@ -4725,16 +4895,16 @@ def main() -> int:
                           for m in ("costs", "costs+lr", "epilogue+lr", "tsallis+lr")})
             e = {k: max(v, zoo_errs["dubins_trajectory"][k]) for k, v in e.items()}
         kernels.append(zoo_entry(
-            f"rollout_costs_kernel<{types}>", pair, f"rollout_costs_{pair}",
+            f"{b1_kernel(pair)}<{types}>", pair, f"rollout_costs_{pair}",
             "pallas_rollout.py:548", t["B1 epilogue+lr"], e, "rollout_costs_kernel",
-            K=K_ZOO, T=T_ZOO, modes=modes))
+            K=K_ZOO, T=T_ZOO, modes=modes, **one_thread_fields("rollout", pair)))
         solve_modes = {m: t[m] for m in t if m.startswith("B3") and m != "B3 gaussian"}
         if pair == "dubins_quadratic":
             solve_modes["goal trajectory"] = zoo_times["dubins_trajectory"]["B3 gaussian"]
         kernels.append(zoo_entry(
-            f"fused_solve_kernel<{types}>", pair, f"fused_solve_{pair}",
+            f"{b3_kernel(pair)}<{types}>", pair, f"fused_solve_{pair}",
             "pallas_solve.py:103", t["B3 gaussian"], e, "fused_solve_kernel",
-            K=K_ZOO, T=T_ZOO, modes=solve_modes))
+            K=K_ZOO, T=T_ZOO, modes=solve_modes, **one_thread_fields("solve", pair)))
     kernels.append(zoo_entry(
         f"{split_name('cartpole', 'sample')}<Cartpole, CartpoleQuadraticCost>", "cartpole",
         "fused_sample_rollout_cartpole", "pallas_rollout.py:1631", cart["B4 smooth epilogue"],
@@ -4816,13 +4986,15 @@ def main() -> int:
                      rt["B1-x0 ar_nn 128"], rchecks("rollout_costs_kernel", "B1-x0 ar_nn"),
                      K=N_CAND_AR * S_PER_AR, T=T_AR, device_functions=ar_functions,
                      modes={"partly-crashing map": rt["B1-x0 ar_nn partial"]}),
-        family_entry("rollout_costs_kernel<BicycleSlip, ARCostBicycle> (per-sample x0)",
+        family_entry(f"{b1_kernel('bicycle_ar', x0=True)}<BicycleSlip, ARCostBicycle> "
+                     "(per-sample x0)",
                      "rollout_x0.cu", "rollout_costs_x0_bicycle_ar", "pallas_rollout.py:548",
                      rt["B1-x0 bicycle_ar 128"],
                      rchecks("rollout_costs_kernel", "B1-x0 bicycle_ar"),
                      K=N_CAND_AR * S_PER_AR, T=T_BI, on_main_path=False),
-        family_entry("rollout_costs_kernel<DoubleIntegrator, DoubleIntegratorRobustCost> "
-                     "(per-sample x0)", "rollout_x0.cu", "rollout_costs_x0_di_robust",
+        family_entry(f"{b1_kernel('di_robust', x0=True)}<DoubleIntegrator, "
+                     "DoubleIntegratorRobustCost> (per-sample x0)", "rollout_x0.cu",
+                     "rollout_costs_x0_di_robust",
                      "pallas_rollout.py:548",
                      rt[f"B1-x0 di_robust {N_CAND_AR * S_PER_AR} x {T_R}"],
                      rchecks("rollout_costs_kernel", "B1-x0 di_robust"),

@@ -1,6 +1,7 @@
 // Device helpers shared by the MPPI kernels: the model arguments, the
-// constraint clamp, block reductions, the per-block flash (online-softmax)
-// carry row and the per-block minimum of the Tsallis epilogue.
+// constraint clamp, asynchronous copies to shared memory, block reductions,
+// the per-block flash (online-softmax) carry row and the per-block minimum of
+// the Tsallis epilogue.
 #pragma once
 
 #include <math.h>
@@ -86,6 +87,24 @@ __device__ inline float clamp_channel(float u, const float* cons, int C,
   const float shrunk = u - db * (u < 0.0f ? -1.0f : 1.0f);
   const float v = fabsf(u) < db ? zc : shrunk;
   return fminf(fmaxf(v, lo), hi);
+}
+
+// An asynchronous copy of one float from device to shared memory
+// (cp.async: the data goes to shared memory without a register, so no
+// later barrier waits for it), the commit of this thread's copies as a
+// group, and the wait until at most N of its groups are in flight.
+__device__ inline void cp_async_f32(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 template <int N>

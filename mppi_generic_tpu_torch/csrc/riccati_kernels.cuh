@@ -297,24 +297,6 @@ struct WarpRecursion {
   float Rdt[C * C];
 };
 
-// An asynchronous copy of one float from device to shared memory
-// (cp.async: the data goes to shared memory without a register, so no
-// later barrier waits for it), the commit of this thread's copies as a
-// group, and the wait until at most N of its groups are in flight.
-__device__ inline void cp_async_f32(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // the N floats at src into dst, lane l taking l, l + 32, ... (cp.async)
 template <int N>
 __device__ inline void copy_async(float* dst, const float* src, int lane) {

@@ -10,6 +10,13 @@
 // The plain PyTorch version is in mppi_generic_tpu_torch/ops/fused_rollout.py
 // (rollout_costs_plain, block_carries_plain, block_minima_plain).
 //
+// For every model without a network step the entries launch the staged
+// form, rollout_costs_staged_kernel (RolloutPolicy below, on the ring of
+// sample_staged.cuh): producer warps read each sample's chunk of 32 steps of
+// U (and make the LR term) into shared memory, consumer threads walk the
+// chain, every mode and epilogue as below; the network models keep the
+// one-thread kernel, which -DMPPI_ROLLOUT_ONE_THREAD builds for every model.
+//
 // rollout_costs_kernel<Dyn, Cost, EPI, WITH_LR, PER_SAMPLE_X0>: one thread
 // per sample, the T-step loop inside the thread, the state in registers.
 // With PER_SAMPLE_X0 sample k starts from row k of a (K, S) x0, which is how
@@ -66,6 +73,8 @@
 #include <stddef.h>
 
 #include "mppi_common.cuh"
+#include "sample_staged.cuh"
+#include "warp_model.cuh"
 
 namespace {
 
@@ -78,6 +87,112 @@ struct LRArgs {
   const float* coeff;  // (C,) control-cost coefficients
   float gain;          // 0.5 * lambda * (1 - alpha)
   float pure_thresh;   // (1 - p) * K: samples k >= it have mu = 0
+};
+
+// The LR term of a step with the controls u[C], scaled by the gain:
+// gain sum_c coeff_c mu (mu - 2 u_c) / (s_c s_c), mu = 0 for a pure sample.
+template <int C>
+__device__ inline float rollout_lr_term(const LRArgs& lr, int t, bool pure, const float* u) {
+  float lr_t = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float mu = pure ? 0.0f : lr.mean[t * C + c];
+    const float sg = lr.sigma[t * C + c];
+    lr_t = lr_t + lr.coeff[c] * mu * (mu - 2.0f * u[c]) / (sg * sg);
+  }
+  return lr.gain * lr_t;
+}
+
+// B1's inputs of sample k at step t, which depend on no state: its controls
+// read from U into v[0..C-1] and, WITH_LR, the step's scaled LR term into
+// v[C].
+template <int C, bool WITH_LR>
+__device__ inline void rollout_controls(const float* U, const LRArgs& lr, int k, int T, int t,
+                                        float* v) {
+  const float* row = U + (static_cast<size_t>(k) * T + t) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) v[c] = row[c];
+  if constexpr (WITH_LR) {
+    v[C] = rollout_lr_term<C>(lr, t, static_cast<float>(k) >= lr.pure_thresh, v);
+  }
+}
+
+// B1's staged form (sample_staged.cuh): the controls and, WITH_LR, the
+// scaled LR term a step; cost = running + gain lr_t, acc = acc + cost. With
+// COPY the producers copy the controls from U to the stage by cp.async,
+// without a register (lane j's C floats of step t0 + j into the padded
+// stage), and with LR each lane reads its own slots back for the LR term;
+// else each lane loads and stores them (produce_each). A bulk copy
+// (cp.async.bulk) needs 16-byte aligned runs at both ends: a sample's chunk
+// would land sample-major, rows 32 C + 4 floats apart, and every consumer
+// read would meet a 4-way bank conflict, so the stage keeps its padded
+// step-major layout.
+template <int C, bool WITH_LR, bool X0, bool COPY>
+struct RolloutPolicy {
+  static constexpr int kRows = WITH_LR ? C + 1 : C;
+  static constexpr bool kX0PerSample = X0;
+  const float* U;
+  LRArgs lr;
+
+  __device__ uint32_t key() const { return 0u; }
+  __device__ void make(uint32_t, int k, int, int T, int t, float* v) const {
+    rollout_controls<C, WITH_LR>(U, lr, k, T, t, v);
+  }
+  template <class L>
+  __device__ void produce_chunk(uint32_t key, int k0, int K, int T, int t0, int first,
+                                int stride, float* stage) const {
+    if constexpr (!COPY) {
+      produce_each<L>(*this, key, k0, K, T, t0, first, stride, stage);
+    } else {
+      const int j = threadIdx.x & 31;
+      const int t = t0 + j;
+      for (int i = first; i < L::kNS; i += stride) {
+        const int k = k0 + i;
+        if (k < K && t < T) {
+          const float* row = U + (static_cast<size_t>(k) * T + t) * C;
+#pragma unroll
+          for (int c = 0; c < C; ++c) cp_async_f32(stage + L::at(j, c, i), row + c);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      if constexpr (WITH_LR) {
+        for (int i = first; i < L::kNS; i += stride) {
+          const int k = k0 + i;
+          if (k < K && t < T) {
+            float u[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) u[c] = stage[L::at(j, c, i)];
+            stage[L::at(j, C, i)] =
+                rollout_lr_term<C>(lr, t, static_cast<float>(k) >= lr.pure_thresh, u);
+          }
+        }
+      }
+    }
+  }
+  __device__ static void add(StagedSums& s, float running, const float* v) {
+    float cost = running;
+    if constexpr (WITH_LR) cost = cost + v[C];
+    s.acc = s.acc + cost;
+  }
+  __device__ float finish(const StagedSums& s, float terminal, int T) const {
+    return (s.acc + terminal) / static_cast<float>(T);
+  }
+};
+
+// Whether B1's staged producers copy the controls by cp.async (COPY above):
+// A B B A on the H100 (scripts/torch_staged_copy_trial.py, PERF.md §6) the
+// copy was the faster for the models with a short state, whose chain is
+// short (the double integrator, the cartpole, Dubins), the plain loads for
+// the quadrotor and the bicycle. -DMPPI_ROLLOUT_COPY=1 or =0 takes one for
+// every model.
+template <class Dyn>
+struct RolloutCopies {
+#ifdef MPPI_ROLLOUT_COPY
+  static constexpr bool value = MPPI_ROLLOUT_COPY != 0;
+#else
+  static constexpr bool value = Dyn::S <= 4;
+#endif
 };
 
 template <class Dyn, class Cost, int EPI, bool WITH_LR, bool PER_SAMPLE_X0>
@@ -113,24 +228,12 @@ rollout_costs_kernel(const float* __restrict__ x0,
     for (int i = 0; i < O; ++i) y[i] = 0.0f;
     int crash = 0;
     float acc = 0.0f;
-    const bool pure = WITH_LR && static_cast<float>(k) >= lr.pure_thresh;
-    const float* u_row = U + static_cast<size_t>(k) * TC;
     for (int t = 0; t < T; ++t) {
-      float u[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) u[c] = u_row[t * C + c];
+      float u[WITH_LR ? C + 1 : C];
+      rollout_controls<C, WITH_LR>(U, lr, k, T, t, u);
       step_model<Dyn>(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
       float cost = Cost::running_cost(cp, y, u, t, &crash);
-      if (WITH_LR) {
-        float lr_t = 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float mu = pure ? 0.0f : lr.mean[t * C + c];
-          const float sg = lr.sigma[t * C + c];
-          lr_t = lr_t + lr.coeff[c] * mu * (mu - 2.0f * u[c]) / (sg * sg);
-        }
-        cost = cost + lr.gain * lr_t;
-      }
+      if constexpr (WITH_LR) cost = cost + u[C];
       acc = acc + cost;
     }
     J = (acc + Cost::terminal_cost(cp, y)) / static_cast<float>(T);
@@ -142,29 +245,67 @@ rollout_costs_kernel(const float* __restrict__ x0,
   if (EPI == kEpiMin) write_block_min<kBlockSamples>(J, valid, carry);
 }
 
+template <class Dyn, class Cost, int EPI, bool WITH_LR, bool PER_SAMPLE_X0>
+__global__ void __launch_bounds__(kStagedThreads, 1)
+rollout_costs_staged_kernel(const float* __restrict__ x0, const float* __restrict__ U, int K,
+                            int T, float dt, ModelArgs m, LRArgs lr, float lam_w,
+                            float* __restrict__ costs, int* __restrict__ crash_out,
+                            float* __restrict__ carry) {
+  bool valid;
+  const float J = staged_chain<Dyn, Cost>(
+      RolloutPolicy<Dyn::C, WITH_LR, PER_SAMPLE_X0, RolloutCopies<Dyn>::value>{U, lr}, x0, K,
+      T, dt, m, costs, crash_out, &valid);
+  if (EPI == kEpiExp) write_block_carry<kBlockSamples>(J, valid, lam_w, U, K, T * Dyn::C, carry);
+  if (EPI == kEpiMin) write_block_min<kBlockSamples>(J, valid, carry);
+}
+
+// The form of B1 a model's entries launch: 2 the staged form
+// (rollout_costs_staged_kernel) for a model without the warp form, else,
+// and for every model with -DMPPI_ROLLOUT_ONE_THREAD, 0 the one-thread
+// kernel (a network model's combined B1 is still one thread a sample).
+template <class Dyn>
+constexpr int rollout_form() {
+#ifdef MPPI_ROLLOUT_ONE_THREAD
+  return 0;
+#else
+  return HasWarpStep<Dyn>::value ? 0 : 2;
+#endif
+}
+
 template <class Dyn, class Cost, int EPI, bool X0>
-void launch_rollout_lr(bool with_lr, const float* x0, const float* U, int K,
-                       int T, float dt, ModelArgs m, LRArgs lr, float lam_w,
-                       float* costs, int* crash, float* carry,
-                       cudaStream_t stream) {
-  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
-  if (with_lr) {
-    rollout_costs_kernel<Dyn, Cost, EPI, true, X0>
-        <<<nb, kBlockSamples, 0, stream>>>(x0, U, K, T, dt, m, lr, lam_w, costs,
-                                           crash, carry);
+cudaError_t launch_rollout_lr(bool with_lr, const float* x0, const float* U, int K, int T,
+                              float dt, ModelArgs m, LRArgs lr, float lam_w, float* costs,
+                              int* crash, float* carry, cudaStream_t stream) {
+  constexpr int C = Dyn::C;
+  if constexpr (rollout_form<Dyn>() == 2) {
+    if (with_lr) {
+      return launch_staged<Dyn, C + 1>(rollout_costs_staged_kernel<Dyn, Cost, EPI, true, X0>,
+                                       K, stream, x0, U, K, T, dt, m, lr, lam_w, costs, crash,
+                                       carry);
+    }
+    return launch_staged<Dyn, C>(rollout_costs_staged_kernel<Dyn, Cost, EPI, false, X0>, K,
+                                 stream, x0, U, K, T, dt, m, lr, lam_w, costs, crash, carry);
   } else {
-    rollout_costs_kernel<Dyn, Cost, EPI, false, X0>
-        <<<nb, kBlockSamples, 0, stream>>>(x0, U, K, T, dt, m, lr, lam_w, costs,
-                                           crash, carry);
+    const int nb = (K + kBlockSamples - 1) / kBlockSamples;
+    if (with_lr) {
+      rollout_costs_kernel<Dyn, Cost, EPI, true, X0>
+          <<<nb, kBlockSamples, 0, stream>>>(x0, U, K, T, dt, m, lr, lam_w, costs, crash,
+                                             carry);
+    } else {
+      rollout_costs_kernel<Dyn, Cost, EPI, false, X0>
+          <<<nb, kBlockSamples, 0, stream>>>(x0, U, K, T, dt, m, lr, lam_w, costs, crash,
+                                             carry);
+    }
+    return cudaGetLastError();
   }
 }
 
-// Kernel 1 for the pair (Dyn, Cost) in the mode the flags select. An entry
-// is built for one x0 layout, X0: one state for all samples (the pairs'
-// sources) or one per sample (RMPPI's candidate evaluation,
-// rollout_x0.cu); the other layout is refused (cudaErrorInvalidValue).
-// Instantiating only one layout per entry halves a pair's kernels, and so
-// its share of the build.
+// Kernel 1 for the pair (Dyn, Cost) in the mode the flags select, in the
+// form rollout_form<Dyn>() names. An entry is built for one x0 layout, X0:
+// one state for all samples (the pairs' sources) or one per sample (RMPPI's
+// candidate evaluation, rollout_x0.cu); the other layout is refused
+// (cudaErrorInvalidValue). Instantiating only one layout per entry halves a
+// pair's kernels, and so its share of the build.
 template <class Dyn, class Cost, bool X0>
 int rollout_entry(int device, const float* x0, const float* U, int K, int T,
                   float dt, ModelArgs m, LRArgs lr, int with_lr, int epilogue,
@@ -176,18 +317,18 @@ int rollout_entry(int device, const float* x0, const float* U, int K, int T,
   const bool lr_on = with_lr != 0;
   if ((per_sample_x0 != 0) != X0) return static_cast<int>(cudaErrorInvalidValue);
   if (epilogue == kEpiExp) {
-    launch_rollout_lr<Dyn, Cost, kEpiExp, X0>(lr_on, x0, U, K, T, dt, m, lr,
-                                              lam_w, costs, crash, carry, s);
-  } else if (epilogue == kEpiMin) {
-    launch_rollout_lr<Dyn, Cost, kEpiMin, X0>(lr_on, x0, U, K, T, dt, m, lr,
-                                              lam_w, costs, crash, carry, s);
-  } else if (epilogue == kEpiNone) {
-    launch_rollout_lr<Dyn, Cost, kEpiNone, X0>(lr_on, x0, U, K, T, dt, m, lr,
-                                               lam_w, costs, crash, carry, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_rollout_lr<Dyn, Cost, kEpiExp, X0>(
+        lr_on, x0, U, K, T, dt, m, lr, lam_w, costs, crash, carry, s));
   }
-  return static_cast<int>(cudaGetLastError());
+  if (epilogue == kEpiMin) {
+    return static_cast<int>(launch_rollout_lr<Dyn, Cost, kEpiMin, X0>(
+        lr_on, x0, U, K, T, dt, m, lr, lam_w, costs, crash, carry, s));
+  }
+  if (epilogue == kEpiNone) {
+    return static_cast<int>(launch_rollout_lr<Dyn, Cost, kEpiNone, X0>(
+        lr_on, x0, U, K, T, dt, m, lr, lam_w, costs, crash, carry, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -200,7 +341,10 @@ int rollout_entry(int device, const float* x0, const float* U, int K, int T,
 // be null), 1 the exp carry rows (nb, 2 + T*C), 2 the Tsallis block minima
 // (nb,). x0 is (K, S) when per_sample_x0 != 0, which only an entry built
 // with X0 true takes, else (S,), which only one built with X0 false takes.
-// Returns the CUDA error of the launch (0 when it was accepted).
+// Returns the CUDA error of the launch (0 when it was accepted). Beside it,
+// NAME_form() says which form it launches: 2 the staged form
+// (rollout_costs_staged_kernel), 0 the one-thread kernel
+// (rollout_costs_kernel).
 #define ROLLOUT_ENTRY(NAME, DYN, COST, X0)                                    \
   int NAME(int device, const float* x0, const float* U, int K, int T,        \
            float dt, const float* dyn_params, const float* cost_params,      \
@@ -214,4 +358,5 @@ int rollout_entry(int device, const float* x0, const float* U, int K, int T,
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map},               \
         LRArgs{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh}, with_lr,  \
         epilogue, per_sample_x0, lam_w, costs, crash, carry, stream);        \
-  }
+  }                                                                          \
+  int NAME##_form() { return rollout_form<DYN>(); }

@@ -1,7 +1,8 @@
 // The in-kernel draw of the fused sampling kernels (B3, B4: sample_kernels.cuh;
-// B4's warp form: sample_warp.cuh; B3's split pass: split_kernels.cuh,
-// split_warp.cuh): the sampling arguments, a step's normals and B4's
-// state-free controls of a step.
+// their staged forms: sample_staged.cuh; B4's warp form: sample_warp.cuh;
+// B3's split pass: split_kernels.cuh, split_warp.cuh): the sampling
+// arguments, a step's normals and B3's and B4's state-free controls of a
+// step.
 #pragma once
 
 #include <math.h>
@@ -90,6 +91,31 @@ __device__ inline float sample_controls(const SampleArgs& a, uint32_t seed, int 
     lr_t = lr_t + a.lr_tab[c] * mu * (mu - 2.0f * u[c]) / (sg * sg);
   }
   return lr_gain * lr_t;
+}
+
+// B3's controls of sample k at step t, which depend on no state: the draw,
+// the carve-outs and the clamp into u[C], written to the step's U row, and
+// the step's C LR terms lrc mu (mu - 2 u) into terms[C], which B3 sums apart
+// in (t, c) order.
+template <int C, int NOISE>
+__device__ inline void solve_controls(const SampleArgs& a, uint32_t seed, int k, int K,
+                                      int T, int t, bool pure, float* U, float* u,
+                                      float* terms) {
+  float eps[C];
+  draw_eps<C, NOISE>(a, seed, k, K, T, t, eps);
+  const bool pin = k == 0 || t < a.stride;
+  const size_t off = (static_cast<size_t>(k) * T + t) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float m = a.mean[t * C + c];
+    const float noise = a.sigma[t * C + c] * eps[c];
+    const float mu = pure ? 0.0f : m;
+    float v = pin ? m : (pure ? noise : m + noise);
+    v = clamp_channel(v, a.cons, C, c);
+    u[c] = v;
+    U[off + c] = v;
+    terms[c] = a.lr_tab[t * C + c] * mu * (mu - 2.0f * v);
+  }
 }
 
 }  // namespace

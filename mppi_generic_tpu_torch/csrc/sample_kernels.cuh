@@ -36,7 +36,12 @@
 // warps drawing each chunk of steps into shared memory for consumer threads
 // (sample_staged.cuh); all take a step's controls from sample_controls
 // (sample_draw.cuh). The one-thread B4 kernel below is built only with
-// -DMPPI_SAMPLE_ONE_THREAD, to time the forms in one call.
+// -DMPPI_SAMPLE_ONE_THREAD, to time the forms in one call. B3 of every model
+// without a network step runs its staged form too
+// (fused_solve_staged_kernel, sample_staged.cuh: the stage carries each
+// step's controls and C LR terms from solve_controls); the one-thread B3
+// below serves the network models and, with -DMPPI_SOLVE_ONE_THREAD, every
+// model.
 //
 // What bounds them on this card: operations, not bytes. Per sample-step they
 // run a ten-round Philox (about 90 integer operations), the Box-Muller logf,
@@ -120,23 +125,12 @@ fused_solve_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T,
     float acc = 0.0f;
     float lr = 0.0f;
     const bool pure = static_cast<float>(k) >= a.pure_thresh;
-    float* u_row = U + static_cast<size_t>(k) * TC;
     for (int t = 0; t < T; ++t) {
-      float eps[C];
-      draw_eps<C, NOISE>(a, seed, k, K, T, t, eps);
-      const bool pin = k == 0 || t < a.stride;
       float u[C];
+      float terms[C];
+      solve_controls<C, NOISE>(a, seed, k, K, T, t, pure, U, u, terms);
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float m = a.mean[t * C + c];
-        const float noise = a.sigma[t * C + c] * eps[c];
-        const float mu = pure ? 0.0f : m;
-        float v = pin ? m : (pure ? noise : m + noise);
-        v = clamp_channel(v, a.cons, C, c);
-        u[c] = v;
-        u_row[t * C + c] = v;
-        lr = lr + a.lr_tab[t * C + c] * mu * (mu - 2.0f * v);
-      }
+      for (int c = 0; c < C; ++c) lr = lr + terms[c];
       step_model<Dyn>(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
       acc = acc + Cost::running_cost(cp, y, u, t, &crash);
     }
@@ -196,7 +190,22 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
   if (EPILOGUE) write_block_carry<kBlockSamples>(J, valid, lam_w, W, K, TC, carry);
 }
 
-// B3 for the pair (Dyn, Cost); noise_kind 0 is the Gaussian sampler, 1 NLN.
+// The form of B3 a model's entry launches: 2 the staged form
+// (fused_solve_staged_kernel, sample_staged.cuh) for a model without the
+// warp form, else, and for every model with -DMPPI_SOLVE_ONE_THREAD, 0 the
+// one-thread kernel (a network model's combined B3 is still one thread a
+// sample).
+template <class Dyn>
+constexpr int solve_form() {
+#ifdef MPPI_SOLVE_ONE_THREAD
+  return 0;
+#else
+  return HasWarpStep<Dyn>::value ? 0 : 2;
+#endif
+}
+
+// B3 for the pair (Dyn, Cost) in the form solve_form<Dyn>() names;
+// noise_kind 0 is the Gaussian sampler, 1 NLN.
 template <class Dyn, class Cost>
 int fused_solve_entry(int device, int noise_kind, const float* x0,
                       const SampleArgs& a, int K, int T, float dt, ModelArgs m,
@@ -204,18 +213,24 @@ int fused_solve_entry(int device, int noise_kind, const float* x0,
                       float* U, float* carry, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int nb = (K + kBlockSamples - 1) / kBlockSamples;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (noise_kind == kGaussian) {
-    fused_solve_kernel<Dyn, Cost, kGaussian><<<nb, kBlockSamples, 0, s>>>(
-        x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
-  } else if (noise_kind == kNLN) {
-    fused_solve_kernel<Dyn, Cost, kNLN><<<nb, kBlockSamples, 0, s>>>(
-        x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
-  } else {
+  if (noise_kind != kGaussian && noise_kind != kNLN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (solve_form<Dyn>() == 2) {
+    return static_cast<int>(launch_solve_staged<Dyn, Cost>(
+        noise_kind, x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry, s));
+  } else {
+    const int nb = (K + kBlockSamples - 1) / kBlockSamples;
+    if (noise_kind == kGaussian) {
+      fused_solve_kernel<Dyn, Cost, kGaussian><<<nb, kBlockSamples, 0, s>>>(
+          x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
+    } else {
+      fused_solve_kernel<Dyn, Cost, kNLN><<<nb, kBlockSamples, 0, s>>>(
+          x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // The form of B4 a model's entry launches: 1 the warp form, 2 the staged
@@ -287,7 +302,9 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
 // null, and dyn_params, cost_map and dyn_map for a pair that reads none.
 // U (K, T, C) and carry (ceil(K / kBlockSamples), 2 + T*C) are written.
 // Returns the CUDA error of the launch (0 when it was accepted), or
-// cudaErrorInvalidValue for a noise kind this kernel does not draw.
+// cudaErrorInvalidValue for a noise kind this kernel does not draw. Beside
+// it, NAME_form() says which form it launches: 2 the staged form
+// (fused_solve_staged_kernel), 0 the one-thread kernel (fused_solve_kernel).
 #define SOLVE_ENTRY(NAME, DYN, COST)                                          \
   int NAME(int device, int noise_kind, const float* x0, const float* mean,   \
            const float* sigma, const float* aux, const float* lrc,           \
@@ -302,7 +319,8 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
         device, noise_kind, x0, a, K, T, dt,                                 \
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, lr_gain,      \
         lam_w, costs, crash, U, carry, stream);                              \
-  }
+  }                                                                          \
+  int NAME##_form() { return solve_form<DYN>(); }
 
 // The C entry of B4 for one (dynamics, cost) pair, to be expanded inside
 // extern "C"; noise_kind 0 Gaussian, 1 NLN, 2 Smooth-MPPI (aux is then the

@@ -1,45 +1,65 @@
-// The staged form of the fused sampling kernel (B4) for the models without
-// the warp form: producer warps draw each chunk of steps into shared memory
-// while consumer threads walk the chain of states.
+// The staged form of the fused kernels B4, B3 and B1 for the models without
+// the warp form: producer warps make each chunk of steps' state-free work
+// into shared memory while consumer threads walk the chain of states.
 //
 // Replaces, for every model without a network step (the double integrator,
-// the cartpole, the quadrotor, Dubins, the bicycle), the one-thread
-// fused_sample_rollout_kernel (sample_kernels.cuh), the counterpart of the
-// TPU kernel mppi_generic_tpu/ops/pallas_rollout.py::_fused_sample_call
-// (:1631, entry fused_sample_rollout_costs :2457). There each of a block's
-// 64 threads drew its own controls inside its chain of T steps: a ten-round
-// Philox, the Box-Muller logf, sqrtf, cosf and sinf, the carve-outs, the
-// clamp and the LR term, none of which depends on the state, on two warps
-// per SM (K = 8192) or on 30 SMs (K = 1920); and each thread wrote its own U
-// row, T C floats from its neighbours'.
+// the cartpole, the quadrotor, Dubins, the bicycle), three one-thread
+// kernels, each the counterpart of a TPU kernel:
+//   fused_sample_rollout_kernel (sample_kernels.cuh; B4,
+//     mppi_generic_tpu/ops/pallas_rollout.py::_fused_sample_call :1631);
+//   fused_solve_kernel (sample_kernels.cuh; B3,
+//     mppi_generic_tpu/ops/pallas_solve.py::_fused_solve_call :103);
+//   rollout_costs_kernel (rollout_kernel.cuh; B1,
+//     mppi_generic_tpu/ops/pallas_rollout.py::_fused_call :548).
+// There each of a block's 64 threads made its own step's inputs inside its
+// chain of T steps, none of which depends on the state: B4's and B3's
+// ten-round Philox, the Box-Muller logf, sqrtf, cosf and sinf, the
+// carve-outs, the clamp, the LR term and the thread's own U row, T C floats
+// from its neighbours'; B1's read of its own U row, as far from its
+// neighbours', and its LR term with C divisions. K = 8192 fills the 132 SMs
+// with two warps each.
 //
-// fused_sample_rollout_staged_kernel<Dyn, Cost, NOISE, EPILOGUE>: a block
-// holds NS = kBlockSamples = 64 samples. Threads 0..NS-1 are the consumers,
-// one sample each: the model's step and the running cost, acc = acc +
-// running_cost + lr_t, in the one-thread kernel's order. The kProducerWarps warps after them are the producers
-// (produce_chunk): for each chunk of kChunk = 32 steps, lane j makes step
-// t0 + j of samples w, w + kProducerWarps, ... by sample_controls, writing
-// the U (and Smooth-MPPI's W) rows, one contiguous run of 32 C floats of
-// each sample a warp, and the controls and LR term into a stage in shared
-// memory. Two stages form a ring: named barriers (bar.arrive / bar.sync,
-// ids kBarFull + s and kBarEmpty + s over the whole block) hand stage s to
-// the consumers when it is full and back to the producers when it has been
+// One ring serves the three kernels (staged_chain). A block holds NS =
+// kBlockSamples = 64 samples. Threads 0..NS-1 are the consumers, one sample
+// each: the model's step and the running cost, in the one-thread kernel's
+// order. The kProducerWarps warps after them are the producers (the
+// policy's produce_chunk): for each chunk of kChunk = 32 steps, lane j makes
+// step t0 + j of samples w, w + kProducerWarps, ... into a stage in shared
+// memory. Two stages form a ring: named barriers (bar.arrive / bar.sync, ids
+// kBarFull + s and kBarEmpty + s over the whole block) hand stage s to the
+// consumers when it is full and back to the producers when it has been
 // read, so the producers fill chunk i + 1 while the consumers step through
-// chunk i. Every value is made once, by the same operations as in the
-// one-thread kernel, so U, W, the costs, the crash flags and the carry rows
-// are its floats and those of sample_rollout_plain. With Smooth-MPPI's
-// epilogue every thread of the block then writes the carry row
-// (write_block_carry; the producers hold no sample and share the columns),
-// so the staged form needs no carry pass of its own.
+// chunk i. What a step's rows hold, and how the consumer adds them up, is
+// the kernel's policy:
+//   B4 (SamplePolicy): the controls and the step's LR term by
+//     sample_controls, U and W rows written; acc = acc + running + lr_t.
+//   B3 (SolvePolicy): the controls and the C LR terms by solve_controls, U
+//     written; acc = acc + running, and the terms added one by one into the
+//     LR sum kept apart, in (t, c) order; J = (acc + terminal + gain lr) / T.
+//   B1 (RolloutPolicy, rollout_kernel.cuh): the controls read from U, lane
+//     j's C floats of step t0 + j, so a warp reads 32 C contiguous floats of
+//     a sample; with LR also gain lr_t; cost = running + gain lr_t, acc =
+//     acc + cost.
+// Every value is made once, by the same operations as in the one-thread
+// kernel, so the outputs are its floats and those of the plain versions.
+// After the ring every thread of the block writes the kernel's epilogue:
+// B4 Smooth-MPPI's carry row over W, B3's carry row over U, B1's carry row
+// over U or its block minimum (write_block_carry, write_block_min; the
+// producers hold no sample and share the columns), so no pass of its own.
 //
-// Shared memory: a stage is kChunk (C + 1) rows of NS + 1 floats (the pad
+// Shared memory: a stage is kChunk * kRows rows of NS + 1 floats (the pad
 // keeps a consumer's reads and most of a producer's writes off a shared
-// bank), 24.4 KB for two controls at NS = 64; the two stages take the
-// opt-in above 48 KB (the quadrotor's four controls: 81.2 KB).
+// bank); kRows is C + 1 for B4 and for B1 with LR, C for B1 without it, and
+// 2 C for B3 (its C LR terms must reach the consumer apart: float sums are
+// not associative, and the sum is the consumer's, in (t, c) order). Two
+// stages take the opt-in above 48 KB (the quadrotor's four controls: B4
+// 81.2 KB, B3 130 KB of the 227 KB a block may hold).
 //
-// What bounds it on this card: operations, not bytes (sample_kernels.cuh);
-// the consumers' chain is the pair's step and cost, the producers' work is
-// spread over eight warps a block.
+// What bounds it on this card: for B4 and B3 operations, not bytes
+// (sample_kernels.cuh); for B1 with the analytic models bytes (U once).
+// What bounds the form is the consumers' chain, the pair's step and cost;
+// the producers' work is spread over eight warps a block. No step of these
+// models is a matrix product, so the tensor cores have nothing to do here.
 //
 // The k >= K and t >= T tests skip work only: every consumer and producer
 // thread takes part in every barrier, so the last block's and the last
@@ -57,6 +77,10 @@ namespace {
 
 constexpr int kChunk = 32;          // steps of a stage: one per producer lane
 constexpr int kProducerWarps = 8;   // producer warps of a block
+// threads of a block; the kernels' launch bounds also ask for one block an
+// SM at least: with the block size alone ptxas held some of them to 32 or 64
+// registers and spilled (the quadrotor, Dubins, the bicycle)
+constexpr int kStagedThreads = kBlockSamples + 32 * kProducerWarps;
 constexpr int kBarFull = 1;         // named barriers kBarFull + s: stage s full
 constexpr int kBarEmpty = 3;        // kBarEmpty + s: stage s read (0: __syncthreads)
 
@@ -68,55 +92,114 @@ __device__ inline void named_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-// A stage: for step j of the chunk, C + 1 rows (its controls, then its LR
-// term) of NS samples, each row padded to NS + 1 floats.
-template <int NS, int C>
+// A stage: for step j of the chunk, ROWS rows (the controls first) of NS
+// samples, each row padded to NS + 1 floats.
+template <int NS, int ROWS>
 struct StageLayout {
+  static constexpr int kNS = NS;
   static constexpr int kRow = NS + 1;
-  static constexpr int kFloats = kChunk * (C + 1) * kRow;
-  __device__ static inline int at(int j, int c, int i) { return (j * (C + 1) + c) * kRow + i; }
+  static constexpr int kFloats = kChunk * ROWS * kRow;
+  __device__ static inline int at(int j, int r, int i) { return (j * ROWS + r) * kRow + i; }
 };
 
-// The producer of one chunk, run by a whole warp: lane j makes step
-// t0 + j of samples k0 + i, i = first, first + stride, ... < NS, by
-// sample_controls (U and W rows written where given) into the stage; lanes
-// past T and samples past K make nothing. The draw of a step depends on no
-// state, so any kernel whose chain reads its controls and LR term from a
-// stage can take it.
-template <int NS, int C, int NOISE>
-__device__ inline void produce_chunk(const SampleArgs& a, uint32_t seed, int k0, int K,
-                                     int T, int t0, int first, int stride, float lr_gain,
-                                     float* U, float* W, float* stage) {
-  using L = StageLayout<NS, C>;
+// The producer of one chunk, run by a whole warp: lane j makes step t0 + j
+// of samples k0 + i, i = first, first + stride, ... < NS, by the policy's
+// make, into the stage; lanes past T and samples past K make nothing. Each
+// policy's produce_chunk (what the ring calls) is this one unless it says
+// otherwise.
+template <class L, class P>
+__device__ inline void produce_each(const P& p, uint32_t key, int k0, int K, int T, int t0,
+                                    int first, int stride, float* stage) {
   const int j = threadIdx.x & 31;
   const int t = t0 + j;
-  for (int i = first; i < NS; i += stride) {
+  for (int i = first; i < L::kNS; i += stride) {
     const int k = k0 + i;
     if (k < K && t < T) {
-      const bool pure = static_cast<float>(k) >= a.pure_thresh;
-      float u[C];
-      const float lr_t =
-          sample_controls<C, NOISE>(a, seed, k, K, T, t, pure, lr_gain, U, W, u);
+      float v[P::kRows];
+      p.make(key, k, K, T, t, v);
 #pragma unroll
-      for (int c = 0; c < C; ++c) stage[L::at(j, c, i)] = u[c];
-      stage[L::at(j, C, i)] = lr_t;
+      for (int r = 0; r < P::kRows; ++r) stage[L::at(j, r, i)] = v[r];
     }
   }
 }
 
-template <class Dyn, class Cost, int NOISE, bool EPILOGUE>
-__global__ void __launch_bounds__(kBlockSamples + 32 * kProducerWarps)
-fused_sample_rollout_staged_kernel(const float* __restrict__ x0, SampleArgs a, int K,
-                                   int T, float dt, ModelArgs m, float lr_gain, float lam_w,
-                                   float* __restrict__ costs, int* __restrict__ crash_out,
-                                   float* U, float* W, float* __restrict__ carry) {
+// A consumer's running sums: the running costs and (B3) the LR sum.
+struct StagedSums {
+  float acc = 0.0f;
+  float lr = 0.0f;
+};
+
+// B4: the controls and the step's LR term scaled by lr_gain.
+template <int C, int NOISE>
+struct SamplePolicy {
+  static constexpr int kRows = C + 1;
+  static constexpr bool kX0PerSample = false;
+  SampleArgs a;
+  float lr_gain;
+  float* U;
+  float* W;
+
+  __device__ uint32_t key() const { return static_cast<uint32_t>(*a.seed); }
+  template <class L>
+  __device__ void produce_chunk(uint32_t key, int k0, int K, int T, int t0, int first,
+                                int stride, float* stage) const {
+    produce_each<L>(*this, key, k0, K, T, t0, first, stride, stage);
+  }
+  __device__ void make(uint32_t key, int k, int K, int T, int t, float* v) const {
+    const bool pure = static_cast<float>(k) >= a.pure_thresh;
+    const float lr_t = sample_controls<C, NOISE>(a, key, k, K, T, t, pure, lr_gain, U, W, v);
+    v[C] = lr_t;
+  }
+  __device__ static void add(StagedSums& s, float running, const float* v) {
+    s.acc = s.acc + running + v[C];
+  }
+  __device__ float finish(const StagedSums& s, float terminal, int T) const {
+    return (s.acc + terminal) / static_cast<float>(T);
+  }
+};
+
+// B3: the controls and the C LR terms, summed apart in (t, c) order.
+template <int C, int NOISE>
+struct SolvePolicy {
+  static constexpr int kRows = 2 * C;
+  static constexpr bool kX0PerSample = false;
+  SampleArgs a;
+  float lr_gain;
+  float* U;
+
+  __device__ uint32_t key() const { return static_cast<uint32_t>(*a.seed); }
+  template <class L>
+  __device__ void produce_chunk(uint32_t key, int k0, int K, int T, int t0, int first,
+                                int stride, float* stage) const {
+    produce_each<L>(*this, key, k0, K, T, t0, first, stride, stage);
+  }
+  __device__ void make(uint32_t key, int k, int K, int T, int t, float* v) const {
+    const bool pure = static_cast<float>(k) >= a.pure_thresh;
+    solve_controls<C, NOISE>(a, key, k, K, T, t, pure, U, v, v + C);
+  }
+  __device__ static void add(StagedSums& s, float running, const float* v) {
+    s.acc = s.acc + running;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s.lr = s.lr + v[C + c];
+  }
+  __device__ float finish(const StagedSums& s, float terminal, int T) const {
+    return (s.acc + terminal + lr_gain * s.lr) / static_cast<float>(T);
+  }
+};
+
+// The ring of the staged kernels (the top of this file) for the pair
+// (Dyn, Cost) and the policy P: returns this thread's J (0 for a producer
+// and past K), costs and crash flags written, and sets *valid_out for the
+// epilogue. Every thread of the block calls it.
+template <class Dyn, class Cost, class P>
+__device__ inline float staged_chain(const P& p, const float* x0, int K, int T, float dt,
+                                     const ModelArgs& m, float* costs, int* crash_out,
+                                     bool* valid_out) {
   constexpr int NS = kBlockSamples;
   constexpr int S = Dyn::S;
-  constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;
   constexpr int R = RecDim<Dyn>::value;
-  using L = StageLayout<NS, C>;
-  constexpr int kThreads = NS + 32 * kProducerWarps;
+  using L = StageLayout<NS, P::kRows>;
   const int n_chunks = (T + kChunk - 1) / kChunk;
   const int k0 = blockIdx.x * NS;
 
@@ -124,7 +207,6 @@ fused_sample_rollout_staged_kernel(const float* __restrict__ x0, SampleArgs a, i
   __shared__ typename Dyn::Shared dyn_sh;
   stage_model<Dyn>(m, &dyn_sh);
   __syncthreads();
-  const uint32_t seed = static_cast<uint32_t>(*a.seed);
 
   float J = 0.0f;
   bool valid = false;
@@ -138,48 +220,94 @@ fused_sample_rollout_staged_kernel(const float* __restrict__ x0, SampleArgs a, i
     float rec[R > 0 ? R : 1];
     init_rec<Dyn>(dyn_sh, rec);
 #pragma unroll
-    for (int s = 0; s < S; ++s) x[s] = x0[s];
+    for (int s = 0; s < S; ++s) {
+      x[s] = !P::kX0PerSample ? x0[s] : (valid ? x0[static_cast<size_t>(k) * S + s] : 0.0f);
+    }
 #pragma unroll
     for (int o = 0; o < O; ++o) y[o] = 0.0f;
     int crash = 0;
-    float acc = 0.0f;
+    StagedSums sums;
     for (int ch = 0; ch < n_chunks; ++ch) {
       const float* st = stages + (ch & 1) * L::kFloats;
-      named_sync(kBarFull + (ch & 1), kThreads);
+      named_sync(kBarFull + (ch & 1), kStagedThreads);
       if (valid) {
         const int t0 = ch * kChunk;
         const int n = min(kChunk, T - t0);
         for (int j = 0; j < n; ++j) {
-          float u[C];
+          // keeps nvcc from hoisting the staged tables out of the loop (a
+          // dynamics-only pass that hoisted and spilled its network weights
+          // ran 16x slower)
+          asm volatile("" ::: "memory");
+          float v[P::kRows];
 #pragma unroll
-          for (int c = 0; c < C; ++c) u[c] = st[L::at(j, c, i)];
-          const float lr_t = st[L::at(j, C, i)];
+          for (int r = 0; r < P::kRows; ++r) v[r] = st[L::at(j, r, i)];
           const int t = t0 + j;
-          step_model<Dyn>(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
-          acc = acc + Cost::running_cost(cp, y, u, t, &crash) + lr_t;
+          step_model<Dyn>(dyn_sh, x, rec, v, static_cast<float>(t), dt, y);
+          P::add(sums, Cost::running_cost(cp, y, v, t, &crash), v);
         }
       }
       // the producers wait for stage (ch & 1) only to fill chunk ch + 2
-      if (ch + 2 < n_chunks) named_arrive(kBarEmpty + (ch & 1), kThreads);
+      if (ch + 2 < n_chunks) named_arrive(kBarEmpty + (ch & 1), kStagedThreads);
     }
     if (valid) {
-      J = (acc + Cost::terminal_cost(cp, y)) / static_cast<float>(T);
+      J = p.finish(sums, Cost::terminal_cost(cp, y), T);
       costs[k] = J;
       crash_out[k] = crash;
     }
   } else {  // a producer warp
     const int w = (threadIdx.x - NS) >> 5;
+    const uint32_t key = p.key();
     for (int ch = 0; ch < n_chunks; ++ch) {
       float* st = stages + (ch & 1) * L::kFloats;
-      if (ch >= 2) named_sync(kBarEmpty + (ch & 1), kThreads);
-      produce_chunk<NS, C, NOISE>(a, seed, k0, K, T, ch * kChunk, w, kProducerWarps, lr_gain,
-                                  U, W, st);
-      named_arrive(kBarFull + (ch & 1), kThreads);
+      if (ch >= 2) named_sync(kBarEmpty + (ch & 1), kStagedThreads);
+      p.template produce_chunk<L>(key, k0, K, T, ch * kChunk, w, kProducerWarps, st);
+      named_arrive(kBarFull + (ch & 1), kStagedThreads);
     }
   }
-  // every thread: the U / W rows of the block are visible after the first
+  *valid_out = valid;
+  return J;
+}
+
+// Launch the staged kernel `kern` of the model Dyn, ROWS rows a step, over
+// ceil(K / 64) blocks with its two stages; past 48 KB of shared memory with
+// the static tables (the model's, the epilogue's rows), after the opt-in.
+// Returns the launch error.
+template <class Dyn, int ROWS, class Kern, class... Args>
+cudaError_t launch_staged(Kern kern, int K, cudaStream_t s, Args... args) {
+  const size_t smem = 2 * sizeof(float) * StageLayout<kBlockSamples, ROWS>::kFloats;
+  const size_t static_bytes = sizeof(typename Dyn::Shared) + 3 * sizeof(float) * kBlockSamples;
+  if (smem + static_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<(K + kBlockSamples - 1) / kBlockSamples, kStagedThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <class Dyn, class Cost, int NOISE, bool EPILOGUE>
+__global__ void __launch_bounds__(kStagedThreads, 1)
+fused_sample_rollout_staged_kernel(const float* __restrict__ x0, SampleArgs a, int K,
+                                   int T, float dt, ModelArgs m, float lr_gain, float lam_w,
+                                   float* __restrict__ costs, int* __restrict__ crash_out,
+                                   float* U, float* W, float* __restrict__ carry) {
+  bool valid;
+  const float J = staged_chain<Dyn, Cost>(SamplePolicy<Dyn::C, NOISE>{a, lr_gain, U, W}, x0,
+                                          K, T, dt, m, costs, crash_out, &valid);
+  // every thread: the W rows of the block are visible after the first
   // barrier inside
-  if (EPILOGUE) write_block_carry<NS>(J, valid, lam_w, W, K, T * C, carry);
+  if (EPILOGUE) write_block_carry<kBlockSamples>(J, valid, lam_w, W, K, T * Dyn::C, carry);
+}
+
+template <class Dyn, class Cost, int NOISE>
+__global__ void __launch_bounds__(kStagedThreads, 1)
+fused_solve_staged_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T, float dt,
+                          ModelArgs m, float lr_gain, float lam_w, float* __restrict__ costs,
+                          int* __restrict__ crash_out, float* U, float* __restrict__ carry) {
+  bool valid;
+  const float J = staged_chain<Dyn, Cost>(SolvePolicy<Dyn::C, NOISE>{a, lr_gain, U}, x0, K,
+                                          T, dt, m, costs, crash_out, &valid);
+  write_block_carry<kBlockSamples>(J, valid, lam_w, U, K, T * Dyn::C, carry);
 }
 
 // B4's staged form for the pair (Dyn, Cost), noise_kind already checked,
@@ -189,35 +317,33 @@ cudaError_t launch_sample_staged(int noise_kind, bool epilogue, const float* x0,
                                  const SampleArgs& a, int K, int T, float dt, ModelArgs m,
                                  float lr_gain, float lam_w, float* costs, int* crash,
                                  float* U, float* W, float* carry, cudaStream_t s) {
-  constexpr int NS = kBlockSamples;
-  constexpr int kThreads = NS + 32 * kProducerWarps;
-  const size_t smem = 2 * sizeof(float) * StageLayout<NS, Dyn::C>::kFloats;
-  // static memory: the model's table and write_block_carry's two rows
-  const bool opt_in = smem + sizeof(typename Dyn::Shared) + 2 * sizeof(float) * NS > 48 * 1024;
-  const int nb = (K + NS - 1) / NS;
-  cudaError_t err = cudaSuccess;
-#define B4_STAGED_LAUNCH(NOISE, EPI)                                                   \
-  do {                                                                                 \
-    const auto kern = fused_sample_rollout_staged_kernel<Dyn, Cost, NOISE, EPI>;       \
-    if (opt_in) {                                                                      \
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                                 static_cast<int>(smem));                              \
-      if (err != cudaSuccess) return err;                                              \
-    }                                                                                  \
-    kern<<<nb, kThreads, smem, s>>>(x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash,  \
-                                    U, W, carry);                                      \
-  } while (0)
-  if (epilogue) {
-    B4_STAGED_LAUNCH(kSmooth, true);
-  } else if (noise_kind == kGaussian) {
-    B4_STAGED_LAUNCH(kGaussian, false);
-  } else if (noise_kind == kNLN) {
-    B4_STAGED_LAUNCH(kNLN, false);
-  } else {
-    B4_STAGED_LAUNCH(kSmooth, false);
-  }
+  constexpr int kRows = Dyn::C + 1;
+#define B4_STAGED_LAUNCH(NOISE, EPI)                                                      \
+  launch_staged<Dyn, kRows>(fused_sample_rollout_staged_kernel<Dyn, Cost, NOISE, EPI>, K, \
+                            s, x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, W,    \
+                            carry)
+  if (epilogue) return B4_STAGED_LAUNCH(kSmooth, true);
+  if (noise_kind == kGaussian) return B4_STAGED_LAUNCH(kGaussian, false);
+  if (noise_kind == kNLN) return B4_STAGED_LAUNCH(kNLN, false);
+  return B4_STAGED_LAUNCH(kSmooth, false);
 #undef B4_STAGED_LAUNCH
-  return cudaGetLastError();
+}
+
+// B3's staged form for the pair (Dyn, Cost); noise_kind 0 Gaussian, 1 NLN,
+// already checked. Returns the launch error.
+template <class Dyn, class Cost>
+cudaError_t launch_solve_staged(int noise_kind, const float* x0, const SampleArgs& a, int K,
+                                int T, float dt, ModelArgs m, float lr_gain, float lam_w,
+                                float* costs, int* crash, float* U, float* carry,
+                                cudaStream_t s) {
+  constexpr int kRows = 2 * Dyn::C;
+  if (noise_kind == kGaussian) {
+    return launch_staged<Dyn, kRows>(fused_solve_staged_kernel<Dyn, Cost, kGaussian>, K, s,
+                                     x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U,
+                                     carry);
+  }
+  return launch_staged<Dyn, kRows>(fused_solve_staged_kernel<Dyn, Cost, kNLN>, K, s, x0, a,
+                                   K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry);
 }
 
 }  // namespace

@@ -181,11 +181,12 @@ SIGNATURES = {
 # split_solve_dynamics_warp_kernel: csrc/split_warp.cuh;
 # fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel:
 # csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
-# where B4's staged form (fused_sample_rollout_staged_kernel,
+# where the staged form of B4, B3 or B1 (fused_sample_rollout_staged_kernel,
+# fused_solve_staged_kernel, rollout_costs_staged_kernel:
 # csrc/sample_staged.cuh), 0 where the one-thread kernel; the wrappers count
 # each launch under that name
 _FORM_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0", "sample",
-               "rmppi")
+               "rmppi", "solve", "rollout", "rollout_x0")
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
                    "sample": _SAMPLE, "rmppi": _RMPPI, "split_dynamics": _SPLIT_DYNAMICS,
                    "split_solve_dynamics": _SPLIT_SOLVE_DYNAMICS, "split_cost": _SPLIT_COST,
@@ -203,6 +204,7 @@ for _pair, _kinds in PAIR_KERNELS.items():
 entry_counts = {}
 launch_counts = {
     "rollout_costs_kernel": 0,
+    "rollout_costs_staged_kernel": 0,
     "flash_combine_kernel": 0,
     "tsallis_reduce_kernel": 0,
     "rmppi_rollout_kernel": 0,
@@ -211,6 +213,7 @@ launch_counts = {
     "riccati_ladder_kernel": 0,
     "riccati_ladder_warp_kernel": 0,
     "fused_solve_kernel": 0,
+    "fused_solve_staged_kernel": 0,
     "fused_sample_rollout_kernel": 0,
     "fused_sample_rollout_warp_kernel": 0,
     "fused_sample_rollout_staged_kernel": 0,

@@ -10,9 +10,10 @@ in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 ``_fused_sample_call``. For the network models B4, B8 and the split
 dynamics passes run a warp form, one warp per sample
 (``csrc/sample_warp.cuh``, ``csrc/rmppi_warp.cuh``, ``csrc/split_warp.cuh``);
-for every other model B4 runs its staged form, producer warps drawing each
-chunk of steps for consumer threads (``csrc/sample_staged.cuh``); each
-launch is counted under the name its entry reports (``form_kernel_name``).
+for every other model B4, B3 and B1 run their staged forms, producer warps
+making each chunk of steps' state-free inputs for consumer threads
+(``csrc/sample_staged.cuh``); each launch is counted under the name its
+entry reports (``form_kernel_name``).
 
 * ``fused_rollout_costs``: per sample, a T-step rollout with running cost,
   terminal cost and (with ``lr_params``) the Gaussian likelihood-ratio cost
@@ -189,21 +190,22 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # main path's), "rollout_x0" B1 with one x0 per sample (RMPPI's candidates),
 # "solve" B3 (Gaussian). True where both split times were below both
 # combined times of an A B B A turn in one call on an H100 80GB HBM3 at
-# 700 W (chip_smoke.py's split_kernels and split_x0_kernels phases, at the
-# paths' shapes; the times are in PERF.md), in ms, split against combined:
-# DI B1 0.0273 / 0.0405, B3 0.0874 / 0.0863; cartpole B1 0.0389 / 0.0359,
-# B3 0.0938 / 0.0776; quadrotor quadratic B1 0.1129 / 0.1120, B3 0.2093 /
-# 0.1853; DI quadratic B1 0.0261 / 0.0274, B3 0.0942 / 0.0799; Dubins
-# quadratic B1 0.0384 / 0.0434, B3 0.1033 / 0.0931; bicycle B1 0.1228 /
-# 0.1531, B3 0.1819 / 0.2181; DI robust B1-x0 0.0144 / 0.0167 (9 x 64 x
-# 48). The network pairs, whose split dynamics passes run one warp per
-# sample (csrc/split_warp.cuh), measured again with it: AutoRally B1 0.287
-# / 1.049, B3 0.414 / 1.130, B1-x0 0.329 / 1.030 (9 x 256 x 150); racer
-# steering B1 0.498 / 1.212, B3 0.573 / 1.252; racer uncertainty B1 1.417 /
-# 5.935, B3 1.544 / 6.003. Any other pair or kernel keeps the combined
-# kernel.
+# 700 W (chip_smoke.py's split_kernels, pair_kernels and split_x0 phases,
+# at the paths' shapes; the times are in PERF.md), in ms, split against
+# combined. The pairs without a network step, against their staged combined
+# kernels: DI B1 0.0272 / 0.0235, B3 0.0875 / 0.0392; cartpole B1 0.0391 /
+# 0.0290, B3 0.0946 / 0.0421; quadrotor quadratic B1 0.1131 / 0.0831, B3
+# 0.2085 / 0.1006; DI quadratic B1 0.0263 / 0.0160, B3 0.0951 / 0.0369;
+# Dubins quadratic B1 0.0386 / 0.0311, B3 0.1038 / 0.0468; bicycle B1
+# 0.1228 / 0.1468, B3 0.1822 / 0.1606; DI robust B1-x0 0.0146 / 0.0132 (9 x
+# 64 x 48). The network pairs, whose split dynamics passes run one warp per
+# sample (csrc/split_warp.cuh), against their one-thread combined kernels:
+# AutoRally B1 0.287 / 1.013, B3 0.413 / 1.077, B1-x0 0.329 / 1.029 (9 x
+# 256 x 150); racer steering B1 0.498 / 1.193, B3 0.572 / 1.241; racer
+# uncertainty B1 1.414 / 5.814, B3 1.543 / 6.026. Any other pair or kernel
+# keeps the combined kernel.
 AUTO_SPLIT = {
-    ("di_circle", "rollout"): True,
+    ("di_circle", "rollout"): False,
     ("di_circle", "solve"): False,
     ("ar_nn", "rollout"): True,
     ("ar_nn", "solve"): True,
@@ -212,17 +214,17 @@ AUTO_SPLIT = {
     ("cartpole", "solve"): False,
     ("quadrotor_quadratic", "rollout"): False,
     ("quadrotor_quadratic", "solve"): False,
-    ("di_quadratic", "rollout"): True,
+    ("di_quadratic", "rollout"): False,
     ("di_quadratic", "solve"): False,
-    ("dubins_quadratic", "rollout"): True,
+    ("dubins_quadratic", "rollout"): False,
     ("dubins_quadratic", "solve"): False,
     ("bicycle_ar", "rollout"): True,
-    ("bicycle_ar", "solve"): True,
+    ("bicycle_ar", "solve"): False,
     ("racer_steering_ar", "rollout"): True,
     ("racer_steering_ar", "solve"): True,
     ("racer_unc_ar", "rollout"): True,
     ("racer_unc_ar", "solve"): True,
-    ("di_robust", "rollout_x0"): True,
+    ("di_robust", "rollout_x0"): False,
 }
 
 
@@ -681,8 +683,9 @@ def _lr_args(lr_params):
 
 def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
                   lam_w=1.0):
-    """Launch kernel 1 in the ``epilogue`` mode: (costs, crash, out), out the
-    carry rows (EPI_EXP), the block minima (EPI_MIN) or None."""
+    """Launch kernel 1 in the ``epilogue`` mode, in the form its entry
+    reports (``form_kernel_name``): (costs, crash, out), out the carry rows
+    (EPI_EXP), the block minima (EPI_MIN) or None."""
     lib_name, entry = _check_rollout_inputs(dynamics, cost, x0, U, lr_params)
     lib = _lib(lib_name)
     K, T, C = U.shape
@@ -695,8 +698,9 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
         *_model_args(dynamics, cost, dev), *lr, int(lr_params is not None),
         epilogue, int(x0.dim() == 2), _f32(lam_w), costs.data_ptr(),
         crash.data_ptr(), _ptr(out), stream)
-    _check_status(status, "rollout_costs_kernel")
-    _build.count_launch("rollout_costs_kernel", entry)
+    name = form_kernel_name("rollout_costs", (lib_name, entry))
+    _check_status(status, name)
+    _build.count_launch(name, entry)
     return costs, crash, out
 
 
@@ -704,7 +708,7 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
 def _form(lib, fn):
     """The form the entry ``fn`` of the loaded library ``lib`` launches (its
     ``<fn>_form()``, a constant of the build): 0 the one-thread kernel, 1
-    the warp form, 2 B4's staged form."""
+    the warp form, 2 the staged form (B4, B3, B1)."""
     return int(getattr(lib, fn + "_form")())
 
 
@@ -713,12 +717,12 @@ _FORM_SUFFIX = {0: "_kernel", 1: "_warp_kernel", 2: "_staged_kernel"}
 
 def form_kernel_name(base, entry):
     """The kernel of the family ``base`` (``split_dynamics``,
-    ``split_solve_dynamics``, ``fused_sample_rollout``, ``rmppi_rollout``)
-    that the entry ``entry`` ((library, C function), as
-    ``_build.pair_entry`` gives it) launches, as its library reports it:
-    ``<base>_warp_kernel`` where the model's step is a network,
-    ``<base>_staged_kernel`` for B4 of every other model, else the
-    one-thread ``<base>_kernel``."""
+    ``split_solve_dynamics``, ``fused_sample_rollout``, ``rmppi_rollout``,
+    ``fused_solve``, ``rollout_costs``) that the entry ``entry`` ((library,
+    C function), as ``_build.pair_entry`` gives it) launches, as its library
+    reports it: ``<base>_warp_kernel`` where the model's step is a network
+    (split passes, B4, B8), ``<base>_staged_kernel`` for B4, B3 and B1 of
+    every other model, else the one-thread ``<base>_kernel``."""
     lib_name, fn = entry
     return base + _FORM_SUFFIX[_form(_lib(lib_name), fn)]
 

@@ -3,7 +3,11 @@
 Counterpart of ``mppi_generic_tpu/ops/pallas_solve.py``: the hand-written
 Hopper kernel ``fused_solve_kernel`` (``csrc/sample_kernels.cuh``, one entry
 per (dynamics, cost) pair in ``csrc/pair_<name>.cu``) replaces its TPU kernel
-``_fused_solve_call``. One launch is one MPPI iteration for the
+``_fused_solve_call``; for every model without a network step the entry
+launches its staged form, ``fused_solve_staged_kernel``
+(``csrc/sample_staged.cuh``: producer warps draw each chunk of 32 steps into
+shared memory for consumer threads), and the launch is counted under the
+name the entry reports. One launch is one MPPI iteration for the
 Gaussian and the NLN sampler: the normals drawn in the kernel (Philox,
 ``ops/philox.py``), the carve-outs, the clamp, the likelihood-ratio cost
 (summed apart and added at the end), the rollout and one flash carry row per
@@ -136,7 +140,9 @@ def _launch_args(dynamics, cost, sampler, kind, x0, mean, seed, K, iteration,
 
 def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, alpha,
                       K, iteration, stride, injected_noise):
-    """Launch ``fused_solve_kernel``: (costs, crash, U, carry)."""
+    """Launch B3 in the form its entry reports (``fr.form_kernel_name``: the
+    staged ``fused_solve_staged_kernel`` for a model without a network step,
+    else the one-thread ``fused_solve_kernel``): (costs, crash, U, carry)."""
     lib_name, entry = fr._entry(dynamics, cost, "solve")
     T, C = mean.shape
     dev = mean.device
@@ -154,8 +160,9 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
         fr._lr_gain(lam, alpha), fr._f32(lam), *model, costs.data_ptr(),
         crash.data_ptr(), U.data_ptr(), carry.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    fr._check_status(status, "fused_solve_kernel")
-    _build.count_launch("fused_solve_kernel", entry)
+    name = fr.form_kernel_name("fused_solve", (lib_name, entry))
+    fr._check_status(status, name)
+    _build.count_launch(name, entry)
     return costs, crash, U, carry
 
 

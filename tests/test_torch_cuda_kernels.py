@@ -89,7 +89,7 @@ def test_rollout_costs_kernel_matches_plain(cuda_device, K, with_lr):
     fr.reset_launch_counts()
     kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
     assert torch.equal(kcrash, pcrash)
@@ -105,7 +105,7 @@ def test_weighted_rollout_kernels_match_plain(cuda_device, K):
     kc, kcrash, kmean, kbase, keta = fr.fused_weighted_rollout(
         dyn, cost, x0, U, DT, LAM, lr_params=lr, split_cost=False)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
     assert fr.launch_counts["flash_combine_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     pmean, pbase, peta = fr.flash_combine_plain(
@@ -148,7 +148,7 @@ def test_rollout_costs_kernel_per_sample_x0_matches_plain(cuda_device, K):
     fr.reset_launch_counts()
     kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
     assert torch.equal(kcrash, pcrash)
@@ -279,7 +279,7 @@ def test_fused_solve_kernel_matches_plain(cuda_device, K, kind, inject):
     fr.reset_launch_counts()
     kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
     torch.cuda.synchronize()
-    assert fr.launch_counts["fused_solve_kernel"] == 1
+    assert fr.launch_counts["fused_solve_staged_kernel"] == 1
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
     _close(kU, pU, rtol=1e-5, atol=1e-6)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
@@ -495,7 +495,7 @@ def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
     kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False)
     krows, krho = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
     assert fr.launch_counts["tsallis_reduce_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=0, atol=0)
@@ -510,7 +510,7 @@ def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
         weight_params=(gamma, r), split_cost=False)
     torch.cuda.synchronize()
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        "rollout_costs_kernel": 1, "tsallis_reduce_kernel": 1, "flash_combine_kernel": 1}
+        "rollout_costs_staged_kernel": 1, "tsallis_reduce_kernel": 1, "flash_combine_kernel": 1}
     pmean, _, peta = fr.flash_combine_plain(prows, T, C, 1.0)
     _close(kmean, pmean, rtol=1e-4, atol=1e-5)
     _close(keta, peta, rtol=1e-5, atol=0)
@@ -577,7 +577,7 @@ def test_bicycle_rollout_kernel_matches_plain(cuda_device, K, mode):
         kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
                                                    split_cost=False)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=0, atol=0)
     assert torch.equal(kcrash, pcrash)
@@ -711,7 +711,7 @@ def test_zoo_rollout_kernel_matches_plain(cuda_device, K, pair, mode):
         kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
                                                    split_cost=False)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
     assert sum(fr.entry_counts.values()) == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=0, atol=0)
@@ -740,7 +740,7 @@ def test_zoo_fused_solve_kernel_matches_plain(cuda_device, K, pair, kind):
     fr.reset_launch_counts()
     kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2)
     torch.cuda.synchronize()
-    assert fr.launch_counts["fused_solve_kernel"] == 1
+    assert fr.launch_counts["fused_solve_staged_kernel"] == 1
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, optimization_stride=2)
     _close(kU, pU, rtol=0, atol=0)
     _close(kc, pc, rtol=0, atol=0)
@@ -1175,7 +1175,8 @@ def test_split_rollout_kernels_match_plain(cuda_device, K, pair, mode):
     assert fr.launch_counts["split_dynamics_warp_kernel" if pair == "ar_nn"
                             else "split_dynamics_kernel"] == 1
     assert fr.launch_counts["split_cost_kernel"] == 1
-    assert fr.launch_counts["rollout_costs_kernel"] == 0
+    assert fr.launch_counts["rollout_costs_kernel" if pair == "ar_nn"
+                            else "rollout_costs_staged_kernel"] == 0
     pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=0, atol=0)
     assert torch.equal(kcrash, pcrash)
@@ -1218,7 +1219,8 @@ def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
     assert fr.launch_counts["split_solve_dynamics_warp_kernel" if pair == "ar_nn"
                             else "split_solve_dynamics_kernel"] == 1
     assert fr.launch_counts["split_cost_kernel"] == 1
-    assert fr.launch_counts["fused_solve_kernel"] == 0
+    assert fr.launch_counts["fused_solve_kernel" if pair == "ar_nn"
+                            else "fused_solve_staged_kernel"] == 0
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, **kw)
     _close(kU, pU, rtol=0, atol=0)
     _close(kc, pc, rtol=0, atol=0)
@@ -1842,3 +1844,118 @@ def test_sample_staged_matches_plain(cuda_device, pair, shape, mode):
         lam = fr._f32(LAM)
         _close(kcarry, fr.block_carries_ordered(pc, pW, lam), rtol=0, atol=0)
         _close(kcarry, fr.block_carries_plain(pc, pW, lam), rtol=1e-5, atol=1e-5)
+
+
+# --- B3's and B1's staged forms (csrc/sample_staged.cuh: fused_solve_staged_kernel,
+# rollout_costs_staged_kernel) ---
+@pytest.mark.cuda
+def test_solve_and_rollout_entries_report_their_form(cuda_device):
+    """Every B3 and B1 entry of a pair without a network step launches the
+    staged form, the network pairs' the one-thread kernel
+    (``<entry>_form``)."""
+    from mppi_generic_tpu_torch.ops import _build
+
+    for pair in _build.PAIR_KERNELS:
+        for kind, base in (("solve", "fused_solve"), ("rollout", "rollout_costs"),
+                           ("rollout_x0", "rollout_costs")):
+            entry = _build.pair_entry(pair, kind)
+            if entry is None:
+                continue
+            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_kernel")
+            assert fr.form_kernel_name(base, entry) == want, (pair, kind)
+
+
+SOLVE_STAGED_MODES = {"gaussian": ("gaussian", False), "nln": ("nln", False),
+                      "nln_injected": ("nln", True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(SOLVE_STAGED_MODES))
+@pytest.mark.parametrize("shape", list(STAGED_SHAPES))
+@pytest.mark.parametrize("pair", STAGED_PAIRS)
+def test_solve_staged_matches_plain(cuda_device, pair, shape, mode):
+    """B3's staged form against its plain version: costs, crash flags, U and
+    the 64-sample carry rows (in write_block_carry's order,
+    ``fr.block_carries_ordered``) bit for bit; one launch of
+    fused_solve_staged_kernel."""
+    dev = cuda_device
+    K, T_, p, stride = STAGED_SHAPES[shape]
+    kind, inject = SOLVE_STAGED_MODES[mode]
+    dyn, cost, x0, std, offset = _pair_parts(pair, dev)
+    Cp = dyn.CONTROL_DIM
+    samp = (NLNDistribution if kind == "nln" else GaussianDistribution).create(
+        std_dev=std, control_cost_coeff=[1.0] * Cp, pure_noise_percentage=p, device=dev)
+    g = torch.Generator(device=dev).manual_seed(K + T_ + 5)
+    mean = 0.3 * torch.randn((T_, Cp), generator=g, device=dev)
+    mean[:, -1] += offset
+    z = torch.randn((2, K, T_, Cp), generator=g, device=dev) if inject else None
+    seed = torch.tensor(K + 11, dtype=torch.int32, device=dev)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    kw = dict(iteration=1, optimization_stride=stride, injected_noise=z)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_solve_staged_kernel"] == 1
+    assert fr.launch_counts["fused_solve_kernel"] == 0
+    assert fr.entry_counts == {f"fused_solve_{pair}": 1}
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
+    assert torch.isfinite(pc).all()
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kU, pU, rtol=0, atol=0)
+    lam = fr._f32(LAM)
+    _close(kcarry, fr.block_carries_ordered(pc, pU, lam), rtol=0, atol=0)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+# B1's modes: (epilogue, with LR, one x0 per sample); the per-sample-x0
+# entries (rollout_x0.cu) are the DI circle's, the DI robust's and the
+# bicycle's, and the DI robust cost has only those
+ROLLOUT_STAGED_MODES = {
+    "costs": (fr.EPI_NONE, False, False), "costs+lr": (fr.EPI_NONE, True, False),
+    "epilogue": (fr.EPI_EXP, False, False), "epilogue+lr": (fr.EPI_EXP, True, False),
+    "tsallis+lr": (fr.EPI_MIN, True, False), "x0": (fr.EPI_NONE, False, True),
+    "x0 epilogue+lr": (fr.EPI_EXP, True, True)}
+ROLLOUT_X0_PAIRS = ("di_circle", "di_robust", "bicycle_ar")
+ROLLOUT_STAGED_CASES = [
+    (pair, mode) for pair in STAGED_PAIRS for mode, (_, _, x0s) in ROLLOUT_STAGED_MODES.items()
+    if (pair in ROLLOUT_X0_PAIRS if x0s else pair != "di_robust")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(STAGED_SHAPES))
+@pytest.mark.parametrize("pair,mode", ROLLOUT_STAGED_CASES)
+def test_rollout_staged_matches_plain(cuda_device, pair, mode, shape):
+    """B1's staged form against its plain version: costs, crash flags, the
+    carry rows (in write_block_carry's order) and the block minima bit for
+    bit, from one x0 or one per sample; one launch of
+    rollout_costs_staged_kernel."""
+    dev = cuda_device
+    K, T_, p, _ = STAGED_SHAPES[shape]
+    epilogue, with_lr, x0s = ROLLOUT_STAGED_MODES[mode]
+    dyn, cost, x0, std, offset = _pair_parts(pair, dev)
+    Cp = dyn.CONTROL_DIM
+    g = torch.Generator(device=dev).manual_seed(K + T_ + 7)
+    mean = 0.3 * torch.randn((T_, Cp), generator=g, device=dev)
+    mean[:, -1] += offset
+    sigma = torch.tensor([std], device=dev).expand(T_, Cp).contiguous()
+    U = (mean + sigma * torch.randn((K, T_, Cp), generator=g, device=dev)).contiguous()
+    lr = ((mean, sigma, torch.full((Cp,), 0.5, device=dev), LAM, ALPHA,
+           float((np.float32(1) - np.float32(p)) * np.float32(K))) if with_lr else None)
+    if x0s:
+        x0 = (x0 + 0.05 * torch.randn((K, x0.numel()), generator=g, device=dev)).contiguous()
+    fr.reset_launch_counts()
+    kc, kcrash, kout = fr._rollout_cuda(dyn, cost, x0, U, DT, lr, epilogue, LAM)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_kernel"] == 0
+    prefix = "rollout_costs_x0_" if x0s else "rollout_costs_"
+    assert fr.entry_counts == {prefix + pair: 1}
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    assert torch.isfinite(pc).all()
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    if epilogue == fr.EPI_EXP:
+        _close(kout, fr.block_carries_ordered(pc, U, fr._f32(LAM)), rtol=0, atol=0)
+    elif epilogue == fr.EPI_MIN:
+        assert torch.equal(kout, fr.block_minima_plain(pc))
