@@ -46,7 +46,7 @@ T=100; the LSTM-uncertainty model on flat ground, K=1920, T=150): their B1
 entries in four modes and B3 entries (Gaussian, NLN), the LSTM step (B10)
 inside, against their plain versions at K=1920 and the ragged K=1900
 (``racer_kernels``), a fused-vs-combined reference without host syncs
-(``racer_reference``), and the closed loops ``racer_steering`` (20 steps)
+(``racer_reference``), and the closed loops ``racer_steering`` (10 steps)
 and ``racer_unc`` (5 steps: its eager re-rollout of the mean is about 10^5
 launches) on the fused solve, ``racer_steering_fused`` and
 ``racer_unc_fused`` on ``kernel="fused"``. Then the robust family beyond the
@@ -236,7 +236,7 @@ COLORED_STD, COLORED_EXPONENTS = [1.0, 1.0], [1.0, 2.0]
 GAMMA, R_TS = 10.0, 2.0
 GAMMA_SMALL, R_SMALL = 1.0, 2.4
 K_BI, K_BI_RAGGED, T_BI, S_BI = 1920, 1900, 100, 10
-BICYCLE_LOOP_STEPS = 30  # the bicycle rows' loops (about 150 ms a step)
+BICYCLE_LOOP_STEPS = 15  # the bicycle rows' loops (about 150 ms a step)
 BI_STD, BI_EXPONENTS = [0.3, 0.5], [1.0, 1.0]
 BI_OUTPUT_INDICES = (0, 1, 2, 8, 5, 6)
 # The bicycle step per sample-step (csrc/bicycle_slip.cuh): the lags and
@@ -353,8 +353,8 @@ def rollout_work(K, epilogue, with_lr):
     return n_bytes, n_ops
 
 
-def combine_work(nb, T_=T):
-    TC = T_ * C
+def combine_work(nb, T_=T, C_=C):
+    TC = T_ * C_
     return 4 * (nb * (2 + TC) + TC + 2), 4 * nb + 2 * nb * TC + TC + 1
 
 
@@ -728,7 +728,7 @@ def fused_loop_phase(kind):
     n = CLOSED_LOOP_STEPS
     return vanilla_loop_phase(
         "vanilla_fused_solve" if kind == "gaussian" else kind,
-        build_vanilla(kind, "fused_solve"), {kernel: n, "flash_combine_kernel": n},
+        build_vanilla(kind, "fused_solve"), {kernel: n, MERGE: n},
         settle=kind == "gaussian")
 
 
@@ -772,9 +772,14 @@ def fused_reference_phase(dev):
          no_host_sync=list(SAMPLERS))
 
 
+FORCED_BY_PATH = {}  # {path: the forms its loop forced against AUTO}
+
+
 def expect_launches(launches, want, path):
     """Fail unless every kernel launched exactly as often as ``want`` says
-    (kernels not named there: never)."""
+    (kernels not named there: never). Records the forms the loop ``path``
+    forced against AUTO (``_build.forced_routes``) in FORCED_BY_PATH."""
+    FORCED_BY_PATH[path] = sorted(k for k, n in _build.forced_routes.items() if n)
     for name, count in launches.items():
         if count != want.get(name, 0):
             raise AssertionError(
@@ -1019,7 +1024,7 @@ def robust_loop_phase(kind):
         want = {b1_kernel("di_circle", x0=True): n - 1, "rmppi_rollout_kernel": n,
                 LADDER: n}
     else:
-        want = {b1_kernel("di_circle"): 2 * n, "flash_combine_kernel": 2 * n,
+        want = {b1_kernel("di_circle"): 2 * n, MERGE: 2 * n,
                 LADDER: n}
     launches, _, X, _, cs, x = robust_family_loop(
         kind, ctrl, torch.tensor(X0, device=ctrl.device), n, want, profile=10)
@@ -1806,7 +1811,7 @@ RACER_INDICES = (2, 3, 5, 6, 0, 1)
 # about 41,000 launches per step for the steering row (0.9 s), several times
 # that for the uncertainty row; its loop is shorter, and a profiler window
 # (about 0.35 ms per recorded launch) is one step.
-RACER_STEERING_LOOP_STEPS = 20
+RACER_STEERING_LOOP_STEPS = 10
 RACER_UNC_LOOP_STEPS = 5
 RACER_FUSED_LOOP_STEPS = 3  # the kernel="fused" loops: B1 on the path
 
@@ -2240,8 +2245,8 @@ def build_cartpole(kernel, **kw):
 def zoo_loops(dev):
     """The zoo's closed loops. Returns {path: (launches, entry launches)}."""
     n, n_b1 = CLOSED_LOOP_STEPS, ZOO_B1_STEPS
-    solve_want = lambda pair, k=n: {b3_kernel(pair): k, "flash_combine_kernel": k}
-    b1_want = lambda pair, k=n_b1: {b1_kernel(pair): k, "flash_combine_kernel": k}
+    solve_want = lambda pair, k=n: {b3_kernel(pair): k, MERGE: k}
+    b1_want = lambda pair, k=n_b1: {b1_kernel(pair): k, MERGE: k}
     paths = {}
 
     def run(path, *a, **kw):
@@ -2358,13 +2363,13 @@ def racer_loops(dev):
         # 1.3e5 launches a step take about a minute to trace and parse
         out = model_loop_phase(f"racer_{kind}", build_racer(pair, "fused_solve"),
                                racer_x0(pair, dev), n,
-                               {b3_kernel(pair): n, "flash_combine_kernel": n},
+                               {b3_kernel(pair): n, MERGE: n},
                                profile=kind == "steering" and 1, pair=pair)
         paths[f"racer_{kind}"] = out[:2]
         n = RACER_FUSED_LOOP_STEPS
         out = model_loop_phase(f"racer_{kind}_fused", build_racer(pair, "fused"),
                                racer_x0(pair, dev), n,
-                               {b1_kernel(pair): n, "flash_combine_kernel": n},
+                               {b1_kernel(pair): n, MERGE: n},
                                profile=False, pair=pair)
         paths[f"racer_{kind}_fused"] = out[:2]
     return paths
@@ -2385,7 +2390,7 @@ def bench_row_loops(dev):
     # the same launches as "bicycle_colored": no profiler window of its own
     paths = {"bicycle_1024": model_loop_phase(
         "bicycle_1024", bicycle, torch.zeros(S_BI, device=dev), n,
-        {b1_kernel("bicycle_ar"): n, "flash_combine_kernel": n}, profile=False,
+        {b1_kernel("bicycle_ar"): n, MERGE: n}, profile=False,
         map="1024")[0]}
     n = CLOSED_LOOP_STEPS
     di = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
@@ -2393,7 +2398,7 @@ def bench_row_loops(dev):
                      num_rollouts=1024, num_iters=1, kernel="fused_solve")
     launches, _, X, _ = model_loop_phase(
         "di_K1024", di, torch.tensor(X0, device=dev), n,
-        {b3_kernel("di_circle"): n, "flash_combine_kernel": n})
+        {b3_kernel("di_circle"): n, MERGE: n})
     band_check("di_K1024", X)
     paths["di_K1024"] = launches
     return paths
@@ -2409,7 +2414,7 @@ def bench_row_loops(dev):
 # :181-199) and the per-robot factories.
 # ---------------------------------------------------------------------------
 N_CAND_AR, S_PER_AR = 9, 256
-ROBUST_AR_STEPS = 20
+ROBUST_AR_STEPS = 10
 K_RDI, T_RDI, S_PER_RDI, THRESH_RDI, ROBUST_DI_STEPS = 256, 48, 64, 50.0, 60
 X0_RDI = [2.0, 0.0, 0.0, 2.0]
 INSTANTIATION_SOLVES = 3
@@ -2852,7 +2857,7 @@ def robust_family_loops(dev):
     paths["rmppi_autorally"] = out[:2]
     out = robust_family_loop(
         "tube_autorally", build_tube_ar("fused_solve"), ar_x0(dev), n,
-        {b3_kernel("ar_nn"): 2 * n, "flash_combine_kernel": 2 * n,
+        {b3_kernel("ar_nn"): 2 * n, MERGE: 2 * n,
          LADDER: n}, map="128", cost="ARStandardCost")
     paths["tube_autorally"] = out[:2]
     n = ROBUST_DI_STEPS
@@ -2949,7 +2954,7 @@ def instantiations_phase(dev):
         wall_s = time.perf_counter() - t0
         launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
         solve = fr.form_kernel_name("fused_solve", fr._entry(ctrl.dynamics, ctrl.cost, "solve"))
-        expect_launches(launches, {solve: n, "flash_combine_kernel": n,
+        expect_launches(launches, {solve: n, MERGE: n,
                                    LADDER: n if ladder else 0}, name)
         for what, t in (("state", x), ("control_mean", res.control_mean),
                         ("costs", res.costs)) + ((("gains", fbs.gains),) if with_fb else ()):
@@ -3235,10 +3240,10 @@ def split_loops(dev):
     paths = {}
     for path, kernel, split, want in (
             ("split_fused", "fused", True,
-             {"split_dynamics_kernel": n, "split_cost_kernel": n, "flash_combine_kernel": n}),
+             {"split_dynamics_kernel": n, cost_kernel("di_circle", K_MAIN, T): n, MERGE: n}),
             ("split_fused_solve", "fused_solve", True,
-             {"split_solve_dynamics_kernel": n, "split_cost_kernel": n,
-              "flash_combine_kernel": n}),
+             {"split_solve_dynamics_kernel": n, cost_kernel("di_circle", K_MAIN, T): n,
+              MERGE: n}),
             ("split_eager", "split", None, {})):
         launches = vanilla_loop_phase(path, build_split_vanilla(kernel, split), want,
                                       settle=True)
@@ -3254,7 +3259,7 @@ def split_loops(dev):
                            split_cost=None)
         launches, entries, _, _ = model_loop_phase(
             path, ctrl, ar_x0(dev), steps,
-            {dyn_kernel: steps, "split_cost_kernel": steps, "flash_combine_kernel": steps},
+            {dyn_kernel: steps, cost_kernel("ar_nn", K_AR, T_AR): steps, MERGE: steps},
             profile=False, map="128")
         paths[path] = (launches, entries)
     return paths
@@ -3625,6 +3630,18 @@ def split_name(pair, kind):
     return fr.form_kernel_name(FORM_BASE[kind], _build.pair_entry(pair, kind))
 
 
+# the pairs whose cost is evaluated twice a step (a sticky crash:
+# time_parallel_crash), which the split cost pass's form rule reads
+DUAL_COST_PAIRS = ("ar_nn", "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
+
+
+def cost_kernel(pair, K, T_):
+    """The counted name of the split cost pass that ``pair``'s entry
+    launches for K samples over T_ steps on the card."""
+    return fr.split_cost_kernel_name(_build.pair_entry(pair, "split_cost"), 0, K, T_,
+                                     pair in DUAL_COST_PAIRS)
+
+
 def b1_kernel(pair, x0=False):
     """The counted name of ``pair``'s B1 kernel (its per-sample-x0 entry's
     with ``x0``)."""
@@ -3643,7 +3660,7 @@ def sample_launches(pair, k, epilogue=False):
     name = split_name(pair, "sample")
     out = {name: k}
     if epilogue:
-        out["flash_combine_kernel"] = k
+        out[MERGE] = k
         if name == "fused_sample_rollout_warp_kernel":
             out["block_carry_kernel"] = k
     return out
@@ -3716,20 +3733,33 @@ STAGED_PAIRS = ("di_circle", "di_quadratic", "di_robust", "cartpole", "quadrotor
 STAGED_SOURCES = tuple(sorted({_build.pair_entry(p, "sample")[0] for p in STAGED_PAIRS}))
 LADDER_ONE_THREAD = {}  # {"riccati": the loaded one-thread ladder build}
 SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4, B3 and B1 build}
+# the merge's and the split cost pass's earlier forms (one block of 256
+# threads for the merge, one block of 512 a 64-sample block for the cost
+# pass): the merge's source and the split sources of the pairs whose cost
+# pass AUTO or the flagship's split loop takes
+MERGE = "flash_combine_tiled_kernel"  # the merge in the port's build (check_forms)
+COST = "split_cost_cluster_kernel"  # the split cost pass there
+EARLIER_DEFINES = ("MPPI_COMBINE_ONE_BLOCK", "MPPI_COST_ONE_BLOCK")
+EARLIER_SOURCES = ("flash_combine", "split_ar_nn", "split_bicycle_ar", "split_di_circle",
+                   "split_racer_steering_ar", "split_racer_unc_ar", "split_quadrotor_quadratic",
+                   "split_di_robust")
+EARLIER = {}  # {source: the loaded earlier-form build}
 # (libraries it fills, -D flags, build directory, sources)
 VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread", WARP_SOURCES),
             (LADDER_ONE_THREAD, ("MPPI_LADDER_ONE_THREAD",), "ladder_one_thread", ("riccati",)),
             (SAMPLE_ONE_THREAD, ("MPPI_SAMPLE_ONE_THREAD", "MPPI_SOLVE_ONE_THREAD",
                                  "MPPI_ROLLOUT_ONE_THREAD"), "sample_one_thread",
-             STAGED_SOURCES))
+             STAGED_SOURCES),
+            (EARLIER, EARLIER_DEFINES, "earlier_forms", EARLIER_SOURCES))
 
 
 def build_one_thread():
     """Build the VARIANTS: WARP_SOURCES with -DMPPI_SPLIT_ONE_THREAD (every
     model's split passes one thread a sample), riccati.cu with
-    -DMPPI_LADDER_ONE_THREAD and the staged pairs' sources with
+    -DMPPI_LADDER_ONE_THREAD, the staged pairs' sources with
     -DMPPI_SAMPLE_ONE_THREAD, -DMPPI_SOLVE_ONE_THREAD and
-    -DMPPI_ROLLOUT_ONE_THREAD (build_variants)."""
+    -DMPPI_ROLLOUT_ONE_THREAD, and EARLIER_SOURCES with EARLIER_DEFINES
+    (build_variants)."""
     return build_variants(VARIANTS)
 
 
@@ -3793,6 +3823,12 @@ def one_thread_sample():
     return swapped(SAMPLE_ONE_THREAD)
 
 
+def earlier_forms():
+    """Inside, the merge and the split cost pass of EARLIER_SOURCES launch
+    their earlier one-block kernels."""
+    return swapped(EARLIER)
+
+
 def check_forms():
     """Each warp pair's split dynamics entries report the warp form in the
     port's build and the one-thread form in build_one_thread's; each B4 and
@@ -3841,6 +3877,24 @@ def check_forms():
         one = riccati.ladder_kernel_name()
     if (riccati.ladder_kernel_name(), one) != (LADDER, "riccati_ladder_kernel"):
         raise AssertionError(f"the ladder builds report {riccati.ladder_kernel_name()}, {one}")
+    with earlier_forms():
+        one = fr.merge_kernel_name()
+    if (fr.merge_kernel_name(), one) != (MERGE, "flash_combine_kernel"):
+        raise AssertionError(f"the merge builds report {fr.merge_kernel_name()}, {one}")
+    for pair in _build.PAIR_KERNELS:
+        if _build.pair_entry(pair, "split_cost") is None:
+            continue
+        # the port's build has the cluster form beside the one-block form,
+        # the earlier build the one-block form alone
+        entry = _build.pair_entry(pair, "split_cost")
+        form = fr.form_kernel_name("split_cost", entry)
+        if form != COST:
+            raise AssertionError(f"{pair}: its cost pass build reports {form}")
+        if entry[0] in EARLIER_SOURCES:
+            with earlier_forms():
+                one = fr.form_kernel_name("split_cost", entry)
+            if one != "split_cost_kernel":
+                raise AssertionError(f"{pair}: the earlier cost pass build reports {one}")
 
 
 def abba_against(fn, other):
@@ -3885,6 +3939,200 @@ def same_as_one_thread(what, fn, out, pair):
     for i, (a, b) in enumerate(zip(out, one)):
         if a is not None and not torch.equal(a, b):
             raise AssertionError(f"{what}: output {i} of the one-thread build differs")
+
+
+# the merge at each shape a path launches it at: (label, carry rows, T, C,
+# Tsallis rows merged with their sum num)
+MERGE_SHAPES = (
+    ("DI K=8192 T=100", 128, T, C, False),
+    ("K=1920 T=150 (AutoRally, racer uncertainty)", 30, T_AR, C, False),
+    ("DI K=8192 T=100, Tsallis rows with num", 128, T, C, True),
+    ("K=1920 T=100 (racer steering, bicycle)", 30, T_BI, C, False),
+    ("quadrotor K=8192 T=100", 128, T_ZOO, 4, False),
+    ("cartpole K=8192 T=100", 128, T_ZOO, 1, False),
+    ("K=2560 T=50 (RMPPI, Tube)", 40, T_R, C, False),
+    ("K=1024 T=100", 16, T, C, False),
+    ("quadrotor hover K=512 T=48", 8, 48, 4, False),
+)
+# the split cost pass at the shapes of AUTO's split paths and of the
+# flagship's split loop: (label, pair, mode); "solve" is B3's (its LR sums),
+# "x0" RMPPI's stage 1 on AutoRally (ARRobustCost, 9 candidates x 256)
+COST_SHAPES = (
+    ("AutoRally B1 epilogue+lr", "ar_nn", "epilogue+lr"),
+    ("AutoRally B3", "ar_nn", "solve"),
+    ("AutoRally x0 (ARRobustCost, 9 x 256)", "ar_nn", "x0"),
+    ("racer steering B1 epilogue+lr", "racer_steering_ar", "epilogue+lr"),
+    ("racer steering B3", "racer_steering_ar", "solve"),
+    ("racer uncertainty B1 epilogue+lr", "racer_unc_ar", "epilogue+lr"),
+    ("racer uncertainty B3", "racer_unc_ar", "solve"),
+    ("bicycle B1 epilogue+lr", "bicycle_ar", "epilogue+lr"),
+    ("DI B1 epilogue+lr", "di_circle", "epilogue+lr"),
+    ("quadrotor hover B1 epilogue+lr (K=512 T=48)", "quadrotor_quadratic", "epilogue+lr"),
+    ("DI robust x0 (9 x 64, T=48)", "di_robust", "x0"),
+)
+PROFILED_SHAPES = 2  # the first shapes of each kernel, A B B A by the profiler too
+EARLIER_TIMES = {}  # {("merge" | "cost", label): A B B A against the earlier form}
+
+
+def device_abba(fn, name, other_name, other):
+    """``fn`` timed in turns by the profiler's device time (device_ms) on
+    the builds of the context ``other`` (A, kernel ``other_name``) and the
+    port's (B, kernel ``name``): A B B A."""
+    with other():
+        a1 = device_ms(fn, other_name)
+    b1, b2 = device_ms(fn, name), device_ms(fn, name)
+    with other():
+        a2 = device_ms(fn, other_name)
+    return {"ms": (b1 + b2) / 2, "other_ms": (a1 + a2) / 2, "abba_ms": [a1, b1, b2, a2],
+            "faster": max(b1, b2) < min(a1, a2)}
+
+
+def same_bits(what, got, want):
+    """Each output of the port's build equal to the earlier build's bit for
+    bit (NaN where it is NaN)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None and b is None:
+            continue
+        if not (torch.equal(a, b) or (torch.equal(a.isnan(), b.isnan())
+                                      and torch.equal(a.nan_to_num(), b.nan_to_num()))):
+            raise AssertionError(f"{what}: output {i} differs from the earlier form's")
+
+
+def merge_rows(nb, TC, tsallis, g, dev):
+    """nb carry rows of 2 + TC floats: m_b ~ 3 N(0, 1) (0 for Tsallis
+    rows), d_b in [1, 64], num_b ~ d_b N(0, 1)."""
+    m = torch.zeros((nb, 1), device=dev)
+    if not tsallis:
+        m = 3.0 * torch.randn((nb, 1), generator=g, device=dev)
+    d = 1.0 + 63.0 * torch.rand((nb, 1), generator=g, device=dev)
+    num = d * torch.randn((nb, TC), generator=g, device=dev)
+    return torch.cat([m, d, num], dim=1).contiguous()
+
+
+def cost_case(dev, pair, mode):
+    """(dynamics, cost, U, Y (T, O, K), B1's LR tables, B3's LR sums, K, T)
+    of one cost-pass shape: the split phases' inputs at the path's shape
+    (the hover's K and T for the quadrotor; RMPPI's stage-1 candidates for
+    "x0": AutoRally with ARRobustCost, the DI robust cost), Y from the
+    port's dynamics pass."""
+    if mode == "x0":
+        if pair == "di_robust":
+            dyn, cost = (DoubleIntegratorDynamics.create(device=dev),
+                         DoubleIntegratorRobustCost(device=dev))
+            xa, dx, n_per, T_, std = (torch.tensor(X0_RDI, device=dev),
+                                      torch.tensor([0.3, 0.1, 0.4, -0.3], device=dev),
+                                      S_PER_RDI, T_RDI, [1.0, 1.0])
+        else:
+            dyn, cost = robust_ar_parts("128", dev)
+            xa, dx, n_per, T_, std = (ar_x0(dev),
+                                      torch.tensor([0.5, 0.3, 0.1, 0.0, -0.5, 0.0, 0.0],
+                                                   device=dev), S_PER_AR, T_AR, AR_STD)
+        w = torch.linspace(0.0, 1.0, N_CAND_AR, device=dev)[:, None]
+        x0 = (xa[None] + w * dx[None]).repeat_interleave(n_per, dim=0).contiguous()
+        K = x0.shape[0]
+        g = torch.Generator(device=dev).manual_seed(411)
+        U = torch.tensor([std], device=dev) * torch.randn((K, T_, C), generator=g, device=dev)
+        U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+        lr = None
+    else:
+        K = {"di_circle": K_MAIN, "quadrotor_quadratic": K_HOVER}.get(pair, pair_shape(pair)[0])
+        dyn, cost, x0, _, U, lr, _, T_ = split_inputs(dev, pair, K, 0.0, 0, 421,
+                                                      "128" if pair == "ar_nn" else None)
+        lr = lr if mode.endswith("+lr") else None
+        if pair == "quadrotor_quadratic":  # the hover's horizon: the first steps
+            T_ = T_HOVER
+            U = U[:, :T_].contiguous()
+            lr = lr and (lr[0][:T_].contiguous(), lr[1][:T_].contiguous(), *lr[2:])
+    lr_sum = None
+    if mode == "solve":
+        g = torch.Generator(device=dev).manual_seed(431)
+        lr_sum = 0.1 * torch.randn((K,), generator=g, device=dev)
+    Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+    return dyn, cost, U, Y, lr, lr_sum, K, T_
+
+
+def plain_cost_pass(cost, Y, U, lr, lr_sum, gain, T_):
+    """The plain cost pass on the outputs Y (T, O, K): (costs, crash)."""
+    Yk = Y.permute(2, 0, 1)
+    acc, crash = fr.split_sums_plain(*fr.split_step_values_plain(cost, Yk, U, lr))
+    acc = acc + cost.terminal_cost(Yk[:, -1].T)
+    if lr_sum is not None:
+        acc = acc + gain * lr_sum
+    return true_div(acc, T_), crash
+
+
+def merge_cost_forms_phase(dev):
+    """The tiled merge and the cluster cost pass at every shape of
+    MERGE_SHAPES and COST_SHAPES: every output bit for bit against the
+    earlier forms' build (EARLIER), the merge against its plain version
+    (new mean, eta), the cost pass's costs and crash flags bit for bit and
+    its carry rows within rtol 1e-5 against the plain cost pass; each timed
+    A B B A against the earlier form by CUDA events (and, for the first
+    PROFILED_SHAPES of each, by the profiler's device time), beside its
+    bound and its plain version's time. Returns the checks."""
+    checks = []
+    g = torch.Generator(device=dev).manual_seed(401)
+
+    def timed(kind, label, fn, plain, i, name, other_name, work, **shape):
+        t = abba_against(fn, earlier_forms)
+        if i < PROFILED_SHAPES:
+            t["device"] = device_abba(fn, name, other_name, earlier_forms)
+        t["plain_ms"] = time_ms(plain, N_TIMED_PLAIN, warmup=1)
+        t["bound_ms"], t["bound_by"] = bound_ms(*work)
+        EARLIER_TIMES[(kind, label)] = {**t, **shape}
+
+    for i, (label, nb, T_, C_, tsallis) in enumerate(MERGE_SHAPES):
+        carry = merge_rows(nb, T_ * C_, tsallis, g, dev)
+        lam = 1.0 if tsallis else LAM
+        fn = lambda: fr.flash_combine(carry, T_, C_, lam, with_num=tsallis)  # noqa: E731
+        got = fn()
+        with earlier_forms():
+            one = fn()
+        want = fr.flash_combine_plain(carry, T_, C_, fr._f32(lam), with_num=tsallis)
+        torch.cuda.synchronize()
+        same_bits(f"merge {label}", got, one)
+        checks += [check(f"merge {label} new_mean", got[0], want[0], "new_mean"),
+                   check(f"merge {label} eta", got[2], want[2], "eta")]
+        timed("merge", label, fn,
+              lambda: fr.flash_combine_plain(carry, T_, C_, fr._f32(lam), with_num=tsallis),
+              i, MERGE, "flash_combine_kernel", combine_work(nb, T_, C_), rows=nb, T=T_, C=C_)
+    gain = fr._lr_gain(LAM, ALPHA)
+    for i, (label, pair, mode) in enumerate(COST_SHAPES):
+        dyn, cost, U, Y, lr, lr_sum, K, T_ = cost_case(dev, pair, mode)
+        epi = fr.EPI_NONE if mode == "x0" else fr.EPI_EXP
+        g_sum = gain if lr_sum is not None else 0.0
+        fn = lambda: fr.split_cost_cuda(dyn, cost, Y, U, lr, epi, LAM, lr_sum, g_sum)  # noqa: E731
+        got = fn()
+        with earlier_forms():
+            one = fn()
+        pc, pcrash = plain_cost_pass(cost, Y, U, lr, lr_sum, g_sum, T_)
+        torch.cuda.synchronize()
+        same_bits(f"cost pass {label}", got, one)
+        same(f"cost pass {label} crash flags", got[1], pcrash)
+        checks.append(check(f"cost pass {label} costs", got[0], pc, "bitwise"))
+        if epi == fr.EPI_EXP:
+            checks.append(check(f"cost pass {label} carry", got[2],
+                                fr.block_carries_plain(pc, U, LAM), "carry",
+                                fr.block_carries_plain(pc, U.abs(), LAM).abs()))
+        timed("cost", label, fn,
+              lambda: plain_cost_pass(cost, Y, U, lr, lr_sum, g_sum, T_), i, COST,
+              "split_cost_kernel",
+              split_pass_work(pair, dyn, cost, K, T_, "cost", "costs" if mode == "x0" else mode),
+              pair=pair, K=K, T=T_, crashed_share=float(pcrash.float().mean()))
+    emit("merge_cost_forms", checks=checks,
+         times={f"{kind} {label}": t for (kind, label), t in EARLIER_TIMES.items()})
+    return checks
+
+
+def earlier_fields(kind, pair=None):
+    """The kernels line's fields of the merge (``kind`` "merge") or of
+    ``pair``'s cost pass ("cost"): each shape's time A B B A against the
+    earlier form in this run (merge_cost_forms_phase) with its bound and
+    its plain version's time."""
+    return {"earlier_form_abba": {label: t for (k, label), t in EARLIER_TIMES.items()
+                                  if k == kind and t.get("pair") == pair}}
+
+
 # the ragged ladders: (T, n_alpha), after each model's paths' shapes
 LADDER_RAGGED = ((31, 1), (33, 33), (100, 128), (150, 14))
 
@@ -4326,9 +4574,10 @@ def pair_kernel_entries(errs, times, paths, warp_times=None):
                  modes={"nln": (warp_times[pair]["B3 dynamics nln"] if warp
                                 else st["B3 split nln"]["dynamics_pass"])},
                  split_form=forms(st, "B3 split ")),
-            line(f"split_cost_kernel<{cost_name}>", pair, "split_cost",
+            line(f"{cost_kernel(pair, K, T_)}<{cost_name}>", pair, "split_cost",
                  "pallas_rollout.py:698-768 and pallas_solve.py:292-332 (the split cost "
                  "pass)", st["B1 split epilogue+lr"]["cost_pass"], err, K=K, T=T_,
+                 **earlier_fields("cost", pair),
                  modes={**{f"B1 {m}": st[f"B1 split {m}"]["cost_pass"]
                            for m in ("costs", "costs+lr", "tsallis+lr")},
                         **{f"B3 {k}": st[f"B3 split {k}"]["cost_pass"]
@@ -4348,9 +4597,10 @@ def pair_kernel_entries(errs, times, paths, warp_times=None):
                         warp_key="B1-x0 dynamics" if pair in WARP_PAIRS else None,
                         **shape, split_form=form))
         if pair == "di_robust":
-            out.append(line("split_cost_kernel<DoubleIntegratorRobustCost>", pair,
+            out.append(line(f"{cost_kernel(pair, shape['K'], shape['T'])}"
+                            "<DoubleIntegratorRobustCost>", pair,
                             "split_cost", "pallas_rollout.py:698-768 (the split cost pass)",
-                            t["cost_pass"], err, **shape))
+                            t["cost_pass"], err, **shape, **earlier_fields("cost", pair)))
     return out
 
 
@@ -4376,7 +4626,7 @@ def pair_loops(dev):
 
     b4 = sample_launches
     b4_smooth = lambda k, pair: sample_launches(pair, k, epilogue=True)
-    solve_want = lambda k, pair: {b3_kernel(pair): k, "flash_combine_kernel": k}
+    solve_want = lambda k, pair: {b3_kernel(pair): k, MERGE: k}
     smooth = lambda C_, std, T_: SmoothMPPIDistribution.create(
         std_dev=std, control_cost_coeff=[1.0] * C_, num_timesteps=T_, dt=DT_SMOOTH)
     # AutoRally's bench configuration (bench.py:704-717) with Tsallis weights
@@ -4458,12 +4708,15 @@ def pair_loops(dev):
                         num_rollouts=K_ZOO, num_iters=1, kernel="fused_solve",
                         split_cost=True)
     ns = SWINGUP_STEPS
+    # the loops' K and T: the hover's for the quadrotor, else the pair's path's
+    loop_KT = lambda pair: ((K_HOVER, T_HOVER) if pair == "quadrotor_quadratic"
+                            else pair_shape(pair)[::2])
     split_b3 = lambda k, pair: {
-        split_name(pair, "split_solve_dynamics"): k, "split_cost_kernel": k,
-        "flash_combine_kernel": k}
+        split_name(pair, "split_solve_dynamics"): k, cost_kernel(pair, *loop_KT(pair)): k,
+        MERGE: k}
     split_b1 = lambda k, pair: {
-        split_name(pair, "split_dynamics"): k, "split_cost_kernel": k,
-        "flash_combine_kernel": k}
+        split_name(pair, "split_dynamics"): k, cost_kernel(pair, *loop_KT(pair)): k,
+        MERGE: k}
     _, _, X, res = run("cartpole_swingup_split", swing, torch.zeros(4, device=dev), ns,
                        split_b3(ns, "cartpole"),
                        plant=lambda x, u: x + swing.dynamics.state_deriv(x, u) * swing.dt,
@@ -4523,9 +4776,10 @@ def pair_loops(dev):
     disturb = torch.zeros((nr, S), device=dev)
     disturb[:, 2:] = torch.tensor(np.stack([rng.randn(2) * 0.02 for _ in range(nr)]),
                                   dtype=torch.float32, device=dev)
-    x1 = lambda k, pair: {split_name(pair, "split_dynamics_x0"): k - 1,
-                          "split_cost_kernel": k - 1, split_name(pair, "rmppi"): k,
-                          LADDER: k}
+    x1 = lambda k, pair: {
+        split_name(pair, "split_dynamics_x0"): k - 1, split_name(pair, "rmppi"): k, LADDER: k,
+        cost_kernel(pair, *((N_CAND_AR * S_PER_RDI, T_RDI) if pair == "di_robust"
+                            else (N_CAND_AR * S_PER_AR, T_AR))): k - 1}
     out = robust_family_loop("rmppi_di_robust_split",
                              build_rmppi_di_robust("fused", split_cost=True), rx0, nr,
                              x1(nr, "di_robust"), disturb=disturb, profile=False)
@@ -4578,12 +4832,17 @@ def main() -> int:
     # this slice's forms first: B7's warp recursion and B4's staged form
     # against their plain versions and their one-thread builds
     form_checks = {LADDER: ladder_form_phase(dev)[0], B4_STAGED: staged_form_phase(dev)}
+    # the tiled merge and the cluster cost pass against their plain versions
+    # and their earlier one-block builds, A B B A at the paths' shapes
+    forms_checks = merge_cost_forms_phase(dev)
 
     errs = dict.fromkeys(fr.launch_counts, 0.0)
 
     def note(kernel, checks):
         for c in checks:
             errs[kernel] = max(errs[kernel], c["max_abs_err"])
+
+    note("flash_combine_kernel", [c for c in forms_checks if c["check"].startswith("merge")])
 
     main_times = None
     for K, p, seed in ((K_MAIN, 0.0, 1), (K_RAGGED, 0.1, 2)):
@@ -4672,7 +4931,7 @@ def main() -> int:
     racer_reference_phase(dev)
     by_path = {"vanilla": vanilla_loop_phase("vanilla", build_vanilla("gaussian", "fused"), {
                    b1_kernel("di_circle"): CLOSED_LOOP_STEPS,
-                   "flash_combine_kernel": CLOSED_LOOP_STEPS}, settle=True),
+                   MERGE: CLOSED_LOOP_STEPS}, settle=True),
                "rmppi": robust_loop_phase("rmppi"),
                "tube": robust_loop_phase("tube")}
     for kind in SAMPLERS:
@@ -4681,27 +4940,27 @@ def main() -> int:
     n, n_f = CLOSED_LOOP_STEPS, AR_FUSED_LOOP_STEPS
     ar_paths = {
         "autorally": ar_loop_phase("autorally", "128", "fused_solve", n, {
-            b3_kernel("ar_nn"): n, "flash_combine_kernel": n}),
+            b3_kernel("ar_nn"): n, MERGE: n}),
         # the same launches as "autorally": no profiler window of their own
         "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n_f, {
-            b3_kernel("ar_nn"): n_f, "flash_combine_kernel": n_f}, profile=False),
+            b3_kernel("ar_nn"): n_f, MERGE: n_f}, profile=False),
         "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f, {
-            b1_kernel("ar_nn"): n_f, "flash_combine_kernel": n_f}, profile=False),
+            b1_kernel("ar_nn"): n_f, MERGE: n_f}, profile=False),
     }
     colored_paths = {
         "colored_fused": vanilla_loop_phase(
             "colored_fused", build_colored("exp", "fused"),
-            {b1_kernel("di_circle"): n, "flash_combine_kernel": n}, settle=False),
+            {b1_kernel("di_circle"): n, MERGE: n}, settle=False),
         "colored_tsallis": vanilla_loop_phase(
             "colored_tsallis", build_colored("tsallis", "fused"),
             {b1_kernel("di_circle"): n, "tsallis_reduce_kernel": n,
-             "flash_combine_kernel": n}, settle=False),
+             MERGE: n}, settle=False),
     }
     nb = BICYCLE_LOOP_STEPS
     bicycle_paths = {
         "bicycle_colored": model_loop_phase(
             "bicycle_colored", build_bicycle("fused"), torch.zeros(S_BI, device=dev), nb,
-            {b1_kernel("bicycle_ar"): nb, "flash_combine_kernel": nb}, map="128")[0],
+            {b1_kernel("bicycle_ar"): nb, MERGE: nb}, map="128")[0],
     }
     row_paths = bench_row_loops(dev)
     bicycle_paths["bicycle_1024"] = row_paths["bicycle_1024"]
@@ -4789,8 +5048,8 @@ def main() -> int:
         entry(b1_kernel("di_circle"), "pair_di_circle.cu", "pallas_rollout.py:548", epi,
               epi["library_ms"], err=errs["rollout_costs_kernel"], modes=modes,
               **one_thread_fields("rollout", "di_circle")),
-        entry("flash_combine_kernel", "flash_combine.cu", "pallas_rollout.py:1005",
-              comb, None),
+        entry(MERGE, "flash_combine.cu", "pallas_rollout.py:1005", comb, None,
+              err=errs["flash_combine_kernel"], **earlier_fields("merge")),
         entry("riccati_backward_kernel", "riccati.cu", "pallas_riccati.py:137",
               ric_times["riccati_backward"], None, on_main_path=False,
               chain_steps=T_R - 1),
@@ -4837,9 +5096,9 @@ def main() -> int:
               modes={**{m: ar[f"B1 {m}"] for m in ("costs", "costs+lr", "epilogue")},
                      **{f"{m} 1024^2 map": ar1024[f"B1 {m}"]
                         for m in ("costs", "costs+lr", "epilogue", "epilogue+lr")}}),
-        entry("flash_combine_kernel (AutoRally paths)", "flash_combine.cu",
+        entry(f"{MERGE} (AutoRally paths)", "flash_combine.cu",
               "pallas_rollout.py:1005", ar["flash_combine"], None, paths=ar_paths,
-              err=ar_errs["flash_combine_kernel"], kernel="flash_combine_kernel"),
+              err=ar_errs["flash_combine_kernel"], kernel=MERGE),
         # the colored rows: the rollout kernel's exp epilogue (colored_fused,
         # timed above at the same shapes) and its Tsallis pass 1
         # (colored_tsallis), the Tsallis reduction and the merge
@@ -4855,11 +5114,11 @@ def main() -> int:
               modes={m: ts_times[m] for m in (
                   "tsallis_reduce entry (rho given, with the merge)",
                   "chain (pass 1, B5, merge)")}),
-        entry("flash_combine_kernel (colored and bicycle paths)", "flash_combine.cu",
+        entry(f"{MERGE} (colored and bicycle paths)", "flash_combine.cu",
               "pallas_rollout.py:1005", ts_times["merge"], None,
               paths={**colored_paths, **bicycle_paths},
               err=max(ts_errs["flash_combine_kernel"], bi_errs["flash_combine_kernel"]),
-              kernel="flash_combine_kernel"),
+              kernel=MERGE),
         entry(f"{b1_kernel('bicycle_ar')}<BicycleSlip, ARCostBicycle>", "pair_bicycle_ar.cu",
               "pallas_rollout.py:548", bi_times["epilogue+lr"],
               bi_times["epilogue+lr"]["library_ms"], paths=bicycle_paths,
@@ -4917,9 +5176,9 @@ def main() -> int:
     merge_paths = {p: l for p, (l, _) in zoo_paths.items()}
     zoo_only = [e for pair, e in zoo_errs.items() if pair not in RACER_PAIRS]
     kernels.append(entry(
-        "flash_combine_kernel (zoo paths)", "flash_combine.cu", "pallas_rollout.py:1005",
+        f"{MERGE} (zoo paths)", "flash_combine.cu", "pallas_rollout.py:1005",
         ts_times["merge"], None, paths=merge_paths,
-        err=max(e["flash_combine_kernel"] for e in zoo_only), kernel="flash_combine_kernel"))
+        err=max(e["flash_combine_kernel"] for e in zoo_only), kernel=MERGE))
     # the racer rows: the LSTM step (B10) and, for the steering row, the
     # elevation map's settling (B9) inside B1 and B3: device functions, not
     # launches of their own
@@ -4945,10 +5204,10 @@ def main() -> int:
     # the merge at the uncertainty row's shapes (30 rows of T=150, C=2), timed
     # in the AutoRally phase at the same shapes
     kernels.append(entry(
-        "flash_combine_kernel (racer paths)", "flash_combine.cu", "pallas_rollout.py:1005",
+        f"{MERGE} (racer paths)", "flash_combine.cu", "pallas_rollout.py:1005",
         ar["flash_combine"], None, paths={p: l for p, (l, _) in racer_paths.items()},
         err=max(zoo_errs[pair]["flash_combine_kernel"] for pair in RACER_PAIRS),
-        kernel="flash_combine_kernel"))
+        kernel=MERGE))
     # the robust family: launches counted per C entry on its loops and the
     # factories' solves
     family_paths = {**robust_paths, **inst_paths}
@@ -5062,24 +5321,28 @@ def main() -> int:
                         modes={"nln": (warp_times[pair]["B3 dynamics nln"] if pair in WARP_PAIRS
                                        else st["B3 split nln"]["dynamics_pass"])},
                         split_form=forms(st, "B3 split ")),
-            split_entry(f"split_cost_kernel<{cost_name}>", pair, f"split_cost_{pair}",
+            split_entry(f"{cost_kernel(pair, K, T_)}<{cost_name}>", pair, f"split_cost_{pair}",
                         "pallas_rollout.py:698-768 and pallas_solve.py:292-332 "
                         "(the split cost pass)",
                         st["B1 split epilogue+lr"]["cost_pass"], K=K, T=T_,
+                        **earlier_fields("cost", pair),
                         modes={**{f"B1 {m}": st[f"B1 split {m}"]["cost_pass"]
                                   for m in ("costs", "costs+lr", "tsallis+lr")},
                                **{f"B3 {k}": st[f"B3 split {k}"]["cost_pass"]
                                   for k in ("gaussian", "nln")}}),
         ]
     kernels.append(entry(
-        "flash_combine_kernel (split paths)", "flash_combine.cu", "pallas_rollout.py:1005",
+        f"{MERGE} (split paths)", "flash_combine.cu", "pallas_rollout.py:1005",
         comb, None, paths={p: l for p, (l, _) in split_paths.items()},
-        err=errs["flash_combine_kernel"], kernel="flash_combine_kernel"))
+        err=errs["flash_combine_kernel"], kernel=MERGE))
     for pair in STAGED_PAIRS:  # the staged form's own checks count in B4's entries
         if ("sample", pair) in pair_errs:
             pair_errs[("sample", pair)] = max(pair_errs[("sample", pair)],
                                               form_err(B4_STAGED, f"{pair} "))
     kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times)
+    for k in kernels:  # the loops that reach the kernel only by forcing a form
+        k["forced_by_path"] = {p: FORCED_BY_PATH[p] for p in k.get("launches_by_path", {})
+                               if FORCED_BY_PATH.get(p)}
     emit("total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,26 +34,45 @@
 // (split_warp.cuh: one warp per sample, one network unit per lane); the
 // entries below pick the form at compile time, so a pair's library holds one.
 //
-// split_cost_kernel<Cost, O, C, EPI, WITH_LR> (the cost pass of both): a
-// block of kBlockSamples samples cuts the horizon into kCostChunks chunks of
-// ceil(T / kCostChunks) steps, one thread per (sample, chunk); neighbouring
-// threads read neighbouring samples of Y, so the loads are coalesced. A
-// thread sums Cost::running_cost over its chunk's steps in order, each plus
-// lr_gain times the step's LR term in B1's LR modes (rollout_costs_kernel's
-// step value). A sticky-crash cost (the AutoRally costs, kStickyCrash; the
-// JAX Cost.time_parallel_crash) is evaluated twice a step, at crash 0 and
-// at crash 1; the first call's crash output is the step's trigger. The
-// thread keeps two sums: the chunk's values with the crash-1 value from its
-// first trigger on, and the crash-1 values of every step, the chunk's sum
-// if a trigger came before it. The sample's chunks are then added in order,
+// The cost pass of both, split_cost_cluster_kernel<Cost, O, C, EPI, WITH_LR>:
+// a thread-block cluster of kCostCluster CTAs takes a block of kBlockSamples
+// samples; the horizon is cut into kCostChunks chunks of ceil(T /
+// kCostChunks) steps, and each CTA owns a run of kCostChunks / kCostCluster
+// whole chunks (one: clusters of 8 beat 4 and 2 at every shape a path
+// launches, A B B A on the H100, PERF.md section 6).
+// A CTA walks its steps in windows of kCostWindow: it stages the window's
+// controls of its samples into shared memory by cp.async (a sample's are
+// contiguous in U; the next window's copies fly while this one is used),
+// then its threads over (step, sample) compute every step's values at once
+// (neighbouring threads take neighbouring samples of Y, so the loads are
+// coalesced): Cost::running_cost plus lr_gain times the step's LR term in
+// B1's LR modes (rollout_costs_kernel's step value). A sticky-crash cost
+// (the AutoRally costs, kStickyCrash; the JAX Cost.time_parallel_crash) is
+// evaluated twice a step, at crash 0 and at crash 1; the first call's crash
+// output is the step's trigger. Then one thread per (sample, chunk) adds the
+// window's values of its chunk in step order into two sums: the chunk's
+// values with the crash-1 value from its first trigger on, and the crash-1
+// values of every step, the chunk's sum if a trigger came before it. Rank 0
+// of the cluster reads every chunk's sums and flag from its neighbours'
+// shared memory (distributed shared memory) and adds them in chunk order,
 // each taking its second sum once an earlier chunk has fired: the TPU
 // kernels' dual evaluation and prefix OR (pallas_rollout.py:698-728) with
 // the same crash flags as the sequential loop. J = (sum + terminal(y_{T-1}))
 // / T, B3's J = (sum + terminal + lr_gain lr) / T. The block's J then feed
 // the epilogue of B1's mode: the carry row (m_b, d_b, num_b[T*C]) over U
-// (kEpiExp; flash_combine.cu merges the rows) or the block minimum
-// (kEpiMin, Tsallis pass 1; tsallis_reduce.cu takes the minima), so the
-// merge and the Tsallis reduction are unchanged.
+// (kEpiExp; flash_combine.cu merges the rows), its m_b, d_b and 64 weights
+// on rank 0 and its columns spread over the cluster, each CTA taking its
+// own steps' columns with the weights read from rank 0, each column summed
+// in sample order; or the block minimum (kEpiMin, Tsallis pass 1;
+// tsallis_reduce.cu takes the minima), so the merge and the Tsallis
+// reduction are unchanged. The caller names the form of each launch
+// (fused_rollout.split_cost_form, the rule that A B B A on the H100 set,
+// PERF.md section 6); the other form is the earlier one:
+// split_cost_kernel, one block of kCostThreads a 64-sample block, a thread
+// per (sample, chunk) walking its steps one after the other, thread 0
+// making the carry's scalars and the block's threads all its columns;
+// -DMPPI_COST_ONE_BLOCK builds it alone, for A B B A. The sums and the order
+// of every addition are the same in both forms.
 //
 // What bounds it on this card: the dynamics pass is rollout_costs_kernel's
 // chain without the cost, so a pair whose cost is a large share of the step
@@ -61,19 +80,25 @@
 // is about nine tenths of its step, the double integrator's Euler step less
 // than its circle cost. The cost pass runs its K*T evaluations on eight
 // times the combined kernel's threads. What the split adds is Y's round
-// trip, written once and read once, and a second launch.
+// trip, written once and read once, and a second launch. The cost pass's
+// earlier form ran ceil(K / 64) blocks, 30 on 132 SMs at K = 1920, each
+// thread walking ceil(T / 8) steps with two map costs a step; the cluster
+// form runs kCostCluster times the CTAs, each step's values at once.
 //
 // Numerics: built without --use_fast_math and with --fmad=false; the
 // dynamics step and the cost are the combined kernels' device functions;
 // the plain versions sum each chunk and then the chunks in the kernel's
 // order, so costs, crash flags, U and block minima agree with them bit for
-// bit. Only the carry's sums are taken in another order.
+// bit. Only the carry's sums are taken in another order by the plain
+// version (block_carries_plain); both forms of the pass take them alike.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -89,6 +114,19 @@ namespace {
 // into kCostChunks chunks, one thread per (sample, chunk)
 constexpr int kCostChunks = 8;
 constexpr int kCostThreads = kBlockSamples * kCostChunks;
+
+// the cluster form: CTAs a 64-sample block, steps of a window, threads a CTA
+constexpr int kCostCluster = 8;
+static_assert(kCostChunks % kCostCluster == 0, "each CTA owns whole chunks");
+constexpr int kCostWindow = 16;
+constexpr int kClusterThreads = 512;
+// the cost pass's forms: 3 the cluster form, 0 the one-block form (the
+// earlier design, which -DMPPI_COST_ONE_BLOCK builds alone)
+#ifdef MPPI_COST_ONE_BLOCK
+constexpr int kCostForm = 0;
+#else
+constexpr int kCostForm = 3;
+#endif
 
 // A cost whose crash flag is sticky-prefix (its value depends on the flag
 // only through the current step's flag) declares kStickyCrash = true.
@@ -322,6 +360,215 @@ split_cost_kernel(const float* __restrict__ Y, const float* __restrict__ U,
   }
 }
 
+// The cluster form of the cost pass (see the note atop this file). Every
+// addition is the earlier form's, in its order: the step values are those
+// of its thread loop, each chunk is summed in step order by one thread, the
+// chunks in chunk order by rank 0, the carry's scalars by one thread and
+// each carry column in sample order.
+template <class Cost, int O, int C, int EPI, bool WITH_LR>
+__global__ void __cluster_dims__(kCostCluster, 1, 1) __launch_bounds__(kClusterThreads)
+split_cost_cluster_kernel(const float* __restrict__ Y, const float* __restrict__ U,
+                          int K, int T, const float* cost_params,
+                          const float* cost_map, LRArgs lr,
+                          const float* __restrict__ lr_sum, float lr_sum_gain,
+                          float lam_w, float* __restrict__ costs,
+                          int* __restrict__ crash_out, float* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  constexpr bool kSticky = StickyCrash<Cost>::value;
+  constexpr int kURow = kCostWindow * C + 1;  // a sample's staged controls, padded
+  constexpr int kWarps = kClusterThreads / 32;
+  __shared__ float u_s[2][kBlockSamples][kURow];
+  __shared__ float v0_s[kCostWindow][kBlockSamples];
+  __shared__ float v1_s[kSticky ? kCostWindow : 1][kBlockSamples];
+  __shared__ unsigned char trig_s[kSticky ? kCostWindow : 1][kBlockSamples];
+  constexpr int per = kCostChunks / kCostCluster;  // the chunks a CTA owns
+  __shared__ float sel_s[per][kBlockSamples];
+  __shared__ float all1_s[per][kBlockSamples];
+  __shared__ int any_s[per][kBlockSamples];
+  __shared__ float J_s[kBlockSamples];
+  __shared__ float w_s[kBlockSamples];  // rank 0's carry weights (a copy elsewhere)
+  __shared__ float m_s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int blk = blockIdx.x / kCostCluster;  // the 64-sample block
+  const int base = blk * kBlockSamples;
+  const int n_valid = min(kBlockSamples, K - base);
+  const int Tc = (T + kCostChunks - 1) / kCostChunks;
+  const int c_lo = rank * per;  // this CTA's first chunk
+  const int t_lo = min(T, c_lo * Tc);
+  const int t_hi = min(T, (c_lo + per) * Tc);
+  const typename Cost::Params cp = Cost::load(cost_params, cost_map);
+  // the (sample, chunk) this thread sums, if it is one of the summing threads
+  const int si = tid % kBlockSamples;
+  const int sc = tid / kBlockSamples;
+  const bool summer = sc < per && si < n_valid;
+  const int s_t0 = min(T, (c_lo + sc) * Tc);
+  const int s_t1 = min(T, s_t0 + Tc);
+  float sel = 0.0f;   // the chunk's sum, crash-1 values from its first trigger
+  float all1 = 0.0f;  // the chunk's sum of crash-1 values (an earlier trigger)
+  bool fired = false;
+
+  // the controls of steps t0w .. t0w + n - 1 of the block's valid samples,
+  // a warp a sample, into u_s[buf]; one cp.async group
+  auto stage = [&](int buf, int t0w, int n) {
+    const int run = n * C;
+    for (int i = tid / 32; i < n_valid; i += kWarps) {
+      const float* src = U + (static_cast<size_t>(base + i) * T + t0w) * C;
+      for (int e = tid % 32; e < run; e += 32) cp_async_f32(&u_s[buf][i][e], src + e);
+    }
+    cp_async_commit();
+  };
+
+  if (t_lo < t_hi) stage(0, t_lo, min(kCostWindow, t_hi - t_lo));
+  int buf = 0;
+  for (int tw0 = t_lo; tw0 < t_hi; tw0 += kCostWindow, buf ^= 1) {
+    const int n = min(kCostWindow, t_hi - tw0);
+    const int next = tw0 + kCostWindow;
+    if (next < t_hi) {
+      stage(buf ^ 1, next, min(kCostWindow, t_hi - next));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the window's controls are in; the last sums are read
+    for (int e = tid; e < n * kBlockSamples; e += kClusterThreads) {
+      const int i = e % kBlockSamples;
+      const int tl = e / kBlockSamples;
+      if (i >= n_valid) continue;
+      const int k = base + i;
+      const int t = tw0 + tl;
+      float y[O];
+      float u[C];
+#pragma unroll
+      for (int o = 0; o < O; ++o) y[o] = Y[(static_cast<size_t>(t) * O + o) * K + k];
+#pragma unroll
+      for (int c = 0; c < C; ++c) u[c] = u_s[buf][i][tl * C + c];
+      float lr_term = 0.0f;
+      if (WITH_LR) {
+        const bool pure = static_cast<float>(k) >= lr.pure_thresh;
+        float lr_t = 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float mu = pure ? 0.0f : lr.mean[t * C + c];
+          const float sg = lr.sigma[t * C + c];
+          lr_t = lr_t + lr.coeff[c] * mu * (mu - 2.0f * u[c]) / (sg * sg);
+        }
+        lr_term = lr.gain * lr_t;
+      }
+      int cr = 0;
+      const float v = Cost::running_cost(cp, y, u, t, &cr);
+      if constexpr (kSticky) {
+        int one = 1;
+        const float v1 = Cost::running_cost(cp, y, u, t, &one);
+        v1_s[tl][i] = WITH_LR ? v1 + lr_term : v1;
+        trig_s[tl][i] = cr != 0 ? 1 : 0;
+      }
+      v0_s[tl][i] = WITH_LR ? v + lr_term : v;
+    }
+    __syncthreads();
+    if (summer) {
+      const int te = min(s_t1, tw0 + n);
+      for (int t = max(s_t0, tw0); t < te; ++t) {
+        const int tl = t - tw0;
+        if constexpr (kSticky) {
+          fired = fired || trig_s[tl][si] != 0;
+          all1 = all1 + v1_s[tl][si];
+          sel = sel + (fired ? v1_s[tl][si] : v0_s[tl][si]);
+        } else {
+          sel = sel + v0_s[tl][si];
+        }
+      }
+    }
+  }
+  if (summer) {
+    sel_s[sc][si] = sel;
+    all1_s[sc][si] = all1;
+    any_s[sc][si] = fired ? 1 : 0;
+  }
+  cluster.sync();  // every CTA's chunk sums are in its shared memory
+  if (rank == 0 && tid < n_valid) {
+    // the chunks in order: a chunk after a trigger takes its crash-1 sum
+    float acc = 0.0f;
+    bool crashed = false;
+    for (int c = 0; c < kCostChunks; ++c) {
+      const int q = c / per;
+      const int lc = c % per;
+      const float a1 = *cluster.map_shared_rank(&all1_s[lc][tid], q);
+      const float s0 = *cluster.map_shared_rank(&sel_s[lc][tid], q);
+      acc = acc + (crashed ? a1 : s0);
+      crashed = crashed || *cluster.map_shared_rank(&any_s[lc][tid], q) != 0;
+    }
+    const int k = base + tid;
+    float y_last[O];
+#pragma unroll
+    for (int o = 0; o < O; ++o) {
+      y_last[o] = Y[(static_cast<size_t>(T - 1) * O + o) * K + k];
+    }
+    const float term = Cost::terminal_cost(cp, y_last);
+    const float J = lr_sum != nullptr
+                        ? (acc + term + lr_sum_gain * lr_sum[k]) / static_cast<float>(T)
+                        : (acc + term) / static_cast<float>(T);
+    costs[k] = J;
+    crash_out[k] = crashed ? 1 : 0;
+    J_s[tid] = J;
+  }
+  if (EPI == kEpiExp) {
+    const int TC = T * C;
+    float* row = out + static_cast<size_t>(blk) * (2 + TC);
+    if (rank == 0) {
+      __syncthreads();  // J_s
+      if (tid == 0) {
+        float m_b = -J_s[0] / lam_w;
+        for (int i = 1; i < kBlockSamples; ++i) {
+          m_b = fmaxf(m_b, i < n_valid ? -J_s[i] / lam_w : kMasked);
+        }
+        m_s = m_b;
+      }
+      __syncthreads();
+      if (tid < kBlockSamples) {
+        const float s = tid < n_valid ? -J_s[tid] / lam_w : kMasked;
+        w_s[tid] = expf(s - m_s);  // exactly 0 for the masked tail
+      }
+      __syncthreads();
+      if (tid == 0) {
+        float d_b = 0.0f;
+        for (int i = 0; i < kBlockSamples; ++i) d_b = d_b + w_s[i];
+        row[0] = m_s;
+        row[1] = d_b;
+      }
+    }
+    cluster.sync();  // rank 0's weights are written and its reads are done
+    float w_i = 0.0f;
+    if (rank != 0 && tid < kBlockSamples) w_i = *cluster.map_shared_rank(&w_s[tid], 0);
+    cluster.sync();  // every CTA holds the weights: rank 0 may finish
+    if (rank != 0 && tid < kBlockSamples) w_s[tid] = w_i;
+    __syncthreads();
+    // this CTA's steps' columns, each summed in sample order
+    const float* Xb = U + static_cast<size_t>(base) * TC;
+    for (int j = t_lo * C + tid; j < t_hi * C; j += kClusterThreads) {
+      float acc = 0.0f;
+      for (int i = 0; i < n_valid; ++i) {
+        acc = acc + w_s[i] * Xb[static_cast<size_t>(i) * TC + j];
+      }
+      row[2 + j] = acc;
+    }
+  } else {
+    if (EPI == kEpiMin && rank == 0) {
+      __syncthreads();  // J_s
+      if (tid == 0) {
+        // the minimum of the block's valid costs, kMinPad past K, NaN if one is
+        float mn = J_s[0];
+        for (int s = 1; s < kBlockSamples; ++s) {
+          mn = nan_min(mn, s < n_valid ? J_s[s] : kMinPad);
+        }
+        out[blk] = mn;
+      }
+    }
+    cluster.sync();  // the others' sums stay until rank 0 has read them
+  }
+}
+
 template <class Dyn, bool X0>
 int split_dynamics_entry(int device, const float* x0, const float* U, int K,
                          int T, float dt, ModelArgs m, float* Y, void* stream) {
@@ -373,20 +620,40 @@ int split_solve_dynamics_entry(int device, int noise_kind, const float* x0,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Cost, int O, int C, int EPI, bool WITH_LR>
+void launch_split_cost_form(int form, int nb, cudaStream_t s, const float* Y,
+                            const float* U, int K, int T, const float* cost_params,
+                            const float* cost_map, LRArgs lr, const float* lr_sum,
+                            float lr_sum_gain, float lam_w, float* costs, int* crash,
+                            float* out) {
+  if constexpr (kCostForm != 0) {
+    if (form != 0) {
+      split_cost_cluster_kernel<Cost, O, C, EPI, WITH_LR>
+          <<<nb * kCostCluster, kClusterThreads, 0, s>>>(
+              Y, U, K, T, cost_params, cost_map, lr, lr_sum, lr_sum_gain, lam_w,
+              costs, crash, out);
+      return;
+    }
+  }
+  split_cost_kernel<Cost, O, C, EPI, WITH_LR><<<nb, kCostThreads, 0, s>>>(
+      Y, U, K, T, cost_params, cost_map, lr, lr_sum, lr_sum_gain, lam_w, costs,
+      crash, out);
+}
+
 template <class Cost, int O, int C, int EPI>
-void launch_split_cost(bool with_lr, int nb, cudaStream_t s, const float* Y,
-                       const float* U, int K, int T, const float* cost_params,
-                       const float* cost_map, LRArgs lr, const float* lr_sum,
-                       float lr_sum_gain, float lam_w, float* costs, int* crash,
-                       float* out) {
+void launch_split_cost(bool with_lr, int form, int nb, cudaStream_t s,
+                       const float* Y, const float* U, int K, int T,
+                       const float* cost_params, const float* cost_map, LRArgs lr,
+                       const float* lr_sum, float lr_sum_gain, float lam_w,
+                       float* costs, int* crash, float* out) {
   if (with_lr) {
-    split_cost_kernel<Cost, O, C, EPI, true><<<nb, kCostThreads, 0, s>>>(
-        Y, U, K, T, cost_params, cost_map, lr, lr_sum, lr_sum_gain, lam_w, costs,
-        crash, out);
+    launch_split_cost_form<Cost, O, C, EPI, true>(form, nb, s, Y, U, K, T,
+                                                  cost_params, cost_map, lr, lr_sum,
+                                                  lr_sum_gain, lam_w, costs, crash, out);
   } else {
-    split_cost_kernel<Cost, O, C, EPI, false><<<nb, kCostThreads, 0, s>>>(
-        Y, U, K, T, cost_params, cost_map, lr, lr_sum, lr_sum_gain, lam_w, costs,
-        crash, out);
+    launch_split_cost_form<Cost, O, C, EPI, false>(form, nb, s, Y, U, K, T,
+                                                   cost_params, cost_map, lr, lr_sum,
+                                                   lr_sum_gain, lam_w, costs, crash, out);
   }
 }
 
@@ -395,11 +662,12 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
                      const float* cost_params, const float* cost_map, LRArgs lr,
                      int with_lr, const float* lr_sum, float lr_sum_gain,
                      int epilogue, float lam_w, float* costs, int* crash,
-                     float* out, void* stream) {
+                     float* out, int form, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  // B1's per-step LR term and B3's per-sample LR sum are not taken together
-  if (with_lr != 0 && lr_sum != nullptr) {
+  // B1's per-step LR term and B3's per-sample LR sum are not taken together;
+  // the form is the one-block form or the build's own
+  if ((with_lr != 0 && lr_sum != nullptr) || (form != 0 && form != kCostForm)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nb = (K + kBlockSamples - 1) / kBlockSamples;
@@ -408,9 +676,9 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
   constexpr int O = Dyn::O;
   constexpr int C = Dyn::C;
 #define SPLIT_COST_LAUNCH(EPI)                                                 \
-  launch_split_cost<Cost, O, C, EPI>(lr_on, nb, s, Y, U, K, T, cost_params,     \
-                                     cost_map, lr, lr_sum, lr_sum_gain, lam_w,  \
-                                     costs, crash, out)
+  launch_split_cost<Cost, O, C, EPI>(lr_on, form, nb, s, Y, U, K, T,            \
+                                     cost_params, cost_map, lr, lr_sum,         \
+                                     lr_sum_gain, lam_w, costs, crash, out)
   if (epilogue == kEpiExp) {
     SPLIT_COST_LAUNCH(kEpiExp);
   } else if (epilogue == kEpiMin) {
@@ -442,7 +710,9 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
 // launch (0 when it was accepted), or cudaErrorInvalidValue for a mode it
 // does not have. Beside each dynamics entry, <entry>_form() says which form
 // of the pass it launches: 1 the warp form (split_warp.cuh), 0 the
-// one-thread kernel.
+// one-thread kernel. Each cost entry launches the form `form` names: 3 the
+// cluster form, 0 the one-block form; <entry>_form() says which the build
+// has besides the one-block form (3, or 0 under -DMPPI_COST_ONE_BLOCK).
 #define SPLIT_DYNAMICS_ENTRY_(NAME, DYN, X0)                                  \
   int NAME(int device, const float* x0, const float* U, int K, int T,        \
            float dt, const float* dyn_params, const float* cost_params,      \
@@ -463,12 +733,14 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
                         float lr_gain, float pure_thresh, int with_lr,        \
                         const float* lr_sum, float lr_sum_gain, int epilogue, \
                         float lam_w, float* costs, int* crash, float* out,    \
-                        void* stream) {                                       \
+                        int form, void* stream) {                             \
     return split_cost_entry<DYN, COST>(                                       \
         device, Y, U, K, T, cost_params, cost_map,                            \
         LRArgs{lr_mean, lr_sigma, lr_coeff, lr_gain, pure_thresh}, with_lr,   \
-        lr_sum, lr_sum_gain, epilogue, lam_w, costs, crash, out, stream);     \
-  }
+        lr_sum, lr_sum_gain, epilogue, lam_w, costs, crash, out, form,        \
+        stream);                                                              \
+  }                                                                           \
+  int split_cost_##PAIR##_form() { return kCostForm; }
 #define SPLIT_ENTRY(PAIR, DYN, COST)                                           \
   SPLIT_DYNAMICS_ENTRY_(split_dynamics_##PAIR, DYN, false)                    \
   int split_solve_dynamics_##PAIR(                                            \

@@ -78,7 +78,8 @@ _SPLIT_COST = [
     _I, _P, _P, _I, _I, _P, _P,  # device, Y, U, K, T, cost params, cost map
     _P, _P, _P, _F, _F, _I,      # lr mean/sigma/coeff, gain, thresh, with_lr
     _P, _F,                      # LR sums, their gain
-    _I, _F, _P, _P, _P, _P,      # epilogue, lam_w, costs, crash, out, stream
+    _I, _F, _P, _P, _P,          # epilogue, lam_w, costs, crash, out
+    _I, _P,                      # form, stream
 ]
 _RMPPI = [
     _I, _P, _P, _P, _I, _I, _F,  # device, x0_nom, x0_real, U, K, T, dt
@@ -154,6 +155,7 @@ def pair_entry(pair: str, kind: str):
 SIGNATURES = {
     "flash_combine": {
         "kernel_block_size": [],
+        "flash_combine_form": [],
         # device, carry, nb, TC, lam, new_mean, scal, num, stream
         "flash_combine": [_I, _P, _I, _I, _F, _P, _P, _P, _P],
     },
@@ -183,10 +185,15 @@ SIGNATURES = {
 # csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
 # where the staged form of B4, B3 or B1 (fused_sample_rollout_staged_kernel,
 # fused_solve_staged_kernel, rollout_costs_staged_kernel:
-# csrc/sample_staged.cuh), 0 where the one-thread kernel; the wrappers count
-# each launch under that name
+# csrc/sample_staged.cuh), 0 where the one-thread kernel; the merge's
+# flash_combine_form() says 4 for its tiled form (flash_combine_tiled_kernel),
+# 0 for the one-block kernel (-DMPPI_COMBINE_ONE_BLOCK); a split cost entry
+# launches the form its caller names, and its _form() says 3 where the build
+# has the cluster form (split_cost_cluster_kernel) beside the one-block
+# split_cost_kernel, 0 where only the latter (-DMPPI_COST_ONE_BLOCK,
+# csrc/split_kernels.cuh); the wrappers count each launch under its name
 _FORM_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0", "sample",
-               "rmppi", "solve", "rollout", "rollout_x0")
+               "rmppi", "solve", "rollout", "rollout_x0", "split_cost")
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
                    "sample": _SAMPLE, "rmppi": _RMPPI, "split_dynamics": _SPLIT_DYNAMICS,
                    "split_solve_dynamics": _SPLIT_SOLVE_DYNAMICS, "split_cost": _SPLIT_COST,
@@ -202,10 +209,15 @@ for _pair, _kinds in PAIR_KERNELS.items():
 # wrapper adds one where it launches its kernel, and one to entry_counts
 # under the C function of a pair's entry (e.g. "fused_solve_cartpole")
 entry_counts = {}
+# the launches whose split choice (fused_rollout.resolve_split) a caller
+# forced against AUTO since the last reset, by the form forced ("split" or
+# "combined")
+forced_routes = {}
 launch_counts = {
     "rollout_costs_kernel": 0,
     "rollout_costs_staged_kernel": 0,
     "flash_combine_kernel": 0,
+    "flash_combine_tiled_kernel": 0,
     "tsallis_reduce_kernel": 0,
     "rmppi_rollout_kernel": 0,
     "rmppi_rollout_warp_kernel": 0,
@@ -223,6 +235,7 @@ launch_counts = {
     "split_dynamics_warp_kernel": 0,
     "split_solve_dynamics_warp_kernel": 0,
     "split_cost_kernel": 0,
+    "split_cost_cluster_kernel": 0,
 }
 
 
@@ -230,6 +243,7 @@ def reset_launch_counts():
     for name in launch_counts:
         launch_counts[name] = 0
     entry_counts.clear()
+    forced_routes.clear()
 
 
 def count_launch(kernel: str, entry: str | None = None):

@@ -2,8 +2,9 @@
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_rollout.py``: the hand-written
 Hopper kernel ``rollout_costs_kernel`` (``csrc/rollout_kernel.cuh``) replaces
-its TPU kernel ``_fused_call`` in three modes, with ``flash_combine_kernel``
-(``csrc/flash_combine.cu``) as the merge of its epilogue; the one in
+its TPU kernel ``_fused_call`` in three modes, with
+``flash_combine_tiled_kernel`` (``csrc/flash_combine.cu``: blocks of columns,
+the carry rows staged in shared memory) as the merge of its epilogue; the one in
 ``csrc/tsallis_reduce.cu`` its TPU kernel ``_tsallis_reduce_call``, the one
 in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 ``fused_sample_rollout_kernel`` (``csrc/sample_kernels.cuh``) its TPU kernel
@@ -38,9 +39,10 @@ entry reports (``form_kernel_name``).
   ``rollout_block_carries``, ``rollout_block_minima`` and
   ``fused_weighted_rollout`` take ``split_cost`` (JAX ``pallas_split_cost``):
   True runs the split kernels of ``csrc/split_kernels.cuh`` (a dynamics-only
-  pass writing the outputs Y, then a cost pass with one thread per sample
-  and chunk of steps, a sticky crash by dual evaluation and a prefix OR,
-  and the mode's epilogue), False the combined kernel, None (AUTO) what
+  pass writing the outputs Y, then a cost pass over chunks of steps, a
+  thread-block cluster for each 64-sample block while the blocks are few,
+  with a sticky crash by dual evaluation and a prefix OR, and the mode's
+  epilogue), False the combined kernel, None (AUTO) what
   ``resolve_split`` picks: the combined kernel unless the cost declares
   ``time_parallel_cost`` or ``time_parallel_crash`` and ``AUTO_SPLIT``,
   measured on the H100, takes the split for the pair. True for an
@@ -196,14 +198,14 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # kernels: DI B1 0.0272 / 0.0235, B3 0.0875 / 0.0392; cartpole B1 0.0391 /
 # 0.0290, B3 0.0946 / 0.0421; quadrotor quadratic B1 0.1131 / 0.0831, B3
 # 0.2085 / 0.1006; DI quadratic B1 0.0263 / 0.0160, B3 0.0951 / 0.0369;
-# Dubins quadratic B1 0.0386 / 0.0311, B3 0.1038 / 0.0468; bicycle B1
-# 0.1228 / 0.1468, B3 0.1822 / 0.1606; DI robust B1-x0 0.0146 / 0.0132 (9 x
-# 64 x 48). The network pairs, whose split dynamics passes run one warp per
-# sample (csrc/split_warp.cuh), against their one-thread combined kernels:
-# AutoRally B1 0.287 / 1.013, B3 0.413 / 1.077, B1-x0 0.329 / 1.029 (9 x
-# 256 x 150); racer steering B1 0.498 / 1.193, B3 0.572 / 1.241; racer
-# uncertainty B1 1.414 / 5.814, B3 1.543 / 6.026. Any other pair or kernel
-# keeps the combined kernel.
+# Dubins quadratic B1 0.0386 / 0.0311, B3 0.1038 / 0.0468; with the split
+# cost pass's cluster form: bicycle B1 0.1052 / 0.1467, B3 0.1652 / 0.1602;
+# DI robust B1-x0 0.0153 / 0.0131 (9 x 64 x 48). The network pairs, whose
+# split dynamics passes run one warp per sample (csrc/split_warp.cuh),
+# against their one-thread combined kernels: AutoRally B1 0.261 / 1.066, B3
+# 0.388 / 1.134, B1-x0 0.318 / 1.037 (9 x 256 x 150); racer steering B1
+# 0.479 / 1.202, B3 0.553 / 1.249; racer uncertainty B1 1.401 / 5.855, B3
+# 1.531 / 6.061. Any other pair or kernel keeps the combined kernel.
 AUTO_SPLIT = {
     ("di_circle", "rollout"): False,
     ("di_circle", "solve"): False,
@@ -277,20 +279,23 @@ def resolve_split(dynamics, cost, split_cost, kernel="rollout") -> bool:
     raises ValueError for an ineligible cost, False never splits, None
     (AUTO) splits an eligible cost where ``AUTO_SPLIT`` says so for the pair
     and ``kernel`` ("rollout", "rollout_x0" or "solve"). The same on every
-    device, so the plain versions run what the kernels run."""
+    device, so the plain versions run what the kernels run. A choice forced
+    against AUTO counts in ``_build.forced_routes``."""
     eligible = split_eligible(cost)
-    if split_cost is True:
-        if not eligible:
-            raise ValueError(
-                f"{type(cost).__name__} declares neither time_parallel_cost() nor "
-                "time_parallel_crash(): the split cost pass needs a time-"
-                "broadcastable cost whose crash is unused or sticky-prefix")
-        return True
-    if split_cost is not None and split_cost is not False:
+    if split_cost is True and not eligible:
+        raise ValueError(
+            f"{type(cost).__name__} declares neither time_parallel_cost() nor "
+            "time_parallel_crash(): the split cost pass needs a time-"
+            "broadcastable cost whose crash is unused or sticky-prefix")
+    if split_cost is not None and split_cost is not False and split_cost is not True:
         raise ValueError(f"split_cost must be None, True or False, got {split_cost!r}")
-    if split_cost is False or not eligible:
-        return False
-    return AUTO_SPLIT.get((_PAIRS.get((type(dynamics), type(cost))), kernel), False)
+    auto = bool(eligible) and AUTO_SPLIT.get(
+        (_PAIRS.get((type(dynamics), type(cost))), kernel), False)
+    if split_cost is None or split_cost == auto:
+        return auto
+    route = "split" if split_cost else "combined"
+    _build.forced_routes[route] = _build.forced_routes.get(route, 0) + 1
+    return split_cost
 
 
 # ---------------------------------------------------------------------------
@@ -327,8 +332,10 @@ def rollout_costs_plain(dynamics, cost, x0, U, dt, lr_params=None):
 
 
 # the split cost pass cuts the horizon into this many chunks of steps, one
-# thread per (sample, chunk) (kCostChunks in csrc/split_kernels.cuh)
+# thread per (sample, chunk) (kCostChunks in csrc/split_kernels.cuh); its
+# cluster form runs COST_CLUSTER CTAs a 64-sample block (kCostCluster)
 COST_CHUNKS = 8
+COST_CLUSTER = 8
 
 
 def split_outputs_plain(dynamics, x0, U, dt):
@@ -707,24 +714,78 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
 @functools.cache
 def _form(lib, fn):
     """The form the entry ``fn`` of the loaded library ``lib`` launches (its
-    ``<fn>_form()``, a constant of the build): 0 the one-thread kernel, 1
-    the warp form, 2 the staged form (B4, B3, B1)."""
+    ``<fn>_form()``, a constant of the build): 0 the one-thread kernel (the
+    merge's one-block kernel), 1 the warp form, 2 the staged form (B4, B3,
+    B1), 3 the split cost pass's cluster form (beside its one-block form),
+    4 the merge's tiled form."""
     return int(getattr(lib, fn + "_form")())
 
 
-_FORM_SUFFIX = {0: "_kernel", 1: "_warp_kernel", 2: "_staged_kernel"}
+_FORM_SUFFIX = {0: "_kernel", 1: "_warp_kernel", 2: "_staged_kernel", 3: "_cluster_kernel",
+                4: "_tiled_kernel"}
 
 
 def form_kernel_name(base, entry):
     """The kernel of the family ``base`` (``split_dynamics``,
-    ``split_solve_dynamics``, ``fused_sample_rollout``, ``rmppi_rollout``,
-    ``fused_solve``, ``rollout_costs``) that the entry ``entry`` ((library,
-    C function), as ``_build.pair_entry`` gives it) launches, as its library
-    reports it: ``<base>_warp_kernel`` where the model's step is a network
-    (split passes, B4, B8), ``<base>_staged_kernel`` for B4, B3 and B1 of
-    every other model, else the one-thread ``<base>_kernel``."""
+    ``split_solve_dynamics``, ``split_cost``, ``fused_sample_rollout``,
+    ``rmppi_rollout``, ``fused_solve``, ``rollout_costs``, ``flash_combine``)
+    that the entry ``entry`` ((library, C function), as ``_build.pair_entry``
+    gives it; the merge's is ("flash_combine", "flash_combine")) launches,
+    as its library reports it: ``<base>_warp_kernel`` where the model's
+    step is a network (split dynamics passes, B4, B8),
+    ``<base>_staged_kernel`` for B4, B3 and B1 of every other model,
+    ``flash_combine_tiled_kernel`` for the merge,
+    ``split_cost_cluster_kernel`` for a split cost pass whose build
+    has the cluster form beside the one-block form, else the one-thread
+    (one-block) ``<base>_kernel``. Which of its two forms a split cost pass
+    launches depends on its shape: ``split_cost_kernel_name``."""
     lib_name, fn = entry
     return base + _FORM_SUFFIX[_form(_lib(lib_name), fn)]
+
+
+@functools.cache
+def _cost_form(lib, fn, device_index, K, T, dual):
+    """The form of the split cost pass that the entry ``fn`` of the loaded
+    library ``lib`` is to launch for K samples over T steps on CUDA device
+    ``device_index``; ``dual`` for a cost evaluated twice a step (a sticky
+    crash: the AutoRally costs, with their map reads). 3 the cluster form
+    where its COST_CLUSTER CTAs a 64-sample block number at most three a
+    multiprocessor and each thread's chain in the one-block form is long:
+    a dual cost, or chunks of at least 8 steps (T >= 57); else 0 the
+    one-block form, and always in a build of the earlier form
+    (``<fn>_form()`` 0). Set by A B B A on the H100
+    (``scripts/torch_cost_form_sweep.py``, PERF.md section 6): AutoRally's
+    and the bicycle's cluster form won at 48 blocks and lost at 66; at T =
+    48 the DI robust and quadrotor costs lost with it and AutoRally's won;
+    at T = 100 the quadratic costs won with it."""
+    form = _form(lib, fn)
+    if form == 0:
+        return 0
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    fits = COST_CLUSTER * -(-K // BLOCK) <= 3 * sms
+    long_chain = dual or -(-T // COST_CHUNKS) >= 8
+    return form if fits and long_chain else 0
+
+
+def split_cost_form(entry, device_index, K, T, dual):
+    """The form of the split cost pass that the entry ``entry`` ((library,
+    C function)) launches for K samples over T steps on CUDA device
+    ``device_index``, ``dual`` for a sticky-crash cost (``_cost_form``)."""
+    lib_name, fn = entry
+    return _cost_form(_lib(lib_name), fn, device_index, K, T, bool(dual))
+
+
+def split_cost_kernel_name(entry, device_index, K, T, dual):
+    """The counted name of the split cost pass that ``entry`` launches for K
+    samples over T steps on CUDA device ``device_index`` (``dual``: a
+    sticky-crash cost): ``split_cost_cluster_kernel`` or the one-block
+    ``split_cost_kernel``."""
+    return "split_cost" + _FORM_SUFFIX[split_cost_form(entry, device_index, K, T, dual)]
+
+
+def merge_kernel_name():
+    """The counted name of the merge kernel the port's build launches."""
+    return form_kernel_name("flash_combine", ("flash_combine", "flash_combine"))
 
 
 def split_dynamics_cuda(dynamics, cost, x0, U, dt):
@@ -746,11 +807,13 @@ def split_dynamics_cuda(dynamics, cost, x0, U, dt):
 
 
 def split_cost_cuda(dynamics, cost, Y, U, lr_params=None, epilogue=EPI_NONE, lam_w=1.0,
-                    lr_sum=None, lr_sum_gain=0.0):
+                    lr_sum=None, lr_sum_gain=0.0, form=None):
     """Launch the split cost pass over the outputs Y (T, O, K) of either
     dynamics pass: (costs, crash, out) as ``_rollout_cuda``. ``lr_params``
     adds B1's per-step LR term, ``lr_sum`` (K,) B3's per-sample LR sums
-    times ``lr_sum_gain``."""
+    times ``lr_sum_gain``. ``form`` (3 the cluster form, 0 the one-block
+    form) overrides ``split_cost_form``'s pick; a form the build lacks
+    raises."""
     lib_name, fn = _entry(dynamics, cost, "split_cost")
     K, T, C = U.shape
     dev = U.device
@@ -760,13 +823,16 @@ def split_cost_cuda(dynamics, cost, Y, U, lr_params=None, epilogue=EPI_NONE, lam
     _check_tensors(tensors, dev)
     costs, crash, out = _rollout_outputs(K, T, C, epilogue, dev)
     model = _model_args(dynamics, cost, dev)
+    if form is None:
+        form = split_cost_form((lib_name, fn), dev.index, K, T, cost.time_parallel_crash())
     status = getattr(_lib(lib_name), fn)(
         dev.index, Y.data_ptr(), U.data_ptr(), K, T, model[1], model[2],
         *_lr_args(lr_params), int(lr_params is not None), _ptr(lr_sum),
         _f32(lr_sum_gain), epilogue, _f32(lam_w), costs.data_ptr(), crash.data_ptr(),
-        _ptr(out), torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(status, "split_cost_kernel")
-    _build.count_launch("split_cost_kernel", fn)
+        _ptr(out), form, torch.cuda.current_stream(dev).cuda_stream)
+    name = "split_cost" + _FORM_SUFFIX[form]
+    _check_status(status, name)
+    _build.count_launch(name, fn)
     return costs, crash, out
 
 
@@ -883,8 +949,9 @@ def flash_combine(carry, T, C, lam, with_num=False):
         carry.device.index, carry.data_ptr(), carry.shape[0], T * C, _f32(lam),
         new_mean.data_ptr(), scal.data_ptr(), _ptr(num),
         torch.cuda.current_stream(carry.device).cuda_stream)
-    _check_status(status, "flash_combine_kernel")
-    _build.count_launch("flash_combine_kernel")
+    name = merge_kernel_name()
+    _check_status(status, name)
+    _build.count_launch(name)
     out = (new_mean, scal[0], scal[1])
     return out + (num,) if with_num else out
 

@@ -11,8 +11,8 @@ name the entry reports. One launch is one MPPI iteration for the
 Gaussian and the NLN sampler: the normals drawn in the kernel (Philox,
 ``ops/philox.py``), the carve-outs, the clamp, the likelihood-ratio cost
 (summed apart and added at the end), the rollout and one flash carry row per
-block of samples; ``flash_combine_kernel`` then merges the rows into the new
-mean, baseline and eta.
+block of samples; ``flash_combine_tiled_kernel`` then merges the rows into
+the new mean, baseline and eta.
 
 The kernel has an entry for each pair of ``ops/fused_rollout._PAIRS``: the
 double integrator with its circle cost, its robust cost or

@@ -45,8 +45,10 @@ from mppi_generic_tpu_torch.models import (
     RacerDubinsElevationLSTMUncertainty,
 )
 from mppi_generic_tpu_torch.nn import FNN, LSTM
+from mppi_generic_tpu_torch.ops import _build
 from mppi_generic_tpu_torch.ops import fused_rollout as fr
 from mppi_generic_tpu_torch.ops import fused_solve, philox, riccati
+from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 T, C = 24, 2
 DT, LAM, ALPHA, P_PURE = 0.02, 1.3, 0.1, 0.25
@@ -106,7 +108,7 @@ def test_weighted_rollout_kernels_match_plain(cuda_device, K):
         dyn, cost, x0, U, DT, LAM, lr_params=lr, split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
-    assert fr.launch_counts["flash_combine_kernel"] == 1
+    assert fr.launch_counts["flash_combine_tiled_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     pmean, pbase, peta = fr.flash_combine_plain(
         fr.block_carries_plain(pc, U, LAM), T, C, LAM)
@@ -510,7 +512,7 @@ def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
         weight_params=(gamma, r), split_cost=False)
     torch.cuda.synchronize()
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        "rollout_costs_staged_kernel": 1, "tsallis_reduce_kernel": 1, "flash_combine_kernel": 1}
+        "rollout_costs_staged_kernel": 1, "tsallis_reduce_kernel": 1, "flash_combine_tiled_kernel": 1}
     pmean, _, peta = fr.flash_combine_plain(prows, T, C, 1.0)
     _close(kmean, pmean, rtol=1e-4, atol=1e-5)
     _close(keta, peta, rtol=1e-5, atol=0)
@@ -1147,6 +1149,13 @@ def _split_parts(pair, dev):
     return dyn, ARStandardCost(costmap=tex, device=dev), _ar_x0(dev), [0.3, 0.5]
 
 
+def _cost_pass(pair, cost, dev, K_, T_):
+    """The counted name of the split cost pass that ``pair``'s entry
+    launches for K_ samples over T_ steps of ``cost`` on ``dev``."""
+    return fr.split_cost_kernel_name(_build.pair_entry(pair, "split_cost"), dev.index, K_, T_,
+                                     cost.time_parallel_crash())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [256, 300])
 @pytest.mark.parametrize("pair", ["di_circle", "ar_nn"])
@@ -1174,7 +1183,7 @@ def test_split_rollout_kernels_match_plain(cuda_device, K, pair, mode):
     # AutoRally's pass is the warp form (csrc/split_warp.cuh), the DI's one thread a sample
     assert fr.launch_counts["split_dynamics_warp_kernel" if pair == "ar_nn"
                             else "split_dynamics_kernel"] == 1
-    assert fr.launch_counts["split_cost_kernel"] == 1
+    assert fr.launch_counts[_cost_pass(pair, cost, cuda_device, K, T)] == 1
     assert fr.launch_counts["rollout_costs_kernel" if pair == "ar_nn"
                             else "rollout_costs_staged_kernel"] == 0
     pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lr)
@@ -1218,7 +1227,7 @@ def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
     torch.cuda.synchronize()
     assert fr.launch_counts["split_solve_dynamics_warp_kernel" if pair == "ar_nn"
                             else "split_solve_dynamics_kernel"] == 1
-    assert fr.launch_counts["split_cost_kernel"] == 1
+    assert fr.launch_counts[_cost_pass(pair, cost, cuda_device, K, T)] == 1
     assert fr.launch_counts["fused_solve_kernel" if pair == "ar_nn"
                             else "fused_solve_staged_kernel"] == 0
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, **kw)
@@ -1293,7 +1302,8 @@ def test_split_vanilla_solve_launches_the_split_kernels(cuda_device, kernel):
     dyn_kernel = ("split_solve_dynamics_kernel" if kernel == "fused_solve"
                   else "split_dynamics_kernel")
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        dyn_kernel: 1, "split_cost_kernel": 1, "flash_combine_kernel": 1}
+        dyn_kernel: 1, _cost_pass("di_circle", ctrl.cost, cuda_device, 300, T): 1,
+        "flash_combine_tiled_kernel": 1}
     re, _ = eager.solve(x, eager.init_state(0), injected_noise=z)
     _close(rf.costs, re.costs, rtol=1e-5, atol=1e-4)
     assert torch.equal(rf.crash, re.crash)
@@ -1959,3 +1969,138 @@ def test_rollout_staged_matches_plain(cuda_device, pair, mode, shape):
         _close(kout, fr.block_carries_ordered(pc, U, fr._f32(LAM)), rtol=0, atol=0)
     elif epilogue == fr.EPI_MIN:
         assert torch.equal(kout, fr.block_minima_plain(pc))
+
+
+# --- the merge's tiled form and the split cost pass's cluster form, against
+# their plain versions and the earlier forms' build (chip_smoke.EARLIER_DEFINES:
+# -DMPPI_COMBINE_ONE_BLOCK, -DMPPI_COST_ONE_BLOCK) ---
+@pytest.fixture(scope="module")
+def earlier_forms():
+    """The earlier forms' build of chip_smoke.EARLIER_SOURCES, loaded beside
+    the port's, and chip_smoke (its ``swapped`` points the wrappers at it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+
+    libs = {}
+    chip_smoke.build_variants(((libs, chip_smoke.EARLIER_DEFINES, "earlier_forms_test",
+                                chip_smoke.EARLIER_SOURCES),))
+    return chip_smoke, libs
+
+
+def _same(a, b):
+    """Bit for bit, NaN where the other is NaN."""
+    return torch.equal(a, b) or (torch.equal(torch.isnan(a), torch.isnan(b))
+                                 and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,TC,kind", [
+    (128, 200, "flash"), (30, 300, "flash"), (128, 400, "flash"), (128, 100, "flash"),
+    (128, 200, "tsallis"), (30, 300, "tsallis"), (129, 200, "flash"), (1, 100, "flash"),
+    (300, 300, "tsallis"), (30, 300, "masked"), (128, 200, "nan")])
+def test_tiled_merge_matches_the_one_block_build(cuda_device, earlier_forms, nb, TC, kind):
+    """The tiled merge against the one-block build bit for bit (new mean,
+    baseline, eta, num) and against flash_combine_plain: new mean rtol 1e-4
+    / atol 1e-5, baseline rtol 1e-6, eta rtol 1e-5."""
+    from test_torch_tiled_merge import carry_rows
+
+    smoke, libs = earlier_forms
+    carry = carry_rows(nb, TC, kind, seed=nb + TC).to(cuda_device)
+    T_, C_ = TC // 2, 2
+    fr.reset_launch_counts()
+    got = fr.flash_combine(carry, T_, C_, LAM, with_num=True)
+    with smoke.swapped(libs):
+        one = fr.flash_combine(carry, T_, C_, LAM, with_num=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fr.launch_counts.items() if v} == {
+        "flash_combine_tiled_kernel": 1, "flash_combine_kernel": 1}
+    assert all(_same(a, b) for a, b in zip(got, one))
+    if kind == "nan":
+        assert torch.isnan(got[0]).all() and torch.isnan(got[2])
+        return
+    want = fr.flash_combine_plain(carry, T_, C_, fr._f32(LAM))
+    _close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    _close(got[1], want[1], rtol=1e-6, atol=0)
+    _close(got[2], want[2], rtol=1e-5, atol=0)
+
+
+CLUSTER_PAIRS = ["di_circle", "ar_nn", "ar_nn_robust", "bicycle_ar", "racer_steering_ar",
+                 "racer_unc_ar"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["costs", "costs+lr", "epilogue+lr", "tsallis+lr", "b3"])
+@pytest.mark.parametrize("K_,T_", [(70, 150), (70, 100), (70, 31), (70, 7), (1901, 150)])
+@pytest.mark.parametrize("pair", CLUSTER_PAIRS)
+def test_cluster_cost_matches_plain_and_the_one_block_build(cuda_device, earlier_forms, pair,
+                                                            K_, T_, mode):
+    """The cluster cost pass on the port's dynamics pass's outputs: costs,
+    crash flags and block minima bit for bit against the plain cost pass
+    (split_step_values_plain, split_sums_plain) on the same Y, the carry
+    rows within rtol 1e-5 of block_carries_plain, and every output bit for
+    bit against the one-block build; "b3" adds B3's per-sample LR sums."""
+    smoke, libs = earlier_forms
+    base = "ar_nn" if pair == "ar_nn_robust" else pair
+    dyn, cost, x0, std, _ = _pair_parts(base, cuda_device)
+    if pair == "ar_nn_robust":
+        cost = ARRobustCost(costmap=cost.costmap, device=cuda_device)
+    Cp = dyn.CONTROL_DIM
+    g = torch.Generator(device=cuda_device).manual_seed(K_ + T_)
+    mean = 0.2 * torch.randn((T_, Cp), generator=g, device=cuda_device)
+    sigma = torch.tensor([std], device=cuda_device).expand(T_, Cp).contiguous()
+    U = (mean + sigma * torch.randn((K_, T_, Cp), generator=g, device=cuda_device)).contiguous()
+    lr = ((mean, sigma, torch.full((Cp,), 0.5, device=cuda_device), LAM, ALPHA, 0.9 * K_)
+          if mode.endswith("+lr") else None)
+    lr_sum = (torch.randn((K_,), generator=g, device=cuda_device) if mode == "b3"
+              else None)
+    epilogue = {"costs": fr.EPI_NONE, "tsallis": fr.EPI_MIN}.get(mode.split("+")[0],
+                                                                 fr.EPI_EXP)
+    Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+    args = (dyn, cost, Y, U, lr, epilogue, LAM, lr_sum, 0.37 if mode == "b3" else 0.0)
+    fr.reset_launch_counts()
+    got = fr.split_cost_cuda(*args, form=3)
+    with smoke.swapped(libs):
+        one = fr.split_cost_cuda(*args)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_cost_cluster_kernel"] == 1
+    assert fr.launch_counts["split_cost_kernel"] == 1
+    for a, b in zip(got, one):
+        assert (a is None and b is None) or _same(a, b)
+    Yk = Y.permute(2, 0, 1)
+    acc, crash = fr.split_sums_plain(*fr.split_step_values_plain(cost, Yk, U, lr))
+    acc = acc + cost.terminal_cost(Yk[:, -1].T)
+    if lr_sum is not None:
+        acc = acc + 0.37 * lr_sum
+    costs = true_div(acc, T_)
+    assert _same(got[0], costs)
+    assert torch.equal(got[1], crash)
+    if epilogue == fr.EPI_EXP:
+        _close(got[2], fr.block_carries_plain(costs, U, LAM), rtol=1e-5, atol=1e-5)
+    elif epilogue == fr.EPI_MIN:
+        assert torch.equal(got[2], fr.block_minima_plain(costs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair,T_", [("ar_nn", 20), ("di_circle", 100), ("di_circle", 48)])
+def test_cost_pass_launches_the_form_its_rule_picks(cuda_device, earlier_forms, pair, T_):
+    """The cost pass launches its cluster form while its 8 CTAs a 64-sample
+    block number at most three a multiprocessor and the cost is dual
+    (AutoRally's) or its chunks hold 8 steps or more, the one-block form
+    otherwise; both give the earlier build's outputs bit for bit."""
+    smoke, libs = earlier_forms
+    dyn, cost, x0, _, _ = _pair_parts(pair, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    last = (3 * sms // fr.COST_CLUSTER) * fr.BLOCK  # the largest K of the cluster form
+    long_chain = pair == "ar_nn" or T_ >= 57
+    for K_, cluster in ((last, long_chain), (last + 1, False), (8192, False)):
+        form = "split_cost_cluster_kernel" if cluster else "split_cost_kernel"
+        U = torch.randn((K_, T_, C), device=cuda_device)
+        Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+        fr.reset_launch_counts()
+        got = fr.split_cost_cuda(dyn, cost, Y, U, None, fr.EPI_EXP, LAM)
+        with smoke.swapped(libs):
+            one = fr.split_cost_cuda(dyn, cost, Y, U, None, fr.EPI_EXP, LAM)
+        torch.cuda.synchronize()
+        assert fr.launch_counts[form] == 1 + (not cluster), K_
+        assert all(_same(a, b) for a, b in zip(got, one)), K_

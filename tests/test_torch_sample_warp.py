@@ -207,12 +207,16 @@ def test_every_sample_and_rmppi_entry_declares_its_form():
 
 class _StubLibrary:
     """A kernel library whose entries accept anything and return 0 (the
-    launch accepted) and whose ``<entry>_form()`` returns ``form``."""
+    launch accepted) and whose ``<entry>_form()`` returns ``form``; the
+    merge's ``flash_combine_form()`` returns 4, the tiled merge of the
+    port's build."""
 
     def __init__(self, form):
         self.form = form
 
     def __getattr__(self, name):
+        if name == "flash_combine_form":
+            return lambda: 4
         if name.endswith("_form"):
             return lambda: self.form
         return lambda *args: 0
@@ -261,7 +265,7 @@ def test_sample_wrapper_counts_the_reported_form(stub_form, form):
                                   torch.tensor(3, dtype=torch.int32),
                                   DT, LAM, ALPHA, 100, sampler_state=torch.zeros((T, 2)),
                                   epilogue=True)
-    want = {**SAMPLE_FORM_LAUNCHES[form], "flash_combine_kernel": 1}
+    want = {**SAMPLE_FORM_LAUNCHES[form], "flash_combine_tiled_kernel": 1}
     assert {k: v for k, v in fr.launch_counts.items() if v} == want
     assert fr.entry_counts == {"fused_sample_rollout_ar_nn": 1}
 

@@ -342,7 +342,7 @@ def test_solve_wrapper_counts_the_reported_form(stub_form, pair, form):
                                       torch.tensor(3, dtype=torch.int32), DT, LAM, ALPHA,
                                       100, split_cost=False)
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        "fused_solve" + FORM_NAMES[form]: 1, "flash_combine_kernel": 1}
+        "fused_solve" + FORM_NAMES[form]: 1, "flash_combine_tiled_kernel": 1}
     assert fr.entry_counts == {f"fused_solve_{pair}": 1}
 
 
