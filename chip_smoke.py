@@ -57,7 +57,9 @@ bicycle and DI-robust entries, the DDP ladder (B7) with AutoRally's network
 and the cartpole and the backward recursion (B6) at (4, 1) and (7, 2)
 against their plain versions, AutoRally also on a map where part of the
 samples crash, the DI-robust entries and the DI ladder also at the
-``rmppi_di_robust`` loop's shapes (``robust_kernels``); RMPPI (``fused``) and Tube-MPPI
+``rmppi_di_robust`` loop's shapes, B8's staged form for the DI also bit for
+bit against its one-thread build and A B B A against it at the loops'
+shapes (``robust_kernels``, and ``rmppi_kernel`` for the circle cost); RMPPI (``fused``) and Tube-MPPI
 (``fused_solve``) on AutoRally against ``combined`` without host syncs
 (``robust_reference_ar``); the loops ``rmppi_autorally`` (ARRobustCost, 9 x
 256 candidates' samples) and ``tube_autorally`` with DDP feedback and the
@@ -80,7 +82,9 @@ with QuadraticCost or its robust cost, the bicycle and the racer LSTM
 models (recurrent mode), B3 of the bicycle and the DI robust cost
 (``pair_sample_kernels``), the split entries of the cartpole, the quadrotor
 quadratic, the DI and Dubins quadratic, the bicycle and the racer models
-(``split_kernels``, A B B A against the combined kernels) and B1's split
+(``split_kernels``, A B B A against the combined kernels; the bicycle's
+lane-group dynamics pass also bit for bit and A B B A against its
+one-thread build) and B1's split
 form from one x0 per sample for the DI robust cost and AutoRally
 (``split_x0_kernels``), each at its path's shape, a ragged one and, for the
 map pairs, the partly-crashing map; then the loops that put each new entry
@@ -894,21 +898,30 @@ def rmppi_inputs(dev, K, seed, T_=T_R):
             gains, sampler._sigma(T_, 0), sampler.control_cost_coeff, DT, LAM_R, ALPHA)
 
 
-def rmppi_phase(dev, K, seed):
-    args = rmppi_inputs(dev, K, seed)
+def rmppi_phase(dev, K, seed, T_=T_R):
+    """B8 for the DI circle cost against its plain version (and, bit for
+    bit, the one-thread build); at the ``rmppi`` loop's shape (K_R x T_R)
+    timed A B B A against the one-thread build."""
+    args = rmppi_inputs(dev, K, seed, T_)
     kout = fr.fused_rmppi_rollout(*args)
     pout = fr.rmppi_rollout_plain(*args)
     torch.cuda.synchronize()
-    checks = [check(f"rmppi {n}", a, b, "exact")
+    checks = [check(f"rmppi {n}", a, b, "bitwise")
               for n, a, b in zip(("s_nom", "j_real", "s_fb"), kout[:3], pout[:3])]
-    checks.append(check("rmppi U_real", kout[4], pout[4], "exact"))
+    checks.append(check("rmppi U_real", kout[4], pout[4], "bitwise"))
     if not torch.equal(kout[3], pout[3]):
         raise AssertionError("RMPPI crash flags differ from the plain version")
-    t = timed(lambda: fr.fused_rmppi_rollout(*args), lambda: fr.rmppi_rollout_plain(*args))
-    n_bytes = 4 * (2 * K * T_R * C + 4 * K + T_R * C * S + T_R * C + C + 4 * C + 2 * S
+    same_as_one_thread_b8(f"rmppi K={K} T={T_}", args, kout)
+    fn, plain = (lambda: fr.fused_rmppi_rollout(*args)), (lambda: fr.rmppi_rollout_plain(*args))
+    if (K, T_) == (K_R, T_R):
+        t = b8_form_time("di_circle", f"K={K} T={T_}", fn)
+        t["plain_ms"] = time_ms(plain, N_TIMED_PLAIN)
+    else:
+        t = timed(fn, plain)
+    n_bytes = 4 * (2 * K * T_ * C + 4 * K + T_ * C * S + T_ * C + C + 4 * C + 2 * S
                    + len(DoubleIntegratorCircleCost.PARAM_NAMES))
-    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, K * T_R * OPS_RMPPI + 3 * K)
-    emit("rmppi_kernel", K=K, T=T_R, checks=checks, times=t)
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, K * T_ * OPS_RMPPI + 3 * K)
+    emit("rmppi_kernel", K=K, T=T_, checks=checks, times=t)
     return checks, t
 
 
@@ -1021,7 +1034,7 @@ def robust_loop_phase(kind):
     n = CLOSED_LOOP_STEPS
     if kind == "rmppi":
         # stage 1 of the first step has no nominal system to evaluate yet
-        want = {b1_kernel("di_circle", x0=True): n - 1, "rmppi_rollout_kernel": n,
+        want = {b1_kernel("di_circle", x0=True): n - 1, split_name("di_circle", "rmppi"): n,
                 LADDER: n}
     else:
         want = {b1_kernel("di_circle"): 2 * n, MERGE: 2 * n,
@@ -2544,8 +2557,9 @@ def ladder_work(args, deriv_ops, n_params):
 def robust_kernel_phase(dev):
     """B8 for AutoRally (the bench's 128^2 map and the partly-crashing map,
     K=1920, T=150, the DDP gains of the configuration) and for the DI robust
-    cost (K=2560 / 2500, T=50, and the rmppi_di_robust loop's K=256 / 250,
-    T=48); B1's per-sample-x0 entries for AutoRally (both maps) and the DI
+    cost (K=2560 / 2500, T=50, the rmppi_di_robust loop's K=256 / 250,
+    T=48, and 250 x 31; its staged form also against the one-thread build,
+    A B B A at the loop's shape); B1's per-sample-x0 entries for AutoRally (both maps) and the DI
     robust cost at 9 x 256 (T=150, 50), the latter also at the loop's 9 x 64
     (T=48), and for the bicycle on the 128^2 map (T=100); B7 for AutoRally
     (T=150), the cartpole (T=100) and the DI at the loop's T=48, 14 alphas;
@@ -2565,7 +2579,7 @@ def robust_kernel_phase(dev):
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         times[name] = t
 
-    def rmppi_case(name, args, tol, work):
+    def rmppi_case(name, args, tol, work, staged=None):
         kout = fr.fused_rmppi_rollout(*args)
         pout = fr.rmppi_rollout_plain(*args)
         torch.cuda.synchronize()
@@ -2575,8 +2589,16 @@ def robust_kernel_phase(dev):
                                (*kout[:3], kout[4]), (*pout[:3], pout[4])))
         same(f"{name} crash flags", kout[3], pout[3])
         crashed[name] = float(kout[3].float().mean())
-        timing(name, lambda: fr.fused_rmppi_rollout(*args),
-               lambda: fr.rmppi_rollout_plain(*args), work)
+        fn = lambda: fr.fused_rmppi_rollout(*args)
+        if staged is not None:  # (mode) of a staged entry: the one-thread build's bits
+            same_as_one_thread_b8(name, args, kout)
+            if staged:  # the loop's shape: A B B A in place of the single timing
+                t = b8_form_time("di_robust", staged, fn)
+                t["plain_ms"] = time_plain(lambda: fr.rmppi_rollout_plain(*args))
+                t["bound_ms"], t["bound_by"] = bound_ms(*work)
+                times[name] = t
+                return
+        timing(name, fn, lambda: fr.rmppi_rollout_plain(*args), work)
 
     def x0_case(name, dyn, cost, x0s, U, tol, work):
         kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False)
@@ -2629,17 +2651,20 @@ def robust_kernel_phase(dev):
             (4 * (bcost.params.numel() + bcost.costmap.data.numel() + bdyn.params.numel()
                   + K_x0 * T_BI * C + K_x0 * S_BI + 2 * K_x0),
              K_x0 * T_BI * (OPS_BI_STEP + OPS_AR_COST + OPS_ACC) + 2 * K_x0))
-    # the DI robust cost: B8 at the bench's RMPPI width (2560 / 2500 x 50) and
-    # at the rmppi_di_robust loop's (256 x 48, and a ragged 250), B1-x0 at
-    # 9 x 256 x 50 and at the loop's 9 x 64 x 48
+    # the DI robust cost: B8 at the bench's RMPPI width (2560 / 2500 x 50), at
+    # the rmppi_di_robust loop's (256 x 48, A B B A against the one-thread
+    # build; a ragged 250) and at a ragged T (250 x 31); B1-x0 at 9 x 256 x 50
+    # and at the loop's 9 x 64 x 48
     for K, T_, seed in ((K_R, T_R, 63), (K_R_RAGGED, T_R, 64), (K_RDI, T_RDI, 67),
-                        (K_RDI - 6, T_RDI, 68)):
+                        (K_RDI - 6, T_RDI, 68), (K_RDI - 6, 31, 70)):
         args = list(rmppi_inputs(dev, K, seed, T_))
         args[1] = DoubleIntegratorRobustCost(device=dev)
         n_bytes = 4 * (2 * K * T_ * C + 4 * K + T_ * C * S + T_ * C + C + 4 * C + 2 * S
                        + len(DoubleIntegratorCircleCost.PARAM_NAMES))
-        rmppi_case(f"B8 di_robust K={K} T={T_}", tuple(args), "exact",
-                   (n_bytes, K * T_ * rmppi_ops(S, C, OPS_STEP, OPS_DI_ROBUST_COST) + 3 * K))
+        at_path = (K, T_) == (K_RDI, T_RDI)
+        rmppi_case(f"B8 di_robust K={K} T={T_}", tuple(args), "bitwise",
+                   (n_bytes, K * T_ * rmppi_ops(S, C, OPS_STEP, OPS_DI_ROBUST_COST) + 3 * K),
+                   staged=f"K={K} T={T_} (rmppi_di_robust)" if at_path else False)
     ddyn, dcost = DoubleIntegratorDynamics.create(device=dev), DoubleIntegratorRobustCost(device=dev)
     for s_per, T_ in ((S_PER_AR, T_R), (S_PER_RDI, T_RDI)):
         K_ = N_CAND_AR * s_per
@@ -2867,7 +2892,7 @@ def robust_family_loops(dev):
                                   dtype=torch.float32, device=dev)
     out = robust_family_loop(
         "rmppi_di_robust", build_rmppi_di_robust("fused"), torch.tensor(X0_RDI, device=dev),
-        n, {b1_kernel("di_robust", x0=True): n - 1, "rmppi_rollout_kernel": n,
+        n, {b1_kernel("di_robust", x0=True): n - 1, split_name("di_robust", "rmppi"): n,
             LADDER: n}, disturb=disturb, profile=False)
     band_check("rmppi_di_robust", out[2])
     paths["rmppi_di_robust"] = out[:2]
@@ -3174,12 +3199,25 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                     lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
                 t["cost_pass"]["plain_ms"] = plain_ms(
                     lambda: split_cost_plain(cost, Y, U, lrp, T_))
-                t["dynamics_pass"] = {"ms": time_ms(
-                    lambda: fr.split_dynamics_cuda(dyn, cost, x0, U, DT), N_TIMED),
-                    "plain_ms": plain_ms(lambda: fr.split_outputs_plain(dyn, x0, U, DT))}
+                dyn_pass = lambda: fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+                # the lane-group pass A B B A against its one-thread build
+                t["dynamics_pass"] = (turns(dyn_pass, "lanes") if pair in LANES_PAIRS
+                                      else {"ms": time_ms(dyn_pass, N_TIMED)})
+                t["dynamics_pass"]["plain_ms"] = plain_ms(
+                    lambda: fr.split_outputs_plain(dyn, x0, U, DT))
                 t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
                     *split_pass_work(pair, dyn, cost, K, T_, "dynamics"))
             times[name] = t
+    if pair in LANES_PAIRS:
+        # the lane-group pass and its one-thread build against the plain
+        # version: Y bit for bit, also at a ragged T and K = 1901
+        cases = [U, U[:, :31].contiguous()] + ([U[:1901]] if K == K_BI else [])
+        for U_ in cases:
+            checks += warp_pass_checks(
+                (f"{pair} {U_.shape[0]} x {U_.shape[1]} Y",),
+                lambda U_=U_: (fr.split_dynamics_cuda(dyn, cost, x0, U_, DT),),
+                lambda U_=U_: (fr.split_outputs_plain(dyn, x0, U_, DT).permute(1, 2, 0),),
+                "lanes")
     for kind, samp in samplers.items():
         name = f"B3 split {kind}"
         args = (dyn, cost, samp, x0, mean, seed_t, DT, LAM, ALPHA, K)
@@ -3582,6 +3620,11 @@ WARP_PAIRS = ("ar_nn", "racer_steering_ar", "racer_unc_ar")
 WARP_SOURCES = tuple(sorted({_build.pair_entry(p, k)[0] for p in WARP_PAIRS
                              for k in ("split_dynamics", "split_dynamics_x0")
                              if _build.pair_entry(p, k) is not None}))
+# the pairs whose B1 split dynamics pass runs the lane-group form
+# (csrc/split_lanes.cuh); -DMPPI_SPLIT_ONE_THREAD builds their one-thread
+# pass beside the warp pairs'
+LANES_PAIRS = ("bicycle_ar",)
+LANES_SOURCES = tuple(_build.pair_entry(p, "split_dynamics")[0] for p in LANES_PAIRS)
 ONE_THREAD = {}  # {source: the loaded one-thread build}, from build_one_thread
 # The one-thread rows of PERF.md §6 that the warp forms of B4 and B8 replace
 # (no one-thread build of them is kept, so their times are not measured
@@ -3597,10 +3640,11 @@ ONE_THREAD_ROWS = {
 
 def one_thread_fields(kind, pair):
     """The ``kernels`` line's fields of an entry's earlier form: the
-    one-thread row a warp entry replaces, or the staged form of B4, B3 or B1
-    timed A B B A against the one-thread kernel in this run, by mode (none
+    one-thread row a warp entry replaces, or the staged form of B4, B3, B1 or
+    B8 timed A B B A against the one-thread kernel in this run, by mode (none
     for a one-thread entry)."""
-    if kind in ("sample", "solve", "rollout") and pair in STAGED_PAIRS:
+    if (kind in ("sample", "solve", "rollout") and pair in STAGED_PAIRS) or (
+            kind == "rmppi" and pair in B8_STAGED_PAIRS):
         return {"one_thread_abba": {m: {k: t.get(k) for k in (
             "ms", "other_ms", "abba_ms", "faster")}
             for m, t in FORM_TIMES[(kind, pair)].items()}}
@@ -3731,8 +3775,13 @@ B4_STAGED = "fused_sample_rollout_staged_kernel"  # B4 of STAGED_PAIRS there
 STAGED_PAIRS = ("di_circle", "di_quadratic", "di_robust", "cartpole", "quadrotor_quadratic",
                 "quadrotor_map", "dubins_quadratic", "bicycle_ar")
 STAGED_SOURCES = tuple(sorted({_build.pair_entry(p, "sample")[0] for p in STAGED_PAIRS}))
+# B8 of the pairs without the warp form runs the staged form
+# (csrc/rmppi_staged.cuh); -DMPPI_RMPPI_ONE_THREAD builds the one-thread
+# kernel beside the one-thread B4, B3 and B1
+B8_STAGED_PAIRS = ("di_circle", "di_robust")
+B8_SOURCE = "rmppi_rollout"
 LADDER_ONE_THREAD = {}  # {"riccati": the loaded one-thread ladder build}
-SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4, B3 and B1 build}
+SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4, B3, B1 and B8 build}
 # the merge's and the split cost pass's earlier forms (one block of 256
 # threads for the merge, one block of 512 a 64-sample block for the cost
 # pass): the merge's source and the split sources of the pairs whose cost
@@ -3745,20 +3794,22 @@ EARLIER_SOURCES = ("flash_combine", "split_ar_nn", "split_bicycle_ar", "split_di
                    "split_di_robust")
 EARLIER = {}  # {source: the loaded earlier-form build}
 # (libraries it fills, -D flags, build directory, sources)
-VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread", WARP_SOURCES),
+VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread",
+             WARP_SOURCES + LANES_SOURCES),
             (LADDER_ONE_THREAD, ("MPPI_LADDER_ONE_THREAD",), "ladder_one_thread", ("riccati",)),
             (SAMPLE_ONE_THREAD, ("MPPI_SAMPLE_ONE_THREAD", "MPPI_SOLVE_ONE_THREAD",
-                                 "MPPI_ROLLOUT_ONE_THREAD"), "sample_one_thread",
-             STAGED_SOURCES),
+                                 "MPPI_ROLLOUT_ONE_THREAD", "MPPI_RMPPI_ONE_THREAD"),
+             "sample_one_thread", STAGED_SOURCES + (B8_SOURCE,)),
             (EARLIER, EARLIER_DEFINES, "earlier_forms", EARLIER_SOURCES))
 
 
 def build_one_thread():
-    """Build the VARIANTS: WARP_SOURCES with -DMPPI_SPLIT_ONE_THREAD (every
-    model's split passes one thread a sample), riccati.cu with
-    -DMPPI_LADDER_ONE_THREAD, the staged pairs' sources with
-    -DMPPI_SAMPLE_ONE_THREAD, -DMPPI_SOLVE_ONE_THREAD and
-    -DMPPI_ROLLOUT_ONE_THREAD, and EARLIER_SOURCES with EARLIER_DEFINES
+    """Build the VARIANTS: WARP_SOURCES and LANES_SOURCES with
+    -DMPPI_SPLIT_ONE_THREAD (every model's split passes one thread a
+    sample), riccati.cu with -DMPPI_LADDER_ONE_THREAD, the staged pairs'
+    sources and rmppi_rollout.cu with -DMPPI_SAMPLE_ONE_THREAD,
+    -DMPPI_SOLVE_ONE_THREAD, -DMPPI_ROLLOUT_ONE_THREAD and
+    -DMPPI_RMPPI_ONE_THREAD, and EARLIER_SOURCES with EARLIER_DEFINES
     (build_variants)."""
     return build_variants(VARIANTS)
 
@@ -3807,8 +3858,9 @@ def swapped(libs=None, ladder=None):
 
 
 def one_thread_split():
-    """Inside, the wrappers take the warp pairs' split libraries from the
-    one-thread build (their launches then run the one-thread passes)."""
+    """Inside, the wrappers take the warp and lane pairs' split libraries
+    from the one-thread build (their launches then run the one-thread
+    passes)."""
     return swapped(ONE_THREAD)
 
 
@@ -3818,8 +3870,8 @@ def one_thread_ladder():
 
 
 def one_thread_sample():
-    """Inside, the staged pairs' B4, B3 and B1 (one x0) launch the one-thread
-    kernels."""
+    """Inside, the staged pairs' B4, B3 and B1 (one x0) and B8 of
+    B8_STAGED_PAIRS launch the one-thread kernels."""
     return swapped(SAMPLE_ONE_THREAD)
 
 
@@ -3831,9 +3883,10 @@ def earlier_forms():
 
 def check_forms():
     """Each warp pair's split dynamics entries report the warp form in the
-    port's build and the one-thread form in build_one_thread's; each B4 and
-    B8 entry the warp form for a warp pair, else B4 the staged form (the
-    one-thread kernel in the one-thread build) and B8 the one-thread kernel;
+    port's build and the one-thread form in build_one_thread's, each lane
+    pair's B1 split dynamics entry the lane-group form and the one-thread
+    form; each B4 and B8 entry the warp form for a warp pair, else the
+    staged form (the one-thread kernel in the one-thread build);
     each B3 and B1 entry (one x0 or one per sample) the staged form for a
     staged pair (the one-thread kernel in the one-thread build), else the
     one-thread kernel; the ladder the warp recursion (the one-thread ladder
@@ -3847,15 +3900,25 @@ def check_forms():
                 one = split_name(pair, kind)
             if not (warp.endswith("_warp_kernel") and not one.endswith("_warp_kernel")):
                 raise AssertionError(f"{pair} {kind}: the builds report {warp} and {one}")
+    for pair in LANES_PAIRS:
+        lanes = split_name(pair, "split_dynamics")
+        with one_thread_split():
+            one = split_name(pair, "split_dynamics")
+        if (lanes, one) != ("split_dynamics_lanes_kernel", "split_dynamics_kernel"):
+            raise AssertionError(f"{pair} split_dynamics: the builds report {lanes} and {one}")
     for pair in _build.PAIR_KERNELS:
         for kind, base in (("sample", "fused_sample_rollout"), ("rmppi", "rmppi_rollout")):
             if _build.pair_entry(pair, kind) is None:
                 continue
-            other = "_staged_kernel" if kind == "sample" else "_kernel"
-            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else base + other
+            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_staged_kernel"
             if split_name(pair, kind) != want:
                 raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
                                      f"expected {want}")
+    for pair in B8_STAGED_PAIRS:
+        with one_thread_sample():
+            one = split_name(pair, "rmppi")
+        if one != "rmppi_rollout_kernel":
+            raise AssertionError(f"{pair}: the one-thread B8 build reports {one}")
     for pair in _build.PAIR_KERNELS:
         for kind in ("solve", "rollout", "rollout_x0"):
             if _build.pair_entry(pair, kind) is None:
@@ -3939,6 +4002,26 @@ def same_as_one_thread(what, fn, out, pair):
     for i, (a, b) in enumerate(zip(out, one)):
         if a is not None and not torch.equal(a, b):
             raise AssertionError(f"{what}: output {i} of the one-thread build differs")
+
+
+def same_as_one_thread_b8(what, args, out):
+    """B8 (``args`` of fused_rmppi_rollout, a pair of B8_STAGED_PAIRS) on the
+    one-thread build returns ``out``, the port's outputs, bit for bit."""
+    with one_thread_sample():
+        one = fr.fused_rmppi_rollout(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("s_nom", "j_real", "s_fb", "crash", "U_real"), out, one):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} of the one-thread build differs")
+
+
+def b8_form_time(pair, mode, fn):
+    """The ms of ``fn``, a launch of ``pair``'s B8 entry at a loop's shape,
+    A B B A against the one-thread build (kept in FORM_TIMES[("rmppi",
+    pair)][mode] for the kernels line)."""
+    t = abba_against(fn, one_thread_sample)
+    FORM_TIMES.setdefault(("rmppi", pair), {})[mode] = t
+    return dict(t)
 
 
 # the merge at each shape a path launches it at: (label, carry rows, T, C,
@@ -4332,19 +4415,20 @@ def staged_form_phase(dev):
     return checks
 
 
-def turns(fn):
+def turns(fn, form="warp"):
     """``fn`` (a split dynamics pass) timed in turns on the one-thread build
-    and the warp form: one-thread, warp, warp, one-thread (CUDA events,
-    medians of N_TIMED)."""
+    and its ``form`` (the warp or the lane-group form): one-thread, form,
+    form, one-thread (CUDA events, medians of N_TIMED)."""
     t = abba_against(fn, one_thread_split)
     return {"ms": t["ms"], "one_thread_ms": t["other_ms"], "abba_ms": t["abba_ms"],
-            "warp_faster": t["faster"]}
+            f"{form}_faster": t["faster"]}
 
 
-def warp_pass_checks(name, fn, plain):
-    """The warp pass ``fn`` and the one-thread one against the plain
-    version: each output bit for bit (``fn`` and ``plain`` return tuples of
-    tensors in the same order, named by ``name``)."""
+def warp_pass_checks(name, fn, plain, form="warp"):
+    """The pass ``fn`` in its ``form`` (the warp or the lane-group form) and
+    the one-thread one against the plain version: each output bit for bit
+    (``fn`` and ``plain`` return tuples of tensors in the same order, named
+    by ``name``)."""
     got = fn()
     with one_thread_split():
         one = fn()
@@ -4352,7 +4436,7 @@ def warp_pass_checks(name, fn, plain):
     torch.cuda.synchronize()
     checks = []
     for what, g, o, w in zip(name, got, one, want):
-        checks += [check(f"{what} (warp)", g, w, "bitwise"),
+        checks += [check(f"{what} ({form})", g, w, "bitwise"),
                    check(f"{what} (one-thread)", o, w, "bitwise")]
     return checks
 
@@ -4472,6 +4556,8 @@ def pair_kernel_phases(dev):
             seed += 1
             checks, t = split_kernel_phase(dev, pair, K_, p, stride, seed, map_kind, timed_)
             note(("split", pair), checks, t, timed_)
+            if pair in LANES_PAIRS:  # the lane-group pass's own Y checks
+                note(("lanes", pair), [c for c in checks if "Y (" in c["check"]], t, False)
     for pair, map_kind, timed_ in (("di_robust", None, True), ("ar_nn", "128", True),
                                    ("ar_nn", "partial", False)):
         checks, t = split_x0_phase(dev, pair, map_kind, timed_)
@@ -4561,12 +4647,16 @@ def pair_kernel_entries(errs, times, paths, warp_times=None):
         st, err = times[("split", pair)], errs[("split", pair)]
         K, _, T_ = pair_shape(pair)
         warp = pair in WARP_PAIRS
+        dyn_pass = st["B1 split epilogue+lr"]["dynamics_pass"]
+        # the lane-group pass A B B A against its one-thread build
+        lanes = ({"one_thread_abba": {k: dyn_pass[k] for k in (
+            "ms", "one_thread_ms", "abba_ms", "lanes_faster")}} if pair in LANES_PAIRS else {})
         out += [
             line(f"{split_name(pair, 'split_dynamics')}<{dyn_name}>", pair,
                  "split_dynamics", "pallas_rollout.py:548 (split mode, run_tile :663-696)",
-                 st["B1 split epilogue+lr"]["dynamics_pass"], err, K=K, T=T_,
+                 dyn_pass, errs[("lanes", pair)] if pair in LANES_PAIRS else err, K=K, T=T_,
                  warp_key="B1 dynamics" if warp else None,
-                 split_form=forms(st, "B1 split ")),
+                 split_form=forms(st, "B1 split "), **lanes),
             line(f"{split_name(pair, 'split_solve_dynamics')}<{dyn_name}>", pair,
                  "split_solve_dynamics", "pallas_solve.py:103 (split mode :274-290)",
                  st["B3 split gaussian"]["dynamics_pass"], err, K=K, T=T_,
@@ -4857,8 +4947,8 @@ def main() -> int:
     note("riccati_backward_kernel", checks_b)
     note("riccati_ladder_kernel", checks_l)
     rmppi_times = None
-    for K, seed in ((K_R, 3), (K_R_RAGGED, 4)):
-        checks, t = rmppi_phase(dev, K, seed)
+    for K, seed, T_ in ((K_R, 3, T_R), (K_R_RAGGED, 4, T_R), (K_R_RAGGED, 5, 31)):
+        checks, t = rmppi_phase(dev, K, seed, T_)
         note("rmppi_rollout_kernel", checks)
         rmppi_times = rmppi_times or t
     checks, x0_times = x0_phase(dev)
@@ -5064,8 +5154,11 @@ def main() -> int:
               modes={f"T={T_RDI} (rmppi_di_robust)": {
                   **robust_times[f"B7 di T={T_RDI}"], **ladder_fields(f"di T={T_RDI}")}},
               **ladder_fields(f"di T={T_R}")),
-        entry("rmppi_rollout_kernel", "rmppi_rollout.cu", "pallas_rollout.py:2127",
-              rmppi_times, None),
+        entry(f"{split_name('di_circle', 'rmppi')}<DoubleIntegrator, "
+              "DoubleIntegratorCircleCost>", "rmppi_rollout.cu", "pallas_rollout.py:2127",
+              rmppi_times, None, err=errs["rmppi_rollout_kernel"],
+              kernel=split_name("di_circle", "rmppi"), K=K_R, T=T_R,
+              **one_thread_fields("rmppi", "di_circle")),
         entry(b3_kernel("di_circle"), "pair_di_circle.cu", "pallas_solve.py:103",
               solve_times["solve gaussian"], None,
               paths={**by_path,
@@ -5233,13 +5326,15 @@ def main() -> int:
                      T=T_AR, device_functions=ar_functions,
                      modes={"partly-crashing map": rt["B8 ar_nn partial"]},
                      **one_thread_fields("rmppi", "ar_nn")),
-        family_entry("rmppi_rollout_kernel<DoubleIntegrator, DoubleIntegratorRobustCost>",
+        family_entry(f"{split_name('di_robust', 'rmppi')}<DoubleIntegrator, "
+                     "DoubleIntegratorRobustCost>",
                      "rmppi_rollout.cu", "rmppi_rollout_di_robust", "pallas_rollout.py:2127",
-                     rt[f"B8 di_robust K={K_R} T={T_R}"],
-                     rchecks("rmppi_rollout_kernel", "B8 di_robust"), K=K_R, T=T_R,
+                     rt[f"B8 di_robust K={K_RDI} T={T_RDI}"],
+                     rchecks("rmppi_rollout_kernel", "B8 di_robust"), K=K_RDI, T=T_RDI,
                      modes={f"K={K} T={T_}": rt[f"B8 di_robust K={K} T={T_}"]
-                            for K, T_ in ((K_R_RAGGED, T_R), (K_RDI, T_RDI),
-                                          (K_RDI - 6, T_RDI))}),
+                            for K, T_ in ((K_R, T_R), (K_R_RAGGED, T_R), (K_RDI - 6, T_RDI),
+                                          (K_RDI - 6, 31))},
+                     **one_thread_fields("rmppi", "di_robust")),
         family_entry("rollout_costs_kernel<AutorallyNN, ARCost> (per-sample x0)",
                      "rollout_x0.cu", "rollout_costs_x0_ar_nn", "pallas_rollout.py:548",
                      rt["B1-x0 ar_nn 128"], rchecks("rollout_costs_kernel", "B1-x0 ar_nn"),

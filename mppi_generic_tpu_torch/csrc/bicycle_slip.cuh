@@ -21,6 +21,7 @@
 #include <math.h>
 
 #include "math_utils.cuh"
+#include "warp.cuh"
 
 struct BicycleSlip {
   static constexpr int S = 10;  // state
@@ -52,22 +53,11 @@ struct BicycleSlip {
   __device__ static inline void step(const Shared& sh, float* x, const float* u,
                                      float /*t*/, float dt, float* y) {
     const float* p = sh.p;
-    const float yaw = x[2], steer = x[3], brake = x[4];
+    const float yaw = x[2], steer = x[3];
     const float vx = x[5], vy = x[6], om = x[7];
-    const float tb = u[0], sc = u[1];
-    const bool enable_brake = tb < 0.0f;
 
-    const float brake_d = clampf(
-        ((enable_brake ? -tb : 0.0f) - brake) * p[kBrakeDelay],
-        -p[kMaxBrakeRateNeg], p[kMaxBrakeRatePos]);
-    const float steer_d = clampf((sc * p[kSteerCmdScale] - steer) * p[kSteeringConst],
-                                 -p[kMaxSteerRate], p[kMaxSteerRate]);
-
-    const float throttle = (enable_brake ? 0.0f : 1.0f) * p[kThrottle] * tb;
-    const float brake_force = p[kBrake0] * tanhf(p[kBrake1] * vx) * brake;
+    const float brake_force = p[kBrake0] * tanhf(p[kBrake1] * vx) * x[4];
     const float drag_x = p[kRolling0] * tanhf(p[kRolling1] * vx);
-    const float x_force = throttle - brake_force - drag_x;
-
     const float drag_y = p[kSliding0] * tanhf(p[kSliding1] * vy);
     const float y_force = tanhf(vx * om * p[kYf0]) * p[kYf1] - drag_y;
 
@@ -76,15 +66,99 @@ struct BicycleSlip {
     const float cos_w = cosf(wheel_angle);
 
     const float parametric_omega = (vx / p[kWheelBase]) * wheel_angle;
+    const float x_force = throttle(sh, u) - brake_force - drag_x;
+    const float fx_m = (x_force + x_force * cos_w - y_force * sin_w) / p[kMass];
+    const float fy_m = (y_force + y_force * cos_w + x_force * sin_w) / p[kMass];
+    update(sh, x, u, parametric_omega, fx_m, fy_m, cosf(yaw), sinf(yaw), dt, y);
+  }
+
+  // The lane-group form of step (split_lanes.cuh): the kLaneGroup lanes of a
+  // group (groups aligned in the warp) hold the same state and run one
+  // instruction stream. Where step evaluates one function on independent
+  // operands, lane l takes operand set l % 4 (each set on two lanes; eight
+  // lanes a sample beat four, PERF.md section 6) and the results reach every
+  // lane of the group by __shfl_sync (width kLaneGroup):
+  //   the divisions steer / steer_angle_scale (sets 0 and 2) and
+  //   vx / wheel_base (1 and 3), then tanf of the quotient (the wheel angle
+  //   on the even sets);
+  //   the four tanh terms as (A tanhf((a b) c)) B: set 0 the brake force, 1
+  //   the rolling drag, 2 the sliding drag, 3 tanh(vx omega y_f_c[0])
+  //   y_f_c[1] (the factors of 1 are exact, the products commute);
+  //   sinf and cosf of the wheel angle (set 0) and of the yaw (the others);
+  //   the divisions by the mass of the y (set 1) and x (the others)
+  //   numerators.
+  // The rest (update: the lags, the yaw rate, the Euler update, the yaw wrap,
+  // the clamps) every lane computes alike. Each value is made with step's
+  // operations on step's operands and a shuffle moves bits exactly, so x and
+  // y are step's floats.
+  static constexpr int kLaneGroup = 8;
+
+  __device__ static inline void step_lanes(const Shared& sh, float* x, const float* u,
+                                           float /*t*/, float dt, float* y) {
+    constexpr int G = kLaneGroup;
+    const float* p = sh.p;
+    const int set = threadIdx.x & 3;
+    const float yaw = x[2], steer = x[3];
+    const float vx = x[5], vy = x[6], om = x[7];
+
+    // sets 0 and 2: steer / steer_angle_scale; 1 and 3: vx / wheel_base
+    const bool odd = set & 1;
+    const float q = (odd ? vx : steer) / (odd ? p[kWheelBase] : p[kSteerAngleScale]);
+    const float a = set == 0 ? p[kBrake1] : set == 1 ? p[kRolling1] : set == 2 ? p[kSliding1] : vx;
+    const float b = set == 2 ? vy : set == 3 ? om : vx;
+    const float c = set == 3 ? p[kYf0] : 1.0f;
+    const float A = set == 0 ? p[kBrake0] : set == 1 ? p[kRolling0] : set == 2 ? p[kSliding0]
+                                                                               : p[kYf1];
+    const float B = set == 0 ? x[4] : 1.0f;
+    const float f = (A * tanhf((a * b) * c)) * B;
+
+    // tanf of the set's own quotient: the wheel angle on the even sets
+    const float wa = tanf(q);
+    const float ang = set == 0 ? wa : yaw;
+    const float sn = sinf(ang);
+    const float cn = cosf(ang);
+    const float sin_w = __shfl_sync(kFullMask, sn, 0, G);
+    const float cos_w = __shfl_sync(kFullMask, cn, 0, G);
+
+    const float wheel_angle = __shfl_sync(kFullMask, wa, 0, G);
+    const float parametric_omega = __shfl_sync(kFullMask, q, 1, G) * wheel_angle;
+    const float x_force = throttle(sh, u) - __shfl_sync(kFullMask, f, 0, G) -
+                          __shfl_sync(kFullMask, f, 1, G);
+    const float y_force = __shfl_sync(kFullMask, f, 3, G) - __shfl_sync(kFullMask, f, 2, G);
+    const float num_x = x_force + x_force * cos_w - y_force * sin_w;
+    const float num_y = y_force + y_force * cos_w + x_force * sin_w;
+    const float dv = (set == 1 ? num_y : num_x) / p[kMass];
+    update(sh, x, u, parametric_omega, __shfl_sync(kFullMask, dv, 0, G),
+           __shfl_sync(kFullMask, dv, 1, G), __shfl_sync(kFullMask, cn, 1, G),
+           __shfl_sync(kFullMask, sn, 1, G), dt, y);
+  }
+
+ private:
+  // (enable_brake ? 0 : 1) c_throttle throttle_brake
+  __device__ static inline float throttle(const Shared& sh, const float* u) {
+    return (u[0] < 0.0f ? 0.0f : 1.0f) * sh.p[kThrottle] * u[0];
+  }
+
+  // The rest of the step from the yaw-rate term (vx / wheel_base) wheel_angle,
+  // the force terms over the mass and the yaw's cosine and sine: the lags
+  // with their rate clamps, the yaw rate, the accelerations, the kinematics,
+  // the Euler update with the yaw wrap and the clamps; y <- x.
+  __device__ static inline void update(const Shared& sh, float* x, const float* u,
+                                       float parametric_omega, float fx_m, float fy_m,
+                                       float cos_y, float sin_y, float dt, float* y) {
+    const float* p = sh.p;
+    const float steer = x[3], brake = x[4];
+    const float vx = x[5], vy = x[6], om = x[7];
+    const float tb = u[0], sc = u[1];
+    const bool enable_brake = tb < 0.0f;
+    const float brake_d = clampf(
+        ((enable_brake ? -tb : 0.0f) - brake) * p[kBrakeDelay],
+        -p[kMaxBrakeRateNeg], p[kMaxBrakeRatePos]);
+    const float steer_d = clampf((sc * p[kSteerCmdScale] - steer) * p[kSteeringConst],
+                                 -p[kMaxSteerRate], p[kMaxSteerRate]);
     const float omega_d = (parametric_omega - om) * p[kOmega] - om * p[kVOmega];
-
-    const float vx_d = (x_force + x_force * cos_w - y_force * sin_w) / p[kMass] -
-                       vx * p[kVx] + vy * om;
-    const float vy_d = (y_force + y_force * cos_w + x_force * sin_w) / p[kMass] -
-                       vy * p[kVy] - vx * om;
-
-    const float cos_y = cosf(yaw);
-    const float sin_y = sinf(yaw);
+    const float vx_d = fx_m - vx * p[kVx] + vy * om;
+    const float vy_d = fy_m - vy * p[kVy] - vx * om;
     const float xd[S] = {vx * cos_y - vy * sin_y,
                          vx * sin_y + vy * cos_y,
                          om,

@@ -50,6 +50,17 @@ struct ReadsDynMap : std::false_type {};
 template <class D>
 struct ReadsDynMap<D, std::void_t<decltype(D::kDynMap)>> : std::true_type {};
 
+// A cost whose crash flag is sticky-prefix (its value depends on the flag
+// only through the current step's flag) declares kStickyCrash = true. Every
+// other cost's value ignores the flag, so its steps may be taken apart from
+// each other (the split cost pass, split_kernels.cuh; B8's staged form,
+// rmppi_staged.cuh).
+template <class Cost, class = void>
+struct StickyCrash : std::false_type {};
+template <class Cost>
+struct StickyCrash<Cost, std::void_t<decltype(Cost::kStickyCrash)>>
+    : std::integral_constant<bool, Cost::kStickyCrash> {};
+
 template <class Dyn>
 __device__ inline void stage_model(const ModelArgs& m, typename Dyn::Shared* sh) {
   if constexpr (ReadsDynMap<Dyn>::value) {

@@ -11,12 +11,15 @@
 // wrapper fused_rmppi_rollout launches this kernel through the C entries
 // (RMPPI_ENTRY).
 //
-// rmppi_rollout_kernel<Dyn, Cost>: one thread per sample (the analytic
-// models; a network model runs the warp form of rmppi_warp.cuh), the T-step loop
-// inside the thread, both states in registers. Every thread first stages the
-// model's parameters into shared memory (Dyn::Shared, stage_model in
-// mppi_common.cuh, before any sample past K returns), and both systems step
-// on the same staged copy. Per step, from the raw sample u_raw:
+// rmppi_rollout_kernel<Dyn, Cost>: one thread per sample, the T-step loop
+// inside the thread, both states in registers. No entry of the port's build
+// launches it: a network model runs the warp form of rmppi_warp.cuh, the
+// others the staged form of rmppi_staged.cuh, which takes any cost but a
+// StickyCrash one; -DMPPI_RMPPI_ONE_THREAD builds it for the latter, to time
+// the forms against each other. Every thread
+// first stages the model's parameters into shared memory (Dyn::Shared,
+// stage_model in mppi_common.cuh, before any sample past K returns), and
+// both systems step on the same staged copy. Per step, from the raw sample u_raw:
 //   u_nom  = clamp(u_raw)
 //   u_fb   = K[t] (x_real - x_nom)
 //   u_real = clamp(u_raw + u_fb), written out as U_real (K, T, C)
@@ -56,6 +59,7 @@
 #include <stddef.h>
 
 #include "mppi_common.cuh"
+#include "rmppi_staged.cuh"
 #include "rmppi_warp.cuh"
 #include "warp_model.cuh"
 
@@ -147,8 +151,27 @@ rmppi_rollout_kernel(const float* __restrict__ x0_nom,
   crash_out[k] = crash_r;
 }
 
+// B8's form for the models without the warp form whose cost is not
+// StickyCrash (mppi_common.cuh): the staged form (rmppi_staged.cuh), or the
+// one-thread kernel above in a build with
+// MPPI_RMPPI_ONE_THREAD defined (chip_smoke.py builds rmppi_rollout.cu so to
+// time the two forms against each other; the port never loads such a build).
+#ifdef MPPI_RMPPI_ONE_THREAD
+constexpr int kRmppiForm = 0;
+#else
+constexpr int kRmppiForm = 2;
+#endif
+
+// The form the pair's entry launches: 1 the warp form, 2 the staged form,
+// 0 the one-thread kernel.
+template <class Dyn, class Cost>
+constexpr int rmppi_form() {
+  return HasWarpStep<Dyn>::value ? 1 : StickyCrash<Cost>::value ? 0 : kRmppiForm;
+}
+
 // B8 for the pair (Dyn, Cost): the warp form (rmppi_warp.cuh) for a model
-// that has it (HasWarpStep, warp_model.cuh), else the one-thread kernel.
+// that has it (HasWarpStep, warp_model.cuh), else the staged form or the
+// one-thread kernel (rmppi_form).
 template <class Dyn, class Cost>
 int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
                 const float* U, int K, int T, float dt, ModelArgs m,
@@ -163,6 +186,10 @@ int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
     rmppi_rollout_warp_kernel<Dyn, Cost><<<(K + NW - 1) / NW, 32 * NW, 0, s>>>(
         x0_nom, x0_real, U, K, T, dt, m, cons, gains, sigma, coeff, fb_gain, s_nom,
         j_real, s_fb, crash, U_real);
+  } else if constexpr (rmppi_form<Dyn, Cost>() == 2) {
+    return static_cast<int>(launch_rmppi_staged<Dyn, Cost>(
+        K, s, x0_nom, x0_real, U, K, T, dt, m, cons, gains, sigma, coeff, fb_gain,
+        s_nom, j_real, s_fb, crash, U_real));
   } else {
     const int nb = (K + kBlockSamples - 1) / kBlockSamples;
     rmppi_rollout_kernel<Dyn, Cost><<<nb, kBlockSamples, 0, s>>>(
@@ -182,7 +209,8 @@ int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
 // gains (T, C, S); sigma (T, C); coeff (C,); fb_gain = 0.5 lambda
 // (1 - alpha). Returns the CUDA error of the launch (0 when it was accepted).
 // Beside it, NAME_form() says which form it launches: 1 the warp form
-// (rmppi_rollout_warp_kernel), 0 the one-thread kernel.
+// (rmppi_rollout_warp_kernel), 2 the staged form
+// (rmppi_rollout_staged_kernel), 0 the one-thread kernel.
 #define RMPPI_ENTRY(NAME, DYN, COST)                                          \
   int NAME(int device, const float* x0_nom, const float* x0_real,            \
            const float* U, int K, int T, float dt, const float* dyn_params,  \
@@ -196,4 +224,4 @@ int rmppi_entry(int device, const float* x0_nom, const float* x0_real,
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, cons, gains,  \
         sigma, coeff, fb_gain, s_nom, j_real, s_fb, crash, U_real, stream);  \
   }                                                                          \
-  int NAME##_form() { return HasWarpStep<DYN>::value ? 1 : 0; }
+  int NAME##_form() { return rmppi_form<DYN, COST>(); }

@@ -31,8 +31,12 @@
 // A model whose step is a network (kWarpStep: AutoRally's FNN, the racer
 // LSTMs) takes the warp form of both dynamics passes instead,
 // split_dynamics_warp_kernel and split_solve_dynamics_warp_kernel
-// (split_warp.cuh: one warp per sample, one network unit per lane); the
-// entries below pick the form at compile time, so a pair's library holds one.
+// (split_warp.cuh: one warp per sample, one network unit per lane); a model
+// with a long analytic step (kLaneGroup: the bicycle) takes the lane-group
+// form of B1's dynamics pass, split_dynamics_lanes_kernel (split_lanes.cuh: a
+// group of lanes per sample, each evaluating one operand set of the step's
+// independent functions). The entries below pick the form at compile time,
+// so a pair's library holds one.
 //
 // The cost pass of both, split_cost_cluster_kernel<Cost, O, C, EPI, WITH_LR>:
 // a thread-block cluster of kCostCluster CTAs takes a block of kBlockSamples
@@ -106,6 +110,7 @@
 #include "philox.cuh"
 #include "rollout_kernel.cuh"
 #include "sample_kernels.cuh"
+#include "split_lanes.cuh"
 #include "split_warp.cuh"
 
 namespace {
@@ -127,14 +132,6 @@ constexpr int kCostForm = 0;
 #else
 constexpr int kCostForm = 3;
 #endif
-
-// A cost whose crash flag is sticky-prefix (its value depends on the flag
-// only through the current step's flag) declares kStickyCrash = true.
-template <class Cost, class = void>
-struct StickyCrash : std::false_type {};
-template <class Cost>
-struct StickyCrash<Cost, std::void_t<decltype(Cost::kStickyCrash)>>
-    : std::integral_constant<bool, Cost::kStickyCrash> {};
 
 template <class Dyn, bool X0>
 __global__ void __launch_bounds__(kBlockSamples)
@@ -569,6 +566,13 @@ split_cost_cluster_kernel(const float* __restrict__ Y, const float* __restrict__
   }
 }
 
+// The form of B1's split dynamics pass for the model Dyn: 1 the warp form, 5
+// the lane-group form, 0 the one-thread kernel.
+template <class Dyn>
+constexpr int split_dynamics_form() {
+  return kSplitWarp<Dyn> ? 1 : kSplitLanes<Dyn> ? 5 : 0;
+}
+
 template <class Dyn, bool X0>
 int split_dynamics_entry(int device, const float* x0, const float* U, int K,
                          int T, float dt, ModelArgs m, float* Y, void* stream) {
@@ -579,6 +583,10 @@ int split_dynamics_entry(int device, const float* x0, const float* U, int K,
     constexpr int W = Dyn::kWarpSamples;
     const int nb = (K + W - 1) / W;
     split_dynamics_warp_kernel<Dyn, X0><<<nb, 32 * W, 0, s>>>(x0, U, K, T, dt, m, Y);
+  } else if constexpr (kSplitLanes<Dyn>) {
+    const int nb = (K + kLaneSamples - 1) / kLaneSamples;
+    split_dynamics_lanes_kernel<Dyn, X0><<<nb, kLaneSamples * Dyn::kLaneGroup, 0, s>>>(
+        x0, U, K, T, dt, m, Y);
   } else {
     const int nb = (K + kBlockSamples - 1) / kBlockSamples;
     split_dynamics_kernel<Dyn, X0><<<nb, kBlockSamples, 0, s>>>(x0, U, K, T, dt, m, Y);
@@ -709,10 +717,11 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
 // `device`, `stream` one of its streams. Each returns the CUDA error of its
 // launch (0 when it was accepted), or cudaErrorInvalidValue for a mode it
 // does not have. Beside each dynamics entry, <entry>_form() says which form
-// of the pass it launches: 1 the warp form (split_warp.cuh), 0 the
-// one-thread kernel. Each cost entry launches the form `form` names: 3 the
-// cluster form, 0 the one-block form; <entry>_form() says which the build
-// has besides the one-block form (3, or 0 under -DMPPI_COST_ONE_BLOCK).
+// of the pass it launches: 1 the warp form (split_warp.cuh), 5 the lane-group
+// form (split_lanes.cuh, B1's pass only), 0 the one-thread kernel. Each cost
+// entry launches the form `form` names: 3 the cluster form, 0 the one-block
+// form; <entry>_form() says which the build has besides the one-block form
+// (3, or 0 under -DMPPI_COST_ONE_BLOCK).
 #define SPLIT_DYNAMICS_ENTRY_(NAME, DYN, X0)                                  \
   int NAME(int device, const float* x0, const float* U, int K, int T,        \
            float dt, const float* dyn_params, const float* cost_params,      \
@@ -722,7 +731,7 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
         device, x0, U, K, T, dt,                                             \
         ModelArgs{dyn_params, cost_params, cost_map, dyn_map}, Y, stream);   \
   }                                                                          \
-  int NAME##_form() { return kSplitWarp<DYN> ? 1 : 0; }
+  int NAME##_form() { return split_dynamics_form<DYN>(); }
 #define SPLIT_DYNAMICS_X0_ENTRY(PAIR, DYN) \
   SPLIT_DYNAMICS_ENTRY_(split_dynamics_x0_##PAIR, DYN, true)
 #define SPLIT_COST_ENTRY(PAIR, DYN, COST)                                      \

@@ -183,9 +183,12 @@ SIGNATURES = {
 # split_solve_dynamics_warp_kernel: csrc/split_warp.cuh;
 # fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel:
 # csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
-# where the staged form of B4, B3 or B1 (fused_sample_rollout_staged_kernel,
+# where the staged form of B4, B3, B1 or B8 (fused_sample_rollout_staged_kernel,
 # fused_solve_staged_kernel, rollout_costs_staged_kernel:
-# csrc/sample_staged.cuh), 0 where the one-thread kernel; the merge's
+# csrc/sample_staged.cuh; rmppi_rollout_staged_kernel: csrc/rmppi_staged.cuh),
+# 5 where the lane-group form of B1's split dynamics pass
+# (split_dynamics_lanes_kernel: csrc/split_lanes.cuh), 0 where the
+# one-thread kernel; the merge's
 # flash_combine_form() says 4 for its tiled form (flash_combine_tiled_kernel),
 # 0 for the one-block kernel (-DMPPI_COMBINE_ONE_BLOCK); a split cost entry
 # launches the form its caller names, and its _form() says 3 where the build
@@ -221,6 +224,7 @@ launch_counts = {
     "tsallis_reduce_kernel": 0,
     "rmppi_rollout_kernel": 0,
     "rmppi_rollout_warp_kernel": 0,
+    "rmppi_rollout_staged_kernel": 0,
     "riccati_backward_kernel": 0,
     "riccati_ladder_kernel": 0,
     "riccati_ladder_warp_kernel": 0,
@@ -233,6 +237,7 @@ launch_counts = {
     "split_dynamics_kernel": 0,
     "split_solve_dynamics_kernel": 0,
     "split_dynamics_warp_kernel": 0,
+    "split_dynamics_lanes_kernel": 0,
     "split_solve_dynamics_warp_kernel": 0,
     "split_cost_kernel": 0,
     "split_cost_cluster_kernel": 0,

@@ -716,13 +716,14 @@ def _form(lib, fn):
     """The form the entry ``fn`` of the loaded library ``lib`` launches (its
     ``<fn>_form()``, a constant of the build): 0 the one-thread kernel (the
     merge's one-block kernel), 1 the warp form, 2 the staged form (B4, B3,
-    B1), 3 the split cost pass's cluster form (beside its one-block form),
-    4 the merge's tiled form."""
+    B1, B8), 3 the split cost pass's cluster form (beside its one-block
+    form), 4 the merge's tiled form, 5 the lane-group form (B1's split
+    dynamics pass)."""
     return int(getattr(lib, fn + "_form")())
 
 
 _FORM_SUFFIX = {0: "_kernel", 1: "_warp_kernel", 2: "_staged_kernel", 3: "_cluster_kernel",
-                4: "_tiled_kernel"}
+                4: "_tiled_kernel", 5: "_lanes_kernel"}
 
 
 def form_kernel_name(base, entry):
@@ -733,7 +734,9 @@ def form_kernel_name(base, entry):
     gives it; the merge's is ("flash_combine", "flash_combine")) launches,
     as its library reports it: ``<base>_warp_kernel`` where the model's
     step is a network (split dynamics passes, B4, B8),
-    ``<base>_staged_kernel`` for B4, B3 and B1 of every other model,
+    ``<base>_staged_kernel`` for B4, B3, B1 and B8 of every other model,
+    ``split_dynamics_lanes_kernel`` for B1's split dynamics pass of a
+    model with the lane-group step (the bicycle),
     ``flash_combine_tiled_kernel`` for the merge,
     ``split_cost_cluster_kernel`` for a split cost pass whose build
     has the cluster form beside the one-block form, else the one-thread

@@ -175,7 +175,7 @@ def test_rmppi_rollout_kernel_matches_plain(cuda_device, K):
     fr.reset_launch_counts()
     kout = fr.fused_rmppi_rollout(*args)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rmppi_rollout_kernel"] == 1
+    assert fr.launch_counts["rmppi_rollout_staged_kernel"] == 1
     pout = fr.rmppi_rollout_plain(*args)
     for k, p in zip(kout[:3], pout[:3]):
         _close(k, p, rtol=1e-5, atol=1e-6)
@@ -1716,8 +1716,7 @@ def test_rmppi_warp_autorally_matches_plain(cuda_device, K, robust):
 @pytest.mark.cuda
 def test_sample_and_rmppi_entries_report_their_form(cuda_device):
     """The network pairs' B4 and B8 entries launch the warp form, every
-    other pair's B4 the staged form and B8 the one-thread kernel
-    (``<entry>_form``)."""
+    other pair's B4 and B8 the staged form (``<entry>_form``)."""
     from mppi_generic_tpu_torch.ops import _build
 
     for pair in _build.PAIR_KERNELS:
@@ -1725,8 +1724,7 @@ def test_sample_and_rmppi_entries_report_their_form(cuda_device):
             entry = _build.pair_entry(pair, kind)
             if entry is None:
                 continue
-            other = "_staged_kernel" if kind == "sample" else "_kernel"
-            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else base + other
+            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_staged_kernel"
             assert fr.form_kernel_name(base, entry) == want, (pair, kind)
 
 
@@ -2104,3 +2102,115 @@ def test_cost_pass_launches_the_form_its_rule_picks(cuda_device, earlier_forms, 
         torch.cuda.synchronize()
         assert fr.launch_counts[form] == 1 + (not cluster), K_
         assert all(_same(a, b) for a, b in zip(got, one)), K_
+
+
+# --- B8's staged form (csrc/rmppi_staged.cuh) and the bicycle's lane-group
+# split dynamics pass (csrc/split_lanes.cuh), against their plain versions
+# and their one-thread builds (chip_smoke.py's -DMPPI_RMPPI_ONE_THREAD and
+# -DMPPI_SPLIT_ONE_THREAD) ---
+@pytest.fixture(scope="module")
+def one_thread_b8_lanes():
+    """The one-thread builds of rmppi_rollout.cu and split_bicycle_ar.cu,
+    loaded beside the port's, and chip_smoke (its ``swapped`` points the
+    wrappers at them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+
+    libs = {}
+    chip_smoke.build_variants((
+        (libs, ("MPPI_RMPPI_ONE_THREAD",), "rmppi_one_thread_test", ("rmppi_rollout",)),
+        (libs, ("MPPI_SPLIT_ONE_THREAD",), "lanes_one_thread_test", ("split_bicycle_ar",))))
+    return chip_smoke, libs
+
+
+def _rmppi_inputs(kind, K, T_, dev, seed):
+    """B8's inputs for the DI with its circle or robust cost (discount 0.95:
+    the crash term's discount^t is not 1): raw samples, gains, sigma,
+    coefficients."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn = DoubleIntegratorDynamics.create(control_ranges=[[-2.5, 2.5], [-2.0, 2.0]],
+                                          control_deadband=[0.05, 0.1], device=dev)
+    if kind == "robust":
+        cost = DoubleIntegratorRobustCost(discount=0.95, device=dev)
+        x_nom, x_real = [2.05, 0.0, 0.0, 1.9], [2.12, -0.05, 0.1, 1.8]
+    else:
+        cost = DoubleIntegratorCircleCost(discount=0.95, device=dev)
+        x_nom, x_real = [2.0, 0.0, 0.0, 1.0], [2.15, -0.05, 0.1, 0.9]
+    U = 1.2 * torch.randn((K, T_, C), generator=g, device=dev)
+    gains = -0.8 * torch.rand((T_, C, 4), generator=g, device=dev)
+    sigma = 0.6 + 0.8 * torch.rand((T_, C), generator=g, device=dev)
+    return (dyn, cost, torch.tensor(x_nom, device=dev), torch.tensor(x_real, device=dev), U,
+            gains, sigma, torch.tensor([0.02, 0.5], device=dev), DT, LAM, ALPHA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_,T_", [(2560, 50), (2500, 50), (256, 48), (250, 48), (130, 31),
+                                   (64, 100), (1, 33)])
+@pytest.mark.parametrize("kind", ["circle", "robust"])
+def test_rmppi_staged_matches_plain_and_the_one_thread_build(cuda_device, one_thread_b8_lanes,
+                                                             kind, K_, T_):
+    """B8's staged form against its plain version and the one-thread build:
+    s_nom, j_real, s_fb, the crash flags and U_real bit for bit at the
+    paths' shapes (``rmppi`` 2560 x 50, ``rmppi_di_robust`` 256 x 48), their
+    ragged K, a ragged T and a horizon that refills each stage (100); one
+    launch of rmppi_rollout_staged_kernel."""
+    smoke, libs = one_thread_b8_lanes
+    args = _rmppi_inputs(kind, K_, T_, cuda_device, K_ + T_)
+    fr.reset_launch_counts()
+    got = fr.fused_rmppi_rollout(*args)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rmppi_rollout_staged_kernel"] == 1
+    assert fr.launch_counts["rmppi_rollout_kernel"] == 0
+    with smoke.swapped(libs):
+        one = fr.fused_rmppi_rollout(*args)
+    want = fr.rmppi_rollout_plain(*args)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rmppi_rollout_kernel"] == 1
+    for name, a, b, c in zip(("s_nom", "j_real", "s_fb", "crash", "U_real"), got, one, want):
+        assert torch.equal(a, c), name
+        assert torch.equal(b, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_,T_", [(1920, 100), (1901, 100), (130, 31), (3, 33)])
+def test_split_lanes_matches_plain_and_the_one_thread_build(cuda_device, one_thread_b8_lanes,
+                                                            K_, T_):
+    """The bicycle's split dynamics pass in its lane-group form against its
+    plain version and the one-thread build: Y (T, O, K) bit for bit at the
+    path's shape (1920 x 100), the ragged one, a ragged T and a partly empty
+    block; one launch of split_dynamics_lanes_kernel."""
+    smoke, libs = one_thread_b8_lanes
+    dyn, cost, x0, std, _ = _pair_parts("bicycle_ar", cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K_ + T_)
+    U = (torch.tensor(std, device=cuda_device) * torch.randn((K_, T_, 2), generator=g,
+                                                             device=cuda_device))
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    fr.reset_launch_counts()
+    Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_dynamics_lanes_kernel"] == 1
+    assert fr.launch_counts["split_dynamics_kernel"] == 0
+    with smoke.swapped(libs):
+        one = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+    pY = fr.split_outputs_plain(dyn, x0, U, DT).permute(1, 2, 0)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_dynamics_kernel"] == 1
+    assert torch.isfinite(pY).all()
+    assert torch.equal(Y, pY) and torch.equal(one, pY)
+
+
+@pytest.mark.cuda
+def test_b8_and_lanes_builds_report_their_form(cuda_device, one_thread_b8_lanes):
+    """The DI's B8 entries report the staged form and the bicycle's B1
+    split dynamics pass the lane-group form in the port's build, the
+    one-thread kernels in the one-thread builds."""
+    smoke, libs = one_thread_b8_lanes
+    entries = [(_build.pair_entry(p, "rmppi"), "rmppi_rollout") for p in ("di_circle", "di_robust")]
+    entries.append((_build.pair_entry("bicycle_ar", "split_dynamics"), "split_dynamics"))
+    for entry, base in entries:
+        port = fr.form_kernel_name(base, entry)
+        with smoke.swapped(libs):
+            one = fr.form_kernel_name(base, entry)
+        assert one == base + "_kernel", entry
+        assert port == base + ("_lanes_kernel" if base == "split_dynamics" else "_staged_kernel")
