@@ -15,12 +15,16 @@ flagship and the JAX suite's NLN and Smooth-MPPI rows (bench.py:619-638,
 K=8192, T=100). Then AutoRally (bench.py:704-717 and :775-789: the 6-32-32-4
 network dynamics and ARStandardCost on the 128^2 and the 4 x 1024^2
 channel-major track maps, K=1920, T=150): the fused solve and rollout
-kernels' AutoRally entries against their plain versions
-(``autorally_kernels``), a fused-vs-combined reference, and three closed
+kernels' AutoRally entries against their plain versions, the fused solve's
+warp form (one warp a sample, then its carry pass) also bit for bit against
+its one-thread build and A B B A against it on the 128^2 map
+(``autorally_kernels``; the racer rows' B3 alike in ``racer_kernels``), a
+fused-vs-combined reference, and three closed
 loops with the AutoRally model as the plant (``autorally``,
 ``autorally_1024`` on the fused solve, ``autorally_fused`` on
 ``kernel="fused"``). Then the colored-noise rows (bench.py:641-702): the
-rollout kernel's Tsallis mode, the Tsallis reduction kernel and the merge
+rollout kernel's Tsallis mode, the Tsallis reduction kernel (its tiled form
+also bit for bit and A B B A against the one-block build) and the merge
 against their plain versions (``tsallis_kernels``, DI at K=8192 and 8000,
 T=100), the rollout kernel's bicycle-slip entry on the 128^2 track map
 (``bicycle_kernels``, K=1920 and 1900, T=100), a fused-vs-combined
@@ -46,8 +50,8 @@ T=100; the LSTM-uncertainty model on flat ground, K=1920, T=150): their B1
 entries in four modes and B3 entries (Gaussian, NLN), the LSTM step (B10)
 inside, against their plain versions at K=1920 and the ragged K=1900
 (``racer_kernels``), a fused-vs-combined reference without host syncs
-(``racer_reference``), and the closed loops ``racer_steering`` (10 steps)
-and ``racer_unc`` (5 steps: its eager re-rollout of the mean is about 10^5
+(``racer_reference``), and the closed loops ``racer_steering`` (6 steps)
+and ``racer_unc`` (2 steps: its eager re-rollout of the mean is about 10^5
 launches) on the fused solve, ``racer_steering_fused`` and
 ``racer_unc_fused`` on ``kernel="fused"``. Then the robust family beyond the
 double integrator (the AutoRally instantiation's width,
@@ -93,8 +97,9 @@ the split forced on ``fused`` and ``fused_solve``, the cartpole swing-up and
 the quadrotor hover with the split and their bars, RMPPI with stage 1's
 split on the DI robust cost with its band bar and on AutoRally). The
 earlier phases pass ``split_cost=False``, so they keep the combined kernels
-on their paths (AUTO splits the DI ``fused`` path, AutoRally's and the
-pairs of ``ops/fused_rollout.AUTO_SPLIT``). Each phase prints one JSON
+on their paths (AUTO splits only where ``ops/fused_rollout.AUTO_SPLIT``
+says so: B1 of the network pairs and the bicycle, AutoRally's B1 from one
+x0 per sample, racer steering's B3). Each phase prints one JSON
 line;
 ``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
@@ -212,6 +217,9 @@ K_AR, K_AR_RAGGED, T_AR, S_AR = 1920, 1900, 150, 7
 AR_STD = [0.3, 0.5]
 AR_MAPS = ("128", "1024")
 AR_FUSED_LOOP_STEPS = 20  # the kernel="fused" loop: B1 on the path, kept short
+# the bench row's fused-solve loop (100 steps until B3's warp form and the
+# tiled B5 joined the run, cut for time)
+AR_LOOP_STEPS = 50
 # an AutoRally plain version takes seconds: one timed run after its warm-up
 # keeps the script well inside its time limit (these times are yardsticks)
 N_TIMED_PLAIN_AR = 1
@@ -469,7 +477,7 @@ def fused_kernel_phase(dev, K, p, stride, seed):
         kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(
             *args, optimization_stride=stride)
         same_as_one_thread(f"B3 {kind} K={K}", lambda args=args: fused_solve.fused_solve_carries(
-            *args, optimization_stride=stride), (kc, kcrash, kU, kcarry), "di_circle")
+            *args, optimization_stride=stride), (kc, kcrash, kU, kcarry), "di_circle", "solve")
         pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(
             *args, optimization_stride=stride)
         km, kb, ke = fr.flash_combine(kcarry, T, C, LAM)
@@ -574,7 +582,7 @@ def kernel_phase(dev, K, p, seed):
         if not torch.equal(kcrash, pcrash):
             raise AssertionError("crash flags differ from the plain version")
         mode = f"costs{'+lr' if with_lr else ''}"
-        same_as_one_thread(f"B1 {mode} K={K}", run, (kc, kcrash), "di_circle")
+        same_as_one_thread(f"B1 {mode} K={K}", run, (kc, kcrash), "di_circle", "rollout")
         times[mode] = {
             "ms": form_time(run, "di_circle", "rollout", mode, K == K_MAIN),
             "plain_ms": time_ms(lambda: fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp),
@@ -588,7 +596,7 @@ def kernel_phase(dev, K, p, seed):
 
     kc, kcrash, kcarry = run_epilogue()
     same_as_one_thread(f"B1 epilogue+lr K={K}", run_epilogue, (kc, kcrash, kcarry),
-                       "di_circle")
+                       "di_circle", "rollout")
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     pcarry = fr.block_carries_plain(pc, U, LAM)
     checks.append(check("epilogue costs", kc, pc, "costs"))
@@ -1214,8 +1222,11 @@ def ar_solve_work(cost, K, kind):
 def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
     """B3 (Gaussian, NLN) and B1 (its four modes) with the AutoRally entry
     against their plain versions: U, costs and crash flags to the last bit,
-    the carries and the merge as the DI kernels'. Times by CUDA events; the
-    plain versions' only where ``timed_plain``."""
+    the carries and the merge as the DI kernels'; B3's warp form also its
+    carry rows in write_block_carry's order and every output of the
+    one-thread build bit for bit. Times by CUDA events (B3 A B B A against
+    the one-thread build on the 128^2 map at K_AR); the plain versions' only
+    where ``timed_plain``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dyn, cost = ar_parts(map_kind, dev)
     x0 = ar_x0(dev)
@@ -1223,11 +1234,15 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
     seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
     checks, times, crashed = [], {}, {}
 
-    def timing(kernel, plain, work):
-        t = {"ms": time_ms(kernel, N_TIMED),
+    def timing(kernel, plain, work, form=None):
+        # form: the mode of a B3 launch, A B B A at the path's shape
+        t = {"ms": (form_time(kernel, "ar_nn", "solve", form, at_path)
+                    if form else time_ms(kernel, N_TIMED)),
              "plain_ms": time_plain(plain) if timed_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         return t
+
+    at_path = map_kind == "128" and K == K_AR
 
     def merge_checks(name, kcarry, pcarry, pc, U):
         km, kb, ke = fr.flash_combine(kcarry, T_AR, C, LAM)
@@ -1243,10 +1258,15 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
         kw = dict(optimization_stride=stride)
         kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False,
                                                                  **kw)
+        name = f"B3 {kind}"
+        same_as_one_thread(f"AutoRally {name} K={K} map {map_kind}", lambda args=args: (
+            fused_solve.fused_solve_carries(*args, split_cost=False, **kw)),
+            (kc, kcrash, kU, kcarry), "ar_nn", "solve")
         pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
         torch.cuda.synchronize()
-        name = f"B3 {kind}"
         same(f"{name} crash flags", kcrash, pcrash)
+        same(f"{name} carry rows in write_block_carry's order", kcarry,
+             fr.block_carries_ordered(pc, pU, fr._f32(LAM)))
         checks += [check(f"{name} U", kU, pU, "bitwise"),
                    check(f"{name} costs", kc, pc, "bitwise"),
                    *merge_checks(name, kcarry, pcarry, pc, pU)]
@@ -1254,7 +1274,7 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
         times[name] = timing(lambda: fused_solve.fused_solve_carries(*args, split_cost=False,
                                                                      **kw),
                              lambda: fused_solve.fused_solve_plain(*args, **kw),
-                             ar_solve_work(cost, K, kind))
+                             ar_solve_work(cost, K, kind), kind)
         if kind == "gaussian":  # the merge at this path's shapes
             times["flash_combine"] = timing(
                 lambda: fr.flash_combine(kcarry, T_AR, C, LAM),
@@ -1427,10 +1447,12 @@ def tsallis_reduce_work(K, T_=T):
 def tsallis_kernel_phase(dev, K, p, stride, seed):
     """B1's Tsallis mode (costs and block minima), B5 (rho and the rows)
     and the merge against their plain versions, for gamma 10 / r 2 and a
-    gamma that zeros some weights; costs, crash flags, minima and rho to the
-    last bit, the rows, eta and the new mean at the exp epilogue's
-    tolerances; the tsallis_reduce entry alone with a given device rho. At
-    K_MAIN also the times, bounds and the eager weights + matmul."""
+    gamma that zeros some weights; costs, crash flags, minima, rho and the
+    rows to the last bit (the rows and rho also against the one-block build
+    of B5), eta and the new mean at the exp epilogue's tolerances; the
+    tsallis_reduce entry alone with a given device rho. At K_MAIN also the
+    times (B5 A B B A against the one-block build, by CUDA events and the
+    profiler), bounds and the eager weights + matmul."""
     dyn, cost, x0, U, lr = colored_inputs(dev, K, p, seed, stride)
     by_kernel = {"rollout_costs_kernel": [], "tsallis_reduce_kernel": [],
                  "flash_combine_kernel": []}
@@ -1442,6 +1464,8 @@ def tsallis_kernel_phase(dev, K, p, stride, seed):
         name = f"gamma {gamma} r {r}"
         kc, kcrash, kmin = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False)
         krows, krho = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
+        with earlier_forms():  # the one-block build
+            one_rows = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
         km, _, ke = fr.flash_combine(krows, T, C, 1.0)
         _, _, fm, frho, fe = fr.fused_weighted_rollout(
             dyn, cost, x0, U, DT, LAM, lr, weight_kind="tsallis", weight_params=(gamma, r),
@@ -1453,6 +1477,8 @@ def tsallis_kernel_phase(dev, K, p, stride, seed):
         same(f"{name} crash flags", kcrash, pcrash)
         same(f"{name} block minima", kmin, pmin)
         same(f"{name} rho", krho, prho)
+        same(f"{name} rows", krows, prows)
+        same_bits(f"{name} rows and rho", (krows, krho), one_rows)
         same(f"{name} fused_weighted_rollout rho", frho, prho)
         by_kernel["rollout_costs_kernel"].append(check(f"{name} costs", kc, pc, "bitwise"))
         by_kernel["tsallis_reduce_kernel"].append(
@@ -1481,8 +1507,14 @@ def tsallis_kernel_phase(dev, K, p, stride, seed):
                     fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)[0]), N_TIMED_PLAIN)}
             times["pass1"]["bound_ms"], times["pass1"]["bound_by"] = bound_ms(
                 *pass1_work(K))
-            t = timed(lambda: fr.tsallis_block_rows(U, kc, kmin, gamma, r),
-                      lambda: fr.tsallis_rows_plain(U, pc, prho, g32, pw))
+            # the tiled kernel A B B A against the one-block build, by CUDA
+            # events and by the profiler's device time
+            b5 = lambda: fr.tsallis_block_rows(U, kc, kmin, gamma, r)  # noqa: E731
+            t = abba_against(b5, earlier_forms)
+            t["device"] = device_abba(b5, TSALLIS, "tsallis_reduce_kernel", earlier_forms)
+            t["earlier"] = {k: t[k] for k in ("ms", "other_ms", "abba_ms", "faster", "device")}
+            t["plain_ms"] = time_ms(lambda: fr.tsallis_rows_plain(U, pc, prho, g32, pw),
+                                    N_TIMED_PLAIN)
             t["bound_ms"], t["bound_by"] = bound_ms(*tsallis_reduce_work(K))
             # the eager weights and their weighted sum of U: several calls,
             # a yardstick that the port does not use
@@ -1596,7 +1628,7 @@ def bicycle_kernel_phase(dev, K, p, stride, seed, timed_plain):
             return fr.block_minima_plain(pc) if mode.startswith("tsallis") else pc
 
         kout = kernel()
-        same_as_one_thread(f"bicycle B1 {mode} K={K}", kernel, kout, "bicycle_ar")
+        same_as_one_thread(f"bicycle B1 {mode} K={K}", kernel, kout, "bicycle_ar", "rollout")
         pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
         torch.cuda.synchronize()
         name = f"bicycle {mode}"
@@ -1824,9 +1856,14 @@ RACER_INDICES = (2, 3, 5, 6, 0, 1)
 # about 41,000 launches per step for the steering row (0.9 s), several times
 # that for the uncertainty row; its loop is shorter, and a profiler window
 # (about 0.35 ms per recorded launch) is one step.
-RACER_STEERING_LOOP_STEPS = 10
-RACER_UNC_LOOP_STEPS = 5
-RACER_FUSED_LOOP_STEPS = 3  # the kernel="fused" loops: B1 on the path
+# cut for time from 10 and 5 when B3's warp form joined the run
+RACER_STEERING_LOOP_STEPS = 6
+RACER_UNC_LOOP_STEPS = 2
+# the racer rows' ragged kernel cases (K 1900 / 1901) run one partial chunk
+# of steps: their plain versions take seconds at the paths' T (cut for time
+# from T_RACER when B3's warp form joined the run)
+RACER_RAGGED_T = 31
+RACER_FUSED_LOOP_STEPS = 2  # the kernel="fused" loops: B1 on the path (3 until cut for time)
 
 
 def lstm_ops(I, NO, H=16, N1=16):
@@ -1971,7 +2008,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
     @ U beside the epilogue."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dyn, cost, x0, std, offset, ops = zoo_parts(pair, dev)
-    C_, T_ = dyn.CONTROL_DIM, T_RACER.get(pair, T_ZOO)
+    C_, T_ = dyn.CONTROL_DIM, case_T(pair, K, T_RACER.get(pair, T_ZOO))
     mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
     mean[:, -1] += offset
     seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
@@ -2021,7 +2058,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
             return fr.block_minima_plain(pc) if mode.startswith("tsallis") else pc
 
         kout = kernel()
-        same_as_one_thread(f"{pair} B1 {mode} K={K}", kernel, kout, pair)
+        same_as_one_thread(f"{pair} B1 {mode} K={K}", kernel, kout, pair, "rollout")
         # the three "+lr" modes share one plain rollout
         with_lr = lrp is not None
         if with_lr not in plain_costs:
@@ -2056,11 +2093,14 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                                                                  **kw)
         same_as_one_thread(f"{pair} B3 {kind} K={K}", lambda args=args: (
             fused_solve.fused_solve_carries(*args, split_cost=False, **kw)),
-            (kc, kcrash, kU, kcarry), pair)
+            (kc, kcrash, kU, kcarry), pair, "solve")
         pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
         torch.cuda.synchronize()
         name = f"B3 {kind}"
         same(f"{pair} {name} crash flags", kcrash, pcrash)
+        if pair in WARP_PAIRS:  # the warp form's carry pass
+            same(f"{pair} {name} carry rows in write_block_carry's order", kcarry,
+                 fr.block_carries_ordered(pc, pU, fr._f32(LAM)))
         merged, carry = merge_checks(f"{pair} {name}", kcarry, pcarry, pc, pU)
         by_kernel["fused_solve_kernel"] += [
             check(f"{pair} {name} U", kU, pU, "bitwise"),
@@ -2258,7 +2298,7 @@ def build_cartpole(kernel, **kw):
 def zoo_loops(dev):
     """The zoo's closed loops. Returns {path: (launches, entry launches)}."""
     n, n_b1 = CLOSED_LOOP_STEPS, ZOO_B1_STEPS
-    solve_want = lambda pair, k=n: {b3_kernel(pair): k, MERGE: k}
+    solve_want = lambda pair, k=n: solve_launches(pair, k)
     b1_want = lambda pair, k=n_b1: {b1_kernel(pair): k, MERGE: k}
     paths = {}
 
@@ -2375,8 +2415,7 @@ def racer_loops(dev):
         # a profile window of the steering row only: the uncertainty row's
         # 1.3e5 launches a step take about a minute to trace and parse
         out = model_loop_phase(f"racer_{kind}", build_racer(pair, "fused_solve"),
-                               racer_x0(pair, dev), n,
-                               {b3_kernel(pair): n, MERGE: n},
+                               racer_x0(pair, dev), n, solve_launches(pair, n),
                                profile=kind == "steering" and 1, pair=pair)
         paths[f"racer_{kind}"] = out[:2]
         n = RACER_FUSED_LOOP_STEPS
@@ -2882,8 +2921,7 @@ def robust_family_loops(dev):
     paths["rmppi_autorally"] = out[:2]
     out = robust_family_loop(
         "tube_autorally", build_tube_ar("fused_solve"), ar_x0(dev), n,
-        {b3_kernel("ar_nn"): 2 * n, MERGE: 2 * n,
-         LADDER: n}, map="128", cost="ARStandardCost")
+        {**solve_launches("ar_nn", 2 * n), LADDER: n}, map="128", cost="ARStandardCost")
     paths["tube_autorally"] = out[:2]
     n = ROBUST_DI_STEPS
     rng = np.random.RandomState(1)
@@ -2979,7 +3017,8 @@ def instantiations_phase(dev):
         wall_s = time.perf_counter() - t0
         launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
         solve = fr.form_kernel_name("fused_solve", fr._entry(ctrl.dynamics, ctrl.cost, "solve"))
-        expect_launches(launches, {solve: n, MERGE: n,
+        carry = n if solve == "fused_solve_warp_kernel" else 0  # the warp form's carry pass
+        expect_launches(launches, {solve: n, MERGE: n, "block_carry_kernel": carry,
                                    LADDER: n if ladder else 0}, name)
         for what, t in (("state", x), ("control_mean", res.control_mean),
                         ("costs", res.costs)) + ((("gains", fbs.gains),) if with_fb else ()):
@@ -3031,6 +3070,7 @@ def split_inputs(dev, pair, K, p, stride, seed, map_kind):
         samplers = {k: ar_sampler(k, dev, p) for k in ("gaussian", "nln")}
     else:
         dyn, cost, x0, std, offset, T_ = pair_parts(pair, dev, map_kind)
+        T_ = case_T(pair, K, T_)
         samplers = {k: zoo_sampler(k, dyn.CONTROL_DIM, std, dev, p, T_)
                     for k in ("gaussian", "nln")}
     C_ = dyn.CONTROL_DIM
@@ -3267,13 +3307,22 @@ def build_split_vanilla(kernel, split_cost):
         num_rollouts=K_MAIN, num_iters=1, kernel=kernel, split_cost=split_cost)
 
 
+def split_choice(dyn, cost, kernel):
+    """``split_cost`` for a loop that is to run the split form on ``kernel``
+    ("fused" or "fused_solve"): None where AUTO takes the split for the pair
+    (``fr.AUTO_SPLIT``), else True (forced)."""
+    auto = fr.resolve_split(dyn, cost, None, "solve" if kernel == "fused_solve" else "rollout")
+    return None if auto else True
+
+
 def split_loops(dev):
     """The flagship's 100-step closed loop with the split form forced on
     ``fused`` and on ``fused_solve`` and on the eager ``kernel="split"``
-    path (the flagship's bar), then AutoRally's loops on the default split
-    choice (AUTO: the split form, its dynamics passes in their warp form):
-    20 steps on ``fused_solve``, a few on ``fused`` (states finite, the
-    crashed share recorded). Returns {path: (launches, entry launches)}."""
+    path (the flagship's bar), then AutoRally's split loops (the split
+    form's dynamics passes in their warp form; on AUTO where it takes the
+    split, else forced: ``split_choice``): 20 steps on ``fused_solve``, a
+    few on ``fused`` (states finite, the crashed share recorded). Returns
+    {path: (launches, entry launches)}."""
     n = CLOSED_LOOP_STEPS
     paths = {}
     for path, kernel, split, want in (
@@ -3294,7 +3343,7 @@ def split_loops(dev):
         dyn, cost = ar_parts("128")
         ctrl = VanillaMPPI(dyn, cost, ar_sampler("gaussian"), dt=DT, lam=LAM, alpha=ALPHA,
                            num_timesteps=T_AR, num_rollouts=K_AR, num_iters=1, kernel=kernel,
-                           split_cost=None)
+                           split_cost=split_choice(dyn, cost, kernel))
         launches, entries, _, _ = model_loop_phase(
             path, ctrl, ar_x0(dev), steps,
             {dyn_kernel: steps, cost_kernel("ar_nn", K_AR, T_AR): steps, MERGE: steps},
@@ -3376,7 +3425,8 @@ SPLIT_PAIRS = ("cartpole", "quadrotor_quadratic", "di_quadratic", "dubins_quadra
                "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
 MAP_PAIRS = ("ar_nn", "bicycle_ar", "racer_steering_ar")  # on the partly-crashing map too
 PAIR_LOOP_STEPS = 20  # the new entries' loops on the cheap pairs
-PAIR_LOOP_STEPS_HEAVY = 3  # the racer models' (about 10^5 eager launches per step)
+# the racer models' (about 10^5 eager launches per step; 3 until cut for time)
+PAIR_LOOP_STEPS_HEAVY = 2
 SPLIT_LOOP_STEPS = 5  # the forced-split loops that put each split entry on a path
 # the partly-crashing map: the bicycle and the racer steering model start
 # 5 m before the block at x = 10.35 m at 3 m/s (AutoRally's network at
@@ -3446,6 +3496,7 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
     plain version's (Smooth with its epilogue; B3 Gaussian)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dyn, cost, x0, std, offset, T_ = pair_parts(pair, dev, map_kind)
+    T_ = case_T(pair, K, T_)
     ops = sum(PAIR_OPS[pair])
     C_ = dyn.CONTROL_DIM
     mean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
@@ -3523,7 +3574,7 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
                                                                      **kw)
             same_as_one_thread(f"{pair} B3 {kind} K={K}", lambda args=args: (
                 fused_solve.fused_solve_carries(*args, split_cost=False, **kw)),
-                (kc, kcrash, kU, kcarry), pair)
+                (kc, kcrash, kU, kcarry), pair, "solve")
             pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
             torch.cuda.synchronize()
             name = f"B3 {kind}"
@@ -3643,10 +3694,9 @@ def one_thread_fields(kind, pair):
     one-thread row a warp entry replaces, or the staged form of B4, B3, B1 or
     B8 timed A B B A against the one-thread kernel in this run, by mode (none
     for a one-thread entry)."""
-    if (kind in ("sample", "solve", "rollout") and pair in STAGED_PAIRS) or (
-            kind == "rmppi" and pair in B8_STAGED_PAIRS):
+    if earlier_form(pair, kind) is not None or (kind == "rmppi" and pair in B8_STAGED_PAIRS):
         return {"one_thread_abba": {m: {k: t.get(k) for k in (
-            "ms", "other_ms", "abba_ms", "faster")}
+            "ms", "other_ms", "abba_ms", "faster", "device")}
             for m, t in FORM_TIMES[(kind, pair)].items()}}
     row = ONE_THREAD_ROWS.get((kind, pair))
     if row is None or not split_name(pair, kind).endswith("_warp_kernel"):
@@ -3697,6 +3747,17 @@ def b3_kernel(pair):
     return split_name(pair, "solve")
 
 
+def solve_launches(pair, k):
+    """The launches of k fused solves of ``pair`` (B3 in the form its entry
+    reports, and the merge): the warp form adds its carry pass
+    (block_carry_kernel)."""
+    name = b3_kernel(pair)
+    out = {name: k, MERGE: k}
+    if name == "fused_solve_warp_kernel":
+        out["block_carry_kernel"] = k
+    return out
+
+
 def sample_launches(pair, k, epilogue=False):
     """The launches of k B4 solves of ``pair`` in the form its entry reports:
     the sampling kernel, and with Smooth-MPPI's epilogue the merge and, in
@@ -3711,9 +3772,10 @@ def sample_launches(pair, k, epilogue=False):
 
 
 def device_ms(fn, name=None, n=N_TIMED_KERNEL):
-    """The median device ms of the kernel whose name holds ``name`` (every
-    kernel of a run, summed, with no ``name``) over the last n of 2 n runs
-    of ``fn`` (a launch sequence holding the kernel once), from a
+    """The median device ms of the kernel whose name holds ``name`` (a tuple
+    of names: those kernels, summed; every kernel of a run, summed, with no
+    ``name``) over the last n of 2 n runs of ``fn`` (a launch sequence
+    holding each named kernel once), from a
     torch.profiler window: device time alone, without the launches' gaps.
     The runs are parted by a host pause, which leaves a gap of a
     millisecond or more between them on the device's clock (``last_runs``).
@@ -3728,12 +3790,13 @@ def device_ms(fn, name=None, n=N_TIMED_KERNEL):
             fn()
             torch.cuda.synchronize()
             time.sleep(0.002)
+    names = (name,) if isinstance(name, str) else name
     seen = sorted((e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and (name is None or name in e.name)),
+                   and (names is None or any(m in e.name for m in names))),
                   key=lambda e: e.time_range.start)
     runs = last_runs(seen, n)
-    if runs is None or (name is not None and len(runs[0]) != 1):
+    if runs is None or (names is not None and len(runs[0]) != len(names)):
         raise AssertionError(f"the profiler saw {len(seen)} launches of "
                              f"{name or 'any kernel'} in {2 * n} runs, not {n} whole runs "
                              f"of one launch sequence at the end")
@@ -3782,17 +3845,23 @@ B8_STAGED_PAIRS = ("di_circle", "di_robust")
 B8_SOURCE = "rmppi_rollout"
 LADDER_ONE_THREAD = {}  # {"riccati": the loaded one-thread ladder build}
 SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4, B3, B1 and B8 build}
-# the merge's and the split cost pass's earlier forms (one block of 256
-# threads for the merge, one block of 512 a 64-sample block for the cost
-# pass): the merge's source and the split sources of the pairs whose cost
-# pass AUTO or the flagship's split loop takes
 MERGE = "flash_combine_tiled_kernel"  # the merge in the port's build (check_forms)
 COST = "split_cost_cluster_kernel"  # the split cost pass there
-EARLIER_DEFINES = ("MPPI_COMBINE_ONE_BLOCK", "MPPI_COST_ONE_BLOCK")
+TSALLIS = "tsallis_reduce_tiled_kernel"  # the Tsallis reduction there
+# the merge's, the split cost pass's and the Tsallis reduction's earlier forms
+# (one block of 256 threads for the merge, one block of 512 a 64-sample
+# block for the cost pass, one block of 256 a 64-sample block for the
+# Tsallis reduction): their sources, the split sources being those of the
+# pairs whose cost pass AUTO or the flagship's split loop takes
+EARLIER_DEFINES = ("MPPI_COMBINE_ONE_BLOCK", "MPPI_COST_ONE_BLOCK", "MPPI_TSALLIS_ONE_BLOCK")
 EARLIER_SOURCES = ("flash_combine", "split_ar_nn", "split_bicycle_ar", "split_di_circle",
                    "split_racer_steering_ar", "split_racer_unc_ar", "split_quadrotor_quadratic",
-                   "split_di_robust")
+                   "split_di_robust", "tsallis_reduce")
 EARLIER = {}  # {source: the loaded earlier-form build}
+# the network pairs' combined B3 runs the warp form (csrc/sample_warp.cuh);
+# -DMPPI_SOLVE_ONE_THREAD builds their one-thread B3 from the same sources
+WARP_SOLVE_SOURCES = tuple(_build.pair_entry(p, "solve")[0] for p in WARP_PAIRS)
+SOLVE_ONE_THREAD = {}  # {source: the loaded one-thread B3 build of a network pair}
 # (libraries it fills, -D flags, build directory, sources)
 VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread",
              WARP_SOURCES + LANES_SOURCES),
@@ -3800,6 +3869,8 @@ VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread",
             (SAMPLE_ONE_THREAD, ("MPPI_SAMPLE_ONE_THREAD", "MPPI_SOLVE_ONE_THREAD",
                                  "MPPI_ROLLOUT_ONE_THREAD", "MPPI_RMPPI_ONE_THREAD"),
              "sample_one_thread", STAGED_SOURCES + (B8_SOURCE,)),
+            (SOLVE_ONE_THREAD, ("MPPI_SOLVE_ONE_THREAD",), "solve_one_thread",
+             WARP_SOLVE_SOURCES),
             (EARLIER, EARLIER_DEFINES, "earlier_forms", EARLIER_SOURCES))
 
 
@@ -3809,7 +3880,8 @@ def build_one_thread():
     sample), riccati.cu with -DMPPI_LADDER_ONE_THREAD, the staged pairs'
     sources and rmppi_rollout.cu with -DMPPI_SAMPLE_ONE_THREAD,
     -DMPPI_SOLVE_ONE_THREAD, -DMPPI_ROLLOUT_ONE_THREAD and
-    -DMPPI_RMPPI_ONE_THREAD, and EARLIER_SOURCES with EARLIER_DEFINES
+    -DMPPI_RMPPI_ONE_THREAD, the network pairs' sources with
+    -DMPPI_SOLVE_ONE_THREAD, and EARLIER_SOURCES with EARLIER_DEFINES
     (build_variants)."""
     return build_variants(VARIANTS)
 
@@ -3876,9 +3948,25 @@ def one_thread_sample():
 
 
 def earlier_forms():
-    """Inside, the merge and the split cost pass of EARLIER_SOURCES launch
-    their earlier one-block kernels."""
+    """Inside, the merge, the split cost pass of EARLIER_SOURCES and the
+    Tsallis reduction launch their earlier one-block kernels."""
     return swapped(EARLIER)
+
+
+def one_thread_solve():
+    """Inside, the network pairs' B3 launches the one-thread kernel."""
+    return swapped(SOLVE_ONE_THREAD)
+
+
+def earlier_form(pair, kind):
+    """The context in which ``pair``'s entry ``kind`` launches the form its
+    redesign replaced (the one-thread kernel), or None: B4, B3 and B1 of
+    the staged pairs, B3 of the network pairs."""
+    if pair in STAGED_PAIRS and kind in ("sample", "solve", "rollout"):
+        return one_thread_sample
+    if pair in WARP_PAIRS and kind == "solve":
+        return one_thread_solve
+    return None
 
 
 def check_forms():
@@ -3888,9 +3976,12 @@ def check_forms():
     form; each B4 and B8 entry the warp form for a warp pair, else the
     staged form (the one-thread kernel in the one-thread build);
     each B3 and B1 entry (one x0 or one per sample) the staged form for a
-    staged pair (the one-thread kernel in the one-thread build), else the
-    one-thread kernel; the ladder the warp recursion (the one-thread ladder
-    in its one-thread build)."""
+    staged pair (the one-thread kernel in the one-thread build), else B3
+    the warp form (the one-thread kernel in the network pairs' one-thread
+    build) and B1 the one-thread kernel; the ladder the warp recursion (the
+    one-thread ladder in its one-thread build); the merge, the split cost
+    pass and the Tsallis reduction their new forms (their one-block kernels
+    in the earlier forms' build)."""
     for pair in WARP_PAIRS:
         for kind in ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0"):
             if _build.pair_entry(pair, kind) is None:
@@ -3924,10 +4015,16 @@ def check_forms():
             if _build.pair_entry(pair, kind) is None:
                 continue
             base = FORM_BASE[kind]
-            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_kernel")
+            want = base + ("_staged_kernel" if pair in STAGED_PAIRS
+                           else "_warp_kernel" if kind == "solve" else "_kernel")
             if split_name(pair, kind) != want:
                 raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
                                      f"expected {want}")
+    for pair in WARP_PAIRS:
+        with one_thread_solve():
+            one = split_name(pair, "solve")
+        if one != "fused_solve_kernel":
+            raise AssertionError(f"{pair}: the one-thread B3 build reports {one}")
     for pair in STAGED_PAIRS:
         for kind in ("sample", "solve", "rollout"):
             if _build.pair_entry(pair, kind) is None:
@@ -3944,6 +4041,10 @@ def check_forms():
         one = fr.merge_kernel_name()
     if (fr.merge_kernel_name(), one) != (MERGE, "flash_combine_kernel"):
         raise AssertionError(f"the merge builds report {fr.merge_kernel_name()}, {one}")
+    with earlier_forms():
+        one = fr.tsallis_kernel_name()
+    if (fr.tsallis_kernel_name(), one) != (TSALLIS, "tsallis_reduce_kernel"):
+        raise AssertionError(f"the Tsallis builds report {fr.tsallis_kernel_name()}, {one}")
     for pair in _build.PAIR_KERNELS:
         if _build.pair_entry(pair, "split_cost") is None:
             continue
@@ -3979,24 +4080,31 @@ FORM_TIMES = {}  # {("ladder" | "sample" | "solve" | "rollout", key): A B B A ag
 def form_time(fn, pair, kind, mode, at_path=True):
     """The ms of ``fn``, a launch of ``pair``'s B3 (kind "solve") or B1
     ("rollout") entry: at its path's shape (``at_path``), where the entry
-    runs the staged form, A B B A against the one-thread build (kept in
-    FORM_TIMES[(kind, pair)][mode] for the kernels line), else CUDA events
-    alone. The A B B A takes the place of the single timing, so no entry is
-    timed twice."""
-    if not at_path or pair not in STAGED_PAIRS:
+    runs a redesigned form (``earlier_form``: the staged form, or the
+    network pairs' B3 warp form), A B B A against the one-thread build (kept
+    in FORM_TIMES[(kind, pair)][mode] for the kernels line; the warp B3's
+    also by the profiler's device time, its carry pass included), else CUDA
+    events alone. The A B B A takes the place of the single timing, so no
+    entry is timed twice."""
+    other = earlier_form(pair, kind)
+    if not at_path or other is None:
         return time_ms(fn, N_TIMED)
-    t = abba_against(fn, one_thread_sample)
+    t = abba_against(fn, other)
+    if other is one_thread_solve:
+        t["device"] = device_abba(fn, ("fused_solve_warp_kernel", "block_carry_kernel"),
+                                  "fused_solve_kernel", other)
     FORM_TIMES.setdefault((kind, pair), {})[mode] = t
     return t["ms"]
 
 
-def same_as_one_thread(what, fn, out, pair):
-    """Where ``pair``'s entries run the staged form: ``fn`` (a B3 or B1
-    launch from one x0) on the one-thread build returns ``out``, the port's
-    outputs, bit for bit."""
-    if pair not in STAGED_PAIRS:
+def same_as_one_thread(what, fn, out, pair, kind):
+    """Where ``pair``'s entry ``kind`` runs a redesigned form
+    (``earlier_form``): ``fn`` (a B3 or B1 launch from one x0) on the
+    one-thread build returns ``out``, the port's outputs, bit for bit."""
+    other = earlier_form(pair, kind)
+    if other is None:
         return
-    with one_thread_sample():
+    with other():
         one = fn()
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(out, one)):
@@ -4357,7 +4465,7 @@ def staged_solve_rollout_checks(dev, g, pair, K, T_, p, stride, mean, seed_t):
               check(f"{label} B3 U", kU, pU, "bitwise"),
               check(f"{label} B3 carry rows", kcarry, fr.block_carries_ordered(pc, pU, lam),
                     "bitwise")]
-    same_as_one_thread(f"{label} B3", solve, (kc, kcrash, kU, kcarry), pair)
+    same_as_one_thread(f"{label} B3", solve, (kc, kcrash, kU, kcarry), pair, "solve")
     lr = (mean, s._sigma(T_, 0).contiguous(), s.control_cost_coeff, LAM, ALPHA,
           s.pure_threshold(K))
     x0s = (x0 + 0.05 * torch.randn((K, x0.numel()), generator=g, device=dev)).contiguous()
@@ -4386,7 +4494,7 @@ def staged_solve_rollout_checks(dev, g, pair, K, T_, p, stride, mean, seed_t):
         if epi == fr.EPI_MIN:
             same(f"{label} B1 {mode} block minima", kout[2], fr.block_minima_plain(pc))
         if xin.dim() == 1:
-            same_as_one_thread(f"{label} B1 {mode}", run, kout, pair)
+            same_as_one_thread(f"{label} B1 {mode}", run, kout, pair, "rollout")
     return checks
 
 
@@ -4510,6 +4618,12 @@ PAIR_TYPES = {
 }
 
 
+def case_T(pair, K, T_):
+    """The horizon of a kernel case of ``pair`` at K samples: T_, the path's,
+    but RACER_RAGGED_T for a racer row's ragged K."""
+    return RACER_RAGGED_T if pair in RACER_PAIRS and K != pair_shape(pair)[0] else T_
+
+
 def pair_shape(pair):
     """(K, ragged K, T) of a pair's path."""
     if pair == "ar_nn":
@@ -4578,10 +4692,11 @@ def warp_fields(pass_times, warp, key, by_path):
     return t, extra
 
 
-def pair_kernel_entries(errs, times, paths, warp_times=None):
+def pair_kernel_entries(errs, times, paths, warp_times=None, carry_paths=None):
     """The ``kernels`` line's entries of the new kernels: launches counted
     per C entry over every path of ``paths`` ({path: (launches, entry
-    launches)})."""
+    launches)}); the carry pass's also over ``carry_paths`` ({path:
+    launches})."""
     def line(name, pair, kind, replaces, t, err, warp_key=None, **extra):
         lib, fn = _build.pair_entry(pair, kind)
         by = {p: e.get(fn, 0) for p, (_, e) in paths.items() if e.get(fn, 0)}
@@ -4623,13 +4738,16 @@ def pair_kernel_entries(errs, times, paths, warp_times=None):
     # the warp form's carry pass (Smooth-MPPI's epilogue): launches over every
     # path, timed at AutoRally's shape, the racers' as modes
     carry = {pair: times[("sample", pair)]["block_carry_kernel"] for pair in WARP_PAIRS}
-    by = {p: l["block_carry_kernel"] for p, (l, _) in paths.items()
+    by = {p: l["block_carry_kernel"] for p, l in (
+        [(p, l) for p, (l, _) in paths.items()] + list((carry_paths or {}).items()))
           if l.get("block_carry_kernel", 0)}
     t = carry["ar_nn"]
     out.append({"name": "block_carry_kernel", "route": "cuda",
                 "source": "mppi_generic_tpu_torch/csrc/sample_warp.cuh",
                 "replaces": "mppi_generic_tpu/ops/pallas_rollout.py:1646-1650 (the "
-                            "epilogue of _fused_sample_call, :1631)",
+                            "epilogue of _fused_sample_call, :1631) and the carry rows "
+                            "of pallas_solve.py:103 (_fused_solve_call, :355-388) "
+                            "after B3's warp form",
                 "launches": sum(by.values()), "launches_by_path": by,
                 "max_abs_err": max(errs[("sample", pair)] for pair in WARP_PAIRS),
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4702,7 +4820,7 @@ def pair_loops(dev):
     bicycle's and the DI robust cost's Gaussian ``fused_solve`` (B3); the
     split form forced on ``fused_solve`` for the cartpole swing-up and the
     quadrotor hover (their bars) and on ``fused`` and ``fused_solve`` for
-    each split pair (the racer rows on the default choice, AUTO); RMPPI
+    each split pair (the racer rows on AUTO where it splits, ``split_choice``); RMPPI
     with stage 1's split forced on the DI robust cost (its band bar) and
     on AUTO for AutoRally. Returns {path: (launches, entry
     launches)}."""
@@ -4716,7 +4834,7 @@ def pair_loops(dev):
 
     b4 = sample_launches
     b4_smooth = lambda k, pair: sample_launches(pair, k, epilogue=True)
-    solve_want = lambda k, pair: {b3_kernel(pair): k, MERGE: k}
+    solve_want = lambda k, pair: solve_launches(pair, k)
     smooth = lambda C_, std, T_: SmoothMPPIDistribution.create(
         std_dev=std, control_cost_coeff=[1.0] * C_, num_timesteps=T_, dt=DT_SMOOTH)
     # AutoRally's bench configuration (bench.py:704-717) with Tsallis weights
@@ -4829,8 +4947,8 @@ def pair_loops(dev):
         raise AssertionError(f"split quadrotor hover missed its bar: position error {pos_err}")
     # each split pair's B1 and B3 split entries on short forced-split loops
     # (the racer steering row on "fused": racer_steering_split_fused); the
-    # racer rows on the default split choice (AUTO: the split form, its
-    # dynamics passes in their warp form)
+    # racer rows on AUTO where it takes the split form (split_choice), its
+    # dynamics passes in their warp form
     for pair in SPLIT_PAIRS:
         k = nh if pair in RACER_PAIRS else SPLIT_LOOP_STEPS
         qmean = None
@@ -4846,7 +4964,7 @@ def pair_loops(dev):
                 ctrl = VanillaMPPI(pdyn, pcost, GaussianDistribution.create(std_dev=RACER_STD),
                                    dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T_RACER[pair],
                                    num_rollouts=K_RC, num_iters=1, kernel=kernel,
-                                   split_cost=None)
+                                   split_cost=split_choice(pdyn, pcost, kernel))
                 x0 = racer_x0(pair, dev)
             elif pair == "bicycle_ar":
                 ctrl = VanillaMPPI(bdyn, bcost, GaussianDistribution.create(std_dev=BI_STD),
@@ -4919,7 +5037,7 @@ def main() -> int:
          ptxas=ptxas({name: b["log"] for name, b in built.items()}),
          one_thread_ptxas=ptxas(one_thread_logs))
     check_forms()
-    # this slice's forms first: B7's warp recursion and B4's staged form
+    # the redesigned forms first: B7's warp recursion and B4's staged form
     # against their plain versions and their one-thread builds
     form_checks = {LADDER: ladder_form_phase(dev)[0], B4_STAGED: staged_form_phase(dev)}
     # the tiled merge and the cluster cost pass against their plain versions
@@ -5027,13 +5145,13 @@ def main() -> int:
     for kind in SAMPLERS:
         by_path["vanilla_fused_solve" if kind == "gaussian" else kind] = (
             fused_loop_phase(kind))
-    n, n_f = CLOSED_LOOP_STEPS, AR_FUSED_LOOP_STEPS
+    n, n_ar, n_f = CLOSED_LOOP_STEPS, AR_LOOP_STEPS, AR_FUSED_LOOP_STEPS
     ar_paths = {
-        "autorally": ar_loop_phase("autorally", "128", "fused_solve", n, {
-            b3_kernel("ar_nn"): n, MERGE: n}),
+        "autorally": ar_loop_phase("autorally", "128", "fused_solve", n_ar,
+                                   solve_launches("ar_nn", n_ar)),
         # the same launches as "autorally": no profiler window of their own
-        "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n_f, {
-            b3_kernel("ar_nn"): n_f, MERGE: n_f}, profile=False),
+        "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n_f,
+                                        solve_launches("ar_nn", n_f), profile=False),
         "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f, {
             b1_kernel("ar_nn"): n_f, MERGE: n_f}, profile=False),
     }
@@ -5043,8 +5161,7 @@ def main() -> int:
             {b1_kernel("di_circle"): n, MERGE: n}, settle=False),
         "colored_tsallis": vanilla_loop_phase(
             "colored_tsallis", build_colored("tsallis", "fused"),
-            {b1_kernel("di_circle"): n, "tsallis_reduce_kernel": n,
-             MERGE: n}, settle=False),
+            {b1_kernel("di_circle"): n, TSALLIS: n, MERGE: n}, settle=False),
     }
     nb = BICYCLE_LOOP_STEPS
     bicycle_paths = {
@@ -5180,7 +5297,8 @@ def main() -> int:
               err=max(ar_errs["fused_solve_kernel"], inst_err("fused_solve_ar_nn")),
               kernel=b3_kernel("ar_nn"), K=K_AR, T=T_AR, device_functions=ar_functions,
               modes={"nln": ar["B3 nln"], "gaussian 1024^2 map": ar1024["B3 gaussian"],
-                     "nln 1024^2 map": ar1024["B3 nln"]}),
+                     "nln 1024^2 map": ar1024["B3 nln"]},
+              **one_thread_fields("solve", "ar_nn")),
         entry(f"{b1_kernel('ar_nn')}<AutorallyNN, ARCost>", "pair_ar_nn.cu",
               "pallas_rollout.py:548", ar["B1 epilogue+lr"],
               ar["B1 epilogue+lr"]["library_ms"], paths=ar_paths,
@@ -5199,9 +5317,9 @@ def main() -> int:
               "pallas_rollout.py:894", ts_times["pass1"], None, paths=colored_paths,
               err=ts_errs["rollout_costs_kernel"], kernel=b1_kernel("di_circle"),
               modes={"epilogue+lr (colored_fused)": epi}),
-        entry("tsallis_reduce_kernel", "tsallis_reduce.cu", "pallas_rollout.py:1342",
+        entry(TSALLIS, "tsallis_reduce.cu", "pallas_rollout.py:1342",
               ts_times["tsallis_reduce"], ts_times["tsallis_reduce"]["library_ms"],
-              paths=colored_paths,
+              paths=colored_paths, earlier_form_abba=ts_times["tsallis_reduce"]["earlier"],
               err=max(ts_errs["tsallis_reduce_kernel"], bi_errs["tsallis_reduce_kernel"]),
               library_calls=ts_times["tsallis_reduce"]["library_calls"],
               modes={m: ts_times[m] for m in (
@@ -5290,10 +5408,10 @@ def main() -> int:
             paths=racer_paths, K=K_RC, T=T_RACER[pair], device_functions=racer_functions,
             modes={m: t[f"B1 {m}"] for m in ("costs", "costs+lr", "tsallis+lr")}))
         kernels.append(zoo_entry(
-            f"fused_solve_kernel<{types}>", pair, f"fused_solve_{pair}",
+            f"{b3_kernel(pair)}<{types}>", pair, f"fused_solve_{pair}",
             "pallas_solve.py:103", t["B3 gaussian"], e, "fused_solve_kernel",
             paths=racer_paths, K=K_RC, T=T_RACER[pair], device_functions=racer_functions,
-            modes={"nln": t["B3 nln"]}))
+            modes={"nln": t["B3 nln"]}, **one_thread_fields("solve", pair)))
     # the merge at the uncertainty row's shapes (30 rows of T=150, C=2), timed
     # in the AutoRally phase at the same shapes
     kernels.append(entry(
@@ -5434,7 +5552,8 @@ def main() -> int:
         if ("sample", pair) in pair_errs:
             pair_errs[("sample", pair)] = max(pair_errs[("sample", pair)],
                                               form_err(B4_STAGED, f"{pair} "))
-    kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times)
+    kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times,
+                                   carry_paths=ar_paths)
     for k in kernels:  # the loops that reach the kernel only by forcing a form
         k["forced_by_path"] = {p: FORCED_BY_PATH[p] for p in k.get("launches_by_path", {})
                                if FORCED_BY_PATH.get(p)}

@@ -111,6 +111,15 @@ __device__ inline void cp_async_f32(float* dst, const float* src) {
                : "memory");
 }
 
+// The same for 16 bytes (four floats; both addresses on 16 bytes), cached in
+// L2 only.
+__device__ inline void cp_async_16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 
 template <int N>

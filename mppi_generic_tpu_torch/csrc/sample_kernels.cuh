@@ -36,12 +36,13 @@
 // warps drawing each chunk of steps into shared memory for consumer threads
 // (sample_staged.cuh); all take a step's controls from sample_controls
 // (sample_draw.cuh). The one-thread B4 kernel below is built only with
-// -DMPPI_SAMPLE_ONE_THREAD, to time the forms in one call. B3 of every model
-// without a network step runs its staged form too
+// -DMPPI_SAMPLE_ONE_THREAD, to time the forms in one call. B3 takes the
+// same forms from solve_controls: a network model's runs the warp form
+// (fused_solve_warp_kernel, sample_warp.cuh, then block_carry_kernel for the
+// carry rows), every other model's the staged form
 // (fused_solve_staged_kernel, sample_staged.cuh: the stage carries each
-// step's controls and C LR terms from solve_controls); the one-thread B3
-// below serves the network models and, with -DMPPI_SOLVE_ONE_THREAD, every
-// model.
+// step's controls and C LR terms); the one-thread B3 below is built only
+// with -DMPPI_SOLVE_ONE_THREAD, for every model.
 //
 // What bounds them on this card: operations, not bytes. Per sample-step they
 // run a ten-round Philox (about 90 integer operations), the Box-Muller logf,
@@ -190,17 +191,17 @@ fused_sample_rollout_kernel(const float* __restrict__ x0, SampleArgs a, int K,
   if (EPILOGUE) write_block_carry<kBlockSamples>(J, valid, lam_w, W, K, TC, carry);
 }
 
-// The form of B3 a model's entry launches: 2 the staged form
-// (fused_solve_staged_kernel, sample_staged.cuh) for a model without the
-// warp form, else, and for every model with -DMPPI_SOLVE_ONE_THREAD, 0 the
-// one-thread kernel (a network model's combined B3 is still one thread a
-// sample).
+// The form of B3 a model's entry launches: 1 the warp form
+// (fused_solve_warp_kernel and the carry pass, sample_warp.cuh) for a model
+// with it (HasWarpStep, warp_model.cuh), else 2 the staged form
+// (fused_solve_staged_kernel, sample_staged.cuh); with
+// -DMPPI_SOLVE_ONE_THREAD, 0 the one-thread kernel for every model.
 template <class Dyn>
 constexpr int solve_form() {
 #ifdef MPPI_SOLVE_ONE_THREAD
   return 0;
 #else
-  return HasWarpStep<Dyn>::value ? 0 : 2;
+  return HasWarpStep<Dyn>::value ? 1 : 2;
 #endif
 }
 
@@ -219,6 +220,9 @@ int fused_solve_entry(int device, int noise_kind, const float* x0,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (solve_form<Dyn>() == 2) {
     return static_cast<int>(launch_solve_staged<Dyn, Cost>(
+        noise_kind, x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry, s));
+  } else if constexpr (solve_form<Dyn>() == 1) {
+    return static_cast<int>(launch_solve_warp<Dyn, Cost>(
         noise_kind, x0, a, K, T, dt, m, lr_gain, lam_w, costs, crash, U, carry, s));
   } else {
     const int nb = (K + kBlockSamples - 1) / kBlockSamples;
@@ -303,7 +307,8 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
 // U (K, T, C) and carry (ceil(K / kBlockSamples), 2 + T*C) are written.
 // Returns the CUDA error of the launch (0 when it was accepted), or
 // cudaErrorInvalidValue for a noise kind this kernel does not draw. Beside
-// it, NAME_form() says which form it launches: 2 the staged form
+// it, NAME_form() says which form it launches: 1 the warp form
+// (fused_solve_warp_kernel, then block_carry_kernel), 2 the staged form
 // (fused_solve_staged_kernel), 0 the one-thread kernel (fused_solve_kernel).
 #define SOLVE_ENTRY(NAME, DYN, COST)                                          \
   int NAME(int device, int noise_kind, const float* x0, const float* mean,   \

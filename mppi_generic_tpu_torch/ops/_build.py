@@ -161,6 +161,7 @@ SIGNATURES = {
     },
     "tsallis_reduce": {
         "tsallis_reduce_block_size": [],
+        "tsallis_reduce_form": [],
         "tsallis_reduce": [
             _I, _P, _P, _P, _I,  # device, U, costs, rho source, its length
             _I, _I, _I, _F, _F,  # K valid, K rows, TC, gamma, 1 / (r - 1)
@@ -181,7 +182,8 @@ SIGNATURES = {
 # the entries with <entry>_form() beside them: 1 where the entry launches the
 # warp form of its kernel (split_dynamics_warp_kernel,
 # split_solve_dynamics_warp_kernel: csrc/split_warp.cuh;
-# fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel:
+# fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel, and
+# fused_solve_warp_kernel, with its carry pass block_carry_kernel:
 # csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
 # where the staged form of B4, B3, B1 or B8 (fused_sample_rollout_staged_kernel,
 # fused_solve_staged_kernel, rollout_costs_staged_kernel:
@@ -190,7 +192,9 @@ SIGNATURES = {
 # (split_dynamics_lanes_kernel: csrc/split_lanes.cuh), 0 where the
 # one-thread kernel; the merge's
 # flash_combine_form() says 4 for its tiled form (flash_combine_tiled_kernel),
-# 0 for the one-block kernel (-DMPPI_COMBINE_ONE_BLOCK); a split cost entry
+# 0 for the one-block kernel (-DMPPI_COMBINE_ONE_BLOCK), and the Tsallis
+# reduction's tsallis_reduce_form() the same (tsallis_reduce_tiled_kernel;
+# tsallis_reduce_kernel with -DMPPI_TSALLIS_ONE_BLOCK); a split cost entry
 # launches the form its caller names, and its _form() says 3 where the build
 # has the cluster form (split_cost_cluster_kernel) beside the one-block
 # split_cost_kernel, 0 where only the latter (-DMPPI_COST_ONE_BLOCK,
@@ -222,6 +226,7 @@ launch_counts = {
     "flash_combine_kernel": 0,
     "flash_combine_tiled_kernel": 0,
     "tsallis_reduce_kernel": 0,
+    "tsallis_reduce_tiled_kernel": 0,
     "rmppi_rollout_kernel": 0,
     "rmppi_rollout_warp_kernel": 0,
     "rmppi_rollout_staged_kernel": 0,
@@ -230,6 +235,7 @@ launch_counts = {
     "riccati_ladder_warp_kernel": 0,
     "fused_solve_kernel": 0,
     "fused_solve_staged_kernel": 0,
+    "fused_solve_warp_kernel": 0,
     "fused_sample_rollout_kernel": 0,
     "fused_sample_rollout_warp_kernel": 0,
     "fused_sample_rollout_staged_kernel": 0,

@@ -4,11 +4,13 @@ Counterpart of ``mppi_generic_tpu/ops/pallas_rollout.py``: the hand-written
 Hopper kernel ``rollout_costs_kernel`` (``csrc/rollout_kernel.cuh``) replaces
 its TPU kernel ``_fused_call`` in three modes, with
 ``flash_combine_tiled_kernel`` (``csrc/flash_combine.cu``: blocks of columns,
-the carry rows staged in shared memory) as the merge of its epilogue; the one in
-``csrc/tsallis_reduce.cu`` its TPU kernel ``_tsallis_reduce_call``, the one
+the carry rows staged in shared memory) as the merge of its epilogue;
+``tsallis_reduce_tiled_kernel`` (``csrc/tsallis_reduce.cu``: a grid of
+sample blocks and column tiles, each block's slab of the samples staged in
+shared memory) its TPU kernel ``_tsallis_reduce_call``, the one
 in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 ``fused_sample_rollout_kernel`` (``csrc/sample_kernels.cuh``) its TPU kernel
-``_fused_sample_call``. For the network models B4, B8 and the split
+``_fused_sample_call``. For the network models B4, B3, B8 and the split
 dynamics passes run a warp form, one warp per sample
 (``csrc/sample_warp.cuh``, ``csrc/rmppi_warp.cuh``, ``csrc/split_warp.cuh``);
 for every other model B4, B3 and B1 run their staged forms, producer warps
@@ -202,15 +204,20 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # cost pass's cluster form: bicycle B1 0.1052 / 0.1467, B3 0.1652 / 0.1602;
 # DI robust B1-x0 0.0153 / 0.0131 (9 x 64 x 48). The network pairs, whose
 # split dynamics passes run one warp per sample (csrc/split_warp.cuh),
-# against their one-thread combined kernels: AutoRally B1 0.261 / 1.066, B3
-# 0.388 / 1.134, B1-x0 0.318 / 1.037 (9 x 256 x 150); racer steering B1
-# 0.479 / 1.202, B3 0.553 / 1.249; racer uncertainty B1 1.401 / 5.855, B3
-# 1.531 / 6.061. Any other pair or kernel keeps the combined kernel.
+# against their one-thread combined B1: AutoRally B1 0.261 / 1.066, B1-x0
+# 0.318 / 1.037 (9 x 256 x 150); racer steering B1 0.479 / 1.202; racer
+# uncertainty B1 1.401 / 5.855. Their B3 against the combined kernel's warp
+# form (csrc/sample_warp.cuh, with its carry pass;
+# scripts/torch_network_solve_abba.py, Gaussian, the combined A B B A
+# turns in brackets): AutoRally 0.3867 / 0.3784 [0.3782, 0.3787], racer
+# steering 0.5504 / 0.5761 [0.5761, 0.5760], racer uncertainty 1.5249 /
+# 1.0652 [1.0652, 1.0652]: only racer steering's B3 still splits. Any other
+# pair or kernel keeps the combined kernel.
 AUTO_SPLIT = {
     ("di_circle", "rollout"): False,
     ("di_circle", "solve"): False,
     ("ar_nn", "rollout"): True,
-    ("ar_nn", "solve"): True,
+    ("ar_nn", "solve"): False,
     ("ar_nn", "rollout_x0"): True,
     ("cartpole", "rollout"): False,
     ("cartpole", "solve"): False,
@@ -225,7 +232,7 @@ AUTO_SPLIT = {
     ("racer_steering_ar", "rollout"): True,
     ("racer_steering_ar", "solve"): True,
     ("racer_unc_ar", "rollout"): True,
-    ("racer_unc_ar", "solve"): True,
+    ("racer_unc_ar", "solve"): False,
     ("di_robust", "rollout_x0"): False,
 }
 
@@ -717,8 +724,8 @@ def _form(lib, fn):
     ``<fn>_form()``, a constant of the build): 0 the one-thread kernel (the
     merge's one-block kernel), 1 the warp form, 2 the staged form (B4, B3,
     B1, B8), 3 the split cost pass's cluster form (beside its one-block
-    form), 4 the merge's tiled form, 5 the lane-group form (B1's split
-    dynamics pass)."""
+    form), 4 the tiled form of the merge and of the Tsallis reduction, 5
+    the lane-group form (B1's split dynamics pass)."""
     return int(getattr(lib, fn + "_form")())
 
 
@@ -729,15 +736,18 @@ _FORM_SUFFIX = {0: "_kernel", 1: "_warp_kernel", 2: "_staged_kernel", 3: "_clust
 def form_kernel_name(base, entry):
     """The kernel of the family ``base`` (``split_dynamics``,
     ``split_solve_dynamics``, ``split_cost``, ``fused_sample_rollout``,
-    ``rmppi_rollout``, ``fused_solve``, ``rollout_costs``, ``flash_combine``)
-    that the entry ``entry`` ((library, C function), as ``_build.pair_entry``
-    gives it; the merge's is ("flash_combine", "flash_combine")) launches,
-    as its library reports it: ``<base>_warp_kernel`` where the model's
-    step is a network (split dynamics passes, B4, B8),
+    ``rmppi_rollout``, ``fused_solve``, ``rollout_costs``, ``flash_combine``,
+    ``tsallis_reduce``) that the entry ``entry`` ((library, C function), as
+    ``_build.pair_entry`` gives it; the merge's is ("flash_combine",
+    "flash_combine"), the Tsallis reduction's ("tsallis_reduce",
+    "tsallis_reduce")) launches, as its library reports it:
+    ``<base>_warp_kernel`` where the model's step is a network (split
+    dynamics passes, B4, B3, B8),
     ``<base>_staged_kernel`` for B4, B3, B1 and B8 of every other model,
     ``split_dynamics_lanes_kernel`` for B1's split dynamics pass of a
     model with the lane-group step (the bicycle),
     ``flash_combine_tiled_kernel`` for the merge,
+    ``tsallis_reduce_tiled_kernel`` for the Tsallis reduction,
     ``split_cost_cluster_kernel`` for a split cost pass whose build
     has the cluster form beside the one-block form, else the one-thread
     (one-block) ``<base>_kernel``. Which of its two forms a split cost pass
@@ -892,14 +902,21 @@ def rollout_block_minima(dynamics, cost, x0, U, dt, lr_params=None, split_cost=N
                         split_cost)
 
 
-@functools.lru_cache(maxsize=None)
 def _tsallis_lib():
     """The library of csrc/tsallis_reduce.cu, checked to agree with this
     module on the samples per block."""
-    lib = _build.load("tsallis_reduce")
+    lib = _lib("tsallis_reduce")
     if lib.tsallis_reduce_block_size() != BLOCK:
         raise RuntimeError("csrc/tsallis_reduce.cu and BLOCK disagree")
     return lib
+
+
+def tsallis_kernel_name():
+    """The counted name of the Tsallis reduction kernel the build launches:
+    ``tsallis_reduce_tiled_kernel`` (a grid of sample blocks and column
+    tiles), or ``tsallis_reduce_kernel`` (one block per 64 samples) in a
+    build with -DMPPI_TSALLIS_ONE_BLOCK."""
+    return form_kernel_name("tsallis_reduce", ("tsallis_reduce", "tsallis_reduce"))
 
 
 def tsallis_block_rows(U, costs, rho_src, gamma, r, K_valid=None):
@@ -928,8 +945,9 @@ def tsallis_block_rows(U, costs, rho_src, gamma, r, K_valid=None):
         dev.index, U.data_ptr(), costs.data_ptr(), rho_src.data_ptr(), rho_src.numel(),
         K_valid, K, T * C, gamma, pw, rows.data_ptr(), rho.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(status, "tsallis_reduce_kernel")
-    _build.count_launch("tsallis_reduce_kernel")
+    name = tsallis_kernel_name()
+    _check_status(status, name)
+    _build.count_launch(name)
     return rows, rho
 
 

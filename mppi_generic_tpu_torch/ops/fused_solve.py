@@ -1,13 +1,16 @@
 """The fused solve iteration (kernel B3), its wrapper and plain version.
 
 Counterpart of ``mppi_generic_tpu/ops/pallas_solve.py``: the hand-written
-Hopper kernel ``fused_solve_kernel`` (``csrc/sample_kernels.cuh``, one entry
-per (dynamics, cost) pair in ``csrc/pair_<name>.cu``) replaces its TPU kernel
-``_fused_solve_call``; for every model without a network step the entry
-launches its staged form, ``fused_solve_staged_kernel``
+Hopper kernel B3 (``csrc/sample_kernels.cuh``, one entry per (dynamics, cost)
+pair in ``csrc/pair_<name>.cu``) replaces its TPU kernel
+``_fused_solve_call``. For a model whose step is a network (AutoRally, the
+racer LSTMs) the entry launches its warp form, ``fused_solve_warp_kernel``
+(``csrc/sample_warp.cuh``: one warp a sample, the lanes making each chunk of
+32 steps' controls), then the carry pass ``block_carry_kernel``; for every
+other model its staged form, ``fused_solve_staged_kernel``
 (``csrc/sample_staged.cuh``: producer warps draw each chunk of 32 steps into
-shared memory for consumer threads), and the launch is counted under the
-name the entry reports. One launch is one MPPI iteration for the
+shared memory for consumer threads); each launch is counted under the name
+the entry reports. One launch is one MPPI iteration for the
 Gaussian and the NLN sampler: the normals drawn in the kernel (Philox,
 ``ops/philox.py``), the carve-outs, the clamp, the likelihood-ratio cost
 (summed apart and added at the end), the rollout and one flash carry row per
@@ -141,8 +144,11 @@ def _launch_args(dynamics, cost, sampler, kind, x0, mean, seed, K, iteration,
 def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, alpha,
                       K, iteration, stride, injected_noise):
     """Launch B3 in the form its entry reports (``fr.form_kernel_name``: the
-    staged ``fused_solve_staged_kernel`` for a model without a network step,
-    else the one-thread ``fused_solve_kernel``): (costs, crash, U, carry)."""
+    warp form ``fused_solve_warp_kernel`` for a model whose step is a
+    network, then its carry pass ``block_carry_kernel``; the staged
+    ``fused_solve_staged_kernel`` for every other model; the one-thread
+    ``fused_solve_kernel`` in a build with -DMPPI_SOLVE_ONE_THREAD):
+    (costs, crash, U, carry)."""
     lib_name, entry = fr._entry(dynamics, cost, "solve")
     T, C = mean.shape
     dev = mean.device
@@ -163,6 +169,8 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
     name = fr.form_kernel_name("fused_solve", (lib_name, entry))
     fr._check_status(status, name)
     _build.count_launch(name, entry)
+    if name == "fused_solve_warp_kernel":
+        _build.count_launch("block_carry_kernel")  # the warp form's carry pass
     return costs, crash, U, carry
 
 

@@ -22,7 +22,9 @@ def forced_away(entry, path):
     """Whether the loop ``path`` runs the kernel ``entry`` (a kernels-line
     entry) only because it forces a form against AUTO."""
     forced = entry.get("forced_by_path", {}).get(path, ())
-    if "combined" in forced and entry["name"].startswith(("rollout_costs", "fused_solve")):
+    # the combined kernels, and the carry pass after B3's warp form
+    if "combined" in forced and entry["name"].startswith(("rollout_costs", "fused_solve",
+                                                          "block_carry")):
         return True
     return "split" in forced and entry["name"].startswith("split_")
 

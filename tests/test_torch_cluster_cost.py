@@ -501,13 +501,14 @@ def test_split_choices_forced_against_auto_are_counted():
     """resolve_split counts a choice forced against AUTO_SPLIT by the form
     forced; AUTO's own choice, asked for or forced, counts nothing."""
     di = _parts("di_circle")[:2]  # AUTO: the combined kernel
-    ar = _parts("ar_nn")[:2]  # AUTO: the split form
+    ar = _parts("ar_nn")[:2]  # AUTO: B1's split form, B3's combined kernel
     fr.reset_launch_counts()
     assert not fr.resolve_split(*di, None) and not fr.resolve_split(*di, False)
-    assert fr.resolve_split(*ar, None) and fr.resolve_split(*ar, True, "solve")
+    assert fr.resolve_split(*ar, None) and fr.resolve_split(*ar, True, "rollout_x0")
+    assert not fr.resolve_split(*ar, None, "solve") and not fr.resolve_split(*ar, False, "solve")
     assert _build.forced_routes == {}
     assert fr.resolve_split(*di, True)
-    assert not fr.resolve_split(*ar, False) and not fr.resolve_split(*ar, False, "solve")
-    assert _build.forced_routes == {"split": 1, "combined": 2}
+    assert not fr.resolve_split(*ar, False) and fr.resolve_split(*ar, True, "solve")
+    assert _build.forced_routes == {"split": 2, "combined": 1}
     fr.reset_launch_counts()
     assert _build.forced_routes == {}

@@ -419,7 +419,8 @@ def test_ar_fused_solve_kernel_matches_plain(cuda_device, K, kind, map_kind):
     fr.reset_launch_counts()
     kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
     torch.cuda.synchronize()
-    assert fr.launch_counts["fused_solve_kernel"] == 1
+    assert fr.launch_counts["fused_solve_warp_kernel"] == 1
+    assert fr.launch_counts["block_carry_kernel"] == 1
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
     _close(kU, pU, rtol=0, atol=0)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
@@ -498,7 +499,7 @@ def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
     krows, krho = fr.tsallis_block_rows(U, kc, kmin, gamma, r)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
-    assert fr.launch_counts["tsallis_reduce_kernel"] == 1
+    assert fr.launch_counts["tsallis_reduce_tiled_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=0, atol=0)
     assert torch.equal(kcrash, pcrash)
@@ -512,7 +513,8 @@ def test_tsallis_kernels_match_plain(cuda_device, K, gamma, r):
         weight_params=(gamma, r), split_cost=False)
     torch.cuda.synchronize()
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        "rollout_costs_staged_kernel": 1, "tsallis_reduce_kernel": 1, "flash_combine_tiled_kernel": 1}
+        "rollout_costs_staged_kernel": 1, "tsallis_reduce_tiled_kernel": 1,
+        "flash_combine_tiled_kernel": 1}
     pmean, _, peta = fr.flash_combine_plain(prows, T, C, 1.0)
     _close(kmean, pmean, rtol=1e-4, atol=1e-5)
     _close(keta, peta, rtol=1e-5, atol=0)
@@ -528,7 +530,7 @@ def test_tsallis_reduce_takes_a_device_rho(cuda_device):
     fr.reset_launch_counts()
     num, eta = fr.tsallis_reduce(U, costs, rho, 0.5, 2.4, 300)
     torch.cuda.synchronize()
-    assert fr.launch_counts["tsallis_reduce_kernel"] == 1
+    assert fr.launch_counts["tsallis_reduce_tiled_kernel"] == 1
     rows = fr.tsallis_rows_plain(U, costs, rho, fr._f32(0.5), fr._tsallis_pw(2.4), 300)
     _, _, peta, pnum = fr.flash_combine_plain(rows, T, C, 1.0, with_num=True)
     _close(num, pnum, rtol=1e-5, atol=1e-5)
@@ -1228,7 +1230,7 @@ def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
     assert fr.launch_counts["split_solve_dynamics_warp_kernel" if pair == "ar_nn"
                             else "split_solve_dynamics_kernel"] == 1
     assert fr.launch_counts[_cost_pass(pair, cost, cuda_device, K, T)] == 1
-    assert fr.launch_counts["fused_solve_kernel" if pair == "ar_nn"
+    assert fr.launch_counts["fused_solve_warp_kernel" if pair == "ar_nn"
                             else "fused_solve_staged_kernel"] == 0
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, **kw)
     _close(kU, pU, rtol=0, atol=0)
@@ -1859,8 +1861,8 @@ def test_sample_staged_matches_plain(cuda_device, pair, shape, mode):
 @pytest.mark.cuda
 def test_solve_and_rollout_entries_report_their_form(cuda_device):
     """Every B3 and B1 entry of a pair without a network step launches the
-    staged form, the network pairs' the one-thread kernel
-    (``<entry>_form``)."""
+    staged form; the network pairs' B3 the warp form, their B1 the
+    one-thread kernel (``<entry>_form``)."""
     from mppi_generic_tpu_torch.ops import _build
 
     for pair in _build.PAIR_KERNELS:
@@ -1869,7 +1871,8 @@ def test_solve_and_rollout_entries_report_their_form(cuda_device):
             entry = _build.pair_entry(pair, kind)
             if entry is None:
                 continue
-            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_kernel")
+            want = base + ("_staged_kernel" if pair in STAGED_PAIRS
+                           else "_warp_kernel" if kind == "solve" else "_kernel")
             assert fr.form_kernel_name(base, entry) == want, (pair, kind)
 
 
@@ -2214,3 +2217,181 @@ def test_b8_and_lanes_builds_report_their_form(cuda_device, one_thread_b8_lanes)
             one = fr.form_kernel_name(base, entry)
         assert one == base + "_kernel", entry
         assert port == base + ("_lanes_kernel" if base == "split_dynamics" else "_staged_kernel")
+
+
+# --- B3's warp form for the network pairs (csrc/sample_warp.cuh
+# fused_solve_warp_kernel, then block_carry_kernel) and the tiled B5
+# (csrc/tsallis_reduce.cu tsallis_reduce_tiled_kernel), against their plain
+# versions and their earlier builds (chip_smoke.py's -DMPPI_SOLVE_ONE_THREAD
+# over the network pairs' sources, -DMPPI_TSALLIS_ONE_BLOCK) ---
+@pytest.fixture(scope="module")
+def one_thread_solve_tsallis():
+    """The network pairs' B3 one thread a sample and the one-block Tsallis
+    reduction, built beside the port's, and chip_smoke (its ``swapped``
+    points the wrappers at them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+
+    libs = {}
+    chip_smoke.build_variants((
+        (libs, ("MPPI_SOLVE_ONE_THREAD",), "solve_one_thread_test",
+         tuple(_build.pair_entry(p, "solve")[0] for p in WARP_PAIRS)),
+        (libs, ("MPPI_TSALLIS_ONE_BLOCK",), "tsallis_one_block_test", ("tsallis_reduce",))))
+    return chip_smoke, libs
+
+
+def _solve_warp_parts(pair, map_kind, dev):
+    """(dynamics, cost, x0, control std) of a network pair: AutoRally's bench
+    network on the bench's 128^2 map or its 4 x 1024^2 channel-major map
+    (every sample crashes), or a stronger network on the partly-crashing
+    map; the racer rows' models (``_racer_parts``)."""
+    if pair != "ar_nn":
+        return (*_racer_parts(pair.split("_")[1], dev), [0.3, 0.5])
+    if map_kind == "partial":
+        dyn = AutorallyNNDynamics(FNN.create([6, 32, 32, 4], seed=0, scale=1.0),
+                                  control_ranges=[[-0.9, 0.9], [-0.6, 1.0]], device=dev)
+        return dyn, ARStandardCost(costmap=_partial_map(dev), device=dev), _ar_x0(dev), [0.3,
+                                                                                          0.5]
+    if map_kind == "1024":
+        chw = np.random.default_rng(3).normal(size=(4, 1024, 1024)).astype("f")
+        chw[0] = np.abs(chw[0])
+        tex = MapTexture2D(chw, origin=(-51.2, -51.2, 0.0), resolution=0.1,
+                           channel_major=True, device=dev)
+    else:
+        tex = _ar_map("plain", dev)
+    return (AutorallyNNDynamics.create(seed=0, device=dev),
+            ARStandardCost(costmap=tex, device=dev), _ar_x0(dev), [0.3, 0.5])
+
+
+# (pair, map, K, T, pure-noise share, stride): the paths' shapes (AutoRally
+# 1920 x 150 on both bench maps, racer steering 1920 x 100, racer uncertainty
+# 1920 x 150), the partly-crashing map, K = 1900 and 1901 (the last block of
+# 4 or 8 warps partly empty) and T = 31 (one partial chunk)
+SOLVE_WARP_CASES = {
+    "ar 128 1920x150": ("ar_nn", "128", 1920, 150, 0.0, 0),
+    "ar 1024 1920x150": ("ar_nn", "1024", 1920, 150, 0.0, 0),
+    "ar partial 1920x150": ("ar_nn", "partial", 1920, 150, 0.1, 2),
+    "ar partial 1900x150": ("ar_nn", "partial", 1900, 150, 0.1, 2),
+    "ar partial 1901x31": ("ar_nn", "partial", 1901, 31, 0.1, 1),
+    "steering 1920x100": ("racer_steering_ar", None, 1920, 100, 0.0, 0),
+    "steering 1901x31": ("racer_steering_ar", None, 1901, 31, 0.1, 2),
+    "unc 1920x150": ("racer_unc_ar", None, 1920, 150, 0.0, 0),
+    "unc 1900x150": ("racer_unc_ar", None, 1900, 150, 0.1, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(SOLVE_STAGED_MODES))
+@pytest.mark.parametrize("case", list(SOLVE_WARP_CASES))
+def test_solve_warp_matches_plain_and_the_one_thread_build(cuda_device, one_thread_solve_tsallis,
+                                                           case, mode):
+    """B3's warp form against its plain version and the one-thread build:
+    costs, crash flags, U and the carry rows (in write_block_carry's order)
+    bit for bit, and so the new mean, baseline and eta of the merge; one
+    launch of fused_solve_warp_kernel and one of block_carry_kernel."""
+    smoke, libs = one_thread_solve_tsallis
+    dev = cuda_device
+    pair, map_kind, K, T_, p, stride = SOLVE_WARP_CASES[case]
+    kind, inject = SOLVE_STAGED_MODES[mode]
+    dyn, cost, x0, std = _solve_warp_parts(pair, map_kind, dev)
+    samp = (NLNDistribution if kind == "nln" else GaussianDistribution).create(
+        std_dev=std, control_cost_coeff=[1.0, 0.5], pure_noise_percentage=p, device=dev)
+    g = torch.Generator(device=dev).manual_seed(K + T_ + 17)
+    mean = 0.3 * torch.randn((T_, C), generator=g, device=dev)
+    z = torch.randn((2, K, T_, C), generator=g, device=dev) if inject else None
+    seed = torch.tensor(K + 19, dtype=torch.int32, device=dev)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    kw = dict(iteration=1, optimization_stride=stride, injected_noise=z)
+    fr.reset_launch_counts()
+    got = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fr.launch_counts.items() if v} == {
+        "fused_solve_warp_kernel": 1, "block_carry_kernel": 1}
+    assert fr.entry_counts == {f"fused_solve_{pair}": 1}
+    with smoke.swapped(libs):
+        one = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["fused_solve_kernel"] == 1
+    assert torch.isfinite(pc).all()
+    want = (pc, pcrash, pU, fr.block_carries_ordered(pc, pU, fr._f32(LAM)))
+    for name, a, b, c in zip(("costs", "crash", "U", "carry"), got, one, want):
+        assert torch.equal(a, c), name
+        assert torch.equal(b, c), name
+    _close(got[3], pcarry, rtol=1e-5, atol=1e-5)
+    merged = fr.flash_combine(got[3], T_, C, LAM)
+    for a, b in zip(merged, fr.flash_combine(one[3], T_, C, LAM)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_solve_warp_builds_report_their_form(cuda_device, one_thread_solve_tsallis):
+    """The network pairs' B3 entries report the warp form in the port's
+    build and the one-thread kernel with -DMPPI_SOLVE_ONE_THREAD; the
+    Tsallis reduction the tiled form and the one-block kernel."""
+    smoke, libs = one_thread_solve_tsallis
+    for pair in WARP_PAIRS:
+        entry = _build.pair_entry(pair, "solve")
+        assert fr.form_kernel_name("fused_solve", entry) == "fused_solve_warp_kernel"
+        with smoke.swapped(libs):
+            assert fr.form_kernel_name("fused_solve", entry) == "fused_solve_kernel"
+    assert fr.tsallis_kernel_name() == "tsallis_reduce_tiled_kernel"
+    with smoke.swapped(libs):
+        assert fr.tsallis_kernel_name() == "tsallis_reduce_kernel"
+
+
+# (K, K_valid, T, C): the colored row's 8192 x 100 (128 x 4 tiles of 52
+# columns), a ragged K_valid, the bicycle's 1920 x 100, T = 150 (tiles of 60),
+# T*C = 62 and 66 (4-byte pieces; 66 in tiles of 36 and 30), C = 1
+TSALLIS_TILED_SHAPES = [(8192, 8192, 100, 2), (8192, 8000, 100, 2), (1920, 1920, 100, 2),
+                        (1920, 1901, 150, 2), (300, 250, 31, 2), (200, 130, 33, 2),
+                        (256, 256, 100, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma,r", [(10.0, 2.0), (0.12, 2.4)])
+@pytest.mark.parametrize("K_,K_valid,T_,C_", TSALLIS_TILED_SHAPES)
+def test_tsallis_tiled_matches_plain_and_the_one_block_build(cuda_device,
+                                                              one_thread_solve_tsallis, K_,
+                                                              K_valid, T_, C_, gamma, r):
+    """The tiled Tsallis reduction against tsallis_rows_plain and the
+    one-block build: rows and rho bit for bit, from the block minima and
+    from a given rho; one launch of tsallis_reduce_tiled_kernel."""
+    smoke, libs = one_thread_solve_tsallis
+    g = torch.Generator(device=cuda_device).manual_seed(K_ + T_)
+    U = torch.randn((K_, T_, C_), generator=g, device=cuda_device)
+    costs = 1.0 + torch.rand((K_,), generator=g, device=cuda_device)
+    minima = fr.block_minima_plain(costs)
+    g32, pw = fr._f32(gamma), fr._tsallis_pw(r)
+    fr.reset_launch_counts()
+    rows, rho = fr.tsallis_block_rows(U, costs, minima, gamma, r, K_valid)
+    given, _ = fr.tsallis_block_rows(U, costs, costs.min().reshape(1), gamma, r, K_valid)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fr.launch_counts.items() if v} == {"tsallis_reduce_tiled_kernel": 2}
+    with smoke.swapped(libs):
+        one_rows, one_rho = fr.tsallis_block_rows(U, costs, minima, gamma, r, K_valid)
+    prho = torch.amin(minima)
+    prows = fr.tsallis_rows_plain(U, costs, prho, g32, pw, K_valid)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["tsallis_reduce_kernel"] == 1
+    assert torch.equal(rho, prho) and torch.equal(one_rho, prho)
+    assert torch.equal(rows, prows) and torch.equal(one_rows, prows)
+    assert torch.equal(given, fr.tsallis_rows_plain(U, costs, costs.min(), g32, pw, K_valid))
+
+
+@pytest.mark.cuda
+def test_tsallis_tiled_keeps_a_nan_rho(cuda_device, one_thread_solve_tsallis):
+    """A NaN cost gives a NaN rho and zero weights in both builds."""
+    smoke, libs = one_thread_solve_tsallis
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    U = torch.randn((8192, 100, 2), generator=g, device=cuda_device)
+    costs = 1.0 + torch.rand((8192,), generator=g, device=cuda_device)
+    costs[4321] = float("nan")
+    minima = fr.block_minima_plain(costs)
+    rows, rho = fr.tsallis_block_rows(U, costs, minima, 10.0, 2.0)
+    with smoke.swapped(libs):
+        one_rows, one_rho = fr.tsallis_block_rows(U, costs, minima, 10.0, 2.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(rho)) and bool(torch.isnan(one_rho))
+    assert float(rows.abs().sum()) == 0.0 and torch.equal(rows, one_rows)

@@ -209,7 +209,7 @@ class _StubLibrary:
     """A kernel library whose entries accept anything and return 0 (the
     launch accepted) and whose ``<entry>_form()`` returns ``form``; the
     merge's ``flash_combine_form()`` returns 4, the tiled merge of the
-    port's build."""
+    port's build, and a ``*_block_size()`` the port's 64 samples."""
 
     def __init__(self, form):
         self.form = form
@@ -217,6 +217,8 @@ class _StubLibrary:
     def __getattr__(self, name):
         if name == "flash_combine_form":
             return lambda: 4
+        if name.endswith("_block_size"):
+            return lambda: fr.BLOCK
         if name.endswith("_form"):
             return lambda: self.form
         return lambda *args: 0

@@ -319,14 +319,21 @@ def test_every_solve_and_rollout_entry_declares_its_form():
     assert declared["solve"] == set(fr._PAIRS.values())
     assert declared["rollout_x0"] == {"di_circle", "di_robust", "ar_nn", "bicycle_ar"}
     assert declared["rollout"] == set(fr._PAIRS.values()) - {"di_robust"}
-    assert {"rollout_costs_staged_kernel", "fused_solve_staged_kernel"} <= set(
-        _build.launch_counts)
+    assert {"rollout_costs_staged_kernel", "fused_solve_staged_kernel",
+            "fused_solve_warp_kernel", "block_carry_kernel"} <= set(_build.launch_counts)
 
 
 FORM_NAMES = {0: "_kernel", 2: "_staged_kernel"}
+# the kernels each B3 form launches (besides the merge): 0 one thread, 1 the
+# warp form and its carry pass, 2 staged
+SOLVE_FORM_LAUNCHES = {
+    0: {"fused_solve_kernel": 1},
+    1: {"fused_solve_warp_kernel": 1, "block_carry_kernel": 1},
+    2: {"fused_solve_staged_kernel": 1},
+}
 
 
-@pytest.mark.parametrize("form", [0, 2])
+@pytest.mark.parametrize("form", [0, 1, 2])
 @pytest.mark.parametrize("pair", ["di_circle", "ar_nn"])
 def test_solve_wrapper_counts_the_reported_form(stub_form, pair, form):
     stub_form(form)
@@ -342,7 +349,7 @@ def test_solve_wrapper_counts_the_reported_form(stub_form, pair, form):
                                       torch.tensor(3, dtype=torch.int32), DT, LAM, ALPHA,
                                       100, split_cost=False)
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        "fused_solve" + FORM_NAMES[form]: 1, "flash_combine_tiled_kernel": 1}
+        **SOLVE_FORM_LAUNCHES[form], "flash_combine_tiled_kernel": 1}
     assert fr.entry_counts == {f"fused_solve_{pair}": 1}
 
 
