@@ -15,10 +15,12 @@ flagship and the JAX suite's NLN and Smooth-MPPI rows (bench.py:619-638,
 K=8192, T=100). Then AutoRally (bench.py:704-717 and :775-789: the 6-32-32-4
 network dynamics and ARStandardCost on the 128^2 and the 4 x 1024^2
 channel-major track maps, K=1920, T=150): the fused solve and rollout
-kernels' AutoRally entries against their plain versions, the fused solve's
-warp form (one warp a sample, then its carry pass) also bit for bit against
-its one-thread build and A B B A against it on the 128^2 map
-(``autorally_kernels``; the racer rows' B3 alike in ``racer_kernels``), a
+kernels' AutoRally entries against their plain versions, the warp forms
+of the fused solve and of the rollout kernel (one warp a sample, then
+their epilogue pass) also bit for bit against their one-thread build and
+A B B A against it on the 128^2 map (``autorally_kernels``; the racer
+rows' B3 and B1 alike in ``racer_kernels``, AutoRally's per-sample-x0 B1
+in ``robust_kernels``), a
 fused-vs-combined reference, and three closed
 loops with the AutoRally model as the plant (``autorally``,
 ``autorally_1024`` on the fused solve, ``autorally_fused`` on
@@ -93,13 +95,15 @@ form from one x0 per sample for the DI robust cost and AutoRally
 (``split_x0_kernels``), each at its path's shape, a ragged one and, for the
 map pairs, the partly-crashing map; then the loops that put each new entry
 on a path (``pair_loops``: Tsallis, CEM and Smooth-MPPI on ``fused_solve``,
-the split forced on ``fused`` and ``fused_solve``, the cartpole swing-up and
+AutoRally's Tsallis weights on ``fused`` (B1's Tsallis pass 1 and its
+minima pass), the split forced on ``fused`` and ``fused_solve``, the
+cartpole swing-up and
 the quadrotor hover with the split and their bars, RMPPI with stage 1's
 split on the DI robust cost with its band bar and on AutoRally). The
 earlier phases pass ``split_cost=False``, so they keep the combined kernels
 on their paths (AUTO splits only where ``ops/fused_rollout.AUTO_SPLIT``
-says so: B1 of the network pairs and the bicycle, AutoRally's B1 from one
-x0 per sample, racer steering's B3). Each phase prints one JSON
+says so: B1 of AutoRally, racer steering and the bicycle, AutoRally's B1
+from one x0 per sample, racer steering's B3). Each phase prints one JSON
 line;
 ``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
@@ -216,10 +220,15 @@ DT_SMOOTH = 0.02  # bench.py:634
 K_AR, K_AR_RAGGED, T_AR, S_AR = 1920, 1900, 150, 7
 AR_STD = [0.3, 0.5]
 AR_MAPS = ("128", "1024")
-AR_FUSED_LOOP_STEPS = 20  # the kernel="fused" loop: B1 on the path, kept short
+# the kernel="fused" loop: B1 on the path, kept short (20 until B1's warp
+# form joined the run, cut for time)
+AR_FUSED_LOOP_STEPS = 10
+# the kernel="fused" loop with Tsallis weights (B1's Tsallis pass 1, with the
+# warp form's minima pass, then B5 and the merge), kept shorter
+AR_TSALLIS_FUSED_STEPS = 5
 # the bench row's fused-solve loop (100 steps until B3's warp form and the
 # tiled B5 joined the run, cut for time)
-AR_LOOP_STEPS = 50
+AR_LOOP_STEPS = 30  # 50 until B1's warp form joined the run, cut for time
 # an AutoRally plain version takes seconds: one timed run after its warm-up
 # keeps the script well inside its time limit (these times are yardsticks)
 N_TIMED_PLAIN_AR = 1
@@ -1205,6 +1214,13 @@ def ar_rollout_work(cost, K, epilogue, with_lr):
     return n_bytes, n_ops
 
 
+def min_pass_work(K):
+    """(bytes, operations) of Tsallis pass 1's block minima from the costs
+    (K,): the costs read once, the minima written once, one comparison a
+    sample."""
+    return 4 * (K + -(-K // fr.BLOCK)), K
+
+
 def ar_solve_work(cost, K, kind):
     """(bytes, operations) of B3's function for the AutoRally pair: the
     tables, constraints, x0 and seed read once; costs, crash, U and the
@@ -1220,13 +1236,14 @@ def ar_solve_work(cost, K, kind):
 
 
 def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
-    """B3 (Gaussian, NLN) and B1 (its four modes) with the AutoRally entry
-    against their plain versions: U, costs and crash flags to the last bit,
-    the carries and the merge as the DI kernels'; B3's warp form also its
-    carry rows in write_block_carry's order and every output of the
-    one-thread build bit for bit. Times by CUDA events (B3 A B B A against
-    the one-thread build on the 128^2 map at K_AR); the plain versions' only
-    where ``timed_plain``."""
+    """B3 (Gaussian, NLN) and B1 (its five modes) with the AutoRally entry
+    against their plain versions: U, costs, crash flags and block minima to
+    the last bit, the carries and the merge as the DI kernels'; the warp
+    forms of B3 and B1 also their carry rows in write_block_carry's order
+    and every output of the one-thread build bit for bit. Times by CUDA
+    events (B3 and B1 A B B A against the one-thread build on the 128^2 map
+    at K_AR, where B1's minima pass is also timed alone by the profiler); the
+    plain versions' only where ``timed_plain``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     dyn, cost = ar_parts(map_kind, dev)
     x0 = ar_x0(dev)
@@ -1234,9 +1251,10 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
     seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
     checks, times, crashed = [], {}, {}
 
-    def timing(kernel, plain, work, form=None):
-        # form: the mode of a B3 launch, A B B A at the path's shape
-        t = {"ms": (form_time(kernel, "ar_nn", "solve", form, at_path)
+    def timing(kernel, plain, work, form=None, kind="solve"):
+        # form: the mode of a B3 (or, kind "rollout", B1) launch, A B B A at
+        # the path's shape
+        t = {"ms": (form_time(kernel, "ar_nn", kind, form, at_path)
                     if form else time_ms(kernel, N_TIMED)),
              "plain_ms": time_plain(plain) if timed_plain else None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
@@ -1285,29 +1303,50 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
     U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
     lr = (mean, samp._sigma(T_AR, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
           samp.pure_threshold(K))
-    for mode in ("costs", "costs+lr", "epilogue", "epilogue+lr"):
+    for mode in ("costs", "costs+lr", "epilogue", "epilogue+lr", "tsallis+lr"):
         lrp = lr if mode.endswith("+lr") else None
         epilogue = mode.startswith("epilogue")
+        tsallis = mode.startswith("tsallis")
         name = f"B1 {mode}"
 
-        def kernel(lrp=lrp, epilogue=epilogue):
+        def kernel(lrp=lrp, epilogue=epilogue, tsallis=tsallis):
             if epilogue:
                 return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp,
                                                 split_cost=False)
+            if tsallis:
+                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp, split_cost=False)
             return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp, split_cost=False)
 
-        def plain(lrp=lrp, epilogue=epilogue):
+        def plain(lrp=lrp, epilogue=epilogue, tsallis=tsallis):
             pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
+            if tsallis:
+                return fr.block_minima_plain(pc)
             return fr.block_carries_plain(pc, U, LAM) if epilogue else (pc, pcrash)
 
         kout = kernel()
+        same_as_one_thread(f"AutoRally {name} K={K} map {map_kind}", kernel, kout, "ar_nn",
+                           "rollout")
         pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
         torch.cuda.synchronize()
         same(f"{name} crash flags", kout[1], pcrash)
         checks.append(check(f"{name} costs", kout[0], pc, "bitwise"))
         if epilogue:
+            same(f"{name} carry rows in write_block_carry's order", kout[2],
+                 fr.block_carries_ordered(pc, U, fr._f32(LAM)))
             checks += merge_checks(name, kout[2], fr.block_carries_plain(pc, U, LAM), pc, U)
-        times[name] = timing(kernel, plain, ar_rollout_work(cost, K, epilogue, lrp is not None))
+        if tsallis:
+            same(f"{name} block minima", kout[2], fr.block_minima_plain(pc))
+        times[name] = timing(kernel, plain, ar_rollout_work(cost, K, epilogue, lrp is not None),
+                             mode, "rollout")
+        if tsallis and at_path:
+            # the warp form's minima pass alone, its plain version and the one
+            # PyTorch call of the same function at this K (a multiple of 64),
+            # all by device time
+            t = {"ms": device_ms(kernel, "block_min_kernel"),
+                 "plain_ms": device_ms(lambda pc=pc: fr.block_minima_plain(pc)),
+                 "library_ms": device_ms(lambda pc=pc: pc.view(-1, fr.BLOCK).amin(1))}
+            t["bound_ms"], t["bound_by"] = bound_ms(*min_pass_work(K))
+            times["block_min_kernel"] = t
         if mode == "epilogue+lr":
             # one-call yardstick for the weighting + weighted sum (not used by the port)
             times[name]["library_ms"] = time_ms(
@@ -1732,7 +1771,7 @@ def colored_reference_phase(dev):
     emit("colored_reference", checks=checks, no_host_sync=["exp", "tsallis", "bicycle"])
 
 
-def ar_loop_phase(path, map_kind, kernel, steps, want, profile=4):
+def ar_loop_phase(path, map_kind, kernel, steps, want, profile=2):
     """The AutoRally configuration's closed loop from x0 (v_x = 3)."""
     ctrl = build_autorally(map_kind, kernel)
     return model_loop_phase(path, ctrl, ar_x0(ctrl.device), steps, want, profile=profile,
@@ -1753,7 +1792,9 @@ K_HOVER, T_HOVER, HOVER_STEPS = 512, 48, 150
 K_WAYPOINT, WAYPOINT_STEPS = 1024, 100
 WAYPOINTS = [(1.5, 0.0, 0.0, np.pi / 2), (3.0, 0.8, 0.0, np.pi / 2), (4.5, 1.5, 0.0, np.pi / 2)]
 SWINGUP_STEPS = 500
-ZOO_B1_STEPS = 20  # the kernel="fused" and Tsallis loops: the entry on a main path
+# the kernel="fused" and Tsallis loops: the entry on a main path (20 until
+# B1's warp form joined the run, cut for time)
+ZOO_B1_STEPS = 10
 LAM_DIVISION = 0.3  # an inexact reciprocal, for the host-scalar division check
 # Operations per sample-step of each model and cost (csrc/*.cuh; a
 # transcendental, sqrtf and fmodf as OPS_TRANSCENDENTAL, powf as two):
@@ -2070,6 +2111,9 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
         by_kernel["rollout_costs_kernel"].append(check(f"{pair} {name} costs", kout[0], pc,
                                                        "bitwise"))
         if mode.startswith("epilogue"):
+            if pair in WARP_PAIRS:  # the warp form's carry pass
+                same(f"{pair} {name} carry rows in write_block_carry's order", kout[2],
+                     fr.block_carries_ordered(pc, U, fr._f32(LAM)))
             merged, carry = merge_checks(f"{pair} {name}", kout[2],
                                          fr.block_carries_plain(pc, U, LAM), pc, U)
             by_kernel["rollout_costs_kernel"].append(carry)
@@ -2204,7 +2248,7 @@ def division_phase(dev):
 
 
 def model_loop_phase(path, ctrl, x0, steps, want, *, plant=None, slide_first=True,
-                     on_step=None, profile=4, initial_mean=None, **labels):
+                     on_step=None, profile=2, initial_mean=None, **labels):
     """``steps`` closed-loop steps of a model's configuration (AutoRally, the
     bicycle, the zoo) from ``x0`` through the entry points: slide, solve,
     step the plant with the first control (``slide_first=False``: solve,
@@ -2299,7 +2343,7 @@ def zoo_loops(dev):
     """The zoo's closed loops. Returns {path: (launches, entry launches)}."""
     n, n_b1 = CLOSED_LOOP_STEPS, ZOO_B1_STEPS
     solve_want = lambda pair, k=n: solve_launches(pair, k)
-    b1_want = lambda pair, k=n_b1: {b1_kernel(pair): k, MERGE: k}
+    b1_want = lambda pair, k=n_b1: rollout_launches(pair, k)
     paths = {}
 
     def run(path, *a, **kw):
@@ -2420,8 +2464,7 @@ def racer_loops(dev):
         paths[f"racer_{kind}"] = out[:2]
         n = RACER_FUSED_LOOP_STEPS
         out = model_loop_phase(f"racer_{kind}_fused", build_racer(pair, "fused"),
-                               racer_x0(pair, dev), n,
-                               {b1_kernel(pair): n, MERGE: n},
+                               racer_x0(pair, dev), n, rollout_launches(pair, n),
                                profile=False, pair=pair)
         paths[f"racer_{kind}_fused"] = out[:2]
     return paths
@@ -2639,15 +2682,25 @@ def robust_kernel_phase(dev):
                 return
         timing(name, fn, lambda: fr.rmppi_rollout_plain(*args), work)
 
-    def x0_case(name, dyn, cost, x0s, U, tol, work):
-        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False)
+    def x0_case(name, dyn, cost, x0s, U, tol, work, pair=None, at_path=False):
+        # pair: a network pair, whose warp form is also held against the
+        # one-thread build (and at_path timed A B B A against it)
+        fn = lambda: fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False)  # noqa: E731
+        kc, kcrash = fn()
+        if pair is not None:
+            same_as_one_thread(name, fn, (kc, kcrash), pair, "rollout_x0")
         pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
         torch.cuda.synchronize()
         checks["rollout_costs_kernel"].append(check(f"{name} costs", kc, pc, tol))
         same(f"{name} crash flags", kcrash, pcrash)
         crashed[name] = float(kcrash.float().mean())
-        timing(name, lambda: fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False),
-               lambda: fr.rollout_costs_plain(dyn, cost, x0s, U, DT), work)
+        plain = lambda: fr.rollout_costs_plain(dyn, cost, x0s, U, DT)  # noqa: E731
+        if not at_path:
+            timing(name, fn, plain, work)
+            return
+        t = {"ms": form_time(fn, pair, "rollout_x0", "costs"), "plain_ms": time_plain(plain)}
+        t["bound_ms"], t["bound_by"] = bound_ms(*work)
+        times[name] = t
 
     def candidates(x0, delta, s_per=S_PER_AR):
         """9 candidates on a segment from x0, each repeated for ``s_per`` samples."""
@@ -2679,7 +2732,8 @@ def robust_kernel_phase(dev):
         Ux = Ux.permute(1, 2, 0).contiguous()
         x0_case(f"B1-x0 ar_nn {map_kind}", dyn, cost, x0s, Ux, "bitwise",
                 (fixed + 4 * (K_x0 * T_AR * C + K_x0 * S_AR + 2 * K_x0),
-                 K_x0 * T_AR * (OPS_AR_STEP + OPS_AR_COST + OPS_ACC) + 2 * K_x0))
+                 K_x0 * T_AR * (OPS_AR_STEP + OPS_AR_COST + OPS_ACC) + 2 * K_x0),
+                "ar_nn", map_kind == "128")
     # the bicycle's per-sample-x0 entry on the 128^2 map, T=100
     bdyn, bcost = bicycle_parts(dev)
     bmean = 0.2 * torch.randn((T_BI, C), generator=g, device=dev)
@@ -3424,7 +3478,9 @@ SOLVE_PAIRS = ("bicycle_ar", "di_robust")  # the new B3 entries
 SPLIT_PAIRS = ("cartpole", "quadrotor_quadratic", "di_quadratic", "dubins_quadratic",
                "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
 MAP_PAIRS = ("ar_nn", "bicycle_ar", "racer_steering_ar")  # on the partly-crashing map too
-PAIR_LOOP_STEPS = 20  # the new entries' loops on the cheap pairs
+# the new entries' loops on the cheap pairs (20 until B1's warp form joined
+# the run, cut for time)
+PAIR_LOOP_STEPS = 10
 # the racer models' (about 10^5 eager launches per step; 3 until cut for time)
 PAIR_LOOP_STEPS_HEAVY = 2
 SPLIT_LOOP_STEPS = 5  # the forced-split loops that put each split entry on a path
@@ -3747,6 +3803,20 @@ def b3_kernel(pair):
     return split_name(pair, "solve")
 
 
+def rollout_launches(pair, k, weights="exp"):
+    """The launches of k solves of ``pair`` on kernel="fused" (B1 in the form
+    its entry reports, and the merge; ``weights`` "tsallis": B5 between
+    them): the warp form adds its epilogue pass (block_carry_kernel, or
+    block_min_kernel for Tsallis pass 1)."""
+    name = b1_kernel(pair)
+    out = {name: k, MERGE: k}
+    if weights == "tsallis":
+        out[TSALLIS] = k
+    if name == "rollout_costs_warp_kernel":
+        out["block_min_kernel" if weights == "tsallis" else "block_carry_kernel"] = k
+    return out
+
+
 def solve_launches(pair, k):
     """The launches of k fused solves of ``pair`` (B3 in the form its entry
     reports, and the merge): the warp form adds its carry pass
@@ -3831,8 +3901,8 @@ def last_runs(seen, n):
 # forward passes (-DMPPI_LADDER_ONE_THREAD) and the one-thread B4, B3 and B1
 # of the models without the warp form (-DMPPI_SAMPLE_ONE_THREAD,
 # -DMPPI_SOLVE_ONE_THREAD, -DMPPI_ROLLOUT_ONE_THREAD, in one build of their
-# pair sources; the per-sample-x0 entries of rollout_x0.cu, whose build
-# AutoRally's network makes the longest, have no one-thread build here)
+# pair sources; the staged per-sample-x0 entries of rollout_x0.cu are held
+# against their plain versions only)
 LADDER = "riccati_ladder_warp_kernel"  # B7 in the port's build (check_forms)
 B4_STAGED = "fused_sample_rollout_staged_kernel"  # B4 of STAGED_PAIRS there
 STAGED_PAIRS = ("di_circle", "di_quadratic", "di_robust", "cartpole", "quadrotor_quadratic",
@@ -3858,10 +3928,14 @@ EARLIER_SOURCES = ("flash_combine", "split_ar_nn", "split_bicycle_ar", "split_di
                    "split_racer_steering_ar", "split_racer_unc_ar", "split_quadrotor_quadratic",
                    "split_di_robust", "tsallis_reduce")
 EARLIER = {}  # {source: the loaded earlier-form build}
-# the network pairs' combined B3 runs the warp form (csrc/sample_warp.cuh);
-# -DMPPI_SOLVE_ONE_THREAD builds their one-thread B3 from the same sources
-WARP_SOLVE_SOURCES = tuple(_build.pair_entry(p, "solve")[0] for p in WARP_PAIRS)
-SOLVE_ONE_THREAD = {}  # {source: the loaded one-thread B3 build of a network pair}
+# the network pairs' combined B3 and B1 run the warp form
+# (csrc/sample_warp.cuh, csrc/rollout_kernel.cuh); -DMPPI_SOLVE_ONE_THREAD
+# -DMPPI_ROLLOUT_ONE_THREAD builds their one-thread B3 and B1 from the same
+# sources, and the one-thread B1 from one x0 per sample from rollout_x0.cu
+# (AutoRally's, and there also the DI's and the bicycle's)
+WARP_SOLVE_SOURCES = tuple(_build.pair_entry(p, "solve")[0] for p in WARP_PAIRS) + (
+    _build.pair_entry("ar_nn", "rollout_x0")[0],)
+SOLVE_ONE_THREAD = {}  # {source: the loaded one-thread B3 and B1 build of a network pair}
 # (libraries it fills, -D flags, build directory, sources)
 VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread",
              WARP_SOURCES + LANES_SOURCES),
@@ -3869,8 +3943,8 @@ VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread",
             (SAMPLE_ONE_THREAD, ("MPPI_SAMPLE_ONE_THREAD", "MPPI_SOLVE_ONE_THREAD",
                                  "MPPI_ROLLOUT_ONE_THREAD", "MPPI_RMPPI_ONE_THREAD"),
              "sample_one_thread", STAGED_SOURCES + (B8_SOURCE,)),
-            (SOLVE_ONE_THREAD, ("MPPI_SOLVE_ONE_THREAD",), "solve_one_thread",
-             WARP_SOLVE_SOURCES),
+            (SOLVE_ONE_THREAD, ("MPPI_SOLVE_ONE_THREAD", "MPPI_ROLLOUT_ONE_THREAD"),
+             "solve_one_thread", WARP_SOLVE_SOURCES),
             (EARLIER, EARLIER_DEFINES, "earlier_forms", EARLIER_SOURCES))
 
 
@@ -3880,9 +3954,9 @@ def build_one_thread():
     sample), riccati.cu with -DMPPI_LADDER_ONE_THREAD, the staged pairs'
     sources and rmppi_rollout.cu with -DMPPI_SAMPLE_ONE_THREAD,
     -DMPPI_SOLVE_ONE_THREAD, -DMPPI_ROLLOUT_ONE_THREAD and
-    -DMPPI_RMPPI_ONE_THREAD, the network pairs' sources with
-    -DMPPI_SOLVE_ONE_THREAD, and EARLIER_SOURCES with EARLIER_DEFINES
-    (build_variants)."""
+    -DMPPI_RMPPI_ONE_THREAD, the network pairs' sources and rollout_x0.cu
+    with -DMPPI_SOLVE_ONE_THREAD and -DMPPI_ROLLOUT_ONE_THREAD, and
+    EARLIER_SOURCES with EARLIER_DEFINES (build_variants)."""
     return build_variants(VARIANTS)
 
 
@@ -3954,17 +4028,19 @@ def earlier_forms():
 
 
 def one_thread_solve():
-    """Inside, the network pairs' B3 launches the one-thread kernel."""
+    """Inside, the network pairs' B3 and B1 (one x0 and one per sample)
+    launch the one-thread kernels."""
     return swapped(SOLVE_ONE_THREAD)
 
 
 def earlier_form(pair, kind):
     """The context in which ``pair``'s entry ``kind`` launches the form its
     redesign replaced (the one-thread kernel), or None: B4, B3 and B1 of
-    the staged pairs, B3 of the network pairs."""
+    the staged pairs, B3 and B1 (one x0 and one per sample) of the network
+    pairs."""
     if pair in STAGED_PAIRS and kind in ("sample", "solve", "rollout"):
         return one_thread_sample
-    if pair in WARP_PAIRS and kind == "solve":
+    if pair in WARP_PAIRS and kind in ("solve", "rollout", "rollout_x0"):
         return one_thread_solve
     return None
 
@@ -3976,9 +4052,9 @@ def check_forms():
     form; each B4 and B8 entry the warp form for a warp pair, else the
     staged form (the one-thread kernel in the one-thread build);
     each B3 and B1 entry (one x0 or one per sample) the staged form for a
-    staged pair (the one-thread kernel in the one-thread build), else B3
-    the warp form (the one-thread kernel in the network pairs' one-thread
-    build) and B1 the one-thread kernel; the ladder the warp recursion (the
+    staged pair (the one-thread kernel in the one-thread build), else the
+    warp form (the one-thread kernel in the network pairs' one-thread
+    build); the ladder the warp recursion (the
     one-thread ladder in its one-thread build); the merge, the split cost
     pass and the Tsallis reduction their new forms (their one-block kernels
     in the earlier forms' build)."""
@@ -4015,16 +4091,18 @@ def check_forms():
             if _build.pair_entry(pair, kind) is None:
                 continue
             base = FORM_BASE[kind]
-            want = base + ("_staged_kernel" if pair in STAGED_PAIRS
-                           else "_warp_kernel" if kind == "solve" else "_kernel")
+            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_warp_kernel")
             if split_name(pair, kind) != want:
                 raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
                                      f"expected {want}")
     for pair in WARP_PAIRS:
-        with one_thread_solve():
-            one = split_name(pair, "solve")
-        if one != "fused_solve_kernel":
-            raise AssertionError(f"{pair}: the one-thread B3 build reports {one}")
+        for kind in ("solve", "rollout", "rollout_x0"):
+            if _build.pair_entry(pair, kind) is None:
+                continue
+            with one_thread_solve():
+                one = split_name(pair, kind)
+            if one != FORM_BASE[kind] + "_kernel":
+                raise AssertionError(f"{pair}: the one-thread {kind} build reports {one}")
     for pair in STAGED_PAIRS:
         for kind in ("sample", "solve", "rollout"):
             if _build.pair_entry(pair, kind) is None:
@@ -4079,18 +4157,19 @@ FORM_TIMES = {}  # {("ladder" | "sample" | "solve" | "rollout", key): A B B A ag
 
 def form_time(fn, pair, kind, mode, at_path=True):
     """The ms of ``fn``, a launch of ``pair``'s B3 (kind "solve") or B1
-    ("rollout") entry: at its path's shape (``at_path``), where the entry
-    runs a redesigned form (``earlier_form``: the staged form, or the
-    network pairs' B3 warp form), A B B A against the one-thread build (kept
-    in FORM_TIMES[(kind, pair)][mode] for the kernels line; the warp B3's
-    also by the profiler's device time, its carry pass included), else CUDA
+    ("rollout", "rollout_x0") entry: at its path's shape (``at_path``),
+    where the entry runs a redesigned form (``earlier_form``: the staged
+    form, or the network pairs' warp forms), A B B A against the one-thread
+    build (kept in FORM_TIMES[(kind, pair)][mode] for the kernels line; the
+    warp B3's also by the profiler's device time, its carry pass included;
+    ``scripts/torch_network_rollout_abba.py`` has the warp B1's), else CUDA
     events alone. The A B B A takes the place of the single timing, so no
     entry is timed twice."""
     other = earlier_form(pair, kind)
     if not at_path or other is None:
         return time_ms(fn, N_TIMED)
     t = abba_against(fn, other)
-    if other is one_thread_solve:
+    if other is one_thread_solve and kind == "solve":
         t["device"] = device_abba(fn, ("fused_solve_warp_kernel", "block_carry_kernel"),
                                   "fused_solve_kernel", other)
     FORM_TIMES.setdefault((kind, pair), {})[mode] = t
@@ -4745,9 +4824,10 @@ def pair_kernel_entries(errs, times, paths, warp_times=None, carry_paths=None):
     out.append({"name": "block_carry_kernel", "route": "cuda",
                 "source": "mppi_generic_tpu_torch/csrc/sample_warp.cuh",
                 "replaces": "mppi_generic_tpu/ops/pallas_rollout.py:1646-1650 (the "
-                            "epilogue of _fused_sample_call, :1631) and the carry rows "
+                            "epilogue of _fused_sample_call, :1631), the carry rows "
                             "of pallas_solve.py:103 (_fused_solve_call, :355-388) "
-                            "after B3's warp form",
+                            "after B3's warp form and those of pallas_rollout.py:1005 "
+                            "(_fused_call's _accum) after B1's warp form",
                 "launches": sum(by.values()), "launches_by_path": by,
                 "max_abs_err": max(errs[("sample", pair)] for pair in WARP_PAIRS),
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4848,6 +4928,13 @@ def pair_loops(dev):
     run("autorally_smooth_fused_solve", VanillaMPPI(
         dyn, cost, smooth(C, AR_STD, T_AR), **ar), ar_x0(dev), n, b4_smooth(n, "ar_nn"),
         map="128")
+    # the same with Tsallis weights on kernel="fused": B1's Tsallis pass 1 (the
+    # combined kernel, forced where AUTO splits)
+    nt = AR_TSALLIS_FUSED_STEPS
+    run("autorally_tsallis_fused", VanillaMPPI(
+        dyn, cost, ar_sampler("gaussian"), weight_transform="tsallis", tsallis_gamma=GAMMA,
+        tsallis_r=R_TS, **dict(ar, kernel="fused")), ar_x0(dev), nt,
+        rollout_launches("ar_nn", nt, "tsallis"), map="128")
     # the racer rows: CEM on the steering row, Smooth-MPPI on the uncertainty row
     for pair, path, extra in (
             ("racer_steering_ar", "racer_steering_cem_fused_solve",
@@ -5152,8 +5239,8 @@ def main() -> int:
         # the same launches as "autorally": no profiler window of their own
         "autorally_1024": ar_loop_phase("autorally_1024", "1024", "fused_solve", n_f,
                                         solve_launches("ar_nn", n_f), profile=False),
-        "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f, {
-            b1_kernel("ar_nn"): n_f, MERGE: n_f}, profile=False),
+        "autorally_fused": ar_loop_phase("autorally_fused", "128", "fused", n_f,
+                                         rollout_launches("ar_nn", n_f), profile=False),
     }
     colored_paths = {
         "colored_fused": vanilla_loop_phase(
@@ -5251,6 +5338,12 @@ def main() -> int:
             "mppi_generic_tpu/maps/texture.py:456, :373, :62, :568",
     }
     ar, ar1024 = ar_times["128"], ar_times["1024"]
+    # AutoRally's B1 on kernel="fused": its exp and Tsallis loops
+    ar_b1_paths = {**ar_paths,
+                   "autorally_tsallis_fused": pair_paths["autorally_tsallis_fused"][0]}
+    # the loops that launch the warp form's minima pass
+    min_paths = {p: l for p, l in {**ar_b1_paths, **{
+        p: l for p, (l, _) in all_paths.items()}}.items() if l["block_min_kernel"]}
     kernels = [
         entry(b1_kernel("di_circle"), "pair_di_circle.cu", "pallas_rollout.py:548", epi,
               epi["library_ms"], err=errs["rollout_costs_kernel"], modes=modes,
@@ -5301,12 +5394,21 @@ def main() -> int:
               **one_thread_fields("solve", "ar_nn")),
         entry(f"{b1_kernel('ar_nn')}<AutorallyNN, ARCost>", "pair_ar_nn.cu",
               "pallas_rollout.py:548", ar["B1 epilogue+lr"],
-              ar["B1 epilogue+lr"]["library_ms"], paths=ar_paths,
+              ar["B1 epilogue+lr"]["library_ms"], paths=ar_b1_paths,
               err=ar_errs["rollout_costs_kernel"], kernel=b1_kernel("ar_nn"),
               K=K_AR, T=T_AR, device_functions=ar_functions,
-              modes={**{m: ar[f"B1 {m}"] for m in ("costs", "costs+lr", "epilogue")},
+              modes={**{m: ar[f"B1 {m}"] for m in ("costs", "costs+lr", "epilogue",
+                                                   "tsallis+lr")},
                      **{f"{m} 1024^2 map": ar1024[f"B1 {m}"]
-                        for m in ("costs", "costs+lr", "epilogue", "epilogue+lr")}}),
+                        for m in ("costs", "costs+lr", "epilogue", "epilogue+lr",
+                                  "tsallis+lr")}},
+              **one_thread_fields("rollout", "ar_nn")),
+        # the warp form's minima pass (Tsallis pass 1 of B1's warp form),
+        # timed alone at AutoRally's shape
+        entry("block_min_kernel", "rollout_kernel.cuh",
+              "pallas_rollout.py:894-965 (Tsallis pass 1's block minima, after B1's "
+              "warp form)", ar["block_min_kernel"], ar["block_min_kernel"]["library_ms"],
+              paths=min_paths, err=ar_errs["rollout_costs_kernel"], K=K_AR),
         entry(f"{MERGE} (AutoRally paths)", "flash_combine.cu",
               "pallas_rollout.py:1005", ar["flash_combine"], None, paths=ar_paths,
               err=ar_errs["flash_combine_kernel"], kernel=MERGE),
@@ -5403,10 +5505,11 @@ def main() -> int:
     for pair, types in racer_names.items():
         t, e = zoo_times[pair], zoo_errs[pair]
         kernels.append(zoo_entry(
-            f"rollout_costs_kernel<{types}>", pair, f"rollout_costs_{pair}",
+            f"{b1_kernel(pair)}<{types}>", pair, f"rollout_costs_{pair}",
             "pallas_rollout.py:548", t["B1 epilogue+lr"], e, "rollout_costs_kernel",
             paths=racer_paths, K=K_RC, T=T_RACER[pair], device_functions=racer_functions,
-            modes={m: t[f"B1 {m}"] for m in ("costs", "costs+lr", "tsallis+lr")}))
+            modes={m: t[f"B1 {m}"] for m in ("costs", "costs+lr", "tsallis+lr")},
+            **one_thread_fields("rollout", pair)))
         kernels.append(zoo_entry(
             f"{b3_kernel(pair)}<{types}>", pair, f"fused_solve_{pair}",
             "pallas_solve.py:103", t["B3 gaussian"], e, "fused_solve_kernel",
@@ -5453,11 +5556,12 @@ def main() -> int:
                             for K, T_ in ((K_R, T_R), (K_R_RAGGED, T_R), (K_RDI - 6, T_RDI),
                                           (K_RDI - 6, 31))},
                      **one_thread_fields("rmppi", "di_robust")),
-        family_entry("rollout_costs_kernel<AutorallyNN, ARCost> (per-sample x0)",
+        family_entry(f"{b1_kernel('ar_nn', x0=True)}<AutorallyNN, ARCost> (per-sample x0)",
                      "rollout_x0.cu", "rollout_costs_x0_ar_nn", "pallas_rollout.py:548",
                      rt["B1-x0 ar_nn 128"], rchecks("rollout_costs_kernel", "B1-x0 ar_nn"),
                      K=N_CAND_AR * S_PER_AR, T=T_AR, device_functions=ar_functions,
-                     modes={"partly-crashing map": rt["B1-x0 ar_nn partial"]}),
+                     modes={"partly-crashing map": rt["B1-x0 ar_nn partial"]},
+                     **one_thread_fields("rollout_x0", "ar_nn")),
         family_entry(f"{b1_kernel('bicycle_ar', x0=True)}<BicycleSlip, ARCostBicycle> "
                      "(per-sample x0)",
                      "rollout_x0.cu", "rollout_costs_x0_bicycle_ar", "pallas_rollout.py:548",

@@ -14,8 +14,12 @@
 // form, rollout_costs_staged_kernel (RolloutPolicy below, on the ring of
 // sample_staged.cuh): producer warps read each sample's chunk of 32 steps of
 // U (and make the LR term) into shared memory, consumer threads walk the
-// chain, every mode and epilogue as below; the network models keep the
-// one-thread kernel, which -DMPPI_ROLLOUT_ONE_THREAD builds for every model.
+// chain, every mode and epilogue as below. The network models (AutoRally's
+// FNN, the racer LSTMs: HasWarpStep) launch the warp form,
+// rollout_costs_warp_kernel (below), one warp a sample, and then the
+// epilogue as a pass of its own over rows of 64 samples (block_carry_kernel
+// or block_min_kernel). -DMPPI_ROLLOUT_ONE_THREAD builds the one-thread
+// kernel for every model.
 //
 // rollout_costs_kernel<Dyn, Cost, EPI, WITH_LR, PER_SAMPLE_X0>: one thread
 // per sample, the T-step loop inside the thread, the state in registers.
@@ -74,6 +78,8 @@
 
 #include "mppi_common.cuh"
 #include "sample_staged.cuh"
+#include "sample_warp.cuh"
+#include "warp.cuh"
 #include "warp_model.cuh"
 
 namespace {
@@ -259,16 +265,140 @@ rollout_costs_staged_kernel(const float* __restrict__ x0, const float* __restric
   if (EPI == kEpiMin) write_block_min<kBlockSamples>(J, valid, carry);
 }
 
-// The form of B1 a model's entries launch: 2 the staged form
-// (rollout_costs_staged_kernel) for a model without the warp form, else,
-// and for every model with -DMPPI_ROLLOUT_ONE_THREAD, 0 the one-thread
-// kernel (a network model's combined B1 is still one thread a sample).
+// B1's warp form for the network models, rollout_costs_warp_kernel<Dyn,
+// Cost, EPI, WITH_LR, X0>: the one-thread kernel's chain on the blocks and
+// lanes of B4's and B3's warp forms (sample_warp.cuh). A block holds the
+// model's kWarpSamples samples, one warp each (AutoRally 4, the racers 8),
+// the model's table staged once per block (stage_model_warp) and a
+// recurrent model's carry started from its warm (h, c), one unit a lane
+// (init_rec_warp); with X0 each lane reads sample k's row of x0. Nothing in
+// B1's inputs depends on the state, so each chunk of 32 steps starts with a
+// prologue spread over the lanes: lane j reads step t0 + j of its sample
+// (t0 = 0, 32, 64, ...; a coalesced read of the chunk's 32 C floats of U)
+// and, WITH_LR, makes that step's scaled LR term (rollout_controls); lanes
+// past T make nothing. Step t takes the controls and the term by
+// __shfl_sync from lane t - t0, runs the network step (Dyn::step_warp: lane
+// o computes unit o of each layer) and the running cost on every lane, and
+// adds cost = running + lr_t into acc, the one-thread kernel's order; lane 0
+// writes costs[k] = (acc + terminal) / T and the sticky crash flag. Every
+// value is computed once, by the same operations, so every output is the
+// float of the one-thread kernel and of rollout_costs_plain. The epilogue
+// rows stay rows of kBlockSamples = 64 samples, which a block of warps does
+// not hold: block_carry_kernel (sample_warp.cuh) or block_min_kernel (below)
+// writes them after this launch from the costs (launch_rollout_warp).
+//
+// What bounds it on this card: operations (the network's multiply-adds,
+// each a shared-memory load, a shuffle and a separate multiply and add
+// under --fmad=false, and the cost on every lane). JAX refuses the
+// per-sample x0 for a recurrent model (pallas_rollout.py:2417-2418), so no
+// X0 instance of one exists. The k >= K test is the same on every lane of a
+// warp and comes after the staging barrier; no block barrier follows it, so
+// a warp past K leaves whole.
+template <class Dyn, class Cost, bool WITH_LR, bool X0>
+__global__ void __launch_bounds__(32 * Dyn::kWarpSamples)
+rollout_costs_warp_kernel(const float* __restrict__ x0, const float* __restrict__ U, int K,
+                          int T, float dt, ModelArgs m, LRArgs lr,
+                          float* __restrict__ costs, int* __restrict__ crash_out) {
+  static_assert(!X0 || WarpRecDim<Dyn>::value == 0,
+                "B1 from one x0 per sample is not built for a recurrent model");
+  constexpr int S = Dyn::S;
+  constexpr int C = Dyn::C;
+  constexpr int O = Dyn::O;
+  constexpr int RW = WarpRecDim<Dyn>::value;
+  constexpr int V = WITH_LR ? C + 1 : C;
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * Dyn::kWarpSamples + (threadIdx.x >> 5);
+
+  __shared__ typename Dyn::Shared dyn_sh;
+  stage_model_warp<Dyn>(m, &dyn_sh);
+  __syncthreads();
+  if (k >= K) return;  // the whole warp
+
+  const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
+  float x[S];
+  float y[O];
+  float rec[RW > 0 ? RW : 1];
+  init_rec_warp<Dyn>(dyn_sh, rec);
+#pragma unroll
+  for (int i = 0; i < S; ++i) x[i] = X0 ? x0[k * S + i] : x0[i];
+#pragma unroll
+  for (int i = 0; i < O; ++i) y[i] = 0.0f;
+  int crash = 0;
+  float acc = 0.0f;
+  float v_lane[V];  // this lane's step of the chunk: its controls and LR term
+#pragma unroll
+  for (int i = 0; i < V; ++i) v_lane[i] = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    // a compiler barrier, as in split_dynamics_warp_kernel: the staged weights
+    // are read from shared memory each step, not hoisted and spilled
+    asm volatile("" ::: "memory");
+    const int j = t & 31;
+    if (j == 0 && t + lane < T) rollout_controls<C, WITH_LR>(U, lr, k, T, t + lane, v_lane);
+    float u[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) u[c] = __shfl_sync(kFullMask, v_lane[c], j);
+    Dyn::step_warp(dyn_sh, x, rec, u, static_cast<float>(t), dt, y);
+    float cost = Cost::running_cost(cp, y, u, t, &crash);
+    if constexpr (WITH_LR) cost = cost + __shfl_sync(kFullMask, v_lane[C], j);
+    acc = acc + cost;
+  }
+  if (lane == 0) {
+    costs[k] = (acc + Cost::terminal_cost(cp, y)) / static_cast<float>(T);
+    crash_out[k] = crash;
+  }
+}
+
+// Tsallis pass 1 after a warp kernel: out[b] = the minimum of the valid
+// costs of 64-sample block b (kMinPad past K; NaN if one is NaN), the
+// one-thread kernel's write_block_min on the same floats. A template, so
+// that only the sources that launch it build it.
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
+block_min_kernel(const float* __restrict__ costs, int K, float* __restrict__ out) {
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < K;
+  write_block_min<kBlock>(valid ? costs[k] : 0.0f, valid, out);
+}
+
+// B1's warp form for the pair (Dyn, Cost) in the mode EPI: the warp kernel,
+// then with EPI exp the carry pass over U (launch_block_carry) or with EPI
+// min the minima pass (block_min_kernel). Returns the first launch error.
+template <class Dyn, class Cost, int EPI, bool X0>
+cudaError_t launch_rollout_warp(bool with_lr, const float* x0, const float* U, int K, int T,
+                                float dt, ModelArgs m, LRArgs lr, float lam_w, float* costs,
+                                int* crash, float* carry, cudaStream_t s) {
+  constexpr int NW = Dyn::kWarpSamples;
+  const int nb = (K + NW - 1) / NW;
+  if (with_lr) {
+    rollout_costs_warp_kernel<Dyn, Cost, true, X0><<<nb, 32 * NW, 0, s>>>(x0, U, K, T, dt, m, lr,
+                                                                          costs, crash);
+  } else {
+    rollout_costs_warp_kernel<Dyn, Cost, false, X0><<<nb, 32 * NW, 0, s>>>(x0, U, K, T, dt, m,
+                                                                           lr, costs, crash);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (EPI == kEpiExp) {
+    return launch_block_carry<kBlockSamples>(costs, U, K, T * Dyn::C, lam_w, carry, s);
+  } else if constexpr (EPI == kEpiMin) {
+    block_min_kernel<kBlockSamples>
+        <<<(K + kBlockSamples - 1) / kBlockSamples, kBlockSamples, 0, s>>>(costs, K, carry);
+    return cudaGetLastError();
+  }
+  return err;
+}
+
+// The form of B1 a model's entries launch: 1 the warp form
+// (rollout_costs_warp_kernel and its epilogue pass) for a model with it
+// (HasWarpStep, warp_model.cuh), else 2 the staged form
+// (rollout_costs_staged_kernel); with -DMPPI_ROLLOUT_ONE_THREAD, 0 the
+// one-thread kernel for every model.
 template <class Dyn>
 constexpr int rollout_form() {
 #ifdef MPPI_ROLLOUT_ONE_THREAD
   return 0;
 #else
-  return HasWarpStep<Dyn>::value ? 0 : 2;
+  return HasWarpStep<Dyn>::value ? 1 : 2;
 #endif
 }
 
@@ -285,6 +415,9 @@ cudaError_t launch_rollout_lr(bool with_lr, const float* x0, const float* U, int
     }
     return launch_staged<Dyn, C>(rollout_costs_staged_kernel<Dyn, Cost, EPI, false, X0>, K,
                                  stream, x0, U, K, T, dt, m, lr, lam_w, costs, crash, carry);
+  } else if constexpr (rollout_form<Dyn>() == 1) {
+    return launch_rollout_warp<Dyn, Cost, EPI, X0>(with_lr, x0, U, K, T, dt, m, lr, lam_w,
+                                                   costs, crash, carry, stream);
   } else {
     const int nb = (K + kBlockSamples - 1) / kBlockSamples;
     if (with_lr) {
@@ -341,8 +474,10 @@ int rollout_entry(int device, const float* x0, const float* U, int K, int T,
 // be null), 1 the exp carry rows (nb, 2 + T*C), 2 the Tsallis block minima
 // (nb,). x0 is (K, S) when per_sample_x0 != 0, which only an entry built
 // with X0 true takes, else (S,), which only one built with X0 false takes.
-// Returns the CUDA error of the launch (0 when it was accepted). Beside it,
-// NAME_form() says which form it launches: 2 the staged form
+// Returns the CUDA error of the launch (0 when it was accepted; of the
+// first launch that failed). Beside it, NAME_form() says which form it
+// launches: 1 the warp form (rollout_costs_warp_kernel, then with epilogue 1
+// block_carry_kernel, with epilogue 2 block_min_kernel), 2 the staged form
 // (rollout_costs_staged_kernel), 0 the one-thread kernel
 // (rollout_costs_kernel).
 #define ROLLOUT_ENTRY(NAME, DYN, COST, X0)                                    \

@@ -184,7 +184,9 @@ SIGNATURES = {
 # split_solve_dynamics_warp_kernel: csrc/split_warp.cuh;
 # fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel, and
 # fused_solve_warp_kernel, with its carry pass block_carry_kernel:
-# csrc/sample_warp.cuh; rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
+# csrc/sample_warp.cuh; rollout_costs_warp_kernel, with its epilogue pass
+# block_carry_kernel or block_min_kernel: csrc/rollout_kernel.cuh;
+# rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
 # where the staged form of B4, B3, B1 or B8 (fused_sample_rollout_staged_kernel,
 # fused_solve_staged_kernel, rollout_costs_staged_kernel:
 # csrc/sample_staged.cuh; rmppi_rollout_staged_kernel: csrc/rmppi_staged.cuh),
@@ -223,6 +225,8 @@ forced_routes = {}
 launch_counts = {
     "rollout_costs_kernel": 0,
     "rollout_costs_staged_kernel": 0,
+    "rollout_costs_warp_kernel": 0,
+    "block_min_kernel": 0,
     "flash_combine_kernel": 0,
     "flash_combine_tiled_kernel": 0,
     "tsallis_reduce_kernel": 0,

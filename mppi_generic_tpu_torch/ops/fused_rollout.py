@@ -10,9 +10,10 @@ sample blocks and column tiles, each block's slab of the samples staged in
 shared memory) its TPU kernel ``_tsallis_reduce_call``, the one
 in ``csrc/rmppi_kernel.cuh`` its TPU kernel ``_fused_rmppi_call``, and
 ``fused_sample_rollout_kernel`` (``csrc/sample_kernels.cuh``) its TPU kernel
-``_fused_sample_call``. For the network models B4, B3, B8 and the split
+``_fused_sample_call``. For the network models B4, B3, B1, B8 and the split
 dynamics passes run a warp form, one warp per sample
-(``csrc/sample_warp.cuh``, ``csrc/rmppi_warp.cuh``, ``csrc/split_warp.cuh``);
+(``csrc/sample_warp.cuh``, ``csrc/rollout_kernel.cuh``,
+``csrc/rmppi_warp.cuh``, ``csrc/split_warp.cuh``);
 for every other model B4, B3 and B1 run their staged forms, producer warps
 making each chunk of steps' state-free inputs for consumer threads
 (``csrc/sample_staged.cuh``); each launch is counted under the name its
@@ -204,15 +205,18 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # cost pass's cluster form: bicycle B1 0.1052 / 0.1467, B3 0.1652 / 0.1602;
 # DI robust B1-x0 0.0153 / 0.0131 (9 x 64 x 48). The network pairs, whose
 # split dynamics passes run one warp per sample (csrc/split_warp.cuh),
-# against their one-thread combined B1: AutoRally B1 0.261 / 1.066, B1-x0
-# 0.318 / 1.037 (9 x 256 x 150); racer steering B1 0.479 / 1.202; racer
-# uncertainty B1 1.401 / 5.855. Their B3 against the combined kernel's warp
-# form (csrc/sample_warp.cuh, with its carry pass;
-# scripts/torch_network_solve_abba.py, Gaussian, the combined A B B A
-# turns in brackets): AutoRally 0.3867 / 0.3784 [0.3782, 0.3787], racer
-# steering 0.5504 / 0.5761 [0.5761, 0.5760], racer uncertainty 1.5249 /
-# 1.0652 [1.0652, 1.0652]: only racer steering's B3 still splits. Any other
-# pair or kernel keeps the combined kernel.
+# against the combined kernel's warp form, one warp a sample with its
+# epilogue pass (B1: csrc/rollout_kernel.cuh,
+# scripts/torch_network_rollout_abba.py, epilogue + LR, B1-x0 costs; B3:
+# csrc/sample_warp.cuh, scripts/torch_network_solve_abba.py, Gaussian; the
+# combined A B B A turns in brackets): AutoRally B1 0.2600 / 0.3392
+# [0.3392, 0.3392], B1-x0 0.3111 / 0.4147 [0.4146, 0.4149] (9 x 256 x 150);
+# racer steering B1 0.4759 / 0.5658 [0.5659, 0.5658]; racer uncertainty B1
+# 1.3989 / 1.0529 [1.0490, 1.0569]; B3: AutoRally 0.3867 / 0.3784 [0.3782,
+# 0.3787], racer steering 0.5504 / 0.5761 [0.5761, 0.5760], racer
+# uncertainty 1.5249 / 1.0652 [1.0652, 1.0652]. So AutoRally's B1 and B1-x0
+# and racer steering's B1 and B3 still split. Any other pair or kernel
+# keeps the combined kernel.
 AUTO_SPLIT = {
     ("di_circle", "rollout"): False,
     ("di_circle", "solve"): False,
@@ -231,7 +235,7 @@ AUTO_SPLIT = {
     ("bicycle_ar", "solve"): False,
     ("racer_steering_ar", "rollout"): True,
     ("racer_steering_ar", "solve"): True,
-    ("racer_unc_ar", "rollout"): True,
+    ("racer_unc_ar", "rollout"): False,
     ("racer_unc_ar", "solve"): False,
     ("di_robust", "rollout_x0"): False,
 }
@@ -695,11 +699,17 @@ def _lr_args(lr_params):
             _lr_gain(lam, alpha), _f32(pure_thresh))
 
 
+# the epilogue pass after B1's warp form, by epilogue mode
+_WARP_EPILOGUE_PASS = {EPI_EXP: "block_carry_kernel", EPI_MIN: "block_min_kernel"}
+
+
 def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
                   lam_w=1.0):
     """Launch kernel 1 in the ``epilogue`` mode, in the form its entry
-    reports (``form_kernel_name``): (costs, crash, out), out the carry rows
-    (EPI_EXP), the block minima (EPI_MIN) or None."""
+    reports (``form_kernel_name``; the warp form's epilogue is a second
+    launch, ``block_carry_kernel`` or ``block_min_kernel``): (costs, crash,
+    out), out the carry rows (EPI_EXP), the block minima (EPI_MIN) or
+    None."""
     lib_name, entry = _check_rollout_inputs(dynamics, cost, x0, U, lr_params)
     lib = _lib(lib_name)
     K, T, C = U.shape
@@ -715,6 +725,8 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
     name = form_kernel_name("rollout_costs", (lib_name, entry))
     _check_status(status, name)
     _build.count_launch(name, entry)
+    if name == "rollout_costs_warp_kernel" and epilogue in _WARP_EPILOGUE_PASS:
+        _build.count_launch(_WARP_EPILOGUE_PASS[epilogue])
     return costs, crash, out
 
 
@@ -742,7 +754,7 @@ def form_kernel_name(base, entry):
     "flash_combine"), the Tsallis reduction's ("tsallis_reduce",
     "tsallis_reduce")) launches, as its library reports it:
     ``<base>_warp_kernel`` where the model's step is a network (split
-    dynamics passes, B4, B3, B8),
+    dynamics passes, B4, B3, B1, B8),
     ``<base>_staged_kernel`` for B4, B3, B1 and B8 of every other model,
     ``split_dynamics_lanes_kernel`` for B1's split dynamics pass of a
     model with the lane-group step (the bicycle),

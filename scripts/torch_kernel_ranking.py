@@ -22,9 +22,10 @@ def forced_away(entry, path):
     """Whether the loop ``path`` runs the kernel ``entry`` (a kernels-line
     entry) only because it forces a form against AUTO."""
     forced = entry.get("forced_by_path", {}).get(path, ())
-    # the combined kernels, and the carry pass after B3's warp form
+    # the combined kernels, and the epilogue passes after the warp forms of
+    # B3 and B1
     if "combined" in forced and entry["name"].startswith(("rollout_costs", "fused_solve",
-                                                          "block_carry")):
+                                                          "block_carry", "block_min")):
         return True
     return "split" in forced and entry["name"].startswith("split_")
 

@@ -7,7 +7,8 @@ NLN, this script launches B3 through ``fused_solve.fused_solve_carries``:
 
 * the warp form (``fused_solve_warp_kernel`` and its carry pass) A B B A
   against the one-thread ``fused_solve_kernel`` of the same sources built
-  with -DMPPI_SOLVE_ONE_THREAD (CUDA events, medians of 100 runs; the
+  with -DMPPI_SOLVE_ONE_THREAD (``chip_smoke.py``'s variant, which also
+  builds the one-thread B1 there; CUDA events, medians of 100 runs; the
   profiler's device time too), after checking that both give the same bits;
 * the combined kernel (``split_cost=False``) against the split form
   (``split_cost=True``): combined, split, split, combined, the A B B A that
@@ -54,10 +55,8 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     built = _build.build_all()
-    logs = cs.build_variants(((cs.SOLVE_ONE_THREAD, ("MPPI_SOLVE_ONE_THREAD",),
-                               "solve_one_thread", cs.WARP_SOLVE_SOURCES),
-                              (cs.EARLIER, cs.EARLIER_DEFINES, "earlier_forms",
-                               ("tsallis_reduce",))))
+    logs = cs.build_variants(tuple(v for v in cs.VARIANTS if v[0] is cs.SOLVE_ONE_THREAD) + (
+        (cs.EARLIER, cs.EARLIER_DEFINES, "earlier_forms", ("tsallis_reduce",)),))
     keep = ("registers", "Compiling entry", "stack frame")
     for name, log in [(n, built[n]["log"]) for n in cs.WARP_SOLVE_SOURCES + ("tsallis_reduce",)]:
         lines = [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]

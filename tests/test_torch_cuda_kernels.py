@@ -380,7 +380,8 @@ def test_ar_rollout_kernel_matches_plain(cuda_device, K, map_kind, epilogue, wit
     else:
         kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
     torch.cuda.synchronize()
-    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert fr.launch_counts["rollout_costs_warp_kernel"] == 1
+    assert fr.launch_counts["block_carry_kernel"] == int(epilogue)
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
     assert torch.equal(kcrash, pcrash)
@@ -1186,7 +1187,7 @@ def test_split_rollout_kernels_match_plain(cuda_device, K, pair, mode):
     assert fr.launch_counts["split_dynamics_warp_kernel" if pair == "ar_nn"
                             else "split_dynamics_kernel"] == 1
     assert fr.launch_counts[_cost_pass(pair, cost, cuda_device, K, T)] == 1
-    assert fr.launch_counts["rollout_costs_kernel" if pair == "ar_nn"
+    assert fr.launch_counts["rollout_costs_warp_kernel" if pair == "ar_nn"
                             else "rollout_costs_staged_kernel"] == 0
     pc, pcrash = fr.split_rollout_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=0, atol=0)
@@ -1861,8 +1862,8 @@ def test_sample_staged_matches_plain(cuda_device, pair, shape, mode):
 @pytest.mark.cuda
 def test_solve_and_rollout_entries_report_their_form(cuda_device):
     """Every B3 and B1 entry of a pair without a network step launches the
-    staged form; the network pairs' B3 the warp form, their B1 the
-    one-thread kernel (``<entry>_form``)."""
+    staged form; the network pairs' B3 and B1 (AutoRally's per-sample-x0 B1
+    too) the warp form (``<entry>_form``)."""
     from mppi_generic_tpu_torch.ops import _build
 
     for pair in _build.PAIR_KERNELS:
@@ -1871,8 +1872,7 @@ def test_solve_and_rollout_entries_report_their_form(cuda_device):
             entry = _build.pair_entry(pair, kind)
             if entry is None:
                 continue
-            want = base + ("_staged_kernel" if pair in STAGED_PAIRS
-                           else "_warp_kernel" if kind == "solve" else "_kernel")
+            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_warp_kernel")
             assert fr.form_kernel_name(base, entry) == want, (pair, kind)
 
 
@@ -2395,3 +2395,172 @@ def test_tsallis_tiled_keeps_a_nan_rho(cuda_device, one_thread_solve_tsallis):
     torch.cuda.synchronize()
     assert bool(torch.isnan(rho)) and bool(torch.isnan(one_rho))
     assert float(rows.abs().sum()) == 0.0 and torch.equal(rows, one_rows)
+
+
+# --- B1's warp form for the network pairs (csrc/rollout_kernel.cuh
+# rollout_costs_warp_kernel, then block_carry_kernel or block_min_kernel),
+# against its plain version and the one-thread build (chip_smoke.py's
+# -DMPPI_SOLVE_ONE_THREAD -DMPPI_ROLLOUT_ONE_THREAD over the network pairs'
+# sources and rollout_x0.cu) ---
+@pytest.fixture(scope="module")
+def one_thread_rollout():
+    """The network pairs' B1 (one x0 and one per sample) one thread a
+    sample, built beside the port's, and chip_smoke (its ``swapped`` points
+    the wrappers at them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+
+    libs = {}
+    chip_smoke.build_variants((
+        (libs, ("MPPI_SOLVE_ONE_THREAD", "MPPI_ROLLOUT_ONE_THREAD"), "rollout_one_thread_test",
+         tuple(_build.pair_entry(p, "rollout")[0] for p in WARP_PAIRS) + ("rollout_x0",)),))
+    return chip_smoke, libs
+
+
+# (pair, map, K, T, x0 rows): the paths' shapes (AutoRally 1920 x 150 on both
+# bench maps, racer steering 1920 x 100, racer uncertainty 1920 x 150), the
+# partly-crashing map, K = 1900 and 1901 (the last block of warps and of 64
+# samples partly empty), T = 31 (one partial chunk); AutoRally from one x0
+# per sample with ARRobustCost: RMPPI stage 1's 9 candidates x 256 samples
+# (each candidate's row repeated) and 2304 rows of their own, on the bench
+# map and the partly-crashing one
+ROLLOUT_WARP_CASES = {
+    "ar 128 1920x150": ("ar_nn", "128", 1920, 150, None),
+    "ar 1024 1920x150": ("ar_nn", "1024", 1920, 150, None),
+    "ar partial 1920x150": ("ar_nn", "partial", 1920, 150, None),
+    "ar partial 1900x150": ("ar_nn", "partial", 1900, 150, None),
+    "ar partial 1901x31": ("ar_nn", "partial", 1901, 31, None),
+    "steering 1920x100": ("racer_steering_ar", None, 1920, 100, None),
+    "steering 1900x100": ("racer_steering_ar", None, 1900, 100, None),
+    "steering 1901x31": ("racer_steering_ar", None, 1901, 31, None),
+    "unc 1920x150": ("racer_unc_ar", None, 1920, 150, None),
+    "unc 1901x31": ("racer_unc_ar", None, 1901, 31, None),
+    "x0 128 9x256x150": ("ar_nn", "128", 2304, 150, 9),
+    "x0 partial 2304x150": ("ar_nn", "partial", 2304, 150, 2304),
+    "x0 partial 2300x31": ("ar_nn", "partial", 2300, 31, 2300),
+}
+# mode: (epilogue, with LR)
+ROLLOUT_WARP_MODES = {"costs": (fr.EPI_NONE, False), "costs+lr": (fr.EPI_NONE, True),
+                      "epilogue": (fr.EPI_EXP, False), "epilogue+lr": (fr.EPI_EXP, True),
+                      "tsallis": (fr.EPI_MIN, False), "tsallis+lr": (fr.EPI_MIN, True)}
+
+
+def _rollout_warp_inputs(case, dev):
+    """(dynamics, cost, x0, U, LR tables) of a case: U clamped to the
+    model's range, a 10 % pure-noise tail."""
+    pair, map_kind, K, T_, x0_rows = ROLLOUT_WARP_CASES[case]
+    dyn, cost, x0, std = _solve_warp_parts(pair, map_kind, dev)
+    g = torch.Generator(device=dev).manual_seed(K + T_ + 23)
+    if x0_rows is not None:
+        cost = ARRobustCost(costmap=cost.costmap, device=dev)
+        x0 = (x0 + 0.1 * torch.randn((x0_rows, x0.numel()), generator=g, device=dev))
+        x0 = x0.repeat_interleave(K // x0_rows, dim=0).contiguous()
+    mean = 0.3 * torch.randn((T_, C), generator=g, device=dev)
+    sigma = torch.tensor([std], device=dev).expand(T_, C).contiguous()
+    U = (mean + sigma * torch.randn((K, T_, C), generator=g, device=dev)).clamp(-0.9, 0.9)
+    thresh = float((np.float32(1) - np.float32(0.1)) * np.float32(K))
+    lr = (mean, sigma, torch.tensor([0.5, 1.0], device=dev), LAM, ALPHA, thresh)
+    return dyn, cost, x0, U.contiguous(), lr
+
+
+def _rollout_epilogue(dyn, cost, x0, U, lr, epilogue):
+    """B1 through its public entry in the ``epilogue`` mode, combined form:
+    (costs, crash, out)."""
+    if epilogue == fr.EPI_EXP:
+        return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr, split_cost=False)
+    if epilogue == fr.EPI_MIN:
+        return fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False)
+    return (*fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(ROLLOUT_WARP_MODES))
+@pytest.mark.parametrize("case", list(ROLLOUT_WARP_CASES))
+def test_rollout_warp_matches_plain_and_the_one_thread_build(cuda_device, one_thread_rollout,
+                                                             case, mode):
+    """B1's warp form against its plain version and the one-thread build:
+    costs, crash flags, the carry rows (in write_block_carry's order) and the
+    block minima bit for bit; one launch of rollout_costs_warp_kernel and,
+    with an epilogue, one of its pass."""
+    smoke, libs = one_thread_rollout
+    epilogue, with_lr = ROLLOUT_WARP_MODES[mode]
+    dyn, cost, x0, U, lr = _rollout_warp_inputs(case, cuda_device)
+    lr = lr if with_lr else None
+    fr.reset_launch_counts()
+    got = _rollout_epilogue(dyn, cost, x0, U, lr, epilogue)
+    torch.cuda.synchronize()
+    want_launches = {"rollout_costs_warp_kernel": 1}
+    if epilogue != fr.EPI_NONE:
+        want_launches["block_carry_kernel" if epilogue == fr.EPI_EXP else "block_min_kernel"] = 1
+    assert {k: v for k, v in fr.launch_counts.items() if v} == want_launches
+    pair = ROLLOUT_WARP_CASES[case][0]
+    prefix = "rollout_costs_x0_" if x0.dim() == 2 else "rollout_costs_"
+    assert fr.entry_counts == {prefix + pair: 1}
+    with smoke.swapped(libs):
+        one = _rollout_epilogue(dyn, cost, x0, U, lr, epilogue)
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["rollout_costs_kernel"] == 1
+    assert torch.isfinite(pc).all()
+    out = (None if epilogue == fr.EPI_NONE
+           else fr.block_carries_ordered(pc, U, fr._f32(LAM)) if epilogue == fr.EPI_EXP
+           else fr.block_minima_plain(pc))
+    for name, a, b, c in zip(("costs", "crash", "out"), got, one, (pc, pcrash, out)):
+        if c is None:
+            continue
+        assert torch.equal(a, c), name
+        assert torch.equal(b, c), name
+    if epilogue == fr.EPI_EXP:
+        _close(got[2], fr.block_carries_plain(pc, U, LAM), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rollout_warp_crash_populations(cuda_device):
+    """Over one partial chunk the partly-crashing map crashes some of
+    AutoRally's samples, from one x0 and from one x0 per sample, so the
+    sticky crash flags above are worth comparing; the bench map crashes
+    every sample."""
+    for case, mixed in (("ar partial 1901x31", True), ("x0 partial 2300x31", True),
+                        ("ar 128 1920x150", False)):
+        dyn, cost, x0, U, lr = _rollout_warp_inputs(case, cuda_device)
+        _, crash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
+        n = int(crash.sum())
+        assert (0 < n < U.shape[0]) if mixed else n == U.shape[0], case
+
+
+@pytest.mark.cuda
+def test_rollout_warp_keeps_a_nan_cost_in_the_minima(cuda_device, one_thread_rollout):
+    """A NaN in U gives its sample a NaN cost, and the minima pass keeps it
+    NaN in that block, as the one-thread kernel and the plain version do."""
+    smoke, libs = one_thread_rollout
+    dyn, cost, x0, U, lr = _rollout_warp_inputs("ar partial 1901x31", cuda_device)
+    U[100, 3, 0] = float("nan")
+    got = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False)
+    with smoke.swapped(libs):
+        one = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr, split_cost=False)
+    pc, _ = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    torch.cuda.synchronize()
+    want = fr.block_minima_plain(pc)
+    assert bool(torch.isnan(want[1])) and bool(torch.isnan(got[2][1]))
+    for a in (got[2], one[2]):
+        assert torch.equal(a.isnan(), want.isnan())
+        assert torch.equal(a.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_rollout_warp_builds_report_their_form(cuda_device, one_thread_rollout):
+    """The network pairs' B1 entries (and AutoRally's per-sample-x0 entry)
+    report the warp form in the port's build and the one-thread kernel with
+    -DMPPI_ROLLOUT_ONE_THREAD, beside their B3 in its one-thread form."""
+    smoke, libs = one_thread_rollout
+    entries = [_build.pair_entry(p, "rollout") for p in WARP_PAIRS]
+    entries.append(_build.pair_entry("ar_nn", "rollout_x0"))
+    for entry in entries:
+        assert fr.form_kernel_name("rollout_costs", entry) == "rollout_costs_warp_kernel"
+        with smoke.swapped(libs):
+            assert fr.form_kernel_name("rollout_costs", entry) == "rollout_costs_kernel"
+    for pair in WARP_PAIRS:
+        with smoke.swapped(libs):
+            assert fr.form_kernel_name("fused_solve", _build.pair_entry(pair, "solve")) == (
+                "fused_solve_kernel")
