@@ -1795,6 +1795,10 @@ SWINGUP_STEPS = 500
 # the kernel="fused" and Tsallis loops: the entry on a main path (20 until
 # B1's warp form joined the run, cut for time)
 ZOO_B1_STEPS = 10
+# loops without a task bar, cut for time (100 steps each until the staged
+# split passes' checks joined the run)
+CARTPOLE_ROW_STEPS = 50  # the bench row cartpole_example_K8192 on fused_solve
+TSALLIS_HOVER_STEPS = 50  # the hover with Tsallis weights (pair_loops)
 LAM_DIVISION = 0.3  # an inexact reciprocal, for the host-scalar division check
 # Operations per sample-step of each model and cost (csrc/*.cuh; a
 # transcendental, sqrtf and fmodf as OPS_TRANSCENDENTAL, powf as two):
@@ -2352,8 +2356,8 @@ def zoo_loops(dev):
         return out
 
     # the bench row cartpole_example_K8192 from x0 = 0
-    run("cartpole_fused_solve", build_cartpole("fused_solve"), torch.zeros(4, device=dev), n,
-        solve_want("cartpole"))
+    run("cartpole_fused_solve", build_cartpole("fused_solve"), torch.zeros(4, device=dev),
+        CARTPOLE_ROW_STEPS, solve_want("cartpole", CARTPOLE_ROW_STEPS))
     # tests/test_vanilla_mppi.py:80-107 at K=8192 on the fused solve: dt 0.01,
     # lambda 0.25, std 5, control cost 1, 1 % pure noise, slide_scale 1;
     # solve, plant x + state_deriv dt, slide; its bar
@@ -3294,24 +3298,29 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                 t["cost_pass"]["plain_ms"] = plain_ms(
                     lambda: split_cost_plain(cost, Y, U, lrp, T_))
                 dyn_pass = lambda: fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
-                # the lane-group pass A B B A against its one-thread build
+                # the lane-group pass A B B A against its one-thread build, the
+                # staged pass the same (form_time)
                 t["dynamics_pass"] = (turns(dyn_pass, "lanes") if pair in LANES_PAIRS
-                                      else {"ms": time_ms(dyn_pass, N_TIMED)})
+                                      else {"ms": form_time(dyn_pass, pair, "split_dynamics",
+                                                            "B1")})
                 t["dynamics_pass"]["plain_ms"] = plain_ms(
                     lambda: fr.split_outputs_plain(dyn, x0, U, DT))
                 t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
                     *split_pass_work(pair, dyn, cost, K, T_, "dynamics"))
             times[name] = t
-    if pair in LANES_PAIRS:
-        # the lane-group pass and its one-thread build against the plain
-        # version: Y bit for bit, also at a ragged T and K = 1901
-        cases = [U, U[:, :31].contiguous()] + ([U[:1901]] if K == K_BI else [])
+    if pair in LANES_PAIRS or earlier_form(pair, "split_dynamics") is not None:
+        # the lane-group or staged pass and its one-thread build against the
+        # plain version: Y bit for bit; the lane-group pass also at a ragged
+        # T and K = 1901
+        form = "lanes" if pair in LANES_PAIRS else "staged"
+        cases = [U] + ([U[:, :31].contiguous()] + ([U[:1901]] if K == K_BI else [])
+                       if pair in LANES_PAIRS else [])
         for U_ in cases:
             checks += warp_pass_checks(
                 (f"{pair} {U_.shape[0]} x {U_.shape[1]} Y",),
                 lambda U_=U_: (fr.split_dynamics_cuda(dyn, cost, x0, U_, DT),),
                 lambda U_=U_: (fr.split_outputs_plain(dyn, x0, U_, DT).permute(1, 2, 0),),
-                "lanes")
+                form)
     for kind, samp in samplers.items():
         name = f"B3 split {kind}"
         args = (dyn, cost, samp, x0, mean, seed_t, DT, LAM, ALPHA, K)
@@ -3324,16 +3333,29 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                    check(f"{name} costs", kc, pc, "bitwise"),
                    *merge_checks(name, kcarry, pc, pU)]
         crashed[name] = float(kcrash.float().mean())
+        kid = fr.noise_kind(samp)
+        if earlier_form(pair, "split_solve_dynamics") is not None:
+            # the staged pass and its one-thread build against the plain
+            # version: U, Y and the LR sums bit for bit
+            def plain_pass(samp=samp):
+                pU, plr = fused_solve._samples_plain(dyn, samp, mean, seed_t, K, 0, stride, None)
+                return pU, fr.split_outputs_plain(dyn, x0, pU, DT).permute(1, 2, 0), plr
+
+            pass_args = (dyn, cost, samp, kid, x0, mean, seed_t, DT, K, 0, stride, None)
+            checks += warp_pass_checks(
+                tuple(f"{pair} {K} x {T_} B3 {kind} {w}" for w in ("U", "Y", "LR sums")),
+                lambda: fused_solve.split_solve_dynamics_cuda(*pass_args), plain_pass, "staged")
         if timed:
             t = abba(lambda: fused_solve.fused_solve_carries(*args, split_cost=False),
                      lambda: fused_solve.fused_solve_carries(*args, split_cost=True))
             t["bound_ms"], t["bound_by"] = bound_ms(*split_form_work(pair, dyn, cost, K, T_, None,
                                                                      kind))
-            kid = fr.noise_kind(samp)
             dyn_args = (dyn, cost, samp, kid, x0, mean, seed_t, DT, K, 0, 0, None)
             Uk, Y, lrs = fused_solve.split_solve_dynamics_cuda(*dyn_args)
-            t["dynamics_pass"] = {"ms": time_ms(
-                lambda: fused_solve.split_solve_dynamics_cuda(*dyn_args), N_TIMED)}
+            # the staged pass A B B A against its one-thread build (form_time)
+            t["dynamics_pass"] = {"ms": form_time(
+                lambda: fused_solve.split_solve_dynamics_cuda(*dyn_args), pair,
+                "split_solve_dynamics", kind)}
             t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
                 *split_pass_work(pair, dyn, cost, K, T_, "solve_dynamics", kind=kind))
             gain = fr._lr_gain(LAM, ALPHA)
@@ -3381,10 +3403,11 @@ def split_loops(dev):
     paths = {}
     for path, kernel, split, want in (
             ("split_fused", "fused", True,
-             {"split_dynamics_kernel": n, cost_kernel("di_circle", K_MAIN, T): n, MERGE: n}),
+             {split_name("di_circle", "split_dynamics"): n,
+              cost_kernel("di_circle", K_MAIN, T): n, MERGE: n}),
             ("split_fused_solve", "fused_solve", True,
-             {"split_solve_dynamics_kernel": n, cost_kernel("di_circle", K_MAIN, T): n,
-              MERGE: n}),
+             {split_name("di_circle", "split_solve_dynamics"): n,
+              cost_kernel("di_circle", K_MAIN, T): n, MERGE: n}),
             ("split_eager", "split", None, {})):
         launches = vanilla_loop_phase(path, build_split_vanilla(kernel, split), want,
                                       settle=True)
@@ -3686,6 +3709,20 @@ def split_x0_phase(dev, pair, map_kind=None, timed=False):
     same(f"{pair} B1-x0 split crash flags", kcrash, pcrash)
     same(f"{pair} B1-x0 split vs combined crash flags", kcrash, ccrash)
     checks = [check(f"{pair} B1-x0 split costs", kc, pc, "bitwise")]
+    if earlier_form(pair, "split_dynamics_x0") is not None:
+        # the staged pass and the one-thread build against the plain version:
+        # Y bit for bit at the loop's shape, 9 x 256 x 50 and a ragged one
+        cases = [(X0c, U)]
+        for n_per_, T__ in ((S_PER_AR, T_R), (23, 31)):
+            X0_ = (xa[None] + w * dx[None]).repeat_interleave(n_per_, dim=0).contiguous()
+            U_ = sigma * torch.randn((X0_.shape[0], T__, C), generator=g, device=dev)
+            cases.append((X0_, U_.contiguous()))
+        for X0_, U_ in cases:
+            checks += warp_pass_checks(
+                (f"{pair} B1-x0 {X0_.shape[0]} x {U_.shape[1]} Y",),
+                lambda X0_=X0_, U_=U_: (fr.split_dynamics_cuda(dyn, cost, X0_, U_, DT),),
+                lambda X0_=X0_, U_=U_: (
+                    fr.split_outputs_plain(dyn, X0_, U_, DT).permute(1, 2, 0),), "staged")
     times = {}
     if timed:
         t = abba(lambda: fr._rollout_cuda(dyn, cost, X0c, U, DT, None),
@@ -3693,8 +3730,9 @@ def split_x0_phase(dev, pair, map_kind=None, timed=False):
         n_bytes, n_ops = zoo_rollout_work(dyn, cost, sum(PAIR_OPS[pair]), K, T_, "costs")
         t["bound_ms"], t["bound_by"] = bound_ms(n_bytes + 4 * (K - 1) * dyn.STATE_DIM, n_ops)
         Y = fr.split_dynamics_cuda(dyn, cost, X0c, U, DT)
-        t["dynamics_pass"] = {"ms": time_ms(
-            lambda: fr.split_dynamics_cuda(dyn, cost, X0c, U, DT), N_TIMED)}
+        t["dynamics_pass"] = {"ms": form_time(
+            lambda: fr.split_dynamics_cuda(dyn, cost, X0c, U, DT), pair, "split_dynamics_x0",
+            "B1-x0")}
         t["dynamics_pass"]["bound_ms"], t["dynamics_pass"]["bound_by"] = bound_ms(
             *split_pass_work(pair, dyn, cost, K, T_, "dynamics", x0_rows=K))
         t["dynamics_pass"]["plain_ms"] = time_ms(
@@ -3732,6 +3770,16 @@ WARP_SOURCES = tuple(sorted({_build.pair_entry(p, k)[0] for p in WARP_PAIRS
 # pass beside the warp pairs'
 LANES_PAIRS = ("bicycle_ar",)
 LANES_SOURCES = tuple(_build.pair_entry(p, "split_dynamics")[0] for p in LANES_PAIRS)
+# the pairs whose split dynamics passes run the staged form
+# (csrc/split_staged.cuh; the bicycle's B1 pass the lane-group form);
+# -DMPPI_SPLIT_ONE_THREAD builds their one-thread passes beside the others
+SPLIT_STAGED_PAIRS = ("di_circle", "di_quadratic", "cartpole", "quadrotor_quadratic",
+                      "dubins_quadratic", "di_robust", "bicycle_ar")
+SPLIT_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0")
+SPLIT_ONE_THREAD_SOURCES = tuple(sorted(
+    set(WARP_SOURCES + LANES_SOURCES) | {_build.pair_entry(p, k)[0] for p in SPLIT_STAGED_PAIRS
+                                          for k in SPLIT_KINDS
+                                          if _build.pair_entry(p, k) is not None}))
 ONE_THREAD = {}  # {source: the loaded one-thread build}, from build_one_thread
 # The one-thread rows of PERF.md §6 that the warp forms of B4 and B8 replace
 # (no one-thread build of them is kept, so their times are not measured
@@ -3747,9 +3795,9 @@ ONE_THREAD_ROWS = {
 
 def one_thread_fields(kind, pair):
     """The ``kernels`` line's fields of an entry's earlier form: the
-    one-thread row a warp entry replaces, or the staged form of B4, B3, B1 or
-    B8 timed A B B A against the one-thread kernel in this run, by mode (none
-    for a one-thread entry)."""
+    one-thread row a warp entry replaces, or the staged form of B4, B3, B1,
+    B8 or a split dynamics pass timed A B B A against the one-thread kernel
+    in this run, by mode (none for a one-thread entry)."""
     if earlier_form(pair, kind) is not None or (kind == "rmppi" and pair in B8_STAGED_PAIRS):
         return {"one_thread_abba": {m: {k: t.get(k) for k in (
             "ms", "other_ms", "abba_ms", "faster", "device")}
@@ -3850,28 +3898,32 @@ def device_ms(fn, name=None, n=N_TIMED_KERNEL):
     The runs are parted by a host pause, which leaves a gap of a
     millisecond or more between them on the device's clock (``last_runs``).
     The first n runs warm the tracing up (a window opened late in a run
-    missed the kernels of its first runs)."""
+    missed the kernels of its first runs). A window whose last n runs are
+    not whole (a host stall inside a run, or events the profiler dropped:
+    seen once in about forty windows of a run) is taken again, up to three
+    windows."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2 * n):
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(0.002)
     names = (name,) if isinstance(name, str) else name
-    seen = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and (names is None or any(m in e.name for m in names))),
-                  key=lambda e: e.time_range.start)
-    runs = last_runs(seen, n)
-    if runs is None or (names is not None and len(runs[0]) != len(names)):
-        raise AssertionError(f"the profiler saw {len(seen)} launches of "
-                             f"{name or 'any kernel'} in {2 * n} runs, not {n} whole runs "
-                             f"of one launch sequence at the end")
-    us = [sum(e.time_range.elapsed_us() for e in r) for r in runs]
-    return statistics.median(us) / 1e3
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * n):
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.002)
+        seen = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and (names is None or any(m in e.name for m in names))),
+                      key=lambda e: e.time_range.start)
+        runs = last_runs(seen, n)
+        if runs is not None and (names is None or len(runs[0]) == len(names)):
+            us = [sum(e.time_range.elapsed_us() for e in r) for r in runs]
+            return statistics.median(us) / 1e3
+    raise AssertionError(f"the profiler saw {len(seen)} launches of "
+                         f"{name or 'any kernel'} in {2 * n} runs, not {n} whole runs "
+                         f"of one launch sequence at the end, in three windows")
 
 
 def last_runs(seen, n):
@@ -3937,8 +3989,7 @@ WARP_SOLVE_SOURCES = tuple(_build.pair_entry(p, "solve")[0] for p in WARP_PAIRS)
     _build.pair_entry("ar_nn", "rollout_x0")[0],)
 SOLVE_ONE_THREAD = {}  # {source: the loaded one-thread B3 and B1 build of a network pair}
 # (libraries it fills, -D flags, build directory, sources)
-VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread",
-             WARP_SOURCES + LANES_SOURCES),
+VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread", SPLIT_ONE_THREAD_SOURCES),
             (LADDER_ONE_THREAD, ("MPPI_LADDER_ONE_THREAD",), "ladder_one_thread", ("riccati",)),
             (SAMPLE_ONE_THREAD, ("MPPI_SAMPLE_ONE_THREAD", "MPPI_SOLVE_ONE_THREAD",
                                  "MPPI_ROLLOUT_ONE_THREAD", "MPPI_RMPPI_ONE_THREAD"),
@@ -3949,10 +4000,11 @@ VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread",
 
 
 def build_one_thread():
-    """Build the VARIANTS: WARP_SOURCES and LANES_SOURCES with
-    -DMPPI_SPLIT_ONE_THREAD (every model's split passes one thread a
-    sample), riccati.cu with -DMPPI_LADDER_ONE_THREAD, the staged pairs'
-    sources and rmppi_rollout.cu with -DMPPI_SAMPLE_ONE_THREAD,
+    """Build the VARIANTS: the split sources of the warp, lane and staged
+    pairs (SPLIT_ONE_THREAD_SOURCES) with -DMPPI_SPLIT_ONE_THREAD (every
+    model's split passes one thread a sample), riccati.cu with
+    -DMPPI_LADDER_ONE_THREAD, the staged pairs' sources and rmppi_rollout.cu
+    with -DMPPI_SAMPLE_ONE_THREAD,
     -DMPPI_SOLVE_ONE_THREAD, -DMPPI_ROLLOUT_ONE_THREAD and
     -DMPPI_RMPPI_ONE_THREAD, the network pairs' sources and rollout_x0.cu
     with -DMPPI_SOLVE_ONE_THREAD and -DMPPI_ROLLOUT_ONE_THREAD, and
@@ -3960,14 +4012,14 @@ def build_one_thread():
     return build_variants(VARIANTS)
 
 
-def build_variants(variants):
+def build_variants(variants, csrc=_build.CSRC):
     """Build each (libraries, -D flags, build directory, sources) of
-    ``variants``, one nvcc per source, all started together, and load them
-    into their dicts. Each is compiled as a unit of another name that
-    includes the source, so that its kernels' symbols (nvcc names a
-    source's anonymous namespace after its file) differ from those of the
-    port's build loaded beside it. Returns {"<directory>/<source>": nvcc's
-    log}."""
+    ``variants`` from the sources in ``csrc`` (the port's by default), one
+    nvcc per source, all started together, and load them into their dicts.
+    Each is compiled as a unit of another name that includes the source, so
+    that its kernels' symbols (nvcc names a source's anonymous namespace
+    after its file) differ from those of the port's build loaded beside it.
+    Returns {"<directory>/<source>": nvcc's log}."""
     procs = {}
     for libs, defines, tag, sources in variants:
         out = _build.BUILD_ROOT / tag
@@ -3977,7 +4029,7 @@ def build_variants(variants):
             unit.write_text(f'#include "{name}.cu"\n')
             procs[f"{tag}/{name}"] = (libs, name, out / f"lib{name}.so", subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
-                 str(_build.CSRC), "-o", str(out / f"lib{name}.so"), str(unit)],
+                 str(csrc), "-o", str(out / f"lib{name}.so"), str(unit)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = {key: proc.communicate()[0] for key, (_, _, _, proc) in procs.items()}
     for key, (libs, name, path, proc) in procs.items():
@@ -4004,9 +4056,9 @@ def swapped(libs=None, ladder=None):
 
 
 def one_thread_split():
-    """Inside, the wrappers take the warp and lane pairs' split libraries
-    from the one-thread build (their launches then run the one-thread
-    passes)."""
+    """Inside, the wrappers take the warp, lane and staged pairs' split
+    libraries from the one-thread build (their launches then run the
+    one-thread passes)."""
     return swapped(ONE_THREAD)
 
 
@@ -4037,9 +4089,13 @@ def earlier_form(pair, kind):
     """The context in which ``pair``'s entry ``kind`` launches the form its
     redesign replaced (the one-thread kernel), or None: B4, B3 and B1 of
     the staged pairs, B3 and B1 (one x0 and one per sample) of the network
-    pairs."""
+    pairs, the staged split dynamics passes (the lane-group pass is timed
+    apart: ``turns``)."""
     if pair in STAGED_PAIRS and kind in ("sample", "solve", "rollout"):
         return one_thread_sample
+    if (pair in SPLIT_STAGED_PAIRS and kind in SPLIT_KINDS
+            and not (pair in LANES_PAIRS and kind == "split_dynamics")):
+        return one_thread_split
     if pair in WARP_PAIRS and kind in ("solve", "rollout", "rollout_x0"):
         return one_thread_solve
     return None
@@ -4049,8 +4105,10 @@ def check_forms():
     """Each warp pair's split dynamics entries report the warp form in the
     port's build and the one-thread form in build_one_thread's, each lane
     pair's B1 split dynamics entry the lane-group form and the one-thread
-    form; each B4 and B8 entry the warp form for a warp pair, else the
-    staged form (the one-thread kernel in the one-thread build);
+    form, each other split dynamics entry of SPLIT_STAGED_PAIRS the staged
+    form and the one-thread form; each B4 and B8 entry the warp form for a
+    warp pair, else the staged form (the one-thread kernel in the one-thread
+    build);
     each B3 and B1 entry (one x0 or one per sample) the staged form for a
     staged pair (the one-thread kernel in the one-thread build), else the
     warp form (the one-thread kernel in the network pairs' one-thread
@@ -4073,6 +4131,16 @@ def check_forms():
             one = split_name(pair, "split_dynamics")
         if (lanes, one) != ("split_dynamics_lanes_kernel", "split_dynamics_kernel"):
             raise AssertionError(f"{pair} split_dynamics: the builds report {lanes} and {one}")
+    for pair in SPLIT_STAGED_PAIRS:
+        for kind in SPLIT_KINDS:
+            if _build.pair_entry(pair, kind) is None or earlier_form(pair, kind) is None:
+                continue
+            staged = split_name(pair, kind)
+            with one_thread_split():
+                one = split_name(pair, kind)
+            base = FORM_BASE[kind]
+            if (staged, one) != (base + "_staged_kernel", base + "_kernel"):
+                raise AssertionError(f"{pair} {kind}: the builds report {staged} and {one}")
     for pair in _build.PAIR_KERNELS:
         for kind, base in (("sample", "fused_sample_rollout"), ("rmppi", "rmppi_rollout")):
             if _build.pair_entry(pair, kind) is None:
@@ -4151,17 +4219,18 @@ def abba_against(fn, other):
             "faster": max(b1, b2) < min(a1, a2)}
 
 
-FORM_TIMES = {}  # {("ladder" | "sample" | "solve" | "rollout", key): A B B A against
-#                  the earlier form}
+FORM_TIMES = {}  # {("ladder" | "sample" | "solve" | "rollout" | a split kind, key):
+#                  A B B A against the earlier form}
 
 
 def form_time(fn, pair, kind, mode, at_path=True):
-    """The ms of ``fn``, a launch of ``pair``'s B3 (kind "solve") or B1
-    ("rollout", "rollout_x0") entry: at its path's shape (``at_path``),
-    where the entry runs a redesigned form (``earlier_form``: the staged
-    form, or the network pairs' warp forms), A B B A against the one-thread
-    build (kept in FORM_TIMES[(kind, pair)][mode] for the kernels line; the
-    warp B3's also by the profiler's device time, its carry pass included;
+    """The ms of ``fn``, a launch of ``pair``'s B3 (kind "solve"), B1
+    ("rollout", "rollout_x0") or split dynamics (SPLIT_KINDS) entry: at its
+    path's shape (``at_path``), where the entry runs a redesigned form
+    (``earlier_form``: the staged form, or the network pairs' warp forms of
+    B3 and B1), A B B A against the one-thread build (kept in
+    FORM_TIMES[(kind, pair)][mode] for the kernels line; the warp B3's also
+    by the profiler's device time, its carry pass included;
     ``scripts/torch_network_rollout_abba.py`` has the warp B1's), else CUDA
     events alone. The A B B A takes the place of the single timing, so no
     entry is timed twice."""
@@ -4854,14 +4923,16 @@ def pair_kernel_entries(errs, times, paths, warp_times=None, carry_paths=None):
                  "split_dynamics", "pallas_rollout.py:548 (split mode, run_tile :663-696)",
                  dyn_pass, errs[("lanes", pair)] if pair in LANES_PAIRS else err, K=K, T=T_,
                  warp_key="B1 dynamics" if warp else None,
-                 split_form=forms(st, "B1 split "), **lanes),
+                 split_form=forms(st, "B1 split "), **lanes,
+                 **one_thread_fields("split_dynamics", pair)),
             line(f"{split_name(pair, 'split_solve_dynamics')}<{dyn_name}>", pair,
                  "split_solve_dynamics", "pallas_solve.py:103 (split mode :274-290)",
                  st["B3 split gaussian"]["dynamics_pass"], err, K=K, T=T_,
                  warp_key="B3 dynamics gaussian" if warp else None,
                  modes={"nln": (warp_times[pair]["B3 dynamics nln"] if warp
                                 else st["B3 split nln"]["dynamics_pass"])},
-                 split_form=forms(st, "B3 split ")),
+                 split_form=forms(st, "B3 split "),
+                 **one_thread_fields("split_solve_dynamics", pair)),
             line(f"{cost_kernel(pair, K, T_)}<{cost_name}>", pair, "split_cost",
                  "pallas_rollout.py:698-768 and pallas_solve.py:292-332 (the split cost "
                  "pass)", st["B1 split epilogue+lr"]["cost_pass"], err, K=K, T=T_,
@@ -4883,7 +4954,8 @@ def pair_kernel_entries(errs, times, paths, warp_times=None, carry_paths=None):
                         "pallas_rollout.py:548 (split mode with per_sample_x0, :646)",
                         t["dynamics_pass"], err,
                         warp_key="B1-x0 dynamics" if pair in WARP_PAIRS else None,
-                        **shape, split_form=form))
+                        **shape, split_form=form,
+                        **one_thread_fields("split_dynamics_x0", pair)))
         if pair == "di_robust":
             out.append(line(f"{cost_kernel(pair, shape['K'], shape['T'])}"
                             "<DoubleIntegratorRobustCost>", pair,
@@ -4967,8 +5039,8 @@ def pair_loops(dev):
     qx0 = zoo_parts("quadrotor_quadratic", dev)[2]
     _, _, X, _ = run("quadrotor_hover_tsallis_fused_solve", build_zoo(
         "quadrotor_quadratic", "fused_solve", K=K_HOVER, T_=T_HOVER,
-        weight_transform="tsallis", tsallis_gamma=GAMMA, tsallis_r=R_TS), qx0, 100,
-        b4("quadrotor_quadratic", 100),
+        weight_transform="tsallis", tsallis_gamma=GAMMA, tsallis_r=R_TS), qx0,
+        TSALLIS_HOVER_STEPS, b4("quadrotor_quadratic", TSALLIS_HOVER_STEPS),
         initial_mean=hover_mean)
     emit("quadrotor_hover_tsallis_position", position_error=float(
         torch.linalg.vector_norm(X[-1, :3])), final_state=X[-1].tolist())
@@ -5629,7 +5701,8 @@ def main() -> int:
                         pair, f"split_dynamics_{pair}",
                         "pallas_rollout.py:548 (split mode, run_tile :663-696)",
                         st["B1 split epilogue+lr"]["dynamics_pass"], warp_key="B1 dynamics",
-                        K=K, T=T_, split_form=forms(st, "B1 split ")),
+                        K=K, T=T_, split_form=forms(st, "B1 split "),
+                        **one_thread_fields("split_dynamics", pair)),
             split_entry(f"{split_name(pair, 'split_solve_dynamics')}"
                         f"<{dyn_name}>", pair, f"split_solve_dynamics_{pair}",
                         "pallas_solve.py:103 (split mode :274-290)",
@@ -5637,7 +5710,8 @@ def main() -> int:
                         warp_key="B3 dynamics gaussian", K=K, T=T_,
                         modes={"nln": (warp_times[pair]["B3 dynamics nln"] if pair in WARP_PAIRS
                                        else st["B3 split nln"]["dynamics_pass"])},
-                        split_form=forms(st, "B3 split ")),
+                        split_form=forms(st, "B3 split "),
+                        **one_thread_fields("split_solve_dynamics", pair)),
             split_entry(f"{cost_kernel(pair, K, T_)}<{cost_name}>", pair, f"split_cost_{pair}",
                         "pallas_rollout.py:698-768 and pallas_solve.py:292-332 "
                         "(the split cost pass)",

@@ -19,18 +19,21 @@
 // neighbours', and its LR term with C divisions. K = 8192 fills the 132 SMs
 // with two warps each.
 //
-// One ring serves the three kernels (staged_chain). A block holds NS =
-// kBlockSamples = 64 samples. Threads 0..NS-1 are the consumers, one sample
-// each: the model's step and the running cost, in the one-thread kernel's
-// order. The kProducerWarps warps after them are the producers (the
-// policy's produce_chunk): for each chunk of kChunk = 32 steps, lane j makes
-// step t0 + j of samples w, w + kProducerWarps, ... into a stage in shared
+// One ring (staged_ring) serves the three kernels and the split form's two
+// dynamics passes (split_staged.cuh). A block holds NS = kBlockSamples = 64
+// samples. Threads 0..NS-1 are the consumers, one sample each: the model's
+// step and the consumer's action on its outputs (the sink: in the three
+// kernels the running cost, CostSink), in the one-thread kernel's order.
+// The kProducerWarps warps after them are the producers (the policy's
+// produce_chunk): for each chunk of kChunk = 32 steps, lane j makes step
+// t0 + j of samples w, w + kProducerWarps, ... into a stage in shared
 // memory. Two stages form a ring: named barriers (bar.arrive / bar.sync, ids
 // kBarFull + s and kBarEmpty + s over the whole block) hand stage s to the
 // consumers when it is full and back to the producers when it has been
 // read, so the producers fill chunk i + 1 while the consumers step through
 // chunk i. What a step's rows hold, and how the consumer adds them up, is
-// the kernel's policy:
+// the kernel's policy (the split passes' sink stores each step's outputs
+// instead, split_staged.cuh):
 //   B4 (SamplePolicy): the controls and the step's LR term by
 //     sample_controls, U and W rows written; acc = acc + running + lr_t.
 //   B3 (SolvePolicy): the controls and the C LR terms by solve_controls, U
@@ -187,14 +190,47 @@ struct SolvePolicy {
   }
 };
 
-// The ring of the staged kernels (the top of this file) for the pair
-// (Dyn, Cost) and the policy P: returns this thread's J (0 for a producer
-// and past K), costs and crash flags written, and sets *valid_out for the
+// The consumer's action in the combined kernels: each step's running cost
+// added up by the policy's add (the cost sum, and B3's LR terms into the LR
+// sum kept apart), then J = the policy's finish with the terminal cost,
+// written to costs[k] with the sticky crash flag.
+template <class Cost, class P>
+struct CostSink {
+  struct Args {
+    float* costs;
+    int* crash_out;
+  };
+  Args a;
+  typename Cost::Params cp;
+  int crash = 0;
+  StagedSums sums;
+
+  __device__ CostSink(const Args& args, const ModelArgs& m)
+      : a(args), cp(Cost::load(m.cost_params, m.cost_map)) {}
+  __device__ void step(int t, int /*k*/, const float* y, const float* v) {
+    P::add(sums, Cost::running_cost(cp, y, v, t, &crash), v);
+  }
+  __device__ float finish(const P& p, int k, int T, const float* y) {
+    const float J = p.finish(sums, Cost::terminal_cost(cp, y), T);
+    a.costs[k] = J;
+    a.crash_out[k] = crash;
+    return J;
+  }
+};
+
+// The ring of the staged kernels (the top of this file) for the model Dyn,
+// the policy P (what the producers make) and the consumer's action Sink
+// (what a consumer does with each step's outputs y and rows v: CostSink in
+// the combined kernels, OutputSink in the split dynamics passes,
+// split_staged.cuh). Each consumer constructs its Sink from `sink_args`
+// and the model arguments, calls its step(t, k, y, v) after each step and,
+// for a sample below K, its finish(p, k, T, y) after the last, whose value
+// it returns (0 for a producer and past K); sets *valid_out for the
 // epilogue. Every thread of the block calls it.
-template <class Dyn, class Cost, class P>
-__device__ inline float staged_chain(const P& p, const float* x0, int K, int T, float dt,
-                                     const ModelArgs& m, float* costs, int* crash_out,
-                                     bool* valid_out) {
+template <class Dyn, class Sink, class P>
+__device__ inline float staged_ring(const P& p, const typename Sink::Args& sink_args,
+                                    const float* x0, int K, int T, float dt,
+                                    const ModelArgs& m, bool* valid_out) {
   constexpr int NS = kBlockSamples;
   constexpr int S = Dyn::S;
   constexpr int O = Dyn::O;
@@ -214,7 +250,7 @@ __device__ inline float staged_chain(const P& p, const float* x0, int K, int T, 
     const int i = threadIdx.x;
     const int k = k0 + i;
     valid = k < K;
-    const typename Cost::Params cp = Cost::load(m.cost_params, m.cost_map);
+    Sink sink(sink_args, m);
     float x[S];
     float y[O];
     float rec[R > 0 ? R : 1];
@@ -225,8 +261,6 @@ __device__ inline float staged_chain(const P& p, const float* x0, int K, int T, 
     }
 #pragma unroll
     for (int o = 0; o < O; ++o) y[o] = 0.0f;
-    int crash = 0;
-    StagedSums sums;
     for (int ch = 0; ch < n_chunks; ++ch) {
       const float* st = stages + (ch & 1) * L::kFloats;
       named_sync(kBarFull + (ch & 1), kStagedThreads);
@@ -243,17 +277,13 @@ __device__ inline float staged_chain(const P& p, const float* x0, int K, int T, 
           for (int r = 0; r < P::kRows; ++r) v[r] = st[L::at(j, r, i)];
           const int t = t0 + j;
           step_model<Dyn>(dyn_sh, x, rec, v, static_cast<float>(t), dt, y);
-          P::add(sums, Cost::running_cost(cp, y, v, t, &crash), v);
+          sink.step(t, k, y, v);
         }
       }
       // the producers wait for stage (ch & 1) only to fill chunk ch + 2
       if (ch + 2 < n_chunks) named_arrive(kBarEmpty + (ch & 1), kStagedThreads);
     }
-    if (valid) {
-      J = p.finish(sums, Cost::terminal_cost(cp, y), T);
-      costs[k] = J;
-      crash_out[k] = crash;
-    }
+    if (valid) J = sink.finish(p, k, T, y);
   } else {  // a producer warp
     const int w = (threadIdx.x - NS) >> 5;
     const uint32_t key = p.key();
@@ -266,6 +296,17 @@ __device__ inline float staged_chain(const P& p, const float* x0, int K, int T, 
   }
   *valid_out = valid;
   return J;
+}
+
+// The ring of the combined kernels for the pair (Dyn, Cost) and the policy
+// P: returns this thread's J (0 for a producer and past K), costs and crash
+// flags written, and sets *valid_out for the epilogue.
+template <class Dyn, class Cost, class P>
+__device__ inline float staged_chain(const P& p, const float* x0, int K, int T, float dt,
+                                     const ModelArgs& m, float* costs, int* crash_out,
+                                     bool* valid_out) {
+  return staged_ring<Dyn, CostSink<Cost, P>>(p, {costs, crash_out}, x0, K, T, dt, m,
+                                             valid_out);
 }
 
 // Launch the staged kernel `kern` of the model Dyn, ROWS rows a step, over

@@ -28,15 +28,20 @@
 // to U), add the LR term lrc mu (mu - 2 u) to the sample's sum (written to
 // lr_out[k]), step, write y.
 //
-// A model whose step is a network (kWarpStep: AutoRally's FNN, the racer
-// LSTMs) takes the warp form of both dynamics passes instead,
-// split_dynamics_warp_kernel and split_solve_dynamics_warp_kernel
-// (split_warp.cuh: one warp per sample, one network unit per lane); a model
-// with a long analytic step (kLaneGroup: the bicycle) takes the lane-group
-// form of B1's dynamics pass, split_dynamics_lanes_kernel (split_lanes.cuh: a
-// group of lanes per sample, each evaluating one operand set of the step's
-// independent functions). The entries below pick the form at compile time,
-// so a pair's library holds one.
+// These two one-thread passes are the earlier form, which only a build with
+// -DMPPI_SPLIT_ONE_THREAD launches. A model whose step is a network
+// (kWarpStep: AutoRally's FNN, the racer LSTMs) takes the warp form of both
+// dynamics passes, split_dynamics_warp_kernel and
+// split_solve_dynamics_warp_kernel (split_warp.cuh: one warp per sample, one
+// network unit per lane); a model with a long analytic step (kLaneGroup: the
+// bicycle) takes the lane-group form of B1's dynamics pass,
+// split_dynamics_lanes_kernel (split_lanes.cuh: a group of lanes per sample,
+// each evaluating one operand set of the step's independent functions);
+// every other pass takes the staged form, split_dynamics_staged_kernel and
+// split_solve_dynamics_staged_kernel (split_staged.cuh: producer warps make
+// each 32-step chunk's controls into shared memory, a consumer thread a
+// sample steps and stores Y). The entries below pick the form at compile
+// time, so a pair's library holds one.
 //
 // The cost pass of both, split_cost_cluster_kernel<Cost, O, C, EPI, WITH_LR>:
 // a thread-block cluster of kCostCluster CTAs takes a block of kBlockSamples
@@ -111,6 +116,7 @@
 #include "rollout_kernel.cuh"
 #include "sample_kernels.cuh"
 #include "split_lanes.cuh"
+#include "split_staged.cuh"
 #include "split_warp.cuh"
 
 namespace {
@@ -567,10 +573,18 @@ split_cost_cluster_kernel(const float* __restrict__ Y, const float* __restrict__
 }
 
 // The form of B1's split dynamics pass for the model Dyn: 1 the warp form, 5
-// the lane-group form, 0 the one-thread kernel.
+// the lane-group form, 2 the staged form, 0 the one-thread kernel (every
+// model under -DMPPI_SPLIT_ONE_THREAD).
 template <class Dyn>
 constexpr int split_dynamics_form() {
-  return kSplitWarp<Dyn> ? 1 : kSplitLanes<Dyn> ? 5 : 0;
+  return kSplitWarp<Dyn> ? 1 : kSplitLanes<Dyn> ? 5 : kSplitStaged<Dyn> ? 2 : 0;
+}
+
+// The form of B3's split dynamics pass for the model Dyn: 1 the warp form, 2
+// the staged form, 0 the one-thread kernel.
+template <class Dyn>
+constexpr int split_solve_dynamics_form() {
+  return kSplitWarp<Dyn> ? 1 : kSplitStaged<Dyn> ? 2 : 0;
 }
 
 template <class Dyn, bool X0>
@@ -587,6 +601,8 @@ int split_dynamics_entry(int device, const float* x0, const float* U, int K,
     const int nb = (K + kLaneSamples - 1) / kLaneSamples;
     split_dynamics_lanes_kernel<Dyn, X0><<<nb, kLaneSamples * Dyn::kLaneGroup, 0, s>>>(
         x0, U, K, T, dt, m, Y);
+  } else if constexpr (kSplitStaged<Dyn>) {
+    return static_cast<int>(launch_split_dynamics_staged<Dyn, X0>(x0, U, K, T, dt, m, Y, s));
   } else {
     const int nb = (K + kBlockSamples - 1) / kBlockSamples;
     split_dynamics_kernel<Dyn, X0><<<nb, kBlockSamples, 0, s>>>(x0, U, K, T, dt, m, Y);
@@ -615,6 +631,9 @@ int split_solve_dynamics_entry(int device, int noise_kind, const float* x0,
       split_solve_dynamics_warp_kernel<Dyn, kNLN><<<nb, 32 * W, 0, s>>>(
           x0, a, K, T, dt, m, U, Y, lr_out);
     }
+  } else if constexpr (kSplitStaged<Dyn>) {
+    return static_cast<int>(launch_split_solve_dynamics_staged<Dyn>(noise_kind, x0, a, K, T,
+                                                                     dt, m, U, Y, lr_out, s));
   } else {
     const int nb = (K + kBlockSamples - 1) / kBlockSamples;
     if (noise_kind == kGaussian) {
@@ -718,10 +737,11 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
 // launch (0 when it was accepted), or cudaErrorInvalidValue for a mode it
 // does not have. Beside each dynamics entry, <entry>_form() says which form
 // of the pass it launches: 1 the warp form (split_warp.cuh), 5 the lane-group
-// form (split_lanes.cuh, B1's pass only), 0 the one-thread kernel. Each cost
-// entry launches the form `form` names: 3 the cluster form, 0 the one-block
-// form; <entry>_form() says which the build has besides the one-block form
-// (3, or 0 under -DMPPI_COST_ONE_BLOCK).
+// form (split_lanes.cuh, B1's pass only), 2 the staged form
+// (split_staged.cuh), 0 the one-thread kernel. Each cost entry launches the
+// form `form` names: 3 the cluster form, 0 the one-block form; <entry>_form()
+// says which the build has besides the one-block form (3, or 0 under
+// -DMPPI_COST_ONE_BLOCK).
 #define SPLIT_DYNAMICS_ENTRY_(NAME, DYN, X0)                                  \
   int NAME(int device, const float* x0, const float* U, int K, int T,        \
            float dt, const float* dyn_params, const float* cost_params,      \
@@ -767,6 +787,6 @@ int split_cost_entry(int device, const float* Y, const float* U, int K, int T,
         stream);                                                              \
   }                                                                           \
   int split_solve_dynamics_##PAIR##_form() {                                  \
-    return kSplitWarp<DYN> ? 1 : 0;                                           \
+    return split_solve_dynamics_form<DYN>();                                  \
   }                                                                           \
   SPLIT_COST_ENTRY(PAIR, DYN, COST)

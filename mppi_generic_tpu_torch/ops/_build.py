@@ -189,7 +189,9 @@ SIGNATURES = {
 # rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
 # where the staged form of B4, B3, B1 or B8 (fused_sample_rollout_staged_kernel,
 # fused_solve_staged_kernel, rollout_costs_staged_kernel:
-# csrc/sample_staged.cuh; rmppi_rollout_staged_kernel: csrc/rmppi_staged.cuh),
+# csrc/sample_staged.cuh; rmppi_rollout_staged_kernel: csrc/rmppi_staged.cuh)
+# or of a split dynamics pass (split_dynamics_staged_kernel,
+# split_solve_dynamics_staged_kernel: csrc/split_staged.cuh),
 # 5 where the lane-group form of B1's split dynamics pass
 # (split_dynamics_lanes_kernel: csrc/split_lanes.cuh), 0 where the
 # one-thread kernel; the merge's
@@ -248,7 +250,9 @@ launch_counts = {
     "split_solve_dynamics_kernel": 0,
     "split_dynamics_warp_kernel": 0,
     "split_dynamics_lanes_kernel": 0,
+    "split_dynamics_staged_kernel": 0,
     "split_solve_dynamics_warp_kernel": 0,
+    "split_solve_dynamics_staged_kernel": 0,
     "split_cost_kernel": 0,
     "split_cost_cluster_kernel": 0,
 }

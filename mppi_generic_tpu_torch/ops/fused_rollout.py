@@ -197,13 +197,16 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # combined times of an A B B A turn in one call on an H100 80GB HBM3 at
 # 700 W (chip_smoke.py's split_kernels, pair_kernels and split_x0 phases,
 # at the paths' shapes; the times are in PERF.md), in ms, split against
-# combined. The pairs without a network step, against their staged combined
-# kernels: DI B1 0.0272 / 0.0235, B3 0.0875 / 0.0392; cartpole B1 0.0391 /
-# 0.0290, B3 0.0946 / 0.0421; quadrotor quadratic B1 0.1131 / 0.0831, B3
-# 0.2085 / 0.1006; DI quadratic B1 0.0263 / 0.0160, B3 0.0951 / 0.0369;
-# Dubins quadratic B1 0.0386 / 0.0311, B3 0.1038 / 0.0468; with the split
-# cost pass's cluster form: bicycle B1 0.1052 / 0.1467, B3 0.1652 / 0.1602;
-# DI robust B1-x0 0.0153 / 0.0131 (9 x 64 x 48). The network pairs, whose
+# combined. The pairs without a network step, their split dynamics passes
+# on the staged ring (csrc/split_staged.cuh; the bicycle's B1 pass its
+# lane-group form), against their staged combined kernels
+# (scripts/torch_split_staged_abba.py): DI B1 0.0237 / 0.0234, B3 0.0506 /
+# 0.0396; cartpole B1 0.0381 / 0.0289, B3 0.0582 / 0.0424; quadrotor
+# quadratic B1 0.0932 / 0.0829, B3 0.1122 / 0.1010; DI quadratic B1 0.0226 /
+# 0.0158, B3 0.0603 / 0.0373; Dubins quadratic B1 0.0374 / 0.0313, B3 0.0629
+# / 0.0477; bicycle B1 0.0874 / 0.1457, B3 0.1076 / 0.1601 [0.1600, 0.1602];
+# DI robust B1-x0 0.0122 / 0.0130 [0.0130, 0.0130] (9 x 64 x 48). The
+# network pairs, whose
 # split dynamics passes run one warp per sample (csrc/split_warp.cuh),
 # against the combined kernel's warp form, one warp a sample with its
 # epilogue pass (B1: csrc/rollout_kernel.cuh,
@@ -214,9 +217,9 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # racer steering B1 0.4759 / 0.5658 [0.5659, 0.5658]; racer uncertainty B1
 # 1.3989 / 1.0529 [1.0490, 1.0569]; B3: AutoRally 0.3867 / 0.3784 [0.3782,
 # 0.3787], racer steering 0.5504 / 0.5761 [0.5761, 0.5760], racer
-# uncertainty 1.5249 / 1.0652 [1.0652, 1.0652]. So AutoRally's B1 and B1-x0
-# and racer steering's B1 and B3 still split. Any other pair or kernel
-# keeps the combined kernel.
+# uncertainty 1.5249 / 1.0652 [1.0652, 1.0652]. So the bicycle's B1 and B3,
+# the DI robust cost's B1-x0, AutoRally's B1 and B1-x0 and racer steering's
+# B1 and B3 split. Any other pair or kernel keeps the combined kernel.
 AUTO_SPLIT = {
     ("di_circle", "rollout"): False,
     ("di_circle", "solve"): False,
@@ -232,12 +235,12 @@ AUTO_SPLIT = {
     ("dubins_quadratic", "rollout"): False,
     ("dubins_quadratic", "solve"): False,
     ("bicycle_ar", "rollout"): True,
-    ("bicycle_ar", "solve"): False,
+    ("bicycle_ar", "solve"): True,
     ("racer_steering_ar", "rollout"): True,
     ("racer_steering_ar", "solve"): True,
     ("racer_unc_ar", "rollout"): False,
     ("racer_unc_ar", "solve"): False,
-    ("di_robust", "rollout_x0"): False,
+    ("di_robust", "rollout_x0"): True,
 }
 
 
@@ -735,9 +738,9 @@ def _form(lib, fn):
     """The form the entry ``fn`` of the loaded library ``lib`` launches (its
     ``<fn>_form()``, a constant of the build): 0 the one-thread kernel (the
     merge's one-block kernel), 1 the warp form, 2 the staged form (B4, B3,
-    B1, B8), 3 the split cost pass's cluster form (beside its one-block
-    form), 4 the tiled form of the merge and of the Tsallis reduction, 5
-    the lane-group form (B1's split dynamics pass)."""
+    B1, B8, the split dynamics passes), 3 the split cost pass's cluster form
+    (beside its one-block form), 4 the tiled form of the merge and of the
+    Tsallis reduction, 5 the lane-group form (B1's split dynamics pass)."""
     return int(getattr(lib, fn + "_form")())
 
 
@@ -755,9 +758,11 @@ def form_kernel_name(base, entry):
     "tsallis_reduce")) launches, as its library reports it:
     ``<base>_warp_kernel`` where the model's step is a network (split
     dynamics passes, B4, B3, B1, B8),
-    ``<base>_staged_kernel`` for B4, B3, B1 and B8 of every other model,
+    ``<base>_staged_kernel`` for B4, B3, B1, B8 and the split dynamics
+    passes of every other model,
     ``split_dynamics_lanes_kernel`` for B1's split dynamics pass of a
-    model with the lane-group step (the bicycle),
+    model with the lane-group step (the bicycle), which it takes before the
+    staged form,
     ``flash_combine_tiled_kernel`` for the merge,
     ``tsallis_reduce_tiled_kernel`` for the Tsallis reduction,
     ``split_cost_cluster_kernel`` for a split cost pass whose build

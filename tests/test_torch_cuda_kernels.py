@@ -1183,9 +1183,10 @@ def test_split_rollout_kernels_match_plain(cuda_device, K, pair, mode):
         kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr,
                                                    split_cost=True)
     torch.cuda.synchronize()
-    # AutoRally's pass is the warp form (csrc/split_warp.cuh), the DI's one thread a sample
+    # AutoRally's pass is the warp form (csrc/split_warp.cuh), the DI's the
+    # staged form (csrc/split_staged.cuh)
     assert fr.launch_counts["split_dynamics_warp_kernel" if pair == "ar_nn"
-                            else "split_dynamics_kernel"] == 1
+                            else "split_dynamics_staged_kernel"] == 1
     assert fr.launch_counts[_cost_pass(pair, cost, cuda_device, K, T)] == 1
     assert fr.launch_counts["rollout_costs_warp_kernel" if pair == "ar_nn"
                             else "rollout_costs_staged_kernel"] == 0
@@ -1229,7 +1230,7 @@ def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
     kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=True, **kw)
     torch.cuda.synchronize()
     assert fr.launch_counts["split_solve_dynamics_warp_kernel" if pair == "ar_nn"
-                            else "split_solve_dynamics_kernel"] == 1
+                            else "split_solve_dynamics_staged_kernel"] == 1
     assert fr.launch_counts[_cost_pass(pair, cost, cuda_device, K, T)] == 1
     assert fr.launch_counts["fused_solve_warp_kernel" if pair == "ar_nn"
                             else "fused_solve_staged_kernel"] == 0
@@ -1302,8 +1303,8 @@ def test_split_vanilla_solve_launches_the_split_kernels(cuda_device, kernel):
     fr.reset_launch_counts()
     rf, _ = ctrl.solve(x, ctrl.init_state(0), injected_noise=z)
     torch.cuda.synchronize()
-    dyn_kernel = ("split_solve_dynamics_kernel" if kernel == "fused_solve"
-                  else "split_dynamics_kernel")
+    dyn_kernel = ("split_solve_dynamics_staged_kernel" if kernel == "fused_solve"
+                  else "split_dynamics_staged_kernel")
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
         dyn_kernel: 1, _cost_pass("di_circle", ctrl.cost, cuda_device, 300, T): 1,
         "flash_combine_tiled_kernel": 1}
@@ -2564,3 +2565,157 @@ def test_rollout_warp_builds_report_their_form(cuda_device, one_thread_rollout):
         with smoke.swapped(libs):
             assert fr.form_kernel_name("fused_solve", _build.pair_entry(pair, "solve")) == (
                 "fused_solve_kernel")
+
+
+# --- the staged form of the split dynamics passes (csrc/split_staged.cuh:
+# split_dynamics_staged_kernel, split_solve_dynamics_staged_kernel) for the
+# pairs without a network step, against their plain versions and their
+# one-thread build (chip_smoke.py's -DMPPI_SPLIT_ONE_THREAD) ---
+SPLIT_STAGED_PAIRS = ["di_circle", "di_quadratic", "cartpole", "quadrotor_quadratic",
+                      "dubins_quadratic", "bicycle_ar"]
+# (K, T) of each pair's loops and their ragged shapes, and a small block
+SPLIT_STAGED_SHAPES = {"path": (8192, 100), "ragged": (8000, 100), "small": (65, 33)}
+SPLIT_STAGED_BICYCLE = {"path": (1920, 100), "ragged": (1901, 100), "small": (65, 33)}
+
+
+@pytest.fixture(scope="module")
+def one_thread_split_staged():
+    """The one-thread split passes of the staged pairs' split sources,
+    built beside the port's, and chip_smoke (its ``swapped`` points the
+    wrappers at them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+
+    libs = {}
+    sources = tuple(sorted({_build.pair_entry(p, k)[0] for p in SPLIT_STAGED_PAIRS + ["di_robust"]
+                            for k in ("split_solve_dynamics", "split_dynamics_x0")
+                            if _build.pair_entry(p, k) is not None}))
+    chip_smoke.build_variants(
+        ((libs, ("MPPI_SPLIT_ONE_THREAD",), "split_one_thread_test", sources),))
+    return chip_smoke, libs
+
+
+def _split_staged_shape(pair, shape):
+    return (SPLIT_STAGED_BICYCLE if pair == "bicycle_ar" else SPLIT_STAGED_SHAPES)[shape]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "nln"])
+@pytest.mark.parametrize("shape", ["path", "ragged", "small"])
+@pytest.mark.parametrize("pair", SPLIT_STAGED_PAIRS)
+def test_split_staged_solve_pass_matches_plain_and_the_one_thread_build(
+        cuda_device, one_thread_split_staged, pair, shape, kind):
+    """B3's split dynamics pass in its staged form: U, Y and the LR sums bit
+    for bit against the plain version and the one-thread build, with a
+    pure-noise tail and stride 2; one launch of
+    split_solve_dynamics_staged_kernel."""
+    smoke, libs = one_thread_split_staged
+    K_, T_ = _split_staged_shape(pair, shape)
+    dyn, cost, x0, std, offset = _pair_parts(pair, cuda_device)
+    Cp = dyn.CONTROL_DIM
+    samp = _pair_sampler(kind, std, cuda_device, T_)
+    g = torch.Generator(device=cuda_device).manual_seed(K_ + T_)
+    mean = 0.2 * torch.randn((T_, Cp), generator=g, device=cuda_device)
+    mean[:, -1] += offset
+    seed = torch.tensor(K_ + 31, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, fr.noise_kind(samp), x0, mean, seed, DT, K_, 0, 2, None)
+    fr.reset_launch_counts()
+    got = fused_solve.split_solve_dynamics_cuda(*args)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_solve_dynamics_staged_kernel"] == 1
+    with smoke.swapped(libs):
+        one = fused_solve.split_solve_dynamics_cuda(*args)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_solve_dynamics_kernel"] == 1
+    pU, plr = fused_solve._samples_plain(dyn, samp, mean, seed, K_, 0, 2, None)
+    want = (pU, fr.split_outputs_plain(dyn, x0, pU, DT).permute(1, 2, 0), plr)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(("U", "Y", "LR sums"), got, one, want):
+        assert torch.isfinite(w).all(), name
+        assert torch.equal(a, w), name
+        assert torch.equal(b, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["path", "ragged", "small"])
+@pytest.mark.parametrize("pair", SPLIT_STAGED_PAIRS[:-1])
+def test_split_staged_dynamics_pass_matches_plain_and_the_one_thread_build(
+        cuda_device, one_thread_split_staged, pair, shape):
+    """B1's split dynamics pass in its staged form: Y bit for bit against
+    the plain version and the one-thread build; one launch of
+    split_dynamics_staged_kernel."""
+    smoke, libs = one_thread_split_staged
+    K_, T_ = _split_staged_shape(pair, shape)
+    dyn, cost, x0, std, offset = _pair_parts(pair, cuda_device)
+    Cp = dyn.CONTROL_DIM
+    g = torch.Generator(device=cuda_device).manual_seed(K_ + T_ + 1)
+    mean = 0.2 * torch.randn((T_, Cp), generator=g, device=cuda_device)
+    mean[:, -1] += offset
+    U = mean + torch.tensor(std, device=cuda_device) * torch.randn(
+        (K_, T_, Cp), generator=g, device=cuda_device)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    fr.reset_launch_counts()
+    Y = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_dynamics_staged_kernel"] == 1
+    with smoke.swapped(libs):
+        one = fr.split_dynamics_cuda(dyn, cost, x0, U, DT)
+    pY = fr.split_outputs_plain(dyn, x0, U, DT).permute(1, 2, 0)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_dynamics_kernel"] == 1
+    assert torch.isfinite(pY).all()
+    assert torch.equal(Y, pY) and torch.equal(one, pY)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cand,s_per,T_", [(9, 64, 48), (9, 256, 50), (3, 23, 31)])
+def test_split_staged_x0_pass_matches_plain_and_the_one_thread_build(
+        cuda_device, one_thread_split_staged, n_cand, s_per, T_):
+    """B1's split dynamics pass from one x0 per sample (the DI robust cost's
+    RMPPI candidates) in its staged form: Y bit for bit against the plain
+    version and the one-thread build."""
+    smoke, libs = one_thread_split_staged
+    dyn, cost, x0, std, _ = _pair_parts("di_robust", cuda_device)
+    dx = torch.tensor([0.4, 0.2, 0.3, -0.4], device=cuda_device)
+    w = torch.linspace(0.0, 1.0, n_cand, device=cuda_device)[:, None]
+    X0 = (x0[None] + w * dx[None]).repeat_interleave(s_per, dim=0).contiguous()
+    K_ = X0.shape[0]
+    g = torch.Generator(device=cuda_device).manual_seed(K_ + T_)
+    U = (torch.tensor(std, device=cuda_device)
+         * torch.randn((K_, T_, C), generator=g, device=cuda_device)).contiguous()
+    fr.reset_launch_counts()
+    Y = fr.split_dynamics_cuda(dyn, cost, X0, U, DT)
+    torch.cuda.synchronize()
+    assert fr.launch_counts["split_dynamics_staged_kernel"] == 1
+    with smoke.swapped(libs):
+        one = fr.split_dynamics_cuda(dyn, cost, X0, U, DT)
+    pY = fr.split_outputs_plain(dyn, X0, U, DT).permute(1, 2, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, pY) and torch.equal(one, pY)
+
+
+@pytest.mark.cuda
+def test_split_staged_builds_report_their_form(cuda_device, one_thread_split_staged):
+    """Every analytic pair's split dynamics entries report the staged form
+    (2) in the port's build and the one-thread kernel (0) with
+    -DMPPI_SPLIT_ONE_THREAD; the bicycle's B1 pass reports the lane-group
+    form (5), the network pairs' passes the warp form (1)."""
+    smoke, libs = one_thread_split_staged
+    entries = [(p, k) for p in SPLIT_STAGED_PAIRS for k in ("split_dynamics",
+                                                            "split_solve_dynamics")]
+    entries.append(("di_robust", "split_dynamics_x0"))
+    for pair, kind in entries:
+        entry = _build.pair_entry(pair, kind)
+        base = "split_solve_dynamics" if kind == "split_solve_dynamics" else "split_dynamics"
+        lanes = pair == "bicycle_ar" and kind == "split_dynamics"
+        want = fr._form(fr._lib(entry[0]), entry[1])
+        assert want == (5 if lanes else 2), (pair, kind)
+        assert fr.form_kernel_name(base, entry) == base + (
+            "_lanes_kernel" if lanes else "_staged_kernel")
+        with smoke.swapped(libs):
+            assert fr.form_kernel_name(base, entry) == base + "_kernel", (pair, kind)
+    for pair in WARP_PAIRS:
+        for kind in ("split_dynamics", "split_solve_dynamics"):
+            entry = _build.pair_entry(pair, kind)
+            assert fr._form(fr._lib(entry[0]), entry[1]) == 1, (pair, kind)
