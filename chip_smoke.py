@@ -5,7 +5,12 @@
 Builds the port's CUDA kernels from ``mppi_generic_tpu_torch/csrc`` (into
 ``build/torch_kernels/``), holds each kernel against its plain PyTorch
 version on the card, checks the in-kernel Philox draw bit for bit and by
-its statistics, and drives six closed loops through the port's entry
+its statistics, holds each redesigned kernel against its earlier build and
+times the two A B B A (first: ``ladder_forms``, ``staged_forms``,
+``merge_cost_forms``, and ``pass_forms`` for the carry and minima passes
+after the warp forms; B6 over a warp against its one-thread build where it
+is checked, in ``riccati_kernels`` and ``robust_kernels``), and drives six closed
+loops through the port's entry
 points: the flagship vanilla MPPI (double integrator, circle cost, Gaussian
 sampler, K=8192, T=100) on the precomputed-noise kernels, RMPPI and
 Tube-MPPI with DDP feedback on the same task (bench.py:809-840: K=2560,
@@ -52,7 +57,7 @@ T=100; the LSTM-uncertainty model on flat ground, K=1920, T=150): their B1
 entries in four modes and B3 entries (Gaussian, NLN), the LSTM step (B10)
 inside, against their plain versions at K=1920 and the ragged K=1900
 (``racer_kernels``), a fused-vs-combined reference without host syncs
-(``racer_reference``), and the closed loops ``racer_steering`` (6 steps)
+(``racer_reference``), and the closed loops ``racer_steering`` (4 steps)
 and ``racer_unc`` (2 steps: its eager re-rollout of the mean is about 10^5
 launches) on the fused solve, ``racer_steering_fused`` and
 ``racer_unc_fused`` on ``kernel="fused"``. Then the robust family beyond the
@@ -60,8 +65,8 @@ double integrator (the AutoRally instantiation's width,
 instantiations/__init__.py:56-67: K=1920, T=150): the RMPPI kernel's (B8)
 AutoRally and DI-robust entries, the per-sample-x0 rollout's AutoRally,
 bicycle and DI-robust entries, the DDP ladder (B7) with AutoRally's network
-and the cartpole and the backward recursion (B6) at (4, 1) and (7, 2)
-against their plain versions, AutoRally also on a map where part of the
+and the cartpole and the backward recursion (B6) at (4, 1) and (7, 2), the
+latter also at T = 1024, against their plain versions, AutoRally also on a map where part of the
 samples crash, the DI-robust entries and the DI ladder also at the
 ``rmppi_di_robust`` loop's shapes, B8's staged form for the DI also bit for
 bit against its one-thread build and A B B A against it at the loops'
@@ -218,6 +223,7 @@ DT_SMOOTH = 0.02  # bench.py:634
 # channel-major map of :773-778. The network is random (numpy seed 0, scale
 # 0.1 as FNN.create), since the bench's comes from a JAX key.
 K_AR, K_AR_RAGGED, T_AR, S_AR = 1920, 1900, 150, 7
+T_B6_MAX = 1024  # the longest horizon B6 takes (riccati.supported)
 AR_STD = [0.3, 0.5]
 AR_MAPS = ("128", "1024")
 # the kernel="fused" loop: B1 on the path, kept short (20 until B1's warp
@@ -846,7 +852,8 @@ def di_linearisation(dev, T_):
 
 
 def riccati_phase(dev):
-    """B6 and B7 at T=50, S=4, C=2, 14 alphas on a real DI linearisation."""
+    """B6 and B7 at T=50, S=4, C=2, 14 alphas on a real DI linearisation
+    (B6 also A B B A against its one-thread build)."""
     dyn, fb, xs, us, goal_x, goal_u, lin = di_linearisation(dev, T_R)
     As, Bs, dLx, dLu, Vxx_T, Vx_T = lin
     Q, R, Qf = fb.Q, fb.R, fb.Q_f
@@ -875,8 +882,9 @@ def riccati_phase(dev):
     pK, pk = plain_backward()
     kl, pl = kernel_ladder(), plain_ladder()
     torch.cuda.synchronize()
-    checks_b = [check("riccati_backward gains", kK, pK, "exact"),
-                check("riccati_backward feedforward", kk, pk, "exact")]
+    checks_b = [check("riccati_backward gains", kK, pK, "bitwise"),
+                check("riccati_backward feedforward", kk, pk, "bitwise")]
+    backward_forms(f"({S}, {C}) T={T_R}", back)
     checks_l = [check(f"riccati_ladder {n}", a, b, "exact")
                 for n, a, b in zip(("gains", "feedforward", "costs", "xs_new",
                                     "us_new"), kl, pl)]
@@ -888,7 +896,7 @@ def riccati_phase(dev):
         "riccati_ladder": timed(kernel_ladder, plain_ladder),
     }
     times["riccati_backward"]["bound_ms"], times["riccati_backward"]["bound_by"] = (
-        bound_ms(4 * (n_in + n_out), riccati_ops(T_R)))
+        bound_ms(*backward_work(back)))
     n_in_l = n_in + 2 * T_R * (S + C) + S * S + C * C + S * S + 2 * C + N_ALPHA
     n_out_l = n_out + N_ALPHA * (1 + T_R * (S + C))
     times["riccati_ladder"]["bound_ms"], times["riccati_ladder"]["bound_by"] = (
@@ -898,6 +906,31 @@ def riccati_phase(dev):
     emit("riccati_kernels", T=T_R, S=S, C=C, n_alpha=N_ALPHA,
          checks=checks_b + checks_l, times=times)
     return checks_b, checks_l, times
+
+
+def backward_work(back):
+    """(bytes, operations) of B6 on ``back`` = (As, Bs, dLx, dLu, Q, R,
+    Vxx_T, Vx_T): the linearisation and the weights read once, the gains
+    and feedforward written once."""
+    T_, S_, C_ = back[1].shape
+    n_in = T_ * (S_ * S_ + S_ * C_ + S_ + C_) + 2 * S_ * S_ + C_ * C_ + S_
+    return 4 * (n_in + T_ * C_ * (S_ + 1)), riccati_ops(T_, S_, C_)
+
+
+def backward_forms(label, back):
+    """B6 on ``back`` against its one-thread build
+    (-DMPPI_BACKWARD_ONE_THREAD) bit for bit, and timed A B B A against it
+    by CUDA events, with its bound: kept in PASS_TIMES[("backward",
+    label)] for the kernels line."""
+    kout = riccati.riccati_backward(*back, DT)
+    with one_thread_ladder():
+        oout = riccati.riccati_backward(*back, DT)
+    torch.cuda.synchronize()
+    same_bits(f"B6 {label}", kout, oout)
+    t = abba_against(lambda: riccati.riccati_backward(*back, DT), one_thread_ladder)
+    t["bound_ms"], t["bound_by"] = bound_ms(*backward_work(back))
+    t["chain_steps"] = back[0].shape[0] - 1
+    PASS_TIMES[("backward", label)] = t
 
 
 def rmppi_inputs(dev, K, seed, T_=T_R):
@@ -1339,14 +1372,15 @@ def ar_kernel_phase(dev, map_kind, K, p, stride, seed, timed_plain):
         times[name] = timing(kernel, plain, ar_rollout_work(cost, K, epilogue, lrp is not None),
                              mode, "rollout")
         if tsallis and at_path:
-            # the warp form's minima pass alone, its plain version and the one
-            # PyTorch call of the same function at this K (a multiple of 64),
-            # all by device time
-            t = {"ms": device_ms(kernel, "block_min_kernel"),
+            # the warp form's minima pass alone (launched on its own on these
+            # costs, nothing before it to overlap), its plain version and the
+            # one PyTorch call of the same function at this K (a multiple of
+            # 64), all by device time
+            t = {"ms": device_ms(lambda pc=pc: fr._block_minima(pc), MIN_PASS),
                  "plain_ms": device_ms(lambda pc=pc: fr.block_minima_plain(pc)),
                  "library_ms": device_ms(lambda pc=pc: pc.view(-1, fr.BLOCK).amin(1))}
             t["bound_ms"], t["bound_by"] = bound_ms(*min_pass_work(K))
-            times["block_min_kernel"] = t
+            times[MIN_PASS] = t
         if mode == "epilogue+lr":
             # one-call yardstick for the weighting + weighted sum (not used by the port)
             times[name]["library_ms"] = time_ms(
@@ -1789,7 +1823,7 @@ K_ZOO, K_ZOO_RAGGED, T_ZOO = 8192, 8000, 100
 CART_RANGE, CART_STD, CART_COEFFS = [[-5.0, 5.0]], [5.0], [100.0, 10.0, 200.0, 20.0]
 QUAD_RANGE, QUAD_STD, HOVER_THRUST = [[-3.0, 3.0]] * 3 + [[0.0, 20.0]], [0.5, 0.5, 0.5, 2.0], 9.81
 K_HOVER, T_HOVER, HOVER_STEPS = 512, 48, 150
-K_WAYPOINT, WAYPOINT_STEPS = 1024, 100
+K_WAYPOINT, WAYPOINT_STEPS = 1024, 50  # no bar; 100 until cut for time
 WAYPOINTS = [(1.5, 0.0, 0.0, np.pi / 2), (3.0, 0.8, 0.0, np.pi / 2), (4.5, 1.5, 0.0, np.pi / 2)]
 SWINGUP_STEPS = 500
 # the kernel="fused" and Tsallis loops: the entry on a main path (20 until
@@ -1901,8 +1935,9 @@ RACER_INDICES = (2, 3, 5, 6, 0, 1)
 # about 41,000 launches per step for the steering row (0.9 s), several times
 # that for the uncertainty row; its loop is shorter, and a profiler window
 # (about 0.35 ms per recorded launch) is one step.
-# cut for time from 10 and 5 when B3's warp form joined the run
-RACER_STEERING_LOOP_STEPS = 6
+# cut for time from 10 and 5 when B3's warp form joined the run, the
+# steering row from 6 when the passes' earlier build joined it
+RACER_STEERING_LOOP_STEPS = 4
 RACER_UNC_LOOP_STEPS = 2
 # the racer rows' ragged kernel cases (K 1900 / 1901) run one partial chunk
 # of steps: their plain versions take seconds at the paths' T (cut for time
@@ -2513,7 +2548,7 @@ def bench_row_loops(dev):
 # :181-199) and the per-robot factories.
 # ---------------------------------------------------------------------------
 N_CAND_AR, S_PER_AR = 9, 256
-ROBUST_AR_STEPS = 10
+ROBUST_AR_STEPS = 6  # 10 until the passes' earlier build joined the run, cut for time
 K_RDI, T_RDI, S_PER_RDI, THRESH_RDI, ROBUST_DI_STEPS = 256, 48, 64, 50.0, 60
 X0_RDI = [2.0, 0.0, 0.0, 2.0]
 INSTANTIATION_SOLVES = 3
@@ -2649,7 +2684,8 @@ def robust_kernel_phase(dev):
     robust cost at 9 x 256 (T=150, 50), the latter also at the loop's 9 x 64
     (T=48), and for the bicycle on the 128^2 map (T=100); B7 for AutoRally
     (T=150), the cartpole (T=100) and the DI at the loop's T=48, 14 alphas;
-    B6 on those linearisations ((7, 2), (4, 1), (4, 2)). Each against its plain version on the same inputs:
+    B6 on those linearisations ((7, 2), (4, 1), (4, 2)) and on AutoRally's
+    at T = 1024, also A B B A against its one-thread build. Each against its plain version on the same inputs:
     AutoRally's B8 and B1 to the last bit, the rest at TOL "exact". Times by
     CUDA events with their bounds; the plain versions' after one warm-up
     run, and not on the partly-crashing map (seconds per call)."""
@@ -2805,14 +2841,27 @@ def robust_kernel_phase(dev):
         same(f"B7 {name} gains against {bname}'s", kout[0], kK)
         same(f"B7 {name} feedforward against {bname}'s", kout[1], kk)
         checks["riccati_backward_kernel"] += [
-            check(f"{bname} gains", kK, Ks, "exact"),
-            check(f"{bname} feedforward", kk, ks, "exact")]
-        n_in = T_ * (S_ * S_ + S_ * C_ + S_ + C_) + 2 * S_ * S_ + C_ * C_ + S_
+            check(f"{bname} gains", kK, Ks, "bitwise"),
+            check(f"{bname} feedforward", kk, ks, "bitwise")]
         timing(bname, lambda back=back: riccati.riccati_backward(*back, DT),
                lambda back=back: riccati.riccati_backward_plain(
                    *back[:4], back[4] * DT, back[5] * DT, back[6], back[7], DT, 1e-6),
-               (4 * (n_in + T_ * C_ * (S_ + 1)), riccati_ops(T_, S_, C_)))
+               backward_work(back))
         times[bname]["chain_steps"] = times[f"B7 {name}"]["chain_steps"] = T_ - 1
+        backward_forms(f"({S_}, {C_}) T={T_}", back)
+    # B6 at the longest horizon it takes, on AutoRally's linearisation: its
+    # gains fill 64 KB of shared memory, past the 48 KB default
+    args = ladder_problem(AutorallyNNDynamics.create(seed=0, device=dev), ar_x0(dev), T_B6_MAX,
+                          65)
+    back = (args[3], args[4], args[5], args[6], args[7], args[8], args[10], args[11])
+    kK, kk = riccati.riccati_backward(*back, DT)
+    Ks, ks = riccati.riccati_backward_plain(*back[:4], back[4] * DT, back[5] * DT, back[6],
+                                            back[7], DT, 1e-6)
+    torch.cuda.synchronize()
+    checks["riccati_backward_kernel"] += [
+        check(f"B6 (7, 2) T={T_B6_MAX} gains", kK, Ks, "bitwise"),
+        check(f"B6 (7, 2) T={T_B6_MAX} feedforward", kk, ks, "bitwise")]
+    backward_forms(f"(7, 2) T={T_B6_MAX}", back)
     emit("robust_kernels", K_ar=K_AR, T_ar=T_AR, K_x0=K_x0, crashed_share=crashed,
          checks=[c for cs in checks.values() for c in cs], times=times)
     return checks, times
@@ -3076,7 +3125,7 @@ def instantiations_phase(dev):
         launches, entries = dict(fr.launch_counts), dict(fr.entry_counts)
         solve = fr.form_kernel_name("fused_solve", fr._entry(ctrl.dynamics, ctrl.cost, "solve"))
         carry = n if solve == "fused_solve_warp_kernel" else 0  # the warp form's carry pass
-        expect_launches(launches, {solve: n, MERGE: n, "block_carry_kernel": carry,
+        expect_launches(launches, {solve: n, MERGE: n, CARRY: carry,
                                    LADDER: n if ladder else 0}, name)
         for what, t in (("state", x), ("control_mean", res.control_mean),
                         ("costs", res.costs)) + ((("gains", fbs.gains),) if with_fb else ()):
@@ -3637,13 +3686,15 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
             warp = fr.form_kernel_name("fused_sample_rollout",
                                        fr._entry(dyn, cost, "sample")).endswith("_warp_kernel")
             if epilogue and warp:
-                # the warp form's carry pass alone, and its plain version
-                # (the rows over W from the costs), both by device time
-                t = {"ms": device_ms(kernel, "block_carry_kernel"),
+                # the warp form's carry pass alone (launched on its own on the
+                # costs and W, nothing before it to overlap), and its plain
+                # version (the rows over W from the costs), both by device time
+                Wc = pW.contiguous()
+                t = {"ms": device_ms(lambda: fr._block_carries(pc, Wc, LAM), CARRY),
                      "plain_ms": device_ms(lambda: fr.block_carries_plain(pc, pW, LAM)),
                      "library_ms": None}
                 t["bound_ms"], t["bound_by"] = bound_ms(*carry_pass_work(K, T_, C_))
-                times["block_carry_kernel"] = t
+                times[CARRY] = t
     if pair in SOLVE_PAIRS:
         for kind in ("gaussian", "nln") if timed else ("gaussian",):
             s = zoo_sampler(kind, C_, std, dev, p, T_)
@@ -3854,38 +3905,37 @@ def b3_kernel(pair):
 def rollout_launches(pair, k, weights="exp"):
     """The launches of k solves of ``pair`` on kernel="fused" (B1 in the form
     its entry reports, and the merge; ``weights`` "tsallis": B5 between
-    them): the warp form adds its epilogue pass (block_carry_kernel, or
-    block_min_kernel for Tsallis pass 1)."""
+    them): the warp form adds its epilogue pass (CARRY, or MIN_PASS for
+    Tsallis pass 1)."""
     name = b1_kernel(pair)
     out = {name: k, MERGE: k}
     if weights == "tsallis":
         out[TSALLIS] = k
     if name == "rollout_costs_warp_kernel":
-        out["block_min_kernel" if weights == "tsallis" else "block_carry_kernel"] = k
+        out[MIN_PASS if weights == "tsallis" else CARRY] = k
     return out
 
 
 def solve_launches(pair, k):
     """The launches of k fused solves of ``pair`` (B3 in the form its entry
-    reports, and the merge): the warp form adds its carry pass
-    (block_carry_kernel)."""
+    reports, and the merge): the warp form adds its carry pass (CARRY)."""
     name = b3_kernel(pair)
     out = {name: k, MERGE: k}
     if name == "fused_solve_warp_kernel":
-        out["block_carry_kernel"] = k
+        out[CARRY] = k
     return out
 
 
 def sample_launches(pair, k, epilogue=False):
     """The launches of k B4 solves of ``pair`` in the form its entry reports:
     the sampling kernel, and with Smooth-MPPI's epilogue the merge and, in
-    the warp form, its carry pass (block_carry_kernel)."""
+    the warp form, its carry pass (CARRY)."""
     name = split_name(pair, "sample")
     out = {name: k}
     if epilogue:
         out[MERGE] = k
         if name == "fused_sample_rollout_warp_kernel":
-            out["block_carry_kernel"] = k
+            out[CARRY] = k
     return out
 
 
@@ -3980,6 +4030,18 @@ EARLIER_SOURCES = ("flash_combine", "split_ar_nn", "split_bicycle_ar", "split_di
                    "split_racer_steering_ar", "split_racer_unc_ar", "split_quadrotor_quadratic",
                    "split_di_robust", "tsallis_reduce")
 EARLIER = {}  # {source: the loaded earlier-form build}
+# the passes after the warp forms (csrc/block_pass.cuh) and B6 in the port's
+# build (check_forms); -DMPPI_PASS_UNSTAGED builds their earlier kernels
+# (block_carry_kernel, block_min_kernel) over the merge's library, which
+# launches the passes alone, and one network pair source for each warp entry
+# that launches them (AutoRally's B1 and B3; its B4), and
+# -DMPPI_BACKWARD_ONE_THREAD the one-thread B6 beside the one-thread ladder
+CARRY = "block_carry_tiled_kernel"
+MIN_PASS = "block_min_warp_kernel"
+BACKWARD = "riccati_backward_warp_kernel"
+PASS_UNSTAGED_SOURCES = ("flash_combine", _build.pair_entry("ar_nn", "solve")[0],
+                         _build.pair_entry("ar_nn", "sample")[0])
+PASS_UNSTAGED = {}  # {source: the loaded build with the earlier passes}
 # the network pairs' combined B3 and B1 run the warp form
 # (csrc/sample_warp.cuh, csrc/rollout_kernel.cuh); -DMPPI_SOLVE_ONE_THREAD
 # -DMPPI_ROLLOUT_ONE_THREAD builds their one-thread B3 and B1 from the same
@@ -3990,25 +4052,28 @@ WARP_SOLVE_SOURCES = tuple(_build.pair_entry(p, "solve")[0] for p in WARP_PAIRS)
 SOLVE_ONE_THREAD = {}  # {source: the loaded one-thread B3 and B1 build of a network pair}
 # (libraries it fills, -D flags, build directory, sources)
 VARIANTS = ((ONE_THREAD, ("MPPI_SPLIT_ONE_THREAD",), "one_thread", SPLIT_ONE_THREAD_SOURCES),
-            (LADDER_ONE_THREAD, ("MPPI_LADDER_ONE_THREAD",), "ladder_one_thread", ("riccati",)),
+            (LADDER_ONE_THREAD, ("MPPI_LADDER_ONE_THREAD", "MPPI_BACKWARD_ONE_THREAD"),
+             "ladder_one_thread", ("riccati",)),
             (SAMPLE_ONE_THREAD, ("MPPI_SAMPLE_ONE_THREAD", "MPPI_SOLVE_ONE_THREAD",
                                  "MPPI_ROLLOUT_ONE_THREAD", "MPPI_RMPPI_ONE_THREAD"),
              "sample_one_thread", STAGED_SOURCES + (B8_SOURCE,)),
             (SOLVE_ONE_THREAD, ("MPPI_SOLVE_ONE_THREAD", "MPPI_ROLLOUT_ONE_THREAD"),
              "solve_one_thread", WARP_SOLVE_SOURCES),
-            (EARLIER, EARLIER_DEFINES, "earlier_forms", EARLIER_SOURCES))
+            (EARLIER, EARLIER_DEFINES, "earlier_forms", EARLIER_SOURCES),
+            (PASS_UNSTAGED, ("MPPI_PASS_UNSTAGED",), "pass_unstaged", PASS_UNSTAGED_SOURCES))
 
 
 def build_one_thread():
     """Build the VARIANTS: the split sources of the warp, lane and staged
     pairs (SPLIT_ONE_THREAD_SOURCES) with -DMPPI_SPLIT_ONE_THREAD (every
     model's split passes one thread a sample), riccati.cu with
-    -DMPPI_LADDER_ONE_THREAD, the staged pairs' sources and rmppi_rollout.cu
-    with -DMPPI_SAMPLE_ONE_THREAD,
+    -DMPPI_LADDER_ONE_THREAD and -DMPPI_BACKWARD_ONE_THREAD, the staged
+    pairs' sources and rmppi_rollout.cu with -DMPPI_SAMPLE_ONE_THREAD,
     -DMPPI_SOLVE_ONE_THREAD, -DMPPI_ROLLOUT_ONE_THREAD and
     -DMPPI_RMPPI_ONE_THREAD, the network pairs' sources and rollout_x0.cu
-    with -DMPPI_SOLVE_ONE_THREAD and -DMPPI_ROLLOUT_ONE_THREAD, and
-    EARLIER_SOURCES with EARLIER_DEFINES (build_variants)."""
+    with -DMPPI_SOLVE_ONE_THREAD and -DMPPI_ROLLOUT_ONE_THREAD,
+    EARLIER_SOURCES with EARLIER_DEFINES and PASS_UNSTAGED_SOURCES with
+    -DMPPI_PASS_UNSTAGED (build_variants)."""
     return build_variants(VARIANTS)
 
 
@@ -4063,8 +4128,16 @@ def one_thread_split():
 
 
 def one_thread_ladder():
-    """Inside, the ladder wrapper launches the one-thread ladder."""
+    """Inside, the ladder and B6 wrappers launch the one-thread ladder and
+    the one-thread B6."""
     return swapped(ladder=LADDER_ONE_THREAD["riccati"])
+
+
+def unstaged_passes():
+    """Inside, the passes alone and AutoRally's B1, B3 and B4 launch the
+    earlier passes (block_carry_kernel, block_min_kernel) after their warp
+    kernels."""
+    return swapped(PASS_UNSTAGED)
 
 
 def one_thread_sample():
@@ -4112,8 +4185,10 @@ def check_forms():
     each B3 and B1 entry (one x0 or one per sample) the staged form for a
     staged pair (the one-thread kernel in the one-thread build), else the
     warp form (the one-thread kernel in the network pairs' one-thread
-    build); the ladder the warp recursion (the
-    one-thread ladder in its one-thread build); the merge, the split cost
+    build); the ladder the warp recursion and B6 the warp form (the one-thread
+    kernels in their one-thread build); every library's passes after the
+    warp forms the tiled carry and warp minima passes (the earlier kernels in
+    PASS_UNSTAGED's build); the merge, the split cost
     pass and the Tsallis reduction their new forms (their one-block kernels
     in the earlier forms' build)."""
     for pair in WARP_PAIRS:
@@ -4183,6 +4258,22 @@ def check_forms():
         one = riccati.ladder_kernel_name()
     if (riccati.ladder_kernel_name(), one) != (LADDER, "riccati_ladder_kernel"):
         raise AssertionError(f"the ladder builds report {riccati.ladder_kernel_name()}, {one}")
+    with one_thread_ladder():
+        one = riccati.backward_kernel_name()
+    if (riccati.backward_kernel_name(), one) != (BACKWARD, "riccati_backward_kernel"):
+        raise AssertionError(f"the B6 builds report {riccati.backward_kernel_name()}, {one}")
+    libs = {_build.pair_entry(p, k)[0] for p in _build.PAIR_KERNELS
+            for k in _build._PASS_KINDS if _build.pair_entry(p, k)}
+    for lib in sorted(libs | {"flash_combine"}):
+        got = (fr.pass_kernel_name("block_carry", lib), fr.pass_kernel_name("block_min", lib))
+        if got != (CARRY, MIN_PASS):
+            raise AssertionError(f"{lib}: its passes build reports {got}")
+        if lib in PASS_UNSTAGED_SOURCES:
+            with unstaged_passes():
+                got = (fr.pass_kernel_name("block_carry", lib),
+                       fr.pass_kernel_name("block_min", lib))
+            if got != ("block_carry_kernel", "block_min_kernel"):
+                raise AssertionError(f"{lib}: the earlier passes build reports {got}")
     with earlier_forms():
         one = fr.merge_kernel_name()
     if (fr.merge_kernel_name(), one) != (MERGE, "flash_combine_kernel"):
@@ -4239,7 +4330,7 @@ def form_time(fn, pair, kind, mode, at_path=True):
         return time_ms(fn, N_TIMED)
     t = abba_against(fn, other)
     if other is one_thread_solve and kind == "solve":
-        t["device"] = device_abba(fn, ("fused_solve_warp_kernel", "block_carry_kernel"),
+        t["device"] = device_abba(fn, ("fused_solve_warp_kernel", CARRY),
                                   "fused_solve_kernel", other)
     FORM_TIMES.setdefault((kind, pair), {})[mode] = t
     return t["ms"]
@@ -4470,6 +4561,102 @@ def earlier_fields(kind, pair=None):
     its plain version's time."""
     return {"earlier_form_abba": {label: t for (k, label), t in EARLIER_TIMES.items()
                                   if k == kind and t.get("pair") == pair}}
+
+
+# the carry pass alone at the shapes the paths launch it at (AutoRally and
+# racer uncertainty, racer steering) and the ragged loops' (T = 31: rows
+# not on 16 bytes): (label, K, T, C, timed)
+CARRY_SHAPES = (("K=1920 T=150 (AutoRally, racer uncertainty)", K_AR, T_AR, C, True),
+                ("K=1920 T=100 (racer steering)", K_RC, T_RACER["racer_steering_ar"], C, True),
+                ("K=1901 T=31 (the ragged loops)", K_RC_RAGGED + 1, RACER_RAGGED_T, C, False))
+PASS_TIMES = {}  # {("carry" | "min" | "backward", label): A B B A against the earlier form}
+
+
+def pass_fields(kind, prefix=""):
+    """The kernels line's fields of the carry pass (``kind`` "carry"), the
+    minima pass ("min") or B6 ("backward", ``prefix`` its sizes): each
+    shape's time A B B A against the earlier form in this run (pass_forms_phase:
+    the passes' alone and with the warp kernel before them; backward_forms:
+    B6 on the linearisations of riccati_phase and robust_kernel_phase)."""
+    return {"earlier_form_abba": {label: t for (k, label), t in PASS_TIMES.items()
+                                  if k == kind and label.startswith(prefix)}}
+
+
+def pass_forms_phase(dev):
+    """The tiled carry pass and the warp minima pass against their plain
+    versions and their earlier build (-DMPPI_PASS_UNSTAGED) bit for bit,
+    and timed A B B A against it: each pass alone on costs and X already on
+    the device (nothing before it to overlap) by the profiler's device time
+    at the paths' shapes; AutoRally's warp B3, B1 (epilogue + LR; Tsallis +
+    LR) and B4 (Smooth's epilogue) with their pass by CUDA events, the pair
+    the paths launch."""
+    g = torch.Generator(device=dev).manual_seed(501)
+    checks, times = [], {}
+    for label, K, T_, C_, timed_pass in CARRY_SHAPES:
+        costs = 50.0 * torch.rand((K,), generator=g, device=dev) + 10.0
+        X = torch.randn((K, T_, C_), generator=g, device=dev)
+        kout = fr._block_carries(costs, X, LAM)
+        with unstaged_passes():
+            oout = fr._block_carries(costs, X, LAM)
+        pout = fr.block_carries_ordered(costs, X, fr._f32(LAM))
+        torch.cuda.synchronize()
+        checks.append(check(f"carry pass {label}", kout, pout, "bitwise"))
+        same_bits(f"carry pass {label}", (kout,), (oout,))
+        if timed_pass:
+            fn = lambda costs=costs, X=X: fr._block_carries(costs, X, LAM)  # noqa: E731
+            t = device_abba(fn, CARRY, "block_carry_kernel", unstaged_passes)
+            t["events"] = abba_against(fn, unstaged_passes)
+            t["bound_ms"], t["bound_by"] = bound_ms(*carry_pass_work(K, T_, C_))
+            times[f"carry {label}"] = PASS_TIMES[("carry", f"alone {label}")] = t
+    costs = 50.0 * torch.rand((K_AR,), generator=g, device=dev) + 10.0
+    kout = fr._block_minima(costs)
+    with unstaged_passes():
+        oout = fr._block_minima(costs)
+    torch.cuda.synchronize()
+    checks.append(check(f"minima pass K={K_AR}", kout, fr.block_minima_plain(costs), "bitwise"))
+    same_bits(f"minima pass K={K_AR}", (kout,), (oout,))
+    t = device_abba(lambda: fr._block_minima(costs), MIN_PASS, "block_min_kernel",
+                    unstaged_passes)
+    t["library_ms"] = device_ms(lambda: costs.view(-1, fr.BLOCK).amin(1))
+    t["bound_ms"], t["bound_by"] = bound_ms(*min_pass_work(K_AR))
+    times[f"min K={K_AR}"] = PASS_TIMES[("min", f"alone K={K_AR}")] = t
+
+    # the pairs the paths launch: the warp kernel, then its pass
+    dyn, cost, x0, std, _, T_ = pair_parts("ar_nn", dev)
+    mean = 0.2 * torch.randn((T_, C), generator=g, device=dev)
+    dmean = 0.3 * torch.randn((T_, C), generator=g, device=dev)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    gauss, smooth = zoo_sampler("gaussian", C, std, dev, 0.0, T_), zoo_sampler(
+        "smooth", C, std, dev, 0.0, T_)
+    U, _ = gauss.sample(g, mean, K_AR)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lr = (mean, gauss._sigma(T_, 0).contiguous(), gauss.control_cost_coeff, LAM, ALPHA,
+          gauss.pure_threshold(K_AR))
+    pairs = {
+        "carry": {
+            "AutoRally B3 + carry pass": lambda: fused_solve.fused_solve_carries(
+                dyn, cost, gauss, x0, mean, seed_t, DT, LAM, ALPHA, K_AR, split_cost=False),
+            "AutoRally B1 epilogue+lr + carry pass": lambda: fr.rollout_block_carries(
+                dyn, cost, x0, U, DT, LAM, lr, split_cost=False),
+            "AutoRally B4 smooth epilogue + carry pass": lambda: fr._sample_rollout_cuda(
+                dyn, cost, smooth, fr.noise_kind(smooth), x0, mean, seed_t, DT, LAM, ALPHA,
+                K_AR, 0, 0, dmean, True, False, None)},
+        "min": {
+            "AutoRally B1 tsallis+lr + minima pass": lambda: fr.rollout_block_minima(
+                dyn, cost, x0, U, DT, lr, split_cost=False)},
+    }
+    for kind, fns in pairs.items():
+        for label, fn in fns.items():
+            out = fn()
+            with unstaged_passes():
+                one = fn()
+            torch.cuda.synchronize()
+            same_bits(label, out, one)
+            t = abba_against(fn, unstaged_passes)
+            times[label] = PASS_TIMES[(kind, f"pair {label}")] = t
+
+    emit("pass_forms", checks=checks, times=times)
+    return checks
 
 
 # the ragged ladders: (T, n_alpha), after each model's paths' shapes
@@ -4885,24 +5072,26 @@ def pair_kernel_entries(errs, times, paths, warp_times=None, carry_paths=None):
 
     # the warp form's carry pass (Smooth-MPPI's epilogue): launches over every
     # path, timed at AutoRally's shape, the racers' as modes
-    carry = {pair: times[("sample", pair)]["block_carry_kernel"] for pair in WARP_PAIRS}
-    by = {p: l["block_carry_kernel"] for p, l in (
+    carry = {pair: times[("sample", pair)][CARRY] for pair in WARP_PAIRS}
+    by = {p: l[CARRY] for p, l in (
         [(p, l) for p, (l, _) in paths.items()] + list((carry_paths or {}).items()))
-          if l.get("block_carry_kernel", 0)}
+          if l.get(CARRY, 0)}
     t = carry["ar_nn"]
-    out.append({"name": "block_carry_kernel", "route": "cuda",
-                "source": "mppi_generic_tpu_torch/csrc/sample_warp.cuh",
+    out.append({"name": CARRY, "route": "cuda",
+                "source": "mppi_generic_tpu_torch/csrc/block_pass.cuh",
                 "replaces": "mppi_generic_tpu/ops/pallas_rollout.py:1646-1650 (the "
                             "epilogue of _fused_sample_call, :1631), the carry rows "
                             "of pallas_solve.py:103 (_fused_solve_call, :355-388) "
                             "after B3's warp form and those of pallas_rollout.py:1005 "
                             "(_fused_call's _accum) after B1's warp form",
                 "launches": sum(by.values()), "launches_by_path": by,
-                "max_abs_err": max(errs[("sample", pair)] for pair in WARP_PAIRS),
+                "max_abs_err": max([errs[("sample", pair)] for pair in WARP_PAIRS]
+                                   + [errs.get(CARRY, 0.0)]),
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None, "K": K_AR, "T": T_AR,
                 "modes": {f"{pair} K={pair_shape(pair)[0]} T={pair_shape(pair)[2]}": carry[pair]
-                          for pair in RACER_PAIRS}})
+                          for pair in RACER_PAIRS},
+                **pass_fields("carry")})
 
     def forms(st, prefix):
         keys = ("ms", "combined_ms", "abba_ms", "split_faster", "bound_ms")
@@ -5202,6 +5391,9 @@ def main() -> int:
     # the tiled merge and the cluster cost pass against their plain versions
     # and their earlier one-block builds, A B B A at the paths' shapes
     forms_checks = merge_cost_forms_phase(dev)
+    # the passes after the warp forms against their plain versions and their
+    # earlier build, A B B A
+    pass_checks = pass_forms_phase(dev)
 
     errs = dict.fromkeys(fr.launch_counts, 0.0)
 
@@ -5210,6 +5402,8 @@ def main() -> int:
             errs[kernel] = max(errs[kernel], c["max_abs_err"])
 
     note("flash_combine_kernel", [c for c in forms_checks if c["check"].startswith("merge")])
+    for kernel, prefix in ((CARRY, "carry"), (MIN_PASS, "minima")):
+        note(kernel, [c for c in pass_checks if c["check"].startswith(prefix)])
 
     main_times = None
     for K, p, seed in ((K_MAIN, 0.0, 1), (K_RAGGED, 0.1, 2)):
@@ -5221,7 +5415,7 @@ def main() -> int:
         if K == K_MAIN:
             main_times = times
     checks_b, checks_l, ric_times = riccati_phase(dev)
-    note("riccati_backward_kernel", checks_b)
+    note(BACKWARD, checks_b)
     note("riccati_ladder_kernel", checks_l)
     rmppi_times = None
     for K, seed, T_ in ((K_R, 3, T_R), (K_R_RAGGED, 4, T_R), (K_R_RAGGED, 5, 31)):
@@ -5415,16 +5609,16 @@ def main() -> int:
                    "autorally_tsallis_fused": pair_paths["autorally_tsallis_fused"][0]}
     # the loops that launch the warp form's minima pass
     min_paths = {p: l for p, l in {**ar_b1_paths, **{
-        p: l for p, (l, _) in all_paths.items()}}.items() if l["block_min_kernel"]}
+        p: l for p, (l, _) in all_paths.items()}}.items() if l[MIN_PASS]}
     kernels = [
         entry(b1_kernel("di_circle"), "pair_di_circle.cu", "pallas_rollout.py:548", epi,
               epi["library_ms"], err=errs["rollout_costs_kernel"], modes=modes,
               **one_thread_fields("rollout", "di_circle")),
         entry(MERGE, "flash_combine.cu", "pallas_rollout.py:1005", comb, None,
               err=errs["flash_combine_kernel"], **earlier_fields("merge")),
-        entry("riccati_backward_kernel", "riccati.cu", "pallas_riccati.py:137",
+        entry(BACKWARD, "riccati.cu", "pallas_riccati.py:137",
               ric_times["riccati_backward"], None, on_main_path=False,
-              chain_steps=T_R - 1),
+              chain_steps=T_R - 1, **pass_fields("backward", f"({S}, {C})")),
         entry(LADDER, "riccati.cu", "pallas_riccati.py:203",
               ric_times["riccati_ladder"], None, chain_steps=T_R - 1,
               paths={**by_path, "rmppi_di_robust": robust_paths["rmppi_di_robust"][0],
@@ -5477,10 +5671,11 @@ def main() -> int:
               **one_thread_fields("rollout", "ar_nn")),
         # the warp form's minima pass (Tsallis pass 1 of B1's warp form),
         # timed alone at AutoRally's shape
-        entry("block_min_kernel", "rollout_kernel.cuh",
+        entry(MIN_PASS, "block_pass.cuh",
               "pallas_rollout.py:894-965 (Tsallis pass 1's block minima, after B1's "
-              "warp form)", ar["block_min_kernel"], ar["block_min_kernel"]["library_ms"],
-              paths=min_paths, err=ar_errs["rollout_costs_kernel"], K=K_AR),
+              "warp form)", ar[MIN_PASS], ar[MIN_PASS]["library_ms"],
+              paths=min_paths, err=max(ar_errs["rollout_costs_kernel"], errs[MIN_PASS]),
+              K=K_AR, **pass_fields("min")),
         entry(f"{MERGE} (AutoRally paths)", "flash_combine.cu",
               "pallas_rollout.py:1005", ar["flash_combine"], None, paths=ar_paths,
               err=ar_errs["flash_combine_kernel"], kernel=MERGE),
@@ -5661,14 +5856,16 @@ def main() -> int:
                      + [c for c in form_checks[LADDER] if c["check"].startswith("B7 cartpole")],
                      T=T_ZOO, n_alpha=N_ALPHA, chain_steps=T_ZOO - 1,
                      **ladder_fields(f"cartpole T={T_ZOO}")),
-        family_entry("riccati_backward_kernel<4, 1>", "riccati.cu", "riccati_backward_s4c1",
+        family_entry(f"{BACKWARD}<4, 1>", "riccati.cu", "riccati_backward_s4c1",
                      "pallas_riccati.py:137", rt["B6 (4, 1)"],
-                     rchecks("riccati_backward_kernel", "B6 (4, 1)"), T=T_ZOO,
-                     chain_steps=T_ZOO - 1, on_main_path=False),
-        family_entry("riccati_backward_kernel<7, 2>", "riccati.cu", "riccati_backward_s7c2",
+                     rchecks("riccati_backward_kernel", "B6 (4, 1)"),
+                     T=T_ZOO, chain_steps=T_ZOO - 1, on_main_path=False,
+                     **pass_fields("backward", "(4, 1)")),
+        family_entry(f"{BACKWARD}<7, 2>", "riccati.cu", "riccati_backward_s7c2",
                      "pallas_riccati.py:137", rt["B6 (7, 2)"],
-                     rchecks("riccati_backward_kernel", "B6 (7, 2)"), T=T_AR,
-                     chain_steps=T_AR - 1, on_main_path=False),
+                     rchecks("riccati_backward_kernel", "B6 (7, 2)"),
+                     T=T_AR, chain_steps=T_AR - 1, on_main_path=False,
+                     **pass_fields("backward", "(7, 2)")),
     ]
     # the split form: one entry per kernel and pair; launches counted per C
     # entry on the split loops
@@ -5730,6 +5927,7 @@ def main() -> int:
         if ("sample", pair) in pair_errs:
             pair_errs[("sample", pair)] = max(pair_errs[("sample", pair)],
                                               form_err(B4_STAGED, f"{pair} "))
+    pair_errs[CARRY] = errs[CARRY]  # the carry pass's own checks
     kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times,
                                    carry_paths=ar_paths)
     for k in kernels:  # the loops that reach the kernel only by forcing a form

@@ -30,11 +30,17 @@
 // product rounded on its own). -DMPPI_COMBINE_ONE_BLOCK builds that kernel
 // instead (flash_combine_kernel: one block, each thread walking its columns
 // over all rows in global memory, nb exp a column), for A B B A.
+//
+// Beside the merge, this library launches the carry and minima passes of
+// block_pass.cuh on their own (block_carry_pass, block_min_pass): the warp
+// forms launch them after their kernel, these entries on costs and X already
+// on the device, so that a pass is checked and timed alone.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "block_pass.cuh"
 #include "mppi_common.cuh"
 
 namespace {
@@ -173,6 +179,28 @@ int flash_combine(int device, const float* carry, int nb, int TC, float lam,
         carry, nb, TC, lam, new_mean, scal, num);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The carry rows (ceil(K / 64), 2 + TC) of the costs (K,) over X (K, TC),
+// the pass the warp forms launch after their kernel, launched alone in this
+// build's form (block_pass_form()). Returns the CUDA error of the launch.
+int block_carry_pass(int device, const float* costs, const float* X, int K, int TC,
+                     float lam_w, float* carry, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return static_cast<int>(launch_block_carry<kBlockSamples>(
+      costs, X, K, TC, lam_w, carry, static_cast<cudaStream_t>(stream)));
+}
+
+// The minimum of each 64-sample group's valid costs into out
+// (ceil(K / 64),), the Tsallis pass 1 the warp form of B1 launches after its
+// kernel, launched alone in this build's form. Returns the CUDA error of the
+// launch.
+int block_min_pass(int device, const float* costs, int K, float* out, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return static_cast<int>(
+      launch_block_min<kBlockSamples>(costs, K, out, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

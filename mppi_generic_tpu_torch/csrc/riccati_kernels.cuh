@@ -10,13 +10,22 @@
 // mppi_generic_tpu_torch/ops/riccati.py; its wrappers launch these kernels
 // through the C entries (BACKWARD_ENTRY, LADDER_ENTRY).
 //
-// riccati_backward_kernel<S, C> (B6): one thread runs the recursion of
-// _backward_pass_into (pallas_riccati.py:63-133): Vx and Vxx in registers,
-// per step the products Vxx A and Vxx B, the Q terms, the (C, C) system
-// solved by the unrolled Gauss elimination of _solve_gauss (no pivoting:
-// quu is SPD after the Tikhonov term), the gains written out, and the value
-// function updated and symmetrised. At S = 7 the step's matrices take all
-// 255 registers a thread may have (ptxas reports no spill).
+// riccati_backward_warp_kernel<S, C> (B6): one block of one warp runs the
+// recursion of _backward_pass_into (pallas_riccati.py:63-133) spread over
+// its lanes, backward_pass_warp below (B7's recursion, unchanged): per step
+// the products Vxx A and Vxx B, the Q terms, the (C, C) system solved by the
+// unrolled Gauss elimination of _solve_gauss (no pivoting: quu is SPD after
+// the Tikhonov term), the gains, and the value function updated and
+// symmetrised, each entry on one lane; the step's A, B, dLx and dLu arrive by
+// cp.async two steps ahead. The gains go to dynamic shared memory (T (C S +
+// C) floats: 64 KB at T = 1024, (7, 2), past the 48 KB default, so the
+// launch opts in), and the warp copies them out coalesced at the end, as the
+// ladder does. riccati_backward_kernel<S, C>, built instead with
+// -DMPPI_BACKWARD_ONE_THREAD, is the earlier form: one thread runs
+// backward_pass with Vx and Vxx in registers (at S = 7 the step's matrices
+// take all 255 registers a thread may have) and loads each step's inputs
+// from device memory inside the chain. Both give the floats of the plain
+// version.
 //
 // riccati_ladder_warp_kernel<Dyn> (B7): one block. Every thread first stages
 // the model's parameters (Dyn::Shared: the AutoRally network's 1,412 floats,
@@ -46,7 +55,7 @@
 // -DMPPI_LADDER_ONE_THREAD (thread 0 runs backward_pass, thread n runs step
 // n's forward pass), kept to time the two forms in one call.
 //
-// What bounds it on this card: not bytes (about 27 KB in and out at T=50,
+// What bounds them on this card: not bytes (about 27 KB in and out at T=50,
 // S=4, C=2, n_alpha=14: 8 ns at 3.35 TB/s) and not operations (about 0.5
 // MFLOP; at T=150 with the AutoRally network about 14 MFLOP), but latency:
 // the recursion is a chain of T-1 dependent steps, and the forward pass a
@@ -270,6 +279,7 @@ __device__ void backward_pass(const RiccatiArgs& a, float* Ks, float* ks) {
   }
 }
 
+// B6's earlier form (-DMPPI_BACKWARD_ONE_THREAD): one thread.
 template <int S, int C>
 __global__ void __launch_bounds__(1)
 riccati_backward_kernel(RiccatiArgs a, float* __restrict__ Ks,
@@ -509,6 +519,59 @@ __device__ void backward_pass_warp(const RiccatiArgs& a, WarpRecursion<S, C>& w,
   cp_async_wait<0>();  // the empty groups of t < 0
 }
 
+// The dynamic shared memory of B6's warp form, in floats: the gains Ks
+// (T, C, S) and ks (T, C).
+template <int S, int C>
+constexpr size_t backward_warp_smem_floats(int T) {
+  return static_cast<size_t>(T) * (C * S + C);
+}
+
+// B6: the recursion over the block's one warp (backward_pass_warp), the
+// gains into shared memory, then copied out coalesced.
+template <int S, int C>
+__global__ void __launch_bounds__(32)
+riccati_backward_warp_kernel(RiccatiArgs a, float* __restrict__ Ks_out,
+                             float* __restrict__ ks_out) {
+  __shared__ WarpRecursion<S, C> rec;
+  extern __shared__ float smem[];  // backward_warp_smem_floats
+  const int T = a.T;
+  float* Ks = smem;
+  float* ks = Ks + T * C * S;
+  backward_pass_warp<S, C>(a, rec, Ks, ks);
+  __syncwarp();
+  for (int i = threadIdx.x; i < T * C * S; i += 32) Ks_out[i] = Ks[i];
+  for (int i = threadIdx.x; i < T * C; i += 32) ks_out[i] = ks[i];
+}
+
+// 1 where the backward entries launch riccati_backward_warp_kernel, 0 where
+// the one-thread riccati_backward_kernel (-DMPPI_BACKWARD_ONE_THREAD)
+#ifdef MPPI_BACKWARD_ONE_THREAD
+constexpr int kBackwardForm = 0;
+#else
+constexpr int kBackwardForm = 1;
+#endif
+
+// B6 for (S, C) in this build's form (only that kernel is instantiated).
+// Returns the launch error.
+template <int S, int C>
+int launch_backward(const RiccatiArgs& a, float* Ks, float* ks, cudaStream_t stream) {
+  if constexpr (kBackwardForm) {
+    const size_t smem = sizeof(float) * backward_warp_smem_floats<S, C>(a.T);
+    // above 48 KB of static and dynamic shared memory together, a launch
+    // needs the opt-in (T = 1024 at S = 7, C = 2: 64 KB of gains)
+    if (smem + sizeof(WarpRecursion<S, C>) > 48 * 1024) {
+      const cudaError_t attr = cudaFuncSetAttribute(
+          riccati_backward_warp_kernel<S, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (attr != cudaSuccess) return static_cast<int>(attr);
+    }
+    riccati_backward_warp_kernel<S, C><<<1, 32, smem, stream>>>(a, Ks, ks);
+  } else {
+    riccati_backward_kernel<S, C><<<1, 1, 0, stream>>>(a, Ks, ks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 struct LadderArgs {
   const float* xs;      // (T, S) reference states
   const float* us;      // (T, C) reference controls
@@ -742,9 +805,10 @@ int launch_ladder(const RiccatiArgs& a, const LadderArgs& l, ModelArgs m,
 
 }  // namespace
 
-// The backward kernel for (S, C), to be expanded inside extern "C". Every
-// pointer is memory of CUDA device `device`, and `stream` one of its
-// streams. Returns the CUDA error of the launch (0 when it was accepted).
+// The backward kernel for (S, C) in this build's form (launch_backward), to
+// be expanded inside extern "C". Every pointer is memory of CUDA device
+// `device`, and `stream` one of its streams. Returns the CUDA error of the
+// launch (0 when it was accepted).
 #define BACKWARD_ENTRY(NAME, S_, C_)                                          \
   int NAME(int device, const float* As, const float* Bs, const float* dLx,   \
            const float* dLu, const float* Qdt, const float* Rdt,             \
@@ -753,9 +817,8 @@ int launch_ladder(const RiccatiArgs& a, const LadderArgs& l, ModelArgs m,
     const cudaError_t set = cudaSetDevice(device);                           \
     if (set != cudaSuccess) return static_cast<int>(set);                    \
     const RiccatiArgs a{As, Bs, dLx, dLu, Qdt, Rdt, Vxx_T, Vx_T, T, dt, reg};\
-    riccati_backward_kernel<S_, C_>                                          \
-        <<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(a, Ks, ks);         \
-    return static_cast<int>(cudaGetLastError());                             \
+    return launch_backward<S_, C_>(a, Ks, ks,                                \
+                                   static_cast<cudaStream_t>(stream));       \
   }
 
 // The ladder kernel for the model DYN, 1 <= n_alpha <= kMaxAlphas, to be

@@ -17,9 +17,9 @@
 // chain, every mode and epilogue as below. The network models (AutoRally's
 // FNN, the racer LSTMs: HasWarpStep) launch the warp form,
 // rollout_costs_warp_kernel (below), one warp a sample, and then the
-// epilogue as a pass of its own over rows of 64 samples (block_carry_kernel
-// or block_min_kernel). -DMPPI_ROLLOUT_ONE_THREAD builds the one-thread
-// kernel for every model.
+// epilogue as a pass of its own over rows of 64 samples (the carry or the
+// minima pass of block_pass.cuh). -DMPPI_ROLLOUT_ONE_THREAD builds the
+// one-thread kernel for every model.
 //
 // rollout_costs_kernel<Dyn, Cost, EPI, WITH_LR, PER_SAMPLE_X0>: one thread
 // per sample, the T-step loop inside the thread, the state in registers.
@@ -284,8 +284,8 @@ rollout_costs_staged_kernel(const float* __restrict__ x0, const float* __restric
 // value is computed once, by the same operations, so every output is the
 // float of the one-thread kernel and of rollout_costs_plain. The epilogue
 // rows stay rows of kBlockSamples = 64 samples, which a block of warps does
-// not hold: block_carry_kernel (sample_warp.cuh) or block_min_kernel (below)
-// writes them after this launch from the costs (launch_rollout_warp).
+// not hold: the carry pass or the minima pass (block_pass.cuh) writes them
+// after this launch from the costs (launch_rollout_warp).
 //
 // What bounds it on this card: operations (the network's multiply-adds,
 // each a shared-memory load, a shuffle and a separate multiply and add
@@ -348,21 +348,10 @@ rollout_costs_warp_kernel(const float* __restrict__ x0, const float* __restrict_
   }
 }
 
-// Tsallis pass 1 after a warp kernel: out[b] = the minimum of the valid
-// costs of 64-sample block b (kMinPad past K; NaN if one is NaN), the
-// one-thread kernel's write_block_min on the same floats. A template, so
-// that only the sources that launch it build it.
-template <int kBlock>
-__global__ void __launch_bounds__(kBlock)
-block_min_kernel(const float* __restrict__ costs, int K, float* __restrict__ out) {
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < K;
-  write_block_min<kBlock>(valid ? costs[k] : 0.0f, valid, out);
-}
-
 // B1's warp form for the pair (Dyn, Cost) in the mode EPI: the warp kernel,
 // then with EPI exp the carry pass over U (launch_block_carry) or with EPI
-// min the minima pass (block_min_kernel). Returns the first launch error.
+// min the minima pass (launch_block_min; block_pass.cuh). Returns the first
+// launch error.
 template <class Dyn, class Cost, int EPI, bool X0>
 cudaError_t launch_rollout_warp(bool with_lr, const float* x0, const float* U, int K, int T,
                                 float dt, ModelArgs m, LRArgs lr, float lam_w, float* costs,
@@ -381,9 +370,7 @@ cudaError_t launch_rollout_warp(bool with_lr, const float* x0, const float* U, i
   if constexpr (EPI == kEpiExp) {
     return launch_block_carry<kBlockSamples>(costs, U, K, T * Dyn::C, lam_w, carry, s);
   } else if constexpr (EPI == kEpiMin) {
-    block_min_kernel<kBlockSamples>
-        <<<(K + kBlockSamples - 1) / kBlockSamples, kBlockSamples, 0, s>>>(costs, K, carry);
-    return cudaGetLastError();
+    return launch_block_min<kBlockSamples>(costs, K, carry, s);
   }
   return err;
 }
@@ -477,8 +464,8 @@ int rollout_entry(int device, const float* x0, const float* U, int K, int T,
 // Returns the CUDA error of the launch (0 when it was accepted; of the
 // first launch that failed). Beside it, NAME_form() says which form it
 // launches: 1 the warp form (rollout_costs_warp_kernel, then with epilogue 1
-// block_carry_kernel, with epilogue 2 block_min_kernel), 2 the staged form
-// (rollout_costs_staged_kernel), 0 the one-thread kernel
+// the carry pass, with epilogue 2 the minima pass: block_pass_form()), 2 the
+// staged form (rollout_costs_staged_kernel), 0 the one-thread kernel
 // (rollout_costs_kernel).
 #define ROLLOUT_ENTRY(NAME, DYN, COST, X0)                                    \
   int NAME(int device, const float* x0, const float* U, int K, int T,        \

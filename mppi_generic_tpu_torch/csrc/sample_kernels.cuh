@@ -38,8 +38,8 @@
 // (sample_draw.cuh). The one-thread B4 kernel below is built only with
 // -DMPPI_SAMPLE_ONE_THREAD, to time the forms in one call. B3 takes the
 // same forms from solve_controls: a network model's runs the warp form
-// (fused_solve_warp_kernel, sample_warp.cuh, then block_carry_kernel for the
-// carry rows), every other model's the staged form
+// (fused_solve_warp_kernel, sample_warp.cuh, then the carry pass of
+// block_pass.cuh for the carry rows), every other model's the staged form
 // (fused_solve_staged_kernel, sample_staged.cuh: the stage carries each
 // step's controls and C LR terms); the one-thread B3 below is built only
 // with -DMPPI_SOLVE_ONE_THREAD, for every model.
@@ -308,7 +308,7 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
 // Returns the CUDA error of the launch (0 when it was accepted), or
 // cudaErrorInvalidValue for a noise kind this kernel does not draw. Beside
 // it, NAME_form() says which form it launches: 1 the warp form
-// (fused_solve_warp_kernel, then block_carry_kernel), 2 the staged form
+// (fused_solve_warp_kernel, then the carry pass), 2 the staged form
 // (fused_solve_staged_kernel), 0 the one-thread kernel (fused_solve_kernel).
 #define SOLVE_ENTRY(NAME, DYN, COST)                                          \
   int NAME(int device, int noise_kind, const float* x0, const float* mean,   \
@@ -334,7 +334,7 @@ int fused_sample_entry(int device, int noise_kind, int epilogue,
 // Returns the CUDA error of the launch, or cudaErrorInvalidValue for a mode
 // this kernel does not have. Beside it, NAME_form() says which form it
 // launches: 1 the warp form (fused_sample_rollout_warp_kernel, and with the
-// epilogue block_carry_kernel), 2 the staged form
+// epilogue the carry pass), 2 the staged form
 // (fused_sample_rollout_staged_kernel), 0 the one-thread kernel
 // (fused_sample_rollout_kernel).
 #define SAMPLE_ENTRY(NAME, DYN, COST)                                         \

@@ -28,15 +28,16 @@
 //
 // With Smooth-MPPI's epilogue the carry rows stay rows of kBlockSamples = 64
 // samples (their layout is BLOCK in ops/fused_rollout.py and flash_combine's),
-// which a block of warps does not hold: block_carry_kernel, launched after
-// the warp kernel over (64-sample block, 64-column tile), writes them from
-// the costs and W, the same function on the same floats as the one-thread
-// kernel's epilogue (write_block_carry).
+// which a block of warps does not hold: the carry pass (block_pass.cuh:
+// block_carry_tiled_kernel, launched after the warp kernel as its
+// programmatic dependent) writes them from the costs and W, the same
+// function on the same floats as the one-thread kernel's epilogue
+// (write_block_carry).
 //
 // fused_solve_warp_kernel (below) is B3 on the same blocks, lanes and chunk
 // prologue, in place of the one-thread fused_solve_kernel for these models
 // (the TPU kernel mppi_generic_tpu/ops/pallas_solve.py::_fused_solve_call),
-// and block_carry_kernel writes its carry rows over U.
+// and the carry pass writes its carry rows over U.
 //
 // What bounds it on this card: operations (the network's multiply-adds, each
 // a shared-memory load, a shuffle and a separate multiply and add under
@@ -53,6 +54,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "block_pass.cuh"
 #include "mppi_common.cuh"
 #include "sample_draw.cuh"
 #include "warp.cuh"
@@ -131,7 +133,8 @@ fused_sample_rollout_warp_kernel(const float* __restrict__ x0, SampleArgs a, int
 // cost, and J = (acc + terminal + lr_gain lr) / T: fused_solve_kernel's
 // operations in its order, so the costs, crash flags and U are its floats.
 // The carry rows (m_b, d_b, num_b[T*C]) stay rows of 64 samples over U:
-// block_carry_kernel writes them after this launch (launch_block_carry).
+// the carry pass writes them after this launch (launch_block_carry,
+// block_pass.cuh).
 template <class Dyn, class Cost, int NOISE>
 __global__ void __launch_bounds__(32 * Dyn::kWarpSamples)
 fused_solve_warp_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T, float dt,
@@ -187,35 +190,6 @@ fused_solve_warp_kernel(const float* __restrict__ x0, SampleArgs a, int K, int T
     costs[k] = (acc + Cost::terminal_cost(cp, y) + lr_gain * lr) / static_cast<float>(T);
     crash_out[k] = crash;
   }
-}
-
-// The carry rows of kBlock (kBlockSamples) samples over X (Smooth-MPPI's W)
-// from the costs, as the one-thread kernel's epilogue writes them, spread
-// over a grid of (sample block, column tile): each block writes the kBlock
-// columns of its tile (write_block_carry's tiles), the same floats as one
-// block writing every column. X was written by the previous launch; it
-// keeps no __restrict__ (write_block_carry). A template, so that only the
-// sources that launch it build it.
-template <int kBlock>
-__global__ void __launch_bounds__(kBlock)
-block_carry_kernel(const float* __restrict__ costs, const float* X, int K, int TC,
-                   float lam_w, float* __restrict__ carry) {
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < K;
-  write_block_carry<kBlock>(valid ? costs[k] : 0.0f, valid, lam_w, X, K, TC, carry,
-                            blockIdx.y, gridDim.y);
-}
-
-// The carry pass after a warp kernel: block_carry_kernel over (kBlock-sample
-// block, kBlock-column tile). Returns its launch error. A template, as the
-// kernel.
-template <int kBlock>
-cudaError_t launch_block_carry(const float* costs, const float* X, int K, int TC,
-                               float lam_w, float* carry, cudaStream_t s) {
-  const int tiles = (TC + kBlock - 1) / kBlock;
-  const dim3 grid((K + kBlock - 1) / kBlock, tiles < 65535 ? tiles : 65535);
-  block_carry_kernel<kBlock><<<grid, kBlock, 0, s>>>(costs, X, K, TC, lam_w, carry);
-  return cudaGetLastError();
 }
 
 // B4's warp form for the pair (Dyn, Cost), noise_kind already checked: the

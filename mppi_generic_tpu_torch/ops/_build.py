@@ -158,6 +158,12 @@ SIGNATURES = {
         "flash_combine_form": [],
         # device, carry, nb, TC, lam, new_mean, scal, num, stream
         "flash_combine": [_I, _P, _I, _I, _F, _P, _P, _P, _P],
+        # the passes after the warp forms, launched alone (csrc/block_pass.cuh)
+        "block_pass_form": [],
+        # device, costs, X, K, TC, lam_w, carry, stream
+        "block_carry_pass": [_I, _P, _P, _I, _I, _F, _P, _P],
+        # device, costs, K, out, stream
+        "block_min_pass": [_I, _P, _I, _P, _P],
     },
     "tsallis_reduce": {
         "tsallis_reduce_block_size": [],
@@ -171,6 +177,7 @@ SIGNATURES = {
     "riccati": {
         "riccati_max_alphas": [],
         "riccati_ladder_form": [],
+        "riccati_backward_form": [],
         "riccati_backward_s4c2": _BACKWARD,
         "riccati_backward_s4c1": _BACKWARD,
         "riccati_backward_s7c2": _BACKWARD,
@@ -182,10 +189,10 @@ SIGNATURES = {
 # the entries with <entry>_form() beside them: 1 where the entry launches the
 # warp form of its kernel (split_dynamics_warp_kernel,
 # split_solve_dynamics_warp_kernel: csrc/split_warp.cuh;
-# fused_sample_rollout_warp_kernel, with its epilogue block_carry_kernel, and
-# fused_solve_warp_kernel, with its carry pass block_carry_kernel:
-# csrc/sample_warp.cuh; rollout_costs_warp_kernel, with its epilogue pass
-# block_carry_kernel or block_min_kernel: csrc/rollout_kernel.cuh;
+# fused_sample_rollout_warp_kernel, with its epilogue's carry pass, and
+# fused_solve_warp_kernel, with its carry pass: csrc/sample_warp.cuh;
+# rollout_costs_warp_kernel, with its carry or minima pass:
+# csrc/rollout_kernel.cuh;
 # rmppi_rollout_warp_kernel: csrc/rmppi_warp.cuh), 2
 # where the staged form of B4, B3, B1 or B8 (fused_sample_rollout_staged_kernel,
 # fused_solve_staged_kernel, rollout_costs_staged_kernel:
@@ -202,7 +209,15 @@ SIGNATURES = {
 # launches the form its caller names, and its _form() says 3 where the build
 # has the cluster form (split_cost_cluster_kernel) beside the one-block
 # split_cost_kernel, 0 where only the latter (-DMPPI_COST_ONE_BLOCK,
-# csrc/split_kernels.cuh); the wrappers count each launch under its name
+# csrc/split_kernels.cuh); the wrappers count each launch under its name.
+# Every library with a B1, B3 or B4 entry also has block_pass_form(): 4 where
+# the warp forms' passes are the tiled carry pass and the warp minima pass
+# (block_carry_tiled_kernel, block_min_warp_kernel: csrc/block_pass.cuh), 0
+# where the earlier block_carry_kernel and block_min_kernel
+# (-DMPPI_PASS_UNSTAGED); riccati.cu's riccati_backward_form() says 1 for
+# B6 over a warp (riccati_backward_warp_kernel), 0 for the one-thread
+# riccati_backward_kernel (-DMPPI_BACKWARD_ONE_THREAD)
+_PASS_KINDS = ("rollout", "rollout_x0", "solve", "sample")
 _FORM_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0", "sample",
                "rmppi", "solve", "rollout", "rollout_x0", "split_cost")
 _KIND_SIGNATURE = {"rollout": _ROLLOUT, "rollout_x0": _ROLLOUT, "solve": _SOLVE,
@@ -215,6 +230,8 @@ for _pair, _kinds in PAIR_KERNELS.items():
         SIGNATURES.setdefault(_lib, {})[_fn] = _KIND_SIGNATURE[_kind]
         if _kind in _FORM_KINDS:
             SIGNATURES[_lib][_fn + "_form"] = []
+        if _kind in _PASS_KINDS:
+            SIGNATURES[_lib]["block_pass_form"] = []
 
 # launches of each CUDA kernel since the last reset_launch_counts(); each
 # wrapper adds one where it launches its kernel, and one to entry_counts
@@ -229,6 +246,7 @@ launch_counts = {
     "rollout_costs_staged_kernel": 0,
     "rollout_costs_warp_kernel": 0,
     "block_min_kernel": 0,
+    "block_min_warp_kernel": 0,
     "flash_combine_kernel": 0,
     "flash_combine_tiled_kernel": 0,
     "tsallis_reduce_kernel": 0,
@@ -237,6 +255,7 @@ launch_counts = {
     "rmppi_rollout_warp_kernel": 0,
     "rmppi_rollout_staged_kernel": 0,
     "riccati_backward_kernel": 0,
+    "riccati_backward_warp_kernel": 0,
     "riccati_ladder_kernel": 0,
     "riccati_ladder_warp_kernel": 0,
     "fused_solve_kernel": 0,
@@ -246,6 +265,7 @@ launch_counts = {
     "fused_sample_rollout_warp_kernel": 0,
     "fused_sample_rollout_staged_kernel": 0,
     "block_carry_kernel": 0,
+    "block_carry_tiled_kernel": 0,
     "split_dynamics_kernel": 0,
     "split_solve_dynamics_kernel": 0,
     "split_dynamics_warp_kernel": 0,

@@ -465,8 +465,8 @@ def block_carries_ordered(costs, X, lam, block=BLOCK):
     ``write_block_carry`` (csrc/mppi_common.cuh): each block's maximum and
     weight sum by its tree of halving strides, num_b summed over the
     block's valid samples left to right. Equal bit for bit to the carry
-    rows of B4's epilogue (``block_carry_kernel`` and the one-thread
-    kernel's) on the same costs and X."""
+    rows of B4's epilogue (the warp forms' carry pass, ``_block_carries``,
+    and the one-thread kernel's) on the same costs and X."""
     K, T, C = X.shape
     nb = -(-K // block)
     pad = nb * block - K
@@ -702,15 +702,16 @@ def _lr_args(lr_params):
             _lr_gain(lam, alpha), _f32(pure_thresh))
 
 
-# the epilogue pass after B1's warp form, by epilogue mode
-_WARP_EPILOGUE_PASS = {EPI_EXP: "block_carry_kernel", EPI_MIN: "block_min_kernel"}
+# the epilogue pass after B1's warp form, by epilogue mode: the family of
+# csrc/block_pass.cuh (pass_kernel_name)
+_WARP_EPILOGUE_PASS = {EPI_EXP: "block_carry", EPI_MIN: "block_min"}
 
 
 def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
                   lam_w=1.0):
     """Launch kernel 1 in the ``epilogue`` mode, in the form its entry
     reports (``form_kernel_name``; the warp form's epilogue is a second
-    launch, ``block_carry_kernel`` or ``block_min_kernel``): (costs, crash,
+    launch, the carry or minima pass, ``pass_kernel_name``): (costs, crash,
     out), out the carry rows (EPI_EXP), the block minima (EPI_MIN) or
     None."""
     lib_name, entry = _check_rollout_inputs(dynamics, cost, x0, U, lr_params)
@@ -729,7 +730,7 @@ def _rollout_cuda(dynamics, cost, x0, U, dt, lr_params, epilogue=EPI_NONE,
     _check_status(status, name)
     _build.count_launch(name, entry)
     if name == "rollout_costs_warp_kernel" and epilogue in _WARP_EPILOGUE_PASS:
-        _build.count_launch(_WARP_EPILOGUE_PASS[epilogue])
+        _build.count_launch(pass_kernel_name(_WARP_EPILOGUE_PASS[epilogue], lib_name))
     return costs, crash, out
 
 
@@ -816,6 +817,63 @@ def split_cost_kernel_name(entry, device_index, K, T, dual):
 def merge_kernel_name():
     """The counted name of the merge kernel the port's build launches."""
     return form_kernel_name("flash_combine", ("flash_combine", "flash_combine"))
+
+
+# the kernels of the passes after the warp forms (csrc/block_pass.cuh) by
+# the library's block_pass_form()
+_PASS_NAMES = {"block_carry": {4: "block_carry_tiled_kernel", 0: "block_carry_kernel"},
+               "block_min": {4: "block_min_warp_kernel", 0: "block_min_kernel"}}
+
+
+def pass_kernel_name(base, lib_name="flash_combine"):
+    """The kernel of the pass ``base`` ("block_carry": the carry rows after
+    B4's, B3's and B1's warp forms; "block_min": Tsallis pass 1's minima
+    after B1's) that the library ``lib_name`` launches, as it reports it
+    (``block_pass_form()``): ``block_carry_tiled_kernel`` and
+    ``block_min_warp_kernel``, or ``block_carry_kernel`` and
+    ``block_min_kernel`` in a build with -DMPPI_PASS_UNSTAGED."""
+    return _PASS_NAMES[base][_form(_lib(lib_name), "block_pass")]
+
+
+def _block_carries(costs, X, lam):
+    """The carry pass alone: one carry row (m_b, d_b, num_b[T*C]) per
+    block of BLOCK samples of the costs (K,) over X (K, T, C), (nb, 2 +
+    T*C), as the warp forms' pass writes them (``block_carries_ordered``'s
+    floats; that is its plain version). On the card it launches the pass of
+    the merge's library."""
+    K, T, C = X.shape
+    _check_tensors({"costs": (costs, (K,)), "X": X}, X.device)
+    if K < 1 or K * T * C >= 2**31:
+        raise ValueError(f"unsupported sizes K={K}, T={T}, C={C}")
+    if _on_cpu(X):
+        return block_carries_ordered(costs, X, _f32(lam))
+    carry = torch.empty((-(-K // BLOCK), 2 + T * C), dtype=torch.float32, device=X.device)
+    status = _lib().block_carry_pass(
+        X.device.index, costs.data_ptr(), X.data_ptr(), K, T * C, _f32(lam), carry.data_ptr(),
+        torch.cuda.current_stream(X.device).cuda_stream)
+    name = pass_kernel_name("block_carry")
+    _check_status(status, name)
+    _build.count_launch(name)
+    return carry
+
+
+def _block_minima(costs):
+    """The minima pass alone: each block of BLOCK samples' minimum cost
+    (nb,), 1e30 past K, NaN where a cost is NaN, as B1's warp form writes
+    them for Tsallis pass 1 (``block_minima_plain`` is its plain version)."""
+    _check_tensors({"costs": costs}, costs.device)
+    if costs.dim() != 1 or costs.shape[0] < 1:
+        raise ValueError(f"costs must be (K,), got {tuple(costs.shape)}")
+    K = costs.shape[0]
+    if _on_cpu(costs):
+        return block_minima_plain(costs)
+    out = torch.empty((-(-K // BLOCK),), dtype=torch.float32, device=costs.device)
+    status = _lib().block_min_pass(costs.device.index, costs.data_ptr(), K, out.data_ptr(),
+                                   torch.cuda.current_stream(costs.device).cuda_stream)
+    name = pass_kernel_name("block_min")
+    _check_status(status, name)
+    _build.count_launch(name)
+    return out
 
 
 def split_dynamics_cuda(dynamics, cost, x0, U, dt):
@@ -1217,7 +1275,8 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
                          alpha, K, iteration, stride, sampler_state, epilogue,
                          emit_samples, injected_noise):
     """Launch B4 in the form its entry reports (``form_kernel_name``; the
-    warp form's epilogue is a second launch, ``block_carry_kernel``):
+    warp form's epilogue is a second launch, the carry pass,
+    ``pass_kernel_name``):
     (costs, crash, U or None, W or None, carry or None)."""
     lib_name, entry = _entry(dynamics, cost, "sample")
     T, C = mean.shape
@@ -1256,7 +1315,8 @@ def _sample_rollout_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam,
     _check_status(status, name)
     _build.count_launch(name, entry)
     if epilogue and name == "fused_sample_rollout_warp_kernel":
-        _build.count_launch("block_carry_kernel")  # the warp form's carry pass
+        # the warp form's carry pass
+        _build.count_launch(pass_kernel_name("block_carry", lib_name))
     return costs, crash, U, W, carry
 
 

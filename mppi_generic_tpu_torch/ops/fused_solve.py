@@ -6,8 +6,9 @@ pair in ``csrc/pair_<name>.cu``) replaces its TPU kernel
 ``_fused_solve_call``. For a model whose step is a network (AutoRally, the
 racer LSTMs) the entry launches its warp form, ``fused_solve_warp_kernel``
 (``csrc/sample_warp.cuh``: one warp a sample, the lanes making each chunk of
-32 steps' controls), then the carry pass ``block_carry_kernel``; for every
-other model its staged form, ``fused_solve_staged_kernel``
+32 steps' controls), then the carry pass ``block_carry_tiled_kernel``
+(``csrc/block_pass.cuh``, launched as the warp kernel's programmatic
+dependent); for every other model its staged form, ``fused_solve_staged_kernel``
 (``csrc/sample_staged.cuh``: producer warps draw each chunk of 32 steps into
 shared memory for consumer threads); each launch is counted under the name
 the entry reports. One launch is one MPPI iteration for the
@@ -145,7 +146,7 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
                       K, iteration, stride, injected_noise):
     """Launch B3 in the form its entry reports (``fr.form_kernel_name``: the
     warp form ``fused_solve_warp_kernel`` for a model whose step is a
-    network, then its carry pass ``block_carry_kernel``; the staged
+    network, then its carry pass (``fr.pass_kernel_name``); the staged
     ``fused_solve_staged_kernel`` for every other model; the one-thread
     ``fused_solve_kernel`` in a build with -DMPPI_SOLVE_ONE_THREAD):
     (costs, crash, U, carry)."""
@@ -170,7 +171,8 @@ def _fused_solve_cuda(dynamics, cost, sampler, kind, x0, mean, seed, dt, lam, al
     fr._check_status(status, name)
     _build.count_launch(name, entry)
     if name == "fused_solve_warp_kernel":
-        _build.count_launch("block_carry_kernel")  # the warp form's carry pass
+        # the warp form's carry pass
+        _build.count_launch(fr.pass_kernel_name("block_carry", lib_name))
     return costs, crash, U, carry
 
 

@@ -20,7 +20,8 @@ double integrator's, the cartpole's and AutoRally's sizes), the ladder for
 the double integrator, the cartpole and AutoRally's network dynamics. The
 ladder runs its recursion spread over a warp and, for AutoRally, one warp
 per line-search step (``riccati_ladder_warp_kernel``); the backward kernel
-keeps one thread.
+runs the same recursion over the one warp of its block
+(``riccati_backward_warp_kernel``).
 
 Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module) for CPU tensors; the plain versions follow the
@@ -31,8 +32,8 @@ outside ``supported`` raise on every device (``feedback/ilqr.py`` chooses
 the eager scan for them, as the JAX package does), and a CUDA call without a
 compiled kernel for its sizes or dynamics raises. Every launch adds one to
 ``launch_counts`` under the kernel's name (and to ``entry_counts`` under its
-C entry); the ladder's name is the one its build reports
-(``ladder_kernel_name``).
+C entry), the one its build reports (``ladder_kernel_name``,
+``backward_kernel_name``).
 """
 
 from __future__ import annotations
@@ -209,6 +210,15 @@ def ladder_kernel_name():
     return "riccati_ladder_warp_kernel" if _lib().riccati_ladder_form() else "riccati_ladder_kernel"
 
 
+def backward_kernel_name():
+    """The backward kernel the loaded build launches, as it reports it
+    (``riccati_backward_form()``): ``riccati_backward_warp_kernel``, the
+    recursion spread over a warp, or the one-thread
+    ``riccati_backward_kernel`` of a build with -DMPPI_BACKWARD_ONE_THREAD."""
+    return ("riccati_backward_warp_kernel" if _lib().riccati_backward_form()
+            else "riccati_backward_kernel")
+
+
 def _check_sizes(As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T):
     T, S, C = As.shape[0], As.shape[1], Bs.shape[2]
     if not supported(S, C, T) or T < 2:
@@ -247,8 +257,9 @@ def riccati_backward(As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T, dt, reg=1e-6):
         dLu.data_ptr(), Qdt.data_ptr(), Rdt.data_ptr(), Vxx_T.data_ptr(),
         Vx_T.data_ptr(), T, _f32(dt), _f32(reg), Ks.data_ptr(), ks.data_ptr(),
         torch.cuda.current_stream(As.device).cuda_stream)
-    _check_status(status, "riccati_backward_kernel")
-    _build.count_launch("riccati_backward_kernel", entry)
+    name = backward_kernel_name()
+    _check_status(status, name)
+    _build.count_launch(name, entry)
     return Ks, ks
 
 

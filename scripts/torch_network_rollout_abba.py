@@ -43,8 +43,7 @@ from mppi_generic_tpu_torch.ops import fused_rollout as fr  # noqa: E402
 MODES = ("costs", "costs+lr", "epilogue", "epilogue+lr", "tsallis+lr")
 # the modes timed also by the profiler and against the split form (the AUTO
 # rows' modes), with the kernels of one launch of the warp form
-DEVICE_KERNELS = {("rollout", "epilogue+lr"): ("rollout_costs_warp_kernel",
-                                               "block_carry_kernel"),
+DEVICE_KERNELS = {("rollout", "epilogue+lr"): ("rollout_costs_warp_kernel", cs.CARRY),
                   ("rollout_x0", "costs"): ("rollout_costs_warp_kernel",)}
 
 

@@ -87,12 +87,11 @@ def main() -> int:
                    "split_abba": cs.abba(lambda: solve(False), lambda: solve(True))}
             if kind == "gaussian":
                 row["one_thread_device"] = cs.device_abba(
-                    lambda: solve(False), ("fused_solve_warp_kernel", "block_carry_kernel"),
+                    lambda: solve(False), ("fused_solve_warp_kernel", cs.CARRY),
                     "fused_solve_kernel", cs.one_thread_solve)
                 row["warp_kernel_device_ms"] = cs.device_ms(lambda: solve(False),
                                                             "fused_solve_warp_kernel")
-                row["carry_pass_device_ms"] = cs.device_ms(lambda: solve(False),
-                                                           "block_carry_kernel")
+                row["carry_pass_device_ms"] = cs.device_ms(lambda: solve(False), cs.CARRY)
             print(json.dumps(row), flush=True)
 
     for K, T in ((8192, 100), (1920, 100)):

@@ -222,7 +222,7 @@ def test_riccati_kernels_match_plain(cuda_device, T_):
         dyn, p["xs"], p["us"], *back[:4], p["Q"], p["R"], p["Q_f"], p["Vxx_T"],
         p["Vx_T"], p["goal_x"], p["goal_u"], alphas, lo, hi, DT)
     torch.cuda.synchronize()
-    assert riccati.launch_counts["riccati_backward_kernel"] == 1
+    assert riccati.launch_counts["riccati_backward_warp_kernel"] == 1
     assert riccati.launch_counts["riccati_ladder_warp_kernel"] == 1
     ulim = torch.stack([lo, hi])
     pcost, pxs, pus = riccati.ladder_forward_plain(
@@ -381,7 +381,7 @@ def test_ar_rollout_kernel_matches_plain(cuda_device, K, map_kind, epilogue, wit
         kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr, split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_warp_kernel"] == 1
-    assert fr.launch_counts["block_carry_kernel"] == int(epilogue)
+    assert fr.launch_counts["block_carry_tiled_kernel"] == int(epilogue)
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
     assert torch.equal(kcrash, pcrash)
@@ -421,7 +421,7 @@ def test_ar_fused_solve_kernel_matches_plain(cuda_device, K, kind, map_kind):
     kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
     torch.cuda.synchronize()
     assert fr.launch_counts["fused_solve_warp_kernel"] == 1
-    assert fr.launch_counts["block_carry_kernel"] == 1
+    assert fr.launch_counts["block_carry_tiled_kernel"] == 1
     pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
     _close(kU, pU, rtol=0, atol=0)
     _close(kc, pc, rtol=1e-5, atol=1e-6)
@@ -959,7 +959,7 @@ def test_riccati_backward_new_sizes_match_plain(cuda_device, S_, C_):
     riccati.reset_launch_counts()
     kK, kk = riccati.riccati_backward(As, Bs, dLx, dLu, Q, R, Vxx_T, Vx_T, DT)
     torch.cuda.synchronize()
-    assert riccati.launch_counts["riccati_backward_kernel"] == 1
+    assert riccati.launch_counts["riccati_backward_warp_kernel"] == 1
     pK, pk = riccati.riccati_backward_plain(As, Bs, dLx, dLu, Q * DT, R * DT, Vxx_T,
                                             Vx_T, DT, 1e-6)
     _close(kK, pK, rtol=1e-5, atol=1e-6)
@@ -1641,8 +1641,8 @@ def test_sample_warp_matches_plain(cuda_device, pair, shape, mode):
     """B4's warp form against its plain version: costs, crash flags, U, W
     and (Smooth's epilogue) the 64-sample carry rows bit for bit, the carry
     rows against write_block_carry's order (``fr.block_carries_ordered``);
-    one launch of fused_sample_rollout_warp_kernel, and of block_carry_kernel
-    with the epilogue."""
+    one launch of fused_sample_rollout_warp_kernel, and of
+    block_carry_tiled_kernel with the epilogue."""
     dev = cuda_device
     K, T_, p, stride = B4_WARP_SHAPES[shape]
     kind, epilogue, inject = B4_WARP_MODES[mode]
@@ -1666,7 +1666,7 @@ def test_sample_warp_matches_plain(cuda_device, pair, shape, mode):
     torch.cuda.synchronize()
     assert fr.launch_counts["fused_sample_rollout_warp_kernel"] == 1
     assert fr.launch_counts["fused_sample_rollout_kernel"] == 0
-    assert fr.launch_counts["block_carry_kernel"] == int(epilogue)
+    assert fr.launch_counts["block_carry_tiled_kernel"] == int(epilogue)
     assert fr.entry_counts == {f"fused_sample_rollout_{pair}": 1}
     pc, pcrash, pU, pW = fr.sample_rollout_plain(
         dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K, optimization_stride=stride,
@@ -1842,6 +1842,7 @@ def test_sample_staged_matches_plain(cuda_device, pair, shape, mode):
     assert fr.launch_counts["fused_sample_rollout_staged_kernel"] == 1
     assert fr.launch_counts["fused_sample_rollout_kernel"] == 0
     assert fr.launch_counts["block_carry_kernel"] == 0
+    assert fr.launch_counts["block_carry_tiled_kernel"] == 0
     assert fr.entry_counts == {f"fused_sample_rollout_{pair}": 1}
     pc, pcrash, pU, pW = fr.sample_rollout_plain(
         dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K, optimization_stride=stride,
@@ -2221,7 +2222,7 @@ def test_b8_and_lanes_builds_report_their_form(cuda_device, one_thread_b8_lanes)
 
 
 # --- B3's warp form for the network pairs (csrc/sample_warp.cuh
-# fused_solve_warp_kernel, then block_carry_kernel) and the tiled B5
+# fused_solve_warp_kernel, then the carry pass) and the tiled B5
 # (csrc/tsallis_reduce.cu tsallis_reduce_tiled_kernel), against their plain
 # versions and their earlier builds (chip_smoke.py's -DMPPI_SOLVE_ONE_THREAD
 # over the network pairs' sources, -DMPPI_TSALLIS_ONE_BLOCK) ---
@@ -2290,7 +2291,7 @@ def test_solve_warp_matches_plain_and_the_one_thread_build(cuda_device, one_thre
     """B3's warp form against its plain version and the one-thread build:
     costs, crash flags, U and the carry rows (in write_block_carry's order)
     bit for bit, and so the new mean, baseline and eta of the merge; one
-    launch of fused_solve_warp_kernel and one of block_carry_kernel."""
+    launch of fused_solve_warp_kernel and one of block_carry_tiled_kernel."""
     smoke, libs = one_thread_solve_tsallis
     dev = cuda_device
     pair, map_kind, K, T_, p, stride = SOLVE_WARP_CASES[case]
@@ -2308,7 +2309,7 @@ def test_solve_warp_matches_plain_and_the_one_thread_build(cuda_device, one_thre
     got = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
     torch.cuda.synchronize()
     assert {k: v for k, v in fr.launch_counts.items() if v} == {
-        "fused_solve_warp_kernel": 1, "block_carry_kernel": 1}
+        "fused_solve_warp_kernel": 1, "block_carry_tiled_kernel": 1}
     assert fr.entry_counts == {f"fused_solve_{pair}": 1}
     with smoke.swapped(libs):
         one = fused_solve.fused_solve_carries(*args, split_cost=False, **kw)
@@ -2399,7 +2400,7 @@ def test_tsallis_tiled_keeps_a_nan_rho(cuda_device, one_thread_solve_tsallis):
 
 
 # --- B1's warp form for the network pairs (csrc/rollout_kernel.cuh
-# rollout_costs_warp_kernel, then block_carry_kernel or block_min_kernel),
+# rollout_costs_warp_kernel, then the carry or minima pass),
 # against its plain version and the one-thread build (chip_smoke.py's
 # -DMPPI_SOLVE_ONE_THREAD -DMPPI_ROLLOUT_ONE_THREAD over the network pairs'
 # sources and rollout_x0.cu) ---
@@ -2493,7 +2494,8 @@ def test_rollout_warp_matches_plain_and_the_one_thread_build(cuda_device, one_th
     torch.cuda.synchronize()
     want_launches = {"rollout_costs_warp_kernel": 1}
     if epilogue != fr.EPI_NONE:
-        want_launches["block_carry_kernel" if epilogue == fr.EPI_EXP else "block_min_kernel"] = 1
+        want_launches["block_carry_tiled_kernel" if epilogue == fr.EPI_EXP
+                      else "block_min_warp_kernel"] = 1
     assert {k: v for k, v in fr.launch_counts.items() if v} == want_launches
     pair = ROLLOUT_WARP_CASES[case][0]
     prefix = "rollout_costs_x0_" if x0.dim() == 2 else "rollout_costs_"
@@ -2719,3 +2721,128 @@ def test_split_staged_builds_report_their_form(cuda_device, one_thread_split_sta
         for kind in ("split_dynamics", "split_solve_dynamics"):
             entry = _build.pair_entry(pair, kind)
             assert fr._form(fr._lib(entry[0]), entry[1]) == 1, (pair, kind)
+
+
+# --- the passes after the warp forms (csrc/block_pass.cuh:
+# block_carry_tiled_kernel, block_min_warp_kernel, each launched as the
+# programmatic dependent of the kernel before it) and B6 over a warp
+# (csrc/riccati_kernels.cuh riccati_backward_warp_kernel), against their
+# plain versions and the earlier forms' builds (chip_smoke.py's
+# -DMPPI_PASS_UNSTAGED over the merge's library, which launches the passes
+# alone, and -DMPPI_BACKWARD_ONE_THREAD over riccati.cu) ---
+@pytest.fixture(scope="module")
+def earlier_passes():
+    """The merge's library with the earlier passes and riccati.cu with the
+    one-thread B6 (and ladder), built beside the port's, and chip_smoke."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+
+    libs, ric = {}, {}
+    chip_smoke.build_variants((
+        (libs, ("MPPI_PASS_UNSTAGED",), "pass_unstaged_test", ("flash_combine",)),
+        (ric, ("MPPI_LADDER_ONE_THREAD", "MPPI_BACKWARD_ONE_THREAD"), "backward_one_thread_test",
+         ("riccati",))))
+    return chip_smoke, libs, ric["riccati"]
+
+
+# (K, T*C, special): the paths' shapes (AutoRally and racer uncertainty 1920 x
+# 300, racer steering 1920 x 200), the ragged loops' (1901 and 65 at T = 31:
+# rows not on 16 bytes), the smallest, a NaN and a +inf cost, X off 16 bytes
+# with T*C a multiple of 4, and a row of more tiles than a grid has rows
+CARRY_PASS_CASES = {
+    "1920x300": (1920, 300, ""), "1920x200": (1920, 200, ""), "1901x62": (1901, 62, ""),
+    "65x62": (65, 62, ""), "64x2": (64, 2, ""), "1x300": (1, 300, ""),
+    "1920x300 nan": (1920, 300, "nan"), "1901x300 inf": (1901, 300, "inf"),
+    "1920x300 misaligned": (1920, 300, "misaligned"),
+    "2x2097184 tiles past the grid": (2, 2097184, ""),
+}
+
+
+def _pass_inputs(K, TC, special, dev):
+    g = torch.Generator(device=dev).manual_seed(K + TC)
+    costs = 50.0 * torch.rand((K,), generator=g, device=dev) + 10.0
+    if special == "nan":
+        costs[K // 2] = float("nan")
+    if special == "inf":
+        costs[K - 1] = float("inf")
+    X = torch.randn((K * TC + 1,), generator=g, device=dev)
+    X = X[1:] if special == "misaligned" else X[:-1]
+    return costs, X.view(K, TC // 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam", [LAM_AR, 0.3])
+@pytest.mark.parametrize("case", list(CARRY_PASS_CASES))
+def test_block_pass_carry_matches_plain_and_the_unstaged_build(cuda_device, earlier_passes,
+                                                              case, lam):
+    """The tiled carry pass against block_carries_ordered and the earlier
+    block_carry_kernel, bit for bit (NaN where they are NaN); one launch of
+    each."""
+    smoke, libs, _ = earlier_passes
+    K, TC, special = CARRY_PASS_CASES[case]
+    costs, X = _pass_inputs(K, TC, special, cuda_device)
+    want = fr.block_carries_ordered(costs, X, fr._f32(lam))
+    fr.reset_launch_counts()
+    got = [fr._block_carries(costs, X, lam)]
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fr.launch_counts.items() if v} == {"block_carry_tiled_kernel": 1}
+    with smoke.swapped(libs):
+        assert fr.pass_kernel_name("block_carry") == "block_carry_kernel"
+        got.append(fr._block_carries(costs, X, lam))
+    torch.cuda.synchronize()
+    assert fr.launch_counts["block_carry_kernel"] == 1
+    for i, a in enumerate(got):
+        assert _same(a, want), i
+    assert bool(want.isnan().any()) == (special == "nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("special", ["", "nan"])
+@pytest.mark.parametrize("K", [1920, 1901, 8192, 65, 64, 1])
+def test_block_pass_min_matches_plain_and_the_unstaged_build(cuda_device, earlier_passes, K,
+                                                            special):
+    smoke, libs, _ = earlier_passes
+    costs, _ = _pass_inputs(K, 2, special, cuda_device)
+    want = fr.block_minima_plain(costs)
+    fr.reset_launch_counts()
+    got = fr._block_minima(costs)
+    with smoke.swapped(libs):
+        one = fr._block_minima(costs)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fr.launch_counts.items() if v} == {
+        "block_min_warp_kernel": 1, "block_min_kernel": 1}
+    assert _same(got, want) and _same(one, want)
+    assert bool(got.isnan().any()) == (special == "nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_,C_,T_", [(4, 2, 50), (4, 2, 48), (4, 1, 100), (7, 2, 150),
+                                      (7, 2, 1024), (4, 1, 1024), (7, 2, 31), (4, 2, 2)])
+def test_riccati_backward_warp_matches_plain_and_the_one_thread_build(cuda_device,
+                                                                      earlier_passes, S_, C_,
+                                                                      T_):
+    """B6 over a warp against riccati_backward_plain and the one-thread
+    kernel bit for bit: the gains and the feedforward terms, at the
+    linearisations' sizes and at the longest horizon the kernels take
+    (T = 1024: 64 KB of gains in shared memory at (7, 2))."""
+    smoke, _, ric = earlier_passes
+    rng = np.random.default_rng(S_ * 100 + C_ * 10 + T_)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    back = (f(np.eye(S_) + 0.05 * rng.normal(size=(T_, S_, S_))),
+            f(0.1 * rng.normal(size=(T_, S_, C_))), f(rng.normal(size=(T_, S_))),
+            f(rng.normal(size=(T_, C_))), f(np.diag(rng.uniform(0.5, 2.0, S_))),
+            f(np.diag(rng.uniform(0.5, 2.0, C_))), f(3 * np.eye(S_) + 0.1), f(rng.normal(size=S_)))
+    riccati.reset_launch_counts()
+    kK, kk = riccati.riccati_backward(*back, DT)
+    with smoke.swapped(ladder=ric):
+        assert riccati.backward_kernel_name() == "riccati_backward_kernel"
+        oK, ok = riccati.riccati_backward(*back, DT)
+    pK, pk = riccati.riccati_backward_plain(*back[:4], back[4] * DT, back[5] * DT, back[6],
+                                            back[7], DT, 1e-6)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in riccati.launch_counts.items() if v} == {
+        "riccati_backward_warp_kernel": 1, "riccati_backward_kernel": 1}
+    assert torch.isfinite(pK).all() and pK.abs().max() > 0
+    for a, b, c in ((kK, oK, pK), (kk, ok, pk)):
+        assert torch.equal(a, c) and torch.equal(b, c)

@@ -217,6 +217,19 @@ def test_warp_recursion_lanes_match_the_plain_recursion(S, C, T):
     assert torch.equal(lk, pk)
 
 
+def test_warp_recursion_lanes_match_the_plain_recursion_at_the_longest_horizon():
+    """The recursion at the most steps the kernels take (T = 1024,
+    ``riccati.supported``) at AutoRally's (7, 2): the horizon at which B6's
+    warp form keeps 64 KB of gains in shared memory."""
+    S, C, T = 7, 2, 1024
+    args = _linearisation(S, C, T, seed=10 * S + C + T)
+    pK, pk = riccati.riccati_backward_plain(*args, torch.tensor(DT), 1e-6)
+    lK, lk = backward_pass_lanes(*args, DT, 1e-6)
+    assert torch.isfinite(pK).all() and pK.abs().max() > 0
+    assert torch.equal(lK, pK)
+    assert torch.equal(lk, pk)
+
+
 def lane_iters(n):
     """csrc/riccati_kernels.cuh lane_iters: a segment's entries a lane."""
     return -(-n // LANES)

@@ -80,7 +80,9 @@ def test_riccati_backward_plain_matches_pallas(S_, C_, T_):
     _close(tK, jK, rtol=1e-5, atol=1e-6)
     _close(tk, jk, rtol=1e-5, atol=1e-6)
     assert not tK[-1].any() and not tk[-1].any()
-    assert riccati.launch_counts["riccati_backward_kernel"] == 0  # CPU: no launch
+    # CPU: no launch
+    assert riccati.launch_counts["riccati_backward_kernel"] == 0
+    assert riccati.launch_counts["riccati_backward_warp_kernel"] == 0
 
 
 def _ladder_inputs(seed, ranges):

@@ -11,10 +11,13 @@ pure-noise tail); lanes with t >= T make nothing and keep the last chunk's
 values. Step t takes lane t mod 32's controls and term by shuffles, and
 every lane adds cost = running + lr_t into acc, one step at a time: J =
 (acc + terminal) / T. With one x0 per sample each lane reads row k of x0.
-The epilogue rows stay rows of 64 samples, written after the warp kernel:
-``block_carry_kernel`` over (64-sample block, 64-column tile) for the exp
-carry, ``block_min_kernel`` for Tsallis pass 1 (``write_block_min``: a
-halving tree of ``nan_min``, 1e30 past K).
+The epilogue rows stay rows of 64 samples, written after the warp kernel
+by the passes of ``csrc/block_pass.cuh``: the carry pass for the exp carry,
+the minima pass for Tsallis pass 1 (1e30 past K). ``carry_pass`` and
+``min_pass`` below follow the earlier form of those passes,
+``block_carry_kernel`` over (64-sample block, 64-column tile) and
+``block_min_kernel`` (``write_block_min``: a halving tree of ``nan_min``);
+``tests/test_torch_block_pass.py`` follows the tiled and warp forms.
 
 ``warp_rollout`` mirrors that index map and those float32 operations (the
 network step and the costs through the model's plain step, whose warp form
@@ -159,10 +162,11 @@ def _tree(v, op):
 
 
 def carry_pass(costs, X, lam, block=fr.BLOCK):
-    """block_carry_kernel over (64-sample block, 64-column tile): s = -J /
-    lam (-1e30 past K), m_b and d_b by the halving trees, w = exp(s - m_b),
-    then each tile's columns summed over the block's valid samples left to
-    right; (nb, 2 + TC) in the kernel's row layout."""
+    """The earlier block_carry_kernel over (64-sample block, 64-column
+    tile): s = -J / lam (-1e30 past K), m_b and d_b by the halving trees,
+    w = exp(s - m_b), then each tile's columns summed over the block's
+    valid samples left to right; (nb, 2 + TC) in the kernel's row
+    layout."""
     K_, T, C = X.shape
     TC = T * C
     nb = -(-K_ // block)
@@ -194,8 +198,8 @@ def _nan_min(a, b):
 
 
 def min_pass(costs, block=fr.BLOCK):
-    """block_min_kernel: per block of 64, the halving tree of nan_min over
-    the valid costs and 1e30 past K."""
+    """The earlier block_min_kernel: per block of 64, the halving tree of
+    nan_min over the valid costs and 1e30 past K."""
     K_ = costs.shape[0]
     nb = -(-K_ // block)
     v = torch.full((nb * block,), fr._MIN_PAD)
@@ -270,8 +274,8 @@ def test_passes_cover_partial_blocks(K_):
 # epilogue pass, 2 the staged form, 0 the one-thread kernel
 ROLLOUT_FORM_LAUNCHES = {
     (1, fr.EPI_NONE): {"rollout_costs_warp_kernel": 1},
-    (1, fr.EPI_EXP): {"rollout_costs_warp_kernel": 1, "block_carry_kernel": 1},
-    (1, fr.EPI_MIN): {"rollout_costs_warp_kernel": 1, "block_min_kernel": 1},
+    (1, fr.EPI_EXP): {"rollout_costs_warp_kernel": 1, "block_carry_tiled_kernel": 1},
+    (1, fr.EPI_MIN): {"rollout_costs_warp_kernel": 1, "block_min_warp_kernel": 1},
     (2, fr.EPI_EXP): {"rollout_costs_staged_kernel": 1},
     (0, fr.EPI_MIN): {"rollout_costs_kernel": 1},
 }
@@ -281,8 +285,8 @@ ROLLOUT_FORM_LAUNCHES = {
 @pytest.mark.parametrize("form,epilogue", list(ROLLOUT_FORM_LAUNCHES))
 def test_rollout_wrapper_counts_the_warp_forms_pass(stub_form, form, epilogue, x0_rows):
     """The wrapper counts the kernel its entry reports and, after the warp
-    form's launch, the epilogue pass (block_carry_kernel, block_min_kernel)
-    under its own name."""
+    form's launch, the epilogue pass (block_carry_tiled_kernel,
+    block_min_warp_kernel) under its own name."""
     stub_form(form)
     dyn, cost, x0 = _model("ar_nn")
     x0 = x0.expand(x0_rows, -1).contiguous() if x0_rows else x0

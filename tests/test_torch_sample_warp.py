@@ -17,7 +17,7 @@ not enter the index map; the kernels are held against the plain versions on
 the card (``tests/test_torch_cuda_kernels.py``, ``-k warp``).
 
 Also: the Smooth epilogue's carry rows (the function of the warp form's
-``block_carry_kernel``) on the CPU path, the C signatures that declare each
+carry pass, ``block_carry_tiled_kernel``) on the CPU path, the C signatures that declare each
 B4 and B8 entry's ``<entry>_form``, and the launch counters of the B4 and
 B8 wrappers following the form a (stubbed) library reports.
 """
@@ -208,14 +208,15 @@ def test_every_sample_and_rmppi_entry_declares_its_form():
 class _StubLibrary:
     """A kernel library whose entries accept anything and return 0 (the
     launch accepted) and whose ``<entry>_form()`` returns ``form``; the
-    merge's ``flash_combine_form()`` returns 4, the tiled merge of the
-    port's build, and a ``*_block_size()`` the port's 64 samples."""
+    merge's ``flash_combine_form()`` and ``block_pass_form()`` return 4,
+    the tiled merge and the tiled carry and warp minima passes of the port's
+    build, and a ``*_block_size()`` the port's 64 samples."""
 
     def __init__(self, form):
         self.form = form
 
     def __getattr__(self, name):
-        if name == "flash_combine_form":
+        if name in ("flash_combine_form", "block_pass_form"):
             return lambda: 4
         if name.endswith("_block_size"):
             return lambda: fr.BLOCK
@@ -249,7 +250,7 @@ def _autorally():
 # merge): 0 one thread, 1 warp, 2 staged
 SAMPLE_FORM_LAUNCHES = {
     0: {"fused_sample_rollout_kernel": 1},
-    1: {"fused_sample_rollout_warp_kernel": 1, "block_carry_kernel": 1},
+    1: {"fused_sample_rollout_warp_kernel": 1, "block_carry_tiled_kernel": 1},
     2: {"fused_sample_rollout_staged_kernel": 1},
 }
 

@@ -11,8 +11,8 @@ pure-noise tail, the clamp, the U row and the step's C LR terms lrc mu (mu -
 and terms by shuffles, and every lane adds the terms one by one, in (t, c)
 order, into the LR sum kept apart: J = (acc + terminal + gain lr) / T. The
 carry rows (m_b, d_b, num_b) over U stay rows of 64 samples, written after
-the warp kernel by ``block_carry_kernel`` (``write_block_carry``'s order,
-``fr.block_carries_ordered``).
+the warp kernel by the carry pass (``csrc/block_pass.cuh``;
+``write_block_carry``'s order, ``fr.block_carries_ordered``).
 
 ``solve_prologue`` mirrors that index map and the kernel's float32
 operations from ``ops/philox.py``'s Philox, and the tests hold it bit for bit

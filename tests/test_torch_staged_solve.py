@@ -320,7 +320,7 @@ def test_every_solve_and_rollout_entry_declares_its_form():
     assert declared["rollout_x0"] == {"di_circle", "di_robust", "ar_nn", "bicycle_ar"}
     assert declared["rollout"] == set(fr._PAIRS.values()) - {"di_robust"}
     assert {"rollout_costs_staged_kernel", "fused_solve_staged_kernel",
-            "fused_solve_warp_kernel", "block_carry_kernel"} <= set(_build.launch_counts)
+            "fused_solve_warp_kernel", "block_carry_tiled_kernel"} <= set(_build.launch_counts)
 
 
 FORM_NAMES = {0: "_kernel", 2: "_staged_kernel"}
@@ -328,7 +328,7 @@ FORM_NAMES = {0: "_kernel", 2: "_staged_kernel"}
 # warp form and its carry pass, 2 staged
 SOLVE_FORM_LAUNCHES = {
     0: {"fused_solve_kernel": 1},
-    1: {"fused_solve_warp_kernel": 1, "block_carry_kernel": 1},
+    1: {"fused_solve_warp_kernel": 1, "block_carry_tiled_kernel": 1},
     2: {"fused_solve_staged_kernel": 1},
 }
 
