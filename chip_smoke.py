@@ -108,7 +108,19 @@ split on the DI robust cost with its band bar and on AutoRally). The
 earlier phases pass ``split_cost=False``, so they keep the combined kernels
 on their paths (AUTO splits only where ``ops/fused_rollout.AUTO_SPLIT``
 says so: B1 of AutoRally, racer steering and the bicycle, AutoRally's B1
-from one x0 per sample, racer steering's B3). Each phase prints one JSON
+from one x0 per sample, racer steering's B3). Then the robust family
+finished (``finish_kernels``): the later pairs' entries (the cartpole, the
+quadrotor with either cost, the Dubins car and the DI with QuadraticCost,
+the bicycle, the racer LSTM models: B1 from one x0 per sample, its split
+dynamics pass, B8 but for the racers), the DI robust cost's B1 from one x0
+and its split dynamics passes, the DI circle cost's split pass from one x0
+per sample and the Dubins ladder, each against its plain version at its
+loop's shape; their loops (``finish_loops``: RMPPI on each later pair but
+the racer uncertainty model, stage 1 combined then forced split; Tube and
+the split ``fused`` and ``fused_solve`` on the DI robust cost; the bench
+RMPPI row with ``split_cost=True``; Tube and RMPPI with Smooth-MPPI; RMPPI
+with BoxQP) and CCM's law and BoxQP's gains against their CPU runs
+(``ccm_boxqp``). Each phase prints one JSON
 line;
 ``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
@@ -157,6 +169,7 @@ from mppi_generic_tpu_torch.costs import (
     QuadrotorMapCost,
     QuadrotorQuadraticCost,
 )
+from mppi_generic_tpu_torch.feedback import CCMFeedback
 from mppi_generic_tpu_torch.feedback.ilqr import _alpha_ladder, linearize
 from mppi_generic_tpu_torch.maps import MapTexture2D
 from mppi_generic_tpu_torch.nn import FNN
@@ -234,7 +247,9 @@ AR_FUSED_LOOP_STEPS = 10
 AR_TSALLIS_FUSED_STEPS = 5
 # the bench row's fused-solve loop (100 steps until B3's warp form and the
 # tiled B5 joined the run, cut for time)
-AR_LOOP_STEPS = 30  # 50 until B1's warp form joined the run, cut for time
+# (50 until B1's warp form joined the run, 30 until the robust family's
+# finished entries joined it; cut for time, no bar)
+AR_LOOP_STEPS = 20
 # an AutoRally plain version takes seconds: one timed run after its warm-up
 # keeps the script well inside its time limit (these times are yardsticks)
 N_TIMED_PLAIN_AR = 1
@@ -263,7 +278,9 @@ COLORED_STD, COLORED_EXPONENTS = [1.0, 1.0], [1.0, 2.0]
 GAMMA, R_TS = 10.0, 2.0
 GAMMA_SMALL, R_SMALL = 1.0, 2.4
 K_BI, K_BI_RAGGED, T_BI, S_BI = 1920, 1900, 100, 10
-BICYCLE_LOOP_STEPS = 15  # the bicycle rows' loops (about 150 ms a step)
+# the bicycle rows' loops (about 150 ms a step; 15 until the robust
+# family's finished entries joined the run, cut for time, no bar)
+BICYCLE_LOOP_STEPS = 10
 BI_STD, BI_EXPONENTS = [0.3, 0.5], [1.0, 1.0]
 BI_OUTPUT_INDICES = (0, 1, 2, 8, 5, 6)
 # The bicycle step per sample-step (csrc/bicycle_slip.cuh): the lags and
@@ -1084,8 +1101,8 @@ def robust_loop_phase(kind):
     n = CLOSED_LOOP_STEPS
     if kind == "rmppi":
         # stage 1 of the first step has no nominal system to evaluate yet
-        want = {b1_kernel("di_circle", x0=True): n - 1, split_name("di_circle", "rmppi"): n,
-                LADDER: n}
+        want = {**stage1_launches(ctrl, "di_circle", n - 1),
+                split_name("di_circle", "rmppi"): n, LADDER: n}
     else:
         want = {b1_kernel("di_circle"): 2 * n, MERGE: 2 * n,
                 LADDER: n}
@@ -1095,6 +1112,18 @@ def robust_loop_phase(kind):
     if kind == "rmppi":
         rmppi_breakdown(ctrl, cs, x)
     return launches
+
+
+def stage1_launches(ctrl, pair, k):
+    """The launches of k evaluations of RMPPI's candidates by ``ctrl``: B1
+    from one x0 per sample, or its split form (the dynamics pass and the
+    cost pass) where the controller's split_cost takes it (AUTO:
+    ``fr.AUTO_SPLIT``)."""
+    if not fr.resolve_split(ctrl.dynamics, ctrl.cost, ctrl.split_cost, "rollout_x0"):
+        return {b1_kernel(pair, x0=True): k}
+    return {split_name(pair, "split_dynamics_x0"): k,
+            cost_kernel(pair, ctrl.num_candidates * ctrl.samples_per_condition,
+                        ctrl.num_timesteps): k}
 
 
 def band_check(path, X):
@@ -2632,16 +2661,20 @@ def build_rmppi_di_robust(kernel, split_cost=False):
                       kernel=kernel, split_cost=split_cost)
 
 
-def ladder_problem(dyn, x0, T_, seed):
-    """ilqr_tracking's first iteration of a model: u_init from a seed, xs
-    rolled from x0, a noisy goal, Q, R and Q_f the identity (DDPFeedback's
-    defaults). Returns the ladder's arguments."""
+def ladder_problem(dyn, x0, T_, seed, u_offset=None):
+    """ilqr_tracking's first iteration of a model: u_init from a seed (plus
+    ``u_offset`` per channel where given), xs rolled from x0, a noisy goal,
+    Q, R and Q_f the identity (DDPFeedback's defaults). Returns the
+    ladder's arguments."""
     dev = x0.device
     g = torch.Generator(device=dev).manual_seed(seed)
     S_, C_ = dyn.STATE_DIM, dyn.CONTROL_DIM
     lo = torch.nan_to_num(dyn.control_ranges[:, 0], neginf=-1e30).contiguous()
     hi = torch.nan_to_num(dyn.control_ranges[:, 1], posinf=1e30).contiguous()
-    us = torch.clamp(0.3 * torch.randn((T_, C_), generator=g, device=dev), lo, hi)
+    us = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
+    if u_offset is not None:
+        us = us + torch.tensor(u_offset, device=dev)
+    us = torch.clamp(us, lo, hi)
     xs = [x0]
     for t in range(T_ - 1):
         xs.append(xs[-1] + dyn.state_deriv(xs[-1], us[t]) * DT)
@@ -2944,10 +2977,12 @@ def robust_reference_ar_phase(dev):
          checks=checks, no_host_sync=["rmppi fused", "tube fused_solve"])
 
 
-def robust_family_loop(path, ctrl, x0, steps, want, *, disturb=None, profile=1, **labels):
+def robust_family_loop(path, ctrl, x0, steps, want, *, disturb=None, profile=1,
+                       split_from=None, **labels):
     """``steps`` closed-loop steps of a robust controller from ``x0``:
     stage 1 (RMPPI), slide, solve, the plant (the controller's model) with
-    the real system's first control, plus ``disturb[i]`` where given. Then a
+    the real system's first control, plus ``disturb[i]`` where given; from
+    step ``split_from`` on the controller runs with split_cost=True. Then a
     profiler window of ``profile`` steps from the last state. Nothing inside
     the loop waits on the device. Fails unless the kernels launched as
     ``want`` says and every state, cost and gain is finite. Returns
@@ -2964,6 +2999,8 @@ def robust_family_loop(path, ctrl, x0, steps, want, *, disturb=None, profile=1, 
     fr.reset_launch_counts()
     t0 = time.perf_counter()
     for i in range(steps):
+        if i == split_from:
+            ctrl.split_cost = True
         ev[i][0].record()
         if rmppi:
             cs, _ = ctrl.update_importance_sampling(x, cs, 1)
@@ -3552,7 +3589,7 @@ SPLIT_PAIRS = ("cartpole", "quadrotor_quadratic", "di_quadratic", "dubins_quadra
 MAP_PAIRS = ("ar_nn", "bicycle_ar", "racer_steering_ar")  # on the partly-crashing map too
 # the new entries' loops on the cheap pairs (20 until B1's warp form joined
 # the run, cut for time)
-PAIR_LOOP_STEPS = 10
+PAIR_LOOP_STEPS = 6  # 10 until the robust family's finished entries joined
 # the racer models' (about 10^5 eager launches per step; 3 until cut for time)
 PAIR_LOOP_STEPS_HEAVY = 2
 SPLIT_LOOP_STEPS = 5  # the forced-split loops that put each split entry on a path
@@ -3813,9 +3850,13 @@ def split_x0_phase(dev, pair, map_kind=None, timed=False):
 # each library reports (fr.form_kernel_name).
 # ---------------------------------------------------------------------------
 WARP_PAIRS = ("ar_nn", "racer_steering_ar", "racer_unc_ar")
+# (the robust family's sources of the later pairs, csrc/robust_<pair>.cu,
+# have no earlier form to time: their entries were new in the slice that
+# redesigned nothing, and they stay out of the variant builds)
 WARP_SOURCES = tuple(sorted({_build.pair_entry(p, k)[0] for p in WARP_PAIRS
                              for k in ("split_dynamics", "split_dynamics_x0")
-                             if _build.pair_entry(p, k) is not None}))
+                             if _build.pair_entry(p, k) is not None}
+                            - {f"robust_{p}" for p in WARP_PAIRS}))
 # the pairs whose B1 split dynamics pass runs the lane-group form
 # (csrc/split_lanes.cuh); -DMPPI_SPLIT_ONE_THREAD builds their one-thread
 # pass beside the warp pairs'
@@ -3830,7 +3871,9 @@ SPLIT_KINDS = ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0")
 SPLIT_ONE_THREAD_SOURCES = tuple(sorted(
     set(WARP_SOURCES + LANES_SOURCES) | {_build.pair_entry(p, k)[0] for p in SPLIT_STAGED_PAIRS
                                           for k in SPLIT_KINDS
-                                          if _build.pair_entry(p, k) is not None}))
+                                          if _build.pair_entry(p, k) is not None
+                                          and not _build.pair_entry(p, k)[0].startswith(
+                                              "robust_")}))
 ONE_THREAD = {}  # {source: the loaded one-thread build}, from build_one_thread
 # The one-thread rows of PERF.md §6 that the warp forms of B4 and B8 replace
 # (no one-thread build of them is kept, so their times are not measured
@@ -4014,6 +4057,10 @@ STAGED_SOURCES = tuple(sorted({_build.pair_entry(p, "sample")[0] for p in STAGED
 # (csrc/rmppi_staged.cuh); -DMPPI_RMPPI_ONE_THREAD builds the one-thread
 # kernel beside the one-thread B4, B3 and B1
 B8_STAGED_PAIRS = ("di_circle", "di_robust")
+# the pairs without the warp form whose B8 launches its one-thread form
+# (rmppi_form): a sticky crash (the AutoRally costs on the bicycle), or two
+# stages past 227 KB of shared memory (the quadrotor's 13 states, 4 controls)
+ONE_THREAD_B8_PAIRS = ("bicycle_ar", "quadrotor_quadratic", "quadrotor_map")
 B8_SOURCE = "rmppi_rollout"
 LADDER_ONE_THREAD = {}  # {"riccati": the loaded one-thread ladder build}
 SAMPLE_ONE_THREAD = {}  # {source: the loaded one-thread B4, B3, B1 and B8 build}
@@ -4164,12 +4211,18 @@ def earlier_form(pair, kind):
     the staged pairs, B3 and B1 (one x0 and one per sample) of the network
     pairs, the staged split dynamics passes (the lane-group pass is timed
     apart: ``turns``)."""
-    if pair in STAGED_PAIRS and kind in ("sample", "solve", "rollout"):
+    entry = _build.pair_entry(pair, kind)
+    if entry is None:
+        return None
+    if (pair in STAGED_PAIRS and kind in ("sample", "solve", "rollout")
+            and entry[0] in STAGED_SOURCES):
         return one_thread_sample
     if (pair in SPLIT_STAGED_PAIRS and kind in SPLIT_KINDS
-            and not (pair in LANES_PAIRS and kind == "split_dynamics")):
+            and not (pair in LANES_PAIRS and kind == "split_dynamics")
+            and entry[0] in SPLIT_ONE_THREAD_SOURCES):
         return one_thread_split
-    if pair in WARP_PAIRS and kind in ("solve", "rollout", "rollout_x0"):
+    if (pair in WARP_PAIRS and kind in ("solve", "rollout", "rollout_x0")
+            and entry[0] in WARP_SOLVE_SOURCES):
         return one_thread_solve
     return None
 
@@ -4194,6 +4247,10 @@ def check_forms():
     for pair in WARP_PAIRS:
         for kind in ("split_dynamics", "split_solve_dynamics", "split_dynamics_x0"):
             if _build.pair_entry(pair, kind) is None:
+                continue
+            if _build.pair_entry(pair, kind)[0] not in SPLIT_ONE_THREAD_SOURCES:
+                if not split_name(pair, kind).endswith("_warp_kernel"):
+                    raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}")
                 continue
             warp, one = split_name(pair, kind), None
             with one_thread_split():
@@ -4221,6 +4278,8 @@ def check_forms():
             if _build.pair_entry(pair, kind) is None:
                 continue
             want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_staged_kernel"
+            if kind == "rmppi" and pair in ONE_THREAD_B8_PAIRS:
+                want = f"{base}_kernel"  # B8's one-thread form
             if split_name(pair, kind) != want:
                 raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
                                      f"expected {want}")
@@ -4240,7 +4299,7 @@ def check_forms():
                                      f"expected {want}")
     for pair in WARP_PAIRS:
         for kind in ("solve", "rollout", "rollout_x0"):
-            if _build.pair_entry(pair, kind) is None:
+            if earlier_form(pair, kind) is None:
                 continue
             with one_thread_solve():
                 one = split_name(pair, kind)
@@ -5350,6 +5409,475 @@ def pair_loops(dev):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The robust family finished: the entries of the pairs the JAX package runs
+# in its kernels and the port refused before (B1 from one x0 per sample, its
+# split dynamics pass and B8 for the later pairs, csrc/robust_<pair>.cu; the
+# DI robust cost's B1 from one x0 and its split dynamics passes; the DI
+# circle cost's split pass from one x0 per sample; the Dubins ladder), each
+# held against its plain version at the shape its loop launches it at and
+# timed by CUDA events beside its bound; then their loops at full width:
+# RMPPI on each later pair (stage 1 on the combined kernel, then forced
+# split where the cost is eligible), Tube and vanilla on the DI robust cost,
+# the bench RMPPI row with split_cost=True, Tube and RMPPI with Smooth-MPPI,
+# RMPPI with BoxQP; and CCM's law on the card against its CPU run.
+# ---------------------------------------------------------------------------
+FINISH_PAIRS = ("cartpole", "quadrotor_quadratic", "quadrotor_map", "dubins_quadratic",
+                "di_quadratic", "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
+# each RMPPI loop's steps, and the step from which stage 1 runs split
+# (eligible costs; the first step evaluates no candidate). The racer
+# uncertainty model has no loop: DDP cannot track it in either package (its
+# state_deriv gives 9 of its 26 state components; JAX's ilqr raises on the
+# shapes too), and without DDP's gains JAX's RMPPI does not run on the
+# kernel path; its entries count their launches in finish_kernel_phase.
+FINISH_STEPS = {"cartpole": (4, 2), "dubins_quadratic": (4, 2), "quadrotor_quadratic": (3, 2),
+                "quadrotor_map": (2, None), "di_quadratic": (3, 2), "bicycle_ar": (3, 2),
+                "racer_steering_ar": (3, 2)}
+PHASE_LAUNCHES = {}  # {C entry: its launches in finish_kernel_phase}
+FINISH_LOOP_STEPS = 5  # the DI loops (Tube, vanilla split, bench RMPPI split, Smooth)
+BOXQP_STEPS = 3
+OPS_DUBINS_DERIV = 2 + 2 * OPS_TRANSCENDENTAL  # u0 cos(yaw), u0 sin(yaw)
+FINISH_DELTA = {"cartpole": [0.2, 0.1, 0.3, 0.0], "dubins_quadratic": [0.3, 0.2, 0.4],
+                "di_quadratic": [0.4, 0.2, 0.3, -0.3], "bicycle_ar": [0.2, 0.1, 0.05],
+                "quadrotor_quadratic": [0.2, 0.1, -0.1], "quadrotor_map": [0.2, 0.1, -0.1],
+                "racer_steering_ar": [0.2, 0.1, 0.05], "racer_unc_ar": [0.2, 0.1, 0.05]}
+
+
+def finish_parts(pair, dev=None):
+    """(dynamics, cost, x0, std, mean offset, K, T) of a later pair's RMPPI
+    configuration: the zoo pairs at the zoo's K and T (the cartpole's is
+    cartpole_example_K8192's), the bicycle and the racers at their rows'."""
+    if pair == "bicycle_ar":
+        dyn, cost = bicycle_parts(dev or "cuda")
+        return dyn, cost, torch.zeros(S_BI, device=dev or "cuda"), BI_STD, 0.0, K_BI, T_BI
+    dyn, cost, x0, std, offset, _ = zoo_parts(pair, dev)
+    if pair == "cartpole":
+        std = CART_STD
+    K_ = K_RC if pair in RACER_PAIRS else K_ZOO
+    return dyn, cost, x0, std, offset, K_, T_RACER.get(pair, T_ZOO)
+
+
+def finish_candidates(pair, x0, s_per=S_PER):
+    """RMPPI's stage-1 layout: N_CAND candidates on a segment from x0, each
+    repeated for its s_per samples, (N_CAND s_per, S)."""
+    d = torch.zeros_like(x0)
+    delta = torch.tensor(FINISH_DELTA.get(pair, [0.3, 0.1, 0.2, -0.2]), device=x0.device)
+    d[:delta.shape[0]] = delta
+    w = torch.linspace(0.0, 1.0, N_CAND, device=x0.device)[:, None]
+    return (x0[None] + w * d[None]).repeat_interleave(s_per, dim=0).contiguous()
+
+
+def finish_kernel_phase(dev):
+    """Every new entry against its plain version at the shape its loop
+    launches it at: B1 from one x0 per sample (9 x 256 candidates' samples,
+    the pair's T), its split dynamics pass (Y and the split form's costs),
+    B8 (the loop's K and T, the DDP gains of the configuration) for each
+    later pair; the DI robust cost's B1 from one x0 (exp epilogue + LR, its
+    carry rows and merge), its split dynamics pass (the split form with the
+    epilogue) and B3's split dynamics pass (U and the carry rows) at K=8192,
+    T=100; the DI circle cost's split pass from one x0 per sample at the
+    bench RMPPI row's 9 x 256 x 50; the Dubins ladder at T=100 from a yaw of
+    3.0, past pi. U, Y, costs, crash flags, U_real, gains and the ladder's
+    outputs to the last bit (TOL "bitwise"; the ladder's at TOL "exact"),
+    carries and merges at their tolerances. Times by CUDA events, the plain
+    versions' after one warm-up (the racers' one run), bounds from the .cuh
+    operation counts; each new split dynamics entry's whole split form also
+    A B B A against the combined kernel on the same inputs (``abba``, the
+    measurement ``fr.AUTO_SPLIT`` reads). Returns ({entry: checks}, {entry:
+    times})."""
+    g = torch.Generator(device=dev).manual_seed(171)
+    checks, times = {}, {}
+
+    def timing(fn, kernel, plain, work, pair=None):
+        t = {"ms": time_ms(kernel, N_TIMED), "plain_ms": time_plain(plain, pair),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = bound_ms(*work)
+        times[fn] = t
+
+    for pair in FINISH_PAIRS:
+        fr.reset_launch_counts()
+        dyn, cost, x0, std, offset, K_, T_ = finish_parts(pair, dev)
+        S_, C_ = dyn.STATE_DIM, dyn.CONTROL_DIM
+        step_ops, cost_ops = PAIR_OPS[pair]
+        sigma = torch.tensor([std], device=dev).expand(T_, C_).contiguous()
+        mean = 0.2 * torch.randn((T_, C_), generator=g, device=dev)
+        mean[:, -1] += offset
+        X0c = finish_candidates(pair, x0)
+        Kx = X0c.shape[0]
+        Ux = mean + sigma * torch.randn((Kx, T_, C_), generator=g, device=dev)
+        Ux = dyn.enforce_constraints(None, Ux.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+        if pair != "bicycle_ar":  # its B1 from one x0 per sample: robust_kernels
+            fn = f"rollout_costs_x0_{pair}"
+            kc, kcrash = fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=False)
+            pc, pcrash = fr.rollout_costs_plain(dyn, cost, X0c, Ux, DT)
+            torch.cuda.synchronize()
+            same(f"{fn} crash flags", kcrash, pcrash)
+            checks[fn] = [check(f"{fn} costs", kc, pc, "bitwise")]
+            n_bytes, n_ops = zoo_rollout_work(dyn, cost, step_ops + cost_ops, Kx, T_, "costs")
+            timing(fn, lambda: fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=False),
+                   lambda: fr.rollout_costs_plain(dyn, cost, X0c, Ux, DT),
+                   (n_bytes + 4 * (Kx - 1) * S_, n_ops), pair)
+        if _build.pair_entry(pair, "split_dynamics_x0") is not None:
+            fn = f"split_dynamics_x0_{pair}"
+            kY = fr.split_dynamics_cuda(dyn, cost, X0c, Ux, DT)
+            pY = fr.split_outputs_plain(dyn, X0c, Ux, DT).permute(1, 2, 0)
+            kc, kcrash = fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=True)
+            pc, pcrash = fr.split_rollout_plain(dyn, cost, X0c, Ux, DT)
+            torch.cuda.synchronize()
+            same(f"{fn} split crash flags", kcrash, pcrash)
+            checks[fn] = [check(f"{fn} Y", kY, pY, "bitwise"),
+                          check(f"{fn} split costs", kc, pc, "bitwise")]
+            timing(fn, lambda: fr.split_dynamics_cuda(dyn, cost, X0c, Ux, DT),
+                   lambda: fr.split_outputs_plain(dyn, X0c, Ux, DT),
+                   split_pass_work(pair, dyn, cost, Kx, T_, "dynamics", x0_rows=Kx), pair)
+            # the whole split form against the combined kernel, for AUTO_SPLIT
+            times[fn]["split_form"] = abba(
+                lambda: fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=False),
+                lambda: fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=True))
+        if _build.pair_entry(pair, "rmppi") is not None:
+            fn = f"rmppi_rollout_{pair}"
+            x_real = X0c[-1]  # the far candidate: the feedback acts
+            traj = rollout_single(dyn, x0, mean, DT)[0][:-1]
+            gains = DDPFeedback.create(dyn, DT).compute_feedback(x_real, traj, mean).gains
+            U = (mean + sigma * torch.randn((K_, T_, C_), generator=g, device=dev)).contiguous()
+            coeff = torch.full((C_,), 0.5, device=dev)
+            args = (dyn, cost, x0, x_real, U, gains, sigma, coeff, DT, LAM, ALPHA)
+            kout = fr.fused_rmppi_rollout(*args)
+            pout = fr.rmppi_rollout_plain(*args)
+            torch.cuda.synchronize()
+            same(f"{fn} crash flags", kout[3], pout[3])
+            checks[fn] = [check(f"{fn} {n}", a, b, "bitwise")
+                          for n, a, b in zip(("s_nom", "j_real", "s_fb", "U_real"),
+                                             (*kout[:3], kout[4]), (*pout[:3], pout[4]))]
+            n_bytes = zoo_fixed_bytes(dyn, cost) + 4 * (
+                2 * K_ * T_ * C_ + 4 * K_ + T_ * C_ * (S_ + 1) + C_ + 2 * S_)
+            timing(fn, lambda: fr.fused_rmppi_rollout(*args),
+                   lambda: fr.rmppi_rollout_plain(*args),
+                   (n_bytes, K_ * T_ * rmppi_ops(S_, C_, step_ops, cost_ops) + 3 * K_), pair)
+        PHASE_LAUNCHES.update(fr.entry_counts)
+        emit("finish_kernels", pair=pair, K=K_, T=T_, K_x0=Kx,
+             checks=[c for fn, cs in checks.items() if fn.endswith(pair) for c in cs],
+             times={fn: t for fn, t in times.items() if fn.endswith(pair)})
+
+    # the DI robust cost from one x0 at the flagship's K and T
+    ddyn, dcost = DoubleIntegratorDynamics.create(device=dev), DoubleIntegratorRobustCost(device=dev)
+    x0 = torch.tensor(X0_RDI, device=dev)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=dev)
+    sigma = torch.ones((T, C), device=dev)
+    U = (mean + torch.randn((K_MAIN, T, C), generator=g, device=dev)).contiguous()
+    U = ddyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lrp = (mean, sigma, torch.full((C,), 0.01, device=dev), LAM, ALPHA,
+           float(np.float32(K_MAIN)))
+    fn = "rollout_costs_di_robust"
+    kc, kcrash, kcarry = fr.rollout_block_carries(ddyn, dcost, x0, U, DT, LAM, lrp,
+                                                  split_cost=False)
+    pc, pcrash = fr.rollout_costs_plain(ddyn, dcost, x0, U, DT, lrp)
+    torch.cuda.synchronize()
+    same(f"{fn} crash flags", kcrash, pcrash)
+    checks[fn] = [check(f"{fn} costs", kc, pc, "bitwise")] + merge_checks(
+        fn, kcarry, fr.block_carries_plain(pc, U, LAM), pc, U, T, C)
+    n_bytes, n_ops = zoo_rollout_work(ddyn, dcost, OPS_STEP + OPS_DI_ROBUST_COST, K_MAIN, T,
+                                      "epilogue+lr")
+    timing(fn, lambda: fr.rollout_block_carries(ddyn, dcost, x0, U, DT, LAM, lrp,
+                                                split_cost=False),
+           lambda: fr.rollout_costs_plain(ddyn, dcost, x0, U, DT, lrp), (n_bytes, n_ops))
+    fn = "split_dynamics_di_robust"
+    kY = fr.split_dynamics_cuda(ddyn, dcost, x0, U, DT)
+    pY = fr.split_outputs_plain(ddyn, x0, U, DT).permute(1, 2, 0)
+    kc, kcrash, kcarry = fr.rollout_block_carries(ddyn, dcost, x0, U, DT, LAM, lrp,
+                                                  split_cost=True)
+    pc, pcrash = fr.split_rollout_plain(ddyn, dcost, x0, U, DT, lrp)
+    torch.cuda.synchronize()
+    same(f"{fn} split crash flags", kcrash, pcrash)
+    checks[fn] = [check(f"{fn} Y", kY, pY, "bitwise"),
+                  check(f"{fn} split costs", kc, pc, "bitwise")] + merge_checks(
+        f"{fn} split", kcarry, fr.block_carries_plain(pc, U, LAM), pc, U, T, C)
+    timing(fn, lambda: fr.split_dynamics_cuda(ddyn, dcost, x0, U, DT),
+           lambda: fr.split_outputs_plain(ddyn, x0, U, DT),
+           split_pass_work("di_robust", ddyn, dcost, K_MAIN, T, "dynamics"))
+    times[fn]["split_form"] = abba(
+        lambda: fr.rollout_block_carries(ddyn, dcost, x0, U, DT, LAM, lrp, split_cost=False),
+        lambda: fr.rollout_block_carries(ddyn, dcost, x0, U, DT, LAM, lrp, split_cost=True))
+    fn = "split_solve_dynamics_di_robust"
+    samp = GaussianDistribution.create(std_dev=[1.0, 1.0], control_cost_coeff=[0.01, 0.01],
+                                       device=dev)
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    sargs = (ddyn, dcost, samp, x0, mean, seed_t, DT, LAM, ALPHA, K_MAIN)
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*sargs, split_cost=True)
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*sargs)
+    torch.cuda.synchronize()
+    same(f"{fn} crash flags", kcrash, pcrash)
+    checks[fn] = [check(f"{fn} U", kU, pU, "bitwise"),
+                  check(f"{fn} costs", kc, pc, "bitwise")] + merge_checks(
+        fn, kcarry, pcarry, pc, pU, T, C)
+    kind = fr.noise_kind(samp)
+    timing(fn, lambda: fused_solve.split_solve_dynamics_cuda(
+               ddyn, dcost, samp, kind, x0, mean, seed_t, DT, K_MAIN, 0, 0, None),
+           lambda: fused_solve.fused_solve_split_plain(*sargs),
+           split_pass_work("di_robust", ddyn, dcost, K_MAIN, T, "solve_dynamics"))
+    times[fn]["split_form"] = abba(
+        lambda: fused_solve.fused_solve_carries(*sargs, split_cost=False),
+        lambda: fused_solve.fused_solve_carries(*sargs, split_cost=True))
+    # the DI circle cost's split pass from one x0 per sample, the bench
+    # RMPPI row's stage 1 (9 x 256 x 50)
+    fn = "split_dynamics_x0_di_circle"
+    cdyn, ccost = DoubleIntegratorDynamics.create(device=dev), DoubleIntegratorCircleCost(device=dev)
+    X0c = finish_candidates("di_circle", torch.tensor(X0, device=dev))
+    Ux = torch.randn((X0c.shape[0], T_R, C), generator=g, device=dev).contiguous()
+    kY = fr.split_dynamics_cuda(cdyn, ccost, X0c, Ux, DT)
+    pY = fr.split_outputs_plain(cdyn, X0c, Ux, DT).permute(1, 2, 0)
+    kc, kcrash = fr.fused_rollout_costs(cdyn, ccost, X0c, Ux, DT, split_cost=True)
+    pc, pcrash = fr.split_rollout_plain(cdyn, ccost, X0c, Ux, DT)
+    torch.cuda.synchronize()
+    same(f"{fn} split crash flags", kcrash, pcrash)
+    checks[fn] = [check(f"{fn} Y", kY, pY, "bitwise"),
+                  check(f"{fn} split costs", kc, pc, "bitwise")]
+    timing(fn, lambda: fr.split_dynamics_cuda(cdyn, ccost, X0c, Ux, DT),
+           lambda: fr.split_outputs_plain(cdyn, X0c, Ux, DT),
+           split_pass_work("di_circle", cdyn, ccost, X0c.shape[0], T_R, "dynamics",
+                           x0_rows=X0c.shape[0]))
+    times[fn]["split_form"] = abba(
+        lambda: fr.fused_rollout_costs(cdyn, ccost, X0c, Ux, DT, split_cost=False),
+        lambda: fr.fused_rollout_costs(cdyn, ccost, X0c, Ux, DT, split_cost=True))
+    # the Dubins ladder: the RMPPI loop's T, the tracked yaw turning from 3.0
+    # past pi (a yaw rate about 1.2)
+    fn = "riccati_ladder_dubins"
+    args = ladder_problem(DubinsDynamics.create(device=dev),
+                          torch.tensor([0.0, 0.0, 3.0], device=dev), T_ZOO, 173,
+                          u_offset=[1.0, 1.2])
+    kout = riccati.riccati_ladder_solve(*args)
+    pout = ladder_plain(args)
+    torch.cuda.synchronize()
+    checks[fn] = [check(f"{fn} {n}", a, b, "exact")
+                  for n, a, b in zip(("gains", "feedforward", "costs", "xs_new", "us_new"),
+                                     kout, pout)]
+    if not float(kout[3][..., 2].abs().max()) > np.pi:
+        raise AssertionError(f"{fn}: no candidate's yaw passed pi")
+    timing(fn, lambda: riccati.riccati_ladder_solve(*args), lambda: ladder_plain(args),
+           ladder_work(args, OPS_DUBINS_DERIV, 0))
+    times[fn]["chain_steps"] = T_ZOO - 1
+    emit("finish_kernels", pair="di_robust, di_circle, dubins ladder",
+         checks=[c for fn, cs in checks.items() if not fn.endswith(FINISH_PAIRS) for c in cs],
+         times={fn: t for fn, t in times.items() if not fn.endswith(FINISH_PAIRS)})
+    return checks, times
+
+
+def build_rmppi_pair(pair, feedback=None):
+    """RMPPI on a later pair (finish_parts): its Gaussian std (the
+    quadrotor's without a control cost, as build_zoo), DDP feedback (Q, R,
+    Q_f the identity; on the ladder where ops.riccati takes the sizes), 9
+    candidates x 256 samples, the JAX default threshold, the combined kernel
+    for stage 1 (finish_loop forces the split from its split step)."""
+    dyn, cost, _, std, _, K_, T_ = finish_parts(pair)
+    coeff = [0.0] * dyn.CONTROL_DIM if pair.startswith("quadrotor") else None
+    return RobustMPPI(dyn, cost, GaussianDistribution.create(std_dev=std,
+                                                             control_cost_coeff=coeff),
+                      feedback=feedback or DDPFeedback.create(dyn, DT), dt=DT, lam=LAM,
+                      alpha=ALPHA, num_timesteps=T_, num_rollouts=K_, num_candidates=N_CAND,
+                      samples_per_condition=S_PER, kernel="fused", split_cost=False)
+
+
+def finish_rmppi_want(pair, n, split_from, ladder):
+    """The launches of n RMPPI steps on ``pair``: stage 1's B1 from one x0
+    per sample (combined before ``split_from``, the split form from it; the
+    first step evaluates no candidate), B8 (the racers': none, their stage 2
+    is eager), the ladder."""
+    dyn, _, _, _, _, _, T_ = finish_parts(pair)
+    n_split = 0 if split_from is None else n - split_from
+    want = {b1_kernel(pair, x0=True): n - 1 - n_split}
+    if n_split:
+        want[split_name(pair, "split_dynamics_x0")] = n_split
+        want[cost_kernel(pair, N_CAND * S_PER, T_)] = n_split
+    if _build.pair_entry(pair, "rmppi") is not None:
+        want[split_name(pair, "rmppi")] = n
+    if ladder:
+        want[LADDER] = n
+    return {k: v for k, v in want.items() if v}
+
+
+def finish_loops(dev):
+    """The new entries' loops (each through the entry points, its launches
+    counted and held to what it must launch): RMPPI on each later pair
+    (FINISH_STEPS; stage 1 forced split from its split step where the cost
+    is eligible), Tube (kernel="fused") on the DI robust cost, vanilla
+    ``fused`` and ``fused_solve`` with split_cost=True on it, the bench
+    RMPPI row with split_cost=True, Tube (``fused_solve``, B4 with the
+    epilogue) and RMPPI with Smooth-MPPI, and RMPPI with BoxQP (its DDP on
+    the eager scan). Returns {path: (launches, entry launches)}."""
+    paths = {}
+    for pair, (n, split_from) in FINISH_STEPS.items():
+        ctrl = build_rmppi_pair(pair)
+        ladder = riccati.supported(ctrl.dynamics.STATE_DIM, ctrl.dynamics.CONTROL_DIM,
+                                   ctrl.num_timesteps)
+        out = robust_family_loop(f"rmppi_{pair}", ctrl, finish_parts(pair)[2], n,
+                                 finish_rmppi_want(pair, n, split_from, ladder),
+                                 profile=0, split_from=split_from, pair=pair)
+        paths[f"rmppi_{pair}"] = out[:2]
+    n = FINISH_LOOP_STEPS
+    ddyn = DoubleIntegratorDynamics.create()
+    rsamp = GaussianDistribution.create(std_dev=[1.0, 1.0], control_cost_coeff=[0.01, 0.01])
+    tube = TubeMPPI(ddyn, DoubleIntegratorRobustCost(), rsamp,
+                    feedback=DDPFeedback.create(ddyn, DT), dt=DT, lam=LAM, alpha=ALPHA,
+                    num_timesteps=T, num_rollouts=K_MAIN, kernel="fused", split_cost=False)
+    out = robust_family_loop("tube_di_robust", tube, torch.tensor(X0_RDI, device=dev), n,
+                             {**rollout_launches("di_robust", 2 * n), LADDER: n}, profile=0)
+    paths["tube_di_robust"] = out[:2]
+    for kernel, want in (
+            ("fused", {split_name("di_robust", "split_dynamics"): n,
+                       cost_kernel("di_robust", K_MAIN, T): n, MERGE: n}),
+            ("fused_solve", {split_name("di_robust", "split_solve_dynamics"): n,
+                             cost_kernel("di_robust", K_MAIN, T): n, MERGE: n})):
+        ctrl = VanillaMPPI(DoubleIntegratorDynamics.create(), DoubleIntegratorRobustCost(),
+                           GaussianDistribution.create(std_dev=[1.0, 1.0],
+                                                       control_cost_coeff=[0.01, 0.01]),
+                           dt=DT, lam=LAM, alpha=ALPHA, num_timesteps=T, num_rollouts=K_MAIN,
+                           num_iters=1, kernel=kernel, split_cost=True)
+        path = f"di_robust_split_{kernel}"
+        paths[path] = model_loop_phase(path, ctrl, torch.tensor(X0_RDI, device=dev), n, want,
+                                       profile=0)[:2]
+    # the bench RMPPI row with split_cost=True (stage 1's split from one x0
+    # per sample); Tube and RMPPI with Smooth-MPPI; RMPPI with BoxQP
+    rs = build_robust()
+    rs.split_cost = True
+    out = robust_family_loop(
+        "rmppi_split", rs, torch.tensor(X0, device=dev), n,
+        {split_name("di_circle", "split_dynamics_x0"): n - 1,
+         cost_kernel("di_circle", N_CAND * S_PER, T_R): n - 1,
+         split_name("di_circle", "rmppi"): n, LADDER: n}, profile=0)
+    paths["rmppi_split"] = out[:2]
+    smooth = SmoothMPPIDistribution.create(std_dev=[1.0, 1.0], num_timesteps=T_R,
+                                           dt=DT_SMOOTH)
+    tube = TubeMPPI(ddyn, DoubleIntegratorCircleCost(), smooth,
+                    feedback=DDPFeedback.create(ddyn, DT), dt=DT, lam=LAM_R, alpha=ALPHA,
+                    num_timesteps=T_R, num_rollouts=K_R, nominal_threshold=THRESH_R,
+                    kernel="fused_solve")
+    out = robust_family_loop("tube_smooth", tube, torch.tensor(X0, device=dev), n,
+                             {**sample_launches("di_circle", 2 * n, epilogue=True), LADDER: n},
+                             profile=0)
+    if not float(out[4].sampler_state.abs().max()) > 0:
+        raise AssertionError("tube_smooth: the derivative mean never moved")
+    paths["tube_smooth"] = out[:2]
+    rmppi = RobustMPPI(ddyn, DoubleIntegratorCircleCost(),
+                       SmoothMPPIDistribution.create(std_dev=[1.0, 1.0], num_timesteps=T_R,
+                                                     dt=DT_SMOOTH),
+                       feedback=DDPFeedback.create(ddyn, DT), dt=DT, lam=LAM_R, alpha=ALPHA,
+                       num_timesteps=T_R, num_rollouts=K_R, num_candidates=N_CAND,
+                       samples_per_condition=S_PER, value_function_threshold=THRESH_R,
+                       split_cost=False)
+    out = robust_family_loop("rmppi_smooth", rmppi, torch.tensor(X0, device=dev), n,
+                             {b1_kernel("di_circle", x0=True): n - 1,
+                              split_name("di_circle", "rmppi"): n, LADDER: n}, profile=0)
+    if not float(out[4].sampler_state.abs().max()) > 0:
+        raise AssertionError("rmppi_smooth: the derivative mean never moved")
+    paths["rmppi_smooth"] = out[:2]
+    m = BOXQP_STEPS
+    boxqp = build_robust()
+    boxqp.split_cost = False  # the combined B1-x0 on a loop (AUTO splits the row)
+    boxqp.feedback = DDPFeedback.create(boxqp.dynamics, DT, use_boxqp=True).to(dev)
+    out = robust_family_loop("rmppi_boxqp", boxqp, torch.tensor(X0, device=dev), m,
+                             {b1_kernel("di_circle", x0=True): m - 1,
+                              split_name("di_circle", "rmppi"): m}, profile=0)
+    paths["rmppi_boxqp"] = out[:2]
+    return paths
+
+
+def ccm_boxqp_phase(dev):
+    """CCM's law (feedback/ccm.py, plain PyTorch) and BoxQP's gains on the
+    card against their CPU runs on the same inputs: the law on 64 state
+    pairs of the DI and on the nominal itself (its zero), k through its
+    state; DDP with BoxQP on the bench RMPPI row's DI (T=50, bounds
+    +-0.5 that bind). TOL "solve", rtol 1e-4 / atol 1e-5 (the card's and
+    the CPU's small matrix products, solves and 4 x 4 inverse sum in other
+    orders)."""
+    u_init = (0.8 * np.random.default_rng(181).normal(size=(T_R, C))).astype("f")
+    out = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        fb = CCMFeedback.create(DoubleIntegratorDynamics.create(device=d))
+        rows = []
+        for i in range(64):
+            rng = np.random.default_rng(1000 + i)
+            x_nom = torch.tensor(rng.normal(size=4).astype("f"), device=d)
+            x_act = x_nom + torch.tensor(0.5 * rng.normal(size=4).astype("f"), device=d)
+            u_nom = torch.tensor(rng.normal(size=2).astype("f"), device=d)
+            rows.append(fb.u_feedback(x_act, x_nom, u_nom))
+        rows.append(fb.u_feedback(x_nom, x_nom, u_nom))  # on the nominal: no feedback
+        goal = torch.zeros((16, 4), device=d)
+        ctrls = torch.tensor(0.3 * np.random.default_rng(2).normal(size=(16, 2)).astype("f"),
+                             device=d)
+        st = fb.compute_feedback(goal[0], goal, ctrls)
+        rows.append(fb.k(torch.tensor([0.1, 0.0, 1.0, 0.0], device=d), goal[3], 3, st))
+        ddp = DDPFeedback.create(DoubleIntegratorDynamics.create(
+            control_ranges=[[-0.5, 0.5], [-0.5, 0.5]], device=d), DT, use_boxqp=True)
+        x0 = torch.tensor(X0, device=d)
+        u = torch.tensor(u_init, device=d)
+        traj = torch.tensor(X0, device=d).expand(T_R, 4).contiguous()
+        out[where] = (torch.stack(rows).cpu(), ddp.compute_feedback(x0, traj, u).gains.cpu())
+    checks = [check("ccm u_feedback and k", out["cuda"][0], out["cpu"][0], "solve"),
+              check("boxqp DDP gains", out["cuda"][1], out["cpu"][1], "solve")]
+    acts = int((out["cuda"][0].abs().sum(1) > 0).sum())
+    if not 0 < acts < len(out["cuda"][0]):
+        raise AssertionError(f"ccm: the law acted on {acts} of {len(out['cuda'][0])} cases")
+    if not bool((out["cuda"][1].abs().sum(-1) == 0).any()):
+        raise AssertionError("boxqp: no control was clamped, the bounds never bound")
+    emit("ccm_boxqp", checks=checks, law_active_cases=acts)
+    return checks
+
+
+# the C entry, the source and the TPU kernel of each new entry on the
+# kernels line
+FINISH_REPLACES = {"rollout_x0": "pallas_rollout.py:548 (per_sample_x0 mode, :646)",
+                   "split_dynamics_x0": "pallas_rollout.py:548 (split mode, run_tile "
+                                        ":663-696, per_sample_x0)",
+                   "rmppi": "pallas_rollout.py:2127",
+                   "rollout": "pallas_rollout.py:548",
+                   "split_dynamics": "pallas_rollout.py:548 (split mode, run_tile :663-696)",
+                   "split_solve_dynamics": "pallas_solve.py:103 (split mode :274-290)"}
+
+
+def finish_entries(checks, times, paths):
+    """The kernels line's rows of the new entries: launches by path from the
+    loops' entry counts (the racer uncertainty model's, which has no loop,
+    from finish_kernel_phase), the max error of their checks, the times."""
+    fns = [(f"rollout_costs_x0_{p}", p, "rollout_x0") for p in FINISH_PAIRS
+           if p != "bicycle_ar"]
+    fns += [(f"split_dynamics_x0_{p}", p, "split_dynamics_x0") for p in FINISH_PAIRS
+            if _build.pair_entry(p, "split_dynamics_x0") is not None]
+    fns += [(f"rmppi_rollout_{p}", p, "rmppi") for p in FINISH_PAIRS
+            if _build.pair_entry(p, "rmppi") is not None]
+    fns += [("rollout_costs_di_robust", "di_robust", "rollout"),
+            ("split_dynamics_di_robust", "di_robust", "split_dynamics"),
+            ("split_solve_dynamics_di_robust", "di_robust", "split_solve_dynamics"),
+            ("split_dynamics_x0_di_circle", "di_circle", "split_dynamics_x0"),
+            ("riccati_ladder_dubins", "dubins_quadratic", "ladder")]
+    rows = []
+    for fn, pair, kind in fns:
+        t = times[fn]
+        by = {p: e.get(fn, 0) for p, (_, e) in paths.items() if e.get(fn, 0)}
+        row = {"route": "cuda", "launches": sum(by.values()), "launches_by_path": by,
+               "max_abs_err": max(c["max_abs_err"] for c in checks[fn]),
+               "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": None}
+        if "split_form" in t:  # the whole split form A B B A against the combined
+            row["split_form"] = t["split_form"]
+        if kind == "ladder":
+            row.update(name=f"{LADDER}<Dubins> ({fn})",
+                       source="mppi_generic_tpu_torch/csrc/riccati.cu",
+                       replaces="mppi_generic_tpu/ops/pallas_riccati.py:203", T=T_ZOO,
+                       n_alpha=N_ALPHA, chain_steps=t["chain_steps"])
+        else:
+            row.update(name=f"{split_name(pair, kind)} ({fn})",
+                       source=f"mppi_generic_tpu_torch/csrc/{_build.pair_entry(pair, kind)[0]}.cu",
+                       replaces=f"mppi_generic_tpu/ops/{FINISH_REPLACES[kind]}")
+        if pair in FINISH_PAIRS and pair not in FINISH_STEPS:  # no loop: the phase's
+            row.update(launches=PHASE_LAUNCHES.get(fn, 0), on_main_path=False,
+                       launches_from="finish_kernels")
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: nothing launched it")
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -5570,6 +6098,10 @@ def main() -> int:
         pair_errs[("split", pair)] = max(pair_errs[("split", pair)], warp_errs[pair])
     pair_paths = pair_loops(dev)
     autotune_phase(dev)
+    # the robust family finished: the new entries, their loops, CCM and BoxQP
+    finish_checks, finish_times = finish_kernel_phase(dev)
+    finish_paths = finish_loops(dev)
+    ccm_boxqp_phase(dev)
     all_paths = {**zoo_paths, **racer_paths, **robust_paths, **inst_paths, **split_paths,
                  **pair_paths}
 
@@ -5791,7 +6323,7 @@ def main() -> int:
         kernel=MERGE))
     # the robust family: launches counted per C entry on its loops and the
     # factories' solves
-    family_paths = {**robust_paths, **inst_paths}
+    family_paths = {**robust_paths, **inst_paths, **finish_paths}
 
     def family_entry(name, source, fn, replaces, t, checks, **extra):
         by = {p: e.get(fn, 0) for p, (_, e) in family_paths.items() if e.get(fn, 0)}
@@ -5834,7 +6366,7 @@ def main() -> int:
                      "rollout_x0.cu", "rollout_costs_x0_bicycle_ar", "pallas_rollout.py:548",
                      rt["B1-x0 bicycle_ar 128"],
                      rchecks("rollout_costs_kernel", "B1-x0 bicycle_ar"),
-                     K=N_CAND_AR * S_PER_AR, T=T_BI, on_main_path=False),
+                     K=N_CAND_AR * S_PER_AR, T=T_BI),
         family_entry(f"{b1_kernel('di_robust', x0=True)}<DoubleIntegrator, "
                      "DoubleIntegratorRobustCost> (per-sample x0)", "rollout_x0.cu",
                      "rollout_costs_x0_di_robust",
@@ -5930,6 +6462,7 @@ def main() -> int:
     pair_errs[CARRY] = errs[CARRY]  # the carry pass's own checks
     kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times,
                                    carry_paths=ar_paths)
+    kernels += finish_entries(finish_checks, finish_times, finish_paths)
     for k in kernels:  # the loops that reach the kernel only by forcing a form
         k["forced_by_path"] = {p: FORCED_BY_PATH[p] for p in k.get("launches_by_path", {})
                                if FORCED_BY_PATH.get(p)}

@@ -29,8 +29,9 @@ Counterpart of ``mppi_generic_tpu/controllers/robust.py`` (reference
   ``pallas_fused``) is the same path: the augmented rollout has its own
   kernel, and the JAX package maps the one name to the other
   (``_equivalent_kernels``, robust.py:96); the controller keeps "fused".
-  The pairs with entries: the double integrator with its circle or its
-  robust cost, AutoRally with its standard or robust cost.
+  Every pair of ``ops/fused_rollout._PAIRS`` has both entries, but the racer
+  LSTM models, whose B8 the JAX kernel refuses (a recurrent model): their
+  stage 2 runs the eager augmented rollout, as JAX's runs its XLA scan.
 * ``"combined"`` is JAX ``kernel="combined"``, the eager oracle: one
   ``rollout_combined`` per candidate and the augmented rollout as a loop.
   ``"split"`` is accepted and runs the same eager paths, as the JAX
@@ -38,10 +39,17 @@ Counterpart of ``mppi_generic_tpu/controllers/robust.py`` (reference
 
 ``split_cost`` reaches stage 1's rollout kernel (its per-sample-x0 mode),
 as JAX passes ``pallas_split_cost`` there (robust.py:207): True runs B1's
-split form from one x0 per sample (entries for the double integrator with
-its robust cost and for AutoRally; on the card any other pair raises), None
+split form from one x0 per sample (every pair whose cost is eligible), None
 (AUTO) what ``fused_rollout.AUTO_SPLIT`` measured for the pair's
 "rollout_x0", False the combined kernel.
+
+Where a kernel wrapper raises ``ops.KernelIncompatible`` (JAX's
+``PallasIncompatible``: a recurrent model in B8, ``split_cost=True`` with an
+ineligible cost) the stage runs its eager path, as the JAX controller runs
+XLA there (robust.py:209, :385). A stateful sampler (Smooth-MPPI's
+derivative mean) carries its ``sampler_state`` as the JAX controller does:
+stage 1 samples the candidates from it and shifts it with the nominal
+sequence; stage 2 samples from it, and the nominal update carries it on.
 
 The chosen stride, the best index and the baselines stay tensors on the
 device: nothing in either stage waits on it. ``nominal_initialized`` is a
@@ -65,6 +73,7 @@ from mppi_generic_tpu_torch.models.base import rollout_single
 from mppi_generic_tpu_torch.ops import fused_rollout
 from mppi_generic_tpu_torch.ops import rollout as rollout_ops
 from mppi_generic_tpu_torch.ops import weights as weight_ops
+from mppi_generic_tpu_torch.ops.fused_rollout import KernelIncompatible
 from mppi_generic_tpu_torch.utils import math_utils
 from mppi_generic_tpu_torch.utils.math_utils import true_div
 
@@ -102,6 +111,7 @@ class RobustControllerState:
     previous_baseline_nominal: Optional[torch.Tensor] = None
     best_index: Optional[torch.Tensor] = None  # () int64, on the device
     nominal_stride: Optional[torch.Tensor] = None  # () int64, on the device
+    sampler_state: object = None  # the sampler's sequence state (Smooth-MPPI)
 
     def replace(self, **changes) -> "RobustControllerState":
         return dataclasses.replace(self, **changes)
@@ -128,10 +138,6 @@ class RobustMPPI(ControllerBase):
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
         super().__init__(dynamics, cost, sampler, **kwargs)
-        if self.sampler.init_state() is not None:
-            raise NotImplementedError(
-                f"RMPPI with a stateful sampler ({type(sampler).__name__}) is not "
-                "ported")
         self.kernel = EQUIVALENT_KERNELS.get(kernel, kernel)
         self.feedback = feedback.to(self.device)
         self.value_function_threshold = float(np.float32(value_function_threshold))
@@ -163,6 +169,7 @@ class RobustMPPI(ControllerBase):
             previous_baseline_nominal=torch.tensor(1e8, **f32),
             best_index=torch.zeros((), **i64),
             nominal_stride=torch.zeros((), **i64),
+            sampler_state=self.sampler.init_state(),
         )
 
     # --- stage 1: importance-sampling update ------------------------------
@@ -186,10 +193,13 @@ class RobustMPPI(ControllerBase):
         lr = self.sampler.likelihood_ratio_cost(U_all, mean, self.lam, self.alpha)
         if self.kernel == "fused":
             x0_all = candidates.repeat_interleave(S_per, dim=0)  # (n*S_per, S)
-            costs, _ = fused_rollout.fused_rollout_costs(
-                self.dynamics, self.cost, x0_all,
-                U_all.reshape(n * S_per, T, -1), self.dt, split_cost=self.split_cost)
-            return costs.reshape(n, S_per) + true_div(lr, T)
+            try:
+                costs, _ = fused_rollout.fused_rollout_costs(
+                    self.dynamics, self.cost, x0_all,
+                    U_all.reshape(n * S_per, T, -1), self.dt, split_cost=self.split_cost)
+                return costs.reshape(n, S_per) + true_div(lr, T)
+            except KernelIncompatible:  # the eager rollout (JAX robust.py:209)
+                pass
         return torch.stack([
             rollout_ops.rollout_combined(self.dynamics, self.cost, candidates[i],
                                          U_all[i], self.dt)[0] + true_div(lr[i], T)
@@ -217,7 +227,8 @@ class RobustMPPI(ControllerBase):
             U, _ = self.sampler.sample(
                 ctrl_state.generator, ctrl_state.nominal_mean,
                 self.samples_per_condition, iteration=0,
-                optimization_stride=stride, injected_noise=injected_noise)
+                optimization_stride=stride, state=ctrl_state.sampler_state,
+                injected_noise=injected_noise)
             U = self._clamp_controls(U)
             cand_costs = self._candidate_costs(candidates, cand_strides, U,
                                                ctrl_state.nominal_mean)
@@ -241,8 +252,8 @@ class RobustMPPI(ControllerBase):
             ctrl_state.nominal_control_history, mean_n, nominal_stride)
         real_hist = math_utils.update_control_history(
             ctrl_state.control_history, ctrl_state.control_mean, int(stride))
-        new_nominal_mean, _ = self.sampler.shift(mean_n, nominal_stride,
-                                                 self.slide_scale)
+        new_nominal_mean, samp_state = self.sampler.shift(
+            mean_n, nominal_stride, self.slide_scale, ctrl_state.sampler_state)
         # the nominal trajectory and the feedback gains that track it
         states_nom, _ = rollout_single(self.dynamics, nominal_state,
                                        new_nominal_mean, self.dt)
@@ -258,6 +269,7 @@ class RobustMPPI(ControllerBase):
             feedback_state=fb_state,
             best_index=best,
             nominal_stride=nominal_stride,
+            sampler_state=samp_state,
         ), cand_fe
 
     # --- stage 2: augmented solve ------------------------------------------
@@ -302,22 +314,27 @@ class RobustMPPI(ControllerBase):
         mean_real = mean_nom  # both distributions start from the nominal mean
         nominal_state = (ctrl_state.nominal_state if ctrl_state.nominal_initialized
                          else state)
-        gains = ctrl_state.feedback_state.gains
+        samp_state = ctrl_state.sampler_state
         for it in range(self.num_iters):
-            U, _ = self.sampler.sample(
+            U, aux = self.sampler.sample(
                 ctrl_state.generator, mean_nom, self.num_rollouts, iteration=it,
-                optimization_stride=optimization_stride,
+                optimization_stride=optimization_stride, state=samp_state,
                 injected_noise=injected_noise)
             # the rollouts clamp inside their loop; the once-clamped copy
             # feeds the nominal likelihood term and the mean updates
             U_c = self._clamp_controls(U)
-            if self.kernel == "fused":
-                s_nom, j_real_state, s_fb, crash, U_real = (
-                    fused_rollout.fused_rmppi_rollout(
-                        self.dynamics, self.cost, nominal_state, state, U, gains,
-                        self.sampler._sigma(T, 0), self.sampler.control_cost_coeff,
-                        self.dt, self.lam, self.alpha))
-            else:
+            fused = self.kernel == "fused"
+            if fused:
+                try:
+                    s_nom, j_real_state, s_fb, crash, U_real = (
+                        fused_rollout.fused_rmppi_rollout(
+                            self.dynamics, self.cost, nominal_state, state, U,
+                            ctrl_state.feedback_state.gains, self.sampler._sigma(T, 0),
+                            self.sampler.control_cost_coeff, self.dt, self.lam,
+                            self.alpha))
+                except KernelIncompatible:  # the eager scan (JAX robust.py:385)
+                    fused = False
+            if not fused:
                 s_nom, j_real_state, s_fb, crash, U_real = self._augmented_rollout(
                     nominal_state, state, U, ctrl_state.feedback_state)
             # likelihood ratios: the nominal one of the clamped sample, the
@@ -337,8 +354,10 @@ class RobustMPPI(ControllerBase):
             w_r = weight_ops.norm_exp_weights(j_real, self.lam, bl_r)
             eta_n = weight_ops.normalizer(w_n)
             eta_r = weight_ops.normalizer(w_r)
-            mean_nom, _ = self.sampler.update_mean(U_c, None, w_n, eta_n, mean_nom)
-            mean_real, _ = self.sampler.update_mean(U_c, None, w_r, eta_r, mean_real)
+            mean_nom, samp_state = self.sampler.update_mean(U_c, aux, w_n, eta_n,
+                                                            mean_nom, samp_state)
+            mean_real, _ = self.sampler.update_mean(U_c, aux, w_r, eta_r, mean_real,
+                                                    ctrl_state.sampler_state)
 
         # each sequence smooths with its own history (:736-738)
         mean_real = self._smooth(mean_real, ctrl_state.control_history)
@@ -370,6 +389,7 @@ class RobustMPPI(ControllerBase):
             nominal_initialized=True,
             previous_baseline_real=bl_r,
             previous_baseline_nominal=bl_n,
+            sampler_state=samp_state,
         )
         return (RobustSolveResult(real=real, nominal=nominal,
                                   best_index=ctrl_state.best_index), new_state)

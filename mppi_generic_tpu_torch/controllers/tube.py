@@ -12,6 +12,12 @@ draws one kernel seed and both systems' fused solve kernels (B3) draw their
 samples from it, so they draw the same noise, as the JAX package's two
 same-key solves do (tube.py:93-127).
 
+A stateful sampler (Smooth-MPPI's derivative mean) carries its
+``sampler_state`` as the JAX controller does (tube.py:115-126, :222-233):
+each iteration the real system's solve updates it and the nominal system's
+starts from the state the solve began with; the slide shifts it with the
+nominal sequence.
+
 Per solve (computeControl, tube_mppi_controller.cu:158-300):
 
 * both systems are solved: the real one from the measured state around the
@@ -52,6 +58,7 @@ class TubeControllerState:
     previous_baseline_real: Optional[torch.Tensor] = None
     previous_baseline_nominal: Optional[torch.Tensor] = None
     feedback_state: object = None
+    sampler_state: object = None  # the sampler's sequence state (Smooth-MPPI)
 
     def replace(self, **changes) -> "TubeControllerState":
         return dataclasses.replace(self, **changes)
@@ -68,10 +75,6 @@ class TubeMPPI(VanillaMPPI):
     def __init__(self, dynamics, cost, sampler, *, feedback=None,
                  nominal_threshold=100.0, **kwargs):
         super().__init__(dynamics, cost, sampler, **kwargs)
-        if self.sampler.init_state() is not None:
-            raise NotImplementedError(
-                f"Tube-MPPI with a stateful sampler ({type(sampler).__name__}) "
-                "is not ported")
         self.feedback = None if feedback is None else feedback.to(self.device)
         self.nominal_threshold = float(np.float32(nominal_threshold))
 
@@ -90,6 +93,7 @@ class TubeMPPI(VanillaMPPI):
             previous_baseline_nominal=torch.tensor(1e8, **f32),
             feedback_state=(None if self.feedback is None
                             else self.feedback.init_feedback_state(T)),
+            sampler_state=self.sampler.init_state(),
         )
 
     def solve(self, state, ctrl_state: TubeControllerState,
@@ -101,6 +105,7 @@ class TubeMPPI(VanillaMPPI):
                          else state)
         mean_real = ctrl_state.control_mean
         mean_nom = ctrl_state.nominal_mean
+        samp_state = ctrl_state.sampler_state
         K, T, C = self.num_rollouts, self.num_timesteps, self.dynamics.CONTROL_DIM
         for it in range(self.num_iters):
             eps, seed = injected_noise, None
@@ -109,12 +114,14 @@ class TubeMPPI(VanillaMPPI):
             elif eps is None:  # one draw, shared by both systems
                 eps = torch.randn((K, T, C), generator=ctrl_state.generator,
                                   dtype=torch.float32, device=self.device)
-            mean_real, _, diag_r = self._iteration(
-                state, mean_real, None, ctrl_state.generator, it,
+            # the real system chains the sampler state; the nominal one
+            # starts each iteration from the solve's (tube.py:115-126)
+            mean_real, samp_state, diag_r = self._iteration(
+                state, mean_real, samp_state, ctrl_state.generator, it,
                 optimization_stride, eps, seed)
             mean_nom, _, diag_n = self._iteration(
-                nominal_state, mean_nom, None, ctrl_state.generator, it,
-                optimization_stride, eps, seed)
+                nominal_state, mean_nom, ctrl_state.sampler_state,
+                ctrl_state.generator, it, optimization_stride, eps, seed)
         U_r, costs_r, w_r, bl_r, eta_r, crash_r = diag_r
         U_n, costs_n, w_n, bl_n, eta_n, crash_n = diag_n
 
@@ -161,6 +168,7 @@ class TubeMPPI(VanillaMPPI):
             previous_baseline_real=bl_r,
             previous_baseline_nominal=bl_n,
             feedback_state=fb_state,
+            sampler_state=samp_state,
         )
 
     def slide_control_sequence(self, ctrl_state: TubeControllerState, stride: int):
@@ -171,13 +179,17 @@ class TubeMPPI(VanillaMPPI):
         u0 = self.dynamics.enforce_constraints(x_nom, ctrl_state.nominal_mean[0])
         nominal_state, _ = self.dynamics.step(x_nom, u0, 0.0, self.dt)
         mean_n = ctrl_state.nominal_mean
+        new_nom, samp_state = self.sampler.shift(mean_n, stride, self.slide_scale,
+                                                 ctrl_state.sampler_state)
+        new_real, _ = self.sampler.shift(ctrl_state.control_mean, stride,
+                                         self.slide_scale, ctrl_state.sampler_state)
         return ctrl_state.replace(
-            control_mean=self.sampler.shift(ctrl_state.control_mean, stride,
-                                            self.slide_scale)[0],
-            nominal_mean=self.sampler.shift(mean_n, stride, self.slide_scale)[0],
+            control_mean=new_real,
+            nominal_mean=new_nom,
             nominal_state=nominal_state,
             control_history=math_utils.update_control_history(
                 ctrl_state.control_history, mean_n, stride),
+            sampler_state=samp_state,
         )
 
     def get_feedback_control(self, x, result: TubeSolveResult, fb_state, t: int):

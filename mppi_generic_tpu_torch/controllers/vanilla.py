@@ -21,9 +21,11 @@ Gaussian, NLN (log-MPPI), Smooth-MPPI and colored-noise distributions.
   the derivative samples (``ops/fused_rollout.fused_sample_rollout_costs``)
   and the merge; ``tsallis`` and ``cem`` run the sampling kernel, then the
   weights and the sampler's mean update eagerly. The weights of
-  SolveResult are recomputed from the kernels' costs and baseline. The
-  colored sampler draws eagerly and refuses this path (JAX falls back to
-  its XLA draw there).
+  SolveResult are recomputed from the kernels' costs and baseline. A
+  sampler whose noise the kernels do not draw (the colored sampler, a
+  subclass of a drawn sampler) draws eagerly and takes the eager rollout
+  (``rollout_combined``), as JAX's kernels raise ``PallasIncompatible``
+  there and its controller falls back to XLA (vanilla.py:187-253).
 * ``"fused"`` (default) is JAX ``kernel="pallas"``: the sampler draws
   eagerly, then ``exp`` runs one launch of the fused rollout kernel with
   the in-loop LR cost and the flash epilogue and one of the carry merge
@@ -46,16 +48,21 @@ Gaussian, NLN (log-MPPI), Smooth-MPPI and colored-noise distributions.
 None, the default, is AUTO (``ops/fused_rollout.resolve_split``), True the
 split kernels (``csrc/split_kernels.cuh``: a dynamics pass, then a
 time-parallel cost pass, one launch more), False the combined kernels.
-True raises for a cost that declares neither ``time_parallel_cost`` nor
-``time_parallel_crash`` (``QuadrotorMapCost``, a ``QuadraticCost`` goal
-trajectory), as in JAX; every other pair has split entries.
+Every pair whose cost is eligible has split entries.
+
+Where a kernel wrapper raises ``ops.KernelIncompatible`` (JAX's
+``PallasIncompatible``: ``split_cost=True`` with a cost that declares
+neither ``time_parallel_cost`` nor ``time_parallel_crash``, a sampler the
+kernels do not draw) the iteration takes the eager path at the same point
+as the JAX controller takes XLA (vanilla.py:119, 141, 187, 225, 239, 308).
+A pair the JAX package runs in its kernels and the port has no entry for
+raises ``NotImplementedError`` on the card; nothing catches that.
 
 A recurrent model (the racer LSTM models) carries its LSTM state on every
 path from its warm state: inside the kernels, through the eager rollout and
 through the re-rollout of the mean. Every (dynamics, cost) pair of
 ``ops/fused_rollout._PAIRS`` has B1, B3 and B4 entries, so Tsallis, CEM and
-Smooth-MPPI on ``fused_solve`` (B4) run on the card for each of them; a
-pair or a sampler without a kernel entry raises there.
+Smooth-MPPI on ``fused_solve`` (B4) run on the card for each of them.
 
 On a CPU device the kernel paths run the kernels' plain versions. ``solve``
 never waits for the device: the seeds, baseline, eta and free energy stay
@@ -75,7 +82,7 @@ from mppi_generic_tpu_torch.controllers.base import (
 from mppi_generic_tpu_torch.ops import fused_rollout, fused_solve
 from mppi_generic_tpu_torch.ops import rollout as rollout_ops
 from mppi_generic_tpu_torch.ops import weights as weight_ops
-from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
+from mppi_generic_tpu_torch.ops.fused_rollout import KernelIncompatible
 from mppi_generic_tpu_torch.sampling.smooth import SmoothMPPIDistribution
 from mppi_generic_tpu_torch.utils.math_utils import true_div
 
@@ -94,10 +101,6 @@ class VanillaMPPI(ControllerBase):
         if weight_transform not in WEIGHT_TRANSFORMS:
             raise ValueError(f"weight_transform must be one of {WEIGHT_TRANSFORMS}, "
                              f"got {weight_transform!r}")
-        if kernel == "fused_solve" and isinstance(sampler, ColoredNoiseDistribution):
-            raise NotImplementedError(
-                "the colored sampler draws its noise eagerly, not inside the "
-                "kernels: use kernel='fused' (or 'combined')")
         super().__init__(dynamics, cost, sampler, **kwargs)
         self.kernel = kernel
         self.weight_transform = weight_transform
@@ -134,6 +137,10 @@ class VanillaMPPI(ControllerBase):
 
     def _iteration_fused_solve(self, x0, mean, samp_state, generator, iteration,
                                optimization_stride, injected_noise, seed=None):
+        """The in-kernel draw's iteration (JAX vanilla.py:157-253): B3 for
+        exp weights, B4 with Smooth-MPPI's epilogue, else B4 and the eager
+        update; None where the kernels refuse the sampler
+        (``KernelIncompatible``), and the caller draws eagerly."""
         if seed is None:
             seed = self._seed(generator)
         args = (self.dynamics, self.cost, self.sampler, x0, mean, seed, self.dt,
@@ -143,24 +150,33 @@ class VanillaMPPI(ControllerBase):
         smooth = type(self.sampler) is SmoothMPPIDistribution
         exp = self.weight_transform == "exp" and self.shaping_function is None
         if exp and not smooth:
-            costs, crash, new_mean, baseline, eta, U = (
-                fused_solve.fused_solve_iteration(
-                    *args, return_samples=self.return_samples,
-                    split_cost=self.split_cost, **kw))
-            w = weight_ops.norm_exp_weights(costs, self.lam, baseline)
-            return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
-        if exp:
+            try:
+                costs, crash, new_mean, baseline, eta, U = (
+                    fused_solve.fused_solve_iteration(
+                        *args, return_samples=self.return_samples,
+                        split_cost=self.split_cost, **kw))
+                w = weight_ops.norm_exp_weights(costs, self.lam, baseline)
+                return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
+            except KernelIncompatible:
+                pass
+        if exp and smooth:
             # the flash epilogue over W, which Smooth-MPPI's mean update
             # weights (smooth-MPPI.cu:203-236)
-            costs, crash, U, deriv_mean, baseline, eta = (
-                fused_rollout.fused_sample_rollout_costs(
-                    *args, sampler_state=samp_state, epilogue=True,
-                    emit_samples=self.return_samples, **kw))
-            new_mean = mean + deriv_mean * self.sampler.dt_smooth
-            w = weight_ops.norm_exp_weights(costs, self.lam, baseline)
-            return new_mean, deriv_mean, (U, costs, w, baseline, eta, crash)
-        costs, crash, U, aux = fused_rollout.fused_sample_rollout_costs(
-            *args, sampler_state=samp_state, **kw)
+            try:
+                costs, crash, U, deriv_mean, baseline, eta = (
+                    fused_rollout.fused_sample_rollout_costs(
+                        *args, sampler_state=samp_state, epilogue=True,
+                        emit_samples=self.return_samples, **kw))
+                new_mean = mean + deriv_mean * self.sampler.dt_smooth
+                w = weight_ops.norm_exp_weights(costs, self.lam, baseline)
+                return new_mean, deriv_mean, (U, costs, w, baseline, eta, crash)
+            except KernelIncompatible:
+                pass
+        try:
+            costs, crash, U, aux = fused_rollout.fused_sample_rollout_costs(
+                *args, sampler_state=samp_state, **kw)
+        except KernelIncompatible:
+            return None
         new_mean, samp_state, w, baseline, eta = self._eager_update(
             U, aux, costs, mean, samp_state)
         return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
@@ -172,9 +188,11 @@ class VanillaMPPI(ControllerBase):
         only) is the kernels' seed of the iteration, drawn from
         ``generator`` when not given."""
         if self.kernel == "fused_solve":
-            return self._iteration_fused_solve(
+            out = self._iteration_fused_solve(
                 x0, mean, samp_state, generator, iteration, optimization_stride,
                 injected_noise, seed)
+            if out is not None:
+                return out
         K, T = self.num_rollouts, self.num_timesteps
         U, aux = self.sampler.sample(
             generator, mean, K, iteration=iteration,
@@ -182,6 +200,7 @@ class VanillaMPPI(ControllerBase):
             injected_noise=injected_noise,
         )
         U = self._clamp_controls(U)
+        costs = None
         if self.kernel == "fused":
             lr_params = (
                 mean,
@@ -195,20 +214,26 @@ class VanillaMPPI(ControllerBase):
                     and self.shaping_function is None and aux is None):
                 # the whole epilogue in the kernels; Tsallis: baseline = the
                 # minimum cost, eta = the sum of the Tsallis weights
-                costs, crash, new_mean, baseline, eta = (
-                    fused_rollout.fused_weighted_rollout(
-                        self.dynamics, self.cost, x0, U, self.dt, self.lam,
-                        lr_params=lr_params, weight_kind=self.weight_transform,
-                        weight_params=(self.tsallis_gamma, self.tsallis_r),
-                        split_cost=self.split_cost,
+                try:
+                    costs, crash, new_mean, baseline, eta = (
+                        fused_rollout.fused_weighted_rollout(
+                            self.dynamics, self.cost, x0, U, self.dt, self.lam,
+                            lr_params=lr_params, weight_kind=self.weight_transform,
+                            weight_params=(self.tsallis_gamma, self.tsallis_r),
+                            split_cost=self.split_cost,
+                        )
                     )
-                )
-                w = self._transform_weights(costs, baseline)
-                return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
-            costs, crash = fused_rollout.fused_rollout_costs(
-                self.dynamics, self.cost, x0, U, self.dt, lr_params=lr_params,
-                split_cost=self.split_cost)
-        else:
+                    w = self._transform_weights(costs, baseline)
+                    return new_mean, samp_state, (U, costs, w, baseline, eta, crash)
+                except KernelIncompatible:
+                    pass
+            try:
+                costs, crash = fused_rollout.fused_rollout_costs(
+                    self.dynamics, self.cost, x0, U, self.dt, lr_params=lr_params,
+                    split_cost=self.split_cost)
+            except KernelIncompatible:
+                costs = None
+        if costs is None:  # the eager paths, and the kernels' fallback
             lr = self.sampler.likelihood_ratio_cost(
                 U, mean, self.lam, self.alpha, iteration=iteration)
             if self.kernel == "split":

@@ -6,6 +6,7 @@
 // update, then the yaw wrapped to [-pi, pi) by normalize_angle (fmodf and its
 // sign fix, math_utils.cuh, as torch.fmod in the plain version). The same
 // operations in the same order as the PyTorch version (--fmad=false).
+// state_deriv is the derivative alone, which the DDP ladder (B7) steps with.
 #pragma once
 
 #include <math.h>
@@ -22,15 +23,26 @@ struct Dubins {
   struct Shared {};
   __device__ static inline void stage(const float* /*params*/, Shared* /*sh*/) {}
 
-  __device__ static inline void step(const Shared& /*sh*/, float* x,
-                                     const float* u, float /*t*/, float dt,
-                                     float* y) {
+  // xdot = [u0 cos(yaw), u0 sin(yaw), u1] (DubinsDynamics.state_deriv, the
+  // JAX package's models/dubins.py:26-28). The DDP ladder's forward pass
+  // steps x <- x + xdot * dt with it and, as the TPU kernel does
+  // (pallas_riccati.py:263-264), does not wrap the yaw.
+  __device__ static inline void state_deriv(const Shared& /*sh*/, const float* x,
+                                            const float* u, float /*t*/,
+                                            float* xdot) {
     const float yaw = x[2];
-    const float xd0 = u[0] * cosf(yaw);
-    const float xd1 = u[0] * sinf(yaw);
-    x[0] = x[0] + xd0 * dt;
-    x[1] = x[1] + xd1 * dt;
-    x[2] = normalize_angle(x[2] + u[1] * dt);
+    xdot[0] = u[0] * cosf(yaw);
+    xdot[1] = u[0] * sinf(yaw);
+    xdot[2] = u[1];
+  }
+
+  __device__ static inline void step(const Shared& sh, float* x, const float* u,
+                                     float t, float dt, float* y) {
+    float xdot[S];
+    state_deriv(sh, x, u, t, xdot);
+    x[0] = x[0] + xdot[0] * dt;
+    x[1] = x[1] + xdot[1] * dt;
+    x[2] = normalize_angle(x[2] + xdot[2] * dt);
 #pragma unroll
     for (int i = 0; i < O; ++i) y[i] = x[i];
   }

@@ -12,11 +12,13 @@
 // (RMPPI_ENTRY).
 //
 // rmppi_rollout_kernel<Dyn, Cost>: one thread per sample, the T-step loop
-// inside the thread, both states in registers. No entry of the port's build
-// launches it: a network model runs the warp form of rmppi_warp.cuh, the
-// others the staged form of rmppi_staged.cuh, which takes any cost but a
-// StickyCrash one; -DMPPI_RMPPI_ONE_THREAD builds it for the latter, to time
-// the forms against each other. Every thread
+// inside the thread, both states in registers. A network model runs the
+// warp form of rmppi_warp.cuh, the others the staged form of
+// rmppi_staged.cuh, which takes any cost but a StickyCrash one and models
+// whose two stages fit the shared memory (rmppi_form); the bicycle (the
+// AutoRally cost's sticky crash) and the quadrotor (its stages past 227 KB)
+// launch this kernel, and -DMPPI_RMPPI_ONE_THREAD builds it for every model
+// without the warp form, to time the forms against each other. Every thread
 // first stages the model's parameters into shared memory (Dyn::Shared,
 // stage_model in mppi_common.cuh, before any sample past K returns), and
 // both systems step on the same staged copy. Per step, from the raw sample u_raw:
@@ -162,11 +164,23 @@ constexpr int kRmppiForm = 0;
 constexpr int kRmppiForm = 2;
 #endif
 
+// Whether the staged form's two stages (RmppiStage: a record a step and
+// sample of both states and both controls) fit the 227 KB of shared memory
+// a block of this card may opt in to. The quadrotor's 13 states and 4
+// controls take 321 KB: its B8 runs the one-thread kernel.
+template <class Dyn>
+constexpr bool rmppi_stages_fit() {
+  return 2 * sizeof(float) * RmppiStage<kRmppiSamples, Dyn::S, Dyn::C>::kFloats <=
+         227 * 1024;
+}
+
 // The form the pair's entry launches: 1 the warp form, 2 the staged form,
-// 0 the one-thread kernel.
+// 0 the one-thread kernel (a StickyCrash cost, or stages too large).
 template <class Dyn, class Cost>
 constexpr int rmppi_form() {
-  return HasWarpStep<Dyn>::value ? 1 : StickyCrash<Cost>::value ? 0 : kRmppiForm;
+  return HasWarpStep<Dyn>::value                                ? 1
+         : StickyCrash<Cost>::value || !rmppi_stages_fit<Dyn>() ? 0
+                                                                 : kRmppiForm;
 }
 
 // B8 for the pair (Dyn, Cost): the warp form (rmppi_warp.cuh) for a model

@@ -1,0 +1,18 @@
+// The robust family's entries of the cartpole with its quadratic cost (the
+// bench row cartpole_example_K8192's model and cost): B1 from one x0 per sample
+// (rollout_kernel.cuh: RMPPI's candidate nominal states, stage 1); B1's split
+// dynamics pass from one x0 per sample (split_kernels.cuh; the cost pass is
+// split_cartpole.cu's); the RMPPI rollout (B8, rmppi_kernel.cuh: stage 2). A
+// source of its own per pair, so that nvcc builds these entries in parallel
+// with the pair's other sources.
+
+#include "cartpole.cuh"
+#include "cartpole_quadratic_cost.cuh"
+#include "rmppi_kernel.cuh"
+#include "split_kernels.cuh"
+
+extern "C" {
+ROLLOUT_ENTRY(rollout_costs_x0_cartpole, Cartpole, CartpoleQuadraticCost, true)
+SPLIT_DYNAMICS_X0_ENTRY(cartpole, Cartpole)
+RMPPI_ENTRY(rmppi_rollout_cartpole, Cartpole, CartpoleQuadraticCost)
+}  // extern "C"

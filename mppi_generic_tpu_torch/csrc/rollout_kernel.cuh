@@ -289,9 +289,10 @@ rollout_costs_staged_kernel(const float* __restrict__ x0, const float* __restric
 //
 // What bounds it on this card: operations (the network's multiply-adds,
 // each a shared-memory load, a shuffle and a separate multiply and add
-// under --fmad=false, and the cost on every lane). JAX refuses the
-// per-sample x0 for a recurrent model (pallas_rollout.py:2417-2418), so no
-// X0 instance of one exists. The k >= K test is the same on every lane of a
+// under --fmad=false, and the cost on every lane). With X0 and a recurrent
+// model (the racer LSTMs' RMPPI candidates) x starts from row k of x0 and
+// (h, c) from the warm state for every sample, as the TPU kernel does
+// (pallas_rollout.py:646-662, :1247-1249). The k >= K test is the same on every lane of a
 // warp and comes after the staging barrier; no block barrier follows it, so
 // a warp past K leaves whole.
 template <class Dyn, class Cost, bool WITH_LR, bool X0>
@@ -299,8 +300,6 @@ __global__ void __launch_bounds__(32 * Dyn::kWarpSamples)
 rollout_costs_warp_kernel(const float* __restrict__ x0, const float* __restrict__ U, int K,
                           int T, float dt, ModelArgs m, LRArgs lr,
                           float* __restrict__ costs, int* __restrict__ crash_out) {
-  static_assert(!X0 || WarpRecDim<Dyn>::value == 0,
-                "B1 from one x0 per sample is not built for a recurrent model");
   constexpr int S = Dyn::S;
   constexpr int C = Dyn::C;
   constexpr int O = Dyn::O;

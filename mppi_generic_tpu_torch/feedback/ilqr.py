@@ -10,7 +10,10 @@ feedback_controllers/DDP/ddp.{cuh,cu}), with the same semantics:
 * tracking cost (x - x*)' Q (x - x*) + (u - u*)' R (u - u*) with gradient
   Q (x - x*) (Q absorbs the factor 2, ddp_tracking_costs.h:37-53) and the
   terminal cost through Q_f;
-* a Tikhonov-regularized Newton step in the backward pass;
+* a Tikhonov-regularized Newton step in the backward pass, or with
+  ``use_boxqp`` the control-constrained step of ``feedback/boxqp.py``
+  (bounds relative to the step's control, ddp.h's backward pass with
+  ddp/boxqp.h), as the JAX package's XLA scan takes it;
 * the forward pass over a fixed ladder of 14 line-search steps
   alpha = 1, 1/2, ..., each clamped to the control ranges; the first
   (largest) alpha whose cost does not exceed the previous iteration's is
@@ -20,8 +23,8 @@ feedback_controllers/DDP/ddp.{cuh,cu}), with the same semantics:
 as one call of ``ops.riccati.riccati_ladder_solve`` where the sizes are
 within ``ops.riccati.supported`` (S <= 8, C <= 4, T <= 1024): its CUDA
 kernel for a CUDA tensor, its plain version for a CPU tensor. Other sizes
-(the quadrotor's S = 13, the racer models') take the eager scan, as the
-JAX package takes its XLA scan there (ilqr.py:191-197); the choice is by
+(the quadrotor's S = 13, the racer models') and BoxQP take the eager scan,
+as the JAX package takes its XLA scan there (ilqr.py:191-197); the choice is by
 size alone, so a supported size whose dynamics has no compiled ladder
 entry still raises on CUDA. ``use_kernel=False`` is the eager scan with
 ``torch.linalg.solve`` (the JAX package's XLA path), kept as the oracle.
@@ -40,6 +43,7 @@ import torch
 from torch.func import jvp, vmap
 
 from mppi_generic_tpu_torch.feedback.base import FeedbackController
+from mppi_generic_tpu_torch.feedback.boxqp import boxqp, boxqp_gains
 from mppi_generic_tpu_torch.ops import riccati
 
 
@@ -90,7 +94,7 @@ def linearize(dynamics, xs, us, goal_x, goal_u, Q, R, Q_f, dt):
 
 def ilqr_tracking(dynamics, x0, u_init, goal_x, goal_u, Q, R, Q_f, dt,
                   iterations: int = 1, u_min=None, u_max=None,
-                  use_kernel: bool = True) -> DDPFeedbackState:
+                  use_boxqp: bool = False, use_kernel: bool = True) -> DDPFeedbackState:
     """Run iLQR tracking. Shapes: x0 (S,), u_init (T, C), goal_x (T, S),
     goal_u (T, C). Returns a DDPFeedbackState with gains (T, C, S)."""
     T, C = u_init.shape
@@ -117,7 +121,7 @@ def ilqr_tracking(dynamics, x0, u_init, goal_x, goal_u, Q, R, Q_f, dt,
             x = x + f(x, clamp(U[t])) * dt
         return torch.stack(xs)
 
-    def backward_pass(As, Bs, dLx, dLu, Vxx_T, Vx_T):
+    def backward_pass(us, As, Bs, dLx, dLu, Vxx_T, Vx_T):
         Ks = torch.zeros((T, C, S), dtype=torch.float32, device=x0.device)
         ks = torch.zeros((T, C), dtype=torch.float32, device=x0.device)
         Vx, Vxx = Vx_T, Vxx_T
@@ -129,8 +133,14 @@ def ilqr_tracking(dynamics, x0, u_init, goal_x, goal_u, Q, R, Q_f, dt,
             qux = B.T @ Vxx @ A
             qxx = Q * dt + A.T @ Vxx @ A
             quu = R * dt + B.T @ Vxx @ B + reg
-            Kk = -torch.linalg.solve(quu, qux)
-            kk = -torch.linalg.solve(quu, qu)
+            if use_boxqp:
+                # the control-constrained QP on du, bounded relative to
+                # the step's control (JAX ilqr.py:153-159)
+                kk, free = boxqp(quu, qu, u_min - us[t], u_max - us[t])
+                Kk = boxqp_gains(quu, qux, free)
+            else:
+                Kk = -torch.linalg.solve(quu, qux)
+                kk = -torch.linalg.solve(quu, qu)
             Vxx = qxx + qux.T @ Kk
             Vxx = 0.5 * (Vxx + Vxx.T)
             Vx = qx + qux.T @ kk
@@ -159,7 +169,7 @@ def ilqr_tracking(dynamics, x0, u_init, goal_x, goal_u, Q, R, Q_f, dt,
     xs = forward_rollout(x0, us)
     prev_cost = torch.full((), float("inf"), dtype=torch.float32, device=x0.device)
     alphas = _alpha_ladder(device=x0.device)
-    use_ladder = use_kernel and riccati.supported(S, C, T)
+    use_ladder = use_kernel and not use_boxqp and riccati.supported(S, C, T)
     gains = None
     for it in range(iterations):
         lin = linearize(dynamics, xs, us, goal_x, goal_u, Q, R, Q_f, dt)
@@ -168,7 +178,7 @@ def ilqr_tracking(dynamics, x0, u_init, goal_x, goal_u, Q, R, Q_f, dt,
                 dynamics, xs, us, *lin[:4], Q, R, Q_f, lin[4], lin[5], goal_x,
                 goal_u, alphas, u_min, u_max, dt, reg=1e-6)
         else:
-            gains, ks = backward_pass(*lin)
+            gains, ks = backward_pass(us, *lin)
             xns, uns, cs = forward_pass(xs, us, gains, ks, alphas)
         accept = cs <= prev_cost
         if it == 0:
@@ -191,9 +201,6 @@ class DDPFeedback(FeedbackController):
     def __init__(self, dynamics, dt, Q=None, R=None, Q_f=None,
                  num_iterations=1, use_boxqp=False, use_kernel=True):
         super().__init__()
-        if use_boxqp:
-            raise NotImplementedError(
-                "the BoxQP backward pass (feedback/boxqp.py) is not ported yet")
         S, C = dynamics.STATE_DIM, dynamics.CONTROL_DIM
         dev = dynamics.control_ranges.device
 
@@ -207,6 +214,7 @@ class DDPFeedback(FeedbackController):
         self.register_buffer("Q_f", f32(Q_f, S))
         self.dt = float(dt)
         self.num_iterations = int(num_iterations)
+        self.use_boxqp = bool(use_boxqp)
         self.use_kernel = bool(use_kernel)
 
     @classmethod
@@ -228,7 +236,8 @@ class DDPFeedback(FeedbackController):
         return ilqr_tracking(
             self.dynamics, x0, control_traj, goal_traj,
             torch.zeros_like(control_traj), self.Q, self.R, self.Q_f, self.dt,
-            iterations=self.num_iterations, use_kernel=self.use_kernel)
+            iterations=self.num_iterations, use_boxqp=self.use_boxqp,
+            use_kernel=self.use_kernel)
 
     def k(self, x, x_goal, t, fb_state: DDPFeedbackState):
         return fb_state.gains[t] @ (x - x_goal)

@@ -149,6 +149,15 @@ class Dynamics(nn.Module):
         del x
         return self.zero_control
 
+    def state_jacobian(self, x, u):
+        """(A, B): the continuous-time Jacobians df/dx (S, S) and df/du
+        (S, C) at one state x (S,) and control u (C,), by forward-mode AD
+        (the JAX package's jax.jacfwd, which replaces the reference's
+        hand-derived computeGrad)."""
+        A = torch.func.jacfwd(lambda s: self.state_deriv(s, u))(x)
+        B = torch.func.jacfwd(lambda c: self.state_deriv(x, c))(u)
+        return A, B
+
     def enforce_leash(self, state_true, state_nominal, leash):
         """The nominal state clamped to within the per-dimension ``leash``
         of the true state (dynamics.cuh:448-466; ColoredMPPI's state

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from mppi_generic_tpu_torch.maps.texture import MapTexture2D
+from mppi_generic_tpu_torch.models.base import broadcast_rec
 from mppi_generic_tpu_torch.models.racer_dubins import RacerDubinsDynamics
 from mppi_generic_tpu_torch.nn.lstm import LSTM, LSTMLSTM
 from mppi_generic_tpu_torch.utils import math_utils
@@ -265,9 +266,14 @@ class RacerDubinsElevationLSTMSteering(RacerDubinsElevationDynamics):
         return self._step_lstm(x, rec, u, t, dt, self.lstm.forward_axis0_plain)
 
     def step(self, x, u, t, dt):
-        """One step of one state (S,) from the warm (h, c), as the JAX
-        model's stateless step (the plant's step)."""
-        x_next, y, _ = self.step_recurrent(x, self.init_recurrent_state(), u, t, dt)
+        """One step from the warm (h, c), as the JAX model's stateless step
+        (the plant's step, and each step of RMPPI's eager augmented
+        rollout): of one state (S,), or of a batch (S, K), each column from
+        the warm state."""
+        rec = self.init_recurrent_state()
+        if x.dim() > 1:
+            rec = broadcast_rec(rec, x.shape[1])
+        x_next, y, _ = self.step_recurrent(x, rec, u, t, dt)
         return x_next, y
 
     def _lstm_check(self, lstm, want, what):

@@ -5,6 +5,7 @@ from mppi_generic_tpu_torch.ops.autotune import (
     time_solve,
 )
 from mppi_generic_tpu_torch.ops.fused_rollout import (
+    KernelIncompatible,
     flash_combine,
     fused_rmppi_rollout,
     fused_rollout_costs,
@@ -30,6 +31,7 @@ from mppi_generic_tpu_torch.ops.weights import (
 __all__ = [
     "DEFAULT_CANDIDATES",
     "FreeEnergyStats",
+    "KernelIncompatible",
     "cem_weights",
     "choose_appropriate_kernel",
     "compute_free_energy",

@@ -101,29 +101,39 @@ _LADDER = [
 # csrc/pair_<name>.cu and library, and the kernels named here (B1 "rollout":
 # rollout_costs_<name>, B3 "solve": fused_solve_<name>, B4 "sample":
 # fused_sample_rollout_<name>), so that nvcc builds the pairs in parallel.
-# B1's per-sample-x0 entries ("rollout_x0": rollout_costs_x0_<name>) are in
-# the one library of csrc/rollout_x0.cu, B8's ("rmppi": rmppi_rollout_<name>)
-# in that of csrc/rmppi_rollout.cu; the split form's ("split_dynamics",
-# "split_solve_dynamics", "split_cost": split_dynamics_<name>, ...; and
-# "split_dynamics_x0": split_dynamics_x0_<name>, B1's dynamics pass from one
-# x0 per sample) in the pair's csrc/split_<name>.cu (_KIND_LIBRARY). An
-# entry whose network or LSTM would add most of a source's build has a
-# source of its own (_ENTRY_LIBRARY).
+# B1's per-sample-x0 entries ("rollout_x0": rollout_costs_x0_<name>) of the
+# first pairs are in the one library of csrc/rollout_x0.cu, B8's ("rmppi":
+# rmppi_rollout_<name>) in that of csrc/rmppi_rollout.cu; the split form's
+# ("split_dynamics", "split_solve_dynamics", "split_cost":
+# split_dynamics_<name>, ...; and "split_dynamics_x0":
+# split_dynamics_x0_<name>, B1's dynamics pass from one x0 per sample) in the
+# pair's csrc/split_<name>.cu (_KIND_LIBRARY). An entry whose network or LSTM
+# would add most of a source's build has a source of its own, and so do the
+# robust family's entries of the later pairs, one csrc/robust_<name>.cu a
+# pair (_ENTRY_LIBRARY).
 _SPLIT = ("split_dynamics", "split_solve_dynamics", "split_cost")
+_ROBUST = ("rollout_x0", "rmppi", "split_dynamics_x0")
 PAIR_KERNELS = {
-    "di_circle": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT),
-    "di_robust": ("rollout_x0", "solve", "sample", "rmppi", "split_dynamics_x0",
-                  "split_cost"),
+    "di_circle": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT,
+                  "split_dynamics_x0"),
+    "di_robust": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT,
+                  "split_dynamics_x0"),
     "ar_nn": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT,
               "split_dynamics_x0"),
-    "bicycle_ar": ("rollout", "rollout_x0", "solve", "sample", *_SPLIT),
-    "cartpole": ("rollout", "solve", "sample", *_SPLIT),
-    "quadrotor_quadratic": ("rollout", "solve", "sample", *_SPLIT),
-    "quadrotor_map": ("rollout", "solve", "sample"),
-    "dubins_quadratic": ("rollout", "solve", "sample", *_SPLIT),
-    "di_quadratic": ("rollout", "solve", "sample", *_SPLIT),
-    "racer_steering_ar": ("rollout", "solve", "sample", *_SPLIT),
-    "racer_unc_ar": ("rollout", "solve", "sample", *_SPLIT),
+    "bicycle_ar": ("rollout", "rollout_x0", "solve", "sample", "rmppi", *_SPLIT,
+                   "split_dynamics_x0"),
+    "cartpole": ("rollout", "solve", "sample", *_SPLIT, *_ROBUST),
+    "quadrotor_quadratic": ("rollout", "solve", "sample", *_SPLIT, *_ROBUST),
+    "quadrotor_map": ("rollout", "solve", "sample", "rollout_x0", "rmppi"),
+    "dubins_quadratic": ("rollout", "solve", "sample", *_SPLIT, *_ROBUST),
+    "di_quadratic": ("rollout", "solve", "sample", *_SPLIT, *_ROBUST),
+    # no B8: the JAX package refuses a recurrent model there
+    # (pallas_rollout.py:302), and RMPPI's stage 2 runs the eager augmented
+    # rollout
+    "racer_steering_ar": ("rollout", "solve", "sample", *_SPLIT, "rollout_x0",
+                          "split_dynamics_x0"),
+    "racer_unc_ar": ("rollout", "solve", "sample", *_SPLIT, "rollout_x0",
+                     "split_dynamics_x0"),
 }
 _ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
                  "solve": "fused_solve_", "sample": "fused_sample_rollout_",
@@ -133,11 +143,16 @@ _ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
 _KIND_LIBRARY = {"rollout_x0": "rollout_x0", "rmppi": "rmppi_rollout",
                  **{kind: "split_{pair}" for kind in (*_SPLIT, "split_dynamics_x0")}}
 # the entries with a source of their own: B4 of the network and LSTM pairs
-# (csrc/sample_<name>.cu) and AutoRally's per-sample-x0 dynamics pass
+# (csrc/sample_<name>.cu), AutoRally's per-sample-x0 dynamics pass, and the
+# robust family's entries of the later pairs (csrc/robust_<name>.cu)
+_ROBUST_PAIRS = ("cartpole", "quadrotor_quadratic", "quadrotor_map", "dubins_quadratic",
+                 "di_quadratic", "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
 _ENTRY_LIBRARY = {
     **{(pair, "sample"): f"sample_{pair}"
        for pair in ("ar_nn", "racer_steering_ar", "racer_unc_ar")},
     ("ar_nn", "split_dynamics_x0"): "split_x0_ar_nn",
+    **{(pair, kind): f"robust_{pair}" for pair in _ROBUST_PAIRS for kind in _ROBUST
+       if kind in PAIR_KERNELS[pair] and (pair, kind) != ("bicycle_ar", "rollout_x0")},
 }
 
 
@@ -183,6 +198,7 @@ SIGNATURES = {
         "riccati_backward_s7c2": _BACKWARD,
         "riccati_ladder_di": _LADDER,
         "riccati_ladder_cartpole": _LADDER,
+        "riccati_ladder_dubins": _LADDER,
         "riccati_ladder_ar_nn": _LADDER,
     },
 }

@@ -49,11 +49,10 @@ entry reports (``form_kernel_name``).
   ``resolve_split`` picks: the combined kernel unless the cost declares
   ``time_parallel_cost`` or ``time_parallel_crash`` and ``AUTO_SPLIT``,
   measured on the H100, takes the split for the pair. True for an
-  ineligible cost raises, as in JAX (``QuadrotorMapCost``, a
-  ``QuadraticCost`` goal trajectory). Every pair of ``_PAIRS`` whose cost is
-  eligible has split entries; with one x0 per sample (RMPPI's candidates)
-  the dynamics pass has entries for the double integrator with its robust
-  cost and for AutoRally, and on the card any other pair raises there. The
+  ineligible cost raises ``KernelIncompatible``, as JAX raises
+  ``PallasIncompatible`` (``QuadrotorMapCost``, a ``QuadraticCost`` goal
+  trajectory). Every pair of ``_PAIRS`` whose cost is eligible has split
+  entries, from one x0 and from one x0 per sample (RMPPI's candidates). The
   plain version is ``split_rollout_plain``.
 * ``fused_sample_rollout_costs``: the samples drawn inside the kernel
   (Philox, ``ops/philox.py``) for the Gaussian, NLN and Smooth-MPPI
@@ -74,9 +73,8 @@ the Dubins car with ``QuadraticCost``; the racer LSTM-steering model on its
 elevation map and the racer LSTM-uncertainty model on flat ground, each with
 ``ARStandardCost`` on the racer output layout (the LSTM step, B10, inside
 the kernel, its (h, c) carried through the horizon loop). Each of them has
-B1, B3 and B4. The RMPPI kernel and the per-sample-x0 rollout have entries
-for the double integrator with its circle or its robust cost and for
-AutoRally with its costs (the per-sample-x0 rollout also for the bicycle).
+B1, B3 and B4, and the per-sample-x0 rollout; every pair but the two racer
+LSTMs, which the JAX kernel refuses there, has the RMPPI kernel.
 Each pair reads its parameters
 through ``Dynamics.kernel_params``, ``Dynamics.kernel_map`` (the racer
 elevation map) and ``Cost.kernel_map`` besides the cost's ``params`` table.
@@ -88,8 +86,16 @@ Each wrapper runs the kernel for CUDA tensors and the plain PyTorch version
 (``*_plain``, in this module, with the same arithmetic) for CPU tensors.
 The plain versions step with ``Dynamics.kernel_step_recurrent``, the
 model's step in the kernels' order of operations.
-There is no fallback: a CUDA tensor the kernel does not take raises. Every
-launch adds one to ``launch_counts`` under the kernel's name.
+There is no fallback inside the wrappers: a CUDA tensor the kernel does not
+take raises. Every launch adds one to ``launch_counts`` under the kernel's
+name. Where the JAX package's kernels raise ``PallasIncompatible`` for what
+they compute (a recurrent model in B8, ``split_cost=True`` with an
+ineligible cost, a weight kind or a sampler the kernels do not take,
+Smooth-MPPI without its state) the wrappers raise ``KernelIncompatible``,
+checked before any launch and on every device, and the controllers run
+their eager path there, as the JAX controllers run XLA. A pair the JAX
+package runs in its kernel and the port has no entry for raises a plain
+``NotImplementedError`` on the card, which no controller catches.
 
 ``lr_params`` is ``(mean (T, C), sigma (T, C), coeff (C,), lam, alpha,
 pure_threshold)`` as in the JAX package: tensors on the samples' device and
@@ -131,6 +137,7 @@ from mppi_generic_tpu_torch.utils.math_utils import true_div
 
 __all__ = [
     "AUTO_SPLIT",
+    "KernelIncompatible",
     "flash_combine",
     "fused_rmppi_rollout",
     "fused_rollout_costs",
@@ -145,6 +152,19 @@ __all__ = [
     "tsallis_block_rows",
     "tsallis_reduce",
 ]
+
+class KernelIncompatible(NotImplementedError, ValueError):
+    """What a kernel does not compute, found before any launch and on every
+    device: the counterpart of the JAX package's ``PallasIncompatible``,
+    raised only under its semantic conditions (a recurrent model in B8,
+    ``split_cost=True`` with an ineligible cost, a weight kind the epilogue
+    does not take, a sampler the in-kernel draw does not take, Smooth-MPPI
+    without its state). The controllers catch it and run their eager path,
+    as the JAX controllers run XLA. A ``NotImplementedError``, so the kernel
+    tuner skips such a candidate; a ``ValueError``, as the wrappers raised
+    for these inputs before. A missing pair entry or a failed build is not
+    one of these, and nothing catches it."""
+
 
 # samples per block of the rollout and sampling kernels (kBlockSamples in
 # csrc/mppi_common.cuh): one epilogue row per block
@@ -219,7 +239,20 @@ _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
 # 0.3787], racer steering 0.5504 / 0.5761 [0.5761, 0.5760], racer
 # uncertainty 1.5249 / 1.0652 [1.0652, 1.0652]. So the bicycle's B1 and B3,
 # the DI robust cost's B1-x0, AutoRally's B1 and B1-x0 and racer steering's
-# B1 and B3 split. Any other pair or kernel keeps the combined kernel.
+# B1 and B3 split. The entries of the finished robust family
+# (chip_smoke.py's finish_kernels, the whole split form against the combined
+# kernel at the loops' shapes; B1-x0 costs mode over 9 x 256 candidates'
+# samples, the DI robust cost's B1 epilogue + LR and B3 Gaussian at 8192 x
+# 100), split / combined [the combined A B B A turns]: DI circle B1-x0 (T=50)
+# 0.01214 / 0.01277 [0.01277, 0.01277]; cartpole B1-x0 0.03679 / 0.02578;
+# quadrotor quadratic B1-x0 0.07030 / 0.07573 [0.07571, 0.07574]; Dubins
+# B1-x0 0.03594 / 0.02816; DI quadratic B1-x0 0.02027 / 0.01154; bicycle
+# B1-x0 0.09310 / 0.14187 [0.14186, 0.14189]; racer steering B1-x0 0.65921 /
+# 0.78005 [0.78005, 0.78005]; racer uncertainty B1-x0 (T=150) 2.30674 /
+# 1.77622; DI robust B1 0.02347 / 0.02509 [0.02509, 0.02509], B3 0.05006 /
+# 0.04024. So the DI circle, quadrotor quadratic, bicycle and racer
+# steering B1-x0 and the DI robust cost's B1 split too. Any other pair or
+# kernel keeps the combined kernel.
 AUTO_SPLIT = {
     ("di_circle", "rollout"): False,
     ("di_circle", "solve"): False,
@@ -241,6 +274,16 @@ AUTO_SPLIT = {
     ("racer_unc_ar", "rollout"): False,
     ("racer_unc_ar", "solve"): False,
     ("di_robust", "rollout_x0"): True,
+    ("di_robust", "rollout"): True,
+    ("di_robust", "solve"): False,
+    ("di_circle", "rollout_x0"): True,
+    ("cartpole", "rollout_x0"): False,
+    ("quadrotor_quadratic", "rollout_x0"): True,
+    ("dubins_quadratic", "rollout_x0"): False,
+    ("di_quadratic", "rollout_x0"): False,
+    ("bicycle_ar", "rollout_x0"): True,
+    ("racer_steering_ar", "rollout_x0"): True,
+    ("racer_unc_ar", "rollout_x0"): False,
 }
 
 
@@ -292,12 +335,14 @@ def resolve_split(dynamics, cost, split_cost, kernel="rollout") -> bool:
     """The split choice of one launch (JAX ``_arbitrate_split``): True
     raises ValueError for an ineligible cost, False never splits, None
     (AUTO) splits an eligible cost where ``AUTO_SPLIT`` says so for the pair
-    and ``kernel`` ("rollout", "rollout_x0" or "solve"). The same on every
+    and ``kernel`` ("rollout", "rollout_x0" or "solve"); the refusal is a
+    ``KernelIncompatible``, as JAX's is a ``PallasIncompatible``
+    (pallas_rollout.py:273). The same on every
     device, so the plain versions run what the kernels run. A choice forced
     against AUTO counts in ``_build.forced_routes``."""
     eligible = split_eligible(cost)
     if split_cost is True and not eligible:
-        raise ValueError(
+        raise KernelIncompatible(
             f"{type(cost).__name__} declares neither time_parallel_cost() nor "
             "time_parallel_crash(): the split cost pass needs a time-"
             "broadcastable cost whose crash is unused or sticky-prefix")
@@ -1076,7 +1121,8 @@ def fused_weighted_rollout(dynamics, cost, x0, U, dt, lam, lr_params=None,
         new_mean, _, eta = flash_combine(rows, T, C, 1.0)
         return costs, crash, new_mean, rho, eta
     if weight_kind != "exp":
-        raise ValueError(f"weight_kind must be 'exp' or 'tsallis', got {weight_kind!r}")
+        raise KernelIncompatible(
+            f"the fused epilogue takes weight_kind 'exp' or 'tsallis', got {weight_kind!r}")
     costs, crash, carry = rollout_block_carries(dynamics, cost, x0, U, dt, lam,
                                                 lr_params, split_cost)
     new_mean, baseline, eta = flash_combine(carry, T, C, lam)
@@ -1110,9 +1156,15 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
     (s_nom, j_real, s_fb (K,), crash_real (K,) int32, U_real (K, T, C)):
     s_nom = (sum running_nom + terminal) / T, j_real the same for the real
     system, s_fb = (sum (running_real + fb cost) + terminal_real) / T.
-    The inputs are checked as the kernel takes them on every device."""
+    The inputs are checked as the kernel takes them on every device; a
+    recurrent model raises ``KernelIncompatible``, as the JAX kernel refuses
+    it (pallas_rollout.py:302), and RMPPI runs its eager augmented rollout."""
     K, T, C = U.shape
     S = dynamics.STATE_DIM
+    if dynamics.init_recurrent_state() is not None:
+        raise KernelIncompatible(
+            f"the RMPPI rollout kernel does not carry the recurrent state of "
+            f"{type(dynamics).__name__}")
     constraints = constraint_table(dynamics)
     _check_tensors({"U": U, "x0_nom": (x0_nom, (S,)), "x0_real": (x0_real, (S,)),
                     "gains": (gains, (T, C, S)), "sigma": (sigma, (T, C)),
@@ -1148,10 +1200,10 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
 def noise_kind(sampler) -> int:
     """GAUSSIAN, NLN or SMOOTH: which noise the fused sampling kernels draw
     for ``sampler``. Any other sampler raises, as the JAX kernels refuse it
-    (pallas_rollout.py:2520-2535)."""
+    (pallas_rollout.py:2520-2535), with ``KernelIncompatible``."""
     kind = _NOISE_KIND.get(type(sampler))
     if kind is None:
-        raise NotImplementedError(
+        raise KernelIncompatible(
             "the fused sampling kernels draw the noise of the Gaussian, NLN and "
             f"Smooth-MPPI samplers, not of {type(sampler).__name__}")
     return kind
@@ -1173,8 +1225,9 @@ def sample_tables(sampler, kind, mean, iteration, sampler_state=None):
     if kind == NLN:
         return sigma, sampler.std_dev.expand(T, C).contiguous()
     if kind == SMOOTH:
-        if sampler_state is None:
-            raise ValueError("Smooth-MPPI needs sampler_state (the derivative mean)")
+        if sampler_state is None:  # pallas_rollout.py:2524, before any launch
+            raise KernelIncompatible(
+                "Smooth-MPPI needs sampler_state (the derivative mean)")
         return sigma, sampler_state
     return sigma, None
 
@@ -1343,7 +1396,7 @@ def fused_sample_rollout_costs(dynamics, cost, sampler, x0, mean, seed, dt, lam,
     CPU tensors run the plain version, CUDA tensors the kernel."""
     kind = noise_kind(sampler)
     if epilogue and kind != SMOOTH:
-        raise NotImplementedError(
+        raise KernelIncompatible(
             "the sampling kernel's flash epilogue is Smooth-MPPI's, over W; the "
             "Gaussian and NLN samplers take fused_solve_iteration")
     T, C = mean.shape

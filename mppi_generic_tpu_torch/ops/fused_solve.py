@@ -52,8 +52,8 @@ __all__ = ["fused_solve_carries", "fused_solve_iteration", "fused_solve_plain",
 
 def _solve_kind(sampler) -> int:
     kind = fr.noise_kind(sampler)
-    if kind == fr.SMOOTH:
-        raise NotImplementedError(
+    if kind == fr.SMOOTH:  # pallas_solve.py:546
+        raise fr.KernelIncompatible(
             "the fused solve kernel draws the Gaussian and NLN samplers' noise; "
             "Smooth-MPPI takes fused_sample_rollout_costs(epilogue=True)")
     return kind

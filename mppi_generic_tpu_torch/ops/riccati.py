@@ -17,7 +17,10 @@ replace its two TPU kernels.
 
 The backward kernel has entries for (S, C) = (4, 2), (4, 1) and (7, 2) (the
 double integrator's, the cartpole's and AutoRally's sizes), the ladder for
-the double integrator, the cartpole and AutoRally's network dynamics. The
+the double integrator, the cartpole, the Dubins car and AutoRally's network
+dynamics. The ladder steps x + f(x, u) dt with the model's derivative, as
+the TPU kernel does (pallas_riccati.py:263-264): it does not wrap the Dubins
+car's yaw, which the model's own step does. The
 ladder runs its recursion spread over a warp and, for AutoRally, one warp
 per line-search step (``riccati_ladder_warp_kernel``); the backward kernel
 runs the same recursion over the one warp of its block
@@ -45,6 +48,7 @@ import torch
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
+from mppi_generic_tpu_torch.models.dubins import DubinsDynamics
 from mppi_generic_tpu_torch.ops import _build
 from mppi_generic_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from mppi_generic_tpu_torch.ops.fused_rollout import (
@@ -75,6 +79,7 @@ _BACKWARD_ENTRY = {(4, 2): "riccati_backward_s4c2", (4, 1): "riccati_backward_s4
 # -> C entry point (csrc/riccati.cu)
 _LADDER_ENTRY = {DoubleIntegratorDynamics: "riccati_ladder_di",
                  CartpoleDynamics: "riccati_ladder_cartpole",
+                 DubinsDynamics: "riccati_ladder_dubins",
                  AutorallyNNDynamics: "riccati_ladder_ar_nn"}
 
 

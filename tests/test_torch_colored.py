@@ -340,10 +340,20 @@ def test_shaping_function_overrides_the_transform(monkeypatch, fresh_jit_cache):
 
 
 def test_colored_sampler_refuses_the_in_kernel_draw():
+    """The kernels refuse to draw colored noise (``KernelIncompatible``, JAX's
+    ``PallasIncompatible``), and ``fused_solve`` then draws it eagerly and
+    takes the eager rollout, as JAX pallas_fused falls back to XLA."""
+    from mppi_generic_tpu_torch.ops import KernelIncompatible, fused_solve
+
     parts = (DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost(),
              ColoredNoiseDistribution.create(exponents=[1.0, 1.0], std_dev=[1.0, 1.0]))
-    with pytest.raises(NotImplementedError, match="kernel='fused'"):
-        VanillaMPPI(*parts, kernel="fused_solve", device="cpu")
+    with pytest.raises(KernelIncompatible, match="ColoredNoiseDistribution"):
+        fused_solve.fused_solve_iteration(*parts, torch.zeros(4), torch.zeros((8, 2)), 0,
+                                          0.02, 1.0, 0.0, 16)
+    ctrl = VanillaMPPI(*parts, kernel="fused_solve", num_timesteps=8, num_rollouts=16,
+                       device="cpu")
+    res, _ = ctrl.solve(torch.tensor([2.0, 0.0, 0.0, 1.0]), ctrl.init_state(seed=1))
+    assert torch.isfinite(res.control_mean).all() and res.costs.shape == (16,)
     with pytest.raises(ValueError, match="exponent"):
         ColoredNoiseDistribution.create(exponents=[1.0], std_dev=[1.0, 1.0])
 

@@ -148,7 +148,8 @@ def test_rollout_costs_kernel_per_sample_x0_matches_plain(cuda_device, K):
     dyn = DoubleIntegratorDynamics.create(device=cuda_device)
     cost = DoubleIntegratorCircleCost(device=cuda_device)
     fr.reset_launch_counts()
-    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT)
+    # the combined kernel (AUTO takes the split form for this pair's B1-x0)
+    kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0s, U, DT, split_cost=False)
     torch.cuda.synchronize()
     assert fr.launch_counts["rollout_costs_staged_kernel"] == 1
     pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0s, U, DT)
@@ -440,15 +441,25 @@ def test_ar_kernels_refuse_what_they_are_not_built_for(cuda_device):
     moved = ARStandardCost(output_indices=(1, 0, 2, 3, 4, 5), device=cuda_device)
     with pytest.raises(NotImplementedError, match="output"):
         fr.fused_rollout_costs(dyn, moved, x0, U, DT)
-    # the RMPPI kernel has AutoRally's entry, not the bicycle's
+    # the RMPPI kernel has the bicycle's entry too (its sticky cost: the
+    # one-thread form), equal to its plain version
     bicycle = BicycleSlipDynamics.create(device=cuda_device)
     xb = torch.zeros((bicycle.STATE_DIM,), device=cuda_device)
     bcost = ARStandardCost(output_indices=(0, 1, 2, 8, 5, 6), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="RMPPI"):
-        fr.fused_rmppi_rollout(bicycle, bcost, xb, xb, U,
-                               torch.zeros((T, C, bicycle.STATE_DIM), device=cuda_device),
-                               torch.ones((T, C), device=cuda_device),
-                               torch.ones((C,), device=cuda_device), DT, LAM, ALPHA)
+    Ub = 0.3 * torch.randn((64, T, C), generator=torch.Generator(device=cuda_device)
+                           .manual_seed(5), device=cuda_device)
+    args = (bicycle, bcost, xb, xb + 0.05, Ub,
+            -0.1 * torch.ones((T, C, bicycle.STATE_DIM), device=cuda_device),
+            torch.ones((T, C), device=cuda_device), torch.ones((C,), device=cuda_device),
+            DT, LAM, ALPHA)
+    fr.reset_launch_counts()
+    kout = fr.fused_rmppi_rollout(*args)
+    pout = fr.rmppi_rollout_plain(*args)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"rmppi_rollout_bicycle_ar": 1}
+    assert fr.launch_counts["rmppi_rollout_kernel"] == 1
+    for k, p in zip(kout, pout):
+        assert torch.equal(k, p)
 
 
 def mean_tolerance(rf, rc, U, lam):
@@ -793,11 +804,19 @@ def test_quadratic_entries_refuse_another_output_dim(cuda_device):
     U = torch.zeros((64, T, C), device=cuda_device)
     with pytest.raises(NotImplementedError, match="OUTPUT_DIM"):
         fr.fused_rollout_costs(dyn, cost, torch.zeros(4, device=cuda_device), U, DT)
-    # the zoo's rollout entries have no per-sample x0 mode (RMPPI's)
+    # the zoo's per-sample-x0 entries (RMPPI's stage 1) launch and equal
+    # their plain version
     cdyn, ccost, _, _, _ = _zoo_parts("cartpole", cuda_device)
-    with pytest.raises(NotImplementedError, match="per-sample x0"):
-        fr.fused_rollout_costs(cdyn, ccost, torch.zeros((64, 4), device=cuda_device),
-                               torch.zeros((64, T, 1), device=cuda_device), DT)
+    X0 = 0.1 * torch.randn((64, 4), generator=torch.Generator(device=cuda_device)
+                           .manual_seed(6), device=cuda_device)
+    U1 = torch.randn((64, T, 1), generator=torch.Generator(device=cuda_device)
+                     .manual_seed(7), device=cuda_device)
+    fr.reset_launch_counts()
+    kc, kcrash = fr.fused_rollout_costs(cdyn, ccost, X0, U1, DT, split_cost=False)
+    pc, pcrash = fr.rollout_costs_plain(cdyn, ccost, X0, U1, DT)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"rollout_costs_x0_cartpole": 1}
+    assert torch.equal(kc, pc) and torch.equal(kcrash, pcrash)
 
 
 # --- the racer LSTM models: the recurrent LSTM step (B10) in B1 and B3 ---
@@ -1247,10 +1266,10 @@ def test_split_solve_kernels_match_plain(cuda_device, K, pair, kind, inject):
 @pytest.mark.cuda
 def test_split_cost_true_raises_without_an_entry(cuda_device):
     """split_cost=True on the card: the cartpole (an eligible cost with
-    split entries) and one x0 per sample for the DI robust cost (RMPPI's
-    candidates) launch the split kernels; a pair without a per-sample-x0
-    split entry (the DI circle cost) raises; an ineligible cost raises on
-    every device."""
+    split entries) and one x0 per sample for the DI robust cost and the DI
+    circle cost (RMPPI's candidates, the bench row's stage 1) launch the
+    split kernels; an ineligible cost raises KernelIncompatible (a
+    ValueError) on every device."""
     x0c = torch.zeros(4, device=cuda_device)
     U1 = torch.zeros((64, T, 1), device=cuda_device)
     cart, ccost = CartpoleDynamics.create(device=cuda_device), CartpoleQuadraticCost(device=cuda_device)
@@ -1274,9 +1293,12 @@ def test_split_cost_true_raises_without_an_entry(cuda_device):
     assert fr.entry_counts == {"split_dynamics_x0_di_robust": 1, "split_cost_di_robust": 1}
     _close(kc, fr.split_rollout_plain(rdyn, rcost, X0, U, DT)[0], rtol=0, atol=0)
     dyn, cost, x0, _ = _split_parts("di_circle", cuda_device)
-    with pytest.raises(NotImplementedError, match="x0"):
-        fr.fused_rollout_costs(dyn, cost, x0.expand(64, 4).contiguous(), U, DT,
-                               split_cost=True)
+    X0 = x0.expand(64, 4).contiguous()
+    fr.reset_launch_counts()
+    kc, _ = fr.fused_rollout_costs(dyn, cost, X0, U, DT, split_cost=True)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {"split_dynamics_x0_di_circle": 1, "split_cost_di_circle": 1}
+    _close(kc, fr.split_rollout_plain(dyn, cost, X0, U, DT)[0], rtol=0, atol=0)
     qcost = QuadrotorMapCost(device=cuda_device)
     assert not qcost.time_parallel_cost() and not qcost.time_parallel_crash()
     quad = QuadrotorDynamics.create(device=cuda_device)
@@ -1720,15 +1742,21 @@ def test_rmppi_warp_autorally_matches_plain(cuda_device, K, robust):
 @pytest.mark.cuda
 def test_sample_and_rmppi_entries_report_their_form(cuda_device):
     """The network pairs' B4 and B8 entries launch the warp form, every
-    other pair's B4 and B8 the staged form (``<entry>_form``)."""
+    other pair's B4 and B8 the staged form (``<entry>_form``), but B8 of
+    the bicycle (its cost's sticky crash) and of the quadrotor (its two
+    staged stages would pass 227 KB of shared memory): the one-thread
+    kernel (``rmppi_form``)."""
     from mppi_generic_tpu_torch.ops import _build
 
+    one_thread_b8 = ("bicycle_ar", "quadrotor_quadratic", "quadrotor_map")
     for pair in _build.PAIR_KERNELS:
         for kind, base in (("sample", "fused_sample_rollout"), ("rmppi", "rmppi_rollout")):
             entry = _build.pair_entry(pair, kind)
             if entry is None:
                 continue
             want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_staged_kernel"
+            if kind == "rmppi" and pair in one_thread_b8:
+                want = f"{base}_kernel"
             assert fr.form_kernel_name(base, entry) == want, (pair, kind)
 
 

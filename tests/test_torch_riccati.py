@@ -149,8 +149,15 @@ def test_riccati_wrappers_refuse_unsupported_sizes():
             DoubleIntegratorDynamics.create(),
             *[_t(q[n]) for n in _LADDER_ARGS[:13]], torch.ones(129),
             _t(q["u_min"]), _t(q["u_max"]), DT)
-    with pytest.raises(NotImplementedError, match="BoxQP"):
-        DDPFeedback.create(DoubleIntegratorDynamics.create(), DT, use_boxqp=True)
+    # BoxQP takes the eager scan whatever use_kernel says, as in JAX
+    # (ilqr.py:191): the ladder's sizes no longer refuse it
+    dyn = DoubleIntegratorDynamics.create(control_ranges=[[-0.5, 0.5], [-0.5, 0.5]])
+    x0, goal_x, u_init, Q, R, Qf = _tracking_problem(3)
+    outs = [ilqr_tracking(dyn, _t(x0), _t(u_init), _t(goal_x), torch.zeros((T, C)),
+                          _t(Q), _t(R), _t(Qf), DT, use_boxqp=True, use_kernel=k)
+            for k in (True, False)]
+    assert torch.equal(outs[0].gains, outs[1].gains)
+    assert DDPFeedback.create(dyn, DT, use_boxqp=True).use_boxqp
 
 
 @pytest.fixture

@@ -226,17 +226,19 @@ def _pair_classes():
 @pytest.mark.parametrize("name", sorted(set(fr._PAIRS.values())))
 def test_every_pair_has_the_kernels_jax_runs_it_on(name):
     """Each pair of ``fr._PAIRS`` resolves its entries by name, with no
-    card: B3 and B4 for every pair, the split kinds for every pair whose
-    cost is eligible (the robust DI cost's only with one x0 per sample, its
-    one split use), the per-sample-x0 split for the pairs on an RMPPI path
-    with B8."""
+    card: B1, B3 and B4 for every pair, the split kinds for every pair whose
+    cost is eligible (the robust DI cost's too), B1 from one x0 per sample
+    for every pair and its split for every eligible one, B8 for every pair
+    but the racer LSTMs (JAX refuses a recurrent model there). The robust
+    family's entries of the later pairs live in ``robust_<pair>``."""
     dyn_cls, cost_cls = _pair_classes()[name]
     dyn, cost = object.__new__(dyn_cls), object.__new__(cost_cls)
-    kinds = {"sample": True, "solve": True,
-             "split_dynamics": name in SPLIT_PAIRS + ("di_circle", "ar_nn"),
-             "split_solve_dynamics": name in SPLIT_PAIRS + ("di_circle", "ar_nn"),
-             "split_cost": name in SPLIT_PAIRS + ("di_circle", "ar_nn", "di_robust"),
-             "split_dynamics_x0": name in ("di_robust", "ar_nn")}
+    eligible = name in SPLIT_PAIRS + ("di_circle", "ar_nn", "di_robust")
+    kinds = {"sample": True, "solve": True, "rollout": True, "rollout_x0": True,
+             "rmppi": name not in ("racer_steering_ar", "racer_unc_ar"),
+             "split_dynamics": eligible, "split_solve_dynamics": eligible,
+             "split_cost": eligible, "split_dynamics_x0": eligible}
+    first = ("di_circle", "di_robust", "ar_nn")
     for kind, has in kinds.items():
         if not has:
             with pytest.raises(NotImplementedError, match="no CUDA"):
@@ -244,9 +246,16 @@ def test_every_pair_has_the_kernels_jax_runs_it_on(name):
             continue
         lib, fn = fr._entry(dyn, cost, kind)
         assert fn == fr._build._ENTRY_PREFIX[kind] + name
-        assert lib == {("sample", "ar_nn"): "sample_ar_nn",
-                       ("sample", "racer_steering_ar"): "sample_racer_steering_ar",
-                       ("sample", "racer_unc_ar"): "sample_racer_unc_ar",
-                       ("split_dynamics_x0", "ar_nn"): "split_x0_ar_nn"}.get(
-            (kind, name), f"split_{name}" if kind.startswith("split") else f"pair_{name}")
+        robust = kind in ("rollout_x0", "rmppi", "split_dynamics_x0")
+        if robust and name not in first and (name, kind) != ("bicycle_ar", "rollout_x0"):
+            want = f"robust_{name}"
+        elif kind in ("rollout_x0", "rmppi"):
+            want = {"rollout_x0": "rollout_x0", "rmppi": "rmppi_rollout"}[kind]
+        else:
+            want = {("sample", "ar_nn"): "sample_ar_nn",
+                    ("sample", "racer_steering_ar"): "sample_racer_steering_ar",
+                    ("sample", "racer_unc_ar"): "sample_racer_unc_ar",
+                    ("split_dynamics_x0", "ar_nn"): "split_x0_ar_nn"}.get(
+                (kind, name), f"split_{name}" if kind.startswith("split") else f"pair_{name}")
+        assert lib == want
         assert fn in fr._build.SIGNATURES[lib]

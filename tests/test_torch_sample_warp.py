@@ -202,7 +202,9 @@ def test_every_sample_and_rmppi_entry_declares_its_form():
                 assert _build.SIGNATURES[lib][fn + "_form"] == []
                 declared[kind].add(pair)
     assert declared["sample"] == set(fr._PAIRS.values())
-    assert declared["rmppi"] == {"di_circle", "di_robust", "ar_nn"}
+    # B8 for every pair but the racer LSTMs (JAX refuses a recurrent model)
+    assert declared["rmppi"] == set(fr._PAIRS.values()) - {"racer_steering_ar",
+                                                           "racer_unc_ar"}
 
 
 class _StubLibrary:

@@ -317,8 +317,9 @@ def test_every_solve_and_rollout_entry_declares_its_form():
                 assert _build.SIGNATURES[lib][fn + "_form"] == []
                 declared[kind].add(pair)
     assert declared["solve"] == set(fr._PAIRS.values())
-    assert declared["rollout_x0"] == {"di_circle", "di_robust", "ar_nn", "bicycle_ar"}
-    assert declared["rollout"] == set(fr._PAIRS.values()) - {"di_robust"}
+    # every pair has B1 from one x0 and from one x0 per sample (RMPPI's stage 1)
+    assert declared["rollout_x0"] == set(fr._PAIRS.values())
+    assert declared["rollout"] == set(fr._PAIRS.values())
     assert {"rollout_costs_staged_kernel", "fused_solve_staged_kernel",
             "fused_solve_warp_kernel", "block_carry_tiled_kernel"} <= set(_build.launch_counts)
 

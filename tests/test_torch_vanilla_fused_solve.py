@@ -238,24 +238,35 @@ def test_nln_closed_loop_stays_on_the_band(one_thread):
 
 
 def test_paths_not_ported_raise():
+    """The configurations the port refused before JAX's fallbacks were
+    ported now run: the colored sampler and a sampler the kernels do not
+    draw (a subclass) on ``fused_solve`` take the eager draw and rollout, so
+    with the same normals they give ``kernel="combined"``'s solve to the
+    last bit (JAX pallas_fused falls back to XLA there, vanilla.py:187-253);
+    Tube-MPPI takes Smooth-MPPI's state."""
     parts = (DoubleIntegratorDynamics.create(), DoubleIntegratorCircleCost())
-    with pytest.raises(NotImplementedError, match="colored"):
-        VanillaMPPI(*parts, ColoredNoiseDistribution.create(exponents=[1.0, 1.0],
-                                                            std_dev=[1.0, 1.0]),
-                    kernel="fused_solve", device="cpu")
-    with pytest.raises(NotImplementedError, match="stateful"):
-        TubeMPPI(*parts, SmoothMPPIDistribution.create(std_dev=[1.0, 1.0],
-                                                       num_timesteps=8),
-                 num_timesteps=8, num_rollouts=16, device="cpu")
+    x = torch.tensor([2.0, 0.0, 0.0, 1.0])
+    colored = ColoredNoiseDistribution.create(exponents=[1.0, 1.0], std_dev=[1.0, 1.0])
 
     class OtherSampler(NLNDistribution):
         pass
 
-    ctrl = VanillaMPPI(*parts, OtherSampler.create(std_dev=[1.0, 1.0]),
-                       kernel="fused_solve", num_timesteps=8, num_rollouts=16,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="OtherSampler"):
-        ctrl.solve(torch.tensor([2.0, 0.0, 0.0, 1.0]), ctrl.init_state())
+    other = OtherSampler.create(std_dev=[1.0, 1.0])
+    z = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 16, 2, 9)).astype("f"))
+    for samp, noise in ((colored, z), (other, z[:, :, :, :8].transpose(2, 3))):
+        res = {}
+        for kernel in ("fused_solve", "combined"):
+            ctrl = VanillaMPPI(*parts, samp, kernel=kernel, num_timesteps=8,
+                               num_rollouts=16, device="cpu")
+            res[kernel], _ = ctrl.solve(x, ctrl.init_state(), injected_noise=noise)
+        assert torch.equal(res["fused_solve"].control_mean, res["combined"].control_mean)
+        assert torch.equal(res["fused_solve"].costs, res["combined"].costs)
+    tube = TubeMPPI(*parts, SmoothMPPIDistribution.create(std_dev=[1.0, 1.0],
+                                                          num_timesteps=8),
+                    num_timesteps=8, num_rollouts=16, device="cpu")
+    cs = tube.init_state()
+    res, cs = tube.solve(x, tube.slide_control_sequence(cs, 1))
+    assert cs.sampler_state.shape == (8, 2) and torch.isfinite(res.real.control_mean).all()
 
 
 def test_return_samples_keeps_the_clamped_samples():
