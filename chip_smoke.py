@@ -120,7 +120,16 @@ the racer uncertainty model, stage 1 combined then forced split; Tube and
 the split ``fused`` and ``fused_solve`` on the DI robust cost; the bench
 RMPPI row with ``split_cost=True``; Tube and RMPPI with Smooth-MPPI; RMPPI
 with BoxQP) and CCM's law and BoxQP's gains against their CPU runs
-(``ccm_boxqp``). Each phase prints one JSON
+(``ccm_boxqp``). Then the rest of the racer family (``racer_family``): B1,
+B3 and B4 of RACER Dubins, its elevation model, RacerSuspension, the bicycle
+on its elevation map and the suspension model with its steering LSTM, and
+the racer_unc_ar entries on an elevation map, each against its plain
+version at 1920 samples (the modes its loops launch) and 1901 × 17 (every
+mode), on the bench's 128^2 elevation and track maps; their loops
+(``family_loops``: two steps each on ``fused_solve`` and ``fused``, one on
+``fused_solve`` with Smooth-MPPI, the uncertainty model through
+``instantiations.racer_lstm_mppi``; the bicycle with a normals map, refused
+by the wrappers, one eager step). Each phase prints one JSON
 line;
 ``build`` and ``total`` give the build's and the whole run's seconds. The line before the last lists every kernel with its launches on
 the main path, its error against the plain version and its times; the last
@@ -176,12 +185,17 @@ from mppi_generic_tpu_torch.nn import FNN
 from mppi_generic_tpu_torch.models import (
     AutorallyNNDynamics,
     BicycleSlipDynamics,
+    BicycleSlipParametricElevation,
     CartpoleDynamics,
     DoubleIntegratorDynamics,
     DubinsDynamics,
     QuadrotorDynamics,
+    RacerDubinsDynamics,
+    RacerDubinsElevationDynamics,
     RacerDubinsElevationLSTMSteering,
     RacerDubinsElevationLSTMUncertainty,
+    RacerDubinsElevationSuspension,
+    RacerSuspensionDynamics,
     rollout_single,
 )
 from mppi_generic_tpu_torch.ops import _build, autotune, fused_solve, philox, riccati, weights
@@ -373,6 +387,18 @@ def time_plain(fn, pair=None):
     if pair in RACER_PAIRS:
         return time_ms(fn, 1, warmup=0)
     return time_ms(fn, N_TIMED_PLAIN_AR, warmup=1)
+
+
+def plain_timed(fn):
+    """(fn's outputs, its device ms): one run of a plain version, timed by
+    CUDA events (its checks take its outputs)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -1859,9 +1885,10 @@ SWINGUP_STEPS = 500
 # B1's warp form joined the run, cut for time)
 ZOO_B1_STEPS = 10
 # loops without a task bar, cut for time (100 steps each until the staged
-# split passes' checks joined the run)
-CARTPOLE_ROW_STEPS = 50  # the bench row cartpole_example_K8192 on fused_solve
-TSALLIS_HOVER_STEPS = 50  # the hover with Tsallis weights (pair_loops)
+# split passes' checks joined the run; 50 until the rest of the racer family
+# joined it)
+CARTPOLE_ROW_STEPS = 30  # the bench row cartpole_example_K8192 on fused_solve
+TSALLIS_HOVER_STEPS = 30  # the hover with Tsallis weights (pair_loops)
 LAM_DIVISION = 0.3  # an inexact reciprocal, for the host-scalar division check
 # Operations per sample-step of each model and cost (csrc/*.cuh; a
 # transcendental, sqrtf and fmodf as OPS_TRANSCENDENTAL, powf as two):
@@ -2125,11 +2152,14 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                  "fused_sample_rollout_kernel": [], "flash_combine_kernel": []}
     times, crashed = {}, {}
 
-    def timing(kernel, plain, work, with_plain, form=None):
-        # form: (kind, mode) of a B3 or B1 launch, A B B A at the path's shape
+    def timing(kernel, plain, work, with_plain, form=None, run_ms=None):
+        # form: (kind, mode) of a B3 or B1 launch, A B B A at the path's shape;
+        # run_ms: the check's own run of the plain version, timed, which a
+        # racer row's plain time is (time_plain would repeat that one run)
         t = {"ms": (form_time(kernel, pair, *form, timed_plain) if form
                     else time_ms(kernel, N_TIMED)),
-             "plain_ms": time_plain(plain, pair) if with_plain else None}
+             "plain_ms": ((run_ms if pair in RACER_PAIRS else time_plain(plain, pair))
+                          if with_plain else None)}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         return t
 
@@ -2171,9 +2201,9 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
         # the three "+lr" modes share one plain rollout
         with_lr = lrp is not None
         if with_lr not in plain_costs:
-            plain_costs[with_lr] = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp)
-        pc, pcrash = plain_costs[with_lr]
-        torch.cuda.synchronize()
+            plain_costs[with_lr] = plain_timed(
+                lambda lrp=lrp: fr.rollout_costs_plain(dyn, cost, x0, U, DT, lrp))
+        (pc, pcrash), run_ms = plain_costs[with_lr]
         name = f"B1 {mode}"
         same(f"{pair} {name} crash flags", kout[1], pcrash)
         by_kernel["rollout_costs_kernel"].append(check(f"{pair} {name} costs", kout[0], pc,
@@ -2189,7 +2219,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
         if mode.startswith("tsallis"):
             same(f"{pair} {name} block minima", kout[2], fr.block_minima_plain(pc))
         times[name] = timing(kernel, plain, zoo_rollout_work(dyn, cost, ops, K, T_, mode),
-                             timed_plain and mode == "epilogue+lr", ("rollout", mode))
+                             timed_plain and mode == "epilogue+lr", ("rollout", mode), run_ms)
         if mode == "epilogue+lr":
             # one-call yardstick for the weighting + weighted sum (not used by the port)
             times[name]["library_ms"] = time_ms(
@@ -2206,8 +2236,8 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
         same_as_one_thread(f"{pair} B3 {kind} K={K}", lambda args=args: (
             fused_solve.fused_solve_carries(*args, split_cost=False, **kw)),
             (kc, kcrash, kU, kcarry), pair, "solve")
-        pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, **kw)
-        torch.cuda.synchronize()
+        (pc, pcrash, pU, pcarry), run_ms = plain_timed(
+            lambda args=args: fused_solve.fused_solve_plain(*args, **kw))
         name = f"B3 {kind}"
         same(f"{pair} {name} crash flags", kcrash, pcrash)
         if pair in WARP_PAIRS:  # the warp form's carry pass
@@ -2223,7 +2253,7 @@ def zoo_kernel_phase(dev, pair, K, p, stride, seed, timed_plain):
                                                                      **kw),
                              lambda: fused_solve.fused_solve_plain(*args, **kw),
                              zoo_sampling_work(dyn, cost, ops, K, T_, kind, True),
-                             timed_plain and kind == "gaussian", ("solve", kind))
+                             timed_plain and kind == "gaussian", ("solve", kind), run_ms)
     if pair == "cartpole":
         dmean = 0.3 * torch.randn((T_, C_), generator=g, device=dev)
         for kind, epilogue in (("gaussian", False), ("nln", False), ("smooth", False),
@@ -3331,10 +3361,14 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
     checks, times, crashed = [], {}, {}
     plain_rollouts = {}  # {with LR: the plain B1 rollout}, shared by the modes
 
-    def plain_ms(fn):
-        # the DI's plain versions take milliseconds; the others time_plain's
+    def plain_ms(fn, run_ms=None):
+        # the DI's plain versions take milliseconds; the others time_plain's;
+        # a racer pair's the check's own run of it, timed (run_ms), which
+        # time_plain would repeat
         if pair == "di_circle":
             return time_ms(fn, N_TIMED_PLAIN, warmup=1)
+        if pair in RACER_PAIRS and run_ms is not None:
+            return run_ms
         return time_plain(fn, pair)
     C_ = dyn.CONTROL_DIM
 
@@ -3354,9 +3388,9 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
         name = f"B1 split {mode}"
         kc, kcrash, kout = fr._rollout_any(dyn, cost, x0, U, DT, lrp, epi, LAM, True)
         if (lrp is not None) not in plain_rollouts:
-            plain_rollouts[lrp is not None] = fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)
-        pc, pcrash = plain_rollouts[lrp is not None]
-        torch.cuda.synchronize()
+            plain_rollouts[lrp is not None] = plain_timed(
+                lambda lrp=lrp: fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp))
+        (pc, pcrash), run_ms = plain_rollouts[lrp is not None]
         same(f"{name} crash flags", kcrash, pcrash)
         checks.append(check(f"{name} costs", kc, pc, "bitwise"))
         if epi == fr.EPI_EXP:
@@ -3377,7 +3411,7 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
             t["plain_ms"] = None
             if mode == "epilogue+lr":
                 t["plain_ms"] = plain_ms(lambda: fr.block_carries_plain(
-                    fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)[0], U, LAM))
+                    fr.split_rollout_plain(dyn, cost, x0, U, DT, lrp)[0], U, LAM), run_ms)
                 # one-call yardstick for the weighting + weighted sum (not used by the port)
                 t["library_ms"] = time_ms(
                     lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
@@ -3412,8 +3446,8 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
         args = (dyn, cost, samp, x0, mean, seed_t, DT, LAM, ALPHA, K)
         kw = dict(optimization_stride=stride)
         kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, split_cost=True, **kw)
-        pc, pcrash, pU, pcarry = fused_solve.fused_solve_split_plain(*args, **kw)
-        torch.cuda.synchronize()
+        (pc, pcrash, pU, pcarry), run_ms = plain_timed(
+            lambda args=args: fused_solve.fused_solve_split_plain(*args, **kw))
         same(f"{name} crash flags", kcrash, pcrash)
         checks += [check(f"{name} U", kU, pU, "bitwise"),
                    check(f"{name} costs", kc, pc, "bitwise"),
@@ -3451,7 +3485,8 @@ def split_kernel_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False
                 *split_pass_work(pair, dyn, cost, K, T_, "cost", "solve"))
             t["plain_ms"] = None
             if kind == "gaussian":
-                t["plain_ms"] = plain_ms(lambda: fused_solve.fused_solve_split_plain(*args))
+                t["plain_ms"] = plain_ms(lambda: fused_solve.fused_solve_split_plain(*args),
+                                         run_ms if stride == 0 else None)
                 t["dynamics_pass"]["plain_ms"] = plain_ms(lambda: fr.split_outputs_plain(
                     dyn, x0, fused_solve._samples_plain(dyn, samp, mean, seed_t, K, 0, 0,
                                                         None)[0], DT))
@@ -3677,9 +3712,8 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
         args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
         kout = fr.fused_sample_rollout_costs(*args, optimization_stride=stride,
                                              sampler_state=state, epilogue=epilogue)
-        pc, pcrash, pU, pW = fr.sample_rollout_plain(*args, optimization_stride=stride,
-                                                     sampler_state=state)
-        torch.cuda.synchronize()
+        (pc, pcrash, pU, pW), run_ms = plain_timed(lambda args=args, state=state: (
+            fr.sample_rollout_plain(*args, optimization_stride=stride, sampler_state=state)))
         name = f"B4 {kind}{' epilogue' if epilogue else ''}"
         same(f"{pair} {name} crash flags", kout[1], pcrash)
         checks += [check(f"{pair} {name} U", kout[2], pU, "bitwise"),
@@ -3714,9 +3748,12 @@ def pair_sample_phase(dev, pair, K, p, stride, seed, map_kind=None, timed=False)
                                               sampler_state=state)
                 return fr.block_carries_plain(out[0], out[3], LAM)
 
-            t = {"ms": time_ms(kernel, N_TIMED),
-                 "plain_ms": time_plain(plain, pair) if epilogue else None,
-                 "library_ms": None}
+            # a racer pair's plain time is the check's own run, timed (time_plain
+            # would repeat that one run)
+            plain_ms = None
+            if epilogue:
+                plain_ms = run_ms if pair in RACER_PAIRS else time_plain(plain, pair)
+            t = {"ms": time_ms(kernel, N_TIMED), "plain_ms": plain_ms, "library_ms": None}
             t["bound_ms"], t["bound_by"] = bound_ms(*zoo_sampling_work(
                 dyn, cost, ops, K, T_, kind, False, epilogue))
             times[name] = t
@@ -4277,7 +4314,8 @@ def check_forms():
         for kind, base in (("sample", "fused_sample_rollout"), ("rmppi", "rmppi_rollout")):
             if _build.pair_entry(pair, kind) is None:
                 continue
-            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_staged_kernel"
+            warp = pair in WARP_PAIRS + FAMILY_WARP_PAIRS
+            want = f"{base}_warp_kernel" if warp else f"{base}_staged_kernel"
             if kind == "rmppi" and pair in ONE_THREAD_B8_PAIRS:
                 want = f"{base}_kernel"  # B8's one-thread form
             if split_name(pair, kind) != want:
@@ -4293,7 +4331,8 @@ def check_forms():
             if _build.pair_entry(pair, kind) is None:
                 continue
             base = FORM_BASE[kind]
-            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_warp_kernel")
+            staged = pair in STAGED_PAIRS + FAMILY_STAGED_PAIRS
+            want = base + ("_staged_kernel" if staged else "_warp_kernel")
             if split_name(pair, kind) != want:
                 raise AssertionError(f"{pair} {kind}: reports {split_name(pair, kind)}, "
                                      f"expected {want}")
@@ -5488,9 +5527,11 @@ def finish_kernel_phase(dev):
     g = torch.Generator(device=dev).manual_seed(171)
     checks, times = {}, {}
 
-    def timing(fn, kernel, plain, work, pair=None):
-        t = {"ms": time_ms(kernel, N_TIMED), "plain_ms": time_plain(plain, pair),
-             "library_ms": None}
+    def timing(fn, kernel, plain, work, pair=None, run_ms=None):
+        # run_ms: the check's own run of the plain version, timed, which a
+        # racer pair's plain time is (time_plain would repeat that one run)
+        plain_ms = run_ms if pair in RACER_PAIRS else time_plain(plain, pair)
+        t = {"ms": time_ms(kernel, N_TIMED), "plain_ms": plain_ms, "library_ms": None}
         t["bound_ms"], t["bound_by"] = bound_ms(*work)
         times[fn] = t
 
@@ -5509,18 +5550,19 @@ def finish_kernel_phase(dev):
         if pair != "bicycle_ar":  # its B1 from one x0 per sample: robust_kernels
             fn = f"rollout_costs_x0_{pair}"
             kc, kcrash = fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=False)
-            pc, pcrash = fr.rollout_costs_plain(dyn, cost, X0c, Ux, DT)
-            torch.cuda.synchronize()
+            (pc, pcrash), run_ms = plain_timed(
+                lambda: fr.rollout_costs_plain(dyn, cost, X0c, Ux, DT))
             same(f"{fn} crash flags", kcrash, pcrash)
             checks[fn] = [check(f"{fn} costs", kc, pc, "bitwise")]
             n_bytes, n_ops = zoo_rollout_work(dyn, cost, step_ops + cost_ops, Kx, T_, "costs")
             timing(fn, lambda: fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=False),
                    lambda: fr.rollout_costs_plain(dyn, cost, X0c, Ux, DT),
-                   (n_bytes + 4 * (Kx - 1) * S_, n_ops), pair)
+                   (n_bytes + 4 * (Kx - 1) * S_, n_ops), pair, run_ms)
         if _build.pair_entry(pair, "split_dynamics_x0") is not None:
             fn = f"split_dynamics_x0_{pair}"
             kY = fr.split_dynamics_cuda(dyn, cost, X0c, Ux, DT)
-            pY = fr.split_outputs_plain(dyn, X0c, Ux, DT).permute(1, 2, 0)
+            pY, run_ms = plain_timed(lambda: fr.split_outputs_plain(dyn, X0c, Ux, DT))
+            pY = pY.permute(1, 2, 0)
             kc, kcrash = fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=True)
             pc, pcrash = fr.split_rollout_plain(dyn, cost, X0c, Ux, DT)
             torch.cuda.synchronize()
@@ -5529,7 +5571,8 @@ def finish_kernel_phase(dev):
                           check(f"{fn} split costs", kc, pc, "bitwise")]
             timing(fn, lambda: fr.split_dynamics_cuda(dyn, cost, X0c, Ux, DT),
                    lambda: fr.split_outputs_plain(dyn, X0c, Ux, DT),
-                   split_pass_work(pair, dyn, cost, Kx, T_, "dynamics", x0_rows=Kx), pair)
+                   split_pass_work(pair, dyn, cost, Kx, T_, "dynamics", x0_rows=Kx), pair,
+                   run_ms)
             # the whole split form against the combined kernel, for AUTO_SPLIT
             times[fn]["split_form"] = abba(
                 lambda: fr.fused_rollout_costs(dyn, cost, X0c, Ux, DT, split_cost=False),
@@ -5878,6 +5921,393 @@ def finish_entries(checks, times, paths):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The rest of the racer family: RACER Dubins, its elevation model without an
+# LSTM, the full-suspension RacerSuspension, the bicycle on its elevation
+# map, the suspension model with its steering LSTM, each with its new B1, B3
+# and B4 entries, and the LSTM-uncertainty model on the map (the map mode of
+# the racer_unc_ar entries, built by instantiations.racer_lstm_mppi), all on
+# the bench's 128^2 elevation map (racer_elevation_data, bench.py:724-727)
+# with ARStandardCost on the 128^2 track map (bench.py:642-645), std [0.3,
+# 0.5], lambda 1, dt 0.02, K = 1920 (ragged 1901), T = 100 (the uncertainty
+# model 150), random LSTMs from numpy seeds. Each entry against its plain
+# version (family_kernel_phase, phase "racer_family"), then two steps of each
+# on fused_solve and on fused and one on fused_solve with Smooth-MPPI, so
+# that B3, B1 and B4 are each on a path (family_loops), and the bicycle once
+# with a normals map, which the wrappers refuse (the eager path: no launch).
+# ---------------------------------------------------------------------------
+FAMILY_PAIRS = ("racer_dubins_ar", "racer_elevation_ar", "racer_suspension_ar",
+                "bicycle_elevation_ar", "racer_elev_susp_ar", "racer_unc_map")
+# the entries of each configuration: the uncertainty model's map mode runs
+# the racer_unc_ar entries; the new pairs' forms (check_forms)
+FAMILY_ENTRY = {**{p: p for p in FAMILY_PAIRS}, "racer_unc_map": "racer_unc_ar"}
+FAMILY_STAGED_PAIRS = ("racer_dubins_ar", "racer_elevation_ar", "racer_suspension_ar",
+                       "bicycle_elevation_ar")
+FAMILY_WARP_PAIRS = ("racer_elev_susp_ar",)
+K_FAMILY, K_FAMILY_RAGGED = 1920, 1901
+T_FAMILY = {**dict.fromkeys(FAMILY_PAIRS, 100), "racer_unc_map": 150}
+# the ragged case: the last 64-sample block partly empty, one partial chunk
+# of steps (its plain versions take seconds at the paths' T)
+FAMILY_RAGGED_T = 17
+FAMILY_LOOP_STEPS = 2  # the eager re-rollout of the mean dominates a step
+FAMILY_SMOOTH_STEPS = 1  # the Smooth-MPPI loops: B4 on a path
+FAMILY_TYPES = {"racer_dubins_ar": "RacerDubins, ARCostRacer",
+                "racer_elevation_ar": "RacerElevation, ARCostRacer",
+                "racer_suspension_ar": "RacerSuspension, ARCostSuspension",
+                "bicycle_elevation_ar": "BicycleElevation, ARCostRacer",
+                "racer_elev_susp_ar": "RacerElevSusp, ARCostRacer",
+                "racer_unc_map": "RacerLSTMUnc (elevation map), ARCostRacer"}
+# Operations of each step (counted from the .cuh as OPS_RACER_STEER is): RACER
+# Dubins the forces 10, the yaw rate (two divisions, tanf), the kinematics
+# (cosf, sinf, 2), the lags 11, the Euler update 14, the wrap (fmodf and 4),
+# the clamps 5; the elevation model OPS_RACER_STEER without its LSTM; the
+# rigid body: the rotation 45, the engine 20, per wheel about 250 (two
+# rotations 30, the map query 54, the spring 12, the contact frame 30 with
+# cosf, sinf, sqrtf, the forces 40, the torque 30, its force's sqrtf; the
+# front wheels' atan2_approx 28), the derivative 80 with six divisions, the
+# outputs 80 with three polynomial angles, the update and renormalization 40
+# (tanf, 16 transcendentals in the wheels, sqrtf); the bicycle elevation
+# model OPS_BI_STEP, the Jacobian 30 and Q 30 with seven transcendentals, the
+# propagation 320, the settling as the elevation model's 400 with ten; the
+# suspension model OPS_RACER_UNC's parametric part (52 and four), the
+# suspension 129 (and four map queries of 62 with cosf and sinf), the brake
+# 10, Q 30 with four, the Jacobian 43 with five, the propagation 320, the
+# update 36 with fmodf, its steering LSTM; the uncertainty model on the map
+# OPS_RACER_UNC, the four queries and the settling.
+OPS_RACER_DUBINS = 58 + 5 * OPS_TRANSCENDENTAL
+OPS_RACER_ELEVATION = 479 + 15 * OPS_TRANSCENDENTAL
+OPS_RACER_SUSPENSION = 1400 + 21 * OPS_TRANSCENDENTAL
+OPS_BICYCLE_ELEVATION = OPS_BI_STEP + 780 + 17 * OPS_TRANSCENDENTAL
+OPS_SUSP_MAP = 4 * 62 + 2 * OPS_TRANSCENDENTAL  # the suspension's four ground queries
+OPS_RACER_ELEV_SUSP = 620 + 15 * OPS_TRANSCENDENTAL + OPS_SUSP_MAP + lstm_ops(4, 1)
+OPS_FAMILY = {
+    "racer_dubins_ar": OPS_RACER_DUBINS, "racer_elevation_ar": OPS_RACER_ELEVATION,
+    "racer_suspension_ar": OPS_RACER_SUSPENSION, "bicycle_elevation_ar": OPS_BICYCLE_ELEVATION,
+    "racer_elev_susp_ar": OPS_RACER_ELEV_SUSP,
+    "racer_unc_map": OPS_RACER_UNC + OPS_SUSP_MAP + 400 + 10 * OPS_TRANSCENDENTAL,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def family_maps(dev):
+    """The bench's 128^2 elevation map and 128^2 track map on ``dev``."""
+    elev = MapTexture2D(racer_elevation_data(), origin=(-64.0, -64.0, 0.0), resolution=1.0,
+                        device=dev)
+    data, origin, res, _ = ar_map_data("128")
+    return elev, MapTexture2D(data, origin=origin, resolution=res, device=dev)
+
+
+def family_normals(dev):
+    """Unit normals (128, 128, 3) of the bench's elevation map, for the
+    bicycle's refused configuration."""
+    h = racer_elevation_data().astype(np.float64)
+    gy, gx = np.gradient(h, 1.0)
+    n = np.stack([-gx, -gy, np.ones_like(h)], -1)
+    n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+    return MapTexture2D(n, origin=(-64.0, -64.0, 0.0), resolution=1.0, device=dev)
+
+
+def family_x0(pair, dev):
+    """The configuration's x0: at rest but for 3 m/s forward, at the origin
+    (the rigid body on its wheels, identity attitude)."""
+    if pair == "racer_suspension_ar":
+        x0 = RacerSuspensionDynamics.create(device=dev).get_zero_state()
+        x0[7] = 3.0
+        return x0
+    S_ = {"racer_dubins_ar": 7, "racer_elevation_ar": 9, "bicycle_elevation_ar": 22,
+          "racer_elev_susp_ar": 23, "racer_unc_map": 26}[pair]
+    x0 = torch.zeros(S_, device=dev)
+    x0[5 if pair == "bicycle_elevation_ar" else 0] = 3.0
+    return x0
+
+
+def family_parts(pair, dev):
+    """(dynamics, cost) of a configuration on ``dev``."""
+    elev, track = family_maps(dev)
+    kw = dict(device=dev)
+    if pair == "racer_dubins_ar":
+        dyn = RacerDubinsDynamics.create(**kw)
+    elif pair == "racer_elevation_ar":
+        dyn = RacerDubinsElevationDynamics.create(elevation_map=elev, **kw)
+    elif pair == "racer_suspension_ar":
+        dyn = RacerSuspensionDynamics.create(elevation_map=elev, **kw)
+    elif pair == "bicycle_elevation_ar":
+        dyn = BicycleSlipParametricElevation.create(elevation_map=elev, **kw)
+    elif pair == "racer_elev_susp_ar":
+        dyn = RacerDubinsElevationSuspension.create(elevation_map=elev, seed=0, **kw)
+    else:
+        dyn = RacerDubinsElevationLSTMUncertainty.create(elevation_map=elev, seed=0, **kw)
+    indices = (0, 1, 5, 6, 3, 4) if pair == "racer_suspension_ar" else RACER_INDICES
+    return dyn, ARStandardCost(costmap=track, output_indices=indices, **kw)
+
+
+# the modes a family configuration's loops launch (B1's LR modes share one
+# plain run): held against their plain versions at the path's shape; every
+# mode is held at the ragged shape, and timed at the path's
+FAMILY_PATH_MODES = ("B1 costs+lr", "B1 epilogue+lr", "B1 tsallis+lr", "B3 gaussian",
+                     "B4 smooth")
+
+
+def family_kernel_phase(dev, pair, K, p, stride, seed, full):
+    """A configuration's B1 entry in its four modes (costs, costs + LR, the
+    exp epilogue + LR, Tsallis pass 1 + LR), B3 (Gaussian, NLN) and B4
+    (Gaussian, NLN, Smooth-MPPI, Smooth-MPPI with its epilogue), each against
+    its plain version on the same inputs: U, W, costs, crash flags, block
+    minima and (the warp form's) ordered carry rows to the last bit, carries
+    at rtol 1e-5, merged means at rtol 1e-4 / atol 1e-5. ``full``: the path's
+    K and T, the modes of FAMILY_PATH_MODES held (the plain versions take
+    seconds there; their single runs are timed), every kernel timed by CUDA
+    events against its bound from the step's operation count, and the
+    library yardstick softmax(-J / lambda) @ U beside the epilogue; else the
+    ragged K at FAMILY_RAGGED_T steps (one partial chunk), every mode held.
+    Returns ({kernel: checks}, {mode: times})."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dyn, cost = family_parts(pair, dev)
+    x0, ops, entry = family_x0(pair, dev), OPS_FAMILY[pair], FAMILY_ENTRY[pair]
+    T_ = T_FAMILY[pair] if full else FAMILY_RAGGED_T
+    mean = 0.3 * torch.randn((T_, C), generator=g, device=dev)
+    mean[:, 0] += 0.3
+    seed_t = torch.randint(0, 2**31 - 1, (), generator=g, dtype=torch.int32, device=dev)
+    by_kernel = {"rollout_costs_kernel": [], "fused_solve_kernel": [],
+                 "fused_sample_rollout_kernel": [], "flash_combine_kernel": []}
+    times, crashed = {}, {}
+    warp = b1_kernel(entry) == "rollout_costs_warp_kernel"
+
+    def held(name):
+        return not full or name in FAMILY_PATH_MODES
+
+    def timing(name, kernel, work, plain_ms=None):
+        if full:
+            t = {"ms": time_ms(kernel, N_TIMED), "plain_ms": plain_ms, "library_ms": None}
+            t["bound_ms"], t["bound_by"] = bound_ms(*work)
+            times[name] = t
+
+    def merges(name, kcarry, pcarry, pc, X):
+        km, kb, ke = fr.flash_combine(kcarry, T_, C, LAM)
+        pm, pb, pe = fr.flash_combine_plain(pcarry, T_, C, LAM)
+        by_kernel["flash_combine_kernel"] += [
+            check(f"{pair} {name} new_mean", km, pm, "new_mean"),
+            check(f"{pair} {name} baseline", kb, pb, "baseline"),
+            check(f"{pair} {name} eta", ke, pe, "eta")]
+        return check(f"{pair} {name} carry", kcarry, pcarry, "carry",
+                     fr.block_carries_plain(pc, X.abs(), LAM).abs())
+
+    # B1 on the sampler's clamped samples
+    samp = zoo_sampler("gaussian", C, RACER_STD, dev, p, T_)
+    U, _ = samp.sample(g, mean, K, optimization_stride=stride)
+    U = dyn.enforce_constraints(None, U.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+    lr = (mean, samp._sigma(T_, 0).contiguous(), samp.control_cost_coeff, LAM, ALPHA,
+          samp.pure_threshold(K))
+    plain = {w: plain_timed(lambda w=w: fr.rollout_costs_plain(dyn, cost, x0, U, DT,
+                                                                lr if w else None))
+             for w in ((True,) if full else (False, True))}
+    for mode in ("costs", "costs+lr", "epilogue+lr", "tsallis+lr"):
+        lrp = lr if mode.endswith("+lr") else None
+        name = f"B1 {mode}"
+
+        def kernel(mode=mode, lrp=lrp):
+            if mode.startswith("epilogue"):
+                return fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lrp)
+            if mode.startswith("tsallis"):
+                return fr.rollout_block_minima(dyn, cost, x0, U, DT, lrp)
+            return fr.fused_rollout_costs(dyn, cost, x0, U, DT, lrp)
+
+        kout = kernel()
+        crashed[name] = float(kout[1].float().mean())
+        if not held(name):
+            timing(name, kernel, zoo_rollout_work(dyn, cost, ops, K, T_, mode))
+            continue
+        (pc, pcrash), pms = plain[lrp is not None]
+        torch.cuda.synchronize()
+        same(f"{pair} {name} crash flags", kout[1], pcrash)
+        by_kernel["rollout_costs_kernel"].append(check(f"{pair} {name} costs", kout[0], pc,
+                                                       "bitwise"))
+        if mode.startswith("epilogue"):
+            if warp:  # the warp form's carry pass
+                same(f"{pair} {name} carry rows in write_block_carry's order", kout[2],
+                     fr.block_carries_ordered(pc, U, fr._f32(LAM)))
+            by_kernel["rollout_costs_kernel"].append(
+                merges(name, kout[2], fr.block_carries_plain(pc, U, LAM), pc, U))
+        if mode.startswith("tsallis"):
+            same(f"{pair} {name} block minima", kout[2], fr.block_minima_plain(pc))
+        timing(name, kernel, zoo_rollout_work(dyn, cost, ops, K, T_, mode), pms)
+        if full and mode == "epilogue+lr":
+            # one-call yardstick for the weighting + weighted sum (not used by the port)
+            times[name]["library_ms"] = time_ms(
+                lambda: torch.softmax(-pc / LAM, 0) @ U.view(K, -1), N_TIMED)
+    # B3
+    for kind in ("gaussian", "nln"):
+        s = zoo_sampler(kind, C, RACER_STD, dev, p, T_)
+        args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
+        kw = dict(optimization_stride=stride)
+        name = f"B3 {kind}"
+        kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, **kw)
+        crashed[name] = float(kcrash.float().mean())
+        pms = None
+        if held(name):
+            (pc, pcrash, pU, pcarry), pms = plain_timed(
+                lambda: fused_solve.fused_solve_plain(*args, **kw))
+            same(f"{pair} {name} crash flags", kcrash, pcrash)
+            if warp:  # the warp form's carry pass
+                same(f"{pair} {name} carry rows in write_block_carry's order", kcarry,
+                     fr.block_carries_ordered(pc, pU, fr._f32(LAM)))
+            by_kernel["fused_solve_kernel"] += [
+                check(f"{pair} {name} U", kU, pU, "bitwise"),
+                check(f"{pair} {name} costs", kc, pc, "bitwise"),
+                merges(name, kcarry, pcarry, pc, pU)]
+        timing(name, lambda args=args, kw=kw: fused_solve.fused_solve_carries(*args, **kw),
+               zoo_sampling_work(dyn, cost, ops, K, T_, kind, True), pms)
+    # B4: each sampler, Smooth-MPPI also with its epilogue over W
+    dmean = 0.3 * torch.randn((T_, C), generator=g, device=dev)
+    for kind in ("gaussian", "nln", "smooth"):
+        s = zoo_sampler(kind, C, RACER_STD, dev, p, T_)
+        state = dmean if kind == "smooth" else None
+        args = (dyn, cost, s, x0, mean, seed_t, DT, LAM, ALPHA, K)
+        name = f"B4 {kind}"
+        kout = fr.fused_sample_rollout_costs(*args, optimization_stride=stride,
+                                             sampler_state=state)
+        crashed[name] = float(kout[1].float().mean())
+        kid = fr.noise_kind(s)
+
+        def kernel(s=s, state=state, kid=kid, epilogue=False):
+            # the kernel alone, as the main path launches it (U not kept)
+            return fr._sample_rollout_cuda(dyn, cost, s, kid, x0, mean, seed_t, DT, LAM,
+                                           ALPHA, K, 0, stride, state, epilogue, False, None)
+
+        pms = None
+        if held(name):
+            (pc, pcrash, pU, pW), pms = plain_timed(lambda args=args, state=state: (
+                fr.sample_rollout_plain(*args, optimization_stride=stride,
+                                        sampler_state=state)))
+            same(f"{pair} {name} crash flags", kout[1], pcrash)
+            by_kernel["fused_sample_rollout_kernel"] += [
+                check(f"{pair} {name} U", kout[2], pU, "bitwise"),
+                check(f"{pair} {name} costs", kout[0], pc, "bitwise")]
+        timing(name, kernel, zoo_sampling_work(dyn, cost, ops, K, T_, kind, False), pms)
+        if kind == "smooth":
+            by_kernel["fused_sample_rollout_kernel"].append(
+                check(f"{pair} {name} W", kout[3], pW, "bitwise"))
+            kepi = fr.fused_sample_rollout_costs(*args, optimization_stride=stride,
+                                                 sampler_state=state, epilogue=True)
+            pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM), T_, C, LAM)
+            name = "B4 smooth epilogue"
+            same(f"{pair} {name} crash flags", kepi[1], pcrash)
+            by_kernel["fused_sample_rollout_kernel"].append(
+                check(f"{pair} {name} costs", kepi[0], pc, "bitwise"))
+            by_kernel["flash_combine_kernel"] += [
+                check(f"{pair} {name} new_deriv_mean", kepi[3], pm, "new_mean"),
+                check(f"{pair} {name} baseline", kepi[4], pb, "baseline"),
+                check(f"{pair} {name} eta", kepi[5], pe, "eta")]
+            timing(name, lambda kernel=kernel: kernel(epilogue=True),
+                   zoo_sampling_work(dyn, cost, ops, K, T_, kind, False, True), pms)
+    emit("racer_family", pair=pair, entries=entry, K=K, T=T_, pure_noise_percentage=p,
+         stride=stride, held=[m for m in crashed if held(m)], crashed_share=crashed,
+         checks=[c for cs in by_kernel.values() for c in cs], times=times)
+    return by_kernel, times
+
+
+def family_kernels(dev):
+    """``family_kernel_phase`` of every configuration at its path's shape and
+    at the ragged K. Returns ({pair: {kernel: max abs error}}, {pair: times
+    at the path's shape})."""
+    errs, times = {}, {}
+    for i, pair in enumerate(FAMILY_PAIRS):
+        for K, p, stride, full in ((K_FAMILY, 0.0, 0, True), (K_FAMILY_RAGGED, 0.1, 2, False)):
+            by_kernel, t = family_kernel_phase(dev, pair, K, p, stride, 401 + 2 * i + full, full)
+            e = errs.setdefault(pair, dict.fromkeys(by_kernel, 0.0))
+            for kernel, checks in by_kernel.items():
+                e[kernel] = max([e[kernel]] + [c["max_abs_err"] for c in checks])
+            if full:
+                times[pair] = t
+    return errs, times
+
+
+def build_family(pair, kernel, smooth=False):
+    """A configuration's VanillaMPPI on the card (the controllers' default
+    device), its split choice AUTO; the uncertainty model's Gaussian one
+    through instantiations.racer_lstm_mppi on the maps. ``smooth``: the
+    Smooth-MPPI sampler (B4 with its epilogue on fused_solve)."""
+    from mppi_generic_tpu_torch import instantiations
+
+    elev, track = family_maps("cpu")  # the controller moves them to its device
+    if pair == "racer_unc_map" and not smooth:
+        return instantiations.racer_lstm_mppi(elevation_map=elev, costmap=track,
+                                              kernel=kernel)[0]
+    dyn, cost = family_parts(pair, "cpu")
+    sampler = (SmoothMPPIDistribution.create(std_dev=RACER_STD, control_cost_coeff=[1.0] * C,
+                                             num_timesteps=T_FAMILY[pair], dt=DT_SMOOTH)
+               if smooth else GaussianDistribution.create(std_dev=RACER_STD))
+    return VanillaMPPI(dyn, cost, sampler, dt=DT, lam=LAM, alpha=ALPHA,
+                       num_timesteps=T_FAMILY[pair], num_rollouts=K_FAMILY, num_iters=1,
+                       kernel=kernel)
+
+
+def family_loops(dev):
+    """FAMILY_LOOP_STEPS steps of each configuration on fused_solve (B3 on
+    the path) and fused (B1), FAMILY_SMOOTH_STEPS on fused_solve with the
+    Smooth-MPPI sampler (B4 and its epilogue), each held to its launches; then the bicycle with a
+    normals map on fused_solve: the wrappers refuse it (KernelIncompatible)
+    and the eager path runs, with no launch. Returns {path: (launches,
+    entry launches)}."""
+    paths, n = {}, FAMILY_LOOP_STEPS
+    for pair in FAMILY_PAIRS:
+        entry = FAMILY_ENTRY[pair]
+        ns = FAMILY_SMOOTH_STEPS
+        for path, kernel, smooth, steps, want in (
+                (f"{pair}_fused_solve", "fused_solve", False, n, solve_launches(entry, n)),
+                (f"{pair}_fused", "fused", False, n, rollout_launches(entry, n)),
+                (f"{pair}_smooth_fused_solve", "fused_solve", True, ns,
+                 sample_launches(entry, ns, epilogue=True))):
+            out = model_loop_phase(path, build_family(pair, kernel, smooth),
+                                   family_x0(pair, dev), steps, want, profile=False, pair=pair)
+            paths[path] = out[:2]
+    elev, track = family_maps("cpu")
+    dyn = BicycleSlipParametricElevation.create(elevation_map=elev,
+                                                normals_map=family_normals("cpu"))
+    ctrl = VanillaMPPI(dyn, ARStandardCost(costmap=track, output_indices=RACER_INDICES),
+                       GaussianDistribution.create(std_dev=RACER_STD), dt=DT,
+                       lam=LAM, alpha=ALPHA, num_timesteps=T_FAMILY["bicycle_elevation_ar"],
+                       num_rollouts=K_FAMILY, num_iters=1, kernel="fused_solve")
+    paths["bicycle_normals_fused_solve"] = model_loop_phase(
+        "bicycle_normals_fused_solve", ctrl, family_x0("bicycle_elevation_ar", dev), 1, {},
+        profile=False, pair="bicycle_elevation_ar")[:2]
+    return paths
+
+
+FAMILY_REPLACES = {"rollout": "pallas_rollout.py:548", "solve": "pallas_solve.py:103",
+                   "sample": "pallas_rollout.py:1631"}
+
+
+def family_entries(errs, times, paths):
+    """The kernels line's rows of the family: B1, B3 and B4 of each
+    configuration (the uncertainty model's map mode under the racer_unc_ar
+    entries), launches counted per C entry on the family's loops."""
+    rows = []
+    for pair in FAMILY_PAIRS:
+        entry, t, e = FAMILY_ENTRY[pair], times[pair], errs[pair]
+        for kind, mode, kernel_name, err_kernel, modes in (
+                ("rollout", "B1 epilogue+lr", b1_kernel(entry), "rollout_costs_kernel",
+                 ("B1 costs", "B1 costs+lr", "B1 tsallis+lr")),
+                ("solve", "B3 gaussian", b3_kernel(entry), "fused_solve_kernel",
+                 ("B3 nln",)),
+                ("sample", "B4 smooth epilogue", split_name(entry, "sample"),
+                 "fused_sample_rollout_kernel", ("B4 gaussian", "B4 nln", "B4 smooth"))):
+            lib, fn = _build.pair_entry(entry, kind)
+            by = {p: ent.get(fn, 0) for p, (_, ent) in paths.items()
+                  if p.startswith(pair) and ent.get(fn, 0)}
+            rows.append({
+                "name": f"{kernel_name}<{FAMILY_TYPES[pair]}>", "route": "cuda",
+                "source": f"mppi_generic_tpu_torch/csrc/{lib}.cu",
+                "replaces": f"mppi_generic_tpu/ops/{FAMILY_REPLACES[kind]}",
+                "launches": sum(by.values()), "launches_by_path": by,
+                "max_abs_err": max(e[err_kernel], e["flash_combine_kernel"]),
+                "ms": t[mode]["ms"], "plain_ms": t[mode]["plain_ms"],
+                "bound_ms": t[mode]["bound_ms"], "bound_by": t[mode]["bound_by"],
+                "library_ms": t[mode]["library_ms"], "K": K_FAMILY, "T": T_FAMILY[pair],
+                "modes": {m: t[m] for m in modes}})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -6102,6 +6532,9 @@ def main() -> int:
     finish_checks, finish_times = finish_kernel_phase(dev)
     finish_paths = finish_loops(dev)
     ccm_boxqp_phase(dev)
+    # the rest of the racer family: its entries, then its loops
+    racer_family_errs, racer_family_times = family_kernels(dev)
+    racer_family_paths = family_loops(dev)
     all_paths = {**zoo_paths, **racer_paths, **robust_paths, **inst_paths, **split_paths,
                  **pair_paths}
 
@@ -6463,6 +6896,7 @@ def main() -> int:
     kernels += pair_kernel_entries(pair_errs, pair_times, all_paths, warp_times,
                                    carry_paths=ar_paths)
     kernels += finish_entries(finish_checks, finish_times, finish_paths)
+    kernels += family_entries(racer_family_errs, racer_family_times, racer_family_paths)
     for k in kernels:  # the loops that reach the kernel only by forcing a form
         k["forced_by_path"] = {p: FORCED_BY_PATH[p] for p in k.get("launches_by_path", {})
                                if FORCED_BY_PATH.get(p)}

@@ -11,8 +11,11 @@ imports JAX.
   model the names of ``models.bicycle_slip.PARAM_NAMES``, the cartpole
   ``cart_mass``, ``pole_mass``, ``pole_length``, the quadrotor ``mass``,
   ``tau_roll``, ``tau_pitch``, ``tau_yaw`` (dubins: nothing more); the
-  racer LSTM models the names of their ``param_names()``,
-  ``elevation_map`` (None or a texture), ``lstm`` (an LSTM: ``W_im`` ...
+  racer models (RACER Dubins, its elevation, suspension-LSTM and
+  LSTM-uncertainty variants, the rigid-body RacerSuspension) and the
+  bicycle elevation model the names of their ``param_names()``, all but
+  RACER Dubins ``elevation_map`` (None or a texture), the bicycle elevation
+  model also ``normals_map``; the LSTM models ``lstm`` (an LSTM: ``W_im`` ...
   ``b_c``, ``initial_hidden``, ``initial_cell``, ``output_nn``, an FNN),
   ``warm_hidden``, ``warm_cell`` and optionally ``lstm_lstm`` (None or
   ``init_model``, ``pred_model``, two LSTMs, and ``init_len``); the
@@ -79,15 +82,24 @@ from mppi_generic_tpu_torch.feedback.ilqr import DDPFeedback, DDPFeedbackState
 from mppi_generic_tpu_torch.maps.texture import MapTexture2D
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.bicycle_slip import PARAM_NAMES as BICYCLE_PARAMS
-from mppi_generic_tpu_torch.models.bicycle_slip import BicycleSlipDynamics
+from mppi_generic_tpu_torch.models.bicycle_slip import (
+    BicycleSlipDynamics,
+    BicycleSlipParametricElevation,
+)
 from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.models.dubins import DubinsDynamics
 from mppi_generic_tpu_torch.models.quadrotor import QuadrotorDynamics
+from mppi_generic_tpu_torch.models.racer_dubins import RacerDubinsDynamics
 from mppi_generic_tpu_torch.models.racer_dubins_elevation import (
+    RacerDubinsElevationDynamics,
     RacerDubinsElevationLSTMSteering,
 )
-from mppi_generic_tpu_torch.models.racer_dubins_unc import RacerDubinsElevationLSTMUncertainty
+from mppi_generic_tpu_torch.models.racer_dubins_unc import (
+    RacerDubinsElevationLSTMUncertainty,
+    RacerDubinsElevationSuspension,
+)
+from mppi_generic_tpu_torch.models.racer_suspension import RacerSuspensionDynamics
 from mppi_generic_tpu_torch.nn.fnn import FNN
 from mppi_generic_tpu_torch.nn.lstm import LSTM, LSTMLSTM
 from mppi_generic_tpu_torch.sampling.colored import ColoredNoiseDistribution
@@ -183,12 +195,49 @@ def lstm_lstm_from_params(p, device="cpu") -> LSTMLSTM | None:
                     int(p["init_len"])).to(device)
 
 
-def _racer_kwargs(p: dict, cls) -> dict:
-    emap = p.get("elevation_map")
-    return dict(elevation_map=None if emap is None else texture_from_params(emap),
-                lstm_lstm=lstm_lstm_from_params(p.get("lstm_lstm")),
-                **_constraints(p),
+def _packed_kwargs(p: dict, cls) -> dict:
+    """The constraints and the packed parameters of ``cls`` found in ``p``."""
+    return dict(**_constraints(p),
                 **{name: _arr(p[name]) for name in cls.param_names() if name in p})
+
+
+def _texture_or_none(p):
+    return None if p is None else texture_from_params(p)
+
+
+def _racer_kwargs(p: dict, cls) -> dict:
+    return dict(elevation_map=_texture_or_none(p.get("elevation_map")),
+                lstm_lstm=lstm_lstm_from_params(p.get("lstm_lstm")), **_packed_kwargs(p, cls))
+
+
+def racer_dubins_from_params(p: dict, device="cpu") -> RacerDubinsDynamics:
+    return RacerDubinsDynamics(device=device, **_packed_kwargs(p, RacerDubinsDynamics))
+
+
+def racer_elevation_from_params(p: dict, device="cpu") -> RacerDubinsElevationDynamics:
+    cls = RacerDubinsElevationDynamics
+    return cls(_texture_or_none(p.get("elevation_map")), device=device,
+               **_packed_kwargs(p, cls))
+
+
+def racer_elevation_suspension_from_params(p: dict,
+                                           device="cpu") -> RacerDubinsElevationSuspension:
+    cls = RacerDubinsElevationSuspension
+    return cls(lstm_from_params(p["lstm"]), warm_hidden=_arr(p["warm_hidden"]),
+               warm_cell=_arr(p["warm_cell"]), device=device, **_racer_kwargs(p, cls))
+
+
+def racer_suspension_from_params(p: dict, device="cpu") -> RacerSuspensionDynamics:
+    cls = RacerSuspensionDynamics
+    return cls(_texture_or_none(p.get("elevation_map")), device=device,
+               **_packed_kwargs(p, cls))
+
+
+def bicycle_parametric_elevation_from_params(
+        p: dict, device="cpu") -> BicycleSlipParametricElevation:
+    cls = BicycleSlipParametricElevation
+    return cls(_texture_or_none(p.get("elevation_map")), _texture_or_none(p.get("normals_map")),
+               device=device, **_packed_kwargs(p, cls))
 
 
 def racer_steering_from_params(p: dict, device="cpu") -> RacerDubinsElevationLSTMSteering:
@@ -268,7 +317,12 @@ DYNAMICS = {"double_integrator": double_integrator_from_params,
             "quadrotor": quadrotor_from_params,
             "dubins": dubins_from_params,
             "racer_steering": racer_steering_from_params,
-            "racer_unc": racer_unc_from_params}
+            "racer_unc": racer_unc_from_params,
+            "racer_dubins": racer_dubins_from_params,
+            "racer_elevation": racer_elevation_from_params,
+            "racer_elev_susp": racer_elevation_suspension_from_params,
+            "racer_suspension": racer_suspension_from_params,
+            "bicycle_elevation": bicycle_parametric_elevation_from_params}
 COSTS = {"circle": circle_cost_from_params,
          "di_robust": functools.partial(circle_cost_from_params, robust=True),
          "ar_standard": ar_cost_from_params,

@@ -12,7 +12,8 @@
 // cost reads are template arguments, the cost's output_indices: ARCost reads
 // AutoRally's [x, y, yaw, roll, v_x, v_y, yaw_rate] (0, 1, 2, 3, 4, 5),
 // ARCostBicycle the bicycle-slip state (0, 1, 2, 8, 5, 6), ARCostRacer the
-// racer models' output (2, 3, 5, 6, 0, 1). Compile-time
+// racer models' output (2, 3, 5, 6, 0, 1), ARCostSuspension the
+// full-suspension racer's (0, 1, 5, 6, 3, 4). Compile-time
 // indices keep the output in registers; the wrappers refuse an entry whose
 // indices differ from the cost's.
 //
@@ -123,3 +124,6 @@ struct ARCostT {
 using ARCost = ARCostT<0, 1, 2, 3, 4, 5>;         // AutoRally's output
 using ARCostBicycle = ARCostT<0, 1, 2, 8, 5, 6>;  // the bicycle-slip state
 using ARCostRacer = ARCostT<2, 3, 5, 6, 0, 1>;    // the racer models' output
+// the layout the JAX package's kernel test of RacerSuspensionDynamics reads
+// (tests/test_suspension_models.py:181)
+using ARCostSuspension = ARCostT<0, 1, 5, 6, 3, 4>;

@@ -50,9 +50,10 @@ struct BicycleSlip {
     return fminf(fmaxf(v, lo), hi);
   }
 
-  __device__ static inline void step(const Shared& sh, float* x, const float* u,
-                                     float /*t*/, float dt, float* y) {
-    const float* p = sh.p;
+  // BicycleSlipDynamics.state_deriv: the derivative xd of the ten states
+  // (the bicycle elevation model's slip derivative too, bicycle_elevation.cuh)
+  __device__ static inline void state_deriv(const float* p, const float* x, const float* u,
+                                            float* xd) {
     const float yaw = x[2], steer = x[3];
     const float vx = x[5], vy = x[6], om = x[7];
 
@@ -66,10 +67,17 @@ struct BicycleSlip {
     const float cos_w = cosf(wheel_angle);
 
     const float parametric_omega = (vx / p[kWheelBase]) * wheel_angle;
-    const float x_force = throttle(sh, u) - brake_force - drag_x;
+    const float x_force = throttle(p, u) - brake_force - drag_x;
     const float fx_m = (x_force + x_force * cos_w - y_force * sin_w) / p[kMass];
     const float fy_m = (y_force + y_force * cos_w + x_force * sin_w) / p[kMass];
-    update(sh, x, u, parametric_omega, fx_m, fy_m, cosf(yaw), sinf(yaw), dt, y);
+    derivs(p, x, u, parametric_omega, fx_m, fy_m, cosf(yaw), sinf(yaw), xd);
+  }
+
+  __device__ static inline void step(const Shared& sh, float* x, const float* u,
+                                     float /*t*/, float dt, float* y) {
+    float xd[S];
+    state_deriv(sh.p, x, u, xd);
+    update(sh.p, x, xd, dt, y);
   }
 
   // The lane-group form of step (split_lanes.cuh): the kLaneGroup lanes of a
@@ -87,10 +95,10 @@ struct BicycleSlip {
   //   sinf and cosf of the wheel angle (set 0) and of the yaw (the others);
   //   the divisions by the mass of the y (set 1) and x (the others)
   //   numerators.
-  // The rest (update: the lags, the yaw rate, the Euler update, the yaw wrap,
-  // the clamps) every lane computes alike. Each value is made with step's
-  // operations on step's operands and a shuffle moves bits exactly, so x and
-  // y are step's floats.
+  // The rest (derivs: the lags, the yaw rate, the accelerations; update: the
+  // Euler update, the yaw wrap, the clamps) every lane computes alike. Each
+  // value is made with step's operations on step's operands and a shuffle
+  // moves bits exactly, so x and y are step's floats.
   static constexpr int kLaneGroup = 8;
 
   __device__ static inline void step_lanes(const Shared& sh, float* x, const float* u,
@@ -122,53 +130,52 @@ struct BicycleSlip {
 
     const float wheel_angle = __shfl_sync(kFullMask, wa, 0, G);
     const float parametric_omega = __shfl_sync(kFullMask, q, 1, G) * wheel_angle;
-    const float x_force = throttle(sh, u) - __shfl_sync(kFullMask, f, 0, G) -
+    const float x_force = throttle(p, u) - __shfl_sync(kFullMask, f, 0, G) -
                           __shfl_sync(kFullMask, f, 1, G);
     const float y_force = __shfl_sync(kFullMask, f, 3, G) - __shfl_sync(kFullMask, f, 2, G);
     const float num_x = x_force + x_force * cos_w - y_force * sin_w;
     const float num_y = y_force + y_force * cos_w + x_force * sin_w;
     const float dv = (set == 1 ? num_y : num_x) / p[kMass];
-    update(sh, x, u, parametric_omega, __shfl_sync(kFullMask, dv, 0, G),
+    float xd[S];
+    derivs(p, x, u, parametric_omega, __shfl_sync(kFullMask, dv, 0, G),
            __shfl_sync(kFullMask, dv, 1, G), __shfl_sync(kFullMask, cn, 1, G),
-           __shfl_sync(kFullMask, sn, 1, G), dt, y);
+           __shfl_sync(kFullMask, sn, 1, G), xd);
+    update(p, x, xd, dt, y);
   }
 
  private:
   // (enable_brake ? 0 : 1) c_throttle throttle_brake
-  __device__ static inline float throttle(const Shared& sh, const float* u) {
-    return (u[0] < 0.0f ? 0.0f : 1.0f) * sh.p[kThrottle] * u[0];
+  __device__ static inline float throttle(const float* p, const float* u) {
+    return (u[0] < 0.0f ? 0.0f : 1.0f) * p[kThrottle] * u[0];
   }
 
-  // The rest of the step from the yaw-rate term (vx / wheel_base) wheel_angle,
-  // the force terms over the mass and the yaw's cosine and sine: the lags
-  // with their rate clamps, the yaw rate, the accelerations, the kinematics,
-  // the Euler update with the yaw wrap and the clamps; y <- x.
-  __device__ static inline void update(const Shared& sh, float* x, const float* u,
+  // The derivative from the yaw-rate term (vx / wheel_base) wheel_angle, the
+  // force terms over the mass and the yaw's cosine and sine: the lags with
+  // their rate clamps, the yaw rate, the accelerations, the kinematics.
+  __device__ static inline void derivs(const float* p, const float* x, const float* u,
                                        float parametric_omega, float fx_m, float fy_m,
-                                       float cos_y, float sin_y, float dt, float* y) {
-    const float* p = sh.p;
+                                       float cos_y, float sin_y, float* xd) {
     const float steer = x[3], brake = x[4];
     const float vx = x[5], vy = x[6], om = x[7];
     const float tb = u[0], sc = u[1];
     const bool enable_brake = tb < 0.0f;
-    const float brake_d = clampf(
-        ((enable_brake ? -tb : 0.0f) - brake) * p[kBrakeDelay],
-        -p[kMaxBrakeRateNeg], p[kMaxBrakeRatePos]);
-    const float steer_d = clampf((sc * p[kSteerCmdScale] - steer) * p[kSteeringConst],
-                                 -p[kMaxSteerRate], p[kMaxSteerRate]);
-    const float omega_d = (parametric_omega - om) * p[kOmega] - om * p[kVOmega];
-    const float vx_d = fx_m - vx * p[kVx] + vy * om;
-    const float vy_d = fy_m - vy * p[kVy] - vx * om;
-    const float xd[S] = {vx * cos_y - vy * sin_y,
-                         vx * sin_y + vy * cos_y,
-                         om,
-                         steer_d,
-                         brake_d,
-                         vx_d,
-                         vy_d,
-                         omega_d,
-                         0.0f,
-                         0.0f};
+    xd[0] = vx * cos_y - vy * sin_y;
+    xd[1] = vx * sin_y + vy * cos_y;
+    xd[2] = om;
+    xd[3] = clampf((sc * p[kSteerCmdScale] - steer) * p[kSteeringConst], -p[kMaxSteerRate],
+                   p[kMaxSteerRate]);
+    xd[4] = clampf(((enable_brake ? -tb : 0.0f) - brake) * p[kBrakeDelay],
+                   -p[kMaxBrakeRateNeg], p[kMaxBrakeRatePos]);
+    xd[5] = fx_m - vx * p[kVx] + vy * om;
+    xd[6] = fy_m - vy * p[kVy] - vx * om;
+    xd[7] = (parametric_omega - om) * p[kOmega] - om * p[kVOmega];
+    xd[8] = 0.0f;
+    xd[9] = 0.0f;
+  }
+
+  // The Euler update with the yaw wrap and the clamps; y <- x.
+  __device__ static inline void update(const float* p, float* x, const float* xd, float dt,
+                                       float* y) {
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = x[i] + xd[i] * dt;
     x[2] = normalize_angle(x[2]);

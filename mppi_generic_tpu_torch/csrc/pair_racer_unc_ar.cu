@@ -1,6 +1,6 @@
 // The kernel entries of the pair RacerDubinsElevationLSTMUncertainty on flat
-// ground (csrc/racer_lstm_unc.cuh: three LSTM steps of lstm.cuh, B10, the
-// suspension and the propagated covariance) + ARStandardCost / ARRobustCost
+// ground or an elevation map (csrc/racer_lstm_unc.cuh: three LSTM steps of
+// lstm.cuh, B10, the suspension and the propagated covariance) + ARStandardCost / ARRobustCost
 // on the racer output layout (ARCostT<2, 3, 5, 6, 0, 1>,
 // csrc/ar_standard_cost.cuh; the bench row has no costmap): the fused
 // rollout (B1, rollout_kernel.cuh) and the fused solve (B3,

@@ -9,10 +9,11 @@
 // pos_y, steer_angle, brake_state, steer_angle_rate, roll, pitch], control
 // [throttle_brake, steer_cmd], 13 outputs. Per step: the parametric steering
 // rate, the LSTM (lstm.cuh, B10) over [vel_x, steer_angle, steer_cmd,
-// parametric rate] correcting it, the elevation model's derivatives
-// (racer_elevation.cuh), the Euler update with the yaw wrap and the steer
-// and brake clamps, then static settling on the elevation map (four B9
-// queries) with the new position and yaw and the *old* roll and pitch.
+// parametric rate] correcting it, then the elevation model's update
+// (racer::elevation_update, racer_elevation.cuh: its derivatives, the Euler
+// update with the yaw wrap and the steer and brake clamps, static settling on
+// the elevation map, four B9 queries, with the new position and yaw and the
+// *old* roll and pitch).
 //
 // The table (kernel_params): the model's params (27 floats, the brake limit
 // last), the map block (20), the LSTM's table (4 -> 16, head 20-16-1: 1,697
@@ -105,43 +106,6 @@ struct RacerLSTMSteering {
     float delta[1];
     lstm_forward<kWarp, Net>(p + kNet, rec, feats, delta);
     const float steer_d = steer_d_param + delta[0];
-
-    float xd[S];
-    xd[0] = racer::vel_deriv(p, x[0], x[5], x[8], u[0]);
-    xd[1] = racer::yaw_rate(p, x[0], x[4]);
-    xd[2] = x[0] * cosf(x[1]);
-    xd[3] = x[0] * sinf(x[1]);
-    xd[4] = steer_d;
-    xd[5] = racer::brake_deriv(p, u[0], x[5]);
-    float xn[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) xn[i] = x[i] + xd[i] * dt;
-    const float yaw = normalize_angle(xn[1]);
-    const float steer = racer::clamp_steer(p, xn[4]);
-    const float brake = racer::clamp_brake(xn[5], p[kBrakeMax]);
-    float settled[3];  // roll, pitch, height
-    racer::static_settling(p + kMap, sh.map, xn[2], xn[3], yaw, x[7], x[8], settled);
-    x[0] = xn[0];
-    x[1] = yaw;
-    x[2] = xn[2];
-    x[3] = xn[3];
-    x[4] = steer;
-    x[5] = brake;
-    x[6] = steer_d;
-    x[7] = settled[0];
-    x[8] = settled[1];
-    y[0] = x[0];
-    y[1] = 0.0f;
-    y[2] = x[2];
-    y[3] = x[3];
-    y[4] = settled[2];
-    y[5] = yaw;
-    y[6] = x[7];
-    y[7] = x[8];
-    y[8] = steer;
-    y[9] = steer_d;
-    y[10] = xd[0];
-    y[11] = xd[1];
-    y[12] = fabsf(x[0]);
+    racer::elevation_update(p, p[kBrakeMax], p + kMap, sh.map, x, u, steer_d, dt, y);
   }
 };

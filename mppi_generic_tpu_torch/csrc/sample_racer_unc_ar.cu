@@ -1,6 +1,7 @@
 // The fused sampling kernel (B4, sample_kernels.cuh) of the pair
-// RacerDubinsElevationLSTMUncertainty on flat ground (csrc/racer_lstm_unc.cuh:
-// three LSTM steps, the suspension and the propagated covariance) +
+// RacerDubinsElevationLSTMUncertainty on flat ground or an elevation map
+// (csrc/racer_lstm_unc.cuh: three LSTM steps, the suspension and the
+// propagated covariance) +
 // ARStandardCost on the racer output layout, in its recurrent mode: each
 // LSTM's (h, c) starts from the model's warm state and rides the horizon
 // loop, as the TPU kernel carries it (pallas_rollout.py:1746, :1822). A

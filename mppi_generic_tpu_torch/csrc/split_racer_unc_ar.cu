@@ -1,6 +1,6 @@
 // The split-form entries (csrc/split_kernels.cuh) of the pair
-// RacerDubinsElevationLSTMUncertainty (flat ground) + ARStandardCost on the
-// racer output layout: B1's and B3's dynamics passes and the cost pass (the
+// RacerDubinsElevationLSTMUncertainty (flat ground or a map) + ARStandardCost
+// on the racer output layout: B1's and B3's dynamics passes and the cost pass (the
 // three LSTM steps, the suspension and the covariance, the (h, c) carries
 // riding the dynamics pass; the cost pass evaluates AutoRally's sticky crash by
 // dual evaluation, as for ar_nn). A source of their own, so that nvcc builds

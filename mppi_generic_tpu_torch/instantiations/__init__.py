@@ -109,7 +109,9 @@ def racer_lstm_mppi(num_rollouts=1920, num_timesteps=150, elevation_map=None,
     (racer_dubins_elevation_lstm_unc.*; 1920 rollouts x 150 steps), with
     ``ARStandardCost`` on the racer output layout (2, 3, 5, 6, 0, 1). The
     three LSTMs are random from numpy seeds 0, 1, 2 (the JAX package draws
-    them from PRNGKey(0)); the kernel entries take flat ground only."""
+    them from PRNGKey(0)); with an ``elevation_map`` the suspension reads the
+    ground under the wheels and the static roll and pitch settle on it, in
+    the kernels as in the eager path."""
     dyn = RacerDubinsElevationLSTMUncertainty.create(elevation_map=elevation_map)
     cost = ARStandardCost(costmap=costmap, output_indices=(2, 3, 5, 6, 0, 1))
     return _controller(dyn, cost, [0.3, 0.5], num_rollouts=num_rollouts,

@@ -1,7 +1,7 @@
-"""2D map textures, in PyTorch: a device-resident array and an exact-f32
-bilinear lookup.
+"""Map textures, in PyTorch: a device-resident array and an exact-f32
+bilinear (2D) or trilinear (3D, ``MapTexture3D``) lookup.
 
-Counterpart of ``MapTexture2D`` and ``load_track_npz`` in
+Counterpart of ``MapTexture2D``, ``MapTexture3D`` and ``load_track_npz`` in
 ``mppi_generic_tpu/maps/texture.py`` (the reference's texture helpers,
 texture_helper.cu:94-134). The coordinate pipeline is the JAX package's:
 
@@ -178,6 +178,83 @@ class MapTexture2D(nn.Module):
         offset, stride = self.plane(ch)
         return ([self.height, self.width, offset, stride],
                 torch.cat([self.origin, self.rotation.reshape(-1), self.resolution]))
+
+
+class MapTexture3D(nn.Module):
+    """A layered (D, H, W) map with a trilinear lookup (the reference's
+    ThreeDTextureHelper; ``MapTexture3D`` in the JAX package's
+    maps/texture.py:647-743). The world -> map -> tex pipeline of
+    ``MapTexture2D`` with a third axis, then CUDA's linear filter with clamp
+    addressing on each axis: the bilinear plane at the two depth layers
+    around the sample, lerped by the depth fraction. The JAX package sums
+    the two planes by a one-hot weighted reduction where the map fits its
+    MXU (up to 256 texels a side and 32 layers) and by this lerp otherwise;
+    the values agree to the last bits."""
+
+    def __init__(self, data, origin=(0.0, 0.0, 0.0), rotation=None, resolution=1.0,
+                 device="cpu"):
+        super().__init__()
+        data = np.asarray(data, np.float32)
+        if data.ndim != 3:
+            raise ValueError(f"a 3D map is (D, H, W), got {data.shape}")
+        rotation = np.eye(3, dtype=np.float32) if rotation is None else rotation
+        resolution = np.asarray(resolution, np.float32)
+        if resolution.ndim == 0:
+            resolution = np.full((3,), resolution, np.float32)
+
+        def f32(v):
+            return torch.tensor(np.asarray(v, np.float32), device=device)
+
+        self.register_buffer("data", f32(data))
+        self.register_buffer("origin", f32(origin).reshape(3))
+        self.register_buffer("rotation", f32(rotation).reshape(3, 3))
+        self.register_buffer("resolution", f32(resolution).reshape(3))
+        self.register_buffer("extent", f32([self.width, self.height, self.depth]))
+
+    @property
+    def depth(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def height(self) -> int:
+        return int(self.data.shape[1])
+
+    @property
+    def width(self) -> int:
+        return int(self.data.shape[2])
+
+    def world_to_map(self, world):
+        """world (..., 3) -> map-frame meters (..., 3): R (world - origin)."""
+        return torch.einsum("ij,...j->...i", self.rotation, world - self.origin)
+
+    def map_to_tex(self, map_pose):
+        """map meters (..., 3) -> normalized tex coords (u, v, w)."""
+        return tuple(map_pose[..., i] / self.resolution[i] / self.extent[i]
+                     for i in range(3))
+
+    def query_tex(self, u, v, w):
+        """Trilinear lookup at normalized (u, v, w): u indexes the width, v
+        the height, w the depth."""
+        x0, x1, fx = _bilinear_axis(u, self.width)
+        y0, y1, fy = _bilinear_axis(v, self.height)
+        z0, z1, fz = _bilinear_axis(w, self.depth)
+        d = self.data
+
+        def plane(z):
+            v00, v01 = d[z, y0, x0], d[z, y0, x1]
+            v10, v11 = d[z, y1, x0], d[z, y1, x1]
+            top = v00 + fx * (v01 - v00)
+            bot = v10 + fx * (v11 - v10)
+            return top + fy * (bot - top)
+
+        p0, p1 = plane(z0), plane(z1)
+        return p0 + fz * (p1 - p0)
+
+    def query_at_map_pose(self, map_pose):
+        return self.query_tex(*self.map_to_tex(map_pose))
+
+    def query_at_world_pose(self, world):
+        return self.query_at_map_pose(self.world_to_map(world))
 
 
 def _bilinear_axis(coord, n: int):

@@ -214,6 +214,25 @@ class PackedParamsDynamics(Dynamics):
     def brake_max(self):
         return self.params[-1]
 
+    def _kernel_table(self):
+        """The float32 table the model's CUDA step stages: ``params``, then
+        the description of its elevation map (``map_meta``) for a model that
+        reads one; a model whose step reads more (networks) adds it."""
+        meta = getattr(self, "map_meta", None)
+        return self.params if meta is None else torch.cat([self.params, meta])
+
+    def kernel_map(self):
+        emap = getattr(self, "elevation_map", None)
+        return None if emap is None else emap.data
+
+    def kernel_params(self):
+        """``_kernel_table()``, built once per device from the model's
+        buffers (``update_from_buffer`` drops it)."""
+        table = self.__dict__.get("_table")
+        if table is None or table.device != self.params.device:
+            table = self.__dict__["_table"] = self._kernel_table()
+        return table
+
 
 def broadcast_rec(rec, K):
     """A recurrent state of (H,) leaves as (H, K) blocks, one column per

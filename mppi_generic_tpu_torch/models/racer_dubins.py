@@ -17,8 +17,8 @@ The parameters are one packed float32 buffer ``params``
 and pairs flattened, then the brake limit -control_ranges[0, 0]). The
 elevation and LSTM models (``racer_dubins_elevation.py``,
 ``racer_dubins_unc.py``) extend ``PARAMS``; their CUDA kernels read this
-table. This model itself has no
-kernel entry.
+table, and so do this model's (``csrc/racer_dubins.cuh``: ``kernel_params``
+is ``params``).
 """
 
 from __future__ import annotations

@@ -22,15 +22,18 @@ Counterpart of ``mppi_generic_tpu/models/racer_dubins_elevation.py``
   the rollout beside the state, warm-started from the init LSTM over the
   sensor buffer (``update_from_buffer``).
 
-The CUDA kernels carry the LSTM variant's step in
-``csrc/racer_lstm_steering.cuh`` (B1 and B3 entries with ARStandardCost on
-the output layout (2, 3, 5, 6, 0, 1)). They read ``kernel_params()``: the
+The CUDA kernels carry both steps, the elevation model's in
+``csrc/racer_dubins.cuh`` and the LSTM variant's in
+``csrc/racer_lstm_steering.cuh`` (B1, B3 and B4 entries with ARStandardCost
+on the output layout (2, 3, 5, 6, 0, 1)). They read ``kernel_params()``: the
 packed ``params`` table, the elevation map's description (a flag word, the
-int32 words [H, W, offset, stride], origin, rotation rows, resolution), the
-LSTM's table (``LSTM.kernel_table``) and the warm (h, c); the map data is
-``kernel_map()``. ``kernel_step_recurrent`` is the step in the kernels'
-order of operations (the LSTM and its head summed left to right), which the
-kernels' plain versions run; ``step_recurrent`` sums them with matmuls.
+int32 words [H, W, offset, stride], origin, rotation rows, resolution) and,
+for the LSTM variant, the LSTM's table (``LSTM.kernel_table``) and the warm
+(h, c); the map data is ``kernel_map()``. ``body_frame_normals`` (the
+bicycle elevation model's normals-map terms) has no kernel.
+``kernel_step_recurrent`` is the step in the kernels' order of operations
+(the LSTM and its head summed left to right), which the kernels' plain
+versions run; ``step_recurrent`` sums them with matmuls.
 """
 
 from __future__ import annotations
@@ -94,6 +97,36 @@ def static_settling(elevation_map, pos_x, pos_y, yaw, roll, pitch):
 
     return bounded(new_roll), bounded(new_pitch), torch.where(torch.isfinite(height),
                                                               height, 0.0)
+
+
+def body_frame_normals(normals_map, pos_x, pos_y, yaw, roll, pitch):
+    """The mean terrain normal under the four wheels, rotated into the yaw
+    frame (RACER::computeBodyFrameNormals, bicycle_slip_parametric.cu:
+    391-466; ``body_frame_normals`` of the JAX package's
+    racer_dubins_elevation.py:111-140). ``normals_map`` is a 3-channel
+    ``MapTexture2D`` of unit normals, read at each wheel's body offset
+    rotated into the world by (roll, pitch, yaw)
+    (``query_at_world_offset_pose``). Returns (nx, ny, nz); (0, 0, 1) without
+    a map or where a value is not finite. No kernel reads a normals map."""
+    if normals_map is None:
+        return torch.zeros_like(yaw), torch.zeros_like(yaw), torch.ones_like(yaw)
+    world = torch.stack([pos_x, pos_y, torch.zeros_like(yaw)], dim=-1)
+    rpy = torch.stack([roll, pitch, yaw])
+
+    def corner(bx, by):
+        off = torch.stack([torch.full_like(yaw, bx), torch.full_like(yaw, by),
+                           torch.zeros_like(yaw)], dim=-1)
+        return normals_map.query_at_world_offset_pose(world, off, rpy)
+
+    n = (corner(FRONT_X, HALF_TRACK) + corner(FRONT_X, -HALF_TRACK)
+         + corner(0.0, HALF_TRACK) + corner(0.0, -HALF_TRACK)) / 4.0
+    cos_y, sin_y = torch.cos(yaw), torch.sin(yaw)
+    nx = cos_y * n[..., 0] - sin_y * n[..., 1]
+    ny = sin_y * n[..., 0] + cos_y * n[..., 1]
+    nz = n[..., 2]
+    bad = ~(torch.isfinite(nx) & torch.isfinite(ny) & torch.isfinite(nz))
+    return (torch.where(bad, 0.0, nx), torch.where(bad, 0.0, ny),
+            torch.where(bad, 1.0, nz))
 
 
 def map_block(elevation_map) -> torch.Tensor:
@@ -193,9 +226,6 @@ class RacerDubinsElevationDynamics(RacerDubinsDynamics):
         x_next, height = self._integrate(x, xdot, xdot[4], dt)
         return x_next, self._output(x_next, xdot, xdot[4], height)
 
-    def kernel_map(self):
-        return None if self.elevation_map is None else self.elevation_map.data
-
     def state_from_map(self, mapping):
         keys = ["VEL_X", "YAW", "POS_X", "POS_Y", "STEER_ANGLE", "BRAKE_STATE",
                 "STEER_ANGLE_RATE", "ROLL", "PITCH"]
@@ -284,15 +314,8 @@ class RacerDubinsElevationLSTMSteering(RacerDubinsElevationDynamics):
                 f"the CUDA kernels are compiled for the {what} LSTM {want}, not {got}")
 
     def _kernel_table(self):
+        """The table csrc/racer_lstm_steering.cuh stages: ``params``, the map
+        block, the LSTM's table, the warm (h, c)."""
         self._lstm_check(self.lstm, STEER_LSTM, "steering")
         return torch.cat([self.params, self.map_meta, self.lstm.kernel_table(),
                           self.warm_hidden, self.warm_cell])
-
-    def kernel_params(self):
-        """The table csrc/racer_lstm_steering.cuh stages: ``params``, the map
-        block, the LSTM's table, the warm (h, c). Built once per device from
-        the model's buffers; ``update_from_buffer`` rebuilds it."""
-        table = self.__dict__.get("_table")
-        if table is None or table.device != self.params.device:
-            table = self.__dict__["_table"] = self._kernel_table()
-        return table

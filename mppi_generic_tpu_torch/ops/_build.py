@@ -134,6 +134,11 @@ PAIR_KERNELS = {
                           "split_dynamics_x0"),
     "racer_unc_ar": ("rollout", "solve", "sample", *_SPLIT, "rollout_x0",
                      "split_dynamics_x0"),
+    # the rest of the racer family, and the bicycle on its elevation map:
+    # B1, B3 and B4 (their robust and split entries are still to come)
+    **{pair: ("rollout", "solve", "sample")
+       for pair in ("racer_dubins_ar", "racer_elevation_ar", "racer_suspension_ar",
+                    "bicycle_elevation_ar", "racer_elev_susp_ar")},
 }
 _ENTRY_PREFIX = {"rollout": "rollout_costs_", "rollout_x0": "rollout_costs_x0_",
                  "solve": "fused_solve_", "sample": "fused_sample_rollout_",
@@ -149,7 +154,7 @@ _ROBUST_PAIRS = ("cartpole", "quadrotor_quadratic", "quadrotor_map", "dubins_qua
                  "di_quadratic", "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
 _ENTRY_LIBRARY = {
     **{(pair, "sample"): f"sample_{pair}"
-       for pair in ("ar_nn", "racer_steering_ar", "racer_unc_ar")},
+       for pair in ("ar_nn", "racer_steering_ar", "racer_unc_ar", "racer_elev_susp_ar")},
     ("ar_nn", "split_dynamics_x0"): "split_x0_ar_nn",
     **{(pair, kind): f"robust_{pair}" for pair in _ROBUST_PAIRS for kind in _ROBUST
        if kind in PAIR_KERNELS[pair] and (pair, kind) != ("bicycle_ar", "rollout_x0")},

@@ -70,12 +70,17 @@ FNN and the track costmap inside the kernel); the bicycle-slip model with
 the AutoRally costs on its output layout; the cartpole with its quadratic
 cost; the quadrotor with ``QuadrotorQuadraticCost`` or ``QuadrotorMapCost``;
 the Dubins car with ``QuadraticCost``; the racer LSTM-steering model on its
-elevation map and the racer LSTM-uncertainty model on flat ground, each with
-``ARStandardCost`` on the racer output layout (the LSTM step, B10, inside
-the kernel, its (h, c) carried through the horizon loop). Each of them has
-B1, B3 and B4, and the per-sample-x0 rollout; every pair but the two racer
-LSTMs, which the JAX kernel refuses there, has the RMPPI kernel.
-Each pair reads its parameters
+elevation map and the racer LSTM-uncertainty model on flat ground or an
+elevation map, each with ``ARStandardCost`` on the racer output layout (the
+LSTM step, B10, inside the kernel, its (h, c) carried through the horizon
+loop). Each of them has B1, B3 and B4, and the per-sample-x0 rollout; every
+pair but the two racer LSTMs, which the JAX kernel refuses there, has the
+RMPPI kernel. The rest of the racer family has B1, B3 and B4: RACER Dubins,
+its elevation model without an LSTM, ``RacerSuspensionDynamics``, the
+bicycle on its elevation map (``BicycleSlipParametricElevation``; with a
+normals map ``refuse_model`` raises ``KernelIncompatible``) and the
+suspension model with its steering LSTM, each with ``ARStandardCost`` on the
+layout of the JAX package's kernel test of it. Each pair reads its parameters
 through ``Dynamics.kernel_params``, ``Dynamics.kernel_map`` (the racer
 elevation map) and ``Cost.kernel_map`` besides the cost's ``params`` table.
 
@@ -119,15 +124,24 @@ from mppi_generic_tpu_torch.costs.quadratic import QuadraticCost
 from mppi_generic_tpu_torch.costs.quadrotor import QuadrotorMapCost, QuadrotorQuadraticCost
 from mppi_generic_tpu_torch.models.autorally import AutorallyNNDynamics
 from mppi_generic_tpu_torch.models.base import broadcast_rec
-from mppi_generic_tpu_torch.models.bicycle_slip import BicycleSlipDynamics
+from mppi_generic_tpu_torch.models.bicycle_slip import (
+    BicycleSlipDynamics,
+    BicycleSlipParametricElevation,
+)
 from mppi_generic_tpu_torch.models.cartpole import CartpoleDynamics
 from mppi_generic_tpu_torch.models.double_integrator import DoubleIntegratorDynamics
 from mppi_generic_tpu_torch.models.dubins import DubinsDynamics
 from mppi_generic_tpu_torch.models.quadrotor import QuadrotorDynamics
+from mppi_generic_tpu_torch.models.racer_dubins import RacerDubinsDynamics
 from mppi_generic_tpu_torch.models.racer_dubins_elevation import (
+    RacerDubinsElevationDynamics,
     RacerDubinsElevationLSTMSteering,
 )
-from mppi_generic_tpu_torch.models.racer_dubins_unc import RacerDubinsElevationLSTMUncertainty
+from mppi_generic_tpu_torch.models.racer_dubins_unc import (
+    RacerDubinsElevationLSTMUncertainty,
+    RacerDubinsElevationSuspension,
+)
+from mppi_generic_tpu_torch.models.racer_suspension import RacerSuspensionDynamics
 from mppi_generic_tpu_torch.ops import _build, philox
 from mppi_generic_tpu_torch.ops._build import entry_counts, launch_counts, reset_launch_counts
 from mppi_generic_tpu_torch.sampling.gaussian import GaussianDistribution
@@ -191,6 +205,11 @@ _PAIRS = {
     (DoubleIntegratorDynamics, QuadraticCost): "di_quadratic",
     (RacerDubinsElevationLSTMSteering, ARStandardCost): "racer_steering_ar",
     (RacerDubinsElevationLSTMUncertainty, ARStandardCost): "racer_unc_ar",
+    (RacerDubinsDynamics, ARStandardCost): "racer_dubins_ar",
+    (RacerDubinsElevationDynamics, ARStandardCost): "racer_elevation_ar",
+    (RacerSuspensionDynamics, ARStandardCost): "racer_suspension_ar",
+    (BicycleSlipParametricElevation, ARStandardCost): "bicycle_elevation_ar",
+    (RacerDubinsElevationSuspension, ARStandardCost): "racer_elev_susp_ar",
 }
 # what a pair's entries are compiled for, beyond the classes: the AutoRally
 # cost's output_indices (the ARCostT template arguments) and QuadraticCost's
@@ -202,6 +221,14 @@ _COST_LAYOUT = {
     "di_quadratic": ("OUTPUT_DIM", 4),
     "racer_steering_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
     "racer_unc_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
+    # the layouts of the JAX package's own kernel tests of these models
+    # (tests/test_windowed_maps.py:327, test_pallas_rollout.py:497,
+    # test_suspension_models.py:159, :181)
+    "racer_dubins_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
+    "racer_elevation_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
+    "racer_elev_susp_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
+    "bicycle_elevation_ar": ("output_indices", (2, 3, 5, 6, 0, 1)),
+    "racer_suspension_ar": ("output_indices", (0, 1, 5, 6, 3, 4)),
 }
 _KERNEL_NAMES = {"rollout": "rollout", "rollout_x0": "per-sample x0 rollout",
                  "solve": "solve", "sample": "sampling", "rmppi": "RMPPI rollout",
@@ -285,6 +312,17 @@ AUTO_SPLIT = {
     ("racer_steering_ar", "rollout_x0"): True,
     ("racer_unc_ar", "rollout_x0"): False,
 }
+
+
+def refuse_model(dynamics):
+    """Raise ``KernelIncompatible`` for a model no kernel computes, before
+    any launch and on every device: a ``BicycleSlipParametricElevation``
+    with a normals map (its gravity terms read a 3-channel map, which the
+    JAX package's kernel cannot query either; its eager path runs it)."""
+    if getattr(dynamics, "normals_map", None) is not None:
+        raise KernelIncompatible(
+            f"{type(dynamics).__name__} with a normals_map has no kernel (its normals "
+            "query reads a 3-channel map): the eager path runs it")
 
 
 def _entry(dynamics, cost, kind):
@@ -983,6 +1021,7 @@ def _rollout_any(dynamics, cost, x0, U, dt, lr_params, epilogue, lam_w, split_co
     """Kernel 1 (or its split form, by ``resolve_split``) in the
     ``epilogue`` mode on CUDA tensors, its plain version on CPU tensors:
     (costs, crash, out)."""
+    refuse_model(dynamics)
     split = resolve_split(dynamics, cost, split_cost,
                           "rollout_x0" if x0.dim() == 2 else "rollout")
     if _on_cpu(U):
@@ -1161,6 +1200,7 @@ def fused_rmppi_rollout(dynamics, cost, x0_nom, x0_real, U, gains, sigma, coeff,
     it (pallas_rollout.py:302), and RMPPI runs its eager augmented rollout."""
     K, T, C = U.shape
     S = dynamics.STATE_DIM
+    refuse_model(dynamics)
     if dynamics.init_recurrent_state() is not None:
         raise KernelIncompatible(
             f"the RMPPI rollout kernel does not carry the recurrent state of "
@@ -1394,6 +1434,7 @@ def fused_sample_rollout_costs(dynamics, cost, sampler, x0, mean, seed, dt, lam,
     (K, T, C), or (2, K, T, C) for NLN (z, z2). ``optimization_stride`` is a
     host integer. Samplers other than Gaussian, NLN and Smooth-MPPI raise;
     CPU tensors run the plain version, CUDA tensors the kernel."""
+    refuse_model(dynamics)
     kind = noise_kind(sampler)
     if epilogue and kind != SMOOTH:
         raise KernelIncompatible(

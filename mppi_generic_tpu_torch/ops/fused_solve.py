@@ -216,6 +216,7 @@ def fused_solve_carries(dynamics, cost, sampler, x0, mean, seed, dt, lam, alpha,
                         injected_noise=None, split_cost=None):
     """Kernel B3 alone (or its split form, by ``split_cost``): (costs (K,),
     crash (K,), U (K, T, C), carry rows)."""
+    fr.refuse_model(dynamics)
     kind = _solve_kind(sampler)
     split = fr.resolve_split(dynamics, cost, split_cost, "solve")
     args = (dynamics, cost, sampler)

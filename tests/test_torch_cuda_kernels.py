@@ -37,12 +37,17 @@ from mppi_generic_tpu_torch.maps import MapTexture2D
 from mppi_generic_tpu_torch.models import (
     AutorallyNNDynamics,
     BicycleSlipDynamics,
+    BicycleSlipParametricElevation,
     CartpoleDynamics,
     DoubleIntegratorDynamics,
     DubinsDynamics,
     QuadrotorDynamics,
+    RacerDubinsDynamics,
+    RacerDubinsElevationDynamics,
     RacerDubinsElevationLSTMSteering,
     RacerDubinsElevationLSTMUncertainty,
+    RacerDubinsElevationSuspension,
+    RacerSuspensionDynamics,
 )
 from mppi_generic_tpu_torch.nn import FNN, LSTM
 from mppi_generic_tpu_torch.ops import _build
@@ -1741,8 +1746,9 @@ def test_rmppi_warp_autorally_matches_plain(cuda_device, K, robust):
 
 @pytest.mark.cuda
 def test_sample_and_rmppi_entries_report_their_form(cuda_device):
-    """The network pairs' B4 and B8 entries launch the warp form, every
-    other pair's B4 and B8 the staged form (``<entry>_form``), but B8 of
+    """The network pairs' B4 and B8 entries (and the racer suspension
+    model's B4) launch the warp form, every other pair's B4 and B8 the
+    staged form (``<entry>_form``), but B8 of
     the bicycle (its cost's sticky crash) and of the quadrotor (its two
     staged stages would pass 227 KB of shared memory): the one-thread
     kernel (``rmppi_form``)."""
@@ -1754,7 +1760,8 @@ def test_sample_and_rmppi_entries_report_their_form(cuda_device):
             entry = _build.pair_entry(pair, kind)
             if entry is None:
                 continue
-            want = f"{base}_warp_kernel" if pair in WARP_PAIRS else f"{base}_staged_kernel"
+            warp = pair in WARP_PAIRS + FAMILY_WARP_PAIRS
+            want = f"{base}_warp_kernel" if warp else f"{base}_staged_kernel"
             if kind == "rmppi" and pair in one_thread_b8:
                 want = f"{base}_kernel"
             assert fr.form_kernel_name(base, entry) == want, (pair, kind)
@@ -1902,7 +1909,8 @@ def test_solve_and_rollout_entries_report_their_form(cuda_device):
             entry = _build.pair_entry(pair, kind)
             if entry is None:
                 continue
-            want = base + ("_staged_kernel" if pair in STAGED_PAIRS else "_warp_kernel")
+            staged = pair in STAGED_PAIRS + FAMILY_STAGED_PAIRS
+            want = base + ("_staged_kernel" if staged else "_warp_kernel")
             assert fr.form_kernel_name(base, entry) == want, (pair, kind)
 
 
@@ -2874,3 +2882,164 @@ def test_riccati_backward_warp_matches_plain_and_the_one_thread_build(cuda_devic
     assert torch.isfinite(pK).all() and pK.abs().max() > 0
     for a, b, c in ((kK, oK, pK), (kk, ok, pk)):
         assert torch.equal(a, c) and torch.equal(b, c)
+
+
+# --- the rest of the racer family: B1, B3 and B4 of RACER Dubins, its
+# elevation model, RacerSuspension, the bicycle on its elevation map and the
+# suspension model with its steering LSTM, and the racer_unc_ar entries on an
+# elevation map ---
+FAMILY_STAGED_PAIRS = ["racer_dubins_ar", "racer_elevation_ar", "racer_suspension_ar",
+                       "bicycle_elevation_ar"]
+FAMILY_WARP_PAIRS = ["racer_elev_susp_ar"]
+FAMILY = FAMILY_STAGED_PAIRS + FAMILY_WARP_PAIRS + ["racer_unc_map"]
+
+
+def _family_parts(name, dev, seed=0):
+    """(dynamics, cost, x0, its C entry suffix) of a family configuration on
+    a 64^2 elevation map (0.3 normal heights) and the 64^2 track map of the
+    racer cases (a hot block ahead), LSTMs at scale 0.5 with a warm (h, c)."""
+    rng = np.random.default_rng(seed)
+    elev = MapTexture2D((0.3 * rng.normal(size=(64, 64))).astype("f"),
+                        origin=(-8.0, -8.0, 0.0), resolution=0.25, device=dev)
+    track = (0.15 * np.abs(rng.normal(size=(64, 64)))).astype("f")
+    track[34:, 46:] = 3.0
+    tex = MapTexture2D(track, origin=(-3.2, -3.2, 0.0), resolution=0.1, device=dev)
+    indices = RACER_INDICES
+    S = {"racer_dubins_ar": 7, "racer_elevation_ar": 9, "bicycle_elevation_ar": 22,
+         "racer_elev_susp_ar": 23, "racer_unc_map": 26}.get(name, 14)
+    x0 = torch.zeros(S, device=dev)
+    x0[0], x0[1] = 3.0, 0.2
+    if name == "racer_dubins_ar":
+        dyn = RacerDubinsDynamics.create(device=dev)
+    elif name == "racer_elevation_ar":
+        dyn = RacerDubinsElevationDynamics.create(elevation_map=elev, device=dev)
+    elif name == "racer_suspension_ar":
+        dyn, indices = RacerSuspensionDynamics.create(elevation_map=elev, device=dev), (
+            0, 1, 5, 6, 3, 4)
+        x0 = dyn.get_zero_state()
+        x0[7] = 3.0
+    elif name == "bicycle_elevation_ar":
+        dyn = BicycleSlipParametricElevation.create(elevation_map=elev, K_x=0.3, K_y=0.2,
+                                                    device=dev)
+        x0 = torch.zeros(S, device=dev)
+        x0[2], x0[5], x0[12:16] = 0.2, 3.0, 0.05
+    else:
+        warm = {n: 0.3 * rng.normal(size=16) for n in RacerDubinsElevationLSTMUncertainty.WARM}
+        nets = [LSTM.create(i, 16, [16 + i, 16, o], seed=seed + j, scale=0.5)
+                for j, (i, o) in enumerate(((4, 1), (11, 2), (12, 5)))]
+        if name == "racer_elev_susp_ar":
+            dyn = RacerDubinsElevationSuspension(nets[0], elev, warm_hidden=warm["warm_hidden"],
+                                                 warm_cell=warm["warm_cell"], device=dev)
+        else:
+            dyn = RacerDubinsElevationLSTMUncertainty(*nets, elevation_map=elev, warm=warm,
+                                                      device=dev)
+    cost = ARStandardCost(costmap=tex, output_indices=indices, device=dev)
+    return dyn, cost, x0, "racer_unc_ar" if name == "racer_unc_map" else name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("mode", ["costs", "costs+lr", "epilogue+lr", "tsallis+lr"])
+def test_family_rollout_kernel_matches_plain(cuda_device, K, name, mode):
+    dyn, cost, x0, pair = _family_parts(name, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(K)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=cuda_device)
+    sigma = torch.tensor([[0.3, 0.5]], device=cuda_device).expand(T, C).contiguous()
+    U = (mean + sigma * torch.randn((K, T, C), generator=g, device=cuda_device)).clamp(-1, 1)
+    U = U.contiguous()
+    lr = ((mean, sigma, torch.tensor([0.5, 1.0], device=cuda_device), LAM, ALPHA, 0.9 * K)
+          if mode.endswith("+lr") else None)
+    fr.reset_launch_counts()
+    if mode.startswith("costs"):
+        kc, kcrash = fr.fused_rollout_costs(dyn, cost, x0, U, DT, lr)
+    elif mode.startswith("epilogue"):
+        kc, kcrash, kout = fr.rollout_block_carries(dyn, cost, x0, U, DT, LAM, lr)
+    else:
+        kc, kcrash, kout = fr.rollout_block_minima(dyn, cost, x0, U, DT, lr)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"rollout_costs_{pair}": 1}
+    pc, pcrash = fr.rollout_costs_plain(dyn, cost, x0, U, DT, lr)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    if mode.startswith("epilogue"):
+        _close(kout, fr.block_carries_plain(pc, U, LAM), rtol=1e-5, atol=1e-5)
+    elif mode.startswith("tsallis"):
+        assert torch.equal(kout, fr.block_minima_plain(pc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("sampler", ["gaussian", "nln"])
+def test_family_fused_solve_kernel_matches_plain(cuda_device, K, name, sampler):
+    dyn, cost, x0, pair = _family_parts(name, cuda_device, seed=1)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 1)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=cuda_device)
+    cls = NLNDistribution if sampler == "nln" else GaussianDistribution
+    samp = cls.create(std_dev=[0.3, 0.5], control_cost_coeff=[0.5, 1.0],
+                      pure_noise_percentage=P_PURE, device=cuda_device)
+    seed = torch.tensor(K, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    fr.reset_launch_counts()
+    kc, kcrash, kU, kcarry = fused_solve.fused_solve_carries(*args, optimization_stride=2)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"fused_solve_{pair}": 1}
+    pc, pcrash, pU, pcarry = fused_solve.fused_solve_plain(*args, optimization_stride=2)
+    _close(kU, pU, rtol=0, atol=0)
+    _close(kc, pc, rtol=0, atol=0)
+    assert torch.equal(kcrash, pcrash)
+    _close(kcarry, pcarry, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 300])
+@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("sampler", ["gaussian", "nln", "smooth", "smooth_epilogue"])
+def test_family_sampling_kernel_matches_plain(cuda_device, K, name, sampler):
+    dyn, cost, x0, pair = _family_parts(name, cuda_device, seed=2)
+    g = torch.Generator(device=cuda_device).manual_seed(K + 2)
+    mean = 0.3 * torch.randn((T, C), generator=g, device=cuda_device)
+    kw = dict(std_dev=[0.3, 0.5], control_cost_coeff=[0.5, 1.0], pure_noise_percentage=P_PURE,
+              device=cuda_device)
+    if sampler.startswith("smooth"):
+        samp = SmoothMPPIDistribution.create(num_timesteps=T, dt=0.05, **kw)
+        state = 0.3 * torch.randn((T, C), generator=g, device=cuda_device)
+    else:
+        samp = (NLNDistribution if sampler == "nln" else GaussianDistribution).create(**kw)
+        state = None
+    seed = torch.tensor(K, dtype=torch.int32, device=cuda_device)
+    args = (dyn, cost, samp, x0, mean, seed, DT, LAM, ALPHA, K)
+    epilogue = sampler == "smooth_epilogue"
+    fr.reset_launch_counts()
+    kout = fr.fused_sample_rollout_costs(*args, optimization_stride=2, sampler_state=state,
+                                         epilogue=epilogue)
+    torch.cuda.synchronize()
+    assert fr.entry_counts == {f"fused_sample_rollout_{pair}": 1}
+    pc, pcrash, pU, pW = fr.sample_rollout_plain(*args, optimization_stride=2,
+                                                 sampler_state=state)
+    _close(kout[0], pc, rtol=0, atol=0)
+    assert torch.equal(kout[1], pcrash)
+    _close(kout[2], pU, rtol=0, atol=0)
+    if epilogue:
+        pm, pb, pe = fr.flash_combine_plain(fr.block_carries_plain(pc, pW, LAM), T, C, LAM)
+        _close(kout[3], pm, rtol=1e-4, atol=1e-5)
+        _close(kout[4], pb, rtol=1e-5, atol=0)
+        _close(kout[5], pe, rtol=1e-4, atol=0)
+    elif pW is not None:
+        _close(kout[3], pW, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_family_normals_map_is_refused_on_the_card(cuda_device):
+    """A normals map has no kernel: the wrappers refuse it before any launch
+    (KernelIncompatible), so a controller takes its eager path."""
+    dyn, cost, x0, _ = _family_parts("bicycle_elevation_ar", cuda_device)
+    n = np.zeros((16, 16, 3), np.float32)
+    n[..., 2] = 1.0
+    dyn.normals_map = MapTexture2D(n, device=cuda_device)
+    U = torch.zeros((64, T, C), device=cuda_device)
+    fr.reset_launch_counts()
+    with pytest.raises(fr.KernelIncompatible, match="normals_map"):
+        fr.fused_rollout_costs(dyn, cost, x0, U, DT)
+    assert not any(fr.launch_counts.values())

@@ -307,10 +307,16 @@ def test_racer_kernel_tables_refuse_what_the_kernels_do_not_take():
         odd.kernel_params()
     unc = RacerDubinsElevationLSTMUncertainty.create()
     assert unc.kernel_params().shape[0] == 55 + 20 + 1697 + 2274 + 2405 + 96
+    # the uncertainty model on an elevation map and the suspension model take
+    # their tables too: the map block says a map is there
     tmap = convert.texture_from_params(jax_texture_params(jax_elevation_map()))
-    with pytest.raises(NotImplementedError, match="flat ground"):
-        RacerDubinsElevationLSTMUncertainty.create(elevation_map=tmap).kernel_params()
-    with pytest.raises(NotImplementedError, match="no entry"):
-        RacerDubinsElevationSuspension.create().kernel_params()
+    unc_map = RacerDubinsElevationLSTMUncertainty.create(elevation_map=tmap)
+    assert int(unc_map.kernel_params()[55:56].view(torch.int32)) == 1
+    assert unc_map.kernel_map() is unc_map.elevation_map.data
+    assert RacerDubinsElevationSuspension.create().kernel_params().shape == (
+        46 + 20 + 1697 + 32,)
+    with pytest.raises(NotImplementedError, match="uncertainty LSTM"):
+        RacerDubinsElevationLSTMUncertainty.create(
+            unc_lstm=LSTM.create(12, 8, [20, 8, 5], seed=0)).kernel_params()
     with pytest.raises(TypeError, match="unknown"):
         RacerDubinsElevationLSTMSteering.create(c_x=1.0)

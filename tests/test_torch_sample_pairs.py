@@ -213,6 +213,8 @@ def test_bicycle_b3_plain_matches_jax_kernel(kind, p, one_thread):
 
 SPLIT_PAIRS = ("cartpole", "quadrotor_quadratic", "di_quadratic", "dubins_quadratic",
                "bicycle_ar", "racer_steering_ar", "racer_unc_ar")
+FAMILY_PAIRS = ("racer_dubins_ar", "racer_elevation_ar", "racer_suspension_ar",
+                "bicycle_elevation_ar", "racer_elev_susp_ar")
 
 
 def _pair_classes():
@@ -230,12 +232,16 @@ def test_every_pair_has_the_kernels_jax_runs_it_on(name):
     cost is eligible (the robust DI cost's too), B1 from one x0 per sample
     for every pair and its split for every eligible one, B8 for every pair
     but the racer LSTMs (JAX refuses a recurrent model there). The robust
-    family's entries of the later pairs live in ``robust_<pair>``."""
+    family's entries of the later pairs live in ``robust_<pair>``. The rest
+    of the racer family and the bicycle on its elevation map
+    (``FAMILY_PAIRS``) have B1, B3 and B4 only: their robust and split
+    entries are still to come."""
     dyn_cls, cost_cls = _pair_classes()[name]
     dyn, cost = object.__new__(dyn_cls), object.__new__(cost_cls)
     eligible = name in SPLIT_PAIRS + ("di_circle", "ar_nn", "di_robust")
-    kinds = {"sample": True, "solve": True, "rollout": True, "rollout_x0": True,
-             "rmppi": name not in ("racer_steering_ar", "racer_unc_ar"),
+    has_robust = name not in FAMILY_PAIRS
+    kinds = {"sample": True, "solve": True, "rollout": True, "rollout_x0": has_robust,
+             "rmppi": has_robust and name not in ("racer_steering_ar", "racer_unc_ar"),
              "split_dynamics": eligible, "split_solve_dynamics": eligible,
              "split_cost": eligible, "split_dynamics_x0": eligible}
     first = ("di_circle", "di_robust", "ar_nn")
@@ -255,6 +261,7 @@ def test_every_pair_has_the_kernels_jax_runs_it_on(name):
             want = {("sample", "ar_nn"): "sample_ar_nn",
                     ("sample", "racer_steering_ar"): "sample_racer_steering_ar",
                     ("sample", "racer_unc_ar"): "sample_racer_unc_ar",
+                    ("sample", "racer_elev_susp_ar"): "sample_racer_elev_susp_ar",
                     ("split_dynamics_x0", "ar_nn"): "split_x0_ar_nn"}.get(
                 (kind, name), f"split_{name}" if kind.startswith("split") else f"pair_{name}")
         assert lib == want
